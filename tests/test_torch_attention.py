@@ -134,8 +134,10 @@ def test_attn_fwd_kernel_contract(cuda_device):
     with pytest.raises(NotImplementedError, match="K4"):
         fa.attn_fwd(torch.zeros((1, 1025, 3 * H * D), device=cuda_device,
                                 dtype=torch.bfloat16), H)
+    # a call that needs a gradient goes through the autograd Function,
+    # whose backward is the attention-backward kernel (K2)
     w = torch.zeros((H * D, 3 * H * D), device=cuda_device,
                     requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        fa.qkv_proj_attention(torch.zeros((1, 8, H * D), device=cuda_device,
-                                          dtype=torch.bfloat16), w, None, H)
+    out = fa.qkv_proj_attention(torch.zeros((1, 8, H * D), device=cuda_device,
+                                            dtype=torch.bfloat16), w, None, H)
+    assert type(out.grad_fn).__name__ == "QkvProjAttentionBackward"

@@ -1,0 +1,220 @@
+"""Time and profile the PyTorch port's my_vit_b train step on one NVIDIA GPU.
+
+The step is the trainer's own (launch/main.py::setup with the recipe's
+flags: batch 128, gelu_tanh, avg pool, drop_path 0.1, mixup/cutmix,
+label smoothing, AdamW with the wd mask, EMA), on one fixed device batch of
+the synthetic stream, so no host data enters the timed loop. It prints one
+JSON line with:
+  * the median step time (CUDA events around each step after warm-up) and
+    images/s, with the attention kernels and with their plain PyTorch
+    versions swapped in, in turns (kernel, plain, plain, kernel);
+  * from a torch.profiler trace of a few kernel-path steps: the device's
+    busy share of the wall time, the top device operations, and per step
+    the attention kernels' time (K1 forward, K2 backward) and the cuBLAS
+    time (`nvjet_*`, gemm kernels);
+  * the optimizer's (AdamW + EMA) device span per step: CUDA events around
+    each `FusedAdamW.fused_update` call of the profiled steps;
+  * for the K2 qkv-bias partials (ROADMAP K2): the time of the wrapper's
+    sum of the kernel's (B, 3HD) partials against a plain
+    `dqkv.float().sum((0, 1))` over the (B, S, 3HD) gradient;
+  * peak device memory, and the card's name and power limit.
+
+Run from the root of a checkout:
+
+    python tools/profile_torch_train_step.py --batch 128 --steps 5
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from vision_transformers_torch_xla_tpu_torch.core.config import (  # noqa: E402
+    config_from_args,
+)
+from vision_transformers_torch_xla_tpu_torch.data.loader import (  # noqa: E402
+    to_device,
+)
+from vision_transformers_torch_xla_tpu_torch.launch import (  # noqa: E402
+    main as trainer,
+)
+from vision_transformers_torch_xla_tpu_torch.obs.metrics import (  # noqa: E402
+    vit_train_flops_per_image,
+)
+from vision_transformers_torch_xla_tpu_torch.ops import (  # noqa: E402
+    flash_attention as fa,
+)
+from vision_transformers_torch_xla_tpu_torch.train.fused import (  # noqa: E402
+    FusedAdamW,
+)
+
+H100_BF16_PEAK_FLOPS = 989e12  # NVIDIA data sheet, H100 SXM, dense bf16
+
+
+def recipe_flags(batch: int):
+    return ["--model", "my_vit_b", "--act_layer", "gelu_tanh",
+            "--batch_size", str(batch), "--data_set", "synthetic",
+            "--model_ema", "true", "--lr", "4e-3", "--min_lr", "1e-6",
+            "--warmup_epochs", "20", "--warmup_lr", "1e-6",
+            "--weight_decay", "0.05", "--mixup", "0.8", "--cutmix", "1.0",
+            "--smoothing", "0.1", "--drop_path", "0.1"]
+
+
+def plain_fwd(qkv, num_heads, scale=None, with_stats=False):
+    d = qkv.shape[-1] // (3 * num_heads)
+    return fa.attn_fwd_reference(qkv, num_heads,
+                                 float(scale if scale else d ** -0.5),
+                                 with_stats)
+
+
+def plain_bwd(qkv, do, o, st, num_heads, scale=None):
+    d = qkv.shape[-1] // (3 * num_heads)
+    return fa.attn_bwd_reference(qkv, do, o, st, num_heads,
+                                 float(scale if scale else d ** -0.5))
+
+
+def profile(ctx, images, labels, seed, steps: int):
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    update = FusedAdamW.fused_update
+    spans = []
+
+    def traced_update(self, *a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        with record_function("optimizer"):
+            out = update(self, *a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    FusedAdamW.fused_update = traced_update
+    try:
+        step(ctx, images, labels, seed)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(ctx, images, labels, seed)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        FusedAdamW.fused_update = update
+    by_kernel = {}
+    for ev in prof.events():
+        # the "optimizer" range shows on the device too: not a kernel
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                ev.name != "optimizer":
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + \
+                ev.time_range.elapsed_us()
+    spans = spans[1:]  # the first call ran before the profiled steps
+    optimizer_ms = statistics.median(a.elapsed_time(b) for a, b in spans)
+
+    def per_step(match) -> float:
+        return sum(us for n, us in by_kernel.items() if match(n)) / steps / 1e3
+
+    busy_us = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    return {
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "attn_fwd_k1_ms_per_step": per_step(lambda n: "attn_fwd_kernel" in n),
+        "attn_bwd_k2_ms_per_step": per_step(lambda n: "attn_bwd_" in n),
+        "cublas_ms_per_step": per_step(
+            lambda n: "nvjet" in n or "gemm" in n.lower()
+            or "cutlass" in n.lower()),
+        "optimizer_span_ms_per_step": optimizer_ms,
+        "top_kernels_ms_per_step": [[name[:90], us / steps / 1e3]
+                                    for name, us in top]}
+
+
+def step(ctx, images, labels, seed) -> None:
+    ctx.state, _ = ctx.train_step(ctx.state, images, labels, seed)
+
+
+def cuda_ms(fn, reps: int = 25) -> float:
+    """Median CUDA-event time of one call of fn, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    ev[0].record()
+    for i in range(reps):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(ev[i].elapsed_time(ev[i + 1])
+                             for i in range(reps))
+
+
+def bias_partials_ab(batches, dev):
+    """K2 per call, and the two ways to finish the qkv-bias gradient."""
+    out = {}
+    for b in batches:
+        g = torch.Generator(device=dev).manual_seed(b)
+        qkv = torch.randn((b, 197, 3 * 768), generator=g, device=dev
+                          ).bfloat16()
+        do = torch.randn((b, 197, 768), generator=g, device=dev).bfloat16()
+        o, st = fa.attn_fwd(qkv, 12, with_stats=True)
+        dqkv, dbias = fa.attn_bwd(qkv, do, o, st, 12)
+        out[f"b{b}"] = {
+            "attn_bwd_ms": cuda_ms(lambda: fa.attn_bwd(qkv, do, o, st, 12)),
+            "partials_sum_ms": cuda_ms(lambda: dbias.sum(dim=0)),
+            "dqkv_sum_ms": cuda_ms(lambda: dqkv.float().sum((0, 1)))}
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=5,
+                    help="profiled steps")
+    ap.add_argument("--timed_steps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_train_step: needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    cfg = config_from_args(recipe_flags(args.batch))
+    ctx = trainer.setup(cfg)
+    images, labels = to_device(next(iter(ctx.train_ds)), dev)
+    kernels = (fa.attn_fwd, fa.attn_bwd)
+    times = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        fa.attn_fwd, fa.attn_bwd = kernels if which == "kernel" \
+            else (plain_fwd, plain_bwd)
+        times[which].append(cuda_ms(lambda: step(ctx, images, labels,
+                                                 cfg.seed), args.timed_steps))
+    fa.attn_fwd, fa.attn_bwd = kernels
+    torch.cuda.reset_peak_memory_stats(dev)
+    prof = profile(ctx, images, labels, cfg.seed, args.steps)
+    ms = statistics.median(times["kernel"])
+    ips = args.batch / (ms / 1e3)
+    print(json.dumps({
+        "card": card, "batch": args.batch,
+        "step_ms_kernel": times["kernel"],
+        "step_ms_plain_attention": times["plain"],
+        "images_per_s": ips,
+        "mfu": vit_train_flops_per_image() * ips / H100_BF16_PEAK_FLOPS,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "profile": prof,
+        "k2_bias_partials": bias_partials_ab((64, args.batch), dev)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
-"""ctypes binding to the native IO runtime's JPEG decode (native/vtx_io.cpp).
+"""ctypes binding to the native IO runtime (native/vtx_io.cpp).
 
 Counterpart of vision_transformers_torch_xla_tpu/data/native.py for the
-decode entry points (`jpeg_dims` :84, `decode_jpeg_crop_resize` :96), over
-the same native/libvtx_io.so. `available()` is False when the library is
+decode entry points (`jpeg_dims` :84, `decode_jpeg_crop_resize` :96) and
+the synthetic batch (`synth_batch` :115), over the same
+native/libvtx_io.so. `available()` is False when the library is
 missing or does not load (for instance without libjpeg); callers then
 decode another way.
 """
@@ -47,6 +48,10 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.vtx_jpeg_dims.argtypes = [u8p, ctypes.c_int64,
                                   ctypes.POINTER(ctypes.c_int),
                                   ctypes.POINTER(ctypes.c_int)]
+    lib.vtx_synth_batch.restype = None
+    lib.vtx_synth_batch.argtypes = [
+        f32p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint64, f32p, f32p]
     _lib = lib
     return lib
 
@@ -88,3 +93,17 @@ def decode_jpeg_crop_resize(data: bytes, out_size: int,
     if rc:
         raise ValueError("JPEG decode failed")
     return out
+
+
+def synth_batch(batch: int, size: int, num_classes: int, seed: int,
+                mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)):
+    """Native synthetic batch: (images f32 NHWC, labels i32)."""
+    lib = _load()
+    images = np.empty((batch, size, size, 3), np.float32)
+    labels = np.empty((batch,), np.int32)
+    stdinv = [1.0 / s for s in std]
+    lib.vtx_synth_batch(
+        images.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        batch, size, num_classes, seed, _f3(mean), _f3(stdinv))
+    return images, labels

@@ -70,22 +70,28 @@ def _keep_mask(shape, rate: float, generator: Optional[torch.Generator],
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator: Optional[torch.Generator],
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stochastic depth: drop whole samples of the residual branch, scale the
-    kept ones by 1/keep (layers.py:84)."""
+    kept ones by 1/keep (layers.py:84). `keep`, a (B, 1, ...) bool mask,
+    replaces the draw (tests feed the JAX draws)."""
     if deterministic or rate == 0.0:
         return x
-    keep = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), rate, generator,
-                      x.device)
+    if keep is None:
+        keep = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), rate,
+                          generator, x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Element dropout with inverted scaling (flax nn.Dropout)."""
+            generator: Optional[torch.Generator],
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Element dropout with inverted scaling (flax nn.Dropout). `keep`, a
+    bool mask of x's shape, replaces the draw."""
     if deterministic or rate == 0.0:
         return x
-    keep = _keep_mask(x.shape, rate, generator, x.device)
+    if keep is None:
+        keep = _keep_mask(x.shape, rate, generator, x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(x.dtype)
 
 
@@ -182,13 +188,22 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> act -> dropout -> fc2 -> dropout (layers.py:167, plain path)."""
+    """fc1 -> act -> dropout -> fc2 -> dropout (layers.py:167, plain path).
+
+    `use_pallas` (the JAX layer's fused-backward MLP, layers.py:199-211)
+    needs the K3 kernel, which is not ported: it raises."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, bias: bool = True, act: str = "gelu",
                  drop: float = 0.0, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 use_pallas: bool = False):
         super().__init__()
+        if use_pallas:
+            raise NotImplementedError(
+                "the fused-backward MLP (--pallas_mlp on) needs the "
+                "_fc2_bwd_kernel port, which is not in the port yet "
+                "(ROADMAP K3)")
         self.act = act_fn(act)
         self.drop = drop
         self.fc1 = Dense(in_features, hidden_features, bias, dtype,
@@ -206,10 +221,12 @@ class Attention(nn.Module):
     """Multi-head self-attention (layers.py:265).
 
     Without qk_norm and without an active attn_drop, the fused projection +
-    attention (ops/flash_attention.py::qkv_proj_attention) computes it: the
-    CUDA kernel on the card, its plain version on the CPU. Otherwise the
-    plain path projects, splits the heads and runs the fp32-softmax
-    attention."""
+    attention (ops/flash_attention.py::qkv_proj_attention) computes it, as
+    the JAX layer's kernel route does (layers.py:295-302): the CUDA kernels
+    on the card, their plain versions on the CPU. With a gradient that is
+    one autograd Function, whose backward is the attention-backward kernel.
+    Otherwise the plain path projects, splits the heads and runs the
+    fp32-softmax attention under autograd."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_norm: bool = False, proj_bias: bool = True,
@@ -285,7 +302,7 @@ class Block(nn.Module):
                  attn_drop: float = 0.0, act: str = "gelu",
                  norm_eps: float = 1e-6, mlp_hidden: Optional[int] = None,
                  dtype=torch.bfloat16, param_dtype=torch.float32,
-                 device=None):
+                 device=None, use_pallas_mlp: bool = False):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, norm_eps, dtype, param_dtype, device)
@@ -296,7 +313,8 @@ class Block(nn.Module):
             if init_values is not None else None
         self.norm2 = LayerNorm(dim, norm_eps, dtype, param_dtype, device)
         self.mlp = Mlp(dim, mlp_hidden or int(dim * mlp_ratio), dim,
-                       proj_bias, act, proj_drop, dtype, param_dtype, device)
+                       proj_bias, act, proj_drop, dtype, param_dtype, device,
+                       use_pallas_mlp)
         self.ls2 = LayerScale(dim, init_values, param_dtype, device) \
             if init_values is not None else None
 

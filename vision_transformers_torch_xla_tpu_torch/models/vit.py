@@ -33,6 +33,12 @@ def _not_ported(what: str, item: str = "M2") -> NotImplementedError:
         f"{what} is not in the port yet (ROADMAP {item})")
 
 
+# Param name fragments excluded from weight decay, as the JAX model's
+# (vit.py:350); with the ndim > 1 rule of train/optim.py::wd_mask.
+NO_WEIGHT_DECAY_KEYWORDS = ("pos_embed", "cls_token", "reg_token", "latent",
+                            "dist_token", "gamma", "bias", "scale")
+
+
 class VisionTransformer(nn.Module):
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  in_chans: int = 3, num_classes: int = 1000,
@@ -55,6 +61,7 @@ class VisionTransformer(nn.Module):
                  remat: bool = False, swiglu_mlp: bool = False,
                  norm_type: str = "layernorm", embed_norm: bool = False,
                  scale_attn_norm: bool = False, scale_mlp_norm: bool = False,
+                 use_pallas_mlp: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device] = None):
@@ -106,7 +113,7 @@ class VisionTransformer(nn.Module):
                   drop_path_rate * i / max(depth - 1, 1), proj_drop_rate,
                   attn_drop_rate, act_layer, norm_eps,
                   int(mlp_hidden[i]) if mlp_hidden is not None else None,
-                  **kw)
+                  use_pallas_mlp=use_pallas_mlp, **kw)
             for i in range(depth)])
         self.norm = LayerNorm(embed_dim, norm_eps, **kw) \
             if final_norm and not self.use_fc_norm else None

@@ -9,6 +9,7 @@ here runs at import time, so the module imports on a host without nvcc
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -28,7 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # each kernel's registers, shared memory and spills there)
 BUILD_LOGS: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+# one lock per library, so different libraries build in parallel threads
+_locks: Dict[str, threading.Lock] = collections.defaultdict(threading.Lock)
+_locks_guard = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -52,7 +55,9 @@ def _library_path(name: str, sources: Sequence[str]) -> Path:
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """The shared library `name` built from `sources` (paths under csrc/)."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks[name]
+    with lock:
         if name in _libs:
             return _libs[name]
         so = _library_path(name, sources)

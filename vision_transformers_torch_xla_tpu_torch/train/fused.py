@@ -1,0 +1,102 @@
+"""AdamW + EMA + grad-norm update.
+
+Counterpart of vision_transformers_torch_xla_tpu/train/fused.py
+(`make_fused_adamw`, :52-128), with its numerics: the global grad norm, an
+optional clip by min(1, clip/‖g‖), bias-corrected moments through the
+scalars c1 = 1/(1−β1ᵗ) and c2 = 1/(1−β2ᵗ), decoupled weight decay on the
+masked params, the parameter write, then the EMA blend from the new params:
+
+    m ← β1·m + (1−β1)·g;  v ← β2·v + (1−β2)·g²
+    p ← p − lr·((m·c1)/(√(v·c2) + eps) + wd·p·mask)
+    ema ← d·ema + (1−d)·p
+
+In the JAX package this is XLA's elementwise work, not a Pallas kernel, so
+here it is plain PyTorch: a loop over the tensors under no_grad that
+updates params, moments and EMA in place (JAX returns new arrays; updating
+in place keeps one copy of each). A hand-written fused optimizer kernel is
+a later performance step (ROADMAP). The step count and the learning rate
+live on the host, so the update makes no device round trip; the grad norm
+stays a device scalar.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Optional, Union
+
+import torch
+
+Schedule = Union[float, Callable[[int], float]]
+
+
+class FusedAdamW:
+    """init(params) -> state; fused_update(grads, state, params, ema) ->
+    device grad norm. `params`, `grads` and `ema` map names to tensors;
+    `mask` maps names to True where weight decay applies (None: all),
+    `scales` names to per-parameter update multipliers (layer decay)."""
+
+    def __init__(self, learning_rate: Schedule, *, weight_decay: Schedule = 0.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 ema_decay: Optional[float] = None,
+                 clip_grad: Optional[float] = None,
+                 mask: Optional[Mapping[str, bool]] = None,
+                 scales: Optional[Mapping[str, float]] = None):
+        self.learning_rate = learning_rate
+        self.weight_decay = weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.ema_decay = ema_decay
+        self.clip_grad = clip_grad
+        self.mask = mask
+        self.scales = scales
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> Dict:
+        """{'count': host int, 'mu', 'nu': fp32 zeros like each param}."""
+        zeros = {k: torch.zeros_like(p, dtype=torch.float32)
+                 for k, p in params.items()}
+        return {"count": 0, "mu": zeros,
+                "nu": {k: torch.zeros_like(z) for k, z in zeros.items()}}
+
+    @torch.no_grad()
+    def fused_update(self, grads: Mapping[str, torch.Tensor], state: Dict,
+                     params: Mapping[str, torch.Tensor],
+                     ema: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> torch.Tensor:
+        """Update params, state and ema in place; return the global grad
+        norm (before the clip) as a device scalar."""
+        count = state["count"]
+        lr = self.learning_rate(count) if callable(self.learning_rate) \
+            else self.learning_rate
+        wd = self.weight_decay(count) if callable(self.weight_decay) \
+            else self.weight_decay
+        t = count + 1
+        b1, b2 = self.b1, self.b2
+        c1 = 1.0 / (1.0 - b1 ** t)
+        c2 = 1.0 / (1.0 - b2 ** t)
+        norm = global_norm(grads)
+        gscale = None
+        if self.clip_grad is not None:
+            gscale = torch.clamp(self.clip_grad / (norm + 1e-16), max=1.0)
+        decay = ema is not None and self.ema_decay is not None
+        for k, p in params.items():
+            g = grads[k].float()
+            if gscale is not None:
+                g = g * gscale
+            m, v = state["mu"][k], state["nu"][k]
+            m.mul_(b1).add_(g, alpha=1.0 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            upd = (m * c1) / ((v * c2).sqrt_() + self.eps)
+            p32 = p.float()
+            if wd and (self.mask is None or self.mask[k]):
+                upd.add_(p32, alpha=wd)
+            step = -lr * (self.scales[k] if self.scales is not None else 1.0)
+            p.copy_(p32.add_(upd, alpha=step))
+            if decay:
+                e = ema[k]
+                e.copy_(e.float().mul_(self.ema_decay).add_(
+                    p32, alpha=1.0 - self.ema_decay))
+        state["count"] = t
+        return norm
+
+
+def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """√Σ‖g‖² in fp32, as a device scalar."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads.values()]))
