@@ -40,6 +40,42 @@ and no phase catches its own error:
    1e-4), whose loss must fall; then the recipe's step timed on a fixed
    device batch: median step ms, images/s, MFU and peak memory.
 
+The long-sequence slice, vit_base_patch14_dinov2 at 518 px (S = 1370,
+ops/flash_blocked.py):
+
+10. build: csrc/flash_blocked.cu (started with the others in phase 2);
+    build time, registers and spills.
+11. blocked kernels vs plain: flash_fwd (K4), flash_bwd_dkdv (K5) and
+    flash_bwd_dq (K6) against their plain versions on seeded bf16 q, k, v,
+    dO read from a (B, S, 3·H·D) buffer, at the path's shapes (B 1 and 32,
+    S 1370, H 12, D 64) and others of the contract (S 1025, 2048, 4097 at
+    D 128, 197); at the path's shapes the median CUDA-event time of each
+    kernel, its plain version, and the yardstick
+    torch.nn.functional.scaled_dot_product_attention (forward; backward),
+    which the port never calls.
+12. model: full-width vit_base_patch14_dinov2 (token pool, bf16 compute) on
+    seeded weights (LayerScale gammas 1), saved and strict-loaded through
+    ckpt/convert.py, against the JAX package's fp32 golden logits; one
+    forward must launch K4 exactly 12 times and K1 never.
+13. serve: the port's HTTP server with that model at 518 px; each request
+    must launch K4 12 times.
+14. gradient: one train-mode forward + backward of that model on 2 seeded
+    images against the JAX fp32 train golden; exactly 12 launches each of
+    K4, K5 and K6, each call also held against its plain version on the
+    same inputs (the model's own data). Then the witness: the same step
+    with the plain versions of K4-K6 swapped in, against the same golden.
+15. train: launch/main.py::main on vit_base_patch14_dinov2 --input_size 518
+    --global_pool token at batch 32 with the recipe's other flags (the
+    model keeps its own exact GELU) for 3 steps and 2 eval batches; then
+    the step timed on a fixed device batch: median ms, images/s, MFU at
+    518/14 and peak memory.
+
+Every kernel's line in the kernels JSON carries its time, its plain
+version's, the yardstick's (library_ms) and bound_ms: the larger of its
+bytes (each input read once, each output written once) over 3.35 TB/s and
+its products' FLOPs over the 989 TFLOP/s bf16 tensor-core peak (H100 SXM
+data sheet), from the timed call's shapes.
+
 The last two lines of stdout are the kernels JSON and the result JSON.
 """
 from __future__ import annotations
@@ -103,8 +139,49 @@ RECIPE_FLAGS = [
 FIXED_STEPS = 10
 WARMUP_STEPS = 3
 TIMED_STEPS = 12
-# NVIDIA's data sheet, H100 SXM, dense bf16 tensor-core peak
+# NVIDIA's data sheet, H100 SXM: dense bf16 tensor-core peak, HBM3 rate
 H100_BF16_PEAK_FLOPS = 989e12
+H100_HBM_BYTES_PER_S = 3.35e12
+
+# Long-sequence slice (K4-K6): the model, its seeded weights' LayerScale
+# gamma (as tools/make_torch_port_golden.py made the golden) and shapes
+LONG_MODEL = "vit_base_patch14_dinov2"
+LONG_GAMMA = 1.0
+LONG_MAIN_SHAPES = ((1, 1370, 12, 64), (32, 1370, 12, 64))   # (B, S, H, D)
+# and K1's and K2's main shapes, where K4, K5 and K6 are timed beside them
+LONG_EXTRA_SHAPES = ((2, 1025, 12, 64), (1, 2048, 12, 64),
+                     (1, 4097, 2, 128), (64, 197, 12, 64),
+                     (128, 197, 12, 64))
+# Blocked kernels vs plain (same bf16 inputs, same cast order): o is bf16
+# and each bf16(p) is rounded against the tile's running max in the kernel
+# and against the row's max in the plain version, so o moves by a flipped
+# rounding of o itself, up to 2^-7 of max |o| per ulp: the limit is
+# O_REL_ATOL of the plain version's max |o| (~2.5 ulps there). At S = 1370
+# |o| is small (~0.25 at its max), so an absolute limit would be loose.
+# lse is fp32 (summation order only); the stored bf16 grads move by a few
+# ulps of their largest value (DQKV_REL_ATOL).
+O_REL_ATOL = 2e-2
+LSE_ATOL = 1e-4
+LONG_BATCH = 32
+LONG_TRAIN_FLAGS = [
+    "--model", LONG_MODEL, "--input_size", "518", "--global_pool", "token",
+    "--batch_size", str(LONG_BATCH), "--data_set", "synthetic",
+    "--model_ema", "true", "--epochs", "1",
+    "--limit_steps_per_epoch", str(TRAIN_STEPS),
+    "--limit_eval_batches", str(EVAL_BATCHES), "--lr", "4e-3",
+    "--min_lr", "1e-6", "--warmup_epochs", "20", "--warmup_lr", "1e-6",
+    "--weight_decay", "0.05", "--mixup", "0.8", "--cutmix", "1.0",
+    "--smoothing", "0.1", "--drop_path", "0.1"]
+# Phase 14, the 518-px gradient against the JAX fp32 train golden: limits
+# (loss abs, grad norm rel, per-parameter grad norm rel). The witness, the
+# same bf16 step with the plain versions of K4-K6 on the card, read 4.9e-3,
+# 8.3e-4 and 2.3e-3 (H100 80GB HBM3, 700 W); the limits leave ~10x room.
+# Two correct bf16 steps differ this much: kernels and witness differ by
+# 7.4e-3 in the loss. A kernel fault is caught by the per-call checks of
+# K4-K6 against their plain versions on the model's data in the same phase.
+LONG_GRAD_LIMITS = (0.05, 1e-2, 2.5e-2)
+LONG_WARMUP_STEPS = 2
+LONG_TIMED_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -142,18 +219,50 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_kernel(fa, dev):
+def bound(flops: float, nbytes: float):
+    """Least time on an H100 SXM for this work, in ms, and what bounds it."""
+    t_ops = flops / H100_BF16_PEAK_FLOPS * 1e3
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_ms(q, k, v, do=None):
+    """The yardstick: torch's scaled_dot_product_attention on contiguous
+    copies of the same q, k, v (forward; with `do`, the backward alone)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (x.detach().contiguous().requires_grad_(do is not None)
+               for x in (q, k, v))
+    if do is None:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v)
+    do = do.contiguous()
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), do,
+                                               retain_graph=True))
+
+
+def seeded_bf16(shape, seed: int, dev):
     import numpy as np
     import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev, torch.bfloat16)
+
+
+def phase_kernel(fa, dev):
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
+        heads,
+    )
 
     results = {}
     worst = 0.0
     for shape in MAIN_SHAPES + EXTRA_SHAPES:
         b, s, h, d = shape
-        rng = np.random.default_rng(1000 + b * s + h * d)
-        qkv = torch.from_numpy(
-            rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)
-        ).to(dev, torch.bfloat16)
+        qkv = seeded_bf16((b, s, 3 * h * d), 1000 + b * s + h * d, dev)
         scale = d ** -0.5
         o_k, st_k = fa.attn_fwd(qkv, h, scale, with_stats=True)
         o_r, st_r = fa.attn_fwd_reference(qkv, h, scale, with_stats=True)
@@ -172,41 +281,61 @@ def phase_kernel(fa, dev):
             row["ms"] = cuda_ms(lambda: fa.attn_fwd(qkv, h, scale))
             row["plain_ms"] = cuda_ms(
                 lambda: fa.attn_fwd_reference(qkv, h, scale))
+            row["library_ms"] = sdpa_ms(*heads(qkv, h))
+            # qkv read once, o written once; q·kᵀ and p·v
+            row["bound_ms"], row["bound_by"] = bound(
+                4 * b * h * s * s * d, 2 * (b * s * 3 * h * d + b * s * h * d))
         results[shape] = row
         log(f"[kernel] B={b} S={s} H={h} D={d}: "
             + " ".join(f"{k}={v!r}" for k, v in row.items()))
     return results, worst
 
 
-def phase_model(fa, dev, ckpt_path):
-    import numpy as np
-    import torch
-
+def load_seeded(model, ckpt_path, gamma=None):
+    """Seeded weights for `model`, saved to and strict-loaded from a .pth
+    through ckpt/convert.py."""
     from vision_transformers_torch_xla_tpu_torch.ckpt.convert import (
         load_checkpoint,
         save_checkpoint,
     )
     from vision_transformers_torch_xla_tpu_torch.core.seeded import (
-        seeded_images,
         seeded_state_dict,
+    )
+
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    save_checkpoint(ckpt_path, seeded_state_dict(shapes, seed=0, gamma=gamma))
+    model.load_state_dict(load_checkpoint(ckpt_path), strict=True)
+
+
+def phase_model(counts, dev, ckpt_path, name="my_vit_b", gamma=None,
+                tag="model"):
+    """The model's bf16 forward against the JAX fp32 golden logits;
+    returns the launches of one forward (counts() after a reset)."""
+    import numpy as np
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.seeded import (
+        seeded_images,
     )
     from vision_transformers_torch_xla_tpu_torch.models import create_model
 
     with open(os.path.join(REPO, "tests", "data",
-                           "torch_port_golden_my_vit_b.json")) as f:
+                           f"torch_port_golden_{name}.json")) as f:
         golden = json.load(f)
-    model = create_model("my_vit_b", device=dev, **golden["model_kwargs"])
-    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    save_checkpoint(ckpt_path, seeded_state_dict(shapes, seed=0))
-    model.load_state_dict(load_checkpoint(ckpt_path), strict=True)
+    img = golden.get("img_size", 224)
+    check(gamma is None or f"gamma={gamma}" in golden["weights"],
+          f"golden weights {golden['weights']} are not gamma={gamma}")
+    model = create_model(name, device=dev, img_size=img,
+                         **golden["model_kwargs"])
+    load_seeded(model, ckpt_path, gamma)
     model.eval()
-    images = torch.from_numpy(seeded_images(2, 224, seed=0)).to(dev)
+    images = torch.from_numpy(seeded_images(2, img, seed=0)).to(dev)
 
-    fa.ATTN_FWD_LAUNCHES = 0
+    counts(reset=True)
     with torch.inference_mode():
         logits = model(images)
     torch.cuda.synchronize()
-    launches = fa.ATTN_FWD_LAUNCHES
+    launches = counts()
 
     want = np.asarray(golden["logits"], np.float32)
     got = logits.cpu().numpy()
@@ -214,17 +343,20 @@ def phase_model(fa, dev, ckpt_path):
     check(np.isfinite(got).all(), "logits not finite")
     max_abs = float(np.abs(got - want).max())
     rel_l2 = float(np.linalg.norm(got - want) / np.linalg.norm(want))
-    log(f"[model] my_vit_b bf16 vs JAX fp32 golden: max_abs_err={max_abs!r} "
+    log(f"[{tag}] {name} bf16 vs JAX fp32 golden: max_abs_err={max_abs!r} "
         f"rel_l2={rel_l2!r} top1 port={got.argmax(1).tolist()} "
         f"golden={want.argmax(1).tolist()} kernel launches={launches}")
-    check(launches == 12, f"one forward launched the kernel {launches} times")
     check(max_abs <= LOGIT_ATOL, f"logits max abs err {max_abs} > {LOGIT_ATOL}")
     check(rel_l2 <= LOGIT_REL_L2,
           f"logits rel L2 err {rel_l2} > {LOGIT_REL_L2}")
     return launches
 
 
-def phase_serve(fa, ckpt_path):
+def phase_serve(counter, ckpt_path, name="my_vit_b", tag="serve",
+                **engine_kw):
+    """8 requests to the port's HTTP server; counter() is the kernel count
+    each request must raise by 12. Returns the launches and the median
+    latency in ms."""
     import numpy as np
 
     from vision_transformers_torch_xla_tpu_torch.data import native
@@ -239,9 +371,8 @@ def phase_serve(fa, ckpt_path):
                   "rb") as f:
             jpegs.append(f.read())
 
-    fa.ATTN_FWD_LAUNCHES = 0
-    engine = InferenceEngine("my_vit_b", ckpt=ckpt_path,
-                             act_layer="gelu_tanh", device="cuda")
+    start = counter()
+    engine = InferenceEngine(name, ckpt=ckpt_path, device="cuda", **engine_kw)
     server = serve(engine, port=0)
     url = f"http://127.0.0.1:{server.server_address[1]}"
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -250,10 +381,10 @@ def phase_serve(fa, ckpt_path):
     try:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
-        check(health["status"] == "ok" and health["model"] == "my_vit_b",
+        check(health["status"] == "ok" and health["model"] == name,
               f"/healthz replied {health}")
         for i in range(N_REQUESTS):
-            before = fa.ATTN_FWD_LAUNCHES
+            before = counter()
             req = urllib.request.Request(url + "/predict", data=jpegs[i % 4],
                                          method="POST")
             t0 = time.perf_counter()
@@ -265,14 +396,14 @@ def phase_serve(fa, ckpt_path):
             check(len(topk) == 5 and all(0.0 <= p <= 1.0 for p in probs)
                   and probs == sorted(probs, reverse=True),
                   f"request {i}: bad top-5 {reply}")
-            check(fa.ATTN_FWD_LAUNCHES - before == 12,
-                  f"request {i} launched {fa.ATTN_FWD_LAUNCHES - before}")
+            check(counter() - before == 12,
+                  f"request {i} launched {counter() - before}")
             replies.append(topk)
     finally:
         server.shutdown()
         server.server_close()
         thread.join()
-    launches = fa.ATTN_FWD_LAUNCHES
+    launches = counter() - start
 
     # the served answer is the model's answer on the decoded image
     direct = engine._forward(engine._decode(jpegs[0])[None])[0]
@@ -281,14 +412,14 @@ def phase_serve(fa, ckpt_path):
           f"served {replies[0]}, model top-5 {want}")
     check(replies[0] == replies[4], "same JPEG, different answers")
     decoder = "native" if native.available() else "PIL"
-    log(f"[serve] decoder={decoder} requests={N_REQUESTS} "
+    log(f"[{tag}] {name} decoder={decoder} requests={N_REQUESTS} "
         f"median_ms={statistics.median(latencies)!r} "
         f"latencies_ms={latencies!r} launches={launches} "
         f"(12 warm-up + 12 per request)")
     return launches, statistics.median(latencies)
 
 
-def build_all(fa):
+def build_all(fa, fb):
     """Start every kernel build at once, one nvcc per source; returns each
     library's build (or load) time in seconds. A failed build raises."""
     from concurrent.futures import ThreadPoolExecutor
@@ -298,7 +429,8 @@ def build_all(fa):
         fn()
         return time.perf_counter() - t0
 
-    builds = {"attn_fwd": fa.build_kernels, "attn_bwd": fa.build_bwd_kernels}
+    builds = {"attn_fwd": fa.build_kernels, "attn_bwd": fa.build_bwd_kernels,
+              "flash_blocked": fb.build_kernels}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {n: pool.submit(timed, fn) for n, fn in builds.items()}
         return {n: f.result() for n, f in futures.items()}
@@ -312,27 +444,27 @@ def log_ptxas(cuda_build, name: str, tag: str) -> None:
     for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            k = re.search(r"(attn_\w+?_kernel)(?:ILi(\d+)E)?", m.group(1))
+            k = re.search(r"((?:attn|flash)_\w+?_kernel)(?:ILi(\d+)E)?",
+                          m.group(1))
             fn = f"{k.group(1)}<{k.group(2) or 0}>" if k else m.group(1)
         elif "registers" in line or "spill" in line:
             log(f"[{tag}] {fn}: {line.strip()}")
 
 
 def phase_bwd_kernel(fa, dev):
-    import numpy as np
     import torch
+
+    from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
+        heads,
+    )
 
     results = {}
     worst = 0.0
     for shape in BWD_MAIN_SHAPES + EXTRA_SHAPES:
         b, s, h, d = shape
-        rng = np.random.default_rng(2000 + b * s + h * d)
-        qkv = torch.from_numpy(
-            rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)
-        ).to(dev, torch.bfloat16)
-        do = torch.from_numpy(
-            rng.standard_normal((b, s, h * d)).astype(np.float32)
-        ).to(dev, torch.bfloat16)
+        seed = 2000 + b * s + h * d
+        qkv = seeded_bf16((b, s, 3 * h * d), seed, dev)
+        do = seeded_bf16((b, s, h * d), seed + 1, dev)
         scale = d ** -0.5
         o, st = fa.attn_fwd(qkv, h, scale, with_stats=True)
         dqkv, dbias = fa.attn_bwd(qkv, do, o, st, h, scale)
@@ -358,13 +490,25 @@ def phase_bwd_kernel(fa, dev):
             row["ms"] = cuda_ms(lambda: fa.attn_bwd(qkv, do, o, st, h, scale))
             row["plain_ms"] = cuda_ms(
                 lambda: fa.attn_bwd_reference(qkv, do, o, st, h, scale))
+            row["library_ms"] = sdpa_ms(
+                *heads(qkv, h), do.view(b, s, h, d).transpose(1, 2))
+            # qkv, dO, o, stats read; dqkv and the bias partials written;
+            # s and dp in each of the two passes, then dq, dk and dv
+            row["bound_ms"], row["bound_by"] = bound(
+                14 * b * h * s * s * d,
+                2 * (2 * b * s * 3 * h * d + 2 * b * s * h * d)
+                + 4 * (b * h * s * 2 + b * 3 * h * d))
         results[shape] = row
         log(f"[bwd kernel] B={b} S={s} H={h} D={d}: "
             + " ".join(f"{k}={v!r}" for k, v in row.items()))
     return results, worst
 
 
-def phase_grad(fa, dev, ckpt_path):
+def phase_grad(counts, dev, ckpt_path, name="my_vit_b", tag="grad",
+               limits=(LOSS_ATOL, GRAD_NORM_RTOL, PARAM_GRAD_NORM_RTOL)):
+    """One train-mode forward + backward against the JAX fp32 train golden,
+    within `limits` (loss abs, grad norm rel, per-parameter grad norm rel);
+    returns the launches (counts() after a reset)."""
     import numpy as np
     import torch
 
@@ -383,21 +527,23 @@ def phase_grad(fa, dev, ckpt_path):
     )
 
     with open(os.path.join(REPO, "tests", "data",
-                           "torch_port_train_golden_my_vit_b.json")) as f:
+                           f"torch_port_train_golden_{name}.json")) as f:
         golden = json.load(f)
-    model = create_model("my_vit_b", device=dev, **golden["model_kwargs"])
+    img = golden.get("img_size", 224)
+    model = create_model(name, device=dev, img_size=img,
+                         **golden["model_kwargs"])
     model.load_state_dict(load_checkpoint(ckpt_path), strict=True)
-    images = torch.from_numpy(seeded_images(2, 224, seed=0)).to(dev)
+    images = torch.from_numpy(seeded_images(2, img, seed=0)).to(dev)
     targets = smoothed_one_hot(torch.tensor(golden["labels"], device=dev),
                                1000, golden["smoothing"])
 
-    fa.ATTN_FWD_LAUNCHES = fa.ATTN_BWD_LAUNCHES = 0
+    counts(reset=True)
     logits = model(images, deterministic=False,
                    generator=torch.Generator(device=dev))
     loss = soft_target_cross_entropy(logits, targets)
     loss.backward()
     torch.cuda.synchronize()
-    launches = (fa.ATTN_FWD_LAUNCHES, fa.ATTN_BWD_LAUNCHES)
+    launches = counts()
 
     norms = {k: p.grad.float().norm().item()
              for k, p in model.named_parameters()}
@@ -409,23 +555,85 @@ def phase_grad(fa, dev, ckpt_path):
     worst = max(rel, key=rel.get)
     loss_err = abs(loss.item() - golden["loss"])
     gn_err = abs(grad_norm - golden["grad_norm"]) / golden["grad_norm"]
-    log(f"[grad] my_vit_b bf16 vs JAX fp32 golden: loss {loss.item()!r} "
+    log(f"[{tag}] {name} bf16 vs JAX fp32 golden: loss {loss.item()!r} "
         f"(golden {golden['loss']!r}, abs err {loss_err!r}); grad norm "
         f"{grad_norm!r} (golden {golden['grad_norm']!r}, rel err {gn_err!r}); "
         f"per-parameter grad norm worst rel err {rel[worst]!r} ({worst}), "
         f"median {float(np.median(list(rel.values())))!r}; launches "
-        f"fwd={launches[0]} bwd={launches[1]}")
-    check(launches == (12, 12),
-          f"one forward + backward launched {launches} (want 12, 12)")
-    check(loss_err <= LOSS_ATOL, f"loss err {loss_err} > {LOSS_ATOL}")
-    check(gn_err <= GRAD_NORM_RTOL, f"grad norm rel err {gn_err}")
-    check(rel[worst] <= PARAM_GRAD_NORM_RTOL,
-          f"{worst}: grad norm rel err {rel[worst]} > {PARAM_GRAD_NORM_RTOL}")
-    return {"loss_err": loss_err, "grad_norm_rel_err": gn_err,
-            "param_grad_norm_worst_rel_err": rel[worst]}
+        f"{launches}")
+    loss_atol, gn_rtol, param_rtol = limits
+    check(loss_err <= loss_atol, f"loss err {loss_err} > {loss_atol}")
+    check(gn_err <= gn_rtol, f"grad norm rel err {gn_err} > {gn_rtol}")
+    check(rel[worst] <= param_rtol,
+          f"{worst}: grad norm rel err {rel[worst]} > {param_rtol}")
+    return launches
 
 
-def phase_train(fa, dev):
+class swap_blocked:
+    """Within it, ops/flash_blocked.py's wrappers are replaced. plain=True:
+    the plain versions run on the card, no kernel launches (the witness of
+    phase 14). plain=False: each wrapper launches its kernel, then the plain
+    version runs on the same inputs, the model's own data; `worst` keeps
+    each output's largest error over the plain version's max |.| (o and the
+    grads) or absolute (lse)."""
+
+    NAMES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+
+    def __init__(self, fb, plain: bool):
+        self.fb, self.plain, self.worst = fb, plain, {}
+        self.saved = {n: getattr(fb, n) for n in self.NAMES}
+
+    def note(self, name, got, ref, relative=True):
+        err = (got.float() - ref.float()).abs().max().item()
+        if relative:
+            err /= ref.float().abs().max().item()
+        self.worst[name] = max(self.worst.get(name, 0.0), err)
+
+    def __enter__(self):
+        fb, kernel = self.fb, self.saved
+
+        def fwd(q, k, v, scale=None):
+            ref = fb.flash_fwd_reference(q, k, v, fb._scale(q, scale))
+            if self.plain:
+                return ref
+            o, lse = kernel["flash_fwd"](q, k, v, scale)
+            self.note("o", o, ref[0])
+            self.note("lse", lse, ref[1], relative=False)
+            return o, lse
+
+        def dkdv(q, k, v, do, lse, delta, dk, dv, scale=None):
+            ref = fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                              fb._scale(q, scale))
+            if self.plain:
+                return dk.copy_(ref[0]), dv.copy_(ref[1])
+            kernel["flash_bwd_dkdv"](q, k, v, do, lse, delta, dk, dv, scale)
+            self.note("dk", dk, ref[0])
+            self.note("dv", dv, ref[1])
+            return dk, dv
+
+        def dq(q, k, v, do, lse, delta, dq, scale=None):
+            ref = fb.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                            fb._scale(q, scale))
+            if self.plain:
+                return dq.copy_(ref)
+            kernel["flash_bwd_dq"](q, k, v, do, lse, delta, dq, scale)
+            self.note("dq", dq, ref)
+            return dq
+
+        fb.flash_fwd, fb.flash_bwd_dkdv, fb.flash_bwd_dq = fwd, dkdv, dq
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.fb, n, fn)
+
+
+def phase_train(counts, dev, flags, batch, img=224, patch=16,
+                fixed_batch=True, warmup=WARMUP_STEPS, timed=TIMED_STEPS,
+                tag="train"):
+    """launch/main.py::main with `flags`, then (fixed_batch) the loss on
+    one fixed batch, then the recipe's step timed on a fixed device batch.
+    Returns main()'s launches (counts() after a reset) and the timings."""
     import gc
     import math
 
@@ -441,78 +649,176 @@ def phase_train(fa, dev):
     )
 
     # the trainer's entry point, as a user calls it
-    cfg = config_from_args(RECIPE_FLAGS)
-    fa.ATTN_FWD_LAUNCHES = fa.ATTN_BWD_LAUNCHES = 0
+    cfg = config_from_args(flags)
+    counts(reset=True)
     t0 = time.perf_counter()
     stats = trainer.main(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"attn_fwd": fa.ATTN_FWD_LAUNCHES,
-                "attn_bwd": fa.ATTN_BWD_LAUNCHES}
-    log(f"[train] main(): {wall:.3f} s, stats {stats}, launches {launches}")
+    launches = counts()
+    log(f"[{tag}] main(): {wall:.3f} s, stats {stats}, launches {launches}")
     check(all(isinstance(v, (int, float)) and math.isfinite(v)
               for v in stats.values()), f"stats not finite: {stats}")
     check(stats["count"] == EVAL_BATCHES * cfg.eval_batch_size(),
           f"evaluated {stats['count']} images")
-    check(launches["attn_bwd"] == 12 * TRAIN_STEPS,
-          f"{launches['attn_bwd']} backward launches for {TRAIN_STEPS} steps")
-    check(launches["attn_fwd"] == 12 * (TRAIN_STEPS + EVAL_BATCHES),
-          f"{launches['attn_fwd']} forward launches")
 
-    # the loss falls on one fixed batch (mixup off, constant lr 1e-4)
-    fixed = config_from_args(RECIPE_FLAGS + [
-        "--mixup", "0", "--cutmix", "0", "--lr", "1e-4", "--min_lr", "1e-4",
-        "--warmup_epochs", "0"])
-    ctx = trainer.setup(fixed)
-    images, labels = to_device(next(iter(ctx.train_ds)), dev)
-    losses = []
-    for _ in range(FIXED_STEPS):
-        ctx.state, m = ctx.train_step(ctx.state, images, labels, fixed.seed)
-        losses.append(m["loss"])
-    losses = torch.stack(losses).tolist()
-    log(f"[train] fixed batch, {FIXED_STEPS} steps at lr 1e-4: losses "
-        f"{losses!r}")
-    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
-    check(last < first, f"loss did not fall: {first} -> {last}")
-    del ctx, m
-    gc.collect()
-    torch.cuda.empty_cache()
+    if fixed_batch:
+        # the loss falls on one fixed batch (mixup off, constant lr 1e-4)
+        fixed = config_from_args(flags + [
+            "--mixup", "0", "--cutmix", "0", "--lr", "1e-4", "--min_lr",
+            "1e-4", "--warmup_epochs", "0"])
+        ctx = trainer.setup(fixed)
+        images, labels = to_device(next(iter(ctx.train_ds)), dev)
+        losses = []
+        for _ in range(FIXED_STEPS):
+            ctx.state, m = ctx.train_step(ctx.state, images, labels,
+                                          fixed.seed)
+            losses.append(m["loss"])
+        losses = torch.stack(losses).tolist()
+        log(f"[{tag}] fixed batch, {FIXED_STEPS} steps at lr 1e-4: losses "
+            f"{losses!r}")
+        first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+        check(last < first, f"loss did not fall: {first} -> {last}")
+        del ctx, m
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # the recipe's step (mixup, forward, backward, AdamW, EMA) on a fixed
     # device batch; CUDA events around each step, no host data in the loop
     ctx = trainer.setup(cfg)
     images, labels = to_device(next(iter(ctx.train_ds)), dev)
-    for _ in range(WARMUP_STEPS):
+    for _ in range(warmup):
         ctx.state, m = ctx.train_step(ctx.state, images, labels, cfg.seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(TIMED_STEPS + 1)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
     t0 = time.perf_counter()
     events[0].record()
-    for i in range(TIMED_STEPS):
+    for i in range(timed):
         ctx.state, m = ctx.train_step(ctx.state, images, labels, cfg.seed)
         events[i + 1].record()
     torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    host_ms = (time.perf_counter() - t0) * 1e3 / timed
     step_ms = statistics.median(events[i].elapsed_time(events[i + 1])
-                                for i in range(TIMED_STEPS))
+                                for i in range(timed))
     check(math.isfinite(m["loss"].item()), "timed steps: loss not finite")
     peak = torch.cuda.max_memory_allocated(dev)
-    ips = TRAIN_BATCH / (step_ms / 1e3)
-    mfu = vit_train_flops_per_image() * ips / H100_BF16_PEAK_FLOPS
+    ips = batch / (step_ms / 1e3)
+    mfu = vit_train_flops_per_image(img, patch) * ips / H100_BF16_PEAK_FLOPS
     result = {"step_ms": step_ms, "host_step_ms": host_ms,
               "images_per_s": ips, "mfu": mfu, "peak_mem_gib": peak / 2**30}
-    log(f"[train] my_vit_b b{TRAIN_BATCH} recipe step on {nvidia_smi()}: "
-        f"median {step_ms!r} ms over {TIMED_STEPS} steps after "
-        f"{WARMUP_STEPS} warm-up (host clock {host_ms!r} ms/step), "
+    log(f"[{tag}] {cfg.model} b{batch} recipe step on {nvidia_smi()}: "
+        f"median {step_ms!r} ms over {timed} steps after "
+        f"{warmup} warm-up (host clock {host_ms!r} ms/step), "
         f"{ips!r} images/s, MFU {mfu!r} of the {H100_BF16_PEAK_FLOPS:.0f} "
-        f"FLOP/s H100 SXM bf16 dense peak (bench.py's analytic FLOPs), peak "
-        f"memory {peak / 2**30!r} GiB")
+        f"FLOP/s H100 SXM bf16 dense peak (bench.py's analytic FLOPs at "
+        f"{img}/{patch}), peak memory {peak / 2**30!r} GiB")
     del ctx, m
     gc.collect()
     torch.cuda.empty_cache()
     return launches, result
+
+
+def phase_long_kernel(fb, dev):
+    """K4, K5 and K6 against their plain versions, on q, k, v and dO read
+    by stride from (B, S, ·) buffers as the model's path reads them."""
+    import torch
+
+    results = {}
+    worst = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    for shape in LONG_MAIN_SHAPES + LONG_EXTRA_SHAPES:
+        b, s, h, d = shape
+        seed = 3000 + b * s + h * d
+        qkv = seeded_bf16((b, s, 3 * h * d), seed, dev)
+        q, k, v = fb.heads(qkv, h)
+        do = seeded_bf16((b, s, h * d), seed + 1, dev).view(
+            b, s, h, d).transpose(1, 2)
+        scale = d ** -0.5
+        # the backward kernels write into views of one dqkv buffer, as the
+        # model's path has them
+        dq, dk, dv = fb.heads(torch.empty_like(qkv), h)
+        o, lse = fb.flash_fwd(q, k, v, scale)
+        o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+        delta = fb.flash_delta(o, do)
+        fb.flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, scale)
+        dk_r, dv_r = fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                                 scale)
+        fb.flash_bwd_dq(q, k, v, do, lse, delta, dq, scale)
+        dq_r = fb.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        row = {}
+        for name, got, ref, rel in (
+                ("o", o, o_r, O_REL_ATOL), ("lse", lse, lse_r, None),
+                ("dq", dq, dq_r, DQKV_REL_ATOL), ("dk", dk, dk_r, DQKV_REL_ATOL),
+                ("dv", dv, dv_r, DQKV_REL_ATOL)):
+            check(got.shape == ref.shape and torch.isfinite(got).all().item(),
+                  f"{shape} {name}: shape {tuple(got.shape)} or not finite")
+            err = (got.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            limit = LSE_ATOL if rel is None else rel * ref_max
+            check(err <= limit, f"{shape} {name}: max abs err {err} > {limit}")
+            row[f"{name}_max_abs_err"] = err
+            row[f"{name}_max_abs"] = ref_max
+        worst["flash_fwd"] = max(worst["flash_fwd"], row["o_max_abs_err"])
+        worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"],
+                                      row["dk_max_abs_err"],
+                                      row["dv_max_abs_err"])
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"],
+                                    row["dq_max_abs_err"])
+        if s == 197:  # the regime of K1 and K2: one blocked kernel for both?
+            row["flash_fwd_ms"] = cuda_ms(lambda: fb.flash_fwd(q, k, v, scale))
+            row["flash_bwd_dkdv_ms"] = cuda_ms(lambda: fb.flash_bwd_dkdv(
+                q, k, v, do, lse, delta, dk, dv, scale))
+            row["flash_bwd_dq_ms"] = cuda_ms(lambda: fb.flash_bwd_dq(
+                q, k, v, do, lse, delta, dq, scale))
+        if shape in LONG_MAIN_SHAPES:
+            row["flash_fwd_ms"] = cuda_ms(lambda: fb.flash_fwd(q, k, v, scale))
+            row["flash_fwd_plain_ms"] = cuda_ms(
+                lambda: fb.flash_fwd_reference(q, k, v, scale))
+            row["flash_bwd_dkdv_ms"] = cuda_ms(lambda: fb.flash_bwd_dkdv(
+                q, k, v, do, lse, delta, dk, dv, scale))
+            row["flash_bwd_dkdv_plain_ms"] = cuda_ms(
+                lambda: fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                                    scale))
+            row["flash_bwd_dq_ms"] = cuda_ms(lambda: fb.flash_bwd_dq(
+                q, k, v, do, lse, delta, dq, scale))
+            row["flash_bwd_dq_plain_ms"] = cuda_ms(
+                lambda: fb.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  scale))
+            row["sdpa_fwd_ms"] = sdpa_ms(q, k, v)
+            row["sdpa_bwd_ms"] = sdpa_ms(q, k, v, do)
+            # bf16 q, k, v, dO (2 bytes), fp32 lse and delta (4 bytes):
+            # K4 reads q, k, v, writes o, lse; K5 reads q, k, v, dO, lse,
+            # delta, writes dk, dv; K6 the same inputs, writes dq
+            n, rows = b * s * h * d, b * h * s
+            sq = b * h * s * s * d
+            for name, flops, nbytes in (
+                    ("flash_fwd", 4 * sq, 2 * 4 * n + 4 * rows),
+                    ("flash_bwd_dkdv", 8 * sq, 2 * 6 * n + 8 * rows),
+                    ("flash_bwd_dq", 6 * sq, 2 * 5 * n + 8 * rows)):
+                row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bound(
+                    flops, nbytes)
+        results[shape] = row
+        log(f"[long kernel] B={b} S={s} H={h} D={d}: "
+            + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    return results, worst
+
+
+def counter(*names):
+    """counts(reset=False) -> {COUNT: launches} of the counts named
+    'module.COUNT' (modules of ops/); reset sets them to 0 first."""
+    import importlib
+
+    mods = [(importlib.import_module(f"{PKG}.ops.{m}"), c)
+            for m, c in (n.split(".") for n in names)]
+
+    def counts(reset: bool = False):
+        if reset:
+            for m, c in mods:
+                setattr(m, c, 0)
+        return {c: getattr(m, c) for m, c in mods}
+
+    return counts
 
 
 def main() -> int:
@@ -530,8 +836,10 @@ def main() -> int:
     from vision_transformers_torch_xla_tpu_torch.ops import (
         cuda_build,
         flash_attention as fa,
+        flash_blocked as fb,
     )
 
+    t_start = time.perf_counter()
     # the plain versions' fp32 matmuls run in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -542,45 +850,137 @@ def main() -> int:
         f"{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    build_s = build_all(fa)
+    build_s = build_all(fa, fb)
     log(f"[build] attn_fwd built/loaded in {build_s['attn_fwd']:.3f} s")
     log_ptxas(cuda_build, "attn_fwd", "build")
+
+    short = counter("flash_attention.ATTN_FWD_LAUNCHES",
+                    "flash_attention.ATTN_BWD_LAUNCHES")
+    k1 = counter("flash_attention.ATTN_FWD_LAUNCHES")
+    k4 = counter("flash_blocked.FLASH_FWD_LAUNCHES")
+    every = counter("flash_attention.ATTN_FWD_LAUNCHES",
+                    "flash_attention.ATTN_BWD_LAUNCHES",
+                    "flash_blocked.FLASH_FWD_LAUNCHES",
+                    "flash_blocked.FLASH_BWD_DKDV_LAUNCHES",
+                    "flash_blocked.FLASH_BWD_DQ_LAUNCHES")
 
     kernel, worst = phase_kernel(fa, dev)
     ckpt_dir = os.path.join(REPO, "build", "smoke")
     os.makedirs(ckpt_dir, exist_ok=True)
     ckpt_path = os.path.join(ckpt_dir, "my_vit_b_seed0.pth")
-    phase_model(fa, dev, ckpt_path)
-    serve_launches, _ = phase_serve(fa, ckpt_path)
+    n = phase_model(k1, dev, ckpt_path)
+    check(n == {"ATTN_FWD_LAUNCHES": 12},
+          f"one forward launched the kernel {n} times")
+    serve_launches, _ = phase_serve(
+        lambda: fa.ATTN_FWD_LAUNCHES, ckpt_path, act_layer="gelu_tanh")
 
     log(f"[build bwd] attn_bwd built/loaded in {build_s['attn_bwd']:.3f} s "
         f"(in parallel with attn_fwd)")
     log_ptxas(cuda_build, "attn_bwd", "build bwd")
     bwd, bwd_worst = phase_bwd_kernel(fa, dev)
-    phase_grad(fa, dev, ckpt_path)
-    train_launches, _ = phase_train(fa, dev)
-    check(all(n > 0 for n in train_launches.values()),
-          f"a kernel of the train path never launched: {train_launches}")
+    n = phase_grad(short, dev, ckpt_path)
+    check(n == {"ATTN_FWD_LAUNCHES": 12, "ATTN_BWD_LAUNCHES": 12},
+          f"one forward + backward launched {n} (want 12, 12)")
+    train_launches, _ = phase_train(every, dev, RECIPE_FLAGS, TRAIN_BATCH)
+    check(train_launches["ATTN_BWD_LAUNCHES"] == 12 * TRAIN_STEPS
+          and train_launches["ATTN_FWD_LAUNCHES"]
+          == 12 * (TRAIN_STEPS + EVAL_BATCHES),
+          f"{train_launches} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
+
+    # ---- the long-sequence slice: vit_base_patch14_dinov2 at 518 px
+    log(f"[build long] flash_blocked built/loaded in "
+        f"{build_s['flash_blocked']:.3f} s (in parallel with the others)")
+    log_ptxas(cuda_build, "flash_blocked", "build long")
+    long_k, long_worst = phase_long_kernel(fb, dev)
+    long_ckpt = os.path.join(ckpt_dir, f"{LONG_MODEL}_seed0.pth")
+    n = phase_model(every, dev, long_ckpt, LONG_MODEL, LONG_GAMMA,
+                    tag="long model")
+    check(n["FLASH_FWD_LAUNCHES"] == 12 and n["ATTN_FWD_LAUNCHES"] == 0
+          and sum(n.values()) == 12,
+          f"one 518-px forward launched {n} (want K4 12, K1 0)")
+    long_serve, _ = phase_serve(
+        lambda: fb.FLASH_FWD_LAUNCHES, long_ckpt, LONG_MODEL,
+        tag="long serve", image_size=518, global_pool="token")
+    # K4-K6 held against their plain versions at every call of the step,
+    # on the model's own data
+    with swap_blocked(fb, plain=False) as checked:
+        n = phase_grad(every, dev, long_ckpt, LONG_MODEL, tag="long grad",
+                       limits=LONG_GRAD_LIMITS)
+    check(n == {"ATTN_FWD_LAUNCHES": 0, "ATTN_BWD_LAUNCHES": 0,
+                "FLASH_FWD_LAUNCHES": 12, "FLASH_BWD_DKDV_LAUNCHES": 12,
+                "FLASH_BWD_DQ_LAUNCHES": 12},
+          f"one 518-px forward + backward launched {n}")
+    log(f"[long grad] kernels vs plain at each call on the model's data, "
+        f"worst error (over max |plain| but lse): {checked.worst!r}")
+    check(set(checked.worst) == {"o", "lse", "dq", "dk", "dv"},
+          f"outputs checked: {sorted(checked.worst)}")
+    for name, err in checked.worst.items():
+        limit = {"o": O_REL_ATOL, "lse": LSE_ATOL}.get(name, DQKV_REL_ATOL)
+        check(err <= limit, f"model data, {name}: error {err} > {limit}")
+    # the witness: the same bf16 step with the plain versions of K4-K6
+    with swap_blocked(fb, plain=True):
+        n = phase_grad(every, dev, long_ckpt, LONG_MODEL,
+                       tag="long grad witness, plain K4-K6",
+                       limits=LONG_GRAD_LIMITS)
+    check(not any(n.values()), f"the plain run launched {n}")
+    long_train, _ = phase_train(
+        every, dev, LONG_TRAIN_FLAGS, LONG_BATCH, 518, 14,
+        fixed_batch=False, warmup=LONG_WARMUP_STEPS, timed=LONG_TIMED_STEPS,
+        tag="long train")
+    check(long_train["FLASH_BWD_DKDV_LAUNCHES"] == 12 * TRAIN_STEPS
+          and long_train["FLASH_BWD_DQ_LAUNCHES"] == 12 * TRAIN_STEPS
+          and long_train["FLASH_FWD_LAUNCHES"]
+          == 12 * (TRAIN_STEPS + EVAL_BATCHES)
+          and long_train["ATTN_FWD_LAUNCHES"] == 0,
+          f"{long_train} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
 
     b1, b64 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
-    log(f"[device] nvidia-smi: {nvidia_smi()}")
-    print(json.dumps({"kernels": [{
-        "name": "attn_fwd", "route": "cuda",
-        "source": f"{PKG}/csrc/attn_fwd.cu",
-        "replaces": "vision_transformers_torch_xla_tpu/ops/"
-                    "flash_attention.py:291",
-        "launches": train_launches["attn_fwd"],
+    l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
+    src = f"{PKG}/csrc/"
+    jax_ops = "vision_transformers_torch_xla_tpu/ops/"
+
+    def long_entry(name, replaces, library):
+        return {
+            "name": name, "route": "cuda", "source": src + "flash_blocked.cu",
+            "replaces": jax_ops + replaces,
+            "launches": long_train[f"{name.upper()}_LAUNCHES"],
+            "max_abs_err": long_worst[name], "shape": LONG_MAIN_SHAPES[1],
+            "ms": l32[f"{name}_ms"], "plain_ms": l32[f"{name}_plain_ms"],
+            "bound_ms": l32[f"{name}_bound_ms"],
+            "bound_by": l32[f"{name}_bound_by"],
+            "library_ms": l32[library], "ms_b1": l1[f"{name}_ms"],
+            "plain_ms_b1": l1[f"{name}_plain_ms"],
+            "ms_s197_b64": long_k[(64, 197, 12, 64)][f"{name}_ms"],
+            "ms_s197_b128": long_k[(128, 197, 12, 64)][f"{name}_ms"]}
+
+    kernels = [{
+        "name": "attn_fwd", "route": "cuda", "source": src + "attn_fwd.cu",
+        "replaces": jax_ops + "flash_attention.py:291",
+        "launches": train_launches["ATTN_FWD_LAUNCHES"],
         "launches_serve": serve_launches, "max_abs_err": worst,
-        "ms": b1["ms"], "plain_ms": b1["plain_ms"],
-        "ms_b64": b64["ms"], "plain_ms_b64": b64["plain_ms"]}, {
-        "name": "attn_bwd", "route": "cuda",
-        "source": f"{PKG}/csrc/attn_bwd.cu",
-        "replaces": "vision_transformers_torch_xla_tpu/ops/"
-                    "flash_attention.py:495",
-        "launches": train_launches["attn_bwd"], "max_abs_err": bwd_worst,
+        "shape": MAIN_SHAPES[1], "ms": b64["ms"], "plain_ms": b64["plain_ms"],
+        "bound_ms": b64["bound_ms"], "bound_by": b64["bound_by"],
+        "library_ms": b64["library_ms"], "ms_b1": b1["ms"],
+        "plain_ms_b1": b1["plain_ms"]}, {
+        "name": "attn_bwd", "route": "cuda", "source": src + "attn_bwd.cu",
+        "replaces": jax_ops + "flash_attention.py:495",
+        "launches": train_launches["ATTN_BWD_LAUNCHES"],
+        "max_abs_err": bwd_worst, "shape": BWD_MAIN_SHAPES[1],
         "ms": g128["ms"], "plain_ms": g128["plain_ms"],
-        "ms_b64": g64["ms"], "plain_ms_b64": g64["plain_ms"]}]}))
+        "bound_ms": g128["bound_ms"], "bound_by": g128["bound_by"],
+        "library_ms": g128["library_ms"], "ms_b64": g64["ms"],
+        "plain_ms_b64": g64["plain_ms"]},
+        dict(long_entry("flash_fwd", "flash_blocked.py:33", "sdpa_fwd_ms"),
+             launches_serve=long_serve),
+        long_entry("flash_bwd_dkdv", "flash_blocked.py:109", "sdpa_bwd_ms"),
+        long_entry("flash_bwd_dq", "flash_blocked.py:157", "sdpa_bwd_ms")]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel of the path never launched: "
+          f"{[(k['name'], k['launches']) for k in kernels]}")
+    log(f"[device] nvidia-smi: {nvidia_smi()}")
+    log(f"[done] chip_smoke took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

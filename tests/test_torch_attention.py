@@ -131,7 +131,8 @@ def test_attn_fwd_kernel_contract(cuda_device):
     x = torch.zeros((1, 8, 3 * H * D), device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.attn_fwd(x, H)
-    with pytest.raises(NotImplementedError, match="K4"):
+    # K1 takes S <= 1024; longer sequences are the blocked kernels' (K4)
+    with pytest.raises(ValueError, match="flash_blocked"):
         fa.attn_fwd(torch.zeros((1, 1025, 3 * H * D), device=cuda_device,
                                 dtype=torch.bfloat16), H)
     # a call that needs a gradient goes through the autograd Function,

@@ -1,0 +1,250 @@
+"""The port's blocked flash attention against the JAX package's.
+
+ops/flash_blocked.py's plain versions (what the wrappers run on the CPU)
+against JAX `flash_attention_blocked` and its `_flash_fwd` in interpret mode,
+as tests/test_flash_blocked.py runs them: forward o and lse, and dq, dk, dv
+of the port's autograd Function `FlashAttentionBlocked` against jax.grad.
+Inputs come from a numpy seed. Then the port's `fused_attention_qkv_cols`
+(S > 1024) against the JAX function, and the wrappers' contract. The
+`cuda` cases hold each kernel (K4, K5, K6) against its plain version on
+the card and skip without one. The JAX package is imported inside the
+JAX helpers, so that the `cuda` cases also run where flax is missing.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from vision_transformers_torch_xla_tpu_torch.ops import flash_attention as fa
+from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked as fb
+
+# fp32: both sides run the same online-softmax arithmetic in other orders
+# and block sizes; the tolerance of tests/test_flash_blocked.py
+ATOL = 2e-3
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    return torch.device("cuda", 0)
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _jfb():
+    from vision_transformers_torch_xla_tpu.ops import flash_blocked
+
+    return flash_blocked
+
+
+def _jax_fwd(q, k, v, scale):
+    """JAX's padded forward kernel in interpret mode -> o, lse (B, H, S)."""
+    jfb = _jfb()
+    b, h, s, d = q.shape
+    sp = max(jfb._round_up(s, jfb.BLOCK_Q), jfb.BLOCK_Q)
+
+    def prep(x):
+        return jnp.pad(jnp.asarray(x).reshape(b * h, s, d),
+                       ((0, 0), (0, sp - s), (0, 0)))
+
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = jfb._flash_fwd(prep(q), prep(k), prep(v), scale, s)
+    return (np.asarray(o[:, :s].astype(jnp.float32)).reshape(b, h, s, d),
+            np.asarray(lse[:, :s, 0]).reshape(b, h, s))
+
+
+def _jax_grads(q, k, v, dtype=jnp.float32):
+    jfb = _jfb()
+
+    def loss(q, k, v):
+        o = jfb.flash_attention_blocked(q, k, v)
+        return (o.astype(jnp.float32) ** 2).sum()
+
+    with pltpu.force_tpu_interpret_mode():
+        g = jax.grad(loss, argnums=(0, 1, 2))(
+            *(jnp.asarray(x, dtype) for x in (q, k, v)))
+    return [np.asarray(x.astype(jnp.float32)) for x in g]
+
+
+def _graph(fn):
+    """Names of the autograd nodes reachable from fn."""
+    names, todo = set(), [fn]
+    while todo:
+        node = todo.pop()
+        if node is not None and type(node).__name__ not in names:
+            names.add(type(node).__name__)
+            todo.extend(n for n, _ in node.next_functions)
+    return names
+
+
+def _port_grads(q, k, v, dtype=torch.float32):
+    t = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    o = fb.flash_attention_blocked(*t)
+    assert "FlashAttentionBlockedBackward" in _graph(o.grad_fn)
+    (o.float() ** 2).sum().backward()
+    return [x.grad.float().numpy() for x in t]
+
+
+@pytest.mark.parametrize("s", [300, 512, 1025])
+def test_plain_fwd_matches_jax_fp32(s):
+    b, h, d = 1, 2, 64
+    q, k, v = (_rand((b, h, s, d), seed) for seed in (s, s + 1, s + 2))
+    scale = d ** -0.5
+    want_o, want_lse = _jax_fwd(q, k, v, scale)
+    o, lse = fb.flash_fwd(*(torch.from_numpy(x) for x in (q, k, v)), scale)
+    assert o.dtype == torch.float32 and lse.shape == (b, h, s)
+    np.testing.assert_allclose(o.numpy(), want_o, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("s", [300, 512, 1025])
+def test_plain_grads_match_jax_fp32(s):
+    b, h, d = 1, 1, 64
+    q, k, v = (_rand((b, h, s, d), seed) for seed in (s + 3, s + 4, s + 5))
+    want = _jax_grads(q, k, v)
+    got = _port_grads(q, k, v)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=0, err_msg=name)
+
+
+def test_plain_matches_jax_bf16():
+    # bf16 inputs, both sides round p and ds to bf16 before their products.
+    # The JAX kernel rounds p = exp(s - m) against the running max of each
+    # 256-key block and rescales later; the plain version rounds against the
+    # row's final max. Each p so carries its own bf16 rounding (2^-9
+    # relative), and o (|o| < 1) and the stored bf16 grads differ by a few
+    # bf16 ulps: atol 2e-2 on o (2^-8 at 0.5..1 is 3.9e-3, x5), 1e-3 on the
+    # fp32 lse, and 3e-2 of the largest |grad| on dq, dk, dv.
+    b, h, s, d = 1, 2, 1025, 64
+    q, k, v = (_rand((b, h, s, d), seed) for seed in (7, 8, 9))
+    scale = d ** -0.5
+    qb, kb, vb = (np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+                  for x in (q, k, v))
+    want_o, want_lse = _jax_fwd(*(jnp.asarray(x, jnp.bfloat16)
+                                  for x in (qb, kb, vb)), scale)
+    o, lse = fb.flash_fwd(*(torch.from_numpy(x).bfloat16()
+                            for x in (qb, kb, vb)), scale)
+    assert o.dtype == torch.bfloat16
+    np.testing.assert_allclose(o.float().numpy(), want_o, atol=2e-2, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-3, rtol=0)
+    want = _jax_grads(qb[:, :1], kb[:, :1], vb[:, :1], jnp.bfloat16)
+    got = _port_grads(qb[:, :1], kb[:, :1], vb[:, :1], torch.bfloat16)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, atol=3e-2 * np.abs(w).max(),
+                                   rtol=0, err_msg=name)
+
+
+def test_qkv_cols_matches_jax_fp32():
+    from vision_transformers_torch_xla_tpu.ops.flash_attention import (
+        fused_attention_qkv_cols as jax_qkv_cols,
+    )
+
+    b, s, h, d = 1, 1030, 2, 64
+    qkv = _rand((b, s, 3 * h * d), 11)
+    do = _rand((b, s, h * d), 12)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda x: jax_qkv_cols(x, h), jnp.asarray(qkv))
+        (want_g,) = vjp(jnp.asarray(do))
+    x = torch.from_numpy(qkv).requires_grad_()
+    got = fa.fused_attention_qkv_cols(x, h)
+    assert type(got.grad_fn).__name__ == "FlashAttentionBlockedBackward"
+    got.backward(torch.from_numpy(do))
+    assert got.shape == (b, s, h * d)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_g),
+                               atol=ATOL, rtol=0)
+
+
+def test_qkv_cols_short_sequence_raises_naming_k9():
+    with pytest.raises(NotImplementedError, match="K9"):
+        fa.fused_attention_qkv_cols(torch.zeros((1, 1024, 3 * 2 * 64)), 2)
+
+
+def test_cpu_runs_plain_versions_without_counting():
+    q, k, v = (torch.from_numpy(_rand((1, 2, 40, 32), s)) for s in (1, 2, 3))
+    before = (fb.FLASH_FWD_LAUNCHES, fb.FLASH_BWD_DKDV_LAUNCHES,
+              fb.FLASH_BWD_DQ_LAUNCHES)
+    o, lse = fb.flash_fwd(q, k, v)
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, 32 ** -0.5)
+    assert torch.equal(o, o_r) and torch.equal(lse, lse_r)
+    dqkv = fb.flash_bwd(q, k, v, o, lse, o, 0.2)
+    assert dqkv.shape == (1, 40, 3 * 2 * 32)
+    for g, r in zip(fb.heads(dqkv, 2),
+                    fb.flash_bwd_reference(q, k, v, o, lse, o, 0.2)):
+        assert torch.equal(g, r)
+    assert (fb.FLASH_FWD_LAUNCHES, fb.FLASH_BWD_DKDV_LAUNCHES,
+            fb.FLASH_BWD_DQ_LAUNCHES) == before
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    meta = torch.empty((1, 2, 40, 32), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fb.flash_fwd(meta, meta, meta)
+    x = torch.zeros((1, 2, 40, 32))
+    with pytest.raises(ValueError, match="do not fit"):
+        fb.flash_bwd(x, x, x, x, torch.zeros((1, 2, 39)), x)
+    # the backward kernels' wrappers check what they hand the kernels
+    row = torch.empty((1, 2, 40), device="meta")
+    short = torch.empty((1, 2, 39, 32), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="q's shape"):
+        fb.flash_bwd_dkdv(meta, meta, meta, short, row, row, meta, meta)
+    with pytest.raises(ValueError, match="q's shape"):
+        fb.flash_bwd_dkdv(meta, meta, meta, meta, row, row, meta, short)
+    with pytest.raises(ValueError, match=r"\(B, H, S\)"):
+        fb.flash_bwd_dq(meta, meta, meta, meta, row[:, :, :39], row, meta)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fb.flash_bwd_dq(meta, meta, meta, meta, row, row, meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1370, 12, 64), (2, 1025, 3, 64),
+                                   (1, 2048, 2, 128), (2, 197, 4, 40)])
+def test_kernels_match_plain(cuda_device, shape):
+    # same bf16 inputs and cast order; o differs by bf16(p) roundings of
+    # the online max and a flipped rounding of o itself (a few bf16 ulps of
+    # its largest value), the grads by fp32 summation order
+    b, s, h, d = shape
+    qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 21)).to(cuda_device,
+                                                           torch.bfloat16)
+    q, k, v = fb.heads(qkv, h)
+    do = torch.from_numpy(_rand((b, s, h * d), 22)).to(
+        cuda_device, torch.bfloat16).view(b, s, h, d).transpose(1, 2)
+    before = (fb.FLASH_FWD_LAUNCHES, fb.FLASH_BWD_DKDV_LAUNCHES,
+              fb.FLASH_BWD_DQ_LAUNCHES)
+    o, lse = fb.flash_fwd(q, k, v)
+    dqkv = fb.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fb.FLASH_FWD_LAUNCHES, fb.FLASH_BWD_DKDV_LAUNCHES,
+            fb.FLASH_BWD_DQ_LAUNCHES) == tuple(n + 1 for n in before)
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    o_err = (o.float() - o_r.float()).abs().max().item()
+    assert o_err <= 2e-2 * o_r.float().abs().max().item()
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=0)
+    for g, r in zip(fb.heads(dqkv, h),
+                    fb.flash_bwd_reference(q, k, v, o, lse, do, d ** -0.5)):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernels_contract_on_cuda(cuda_device):
+    x = torch.zeros((1, 2, 1100, 64), device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fb.flash_fwd(x, x, x)
+    y = torch.zeros((1, 2, 1100, 192), device=cuda_device,
+                    dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fb.flash_fwd(y, y, y)
+    qkv = torch.zeros((1, 1100, 3 * 2 * 64), device=cuda_device,
+                      dtype=torch.bfloat16, requires_grad=True)
+    before = fb.FLASH_FWD_LAUNCHES
+    out = fa.fused_attention_qkv_cols(qkv, 2)
+    assert fb.FLASH_FWD_LAUNCHES == before + 1
+    assert type(out.grad_fn).__name__ != "NoneType"

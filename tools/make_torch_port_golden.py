@@ -1,20 +1,29 @@
 """Golden logits and JPEGs for the PyTorch port's checks.
 
-Writes tests/data/torch_port_golden_my_vit_b.json: the JAX package's fp32
-logits of full-width my_vit_b (act_layer gelu_tanh, global_pool avg) on two
-seeded images, with weights that both packages can make from a seed:
+Writes tests/data/torch_port_golden_<model>.json: the JAX package's fp32
+logits of a full-width model on two seeded images, with weights that both
+packages can make from a seed. Two models have goldens (CONFIGS):
+
+  * my_vit_b at 224 px (act_layer gelu_tanh, global_pool avg), the serving
+    and training slices' model;
+  * vit_base_patch14_dinov2 at 518 px (global_pool token; S = 1370, the
+    long-sequence path), with its LayerScale gammas set to 1.
 
   * weights: a timm-named state dict from the port's
-    core/seeded.py::seeded_state_dict(shapes, seed=0) (shapes read off the
-    port's model built on the meta device), converted to flax params with
-    ckpt/torch_compat.py::convert_vit_state_dict;
-  * images: core/seeded.py::seeded_images(2, 224, seed=0), NHWC.
+    core/seeded.py::seeded_state_dict(shapes, seed=0, gamma) (shapes read
+    off the port's model built on the meta device), converted to flax
+    params with ckpt/torch_compat.py::convert_vit_state_dict;
+  * images: core/seeded.py::seeded_images(2, img, seed=0), NHWC.
 
 chip_smoke.py rebuilds the same weights and images and holds the port's
-bf16 forward on the card against these logits. Also writes the four small
-JPEGs (tests/data/serve_*.jpg) that the serve checks post.
+bf16 forward on the card against these logits. For my_vit_b it also writes
+the four small JPEGs (tests/data/serve_*.jpg) that the serve checks post.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py \
+        [--model vit_base_patch14_dinov2]
+
+The 518-px model is a full-size fp32 run (~0.6 TFLOP): run it on a host
+with the cores and memory for it.
 """
 from __future__ import annotations
 
@@ -28,9 +37,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 DATA = os.path.join(REPO, "tests", "data")
-GOLDEN = os.path.join(DATA, "torch_port_golden_my_vit_b.json")
-MODEL_KW = dict(act_layer="gelu_tanh", global_pool="avg")
 JPEG_SIZES = ((320, 240), (240, 320), (256, 256), (500, 375))
+# model -> image size, model kwargs, LayerScale gamma of the seeded weights
+CONFIGS = {
+    "my_vit_b": (224, dict(act_layer="gelu_tanh", global_pool="avg"), None),
+    "vit_base_patch14_dinov2": (518, dict(global_pool="token"), 1.0),
+}
 
 
 def write_jpegs() -> None:
@@ -45,44 +57,69 @@ def write_jpegs() -> None:
             os.path.join(DATA, f"serve_{i}.jpg"), quality=80)
 
 
-def write_golden() -> None:
-    import jax
-    import jax.numpy as jnp
+def seeded_params(name: str):
+    """The seeded timm state dict of CONFIGS[name] as flax params."""
     import torch
 
     from vision_transformers_torch_xla_tpu.ckpt.torch_compat import (
         convert_vit_state_dict,
     )
+    from vision_transformers_torch_xla_tpu_torch.core.seeded import (
+        seeded_state_dict,
+    )
+    from vision_transformers_torch_xla_tpu_torch.models import create_model
+
+    img, kw, gamma = CONFIGS[name]
+    meta = create_model(name, img_size=img, device=torch.device("meta"), **kw)
+    shapes = {k: tuple(v.shape) for k, v in meta.state_dict().items()}
+    return convert_vit_state_dict(seeded_state_dict(shapes, seed=0,
+                                                    gamma=gamma)), shapes
+
+
+def weights_note(name: str) -> str:
+    gamma = CONFIGS[name][2]
+    return "core/seeded.py::seeded_state_dict(seed=0" + (
+        f", gamma={gamma})" if gamma is not None else ")")
+
+
+def write_golden(name: str) -> None:
+    import jax
+    import jax.numpy as jnp
+
     from vision_transformers_torch_xla_tpu.models import (
         create_model as jax_create,
     )
     from vision_transformers_torch_xla_tpu_torch.core.seeded import (
         seeded_images,
-        seeded_state_dict,
     )
-    from vision_transformers_torch_xla_tpu_torch.models import create_model
 
-    meta = create_model("my_vit_b", device=torch.device("meta"), **MODEL_KW)
-    shapes = {k: tuple(v.shape) for k, v in meta.state_dict().items()}
-    params = convert_vit_state_dict(seeded_state_dict(shapes, seed=0))
-    images = seeded_images(2, 224, seed=0)
-    model = jax_create("my_vit_b", dtype=jnp.float32, **MODEL_KW)
+    img, kw, _ = CONFIGS[name]
+    params, _ = seeded_params(name)
+    images = seeded_images(2, img, seed=0)
+    model = jax_create(name, img_size=img, dtype=jnp.float32, **kw)
     logits = jax.jit(lambda p, x: model.apply({"params": p}, x, True))(
         params, jnp.asarray(images))
     logits = np.asarray(logits, np.float32)
-    with open(GOLDEN, "w") as f:
+    path = os.path.join(DATA, f"torch_port_golden_{name}.json")
+    with open(path, "w") as f:
         json.dump({
-            "model": "my_vit_b", "model_kwargs": MODEL_KW,
-            "weights": "core/seeded.py::seeded_state_dict(seed=0)",
-            "images": "core/seeded.py::seeded_images(2, 224, seed=0)",
+            "model": name, "model_kwargs": kw, "img_size": img,
+            "weights": weights_note(name),
+            "images": f"core/seeded.py::seeded_images(2, {img}, seed=0)",
             "dtype": "float32", "backend": "jax cpu",
             "logits": [[float(v) for v in row] for row in logits],
         }, f)
-    print(f"wrote {GOLDEN}: logits {logits.shape}, |max| "
+    print(f"wrote {path}: logits {logits.shape}, |max| "
           f"{np.abs(logits).max():.4f}, std {logits.std():.4f}")
 
 
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="my_vit_b", choices=sorted(CONFIGS))
+    args = ap.parse_args()
     os.makedirs(DATA, exist_ok=True)
-    write_jpegs()
-    write_golden()
+    if args.model == "my_vit_b":
+        write_jpegs()
+    write_golden(args.model)

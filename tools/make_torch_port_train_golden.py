@@ -1,14 +1,14 @@
 """Golden gradient numbers for the PyTorch port's train-step check.
 
-Writes tests/data/torch_port_train_golden_my_vit_b.json: one JAX fp32
-forward + backward of full-width my_vit_b (act_layer gelu_tanh,
-global_pool avg, drop_path 0) on the CPU, with weights and images that both
-packages can make from a seed:
+Writes tests/data/torch_port_train_golden_<model>.json: one JAX fp32
+forward + backward of a full-width model on the CPU, drop_path 0, with the
+weights and images of tools/make_torch_port_golden.py (its CONFIGS:
+my_vit_b at 224 px, vit_base_patch14_dinov2 at 518 px):
 
-  * weights: the port's core/seeded.py::seeded_state_dict(shapes, seed=0),
-    converted to flax params with ckpt/torch_compat.py::convert_vit_state_dict
-    (the weights of tools/make_torch_port_golden.py);
-  * images: core/seeded.py::seeded_images(2, 224, seed=0), NHWC;
+  * weights: the port's core/seeded.py::seeded_state_dict(shapes, seed=0,
+    gamma), converted to flax params with
+    ckpt/torch_compat.py::convert_vit_state_dict;
+  * images: core/seeded.py::seeded_images(2, img, seed=0), NHWC;
   * labels: numpy default_rng(0).integers(0, 1000, 2);
   * loss: soft-target CE against one-hot targets smoothed by 0.1, no mixup
     (train/steps.py without mixup).
@@ -17,7 +17,8 @@ It records the loss, the global grad norm and every parameter's grad L2
 norm under its timm name (through the port's ckpt/convert.py). chip_smoke.py
 holds the port's bf16 train-mode forward + backward on the card against it.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_train_golden.py
+    JAX_PLATFORMS=cpu python tools/make_torch_port_train_golden.py \
+        [--model vit_base_patch14_dinov2]
 """
 from __future__ import annotations
 
@@ -30,20 +31,14 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-GOLDEN = os.path.join(REPO, "tests", "data",
-                      "torch_port_train_golden_my_vit_b.json")
-MODEL_KW = dict(act_layer="gelu_tanh", global_pool="avg", drop_path_rate=0.0)
 SMOOTHING = 0.1
 
 
-def main() -> None:
+def main(name: str) -> None:
     import jax
     import jax.numpy as jnp
-    import torch
 
-    from vision_transformers_torch_xla_tpu.ckpt.torch_compat import (
-        convert_vit_state_dict,
-    )
+    from make_torch_port_golden import CONFIGS, seeded_params, weights_note
     from vision_transformers_torch_xla_tpu.models import (
         create_model as jax_create,
     )
@@ -56,17 +51,15 @@ def main() -> None:
     )
     from vision_transformers_torch_xla_tpu_torch.core.seeded import (
         seeded_images,
-        seeded_state_dict,
     )
-    from vision_transformers_torch_xla_tpu_torch.models import create_model
 
-    meta = create_model("my_vit_b", device=torch.device("meta"), **MODEL_KW)
-    shapes = {k: tuple(v.shape) for k, v in meta.state_dict().items()}
-    params = convert_vit_state_dict(seeded_state_dict(shapes, seed=0))
-    images = jnp.asarray(seeded_images(2, 224, seed=0))
+    img, kw, _ = CONFIGS[name]
+    kw = dict(kw, drop_path_rate=0.0)
+    params, shapes = seeded_params(name)
+    images = jnp.asarray(seeded_images(2, img, seed=0))
     labels = np.random.default_rng(0).integers(0, 1000, 2)
     targets = smoothed_one_hot(jnp.asarray(labels, jnp.int32), 1000, SMOOTHING)
-    model = jax_create("my_vit_b", dtype=jnp.float32, **MODEL_KW)
+    model = jax_create(name, img_size=img, dtype=jnp.float32, **kw)
 
     def loss_fn(p):
         logits = model.apply({"params": p}, images, True)
@@ -80,19 +73,27 @@ def main() -> None:
         raise RuntimeError(f"grad names differ from the port's: "
                            f"{sorted(set(norms) ^ set(shapes))}")
     grad_norm = float(np.sqrt(sum(n * n for n in norms.values())))
-    with open(GOLDEN, "w") as f:
+    path = os.path.join(REPO, "tests", "data",
+                        f"torch_port_train_golden_{name}.json")
+    with open(path, "w") as f:
         json.dump({
-            "model": "my_vit_b", "model_kwargs": MODEL_KW,
-            "weights": "core/seeded.py::seeded_state_dict(seed=0)",
-            "images": "core/seeded.py::seeded_images(2, 224, seed=0)",
+            "model": name, "model_kwargs": kw, "img_size": img,
+            "weights": weights_note(name),
+            "images": f"core/seeded.py::seeded_images(2, {img}, seed=0)",
             "labels": [int(v) for v in labels], "smoothing": SMOOTHING,
             "dtype": "float32", "backend": "jax cpu",
             "loss": float(loss), "grad_norm": grad_norm,
             "grad_norms": {k: norms[k] for k in sorted(norms)},
         }, f, indent=0)
-    print(f"wrote {GOLDEN}: loss {float(loss):.6f}, grad norm "
+    print(f"wrote {path}: loss {float(loss):.6f}, grad norm "
           f"{grad_norm:.6f}, {len(norms)} parameters")
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="my_vit_b")
+    args = ap.parse_args()
+    main(args.model)

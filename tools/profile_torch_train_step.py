@@ -1,27 +1,33 @@
-"""Time and profile the PyTorch port's my_vit_b train step on one NVIDIA GPU.
+"""Time and profile the PyTorch port's train step on one NVIDIA GPU.
 
 The step is the trainer's own (launch/main.py::setup with the recipe's
-flags: batch 128, gelu_tanh, avg pool, drop_path 0.1, mixup/cutmix,
-label smoothing, AdamW with the wd mask, EMA), on one fixed device batch of
-the synthetic stream, so no host data enters the timed loop. It prints one
-JSON line with:
+flags: mixup/cutmix, label smoothing, drop_path 0.1, AdamW with the wd
+mask, EMA), on one fixed device batch of the synthetic stream, so no host
+data enters the timed loop. Two models:
+  * my_vit_b (default): 224 px, gelu_tanh, avg pool, batch 128; attention
+    through K1 and K2 (ops/flash_attention.py);
+  * vit_base_patch14_dinov2: 518 px (S = 1370), token pool, its own exact
+    GELU, batch 32; attention through K4, K5 and K6 (ops/flash_blocked.py).
+It prints one JSON line with:
   * the median step time (CUDA events around each step after warm-up) and
     images/s, with the attention kernels and with their plain PyTorch
     versions swapped in, in turns (kernel, plain, plain, kernel);
   * from a torch.profiler trace of a few kernel-path steps: the device's
     busy share of the wall time, the top device operations, and per step
-    the attention kernels' time (K1 forward, K2 backward) and the cuBLAS
-    time (`nvjet_*`, gemm kernels);
+    the attention kernels' time and the cuBLAS time (`nvjet_*`, gemm
+    kernels);
   * the optimizer's (AdamW + EMA) device span per step: CUDA events around
     each `FusedAdamW.fused_update` call of the profiled steps;
-  * for the K2 qkv-bias partials (ROADMAP K2): the time of the wrapper's
-    sum of the kernel's (B, 3HD) partials against a plain
+  * for my_vit_b, the K2 qkv-bias partials (ROADMAP K2): the time of the
+    wrapper's sum of the kernel's (B, 3HD) partials against a plain
     `dqkv.float().sum((0, 1))` over the (B, S, 3HD) gradient;
   * peak device memory, and the card's name and power limit.
 
 Run from the root of a checkout:
 
     python tools/profile_torch_train_step.py --batch 128 --steps 5
+    python tools/profile_torch_train_step.py \
+        --model vit_base_patch14_dinov2 --batch 32 --steps 3
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ from vision_transformers_torch_xla_tpu_torch.obs.metrics import (  # noqa: E402
 )
 from vision_transformers_torch_xla_tpu_torch.ops import (  # noqa: E402
     flash_attention as fa,
+    flash_blocked as fb,
 )
 from vision_transformers_torch_xla_tpu_torch.train.fused import (  # noqa: E402
     FusedAdamW,
@@ -60,8 +67,16 @@ from vision_transformers_torch_xla_tpu_torch.train.fused import (  # noqa: E402
 H100_BF16_PEAK_FLOPS = 989e12  # NVIDIA data sheet, H100 SXM, dense bf16
 
 
-def recipe_flags(batch: int):
-    return ["--model", "my_vit_b", "--act_layer", "gelu_tanh",
+# model -> its flags beside the recipe's, its image and patch size
+MODELS = {
+    "my_vit_b": (["--act_layer", "gelu_tanh"], 224, 16),
+    "vit_base_patch14_dinov2": (["--input_size", "518", "--global_pool",
+                                 "token"], 518, 14),
+}
+
+
+def recipe_flags(batch: int, model: str = "my_vit_b"):
+    return ["--model", model, *MODELS[model][0],
             "--batch_size", str(batch), "--data_set", "synthetic",
             "--model_ema", "true", "--lr", "4e-3", "--min_lr", "1e-6",
             "--warmup_epochs", "20", "--warmup_lr", "1e-6",
@@ -80,6 +95,33 @@ def plain_bwd(qkv, do, o, st, num_heads, scale=None):
     d = qkv.shape[-1] // (3 * num_heads)
     return fa.attn_bwd_reference(qkv, do, o, st, num_heads,
                                  float(scale if scale else d ** -0.5))
+
+
+def plain_flash_fwd(q, k, v, scale=None):
+    return fb.flash_fwd_reference(q, k, v, fb._scale(q, scale))
+
+
+def plain_flash_dkdv(q, k, v, do, lse, delta, dk, dv, scale=None):
+    dk_r, dv_r = fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                             fb._scale(q, scale))
+    return dk.copy_(dk_r), dv.copy_(dv_r)
+
+
+def plain_flash_dq(q, k, v, do, lse, delta, dq, scale=None):
+    return dq.copy_(fb.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                              fb._scale(q, scale)))
+
+
+KERNELS = ((fa, "attn_fwd", plain_fwd), (fa, "attn_bwd", plain_bwd),
+           (fb, "flash_fwd", plain_flash_fwd),
+           (fb, "flash_bwd_dkdv", plain_flash_dkdv),
+           (fb, "flash_bwd_dq", plain_flash_dq))
+
+
+def swap_attention(plain: bool, saved) -> None:
+    """Put the plain versions (or the saved kernel wrappers) in place."""
+    for (mod, name, fn), kernel in zip(KERNELS, saved):
+        setattr(mod, name, fn if plain else kernel)
 
 
 def profile(ctx, images, labels, seed, steps: int):
@@ -133,6 +175,10 @@ def profile(ctx, images, labels, seed, steps: int):
         "device_busy_share": busy_us / wall_us,
         "attn_fwd_k1_ms_per_step": per_step(lambda n: "attn_fwd_kernel" in n),
         "attn_bwd_k2_ms_per_step": per_step(lambda n: "attn_bwd_" in n),
+        "flash_fwd_k4_ms_per_step": per_step(lambda n: "flash_fwd_" in n),
+        "flash_dkdv_k5_ms_per_step": per_step(
+            lambda n: "flash_bwd_dkdv_" in n),
+        "flash_dq_k6_ms_per_step": per_step(lambda n: "flash_bwd_dq_" in n),
         "cublas_ms_per_step": per_step(
             lambda n: "nvjet" in n or "gemm" in n.lower()
             or "cutlass" in n.lower()),
@@ -179,6 +225,7 @@ def bias_partials_ab(batches, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="my_vit_b", choices=sorted(MODELS))
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=5,
                     help="profiled steps")
@@ -190,30 +237,33 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    cfg = config_from_args(recipe_flags(args.batch))
+    cfg = config_from_args(recipe_flags(args.batch, args.model))
     ctx = trainer.setup(cfg)
     images, labels = to_device(next(iter(ctx.train_ds)), dev)
-    kernels = (fa.attn_fwd, fa.attn_bwd)
+    saved = [getattr(mod, name) for mod, name, _ in KERNELS]
     times = {"kernel": [], "plain": []}
     for which in ("kernel", "plain", "plain", "kernel"):
-        fa.attn_fwd, fa.attn_bwd = kernels if which == "kernel" \
-            else (plain_fwd, plain_bwd)
+        swap_attention(which == "plain", saved)
         times[which].append(cuda_ms(lambda: step(ctx, images, labels,
                                                  cfg.seed), args.timed_steps))
-    fa.attn_fwd, fa.attn_bwd = kernels
+    swap_attention(False, saved)
     torch.cuda.reset_peak_memory_stats(dev)
     prof = profile(ctx, images, labels, cfg.seed, args.steps)
     ms = statistics.median(times["kernel"])
     ips = args.batch / (ms / 1e3)
-    print(json.dumps({
-        "card": card, "batch": args.batch,
+    _, img, patch = MODELS[args.model]
+    out = {
+        "card": card, "model": args.model, "batch": args.batch,
         "step_ms_kernel": times["kernel"],
         "step_ms_plain_attention": times["plain"],
         "images_per_s": ips,
-        "mfu": vit_train_flops_per_image() * ips / H100_BF16_PEAK_FLOPS,
+        "mfu": vit_train_flops_per_image(img, patch) * ips
+        / H100_BF16_PEAK_FLOPS,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "profile": prof,
-        "k2_bias_partials": bias_partials_ab((64, args.batch), dev)}))
+        "profile": prof}
+    if args.model == "my_vit_b":
+        out["k2_bias_partials"] = bias_partials_ab((64, args.batch), dev)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ download (tools/make_torch_port_golden.py, chip_smoke.py).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -17,9 +17,13 @@ def _is_norm_param(name: str) -> bool:
 
 
 def seeded_state_dict(shapes: Mapping[str, Sequence[int]],
-                      seed: int = 0) -> Dict[str, np.ndarray]:
+                      seed: int = 0, gamma: Optional[float] = None
+                      ) -> Dict[str, np.ndarray]:
     """A timm-named fp32 state dict: norm weights 1 and biases 0, every other
-    tensor N(0, 0.02), drawn in sorted-key order from default_rng(seed)."""
+    tensor N(0, 0.02), drawn in sorted-key order from default_rng(seed).
+    With `gamma`, the LayerScale gammas (names ending in '.gamma') are set
+    to that constant after the draw, so that the branches they scale move
+    the output."""
     rng = np.random.default_rng(seed)
     out = {}
     for name in sorted(shapes):
@@ -29,6 +33,8 @@ def seeded_state_dict(shapes: Mapping[str, Sequence[int]],
             out[name] = fill(shape, np.float32)
         else:
             out[name] = rng.normal(0.0, 0.02, shape).astype(np.float32)
+        if gamma is not None and name.endswith(".gamma"):
+            out[name] = np.full(shape, gamma, np.float32)
     return out
 
 

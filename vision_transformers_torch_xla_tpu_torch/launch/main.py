@@ -4,12 +4,17 @@ Counterpart of vision_transformers_torch_xla_tpu/launch/main.py (`setup`,
 `train_one_epoch`, `evaluate`, `main`; :162-521) on one device: the same
 flags (core/config.py), the same prints and the same returned dicts. On
 the card the train step runs the attention kernels forward and backward
-(ops/flash_attention.py); host metrics are read only at log_freq.
+(ops/flash_attention.py, ops/flash_blocked.py); host metrics are read only
+at log_freq.
 
     python -m vision_transformers_torch_xla_tpu_torch.launch.main \
         --model my_vit_b --act_layer gelu_tanh --data_set synthetic \
         --batch_size 128 --epochs 1 --limit_steps_per_epoch 3 \
         --limit_eval_batches 2
+
+A model of more than 1024 tokens (`--model vit_base_patch14_dinov2
+--input_size 518 --global_pool token`: 1,370) trains with the blocked
+attention kernels (ops/flash_blocked.py) forward and backward.
 
 `--device` '' (the default) means cuda and raises when there is no card;
 the CPU runs only with `--device cpu`. Options outside this slice raise

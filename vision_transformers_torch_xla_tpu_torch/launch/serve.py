@@ -9,6 +9,11 @@ checkpoint the weights come from a torch.Generator seeded 0.
 
     python -m vision_transformers_torch_xla_tpu_torch.launch.serve \
         --model my_vit_b --act_layer gelu_tanh --ckpt model.pth --port 8476
+    python -m vision_transformers_torch_xla_tpu_torch.launch.serve \
+        --model vit_base_patch14_dinov2 --image_size 518 --global_pool token
+
+A model of more than 1024 tokens (the second line: 1,370) runs its
+attention through the blocked kernels (ops/flash_blocked.py).
 
 Endpoints:
     GET  /healthz            -> {"status": "ok", "model": ...}

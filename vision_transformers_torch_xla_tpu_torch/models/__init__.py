@@ -1,5 +1,8 @@
 """ViT models with timm parameter names; importing registers the names."""
-from vision_transformers_torch_xla_tpu_torch.models import my_vit  # noqa: F401
+from vision_transformers_torch_xla_tpu_torch.models import (  # noqa: F401
+    my_vit,
+    vision_transformer_zoo,
+)
 from vision_transformers_torch_xla_tpu_torch.models.factory import create_model
 from vision_transformers_torch_xla_tpu_torch.models.registry import (
     get_default_cfg,

@@ -23,6 +23,8 @@ from vision_transformers_torch_xla_tpu_torch.ops.attention import (
 )
 from vision_transformers_torch_xla_tpu_torch.ops.bias_grad import bias_add
 from vision_transformers_torch_xla_tpu_torch.ops.flash_attention import (
+    MAX_SEQ,
+    fused_attention_qkv_cols,
     qkv_proj_attention,
 )
 
@@ -220,11 +222,18 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention (layers.py:265).
 
-    Without qk_norm and without an active attn_drop, the fused projection +
-    attention (ops/flash_attention.py::qkv_proj_attention) computes it, as
-    the JAX layer's kernel route does (layers.py:295-302): the CUDA kernels
-    on the card, their plain versions on the CPU. With a gradient that is
-    one autograd Function, whose backward is the attention-backward kernel.
+    Without qk_norm and without an active attn_drop, the JAX layer's kernel
+    routes compute it (layers.py:295-325), chosen by the sequence length
+    alone: the CUDA kernels on the card, their plain versions on the CPU.
+    * S <= 1024: the fused projection + attention
+      (ops/flash_attention.py::qkv_proj_attention, K1/K2); with a gradient
+      one autograd Function, whose backward is the attention-backward
+      kernel.
+    * S > 1024: the qkv Dense, then `fused_attention_qkv_cols` (the blocked
+      kernels K4-K6 of ops/flash_blocked.py), then the proj Dense.
+    The JAX layer also asks for head_dim % 64 == 0 and an even head count
+    (its TPU head-pair layout); the port's kernels take any head_dim <= 128
+    and any head count, so the port routes by S only.
     Otherwise the plain path projects, splits the heads and runs the
     fp32-softmax attention under autograd."""
 
@@ -254,9 +263,11 @@ class Attention(nn.Module):
         h, hd = self.num_heads, self.head_dim
         scale = hd ** -0.5
         attn_dropping = self.attn_drop > 0.0 and not deterministic
-        if not self.qk_norm and not attn_dropping:
+        if not self.qk_norm and not attn_dropping and s <= MAX_SEQ:
             o = qkv_proj_attention(x.to(self.dtype), self.qkv.weight.t(),
                                    self.qkv.bias, h, scale=scale)
+        elif not self.qk_norm and not attn_dropping:
+            o = fused_attention_qkv_cols(self.qkv(x), h, scale=scale)
         else:
             qkv = self.qkv(x).reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)
             q, k, v = qkv[0], qkv[1], qkv[2]

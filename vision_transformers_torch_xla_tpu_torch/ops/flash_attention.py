@@ -12,6 +12,10 @@ q, k and v straight from the (B, S, 3·H·D) projection output:
   ROADMAP K2), which recomputes the probabilities from those stats and
   writes dqkv in the standard column order plus fp32 qkv-bias partials.
 
+Both take S <= MAX_SEQ. Longer sequences go through
+`fused_attention_qkv_cols` (:459) to the blocked kernels of
+ops/flash_blocked.py (K4-K6).
+
 Each wrapper runs its plain version (`attn_fwd_reference`,
 `attn_bwd_reference`) only for tensors on the CPU. For CUDA tensors it
 launches the kernel or raises.
@@ -25,8 +29,11 @@ import torch
 
 from vision_transformers_torch_xla_tpu_torch.ops import cuda_build
 from vision_transformers_torch_xla_tpu_torch.ops.bias_grad import bias_add
+from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
+    FlashAttentionBlocked,
+)
 
-MAX_SEQ = 1024       # longer sequences are the blocked kernels' (ROADMAP K4)
+MAX_SEQ = 1024       # longer sequences are ops/flash_blocked.py's (K4-K6)
 MAX_HEAD_DIM = 128
 MAX_GRID_DIM = 65535  # batch and heads ride the grid's y and z dimensions
 
@@ -77,9 +84,10 @@ def _check_cuda(name: str, tensors, s: int, d: int, b: int,
         raise TypeError(f"the attention kernels take bfloat16, not "
                         f"{[t.dtype for t in tensors[:3]]}")
     if s > MAX_SEQ:
-        raise NotImplementedError(
-            f"sequence {s} > {MAX_SEQ}: the blocked attention kernels are "
-            f"not ported yet (ROADMAP K4)")
+        raise ValueError(
+            f"sequence {s} > {MAX_SEQ}: {name} takes S <= {MAX_SEQ}; longer "
+            f"sequences go through fused_attention_qkv_cols to "
+            f"ops/flash_blocked.py")
     if d % 2 or d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} must be even and <= {MAX_HEAD_DIM}")
     if b > MAX_GRID_DIM or num_heads > MAX_GRID_DIM:
@@ -276,3 +284,25 @@ def qkv_proj_attention(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         qkv = bias_add(qkv, b)
     return attn_fwd(qkv, num_heads, scale)[0]
+
+
+def fused_attention_qkv_cols(qkv: torch.Tensor, num_heads: int,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Attention straight off the fused qkv projection (:459).
+
+    qkv: (B, S, 3·H·D) laid out [q heads | k heads | v heads] -> (B, S, H·D).
+    S > MAX_SEQ runs the blocked kernels (ops/flash_blocked.py, K4-K6)
+    under `FlashAttentionBlocked`, on strided views of the buffer, with no
+    copy in or out and the buffer's gradient written once; the JAX
+    function's head-pair kernels for S <= MAX_SEQ (K9, K10) are not
+    ported, and that branch raises."""
+    _, s, _ = qkv.shape
+    d = _head_dim(qkv, num_heads)
+    scale = float(scale if scale is not None else d ** -0.5)
+    if s <= MAX_SEQ:
+        raise NotImplementedError(
+            f"fused_attention_qkv_cols at S = {s} <= {MAX_SEQ} needs the "
+            f"head-pair kernels _hp_fwd_kernel / _hp_bwd_kernel, which are "
+            f"not in the port yet (ROADMAP K9, K10); the model's S <= "
+            f"{MAX_SEQ} route is qkv_proj_attention")
+    return FlashAttentionBlocked.apply(qkv, num_heads, scale)

@@ -1,0 +1,336 @@
+"""Blocked flash attention (online softmax) for long sequences.
+
+Counterpart of vision_transformers_torch_xla_tpu/ops/flash_blocked.py: the
+long-sequence path (S > 1024, high-resolution ViTs). Three kernels in
+csrc/flash_blocked.cu:
+
+* `flash_fwd` -> the port of `_fwd_kernel` (:33, ROADMAP K4): o and the
+  row logsumexp lse = m + log(l);
+* `flash_bwd_dkdv` -> the port of `_bwd_dkdv_kernel` (:109, K5) and
+  `flash_bwd_dq` -> the port of `_bwd_dq_kernel` (:157, K6), both from
+  p = exp(s - lse) and delta = rowsum(dO·O), which a torch op computes
+  (`flash_delta`; JAX computes it outside Pallas too); `flash_bwd` runs
+  the three.
+
+`FlashAttentionBlocked` is the custom VJP `_flash_attention_padded`
+(:247-266) as an autograd Function, and `flash_attention_blocked` the
+public entry (:269). The wrappers take (B, H, S, D) tensors of any
+strides whose head dim is contiguous, so views of a fused (B, S, 3·H·D) qkv
+buffer go in as they are (`heads`); o comes back as a (B, H, S, D) view of
+(B, S, H, D) memory, and K5 and K6 write dq, dk, dv into the tensors they
+are given, which `flash_bwd` makes views of one (B, S, 3·H·D) buffer. The
+TPU padding of S to 256 (:274-281) is a tiling device: the kernels mask the
+ragged last tile and the plain versions work on the unpadded S.
+
+Each wrapper runs its plain version (`flash_fwd_reference`,
+`flash_bwd_dkdv_reference`, `flash_bwd_dq_reference`) only for tensors on
+the CPU. For CUDA tensors it launches its kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from vision_transformers_torch_xla_tpu_torch.ops import cuda_build
+
+MAX_HEAD_DIM = 128
+MAX_GRID_DIM = 65535  # batch x heads ride the grid's y dimension
+
+# Launches of the blocked kernels in this process. Only the wrappers'
+# launches add to them; callers may reset them to 0.
+FLASH_FWD_LAUNCHES = 0
+FLASH_BWD_DKDV_LAUNCHES = 0
+FLASH_BWD_DQ_LAUNCHES = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_LAYOUT = [_L] * 3  # element strides of batch, head and row
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the blocked kernels' library."""
+    lib = cuda_build.load_library("flash_blocked", ("flash_blocked.cu",))
+    sigs = {
+        "vtx_flash_fwd": [_P] * 5 + [_I] * 4 + [ctypes.c_float]
+        + _LAYOUT * 2 + [_P],
+        "vtx_flash_bwd_dkdv": [_P] * 8 + [_I] * 4 + [ctypes.c_float]
+        + _LAYOUT * 3 + [_P],
+        "vtx_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [ctypes.c_float]
+        + _LAYOUT * 3 + [_P],
+    }
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = argtypes
+    lib.vtx_cuda_error_string.restype = ctypes.c_char_p
+    lib.vtx_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return float(scale if scale is not None else q.shape[-1] ** -0.5)
+
+
+def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel, in its cast order.
+
+    q, k, v (..., S, D) -> o (..., S, D) in q's dtype and lse (..., S) fp32.
+    s = (fp32 q · scale) kᵀ, not rounded to q's dtype (:47); the row sum is
+    over fp32 p; p·v runs on p cast to v's dtype (:59-61); o = acc /
+    max(l, 1e-30) and lse = m + log(max(l, 1e-30)) (:69-73)."""
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _probs(q, k, lse, scale):
+    """p = exp((q kᵀ in fp32) · scale - lse) (:132-138)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.exp(s - lse.unsqueeze(-1))
+
+
+def _ds(p, v, do, delta):
+    """bf16(p (dO vᵀ - delta)), bf16 meaning the inputs' dtype."""
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return (p * (dp - delta.unsqueeze(-1))).to(v.dtype).float()
+
+
+def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dk/dv kernel (K5), in its cast order:
+    dv = bf16(p)ᵀ dO (:140-143), dk = bf16(ds)ᵀ q · scale (:147-149)."""
+    p = _probs(q, k, lse, scale)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(_ds(p, v, do, delta).transpose(-1, -2),
+                      q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale) -> torch.Tensor:
+    """Plain PyTorch version of the dq kernel (K6), in its cast order:
+    dq = bf16(ds) k · scale (:185-187)."""
+    p = _probs(q, k, lse, scale)
+    return (torch.matmul(_ds(p, v, do, delta), k.float()) * scale).to(q.dtype)
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = Σ fp32(dO)·fp32(O) over the head dim (:199-200), (B, H, S)
+    fp32 and contiguous; a torch op, as JAX computes it outside Pallas."""
+    return (do.float() * o.float()).sum(dim=-1).contiguous()
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, q, k, v, o, do (..., S, D) and
+    lse (..., S) fp32 -> dq, dk, dv in the inputs' dtypes."""
+    delta = flash_delta(o, do)
+    dk, dv = flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale)
+    return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale), dk, dv
+
+
+def _layout(t: torch.Tensor):
+    return tuple(int(x) for x in t.stride()[:3])
+
+
+def _check_cuda(name: str, tensors) -> None:
+    """The kernels' contract; raises on what they do not take."""
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"the blocked attention kernels take bfloat16, not "
+                        f"{[t.dtype for t in tensors]}")
+    b, h, _, d = tensors[0].shape
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be <= {MAX_HEAD_DIM}")
+    if b * h > MAX_GRID_DIM:
+        raise ValueError(f"batch x heads {b * h} must be <= {MAX_GRID_DIM}")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError(f"{name} takes tensors whose head dim is contiguous")
+
+
+def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.vtx_cuda_error_string(rc).decode())
+
+
+def _qkv_layout(q, k, v) -> Tuple[int, int, int]:
+    if not (q.shape == k.shape == v.shape and q.dim() == 4):
+        raise ValueError(f"q, k, v must be (B, H, S, D) of one shape, not "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not _layout(q) == _layout(k) == _layout(v):
+        raise ValueError(f"q, k and v must share one layout, not strides "
+                         f"{q.stride()}, {k.stride()}, {v.stride()}")
+    return _layout(q)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax attention, q, k, v (B, H, S, D) -> o (B, H, S, D), a view of
+    (B, S, H, D) memory, and the row logsumexp lse (B, H, S) fp32."""
+    global FLASH_FWD_LAUNCHES
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, scale)
+    in_l = _qkv_layout(q, k, v)
+    _check_cuda("flash_fwd", (q, k, v))
+    b, h, s, d = q.shape
+    o = torch.empty((b, s, h, d), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = build_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vtx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               o.data_ptr(), lse.data_ptr(), b, h, s, d,
+                               scale, *in_l, *_layout(o), stream)
+    _raise_on(lib, rc, "blocked attention forward")
+    FLASH_FWD_LAUNCHES += 1
+    return o, lse
+
+
+def _bwd_checks(name, q, k, v, do, lse, delta, outs):
+    """The backward kernels' contract on their inputs and the outputs they
+    write; returns the q, k, v layout."""
+    in_l = _qkv_layout(q, k, v)
+    if do.shape != q.shape or any(t.shape != q.shape for t in outs):
+        raise ValueError(f"do {tuple(do.shape)} and the outputs "
+                         f"{[tuple(t.shape) for t in outs]} must be of q's "
+                         f"shape {tuple(q.shape)}")
+    if len({_layout(t) for t in outs}) != 1:
+        raise ValueError(f"{name}'s outputs must share one layout")
+    if lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
+        raise ValueError(f"lse {tuple(lse.shape)} and delta "
+                         f"{tuple(delta.shape)} must be (B, H, S) = "
+                         f"{tuple(q.shape[:3])}")
+    _check_cuda(name, (q, k, v, do, *outs))
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError(f"lse and delta must be float32, not {lse.dtype}, "
+                        f"{delta.dtype}")
+    if lse.device != q.device or delta.device != q.device:
+        raise ValueError(f"lse and delta must be on {q.device}")
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous lse and delta")
+    return in_l
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv,
+                   scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk, dv of the blocked attention (K5), from lse and delta (B, H, S)
+    fp32, written into the (B, H, S, D) tensors dk and dv."""
+    global FLASH_BWD_DKDV_LAUNCHES
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        dk_r, dv_r = flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale)
+        return dk.copy_(dk_r), dv.copy_(dv_r)
+    in_l = _bwd_checks("flash_bwd_dkdv", q, k, v, do, lse, delta, (dk, dv))
+    b, h, s, d = q.shape
+    lib = build_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vtx_flash_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, s, d, scale, *in_l, *_layout(do), *_layout(dk), stream)
+    _raise_on(lib, rc, "blocked attention backward (dk, dv)")
+    FLASH_BWD_DKDV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, dq,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """dq of the blocked attention (K6), from lse and delta (B, H, S) fp32,
+    written into the (B, H, S, D) tensor dq."""
+    global FLASH_BWD_DQ_LAUNCHES
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        return dq.copy_(flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               scale))
+    in_l = _bwd_checks("flash_bwd_dq", q, k, v, do, lse, delta, (dq,))
+    b, h, s, d = q.shape
+    lib = build_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vtx_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, s, d,
+            scale, *in_l, *_layout(do), *_layout(dq), stream)
+    _raise_on(lib, rc, "blocked attention backward (dq)")
+    FLASH_BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def heads(qkv: torch.Tensor, num_heads: int):
+    """q, k, v: (B, H, S, D) views of a (B, S, 3·H·D) buffer laid out
+    [q heads | k heads | v heads]."""
+    b, s, c = qkv.shape
+    return qkv.reshape(b, s, 3, num_heads, c // (3 * num_heads)).permute(
+        2, 0, 3, 1, 4).unbind(0)
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Gradient of `flash_fwd` from its o and lse: delta, then K5 and K6.
+    Returns dqkv (B, S, 3·H·D): dq, dk, dv laid out as the fused qkv
+    projection, each written once."""
+    b, h, s, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    dqkv = torch.empty((b, s, 3 * h * d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = heads(dqkv, h)
+    delta = flash_delta(o, do)
+    flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, scale)
+    flash_bwd_dq(q, k, v, do, lse, delta, dq, scale)
+    return dqkv
+
+
+class FlashAttentionBlocked(torch.autograd.Function):
+    """The JAX custom VJP `_flash_attention_padded` on a fused (B, S, 3·H·D)
+    qkv buffer: the kernels read q, k, v from it by stride, the forward
+    saves it with o and lse and returns o (B, S, H·D); the backward returns
+    the buffer's gradient, written once by K5 and K6."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, scale: float):
+        o, lse = flash_fwd(*heads(qkv, num_heads), scale)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        b, s, _ = qkv.shape
+        return o.transpose(1, 2).reshape(b, s, -1)
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, lse = ctx.saved_tensors
+        b, h, s, d = o.shape
+        do = do.contiguous().view(b, s, h, d).transpose(1, 2)
+        return (flash_bwd(*heads(qkv, ctx.num_heads), o, lse, do, ctx.scale),
+                None, None)
+
+
+def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: Optional[float] = None
+                            ) -> torch.Tensor:
+    """Blocked flash attention. q, k, v: (B, H, S, D) -> (B, H, S, D).
+
+    They are packed into one (B, S, 3·H·D) buffer for
+    `FlashAttentionBlocked`; the model's path hands it the projection's own
+    buffer (ops/flash_attention.py::fused_attention_qkv_cols)."""
+    b, h, s, d = q.shape
+    qkv = torch.stack((q, k, v), dim=1).permute(0, 3, 1, 2, 4).reshape(
+        b, s, 3 * h * d)
+    o = FlashAttentionBlocked.apply(qkv, h, _scale(q, scale))
+    return o.view(b, s, h, d).transpose(1, 2)
