@@ -70,6 +70,38 @@ ops/flash_blocked.py):
     the step timed on a fixed device batch: median ms, images/s, MFU at
     518/14 and peak memory.
 
+The fused-backward MLP (`--pallas_mlp on`, ops/mlp_fused.py) and the
+head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
+
+16. build: csrc/mlp_fused.cu (K3) and csrc/hp_bwd.cu (K10), started with
+    the others in phase 2; build time, registers and spills.
+17. K3 vs plain: ops/mlp_fused.py::fc2_bwd against fc2_bwd_reference on
+    seeded bf16 dy, fc2 weight and h at the step's shapes (B 128 and 64,
+    S 197, O 768, K 3072) and a few of the contract (ragged S with an odd
+    B, K 256, a single short tile); at the step's shapes the median
+    CUDA-event time of the kernel, of its plain version, and of the
+    default path's work for the same result (cuBLAS da, autograd's GELU
+    backward, the fp32 bias sum: unfused_ms). No single PyTorch call
+    computes K3's function, so library_ms is null.
+18. gradient, --pallas_mlp on: phase 8 on the same weights with every MLP
+    on the fused route, against the same JAX fp32 train golden (the
+    function is the same) with phase 8's limits; exactly 12 launches each
+    of K1, K2 and K3, and each K3 call held against its plain version on
+    the same inputs (the model's own data).
+19. train, --pallas_mlp on: launch/main.py::main with the recipe's flags and
+    `--pallas_mlp on` at batch 128 for 3 steps and 2 eval batches (12 K3
+    launches per step, none in eval), then the step timed on a fixed device
+    batch, printed beside phase 9's default step (the A/B).
+20. K9 and K10 vs plain: `fused_attention_qkv_cols` forward and backward at
+    S <= 1024 (B 64 and 128 at S 197, H 12, D 64; S 1024, a ragged S and
+    D 128), o against attn_fwd_reference (K9's plain version is K1's
+    without stats) and the qkv gradient against hp_bwd_reference, with
+    phase 3's and 7's limits; at B 64 and 128 the median CUDA-event time
+    of each kernel, its plain version and SDPA's forward or backward.
+
+Every phase counts the launches of all eight kernels: a run with the
+default flags launches neither K3 nor K9 nor K10.
+
 Every kernel's line in the kernels JSON carries its time, its plain
 version's, the yardstick's (library_ms) and bound_ms: the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -182,6 +214,30 @@ LONG_TRAIN_FLAGS = [
 LONG_GRAD_LIMITS = (0.05, 1e-2, 2.5e-2)
 LONG_WARMUP_STEPS = 2
 LONG_TIMED_STEPS = 5
+
+# The fused-backward MLP (K3): (B, S, O, K) shapes of fc2_bwd. Kernel vs
+# plain (same bf16 inputs, same cast order): dh and a are bf16 and move by
+# a flipped rounding (the fp32 summation order of da), a few bf16 ulps of
+# their largest value; db1 sums fp32 dh, so only the summation order moves
+# it.
+MLP_MAIN_SHAPES = ((128, 197, 768, 3072), (64, 197, 768, 3072))
+MLP_EXTRA_SHAPES = ((3, 77, 768, 3072), (2, 130, 128, 256), (1, 5, 256, 512))
+DH_REL_ATOL = 2e-2
+DB1_REL_ATOL = 1e-3
+PALLAS_MLP_FLAGS = RECIPE_FLAGS + ["--pallas_mlp", "on"]
+# The head-pair route (K9, K10) of fused_attention_qkv_cols, (B, S, H, D)
+HP_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
+HP_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 77, 3, 48), (2, 130, 2, 128))
+
+# every kernel's launch count, 'module.COUNT' in ops/
+ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
+              "flash_attention.ATTN_BWD_LAUNCHES",
+              "flash_blocked.FLASH_FWD_LAUNCHES",
+              "flash_blocked.FLASH_BWD_DKDV_LAUNCHES",
+              "flash_blocked.FLASH_BWD_DQ_LAUNCHES",
+              "mlp_fused.FC2_BWD_LAUNCHES",
+              "flash_attention.HP_FWD_LAUNCHES",
+              "flash_attention.HP_BWD_LAUNCHES")
 
 
 def log(msg: str) -> None:
@@ -419,7 +475,7 @@ def phase_serve(counter, ckpt_path, name="my_vit_b", tag="serve",
     return launches, statistics.median(latencies)
 
 
-def build_all(fa, fb):
+def build_all(fa, fb, mf):
     """Start every kernel build at once, one nvcc per source; returns each
     library's build (or load) time in seconds. A failed build raises."""
     from concurrent.futures import ThreadPoolExecutor
@@ -430,7 +486,8 @@ def build_all(fa, fb):
         return time.perf_counter() - t0
 
     builds = {"attn_fwd": fa.build_kernels, "attn_bwd": fa.build_bwd_kernels,
-              "flash_blocked": fb.build_kernels}
+              "flash_blocked": fb.build_kernels, "mlp_fused": mf.build_kernels,
+              "hp_bwd": fa.build_hp_bwd_kernels}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {n: pool.submit(timed, fn) for n, fn in builds.items()}
         return {n: f.result() for n, f in futures.items()}
@@ -444,9 +501,11 @@ def log_ptxas(cuda_build, name: str, tag: str) -> None:
     for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            k = re.search(r"((?:attn|flash)_\w+?_kernel)(?:ILi(\d+)E)?",
-                          m.group(1))
-            fn = f"{k.group(1)}<{k.group(2) or 0}>" if k else m.group(1)
+            # the kernel's own name is the last match: the anonymous
+            # namespace before it carries the source's name
+            k = re.findall(r"\d((?:attn|flash|hp|fc2)_\w+?_kernel)"
+                           r"(?:ILi(\d+)E)?", m.group(1))
+            fn = f"{k[-1][0]}<{k[-1][1] or 0}>" if k else m.group(1)
         elif "registers" in line or "spill" in line:
             log(f"[{tag}] {fn}: {line.strip()}")
 
@@ -505,10 +564,12 @@ def phase_bwd_kernel(fa, dev):
 
 
 def phase_grad(counts, dev, ckpt_path, name="my_vit_b", tag="grad",
-               limits=(LOSS_ATOL, GRAD_NORM_RTOL, PARAM_GRAD_NORM_RTOL)):
+               limits=(LOSS_ATOL, GRAD_NORM_RTOL, PARAM_GRAD_NORM_RTOL),
+               **model_kw):
     """One train-mode forward + backward against the JAX fp32 train golden,
     within `limits` (loss abs, grad norm rel, per-parameter grad norm rel);
-    returns the launches (counts() after a reset)."""
+    returns the launches (counts() after a reset). `model_kw` goes to
+    create_model beside the golden's own."""
     import numpy as np
     import torch
 
@@ -531,7 +592,7 @@ def phase_grad(counts, dev, ckpt_path, name="my_vit_b", tag="grad",
         golden = json.load(f)
     img = golden.get("img_size", 224)
     model = create_model(name, device=dev, img_size=img,
-                         **golden["model_kwargs"])
+                         **golden["model_kwargs"], **model_kw)
     model.load_state_dict(load_checkpoint(ckpt_path), strict=True)
     images = torch.from_numpy(seeded_images(2, img, seed=0)).to(dev)
     targets = smoothed_one_hot(torch.tensor(golden["labels"], device=dev),
@@ -804,6 +865,152 @@ def phase_long_kernel(fb, dev):
     return results, worst
 
 
+def phase_mlp_kernel(mf, dev):
+    """K3 against its plain version on seeded bf16 dy, fc2 weight and h."""
+    import torch
+
+    def unfused(dy, w2, h):
+        # the default path's backward of fc2 -> gelu_tanh for the same
+        # result: da by cuBLAS, autograd's GELU backward, the fp32 bias sum
+        dh = torch.ops.aten.gelu_backward(torch.matmul(dy, w2), h,
+                                          approximate="tanh")
+        return dh, dh.sum(dim=(0, 1), dtype=torch.float32)
+
+    results = {}
+    worst = 0.0
+    for shape in MLP_MAIN_SHAPES + MLP_EXTRA_SHAPES:
+        b, s, o, k = shape
+        seed = 4000 + b * s + o + k
+        dy = seeded_bf16((b, s, o), seed, dev)
+        # fc2's weight at its init scale, h at a pre-activation's
+        w2 = (seeded_bf16((o, k), seed + 1, dev).float() * 0.02).bfloat16()
+        h = seeded_bf16((b, s, k), seed + 2, dev)
+        got = mf.fc2_bwd(dy, w2, h)
+        want = mf.fc2_bwd_reference(dy, w2, h)
+        torch.cuda.synchronize()
+        row = {}
+        for name, g, r, rel in zip(("dh", "a", "db1"), got, want,
+                                   (DH_REL_ATOL, DH_REL_ATOL, DB1_REL_ATOL)):
+            check(g.shape == r.shape and g.dtype == r.dtype
+                  and torch.isfinite(g.float()).all().item(),
+                  f"{shape} {name}: {tuple(g.shape)} {g.dtype} or not finite")
+            err = (g.float() - r.float()).abs().max().item()
+            ref_max = r.float().abs().max().item()
+            check(err <= rel * ref_max,
+                  f"{shape} {name}: max abs err {err} > {rel} x {ref_max}")
+            row[f"{name}_max_abs_err"] = err
+            row[f"{name}_max_abs"] = ref_max
+        worst = max(worst, row["dh_max_abs_err"], row["a_max_abs_err"])
+        if shape in MLP_MAIN_SHAPES:
+            row["ms"] = cuda_ms(lambda: mf.fc2_bwd(dy, w2, h))
+            row["plain_ms"] = cuda_ms(lambda: mf.fc2_bwd_reference(dy, w2, h))
+            row["unfused_ms"] = cuda_ms(lambda: unfused(dy, w2, h))
+            # dy, w2, h read; dh, a (bf16) and db1 (fp32) written; dy·w2
+            m = b * s
+            row["bound_ms"], row["bound_by"] = bound(
+                2 * m * o * k, 2 * (m * o + o * k + 3 * m * k) + 4 * k)
+        results[shape] = row
+        log(f"[mlp kernel] B={b} S={s} O={o} K={k}: "
+            + " ".join(f"{k_}={v!r}" for k_, v in row.items()))
+    return results, worst
+
+
+class check_fc2_bwd:
+    """Within it, each call of ops/mlp_fused.py's wrapper launches the
+    kernel, then runs the plain version on the same inputs (the model's own
+    data); `worst` keeps each output's largest error over the plain
+    version's max |.|."""
+
+    def __init__(self, mf):
+        self.mf, self.kernel, self.worst = mf, mf.fc2_bwd, {}
+
+    def __enter__(self):
+        def checked(dy, w2, h):
+            got = self.kernel(dy, w2, h)
+            for name, g, r in zip(("dh", "a", "db1"), got,
+                                  self.mf.fc2_bwd_reference(dy, w2, h)):
+                err = (g.float() - r.float()).abs().max().item() / \
+                    r.float().abs().max().item()
+                self.worst[name] = max(self.worst.get(name, 0.0), err)
+            return got
+
+        self.mf.fc2_bwd = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mf.fc2_bwd = self.kernel
+
+
+def phase_hp_kernel(counts, fa, dev):
+    """K9 and K10 through fused_attention_qkv_cols at S <= 1024, held
+    against their plain versions; returns the route's launches, the
+    results and the worst errors."""
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
+        heads,
+    )
+
+    shapes = HP_MAIN_SHAPES + HP_EXTRA_SHAPES
+    runs = {}
+    counts(reset=True)
+    for shape in shapes:
+        b, s, h, d = shape
+        seed = 5000 + b * s + h * d
+        qkv = seeded_bf16((b, s, 3 * h * d), seed, dev).requires_grad_()
+        do = seeded_bf16((b, s, h * d), seed + 1, dev)
+        o = fa.fused_attention_qkv_cols(qkv, h)
+        o.backward(do)
+        runs[shape] = (qkv.detach(), do, o.detach(), qkv.grad)
+    torch.cuda.synchronize()
+    launches = counts()
+
+    results = {}
+    worst = {"hp_fwd": 0.0, "hp_bwd": 0.0}
+    for shape, (qkv, do, o, dqkv) in runs.items():
+        b, s, h, d = shape
+        scale = d ** -0.5
+        o_r = fa.attn_fwd_reference(qkv, h, scale)[0]
+        dqkv_r = fa.hp_bwd_reference(qkv, do, h, scale)
+        torch.cuda.synchronize()
+        check(o.shape == o_r.shape and dqkv.shape == qkv.shape
+              and torch.isfinite(o.float()).all().item()
+              and torch.isfinite(dqkv.float()).all().item(),
+              f"{shape}: shapes {tuple(o.shape)}, {tuple(dqkv.shape)} or "
+              f"not finite")
+        o_err = (o.float() - o_r.float()).abs().max().item()
+        g_err = (dqkv.float() - dqkv_r.float()).abs().max().item()
+        g_ref = dqkv_r.float().abs().max().item()
+        check(o_err <= O_ATOL, f"{shape}: o max abs err {o_err} > {O_ATOL}")
+        check(g_err <= DQKV_REL_ATOL * g_ref,
+              f"{shape}: dqkv max abs err {g_err} > {DQKV_REL_ATOL} x {g_ref}")
+        worst["hp_fwd"] = max(worst["hp_fwd"], o_err)
+        worst["hp_bwd"] = max(worst["hp_bwd"], g_err)
+        row = {"o_max_abs_err": o_err, "dqkv_max_abs_err": g_err,
+               "dqkv_max_abs": g_ref}
+        if shape in HP_MAIN_SHAPES:
+            row["hp_fwd_ms"] = cuda_ms(lambda: fa.hp_fwd(qkv, h, scale))
+            row["hp_fwd_plain_ms"] = cuda_ms(
+                lambda: fa.attn_fwd_reference(qkv, h, scale))
+            row["hp_fwd_library_ms"] = sdpa_ms(*heads(qkv, h))
+            row["hp_bwd_ms"] = cuda_ms(lambda: fa.hp_bwd(qkv, do, h, scale))
+            row["hp_bwd_plain_ms"] = cuda_ms(
+                lambda: fa.hp_bwd_reference(qkv, do, h, scale))
+            row["hp_bwd_library_ms"] = sdpa_ms(
+                *heads(qkv, h), do.view(b, s, h, d).transpose(1, 2))
+            # K9: qkv read, o written; q·kᵀ and p·v. K10: qkv and dO read,
+            # dqkv written; q·kᵀ, dO·vᵀ, pᵀ·dO, ds·k, dsᵀ·q
+            sq, n_qkv, n_o = b * h * s * s * d, b * s * 3 * h * d, b * s * h * d
+            row["hp_fwd_bound_ms"], row["hp_fwd_bound_by"] = bound(
+                4 * sq, 2 * (n_qkv + n_o))
+            row["hp_bwd_bound_ms"], row["hp_bwd_bound_by"] = bound(
+                10 * sq, 2 * (2 * n_qkv + n_o))
+        results[shape] = row
+        log(f"[hp kernel] B={b} S={s} H={h} D={d}: "
+            + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    return launches, results, worst
+
+
 def counter(*names):
     """counts(reset=False) -> {COUNT: launches} of the counts named
     'module.COUNT' (modules of ops/); reset sets them to 0 first."""
@@ -819,6 +1026,13 @@ def counter(*names):
         return {c: getattr(m, c) for m, c in mods}
 
     return counts
+
+
+def only(**nonzero):
+    """Every launch count 0 but those named."""
+    names = [c.split(".")[1] for c in ALL_COUNTS]
+    check(set(nonzero) <= set(names), f"unknown counts {sorted(nonzero)}")
+    return {n: nonzero.get(n, 0) for n in names}
 
 
 def main() -> int:
@@ -837,6 +1051,7 @@ def main() -> int:
         cuda_build,
         flash_attention as fa,
         flash_blocked as fb,
+        mlp_fused as mf,
     )
 
     t_start = time.perf_counter()
@@ -850,27 +1065,18 @@ def main() -> int:
         f"{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    build_s = build_all(fa, fb)
+    build_s = build_all(fa, fb, mf)
     log(f"[build] attn_fwd built/loaded in {build_s['attn_fwd']:.3f} s")
     log_ptxas(cuda_build, "attn_fwd", "build")
 
-    short = counter("flash_attention.ATTN_FWD_LAUNCHES",
-                    "flash_attention.ATTN_BWD_LAUNCHES")
-    k1 = counter("flash_attention.ATTN_FWD_LAUNCHES")
-    k4 = counter("flash_blocked.FLASH_FWD_LAUNCHES")
-    every = counter("flash_attention.ATTN_FWD_LAUNCHES",
-                    "flash_attention.ATTN_BWD_LAUNCHES",
-                    "flash_blocked.FLASH_FWD_LAUNCHES",
-                    "flash_blocked.FLASH_BWD_DKDV_LAUNCHES",
-                    "flash_blocked.FLASH_BWD_DQ_LAUNCHES")
-
+    every = counter(*ALL_COUNTS)
     kernel, worst = phase_kernel(fa, dev)
     ckpt_dir = os.path.join(REPO, "build", "smoke")
     os.makedirs(ckpt_dir, exist_ok=True)
     ckpt_path = os.path.join(ckpt_dir, "my_vit_b_seed0.pth")
-    n = phase_model(k1, dev, ckpt_path)
-    check(n == {"ATTN_FWD_LAUNCHES": 12},
-          f"one forward launched the kernel {n} times")
+    n = phase_model(every, dev, ckpt_path)
+    check(n == only(ATTN_FWD_LAUNCHES=12),
+          f"one forward launched {n} (want K1 12)")
     serve_launches, _ = phase_serve(
         lambda: fa.ATTN_FWD_LAUNCHES, ckpt_path, act_layer="gelu_tanh")
 
@@ -878,13 +1084,14 @@ def main() -> int:
         f"(in parallel with attn_fwd)")
     log_ptxas(cuda_build, "attn_bwd", "build bwd")
     bwd, bwd_worst = phase_bwd_kernel(fa, dev)
-    n = phase_grad(short, dev, ckpt_path)
-    check(n == {"ATTN_FWD_LAUNCHES": 12, "ATTN_BWD_LAUNCHES": 12},
-          f"one forward + backward launched {n} (want 12, 12)")
-    train_launches, _ = phase_train(every, dev, RECIPE_FLAGS, TRAIN_BATCH)
-    check(train_launches["ATTN_BWD_LAUNCHES"] == 12 * TRAIN_STEPS
-          and train_launches["ATTN_FWD_LAUNCHES"]
-          == 12 * (TRAIN_STEPS + EVAL_BATCHES),
+    n = phase_grad(every, dev, ckpt_path)
+    check(n == only(ATTN_FWD_LAUNCHES=12, ATTN_BWD_LAUNCHES=12),
+          f"one forward + backward launched {n} (want K1 12, K2 12)")
+    train_launches, default_step = phase_train(every, dev, RECIPE_FLAGS,
+                                               TRAIN_BATCH)
+    check(train_launches == only(
+        ATTN_FWD_LAUNCHES=12 * (TRAIN_STEPS + EVAL_BATCHES),
+        ATTN_BWD_LAUNCHES=12 * TRAIN_STEPS),
           f"{train_launches} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
 
     # ---- the long-sequence slice: vit_base_patch14_dinov2 at 518 px
@@ -895,8 +1102,7 @@ def main() -> int:
     long_ckpt = os.path.join(ckpt_dir, f"{LONG_MODEL}_seed0.pth")
     n = phase_model(every, dev, long_ckpt, LONG_MODEL, LONG_GAMMA,
                     tag="long model")
-    check(n["FLASH_FWD_LAUNCHES"] == 12 and n["ATTN_FWD_LAUNCHES"] == 0
-          and sum(n.values()) == 12,
+    check(n == only(FLASH_FWD_LAUNCHES=12),
           f"one 518-px forward launched {n} (want K4 12, K1 0)")
     long_serve, _ = phase_serve(
         lambda: fb.FLASH_FWD_LAUNCHES, long_ckpt, LONG_MODEL,
@@ -906,9 +1112,8 @@ def main() -> int:
     with swap_blocked(fb, plain=False) as checked:
         n = phase_grad(every, dev, long_ckpt, LONG_MODEL, tag="long grad",
                        limits=LONG_GRAD_LIMITS)
-    check(n == {"ATTN_FWD_LAUNCHES": 0, "ATTN_BWD_LAUNCHES": 0,
-                "FLASH_FWD_LAUNCHES": 12, "FLASH_BWD_DKDV_LAUNCHES": 12,
-                "FLASH_BWD_DQ_LAUNCHES": 12},
+    check(n == only(FLASH_FWD_LAUNCHES=12, FLASH_BWD_DKDV_LAUNCHES=12,
+                    FLASH_BWD_DQ_LAUNCHES=12),
           f"one 518-px forward + backward launched {n}")
     log(f"[long grad] kernels vs plain at each call on the model's data, "
         f"worst error (over max |plain| but lse): {checked.worst!r}")
@@ -927,16 +1132,55 @@ def main() -> int:
         every, dev, LONG_TRAIN_FLAGS, LONG_BATCH, 518, 14,
         fixed_batch=False, warmup=LONG_WARMUP_STEPS, timed=LONG_TIMED_STEPS,
         tag="long train")
-    check(long_train["FLASH_BWD_DKDV_LAUNCHES"] == 12 * TRAIN_STEPS
-          and long_train["FLASH_BWD_DQ_LAUNCHES"] == 12 * TRAIN_STEPS
-          and long_train["FLASH_FWD_LAUNCHES"]
-          == 12 * (TRAIN_STEPS + EVAL_BATCHES)
-          and long_train["ATTN_FWD_LAUNCHES"] == 0,
+    check(long_train == only(
+        FLASH_FWD_LAUNCHES=12 * (TRAIN_STEPS + EVAL_BATCHES),
+        FLASH_BWD_DKDV_LAUNCHES=12 * TRAIN_STEPS,
+        FLASH_BWD_DQ_LAUNCHES=12 * TRAIN_STEPS),
           f"{long_train} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
+
+    # ---- the fused-backward MLP (--pallas_mlp on) on my_vit_b, and the
+    # head-pair route of fused_attention_qkv_cols
+    for name in ("mlp_fused", "hp_bwd"):
+        log(f"[build mlp/hp] {name} built/loaded in {build_s[name]:.3f} s "
+            f"(in parallel with the others)")
+        log_ptxas(cuda_build, name, "build mlp/hp")
+    mlp_k, mlp_worst = phase_mlp_kernel(mf, dev)
+    with check_fc2_bwd(mf) as k3:
+        n = phase_grad(every, dev, ckpt_path, tag="grad pallas_mlp",
+                       use_pallas_mlp=True)
+    check(n == only(ATTN_FWD_LAUNCHES=12, ATTN_BWD_LAUNCHES=12,
+                    FC2_BWD_LAUNCHES=12),
+          f"one --pallas_mlp on forward + backward launched {n} (want K1, "
+          f"K2, K3 12 each)")
+    log(f"[grad pallas_mlp] K3 vs plain at each call on the model's data, "
+        f"worst error over max |plain|: {k3.worst!r}")
+    check(set(k3.worst) == {"dh", "a", "db1"},
+          f"outputs checked: {sorted(k3.worst)}")
+    for name, err in k3.worst.items():
+        limit = DB1_REL_ATOL if name == "db1" else DH_REL_ATOL
+        check(err <= limit, f"model data, {name}: error {err} > {limit}")
+    mlp_train, mlp_step = phase_train(every, dev, PALLAS_MLP_FLAGS,
+                                      TRAIN_BATCH, fixed_batch=False,
+                                      tag="train pallas_mlp")
+    check(mlp_train == only(
+        ATTN_FWD_LAUNCHES=12 * (TRAIN_STEPS + EVAL_BATCHES),
+        ATTN_BWD_LAUNCHES=12 * TRAIN_STEPS,
+        FC2_BWD_LAUNCHES=12 * TRAIN_STEPS),
+          f"{mlp_train} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
+    log(f"[train pallas_mlp] A/B of the my_vit_b b{TRAIN_BATCH} recipe step "
+        f"on {nvidia_smi()}: --pallas_mlp off {default_step!r}; "
+        f"--pallas_mlp on {mlp_step!r}")
+    hp_launches, hp_k, hp_worst = phase_hp_kernel(every, fa, dev)
+    n_hp = len(HP_MAIN_SHAPES + HP_EXTRA_SHAPES)
+    check(hp_launches == only(HP_FWD_LAUNCHES=n_hp, HP_BWD_LAUNCHES=n_hp),
+          f"fused_attention_qkv_cols at S <= 1024 launched {hp_launches} "
+          f"(want K9 and K10 {n_hp} each)")
 
     b1, b64 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
     l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
+    m128, m64 = mlp_k[MLP_MAIN_SHAPES[0]], mlp_k[MLP_MAIN_SHAPES[1]]
+    hp64, hp128 = hp_k[HP_MAIN_SHAPES[0]], hp_k[HP_MAIN_SHAPES[1]]
     src = f"{PKG}/csrc/"
     jax_ops = "vision_transformers_torch_xla_tpu/ops/"
 
@@ -953,6 +1197,19 @@ def main() -> int:
             "plain_ms_b1": l1[f"{name}_plain_ms"],
             "ms_s197_b64": long_k[(64, 197, 12, 64)][f"{name}_ms"],
             "ms_s197_b128": long_k[(128, 197, 12, 64)][f"{name}_ms"]}
+
+    def hp_entry(name, source, replaces):
+        return {
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": jax_ops + replaces,
+            "launches": hp_launches[f"{name.upper()}_LAUNCHES"],
+            "max_abs_err": hp_worst[name], "shape": HP_MAIN_SHAPES[1],
+            "ms": hp128[f"{name}_ms"], "plain_ms": hp128[f"{name}_plain_ms"],
+            "bound_ms": hp128[f"{name}_bound_ms"],
+            "bound_by": hp128[f"{name}_bound_by"],
+            "library_ms": hp128[f"{name}_library_ms"],
+            "ms_b64": hp64[f"{name}_ms"],
+            "plain_ms_b64": hp64[f"{name}_plain_ms"]}
 
     kernels = [{
         "name": "attn_fwd", "route": "cuda", "source": src + "attn_fwd.cu",
@@ -974,7 +1231,18 @@ def main() -> int:
         dict(long_entry("flash_fwd", "flash_blocked.py:33", "sdpa_fwd_ms"),
              launches_serve=long_serve),
         long_entry("flash_bwd_dkdv", "flash_blocked.py:109", "sdpa_bwd_ms"),
-        long_entry("flash_bwd_dq", "flash_blocked.py:157", "sdpa_bwd_ms")]
+        long_entry("flash_bwd_dq", "flash_blocked.py:157", "sdpa_bwd_ms"), {
+        "name": "fc2_bwd", "route": "cuda", "source": src + "mlp_fused.cu",
+        "replaces": jax_ops + "mlp_fused.py:65",
+        "launches": mlp_train["FC2_BWD_LAUNCHES"],
+        "max_abs_err": mlp_worst, "shape": MLP_MAIN_SHAPES[0],
+        "ms": m128["ms"], "plain_ms": m128["plain_ms"],
+        "bound_ms": m128["bound_ms"], "bound_by": m128["bound_by"],
+        "library_ms": None, "unfused_ms": m128["unfused_ms"],
+        "ms_b64": m64["ms"], "plain_ms_b64": m64["plain_ms"],
+        "unfused_ms_b64": m64["unfused_ms"]},
+        hp_entry("hp_fwd", "attn_fwd.cu", "flash_attention.py:171"),
+        hp_entry("hp_bwd", "hp_bwd.cu", "flash_attention.py:212")]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

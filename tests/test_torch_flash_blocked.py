@@ -5,7 +5,8 @@ against JAX `flash_attention_blocked` and its `_flash_fwd` in interpret mode,
 as tests/test_flash_blocked.py runs them: forward o and lse, and dq, dk, dv
 of the port's autograd Function `FlashAttentionBlocked` against jax.grad.
 Inputs come from a numpy seed. Then the port's `fused_attention_qkv_cols`
-(S > 1024) against the JAX function, and the wrappers' contract. The
+(S > 1024) against the JAX function, its S <= 1024 route (the head-pair
+kernels, tests/test_torch_head_pair.py), and the wrappers' contract. The
 `cuda` cases hold each kernel (K4, K5, K6) against its plain version on
 the card and skip without one. The JAX package is imported inside the
 JAX helpers, so that the `cuda` cases also run where flax is missing.
@@ -162,9 +163,14 @@ def test_qkv_cols_matches_jax_fp32():
                                atol=ATOL, rtol=0)
 
 
-def test_qkv_cols_short_sequence_raises_naming_k9():
-    with pytest.raises(NotImplementedError, match="K9"):
-        fa.fused_attention_qkv_cols(torch.zeros((1, 1024, 3 * 2 * 64)), 2)
+def test_qkv_cols_short_sequence_takes_the_head_pair_route():
+    # S = 1024 is the head-pair kernels' (K9, K10), not the blocked ones'
+    x = torch.zeros((1, 1024, 3 * 2 * 64), requires_grad=True)
+    before = fb.FLASH_FWD_LAUNCHES
+    out = fa.fused_attention_qkv_cols(x, 2)
+    assert out.shape == (1, 1024, 2 * 64)
+    assert type(out.grad_fn).__name__ == "HeadPairAttentionBackward"
+    assert fb.FLASH_FWD_LAUNCHES == before
 
 
 def test_cpu_runs_plain_versions_without_counting():

@@ -1,0 +1,165 @@
+"""The port's head-pair attention (S <= 1024) against the JAX package's.
+
+The JAX side runs the Pallas kernels `_hp_fwd_kernel` (K9) and
+`_hp_bwd_kernel` (K10) in interpret mode on the CPU, as
+tests/test_pallas_attention.py does. K9's plain version in the port is
+`attn_fwd_reference(with_stats=False)`, K1's, because the two TPU kernels
+compute o in the same cast order; the first test confirms it. K10's is
+`hp_bwd_reference`. Then `fused_attention_qkv_cols` at S = 197 and 130,
+value and gradient, against the JAX function, which routes those through
+`_hp_partitioned`. The `cuda` cases hold the kernels against their plain
+versions through that route on the card and skip without one. The JAX
+package is imported inside the JAX helpers, so that the `cuda` cases also
+run where flax is missing.
+
+Tolerances, relative to the largest |value| of the JAX side:
+* fp32 inputs: 1e-5. Every cast is the identity; only summation order
+  differs.
+* bf16 inputs: 2e-2. The two share every rounding point (q̂ in K9, bf16(p)
+  and ds in K10, the bf16 outputs), but another fp32 summation order can
+  flip one of them, which moves an output by a few bf16 ulps.
+"""
+import numpy as np
+import pytest
+import torch
+
+from vision_transformers_torch_xla_tpu_torch.ops import flash_attention as fa
+
+H, D = 2, 64
+FP32_RTOL = 1e-5
+BF16_RTOL = 2e-2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    return torch.device("cuda", 0)
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _close(got, want, rtol, name=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rtol * np.abs(want).max(), err_msg=name)
+
+
+def _inputs(s, dtype, seed):
+    """qkv and dO in `dtype`, and their values as fp32 numpy arrays."""
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(_rand((2, s, 3 * H * D), seed)).to(dt)
+    do = torch.from_numpy(_rand((2, s, H * D), seed + 1)).to(dt)
+    return qkv, do, qkv.float().numpy(), do.float().numpy()
+
+
+def _jax_hp(qkv, do, bf16):
+    """JAX `_hp_fwd_call` and `_hp_bwd_call` in interpret mode."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vision_transformers_torch_xla_tpu.ops.flash_attention import (
+        _hp_bwd_call,
+        _hp_fwd_call,
+    )
+
+    dt = jnp.bfloat16 if bf16 else jnp.float32
+    x, g = jnp.asarray(qkv, dt), jnp.asarray(do, dt)
+    s = qkv.shape[1]
+    with pltpu.force_tpu_interpret_mode():
+        o = _hp_fwd_call(x, D ** -0.5, s, H, D)
+        dqkv = _hp_bwd_call(x, g, D ** -0.5, s, H, D)
+    return (np.asarray(o.astype(jnp.float32)),
+            np.asarray(dqkv.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("s", [197, 130])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_match_jax_hp_kernels(dtype, s):
+    qkv, do, qkv_np, do_np = _inputs(s, dtype, seed=s)
+    want_o, want_dqkv = _jax_hp(qkv_np, do_np, dtype == "bfloat16")
+    rtol = BF16_RTOL if dtype == "bfloat16" else FP32_RTOL
+    before = (fa.HP_FWD_LAUNCHES, fa.HP_BWD_LAUNCHES)
+    o = fa.hp_fwd(qkv, H)
+    # K9's plain version is K1's without stats
+    assert torch.equal(o, fa.attn_fwd_reference(qkv, H, D ** -0.5)[0])
+    dqkv = fa.hp_bwd(qkv, do, H)
+    assert (fa.HP_FWD_LAUNCHES, fa.HP_BWD_LAUNCHES) == before
+    assert o.dtype == dqkv.dtype == qkv.dtype
+    assert o.shape == (2, s, H * D) and dqkv.shape == qkv.shape
+    _close(o.float(), want_o, rtol, "o")
+    for i, name in enumerate(("dq", "dk", "dv")):
+        cols = slice(i * H * D, (i + 1) * H * D)
+        _close(dqkv.float()[..., cols], want_dqkv[..., cols], rtol, name)
+
+
+@pytest.mark.parametrize("s", [197, 130])
+def test_qkv_cols_matches_jax_fp32(s):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vision_transformers_torch_xla_tpu.ops.flash_attention import (
+        fused_attention_qkv_cols as jax_qkv_cols,
+    )
+
+    qkv = _rand((2, s, 3 * H * D), s + 7)
+    do = _rand((2, s, H * D), s + 8)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda x: jax_qkv_cols(x, H), jnp.asarray(qkv))
+        (want_g,) = vjp(jnp.asarray(do))
+    x = torch.from_numpy(qkv).requires_grad_()
+    got = fa.fused_attention_qkv_cols(x, H)
+    assert type(got.grad_fn).__name__ == "HeadPairAttentionBackward"
+    got.backward(torch.from_numpy(do))
+    assert got.shape == (2, s, H * D)
+    _close(got.detach(), np.asarray(want), FP32_RTOL, "o")
+    _close(x.grad, np.asarray(want_g), FP32_RTOL, "dqkv")
+
+
+def test_hp_bwd_refuses_a_do_that_does_not_fit():
+    qkv = torch.zeros((1, 10, 3 * H * D))
+    with pytest.raises(ValueError, match="does not fit"):
+        fa.hp_bwd(qkv, torch.zeros((1, 9, H * D)), H)
+    with pytest.raises(ValueError, match="not 3 x"):
+        fa.hp_bwd(torch.zeros((1, 10, 100)), torch.zeros((1, 10, 32)), H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 197, 12, 64), (1, 1024, 2, 64),
+                                   (3, 77, 3, 48), (2, 130, 2, 128)])
+def test_kernels_match_plain_through_qkv_cols(cuda_device, shape):
+    # same bf16 inputs and cast order: o as K1's test, the grads by a
+    # flipped bf16 rounding of ds or of a stored gradient
+    b, s, h, d = shape
+    qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 31)).to(
+        cuda_device, torch.bfloat16).requires_grad_()
+    do = torch.from_numpy(_rand((b, s, h * d), 32)).to(cuda_device,
+                                                       torch.bfloat16)
+    before = (fa.HP_FWD_LAUNCHES, fa.HP_BWD_LAUNCHES, fa.ATTN_FWD_LAUNCHES)
+    o = fa.fused_attention_qkv_cols(qkv, h)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.HP_FWD_LAUNCHES, fa.HP_BWD_LAUNCHES, fa.ATTN_FWD_LAUNCHES) \
+        == (before[0] + 1, before[1] + 1, before[2])
+    x = qkv.detach()
+    o_r = fa.attn_fwd_reference(x, h, d ** -0.5)[0]
+    assert (o.float() - o_r.float()).abs().max().item() <= 2e-2
+    g_r = fa.hp_bwd_reference(x, do, h, d ** -0.5)
+    err = (qkv.grad.float() - g_r.float()).abs().max().item()
+    assert err <= 2e-2 * g_r.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_hp_kernels_contract_on_cuda(cuda_device):
+    x = torch.zeros((1, 64, 3 * H * D), device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.hp_fwd(x, H)
+    y = torch.zeros((1, 64, 3 * H * 192), device=cuda_device,
+                    dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.hp_bwd(y, torch.zeros((1, 64, H * 192), device=cuda_device,
+                                 dtype=torch.bfloat16), H)

@@ -110,6 +110,7 @@ def test_port_imports_no_jax():
     rel = {os.path.relpath(p, PORT_PKG) for p in files}
     assert {"launch/main.py", "train/steps.py", "train/fused.py",
             "core/config.py", "data/loader.py", "ops/flash_blocked.py",
+            "ops/mlp_fused.py", "ops/flash_attention.py",
             "models/vision_transformer_zoo.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}

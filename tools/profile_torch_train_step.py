@@ -8,14 +8,17 @@ data enters the timed loop. Two models:
     through K1 and K2 (ops/flash_attention.py);
   * vit_base_patch14_dinov2: 518 px (S = 1370), token pool, its own exact
     GELU, batch 32; attention through K4, K5 and K6 (ops/flash_blocked.py).
+`--pallas_mlp` is the trainer's own flag, passed through: `on` runs every
+tanh-GELU MLP's backward through the fc2-backward kernel K3
+(ops/mlp_fused.py).
 It prints one JSON line with:
   * the median step time (CUDA events around each step after warm-up) and
     images/s, with the attention kernels and with their plain PyTorch
     versions swapped in, in turns (kernel, plain, plain, kernel);
   * from a torch.profiler trace of a few kernel-path steps: the device's
     busy share of the wall time, the top device operations, and per step
-    the attention kernels' time and the cuBLAS time (`nvjet_*`, gemm
-    kernels);
+    the attention kernels' and K3's time and the cuBLAS time (`nvjet_*`,
+    gemm kernels);
   * the optimizer's (AdamW + EMA) device span per step: CUDA events around
     each `FusedAdamW.fused_update` call of the profiled steps;
   * for my_vit_b, the K2 qkv-bias partials (ROADMAP K2): the time of the
@@ -26,6 +29,7 @@ It prints one JSON line with:
 Run from the root of a checkout:
 
     python tools/profile_torch_train_step.py --batch 128 --steps 5
+    python tools/profile_torch_train_step.py --batch 128 --pallas_mlp on
     python tools/profile_torch_train_step.py \
         --model vit_base_patch14_dinov2 --batch 32 --steps 3
 """
@@ -75,8 +79,9 @@ MODELS = {
 }
 
 
-def recipe_flags(batch: int, model: str = "my_vit_b"):
-    return ["--model", model, *MODELS[model][0],
+def recipe_flags(batch: int, model: str = "my_vit_b",
+                 pallas_mlp: str = "off"):
+    return ["--model", model, *MODELS[model][0], "--pallas_mlp", pallas_mlp,
             "--batch_size", str(batch), "--data_set", "synthetic",
             "--model_ema", "true", "--lr", "4e-3", "--min_lr", "1e-6",
             "--warmup_epochs", "20", "--warmup_lr", "1e-6",
@@ -179,6 +184,7 @@ def profile(ctx, images, labels, seed, steps: int):
         "flash_dkdv_k5_ms_per_step": per_step(
             lambda n: "flash_bwd_dkdv_" in n),
         "flash_dq_k6_ms_per_step": per_step(lambda n: "flash_bwd_dq_" in n),
+        "fc2_bwd_k3_ms_per_step": per_step(lambda n: "fc2_bwd_kernel" in n),
         "cublas_ms_per_step": per_step(
             lambda n: "nvjet" in n or "gemm" in n.lower()
             or "cutlass" in n.lower()),
@@ -230,6 +236,8 @@ def main():
     ap.add_argument("--steps", type=int, default=5,
                     help="profiled steps")
     ap.add_argument("--timed_steps", type=int, default=10)
+    ap.add_argument("--pallas_mlp", default="off", choices=("on", "off"),
+                    help="the trainer's flag: the fused-backward MLP (K3)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train_step: needs an NVIDIA GPU")
@@ -237,7 +245,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    cfg = config_from_args(recipe_flags(args.batch, args.model))
+    cfg = config_from_args(recipe_flags(args.batch, args.model,
+                                        args.pallas_mlp))
     ctx = trainer.setup(cfg)
     images, labels = to_device(next(iter(ctx.train_ds)), dev)
     saved = [getattr(mod, name) for mod, name, _ in KERNELS]
@@ -254,6 +263,7 @@ def main():
     _, img, patch = MODELS[args.model]
     out = {
         "card": card, "model": args.model, "batch": args.batch,
+        "pallas_mlp": args.pallas_mlp,
         "step_ms_kernel": times["kernel"],
         "step_ms_plain_attention": times["plain"],
         "images_per_s": ips,

@@ -50,7 +50,7 @@ class TrainConfig:
     # attention kernels (ops/flash_attention.py); on the card they always
     # run, on the CPU their plain versions do
     pallas_mlp: str = "off"              # 'on' | 'off': fused-backward MLP
-    # (ROADMAP K3); same param tree either way
+    # (ops/mlp_fused.py, kernel K3); same param tree either way
 
     # --- EMA (main.py:161-167) ---
     model_ema: bool = False

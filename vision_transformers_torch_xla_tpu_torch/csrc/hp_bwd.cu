@@ -1,0 +1,407 @@
+// Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer that
+// recomputes the probabilities on its own, for Hopper.
+//
+// Replaces the TPU kernel
+// vision_transformers_torch_xla_tpu/ops/flash_attention.py::_hp_bwd_kernel
+// (K10), the backward of the head-pair attention whose forward (K9) keeps no
+// row stats and no o. Same function, per (b, h), from q, k, v and dO alone:
+//   s = (q k^T in fp32 from the bf16 values) * scale over the S real keys;
+//   m = rowmax(s); p = exp(s - m) / sum(exp(s - m)), normalised in fp32;
+//   dv = bf16(p)^T dO; dp = dO v^T; delta = rowsum(dp * p);
+//   ds = bf16(p (dp - delta));
+//   dq = (ds k) * scale; dk = (ds^T q) * scale, with the raw q.
+// Every product accumulates in fp32. dq, dk and dv are stored bf16 into one
+// (B, S, 3*H*D) dqkv buffer at the standard columns h*D, H*D + h*D and
+// 2*H*D + h*D: the TPU kernel's three outputs and their concatenation are
+// one buffer here. This is not K2's cast order (csrc/attn_bwd.cu): there is
+// no bf16 q^ and no stats from the forward, and delta is sum(dp * p), since
+// K10 has no o to form rowsum(dO * o).
+//
+// What bounds it on an H100: at B = 128, S = 197, H = 12, D = 64 the five
+// products are 38 GFLOP over ~271 MB (qkv and dO read, dqkv written), so
+// device memory bounds the ideal kernel (0.08 ms at 3.35 TB/s). On the CUDA
+// cores the limit is instruction issue, as for K2: every two FMAs come with
+// a shared-memory load and two bf16 -> fp32 conversions, and this design
+// computes s and dp twice. Tensor cores are the way past that.
+//
+// Design: two launches, so that no sum crosses blocks and nothing needs
+// float atomics (the result is deterministic):
+//   1. dq and the row stats, one block per (b, h): K and V staged in shared
+//      memory; each warp owns one query row at a time: lanes split the keys
+//      for s, m and the sum of exp, then for p, dp and delta, then for ds;
+//      the rows of p and ds stay in shared memory, and lanes split the head
+//      dim for ds k. The row's m, sum and delta go to a (B, H, S, 3) fp32
+//      scratch the caller allocates.
+//   2. dk and dv, one block per (b, h): q, dO and the row stats staged in
+//      shared memory; each warp owns one key row at a time and recomputes p
+//      and ds for it over all queries from the stats, then lanes split the
+//      head dim for bf16(p)^T dO and ds^T q.
+// Both passes form each s and dp as the same fp32 FMA chain over the head
+// dim (the operands only swap sides) and scale s with __fmul_rn, which the
+// compiler never fuses into the subtraction of m, so p and ds agree bit for
+// bit between them. Staged rows are padded to an odd number of 32-bit
+// words, so lanes reading different rows hit different banks. For head dims
+// 32, 64 and 128 the head dim is a compile-time constant and the row sits in
+// registers; other even head dims take run-time loops. Operands that do not
+// fit in shared memory (long S with wide D) are read from global memory (L2)
+// through the same loops.
+//
+// Plain C interface, loaded with ctypes. The kernels allocate nothing and
+// launch on the caller's stream; the host function returns
+// cudaGetLastError().
+
+#include <cfloat>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxHeadDim = 128;
+constexpr int kMaxSeq = 1024;
+constexpr int kPairsPerLane = kMaxHeadDim / 2 / 32;  // head-dim pairs a lane owns
+constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// One head row of fp32 values: in registers when the head dim kD is fixed at
+// compile time (a multiple of 4), else read from the warp's shared scratch.
+template <int kD>
+struct HeadRow {
+  float r[kD > 0 ? kD : 1];
+  const float* s;
+
+  __device__ __forceinline__ void load(const float* src) {
+    if constexpr (kD > 0) {
+#pragma unroll
+      for (int d = 0; d < kD; d += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(src + d);
+        r[d] = t.x;
+        r[d + 1] = t.y;
+        r[d + 2] = t.z;
+        r[d + 3] = t.w;
+      }
+    } else {
+      s = src;
+    }
+  }
+
+  // dot product with a bf16 row of D2 pairs
+  __device__ __forceinline__ float dot(const bf162* x, int D2) const {
+    float a0 = 0.f, a1 = 0.f;
+    if constexpr (kD > 0) {
+#pragma unroll
+      for (int c = 0; c < kD / 2; ++c) {
+        const float2 f = __bfloat1622float2(x[c]);
+        a0 = fmaf(r[2 * c], f.x, a0);
+        a1 = fmaf(r[2 * c + 1], f.y, a1);
+      }
+    } else {
+      for (int c = 0; c < D2; ++c) {
+        const float2 f = __bfloat1622float2(x[c]);
+        a0 = fmaf(s[2 * c], f.x, a0);
+        a1 = fmaf(s[2 * c + 1], f.y, a1);
+      }
+    }
+    return a0 + a1;
+  }
+};
+
+// sum_j w[j] * x[j][c] over j < n, for the bf16 pair column c of rows
+// `stride` pairs apart; w is 16-byte aligned shared memory.
+__device__ __forceinline__ float2 wsum_col(const float* w, const bf162* x,
+                                           int stride, int c, int n) {
+  float ax[4] = {0.f, 0.f, 0.f, 0.f}, ay[4] = {0.f, 0.f, 0.f, 0.f};
+  int j = 0;
+  for (; j + 4 <= n; j += 4) {
+    const float4 w4 = *reinterpret_cast<const float4*>(w + j);
+    const float wj[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float2 f = __bfloat1622float2(x[(j + u) * stride + c]);
+      ax[u] = fmaf(wj[u], f.x, ax[u]);
+      ay[u] = fmaf(wj[u], f.y, ay[u]);
+    }
+  }
+  for (; j < n; ++j) {
+    const float2 f = __bfloat1622float2(x[j * stride + c]);
+    ax[0] = fmaf(w[j], f.x, ax[0]);
+    ay[0] = fmaf(w[j], f.y, ay[0]);
+  }
+  return make_float2((ax[0] + ax[1]) + (ax[2] + ax[3]),
+                     (ay[0] + ay[1]) + (ay[2] + ay[3]));
+}
+
+// Copy S rows of D2 pairs (global rows `src_stride` pairs apart) into shared
+// memory rows `pitch` pairs apart.
+__device__ void stage_rows(bf162* dst, int pitch, const bf162* src,
+                           int src_stride, int S, int D2) {
+  for (int i = threadIdx.x; i < S * D2; i += blockDim.x) {
+    const int r = i / D2, c = i - r * D2;
+    dst[r * pitch + c] = src[r * src_stride + c];
+  }
+}
+
+// Read a bf16 head row into the warp's fp32 scratch.
+__device__ __forceinline__ void row_to_scratch(float* xs, const bf16* row,
+                                               int D, int lane) {
+  for (int d = lane; d < D; d += 32) xs[d] = __bfloat162float(row[d]);
+  __syncwarp();
+}
+
+// 1. grid (H, B). Shared memory: per warp [row: D][p: S][ds: S] (each padded
+// to 16 bytes), then [K: S x pitch][V: S x pitch] when kv_in_smem.
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
+hp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                 bf16* __restrict__ dqkv, float* __restrict__ stats, int S,
+                 int H, int d_rt, float scale, int kv_in_smem, int pitch) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = kD > 0 ? kD : d_rt;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int D2 = D >> 1, C = 3 * H * D, C2 = C >> 1, HD = H * D;
+  const long long bh = (long long)b * H + h;
+
+  const bf16* base = qkv + (long long)b * S * C;
+  const bf162* kp = reinterpret_cast<const bf162*>(base + HD + h * D);
+  const bf162* vp = reinterpret_cast<const bf162*>(base + 2 * HD + h * D);
+  int kv_stride = C2;
+  const int wf = round4(D) + 2 * round4(S);
+  float* xs = smem + warp * wf;
+  float* ps = xs + round4(D);
+  float* ts = ps + round4(S);
+  if (kv_in_smem) {
+    bf162* ks = reinterpret_cast<bf162*>(smem + kWarps * wf);
+    bf162* vs = ks + S * pitch;
+    stage_rows(ks, pitch, kp, C2, S, D2);
+    stage_rows(vs, pitch, vp, C2, S, D2);
+    kp = ks;
+    vp = vs;
+    kv_stride = pitch;
+  }
+  __syncthreads();
+
+  HeadRow<kD> row;
+  for (int i = warp; i < S; i += kWarps) {
+    // s = (q k^T) scale and its max: lanes split the keys
+    row_to_scratch(xs, base + (long long)i * C + h * D, D, lane);
+    row.load(xs);
+    float mx = -FLT_MAX;
+    for (int j = lane; j < S; j += 32) {
+      const float s = __fmul_rn(row.dot(kp + j * kv_stride, D2), scale);
+      ps[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    const float m = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(ps[j] - m);
+      ps[j] = e;
+      sum += e;
+    }
+    const float l = warp_sum(sum);
+    // p = e / l, dp = dO v^T and delta = sum(dp p)
+    row_to_scratch(xs, dout + ((long long)b * S + i) * HD + h * D, D, lane);
+    row.load(xs);
+    float dsum = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const float p = ps[j] / l;
+      const float dp = row.dot(vp + j * kv_stride, D2);
+      ps[j] = p;
+      ts[j] = dp;
+      dsum = fmaf(dp, p, dsum);
+    }
+    const float delta = warp_sum(dsum);
+    for (int j = lane; j < S; j += 32)
+      ts[j] = bf16_round(ps[j] * (ts[j] - delta));
+    __syncwarp();
+    // dq = (ds k) scale: lanes split the head dim
+    bf162* dq = reinterpret_cast<bf162*>(dqkv + ((long long)b * S + i) * C +
+                                         h * D);
+#pragma unroll
+    for (int u = 0; u < kPairsPerLane; ++u) {
+      const int c = lane + 32 * u;
+      if (c < D2) {
+        const float2 a = wsum_col(ts, kp, kv_stride, c, S);
+        dq[c] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+      }
+    }
+    if (lane == 0) {
+      float* st = stats + (bh * S + i) * 3;
+      st[0] = m;
+      st[1] = l;
+      st[2] = delta;
+    }
+    __syncwarp();  // xs, ps and ts are rewritten by the warp's next row
+  }
+}
+
+// 2. grid (H, B). Shared memory: per warp [row: D][p: S][ds: S], then
+// [m: S][l: S][delta: S], then [q: S x pitch][dO: S x pitch] when in_smem.
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
+hp_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                   const float* __restrict__ stats, bf16* __restrict__ dqkv,
+                   int S, int H, int d_rt, float scale, int in_smem,
+                   int pitch) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = kD > 0 ? kD : d_rt;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int D2 = D >> 1, C = 3 * H * D, HD = H * D;
+  const long long bh = (long long)b * H + h;
+
+  const int wf = round4(D) + 2 * round4(S);
+  float* xs = smem + warp * wf;
+  float* ps = xs + round4(D);
+  float* ts = ps + round4(S);
+  float* ms = smem + kWarps * wf;
+  float* ls = ms + round4(S);
+  float* dl = ls + round4(S);
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    const float* st = stats + (bh * S + i) * 3;
+    ms[i] = st[0];
+    ls[i] = st[1];
+    dl[i] = st[2];
+  }
+  const bf16* base = qkv + (long long)b * S * C;
+  const bf162* q_p = reinterpret_cast<const bf162*>(base + h * D);
+  const bf162* do_p = reinterpret_cast<const bf162*>(
+      dout + (long long)b * S * HD + h * D);
+  int q_stride = C >> 1, do_stride = HD >> 1;
+  if (in_smem) {
+    bf162* a = reinterpret_cast<bf162*>(dl + round4(S));
+    stage_rows(a, pitch, q_p, q_stride, S, D2);
+    stage_rows(a + S * pitch, pitch, do_p, do_stride, S, D2);
+    q_p = a;
+    do_p = a + S * pitch;
+    q_stride = do_stride = pitch;
+  }
+  __syncthreads();
+
+  HeadRow<kD> row;
+  for (int j = warp; j < S; j += kWarps) {
+    // p = exp((k_j q^T) scale - m) / l for every query: lanes split them
+    row_to_scratch(xs, base + (long long)j * C + HD + h * D, D, lane);
+    row.load(xs);
+    for (int i = lane; i < S; i += 32)
+      ps[i] = expf(__fmul_rn(row.dot(q_p + i * q_stride, D2), scale) - ms[i]) /
+              ls[i];
+    __syncwarp();
+    // ds = bf16(p (dO v_j - delta)); keep bf16(p) for dv
+    row_to_scratch(xs, base + (long long)j * C + 2 * HD + h * D, D, lane);
+    row.load(xs);
+    for (int i = lane; i < S; i += 32) {
+      const float p = ps[i];
+      ts[i] = bf16_round(p * (row.dot(do_p + i * do_stride, D2) - dl[i]));
+      ps[i] = bf16_round(p);
+    }
+    __syncwarp();
+    // dk = (ds^T q) scale, dv = bf16(p)^T dO: lanes split the head dim
+    bf16* drow = dqkv + ((long long)b * S + j) * C + h * D;
+    bf162* dk = reinterpret_cast<bf162*>(drow + HD);
+    bf162* dv = reinterpret_cast<bf162*>(drow + 2 * HD);
+#pragma unroll
+    for (int u = 0; u < kPairsPerLane; ++u) {
+      const int c = lane + 32 * u;
+      if (c < D2) {
+        const float2 k = wsum_col(ts, q_p, q_stride, c, S);
+        const float2 v = wsum_col(ps, do_p, do_stride, c, S);
+        dk[c] = __floats2bfloat162_rn(k.x * scale, k.y * scale);
+        dv[c] = __floats2bfloat162_rn(v.x, v.y);
+      }
+    }
+    __syncwarp();  // xs, ps and ts are rewritten by the warp's next row
+  }
+}
+
+int set_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int kD>
+int launch(const void* qkv, const void* dout, void* dqkv, void* stats, int B,
+           int S, int H, int D, float scale, cudaStream_t stream) {
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* g = static_cast<const bf16*>(dout);
+  bf16* dx = static_cast<bf16*>(dqkv);
+  float* st = static_cast<float*>(stats);
+
+  // pad staged rows to an odd number of 32-bit words: conflict-free reads
+  const int d2 = D / 2;
+  const int pitch = (d2 % 2 == 0) ? d2 + 1 : d2;
+  const size_t rows_bytes = (size_t)S * pitch * sizeof(bf162);
+  const size_t scratch =
+      (size_t)kWarps * (round4(D) + 2 * round4(S)) * sizeof(float);
+  const dim3 grid(H, B);
+
+  const int kv_in_smem = scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
+  const size_t dq_smem = scratch + (kv_in_smem ? 2 * rows_bytes : 0);
+  int rc = set_smem((const void*)hp_bwd_dq_kernel<kD>, dq_smem);
+  if (rc) return rc;
+  hp_bwd_dq_kernel<kD><<<grid, kThreads, dq_smem, stream>>>(
+      q, g, dx, st, S, H, D, scale, kv_in_smem, pitch);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const size_t kv_scratch = scratch + 3 * (size_t)round4(S) * sizeof(float);
+  const int in_smem = kv_scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
+  const size_t kv_smem = kv_scratch + (in_smem ? 2 * rows_bytes : 0);
+  rc = set_smem((const void*)hp_bwd_dkdv_kernel<kD>, kv_smem);
+  if (rc) return rc;
+  hp_bwd_dkdv_kernel<kD><<<grid, kThreads, kv_smem, stream>>>(
+      q, g, st, dx, S, H, D, scale, in_smem, pitch);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dqkv (B, S, 3HD) bf16 out; stats (B, H, S, 3) fp32 is scratch. Returns a
+// cudaError_t as int: 0 when both launches were accepted.
+int vtx_hp_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
+               int B, int S, int H, int D, float scale, void* stream) {
+  // offsets inside one image are 32-bit: S * 3 * H * D must fit
+  if (B < 1 || B > 65535 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 ||
+      D < 2 || (D & 1) || D > kMaxHeadDim ||
+      (long long)S * 3 * H * D >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(qkv, dout, dqkv, stats, B, S, H, D, scale, s);
+    case 64: return launch<64>(qkv, dout, dqkv, stats, B, S, H, D, scale, s);
+    case 128: return launch<128>(qkv, dout, dqkv, stats, B, S, H, D, scale, s);
+    default: return launch<0>(qkv, dout, dqkv, stats, B, S, H, D, scale, s);
+  }
+}
+
+const char* vtx_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -15,13 +15,17 @@ at log_freq.
 A model of more than 1024 tokens (`--model vit_base_patch14_dinov2
 --input_size 518 --global_pool token`: 1,370) trains with the blocked
 attention kernels (ops/flash_blocked.py) forward and backward.
+`--pallas_mlp on` routes the tanh-GELU MLPs whose widths are multiples of
+128 through the fused MLP backward (ops/mlp_fused.py, one fc2-backward
+kernel launch per block and step); the default is off, as in the JAX
+trainer.
 
 `--device` '' (the default) means cuda and raises when there is no card;
 the CPU runs only with `--device cpu`. Options outside this slice raise
 NotImplementedError naming their ROADMAP item: checkpoints, resume,
 loggers, profiling and KD (M4; the JAX trainer's hang watchdog waits for
 it too), device augmentation and other data sets (M5), the mesh (M6),
-`--pallas_mlp on` (K3), gradient checkpointing and scanned blocks (M2).
+gradient checkpointing and scanned blocks (M2).
 """
 from __future__ import annotations
 

@@ -27,6 +27,10 @@ from vision_transformers_torch_xla_tpu_torch.ops.flash_attention import (
     fused_attention_qkv_cols,
     qkv_proj_attention,
 )
+from vision_transformers_torch_xla_tpu_torch.ops.mlp_fused import (
+    WIDTH_MULTIPLE,
+    mlp_gelu,
+)
 
 # flax's truncated_normal(stddev) draws a unit normal cut at ±2 and scales
 # it by stddev / 0.8796..., the std of that cut normal
@@ -190,10 +194,15 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> act -> dropout -> fc2 -> dropout (layers.py:167, plain path).
+    """fc1 -> act -> dropout -> fc2 -> dropout (layers.py:167).
 
-    `use_pallas` (the JAX layer's fused-backward MLP, layers.py:199-211)
-    needs the K3 kernel, which is not ported: it raises."""
+    `use_pallas` routes the plain tanh-GELU recipe through the fused-backward
+    MLP (ops/mlp_fused.py::mlp_gelu, the fc2-backward kernel K3), by the
+    JAX layer's rule (layers.py:199-203): gelu_tanh, no dropout, a 3-D input
+    and every width a multiple of 128. The port's Mlp has no glu and no norm
+    (they raise naming M2 in models/vit.py), so those terms of the rule
+    hold. Anything else takes the plain path; the parameters are fc1/fc2
+    either way, so state dicts load with strict=True on both."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, bias: bool = True, act: str = "gelu",
@@ -201,20 +210,28 @@ class Mlp(nn.Module):
                  param_dtype=torch.float32, device=None,
                  use_pallas: bool = False):
         super().__init__()
-        if use_pallas:
-            raise NotImplementedError(
-                "the fused-backward MLP (--pallas_mlp on) needs the "
-                "_fc2_bwd_kernel port, which is not in the port yet "
-                "(ROADMAP K3)")
+        self.act_name = act
         self.act = act_fn(act)
         self.drop = drop
+        self.use_pallas = use_pallas
+        self.dtype = dtype
         self.fc1 = Dense(in_features, hidden_features, bias, dtype,
                          param_dtype, device)
         self.fc2 = Dense(hidden_features, out_features, bias, dtype,
                          param_dtype, device)
 
+    def _fused(self, x: torch.Tensor) -> bool:
+        widths = (x.shape[-1], self.fc1.weight.shape[0],
+                  self.fc2.weight.shape[0])
+        return (self.use_pallas and self.act_name == "gelu_tanh"
+                and self.drop == 0.0 and x.ndim == 3
+                and all(w % WIDTH_MULTIPLE == 0 for w in widths))
+
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self._fused(x):
+            return mlp_gelu(x.to(self.dtype), self.fc1.weight.t(),
+                            self.fc1.bias, self.fc2.weight.t(), self.fc2.bias)
         x = dropout(self.act(self.fc1(x)), self.drop, deterministic, generator)
         return dropout(self.fc2(x), self.drop, deterministic, generator)
 

@@ -12,13 +12,20 @@ q, k and v straight from the (B, S, 3·H·D) projection output:
   ROADMAP K2), which recomputes the probabilities from those stats and
   writes dqkv in the standard column order plus fp32 qkv-bias partials.
 
-Both take S <= MAX_SEQ. Longer sequences go through
-`fused_attention_qkv_cols` (:459) to the blocked kernels of
-ops/flash_blocked.py (K4-K6).
+`fused_attention_qkv_cols` (:459) is attention off a qkv buffer the caller
+projected. For S <= MAX_SEQ it is the head-pair custom VJP
+`_hp_partitioned` (:437-456) as the autograd Function `HeadPairAttention`:
+
+* `hp_fwd` -> csrc/attn_fwd.cu without stats, the port of `_hp_fwd_kernel`
+  (:171, ROADMAP K9): the same function as K1's o, in the same cast order;
+* `hp_bwd` -> csrc/hp_bwd.cu, the port of `_hp_bwd_kernel` (:212, ROADMAP
+  K10), which recomputes the probabilities from q and k alone.
+
+Longer sequences go to the blocked kernels of ops/flash_blocked.py (K4-K6).
 
 Each wrapper runs its plain version (`attn_fwd_reference`,
-`attn_bwd_reference`) only for tensors on the CPU. For CUDA tensors it
-launches the kernel or raises.
+`attn_bwd_reference`, `hp_bwd_reference`) only for tensors on the CPU. For
+CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ MAX_GRID_DIM = 65535  # batch and heads ride the grid's y and z dimensions
 # launches add to them; callers may reset them to 0.
 ATTN_FWD_LAUNCHES = 0
 ATTN_BWD_LAUNCHES = 0
+HP_FWD_LAUNCHES = 0
+HP_BWD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,11 +76,23 @@ def build_bwd_kernels() -> ctypes.CDLL:
                  [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _P])
 
 
+def build_hp_bwd_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the head-pair backward's library."""
+    return _load("hp_bwd", "vtx_hp_bwd",
+                 [_P] * 4 + [_I, _I, _I, _I, ctypes.c_float, _P])
+
+
 def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
     c = qkv.shape[-1]
     if c % (3 * num_heads):
         raise ValueError(f"qkv width {c} is not 3 x {num_heads} heads")
     return c // (3 * num_heads)
+
+
+def _scale(qkv: torch.Tensor, num_heads: int,
+           scale: Optional[float]) -> float:
+    d = _head_dim(qkv, num_heads)
+    return float(scale if scale is not None else d ** -0.5)
 
 
 def _check_cuda(name: str, tensors, s: int, d: int, b: int,
@@ -123,19 +144,14 @@ def attn_fwd_reference(qkv: torch.Tensor, num_heads: int, scale: float,
     return o, (torch.cat([m, rinv], dim=-1) if with_stats else None)
 
 
-def attn_fwd(qkv: torch.Tensor, num_heads: int, scale: Optional[float] = None,
-             with_stats: bool = False
-             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Softmax attention of the heads packed in a (B, S, 3·H·D) qkv buffer.
-
-    Returns o (B, S, H·D) and, with_stats, (B, H, S, 2) fp32 [m, 1/Σp]."""
-    global ATTN_FWD_LAUNCHES
+def _launch_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
+                with_stats: bool, name: str
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of csrc/attn_fwd.cu; the stats pointer is null without
+    stats."""
     b, s, _ = qkv.shape
     d = _head_dim(qkv, num_heads)
-    scale = float(scale if scale is not None else d ** -0.5)
-    if qkv.device.type == "cpu":
-        return attn_fwd_reference(qkv, num_heads, scale, with_stats)
-    _check_cuda("attn_fwd", (qkv,), s, d, b, num_heads)
+    _check_cuda(name, (qkv,), s, d, b, num_heads)
     o = torch.empty((b, s, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     st = torch.empty((b, num_heads, s, 2), dtype=torch.float32,
                      device=qkv.device) if with_stats else None
@@ -146,8 +162,38 @@ def attn_fwd(qkv: torch.Tensor, num_heads: int, scale: Optional[float] = None,
                               st.data_ptr() if st is not None else None,
                               b, s, num_heads, d, scale, stream)
     _raise_on(lib, rc, "attention forward")
-    ATTN_FWD_LAUNCHES += 1
     return o, st
+
+
+def attn_fwd(qkv: torch.Tensor, num_heads: int, scale: Optional[float] = None,
+             with_stats: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Softmax attention of the heads packed in a (B, S, 3·H·D) qkv buffer.
+
+    Returns o (B, S, H·D) and, with_stats, (B, H, S, 2) fp32 [m, 1/Σp]."""
+    global ATTN_FWD_LAUNCHES
+    scale = _scale(qkv, num_heads, scale)
+    if qkv.device.type == "cpu":
+        return attn_fwd_reference(qkv, num_heads, scale, with_stats)
+    out = _launch_fwd(qkv, num_heads, scale, with_stats, "attn_fwd")
+    ATTN_FWD_LAUNCHES += 1
+    return out
+
+
+def hp_fwd(qkv: torch.Tensor, num_heads: int,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """The head-pair forward (K9): o (B, S, H·D) of a (B, S, 3·H·D) qkv
+    buffer, without row stats. `_hp_fwd_kernel` (:194-209) computes o in
+    `_hp_fwd_stats_kernel`'s cast order, so its kernel is csrc/attn_fwd.cu
+    with the stats pointer null and its plain version
+    `attn_fwd_reference(with_stats=False)`."""
+    global HP_FWD_LAUNCHES
+    scale = _scale(qkv, num_heads, scale)
+    if qkv.device.type == "cpu":
+        return attn_fwd_reference(qkv, num_heads, scale)[0]
+    o, _ = _launch_fwd(qkv, num_heads, scale, False, "hp_fwd")
+    HP_FWD_LAUNCHES += 1
+    return o
 
 
 def attn_bwd_reference(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
@@ -192,8 +238,8 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
     qkv-bias partials."""
     global ATTN_BWD_LAUNCHES
     b, s, c = qkv.shape
-    d = _head_dim(qkv, num_heads)
-    scale = float(scale if scale is not None else d ** -0.5)
+    scale = _scale(qkv, num_heads, scale)
+    d = c // (3 * num_heads)
     hd = num_heads * d
     if do.shape != (b, s, hd) or o.shape != (b, s, hd) or \
             st.shape != (b, num_heads, s, 2):
@@ -223,11 +269,84 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
     return dqkv, dbias
 
 
-def _weight_grad(x: torch.Tensor, dqkv: torch.Tensor) -> torch.Tensor:
-    """xᵀ·dqkv over every row, accumulated in fp32 (JAX: the einsum with
-    preferred_element_type=f32, :683-685)."""
+def hp_bwd_reference(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+                     scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the head-pair backward kernel (K10), in its
+    cast order (:223-245), which is not K2's.
+
+    qkv (B, S, 3·H·D), do (B, S, H·D) -> dqkv (B, S, 3·H·D) in qkv's dtype,
+    columns [dq | dk | dv]. s = (q·kᵀ in fp32 from the raw values)·scale;
+    p = exp(s - m) / Σ, normalised in fp32; dv = bf16(p)ᵀ·dO; dp = dO·vᵀ;
+    ds = bf16(p (dp - Σ dp·p)); dq = ds·k·scale and dk = dsᵀ·q·scale."""
+    b, s, c = qkv.shape
+    h = num_heads
+    d = c // (3 * h)
+    dt = qkv.dtype
+    q, k, v = qkv.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4).float()
+    g = do.reshape(b, s, h, d).transpose(1, 2).float()       # (B,H,S,D)
+    sc = torch.matmul(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return torch.stack([dq, dk, dv]).to(dt).permute(1, 3, 0, 2, 4).reshape(
+        b, s, c)
+
+
+def hp_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """Gradient of `hp_fwd` with respect to its qkv buffer, from qkv and dO
+    alone: dqkv (B, S, 3·H·D), columns [dq | dk | dv]."""
+    global HP_BWD_LAUNCHES
+    b, s, c = qkv.shape
+    scale = _scale(qkv, num_heads, scale)
+    d = c // (3 * num_heads)
+    if do.shape != (b, s, num_heads * d):
+        raise ValueError(f"do {tuple(do.shape)} does not fit qkv "
+                         f"{tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        return hp_bwd_reference(qkv, do, num_heads, scale)
+    _check_cuda("hp_bwd", (qkv, do), s, d, b, num_heads)
+    dqkv = torch.empty_like(qkv)
+    # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
+    stats = torch.empty((b, num_heads, s, 3), dtype=torch.float32,
+                        device=qkv.device)
+    lib = build_hp_bwd_kernels()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.vtx_hp_bwd(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
+                            stats.data_ptr(), b, s, num_heads, d, scale,
+                            stream)
+    _raise_on(lib, rc, "head-pair attention backward")
+    HP_BWD_LAUNCHES += 1
+    return dqkv
+
+
+class HeadPairAttention(torch.autograd.Function):
+    """The head-pair custom VJP `_hp_partitioned` (:437-456): forward
+    `hp_fwd` (K9), which saves only qkv; backward `hp_bwd` (K10)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, scale: float):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return hp_fwd(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        return hp_bwd(qkv, do.contiguous(), ctx.num_heads, ctx.scale), \
+            None, None
+
+
+def weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """xᵀ·g over every leading row, accumulated in fp32 (JAX: the einsums
+    with preferred_element_type=f32, :683-685 and mlp_fused.py:170-173)."""
     x2 = x.reshape(-1, x.shape[-1])
-    g2 = dqkv.reshape(-1, dqkv.shape[-1])
+    g2 = g.reshape(-1, g.shape[-1])
     if x2.device.type == "cuda" and x2.dtype == torch.bfloat16:
         # bf16 operands on the tensor cores, fp32 accumulator and output
         return torch.mm(x2.t(), g2, out_dtype=torch.float32)
@@ -260,7 +379,7 @@ class QkvProjAttention(torch.autograd.Function):
                                ctx.scale)
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
         dx = torch.matmul(dqkv, w.to(dqkv.dtype).t()) if need_x else None
-        dw = _weight_grad(x, dqkv).to(w.dtype) if need_w else None
+        dw = weight_grad(x, dqkv).to(w.dtype) if need_w else None
         db = dbias.sum(dim=0).to(ctx.b_dtype) if need_b else None
         return dx, dw, db, None, None
 
@@ -291,18 +410,15 @@ def fused_attention_qkv_cols(qkv: torch.Tensor, num_heads: int,
     """Attention straight off the fused qkv projection (:459).
 
     qkv: (B, S, 3·H·D) laid out [q heads | k heads | v heads] -> (B, S, H·D).
-    S > MAX_SEQ runs the blocked kernels (ops/flash_blocked.py, K4-K6)
-    under `FlashAttentionBlocked`, on strided views of the buffer, with no
-    copy in or out and the buffer's gradient written once; the JAX
-    function's head-pair kernels for S <= MAX_SEQ (K9, K10) are not
-    ported, and that branch raises."""
+    S <= MAX_SEQ runs the head-pair kernels under `HeadPairAttention` (K9
+    forward, K10 backward); longer S the blocked kernels
+    (ops/flash_blocked.py, K4-K6) under `FlashAttentionBlocked`. Both read
+    the buffer by stride, with no copy in or out, and write its gradient
+    once. The JAX function's head-pair layout rule (head_dim a multiple of
+    64, an even head count) is a TPU one: the port's kernels take any even
+    head_dim <= 128 and any head count."""
     _, s, _ = qkv.shape
-    d = _head_dim(qkv, num_heads)
-    scale = float(scale if scale is not None else d ** -0.5)
+    scale = _scale(qkv, num_heads, scale)
     if s <= MAX_SEQ:
-        raise NotImplementedError(
-            f"fused_attention_qkv_cols at S = {s} <= {MAX_SEQ} needs the "
-            f"head-pair kernels _hp_fwd_kernel / _hp_bwd_kernel, which are "
-            f"not in the port yet (ROADMAP K9, K10); the model's S <= "
-            f"{MAX_SEQ} route is qkv_proj_attention")
+        return HeadPairAttention.apply(qkv, num_heads, scale)
     return FlashAttentionBlocked.apply(qkv, num_heads, scale)
