@@ -10,7 +10,8 @@ It drives the port's serving path and its training path
 and no phase catches its own error:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: csrc/attn_fwd.cu with nvcc into build/kernels/, timed.
+2. build: every CUDA source of the port with nvcc into build/kernels/,
+   one nvcc per source, all started together; csrc/attn_fwd.cu's time.
 3. kernel vs plain: ops/flash_attention.py::attn_fwd (the CUDA kernel)
    against attn_fwd_reference (plain PyTorch) on seeded bf16 qkv at the
    serve path's shapes (B 1 and 64, S 197, H 12, D 64) and a few other
@@ -99,8 +100,27 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     phase 3's and 7's limits; at B 64 and 128 the median CUDA-event time
     of each kernel, its plain version and SDPA's forward or backward.
 
-Every phase counts the launches of all eight kernels: a run with the
-default flags launches neither K3 nor K9 nor K10.
+The op-level fused attention entry points (ops/attention.py::
+multi_head_attention(use_pallas=True), ops/flash_attention.py::
+fused_attention_qkv), which no model calls:
+
+21. K7, K8, K11 and K12 vs plain: csrc/fused_attn_fwd.cu (K7, K11; built
+    with the others in phase 2, registers and spills logged) and
+    csrc/hp_bwd.cu's launches for K8 and K12. `multi_head_attention(
+    use_pallas=True)` (K7, K8) on separate (B, H, S, D) q, k, v and
+    `fused_attention_qkv` (K11, K12) on a (B, S, 3, H, D) buffer, forward
+    and backward, at B 64 and 128 (S 197, H 12, D 64) and S 1024, a ragged
+    S at D 48 and D 128; then `multi_head_attention` on the permuted
+    (B, H, S, D) views of a qkv buffer, read in place. o against
+    fused_fwd_reference and the gradients against fused_bwd_reference with
+    phase 20's limits; at B 64 and 128 the median CUDA-event time of each
+    kernel, its plain version and SDPA's forward or backward. Both entry
+    points at S = 1100 take reference_attention, as JAX routes them, and
+    must launch none of the twelve kernels.
+
+Every phase counts the launches of all twelve kernels: a run with the
+default flags launches none of K3, K7-K12, and no model path launches K7,
+K8, K11 or K12.
 
 Every kernel's line in the kernels JSON carries its time, its plain
 version's, the yardstick's (library_ms) and bound_ms: the larger of its
@@ -228,6 +248,13 @@ PALLAS_MLP_FLAGS = RECIPE_FLAGS + ["--pallas_mlp", "on"]
 # The head-pair route (K9, K10) of fused_attention_qkv_cols, (B, S, H, D)
 HP_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
 HP_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 77, 3, 48), (2, 130, 2, 128))
+# The op-level fused route (K7, K8, K11, K12), (B, S, H, D); the view case
+# runs multi_head_attention on the permuted views of a qkv buffer; at
+# LONG_FUSED_SHAPE both entry points take reference_attention
+FUSED_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
+FUSED_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 130, 3, 48), (2, 77, 2, 128))
+FUSED_VIEW_SHAPE = (8, 197, 12, 64)
+LONG_FUSED_SHAPE = (1, 1100, 2, 64)
 
 # every kernel's launch count, 'module.COUNT' in ops/
 ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
@@ -237,7 +264,11 @@ ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
               "flash_blocked.FLASH_BWD_DQ_LAUNCHES",
               "mlp_fused.FC2_BWD_LAUNCHES",
               "flash_attention.HP_FWD_LAUNCHES",
-              "flash_attention.HP_BWD_LAUNCHES")
+              "flash_attention.HP_BWD_LAUNCHES",
+              "flash_attention.FUSED_FWD_LAUNCHES",
+              "flash_attention.FUSED_BWD_LAUNCHES",
+              "flash_attention.QKV_FWD_LAUNCHES",
+              "flash_attention.QKV_BWD_LAUNCHES")
 
 
 def log(msg: str) -> None:
@@ -487,7 +518,8 @@ def build_all(fa, fb, mf):
 
     builds = {"attn_fwd": fa.build_kernels, "attn_bwd": fa.build_bwd_kernels,
               "flash_blocked": fb.build_kernels, "mlp_fused": mf.build_kernels,
-              "hp_bwd": fa.build_hp_bwd_kernels}
+              "hp_bwd": fa.build_hp_bwd_kernels,
+              "fused_attn_fwd": fa.build_fused_fwd_kernels}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {n: pool.submit(timed, fn) for n, fn in builds.items()}
         return {n: f.result() for n, f in futures.items()}
@@ -503,7 +535,7 @@ def log_ptxas(cuda_build, name: str, tag: str) -> None:
         if m:
             # the kernel's own name is the last match: the anonymous
             # namespace before it carries the source's name
-            k = re.findall(r"\d((?:attn|flash|hp|fc2)_\w+?_kernel)"
+            k = re.findall(r"\d((?:fused|attn|flash|hp|fc2)_\w+?_kernel)"
                            r"(?:ILi(\d+)E)?", m.group(1))
             fn = f"{k[-1][0]}<{k[-1][1] or 0}>" if k else m.group(1)
         elif "registers" in line or "spill" in line:
@@ -1011,6 +1043,165 @@ def phase_hp_kernel(counts, fa, dev):
     return launches, results, worst
 
 
+def phase_fused_kernel(counts, fa, dev):
+    """K7 and K8 through multi_head_attention(use_pallas=True), K11 and K12
+    through fused_attention_qkv, held against their plain versions; then
+    both at S = 1100, which must launch nothing. Returns the route's
+    launches, the results and the worst errors."""
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        multi_head_attention,
+    )
+
+    def leaf(shape, seed):
+        return seeded_bf16(shape, seed, dev).requires_grad_()
+
+    def heads5(qkv):   # (B, H, S, D) views of a (B, S, 3, H, D) buffer
+        return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+    shapes = FUSED_MAIN_SHAPES + FUSED_EXTRA_SHAPES
+    mha, qkv_runs = {}, {}
+    counts(reset=True)
+    for shape in shapes:
+        b, s, h, d = shape
+        seed = 6000 + b * s + h * d
+        q, k, v = (leaf((b, h, s, d), seed + i) for i in range(3))
+        do = seeded_bf16((b, h, s, d), seed + 3, dev)
+        o = multi_head_attention(q, k, v, use_pallas=True)
+        o.backward(do)
+        mha[shape] = ((q.detach(), k.detach(), v.detach(), do), o.detach(),
+                      (q.grad, k.grad, v.grad))
+        qkv = leaf((b, s, 3, h, d), seed + 4)
+        do_s = seeded_bf16((b, s, h * d), seed + 5, dev)
+        o = fa.fused_attention_qkv(qkv)
+        o.backward(do_s)
+        x = qkv.detach()
+        qkv_runs[shape] = (
+            (*heads5(x), do_s.view(b, s, h, d).transpose(1, 2)),
+            o.detach().view(b, s, h, d).transpose(1, 2), heads5(qkv.grad),
+            x, do_s)
+    # the (B, H, S, D) views of one qkv buffer, read in place
+    b, s, h, d = FUSED_VIEW_SHAPE
+    qkv = leaf((b, s, 3, h, d), 6900)
+    do = seeded_bf16((b, h, s, d), 6901, dev)
+    o = multi_head_attention(*heads5(qkv), use_pallas=True)
+    o.backward(do)
+    view_run = ((*heads5(qkv.detach()), do), o.detach(), heads5(qkv.grad))
+    torch.cuda.synchronize()
+    launches = counts()
+
+    def held(tag, shape, run):
+        """o and (dq, dk, dv) against the plain versions; returns the
+        errors."""
+        (q, k, v, do), o, grads = run
+        scale = q.shape[-1] ** -0.5
+        o_r = fa.fused_fwd_reference(q, k, v, scale)
+        g = torch.stack(grads).float()
+        g_r = torch.stack(fa.fused_bwd_reference(q, k, v, do, scale)).float()
+        torch.cuda.synchronize()
+        check(o.shape == o_r.shape and g.shape == g_r.shape
+              and torch.isfinite(o.float()).all().item()
+              and torch.isfinite(g).all().item(),
+              f"{tag} {shape}: shapes {tuple(o.shape)}, {tuple(g.shape)} or "
+              f"not finite")
+        o_err = (o.float() - o_r.float()).abs().max().item()
+        g_err = (g - g_r).abs().max().item()
+        g_ref = g_r.abs().max().item()
+        check(o_err <= O_ATOL,
+              f"{tag} {shape}: o max abs err {o_err} > {O_ATOL}")
+        check(g_err <= DQKV_REL_ATOL * g_ref,
+              f"{tag} {shape}: grads max abs err {g_err} > {DQKV_REL_ATOL} "
+              f"x {g_ref}")
+        return o_err, g_err, g_ref
+
+    results = {}
+    worst = dict.fromkeys(("fused_fwd", "fused_bwd", "qkv_fwd", "qkv_bwd"),
+                          0.0)
+    for shape in shapes:
+        b, s, h, d = shape
+        row = {}
+        for tag, run in (("fused", mha[shape]), ("qkv", qkv_runs[shape][:3])):
+            o_err, g_err, g_ref = held(tag, shape, run)
+            worst[f"{tag}_fwd"] = max(worst[f"{tag}_fwd"], o_err)
+            worst[f"{tag}_bwd"] = max(worst[f"{tag}_bwd"], g_err)
+            row.update({f"{tag}_o_max_abs_err": o_err,
+                        f"{tag}_grads_max_abs_err": g_err,
+                        f"{tag}_grads_max_abs": g_ref})
+        if shape in FUSED_MAIN_SHAPES:
+            scale = d ** -0.5
+            (q, k, v, do), _, _ = mha[shape]
+            (qv, kv, vv, dov), _, _, qkv, do_s = qkv_runs[shape]
+
+            def qkv_fwd_plain():
+                o = fa.fused_fwd_reference(qv, kv, vv, scale)
+                return o.transpose(1, 2).reshape(b, s, h * d)
+
+            def qkv_bwd_plain():
+                return fa.hp_bwd_reference(qkv.view(b, s, 3 * h * d), do_s,
+                                           h, scale).view(qkv.shape)
+
+            timed = {
+                "fused_fwd": (lambda: fa.fused_fwd(q, k, v, scale),
+                              lambda: fa.fused_fwd_reference(q, k, v, scale),
+                              lambda: sdpa_ms(q, k, v)),
+                "fused_bwd": (lambda: fa.fused_bwd(q, k, v, do, scale),
+                              lambda: fa.fused_bwd_reference(q, k, v, do,
+                                                             scale),
+                              lambda: sdpa_ms(q, k, v, do)),
+                "qkv_fwd": (lambda: fa.qkv_fwd(qkv, scale=scale),
+                            qkv_fwd_plain, lambda: sdpa_ms(qv, kv, vv)),
+                "qkv_bwd": (lambda: fa.qkv_bwd(qkv, do_s, scale=scale),
+                            qkv_bwd_plain,
+                            lambda: sdpa_ms(qv, kv, vv, dov))}
+            # forward: q, k, v read, o written; q·kᵀ and p·v. Backward:
+            # q, k, v, dO read, dq, dk, dv written; q·kᵀ, dO·vᵀ, pᵀ·dO,
+            # ds·k, dsᵀ·q
+            sq, n = b * h * s * s * d, b * s * h * d
+            for name, (kernel, plain, library) in timed.items():
+                row[f"{name}_ms"] = cuda_ms(kernel)
+                row[f"{name}_plain_ms"] = cuda_ms(plain)
+                row[f"{name}_library_ms"] = library()
+                bwd = name.endswith("bwd")
+                row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bound(
+                    (10 if bwd else 4) * sq, 2 * (7 if bwd else 4) * n)
+        results[shape] = row
+        log(f"[fused kernel] B={b} S={s} H={h} D={d}: "
+            + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    o_err, g_err, g_ref = held("qkv views", FUSED_VIEW_SHAPE, view_run)
+    worst["fused_fwd"] = max(worst["fused_fwd"], o_err)
+    worst["fused_bwd"] = max(worst["fused_bwd"], g_err)
+    log(f"[fused kernel] multi_head_attention on the (B, H, S, D) views of "
+        f"a {FUSED_VIEW_SHAPE} (B, S, H, D) qkv buffer: o_max_abs_err="
+        f"{o_err!r} grads_max_abs_err={g_err!r} grads_max_abs={g_ref!r}")
+
+    # S > 1024: the JAX routing to reference_attention, no kernel
+    b, s, h, d = LONG_FUSED_SHAPE
+    counts(reset=True)
+    q, k, v = (leaf((b, h, s, d), 6950 + i) for i in range(3))
+    o = multi_head_attention(q, k, v, use_pallas=True)
+    o.backward(torch.ones_like(o))
+    qkv = leaf((b, s, 3, h, d), 6953)
+    o2 = fa.fused_attention_qkv(qkv)
+    o2.backward(torch.ones_like(o2))
+    torch.cuda.synchronize()
+    long_launches = counts()
+    check(not any(long_launches.values()),
+          f"S = {s} launched {long_launches} (want none)")
+    o_r = fa.fused_fwd_reference(q.detach(), k.detach(), v.detach(),
+                                 d ** -0.5)
+    o2_r = fa.fused_fwd_reference(*heads5(qkv.detach()), d ** -0.5)
+    err = max((o.float() - o_r.float()).abs().max().item(),
+              (o2.view(b, s, h, d).transpose(1, 2).float()
+               - o2_r.float()).abs().max().item())
+    check(err <= O_ATOL and torch.isfinite(q.grad.float()).all().item()
+          and torch.isfinite(qkv.grad.float()).all().item(),
+          f"S = {s}: o max abs err {err} > {O_ATOL} or grads not finite")
+    log(f"[fused kernel] S={s}: reference_attention route, no launch "
+        f"({long_launches}); o max abs err vs fused_fwd_reference {err!r}")
+    return launches, results, worst
+
+
 def counter(*names):
     """counts(reset=False) -> {COUNT: launches} of the counts named
     'module.COUNT' (modules of ops/); reset sets them to 0 first."""
@@ -1176,11 +1367,24 @@ def main() -> int:
           f"fused_attention_qkv_cols at S <= 1024 launched {hp_launches} "
           f"(want K9 and K10 {n_hp} each)")
 
+    # ---- the op-level fused entry points (K7, K8, K11, K12)
+    log(f"[build fused] fused_attn_fwd built/loaded in "
+        f"{build_s['fused_attn_fwd']:.3f} s (in parallel with the others)")
+    log_ptxas(cuda_build, "fused_attn_fwd", "build fused")
+    fu_launches, fu_k, fu_worst = phase_fused_kernel(every, fa, dev)
+    n_fu = len(FUSED_MAIN_SHAPES + FUSED_EXTRA_SHAPES)
+    check(fu_launches == only(
+        FUSED_FWD_LAUNCHES=n_fu + 1, FUSED_BWD_LAUNCHES=n_fu + 1,
+        QKV_FWD_LAUNCHES=n_fu, QKV_BWD_LAUNCHES=n_fu),
+          f"the op-level entry points launched {fu_launches} (want K7 and "
+          f"K8 {n_fu + 1} each, K11 and K12 {n_fu} each)")
+
     b1, b64 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
     l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
     m128, m64 = mlp_k[MLP_MAIN_SHAPES[0]], mlp_k[MLP_MAIN_SHAPES[1]]
     hp64, hp128 = hp_k[HP_MAIN_SHAPES[0]], hp_k[HP_MAIN_SHAPES[1]]
+    fu64, fu128 = fu_k[FUSED_MAIN_SHAPES[0]], fu_k[FUSED_MAIN_SHAPES[1]]
     src = f"{PKG}/csrc/"
     jax_ops = "vision_transformers_torch_xla_tpu/ops/"
 
@@ -1210,6 +1414,19 @@ def main() -> int:
             "library_ms": hp128[f"{name}_library_ms"],
             "ms_b64": hp64[f"{name}_ms"],
             "plain_ms_b64": hp64[f"{name}_plain_ms"]}
+
+    def fused_entry(name, source, replaces):
+        return {
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": jax_ops + replaces,
+            "launches": fu_launches[f"{name.upper()}_LAUNCHES"],
+            "max_abs_err": fu_worst[name], "shape": FUSED_MAIN_SHAPES[1],
+            "ms": fu128[f"{name}_ms"], "plain_ms": fu128[f"{name}_plain_ms"],
+            "bound_ms": fu128[f"{name}_bound_ms"],
+            "bound_by": fu128[f"{name}_bound_by"],
+            "library_ms": fu128[f"{name}_library_ms"],
+            "ms_b64": fu64[f"{name}_ms"],
+            "plain_ms_b64": fu64[f"{name}_plain_ms"]}
 
     kernels = [{
         "name": "attn_fwd", "route": "cuda", "source": src + "attn_fwd.cu",
@@ -1242,7 +1459,11 @@ def main() -> int:
         "ms_b64": m64["ms"], "plain_ms_b64": m64["plain_ms"],
         "unfused_ms_b64": m64["unfused_ms"]},
         hp_entry("hp_fwd", "attn_fwd.cu", "flash_attention.py:171"),
-        hp_entry("hp_bwd", "hp_bwd.cu", "flash_attention.py:212")]
+        hp_entry("hp_bwd", "hp_bwd.cu", "flash_attention.py:212"),
+        fused_entry("fused_fwd", "fused_attn_fwd.cu", "flash_attention.py:36"),
+        fused_entry("fused_bwd", "hp_bwd.cu", "flash_attention.py:61"),
+        fused_entry("qkv_fwd", "fused_attn_fwd.cu", "flash_attention.py:740"),
+        fused_entry("qkv_bwd", "hp_bwd.cu", "flash_attention.py:764")]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -101,17 +101,33 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+def _defined(path):
+    with open(path) as f:
+        return {n.name for n in ast.parse(f.read(), path).body
+                if isinstance(n, ast.FunctionDef)}
+
+
 def test_port_imports_no_jax():
     files = [os.path.join(REPO, p) for p in (
         "chip_smoke.py", "tools/profile_torch_forward.py",
-        "tools/profile_torch_train_step.py")]
+        "tools/profile_torch_train_step.py", "tools/time_torch_attention.py")]
     for root, _, names in os.walk(PORT_PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     rel = {os.path.relpath(p, PORT_PKG) for p in files}
     assert {"launch/main.py", "train/steps.py", "train/fused.py",
             "core/config.py", "data/loader.py", "ops/flash_blocked.py",
-            "ops/mlp_fused.py", "ops/flash_attention.py",
+            "ops/mlp_fused.py", "ops/flash_attention.py", "ops/attention.py",
             "models/vision_transformer_zoo.py"} <= rel
+    # the op-level attention entry points and their kernels' wrappers live
+    # in the modules checked here, their CUDA sources in csrc/
+    assert {"multi_head_attention", "masked_attention",
+            "attention_bshd"} <= _defined(os.path.join(PORT_PKG, "ops",
+                                                        "attention.py"))
+    assert {"fused_attention", "fused_attention_qkv", "fused_fwd",
+            "fused_bwd", "qkv_fwd", "qkv_bwd"} <= _defined(
+        os.path.join(PORT_PKG, "ops", "flash_attention.py"))
+    assert {"fused_attn_fwd.cu", "hp_bwd.cu"} <= set(
+        os.listdir(os.path.join(PORT_PKG, "csrc")))
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
     assert not {k: v for k, v in bad.items() if v}

@@ -1,0 +1,141 @@
+"""Time the PyTorch port's short-sequence attention kernels on one NVIDIA GPU.
+
+The port is imported from the checkout given by --repo (by default the one
+this script sits in), so that two trees can be compared in turns from one
+command, each in its own process: for example with the parent commit
+unpacked by `git archive` under build/parent,
+
+    for t in build/parent . . build/parent; do
+        python tools/time_torch_attention.py --repo $t --batch 128
+    done
+
+Each run prints one JSON line: the tree, the card's name and power limit
+(nvidia-smi), per kernel the median CUDA-event time of one call (host
+launch cost included) in each of --rounds rounds, on seeded bf16 inputs at
+(B, S, H, D) = (--batch, 197, 12, 64), and ptxas's registers and spills
+for each kernel this process built (none when build/kernels/ held it).
+With --profile it adds, from a torch.profiler trace of 10 calls of each
+wrapper, the device time per call of each CUDA kernel it launched (the
+backward's dq and dk/dv launches apart).
+The kernels are named by their wrappers in ops/flash_attention.py: hp_fwd
+(K9) and hp_bwd (K10), which every tree since they were ported has, and
+fused_fwd, fused_bwd, qkv_fwd, qkv_bwd (K7, K8, K11, K12).
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+S, H, D = 197, 12, 64
+
+
+def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def seeded(shape, seed: int):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to("cuda", torch.bfloat16)
+
+
+def calls(fa, b: int):
+    """Each kernel's wrapper call on its seeded inputs."""
+    qkv = seeded((b, S, 3 * H * D), 1)
+    do = seeded((b, S, H * D), 2)
+    q, k, v, g = (seeded((b, H, S, D), 3 + i) for i in range(4))
+    qkv5 = qkv.view(b, S, 3, H, D)
+    return {
+        "hp_fwd": lambda: fa.hp_fwd(qkv, H),
+        "hp_bwd": lambda: fa.hp_bwd(qkv, do, H),
+        "fused_fwd": lambda: fa.fused_fwd(q, k, v),
+        "fused_bwd": lambda: fa.fused_bwd(q, k, v, g),
+        "qkv_fwd": lambda: fa.qkv_fwd(qkv5),
+        "qkv_bwd": lambda: fa.qkv_bwd(qkv5, do),
+    }
+
+
+def profile(fn, calls: int = 10):
+    """Device time per call, in ms, of each CUDA kernel `fn` launches."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    fn()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0 and e.device_type.name == "CUDA":
+            out[e.key[:80]] = us / 1e3 / calls
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repo", default=HERE,
+                    help="checkout whose port is timed (default: this one)")
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--kernels", nargs="+", default=["hp_fwd", "hp_bwd"])
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--profile", action="store_true",
+                    help="add each launched CUDA kernel's device time")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_torch_attention: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.repo))
+    fa = importlib.import_module(
+        "vision_transformers_torch_xla_tpu_torch.ops.flash_attention")
+    cuda_build = importlib.import_module(
+        "vision_transformers_torch_xla_tpu_torch.ops.cuda_build")
+    fns = calls(fa, args.batch)
+    unknown = sorted(set(args.kernels) - set(fns))
+    if unknown:
+        raise SystemExit(f"unknown kernels {unknown}; known: {sorted(fns)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    ms = {name: [cuda_ms(fns[name], args.reps) for _ in range(args.rounds)]
+          for name in args.kernels}
+    out = {"tree": args.repo, "module": fa.__file__, "card": card,
+           "shape": [args.batch, S, H, D], "ms": ms}
+    if args.profile:
+        out["device_ms_per_call"] = {n: profile(fns[n]) for n in args.kernels}
+    out["ptxas"] = {name: [line.strip() for line in log.splitlines()
+                    if "Function properties" in line or "registers" in line
+                    or "spill" in line]
+             for name, log in cuda_build.BUILD_LOGS.items()}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

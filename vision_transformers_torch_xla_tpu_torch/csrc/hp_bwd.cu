@@ -1,21 +1,34 @@
-// Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer that
-// recomputes the probabilities on its own, for Hopper.
+// Softmax attention backward that recomputes the probabilities on its own,
+// over (B, H, S, D) q, k, v, dO, dq, dk and dv given by strides, for Hopper.
 //
-// Replaces the TPU kernel
-// vision_transformers_torch_xla_tpu/ops/flash_attention.py::_hp_bwd_kernel
-// (K10), the backward of the head-pair attention whose forward (K9) keeps no
-// row stats and no o. Same function, per (b, h), from q, k, v and dO alone:
+// Replaces three TPU kernels of
+// vision_transformers_torch_xla_tpu/ops/flash_attention.py that compute the
+// same function over different layouts:
+//   _hp_bwd_kernel (K10), the backward of the head-pair attention whose
+//     forward (K9) keeps no row stats and no o: q, k, v read from a fused
+//     (B, S, 3*H*D) qkv buffer, dq, dk, dv written into one such buffer;
+//   _bwd_kernel (K8), the backward of _fwd_kernel (K7): separate (B*H, Sp,
+//     Dp) q, k, v, dO in and dq, dk, dv out, G (b, h) pairs per program;
+//   _qkv_bwd_kernel (K12), the backward of _qkv_fwd_kernel (K11): a (B, Sp,
+//     3H, D) qkv buffer and (B, Sp, H, D) dO in, dqkv (B, Sp, 3H, D) out,
+//     which is K10's layout.
+// Per (b, h), from q, k, v and dO alone:
 //   s = (q k^T in fp32 from the bf16 values) * scale over the S real keys;
 //   m = rowmax(s); p = exp(s - m) / sum(exp(s - m)), normalised in fp32;
 //   dv = bf16(p)^T dO; dp = dO v^T; delta = rowsum(dp * p);
 //   ds = bf16(p (dp - delta));
 //   dq = (ds k) * scale; dk = (ds^T q) * scale, with the raw q.
-// Every product accumulates in fp32. dq, dk and dv are stored bf16 into one
-// (B, S, 3*H*D) dqkv buffer at the standard columns h*D, H*D + h*D and
-// 2*H*D + h*D: the TPU kernel's three outputs and their concatenation are
-// one buffer here. This is not K2's cast order (csrc/attn_bwd.cu): there is
-// no bf16 q^ and no stats from the forward, and delta is sum(dp * p), since
-// K10 has no o to form rowsum(dO * o).
+// Every product accumulates in fp32; dq, dk and dv are stored bf16. Every
+// tensor is a base pointer and three element strides (batch, head, token)
+// with the head dim contiguous: K10 and K12 read q, k and v in place in the
+// qkv buffer and write dq, dk and dv at its standard columns h*D, H*D + h*D
+// and 2*H*D + h*D, so the TPU kernel's three outputs and their concatenation
+// are one buffer; K8 writes three (B, H, S, D) outputs. The TPU kernels pad
+// S to 128 and D to 8 and mask the padded columns; here the loops run over
+// the S real keys and queries. This is not K2's cast order
+// (csrc/attn_bwd.cu): there is no bf16 q^ and no stats from the forward,
+// and delta is sum(dp * p), since these kernels have no o to form
+// rowsum(dO * o).
 //
 // What bounds it on an H100: at B = 128, S = 197, H = 12, D = 64 the five
 // products are 38 GFLOP over ~271 MB (qkv and dO read, dqkv written), so
@@ -51,6 +64,7 @@
 // cudaGetLastError().
 
 #include <cfloat>
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +80,26 @@ constexpr int kMaxHeadDim = 128;
 constexpr int kMaxSeq = 1024;
 constexpr int kPairsPerLane = kMaxHeadDim / 2 / 32;  // head-dim pairs a lane owns
 constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
+
+enum { kQ, kK, kV, kDO, kDQ, kDK, kDV, kTensors };
+
+// Element strides of the seven (B, H, S, D) tensors, whose base pointers
+// are the kernels' __restrict__ parameters. Token strides are int: the host
+// checks that one head's rows span < 2^31.
+struct Layout {
+  long long sb[kTensors], sh[kTensors];
+  int ss[kTensors];
+  int S, H, D;
+  float scale;
+  int in_smem, pitch;
+};
+
+// Tensor t's rows of head (b, h).
+template <typename T>
+__device__ __forceinline__ T* head(T* p, const Layout& a, int t, int b,
+                                   int h) {
+  return p + b * a.sb[t] + h * a.sh[t];
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -171,46 +205,51 @@ __device__ __forceinline__ void row_to_scratch(float* xs, const bf16* row,
 }
 
 // 1. grid (H, B). Shared memory: per warp [row: D][p: S][ds: S] (each padded
-// to 16 bytes), then [K: S x pitch][V: S x pitch] when kv_in_smem.
+// to 16 bytes), then [K: S x pitch][V: S x pitch] when in_smem.
 template <int kD>
 __global__ void __launch_bounds__(kThreads)
-hp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                 bf16* __restrict__ dqkv, float* __restrict__ stats, int S,
-                 int H, int d_rt, float scale, int kv_in_smem, int pitch) {
+hp_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 bf16* __restrict__ dqo, float* __restrict__ stats,
+                 const Layout a) {
   extern __shared__ __align__(16) float smem[];
-  const int D = kD > 0 ? kD : d_rt;
+  const int D = kD > 0 ? kD : a.D;
+  const int S = a.S;
+  const float scale = a.scale;
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int D2 = D >> 1, C = 3 * H * D, C2 = C >> 1, HD = H * D;
-  const long long bh = (long long)b * H + h;
+  const int D2 = D >> 1;
+  const long long bh = (long long)b * a.H + h;
 
-  const bf16* base = qkv + (long long)b * S * C;
-  const bf162* kp = reinterpret_cast<const bf162*>(base + HD + h * D);
-  const bf162* vp = reinterpret_cast<const bf162*>(base + 2 * HD + h * D);
-  int kv_stride = C2;
+  const bf16* qg = head(q, a, kQ, b, h);
+  const bf16* dog = head(dout, a, kDO, b, h);
+  bf16* dqg = head(dqo, a, kDQ, b, h);
+  const bf162* kp = reinterpret_cast<const bf162*>(head(k, a, kK, b, h));
+  const bf162* vp = reinterpret_cast<const bf162*>(head(v, a, kV, b, h));
+  int k_stride = a.ss[kK] >> 1, v_stride = a.ss[kV] >> 1;  // in bf16 pairs
   const int wf = round4(D) + 2 * round4(S);
   float* xs = smem + warp * wf;
   float* ps = xs + round4(D);
   float* ts = ps + round4(S);
-  if (kv_in_smem) {
+  if (a.in_smem) {
     bf162* ks = reinterpret_cast<bf162*>(smem + kWarps * wf);
-    bf162* vs = ks + S * pitch;
-    stage_rows(ks, pitch, kp, C2, S, D2);
-    stage_rows(vs, pitch, vp, C2, S, D2);
+    bf162* vs = ks + S * a.pitch;
+    stage_rows(ks, a.pitch, kp, k_stride, S, D2);
+    stage_rows(vs, a.pitch, vp, v_stride, S, D2);
     kp = ks;
     vp = vs;
-    kv_stride = pitch;
+    k_stride = v_stride = a.pitch;
   }
   __syncthreads();
 
   HeadRow<kD> row;
   for (int i = warp; i < S; i += kWarps) {
     // s = (q k^T) scale and its max: lanes split the keys
-    row_to_scratch(xs, base + (long long)i * C + h * D, D, lane);
+    row_to_scratch(xs, qg + i * a.ss[kQ], D, lane);
     row.load(xs);
     float mx = -FLT_MAX;
     for (int j = lane; j < S; j += 32) {
-      const float s = __fmul_rn(row.dot(kp + j * kv_stride, D2), scale);
+      const float s = __fmul_rn(row.dot(kp + j * k_stride, D2), scale);
       ps[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -223,12 +262,12 @@ hp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     }
     const float l = warp_sum(sum);
     // p = e / l, dp = dO v^T and delta = sum(dp p)
-    row_to_scratch(xs, dout + ((long long)b * S + i) * HD + h * D, D, lane);
+    row_to_scratch(xs, dog + i * a.ss[kDO], D, lane);
     row.load(xs);
     float dsum = 0.f;
     for (int j = lane; j < S; j += 32) {
       const float p = ps[j] / l;
-      const float dp = row.dot(vp + j * kv_stride, D2);
+      const float dp = row.dot(vp + j * v_stride, D2);
       ps[j] = p;
       ts[j] = dp;
       dsum = fmaf(dp, p, dsum);
@@ -238,14 +277,13 @@ hp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
       ts[j] = bf16_round(ps[j] * (ts[j] - delta));
     __syncwarp();
     // dq = (ds k) scale: lanes split the head dim
-    bf162* dq = reinterpret_cast<bf162*>(dqkv + ((long long)b * S + i) * C +
-                                         h * D);
+    bf162* dq = reinterpret_cast<bf162*>(dqg + i * a.ss[kDQ]);
 #pragma unroll
     for (int u = 0; u < kPairsPerLane; ++u) {
       const int c = lane + 32 * u;
       if (c < D2) {
-        const float2 a = wsum_col(ts, kp, kv_stride, c, S);
-        dq[c] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+        const float2 w = wsum_col(ts, kp, k_stride, c, S);
+        dq[c] = __floats2bfloat162_rn(w.x * scale, w.y * scale);
       }
     }
     if (lane == 0) {
@@ -262,16 +300,18 @@ hp_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 // [m: S][l: S][delta: S], then [q: S x pitch][dO: S x pitch] when in_smem.
 template <int kD>
 __global__ void __launch_bounds__(kThreads)
-hp_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                   const float* __restrict__ stats, bf16* __restrict__ dqkv,
-                   int S, int H, int d_rt, float scale, int in_smem,
-                   int pitch) {
+hp_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ stats, bf16* __restrict__ dko,
+                   bf16* __restrict__ dvo, const Layout a) {
   extern __shared__ __align__(16) float smem[];
-  const int D = kD > 0 ? kD : d_rt;
+  const int D = kD > 0 ? kD : a.D;
+  const int S = a.S;
+  const float scale = a.scale;
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int D2 = D >> 1, C = 3 * H * D, HD = H * D;
-  const long long bh = (long long)b * H + h;
+  const int D2 = D >> 1;
+  const long long bh = (long long)b * a.H + h;
 
   const int wf = round4(D) + 2 * round4(S);
   float* xs = smem + warp * wf;
@@ -286,32 +326,34 @@ hp_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     ls[i] = st[1];
     dl[i] = st[2];
   }
-  const bf16* base = qkv + (long long)b * S * C;
-  const bf162* q_p = reinterpret_cast<const bf162*>(base + h * D);
-  const bf162* do_p = reinterpret_cast<const bf162*>(
-      dout + (long long)b * S * HD + h * D);
-  int q_stride = C >> 1, do_stride = HD >> 1;
-  if (in_smem) {
-    bf162* a = reinterpret_cast<bf162*>(dl + round4(S));
-    stage_rows(a, pitch, q_p, q_stride, S, D2);
-    stage_rows(a + S * pitch, pitch, do_p, do_stride, S, D2);
-    q_p = a;
-    do_p = a + S * pitch;
-    q_stride = do_stride = pitch;
+  const bf16* kg = head(k, a, kK, b, h);
+  const bf16* vg = head(v, a, kV, b, h);
+  bf16* dkg = head(dko, a, kDK, b, h);
+  bf16* dvg = head(dvo, a, kDV, b, h);
+  const bf162* q_p = reinterpret_cast<const bf162*>(head(q, a, kQ, b, h));
+  const bf162* do_p = reinterpret_cast<const bf162*>(head(dout, a, kDO, b, h));
+  int q_stride = a.ss[kQ] >> 1, do_stride = a.ss[kDO] >> 1;  // in pairs
+  if (a.in_smem) {
+    bf162* rows = reinterpret_cast<bf162*>(dl + round4(S));
+    stage_rows(rows, a.pitch, q_p, q_stride, S, D2);
+    stage_rows(rows + S * a.pitch, a.pitch, do_p, do_stride, S, D2);
+    q_p = rows;
+    do_p = rows + S * a.pitch;
+    q_stride = do_stride = a.pitch;
   }
   __syncthreads();
 
   HeadRow<kD> row;
   for (int j = warp; j < S; j += kWarps) {
     // p = exp((k_j q^T) scale - m) / l for every query: lanes split them
-    row_to_scratch(xs, base + (long long)j * C + HD + h * D, D, lane);
+    row_to_scratch(xs, kg + j * a.ss[kK], D, lane);
     row.load(xs);
     for (int i = lane; i < S; i += 32)
       ps[i] = expf(__fmul_rn(row.dot(q_p + i * q_stride, D2), scale) - ms[i]) /
               ls[i];
     __syncwarp();
     // ds = bf16(p (dO v_j - delta)); keep bf16(p) for dv
-    row_to_scratch(xs, base + (long long)j * C + 2 * HD + h * D, D, lane);
+    row_to_scratch(xs, vg + j * a.ss[kV], D, lane);
     row.load(xs);
     for (int i = lane; i < S; i += 32) {
       const float p = ps[i];
@@ -320,17 +362,16 @@ hp_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     }
     __syncwarp();
     // dk = (ds^T q) scale, dv = bf16(p)^T dO: lanes split the head dim
-    bf16* drow = dqkv + ((long long)b * S + j) * C + h * D;
-    bf162* dk = reinterpret_cast<bf162*>(drow + HD);
-    bf162* dv = reinterpret_cast<bf162*>(drow + 2 * HD);
+    bf162* dk = reinterpret_cast<bf162*>(dkg + j * a.ss[kDK]);
+    bf162* dv = reinterpret_cast<bf162*>(dvg + j * a.ss[kDV]);
 #pragma unroll
     for (int u = 0; u < kPairsPerLane; ++u) {
       const int c = lane + 32 * u;
       if (c < D2) {
-        const float2 k = wsum_col(ts, q_p, q_stride, c, S);
-        const float2 v = wsum_col(ps, do_p, do_stride, c, S);
-        dk[c] = __floats2bfloat162_rn(k.x * scale, k.y * scale);
-        dv[c] = __floats2bfloat162_rn(v.x, v.y);
+        const float2 wk = wsum_col(ts, q_p, q_stride, c, S);
+        const float2 wv = wsum_col(ps, do_p, do_stride, c, S);
+        dk[c] = __floats2bfloat162_rn(wk.x * scale, wk.y * scale);
+        dv[c] = __floats2bfloat162_rn(wv.x, wv.y);
       }
     }
     __syncwarp();  // xs, ps and ts are rewritten by the warp's next row
@@ -344,37 +385,33 @@ int set_smem(const void* kernel, size_t bytes) {
 }
 
 template <int kD>
-int launch(const void* qkv, const void* dout, void* dqkv, void* stats, int B,
-           int S, int H, int D, float scale, cudaStream_t stream) {
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* g = static_cast<const bf16*>(dout);
-  bf16* dx = static_cast<bf16*>(dqkv);
-  float* st = static_cast<float*>(stats);
-
+int launch(bf16* const* t, float* stats, Layout a, int B,
+           cudaStream_t stream) {
+  const int S = a.S, D = a.D;
   // pad staged rows to an odd number of 32-bit words: conflict-free reads
   const int d2 = D / 2;
-  const int pitch = (d2 % 2 == 0) ? d2 + 1 : d2;
-  const size_t rows_bytes = (size_t)S * pitch * sizeof(bf162);
+  a.pitch = (d2 % 2 == 0) ? d2 + 1 : d2;
+  const size_t rows_bytes = (size_t)S * a.pitch * sizeof(bf162);
   const size_t scratch =
       (size_t)kWarps * (round4(D) + 2 * round4(S)) * sizeof(float);
-  const dim3 grid(H, B);
+  const dim3 grid(a.H, B);
 
-  const int kv_in_smem = scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
-  const size_t dq_smem = scratch + (kv_in_smem ? 2 * rows_bytes : 0);
+  a.in_smem = scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
+  const size_t dq_smem = scratch + (a.in_smem ? 2 * rows_bytes : 0);
   int rc = set_smem((const void*)hp_bwd_dq_kernel<kD>, dq_smem);
   if (rc) return rc;
   hp_bwd_dq_kernel<kD><<<grid, kThreads, dq_smem, stream>>>(
-      q, g, dx, st, S, H, D, scale, kv_in_smem, pitch);
+      t[kQ], t[kK], t[kV], t[kDO], t[kDQ], stats, a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   const size_t kv_scratch = scratch + 3 * (size_t)round4(S) * sizeof(float);
-  const int in_smem = kv_scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
-  const size_t kv_smem = kv_scratch + (in_smem ? 2 * rows_bytes : 0);
+  a.in_smem = kv_scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
+  const size_t kv_smem = kv_scratch + (a.in_smem ? 2 * rows_bytes : 0);
   rc = set_smem((const void*)hp_bwd_dkdv_kernel<kD>, kv_smem);
   if (rc) return rc;
   hp_bwd_dkdv_kernel<kD><<<grid, kThreads, kv_smem, stream>>>(
-      q, g, st, dx, S, H, D, scale, in_smem, pitch);
+      t[kQ], t[kK], t[kV], t[kDO], stats, t[kDK], t[kDV], a);
   return (int)cudaGetLastError();
 }
 
@@ -382,21 +419,43 @@ int launch(const void* qkv, const void* dout, void* dqkv, void* stats, int B,
 
 extern "C" {
 
-// dqkv (B, S, 3HD) bf16 out; stats (B, H, S, 3) fp32 is scratch. Returns a
-// cudaError_t as int: 0 when both launches were accepted.
-int vtx_hp_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
-               int B, int S, int H, int D, float scale, void* stream) {
-  // offsets inside one image are 32-bit: S * 3 * H * D must fit
+// q, k, v, dout in and dq, dk, dv out: (B, H, S, D) bf16 with the head dim
+// contiguous; strides holds 21 element strides, (batch, head, token) of each
+// in that order; stats (B, H, S, 3) fp32 is scratch. Returns a cudaError_t
+// as int: 0 when both launches were accepted.
+int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
+               void* dq, void* dk, void* dv, void* stats,
+               const long long* strides, int B, int S, int H, int D,
+               float scale, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 ||
-      D < 2 || (D & 1) || D > kMaxHeadDim ||
-      (long long)S * 3 * H * D >= (1LL << 31))
+      D < 2 || (D & 1) || D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
+  Layout a;
+  bf16* t_ptr[kTensors];
+  const void* ptrs[kTensors] = {q, k, v, dout, dq, dk, dv};
+  for (int t = 0; t < kTensors; ++t) {
+    const long long sb = strides[3 * t], sh = strides[3 * t + 1],
+                    ss = strides[3 * t + 2];
+    // rows are read and written as bf16 pairs: 4-byte aligned, even strides
+    if ((reinterpret_cast<uintptr_t>(ptrs[t]) & 3) || ((sb | sh | ss) & 1) ||
+        sb < 0 || sh < 0 || ss < 0 || ss * (S - 1) + D >= (1LL << 31))
+      return (int)cudaErrorInvalidValue;
+    t_ptr[t] = const_cast<bf16*>(static_cast<const bf16*>(ptrs[t]));
+    a.sb[t] = sb;
+    a.sh[t] = sh;
+    a.ss[t] = (int)ss;
+  }
+  float* st = static_cast<float*>(stats);
+  a.S = S;
+  a.H = H;
+  a.D = D;
+  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(qkv, dout, dqkv, stats, B, S, H, D, scale, s);
-    case 64: return launch<64>(qkv, dout, dqkv, stats, B, S, H, D, scale, s);
-    case 128: return launch<128>(qkv, dout, dqkv, stats, B, S, H, D, scale, s);
-    default: return launch<0>(qkv, dout, dqkv, stats, B, S, H, D, scale, s);
+    case 32: return launch<32>(t_ptr, st, a, B, s);
+    case 64: return launch<64>(t_ptr, st, a, B, s);
+    case 128: return launch<128>(t_ptr, st, a, B, s);
+    default: return launch<0>(t_ptr, st, a, B, s);
   }
 }
 

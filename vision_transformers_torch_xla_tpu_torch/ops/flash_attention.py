@@ -23,9 +23,31 @@ projected. For S <= MAX_SEQ it is the head-pair custom VJP
 
 Longer sequences go to the blocked kernels of ops/flash_blocked.py (K4-K6).
 
+The op-level entry points `fused_attention` (:880, reached through
+`ops/attention.py::multi_head_attention(use_pallas=True)`) and
+`fused_attention_qkv` (:857) are the custom VJPs `_fused_attention_padded`
+(:153-168) and `_fused_attention_qkv_padded` (:841-854), here the autograd
+Functions `FusedAttention` and `FusedAttentionQkv`. Their kernels compute
+one function over two layouts, in the cast order of `_reference_attention`
+(p normalised in fp32 before its bf16 cast), which is not K1's:
+
+* `fused_fwd` (K7, `_fwd_kernel` :36) on (B, H, S, D) q, k, v and `qkv_fwd`
+  (K11, `_qkv_fwd_kernel` :740) on a (B, S, 3, H, D) qkv buffer ->
+  csrc/fused_attn_fwd.cu, plain version `fused_fwd_reference`;
+* `fused_bwd` (K8, `_bwd_kernel` :61) and `qkv_bwd` (K12, `_qkv_bwd_kernel`
+  :764) -> csrc/hp_bwd.cu, whose function is K10's; plain version
+  `fused_bwd_reference`, which `hp_bwd_reference` shares.
+
+Both sources take every tensor as a base pointer and (batch, head, token)
+strides, so they read q, k and v in place, whether separate tensors or
+views of one qkv buffer. The TPU kernels' padding of S to 128 and D to 8
+and the G batching of `_pick_g` have no counterpart: the kernels loop over
+the S real keys. S > MAX_SEQ takes `reference_attention`, as in JAX.
+
 Each wrapper runs its plain version (`attn_fwd_reference`,
-`attn_bwd_reference`, `hp_bwd_reference`) only for tensors on the CPU. For
-CUDA tensors it launches the kernel or raises.
+`attn_bwd_reference`, `hp_bwd_reference`, `fused_fwd_reference`,
+`fused_bwd_reference`) only for tensors on the CPU. For CUDA tensors it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -35,9 +57,13 @@ from typing import Optional, Tuple
 import torch
 
 from vision_transformers_torch_xla_tpu_torch.ops import cuda_build
+from vision_transformers_torch_xla_tpu_torch.ops.attention import (
+    reference_attention,
+)
 from vision_transformers_torch_xla_tpu_torch.ops.bias_grad import bias_add
 from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
     FlashAttentionBlocked,
+    heads,
 )
 
 MAX_SEQ = 1024       # longer sequences are ops/flash_blocked.py's (K4-K6)
@@ -50,9 +76,14 @@ ATTN_FWD_LAUNCHES = 0
 ATTN_BWD_LAUNCHES = 0
 HP_FWD_LAUNCHES = 0
 HP_BWD_LAUNCHES = 0
+FUSED_FWD_LAUNCHES = 0
+FUSED_BWD_LAUNCHES = 0
+QKV_FWD_LAUNCHES = 0
+QKV_BWD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 
 def _load(name: str, fn: str, argtypes) -> ctypes.CDLL:
@@ -77,9 +108,15 @@ def build_bwd_kernels() -> ctypes.CDLL:
 
 
 def build_hp_bwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the head-pair backward's library."""
+    """Build (at first use) and load the backward of K8, K10 and K12."""
     return _load("hp_bwd", "vtx_hp_bwd",
-                 [_P] * 4 + [_I, _I, _I, _I, ctypes.c_float, _P])
+                 [_P] * 8 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _P])
+
+
+def build_fused_fwd_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the forward of K7 and K11."""
+    return _load("fused_attn_fwd", "vtx_fused_attn_fwd",
+                 [_P] * 4 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _P])
 
 
 def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
@@ -96,26 +133,51 @@ def _scale(qkv: torch.Tensor, num_heads: int,
 
 
 def _check_cuda(name: str, tensors, s: int, d: int, b: int,
-                num_heads: int) -> None:
-    """The kernels' contract; raises on what they do not take."""
+                num_heads: int, views: bool = False):
+    """The kernels' contract; raises on what they do not take. `views`:
+    the tensors are (B, H, S, D) views read by stride (K7, K8, K10-K12),
+    all bf16, and the return value is their strides for the kernel; else
+    contiguous tensors whose first three are bf16."""
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.bfloat16 for t in tensors[:3]):
+    typed = tensors if views else tensors[:3]
+    if any(t.dtype != torch.bfloat16 for t in typed):
         raise TypeError(f"the attention kernels take bfloat16, not "
-                        f"{[t.dtype for t in tensors[:3]]}")
+                        f"{[t.dtype for t in typed]}")
     if s > MAX_SEQ:
         raise ValueError(
             f"sequence {s} > {MAX_SEQ}: {name} takes S <= {MAX_SEQ}; longer "
             f"sequences go through fused_attention_qkv_cols to "
-            f"ops/flash_blocked.py")
+            f"ops/flash_blocked.py, or through fused_attention and "
+            f"fused_attention_qkv to reference_attention")
     if d % 2 or d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} must be even and <= {MAX_HEAD_DIM}")
     if b > MAX_GRID_DIM or num_heads > MAX_GRID_DIM:
         raise ValueError(f"batch {b} and heads {num_heads} must be <= "
                          f"{MAX_GRID_DIM}")
+    if views:
+        return _stride_array(name, tensors, s, d)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _stride_array(name: str, tensors, s: int, d: int):
+    """The (batch, head, token) element strides of (B, H, S, D) tensors, 0
+    for a dimension of size 1 (its stride is arbitrary), as the kernels'
+    int64 array. Rows are read and written as bf16 pairs and one head's rows
+    by int offsets: raises on anything else."""
+    vals = []
+    for t in tensors:
+        st = [x if n > 1 else 0 for n, x in zip(t.shape[:3], t.stride()[:3])]
+        if t.stride(-1) != 1 or t.data_ptr() % 4 or any(x % 2 for x in st) \
+                or st[2] * (s - 1) + d >= 2 ** 31:
+            raise ValueError(
+                f"{name} takes (B, H, S, D) tensors with the head dim "
+                f"contiguous, even strides and 4-byte-aligned data, not "
+                f"strides {t.stride()} at offset {t.storage_offset()}")
+        vals += st
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -269,31 +331,72 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
     return dqkv, dbias
 
 
-def hp_bwd_reference(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
-                     scale: float) -> torch.Tensor:
-    """Plain PyTorch version of the head-pair backward kernel (K10), in its
-    cast order (:223-245), which is not K2's.
+def _softmax_rows(s: torch.Tensor) -> torch.Tensor:
+    """exp(s - rowmax) / its row sum, normalised in fp32 (:734-737)."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
-    qkv (B, S, 3·H·D), do (B, S, H·D) -> dqkv (B, S, 3·H·D) in qkv's dtype,
-    columns [dq | dk | dv]. s = (q·kᵀ in fp32 from the raw values)·scale;
-    p = exp(s - m) / Σ, normalised in fp32; dv = bf16(p)ᵀ·dO; dp = dO·vᵀ;
-    ds = bf16(p (dp - Σ dp·p)); dq = ds·k·scale and dk = dsᵀ·q·scale."""
-    b, s, c = qkv.shape
-    h = num_heads
-    d = c // (3 * h)
-    dt = qkv.dtype
-    q, k, v = qkv.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4).float()
-    g = do.reshape(b, s, h, d).transpose(1, 2).float()       # (B,H,S,D)
-    sc = torch.matmul(q, k.transpose(-1, -2)) * scale
-    e = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
+
+def fused_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K7 and K11, in their cast order (:47-56,
+    :753-759), which is not K1's: s = (q·kᵀ in fp32 from the raw values)
+    ·scale; p = exp(s - m) / Σ, normalised in fp32; o = bf16(p)·v with an
+    fp32 accumulator. q, k, v: (..., S, D) -> (..., S, D) in q's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = _softmax_rows(s)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def fused_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K8, K10 and K12, in their cast order
+    (:72-90, :223-245, :776-786), which is not K2's.
+
+    q, k, v, do: (..., S, D) -> dq, dk, dv in q's dtype. s = (q·kᵀ in fp32
+    from the raw values)·scale; p = exp(s - m) / Σ, normalised in fp32;
+    dv = bf16(p)ᵀ·dO; dp = dO·vᵀ; ds = bf16(p (dp - Σ dp·p)); dq =
+    ds·k·scale and dk = dsᵀ·q·scale."""
+    dt = q.dtype
+    q, k, v, g = (t.float() for t in (q, k, v, do))
+    p = _softmax_rows(torch.matmul(q, k.transpose(-1, -2)) * scale)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g)
     dp = torch.matmul(g, v.transpose(-1, -2))
     ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
-    return torch.stack([dq, dk, dv]).to(dt).permute(1, 3, 0, 2, 4).reshape(
-        b, s, c)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def hp_bwd_reference(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+                     scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the head-pair backward kernel (K10):
+    `fused_bwd_reference` over the heads of a qkv buffer.
+
+    qkv (B, S, 3·H·D), do (B, S, H·D) -> dqkv (B, S, 3·H·D) in qkv's dtype,
+    columns [dq | dk | dv]."""
+    b, s, c = qkv.shape
+    g = do.reshape(b, s, num_heads, -1).transpose(1, 2)
+    grads = fused_bwd_reference(*heads(qkv, num_heads), g, scale)
+    return torch.stack(grads).permute(1, 3, 0, 2, 4).reshape(b, s, c)
+
+
+def _launch_bwd(ins, outs, scale: float, name: str) -> None:
+    """One call of csrc/hp_bwd.cu (its two launches): q, k, v, dO in and
+    dq, dk, dv out, all (B, H, S, D) bf16 read and written by stride."""
+    b, h, s, d = ins[0].shape
+    strides = _check_cuda(name, (*ins, *outs), s, d, b, h, views=True)
+    dev = ins[0].device
+    # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
+    stats = torch.empty((b, h, s, 3), dtype=torch.float32, device=dev)
+    lib = build_hp_bwd_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vtx_hp_bwd(*(t.data_ptr() for t in (*ins, *outs)),
+                            stats.data_ptr(), strides, b, s, h, d, scale,
+                            stream)
+    _raise_on(lib, rc, f"{name} attention backward")
 
 
 def hp_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
@@ -311,18 +414,16 @@ def hp_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
         return hp_bwd_reference(qkv, do, num_heads, scale)
     _check_cuda("hp_bwd", (qkv, do), s, d, b, num_heads)
     dqkv = torch.empty_like(qkv)
-    # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
-    stats = torch.empty((b, num_heads, s, 3), dtype=torch.float32,
-                        device=qkv.device)
-    lib = build_hp_bwd_kernels()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.vtx_hp_bwd(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
-                            stats.data_ptr(), b, s, num_heads, d, scale,
-                            stream)
-    _raise_on(lib, rc, "head-pair attention backward")
+    _launch_bwd((*heads(qkv, num_heads), _head_major(do, num_heads)),
+                heads(dqkv, num_heads), scale, "hp_bwd")
     HP_BWD_LAUNCHES += 1
     return dqkv
+
+
+def _head_major(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, H, S, D) view of a (B, S, H·D) tensor."""
+    b, s, c = x.shape
+    return x.reshape(b, s, num_heads, c // num_heads).transpose(1, 2)
 
 
 class HeadPairAttention(torch.autograd.Function):
@@ -340,6 +441,146 @@ class HeadPairAttention(torch.autograd.Function):
         (qkv,) = ctx.saved_tensors
         return hp_bwd(qkv, do.contiguous(), ctx.num_heads, ctx.scale), \
             None, None
+
+
+def _launch_fused_fwd(q, k, v, o, scale: float, name: str) -> None:
+    """One launch of csrc/fused_attn_fwd.cu: q, k, v in and o out, all
+    (B, H, S, D) bf16 read and written by stride."""
+    b, h, s, d = q.shape
+    strides = _check_cuda(name, (q, k, v, o), s, d, b, h, views=True)
+    lib = build_fused_fwd_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vtx_fused_attn_fwd(
+            *(t.data_ptr() for t in (q, k, v, o)), strides, b, s, h, d,
+            scale, stream)
+    _raise_on(lib, rc, f"{name} attention forward")
+
+
+def _same_shape(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+    if q.dim() != 4 or any(t.shape != q.shape for t in others):
+        raise ValueError(f"{name} takes (B, H, S, D) tensors of one shape, "
+                         f"not {[tuple(t.shape) for t in (q, *others)]}")
+
+
+def fused_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """K7: softmax attention of (B, H, S, D) q, k, v -> (B, H, S, D)."""
+    global FUSED_FWD_LAUNCHES
+    _same_shape("fused_fwd", q, k, v)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type == "cpu":
+        return fused_fwd_reference(q, k, v, scale)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_fused_fwd(q, k, v, o, scale, "fused_fwd")
+    FUSED_FWD_LAUNCHES += 1
+    return o
+
+
+def fused_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              do: torch.Tensor, scale: Optional[float] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8: the gradient of `fused_fwd` from q, k, v and dO, all (B, H, S,
+    D); returns dq, dk, dv."""
+    global FUSED_BWD_LAUNCHES
+    _same_shape("fused_bwd", q, k, v, do)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type == "cpu":
+        return fused_bwd_reference(q, k, v, do, scale)
+    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    _launch_bwd((q, k, v, do), grads, scale, "fused_bwd")
+    FUSED_BWD_LAUNCHES += 1
+    return grads
+
+
+def _qkv_heads(qkv: torch.Tensor, num_heads: Optional[int]):
+    """q, k, v: (B, H, S, D) views of a (B, S, 3, H, D) qkv buffer, or of its
+    (B, S, 3·H·D) view given num_heads."""
+    if qkv.dim() == 5 and qkv.shape[2] == 3 and num_heads in (
+            None, qkv.shape[3]):
+        return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    if qkv.dim() == 3 and num_heads is not None:
+        _head_dim(qkv, num_heads)
+        return heads(qkv, num_heads)
+    raise ValueError(f"qkv {tuple(qkv.shape)} is neither (B, S, 3, H, D) nor "
+                     f"(B, S, 3·H·D) with num_heads={num_heads}")
+
+
+def qkv_fwd(qkv: torch.Tensor, num_heads: Optional[int] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """K11: softmax attention of the heads of a (B, S, 3, H, D) qkv buffer
+    (or its (B, S, 3·H·D) view) -> (B, S, H·D), read in place."""
+    global QKV_FWD_LAUNCHES
+    q, k, v = _qkv_heads(qkv, num_heads)
+    b, h, s, d = q.shape
+    scale = float(scale if scale is not None else d ** -0.5)
+    if qkv.device.type == "cpu":
+        o = fused_fwd_reference(q, k, v, scale)
+        return o.transpose(1, 2).reshape(b, s, h * d)
+    o = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
+    _launch_fused_fwd(q, k, v, _head_major(o, h), scale, "qkv_fwd")
+    QKV_FWD_LAUNCHES += 1
+    return o
+
+
+def qkv_bwd(qkv: torch.Tensor, do: torch.Tensor,
+            num_heads: Optional[int] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """K12: the gradient of `qkv_fwd` with respect to its qkv buffer, from
+    qkv and dO (B, S, H·D) alone: dqkv of qkv's shape, [dq | dk | dv]."""
+    global QKV_BWD_LAUNCHES
+    q, k, v = _qkv_heads(qkv, num_heads)
+    b, h, s, d = q.shape
+    scale = float(scale if scale is not None else d ** -0.5)
+    if do.shape != (b, s, h * d):
+        raise ValueError(f"do {tuple(do.shape)} does not fit qkv "
+                         f"{tuple(qkv.shape)}")
+    if qkv.device.type == "cpu":
+        # K12's function is K10's, over the same [q | k | v] layout
+        return hp_bwd_reference(qkv.reshape(b, s, 3 * h * d), do, h,
+                                scale).reshape(qkv.shape)
+    if do.stride(-1) != 1:
+        raise ValueError(f"qkv_bwd takes a dO whose last dimension has "
+                         f"stride 1, not {do.stride()}")
+    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+    _launch_bwd((q, k, v, _head_major(do, h)), _qkv_heads(dqkv, num_heads),
+                scale, "qkv_bwd")
+    QKV_BWD_LAUNCHES += 1
+    return dqkv
+
+
+class FusedAttention(torch.autograd.Function):
+    """The custom VJP `_fused_attention_padded` (:153-168): forward
+    `fused_fwd` (K7), which saves only q, k and v; backward `fused_bwd`
+    (K8)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return fused_fwd(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*fused_bwd(q, k, v, do.contiguous(), ctx.scale), None)
+
+
+class FusedAttentionQkv(torch.autograd.Function):
+    """The custom VJP `_fused_attention_qkv_padded` (:841-854): forward
+    `qkv_fwd` (K11), which saves only qkv; backward `qkv_bwd` (K12)."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale: float):
+        ctx.save_for_backward(qkv)
+        ctx.scale = scale
+        return qkv_fwd(qkv, scale=scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        return qkv_bwd(qkv, do.contiguous(), scale=ctx.scale), None
 
 
 def weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -422,3 +663,33 @@ def fused_attention_qkv_cols(qkv: torch.Tensor, num_heads: int,
     if s <= MAX_SEQ:
         return HeadPairAttention.apply(qkv, num_heads, scale)
     return FlashAttentionBlocked.apply(qkv, num_heads, scale)
+
+
+def fused_attention_qkv(qkv: torch.Tensor,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Attention from a fused qkv tensor (B, S, 3, H, D) -> (B, S, H·D)
+    (:857). S <= MAX_SEQ runs `FusedAttentionQkv` (K11 forward, K12
+    backward), reading the heads in place; longer S `reference_attention`
+    under autograd, as the JAX function routes it."""
+    b, s, three, h, d = qkv.shape
+    if three != 3:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, S, 3, H, D)")
+    scale = float(scale if scale is not None else d ** -0.5)
+    if s > MAX_SEQ:
+        o = reference_attention(*qkv.permute(2, 0, 3, 1, 4).unbind(0), scale)
+        return o.transpose(1, 2).reshape(b, s, h * d)
+    return FusedAttentionQkv.apply(qkv, scale)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention, q, k, v: (B, H, S, D) -> (B, H, S, D) (:880).
+    S <= MAX_SEQ runs `FusedAttention` (K7 forward, K8 backward), which
+    reads q, k and v by stride, so views of one qkv buffer need no copy;
+    longer S `reference_attention` under autograd, as the JAX function
+    routes it."""
+    d = q.shape[-1]
+    scale = float(scale if scale is not None else d ** -0.5)
+    if q.shape[-2] > MAX_SEQ:
+        return reference_attention(q, k, v, scale)
+    return FusedAttention.apply(q, k, v, scale)
