@@ -16,13 +16,15 @@ and no phase catches its own error:
    against attn_fwd_reference (plain PyTorch) on seeded bf16 qkv at the
    serve path's shapes (B 1 and 64, S 197, H 12, D 64) and a few other
    shapes of the kernel's contract; median CUDA-event time of each.
-4. model: full-width my_vit_b (gelu_tanh, avg pool, bf16 compute) on the
+4. model: full-width my_vit_b (gelu_tanh, avg pool, bf16 compute) built
+   with use_pallas_attn, as the trainer builds it on the card, on the
    seeded weights, saved and strict-loaded through ckpt/convert.py, against
    the JAX package's fp32 golden logits (tests/data/); one forward must
    launch the kernel exactly once per block (12).
 5. serve: the port's HTTP server on 127.0.0.1 with the same weights;
-   /healthz, then /predict with the committed JPEGs (tests/data/serve_*.jpg);
-   each request must launch the kernel 12 times.
+   /healthz, then /predict with the committed JPEGs (tests/data/serve_*.jpg).
+   The server builds its model without use_pallas_attn, as the JAX server
+   does, so no request may launch any kernel.
 6. build: csrc/attn_bwd.cu (started with the forward's build in phase 2,
    one nvcc per source, in parallel); build time, registers and spills.
 7. backward kernel vs plain: ops/flash_attention.py::attn_bwd against
@@ -30,11 +32,11 @@ and no phase catches its own error:
    from the forward kernel, at the train path's shapes (B 64 and 128, S 197,
    H 12, D 64) and a few other shapes of the contract; median CUDA-event
    time of each at B 64 and 128.
-8. gradient: full-width my_vit_b (gelu_tanh, avg pool, drop_path 0, bf16)
-   on the phase-4 weights, one train-mode forward + backward on 2 seeded
-   images with smoothed targets, against the JAX package's fp32 golden
-   loss, grad norm and per-parameter grad norms (tests/data/); it must
-   launch each attention kernel exactly 12 times.
+8. gradient: full-width my_vit_b (gelu_tanh, avg pool, drop_path 0, bf16,
+   use_pallas_attn) on the phase-4 weights, one train-mode forward +
+   backward on 2 seeded images with smoothed targets, against the JAX
+   package's fp32 golden loss, grad norm and per-parameter grad norms
+   (tests/data/); it must launch each attention kernel exactly 12 times.
 9. train: the port's trainer, launch/main.py::main, on my_vit_b at batch
    128 with the recipe's flags for 3 steps and 2 eval batches (12 backward
    launches per step); then 10 steps on one fixed batch (mixup off, lr
@@ -44,8 +46,9 @@ and no phase catches its own error:
 The long-sequence slice, vit_base_patch14_dinov2 at 518 px (S = 1370,
 ops/flash_blocked.py):
 
-10. build: csrc/flash_blocked.cu (started with the others in phase 2);
-    build time, registers and spills.
+10. build: csrc/flash_fwd.cu (K4, TMA + wgmma) and csrc/flash_blocked.cu
+    (K5, K6), started with the others in phase 2; build time, registers
+    and spills.
 11. blocked kernels vs plain: flash_fwd (K4), flash_bwd_dkdv (K5) and
     flash_bwd_dq (K6) against their plain versions on seeded bf16 q, k, v,
     dO read from a (B, S, 3·H·D) buffer, at the path's shapes (B 1 and 32,
@@ -53,14 +56,18 @@ ops/flash_blocked.py):
     D 128, 197); at the path's shapes the median CUDA-event time of each
     kernel, its plain version, and the yardstick
     torch.nn.functional.scaled_dot_product_attention (forward; backward),
-    which the port never calls.
-12. model: full-width vit_base_patch14_dinov2 (token pool, bf16 compute) on
-    seeded weights (LayerScale gammas 1), saved and strict-loaded through
-    ckpt/convert.py, against the JAX package's fp32 golden logits; one
-    forward must launch K4 exactly 12 times and K1 never.
-13. serve: the port's HTTP server with that model at 518 px; each request
-    must launch K4 12 times.
-14. gradient: one train-mode forward + backward of that model on 2 seeded
+    which the port never calls. Then K4 alone at the rest of its contract:
+    B·H = 65544 > 65535, D 48 and 96, and q, k, v that TMA cannot read in
+    place (an odd head dim, a transposed layout), which take one copy.
+12. model: full-width vit_base_patch14_dinov2 (token pool, bf16 compute,
+    use_pallas_attn) on seeded weights (LayerScale gammas 1), saved and
+    strict-loaded through ckpt/convert.py, against the JAX package's fp32
+    golden logits; one forward must launch K4 exactly 12 times and K1
+    never.
+13. serve: the port's HTTP server with that model at 518 px; as in phase 5
+    no request may launch any kernel.
+14. gradient: one train-mode forward + backward of that model
+    (use_pallas_attn) on 2 seeded
     images against the JAX fp32 train golden; exactly 12 launches each of
     K4, K5 and K6, each call also held against its plain version on the
     same inputs (the model's own data). Then the witness: the same step
@@ -84,7 +91,8 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     default path's work for the same result (cuBLAS da, autograd's GELU
     backward, the fp32 bias sum: unfused_ms). No single PyTorch call
     computes K3's function, so library_ms is null.
-18. gradient, --pallas_mlp on: phase 8 on the same weights with every MLP
+18. gradient, --pallas_mlp on: phase 8 (use_pallas_attn) on the same
+    weights with every MLP
     on the fused route, against the same JAX fp32 train golden (the
     function is the same) with phase 8's limits; exactly 12 launches each
     of K1, K2 and K3, and each K3 call held against its plain version on
@@ -117,6 +125,16 @@ fused_attention_qkv), which no model calls:
     kernel, its plain version and SDPA's forward or backward. Both entry
     points at S = 1100 take reference_attention, as JAX routes them, and
     must launch none of the twelve kernels.
+
+Compute other than bf16:
+
+22. --precision fp32: launch/main.py::main on my_vit_s (6 heads of 64, the
+    kernel route's widths) for 2 steps and 1 eval batch at batch 32; the
+    kernels on the card are bf16 kernels, so the trainer's `--pallas_attn
+    auto` builds plain attention for fp32 compute and the run must launch
+    no kernel, and `--pallas_attn on` with fp32 must raise before it
+    launches any. The same run in bf16 must launch K1 and K2 once per
+    block in each step (and K1 in eval).
 
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
@@ -204,6 +222,12 @@ LONG_MAIN_SHAPES = ((1, 1370, 12, 64), (32, 1370, 12, 64))   # (B, S, H, D)
 LONG_EXTRA_SHAPES = ((2, 1025, 12, 64), (1, 2048, 12, 64),
                      (1, 4097, 2, 128), (64, 197, 12, 64),
                      (128, 197, 12, 64))
+# K4 alone, (layout, (B, S, H, D)): B·H over the 65535 that bound K5/K6,
+# head dims that pad to 64 and 128 in the kernel, and q, k, v that take one
+# copy (an odd head dim; a transposed layout, head dim not contiguous)
+K4_EXTRA_CASES = (("qkv", (5462, 40, 12, 64)), ("qkv", (3, 77, 3, 48)),
+                  ("qkv", (2, 300, 2, 96)), ("dense", (2, 200, 2, 47)),
+                  ("transposed", (2, 260, 4, 64)))
 # Blocked kernels vs plain (same bf16 inputs, same cast order): o is bf16
 # and each bf16(p) is rounded against the tile's running max in the kernel
 # and against the row's max in the plain version, so o moves by a flipped
@@ -245,6 +269,13 @@ MLP_EXTRA_SHAPES = ((3, 77, 768, 3072), (2, 130, 128, 256), (1, 5, 256, 512))
 DH_REL_ATOL = 2e-2
 DB1_REL_ATOL = 1e-3
 PALLAS_MLP_FLAGS = RECIPE_FLAGS + ["--pallas_mlp", "on"]
+# Phase 22: the trainer in fp32 and in bf16 on a small ViT of the kernel
+# route's widths
+PRECISION_FLAGS = [
+    "--model", "my_vit_s", "--batch_size", "32", "--data_set", "synthetic",
+    "--epochs", "1", "--limit_steps_per_epoch", "2",
+    "--limit_eval_batches", "1", "--warmup_epochs", "0"]
+PRECISION_STEPS, PRECISION_EVALS, PRECISION_DEPTH = 2, 1, 12
 # The head-pair route (K9, K10) of fused_attention_qkv_cols, (B, S, H, D)
 HP_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
 HP_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 77, 3, 48), (2, 130, 2, 128))
@@ -413,7 +444,7 @@ def phase_model(counts, dev, ckpt_path, name="my_vit_b", gamma=None,
     check(gamma is None or f"gamma={gamma}" in golden["weights"],
           f"golden weights {golden['weights']} are not gamma={gamma}")
     model = create_model(name, device=dev, img_size=img,
-                         **golden["model_kwargs"])
+                         use_pallas_attn=True, **golden["model_kwargs"])
     load_seeded(model, ckpt_path, gamma)
     model.eval()
     images = torch.from_numpy(seeded_images(2, img, seed=0)).to(dev)
@@ -439,11 +470,12 @@ def phase_model(counts, dev, ckpt_path, name="my_vit_b", gamma=None,
     return launches
 
 
-def phase_serve(counter, ckpt_path, name="my_vit_b", tag="serve",
+def phase_serve(counts, ckpt_path, name="my_vit_b", tag="serve",
                 **engine_kw):
-    """8 requests to the port's HTTP server; counter() is the kernel count
-    each request must raise by 12. Returns the launches and the median
-    latency in ms."""
+    """8 requests to the port's HTTP server, which builds its model without
+    use_pallas_attn, as the JAX server does: no request may launch any of
+    the kernels that counts() counts. Returns the launches (of the engine's
+    warm-up and the requests) and the median latency in ms."""
     import numpy as np
 
     from vision_transformers_torch_xla_tpu_torch.data import native
@@ -458,7 +490,7 @@ def phase_serve(counter, ckpt_path, name="my_vit_b", tag="serve",
                   "rb") as f:
             jpegs.append(f.read())
 
-    start = counter()
+    counts(reset=True)
     engine = InferenceEngine(name, ckpt=ckpt_path, device="cuda", **engine_kw)
     server = serve(engine, port=0)
     url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -471,7 +503,6 @@ def phase_serve(counter, ckpt_path, name="my_vit_b", tag="serve",
         check(health["status"] == "ok" and health["model"] == name,
               f"/healthz replied {health}")
         for i in range(N_REQUESTS):
-            before = counter()
             req = urllib.request.Request(url + "/predict", data=jpegs[i % 4],
                                          method="POST")
             t0 = time.perf_counter()
@@ -483,14 +514,14 @@ def phase_serve(counter, ckpt_path, name="my_vit_b", tag="serve",
             check(len(topk) == 5 and all(0.0 <= p <= 1.0 for p in probs)
                   and probs == sorted(probs, reverse=True),
                   f"request {i}: bad top-5 {reply}")
-            check(counter() - before == 12,
-                  f"request {i} launched {counter() - before}")
+            check(not any(counts().values()),
+                  f"request {i}: the server launched {counts()}")
             replies.append(topk)
     finally:
         server.shutdown()
         server.server_close()
         thread.join()
-    launches = counter() - start
+    launches = sum(counts().values())
 
     # the served answer is the model's answer on the decoded image
     direct = engine._forward(engine._decode(jpegs[0])[None])[0]
@@ -501,8 +532,8 @@ def phase_serve(counter, ckpt_path, name="my_vit_b", tag="serve",
     decoder = "native" if native.available() else "PIL"
     log(f"[{tag}] {name} decoder={decoder} requests={N_REQUESTS} "
         f"median_ms={statistics.median(latencies)!r} "
-        f"latencies_ms={latencies!r} launches={launches} "
-        f"(12 warm-up + 12 per request)")
+        f"latencies_ms={latencies!r} kernel launches={launches} (plain "
+        f"attention, as the JAX server)")
     return launches, statistics.median(latencies)
 
 
@@ -517,6 +548,7 @@ def build_all(fa, fb, mf):
         return time.perf_counter() - t0
 
     builds = {"attn_fwd": fa.build_kernels, "attn_bwd": fa.build_bwd_kernels,
+              "flash_fwd": fb.build_fwd_kernels,
               "flash_blocked": fb.build_kernels, "mlp_fused": mf.build_kernels,
               "hp_bwd": fa.build_hp_bwd_kernels,
               "fused_attn_fwd": fa.build_fused_fwd_kernels}
@@ -623,7 +655,7 @@ def phase_grad(counts, dev, ckpt_path, name="my_vit_b", tag="grad",
                            f"torch_port_train_golden_{name}.json")) as f:
         golden = json.load(f)
     img = golden.get("img_size", 224)
-    model = create_model(name, device=dev, img_size=img,
+    model = create_model(name, device=dev, img_size=img, use_pallas_attn=True,
                          **golden["model_kwargs"], **model_kw)
     model.load_state_dict(load_checkpoint(ckpt_path), strict=True)
     images = torch.from_numpy(seeded_images(2, img, seed=0)).to(dev)
@@ -894,7 +926,83 @@ def phase_long_kernel(fb, dev):
         results[shape] = row
         log(f"[long kernel] B={b} S={s} H={h} D={d}: "
             + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    for layout, (b, s, h, d) in K4_EXTRA_CASES:
+        q, k, v = k4_operands(fb, layout, b, s, h, d, 3500 + b * s + h * d,
+                              dev)
+        copies = fb.COPIES
+        o, lse = fb.flash_fwd(q, k, v)
+        o_r, lse_r = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        copied = fb.COPIES - copies
+        check(copied == (not fb.tma_ready(q, k, v)),
+              f"K4 {layout} {(b, s, h, d)}: {copied} copies")
+        check(o.shape == o_r.shape and torch.isfinite(o.float()).all().item(),
+              f"K4 {layout} {(b, s, h, d)}: shape {tuple(o.shape)} or not "
+              f"finite")
+        o_err = (o.float() - o_r.float()).abs().max().item()
+        o_max = o_r.float().abs().max().item()
+        lse_err = (lse - lse_r).abs().max().item()
+        check(o_err <= O_REL_ATOL * o_max,
+              f"K4 {layout} {(b, s, h, d)}: o err {o_err} > {O_REL_ATOL} x "
+              f"{o_max}")
+        check(lse_err <= LSE_ATOL,
+              f"K4 {layout} {(b, s, h, d)}: lse err {lse_err} > {LSE_ATOL}")
+        worst["flash_fwd"] = max(worst["flash_fwd"], o_err)
+        log(f"[long kernel] K4 {layout} B={b} S={s} H={h} D={d} (B·H "
+            f"{b * h}): o_max_abs_err={o_err!r} o_max_abs={o_max!r} "
+            f"lse_max_abs_err={lse_err!r} copied={copied}")
     return results, worst
+
+
+def k4_operands(fb, layout, b, s, h, d, seed, dev):
+    """q, k, v (B, H, S, D) bf16: views of a (B, S, 3·H·D) projection
+    ('qkv'), contiguous ('dense'), or (B, H, D, S) memory transposed."""
+    if layout == "qkv":
+        return fb.heads(seeded_bf16((b, s, 3 * h * d), seed, dev), h)
+    if layout == "dense":
+        return [seeded_bf16((b, h, s, d), seed + i, dev) for i in range(3)]
+    return [seeded_bf16((b, h, d, s), seed + i, dev).transpose(-1, -2)
+            for i in range(3)]
+
+
+def phase_precision(counts):
+    """launch/main.py::main on a small ViT of the kernel route's widths,
+    --precision fp32 then bf16; returns each run's launches. `--pallas_attn
+    on` with fp32 must raise ValueError and launch nothing (counted under
+    'fp32_on')."""
+    import math
+
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+
+    out = {}
+    for precision in ("fp32", "bf16"):
+        cfg = config_from_args(PRECISION_FLAGS + ["--precision", precision])
+        counts(reset=True)
+        t0 = time.perf_counter()
+        stats = trainer.main(cfg)
+        torch.cuda.synchronize()
+        out[precision] = counts()
+        log(f"[precision] main() --precision {precision}: "
+            f"{time.perf_counter() - t0:.3f} s, stats {stats}, launches "
+            f"{out[precision]}")
+        check(all(isinstance(v, (int, float)) and math.isfinite(v)
+                  for v in stats.values()), f"stats not finite: {stats}")
+    cfg = config_from_args(PRECISION_FLAGS + ["--precision", "fp32",
+                                              "--pallas_attn", "on"])
+    counts(reset=True)
+    try:
+        trainer.main(cfg)
+        check(False, "--pallas_attn on --precision fp32 did not raise")
+    except ValueError as e:
+        log(f"[precision] main() --pallas_attn on --precision fp32 raised: "
+            f"{e}")
+    out["fp32_on"] = counts()
+    return out
 
 
 def phase_mlp_kernel(mf, dev):
@@ -1268,8 +1376,7 @@ def main() -> int:
     n = phase_model(every, dev, ckpt_path)
     check(n == only(ATTN_FWD_LAUNCHES=12),
           f"one forward launched {n} (want K1 12)")
-    serve_launches, _ = phase_serve(
-        lambda: fa.ATTN_FWD_LAUNCHES, ckpt_path, act_layer="gelu_tanh")
+    serve_launches, _ = phase_serve(every, ckpt_path, act_layer="gelu_tanh")
 
     log(f"[build bwd] attn_bwd built/loaded in {build_s['attn_bwd']:.3f} s "
         f"(in parallel with attn_fwd)")
@@ -1286,18 +1393,19 @@ def main() -> int:
           f"{train_launches} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
 
     # ---- the long-sequence slice: vit_base_patch14_dinov2 at 518 px
-    log(f"[build long] flash_blocked built/loaded in "
-        f"{build_s['flash_blocked']:.3f} s (in parallel with the others)")
-    log_ptxas(cuda_build, "flash_blocked", "build long")
+    for name in ("flash_fwd", "flash_blocked"):
+        log(f"[build long] {name} built/loaded in {build_s[name]:.3f} s (in "
+            f"parallel with the others)")
+        log_ptxas(cuda_build, name, "build long")
     long_k, long_worst = phase_long_kernel(fb, dev)
     long_ckpt = os.path.join(ckpt_dir, f"{LONG_MODEL}_seed0.pth")
     n = phase_model(every, dev, long_ckpt, LONG_MODEL, LONG_GAMMA,
                     tag="long model")
     check(n == only(FLASH_FWD_LAUNCHES=12),
           f"one 518-px forward launched {n} (want K4 12, K1 0)")
-    long_serve, _ = phase_serve(
-        lambda: fb.FLASH_FWD_LAUNCHES, long_ckpt, LONG_MODEL,
-        tag="long serve", image_size=518, global_pool="token")
+    long_serve, _ = phase_serve(every, long_ckpt, LONG_MODEL,
+                                tag="long serve", image_size=518,
+                                global_pool="token")
     # K4-K6 held against their plain versions at every call of the step,
     # on the model's own data
     with swap_blocked(fb, plain=False) as checked:
@@ -1379,6 +1487,17 @@ def main() -> int:
           f"the op-level entry points launched {fu_launches} (want K7 and "
           f"K8 {n_fu + 1} each, K11 and K12 {n_fu} each)")
 
+    # ---- compute other than bf16: the trainer in fp32 launches nothing
+    prec = phase_precision(every)
+    for run in ("fp32", "fp32_on"):
+        check(prec[run] == only(),
+              f"--precision {run} launched {prec[run]} (want none)")
+    steps, evals = PRECISION_STEPS, PRECISION_EVALS
+    check(prec["bf16"] == only(
+        ATTN_FWD_LAUNCHES=PRECISION_DEPTH * (steps + evals),
+        ATTN_BWD_LAUNCHES=PRECISION_DEPTH * steps),
+          f"--precision bf16 launched {prec['bf16']}")
+
     b1, b64 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
     l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
@@ -1388,9 +1507,9 @@ def main() -> int:
     src = f"{PKG}/csrc/"
     jax_ops = "vision_transformers_torch_xla_tpu/ops/"
 
-    def long_entry(name, replaces, library):
+    def long_entry(name, source, replaces, library):
         return {
-            "name": name, "route": "cuda", "source": src + "flash_blocked.cu",
+            "name": name, "route": "cuda", "source": src + source,
             "replaces": jax_ops + replaces,
             "launches": long_train[f"{name.upper()}_LAUNCHES"],
             "max_abs_err": long_worst[name], "shape": LONG_MAIN_SHAPES[1],
@@ -1445,10 +1564,12 @@ def main() -> int:
         "bound_ms": g128["bound_ms"], "bound_by": g128["bound_by"],
         "library_ms": g128["library_ms"], "ms_b64": g64["ms"],
         "plain_ms_b64": g64["plain_ms"]},
-        dict(long_entry("flash_fwd", "flash_blocked.py:33", "sdpa_fwd_ms"),
-             launches_serve=long_serve),
-        long_entry("flash_bwd_dkdv", "flash_blocked.py:109", "sdpa_bwd_ms"),
-        long_entry("flash_bwd_dq", "flash_blocked.py:157", "sdpa_bwd_ms"), {
+        dict(long_entry("flash_fwd", "flash_fwd.cu", "flash_blocked.py:33",
+                        "sdpa_fwd_ms"), launches_serve=long_serve),
+        long_entry("flash_bwd_dkdv", "flash_blocked.cu", "flash_blocked.py:109",
+                   "sdpa_bwd_ms"),
+        long_entry("flash_bwd_dq", "flash_blocked.cu", "flash_blocked.py:157",
+                   "sdpa_bwd_ms"), {
         "name": "fc2_bwd", "route": "cuda", "source": src + "mlp_fused.cu",
         "replaces": jax_ops + "mlp_fused.py:65",
         "launches": mlp_train["FC2_BWD_LAUNCHES"],

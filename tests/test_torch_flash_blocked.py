@@ -209,6 +209,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fb.flash_bwd_dq(meta, meta, meta, meta, row, row, meta)
 
 
+def _k4_layout(kind, b, h, s, d, seed, dev="cpu"):
+    """q, k, v (B, H, S, D) bf16 in one of the layouts K4 meets."""
+    def r(shape, i):
+        return torch.from_numpy(_rand(shape, seed + i)).to(dev,
+                                                          torch.bfloat16)
+    if kind == "qkv":            # views of the model's (B, S, 3·H·D) buffer
+        return fb.heads(r((b, s, 3 * h * d), 0), h)
+    if kind == "dense":
+        return [r((b, h, s, d), i) for i in range(3)]
+    if kind == "transposed":     # (B, H, D, S) memory: D not contiguous
+        return [r((b, h, d, s), i).transpose(-1, -2) for i in range(3)]
+    if kind == "mixed":          # q, k, v in three different layouts
+        qkv = fb.heads(r((b, s, 3 * h * d), 0), h)
+        return [qkv[0], r((b, h, s, d), 1), r((b, s, h, d), 2).transpose(1, 2)]
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,d,ready", [
+    ("qkv", 64, True), ("qkv", 48, True), ("dense", 128, True),
+    ("qkv", 47, False), ("dense", 40, True), ("dense", 36, False),
+    ("transposed", 64, False), ("mixed", 64, False)])
+def test_k4_tma_rule_and_copy(kind, d, ready):
+    # TMA reads q, k, v in place when they share one layout with 16-byte
+    # strides and data and a head dim that is a multiple of 8; else one
+    # contiguous copy, the head dim zero-padded to a multiple of 8
+    q, k, v = _k4_layout(kind, 2, 3, 20, d, 40)
+    assert fb.tma_ready(q, k, v) is ready
+    before = fb.COPIES
+    qc, kc, vc = fb.padded_copy((q, k, v), fb.TMA_ALIGN, "test")
+    assert fb.COPIES == before + 1
+    assert fb.tma_ready(qc, kc, vc)
+    dp = -(-d // 8) * 8
+    for t, c in zip((q, k, v), (qc, kc, vc)):
+        assert c.shape == (2, 3, 20, dp)
+        assert torch.equal(c[..., :d], t) and not c[..., d:].any()
+    o, lse = fb.flash_fwd_reference(qc, kc, vc, d ** -0.5)
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    assert torch.equal(o[..., :d], o_r) and not o[..., d:].any()
+    torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-6)
+
+
+def test_k4_tma_layout_of_size_one_dims():
+    # a dimension of size 1 is never stepped: its stride takes the row
+    # width, whatever torch reports
+    q = torch.zeros((1, 5, 64), dtype=torch.bfloat16).unsqueeze(1)
+    assert q.shape == (1, 1, 5, 64)
+    assert fb._tma_layout(q) == (64, 64, 64)
+    assert fb.tma_ready(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("qkv", (2, 1370, 12, 64)), ("qkv", (1, 1025, 4, 48)),
+    ("qkv", (1, 2048, 2, 128)), ("qkv", (3, 77, 3, 48)),
+    ("dense", (2, 300, 2, 96)), ("qkv", (5462, 40, 12, 64)),
+    ("transposed", (2, 260, 4, 64)), ("dense", (2, 200, 2, 47)),
+    ("mixed", (2, 1030, 2, 64))])
+def test_k4_matches_plain_on_cuda(cuda_device, kind, shape):
+    # the tensor-core K4 against flash_fwd_reference: D 48/64/96/128, ragged
+    # S, B·H = 65544 > 65535, and the layouts that take a copy (odd D,
+    # transposed, mixed); o to 2% of max |o| (a flipped bf16 rounding of
+    # bf16(p) or of o), lse to 1e-4 (fp32 summation order and exp2)
+    b, s, h, d = shape
+    q, k, v = _k4_layout(kind, b, h, s, d, 50, cuda_device)
+    copies = not fb.tma_ready(q, k, v)
+    before = (fb.FLASH_FWD_LAUNCHES, fb.COPIES)
+    o, lse = fb.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (fb.FLASH_FWD_LAUNCHES, fb.COPIES) == \
+        (before[0] + 1, before[1] + copies)
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    assert o.shape == o_r.shape and lse.shape == (b, h, s)
+    o_err = (o.float() - o_r.float()).abs().max().item()
+    assert o_err <= 2e-2 * o_r.float().abs().max().item()
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 1370, 12, 64), (2, 1025, 3, 64),
                                    (1, 2048, 2, 128), (2, 197, 4, 40)])

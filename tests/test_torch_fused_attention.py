@@ -33,6 +33,7 @@ import torch
 
 from vision_transformers_torch_xla_tpu_torch.ops import attention as at
 from vision_transformers_torch_xla_tpu_torch.ops import flash_attention as fa
+from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked as fb
 
 # (B, H, S, D): S ragged against the TPU's 128 and not; D = 48 is not a
 # multiple of 64, D = 128 is a whole lane row
@@ -325,6 +326,52 @@ def test_fused_wrappers_refuse_what_does_not_fit():
         fa.fused_attention_qkv(torch.zeros((1, 10, 2, 2, 8)))
 
 
+def _stand_in(record, scale):
+    """One strided kernel launch, played on the CPU by the plain version:
+    records the (B, H, S, D) it is handed and whether it got strides."""
+    def launch(ins, outs, strides):
+        record.append((tuple(ins[0].shape), strides is not None))
+        outs[0].copy_(fa.fused_fwd_reference(*ins, scale))
+    return launch
+
+
+def _views(case):
+    """(B, H, S, D) q, k, v for each case of `_launch_views`."""
+    if case == "odd_head_dim":                  # G2: D = 7
+        return [torch.from_numpy(_rand((2, 3, 10, 7), 80 + i))
+                for i in range(3)]
+    if case == "odd_row_stride":                # G3: rows 9 apart
+        return [torch.from_numpy(_rand((2, 3, 10, 9), 80 + i))[..., :8]
+                for i in range(3)]
+    if case == "head_dim_not_contiguous":       # G3
+        return [torch.from_numpy(_rand((2, 3, 8, 10), 80 + i)).transpose(
+            -1, -2) for i in range(3)]
+    if case == "odd_offset":                    # G3: data 2-byte aligned
+        return [torch.from_numpy(_rand((2 * 3 * 10 * 8 + 1,), 80 + i))
+                .to(torch.bfloat16)[1:].view(2, 3, 10, 8) for i in range(3)]
+    return [torch.from_numpy(_rand((5, 3, 10, 8), 80 + i))   # in place
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("case", ["odd_head_dim", "odd_row_stride",
+                                  "head_dim_not_contiguous", "odd_offset",
+                                  "in_place"])
+def test_launch_views_repairs_what_the_kernels_do_not_take(case):
+    # G2 and G3 of the op-level kernels on the CPU, the launch played by
+    # the plain version: views the kernels cannot read in place are copied
+    # once (`padded_copy`) with the head dim padded to even and the result
+    # sliced back
+    q, k, v = _views(case)
+    b, h, s, d = q.shape
+    o = torch.full((b, h, s, d), float("nan"), dtype=q.dtype)
+    record, before = [], fb.COPIES
+    fa._launch_views(_stand_in(record, 0.125), (q, k, v), (o,), "test")
+    torch.testing.assert_close(o, fa.fused_fwd_reference(q, k, v, 0.125),
+                               rtol=0, atol=1e-6)
+    assert fb.COPIES == before + (case != "in_place")
+    assert record == [((b, h, s, d + d % 2), True)]
+
+
 def _plain_check(o, grads, q, k, v, do, scale):
     """The kernels' o and (dq, dk, dv) against the plain versions on the same
     bf16 inputs: o as K1's test, the grads by a flipped bf16 rounding of ds
@@ -386,6 +433,63 @@ def test_views_of_a_qkv_buffer_need_no_copy_on_cuda(cuda_device):
                  d ** -0.5)
 
 
+def _cuda_views(shape, seed, dev, make=None):
+    """Seeded bf16 (B, H, S, D) q, k, v, dO on the card, each made by
+    `make` from a contiguous tensor (a strided view), and the leaves."""
+    ts = [torch.from_numpy(_rand(shape, seed + i)).to(dev, torch.bfloat16)
+          for i in range(4)]
+    return [make(t) if make else t for t in ts]
+
+
+def _run_and_check(q, k, v, do):
+    """fused_attention forward + backward on the card against the plain
+    versions; returns the (K7, K8) launches it added."""
+    before = _counts()
+    x = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.fused_attention(*x)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape
+    _plain_check(o, [t.grad for t in x], q, k, v, do, q.shape[-1] ** -0.5)
+    return _counts()[0] - before[0], _counts()[1] - before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [47, 63, 7])
+def test_odd_head_dims_run_on_cuda(cuda_device, d):
+    # G2: the head dim is zero-padded to even inside the wrapper
+    before = fb.COPIES
+    assert _run_and_check(*_cuda_views((2, 3, 130, d), 90, cuda_device)) \
+        == (1, 1)
+    assert fb.COPIES == before + 2             # the forward and the backward
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["every_other_column", "odd_row_stride",
+                                    "odd_offset"])
+def test_strided_views_are_copied_on_cuda(cuda_device, layout):
+    # G3: views whose strides break the kernels' rule take one copy
+    make = {"every_other_column": lambda t: torch.cat([t, t], -1)[..., ::2],
+            "odd_row_stride": lambda t: torch.nn.functional.pad(
+                t, (0, 1))[..., :-1],
+            "odd_offset": lambda t: torch.cat(
+                [t.flatten(), t.flatten()[:1]])[1:].view(t.shape)}[layout]
+    views = _cuda_views((2, 4, 100, 64), 95, cuda_device, make)
+    before = fb.COPIES
+    assert _run_and_check(*views) == (1, 1)
+    assert fb.COPIES == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(65537, 1, 8, 8), (1, 65537, 8, 8)])
+def test_batch_and_heads_over_65535_on_cuda(cuda_device, shape):
+    # G4: (b, h, query tile) ride the grid's x, which takes 2^31 - 1
+    # blocks: one launch each way, no copy
+    before = fb.COPIES
+    assert _run_and_check(*_cuda_views(shape, 97, cuda_device)) == (1, 1)
+    assert fb.COPIES == before
+
+
 @pytest.mark.cuda
 def test_fused_kernels_contract_on_cuda(cuda_device):
     bf = dict(device=cuda_device, dtype=torch.bfloat16)
@@ -394,15 +498,26 @@ def test_fused_kernels_contract_on_cuda(cuda_device):
         fa.fused_fwd(x, x, x)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.qkv_fwd(torch.zeros((1, 64, 3, 2, 64), device=cuda_device))
-    y = torch.zeros((1, 2, 64, 63), **bf)
+    # an odd head dim runs (G2); over 128 it raises
+    y = torch.from_numpy(_rand((1, 2, 64, 63), 98)).to(**bf)
+    dq, dk, dv = fa.fused_bwd(y, y, y, y)
+    torch.cuda.synchronize()
+    for g, r in zip((dq, dk, dv), fa.fused_bwd_reference(y, y, y, y,
+                                                         63 ** -0.5)):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item()
+    big = torch.zeros((1, 2, 64, 130), **bf)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.fused_bwd(y, y, y, y)
+        fa.fused_bwd(big, big, big, big)
     z = torch.zeros((1, 2, 1100, 64), **bf)
     with pytest.raises(ValueError, match="sequence"):
         fa.fused_fwd(z, z, z)
-    w = torch.zeros((1, 2, 64, 128), **bf)[..., ::2]
-    with pytest.raises(ValueError, match="contiguous"):
-        fa.fused_fwd(w, w, w)
+    # a head dim that is not contiguous runs on one copy (G3)
+    w = torch.from_numpy(_rand((1, 2, 64, 128), 99)).to(**bf)[..., ::2]
+    o = fa.fused_fwd(w, w, w)
+    torch.cuda.synchronize()
+    o_r = fa.fused_fwd_reference(w, w, w, 64 ** -0.5)
+    assert (o.float() - o_r.float()).abs().max().item() <= 2e-2
     # S > 1024 takes the plain route and launches none of K7, K8, K11, K12
     before = _counts()
     z.requires_grad_()

@@ -2,9 +2,9 @@
 
 A tiny ViT with S = 1025 tokens (32 px at patch 1, plus the class token;
 width 128, 2 heads of 64, depth 2, LayerScale 0.5 so that attention moves
-the output) takes the long route in both packages: the JAX model with
-use_pallas_attn=True runs `fused_attention_qkv_cols` -> the blocked Pallas
-kernels (interpret mode), and the port's Attention runs its
+the output) takes the long route in both packages, both built with
+use_pallas_attn=True: the JAX model runs `fused_attention_qkv_cols` -> the
+blocked Pallas kernels (interpret mode), and the port's Attention runs its
 `fused_attention_qkv_cols` -> ops/flash_blocked.py (the plain versions on
 the CPU). Wrappers count both calls; the JAX one is a monkeypatched module
 attribute, the JAX package itself is unchanged.
@@ -84,7 +84,8 @@ def port_run(jax_run):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(layers, "fused_attention_qkv_cols",
                    _counting(layers.fused_attention_qkv_cols, calls))
-        model = VisionTransformer(**CFG, dtype=torch.float32)
+        model = VisionTransformer(**CFG, dtype=torch.float32,
+                                  use_pallas_attn=True)
         model.load_state_dict(flax_to_state_dict(jax_run["params"]),
                               strict=True)
         logits = model(torch.from_numpy(jax_run["images"]))

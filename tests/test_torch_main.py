@@ -90,6 +90,35 @@ def test_main_trains_with_pallas_mlp_on_the_cpu(monkeypatch):
     assert calls == [(4, 5, 128)] * 4
 
 
+@pytest.mark.parametrize("flag", ["off", "on"])
+def test_main_routes_attention_by_pallas_attn_on_the_cpu(monkeypatch, flag):
+    """--pallas_attn off trains on plain attention, as the JAX trainer does
+    (--device cpu); --pallas_attn on takes the kernel route (the plain
+    versions on the CPU): the fused projection + attention once per block
+    in each of the 2 steps and 2 eval batches. The model (widths 128, 2
+    heads of 64) fits the JAX layer's rule."""
+    from vision_transformers_torch_xla_tpu_torch.models import layers
+
+    create, calls = trainer.create_model, []
+
+    def tiny(name, **kw):
+        return create(name, embed_dim=128, depth=2, num_heads=2, **kw)
+
+    def counting(x, *args, **kw):
+        calls.append(tuple(x.shape))
+        return qkv_proj(x, *args, **kw)
+
+    qkv_proj = layers.qkv_proj_attention
+    monkeypatch.setattr(trainer, "create_model", tiny)
+    monkeypatch.setattr(layers, "qkv_proj_attention", counting)
+    stats = trainer.main(_cfg(pallas_attn=flag))
+    assert set(stats) == JAX_MAIN_KEYS
+    assert all(np.isfinite(v) for v in stats.values())
+    # (B, S, D): 4 train images, 6 eval images, 2 x 2 patches + 1 token
+    want = [(4, 5, 128)] * 4 + [(6, 5, 128)] * 4
+    assert calls == (want if flag == "on" else [])
+
+
 def test_main_eval_only_returns_the_eval_dict():
     stats = trainer.main(_cfg(eval_only=True, limit_eval_batches=1))
     assert set(stats) == {"acc1", "acc5", "loss", "count"}
@@ -147,8 +176,7 @@ UNPORTED = [
     (dict(enable_tensorboard=True), "M4"), (dict(profile_steps=2), "M4"),
     (dict(kd=True), "M4"), (dict(device_augment=True), "M5"),
     (dict(data_set="tfds"), "M5"), (dict(mesh_shape="data:2,model:2"), "M6"),
-    (dict(param_sharding="fsdp"), "M6"),
-    (dict(pallas_attn="off"), "M2"), (dict(grad_checkpointing=True), "M2"),
+    (dict(param_sharding="fsdp"), "M6"), (dict(grad_checkpointing=True), "M2"),
     (dict(scan_blocks=True), "M2"), (dict(opt="lamb"), "M7"),
     (dict(update_freq=2), "M7"),
 ]

@@ -376,7 +376,8 @@ def three_steps():
     jstep = jsteps.make_train_step(jmodel.apply, jtx, jcfg)
     jstate = jax_train_state(params, jtx, with_ema=True)
 
-    model = VisionTransformer(**CFG, dtype=torch.float32)
+    model = VisionTransformer(**CFG, dtype=torch.float32,
+                              use_pallas_attn=True)
     model.load_state_dict(flax_to_state_dict(params), strict=True)
     pparams = dict(model.named_parameters())
     tx = port_optim.maybe_fused_optimizer(

@@ -7,7 +7,9 @@ For each batch size it prints:
   * from a torch.profiler trace of a few kernel-path forwards, the device
     time by kernel name and the device's busy share of the wall time.
 
-Weights are seeded (core/seeded.py), act_layer gelu_tanh, avg pool, bf16.
+Weights are seeded (core/seeded.py), act_layer gelu_tanh, avg pool, bf16,
+and the model is built with use_pallas_attn, as the trainer builds it on
+the card (the server builds it without: plain attention).
 Run from the root of a checkout:
 
     python tools/profile_torch_forward.py --batch 1 64
@@ -101,7 +103,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     model = create_model("my_vit_b", act_layer="gelu_tanh", global_pool="avg",
-                         device=dev)
+                         use_pallas_attn=True, device=dev)
     sd = seeded_state_dict({k: v.shape for k, v in model.state_dict().items()})
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)

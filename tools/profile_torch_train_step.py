@@ -8,6 +8,8 @@ data enters the timed loop. Two models:
     through K1 and K2 (ops/flash_attention.py);
   * vit_base_patch14_dinov2: 518 px (S = 1370), token pool, its own exact
     GELU, batch 32; attention through K4, K5 and K6 (ops/flash_blocked.py).
+The model is built with use_pallas_attn (the trainer's `--pallas_attn
+on`, which its default `auto` also means on the card).
 `--pallas_mlp` is the trainer's own flag, passed through: `on` runs every
 tanh-GELU MLP's backward through the fc2-backward kernel K3
 (ops/mlp_fused.py).
@@ -81,7 +83,8 @@ MODELS = {
 
 def recipe_flags(batch: int, model: str = "my_vit_b",
                  pallas_mlp: str = "off"):
-    return ["--model", model, *MODELS[model][0], "--pallas_mlp", pallas_mlp,
+    return ["--model", model, *MODELS[model][0], "--pallas_attn", "on",
+            "--pallas_mlp", pallas_mlp,
             "--batch_size", str(batch), "--data_set", "synthetic",
             "--model_ema", "true", "--lr", "4e-3", "--min_lr", "1e-6",
             "--warmup_epochs", "20", "--warmup_lr", "1e-6",

@@ -1,4 +1,4 @@
-"""Time the PyTorch port's short-sequence attention kernels on one NVIDIA GPU.
+"""Time the PyTorch port's attention kernels on one NVIDIA GPU.
 
 The port is imported from the checkout given by --repo (by default the one
 this script sits in), so that two trees can be compared in turns from one
@@ -9,17 +9,24 @@ unpacked by `git archive` under build/parent,
         python tools/time_torch_attention.py --repo $t --batch 128
     done
 
+or, for the long-sequence forward (K4) at the 518-px model's shape,
+`--batch 32 --seq 1370 --kernels flash_fwd sdpa_fwd`.
+
 Each run prints one JSON line: the tree, the card's name and power limit
 (nvidia-smi), per kernel the median CUDA-event time of one call (host
 launch cost included) in each of --rounds rounds, on seeded bf16 inputs at
-(B, S, H, D) = (--batch, 197, 12, 64), and ptxas's registers and spills
+(B, S, H, D) = (--batch, --seq, 12, 64), and ptxas's registers and spills
 for each kernel this process built (none when build/kernels/ held it).
 With --profile it adds, from a torch.profiler trace of 10 calls of each
 wrapper, the device time per call of each CUDA kernel it launched (the
 backward's dq and dk/dv launches apart).
 The kernels are named by their wrappers in ops/flash_attention.py: hp_fwd
 (K9) and hp_bwd (K10), which every tree since they were ported has, and
-fused_fwd, fused_bwd, qkv_fwd, qkv_bwd (K7, K8, K11, K12).
+fused_fwd, fused_bwd, qkv_fwd, qkv_bwd (K7, K8, K11, K12); flash_fwd is
+ops/flash_blocked.py's (K4), on q, k, v read from a (B, S, 3·H·D)
+projection as the model's path reads them. sdpa_fwd is the yardstick,
+torch's scaled_dot_product_attention on contiguous copies of those q, k,
+v, which the port never calls.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-S, H, D = 197, 12, 64
+H, D = 12, 64
 
 
 def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
@@ -59,13 +66,18 @@ def seeded(shape, seed: int):
     return torch.from_numpy(x).to("cuda", torch.bfloat16)
 
 
-def calls(fa, b: int):
+def calls(fa, fb, b: int, s: int):
     """Each kernel's wrapper call on its seeded inputs."""
-    qkv = seeded((b, S, 3 * H * D), 1)
-    do = seeded((b, S, H * D), 2)
-    q, k, v, g = (seeded((b, H, S, D), 3 + i) for i in range(4))
-    qkv5 = qkv.view(b, S, 3, H, D)
+    qkv = seeded((b, s, 3 * H * D), 1)
+    do = seeded((b, s, H * D), 2)
+    q, k, v, g = (seeded((b, H, s, D), 3 + i) for i in range(4))
+    qkv5 = qkv.view(b, s, 3, H, D)
+    heads = fb.heads(qkv, H)
+    dense = [t.contiguous() for t in heads]
     return {
+        "flash_fwd": lambda: fb.flash_fwd(*heads),
+        "sdpa_fwd": lambda: torch.nn.functional.scaled_dot_product_attention(
+            *dense),
         "hp_fwd": lambda: fa.hp_fwd(qkv, H),
         "hp_bwd": lambda: fa.hp_bwd(qkv, do, H),
         "fused_fwd": lambda: fa.fused_fwd(q, k, v),
@@ -101,6 +113,7 @@ def main() -> int:
     ap.add_argument("--repo", default=HERE,
                     help="checkout whose port is timed (default: this one)")
     ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--seq", type=int, default=197)
     ap.add_argument("--kernels", nargs="+", default=["hp_fwd", "hp_bwd"])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
@@ -113,9 +126,11 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.repo))
     fa = importlib.import_module(
         "vision_transformers_torch_xla_tpu_torch.ops.flash_attention")
+    fb = importlib.import_module(
+        "vision_transformers_torch_xla_tpu_torch.ops.flash_blocked")
     cuda_build = importlib.import_module(
         "vision_transformers_torch_xla_tpu_torch.ops.cuda_build")
-    fns = calls(fa, args.batch)
+    fns = calls(fa, fb, args.batch, args.seq)
     unknown = sorted(set(args.kernels) - set(fns))
     if unknown:
         raise SystemExit(f"unknown kernels {unknown}; known: {sorted(fns)}")
@@ -126,7 +141,7 @@ def main() -> int:
     ms = {name: [cuda_ms(fns[name], args.reps) for _ in range(args.rounds)]
           for name in args.kernels}
     out = {"tree": args.repo, "module": fa.__file__, "card": card,
-           "shape": [args.batch, S, H, D], "ms": ms}
+           "shape": [args.batch, args.seq, H, D], "ms": ms}
     if args.profile:
         out["device_ms_per_call"] = {n: profile(fns[n]) for n in args.kernels}
     out["ptxas"] = {name: [line.strip() for line in log.splitlines()

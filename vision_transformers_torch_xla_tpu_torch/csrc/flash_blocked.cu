@@ -1,13 +1,8 @@
-// Blocked flash attention (online softmax) forward and backward, for Hopper.
+// Blocked flash attention (online softmax) backward, for Hopper.
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
-// flash_blocked.py, the long-sequence path (S > 1024):
-//   K4 flash_fwd_kernel      <- _fwd_kernel (:33): per query row, over key
-//      tiles, a running max m, sum l and fp32 accumulator acc:
-//        s = (fp32 q * scale) k^T, keys >= S masked to -1e30;
-//        m' = max(m, rowmax s); alpha = exp(m - m'); p = exp(s - m');
-//        l = l alpha + sum(p over fp32 p); acc = acc alpha + bf16(p) v;
-//      then o = bf16(acc / max(l, 1e-30)), lse = m + log(max(l, 1e-30)).
+// flash_blocked.py, the long-sequence path (S > 1024); the forward (K4,
+// _fwd_kernel) is csrc/flash_fwd.cu:
 //   K5 flash_bwd_dkdv_kernel <- _bwd_dkdv_kernel (:109): per key row, over
 //      query tiles, p = exp((q k^T) scale - lse), dv += bf16(p)^T dO,
 //      ds = p (dO v^T - delta), dk += bf16(ds)^T q; dk *= scale.
@@ -22,15 +17,15 @@
 // read straight from a fused (B, S, 3*H*D) projection and o, do, dq, dk, dv
 // may live in (B, S, H*D)-style buffers. lse and delta are (B, H, S) fp32.
 //
-// What bounds them on an H100: at S = 1370, D = 64 one (b, h) is 4 S^2 D =
-// 0.48 GFLOP for K4, 8 S^2 D for K5 and 6 S^2 D for K6, over < 1 MB of
+// What bounds them on an H100: at S = 1370, D = 64 one (b, h) is 8 S^2 D
+// for K5 and 6 S^2 D for K6, over < 1 MB of
 // operands: hundreds of FLOP per byte, above the ~295 FLOP/byte ridge, so
 // the products bound them. At B = 32, 12 heads the least time at the H100
-// SXM's 989 TFLOP/s bf16 peak is 0.187 ms (K4), 0.373 ms (K5) and 0.280 ms
+// SXM's 989 TFLOP/s bf16 peak is 0.373 ms (K5) and 0.280 ms
 // (K6), and the S^2 exps (7.2e8 per kernel call) cost the special-function
 // units about as much. This version runs the products on the CUDA cores in
 // fp32 (67 TFLOP/s peak), so FMA and shared-memory issue hold it back:
-// 7.29, 12.67 and 10.55 ms per call at that shape, 25-29 TFLOP/s (H100
+// 12.67 and 10.55 ms per call at that shape, 25-29 TFLOP/s (H100
 // 80GB HBM3, 700.00 W; chip_smoke.py). Every product is bf16 x bf16 into
 // fp32, what mma.sync and wgmma compute; they, then TMA, are the next steps.
 //
@@ -43,8 +38,6 @@
 // row and column reads are both free of bank conflicts). One block works
 // on one (b, h) and one tile and loops over the other side's tiles, so
 // every sum stays in one block: no float atomics, a deterministic result.
-//   K4: block (query tile, b*H + h); q staged once, K and V per key tile;
-//       bf16(p) goes through shared memory into the p v product.
 //   K5: block (key tile, b*H + h); K and V staged once, q, dO, lse and
 //       delta per query tile; dk and dv accumulate in registers.
 //   K6: block (query tile, b*H + h); q, dO, lse and delta once, K and V per
@@ -76,20 +69,6 @@ struct Layout {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Reductions over the 16 lanes that share a row (a half-warp). The xor
-// butterfly leaves the same value in every lane.
-__device__ __forceinline__ float half_max(float v) {
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float half_sum(float v) {
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // Stage rows [r0, r0 + kTile) of one head, scaled by `mul`, into shared
@@ -170,82 +149,6 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
       if (c < D) dst[(long long)r * sr + c] = __float2bfloat16_rn(acc[i][j] * mul);
     }
   }
-}
-
-// K4. grid (ceil(S / kTile), B * H). Shared memory: qT [kD x kPA] (q * scale),
-// kT [kD x kPB], vT [kD x kPB], pT [kTile x kPA] (bf16(p), [key][query]).
-template <int kD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int S, int D, float scale,
-                 Layout in, Layout out) {
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;
-  float* kT = qT + kD * kPA;
-  float* vT = kT + kD * kPB;
-  float* pT = vT + kD * kPB;
-  constexpr int NO = kD / 16;  // o columns per thread
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
-  const long long in_off = b * in.sb + h * in.sh;
-
-  stage_t<kD>(qT, kPA, q + in_off, in.sr, q0, S, D, scale);
-  float acc[4][NO], m[4], l[4];
-  zero(acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    __syncthreads();  // the last tile's kT, vT and pT are read
-    stage_t<kD>(kT, kPB, k + in_off, in.sr, k0, S, D, 1.f);
-    stage_t<kD>(vT, kPB, v + in_off, in.sr, k0, S, D, 1.f);
-    __syncthreads();
-    float s[4][4];
-    zero(s);
-    tile_product<4, kD, kPB, 1>(s, qT, kT, row0, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= S) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        s[i][j] = bf16_round(p);
-      }
-      l[i] = l[i] * alpha + half_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NO; ++c) acc[i][c] *= alpha;
-    }
-    store_t(pT, s, row0, tx);
-    __syncthreads();
-    // acc += bf16(p) v: v read from vT [d][key] along the key
-    tile_product<NO, kTile, 1, kPB>(acc, pT, vT, row0, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lf = fmaxf(l[i], 1e-30f);
-    const int r = q0 + row0 + i;
-    if (tx == 0 && r < S) lse[(long long)bh * S + r] = m[i] + logf(lf);
-#pragma unroll
-    for (int c = 0; c < NO; ++c) acc[i][c] /= lf;  // o = acc / l, as JAX
-  }
-  store_rows<NO>(o + b * out.sb + h * out.sh, out.sr, acc, q0, row0, tx, S,
-                 D, 1.f);
 }
 
 // K5. grid (ceil(S / kTile), B * H) over key tiles. Shared memory: kT, vT
@@ -406,21 +309,6 @@ dim3 grid_of(int B, int H, int S) {
 }
 
 template <int kD>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int B, int H, int S, int D, float scale, Layout in, Layout out,
-        cudaStream_t stream) {
-  const size_t smem = (size_t)(kD * kPA + 2 * kD * kPB + kTile * kPA) *
-                      sizeof(float);
-  int rc = set_smem(flash_fwd_kernel<kD>, smem);
-  if (rc) return rc;
-  flash_fwd_kernel<kD><<<grid_of(B, H, S), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, S, D, scale, in, out);
-  return (int)cudaGetLastError();
-}
-
-template <int kD>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int B,
          int H, int S, int D, float scale, Layout in, Layout og, Layout gr,
@@ -459,19 +347,6 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 extern "C" {
-
-// o (out layout) bf16 and lse (B, H, S) fp32. Returns a cudaError_t as int:
-// 0 on a launch that was accepted.
-int vtx_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                  void* lse, int B, int H, int S, int D, float scale,
-                  long long in_sb, long long in_sh, long long in_sr,
-                  long long out_sb, long long out_sh, long long out_sr,
-                  void* stream) {
-  const Layout in{in_sb, in_sh, in_sr}, out{out_sb, out_sh, out_sr};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return fwd<64>(q, k, v, o, lse, B, H, S, D, scale, in, out, s);
-  return fwd<128>(q, k, v, o, lse, B, H, S, D, scale, in, out, s);
-}
 
 // dk, dv (grad layout) bf16 from q, k, v (in layout), dout (its own
 // layout), lse and delta (B, H, S) fp32.

@@ -59,6 +59,7 @@ constexpr int kWarps = 8;          // query rows in flight per block
 constexpr int kRowsPerBlock = 64;  // query tile of one block
 constexpr int kMaxHeadDim = 128;
 constexpr int kMaxSeq = 1024;
+constexpr long long kMaxGridX = 2147483647;  // (b, h, tile) ride grid x
 constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
 
 enum { kQ, kK, kV, kO, kTensors };
@@ -69,7 +70,8 @@ enum { kQ, kK, kV, kO, kTensors };
 struct Layout {
   long long sb[kTensors], sh[kTensors];
   int ss[kTensors];
-  int S, D;
+  int S, H, D;
+  int tiles;  // query tiles of one head
   float scale;
   int kv_in_smem, kv_words;
 };
@@ -98,9 +100,11 @@ __host__ __device__ inline int warp_floats(int D, int S) {
   return (D + S + 3) & ~3;
 }
 
-// grid (tiles, H, B). Shared memory: per warp [q: D][scores: S] (16-byte
-// aligned), then [K: S x kv_words][V: S x kv_words] when kv_in_smem. kD > 0
-// fixes the head dim at compile time (a multiple of 4); kD == 0 reads a.D.
+// 1-D grid over (b, h, query tile), so B and H are bound by grid x alone
+// (2^31 - 1 blocks), not by the 65535 of y and z. Shared memory: per warp
+// [q: D][scores: S] (16-byte aligned), then [K: S x kv_words][V: S x
+// kv_words] when kv_in_smem. kD > 0 fixes the head dim at compile time (a
+// multiple of 4); kD == 0 reads a.D.
 template <int kD>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -109,9 +113,10 @@ fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) float smem[];
   const int D = kD > 0 ? kD : a.D;
   const int S = a.S;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int bh = blockIdx.x / a.tiles;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int row0 = (blockIdx.x - bh * a.tiles) * kRowsPerBlock;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int D2 = D >> 1;  // bf16 pairs in a head row
@@ -258,7 +263,7 @@ int launch(bf16* const* t, Layout a, int B, int H, cudaStream_t stream) {
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((a.S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  const unsigned grid = (unsigned)B * H * a.tiles;
   fused_attn_fwd_kernel<kD><<<grid, kWarps * 32, smem, stream>>>(
       t[kQ], t[kK], t[kV], t[kO], a);
   return (int)cudaGetLastError();
@@ -274,8 +279,10 @@ extern "C" {
 int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
                        const long long* strides, int B, int S, int H, int D,
                        float scale, void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 ||
-      D < 2 || (D & 1) || D > kMaxHeadDim)
+  const int tiles = (S + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (B < 1 || S < 1 || S > kMaxSeq || H < 1 ||
+      (long long)B * H * tiles > kMaxGridX || D < 2 || (D & 1) ||
+      D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
   Layout a;
   bf16* t_ptr[kTensors];
@@ -293,7 +300,9 @@ int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
     a.ss[t] = (int)ss;
   }
   a.S = S;
+  a.H = H;
   a.D = D;
+  a.tiles = tiles;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -78,6 +78,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxHeadDim = 128;
 constexpr int kMaxSeq = 1024;
+constexpr long long kMaxGridX = 2147483647;  // (b, h) ride grid x
 constexpr int kPairsPerLane = kMaxHeadDim / 2 / 32;  // head-dim pairs a lane owns
 constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
 
@@ -204,7 +205,7 @@ __device__ __forceinline__ void row_to_scratch(float* xs, const bf16* row,
   __syncwarp();
 }
 
-// 1. grid (H, B). Shared memory: per warp [row: D][p: S][ds: S] (each padded
+// 1. grid B * H. Shared memory: per warp [row: D][p: S][ds: S] (each padded
 // to 16 bytes), then [K: S x pitch][V: S x pitch] when in_smem.
 template <int kD>
 __global__ void __launch_bounds__(kThreads)
@@ -216,7 +217,8 @@ hp_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int D = kD > 0 ? kD : a.D;
   const int S = a.S;
   const float scale = a.scale;
-  const int h = blockIdx.x, b = blockIdx.y;
+  // (b, h) ride grid x alone, so B and H are not bound by y's 65535
+  const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int D2 = D >> 1;
   const long long bh = (long long)b * a.H + h;
@@ -296,7 +298,7 @@ hp_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// 2. grid (H, B). Shared memory: per warp [row: D][p: S][ds: S], then
+// 2. grid B * H. Shared memory: per warp [row: D][p: S][ds: S], then
 // [m: S][l: S][delta: S], then [q: S x pitch][dO: S x pitch] when in_smem.
 template <int kD>
 __global__ void __launch_bounds__(kThreads)
@@ -308,7 +310,8 @@ hp_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int D = kD > 0 ? kD : a.D;
   const int S = a.S;
   const float scale = a.scale;
-  const int h = blockIdx.x, b = blockIdx.y;
+  // (b, h) ride grid x alone, so B and H are not bound by y's 65535
+  const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int D2 = D >> 1;
   const long long bh = (long long)b * a.H + h;
@@ -394,7 +397,7 @@ int launch(bf16* const* t, float* stats, Layout a, int B,
   const size_t rows_bytes = (size_t)S * a.pitch * sizeof(bf162);
   const size_t scratch =
       (size_t)kWarps * (round4(D) + 2 * round4(S)) * sizeof(float);
-  const dim3 grid(a.H, B);
+  const unsigned grid = (unsigned)B * a.H;
 
   a.in_smem = scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
   const size_t dq_smem = scratch + (a.in_smem ? 2 * rows_bytes : 0);
@@ -427,8 +430,8 @@ int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, void* stats,
                const long long* strides, int B, int S, int H, int D,
                float scale, void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 ||
-      D < 2 || (D & 1) || D > kMaxHeadDim)
+  if (B < 1 || S < 1 || S > kMaxSeq || H < 1 ||
+      (long long)B * H > kMaxGridX || D < 2 || (D & 1) || D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
   Layout a;
   bf16* t_ptr[kTensors];

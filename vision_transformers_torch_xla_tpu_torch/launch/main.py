@@ -2,10 +2,15 @@
 
 Counterpart of vision_transformers_torch_xla_tpu/launch/main.py (`setup`,
 `train_one_epoch`, `evaluate`, `main`; :162-521) on one device: the same
-flags (core/config.py), the same prints and the same returned dicts. On
-the card the train step runs the attention kernels forward and backward
-(ops/flash_attention.py, ops/flash_blocked.py); host metrics are read only
-at log_freq.
+flags (core/config.py), the same prints and the same returned dicts. As
+in the JAX trainer, `--pallas_attn on`, or `auto` (the default) on the
+card, builds the model with `use_pallas_attn`: the train step then runs
+the attention kernels forward and backward (ops/flash_attention.py,
+ops/flash_blocked.py), and `--pallas_attn off` and `auto` on the CPU run
+plain attention. The kernels on the card are bf16 kernels, so there
+`auto` with another compute dtype (`--precision fp32`) runs plain
+attention and `on` raises (`pallas_attn_switch`). Host metrics are read
+only at log_freq.
 
     python -m vision_transformers_torch_xla_tpu_torch.launch.main \
         --model my_vit_b --act_layer gelu_tanh --data_set synthetic \
@@ -13,8 +18,9 @@ at log_freq.
         --limit_eval_batches 2
 
 A model of more than 1024 tokens (`--model vit_base_patch14_dinov2
---input_size 518 --global_pool token`: 1,370) trains with the blocked
-attention kernels (ops/flash_blocked.py) forward and backward.
+--input_size 518 --global_pool token`: 1,370) trains on the kernel route
+with the blocked attention kernels (ops/flash_blocked.py) forward and
+backward.
 `--pallas_mlp on` routes the tanh-GELU MLPs whose widths are multiples of
 128 through the fused MLP backward (ops/mlp_fused.py, one fc2-backward
 kernel launch per block and step); the default is off, as in the JAX
@@ -109,8 +115,6 @@ def check_slice(cfg: TrainConfig) -> None:
         (cfg.data_set != "synthetic", f"--data_set {cfg.data_set}", "M5"),
         (cfg.mesh_shape != "data" or cfg.param_sharding != "replicated",
          "a device mesh (--mesh_shape, --param_sharding)", "M6"),
-        (cfg.pallas_attn == "off", "--pallas_attn off (a plain-attention "
-                                   "train path)", "M2"),
         (cfg.grad_checkpointing, "--grad_checkpointing", "M2"),
         (cfg.scan_blocks, "--scan_blocks", "M2"),
     ]
@@ -120,10 +124,30 @@ def check_slice(cfg: TrainConfig) -> None:
                 f"{what} is not in the port yet (ROADMAP {item})")
 
 
+def pallas_attn_switch(pallas_attn: str, device: torch.device,
+                       compute_dtype: torch.dtype) -> bool:
+    """`use_pallas_attn` for `--pallas_attn`, as the JAX trainer sets it
+    (launch/main.py:207-211): `on`, or `auto` off the CPU. The one
+    difference: the port's attention kernels on the card take bf16 only,
+    where the JAX kernels take any float dtype. So on the card `auto` with
+    another compute dtype is off, and `on` raises, before any kernel is
+    built."""
+    on_card = device.type != "cpu"
+    if pallas_attn == "on" and on_card and compute_dtype != torch.bfloat16:
+        raise ValueError(
+            f"--pallas_attn on: the attention kernels on {device} take "
+            f"bfloat16, not {compute_dtype}; use --pallas_attn auto or off")
+    return pallas_attn == "on" or (
+        pallas_attn == "auto" and on_card
+        and compute_dtype == torch.bfloat16)
+
+
 def setup(cfg: TrainConfig) -> TrainerContext:
     check_slice(cfg)
     device = resolve_device(cfg.device)
     policy = get_policy(cfg.precision)
+    want_pallas = pallas_attn_switch(cfg.pallas_attn, device,
+                                     policy.compute_dtype)
 
     train_ds, info = build_dataset(cfg, is_train=True)
     val_ds, val_info = build_dataset(cfg, is_train=False) \
@@ -138,7 +162,7 @@ def setup(cfg: TrainConfig) -> TrainerContext:
         drop_path_rate=cfg.drop_path, global_pool=cfg.global_pool,
         act_layer=cfg.act_layer or None,
         init_values=cfg.layer_scale_init_value or None,
-        use_pallas_mlp=cfg.pallas_mlp == "on",
+        use_pallas_attn=want_pallas, use_pallas_mlp=cfg.pallas_mlp == "on",
         dtype=policy.compute_dtype, param_dtype=policy.param_dtype,
         device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(cfg.seed))

@@ -12,8 +12,9 @@ checkpoint the weights come from a torch.Generator seeded 0.
     python -m vision_transformers_torch_xla_tpu_torch.launch.serve \
         --model vit_base_patch14_dinov2 --image_size 518 --global_pool token
 
-A model of more than 1024 tokens (the second line: 1,370) runs its
-attention through the blocked kernels (ops/flash_blocked.py).
+The model is built without `use_pallas_attn`, as the JAX server builds
+it (launch/serve.py:51-54): attention runs `reference_attention`, in plain
+PyTorch ops and cuBLAS, and no attention kernel launches.
 
 Endpoints:
     GET  /healthz            -> {"status": "ok", "model": ...}
@@ -79,7 +80,7 @@ class InferenceEngine:
             init_weights(self.model,
                          torch.Generator(device=self.device).manual_seed(0))
         self.model.eval()
-        # warm the first call (on the card this builds the kernels)
+        # warm the first call (cuBLAS plans, allocator)
         self._forward(np.zeros((1, image_size, image_size, 3), np.float32))
         self._lock = threading.Lock()
 

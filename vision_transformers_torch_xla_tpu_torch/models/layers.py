@@ -236,30 +236,46 @@ class Mlp(nn.Module):
         return dropout(self.fc2(x), self.drop, deterministic, generator)
 
 
+def attention_route(use_pallas: bool, qk_norm: bool, attn_dropping: bool,
+                    num_heads: int, head_dim: int, seq_len: int) -> str:
+    """The JAX layer's route (layers.py:296-299): the kernels only when
+    `use_pallas and not qk_norm and not attn_dropping and head_dim % 64 ==
+    0 and num_heads % 2 == 0`, then 'qkv_proj' for S <= 1024 and
+    'qkv_cols' above; else 'plain'."""
+    if not (use_pallas and not qk_norm and not attn_dropping
+            and head_dim % 64 == 0 and num_heads % 2 == 0):
+        return "plain"
+    return "qkv_proj" if seq_len <= MAX_SEQ else "qkv_cols"
+
+
 class Attention(nn.Module):
     """Multi-head self-attention (layers.py:265).
 
-    Without qk_norm and without an active attn_drop, the JAX layer's kernel
-    routes compute it (layers.py:295-325), chosen by the sequence length
-    alone: the CUDA kernels on the card, their plain versions on the CPU.
-    * S <= 1024: the fused projection + attention
+    Routed by the JAX layer's rule (`attention_route`; JAX `use_pallas`
+    comes from the model's `use_pallas_attn`, off by default):
+    * 'qkv_proj', S <= 1024: the fused projection + attention
       (ops/flash_attention.py::qkv_proj_attention, K1/K2); with a gradient
       one autograd Function, whose backward is the attention-backward
       kernel.
-    * S > 1024: the qkv Dense, then `fused_attention_qkv_cols` (the blocked
-      kernels K4-K6 of ops/flash_blocked.py), then the proj Dense.
-    The JAX layer also asks for head_dim % 64 == 0 and an even head count
-    (its TPU head-pair layout); the port's kernels take any head_dim <= 128
-    and any head count, so the port routes by S only.
-    Otherwise the plain path projects, splits the heads and runs the
-    fp32-softmax attention under autograd."""
+    * 'qkv_cols', S > 1024: the qkv Dense, then `fused_attention_qkv_cols`
+      (the blocked kernels K4-K6 of ops/flash_blocked.py), then the proj
+      Dense.
+    The CUDA kernels run on the card, in bf16 only (a CUDA tensor of
+    another dtype raises in the wrapper), their plain versions on the CPU,
+    in any float dtype.
+    * 'plain': the qkv Dense, the heads split, q_norm/k_norm, the
+      fp32-softmax attention (`reference_attention`, the counterpart of
+      JAX's multi_head_attention(use_pallas=False)) or, with an active
+      attn_drop, dropout on the probabilities, under autograd."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_norm: bool = False, proj_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
                  norm_eps: float = 1e-6, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 use_pallas: bool = False):
         super().__init__()
+        self.use_pallas = use_pallas
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.qk_norm = qk_norm
@@ -280,10 +296,12 @@ class Attention(nn.Module):
         h, hd = self.num_heads, self.head_dim
         scale = hd ** -0.5
         attn_dropping = self.attn_drop > 0.0 and not deterministic
-        if not self.qk_norm and not attn_dropping and s <= MAX_SEQ:
+        route = attention_route(self.use_pallas, self.qk_norm, attn_dropping,
+                                h, hd, s)
+        if route == "qkv_proj":
             o = qkv_proj_attention(x.to(self.dtype), self.qkv.weight.t(),
                                    self.qkv.bias, h, scale=scale)
-        elif not self.qk_norm and not attn_dropping:
+        elif route == "qkv_cols":
             o = fused_attention_qkv_cols(self.qkv(x), h, scale=scale)
         else:
             qkv = self.qkv(x).reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)
@@ -330,13 +348,14 @@ class Block(nn.Module):
                  attn_drop: float = 0.0, act: str = "gelu",
                  norm_eps: float = 1e-6, mlp_hidden: Optional[int] = None,
                  dtype=torch.bfloat16, param_dtype=torch.float32,
-                 device=None, use_pallas_mlp: bool = False):
+                 device=None, use_pallas_mlp: bool = False,
+                 use_pallas_attn: bool = False):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, norm_eps, dtype, param_dtype, device)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_norm, proj_bias,
                               attn_drop, proj_drop, norm_eps, dtype,
-                              param_dtype, device)
+                              param_dtype, device, use_pallas_attn)
         self.ls1 = LayerScale(dim, init_values, param_dtype, device) \
             if init_values is not None else None
         self.norm2 = LayerNorm(dim, norm_eps, dtype, param_dtype, device)

@@ -61,6 +61,7 @@ class VisionTransformer(nn.Module):
                  remat: bool = False, swiglu_mlp: bool = False,
                  norm_type: str = "layernorm", embed_norm: bool = False,
                  scale_attn_norm: bool = False, scale_mlp_norm: bool = False,
+                 use_pallas_attn: bool = False,
                  use_pallas_mlp: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32,
@@ -113,7 +114,8 @@ class VisionTransformer(nn.Module):
                   drop_path_rate * i / max(depth - 1, 1), proj_drop_rate,
                   attn_drop_rate, act_layer, norm_eps,
                   int(mlp_hidden[i]) if mlp_hidden is not None else None,
-                  use_pallas_mlp=use_pallas_mlp, **kw)
+                  use_pallas_mlp=use_pallas_mlp,
+                  use_pallas_attn=use_pallas_attn, **kw)
             for i in range(depth)])
         self.norm = LayerNorm(embed_dim, norm_eps, **kw) \
             if final_norm and not self.use_fc_norm else None

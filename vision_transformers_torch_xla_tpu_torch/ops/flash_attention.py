@@ -40,14 +40,26 @@ one function over two layouts, in the cast order of `_reference_attention`
 
 Both sources take every tensor as a base pointer and (batch, head, token)
 strides, so they read q, k and v in place, whether separate tensors or
-views of one qkv buffer. The TPU kernels' padding of S to 128 and D to 8
-and the G batching of `_pick_g` have no counterpart: the kernels loop over
-the S real keys. S > MAX_SEQ takes `reference_attention`, as in JAX.
+views of one qkv buffer. Views they cannot take in place (an odd head dim,
+odd or unaligned strides) are copied once by ops/flash_blocked.py's
+`padded_copy`, the head dim zero-padded to even, as JAX pads it to 8, and
+the results sliced back (`_launch_views`). Their grid is one-dimensional
+over (b, h, query tile), so B and H are not bound by the grid's y and z
+limits. A head dim over 128 raises. The TPU kernels' padding of S to 128
+and D to 8 and the G batching of `_pick_g` have no counterpart: the kernels
+loop over the S real keys. S > MAX_SEQ takes `reference_attention`, as in
+JAX.
+
+The kernels on the card are bf16 kernels: the wrappers raise TypeError for
+CUDA tensors of another dtype, and so do the entry points that reach them.
+Which route a model takes is decided where it is built
+(`models/layers.py::attention_route`, `launch/main.py::setup`).
 
 Each wrapper runs its plain version (`attn_fwd_reference`,
 `attn_bwd_reference`, `hp_bwd_reference`, `fused_fwd_reference`,
-`fused_bwd_reference`) only for tensors on the CPU. For CUDA tensors it
-launches the kernel or raises.
+`fused_bwd_reference`) only for tensors on the CPU, which take any float
+dtype, as the JAX kernels do. For CUDA tensors it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -64,11 +76,12 @@ from vision_transformers_torch_xla_tpu_torch.ops.bias_grad import bias_add
 from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
     FlashAttentionBlocked,
     heads,
+    padded_copy,
 )
 
 MAX_SEQ = 1024       # longer sequences are ops/flash_blocked.py's (K4-K6)
 MAX_HEAD_DIM = 128
-MAX_GRID_DIM = 65535  # batch and heads ride the grid's y and z dimensions
+MAX_GRID_DIM = 65535  # K1, K2, K9: batch and heads ride the grid's y and z
 
 # Launches of the attention kernels in this process. Only the wrappers'
 # launches add to them; callers may reset them to 0.
@@ -133,11 +146,13 @@ def _scale(qkv: torch.Tensor, num_heads: int,
 
 
 def _check_cuda(name: str, tensors, s: int, d: int, b: int,
-                num_heads: int, views: bool = False):
+                num_heads: int, views: bool = False) -> None:
     """The kernels' contract; raises on what they do not take. `views`:
-    the tensors are (B, H, S, D) views read by stride (K7, K8, K10-K12),
-    all bf16, and the return value is their strides for the kernel; else
-    contiguous tensors whose first three are bf16."""
+    the tensors are (B, H, S, D) views, all bf16, that `_launch_views`
+    hands to the kernels (K7, K8, K10-K12) in place or copied, so only S
+    and D <= 128 bind them; else contiguous tensors whose first three are
+    bf16, with an even D and B, H <= 65535 (K1, K2, K9, and K10's qkv
+    buffer)."""
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
@@ -151,33 +166,56 @@ def _check_cuda(name: str, tensors, s: int, d: int, b: int,
             f"sequences go through fused_attention_qkv_cols to "
             f"ops/flash_blocked.py, or through fused_attention and "
             f"fused_attention_qkv to reference_attention")
-    if d % 2 or d > MAX_HEAD_DIM:
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be <= {MAX_HEAD_DIM}")
+    if views:
+        return
+    if d % 2:
         raise ValueError(f"head_dim {d} must be even and <= {MAX_HEAD_DIM}")
     if b > MAX_GRID_DIM or num_heads > MAX_GRID_DIM:
         raise ValueError(f"batch {b} and heads {num_heads} must be <= "
                          f"{MAX_GRID_DIM}")
-    if views:
-        return _stride_array(name, tensors, s, d)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _stride_array(name: str, tensors, s: int, d: int):
-    """The (batch, head, token) element strides of (B, H, S, D) tensors, 0
+def _stride_array(tensors, s: int, d: int):
+    """The (batch, head, token) element strides of (B, H, S, D) views, 0
     for a dimension of size 1 (its stride is arbitrary), as the kernels'
-    int64 array. Rows are read and written as bf16 pairs and one head's rows
-    by int offsets: raises on anything else."""
+    int64 array; None where the kernels cannot take the views in place.
+    They read and write rows as bf16 pairs and one head's rows by int
+    offsets: an even, contiguous head dim, even strides, 4-byte-aligned
+    data and < 2^31 elements over one head's rows."""
+    if d % 2:
+        return None
     vals = []
     for t in tensors:
         st = [x if n > 1 else 0 for n, x in zip(t.shape[:3], t.stride()[:3])]
         if t.stride(-1) != 1 or t.data_ptr() % 4 or any(x % 2 for x in st) \
                 or st[2] * (s - 1) + d >= 2 ** 31:
-            raise ValueError(
-                f"{name} takes (B, H, S, D) tensors with the head dim "
-                f"contiguous, even strides and 4-byte-aligned data, not "
-                f"strides {t.stride()} at offset {t.storage_offset()}")
+            return None
         vals += st
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch_views(launch, ins, outs, name: str) -> None:
+    """Run a strided kernel on (B, H, S, D) views: `launch(ins, outs,
+    strides)` is one launch. Views the kernel cannot take in place
+    (`_stride_array`) are copied once by `padded_copy`, the head dim
+    zero-padded to even (zero columns add nothing to q·kᵀ and give zero
+    columns of o and of the gradients), and the outputs sliced back into
+    `outs`."""
+    _, _, s, d = ins[0].shape
+    strides = _stride_array((*ins, *outs), s, d)
+    if strides is not None:
+        launch(ins, outs, strides)
+        return
+    pads = padded_copy(ins, 2, name)
+    tmp = [torch.empty(pads[0].shape, dtype=t.dtype, device=t.device)
+           for t in outs]
+    launch(pads, tmp, _stride_array((*pads, *tmp), s, pads[0].shape[-1]))
+    for t, p in zip(outs, tmp):
+        t.copy_(p[..., :d])
 
 
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -383,20 +421,26 @@ def hp_bwd_reference(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
 
 
 def _launch_bwd(ins, outs, scale: float, name: str) -> None:
-    """One call of csrc/hp_bwd.cu (its two launches): q, k, v, dO in and
-    dq, dk, dv out, all (B, H, S, D) bf16 read and written by stride."""
+    """csrc/hp_bwd.cu (two launches a call): q, k, v, dO in and dq, dk, dv
+    out, all (B, H, S, D) bf16 read and written by stride
+    (`_launch_views`)."""
     b, h, s, d = ins[0].shape
-    strides = _check_cuda(name, (*ins, *outs), s, d, b, h, views=True)
+    _check_cuda(name, (*ins, *outs), s, d, b, h, views=True)
     dev = ins[0].device
-    # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
-    stats = torch.empty((b, h, s, 3), dtype=torch.float32, device=dev)
     lib = build_hp_bwd_kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vtx_hp_bwd(*(t.data_ptr() for t in (*ins, *outs)),
-                            stats.data_ptr(), strides, b, s, h, d, scale,
-                            stream)
-    _raise_on(lib, rc, f"{name} attention backward")
+
+    def launch(ins, outs, strides):
+        b, h, s, d = ins[0].shape
+        # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
+        stats = torch.empty((b, h, s, 3), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.vtx_hp_bwd(*(t.data_ptr() for t in (*ins, *outs)),
+                                stats.data_ptr(), strides, b, s, h, d, scale,
+                                stream)
+        _raise_on(lib, rc, f"{name} attention backward")
+
+    _launch_views(launch, ins, outs, name)
 
 
 def hp_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
@@ -444,17 +488,22 @@ class HeadPairAttention(torch.autograd.Function):
 
 
 def _launch_fused_fwd(q, k, v, o, scale: float, name: str) -> None:
-    """One launch of csrc/fused_attn_fwd.cu: q, k, v in and o out, all
-    (B, H, S, D) bf16 read and written by stride."""
+    """csrc/fused_attn_fwd.cu: q, k, v in and o out, all (B, H, S, D) bf16
+    read and written by stride (`_launch_views`)."""
     b, h, s, d = q.shape
-    strides = _check_cuda(name, (q, k, v, o), s, d, b, h, views=True)
+    _check_cuda(name, (q, k, v, o), s, d, b, h, views=True)
     lib = build_fused_fwd_kernels()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.vtx_fused_attn_fwd(
-            *(t.data_ptr() for t in (q, k, v, o)), strides, b, s, h, d,
-            scale, stream)
-    _raise_on(lib, rc, f"{name} attention forward")
+
+    def launch(ins, outs, strides):
+        b, h, s, d = ins[0].shape
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.vtx_fused_attn_fwd(
+                *(t.data_ptr() for t in (*ins, *outs)), strides, b, s, h, d,
+                scale, stream)
+        _raise_on(lib, rc, f"{name} attention forward")
+
+    _launch_views(launch, (q, k, v), (o,), name)
 
 
 def _same_shape(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:

@@ -1,13 +1,14 @@
 """Blocked flash attention (online softmax) for long sequences.
 
 Counterpart of vision_transformers_torch_xla_tpu/ops/flash_blocked.py: the
-long-sequence path (S > 1024, high-resolution ViTs). Three kernels in
-csrc/flash_blocked.cu:
+long-sequence path (S > 1024, high-resolution ViTs). Three kernels:
 
-* `flash_fwd` -> the port of `_fwd_kernel` (:33, ROADMAP K4): o and the
-  row logsumexp lse = m + log(l);
-* `flash_bwd_dkdv` -> the port of `_bwd_dkdv_kernel` (:109, K5) and
-  `flash_bwd_dq` -> the port of `_bwd_dq_kernel` (:157, K6), both from
+* `flash_fwd` -> csrc/flash_fwd.cu, the port of `_fwd_kernel` (:33,
+  ROADMAP K4), on the tensor cores (TMA and wgmma): o and the row
+  logsumexp lse = m + log(l);
+* `flash_bwd_dkdv` -> csrc/flash_blocked.cu, the port of `_bwd_dkdv_kernel`
+  (:109, K5), and `flash_bwd_dq`, the port of `_bwd_dq_kernel` (:157, K6),
+  both from
   p = exp(s - lse) and delta = rowsum(dO·O), which a torch op computes
   (`flash_delta`; JAX computes it outside Pallas too); `flash_bwd` runs
   the three.
@@ -16,7 +17,11 @@ csrc/flash_blocked.cu:
 (:247-266) as an autograd Function, and `flash_attention_blocked` the
 public entry (:269). The wrappers take (B, H, S, D) tensors of any
 strides whose head dim is contiguous, so views of a fused (B, S, 3·H·D) qkv
-buffer go in as they are (`heads`); o comes back as a (B, H, S, D) view of
+buffer go in as they are (`heads`). K4 reads them through TMA tensor maps,
+which need 16-byte-aligned data and strides and a head dim that is a
+multiple of 8; other q, k, v are first copied once into contiguous
+buffers with the head dim zero-padded (`padded_copy`, which the strided
+kernels of ops/flash_attention.py share; `COPIES` counts its calls). o comes back as a (B, H, S, D) view of
 (B, S, H, D) memory, and K5 and K6 write dq, dk, dv into the tensors they
 are given, which `flash_bwd` makes views of one (B, S, 3·H·D) buffer. The
 TPU padding of S to 256 (:274-281) is a tiling device: the kernels mask the
@@ -29,20 +34,27 @@ the CPU. For CUDA tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import logging
 from typing import Optional, Tuple
 
 import torch
 
 from vision_transformers_torch_xla_tpu_torch.ops import cuda_build
 
+log = logging.getLogger(__name__)
+
 MAX_HEAD_DIM = 128
-MAX_GRID_DIM = 65535  # batch x heads ride the grid's y dimension
+MAX_GRID_DIM = 65535  # K5, K6: batch x heads ride the grid's y dimension
+TMA_ALIGN = 8  # elements: K4's tensor maps want 16-byte strides and data
 
 # Launches of the blocked kernels in this process. Only the wrappers'
 # launches add to them; callers may reset them to 0.
 FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DKDV_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
+# Kernel calls whose operands `padded_copy` copied first (K4 here; K7, K8,
+# K10-K12 in ops/flash_attention.py)
+COPIES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,23 +62,31 @@ _L = ctypes.c_longlong
 _LAYOUT = [_L] * 3  # element strides of batch, head and row
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the blocked kernels' library."""
-    lib = cuda_build.load_library("flash_blocked", ("flash_blocked.cu",))
-    sigs = {
-        "vtx_flash_fwd": [_P] * 5 + [_I] * 4 + [ctypes.c_float]
-        + _LAYOUT * 2 + [_P],
-        "vtx_flash_bwd_dkdv": [_P] * 8 + [_I] * 4 + [ctypes.c_float]
-        + _LAYOUT * 3 + [_P],
-        "vtx_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [ctypes.c_float]
-        + _LAYOUT * 3 + [_P],
-    }
+def _load(name: str, sigs) -> ctypes.CDLL:
+    lib = cuda_build.load_library(name, (f"{name}.cu",))
     for fn, argtypes in sigs.items():
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = argtypes
     lib.vtx_cuda_error_string.restype = ctypes.c_char_p
     lib.vtx_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def build_fwd_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the forward kernel's library (K4)."""
+    return _load("flash_fwd", {
+        "vtx_flash_fwd": [_P] * 5 + [_I] * 4 + [ctypes.c_float]
+        + _LAYOUT * 2 + [_P]})
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the backward kernels' library (K5,
+    K6)."""
+    return _load("flash_blocked", {
+        "vtx_flash_bwd_dkdv": [_P] * 8 + [_I] * 4 + [ctypes.c_float]
+        + _LAYOUT * 3 + [_P],
+        "vtx_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [ctypes.c_float]
+        + _LAYOUT * 3 + [_P]})
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -140,8 +160,10 @@ def _layout(t: torch.Tensor):
     return tuple(int(x) for x in t.stride()[:3])
 
 
-def _check_cuda(name: str, tensors) -> None:
-    """The kernels' contract; raises on what they do not take."""
+def _check_cuda(name: str, tensors, grid_y: bool = True) -> None:
+    """The kernels' contract; raises on what they do not take. grid_y: the
+    kernel puts batch x heads on the grid's y dimension (K5, K6) and reads
+    rows by stride with a contiguous head dim."""
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
@@ -151,6 +173,8 @@ def _check_cuda(name: str, tensors) -> None:
     b, h, _, d = tensors[0].shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} must be <= {MAX_HEAD_DIM}")
+    if not grid_y:
+        return
     if b * h > MAX_GRID_DIM:
         raise ValueError(f"batch x heads {b * h} must be <= {MAX_GRID_DIM}")
     if any(t.stride(-1) != 1 for t in tensors):
@@ -163,41 +187,90 @@ def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
                            + lib.vtx_cuda_error_string(rc).decode())
 
 
-def _qkv_layout(q, k, v) -> Tuple[int, int, int]:
+def _same_shape(q, k, v) -> None:
     if not (q.shape == k.shape == v.shape and q.dim() == 4):
         raise ValueError(f"q, k, v must be (B, H, S, D) of one shape, not "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+
+
+def _qkv_layout(q, k, v) -> Tuple[int, int, int]:
+    _same_shape(q, k, v)
     if not _layout(q) == _layout(k) == _layout(v):
         raise ValueError(f"q, k and v must share one layout, not strides "
                          f"{q.stride()}, {k.stride()}, {v.stride()}")
     return _layout(q)
 
 
+def _tma_layout(t: torch.Tensor) -> Tuple[int, int, int]:
+    """(batch, head, row) element strides for K4's tensor maps. A dimension
+    of size 1 is never stepped, so its stride is arbitrary in torch; it
+    takes the row width, which TMA accepts."""
+    fill = -(-t.shape[-1] // TMA_ALIGN) * TMA_ALIGN
+    return tuple(int(x) if n > 1 else fill
+                 for n, x in zip(t.shape[:3], t.stride()[:3]))
+
+
+def tma_ready(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether K4's tensor maps read q, k and v in place: one layout, a
+    contiguous head dim that is a multiple of 8, 16-byte-aligned data and
+    strides."""
+    layouts = {_tma_layout(t) for t in (q, k, v)}
+    return (len(layouts) == 1 and q.shape[-1] % TMA_ALIGN == 0
+            and all(x % TMA_ALIGN == 0 for x in layouts.pop())
+            and all(t.stride(-1) == 1 and t.data_ptr() % (2 * TMA_ALIGN) == 0
+                    for t in (q, k, v)))
+
+
+def padded_copy(tensors, multiple: int, name: str):
+    """(B, H, S, D) tensors copied once into new contiguous buffers, the
+    head dim zero-padded to a multiple of `multiple`, for a kernel that
+    cannot read them in place: zero columns add nothing to q·kᵀ and give
+    zero columns of o and of the gradients. Counted in `COPIES` and
+    logged."""
+    global COPIES
+    COPIES += 1
+    d = tensors[0].shape[-1]
+    log.info("%s: tensors of strides %s and head dim %d are copied for the "
+             "kernel", name, [t.stride() for t in tensors], d)
+    dp = -(-d // multiple) * multiple
+    out = []
+    for t in tensors:
+        buf = t.new_zeros((*t.shape[:-1], dp))
+        buf[..., :d] = t
+        out.append(buf)
+    return out
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention, q, k, v (B, H, S, D) -> o (B, H, S, D), a view of
-    (B, S, H, D) memory, and the row logsumexp lse (B, H, S) fp32."""
+    (B, S, H, D) memory, and the row logsumexp lse (B, H, S) fp32. On the
+    card, q, k and v that TMA cannot read in place (`tma_ready`) are copied
+    once first; D > 128 raises."""
     global FLASH_FWD_LAUNCHES
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale)
-    in_l = _qkv_layout(q, k, v)
-    _check_cuda("flash_fwd", (q, k, v))
+    _same_shape(q, k, v)
+    _check_cuda("flash_fwd", (q, k, v), grid_y=False)
     b, h, s, d = q.shape
-    o = torch.empty((b, s, h, d), dtype=q.dtype,
+    if not tma_ready(q, k, v):
+        q, k, v = padded_copy((q, k, v), TMA_ALIGN, "flash_fwd")
+    dp = q.shape[-1]
+    o = torch.empty((b, s, h, dp), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = build_kernels()
+    lib = build_fwd_kernels()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vtx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), lse.data_ptr(), b, h, s, d,
-                               scale, *in_l, *_layout(o), stream)
+                               o.data_ptr(), lse.data_ptr(), b, h, s, dp,
+                               scale, *_tma_layout(q), *_layout(o), stream)
     _raise_on(lib, rc, "blocked attention forward")
     FLASH_FWD_LAUNCHES += 1
-    return o, lse
+    return (o[..., :d] if dp != d else o), lse
 
 
 def _bwd_checks(name, q, k, v, do, lse, delta, outs):
