@@ -46,9 +46,10 @@ and no phase catches its own error:
 The long-sequence slice, vit_base_patch14_dinov2 at 518 px (S = 1370,
 ops/flash_blocked.py):
 
-10. build: csrc/flash_fwd.cu (K4, TMA + wgmma) and csrc/flash_blocked.cu
-    (K5, K6), started with the others in phase 2; build time, registers
-    and spills.
+10. build: csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6), both
+    TMA + wgmma in bf16, and csrc/flash_blocked.cu (K4-K6 on the CUDA cores
+    for fp32 and fp16), started with the others in phase 2; build time,
+    registers and spills.
 11. blocked kernels vs plain: flash_fwd (K4), flash_bwd_dkdv (K5) and
     flash_bwd_dq (K6) against their plain versions on seeded bf16 q, k, v,
     dO read from a (B, S, 3·H·D) buffer, at the path's shapes (B 1 and 32,
@@ -56,9 +57,10 @@ ops/flash_blocked.py):
     D 128, 197); at the path's shapes the median CUDA-event time of each
     kernel, its plain version, and the yardstick
     torch.nn.functional.scaled_dot_product_attention (forward; backward),
-    which the port never calls. Then K4 alone at the rest of its contract:
-    B·H = 65544 > 65535, D 48 and 96, and q, k, v that TMA cannot read in
-    place (an odd head dim, a transposed layout), which take one copy.
+    which the port never calls. Then K4-K6 at the rest of their contract:
+    B·H = 65544 > 65535, D 48 and 96, and q, k, v (and dO) that TMA cannot
+    read in place (an odd head dim, a transposed layout), which take one
+    copy each.
 12. model: full-width vit_base_patch14_dinov2 (token pool, bf16 compute,
     use_pallas_attn) on seeded weights (LayerScale gammas 1), saved and
     strict-loaded through ckpt/convert.py, against the JAX package's fp32
@@ -126,15 +128,28 @@ fused_attention_qkv), which no model calls:
     points at S = 1100 take reference_attention, as JAX routes them, and
     must launch none of the twelve kernels.
 
-Compute other than bf16:
+Compute other than bf16 (every kernel takes bf16, fp16 and fp32, as the
+JAX kernels take any float dtype):
 
-22. --precision fp32: launch/main.py::main on my_vit_s (6 heads of 64, the
-    kernel route's widths) for 2 steps and 1 eval batch at batch 32; the
-    kernels on the card are bf16 kernels, so the trainer's `--pallas_attn
-    auto` builds plain attention for fp32 compute and the run must launch
-    no kernel, and `--pallas_attn on` with fp32 must raise before it
-    launches any. The same run in bf16 must launch K1 and K2 once per
-    block in each step (and K1 in eval).
+22. launch/main.py::main on my_vit_s (6 heads of 64, tanh GELU: the kernel
+    route's widths) for 2 steps and 1 eval batch at batch 32: --precision
+    fp32 under the default `--pallas_attn auto` (JAX's switch) and with
+    `--pallas_attn on` must launch the fp32 K1 and K2 once per block in
+    each step (and K1 in eval); with `--pallas_mlp on` also the fp32 K3
+    once per block and step; bf16 launches K1 and K2 as fp32 does. Then
+    the fp32 my_vit_b gradient on the kernel route against the JAX fp32
+    train golden, within FP32_GRAD_LIMITS, set from its witness (the same
+    fp32 step with K1's and K2's plain versions on the card), which runs
+    first.
+23. every kernel's fp32 and fp16 instantiation: the entry points that
+    reach a kernel (qkv_proj_attention, mlp_gelu, fused_attention_qkv_cols
+    at S 1370 and 197, multi_head_attention(use_pallas=True),
+    fused_attention_qkv) driven forward and backward once in each dtype,
+    which must launch each kernel once; then each kernel held against its
+    plain version on the card at its main shape and a ragged one, within
+    DTYPE_REL of the largest magnitude (FP32_OUT_REL for fp32 outputs,
+    LSE_ATOL for lse), and timed at the main shape beside its plain
+    version and SDPA in the same dtype.
 
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
@@ -144,7 +159,10 @@ Every kernel's line in the kernels JSON carries its time, its plain
 version's, the yardstick's (library_ms) and bound_ms: the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its products' FLOPs over the 989 TFLOP/s bf16 tensor-core peak (H100 SXM
-data sheet), from the timed call's shapes.
+data sheet), from the timed call's shapes. The kernels JSON has one line
+per bf16 kernel and one per fp32 and fp16 instantiation (name
+'kernel[dtype]'), whose bound takes the 67 TFLOP/s fp32 CUDA-core peak and
+4-byte elements for fp32, 989 TFLOP/s and 2-byte elements for fp16.
 
 The last two lines of stdout are the kernels JSON and the result JSON.
 """
@@ -222,12 +240,13 @@ LONG_MAIN_SHAPES = ((1, 1370, 12, 64), (32, 1370, 12, 64))   # (B, S, H, D)
 LONG_EXTRA_SHAPES = ((2, 1025, 12, 64), (1, 2048, 12, 64),
                      (1, 4097, 2, 128), (64, 197, 12, 64),
                      (128, 197, 12, 64))
-# K4 alone, (layout, (B, S, H, D)): B·H over the 65535 that bound K5/K6,
-# head dims that pad to 64 and 128 in the kernel, and q, k, v that take one
-# copy (an odd head dim; a transposed layout, head dim not contiguous)
-K4_EXTRA_CASES = (("qkv", (5462, 40, 12, 64)), ("qkv", (3, 77, 3, 48)),
-                  ("qkv", (2, 300, 2, 96)), ("dense", (2, 200, 2, 47)),
-                  ("transposed", (2, 260, 4, 64)))
+# K4-K6 at the rest of their contract, (layout, (B, S, H, D)): B·H over
+# 65535 (the grid-y limit the kernels no longer have), head dims that pad
+# to 64 and 128 in the kernels, and q, k, v (and dO) that take one copy
+# (an odd head dim; a transposed layout, head dim not contiguous)
+BLOCKED_EXTRA_CASES = (("qkv", (5462, 40, 12, 64)), ("qkv", (3, 77, 3, 48)),
+                       ("qkv", (2, 300, 2, 96)), ("dense", (2, 200, 2, 47)),
+                       ("transposed", (2, 260, 4, 64)))
 # Blocked kernels vs plain (same bf16 inputs, same cast order): o is bf16
 # and each bf16(p) is rounded against the tile's running max in the kernel
 # and against the row's max in the plain version, so o moves by a flipped
@@ -270,12 +289,50 @@ DH_REL_ATOL = 2e-2
 DB1_REL_ATOL = 1e-3
 PALLAS_MLP_FLAGS = RECIPE_FLAGS + ["--pallas_mlp", "on"]
 # Phase 22: the trainer in fp32 and in bf16 on a small ViT of the kernel
-# route's widths
+# route's widths (tanh GELU, so that --pallas_mlp on fuses every MLP)
 PRECISION_FLAGS = [
-    "--model", "my_vit_s", "--batch_size", "32", "--data_set", "synthetic",
-    "--epochs", "1", "--limit_steps_per_epoch", "2",
-    "--limit_eval_batches", "1", "--warmup_epochs", "0"]
+    "--model", "my_vit_s", "--act_layer", "gelu_tanh", "--batch_size", "32",
+    "--data_set", "synthetic", "--epochs", "1", "--limit_steps_per_epoch",
+    "2", "--limit_eval_batches", "1", "--warmup_epochs", "0"]
 PRECISION_STEPS, PRECISION_EVALS, PRECISION_DEPTH = 2, 1, 12
+PRECISION_RUNS = {"fp32": ["--precision", "fp32"],
+                  "fp32_on": ["--precision", "fp32", "--pallas_attn", "on"],
+                  "fp32_mlp": ["--precision", "fp32", "--pallas_mlp", "on"],
+                  "bf16": ["--precision", "bf16"]}
+# Phase 22, the fp32 my_vit_b gradient on the kernel route (K1, K2 in fp32)
+# against the JAX fp32 train golden: limits (loss abs, grad norm rel,
+# per-parameter grad norm rel), 10x the witness's errors rounded down (the
+# same fp32 step with the plain versions on the card read 9.54e-7, 6.48e-9
+# and 1.98e-7; H100 80GB HBM3, 700 W). Both sides are fp32 and differ in
+# summation order only.
+FP32_GRAD_LIMITS = (9.5e-6, 6.4e-8, 1.9e-6)
+# Phase 23, every kernel in fp32 and fp16 (the JAX kernels take any float
+# dtype), kernel vs plain on the same inputs: fp32 differs by summation
+# order and expf only, so o, the grads, dh and a are held to DTYPE_REL
+# ['float32'] of the plain version's largest magnitude; fp16 moves by
+# flipped fp16 roundings (2^-11 relative per ulp) of p, ds and the stored
+# values: DTYPE_REL['float16']. The fp32 outputs (row stats, bias
+# partials) to FP32_OUT_REL of their largest magnitude, lse to LSE_ATOL.
+DTYPES = ("float32", "float16")
+DTYPE_REL = {"float32": 1e-4, "float16": 5e-3}
+FP32_OUT_REL = {"float32": 1e-4, "float16": 1e-3}
+# each kernel's (main shape, ragged shape): (B, S, H, D), K3's (B, S, O, K);
+# the main shapes are the bf16 lines' own
+_ATTN_197 = ((128, 197, 12, 64), (3, 77, 3, 48))
+_LONG = ((32, 1370, 12, 64), (2, 1100, 3, 48))
+DTYPE_SHAPES = {
+    "attn_fwd": ((64, 197, 12, 64), (3, 77, 3, 48)), "attn_bwd": _ATTN_197,
+    "flash_fwd": _LONG, "flash_bwd_dkdv": _LONG, "flash_bwd_dq": _LONG,
+    "fc2_bwd": ((128, 197, 768, 3072), (3, 77, 768, 3072)),
+    "hp_fwd": _ATTN_197, "hp_bwd": _ATTN_197,
+    "fused_fwd": ((128, 197, 12, 64), (3, 130, 3, 48)),
+    "fused_bwd": ((128, 197, 12, 64), (3, 130, 3, 48)),
+    "qkv_fwd": ((128, 197, 12, 64), (3, 130, 3, 48)),
+    "qkv_bwd": ((128, 197, 12, 64), (3, 130, 3, 48))}
+# the bound of each dtype's work: fp32 has no tensor-core product, so its
+# peak is the CUDA cores' 67 TFLOP/s (H100 SXM data sheet), fp16 the
+# 989 TFLOP/s tensor-core peak of bf16; element bytes 4 and 2
+DTYPE_PEAK = {"float32": (67e12, 4), "float16": (989e12, 2)}
 # The head-pair route (K9, K10) of fused_attention_qkv_cols, (B, S, H, D)
 HP_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
 HP_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 77, 3, 48), (2, 130, 2, 128))
@@ -337,9 +394,11 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    """Least time on an H100 SXM for this work, in ms, and what bounds it."""
-    t_ops = flops / H100_BF16_PEAK_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_PEAK_FLOPS):
+    """Least time on an H100 SXM for this work, in ms, and what bounds it:
+    its FLOPs at `peak` (default the bf16 tensor-core peak) or its bytes at
+    the HBM3 rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -360,13 +419,15 @@ def sdpa_ms(q, k, v, do=None):
                                                retain_graph=True))
 
 
-def seeded_bf16(shape, seed: int, dev):
+def seeded_bf16(shape, seed: int, dev, dtype=None, scale: float = 1.0):
+    """Seeded standard normals (times `scale`) on `dev`, bf16 unless
+    `dtype` says otherwise."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
-                            ).to(dev, torch.bfloat16)
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(x).to(dev, dtype or torch.bfloat16)
 
 
 def phase_kernel(fa, dev):
@@ -549,6 +610,7 @@ def build_all(fa, fb, mf):
 
     builds = {"attn_fwd": fa.build_kernels, "attn_bwd": fa.build_bwd_kernels,
               "flash_fwd": fb.build_fwd_kernels,
+              "flash_bwd": fb.build_bwd_kernels,
               "flash_blocked": fb.build_kernels, "mlp_fused": mf.build_kernels,
               "hp_bwd": fa.build_hp_bwd_kernels,
               "fused_attn_fwd": fa.build_fused_fwd_kernels}
@@ -566,10 +628,14 @@ def log_ptxas(cuda_build, name: str, tag: str) -> None:
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             # the kernel's own name is the last match: the anonymous
-            # namespace before it carries the source's name
+            # namespace before it carries the source's name; then the
+            # element type (none: bf16) and the head dim
             k = re.findall(r"\d((?:fused|attn|flash|hp|fc2)_\w+?_kernel)"
-                           r"(?:ILi(\d+)E)?", m.group(1))
-            fn = f"{k[-1][0]}<{k[-1][1] or 0}>" if k else m.group(1)
+                           r"(?:I(13__nv_bfloat16|6__half|f)?(?:Li(\d+)E)?)?",
+                           m.group(1))
+            dt = {"6__half": "fp16", "f": "fp32"}.get(k[-1][1], "bf16") \
+                if k else ""
+            fn = f"{k[-1][0]}<{dt}, {k[-1][2] or '-'}>" if k else m.group(1)
         elif "registers" in line or "spill" in line:
             log(f"[{tag}] {fn}: {line.strip()}")
 
@@ -616,9 +682,10 @@ def phase_bwd_kernel(fa, dev):
             row["library_ms"] = sdpa_ms(
                 *heads(qkv, h), do.view(b, s, h, d).transpose(1, 2))
             # qkv, dO, o, stats read; dqkv and the bias partials written;
-            # s and dp in each of the two passes, then dq, dk and dv
+            # the products the function needs: s, dp, dv, dk and dq (the
+            # kernel's second pass computes s and dp again, not counted)
             row["bound_ms"], row["bound_by"] = bound(
-                14 * b * h * s * s * d,
+                10 * b * h * s * s * d,
                 2 * (2 * b * s * 3 * h * d + 2 * b * s * h * d)
                 + 4 * (b * h * s * 2 + b * 3 * h * d))
         results[shape] = row
@@ -680,7 +747,8 @@ def phase_grad(counts, dev, ckpt_path, name="my_vit_b", tag="grad",
     worst = max(rel, key=rel.get)
     loss_err = abs(loss.item() - golden["loss"])
     gn_err = abs(grad_norm - golden["grad_norm"]) / golden["grad_norm"]
-    log(f"[{tag}] {name} bf16 vs JAX fp32 golden: loss {loss.item()!r} "
+    dt = str(model_kw.get("dtype", torch.bfloat16)).split(".")[-1]
+    log(f"[{tag}] {name} {dt} vs JAX fp32 golden: loss {loss.item()!r} "
         f"(golden {golden['loss']!r}, abs err {loss_err!r}); grad norm "
         f"{grad_norm!r} (golden {golden['grad_norm']!r}, rel err {gn_err!r}); "
         f"per-parameter grad norm worst rel err {rel[worst]!r} ({worst}), "
@@ -926,31 +994,54 @@ def phase_long_kernel(fb, dev):
         results[shape] = row
         log(f"[long kernel] B={b} S={s} H={h} D={d}: "
             + " ".join(f"{k}={v!r}" for k, v in row.items()))
-    for layout, (b, s, h, d) in K4_EXTRA_CASES:
-        q, k, v = k4_operands(fb, layout, b, s, h, d, 3500 + b * s + h * d,
-                              dev)
+    for layout, (b, s, h, d) in BLOCKED_EXTRA_CASES:
+        case = f"{layout} {(b, s, h, d)}"
+        seed = 3500 + b * s + h * d
+        q, k, v = k4_operands(fb, layout, b, s, h, d, seed, dev)
+        # dO as the model's backward has it: a view of (B, S, H, D) memory
+        do = seeded_bf16((b, s, h, d), seed + 7, dev).transpose(1, 2)
+        dq, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d),
+                                          dtype=torch.bfloat16, device=dev),
+                              h)
         copies = fb.COPIES
         o, lse = fb.flash_fwd(q, k, v)
-        o_r, lse_r = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+        delta = fb.flash_delta(o, do)
+        fb.flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv)
+        fb.flash_bwd_dq(q, k, v, do, lse, delta, dq)
         torch.cuda.synchronize()
         copied = fb.COPIES - copies
-        check(copied == (not fb.tma_ready(q, k, v)),
-              f"K4 {layout} {(b, s, h, d)}: {copied} copies")
-        check(o.shape == o_r.shape and torch.isfinite(o.float()).all().item(),
-              f"K4 {layout} {(b, s, h, d)}: shape {tuple(o.shape)} or not "
-              f"finite")
-        o_err = (o.float() - o_r.float()).abs().max().item()
-        o_max = o_r.float().abs().max().item()
-        lse_err = (lse - lse_r).abs().max().item()
-        check(o_err <= O_REL_ATOL * o_max,
-              f"K4 {layout} {(b, s, h, d)}: o err {o_err} > {O_REL_ATOL} x "
-              f"{o_max}")
-        check(lse_err <= LSE_ATOL,
-              f"K4 {layout} {(b, s, h, d)}: lse err {lse_err} > {LSE_ATOL}")
-        worst["flash_fwd"] = max(worst["flash_fwd"], o_err)
-        log(f"[long kernel] K4 {layout} B={b} S={s} H={h} D={d} (B·H "
-            f"{b * h}): o_max_abs_err={o_err!r} o_max_abs={o_max!r} "
-            f"lse_max_abs_err={lse_err!r} copied={copied}")
+        # one copy for each of K4, K5 and K6 where TMA cannot read q, k, v
+        check(copied == 3 * (not fb.tma_ready(q, k, v)),
+              f"K4-K6 {case}: {copied} copies")
+        scale = d ** -0.5
+        o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+        dk_r, dv_r = fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                                 scale)
+        dq_r = fb.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+        row = {}
+        for name, got, ref, rel in (
+                ("o", o, o_r, O_REL_ATOL), ("lse", lse, lse_r, None),
+                ("dq", dq, dq_r, DQKV_REL_ATOL), ("dk", dk, dk_r, DQKV_REL_ATOL),
+                ("dv", dv, dv_r, DQKV_REL_ATOL)):
+            check(got.shape == ref.shape and torch.isfinite(got).all().item(),
+                  f"K4-K6 {case} {name}: shape {tuple(got.shape)} or not "
+                  f"finite")
+            err = (got.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item()
+            limit = LSE_ATOL if rel is None else rel * ref_max
+            check(err <= limit, f"K4-K6 {case} {name}: max abs err {err} > "
+                  f"{limit}")
+            row[f"{name}_max_abs_err"] = err
+            row[f"{name}_max_abs"] = ref_max
+        worst["flash_fwd"] = max(worst["flash_fwd"], row["o_max_abs_err"])
+        worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"],
+                                      row["dk_max_abs_err"],
+                                      row["dv_max_abs_err"])
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"],
+                                    row["dq_max_abs_err"])
+        log(f"[long kernel] K4-K6 {layout} B={b} S={s} H={h} D={d} (B·H "
+            f"{b * h}): " + " ".join(f"{k_}={v_!r}" for k_, v_ in row.items())
+            + f" copied={copied}")
     return results, worst
 
 
@@ -966,10 +1057,10 @@ def k4_operands(fb, layout, b, s, h, d, seed, dev):
 
 
 def phase_precision(counts):
-    """launch/main.py::main on a small ViT of the kernel route's widths,
-    --precision fp32 then bf16; returns each run's launches. `--pallas_attn
-    on` with fp32 must raise ValueError and launch nothing (counted under
-    'fp32_on')."""
+    """launch/main.py::main on a small ViT of the kernel route's widths:
+    --precision fp32 (auto: the kernel route, as in JAX), fp32 with
+    --pallas_attn on, fp32 with --pallas_mlp on, then bf16; returns each
+    run's launches."""
     import math
 
     import torch
@@ -980,29 +1071,240 @@ def phase_precision(counts):
     from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
 
     out = {}
-    for precision in ("fp32", "bf16"):
-        cfg = config_from_args(PRECISION_FLAGS + ["--precision", precision])
+    for run, flags in PRECISION_RUNS.items():
+        cfg = config_from_args(PRECISION_FLAGS + flags)
         counts(reset=True)
         t0 = time.perf_counter()
         stats = trainer.main(cfg)
         torch.cuda.synchronize()
-        out[precision] = counts()
-        log(f"[precision] main() --precision {precision}: "
+        out[run] = counts()
+        log(f"[precision] main() {' '.join(flags)}: "
             f"{time.perf_counter() - t0:.3f} s, stats {stats}, launches "
-            f"{out[precision]}")
+            f"{out[run]}")
         check(all(isinstance(v, (int, float)) and math.isfinite(v)
                   for v in stats.values()), f"stats not finite: {stats}")
-    cfg = config_from_args(PRECISION_FLAGS + ["--precision", "fp32",
-                                              "--pallas_attn", "on"])
-    counts(reset=True)
-    try:
-        trainer.main(cfg)
-        check(False, "--pallas_attn on --precision fp32 did not raise")
-    except ValueError as e:
-        log(f"[precision] main() --pallas_attn on --precision fp32 raised: "
-            f"{e}")
-    out["fp32_on"] = counts()
     return out
+
+
+class swap_plain_attention:
+    """Within it, ops/flash_attention.py's K1 and K2 wrappers run their
+    plain versions on the card: no kernel launches (the fp32 witness of
+    phase 22)."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.saved = (fa.attn_fwd, fa.attn_bwd)
+
+    def __enter__(self):
+        fa = self.fa
+
+        def fwd(qkv, num_heads, scale=None, with_stats=False):
+            return fa.attn_fwd_reference(
+                qkv, num_heads, fa._scale(qkv, num_heads, scale), with_stats)
+
+        def bwd(qkv, do, o, st, num_heads, scale=None):
+            return fa.attn_bwd_reference(qkv, do, o, st, num_heads,
+                                         fa._scale(qkv, num_heads, scale))
+
+        fa.attn_fwd, fa.attn_bwd = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.attn_fwd, self.fa.attn_bwd = self.saved
+
+
+def dtype_case(fa, fb, mf, name, shape, dt, dev):
+    """One kernel's call at `shape` in dtype `dt`: (the wrapper, its plain
+    version, the PyTorch yardstick's ms or None, FLOPs, bytes, the kind of
+    each output). Both calls return tuples. Kinds: 'rel' (the dtype's own
+    outputs), 'fp32' (row stats, bias partials), 'lse'."""
+    import torch
+
+    e = DTYPE_PEAK[str(dt).split(".")[-1]][1]
+    seed = 7000 + sum(shape) + len(name)
+    if name == "fc2_bwd":
+        b, s, o, k = shape
+        dy = seeded_bf16((b, s, o), seed, dev, dt)
+        w2 = seeded_bf16((o, k), seed + 1, dev, dt, 0.02)
+        h = seeded_bf16((b, s, k), seed + 2, dev, dt)
+        m = b * s
+        # dy, w2, h read; dh, a written, db1 (fp32) written; dy·w2
+        return (lambda: mf.fc2_bwd(dy, w2, h),
+                lambda: mf.fc2_bwd_reference(dy, w2, h), None,
+                2 * m * o * k, e * (m * o + o * k + 3 * m * k) + 4 * k,
+                ("rel", "rel", "fp32"))
+    b, s, h, d = shape
+    scale = d ** -0.5
+    sq, n, rows = b * h * s * s * d, b * s * h * d, b * h * s
+    qkv = seeded_bf16((b, s, 3 * h * d), seed, dev, dt)
+    do = seeded_bf16((b, s, h * d), seed + 1, dev, dt)
+    q, k, v = fb.heads(qkv, h)
+    dob = do.view(b, s, h, d).transpose(1, 2)
+    qkv5 = qkv.view(b, s, 3, h, d)
+    fwd_lib, bwd_lib = (lambda: sdpa_ms(q, k, v)), \
+        (lambda: sdpa_ms(q, k, v, dob))
+    if name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        o, lse = fb.flash_fwd_reference(q, k, v, scale)
+        delta = fb.flash_delta(o, dob)
+        dq, dk, dv = fb.heads(torch.empty_like(qkv), h)
+    if name in ("attn_bwd",):
+        o1, st = fa.attn_fwd_reference(qkv, h, scale, with_stats=True)
+    cases = {
+        # K1: qkv read, o and the row stats written; q·kᵀ and p·v
+        "attn_fwd": (lambda: fa.attn_fwd(qkv, h, scale, with_stats=True),
+                     lambda: fa.attn_fwd_reference(qkv, h, scale,
+                                                   with_stats=True),
+                     fwd_lib, 4 * sq, e * 4 * n + 8 * rows, ("rel", "fp32")),
+        # K2: qkv, dO, o, stats read; dqkv, bias partials written; s, dp,
+        # dv, dk, dq (as phase 7 counts them)
+        "attn_bwd": (lambda: fa.attn_bwd(qkv, do, o1, st, h, scale),
+                     lambda: fa.attn_bwd_reference(qkv, do, o1, st, h,
+                                                   scale),
+                     bwd_lib, 10 * sq, e * 8 * n + 4 * (2 * rows + 3 * b * h
+                                                        * d),
+                     ("rel", "fp32")),
+        # K4: q, k, v read, o and lse written
+        "flash_fwd": (lambda: fb.flash_fwd(q, k, v, scale),
+                      lambda: fb.flash_fwd_reference(q, k, v, scale),
+                      fwd_lib, 4 * sq, e * 4 * n + 4 * rows, ("rel", "lse")),
+        # K5: q, k, v, dO, lse, delta read, dk, dv written
+        "flash_bwd_dkdv": (
+            lambda: fb.flash_bwd_dkdv(q, k, v, dob, lse, delta, dk, dv,
+                                      scale),
+            lambda: fb.flash_bwd_dkdv_reference(q, k, v, dob, lse, delta,
+                                                scale),
+            bwd_lib, 8 * sq, e * 6 * n + 8 * rows, ("rel", "rel")),
+        # K6: the same inputs, dq written
+        "flash_bwd_dq": (
+            lambda: (fb.flash_bwd_dq(q, k, v, dob, lse, delta, dq, scale),),
+            lambda: (fb.flash_bwd_dq_reference(q, k, v, dob, lse, delta,
+                                               scale),),
+            bwd_lib, 6 * sq, e * 5 * n + 8 * rows, ("rel",)),
+        # K9, K10: qkv (and dO) read, o (dqkv) written
+        "hp_fwd": (lambda: (fa.hp_fwd(qkv, h, scale),),
+                   lambda: (fa.attn_fwd_reference(qkv, h, scale)[0],),
+                   fwd_lib, 4 * sq, e * 4 * n, ("rel",)),
+        "hp_bwd": (lambda: (fa.hp_bwd(qkv, do, h, scale),),
+                   lambda: (fa.hp_bwd_reference(qkv, do, h, scale),),
+                   bwd_lib, 10 * sq, e * 7 * n, ("rel",)),
+        # K7, K8 on the (B, H, S, D) views; K11, K12 on the (B, S, 3, H, D)
+        # buffer
+        "fused_fwd": (lambda: (fa.fused_fwd(q, k, v, scale),),
+                      lambda: (fa.fused_fwd_reference(q, k, v, scale),),
+                      fwd_lib, 4 * sq, e * 4 * n, ("rel",)),
+        "fused_bwd": (lambda: fa.fused_bwd(q, k, v, dob, scale),
+                      lambda: fa.fused_bwd_reference(q, k, v, dob, scale),
+                      bwd_lib, 10 * sq, e * 7 * n, ("rel", "rel", "rel")),
+        "qkv_fwd": (lambda: (fa.qkv_fwd(qkv5, scale=scale),),
+                    lambda: (fa.fused_fwd_reference(q, k, v, scale).transpose(
+                        1, 2).reshape(b, s, h * d),),
+                    fwd_lib, 4 * sq, e * 4 * n, ("rel",)),
+        "qkv_bwd": (lambda: (fa.qkv_bwd(qkv5, do, scale=scale),),
+                    lambda: (fa.hp_bwd_reference(qkv, do, h, scale).view(
+                        qkv5.shape),),
+                    bwd_lib, 10 * sq, e * 7 * n, ("rel",))}
+    return cases[name]
+
+
+def drive_entry_points(counts, fa, mf, dev, dt):
+    """Forward and backward through every entry point that reaches a
+    kernel, in dtype `dt`, at the widths of the models' paths (ViT-B's 12
+    heads of 64, 768 -> 3072 -> 768 MLP; 197 and 1370 tokens); returns the
+    launches (counts() after a reset): one of each kernel."""
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        multi_head_attention,
+    )
+    from vision_transformers_torch_xla_tpu_torch.ops.mlp_fused import (
+        mlp_gelu,
+    )
+
+    def leaf(shape, seed, scale=1.0):
+        return seeded_bf16(shape, seed, dev, dt, scale).requires_grad_()
+
+    def backward(o, seed):
+        o.backward(seeded_bf16(tuple(o.shape), seed, dev, dt))
+
+    counts(reset=True)
+    # K1, K2: the fused projection + attention of a ViT-B block
+    backward(fa.qkv_proj_attention(leaf((8, 197, 768), 7100),
+                                   leaf((768, 2304), 7101, 0.02),
+                                   leaf((2304,), 7102, 0.02), 12), 7103)
+    # K3: the fused-backward MLP
+    backward(mlp_gelu(leaf((8, 197, 768), 7110), leaf((768, 3072), 7111,
+                                                       0.02),
+                      leaf((3072,), 7112, 0.02), leaf((3072, 768), 7113,
+                                                      0.02),
+                      leaf((768,), 7114, 0.02)), 7115)
+    # K4-K6 at 1370 tokens (518 px / 14), K9 and K10 at 197
+    for s, seed in ((1370, 7120), (197, 7130)):
+        backward(fa.fused_attention_qkv_cols(leaf((2, s, 2304), seed), 12),
+                 seed + 1)
+    # K7, K8 and K11, K12: the op-level entry points
+    backward(multi_head_attention(*(leaf((8, 12, 197, 64), 7140 + i)
+                                    for i in range(3)), use_pallas=True),
+             7143)
+    backward(fa.fused_attention_qkv(leaf((8, 197, 3, 12, 64), 7150)), 7151)
+    torch.cuda.synchronize()
+    return counts()
+
+
+def phase_dtypes(counts, fa, fb, mf, dev):
+    """Every kernel's fp32 and fp16 instantiation: the entry points driven
+    once (drive_entry_points), then each kernel held against its plain
+    version at its main and ragged shape, and timed at the main shape
+    beside its plain version and SDPA. Returns the launches per dtype, the
+    rows per (dtype, kernel) and the worst errors per (dtype, kernel)."""
+    import gc
+
+    import torch
+
+    launches, rows, worst = {}, {}, {}
+    for dt_name in DTYPES:
+        dt = getattr(torch, dt_name)
+        launches[dt_name] = drive_entry_points(counts, fa, mf, dev, dt)
+        log(f"[dtypes] {dt_name}: the entry points launched "
+            f"{launches[dt_name]}")
+        peak = DTYPE_PEAK[dt_name][0]
+        for name, shapes in DTYPE_SHAPES.items():
+            for shape in shapes:
+                kernel, plain, library, flops, nbytes, kinds = dtype_case(
+                    fa, fb, mf, name, shape, dt, dev)
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                row = {}
+                for i, (g, w, kind) in enumerate(zip(got, want, kinds)):
+                    check(g.shape == w.shape and g.dtype == w.dtype
+                          and torch.isfinite(g.float()).all().item(),
+                          f"{dt_name} {name} {shape} output {i}: "
+                          f"{tuple(g.shape)} {g.dtype} or not finite")
+                    err = (g.float() - w.float()).abs().max().item()
+                    ref = w.float().abs().max().item()
+                    limit = {"rel": DTYPE_REL[dt_name] * ref,
+                             "fp32": FP32_OUT_REL[dt_name] * ref,
+                             "lse": LSE_ATOL}[kind]
+                    check(err <= limit, f"{dt_name} {name} {shape} output "
+                          f"{i}: max abs err {err} > {limit}")
+                    row[f"out{i}_max_abs_err"] = err
+                    row[f"out{i}_max_abs"] = ref
+                    if kind == "rel":
+                        worst[(dt_name, name)] = max(
+                            worst.get((dt_name, name), 0.0), err)
+                if shape == shapes[0]:
+                    row["shape"] = shape
+                    row["ms"] = cuda_ms(kernel)
+                    row["plain_ms"] = cuda_ms(plain)
+                    row["library_ms"] = library() if library else None
+                    row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
+                                                             peak)
+                    rows[(dt_name, name)] = row
+                log(f"[dtypes] {dt_name} {name} {shape}: "
+                    + " ".join(f"{k}={v!r}" for k, v in row.items()))
+                del got, want, kernel, plain, library
+                gc.collect()
+                torch.cuda.empty_cache()
+    return launches, rows, worst
 
 
 def phase_mlp_kernel(mf, dev):
@@ -1393,7 +1695,7 @@ def main() -> int:
           f"{train_launches} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
 
     # ---- the long-sequence slice: vit_base_patch14_dinov2 at 518 px
-    for name in ("flash_fwd", "flash_blocked"):
+    for name in ("flash_fwd", "flash_bwd", "flash_blocked"):
         log(f"[build long] {name} built/loaded in {build_s[name]:.3f} s (in "
             f"parallel with the others)")
         log_ptxas(cuda_build, name, "build long")
@@ -1487,16 +1789,38 @@ def main() -> int:
           f"the op-level entry points launched {fu_launches} (want K7 and "
           f"K8 {n_fu + 1} each, K11 and K12 {n_fu} each)")
 
-    # ---- compute other than bf16: the trainer in fp32 launches nothing
+    # ---- compute other than bf16: the trainer's switch is JAX's, so
+    # --precision fp32 trains on the kernels' fp32 instantiations
     prec = phase_precision(every)
-    for run in ("fp32", "fp32_on"):
-        check(prec[run] == only(),
-              f"--precision {run} launched {prec[run]} (want none)")
-    steps, evals = PRECISION_STEPS, PRECISION_EVALS
-    check(prec["bf16"] == only(
-        ATTN_FWD_LAUNCHES=PRECISION_DEPTH * (steps + evals),
-        ATTN_BWD_LAUNCHES=PRECISION_DEPTH * steps),
-          f"--precision bf16 launched {prec['bf16']}")
+    steps, evals, depth = PRECISION_STEPS, PRECISION_EVALS, PRECISION_DEPTH
+    attn = dict(ATTN_FWD_LAUNCHES=depth * (steps + evals),
+                ATTN_BWD_LAUNCHES=depth * steps)
+    for run in ("fp32", "fp32_on", "bf16"):
+        check(prec[run] == only(**attn),
+              f"main() {run} launched {prec[run]} (want K1, K2 in every "
+              f"block)")
+    check(prec["fp32_mlp"] == only(**attn, FC2_BWD_LAUNCHES=depth * steps),
+          f"main() fp32 --pallas_mlp on launched {prec['fp32_mlp']}")
+    # the fp32 my_vit_b gradient on the kernel route against the JAX fp32
+    # golden, after its witness: the same fp32 step with K1's and K2's
+    # plain versions on the card
+    with swap_plain_attention(fa):
+        n = phase_grad(every, dev, ckpt_path,
+                       tag="grad fp32 witness, plain K1-K2",
+                       limits=FP32_GRAD_LIMITS, dtype=torch.float32)
+    check(not any(n.values()), f"the plain run launched {n}")
+    fp32_grad = phase_grad(every, dev, ckpt_path, tag="grad fp32",
+                           limits=FP32_GRAD_LIMITS, dtype=torch.float32)
+    check(fp32_grad == only(ATTN_FWD_LAUNCHES=12, ATTN_BWD_LAUNCHES=12),
+          f"one fp32 forward + backward launched {fp32_grad} (want K1 12, "
+          f"K2 12)")
+
+    # ---- every kernel in fp32 and fp16
+    dt_launches, dt_rows, dt_worst = phase_dtypes(every, fa, fb, mf, dev)
+    for dt_name, n in dt_launches.items():
+        check(n == only(**{c.split(".")[1]: 1 for c in ALL_COUNTS}),
+              f"{dt_name}: the entry points launched {n} (want each "
+              f"kernel once)")
 
     b1, b64 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
@@ -1566,9 +1890,9 @@ def main() -> int:
         "plain_ms_b64": g64["plain_ms"]},
         dict(long_entry("flash_fwd", "flash_fwd.cu", "flash_blocked.py:33",
                         "sdpa_fwd_ms"), launches_serve=long_serve),
-        long_entry("flash_bwd_dkdv", "flash_blocked.cu", "flash_blocked.py:109",
+        long_entry("flash_bwd_dkdv", "flash_bwd.cu", "flash_blocked.py:109",
                    "sdpa_bwd_ms"),
-        long_entry("flash_bwd_dq", "flash_blocked.cu", "flash_blocked.py:157",
+        long_entry("flash_bwd_dq", "flash_bwd.cu", "flash_blocked.py:157",
                    "sdpa_bwd_ms"), {
         "name": "fc2_bwd", "route": "cuda", "source": src + "mlp_fused.cu",
         "replaces": jax_ops + "mlp_fused.py:65",
@@ -1585,6 +1909,36 @@ def main() -> int:
         fused_entry("fused_bwd", "hp_bwd.cu", "flash_attention.py:61"),
         fused_entry("qkv_fwd", "fused_attn_fwd.cu", "flash_attention.py:740"),
         fused_entry("qkv_bwd", "hp_bwd.cu", "flash_attention.py:764")]
+    # one line for each fp32 and fp16 instantiation; the blocked kernels'
+    # are the CUDA-core ones. The fp32 K1, K2 and K3 count the launches of
+    # the trainer's own run (main() --precision fp32, with --pallas_mlp on
+    # for K3); every other instantiation those of drive_entry_points.
+    sources = {k["name"]: k["source"] for k in kernels}
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        sources[name] = src + "flash_blocked.cu"
+    replaces = {k["name"]: k["replaces"] for k in kernels}
+    trainer_runs = {("float32", "attn_fwd"): "fp32",
+                    ("float32", "attn_bwd"): "fp32",
+                    ("float32", "fc2_bwd"): "fp32_mlp"}
+    for dt_name in DTYPES:
+        for name in DTYPE_SHAPES:
+            row = dt_rows[(dt_name, name)]
+            run = trainer_runs.get((dt_name, name))
+            path = (f"main() {' '.join(PRECISION_RUNS[run])}" if run
+                    else "drive_entry_points")
+            launched = prec[run] if run else dt_launches[dt_name]
+            kernels.append({
+                "name": f"{name}[{dt_name}]", "route": "cuda",
+                "source": sources[name], "replaces": replaces[name],
+                "dtype": dt_name, "path": path,
+                "launches": launched[f"{name.upper()}_LAUNCHES"],
+                "launches_entry_points":
+                    dt_launches[dt_name][f"{name.upper()}_LAUNCHES"],
+                "max_abs_err": dt_worst[(dt_name, name)],
+                "shape": row["shape"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -129,8 +129,18 @@ def test_attn_fwd_kernel_matches_plain(cuda_device, shape):
 @pytest.mark.cuda
 def test_attn_fwd_kernel_contract(cuda_device):
     x = torch.zeros((1, 8, 3 * H * D), device=cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa.attn_fwd(x, H)
+    with pytest.raises(TypeError, match="float64"):
+        fa.attn_fwd(x.double(), H)
+    # fp32 is a kernel dtype: K1's fp32 instantiation launches and matches
+    # its plain version (summation order only)
+    y = torch.from_numpy(_qkv(1, 40, H, D, seed=6)).to(cuda_device)
+    before = fa.ATTN_FWD_LAUNCHES
+    o, st = fa.attn_fwd(y, H, with_stats=True)
+    torch.cuda.synchronize()
+    assert fa.ATTN_FWD_LAUNCHES == before + 1 and o.dtype == torch.float32
+    o_ref, st_ref = fa.attn_fwd_reference(y, H, D ** -0.5, with_stats=True)
+    torch.testing.assert_close(o, o_ref, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=0)
     # K1 takes S <= 1024; longer sequences are the blocked kernels' (K4)
     with pytest.raises(ValueError, match="flash_blocked"):
         fa.attn_fwd(torch.zeros((1, 1025, 3 * H * D), device=cuda_device,

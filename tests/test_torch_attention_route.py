@@ -4,10 +4,10 @@ The JAX `Attention` (models/layers.py:296-297) takes a kernel only when
 `use_pallas and not qk_norm and not attn_dropping and hd % 64 == 0 and
 h % 2 == 0`; `use_pallas_attn` is off by default, the JAX server never sets
 it and the JAX trainer sets it for `--pallas_attn on`, or `auto` off the
-CPU. The port routes by the same rule (`models/layers.py::attention_route`).
-Its kernels on the card are bf16 kernels, so its trainer's switch
-(`launch/main.py::pallas_attn_switch`) is off there for `auto` with another
-compute dtype and raises for `on`; the wrappers raise for such tensors.
+CPU. The port routes by the same rule (`models/layers.py::attention_route`),
+and its trainer's switch (`launch/main.py::pallas_attn_switch`) is JAX's for
+every compute dtype: its kernels take bf16, fp16 and fp32 on the card, and
+the wrappers raise for tensors of another dtype.
 
 The layer test holds the port's `Attention` against the JAX one in bf16
 where the JAX rule takes the plain route (3 heads, head dim 48), with the
@@ -103,23 +103,28 @@ def test_attention_route_is_jaxs_rule(args, route):
     assert layers.attention_route(*args) == route
 
 
-# (--pallas_attn, device, compute dtype) -> use_pallas_attn, or None: raises
+# (--pallas_attn, device, compute dtype) -> use_pallas_attn: JAX's rule
+# (launch/main.py:207-211), `on`, or `auto` off the CPU, whatever the dtype
 SWITCH = [
     ("on", CUDA, torch.bfloat16, True), ("auto", CUDA, torch.bfloat16, True),
-    ("off", CUDA, torch.bfloat16, False), ("on", CUDA, torch.float32, None),
-    ("on", CUDA, torch.float16, None), ("auto", CUDA, torch.float32, False),
+    ("off", CUDA, torch.bfloat16, False), ("on", CUDA, torch.float32, True),
+    ("on", CUDA, torch.float16, True), ("auto", CUDA, torch.float32, True),
     ("off", CUDA, torch.float32, False), ("on", CPU, torch.bfloat16, True),
     ("on", CPU, torch.float32, True), ("auto", CPU, torch.bfloat16, False),
     ("auto", CPU, torch.float32, False), ("off", CPU, torch.float32, False)]
 
 
+def _jax_rule(flag, device):
+    """The JAX trainer's want_pallas with the backend of `device`."""
+    return flag == "on" or (flag == "auto" and device.type not in ("cpu",))
+
+
 @pytest.mark.parametrize("flag,device,dtype,want", SWITCH)
 def test_trainer_switch_by_flag_device_and_dtype(flag, device, dtype, want):
-    if want is None:
-        with pytest.raises(ValueError, match="bfloat16"):
-            trainer.pallas_attn_switch(flag, device, dtype)
-    else:
-        assert trainer.pallas_attn_switch(flag, device, dtype) is want
+    # the compute dtype does not enter the switch: the precision policy
+    # sets the model's dtype, and the kernels take every float dtype
+    assert _jax_rule(flag, device) is want
+    assert trainer.pallas_attn_switch(flag, device) is want
 
 
 def _recording(monkeypatch):
@@ -198,43 +203,55 @@ def test_trainer_sets_the_switch_as_jax_does(flag, want):
 
 
 @pytest.mark.cuda
-def test_fp32_on_the_card_raises_at_the_kernels(cuda_device):
-    # the entry points on the kernel route take bf16 on the card: an fp32
-    # tensor raises TypeError before any launch, never a silent plain route
-    counts = ("ATTN_FWD_LAUNCHES", "ATTN_BWD_LAUNCHES", "HP_FWD_LAUNCHES",
-              "HP_BWD_LAUNCHES", "FUSED_FWD_LAUNCHES", "FUSED_BWD_LAUNCHES",
-              "QKV_FWD_LAUNCHES", "QKV_BWD_LAUNCHES")
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.float16, 5e-3)])
+def test_fp32_fp16_on_the_card_run_the_kernels(cuda_device, dtype, rel):
+    # every entry point on the kernel route launches its kernel for fp32
+    # and fp16 CUDA tensors, never a silent plain route, and matches the
+    # same call on the CPU (the plain versions) to rel of the largest
+    # value; float64 raises TypeError before any launch
     from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked
+
+    counts = ("ATTN_FWD_LAUNCHES", "HP_FWD_LAUNCHES", "FUSED_FWD_LAUNCHES",
+              "QKV_FWD_LAUNCHES")
 
     def launches():
         return [getattr(fa, c) for c in counts] + [
             flash_blocked.FLASH_FWD_LAUNCHES]
 
-    before = launches()
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn((2, 197, 128), device=cuda_device, generator=g)
-    w = torch.randn((128, 3 * 128), device=cuda_device, generator=g)
-    calls = [lambda: fa.qkv_proj_attention(x, w, None, 2)]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 197, 128), generator=g)
+    w = torch.randn((128, 3 * 128), generator=g) * 0.1
+    calls = [(lambda t: fa.qkv_proj_attention(t[0], t[1], None, 2), (x, w))]
     for s in (197, 1100):
-        qkv = torch.randn((2, s, 3 * 2 * 64), device=cuda_device,
-                          generator=g)
-        q, k, v = flash_blocked.heads(qkv, 2)
-        calls.append(lambda qkv=qkv: fa.fused_attention_qkv_cols(qkv, 2))
+        qkv = torch.randn((2, s, 3 * 2 * 64), generator=g)
+        calls.append((lambda t: fa.fused_attention_qkv_cols(t[0], 2),
+                      (qkv,)))
         if s <= fa.MAX_SEQ:
-            calls += [lambda q=q, k=k, v=v: fa.fused_attention(q, k, v),
-                      lambda qkv=qkv, s=s: fa.fused_attention_qkv(
-                          qkv.view(2, s, 3, 2, 64))]
-    for call in calls:
-        with pytest.raises(TypeError, match="bfloat16"):
-            call()
+            calls += [(lambda t: fa.fused_attention(
+                           *flash_blocked.heads(t[0], 2)), (qkv,)),
+                      (lambda t, s=s: fa.fused_attention_qkv(
+                          t[0].view(2, s, 3, 2, 64)), (qkv,))]
+    for call, args in calls:
+        before = launches()
+        got = call([a.to(cuda_device, dtype) for a in args])
+        torch.cuda.synchronize()
+        assert sum(launches()) == sum(before) + 1
+        want = call([a.to(dtype) for a in args]).float()
+        assert got.dtype == dtype
+        err = (got.float().cpu() - want).abs().max().item()
+        assert err <= rel * want.abs().max().item()
+        with pytest.raises(TypeError, match="float64"):
+            call([a.to(cuda_device, torch.float64) for a in args])
     torch.cuda.synchronize()
-    assert launches() == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("flag,want", [("auto", False), ("on", None)])
+@pytest.mark.parametrize("flag,want", [("auto", True), ("on", True),
+                                       ("off", False)])
 def test_trainer_fp32_on_the_card(cuda_device, flag, want):
-    # --precision fp32 on the card: auto builds plain attention, on raises
+    # --precision fp32 on the card: the JAX rule, auto and on build the
+    # kernel route
     from vision_transformers_torch_xla_tpu_torch.core.config import (
         TrainConfig,
     )
@@ -243,9 +260,6 @@ def test_trainer_fp32_on_the_card(cuda_device, flag, want):
                       data_set="synthetic", batch_size=2, device="cuda",
                       precision="fp32", pallas_attn=flag,
                       synthetic_train_size=8, synthetic_val_size=4)
-    if want is None:
-        with pytest.raises(ValueError, match="bfloat16"):
-            trainer.setup(cfg)
-        return
     ctx = trainer.setup(cfg)
-    assert not any(b.attn.use_pallas for b in ctx.model.blocks)
+    assert [b.attn.use_pallas for b in ctx.model.blocks] == \
+        [want] * len(ctx.model.blocks)

@@ -209,11 +209,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fb.flash_bwd_dq(meta, meta, meta, meta, row, row, meta)
 
 
-def _k4_layout(kind, b, h, s, d, seed, dev="cpu"):
-    """q, k, v (B, H, S, D) bf16 in one of the layouts K4 meets."""
+def _k4_layout(kind, b, h, s, d, seed, dev="cpu", dtype=torch.bfloat16):
+    """q, k, v (B, H, S, D) in one of the layouts K4 meets."""
     def r(shape, i):
-        return torch.from_numpy(_rand(shape, seed + i)).to(dev,
-                                                          torch.bfloat16)
+        return torch.from_numpy(_rand(shape, seed + i)).to(dev, dtype)
     if kind == "qkv":            # views of the model's (B, S, 3·H·D) buffer
         return fb.heads(r((b, s, 3 * h * d), 0), h)
     if kind == "dense":
@@ -316,11 +315,95 @@ def test_kernels_match_plain(cuda_device, shape):
         assert err <= 2e-2 * r.float().abs().max().item()
 
 
+def _bwd_on_card(q, k, v, do):
+    """K4, then K5 and K6 into views of one (B, S, 3·H·D) dqkv buffer, as
+    `flash_bwd` lays them out; returns o, lse and (dq, dk, dv) beside the
+    plain versions' on the same o, lse and delta."""
+    b, h, s, d = q.shape
+    o, lse = fb.flash_fwd(q, k, v)
+    delta = fb.flash_delta(o, do)
+    dq, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d), dtype=q.dtype,
+                                      device=q.device), h)
+    fb.flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv)
+    fb.flash_bwd_dq(q, k, v, do, lse, delta, dq)
+    scale = d ** -0.5
+    ref = (fb.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+           *fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale))
+    return o, lse, (dq, dk, dv), ref
+
+
+def _counts():
+    return (fb.FLASH_FWD_LAUNCHES, fb.FLASH_BWD_DKDV_LAUNCHES,
+            fb.FLASH_BWD_DQ_LAUNCHES, fb.COPIES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("qkv", (5462, 40, 12, 64)), ("transposed", (2, 260, 4, 64)),
+    ("dense", (2, 200, 2, 47)), ("mixed", (2, 1030, 2, 64)),
+    ("qkv", (2, 300, 2, 96))])
+def test_k5_k6_layouts_on_cuda(cuda_device, kind, shape):
+    # the tensor-core K5 and K6 against their plain versions at B·H = 65544
+    # > 65535 and on the layouts that take one copy of q, k, v and dO (odd
+    # D, transposed, mixed; the padded outputs go through temporaries);
+    # dO is a view of (B, S, H, D) memory, as the model's backward has it.
+    # Grads to 2% of their largest value (flipped bf16 roundings)
+    b, s, h, d = shape
+    q, k, v = _k4_layout(kind, b, h, s, d, 60, cuda_device)
+    do = torch.from_numpy(_rand((b, s, h, d), 64)).to(
+        cuda_device, torch.bfloat16).transpose(1, 2)
+    copies = int(not fb.tma_ready(q, k, v))
+    before = _counts()
+    _, _, got, ref = _bwd_on_card(q, k, v, do)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1,
+                         before[3] + 3 * copies)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.isfinite(g.float()).all()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.float16, 5e-3)])
+@pytest.mark.parametrize("kind,shape", [
+    ("qkv", (1, 1370, 12, 64)), ("qkv", (2, 197, 3, 40)),
+    ("transposed", (1, 260, 2, 64)), ("qkv", (1, 1100, 2, 128))])
+def test_kernels_fp32_fp16_on_cuda(cuda_device, dtype, rel, kind, shape):
+    # the CUDA-core K4, K5 and K6 of fp32 and fp16 against their plain
+    # versions in the same dtype: fp32 differs by summation order and
+    # expf only (1e-4 of the largest value), fp16 by flipped fp16
+    # roundings of p, ds and the outputs (5e-3); lse to 1e-4
+    b, s, h, d = shape
+    q, k, v = _k4_layout(kind, b, h, s, d, 70, cuda_device, dtype)
+    do = torch.from_numpy(_rand((b, s, h, d), 74)).to(
+        cuda_device, dtype).transpose(1, 2)
+    before = _counts()
+    o, lse, got, ref = _bwd_on_card(q, k, v, do)
+    torch.cuda.synchronize()
+    assert _counts()[:3] == tuple(n + 1 for n in before[:3])
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    assert o.dtype == dtype
+    assert (o.float() - o_r.float()).abs().max().item() <= \
+        rel * o_r.float().abs().max().item()
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=0)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= rel * r.float().abs().max().item()
+
+
 @pytest.mark.cuda
 def test_kernels_contract_on_cuda(cuda_device):
-    x = torch.zeros((1, 2, 1100, 64), device=cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
+    x = torch.zeros((1, 2, 1100, 64), device=cuda_device,
+                    dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
         fb.flash_fwd(x, x, x)
+    # fp32 is a kernel dtype: the CUDA-core K4 launches
+    before = fb.FLASH_FWD_LAUNCHES
+    o, _ = fb.flash_fwd(x.float(), x.float(), x.float())
+    assert fb.FLASH_FWD_LAUNCHES == before + 1 and o.dtype == torch.float32
     y = torch.zeros((1, 2, 1100, 192), device=cuda_device,
                     dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):

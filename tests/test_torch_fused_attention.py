@@ -493,11 +493,26 @@ def test_batch_and_heads_over_65535_on_cuda(cuda_device, shape):
 @pytest.mark.cuda
 def test_fused_kernels_contract_on_cuda(cuda_device):
     bf = dict(device=cuda_device, dtype=torch.bfloat16)
-    x = torch.zeros((1, 2, 64, 64), device=cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
+    x = torch.zeros((1, 2, 64, 64), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
         fa.fused_fwd(x, x, x)
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa.qkv_fwd(torch.zeros((1, 64, 3, 2, 64), device=cuda_device))
+    with pytest.raises(TypeError, match="float64"):
+        fa.qkv_fwd(torch.zeros((1, 64, 3, 2, 64), device=cuda_device,
+                               dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32"):  # mixed dtypes
+        fa.fused_fwd(x.float(), x.float(), x.half())
+    # fp32 is a kernel dtype: K7's and K11's fp32 instantiations launch
+    f = torch.from_numpy(_rand((1, 64, 3, 2, 64), 97)).to(cuda_device)
+    before = _counts()
+    o7 = fa.fused_fwd(*f.permute(2, 0, 3, 1, 4).unbind(0))
+    o11 = fa.qkv_fwd(f)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1], before[2] + 1, before[3])
+    o_r = fa.fused_fwd_reference(*f.permute(2, 0, 3, 1, 4).unbind(0),
+                                 64 ** -0.5)
+    torch.testing.assert_close(o7, o_r, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(o11, o_r.transpose(1, 2).reshape(1, 64, 128),
+                               atol=1e-5, rtol=1e-4)
     # an odd head dim runs (G2); over 128 it raises
     y = torch.from_numpy(_rand((1, 2, 64, 63), 98)).to(**bf)
     dq, dk, dv = fa.fused_bwd(y, y, y, y)

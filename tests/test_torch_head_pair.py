@@ -155,9 +155,21 @@ def test_kernels_match_plain_through_qkv_cols(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_hp_kernels_contract_on_cuda(cuda_device):
-    x = torch.zeros((1, 64, 3 * H * D), device=cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
+    x = torch.zeros((1, 64, 3 * H * D), device=cuda_device,
+                    dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
         fa.hp_fwd(x, H)
+    # fp32 is a kernel dtype: K9's and K10's fp32 instantiations launch and
+    # match their plain versions (summation order only)
+    qkv = torch.from_numpy(_rand((1, 64, 3 * H * D), 96)).to(cuda_device)
+    do = torch.from_numpy(_rand((1, 64, H * D), 95)).to(cuda_device)
+    before = (fa.HP_FWD_LAUNCHES, fa.HP_BWD_LAUNCHES)
+    o, g = fa.hp_fwd(qkv, H), fa.hp_bwd(qkv, do, H)
+    torch.cuda.synchronize()
+    assert (fa.HP_FWD_LAUNCHES, fa.HP_BWD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    _close(o.cpu(), fa.attn_fwd_reference(qkv, H, D ** -0.5)[0].cpu(), 1e-4)
+    _close(g.cpu(), fa.hp_bwd_reference(qkv, do, H, D ** -0.5).cpu(), 1e-4)
     y = torch.zeros((1, 64, 3 * H * 192), device=cuda_device,
                     dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):

@@ -279,8 +279,22 @@ def test_fc2_bwd_contract_on_cuda(cuda_device):
     x = torch.zeros((2, 5, 128), device=cuda_device)
     w = torch.zeros((128, 256), device=cuda_device)
     h = torch.zeros((2, 5, 256), device=cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
-        mf.fc2_bwd(x, w, h)
+    with pytest.raises(TypeError, match="float64"):
+        mf.fc2_bwd(x.double(), w.double(), h.double())
+    # fp32 is a kernel dtype: the CUDA-core K3 launches and matches its
+    # plain version (summation order only)
+    dy, w2, hid = (torch.from_numpy(a).to(cuda_device)
+                   for a in (_rand((3, 77, 128), 4), _rand((128, 256), 5, 0.05),
+                             _rand((3, 77, 256), 6, 2.0)))
+    before = mf.FC2_BWD_LAUNCHES
+    got = mf.fc2_bwd(dy, w2, hid)
+    torch.cuda.synchronize()
+    assert mf.FC2_BWD_LAUNCHES == before + 1
+    for name, g, r in zip(("dh", "a", "db1"), got,
+                          mf.fc2_bwd_reference(dy, w2, hid)):
+        assert g.dtype == r.dtype == torch.float32, name
+        err = (g - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item(), (name, err)
     xb, wb = x.bfloat16(), w.bfloat16()
     with pytest.raises(ValueError, match="multiples of 128"):
         mf.fc2_bwd(xb, wb[:, :200].contiguous(),

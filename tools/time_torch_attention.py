@@ -9,24 +9,33 @@ unpacked by `git archive` under build/parent,
         python tools/time_torch_attention.py --repo $t --batch 128
     done
 
-or, for the long-sequence forward (K4) at the 518-px model's shape,
-`--batch 32 --seq 1370 --kernels flash_fwd sdpa_fwd`.
+or, for the long-sequence kernels (K4, K5, K6) at the 518-px model's
+shape, `--batch 32 --seq 1370 --kernels flash_fwd flash_bwd_dkdv
+flash_bwd_dq sdpa_fwd sdpa_bwd --profile`.
 
 Each run prints one JSON line: the tree, the card's name and power limit
 (nvidia-smi), per kernel the median CUDA-event time of one call (host
-launch cost included) in each of --rounds rounds, on seeded bf16 inputs at
-(B, S, H, D) = (--batch, --seq, 12, 64), and ptxas's registers and spills
-for each kernel this process built (none when build/kernels/ held it).
+launch cost included) in each of --rounds rounds, on seeded inputs of
+--dtype (bfloat16 by default; float16 and float32 run the kernels' other
+instantiations, which trees before they existed refuse) at (B, S, H, D) =
+(--batch, --seq, 12, --head_dim), and ptxas's registers and spills for
+each kernel this process built (none when build/kernels/ held it; with
+--build_all every library of the tree is built first, so that two trees'
+ptxas reports can be compared kernel by kernel).
 With --profile it adds, from a torch.profiler trace of 10 calls of each
 wrapper, the device time per call of each CUDA kernel it launched (the
 backward's dq and dk/dv launches apart).
-The kernels are named by their wrappers in ops/flash_attention.py: hp_fwd
+The kernels are named by their wrappers in ops/flash_attention.py: attn_fwd
+(K1, with the row stats) and attn_bwd (K2, from K1's o and stats), hp_fwd
 (K9) and hp_bwd (K10), which every tree since they were ported has, and
 fused_fwd, fused_bwd, qkv_fwd, qkv_bwd (K7, K8, K11, K12); flash_fwd is
 ops/flash_blocked.py's (K4), on q, k, v read from a (B, S, 3·H·D)
-projection as the model's path reads them. sdpa_fwd is the yardstick,
-torch's scaled_dot_product_attention on contiguous copies of those q, k,
-v, which the port never calls.
+projection as the model's path reads them, and flash_bwd_dkdv and
+flash_bwd_dq (K5, K6) from K4's o and lse, with dO a view of (B, S, H, D)
+memory and dq, dk, dv views of one (B, S, 3·H·D) buffer, as
+`flash_bwd` lays them out. sdpa_fwd and sdpa_bwd (its whole backward,
+dq, dk and dv) are the yardstick, torch's scaled_dot_product_attention on
+contiguous copies of those q, k, v, which the port never calls.
 """
 from __future__ import annotations
 
@@ -42,7 +51,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-H, D = 12, 64
+H = 12
 
 
 def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
@@ -61,23 +70,56 @@ def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def seeded(shape, seed: int):
+def seeded(shape, seed: int, dtype):
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    return torch.from_numpy(x).to("cuda", torch.bfloat16)
+    return torch.from_numpy(x).to("cuda", dtype)
 
 
-def calls(fa, fb, b: int, s: int):
+def calls(fa, fb, b: int, s: int, D: int, dtype):
     """Each kernel's wrapper call on its seeded inputs."""
-    qkv = seeded((b, s, 3 * H * D), 1)
-    do = seeded((b, s, H * D), 2)
-    q, k, v, g = (seeded((b, H, s, D), 3 + i) for i in range(4))
+    qkv = seeded((b, s, 3 * H * D), 1, dtype)
+    do = seeded((b, s, H * D), 2, dtype)
+    q, k, v, g = (seeded((b, H, s, D), 3 + i, dtype) for i in range(4))
     qkv5 = qkv.view(b, s, 3, H, D)
     heads = fb.heads(qkv, H)
-    dense = [t.contiguous() for t in heads]
+    dense = [t.detach().contiguous().requires_grad_() for t in heads]
+    dob = do.view(b, s, H, D).transpose(1, 2)
+    state = {}
+
+    def blocked_bwd(name):
+        # K4's o and lse once, then the backward kernel alone
+        if not state:
+            o, lse = fb.flash_fwd(*heads)
+            state["delta"], state["lse"] = fb.flash_delta(o, dob), lse
+            state["grads"] = fb.heads(torch.empty_like(qkv), H)
+        dq, dk, dv = state["grads"]
+        args = (*heads, dob, state["lse"], state["delta"])
+        if name == "dkdv":
+            return fb.flash_bwd_dkdv(*args, dk, dv)
+        return fb.flash_bwd_dq(*args, dq)
+
+    def attn_bwd():
+        # K1's o and row stats once, then K2 alone
+        if "stats" not in state:
+            state["stats"] = fa.attn_fwd(qkv, H, with_stats=True)
+        return fa.attn_bwd(qkv, do, *state["stats"], H)
+
+    def sdpa_bwd():
+        if "sdpa" not in state:
+            state["sdpa"] = \
+                torch.nn.functional.scaled_dot_product_attention(*dense)
+        return torch.autograd.grad(state["sdpa"], dense, dob.contiguous(),
+                                   retain_graph=True)
+
     return {
         "flash_fwd": lambda: fb.flash_fwd(*heads),
+        "flash_bwd_dkdv": lambda: blocked_bwd("dkdv"),
+        "flash_bwd_dq": lambda: blocked_bwd("dq"),
         "sdpa_fwd": lambda: torch.nn.functional.scaled_dot_product_attention(
             *dense),
+        "sdpa_bwd": sdpa_bwd,
+        "attn_fwd": lambda: fa.attn_fwd(qkv, H, with_stats=True),
+        "attn_bwd": attn_bwd,
         "hp_fwd": lambda: fa.hp_fwd(qkv, H),
         "hp_bwd": lambda: fa.hp_bwd(qkv, do, H),
         "fused_fwd": lambda: fa.fused_fwd(q, k, v),
@@ -115,6 +157,11 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--seq", type=int, default=197)
     ap.add_argument("--kernels", nargs="+", default=["hp_fwd", "hp_bwd"])
+    ap.add_argument("--head_dim", type=int, default=64)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16", "float32"))
+    ap.add_argument("--build_all", action="store_true",
+                    help="build every library of the tree first (ptxas)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--profile", action="store_true",
@@ -130,7 +177,15 @@ def main() -> int:
         "vision_transformers_torch_xla_tpu_torch.ops.flash_blocked")
     cuda_build = importlib.import_module(
         "vision_transformers_torch_xla_tpu_torch.ops.cuda_build")
-    fns = calls(fa, fb, args.batch, args.seq)
+    if args.build_all:
+        mf = importlib.import_module(
+            "vision_transformers_torch_xla_tpu_torch.ops.mlp_fused")
+        for mod in (fa, fb, mf):
+            for name in dir(mod):
+                if name.startswith("build_"):
+                    getattr(mod, name)()
+    fns = calls(fa, fb, args.batch, args.seq, args.head_dim,
+                getattr(torch, args.dtype))
     unknown = sorted(set(args.kernels) - set(fns))
     if unknown:
         raise SystemExit(f"unknown kernels {unknown}; known: {sorted(fns)}")
@@ -141,7 +196,9 @@ def main() -> int:
     ms = {name: [cuda_ms(fns[name], args.reps) for _ in range(args.rounds)]
           for name in args.kernels}
     out = {"tree": args.repo, "module": fa.__file__, "card": card,
-           "shape": [args.batch, args.seq, H, D], "ms": ms}
+           "shape": [args.batch, args.seq, H, args.head_dim],
+           "dtype": args.dtype,
+           "ms": ms}
     if args.profile:
         out["device_ms_per_call"] = {n: profile(fns[n]) for n in args.kernels}
     out["ptxas"] = {name: [line.strip() for line in log.splitlines()

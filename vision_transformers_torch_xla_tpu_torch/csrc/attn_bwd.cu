@@ -46,17 +46,19 @@
 // (long S with wide D) are read from global memory (L2) through the same
 // loops.
 //
+// Element types: bf16 as above; fp16 and fp32 inputs run the same loops,
+// every bf16 rounding point a rounding to the inputs' dtype (the TPU
+// kernel's astype; none for fp32), through csrc/elem.cuh.
+//
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
-// launch on the caller's stream; the host function returns
-// cudaGetLastError().
+// launch on the caller's stream; the host function takes the element
+// type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "elem.cuh"
 
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
+namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -69,10 +71,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -99,19 +97,20 @@ struct HeadRow {
     }
   }
 
-  // dot product with a bf16 row of D2 pairs
-  __device__ __forceinline__ float dot(const bf162* x, int D2) const {
+  // dot product with a row of D2 pairs
+  template <typename Pair>
+  __device__ __forceinline__ float dot(const Pair* x, int D2) const {
     float a0 = 0.f, a1 = 0.f;
     if constexpr (kD > 0) {
 #pragma unroll
       for (int c = 0; c < kD / 2; ++c) {
-        const float2 f = __bfloat1622float2(x[c]);
+        const float2 f = load2(x[c]);
         a0 = fmaf(r[2 * c], f.x, a0);
         a1 = fmaf(r[2 * c + 1], f.y, a1);
       }
     } else {
       for (int c = 0; c < D2; ++c) {
-        const float2 f = __bfloat1622float2(x[c]);
+        const float2 f = load2(x[c]);
         a0 = fmaf(s[2 * c], f.x, a0);
         a1 = fmaf(s[2 * c + 1], f.y, a1);
       }
@@ -120,9 +119,10 @@ struct HeadRow {
   }
 };
 
-// sum_j w[j] * x[j][c] over j < n, for the bf16 pair column c of rows
-// `stride` pairs apart; w is 16-byte aligned shared memory.
-__device__ __forceinline__ float2 wsum_col(const float* w, const bf162* x,
+// sum_j w[j] * x[j][c] over j < n, for the pair column c of rows `stride`
+// pairs apart; w is 16-byte aligned shared memory.
+template <typename Pair>
+__device__ __forceinline__ float2 wsum_col(const float* w, const Pair* x,
                                            int stride, int c, int n) {
   float ax[4] = {0.f, 0.f, 0.f, 0.f}, ay[4] = {0.f, 0.f, 0.f, 0.f};
   int j = 0;
@@ -131,13 +131,13 @@ __device__ __forceinline__ float2 wsum_col(const float* w, const bf162* x,
     const float wj[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const float2 f = __bfloat1622float2(x[(j + u) * stride + c]);
+      const float2 f = load2(x[(j + u) * stride + c]);
       ax[u] = fmaf(wj[u], f.x, ax[u]);
       ay[u] = fmaf(wj[u], f.y, ay[u]);
     }
   }
   for (; j < n; ++j) {
-    const float2 f = __bfloat1622float2(x[j * stride + c]);
+    const float2 f = load2(x[j * stride + c]);
     ax[0] = fmaf(w[j], f.x, ax[0]);
     ay[0] = fmaf(w[j], f.y, ay[0]);
   }
@@ -147,7 +147,8 @@ __device__ __forceinline__ float2 wsum_col(const float* w, const bf162* x,
 
 // Copy S rows of D2 pairs (global rows `src_stride` pairs apart) into shared
 // memory rows `pitch` pairs apart.
-__device__ void stage_rows(bf162* dst, int pitch, const bf162* src,
+template <typename Pair>
+__device__ void stage_rows(Pair* dst, int pitch, const Pair* src,
                            int src_stride, int S, int D2) {
   for (int i = threadIdx.x; i < S * D2; i += blockDim.x) {
     const int r = i / D2, c = i - r * D2;
@@ -155,10 +156,11 @@ __device__ void stage_rows(bf162* dst, int pitch, const bf162* src,
   }
 }
 
-// Read a bf16 head row into the warp's fp32 scratch.
-__device__ __forceinline__ void row_to_scratch(float* xs, const bf16* row,
+// Read a head row into the warp's fp32 scratch.
+template <typename T>
+__device__ __forceinline__ void row_to_scratch(float* xs, const T* row,
                                                int D, int lane) {
-  for (int d = lane; d < D; d += 32) xs[d] = __bfloat162float(row[d]);
+  for (int d = lane; d < D; d += 32) xs[d] = Elem<T>::load(row[d]);
   __syncwarp();
 }
 
@@ -186,12 +188,15 @@ __device__ void write_bias(float* smem, const float2 (&acc)[kPairsPerLane],
 
 // 1. grid (ceil(S / kWarps), H, B): warp w takes query row
 // blockIdx.x * kWarps + w of head blockIdx.y.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_prep_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                     const bf16* __restrict__ out, const float* __restrict__ st,
-                     bf16* __restrict__ qhat, bf16* __restrict__ qn,
-                     bf16* __restrict__ don, float* __restrict__ delta, int S,
+attn_bwd_prep_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                     const T* __restrict__ out, const float* __restrict__ st,
+                     T* __restrict__ qhat, T* __restrict__ qn,
+                     T* __restrict__ don, float* __restrict__ delta, int S,
                      int H, int D, float scale) {
+  typedef Elem<T> E;
+  typedef typename E::Pair Pair;
   const int b = blockIdx.z, h = blockIdx.y;
   const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -200,24 +205,24 @@ attn_bwd_prep_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout
   const long long bh = (long long)b * H + h;
   const long long bhi = bh * S + i;
   const float rinv = st[bhi * 2 + 1];
-  const bf162* q = reinterpret_cast<const bf162*>(
+  const Pair* q = reinterpret_cast<const Pair*>(
       qkv + ((long long)b * S + i) * 3 * H * D + h * D);
   const long long oi = ((long long)b * S + i) * H * D + h * D;
-  const bf162* g = reinterpret_cast<const bf162*>(dout + oi);
-  const bf162* o = reinterpret_cast<const bf162*>(out + oi);
-  bf162* qh2 = reinterpret_cast<bf162*>(qhat) + bhi * D2;
-  bf162* qn2 = reinterpret_cast<bf162*>(qn) + bhi * D2;
-  bf162* dn2 = reinterpret_cast<bf162*>(don) + bhi * D2;
+  const Pair* g = reinterpret_cast<const Pair*>(dout + oi);
+  const Pair* o = reinterpret_cast<const Pair*>(out + oi);
+  Pair* qh2 = reinterpret_cast<Pair*>(qhat) + bhi * D2;
+  Pair* qn2 = reinterpret_cast<Pair*>(qn) + bhi * D2;
+  Pair* dn2 = reinterpret_cast<Pair*>(don) + bhi * D2;
   float acc = 0.f;
   for (int c = lane; c < D2; c += 32) {
-    const float2 qf = __bfloat1622float2(q[c]);
-    const bf162 qh = __floats2bfloat162_rn(qf.x * scale, qf.y * scale);
-    const float2 qhf = __bfloat1622float2(qh);
+    const float2 qf = E::load2(q[c]);
+    const Pair qh = E::store2(qf.x * scale, qf.y * scale);
+    const float2 qhf = E::load2(qh);
     qh2[c] = qh;
-    qn2[c] = __floats2bfloat162_rn(qhf.x * rinv, qhf.y * rinv);
-    const float2 gf = __bfloat1622float2(g[c]);
-    dn2[c] = __floats2bfloat162_rn(gf.x * rinv, gf.y * rinv);
-    const float2 of = __bfloat1622float2(o[c]);
+    qn2[c] = E::store2(qhf.x * rinv, qhf.y * rinv);
+    const float2 gf = E::load2(g[c]);
+    dn2[c] = E::store2(gf.x * rinv, gf.y * rinv);
+    const float2 of = E::load2(o[c]);
     acc = fmaf(gf.x, of.x, acc);
     acc = fmaf(gf.y, of.y, acc);
   }
@@ -227,13 +232,15 @@ attn_bwd_prep_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout
 
 // 2. grid (H, B). Shared memory: per warp [row: D][t: S] (each padded to 16
 // bytes), then [K: S x pitch][V: S x pitch] when kv_in_smem.
-template <int kD>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                   const float* __restrict__ st, const bf16* __restrict__ qhat,
-                   const float* __restrict__ delta, bf16* __restrict__ dqkv,
+attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                   const float* __restrict__ st, const T* __restrict__ qhat,
+                   const float* __restrict__ delta, T* __restrict__ dqkv,
                    float* __restrict__ dbias, int S, int H, int d_rt,
                    float scale, int kv_in_smem, int pitch) {
+  typedef Elem<T> E;
+  typedef typename E::Pair Pair;
   extern __shared__ __align__(16) float smem[];
   const int D = kD > 0 ? kD : d_rt;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -241,16 +248,16 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   const int D2 = D >> 1, C = 3 * H * D, C2 = C >> 1;
   const long long bh = (long long)b * H + h;
 
-  const bf16* base = qkv + (long long)b * S * C;
-  const bf162* kp = reinterpret_cast<const bf162*>(base + H * D + h * D);
-  const bf162* vp = reinterpret_cast<const bf162*>(base + 2 * H * D + h * D);
+  const T* base = qkv + (long long)b * S * C;
+  const Pair* kp = reinterpret_cast<const Pair*>(base + H * D + h * D);
+  const Pair* vp = reinterpret_cast<const Pair*>(base + 2 * H * D + h * D);
   int kv_stride = C2;
   const int wf = round4(D) + round4(S);
   float* xs = smem + warp * wf;
   float* ts = xs + round4(D);
   if (kv_in_smem) {
-    bf162* ks = reinterpret_cast<bf162*>(smem + kWarps * wf);
-    bf162* vs = ks + S * pitch;
+    Pair* ks = reinterpret_cast<Pair*>(smem + kWarps * wf);
+    Pair* vs = ks + S * pitch;
     stage_rows(ks, pitch, kp, C2, S, D2);
     stage_rows(vs, pitch, vp, C2, S, D2);
     kp = ks;
@@ -276,11 +283,11 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     row_to_scratch(xs, dout + ((long long)b * S + i) * H * D + h * D, D, lane);
     row.load(xs);
     for (int j = lane; j < S; j += 32)
-      ts[j] = bf16_round((row.dot(vp + j * kv_stride, D2) - dlt) * ts[j]);
+      ts[j] = E::round((row.dot(vp + j * kv_stride, D2) - dlt) * ts[j]);
     __syncwarp();
     // dq = (t k) (rinv scale): lanes split the head dim
-    bf162* dq = reinterpret_cast<bf162*>(dqkv + ((long long)b * S + i) * C +
-                                         h * D);
+    Pair* dq = reinterpret_cast<Pair*>(dqkv + ((long long)b * S + i) * C +
+                                       h * D);
     const float f = rinv * scale;
 #pragma unroll
     for (int u = 0; u < kPairsPerLane; ++u) {
@@ -289,7 +296,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
         float2 a = wsum_col(ts, kp, kv_stride, c, S);
         a.x *= f;
         a.y *= f;
-        dq[c] = __floats2bfloat162_rn(a.x, a.y);
+        dq[c] = E::store2(a.x, a.y);
         bacc[u].x += a.x;
         bacc[u].y += a.y;
       }
@@ -301,14 +308,16 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 
 // 3. grid (H, B). Shared memory: per warp [row: D][pu: S][t: S], then
 // [m: S][delta: S], then [q^][dO][qn][do_n] (S x pitch each) when in_smem.
-template <int kD>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                     const float* __restrict__ st, const bf16* __restrict__ qhat,
-                     const bf16* __restrict__ qn, const bf16* __restrict__ don,
-                     const float* __restrict__ delta, bf16* __restrict__ dqkv,
+attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                     const float* __restrict__ st, const T* __restrict__ qhat,
+                     const T* __restrict__ qn, const T* __restrict__ don,
+                     const float* __restrict__ delta, T* __restrict__ dqkv,
                      float* __restrict__ dbias, int S, int H, int d_rt,
                      int in_smem, int pitch) {
+  typedef Elem<T> E;
+  typedef typename E::Pair Pair;
   extern __shared__ __align__(16) float smem[];
   const int D = kD > 0 ? kD : d_rt;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -327,14 +336,14 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout
     ds[i] = delta[bh * S + i];
   }
   // the query-side operands, (B, H, S, D) from prep and dO at (B, S, H*D)
-  const bf162* qh_p = reinterpret_cast<const bf162*>(qhat) + bh * S * D2;
-  const bf162* qn_p = reinterpret_cast<const bf162*>(qn) + bh * S * D2;
-  const bf162* dn_p = reinterpret_cast<const bf162*>(don) + bh * S * D2;
-  const bf162* do_p = reinterpret_cast<const bf162*>(
+  const Pair* qh_p = reinterpret_cast<const Pair*>(qhat) + bh * S * D2;
+  const Pair* qn_p = reinterpret_cast<const Pair*>(qn) + bh * S * D2;
+  const Pair* dn_p = reinterpret_cast<const Pair*>(don) + bh * S * D2;
+  const Pair* do_p = reinterpret_cast<const Pair*>(
       dout + (long long)b * S * HD + h * D);
   int q_stride = D2, do_stride = HD >> 1;
   if (in_smem) {
-    bf162* a = reinterpret_cast<bf162*>(ds + round4(S));
+    Pair* a = reinterpret_cast<Pair*>(ds + round4(S));
     stage_rows(a, pitch, qh_p, D2, S, D2);
     stage_rows(a + S * pitch, pitch, do_p, do_stride, S, D2);
     stage_rows(a + 2 * S * pitch, pitch, qn_p, D2, S, D2);
@@ -347,7 +356,7 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout
   }
   __syncthreads();
 
-  const bf16* base = qkv + (long long)b * S * C;
+  const T* base = qkv + (long long)b * S * C;
   HeadRow<kD> row;
   float2 kacc[kPairsPerLane], vacc[kPairsPerLane];
 #pragma unroll
@@ -367,22 +376,22 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout
     row.load(xs);
     for (int i = lane; i < S; i += 32) {
       const float pu = ps[i];
-      ts[i] = bf16_round((row.dot(do_p + i * do_stride, D2) - ds[i]) * pu);
-      ps[i] = bf16_round(pu);
+      ts[i] = E::round((row.dot(do_p + i * do_stride, D2) - ds[i]) * pu);
+      ps[i] = E::round(pu);
     }
     __syncwarp();
     // dk = t^T qn, dv = bf16(pu)^T do_n: lanes split the head dim
-    bf16* drow = dqkv + ((long long)b * S + j) * C + h * D;
-    bf162* dk = reinterpret_cast<bf162*>(drow + HD);
-    bf162* dv = reinterpret_cast<bf162*>(drow + 2 * HD);
+    T* drow = dqkv + ((long long)b * S + j) * C + h * D;
+    Pair* dk = reinterpret_cast<Pair*>(drow + HD);
+    Pair* dv = reinterpret_cast<Pair*>(drow + 2 * HD);
 #pragma unroll
     for (int u = 0; u < kPairsPerLane; ++u) {
       const int c = lane + 32 * u;
       if (c < D2) {
         const float2 k = wsum_col(ts, qn_p, q_stride, c, S);
         const float2 v = wsum_col(ps, dn_p, q_stride, c, S);
-        dk[c] = __floats2bfloat162_rn(k.x, k.y);
-        dv[c] = __floats2bfloat162_rn(v.x, v.y);
+        dk[c] = E::store2(k.x, k.y);
+        dv[c] = E::store2(v.x, v.y);
         kacc[u].x += k.x;
         kacc[u].y += k.y;
         vacc[u].x += v.x;
@@ -402,40 +411,43 @@ int set_smem(const void* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int kD>
+template <typename T, int kD>
 int launch(const void* qkv, const void* dout, const void* out, const void* st,
            void* dqkv, void* dbias, void* qhat, void* qn, void* don,
            void* delta, int B, int S, int H, int D, float scale,
            cudaStream_t stream) {
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* g = static_cast<const bf16*>(dout);
+  const T* q = static_cast<const T*>(qkv);
+  const T* g = static_cast<const T*>(dout);
   const float* stats = static_cast<const float*>(st);
-  bf16* qh = static_cast<bf16*>(qhat);
-  bf16* qnn = static_cast<bf16*>(qn);
-  bf16* dn = static_cast<bf16*>(don);
+  T* qh = static_cast<T*>(qhat);
+  T* qnn = static_cast<T*>(qn);
+  T* dn = static_cast<T*>(don);
   float* dl = static_cast<float*>(delta);
-  bf16* dx = static_cast<bf16*>(dqkv);
+  T* dx = static_cast<T*>(dqkv);
   float* db = static_cast<float*>(dbias);
 
-  attn_bwd_prep_kernel<<<dim3((S + kWarps - 1) / kWarps, H, B), kThreads, 0,
-                         stream>>>(q, g, static_cast<const bf16*>(out), stats,
-                                   qh, qnn, dn, dl, S, H, D, scale);
+  attn_bwd_prep_kernel<T><<<dim3((S + kWarps - 1) / kWarps, H, B), kThreads,
+                            0, stream>>>(q, g, static_cast<const T*>(out),
+                                         stats, qh, qnn, dn, dl, S, H, D,
+                                         scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  // pad staged rows to an odd number of 32-bit words: conflict-free reads
+  // pad staged rows to an odd number of pairs (of 32-bit words for the
+  // 16-bit types): conflict-free reads
   const int d2 = D / 2;
   const int pitch = (d2 % 2 == 0) ? d2 + 1 : d2;
-  const size_t rows_bytes = (size_t)S * pitch * sizeof(bf162);
+  const size_t rows_bytes =
+      (size_t)S * pitch * sizeof(typename Elem<T>::Pair);
   const dim3 grid(H, B);
 
   const size_t dq_scratch =
       (size_t)kWarps * (round4(D) + round4(S)) * sizeof(float);
   const int kv_in_smem = dq_scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
   const size_t dq_smem = dq_scratch + (kv_in_smem ? 2 * rows_bytes : 0);
-  int rc = set_smem((const void*)attn_bwd_dq_kernel<kD>, dq_smem);
+  int rc = set_smem((const void*)attn_bwd_dq_kernel<T, kD>, dq_smem);
   if (rc) return rc;
-  attn_bwd_dq_kernel<kD><<<grid, kThreads, dq_smem, stream>>>(
+  attn_bwd_dq_kernel<T, kD><<<grid, kThreads, dq_smem, stream>>>(
       q, g, stats, qh, dl, dx, db, S, H, D, scale, kv_in_smem, pitch);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -445,39 +457,58 @@ int launch(const void* qkv, const void* dout, const void* out, const void* st,
       sizeof(float);
   const int in_smem = kv_scratch + 4 * rows_bytes <= kSmemBudget ? 1 : 0;
   const size_t kv_smem = kv_scratch + (in_smem ? 4 * rows_bytes : 0);
-  rc = set_smem((const void*)attn_bwd_dkdv_kernel<kD>, kv_smem);
+  rc = set_smem((const void*)attn_bwd_dkdv_kernel<T, kD>, kv_smem);
   if (rc) return rc;
-  attn_bwd_dkdv_kernel<kD><<<grid, kThreads, kv_smem, stream>>>(
+  attn_bwd_dkdv_kernel<T, kD><<<grid, kThreads, kv_smem, stream>>>(
       q, g, stats, qh, qnn, dn, dl, dx, db, S, H, D, in_smem, pitch);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(const void* qkv, const void* dout, const void* out,
+             const void* st, void* dqkv, void* dbias, void* qhat, void* qn,
+             void* don, void* delta, int B, int S, int H, int D, float scale,
+             cudaStream_t s) {
+  switch (D) {
+    case 32: return launch<T, 32>(qkv, dout, out, st, dqkv, dbias, qhat, qn,
+                                  don, delta, B, S, H, D, scale, s);
+    case 64: return launch<T, 64>(qkv, dout, out, st, dqkv, dbias, qhat, qn,
+                                  don, delta, B, S, H, D, scale, s);
+    case 128: return launch<T, 128>(qkv, dout, out, st, dqkv, dbias, qhat,
+                                    qn, don, delta, B, S, H, D, scale, s);
+    default: return launch<T, 0>(qkv, dout, out, st, dqkv, dbias, qhat, qn,
+                                 don, delta, B, S, H, D, scale, s);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dqkv (B, S, 3HD) bf16 and dbias (B, 3HD) fp32 out; qhat, qn, don
-// (B, H, S, D) bf16 and delta (B, H, S) fp32 are scratch. Returns a
-// cudaError_t as int: 0 when every launch was accepted.
+// dqkv (B, S, 3HD) of the element type `dtype` and dbias (B, 3HD) fp32 out;
+// qhat, qn, don (B, H, S, D) of that type and delta (B, H, S) fp32 are
+// scratch. Returns a cudaError_t as int: 0 when every launch was accepted.
 int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
                  const void* st, void* dqkv, void* dbias, void* qhat, void* qn,
                  void* don, void* delta, int B, int S, int H, int D,
-                 float scale, void* stream) {
+                 float scale, int dtype, void* stream) {
   // offsets inside one image are 32-bit: S * 3 * H * D must fit
   if (B < 1 || B > 65535 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 ||
       D < 2 || (D & 1) || D > kMaxHeadDim ||
       (long long)S * 3 * H * D >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
-                               delta, B, S, H, D, scale, s);
-    case 64: return launch<64>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
-                               delta, B, S, H, D, scale, s);
-    case 128: return launch<128>(qkv, dout, out, st, dqkv, dbias, qhat, qn,
-                                 don, delta, B, S, H, D, scale, s);
-    default: return launch<0>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
+  switch (dtype) {
+    case kBf16:
+      return launch_d<__nv_bfloat16>(qkv, dout, out, st, dqkv, dbias, qhat,
+                                     qn, don, delta, B, S, H, D, scale, s);
+    case kF16:
+      return launch_d<__half>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
                               delta, B, S, H, D, scale, s);
+    case kF32:
+      return launch_d<float>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
+                             delta, B, S, H, D, scale, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -31,14 +31,19 @@
 // fit (long S with wide D), they are read from global memory (L2) through
 // the same loops.
 //
+// Element types: bf16 as above; fp16 and fp32 inputs run the same loops,
+// every bf16 rounding point a rounding to the inputs' dtype (the TPU
+// kernel's astype; none for fp32), through csrc/elem.cuh.
+//
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
-// launches on the caller's stream; the host function returns
-// cudaGetLastError().
+// launches on the caller's stream; the host function takes the element
+// type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
 #include <cfloat>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -66,14 +71,16 @@ __host__ __device__ inline int warp_floats(int D, int S) {
 }
 
 // Shared memory: per warp [q^: D][scores: S] (16-byte aligned), then
-// [K: S x kv_words][V: S x kv_words] when kv_in_smem. kD > 0 fixes the head
-// dim at compile time (a multiple of 4); kD == 0 reads it from d_rt.
-template <int kD>
+// [K: S x kv_words][V: S x kv_words] (pairs) when kv_in_smem. kD > 0 fixes
+// the head dim at compile time (a multiple of 4); kD == 0 reads it from
+// d_rt.
+template <typename T, int kD>
 __global__ void __launch_bounds__(kWarps * 32)
-attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                __nv_bfloat16* __restrict__ out, float* __restrict__ st,
-                int S, int H, int d_rt, float scale, int kv_in_smem,
-                int kv_words) {
+attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                float* __restrict__ st, int S, int H, int d_rt, float scale,
+                int kv_in_smem, int kv_words) {
+  typedef Elem<T> E;
+  typedef typename E::Pair Pair;
   extern __shared__ __align__(16) float smem[];
   const int D = kD > 0 ? kD : d_rt;
   const int b = blockIdx.z;
@@ -81,26 +88,24 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int row0 = blockIdx.x * kRowsPerBlock;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int D2 = D >> 1;        // bf16 pairs in a head row
+  const int D2 = D >> 1;        // pairs in a head row
   const int C = 3 * H * D;      // elements in a qkv row
-  const int C2 = C >> 1;        // bf16 pairs in a qkv row
+  const int C2 = C >> 1;        // pairs in a qkv row
 
-  const __nv_bfloat16* base = qkv + (long long)b * S * C;
-  const __nv_bfloat16* qg = base + h * D;
-  const __nv_bfloat162* kg =
-      reinterpret_cast<const __nv_bfloat162*>(base + H * D + h * D);
-  const __nv_bfloat162* vg =
-      reinterpret_cast<const __nv_bfloat162*>(base + 2 * H * D + h * D);
+  const T* base = qkv + (long long)b * S * C;
+  const T* qg = base + h * D;
+  const Pair* kg = reinterpret_cast<const Pair*>(base + H * D + h * D);
+  const Pair* vg = reinterpret_cast<const Pair*>(base + 2 * H * D + h * D);
 
   const int wf = warp_floats(D, S);
   float* qs = smem + warp * wf;
   float* sc = qs + D;
-  const __nv_bfloat162* kp;
-  const __nv_bfloat162* vp;
-  int kv_stride;  // in bf16 pairs
+  const Pair* kp;
+  const Pair* vp;
+  int kv_stride;  // in pairs
   if (kv_in_smem) {
-    __nv_bfloat162* ks = reinterpret_cast<__nv_bfloat162*>(smem + kWarps * wf);
-    __nv_bfloat162* vs = ks + S * kv_words;
+    Pair* ks = reinterpret_cast<Pair*>(smem + kWarps * wf);
+    Pair* vs = ks + S * kv_words;
     for (int i = threadIdx.x; i < S * D2; i += blockDim.x) {
       const int r = i / D2, c = i - r * D2;
       ks[r * kv_words + c] = kg[r * C2 + c];
@@ -118,10 +123,9 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 
   const int row_end = min(row0 + kRowsPerBlock, S);
   for (int r = row0 + warp; r < row_end; r += kWarps) {
-    const __nv_bfloat16* qrow = qg + r * C;
+    const T* qrow = qg + r * C;
     for (int d = lane; d < D; d += 32)
-      qs[d] = __bfloat162float(
-          __float2bfloat16_rn(__bfloat162float(qrow[d]) * scale));
+      qs[d] = E::round(E::load(qrow[d]) * scale);
     __syncwarp();
 
     // s = q^ k^T: lane j takes keys j, j + 32, ...
@@ -137,11 +141,11 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
         q[d + 3] = t.w;
       }
       for (int j = lane; j < S; j += 32) {
-        const __nv_bfloat162* kr = kp + j * kv_stride;
+        const Pair* kr = kp + j * kv_stride;
         float a0 = 0.f, a1 = 0.f;
 #pragma unroll
         for (int c = 0; c < kD / 2; ++c) {
-          const float2 kf = __bfloat1622float2(kr[c]);
+          const float2 kf = E::load2(kr[c]);
           a0 = fmaf(q[2 * c], kf.x, a0);
           a1 = fmaf(q[2 * c + 1], kf.y, a1);
         }
@@ -150,10 +154,10 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
       }
     } else {
       for (int j = lane; j < S; j += 32) {
-        const __nv_bfloat162* kr = kp + j * kv_stride;
+        const Pair* kr = kp + j * kv_stride;
         float acc = 0.f;
         for (int c = 0; c < D2; ++c) {
-          const float2 kf = __bfloat1622float2(kr[c]);
+          const float2 kf = E::load2(kr[c]);
           acc = fmaf(qs[2 * c], kf.x, acc);
           acc = fmaf(qs[2 * c + 1], kf.y, acc);
         }
@@ -168,15 +172,15 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     for (int j = lane; j < S; j += 32) {
       const float p = expf(sc[j] - mx);
       sum += p;
-      sc[j] = __bfloat162float(__float2bfloat16_rn(p));
+      sc[j] = E::round(p);
     }
     sum = warp_sum(sum);
     const float rinv = 1.f / sum;
     __syncwarp();
 
     // o = (bf16(p) v) * rinv: lane c takes head-dim pairs c, c + 32
-    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(
-        out + ((long long)b * S + r) * H * D + h * D);
+    Pair* orow =
+        reinterpret_cast<Pair*>(out + ((long long)b * S + r) * H * D + h * D);
     if constexpr (kD > 0) {
 #pragma unroll
       for (int c0 = 0; c0 < kD / 2; c0 += 32) {
@@ -189,31 +193,30 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
             const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
-              const float2 vf =
-                  __bfloat1622float2(vp[(j + u) * kv_stride + c]);
+              const float2 vf = E::load2(vp[(j + u) * kv_stride + c]);
               ax[u] = fmaf(pj[u], vf.x, ax[u]);
               ay[u] = fmaf(pj[u], vf.y, ay[u]);
             }
           }
           for (; j < S; ++j) {
-            const float2 vf = __bfloat1622float2(vp[j * kv_stride + c]);
+            const float2 vf = E::load2(vp[j * kv_stride + c]);
             ax[0] = fmaf(sc[j], vf.x, ax[0]);
             ay[0] = fmaf(sc[j], vf.y, ay[0]);
           }
           const float x = (ax[0] + ax[1]) + (ax[2] + ax[3]);
           const float y = (ay[0] + ay[1]) + (ay[2] + ay[3]);
-          orow[c] = __floats2bfloat162_rn(x * rinv, y * rinv);
+          orow[c] = E::store2(x * rinv, y * rinv);
         }
       }
     } else {
       for (int c = lane; c < D2; c += 32) {
         float ax = 0.f, ay = 0.f;
         for (int j = 0; j < S; ++j) {
-          const float2 vf = __bfloat1622float2(vp[j * kv_stride + c]);
+          const float2 vf = E::load2(vp[j * kv_stride + c]);
           ax = fmaf(sc[j], vf.x, ax);
           ay = fmaf(sc[j], vf.y, ay);
         }
-        orow[c] = __floats2bfloat162_rn(ax * rinv, ay * rinv);
+        orow[c] = E::store2(ax * rinv, ay * rinv);
       }
     }
     if (st != nullptr && lane == 0) {
@@ -225,48 +228,63 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-template <int kD>
+template <typename T, int kD>
 int launch(const void* qkv, void* out, void* st, int B, int S, int H, int D,
            float scale, cudaStream_t stream) {
-  // pad K/V rows to an odd number of 32-bit words: conflict-free row reads
+  // pad K/V rows to an odd number of pairs (of 32-bit words for the 16-bit
+  // types): conflict-free row reads
   const int d2 = D / 2;
   const int kv_words = (d2 % 2 == 0) ? d2 + 1 : d2;
   const size_t warp_bytes = (size_t)kWarps * warp_floats(D, S) * sizeof(float);
-  const size_t kv_bytes = 2 * (size_t)S * kv_words * sizeof(__nv_bfloat162);
+  const size_t kv_bytes =
+      2 * (size_t)S * kv_words * sizeof(typename Elem<T>::Pair);
   const int kv_in_smem = (kv_bytes + warp_bytes <= kSmemBudget) ? 1 : 0;
   const size_t smem = warp_bytes + (kv_in_smem ? kv_bytes : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_fwd_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  attn_fwd_kernel<kD><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(st), S, H, D,
-      scale, kv_in_smem, kv_words);
+  attn_fwd_kernel<T, kD><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out),
+      static_cast<float*>(st), S, H, D, scale, kv_in_smem, kv_words);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(const void* qkv, void* out, void* st, int B, int S, int H, int D,
+             float scale, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch<T, 32>(qkv, out, st, B, S, H, D, scale, s);
+    case 64: return launch<T, 64>(qkv, out, st, B, S, H, D, scale, s);
+    case 128: return launch<T, 128>(qkv, out, st, B, S, H, D, scale, s);
+    default: return launch<T, 0>(qkv, out, st, B, S, H, D, scale, s);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t as int: 0 on a launch that was accepted.
+// qkv (B, S, 3HD) and out (B, S, HD) of the element type `dtype`; st
+// (B, H, S, 2) fp32 or null. Returns a cudaError_t as int: 0 on a launch
+// that was accepted.
 int vtx_attn_fwd(const void* qkv, void* out, void* st, int B, int S, int H,
-                 int D, float scale, void* stream) {
+                 int D, float scale, int dtype, void* stream) {
   // offsets inside one image are 32-bit: S * 3 * H * D must fit
   if (B < 1 || B > 65535 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 ||
       D < 2 || (D & 1) || D > kMaxHeadDim ||
       (long long)S * 3 * H * D >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32>(qkv, out, st, B, S, H, D, scale, s);
-    case 64: return launch<64>(qkv, out, st, B, S, H, D, scale, s);
-    case 128: return launch<128>(qkv, out, st, B, S, H, D, scale, s);
-    default: return launch<0>(qkv, out, st, B, S, H, D, scale, s);
+  switch (dtype) {
+    case kBf16:
+      return launch_d<__nv_bfloat16>(qkv, out, st, B, S, H, D, scale, s);
+    case kF16: return launch_d<__half>(qkv, out, st, B, S, H, D, scale, s);
+    case kF32: return launch_d<float>(qkv, out, st, B, S, H, D, scale, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -1,33 +1,37 @@
-// Blocked flash attention (online softmax) backward, for Hopper.
+// Blocked flash attention (online softmax) on the CUDA cores, for float and
+// half inputs.
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
-// flash_blocked.py, the long-sequence path (S > 1024); the forward (K4,
-// _fwd_kernel) is csrc/flash_fwd.cu:
+// flash_blocked.py, the long-sequence path (S > 1024), where they run in a
+// dtype other than bfloat16 (the JAX kernels take any float dtype); the
+// bf16 versions are on the tensor cores, csrc/flash_fwd.cu (K4) and
+// csrc/flash_bwd.cu (K5, K6):
+//   K4 flash_fwd_kernel      <- _fwd_kernel (:33): per query row, over key
+//      tiles, a running max m, sum l and fp32 accumulator acc:
+//        s = (fp32 q * scale) k^T, keys >= S masked to -1e30;
+//        m' = max(m, rowmax s); alpha = exp(m - m'); p = exp(s - m');
+//        l = l alpha + sum(p over fp32 p); acc = acc alpha + rnd(p) v;
+//      then o = rnd(acc / max(l, 1e-30)), lse = m + log(max(l, 1e-30)).
 //   K5 flash_bwd_dkdv_kernel <- _bwd_dkdv_kernel (:109): per key row, over
-//      query tiles, p = exp((q k^T) scale - lse), dv += bf16(p)^T dO,
-//      ds = p (dO v^T - delta), dk += bf16(ds)^T q; dk *= scale.
+//      query tiles, p = exp((q k^T) scale - lse), dv += rnd(p)^T dO,
+//      ds = p (dO v^T - delta), dk += rnd(ds)^T q; dk *= scale.
 //   K6 flash_bwd_dq_kernel   <- _bwd_dq_kernel (:157): per query row, over
-//      key tiles, the same p and ds, dq += bf16(ds) k; dq *= scale.
-// delta = rowsum(fp32 dO * fp32 O) comes from the caller (a torch op, as in
-// JAX it is computed outside Pallas). Every product accumulates in fp32.
-// bf16(x) is round-to-nearest-even to bfloat16, kept as a float.
+//      key tiles, the same p and ds, dq += rnd(ds) k; dq *= scale.
+// rnd(x) rounds to the inputs' dtype, the JAX kernels' astype: an identity
+// for float, round-to-nearest-even for half (csrc/elem.cuh). delta =
+// rowsum(fp32 dO * fp32 O) comes from the caller. Every product
+// accumulates in fp32, from the inputs' values.
 //
 // Tensors are (B, H, S, D) of any element strides with a contiguous head
 // dim: a Layout gives the batch, head and row strides, so q, k and v are
 // read straight from a fused (B, S, 3*H*D) projection and o, do, dq, dk, dv
 // may live in (B, S, H*D)-style buffers. lse and delta are (B, H, S) fp32.
 //
-// What bounds them on an H100: at S = 1370, D = 64 one (b, h) is 8 S^2 D
-// for K5 and 6 S^2 D for K6, over < 1 MB of
-// operands: hundreds of FLOP per byte, above the ~295 FLOP/byte ridge, so
-// the products bound them. At B = 32, 12 heads the least time at the H100
-// SXM's 989 TFLOP/s bf16 peak is 0.373 ms (K5) and 0.280 ms
-// (K6), and the S^2 exps (7.2e8 per kernel call) cost the special-function
-// units about as much. This version runs the products on the CUDA cores in
-// fp32 (67 TFLOP/s peak), so FMA and shared-memory issue hold it back:
-// 12.67 and 10.55 ms per call at that shape, 25-29 TFLOP/s (H100
-// 80GB HBM3, 700.00 W; chip_smoke.py). Every product is bf16 x bf16 into
-// fp32, what mma.sync and wgmma compute; they, then TMA, are the next steps.
+// What bounds them on an H100: the products, as for the bf16 kernels
+// (csrc/flash_bwd.cu), here against the 67 TFLOP/s fp32 peak of the CUDA
+// cores, since the tensor cores have no fp32 product (TF32 rounds the
+// inputs, which the JAX kernels in fp32 do not). FMA and shared-memory
+// issue hold these loops back.
 //
 // Design: 64-row query tiles and 64-row key tiles, 256 threads as 16 x 16.
 // A thread owns 4 contiguous rows (ty * 4 + i) and the columns tx + 16 j of
@@ -38,24 +42,28 @@
 // row and column reads are both free of bank conflicts). One block works
 // on one (b, h) and one tile and loops over the other side's tiles, so
 // every sum stays in one block: no float atomics, a deterministic result.
-//   K5: block (key tile, b*H + h); K and V staged once, q, dO, lse and
+//   K4: block (b*H + h, query tile); q staged once, K and V per key tile;
+//       rnd(p) goes through shared memory into the p v product.
+//   K5: block (b*H + h, key tile); K and V staged once, q, dO, lse and
 //       delta per query tile; dk and dv accumulate in registers.
-//   K6: block (query tile, b*H + h); q, dO, lse and delta once, K and V per
+//   K6: block (b*H + h, query tile); q, dO, lse and delta once, K and V per
 //       key tile; dq accumulates in registers.
-// The head dim is 64 or 128 at compile time; a smaller head dim takes the
-// next one with its columns zero-filled.
+// The grid is one-dimensional over (b h, tile), so B H is bounded only by
+// 2^31 / ceil(S / 64). The head dim is 64 or 128 at compile time; a smaller
+// head dim takes the next one with its columns zero-filled.
 //
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
-// launch on the caller's stream; each host function returns
-// cudaGetLastError(). The caller (ops/flash_blocked.py) checks the shapes:
-// B * H <= 65535 (the grid's y dimension) and 1 <= D <= 128.
+// launch on the caller's stream; each host function takes the element type
+// as a csrc/elem.cuh code (kF16 or kF32) and returns cudaGetLastError(),
+// or cudaErrorInvalidValue for another code. The caller
+// (ops/flash_blocked.py) checks the shapes: 1 <= D <= 128.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+
+#include "elem.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kTile = 64;           // query rows and key rows of one tile
 constexpr int kThreads = 256;       // 16 x 16
@@ -67,23 +75,33 @@ struct Layout {
   long long sb, sh, sr;  // element strides of batch, head and row
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// Reductions over the 16 lanes that share a row (a half-warp). The xor
+// butterfly leaves the same value in every lane.
+__device__ __forceinline__ float half_max(float v) {
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
 // Stage rows [r0, r0 + kTile) of one head, scaled by `mul`, into shared
 // memory as fp32, transposed: dst[d * pitch + r]. Rows >= S and columns
 // >= D read as 0.
-template <int kD>
+template <typename T, int kD>
 __device__ __forceinline__ void stage_t(float* __restrict__ dst, int pitch,
-                                        const bf16* __restrict__ src,
+                                        const T* __restrict__ src,
                                         long long sr, int r0, int S, int D,
                                         float mul) {
   for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
     const int r = i / kD, d = i % kD;
     float x = 0.f;
     if (r0 + r < S && d < D)
-      x = __bfloat162float(src[(long long)(r0 + r) * sr + d]) * mul;
+      x = Elem<T>::load(src[(long long)(r0 + r) * sr + d]) * mul;
     dst[d * pitch + r] = x;
   }
 }
@@ -131,11 +149,10 @@ __device__ __forceinline__ void store_t(float* __restrict__ dst,
         make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
 }
 
-// Write rows row0 + i (< S) and columns col0 + 16 j (< D) of acc * mul as
-// bf16 to one head of a tensor with row stride sr.
-template <int NJ>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
-                                           long long sr,
+// Write rows row0 + i (< S) and columns col0 + 16 j (< D) of acc * mul in
+// the element type to one head of a tensor with row stride sr.
+template <typename T, int NJ>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, long long sr,
                                            const float (&acc)[4][NJ], int r0,
                                            int row0, int col0, int S, int D,
                                            float mul) {
@@ -146,23 +163,99 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = col0 + 16 * j;
-      if (c < D) dst[(long long)r * sr + c] = __float2bfloat16_rn(acc[i][j] * mul);
+      if (c < D) dst[(long long)r * sr + c] = Elem<T>::store(acc[i][j] * mul);
     }
   }
 }
 
-// K5. grid (ceil(S / kTile), B * H) over key tiles. Shared memory: kT, vT
-// [kD x kPA] (A operands, the block's keys), qT, doT [kD x kPB] (the query
-// tile), pq, dsq [kTile x kPA] (bf16(p), bf16(ds) as [query][key]), then
-// lse and delta of the query tile [kTile] each.
-template <int kD>
+// K4. grid (B * H * n_tiles). Shared memory: qT [kD x kPA] (q * scale),
+// kT [kD x kPB], vT [kD x kPB], pT [kTile x kPA] (rnd(p), [key][query]).
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int S, int D, int n_tiles,
+                 float scale, Layout in, Layout out) {
+  extern __shared__ __align__(16) float smem[];
+  float* qT = smem;
+  float* kT = qT + kD * kPA;
+  float* vT = kT + kD * kPB;
+  float* pT = vT + kD * kPB;
+  constexpr int NO = kD / 16;  // o columns per thread
+  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % n_tiles) * kTile;
+  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
+  const long long in_off = b * in.sb + h * in.sh;
+
+  stage_t<T, kD>(qT, kPA, q + in_off, in.sr, q0, S, D, scale);
+  float acc[4][NO], m[4], l[4];
+  zero(acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < S; k0 += kTile) {
+    __syncthreads();  // the last tile's kT, vT and pT are read
+    stage_t<T, kD>(kT, kPB, k + in_off, in.sr, k0, S, D, 1.f);
+    stage_t<T, kD>(vT, kPB, v + in_off, in.sr, k0, S, D, 1.f);
+    __syncthreads();
+    float s[4][4];
+    zero(s);
+    tile_product<4, kD, kPB, 1>(s, qT, kT, row0, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + tx + 16 * j >= S) s[i][j] = kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        s[i][j] = Elem<T>::round(p);
+      }
+      l[i] = l[i] * alpha + half_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NO; ++c) acc[i][c] *= alpha;
+    }
+    store_t(pT, s, row0, tx);
+    __syncthreads();
+    // acc += rnd(p) v: v read from vT [d][key] along the key
+    tile_product<NO, kTile, 1, kPB>(acc, pT, vT, row0, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lf = fmaxf(l[i], 1e-30f);
+    const int r = q0 + row0 + i;
+    if (tx == 0 && r < S) lse[(long long)bh * S + r] = m[i] + logf(lf);
+#pragma unroll
+    for (int c = 0; c < NO; ++c) acc[i][c] /= lf;  // o = acc / l, as JAX
+  }
+  store_rows<T, NO>(o + b * out.sb + h * out.sh, out.sr, acc, q0, row0, tx,
+                    S, D, 1.f);
+}
+
+// K5. grid (B * H * n_tiles) over key tiles. Shared memory: kT, vT
+// [kD x kPA] (A operands, the block's keys), qT, doT [kD x kPB] (the query
+// tile), pq, dsq [kTile x kPA] (rnd(p), rnd(ds) as [query][key]), then
+// lse and delta of the query tile [kTile] each.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int H, int S, int D, float scale,
-                      Layout in, Layout og, Layout gr) {
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int H, int S, int D, int n_tiles,
+                      float scale, Layout in, Layout og, Layout gr) {
   extern __shared__ __align__(16) float smem[];
   float* kT = smem;
   float* vT = kT + kD * kPA;
@@ -173,17 +266,17 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* lse_s = dsq + kTile * kPA;
   float* dl_s = lse_s + kTile;
   constexpr int NO = kD / 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kTile;
+  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
+  const int k0 = (blockIdx.x % n_tiles) * kTile;
   const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
   const long long in_off = b * in.sb + h * in.sh;
-  const bf16* qg = q + in_off;
-  const bf16* dog = dout + b * og.sb + h * og.sh;
+  const T* qg = q + in_off;
+  const T* dog = dout + b * og.sb + h * og.sh;
   const float* lse_g = lse + (long long)bh * S;
   const float* dl_g = delta + (long long)bh * S;
 
-  stage_t<kD>(kT, kPA, k + in_off, in.sr, k0, S, D, 1.f);
-  stage_t<kD>(vT, kPA, v + in_off, in.sr, k0, S, D, 1.f);
+  stage_t<T, kD>(kT, kPA, k + in_off, in.sr, k0, S, D, 1.f);
+  stage_t<T, kD>(vT, kPA, v + in_off, in.sr, k0, S, D, 1.f);
   float dk_acc[4][NO], dv_acc[4][NO];
   zero(dk_acc);
   zero(dv_acc);
@@ -193,8 +286,8 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int q0 = 0; q0 < S; q0 += kTile) {
     __syncthreads();  // the last tile's qT, doT, pq, dsq are read
-    stage_t<kD>(qT, kPB, qg, in.sr, q0, S, D, 1.f);
-    stage_t<kD>(doT, kPB, dog, og.sr, q0, S, D, 1.f);
+    stage_t<T, kD>(qT, kPB, qg, in.sr, q0, S, D, 1.f);
+    stage_t<T, kD>(doT, kPB, dog, og.sr, q0, S, D, 1.f);
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       const bool ok = q0 + i < S;
       lse_s[i] = ok ? lse_g[q0 + i] : 0.f;
@@ -216,35 +309,35 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const float p =
             (q_ok && key_ok[i]) ? expf(s[i][j] * scale - ls) : 0.f;
-        s[i][j] = bf16_round(p);
-        dp[i][j] = bf16_round(p * (dp[i][j] - dl));
+        s[i][j] = Elem<T>::round(p);
+        dp[i][j] = Elem<T>::round(p * (dp[i][j] - dl));
       }
     }
     store_t(pq, s, row0, tx);
     store_t(dsq, dp, row0, tx);
     __syncthreads();
-    // dv += bf16(p)^T dO, dk += bf16(ds)^T q: dO and q read from doT, qT
+    // dv += rnd(p)^T dO, dk += rnd(ds)^T q: dO and q read from doT, qT
     // [d][query] along the query
     tile_product<NO, kTile, 1, kPB>(dv_acc, pq, doT, row0, tx);
     tile_product<NO, kTile, 1, kPB>(dk_acc, dsq, qT, row0, tx);
   }
 
   const long long g_off = b * gr.sb + h * gr.sh;
-  store_rows<NO>(dv + g_off, gr.sr, dv_acc, k0, row0, tx, S, D, 1.f);
-  store_rows<NO>(dk + g_off, gr.sr, dk_acc, k0, row0, tx, S, D, scale);
+  store_rows<T, NO>(dv + g_off, gr.sr, dv_acc, k0, row0, tx, S, D, 1.f);
+  store_rows<T, NO>(dk + g_off, gr.sr, dk_acc, k0, row0, tx, S, D, scale);
 }
 
-// K6. grid (ceil(S / kTile), B * H) over query tiles. Shared memory: qT,
-// doT [kD x kPA] (A operands, the block's queries), kT, vT [kD x kPB] (the
-// key tile), dsT [kTile x kPA] (bf16(ds) as [key][query]).
-template <int kD>
+// K6. grid (B * H * n_tiles) over query tiles. Shared memory: qT, doT
+// [kD x kPA] (A operands, the block's queries), kT, vT [kD x kPB] (the key
+// tile), dsT [kTile x kPA] (rnd(ds) as [key][query]).
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int H, int S, int D, float scale, Layout in, Layout og,
-                    Layout gr) {
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int H, int S, int D, int n_tiles, float scale, Layout in,
+                    Layout og, Layout gr) {
   extern __shared__ __align__(16) float smem[];
   float* qT = smem;
   float* doT = qT + kD * kPA;
@@ -252,13 +345,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* vT = kT + kD * kPB;
   float* dsT = vT + kD * kPB;
   constexpr int NO = kD / 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kTile;
+  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % n_tiles) * kTile;
   const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
   const long long in_off = b * in.sb + h * in.sh;
 
-  stage_t<kD>(qT, kPA, q + in_off, in.sr, q0, S, D, 1.f);
-  stage_t<kD>(doT, kPA, dout + b * og.sb + h * og.sh, og.sr, q0, S, D, 1.f);
+  stage_t<T, kD>(qT, kPA, q + in_off, in.sr, q0, S, D, 1.f);
+  stage_t<T, kD>(doT, kPA, dout + b * og.sb + h * og.sh, og.sr, q0, S, D,
+                 1.f);
   float ls[4], dl[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -271,8 +365,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int k0 = 0; k0 < S; k0 += kTile) {
     __syncthreads();  // the last tile's kT, vT and dsT are read
-    stage_t<kD>(kT, kPB, k + in_off, in.sr, k0, S, D, 1.f);
-    stage_t<kD>(vT, kPB, v + in_off, in.sr, k0, S, D, 1.f);
+    stage_t<T, kD>(kT, kPB, k + in_off, in.sr, k0, S, D, 1.f);
+    stage_t<T, kD>(vT, kPB, v + in_off, in.sr, k0, S, D, 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
@@ -285,30 +379,48 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = key_ok ? expf(s[i][j] * scale - ls[i]) : 0.f;
-        dp[i][j] = bf16_round(p * (dp[i][j] - dl[i]));
+        dp[i][j] = Elem<T>::round(p * (dp[i][j] - dl[i]));
       }
     }
     store_t(dsT, dp, row0, tx);
     __syncthreads();
-    // dq += bf16(ds) k: k read from kT [d][key] along the key
+    // dq += rnd(ds) k: k read from kT [d][key] along the key
     tile_product<NO, kTile, 1, kPB>(acc, dsT, kT, row0, tx);
   }
-  store_rows<NO>(dq + b * gr.sb + h * gr.sh, gr.sr, acc, q0, row0, tx, S, D,
-                 scale);
+  store_rows<T, NO>(dq + b * gr.sb + h * gr.sh, gr.sr, acc, q0, row0, tx, S,
+                    D, scale);
 }
 
 template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
+int prepare(Kernel kernel, size_t bytes, int B, int H, int S, int* n_tiles,
+            dim3* grid) {
+  *n_tiles = (S + kTile - 1) / kTile;
+  const long long blocks = (long long)*n_tiles * B * H;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  *grid = dim3((unsigned)blocks);
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-dim3 grid_of(int B, int H, int S) {
-  return dim3((S + kTile - 1) / kTile, B * H);
+template <typename T, int kD>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+        int B, int H, int S, int D, float scale, Layout in, Layout out,
+        cudaStream_t stream) {
+  const size_t smem = (size_t)(kD * kPA + 2 * kD * kPB + kTile * kPA) *
+                      sizeof(float);
+  int n_tiles;
+  dim3 grid;
+  int rc = prepare(flash_fwd_kernel<T, kD>, smem, B, H, S, &n_tiles, &grid);
+  if (rc) return rc;
+  flash_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o),
+      static_cast<float*>(lse), H, S, D, n_tiles, scale, in, out);
+  return (int)cudaGetLastError();
 }
 
-template <int kD>
+template <typename T, int kD>
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int B,
          int H, int S, int D, float scale, Layout in, Layout og, Layout gr,
@@ -316,73 +428,98 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
   const size_t smem =
       (size_t)(2 * kD * kPA + 2 * kD * kPB + 2 * kTile * kPA + 2 * kTile) *
       sizeof(float);
-  int rc = set_smem(flash_bwd_dkdv_kernel<kD>, smem);
+  int n_tiles;
+  dim3 grid;
+  int rc = prepare(flash_bwd_dkdv_kernel<T, kD>, smem, B, H, S, &n_tiles,
+                   &grid);
   if (rc) return rc;
-  flash_bwd_dkdv_kernel<kD><<<grid_of(B, H, S), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+  flash_bwd_dkdv_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, D, scale, in, og,
-      gr);
+      static_cast<T*>(dk), static_cast<T*>(dv), H, S, D, n_tiles, scale, in,
+      og, gr);
   return (int)cudaGetLastError();
 }
 
-template <int kD>
+template <typename T, int kD>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dqp, int B, int H, int S,
        int D, float scale, Layout in, Layout og, Layout gr,
        cudaStream_t stream) {
   const size_t smem =
       (size_t)(2 * kD * kPA + 2 * kD * kPB + kTile * kPA) * sizeof(float);
-  int rc = set_smem(flash_bwd_dq_kernel<kD>, smem);
+  int n_tiles;
+  dim3 grid;
+  int rc = prepare(flash_bwd_dq_kernel<T, kD>, smem, B, H, S, &n_tiles,
+                   &grid);
   if (rc) return rc;
-  flash_bwd_dq_kernel<kD><<<grid_of(B, H, S), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+  flash_bwd_dq_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dqp), H, S, D, scale, in, og, gr);
+      static_cast<T*>(dqp), H, S, D, n_tiles, scale, in, og, gr);
   return (int)cudaGetLastError();
 }
+
+// f<T, kD>(args...) for the element type `dtype` (kF16 or kF32) and the
+// head dim D (64 or 128 at compile time).
+#define DISPATCH(f, dtype, D, ...)                                          \
+  switch (dtype) {                                                          \
+    case kF16:                                                              \
+      return (D) <= 64 ? f<__half, 64>(__VA_ARGS__)                         \
+                       : f<__half, 128>(__VA_ARGS__);                       \
+    case kF32:                                                              \
+      return (D) <= 64 ? f<float, 64>(__VA_ARGS__)                          \
+                       : f<float, 128>(__VA_ARGS__);                        \
+    default:                                                                \
+      return (int)cudaErrorInvalidValue;                                    \
+  }
 
 }  // namespace
 
 extern "C" {
 
-// dk, dv (grad layout) bf16 from q, k, v (in layout), dout (its own
-// layout), lse and delta (B, H, S) fp32.
+// o (out layout) and lse (B, H, S) fp32 from q, k, v (in layout).
+int vtx_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int B, int H, int S, int D, float scale,
+                  long long in_sb, long long in_sh, long long in_sr,
+                  long long out_sb, long long out_sh, long long out_sr,
+                  int dtype, void* stream) {
+  const Layout in{in_sb, in_sh, in_sr}, out{out_sb, out_sh, out_sr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(fwd, dtype, D, q, k, v, o, lse, B, H, S, D, scale, in, out, s)
+}
+
+// dk, dv (grad layout) from q, k, v (in layout), dout (its own layout),
+// lse and delta (B, H, S) fp32.
 int vtx_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int S, int D,
                        float scale, long long in_sb, long long in_sh,
                        long long in_sr, long long og_sb, long long og_sh,
                        long long og_sr, long long gr_sb, long long gr_sh,
-                       long long gr_sr, void* stream) {
+                       long long gr_sr, int dtype, void* stream) {
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, S, D, scale, in,
-                    og, gr, s);
-  return dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, S, D, scale, in,
-                   og, gr, s);
+  DISPATCH(dkdv, dtype, D, q, k, v, dout, lse, delta, dk, dv, B, H, S, D,
+           scale, in, og, gr, s)
 }
 
-// dq (grad layout) bf16, from the same inputs.
+// dq (grad layout), from the same inputs.
 int vtx_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dqp, int B, int H, int S, int D, float scale,
                      long long in_sb, long long in_sh, long long in_sr,
                      long long og_sb, long long og_sh, long long og_sr,
                      long long gr_sb, long long gr_sh, long long gr_sr,
-                     void* stream) {
+                     int dtype, void* stream) {
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return dq<64>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in, og,
-                  gr, s);
-  return dq<128>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in, og,
-                 gr, s);
+  DISPATCH(dq, dtype, D, q, k, v, dout, lse, delta, dqp, B, H, S, D, scale,
+           in, og, gr, s)
 }
 
 const char* vtx_cuda_error_string(int err) {

@@ -1,0 +1,570 @@
+// Blocked flash attention backward on Hopper's tensor cores (bf16).
+//
+// Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
+// flash_blocked.py, the backward of the long-sequence path (S > 1024); the
+// forward (K4) is csrc/flash_fwd.cu:
+//   K5 flash_bwd_dkdv_kernel <- _bwd_dkdv_kernel (:109): per key row, over
+//      query tiles, p = exp((q k^T) scale - lse), dv += bf16(p)^T dO,
+//      ds = p (dO v^T - delta), dk += bf16(ds)^T q; dk *= scale.
+//   K6 flash_bwd_dq_kernel   <- _bwd_dq_kernel (:157): per query row, over
+//      key tiles, the same p and ds, dq += bf16(ds) k; dq *= scale.
+// delta = rowsum(fp32 dO * fp32 O) comes from the caller (a torch op, as in
+// JAX it is computed outside Pallas). Every product is bf16 x bf16 into
+// fp32, what wgmma computes, so the cast order is the TPU kernels'. The
+// exponentials run as exp2f: p = exp2(s (scale log2 e) - lse log2 e), which
+// moves p by a relative ~1e-6 against expf (csrc/flash_fwd.cu says why),
+// far below the 2^-9 of its bf16 rounding. The float and half versions of
+// the same functions are the CUDA-core loops of csrc/flash_blocked.cu.
+//
+// What bounds them on an H100: at S = 1370, D = 64 one (b, h) is 8 S^2 D
+// (K5: s, dp, dv, dk) and 6 S^2 D (K6: s, dp, dq) over < 1 MB of operands,
+// hundreds of FLOP per byte: the products bound them. At B = 32, 12 heads
+// the least time at the H100 SXM's 989 TFLOP/s bf16 peak is 0.373 ms (K5)
+// and 0.280 ms (K6); the S^2 exponentials of each (7.2e8 a call) on the
+// special-function units are a second floor of about K4's size.
+//
+// Design (warp-specialised, one block per 128 stationary rows of one (b, h):
+// two consumer warpgroups and a producer, a warp for K6 (288 threads), a
+// warpgroup that lends the consumers its registers for K5 (384); two
+// kernels, so that no sum crosses blocks: no float atomics, a
+// deterministic result):
+// * K5 holds 128 keys still. One warp of the producer warpgroup loads K and
+//   V once through TMA, then streams tiles of 64 queries (Q and dO through a
+//   2-stage ring, with the tiles' lse and delta rows, which its lanes store
+//   beside them). Each
+//   of two consumer warpgroups owns 64 keys: S^T = K Q^T and dP^T = V dO^T
+//   are wgmma m64n64k16 with both operands K-major in shared memory, as
+//   stored; P^T = exp2(...) and dS^T = P^T (dP^T - delta) in fp32 registers,
+//   keys >= S masked to p = 0; then dV += bf16(P^T) dO and dK += bf16(dS^T)
+//   Q are wgmma with the accumulator fragments packed as the register A
+//   operand (as K4 feeds P) and dO and Q read as MN-major B operands (the
+//   transpose bit, as K4 reads V). dK is scaled once at the end.
+// * K6 holds 128 queries still: Q, dO, lse and delta once, K and V tiles of
+//   64 keys through the ring. S = Q K^T and dP = dO V^T as SS wgmma, keys
+//   >= S masked to p = 0, dS = P (dP - delta), dQ += bf16(dS) K as RS wgmma
+//   with K MN-major; dQ is scaled once at the end.
+// * Rows >= S: TMA fills q, dO, k and v rows past the end with zeros; lse
+//   and delta of such rows read as 0, never past the end, so p stays finite
+//   and the zero dO rows make those rows' dv and dk terms vanish (the TPU
+//   kernel's argument, :113-115). No row >= S is stored.
+// * Tiles are csrc/hopper.cuh's panels of 64 columns, 128-byte swizzled,
+//   read through 4-D (D, S, H, B) tensor maps in [64 rows][64 columns]
+//   boxes with the caller's strides, so views of a fused (B, S, 3 H D)
+//   projection need no copy. dq, dk and dv are written by the consumers as
+//   bf16 pairs in the caller's grad layout.
+// * Grids are one-dimensional over (b h, stationary tile), so B H is bounded
+//   only by 2^31 / ceil(S / 128).
+//
+// Plain C interface, loaded with ctypes. The kernels allocate nothing and
+// launch on the caller's stream; each host function returns
+// cudaGetLastError(), or a code >= kErrEncodeBase when a tensor map could
+// not be encoded (vtx_cuda_error_string says which). The caller
+// (ops/flash_blocked.py) checks the shapes: 1 <= D <= 128, D a multiple of
+// 8, 16-byte-aligned data and strides of q, k, v and dO.
+
+#include <limits.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int kRows = 64;          // rows of a streamed tile, and of a warpgroup
+constexpr int kBlockRows = 128;    // stationary rows of a block
+constexpr int kStages = 2;         // ring depth of the streamed tiles
+constexpr int kConsumerWarps = 8;  // two warpgroups
+constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
+// K5 keeps four accumulators per consumer thread (S^T, dP^T, dK, dV: 192
+// floats at D = 128), more than the 168 registers a thread may have in a
+// block of 288 or 384. So its producer is a whole warpgroup, which gives
+// its registers to the consumers: launched at 168 a thread (the launch
+// bound's cap, which setmaxnreg requires), the producer warpgroup drops to
+// kProducerRegs and the consumers rise to kConsumerRegs, 128 x 40 + 256 x
+// 232 = 384 x 168.
+constexpr int kDkdvThreads = 32 * kConsumerWarps + 128;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kStreamPanel = kRows * kPanel;        // 8 KB
+constexpr int kFixedPanel = kBlockRows * kPanel;    // 16 KB
+constexpr uint32_t kStreamBytes = kStreamPanel * 2;  // LBO of an MN-major tile
+
+// Shared tiles of K5; every panel is a multiple of 1024 bytes, so each stays
+// aligned to the swizzle atom when the struct is. lse is kept times log2 e.
+template <int kD>
+struct DkdvTiles {
+  bf16 k[kD / kPanel][kFixedPanel];
+  bf16 v[kD / kPanel][kFixedPanel];
+  bf16 q[kStages][kD / kPanel][kStreamPanel];
+  bf16 dout[kStages][kD / kPanel][kStreamPanel];
+  float lse[kStages][kRows];
+  float delta[kStages][kRows];
+};
+
+// Shared tiles of K6.
+template <int kD>
+struct DqTiles {
+  bf16 q[kD / kPanel][kFixedPanel];
+  bf16 dout[kD / kPanel][kFixedPanel];
+  bf16 k[kStages][kD / kPanel][kStreamPanel];
+  bf16 v[kStages][kD / kPanel][kStreamPanel];
+};
+
+template <typename T>
+__device__ __forceinline__ T& aligned_tiles(uint8_t* raw) {
+  // the swizzle atom is 1024 bytes: align the tiles to it
+  return *reinterpret_cast<T*>(raw +
+                               ((1024 - (smem_addr(raw) & 1023)) & 1023));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Write the accumulator of a m64 x kD product, times mul, as bf16 rows r0
+// and r0 + 8 (those < S) and columns 8 n + col (< D) of one head.
+template <int N>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           long long sr, const float (&acc)[N],
+                                           int r0, int col, int S, int D,
+                                           float mul) {
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    const int c = 8 * n + col;
+    if (c >= D) continue;
+    if (r0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r0 * sr + c) =
+          __floats2bfloat162_rn(acc[4 * n] * mul, acc[4 * n + 1] * mul);
+    if (r1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r1 * sr + c) =
+          __floats2bfloat162_rn(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
+  }
+}
+
+// K5. grid (ceil(S / 128) * B * H): block x is key tile x % n_kt of
+// (b, h) = x / n_kt. Accumulator fragments (wgmma m64nN, f32): thread t of
+// a warpgroup, warp w = t / 32, lane l, holds d[4n + j] at row 16 w + l / 4
+// + 8 (j / 2), column 8 n + 2 (l % 4) + (j % 2). Rows are keys, columns of
+// S^T and dP^T are the tile's queries, columns of dK and dV the head dim.
+template <int kD>
+__global__ void __launch_bounds__(kDkdvThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, int S, int D, int n_kt,
+                      float scale, float scale_log2, Layout gr) {
+  constexpr int kPanels = kD / kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  DkdvTiles<kD>& t = aligned_tiles<DkdvTiles<kD>>(smem_raw);
+
+  const int bh = blockIdx.x / n_kt;
+  const int k0 = (blockIdx.x % n_kt) * kBlockRows;
+  const int b = bh / H, h = bh % H;
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(&kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 32);  // the producer warp's lanes
+      bar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // producer warpgroup: its registers go to the consumers; one warp
+    // loads K and V once, then Q and dO tiles through the ring, and every
+    // lane of it stores two of the tile's lse and delta rows, then arrives
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (warp != kConsumerWarps) return;
+    if (lane == 0) {
+      bar_expect_tx(&kv_full, 2 * kBlockRows * kD * 2);
+      for (int p = 0; p < kPanels; ++p)
+        for (int r = 0; r < kBlockRows; r += kRows) {
+          tma_load(&t.k[p][r * kPanel], &tk, &kv_full, p * kPanel, k0 + r, h,
+                   b);
+          tma_load(&t.v[p][r * kPanel], &tv, &kv_full, p * kPanel, k0 + r, h,
+                   b);
+        }
+    }
+    const float* lse_g = lse + (long long)bh * S;
+    const float* dl_g = delta + (long long)bh * S;
+    for (int j = 0; j < n_qt; ++j) {
+      const int s = j % kStages;
+      const int q0 = j * kRows;
+      if (j >= kStages) bar_wait(&empty[s], ((j / kStages) - 1) & 1);
+      for (int i = lane; i < kRows; i += 32) {
+        const bool ok = q0 + i < S;
+        t.lse[s][i] = ok ? lse_g[q0 + i] * kLog2e : 0.f;
+        t.delta[s][i] = ok ? dl_g[q0 + i] : 0.f;
+      }
+      if (lane == 0) {
+        bar_expect_tx(&full[s], 2 * kRows * kD * 2);
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(t.q[s][p], &tq, &full[s], p * kPanel, q0, h, b);
+          tma_load(t.dout[s][p], &tdo, &full[s], p * kPanel, q0, h, b);
+        }
+      } else {
+        bar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kConsumerRegs));
+  const int wg = warp / 4;
+  const int row = 16 * (warp % 4) + lane / 4;  // and row + 8, in the group
+  const int col = 2 * (lane % 4);
+  const int key0 = k0 + wg * kRows + row;
+  const bool ok0 = key0 < S, ok1 = key0 + 8 < S;
+  float dk_acc[kD / 2], dv_acc[kD / 2];
+  float s[32], dp[32];
+  zero(dk_acc);
+  zero(dv_acc);
+  zero(s);
+  zero(dp);
+
+  bar_wait(&kv_full, 0);
+  for (int j = 0; j < n_qt; ++j) {
+    const int st = j % kStages;
+    bar_wait(&full[st], (j / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T over kD / 16 steps of 16 columns
+    pin(s);
+    pin(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n64(s, desc(&t.k[p][wg * kRows * kPanel + c], 16, 1024),
+                   desc(&t.q[st][p][c], 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n64(dp, desc(&t.v[p][wg * kRows * kPanel + c], 16, 1024),
+                   desc(&t.dout[st][p][c], 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait();
+    pin(s);
+    pin(dp);
+
+    // P^T and dS^T in fp32, packed to bf16 A fragments: queries 16 c ..
+    // 16 c + 15 are registers (row, lo 8), (row + 8, lo 8), (row, hi 8),
+    // (row + 8, hi 8)
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int qc = 8 * n + col;
+      const float l0 = t.lse[st][qc], l1 = t.lse[st][qc + 1];
+      const float d0 = t.delta[st][qc], d1 = t.delta[st][qc + 1];
+      const float p0 = ok0 ? exp2f(fmaf(s[4 * n], scale_log2, -l0)) : 0.f;
+      const float p1 = ok0 ? exp2f(fmaf(s[4 * n + 1], scale_log2, -l1)) : 0.f;
+      const float p2 = ok1 ? exp2f(fmaf(s[4 * n + 2], scale_log2, -l0)) : 0.f;
+      const float p3 = ok1 ? exp2f(fmaf(s[4 * n + 3], scale_log2, -l1)) : 0.f;
+      pa[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
+      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+      dsa[n / 2][(n % 2) * 2] =
+          pack_bf16(p0 * (dp[4 * n] - d0), p1 * (dp[4 * n + 1] - d1));
+      dsa[n / 2][(n % 2) * 2 + 1] =
+          pack_bf16(p2 * (dp[4 * n + 2] - d0), p3 * (dp[4 * n + 3] - d1));
+    }
+
+    // dV += bf16(P^T) dO, dK += bf16(dS^T) Q over 4 steps of 16 queries
+    pin(dv_acc);
+    pin(dk_acc);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < kRows / 16; ++c)
+      wgmma_rs(dv_acc, pa[c],
+               desc(&t.dout[st][0][c * 16 * kPanel], kStreamBytes, 1024));
+#pragma unroll
+    for (int c = 0; c < kRows / 16; ++c)
+      wgmma_rs(dk_acc, dsa[c],
+               desc(&t.q[st][0][c * 16 * kPanel], kStreamBytes, 1024));
+    wg_commit();
+    wg_wait();
+    pin(dv_acc);
+    pin(dk_acc);
+
+    // this warp is done with the stage
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+  }
+
+  const long long g_off = b * gr.sb + h * gr.sh;
+  store_rows(dv + g_off, gr.sr, dv_acc, key0, col, S, D, 1.f);
+  store_rows(dk + g_off, gr.sr, dk_acc, key0, col, S, D, scale);
+}
+
+// K6. grid (ceil(S / 128) * B * H): block x is query tile x % n_qt of
+// (b, h) = x / n_qt. Rows of every fragment are queries; columns of S and
+// dP are the tile's keys, columns of dQ the head dim.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int H, int S, int D, int n_qt, float scale,
+                    float scale_log2, Layout gr) {
+  constexpr int kPanels = kD / kPanel;
+  constexpr int kTileBytes = kRows * kD * 2;  // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t k_full[kStages], v_full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
+  DqTiles<kD>& t = aligned_tiles<DqTiles<kD>>(smem_raw);
+
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kBlockRows;
+  const int b = bh / H, h = bh % H;
+  const int n_kt = (S + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&k_full[s], 1);
+      bar_init(&v_full[s], 1);
+      bar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // producer: Q and dO once, then K and V tiles through the ring
+    if (lane == 0) {
+      bar_expect_tx(&q_full, 2 * kBlockRows * kD * 2);
+      for (int p = 0; p < kPanels; ++p)
+        for (int r = 0; r < kBlockRows; r += kRows) {
+          tma_load(&t.q[p][r * kPanel], &tq, &q_full, p * kPanel, q0 + r, h,
+                   b);
+          tma_load(&t.dout[p][r * kPanel], &tdo, &q_full, p * kPanel, q0 + r,
+                   h, b);
+        }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) bar_wait(&empty[s], ((j / kStages) - 1) & 1);
+        bar_expect_tx(&k_full[s], kTileBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(t.k[s][p], &tk, &k_full[s], p * kPanel, j * kRows, h, b);
+        bar_expect_tx(&v_full[s], kTileBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(t.v[s][p], &tv, &v_full[s], p * kPanel, j * kRows, h, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns queries [q0 + 64 wg, q0 + 64 wg + 64)
+  const int wg = warp / 4;
+  const int row = 16 * (warp % 4) + lane / 4;  // and row + 8, in the group
+  const int col = 2 * (lane % 4);
+  const int r0 = q0 + wg * kRows + row, r1 = r0 + 8;
+  const long long rows = (long long)bh * S;
+  const float lse0 = r0 < S ? lse[rows + r0] * kLog2e : 0.f;
+  const float lse1 = r1 < S ? lse[rows + r1] * kLog2e : 0.f;
+  const float dl0 = r0 < S ? delta[rows + r0] : 0.f;
+  const float dl1 = r1 < S ? delta[rows + r1] : 0.f;
+  float dq_acc[kD / 2];
+  float s[32], dp[32];
+  zero(dq_acc);
+  zero(s);
+  zero(dp);
+
+  bar_wait(&q_full, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kStages;
+    const uint32_t phase = (j / kStages) & 1;
+    const int kb = j * kRows;
+    bar_wait(&k_full[st], phase);
+    bar_wait(&v_full[st], phase);
+
+    // S = Q K^T and dP = dO V^T over kD / 16 steps of 16 columns
+    pin(s);
+    pin(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n64(s, desc(&t.q[p][wg * kRows * kPanel + c], 16, 1024),
+                   desc(&t.k[st][p][c], 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n64(dp, desc(&t.dout[p][wg * kRows * kPanel + c], 16, 1024),
+                   desc(&t.v[st][p][c], 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait();
+    pin(s);
+    pin(dp);
+
+    // dS = P (dP - delta) in fp32, keys >= S masked, packed to bf16 A
+    // fragments
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int kc = kb + 8 * n + col;
+      const bool okc0 = kc < S, okc1 = kc + 1 < S;
+      const float p0 = okc0 ? exp2f(fmaf(s[4 * n], scale_log2, -lse0)) : 0.f;
+      const float p1 =
+          okc1 ? exp2f(fmaf(s[4 * n + 1], scale_log2, -lse0)) : 0.f;
+      const float p2 =
+          okc0 ? exp2f(fmaf(s[4 * n + 2], scale_log2, -lse1)) : 0.f;
+      const float p3 =
+          okc1 ? exp2f(fmaf(s[4 * n + 3], scale_log2, -lse1)) : 0.f;
+      dsa[n / 2][(n % 2) * 2] =
+          pack_bf16(p0 * (dp[4 * n] - dl0), p1 * (dp[4 * n + 1] - dl0));
+      dsa[n / 2][(n % 2) * 2 + 1] =
+          pack_bf16(p2 * (dp[4 * n + 2] - dl1), p3 * (dp[4 * n + 3] - dl1));
+    }
+
+    // dQ += bf16(dS) K over 4 steps of 16 keys
+    pin(dq_acc);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < kRows / 16; ++c)
+      wgmma_rs(dq_acc, dsa[c],
+               desc(&t.k[st][0][c * 16 * kPanel], kStreamBytes, 1024));
+    wg_commit();
+    wg_wait();
+    pin(dq_acc);
+
+    // this warp is done with the stage's K and V
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+  }
+
+  store_rows(dq + b * gr.sb + h * gr.sh, gr.sr, dq_acc, r0, col, S, D,
+             scale);
+}
+
+// The four tensor maps of q, k, v (layout in) and dO (layout og).
+int encode_all(CUtensorMap (&maps)[4], const void* q, const void* k,
+               const void* v, const void* dout, int B, int H, int S, int D,
+               Layout in, Layout og) {
+  EncodeTiled enc = encode_fn();
+  if (!enc) return kErrNoEntryPoint;
+  int rc = encode(enc, &maps[0], q, B, H, S, D, in, kRows);
+  if (!rc) rc = encode(enc, &maps[1], k, B, H, S, D, in, kRows);
+  if (!rc) rc = encode(enc, &maps[2], v, B, H, S, D, in, kRows);
+  if (!rc) rc = encode(enc, &maps[3], dout, B, H, S, D, og, kRows);
+  return rc;
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem, int B, int H, int S, dim3* grid) {
+  const long long blocks =
+      (long long)((S + kBlockRows - 1) / kBlockRows) * B * H;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  *grid = dim3((unsigned)blocks);
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int kD>
+int dkdv(const void* q, const void* k, const void* v, const void* dout,
+         const void* lse, const void* delta, void* dk, void* dv, int B,
+         int H, int S, int D, float scale, Layout in, Layout og, Layout gr,
+         cudaStream_t stream) {
+  CUtensorMap m[4];
+  int rc = encode_all(m, q, k, v, dout, B, H, S, D, in, og);
+  if (rc) return rc;
+  const size_t smem = sizeof(DkdvTiles<kD>) + 1024;  // + the alignment slack
+  dim3 grid;
+  rc = prepare(flash_bwd_dkdv_kernel<kD>, smem, B, H, S, &grid);
+  if (rc) return rc;
+  flash_bwd_dkdv_kernel<kD><<<grid, kDkdvThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, S, D, (S + kBlockRows - 1) / kBlockRows,
+      scale, scale * kLog2e, gr);
+  return (int)cudaGetLastError();
+}
+
+template <int kD>
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, void* dqp, int B, int H, int S,
+       int D, float scale, Layout in, Layout og, Layout gr,
+       cudaStream_t stream) {
+  CUtensorMap m[4];
+  int rc = encode_all(m, q, k, v, dout, B, H, S, D, in, og);
+  if (rc) return rc;
+  const size_t smem = sizeof(DqTiles<kD>) + 1024;  // + the alignment slack
+  dim3 grid;
+  rc = prepare(flash_bwd_dq_kernel<kD>, smem, B, H, S, &grid);
+  if (rc) return rc;
+  flash_bwd_dq_kernel<kD><<<grid, kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dqp), H, S, D,
+      (S + kBlockRows - 1) / kBlockRows, scale, scale * kLog2e, gr);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dk, dv (grad layout) bf16 from q, k, v (in layout), dout (its own
+// layout), lse and delta (B, H, S) fp32. dtype is elem.cuh's code, as
+// csrc/flash_blocked.cu takes it; this library takes bf16 (0) alone.
+// Returns a cudaError_t as int (0 on a launch that was accepted), or a code
+// of vtx_cuda_error_string's own when a tensor map could not be made.
+int vtx_flash_bwd_dkdv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int H, int S, int D,
+                       float scale, long long in_sb, long long in_sh,
+                       long long in_sr, long long og_sb, long long og_sh,
+                       long long og_sr, long long gr_sb, long long gr_sh,
+                       long long gr_sr, int dtype, void* stream) {
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
+      gr{gr_sb, gr_sh, gr_sr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, S, D, scale, in,
+                    og, gr, s);
+  return dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, S, D, scale, in,
+                   og, gr, s);
+}
+
+// dq (grad layout) bf16, from the same inputs.
+int vtx_flash_bwd_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dqp, int B, int H, int S, int D, float scale,
+                     long long in_sb, long long in_sh, long long in_sr,
+                     long long og_sb, long long og_sh, long long og_sr,
+                     long long gr_sb, long long gr_sh, long long gr_sr,
+                     int dtype, void* stream) {
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
+      gr{gr_sb, gr_sh, gr_sr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return dq<64>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in, og,
+                  gr, s);
+  return dq<128>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in, og,
+                 gr, s);
+}
+
+const char* vtx_cuda_error_string(int err) { return error_string(err); }
+
+}  // extern "C"

@@ -49,7 +49,9 @@
 //   only by 2^31 / ceil(S / 128).
 //
 // The tensor maps are encoded on the host by cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint, so the library links no -lcuda.
+// through cudaGetDriverEntryPoint, so the library links no -lcuda. The
+// barriers, TMA and wgmma helpers are csrc/hopper.cuh's, shared with the
+// backward (csrc/flash_bwd.cu).
 //
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
 // launches on the caller's stream; the host function returns
@@ -57,31 +59,16 @@
 // not be encoded (vtx_cuda_error_string says which). The caller checks the
 // shapes: 1 <= D <= 128, D a multiple of 8.
 
-#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <stdio.h>
+#include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kBlockM = 128;          // query rows of a block
 constexpr int kBlockN = 128;          // keys of a tile
-constexpr int kPanel = 64;            // bf16 columns of one 128-byte row
 constexpr int kStages = 2;            // K/V ring depth
 constexpr int kConsumerWarps = 8;     // two warpgroups
 constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
 constexpr float kNegInf = -1e30f;     // the TPU kernel's mask value
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kErrNoEntryPoint = 9999;
-constexpr int kErrEncodeBase = 10000;
-
-struct Layout {
-  long long sb, sh, sr;  // element strides of batch, head and row
-};
 
 // One block's shared tiles, each kD / 64 panels of [rows][64] bf16 in the
 // TMA's 128-byte swizzle. Every panel is 16 KB, so each stays 1024-byte
@@ -92,174 +79,6 @@ struct Tiles {
   bf16 k[kStages][kD / kPanel][kBlockN * kPanel];
   bf16 v[kStages][kD / kPanel][kBlockN * kPanel];
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// ---- TMA: one [rows][64] box at (col, row, head, batch) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row,
-                                         int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col),
-      "r"(row), "r"(head), "r"(batch)
-      : "memory");
-}
-
-// ---- wgmma
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 = 128B
-// swizzle. K-major (q, k): rows of 128 bytes, SBO = 1024 between 8-row
-// groups, LBO unused. MN-major (v): SBO = 1024 between groups of 8 keys,
-// LBO = the distance between 64-column panels.
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin accumulator registers in program order around the asynchronous
-// products, so no read or write of them moves across a fence or a wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC8(i)                                                            \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-
-// d[64] (+)= A[64 x 16] B[16 x 128], both from shared memory, K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC64
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d[N/2] += A[64 x 16] B[16 x N]: A from registers (the mma A fragment), B
-// from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : ACC64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef ACC64
-#undef ACC32
-#undef ACC8
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // grid (ceil(S / kBlockM) * B * H): block x is query tile x % n_qt of
 // (b, h) = x / n_qt. Accumulator fragments (wgmma m64nN, f32): thread t of
@@ -295,7 +114,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       bar_init(&v_full[s], 1);
       bar_init(&empty[s], kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 
@@ -436,51 +255,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t rc = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-  cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                           cudaEnableDefault, &found);
-#endif
-  if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess)
-    fn = reinterpret_cast<EncodeTiled>(p);
-  return fn;
-}
-
-// A 4-D map (D, S, H, B) of one bf16 operand with the layout's strides,
-// read in [128 rows][64 columns] boxes, 128-byte swizzled, zeros out of
-// bounds. Returns 0 or a kErrEncodeBase code.
-int encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int H,
-           int S, int D, Layout in) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)in.sr * 2,
-                                 (cuuint64_t)in.sh * 2,
-                                 (cuuint64_t)in.sb * 2};
-  const cuuint32_t box[4] = {kPanel, kBlockN, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult rc = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                          const_cast<void*>(ptr), dims, strides, box, elem,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : kErrEncodeBase + (int)rc;
-}
-
 template <int kD>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int S, int D, float scale, Layout in, Layout out,
@@ -489,9 +263,9 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   EncodeTiled enc = encode_fn();
   if (!enc) return kErrNoEntryPoint;
   CUtensorMap tq, tk, tv;
-  int rc = encode(enc, &tq, q, B, H, S, D, in);
-  if (!rc) rc = encode(enc, &tk, k, B, H, S, D, in);
-  if (!rc) rc = encode(enc, &tv, v, B, H, S, D, in);
+  int rc = encode(enc, &tq, q, B, H, S, D, in, kBlockN);
+  if (!rc) rc = encode(enc, &tk, k, B, H, S, D, in, kBlockN);
+  if (!rc) rc = encode(enc, &tv, v, B, H, S, D, in, kBlockN);
   if (rc) return rc;
   const size_t smem = sizeof(Tiles<kD>) + 1024;  // + the alignment slack
   cudaError_t err = cudaFuncSetAttribute(
@@ -511,29 +285,22 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 extern "C" {
 
 // o (out layout) bf16 and lse (B, H, S) fp32 from q, k, v (in layout).
-// Returns a cudaError_t as int (0 on a launch that was accepted), or a code
-// of vtx_cuda_error_string's own when a tensor map could not be made.
+// dtype is elem.cuh's code, as csrc/flash_blocked.cu takes it; this library
+// takes bf16 (0) alone. Returns a cudaError_t as int (0 on a launch that was
+// accepted), or a code of vtx_cuda_error_string's own when a tensor map
+// could not be made.
 int vtx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   void* lse, int B, int H, int S, int D, float scale,
                   long long in_sb, long long in_sh, long long in_sr,
                   long long out_sb, long long out_sh, long long out_sr,
-                  void* stream) {
+                  int dtype, void* stream) {
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Layout in{in_sb, in_sh, in_sr}, out{out_sb, out_sh, out_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64) return fwd<64>(q, k, v, o, lse, B, H, S, D, scale, in, out, s);
   return fwd<128>(q, k, v, o, lse, B, H, S, D, scale, in, out, s);
 }
 
-const char* vtx_cuda_error_string(int err) {
-  static char msg[96];
-  if (err == kErrNoEntryPoint)
-    return "no cuTensorMapEncodeTiled entry point was found";
-  if (err >= kErrEncodeBase) {
-    snprintf(msg, sizeof(msg), "cuTensorMapEncodeTiled returned CUresult %d",
-             err - kErrEncodeBase);
-    return msg;
-  }
-  return cudaGetErrorString((cudaError_t)err);
-}
+const char* vtx_cuda_error_string(int err) { return error_string(err); }
 
 }  // extern "C"

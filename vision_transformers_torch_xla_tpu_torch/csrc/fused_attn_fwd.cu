@@ -40,20 +40,22 @@
 // loops. When K and V do not fit (long S with wide D), they are read from
 // global memory (L2) through the same loops.
 //
+// Element types: bf16 as above; fp16 and fp32 inputs run the same loops,
+// the bf16 rounding of p a rounding to the inputs' dtype (the TPU kernels'
+// astype; none for fp32), through csrc/elem.cuh.
+//
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
-// launches on the caller's stream; the host function returns
-// cudaGetLastError().
+// launches on the caller's stream; the host function takes the element
+// type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
 #include <cfloat>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "elem.cuh"
 
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
+namespace {
 
 constexpr int kWarps = 8;          // query rows in flight per block
 constexpr int kRowsPerBlock = 64;  // query tile of one block
@@ -105,11 +107,13 @@ __host__ __device__ inline int warp_floats(int D, int S) {
 // [q: D][scores: S] (16-byte aligned), then [K: S x kv_words][V: S x
 // kv_words] when kv_in_smem. kD > 0 fixes the head dim at compile time (a
 // multiple of 4); kD == 0 reads a.D.
-template <int kD>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kWarps * 32)
-fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
+fused_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
                       const Layout a) {
+  typedef Elem<T> E;
+  typedef typename E::Pair Pair;
   extern __shared__ __align__(16) float smem[];
   const int D = kD > 0 ? kD : a.D;
   const int S = a.S;
@@ -119,20 +123,20 @@ fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row0 = (blockIdx.x - bh * a.tiles) * kRowsPerBlock;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int D2 = D >> 1;  // bf16 pairs in a head row
+  const int D2 = D >> 1;  // pairs in a head row
 
-  const bf16* qg = head(q, a, kQ, b, h);
-  bf16* og = head(o, a, kO, b, h);
-  const bf162* kp = reinterpret_cast<const bf162*>(head(k, a, kK, b, h));
-  const bf162* vp = reinterpret_cast<const bf162*>(head(v, a, kV, b, h));
-  int k_stride = a.ss[kK] >> 1, v_stride = a.ss[kV] >> 1;  // in bf16 pairs
+  const T* qg = head(q, a, kQ, b, h);
+  T* og = head(o, a, kO, b, h);
+  const Pair* kp = reinterpret_cast<const Pair*>(head(k, a, kK, b, h));
+  const Pair* vp = reinterpret_cast<const Pair*>(head(v, a, kV, b, h));
+  int k_stride = a.ss[kK] >> 1, v_stride = a.ss[kV] >> 1;  // in pairs
 
   const int wf = warp_floats(D, S);
   float* qs = smem + warp * wf;
   float* sc = qs + D;
   if (a.kv_in_smem) {
-    bf162* ks = reinterpret_cast<bf162*>(smem + kWarps * wf);
-    bf162* vs = ks + S * a.kv_words;
+    Pair* ks = reinterpret_cast<Pair*>(smem + kWarps * wf);
+    Pair* vs = ks + S * a.kv_words;
     for (int i = threadIdx.x; i < S * D2; i += blockDim.x) {
       const int r = i / D2, c = i - r * D2;
       ks[r * a.kv_words + c] = kp[r * k_stride + c];
@@ -146,8 +150,8 @@ fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int row_end = min(row0 + kRowsPerBlock, S);
   for (int r = row0 + warp; r < row_end; r += kWarps) {
-    const bf16* qrow = qg + r * a.ss[kQ];
-    for (int d = lane; d < D; d += 32) qs[d] = __bfloat162float(qrow[d]);
+    const T* qrow = qg + r * a.ss[kQ];
+    for (int d = lane; d < D; d += 32) qs[d] = E::load(qrow[d]);
     __syncwarp();
 
     // s = (q k^T) * scale: lane j takes keys j, j + 32, ...
@@ -163,11 +167,11 @@ fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         qr[d + 3] = t.w;
       }
       for (int j = lane; j < S; j += 32) {
-        const bf162* kr = kp + j * k_stride;
+        const Pair* kr = kp + j * k_stride;
         float a0 = 0.f, a1 = 0.f;
 #pragma unroll
         for (int c = 0; c < kD / 2; ++c) {
-          const float2 kf = __bfloat1622float2(kr[c]);
+          const float2 kf = E::load2(kr[c]);
           a0 = fmaf(qr[2 * c], kf.x, a0);
           a1 = fmaf(qr[2 * c + 1], kf.y, a1);
         }
@@ -177,10 +181,10 @@ fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     } else {
       for (int j = lane; j < S; j += 32) {
-        const bf162* kr = kp + j * k_stride;
+        const Pair* kr = kp + j * k_stride;
         float a0 = 0.f, a1 = 0.f;
         for (int c = 0; c < D2; ++c) {
-          const float2 kf = __bfloat1622float2(kr[c]);
+          const float2 kf = E::load2(kr[c]);
           a0 = fmaf(qs[2 * c], kf.x, a0);
           a1 = fmaf(qs[2 * c + 1], kf.y, a1);
         }
@@ -201,11 +205,11 @@ fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     sum = warp_sum(sum);
     for (int j = lane; j < S; j += 32)
-      sc[j] = __bfloat162float(__float2bfloat16_rn(sc[j] / sum));
+      sc[j] = E::round(sc[j] / sum);
     __syncwarp();
 
     // o = bf16(p) v: lane c takes head-dim pairs c, c + 32
-    bf162* orow = reinterpret_cast<bf162*>(og + r * a.ss[kO]);
+    Pair* orow = reinterpret_cast<Pair*>(og + r * a.ss[kO]);
     if constexpr (kD > 0) {
 #pragma unroll
       for (int c0 = 0; c0 < kD / 2; c0 += 32) {
@@ -218,83 +222,103 @@ fused_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
-              const float2 vf = __bfloat1622float2(vp[(j + u) * v_stride + c]);
+              const float2 vf = E::load2(vp[(j + u) * v_stride + c]);
               ax[u] = fmaf(pj[u], vf.x, ax[u]);
               ay[u] = fmaf(pj[u], vf.y, ay[u]);
             }
           }
           for (; j < S; ++j) {
-            const float2 vf = __bfloat1622float2(vp[j * v_stride + c]);
+            const float2 vf = E::load2(vp[j * v_stride + c]);
             ax[0] = fmaf(sc[j], vf.x, ax[0]);
             ay[0] = fmaf(sc[j], vf.y, ay[0]);
           }
-          orow[c] = __floats2bfloat162_rn((ax[0] + ax[1]) + (ax[2] + ax[3]),
-                                          (ay[0] + ay[1]) + (ay[2] + ay[3]));
+          orow[c] = E::store2((ax[0] + ax[1]) + (ax[2] + ax[3]),
+                              (ay[0] + ay[1]) + (ay[2] + ay[3]));
         }
       }
     } else {
       for (int c = lane; c < D2; c += 32) {
         float ax = 0.f, ay = 0.f;
         for (int j = 0; j < S; ++j) {
-          const float2 vf = __bfloat1622float2(vp[j * v_stride + c]);
+          const float2 vf = E::load2(vp[j * v_stride + c]);
           ax = fmaf(sc[j], vf.x, ax);
           ay = fmaf(sc[j], vf.y, ay);
         }
-        orow[c] = __floats2bfloat162_rn(ax, ay);
+        orow[c] = E::store2(ax, ay);
       }
     }
     __syncwarp();  // qs and sc are rewritten by the warp's next row
   }
 }
 
-template <int kD>
-int launch(bf16* const* t, Layout a, int B, int H, cudaStream_t stream) {
-  // pad K/V rows to an odd number of 32-bit words: conflict-free row reads
+template <typename T, int kD>
+int launch(T* const* t, Layout a, int B, int H, cudaStream_t stream) {
+  // pad K/V rows to an odd number of pairs (of 32-bit words for the 16-bit
+  // types): conflict-free row reads
   const int d2 = a.D / 2;
   a.kv_words = (d2 % 2 == 0) ? d2 + 1 : d2;
   const size_t warp_bytes =
       (size_t)kWarps * warp_floats(a.D, a.S) * sizeof(float);
-  const size_t kv_bytes = 2 * (size_t)a.S * a.kv_words * sizeof(bf162);
+  const size_t kv_bytes =
+      2 * (size_t)a.S * a.kv_words * sizeof(typename Elem<T>::Pair);
   a.kv_in_smem = (kv_bytes + warp_bytes <= kSmemBudget) ? 1 : 0;
   const size_t smem = warp_bytes + (a.kv_in_smem ? kv_bytes : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_attn_fwd_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_attn_fwd_kernel<T, kD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned grid = (unsigned)B * H * a.tiles;
-  fused_attn_fwd_kernel<kD><<<grid, kWarps * 32, smem, stream>>>(
+  fused_attn_fwd_kernel<T, kD><<<grid, kWarps * 32, smem, stream>>>(
       t[kQ], t[kK], t[kV], t[kO], a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(const void* const* ptrs, const Layout& a, int B, int H,
+             cudaStream_t s) {
+  T* t[kTensors];
+  for (int i = 0; i < kTensors; ++i)
+    t[i] = const_cast<T*>(static_cast<const T*>(ptrs[i]));
+  switch (a.D) {
+    case 32: return launch<T, 32>(t, a, B, H, s);
+    case 64: return launch<T, 64>(t, a, B, H, s);
+    case 128: return launch<T, 128>(t, a, B, H, s);
+    default: return launch<T, 0>(t, a, B, H, s);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v in, o out: (B, H, S, D) bf16 with the head dim contiguous;
-// strides holds 12 element strides, (batch, head, token) of q, k, v and o.
-// Returns a cudaError_t as int: 0 on a launch that was accepted.
+// q, k, v in, o out: (B, H, S, D) of the element type `dtype` with the head
+// dim contiguous; strides holds 12 element strides, (batch, head, token) of
+// q, k, v and o. Returns a cudaError_t as int: 0 on a launch that was
+// accepted.
 int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
                        const long long* strides, int B, int S, int H, int D,
-                       float scale, void* stream) {
+                       float scale, int dtype, void* stream) {
   const int tiles = (S + kRowsPerBlock - 1) / kRowsPerBlock;
   if (B < 1 || S < 1 || S > kMaxSeq || H < 1 ||
       (long long)B * H * tiles > kMaxGridX || D < 2 || (D & 1) ||
       D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
+  if (dtype != kBf16 && dtype != kF16 && dtype != kF32)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t pair_bytes = dtype == kF32 ? 8 : 4;
   Layout a;
-  bf16* t_ptr[kTensors];
   const void* ptrs[kTensors] = {q, k, v, o};
   for (int t = 0; t < kTensors; ++t) {
     const long long sb = strides[3 * t], sh = strides[3 * t + 1],
                     ss = strides[3 * t + 2];
-    // rows are read and written as bf16 pairs: 4-byte aligned, even strides
-    if ((reinterpret_cast<uintptr_t>(ptrs[t]) & 3) || ((sb | sh | ss) & 1) ||
-        sb < 0 || sh < 0 || ss < 0 || ss * (S - 1) + D >= (1LL << 31))
+    // rows are read and written as pairs: pair-aligned, even strides
+    if ((reinterpret_cast<uintptr_t>(ptrs[t]) & (pair_bytes - 1)) ||
+        ((sb | sh | ss) & 1) || sb < 0 || sh < 0 || ss < 0 ||
+        ss * (S - 1) + D >= (1LL << 31))
       return (int)cudaErrorInvalidValue;
-    t_ptr[t] = const_cast<bf16*>(static_cast<const bf16*>(ptrs[t]));
     a.sb[t] = sb;
     a.sh[t] = sh;
     a.ss[t] = (int)ss;
@@ -305,11 +329,10 @@ int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
   a.tiles = tiles;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32>(t_ptr, a, B, H, s);
-    case 64: return launch<64>(t_ptr, a, B, H, s);
-    case 128: return launch<128>(t_ptr, a, B, H, s);
-    default: return launch<0>(t_ptr, a, B, H, s);
+  switch (dtype) {
+    case kBf16: return launch_d<__nv_bfloat16>(ptrs, a, B, H, s);
+    case kF16: return launch_d<__half>(ptrs, a, B, H, s);
+    default: return launch_d<float>(ptrs, a, B, H, s);
   }
 }
 

@@ -59,20 +59,22 @@
 // fit in shared memory (long S with wide D) are read from global memory (L2)
 // through the same loops.
 //
+// Element types: bf16 as above; fp16 and fp32 inputs run the same loops,
+// every bf16 rounding point a rounding to the inputs' dtype (the TPU
+// kernels' astype; none for fp32), through csrc/elem.cuh.
+//
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
-// launch on the caller's stream; the host function returns
-// cudaGetLastError().
+// launch on the caller's stream; the host function takes the element
+// type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
 #include <cfloat>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "elem.cuh"
 
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
+namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -114,10 +116,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // One head row of fp32 values: in registers when the head dim kD is fixed at
@@ -142,19 +140,20 @@ struct HeadRow {
     }
   }
 
-  // dot product with a bf16 row of D2 pairs
-  __device__ __forceinline__ float dot(const bf162* x, int D2) const {
+  // dot product with a row of D2 pairs
+  template <typename Pair>
+  __device__ __forceinline__ float dot(const Pair* x, int D2) const {
     float a0 = 0.f, a1 = 0.f;
     if constexpr (kD > 0) {
 #pragma unroll
       for (int c = 0; c < kD / 2; ++c) {
-        const float2 f = __bfloat1622float2(x[c]);
+        const float2 f = load2(x[c]);
         a0 = fmaf(r[2 * c], f.x, a0);
         a1 = fmaf(r[2 * c + 1], f.y, a1);
       }
     } else {
       for (int c = 0; c < D2; ++c) {
-        const float2 f = __bfloat1622float2(x[c]);
+        const float2 f = load2(x[c]);
         a0 = fmaf(s[2 * c], f.x, a0);
         a1 = fmaf(s[2 * c + 1], f.y, a1);
       }
@@ -163,9 +162,10 @@ struct HeadRow {
   }
 };
 
-// sum_j w[j] * x[j][c] over j < n, for the bf16 pair column c of rows
-// `stride` pairs apart; w is 16-byte aligned shared memory.
-__device__ __forceinline__ float2 wsum_col(const float* w, const bf162* x,
+// sum_j w[j] * x[j][c] over j < n, for the pair column c of rows `stride`
+// pairs apart; w is 16-byte aligned shared memory.
+template <typename Pair>
+__device__ __forceinline__ float2 wsum_col(const float* w, const Pair* x,
                                            int stride, int c, int n) {
   float ax[4] = {0.f, 0.f, 0.f, 0.f}, ay[4] = {0.f, 0.f, 0.f, 0.f};
   int j = 0;
@@ -174,13 +174,13 @@ __device__ __forceinline__ float2 wsum_col(const float* w, const bf162* x,
     const float wj[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const float2 f = __bfloat1622float2(x[(j + u) * stride + c]);
+      const float2 f = load2(x[(j + u) * stride + c]);
       ax[u] = fmaf(wj[u], f.x, ax[u]);
       ay[u] = fmaf(wj[u], f.y, ay[u]);
     }
   }
   for (; j < n; ++j) {
-    const float2 f = __bfloat1622float2(x[j * stride + c]);
+    const float2 f = load2(x[j * stride + c]);
     ax[0] = fmaf(w[j], f.x, ax[0]);
     ay[0] = fmaf(w[j], f.y, ay[0]);
   }
@@ -190,7 +190,8 @@ __device__ __forceinline__ float2 wsum_col(const float* w, const bf162* x,
 
 // Copy S rows of D2 pairs (global rows `src_stride` pairs apart) into shared
 // memory rows `pitch` pairs apart.
-__device__ void stage_rows(bf162* dst, int pitch, const bf162* src,
+template <typename Pair>
+__device__ void stage_rows(Pair* dst, int pitch, const Pair* src,
                            int src_stride, int S, int D2) {
   for (int i = threadIdx.x; i < S * D2; i += blockDim.x) {
     const int r = i / D2, c = i - r * D2;
@@ -198,21 +199,24 @@ __device__ void stage_rows(bf162* dst, int pitch, const bf162* src,
   }
 }
 
-// Read a bf16 head row into the warp's fp32 scratch.
-__device__ __forceinline__ void row_to_scratch(float* xs, const bf16* row,
+// Read a head row into the warp's fp32 scratch.
+template <typename T>
+__device__ __forceinline__ void row_to_scratch(float* xs, const T* row,
                                                int D, int lane) {
-  for (int d = lane; d < D; d += 32) xs[d] = __bfloat162float(row[d]);
+  for (int d = lane; d < D; d += 32) xs[d] = Elem<T>::load(row[d]);
   __syncwarp();
 }
 
 // 1. grid B * H. Shared memory: per warp [row: D][p: S][ds: S] (each padded
 // to 16 bytes), then [K: S x pitch][V: S x pitch] when in_smem.
-template <int kD>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
-hp_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 bf16* __restrict__ dqo, float* __restrict__ stats,
+hp_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 T* __restrict__ dqo, float* __restrict__ stats,
                  const Layout a) {
+  typedef Elem<T> E;
+  typedef typename E::Pair Pair;
   extern __shared__ __align__(16) float smem[];
   const int D = kD > 0 ? kD : a.D;
   const int S = a.S;
@@ -223,19 +227,19 @@ hp_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int D2 = D >> 1;
   const long long bh = (long long)b * a.H + h;
 
-  const bf16* qg = head(q, a, kQ, b, h);
-  const bf16* dog = head(dout, a, kDO, b, h);
-  bf16* dqg = head(dqo, a, kDQ, b, h);
-  const bf162* kp = reinterpret_cast<const bf162*>(head(k, a, kK, b, h));
-  const bf162* vp = reinterpret_cast<const bf162*>(head(v, a, kV, b, h));
-  int k_stride = a.ss[kK] >> 1, v_stride = a.ss[kV] >> 1;  // in bf16 pairs
+  const T* qg = head(q, a, kQ, b, h);
+  const T* dog = head(dout, a, kDO, b, h);
+  T* dqg = head(dqo, a, kDQ, b, h);
+  const Pair* kp = reinterpret_cast<const Pair*>(head(k, a, kK, b, h));
+  const Pair* vp = reinterpret_cast<const Pair*>(head(v, a, kV, b, h));
+  int k_stride = a.ss[kK] >> 1, v_stride = a.ss[kV] >> 1;  // in pairs
   const int wf = round4(D) + 2 * round4(S);
   float* xs = smem + warp * wf;
   float* ps = xs + round4(D);
   float* ts = ps + round4(S);
   if (a.in_smem) {
-    bf162* ks = reinterpret_cast<bf162*>(smem + kWarps * wf);
-    bf162* vs = ks + S * a.pitch;
+    Pair* ks = reinterpret_cast<Pair*>(smem + kWarps * wf);
+    Pair* vs = ks + S * a.pitch;
     stage_rows(ks, a.pitch, kp, k_stride, S, D2);
     stage_rows(vs, a.pitch, vp, v_stride, S, D2);
     kp = ks;
@@ -276,16 +280,16 @@ hp_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     const float delta = warp_sum(dsum);
     for (int j = lane; j < S; j += 32)
-      ts[j] = bf16_round(ps[j] * (ts[j] - delta));
+      ts[j] = E::round(ps[j] * (ts[j] - delta));
     __syncwarp();
     // dq = (ds k) scale: lanes split the head dim
-    bf162* dq = reinterpret_cast<bf162*>(dqg + i * a.ss[kDQ]);
+    Pair* dq = reinterpret_cast<Pair*>(dqg + i * a.ss[kDQ]);
 #pragma unroll
     for (int u = 0; u < kPairsPerLane; ++u) {
       const int c = lane + 32 * u;
       if (c < D2) {
         const float2 w = wsum_col(ts, kp, k_stride, c, S);
-        dq[c] = __floats2bfloat162_rn(w.x * scale, w.y * scale);
+        dq[c] = E::store2(w.x * scale, w.y * scale);
       }
     }
     if (lane == 0) {
@@ -300,12 +304,14 @@ hp_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // 2. grid B * H. Shared memory: per warp [row: D][p: S][ds: S], then
 // [m: S][l: S][delta: S], then [q: S x pitch][dO: S x pitch] when in_smem.
-template <int kD>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
-hp_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ stats, bf16* __restrict__ dko,
-                   bf16* __restrict__ dvo, const Layout a) {
+hp_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ stats, T* __restrict__ dko,
+                   T* __restrict__ dvo, const Layout a) {
+  typedef Elem<T> E;
+  typedef typename E::Pair Pair;
   extern __shared__ __align__(16) float smem[];
   const int D = kD > 0 ? kD : a.D;
   const int S = a.S;
@@ -329,15 +335,15 @@ hp_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ls[i] = st[1];
     dl[i] = st[2];
   }
-  const bf16* kg = head(k, a, kK, b, h);
-  const bf16* vg = head(v, a, kV, b, h);
-  bf16* dkg = head(dko, a, kDK, b, h);
-  bf16* dvg = head(dvo, a, kDV, b, h);
-  const bf162* q_p = reinterpret_cast<const bf162*>(head(q, a, kQ, b, h));
-  const bf162* do_p = reinterpret_cast<const bf162*>(head(dout, a, kDO, b, h));
+  const T* kg = head(k, a, kK, b, h);
+  const T* vg = head(v, a, kV, b, h);
+  T* dkg = head(dko, a, kDK, b, h);
+  T* dvg = head(dvo, a, kDV, b, h);
+  const Pair* q_p = reinterpret_cast<const Pair*>(head(q, a, kQ, b, h));
+  const Pair* do_p = reinterpret_cast<const Pair*>(head(dout, a, kDO, b, h));
   int q_stride = a.ss[kQ] >> 1, do_stride = a.ss[kDO] >> 1;  // in pairs
   if (a.in_smem) {
-    bf162* rows = reinterpret_cast<bf162*>(dl + round4(S));
+    Pair* rows = reinterpret_cast<Pair*>(dl + round4(S));
     stage_rows(rows, a.pitch, q_p, q_stride, S, D2);
     stage_rows(rows + S * a.pitch, a.pitch, do_p, do_stride, S, D2);
     q_p = rows;
@@ -360,21 +366,21 @@ hp_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     row.load(xs);
     for (int i = lane; i < S; i += 32) {
       const float p = ps[i];
-      ts[i] = bf16_round(p * (row.dot(do_p + i * do_stride, D2) - dl[i]));
-      ps[i] = bf16_round(p);
+      ts[i] = E::round(p * (row.dot(do_p + i * do_stride, D2) - dl[i]));
+      ps[i] = E::round(p);
     }
     __syncwarp();
     // dk = (ds^T q) scale, dv = bf16(p)^T dO: lanes split the head dim
-    bf162* dk = reinterpret_cast<bf162*>(dkg + j * a.ss[kDK]);
-    bf162* dv = reinterpret_cast<bf162*>(dvg + j * a.ss[kDV]);
+    Pair* dk = reinterpret_cast<Pair*>(dkg + j * a.ss[kDK]);
+    Pair* dv = reinterpret_cast<Pair*>(dvg + j * a.ss[kDV]);
 #pragma unroll
     for (int u = 0; u < kPairsPerLane; ++u) {
       const int c = lane + 32 * u;
       if (c < D2) {
         const float2 wk = wsum_col(ts, q_p, q_stride, c, S);
         const float2 wv = wsum_col(ps, do_p, do_stride, c, S);
-        dk[c] = __floats2bfloat162_rn(wk.x * scale, wk.y * scale);
-        dv[c] = __floats2bfloat162_rn(wv.x, wv.y);
+        dk[c] = E::store2(wk.x * scale, wk.y * scale);
+        dv[c] = E::store2(wv.x, wv.y);
       }
     }
     __syncwarp();  // xs, ps and ts are rewritten by the warp's next row
@@ -387,23 +393,24 @@ int set_smem(const void* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int kD>
-int launch(bf16* const* t, float* stats, Layout a, int B,
-           cudaStream_t stream) {
+template <typename T, int kD>
+int launch(T* const* t, float* stats, Layout a, int B, cudaStream_t stream) {
   const int S = a.S, D = a.D;
-  // pad staged rows to an odd number of 32-bit words: conflict-free reads
+  // pad staged rows to an odd number of pairs (of 32-bit words for the
+  // 16-bit types): conflict-free reads
   const int d2 = D / 2;
   a.pitch = (d2 % 2 == 0) ? d2 + 1 : d2;
-  const size_t rows_bytes = (size_t)S * a.pitch * sizeof(bf162);
+  const size_t rows_bytes =
+      (size_t)S * a.pitch * sizeof(typename Elem<T>::Pair);
   const size_t scratch =
       (size_t)kWarps * (round4(D) + 2 * round4(S)) * sizeof(float);
   const unsigned grid = (unsigned)B * a.H;
 
   a.in_smem = scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
   const size_t dq_smem = scratch + (a.in_smem ? 2 * rows_bytes : 0);
-  int rc = set_smem((const void*)hp_bwd_dq_kernel<kD>, dq_smem);
+  int rc = set_smem((const void*)hp_bwd_dq_kernel<T, kD>, dq_smem);
   if (rc) return rc;
-  hp_bwd_dq_kernel<kD><<<grid, kThreads, dq_smem, stream>>>(
+  hp_bwd_dq_kernel<T, kD><<<grid, kThreads, dq_smem, stream>>>(
       t[kQ], t[kK], t[kV], t[kDO], t[kDQ], stats, a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -411,39 +418,56 @@ int launch(bf16* const* t, float* stats, Layout a, int B,
   const size_t kv_scratch = scratch + 3 * (size_t)round4(S) * sizeof(float);
   a.in_smem = kv_scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
   const size_t kv_smem = kv_scratch + (a.in_smem ? 2 * rows_bytes : 0);
-  rc = set_smem((const void*)hp_bwd_dkdv_kernel<kD>, kv_smem);
+  rc = set_smem((const void*)hp_bwd_dkdv_kernel<T, kD>, kv_smem);
   if (rc) return rc;
-  hp_bwd_dkdv_kernel<kD><<<grid, kThreads, kv_smem, stream>>>(
+  hp_bwd_dkdv_kernel<T, kD><<<grid, kThreads, kv_smem, stream>>>(
       t[kQ], t[kK], t[kV], t[kDO], stats, t[kDK], t[kDV], a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(const void* const* ptrs, float* stats, const Layout& a, int B,
+             cudaStream_t s) {
+  T* t[kTensors];
+  for (int i = 0; i < kTensors; ++i)
+    t[i] = const_cast<T*>(static_cast<const T*>(ptrs[i]));
+  switch (a.D) {
+    case 32: return launch<T, 32>(t, stats, a, B, s);
+    case 64: return launch<T, 64>(t, stats, a, B, s);
+    case 128: return launch<T, 128>(t, stats, a, B, s);
+    default: return launch<T, 0>(t, stats, a, B, s);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, dout in and dq, dk, dv out: (B, H, S, D) bf16 with the head dim
-// contiguous; strides holds 21 element strides, (batch, head, token) of each
-// in that order; stats (B, H, S, 3) fp32 is scratch. Returns a cudaError_t
-// as int: 0 when both launches were accepted.
+// q, k, v, dout in and dq, dk, dv out: (B, H, S, D) of the element type
+// `dtype` with the head dim contiguous; strides holds 21 element strides,
+// (batch, head, token) of each in that order; stats (B, H, S, 3) fp32 is
+// scratch. Returns a cudaError_t as int: 0 when both launches were
+// accepted.
 int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, void* stats,
                const long long* strides, int B, int S, int H, int D,
-               float scale, void* stream) {
+               float scale, int dtype, void* stream) {
   if (B < 1 || S < 1 || S > kMaxSeq || H < 1 ||
       (long long)B * H > kMaxGridX || D < 2 || (D & 1) || D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
+  if (dtype != kBf16 && dtype != kF16 && dtype != kF32)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t pair_bytes = dtype == kF32 ? 8 : 4;
   Layout a;
-  bf16* t_ptr[kTensors];
   const void* ptrs[kTensors] = {q, k, v, dout, dq, dk, dv};
   for (int t = 0; t < kTensors; ++t) {
     const long long sb = strides[3 * t], sh = strides[3 * t + 1],
                     ss = strides[3 * t + 2];
-    // rows are read and written as bf16 pairs: 4-byte aligned, even strides
-    if ((reinterpret_cast<uintptr_t>(ptrs[t]) & 3) || ((sb | sh | ss) & 1) ||
-        sb < 0 || sh < 0 || ss < 0 || ss * (S - 1) + D >= (1LL << 31))
+    // rows are read and written as pairs: pair-aligned, even strides
+    if ((reinterpret_cast<uintptr_t>(ptrs[t]) & (pair_bytes - 1)) ||
+        ((sb | sh | ss) & 1) || sb < 0 || sh < 0 || ss < 0 ||
+        ss * (S - 1) + D >= (1LL << 31))
       return (int)cudaErrorInvalidValue;
-    t_ptr[t] = const_cast<bf16*>(static_cast<const bf16*>(ptrs[t]));
     a.sb[t] = sb;
     a.sh[t] = sh;
     a.ss[t] = (int)ss;
@@ -454,11 +478,10 @@ int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
   a.D = D;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32>(t_ptr, st, a, B, s);
-    case 64: return launch<64>(t_ptr, st, a, B, s);
-    case 128: return launch<128>(t_ptr, st, a, B, s);
-    default: return launch<0>(t_ptr, st, a, B, s);
+  switch (dtype) {
+    case kBf16: return launch_d<__nv_bfloat16>(ptrs, st, a, B, s);
+    case kF16: return launch_d<__half>(ptrs, st, a, B, s);
+    default: return launch_d<float>(ptrs, st, a, B, s);
   }
 }
 

@@ -32,12 +32,22 @@
 // exchange between the two warps of a column, in a fixed order. No float
 // atomics: the result is deterministic. wgmma and TMA are the next step.
 //
-// Plain C interface, loaded with ctypes. The kernel allocates nothing and
-// launches on the caller's stream; the host function returns
-// cudaGetLastError().
+// fp16 and fp32 inputs (the TPU kernel takes any float dtype) run
+// fc2_bwd_cc_kernel, the same function on the CUDA cores: the product in
+// fp32 from the inputs' values (mma.sync has no fp32 product; TF32 would
+// round the inputs), the same GELU epilogue, dh and a rounded to the
+// inputs' dtype (none for fp32, csrc/elem.cuh) and the same fp32 partials
+// per 128-row tile. A block owns a 128 x 64 tile of (M, K) and loops over O
+// in steps of 16, dy and w2 staged in shared memory as fp32; 256 threads
+// as 16 x 16, each 8 rows by 4 columns 16 apart.
+//
+// Plain C interface, loaded with ctypes. The kernels allocate nothing and
+// launch on the caller's stream; the host function takes the element
+// type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -256,18 +266,119 @@ fc2_bwd_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w2,
     part[(long long)blockIdx.y * K + n0 + tid] = red[tid] + red[kBN + tid];
 }
 
+constexpr int kCN = 64;          // hidden columns of a CUDA-core tile
+constexpr int kCK = 16;          // depth of one CUDA-core step (over O)
+constexpr int kCRows = kBM / 16;  // rows of a thread (8)
+constexpr int kCCols = kCN / 16;  // columns of a thread (4)
+
+// The fp16 / fp32 kernel. grid (K / kCN, ceil(M / kBM)); static shared
+// memory: the dy step transposed [o][row] (pitch kBM + 4, float4 reads),
+// the w2 step [o][col], and the column partials of the 16 row groups.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fc2_bwd_cc_kernel(const T* __restrict__ dy, const T* __restrict__ w2,
+                  const T* __restrict__ h, T* __restrict__ dh,
+                  T* __restrict__ a_out, float* __restrict__ part, int M,
+                  int O, int K) {
+  typedef Elem<T> E;
+  __shared__ __align__(16) float as[kCK][kBM + 4];
+  __shared__ float bs[kCK][kCN];
+  __shared__ float red[16][kCN];
+  const int n0 = blockIdx.x * kCN;
+  const int m0 = blockIdx.y * kBM;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+
+  float acc[kCRows][kCCols];
+#pragma unroll
+  for (int i = 0; i < kCRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kCCols; ++j) acc[i][j] = 0.f;
+
+  for (int o0 = 0; o0 < O; o0 += kCK) {
+    __syncthreads();  // every thread is done with the last step
+    for (int i = tid; i < kBM * kCK; i += kThreads) {
+      const int r = i / kCK, c = i % kCK, gm = m0 + r;
+      as[c][r] = gm < M ? E::load(dy[(long long)gm * O + o0 + c]) : 0.f;
+    }
+    for (int i = tid; i < kCK * kCN; i += kThreads) {
+      const int r = i / kCN, c = i % kCN;
+      bs[r][c] = E::load(w2[(long long)(o0 + r) * K + n0 + c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kCK; ++kk) {
+      const float4 x0 = *reinterpret_cast<const float4*>(&as[kk][ty * 8]);
+      const float4 x1 = *reinterpret_cast<const float4*>(&as[kk][ty * 8 + 4]);
+      const float x[kCRows] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int j = 0; j < kCCols; ++j) {
+        const float y = bs[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kCRows; ++i) acc[i][j] = fmaf(x[i], y, acc[i][j]);
+      }
+    }
+  }
+
+  // Epilogue: dh = da gelu'(h), a = gelu(h), the fp32 dh summed per column
+  float colsum[kCCols];
+#pragma unroll
+  for (int j = 0; j < kCCols; ++j) colsum[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kCRows; ++i) {
+    const int gm = m0 + ty * 8 + i;
+    if (gm >= M) continue;
+    const long long row = (long long)gm * K;
+#pragma unroll
+    for (int j = 0; j < kCCols; ++j) {
+      const int col = n0 + tx + 16 * j;
+      const float2 g = gelu_tanh_val_grad(E::load(h[row + col]));
+      const float d = acc[i][j] * g.y;
+      dh[row + col] = E::store(d);
+      a_out[row + col] = E::store(g.x);
+      colsum[j] += d;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kCCols; ++j) red[ty][tx + 16 * j] = colsum[j];
+  __syncthreads();
+  if (tid < kCN) {
+    float sum = 0.f;
+    for (int g = 0; g < 16; ++g) sum += red[g][tid];
+    part[(long long)blockIdx.y * K + n0 + tid] = sum;
+  }
+}
+
+template <typename T>
+int launch_cc(const void* dy, const void* w2, const void* h, void* dh,
+              void* a, void* part, int M, int O, int K, int tiles,
+              cudaStream_t stream) {
+  fc2_bwd_cc_kernel<T><<<dim3(K / kCN, tiles), kThreads, 0, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(w2),
+      static_cast<const T*>(h), static_cast<T*>(dh), static_cast<T*>(a),
+      static_cast<float*>(part), M, O, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dy (M, O), w2 (O, K), h (M, K) bf16 in; dh, a (M, K) bf16 and part
-// (ceil(M / 128), K) fp32 out. Returns a cudaError_t as int: 0 on a launch
-// that was accepted.
+// dy (M, O), w2 (O, K), h (M, K) of the element type `dtype` in; dh, a
+// (M, K) of that type and part (ceil(M / 128), K) fp32 out. Returns a
+// cudaError_t as int: 0 on a launch that was accepted.
 int vtx_fc2_bwd(const void* dy, const void* w2, const void* h, void* dh,
-                void* a, void* part, int M, int O, int K, void* stream) {
+                void* a, void* part, int M, int O, int K, int dtype,
+                void* stream) {
   const int tiles = (M + kBM - 1) / kBM;
   if (M < 1 || tiles > 65535 || O < kBK || O % 128 || K < kBN || K % 128)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF16)
+    return launch_cc<__half>(dy, w2, h, dh, a, part, M, O, K, tiles, s);
+  if (dtype == kF32)
+    return launch_cc<float>(dy, w2, h, dh, a, part, M, O, K, tiles, s);
+  if (dtype != kBf16) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fc2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);

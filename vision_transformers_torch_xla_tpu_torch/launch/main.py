@@ -4,13 +4,11 @@ Counterpart of vision_transformers_torch_xla_tpu/launch/main.py (`setup`,
 `train_one_epoch`, `evaluate`, `main`; :162-521) on one device: the same
 flags (core/config.py), the same prints and the same returned dicts. As
 in the JAX trainer, `--pallas_attn on`, or `auto` (the default) on the
-card, builds the model with `use_pallas_attn`: the train step then runs
-the attention kernels forward and backward (ops/flash_attention.py,
-ops/flash_blocked.py), and `--pallas_attn off` and `auto` on the CPU run
-plain attention. The kernels on the card are bf16 kernels, so there
-`auto` with another compute dtype (`--precision fp32`) runs plain
-attention and `on` raises (`pallas_attn_switch`). Host metrics are read
-only at log_freq.
+card, builds the model with `use_pallas_attn`, whatever the compute dtype
+(`pallas_attn_switch`): the train step then runs the attention kernels
+forward and backward (ops/flash_attention.py, ops/flash_blocked.py), in
+bf16, fp16 or fp32, and `--pallas_attn off` and `auto` on the CPU run
+plain attention. Host metrics are read only at log_freq.
 
     python -m vision_transformers_torch_xla_tpu_torch.launch.main \
         --model my_vit_b --act_layer gelu_tanh --data_set synthetic \
@@ -124,30 +122,20 @@ def check_slice(cfg: TrainConfig) -> None:
                 f"{what} is not in the port yet (ROADMAP {item})")
 
 
-def pallas_attn_switch(pallas_attn: str, device: torch.device,
-                       compute_dtype: torch.dtype) -> bool:
+def pallas_attn_switch(pallas_attn: str, device: torch.device) -> bool:
     """`use_pallas_attn` for `--pallas_attn`, as the JAX trainer sets it
-    (launch/main.py:207-211): `on`, or `auto` off the CPU. The one
-    difference: the port's attention kernels on the card take bf16 only,
-    where the JAX kernels take any float dtype. So on the card `auto` with
-    another compute dtype is off, and `on` raises, before any kernel is
-    built."""
-    on_card = device.type != "cpu"
-    if pallas_attn == "on" and on_card and compute_dtype != torch.bfloat16:
-        raise ValueError(
-            f"--pallas_attn on: the attention kernels on {device} take "
-            f"bfloat16, not {compute_dtype}; use --pallas_attn auto or off")
-    return pallas_attn == "on" or (
-        pallas_attn == "auto" and on_card
-        and compute_dtype == torch.bfloat16)
+    (launch/main.py:207-211): `on`, or `auto` off the CPU, for every
+    compute dtype: the port's kernels take bf16, fp16 and fp32 on the card,
+    as the JAX kernels take any float dtype."""
+    return pallas_attn == "on" or (pallas_attn == "auto"
+                                   and device.type != "cpu")
 
 
 def setup(cfg: TrainConfig) -> TrainerContext:
     check_slice(cfg)
     device = resolve_device(cfg.device)
     policy = get_policy(cfg.precision)
-    want_pallas = pallas_attn_switch(cfg.pallas_attn, device,
-                                     policy.compute_dtype)
+    want_pallas = pallas_attn_switch(cfg.pallas_attn, device)
 
     train_ds, info = build_dataset(cfg, is_train=True)
     val_ds, val_info = build_dataset(cfg, is_train=False) \

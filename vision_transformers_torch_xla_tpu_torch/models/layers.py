@@ -260,9 +260,9 @@ class Attention(nn.Module):
     * 'qkv_cols', S > 1024: the qkv Dense, then `fused_attention_qkv_cols`
       (the blocked kernels K4-K6 of ops/flash_blocked.py), then the proj
       Dense.
-    The CUDA kernels run on the card, in bf16 only (a CUDA tensor of
-    another dtype raises in the wrapper), their plain versions on the CPU,
-    in any float dtype.
+    The CUDA kernels run on the card, in bf16, fp16 or fp32 (a CUDA tensor
+    of another dtype raises in the wrapper), their plain versions on the
+    CPU, in any float dtype.
     * 'plain': the qkv Dense, the heads split, q_norm/k_norm, the
       fp32-softmax attention (`reference_attention`, the counterpart of
       JAX's multi_head_attention(use_pallas=False)) or, with an active

@@ -2,8 +2,9 @@
 
 Each library is compiled by nvcc for ``sm_90a`` from ``csrc/`` into a plain
 C-ABI shared object under ``build/kernels/`` at the root of the checkout.
-The file name carries a hash of the sources and the flags, so an edited
-source rebuilds and an unchanged one loads what is already there. Nothing
+The file name carries a hash of the sources, of every header under
+``csrc/`` (which the sources include) and of the flags, so an edited source
+or header rebuilds and an unchanged one loads what is already there. Nothing
 here runs at import time, so the module imports on a host without nvcc
 (the CPU tests).
 """
@@ -18,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -45,12 +48,29 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _library_path(name: str, sources: Sequence[str]) -> Path:
+def _library_path(name: str, sources: Sequence[str],
+                  csrc: Path = CSRC_DIR) -> Path:
+    """The library's file under BUILD_DIR, named by a hash of the flags,
+    the sources and every header under `csrc` (only the sources go to
+    nvcc)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(p.name for p in csrc.iterdir()
+                     if p.suffix in (".cuh", ".h"))
+    for src in (*sources, *headers):
         digest.update(src.encode())
-        digest.update((CSRC_DIR / src).read_bytes())
+        digest.update((csrc / src).read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+# the element types every kernel of the port takes, in the order of
+# csrc/elem.cuh's codes (0, 1, 2)
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+DTYPE_CODES = {dtype: code for code, dtype in enumerate(KERNEL_DTYPES)}
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The csrc/elem.cuh code of a torch dtype (bf16, fp16 or fp32)."""
+    return DTYPE_CODES[dtype]
 
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:

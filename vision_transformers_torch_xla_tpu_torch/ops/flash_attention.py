@@ -50,9 +50,12 @@ and D to 8 and the G batching of `_pick_g` have no counterpart: the kernels
 loop over the S real keys. S > MAX_SEQ takes `reference_attention`, as in
 JAX.
 
-The kernels on the card are bf16 kernels: the wrappers raise TypeError for
-CUDA tensors of another dtype, and so do the entry points that reach them.
-Which route a model takes is decided where it is built
+Every kernel takes bf16, fp16 and fp32 on the card, as the JAX kernels take
+any float dtype: the CUDA sources are templated on the element type, compute
+in fp32 and round where the JAX kernels cast to the inputs' dtype (an
+identity in fp32). Each wrapper picks the instantiation by dtype; tensors of
+mixed dtypes, or of another dtype, raise TypeError before any launch. Which
+route a model takes is decided where it is built
 (`models/layers.py::attention_route`, `launch/main.py::setup`).
 
 Each wrapper runs its plain version (`attn_fwd_reference`,
@@ -73,6 +76,9 @@ from vision_transformers_torch_xla_tpu_torch.ops.attention import (
     reference_attention,
 )
 from vision_transformers_torch_xla_tpu_torch.ops.bias_grad import bias_add
+from vision_transformers_torch_xla_tpu_torch.ops.cuda_build import (
+    KERNEL_DTYPES,
+)
 from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
     FlashAttentionBlocked,
     heads,
@@ -108,28 +114,31 @@ def _load(name: str, fn: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
+# Every host function ends with (element type's code, stream).
 def build_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the forward kernel's library."""
     return _load("attn_fwd", "vtx_attn_fwd",
-                 [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P])
+                 [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 
 
 def build_bwd_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the backward kernels' library."""
     return _load("attn_bwd", "vtx_attn_bwd",
-                 [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _P])
+                 [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _I, _P])
 
 
 def build_hp_bwd_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the backward of K8, K10 and K12."""
     return _load("hp_bwd", "vtx_hp_bwd",
-                 [_P] * 8 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _P])
+                 [_P] * 8 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _I,
+                             _P])
 
 
 def build_fused_fwd_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the forward of K7 and K11."""
     return _load("fused_attn_fwd", "vtx_fused_attn_fwd",
-                 [_P] * 4 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _P])
+                 [_P] * 4 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _I,
+                             _P])
 
 
 def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
@@ -148,18 +157,19 @@ def _scale(qkv: torch.Tensor, num_heads: int,
 def _check_cuda(name: str, tensors, s: int, d: int, b: int,
                 num_heads: int, views: bool = False) -> None:
     """The kernels' contract; raises on what they do not take. `views`:
-    the tensors are (B, H, S, D) views, all bf16, that `_launch_views`
+    the tensors are (B, H, S, D) views of one dtype that `_launch_views`
     hands to the kernels (K7, K8, K10-K12) in place or copied, so only S
-    and D <= 128 bind them; else contiguous tensors whose first three are
-    bf16, with an even D and B, H <= 65535 (K1, K2, K9, and K10's qkv
-    buffer)."""
+    and D <= 128 bind them; else contiguous tensors whose first three share
+    one dtype, with an even D and B, H <= 65535 (K1, K2, K9, and K10's qkv
+    buffer). The dtype is one of KERNEL_DTYPES."""
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
     typed = tensors if views else tensors[:3]
-    if any(t.dtype != torch.bfloat16 for t in typed):
-        raise TypeError(f"the attention kernels take bfloat16, not "
-                        f"{[t.dtype for t in typed]}")
+    dtypes = {t.dtype for t in typed}
+    if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
+        raise TypeError(f"the attention kernels take tensors of one of "
+                        f"{KERNEL_DTYPES}, not {[t.dtype for t in typed]}")
     if s > MAX_SEQ:
         raise ValueError(
             f"sequence {s} > {MAX_SEQ}: {name} takes S <= {MAX_SEQ}; longer "
@@ -183,16 +193,16 @@ def _stride_array(tensors, s: int, d: int):
     """The (batch, head, token) element strides of (B, H, S, D) views, 0
     for a dimension of size 1 (its stride is arbitrary), as the kernels'
     int64 array; None where the kernels cannot take the views in place.
-    They read and write rows as bf16 pairs and one head's rows by int
-    offsets: an even, contiguous head dim, even strides, 4-byte-aligned
-    data and < 2^31 elements over one head's rows."""
+    They read and write rows as pairs of elements and one head's rows by
+    int offsets: an even, contiguous head dim, even strides, data aligned
+    to a pair and < 2^31 elements over one head's rows."""
     if d % 2:
         return None
     vals = []
     for t in tensors:
         st = [x if n > 1 else 0 for n, x in zip(t.shape[:3], t.stride()[:3])]
-        if t.stride(-1) != 1 or t.data_ptr() % 4 or any(x % 2 for x in st) \
-                or st[2] * (s - 1) + d >= 2 ** 31:
+        if t.stride(-1) != 1 or t.data_ptr() % (2 * t.element_size()) \
+                or any(x % 2 for x in st) or st[2] * (s - 1) + d >= 2 ** 31:
             return None
         vals += st
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -260,7 +270,8 @@ def _launch_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = lib.vtx_attn_fwd(qkv.data_ptr(), o.data_ptr(),
                               st.data_ptr() if st is not None else None,
-                              b, s, num_heads, d, scale, stream)
+                              b, s, num_heads, d, scale,
+                              cuda_build.dtype_code(qkv.dtype), stream)
     _raise_on(lib, rc, "attention forward")
     return o, st
 
@@ -363,7 +374,8 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
             qkv.data_ptr(), do.data_ptr(), o.data_ptr(), st.data_ptr(),
             dqkv.data_ptr(), dbias.data_ptr(), scratch[0].data_ptr(),
             scratch[1].data_ptr(), scratch[2].data_ptr(), delta.data_ptr(),
-            b, s, num_heads, d, scale, stream)
+            b, s, num_heads, d, scale, cuda_build.dtype_code(qkv.dtype),
+            stream)
     _raise_on(lib, rc, "attention backward")
     ATTN_BWD_LAUNCHES += 1
     return dqkv, dbias
@@ -422,7 +434,7 @@ def hp_bwd_reference(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
 
 def _launch_bwd(ins, outs, scale: float, name: str) -> None:
     """csrc/hp_bwd.cu (two launches a call): q, k, v, dO in and dq, dk, dv
-    out, all (B, H, S, D) bf16 read and written by stride
+    out, all (B, H, S, D) of one dtype, read and written by stride
     (`_launch_views`)."""
     b, h, s, d = ins[0].shape
     _check_cuda(name, (*ins, *outs), s, d, b, h, views=True)
@@ -437,7 +449,7 @@ def _launch_bwd(ins, outs, scale: float, name: str) -> None:
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.vtx_hp_bwd(*(t.data_ptr() for t in (*ins, *outs)),
                                 stats.data_ptr(), strides, b, s, h, d, scale,
-                                stream)
+                                cuda_build.dtype_code(ins[0].dtype), stream)
         _raise_on(lib, rc, f"{name} attention backward")
 
     _launch_views(launch, ins, outs, name)
@@ -488,8 +500,8 @@ class HeadPairAttention(torch.autograd.Function):
 
 
 def _launch_fused_fwd(q, k, v, o, scale: float, name: str) -> None:
-    """csrc/fused_attn_fwd.cu: q, k, v in and o out, all (B, H, S, D) bf16
-    read and written by stride (`_launch_views`)."""
+    """csrc/fused_attn_fwd.cu: q, k, v in and o out, all (B, H, S, D) of
+    one dtype, read and written by stride (`_launch_views`)."""
     b, h, s, d = q.shape
     _check_cuda(name, (q, k, v, o), s, d, b, h, views=True)
     lib = build_fused_fwd_kernels()
@@ -500,7 +512,7 @@ def _launch_fused_fwd(q, k, v, o, scale: float, name: str) -> None:
             stream = torch.cuda.current_stream(q.device).cuda_stream
             rc = lib.vtx_fused_attn_fwd(
                 *(t.data_ptr() for t in (*ins, *outs)), strides, b, s, h, d,
-                scale, stream)
+                scale, cuda_build.dtype_code(ins[0].dtype), stream)
         _raise_on(lib, rc, f"{name} attention forward")
 
     _launch_views(launch, (q, k, v), (o,), name)

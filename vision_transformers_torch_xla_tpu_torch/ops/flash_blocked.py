@@ -1,31 +1,38 @@
 """Blocked flash attention (online softmax) for long sequences.
 
 Counterpart of vision_transformers_torch_xla_tpu/ops/flash_blocked.py: the
-long-sequence path (S > 1024, high-resolution ViTs). Three kernels:
+long-sequence path (S > 1024, high-resolution ViTs). Three kernels, each
+in bf16 on the tensor cores and in fp16 and fp32 on the CUDA cores (the
+JAX kernels take any float dtype):
 
-* `flash_fwd` -> csrc/flash_fwd.cu, the port of `_fwd_kernel` (:33,
-  ROADMAP K4), on the tensor cores (TMA and wgmma): o and the row
-  logsumexp lse = m + log(l);
-* `flash_bwd_dkdv` -> csrc/flash_blocked.cu, the port of `_bwd_dkdv_kernel`
-  (:109, K5), and `flash_bwd_dq`, the port of `_bwd_dq_kernel` (:157, K6),
-  both from
+* `flash_fwd`, the port of `_fwd_kernel` (:33, ROADMAP K4): o and the row
+  logsumexp lse = m + log(l); bf16 -> csrc/flash_fwd.cu (TMA and wgmma);
+* `flash_bwd_dkdv`, the port of `_bwd_dkdv_kernel` (:109, K5), and
+  `flash_bwd_dq`, the port of `_bwd_dq_kernel` (:157, K6), both from
   p = exp(s - lse) and delta = rowsum(dO·O), which a torch op computes
-  (`flash_delta`; JAX computes it outside Pallas too); `flash_bwd` runs
-  the three.
+  (`flash_delta`; JAX computes it outside Pallas too); bf16 ->
+  csrc/flash_bwd.cu (TMA and wgmma); `flash_bwd` runs the three.
+
+fp16 and fp32 go to csrc/flash_blocked.cu, CUDA-core loops that round where
+the JAX kernels cast to the inputs' dtype and compute in fp32.
 
 `FlashAttentionBlocked` is the custom VJP `_flash_attention_padded`
 (:247-266) as an autograd Function, and `flash_attention_blocked` the
 public entry (:269). The wrappers take (B, H, S, D) tensors of any
-strides whose head dim is contiguous, so views of a fused (B, S, 3·H·D) qkv
-buffer go in as they are (`heads`). K4 reads them through TMA tensor maps,
-which need 16-byte-aligned data and strides and a head dim that is a
-multiple of 8; other q, k, v are first copied once into contiguous
+strides, so views of a fused (B, S, 3·H·D) qkv buffer go in as they are
+(`heads`). The bf16 kernels read them through TMA tensor maps, which need
+16-byte-aligned data and strides and a head dim that is a multiple of 8
+(`tma_ready`); the CUDA-core kernels need q, k and v of one layout with a
+contiguous head dim. Other inputs are first copied once into contiguous
 buffers with the head dim zero-padded (`padded_copy`, which the strided
-kernels of ops/flash_attention.py share; `COPIES` counts its calls). o comes back as a (B, H, S, D) view of
-(B, S, H, D) memory, and K5 and K6 write dq, dk, dv into the tensors they
-are given, which `flash_bwd` makes views of one (B, S, 3·H·D) buffer. The
-TPU padding of S to 256 (:274-281) is a tiling device: the kernels mask the
-ragged last tile and the plain versions work on the unpadded S.
+kernels of ops/flash_attention.py share; `COPIES` counts its calls), and
+outputs the kernels cannot write in place go through temporaries. o comes
+back as a (B, H, S, D) view of (B, S, H, D) memory, and K5 and K6 write dq,
+dk, dv into the tensors they are given, which `flash_bwd` makes views of
+one (B, S, 3·H·D) buffer. The grids are one-dimensional, so B·H is not
+bound by a grid's y limit. The TPU padding of S to 256 (:274-281) is a
+tiling device: the kernels mask the ragged last tile and the plain versions
+work on the unpadded S.
 
 Each wrapper runs its plain version (`flash_fwd_reference`,
 `flash_bwd_dkdv_reference`, `flash_bwd_dq_reference`) only for tensors on
@@ -40,20 +47,22 @@ from typing import Optional, Tuple
 import torch
 
 from vision_transformers_torch_xla_tpu_torch.ops import cuda_build
+from vision_transformers_torch_xla_tpu_torch.ops.cuda_build import (
+    KERNEL_DTYPES,
+)
 
 log = logging.getLogger(__name__)
 
 MAX_HEAD_DIM = 128
-MAX_GRID_DIM = 65535  # K5, K6: batch x heads ride the grid's y dimension
-TMA_ALIGN = 8  # elements: K4's tensor maps want 16-byte strides and data
+TMA_ALIGN = 8  # elements: the tensor maps want 16-byte strides and data
 
 # Launches of the blocked kernels in this process. Only the wrappers'
 # launches add to them; callers may reset them to 0.
 FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DKDV_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
-# Kernel calls whose operands `padded_copy` copied first (K4 here; K7, K8,
-# K10-K12 in ops/flash_attention.py)
+# Kernel calls whose operands `padded_copy` copied first (K4-K6 here; K7,
+# K8, K10-K12 in ops/flash_attention.py)
 COPIES = 0
 
 _P = ctypes.c_void_p
@@ -72,21 +81,38 @@ def _load(name: str, sigs) -> ctypes.CDLL:
     return lib
 
 
+_FWD_ARGS = [_P] * 5 + [_I] * 4 + [ctypes.c_float] + _LAYOUT * 2
+_DKDV_ARGS = [_P] * 8 + [_I] * 4 + [ctypes.c_float] + _LAYOUT * 3
+_DQ_ARGS = [_P] * 7 + [_I] * 4 + [ctypes.c_float] + _LAYOUT * 3
+
+
+# every library's functions end with the element type's code and the stream
+_FWD_SIGS = {"vtx_flash_fwd": _FWD_ARGS + [_I, _P]}
+_BWD_SIGS = {"vtx_flash_bwd_dkdv": _DKDV_ARGS + [_I, _P],
+             "vtx_flash_bwd_dq": _DQ_ARGS + [_I, _P]}
+
+
 def build_fwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the forward kernel's library (K4)."""
-    return _load("flash_fwd", {
-        "vtx_flash_fwd": [_P] * 5 + [_I] * 4 + [ctypes.c_float]
-        + _LAYOUT * 2 + [_P]})
+    """Build (at first use) and load the bf16 forward's library (K4)."""
+    return _load("flash_fwd", _FWD_SIGS)
+
+
+def build_bwd_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the bf16 backward's library (K5,
+    K6)."""
+    return _load("flash_bwd", _BWD_SIGS)
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the backward kernels' library (K5,
-    K6)."""
-    return _load("flash_blocked", {
-        "vtx_flash_bwd_dkdv": [_P] * 8 + [_I] * 4 + [ctypes.c_float]
-        + _LAYOUT * 3 + [_P],
-        "vtx_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [ctypes.c_float]
-        + _LAYOUT * 3 + [_P]})
+    """Build (at first use) and load the fp16 and fp32 library (K4, K5,
+    K6 on the CUDA cores)."""
+    return _load("flash_blocked", {**_FWD_SIGS, **_BWD_SIGS})
+
+
+def _library(q: torch.Tensor, bf16_lib) -> ctypes.CDLL:
+    """The library for q's dtype: `bf16_lib` (the tensor cores') for bf16,
+    the CUDA-core one for fp16 and fp32."""
+    return bf16_lib() if q.dtype == torch.bfloat16 else build_kernels()
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -160,25 +186,19 @@ def _layout(t: torch.Tensor):
     return tuple(int(x) for x in t.stride()[:3])
 
 
-def _check_cuda(name: str, tensors, grid_y: bool = True) -> None:
-    """The kernels' contract; raises on what they do not take. grid_y: the
-    kernel puts batch x heads on the grid's y dimension (K5, K6) and reads
-    rows by stride with a contiguous head dim."""
+def _check_cuda(name: str, tensors) -> None:
+    """The kernels' contract; raises on what they do not take: tensors of
+    one dtype among KERNEL_DTYPES, a head dim <= 128."""
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"the blocked attention kernels take bfloat16, not "
-                        f"{[t.dtype for t in tensors]}")
-    b, h, _, d = tensors[0].shape
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} must be <= {MAX_HEAD_DIM}")
-    if not grid_y:
-        return
-    if b * h > MAX_GRID_DIM:
-        raise ValueError(f"batch x heads {b * h} must be <= {MAX_GRID_DIM}")
-    if any(t.stride(-1) != 1 for t in tensors):
-        raise ValueError(f"{name} takes tensors whose head dim is contiguous")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
+        raise TypeError(f"the blocked attention kernels take tensors of one "
+                        f"of {KERNEL_DTYPES}, not {[t.dtype for t in tensors]}")
+    if tensors[0].shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {tensors[0].shape[-1]} must be <= "
+                         f"{MAX_HEAD_DIM}")
 
 
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -194,32 +214,53 @@ def _same_shape(q, k, v) -> None:
                          f"{tuple(v.shape)}")
 
 
-def _qkv_layout(q, k, v) -> Tuple[int, int, int]:
-    _same_shape(q, k, v)
-    if not _layout(q) == _layout(k) == _layout(v):
-        raise ValueError(f"q, k and v must share one layout, not strides "
-                         f"{q.stride()}, {k.stride()}, {v.stride()}")
-    return _layout(q)
-
-
 def _tma_layout(t: torch.Tensor) -> Tuple[int, int, int]:
-    """(batch, head, row) element strides for K4's tensor maps. A dimension
-    of size 1 is never stepped, so its stride is arbitrary in torch; it
-    takes the row width, which TMA accepts."""
+    """(batch, head, row) element strides as the kernels take them (the
+    tensor maps of the bf16 ones, the CUDA-core loops). A dimension of size
+    1 is never stepped, so its stride is arbitrary in torch; it takes the
+    row width, which TMA accepts."""
     fill = -(-t.shape[-1] // TMA_ALIGN) * TMA_ALIGN
     return tuple(int(x) if n > 1 else fill
                  for n, x in zip(t.shape[:3], t.stride()[:3]))
 
 
 def tma_ready(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether K4's tensor maps read q, k and v in place: one layout, a
-    contiguous head dim that is a multiple of 8, 16-byte-aligned data and
-    strides."""
+    """Whether the bf16 kernels' tensor maps read q, k and v in place: one
+    layout, a contiguous head dim that is a multiple of 8, 16-byte-aligned
+    data and strides."""
     layouts = {_tma_layout(t) for t in (q, k, v)}
     return (len(layouts) == 1 and q.shape[-1] % TMA_ALIGN == 0
             and all(x % TMA_ALIGN == 0 for x in layouts.pop())
             and all(t.stride(-1) == 1 and t.data_ptr() % (2 * TMA_ALIGN) == 0
                     for t in (q, k, v)))
+
+
+def _in_place(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the kernels of q's dtype read q, k and v in place: TMA's
+    rule for bf16 (`tma_ready`); one layout with a contiguous head dim for
+    the CUDA-core kernels."""
+    if q.dtype == torch.bfloat16:
+        return tma_ready(q, k, v)
+    return (_tma_layout(q) == _tma_layout(k) == _tma_layout(v)
+            and all(t.stride(-1) == 1 for t in (q, k, v)))
+
+
+def _writable(outs) -> bool:
+    """Whether the kernels write `outs` in place: one layout with a
+    contiguous head dim; the bf16 kernels store pairs, so also even strides
+    and 4-byte-aligned data."""
+    if len({_layout(t) for t in outs}) != 1 or any(
+            t.stride(-1) != 1 for t in outs):
+        return False
+    return outs[0].dtype != torch.bfloat16 or all(
+        t.data_ptr() % 4 == 0 and all(x % 2 == 0 for x in _layout(t))
+        for t in outs)
+
+
+def _copy_multiple(t: torch.Tensor) -> int:
+    """The head-dim multiple a copy pads to: TMA's 8 for bf16, none for the
+    CUDA-core kernels."""
+    return TMA_ALIGN if t.dtype == torch.bfloat16 else 1
 
 
 def padded_copy(tensors, multiple: int, name: str):
@@ -247,42 +288,41 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention, q, k, v (B, H, S, D) -> o (B, H, S, D), a view of
     (B, S, H, D) memory, and the row logsumexp lse (B, H, S) fp32. On the
-    card, q, k and v that TMA cannot read in place (`tma_ready`) are copied
-    once first; D > 128 raises."""
+    card, q, k and v that the kernel cannot read in place (`_in_place`) are
+    copied once first; D > 128 raises."""
     global FLASH_FWD_LAUNCHES
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale)
     _same_shape(q, k, v)
-    _check_cuda("flash_fwd", (q, k, v), grid_y=False)
+    _check_cuda("flash_fwd", (q, k, v))
     b, h, s, d = q.shape
-    if not tma_ready(q, k, v):
-        q, k, v = padded_copy((q, k, v), TMA_ALIGN, "flash_fwd")
+    if not _in_place(q, k, v):
+        q, k, v = padded_copy((q, k, v), _copy_multiple(q), "flash_fwd")
     dp = q.shape[-1]
     o = torch.empty((b, s, h, dp), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = build_fwd_kernels()
+    lib = _library(q, build_fwd_kernels)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vtx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                o.data_ptr(), lse.data_ptr(), b, h, s, dp,
-                               scale, *_tma_layout(q), *_layout(o), stream)
+                               scale, *_tma_layout(q), *_layout(o),
+                               cuda_build.dtype_code(q.dtype), stream)
     _raise_on(lib, rc, "blocked attention forward")
     FLASH_FWD_LAUNCHES += 1
     return (o[..., :d] if dp != d else o), lse
 
 
-def _bwd_checks(name, q, k, v, do, lse, delta, outs):
+def _bwd_checks(name, q, k, v, do, lse, delta, outs) -> None:
     """The backward kernels' contract on their inputs and the outputs they
-    write; returns the q, k, v layout."""
-    in_l = _qkv_layout(q, k, v)
+    write."""
+    _same_shape(q, k, v)
     if do.shape != q.shape or any(t.shape != q.shape for t in outs):
         raise ValueError(f"do {tuple(do.shape)} and the outputs "
                          f"{[tuple(t.shape) for t in outs]} must be of q's "
                          f"shape {tuple(q.shape)}")
-    if len({_layout(t) for t in outs}) != 1:
-        raise ValueError(f"{name}'s outputs must share one layout")
     if lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
         raise ValueError(f"lse {tuple(lse.shape)} and delta "
                          f"{tuple(delta.shape)} must be (B, H, S) = "
@@ -295,7 +335,34 @@ def _bwd_checks(name, q, k, v, do, lse, delta, outs):
         raise ValueError(f"lse and delta must be on {q.device}")
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError(f"{name} takes contiguous lse and delta")
-    return in_l
+
+
+def _launch_bwd(name: str, fn: str, q, k, v, do, lse, delta, outs,
+                scale: float) -> None:
+    """One launch of backward kernel `fn` of q's dtype, writing `outs`. q,
+    k, v and do that it cannot read in place are copied once
+    (`padded_copy`); outputs it cannot write in place, or of a padded head
+    dim, go through temporaries that are then copied into `outs`."""
+    _bwd_checks(name, q, k, v, do, lse, delta, outs)
+    if not (_in_place(q, k, v) and _in_place(do, do, do)):
+        q, k, v, do = padded_copy((q, k, v, do), _copy_multiple(q), name)
+    b, h, s, dp = q.shape
+    d = outs[0].shape[-1]
+    direct = dp == d and _writable(outs)
+    dst = outs if direct else [torch.empty(q.shape, dtype=q.dtype,
+                                           device=q.device) for _ in outs]
+    lib = _library(q, build_bwd_kernels)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in dst),
+            b, h, s, dp, scale, *_tma_layout(q), *_tma_layout(do),
+            *_layout(dst[0]), cuda_build.dtype_code(q.dtype), stream)
+    _raise_on(lib, rc, f"blocked attention backward ({name})")
+    if not direct:
+        for t, tmp in zip(outs, dst):
+            t.copy_(tmp[..., :d])
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv,
@@ -308,16 +375,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv,
     if q.device.type == "cpu":
         dk_r, dv_r = flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale)
         return dk.copy_(dk_r), dv.copy_(dv_r)
-    in_l = _bwd_checks("flash_bwd_dkdv", q, k, v, do, lse, delta, (dk, dv))
-    b, h, s, d = q.shape
-    lib = build_kernels()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.vtx_flash_bwd_dkdv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, s, d, scale, *in_l, *_layout(do), *_layout(dk), stream)
-    _raise_on(lib, rc, "blocked attention backward (dk, dv)")
+    _launch_bwd("flash_bwd_dkdv", "vtx_flash_bwd_dkdv", q, k, v, do, lse,
+                delta, (dk, dv), scale)
     FLASH_BWD_DKDV_LAUNCHES += 1
     return dk, dv
 
@@ -331,16 +390,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, dq,
     if q.device.type == "cpu":
         return dq.copy_(flash_bwd_dq_reference(q, k, v, do, lse, delta,
                                                scale))
-    in_l = _bwd_checks("flash_bwd_dq", q, k, v, do, lse, delta, (dq,))
-    b, h, s, d = q.shape
-    lib = build_kernels()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.vtx_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, s, d,
-            scale, *in_l, *_layout(do), *_layout(dq), stream)
-    _raise_on(lib, rc, "blocked attention backward (dq)")
+    _launch_bwd("flash_bwd_dq", "vtx_flash_bwd_dq", q, k, v, do, lse, delta,
+                (dq,), scale)
     FLASH_BWD_DQ_LAUNCHES += 1
     return dq
 

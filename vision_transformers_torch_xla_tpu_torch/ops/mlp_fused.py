@@ -11,8 +11,10 @@ device memory into the product that gives da anyway:
     db1 = Σ dh                          fp32 partials per row tile
 
 `fc2_bwd` -> csrc/mlp_fused.cu, the port of `_fc2_bwd_kernel` (:65,
-ROADMAP K3). Its plain version `fc2_bwd_reference` runs only for tensors
-on the CPU; for CUDA tensors the wrapper launches the kernel or raises.
+ROADMAP K3): bf16 on the tensor cores (mma.sync), fp16 and fp32 on the CUDA
+cores, as the JAX kernel runs in the inputs' dtype. Its plain version
+`fc2_bwd_reference` runs only for tensors on the CPU; for CUDA tensors the
+wrapper launches the kernel or raises.
 dx, dW1, dW2 and db2 stay torch products and sums on dh, a and dy, as the
 JAX package left them to XLA.
 
@@ -30,6 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from vision_transformers_torch_xla_tpu_torch.ops import cuda_build
+from vision_transformers_torch_xla_tpu_torch.ops.cuda_build import (
+    KERNEL_DTYPES,
+)
 from vision_transformers_torch_xla_tpu_torch.ops.flash_attention import (
     weight_grad,
 )
@@ -53,7 +58,7 @@ def build_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the fc2-backward kernel's library."""
     lib = cuda_build.load_library("mlp_fused", ("mlp_fused.cu",))
     lib.vtx_fc2_bwd.restype = ctypes.c_int
-    lib.vtx_fc2_bwd.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.vtx_fc2_bwd.argtypes = [_P] * 6 + [_I] * 4 + [_P]
     lib.vtx_cuda_error_string.restype = ctypes.c_char_p
     lib.vtx_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -92,9 +97,10 @@ def _check_cuda(dy: torch.Tensor, w2: torch.Tensor, h: torch.Tensor) -> None:
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"fc2_bwd runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"the fc2-backward kernel takes bfloat16, not "
-                        f"{[t.dtype for t in tensors]}")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
+        raise TypeError(f"the fc2-backward kernel takes tensors of one of "
+                        f"{KERNEL_DTYPES}, not {[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fc2_bwd takes contiguous tensors")
     o, k = w2.shape
@@ -133,7 +139,8 @@ def fc2_bwd(dy: torch.Tensor, w2: torch.Tensor, h: torch.Tensor
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = lib.vtx_fc2_bwd(dy.data_ptr(), w2.data_ptr(), h.data_ptr(),
                              dh.data_ptr(), a.data_ptr(), part.data_ptr(),
-                             rows, o, k, stream)
+                             rows, o, k, cuda_build.dtype_code(h.dtype),
+                             stream)
     if rc:
         raise RuntimeError("fc2-backward kernel launch failed: "
                            + lib.vtx_cuda_error_string(rc).decode())
