@@ -11,11 +11,18 @@ and no phase catches its own error:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: every CUDA source of the port with nvcc into build/kernels/,
-   one nvcc per source, all started together; csrc/attn_fwd.cu's time.
-3. kernel vs plain: ops/flash_attention.py::attn_fwd (the CUDA kernel)
-   against attn_fwd_reference (plain PyTorch) on seeded bf16 qkv at the
-   serve path's shapes (B 1 and 64, S 197, H 12, D 64) and a few other
-   shapes of the kernel's contract; median CUDA-event time of each.
+   one nvcc per source, all started together; the time, registers and
+   spills of csrc/attn_fwd_tc.cu (K1 and K9 in bf16 and fp16, TMA and
+   wgmma) and csrc/attn_fwd.cu (their fp32 version, CUDA cores).
+3. kernel vs plain: ops/flash_attention.py::attn_fwd (the CUDA kernel),
+   and hp_fwd (K9, the same launch without stats), against
+   attn_fwd_reference (plain PyTorch) on seeded bf16 qkv at the train
+   path's shapes (B 64 and 128, S 197, H 12, D 64), its eval batch (B 192)
+   and a few other shapes of the kernel's contract, then in bf16 and fp16 at the tensor-core
+   kernel's edges (TC_EDGE_SHAPES: S 17 to 1024 around its 128-row tiles,
+   D 64 and 128, and head dims that take one padded copy, which must
+   happen exactly when the dispatch rule says); median CUDA-event time of
+   each at the main shapes.
 4. model: full-width my_vit_b (gelu_tanh, avg pool, bf16 compute) built
    with use_pallas_attn, as the trainer builds it on the card, on the
    seeded weights, saved and strict-loaded through ckpt/convert.py, against
@@ -25,13 +32,17 @@ and no phase catches its own error:
    /healthz, then /predict with the committed JPEGs (tests/data/serve_*.jpg).
    The server builds its model without use_pallas_attn, as the JAX server
    does, so no request may launch any kernel.
-6. build: csrc/attn_bwd.cu (started with the forward's build in phase 2,
-   one nvcc per source, in parallel); build time, registers and spills.
+6. build: csrc/attn_bwd_tc.cu (K2 in bf16 and fp16, TMA and wgmma) and
+   csrc/attn_bwd.cu (its fp32 version), started with the others in phase
+   2; build time, registers and spills.
 7. backward kernel vs plain: ops/flash_attention.py::attn_bwd against
    attn_bwd_reference on seeded bf16 qkv and dO, with o and the row stats
-   from the forward kernel, at the train path's shapes (B 64 and 128, S 197,
-   H 12, D 64) and a few other shapes of the contract; median CUDA-event
-   time of each at B 64 and 128.
+   from the forward kernel (themselves held against attn_fwd_reference
+   with phase 3's limits), at the train path's shapes (B 64 and 128, S 197,
+   H 12, D 64), a few other shapes of the contract and phase 3's
+   tensor-core edges in bf16 and fp16; every call runs twice, and the two
+   runs must be bitwise equal (no float atomics); median CUDA-event time
+   of each at B 64 and 128.
 8. gradient: full-width my_vit_b (gelu_tanh, avg pool, drop_path 0, bf16,
    use_pallas_attn) on the phase-4 weights, one train-mode forward +
    backward on 2 seeded images with smoothed targets, against the JAX
@@ -192,9 +203,22 @@ ST_RTOL = 1e-4
 LOGIT_ATOL = 0.1
 LOGIT_REL_L2 = 0.05
 
-MAIN_SHAPES = ((1, 197, 12, 64), (64, 197, 12, 64))   # (B, S, H, D)
-EXTRA_SHAPES = ((2, 17, 12, 64), (1, 512, 4, 64), (1, 1024, 2, 128),
+# K1's shapes on the train path (B, S, H, D): the batch of 64 and the
+# recipe's 128, timed; the trainer's eval batch (128 x eval_batch_mult 1.5)
+MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
+EVAL_SHAPES = ((192, 197, 12, 64),)
+EXTRA_SHAPES = ((1, 197, 12, 64), (2, 17, 12, 64), (1, 512, 4, 64),
+                (1, 1024, 2, 128),
                 (3, 77, 3, 48))
+# The tensor-core K1, K2 and K9 (bf16, fp16) at their edges: S around one
+# and two 128-row tiles up to the contract's 1024, at both head dims of the
+# kernels (D = 128's scale is not a power of two, so the rounding of q^
+# matters), and head dims that TMA cannot read in place, which take one
+# padded copy (odd head counts); phases 3 and 7 run them in bf16 and fp16
+TC_EDGE_SHAPES = tuple((2, s, 3, d) for s in (17, 64, 65, 197, 256, 257,
+                                              1024) for d in (64, 128)) + (
+    (2, 33, 3, 2), (2, 40, 1, 6))
+EDGE_DTYPES = ("bfloat16", "float16")
 N_REQUESTS = 8
 # Backward kernel vs plain (same bf16 inputs, same cast order): a flipped
 # bf16 rounding of t or of a stored gradient moves dqkv by a few bf16 ulps
@@ -321,7 +345,7 @@ FP32_OUT_REL = {"float32": 1e-4, "float16": 1e-3}
 _ATTN_197 = ((128, 197, 12, 64), (3, 77, 3, 48))
 _LONG = ((32, 1370, 12, 64), (2, 1100, 3, 48))
 DTYPE_SHAPES = {
-    "attn_fwd": ((64, 197, 12, 64), (3, 77, 3, 48)), "attn_bwd": _ATTN_197,
+    "attn_fwd": _ATTN_197, "attn_bwd": _ATTN_197,
     "flash_fwd": _LONG, "flash_bwd_dkdv": _LONG, "flash_bwd_dq": _LONG,
     "fc2_bwd": ((128, 197, 768, 3072), (3, 77, 768, 3072)),
     "hp_fwd": _ATTN_197, "hp_bwd": _ATTN_197,
@@ -430,42 +454,64 @@ def seeded_bf16(shape, seed: int, dev, dtype=None, scale: float = 1.0):
     return torch.from_numpy(x).to(dev, dtype or torch.bfloat16)
 
 
+def route_copies(fa, fb, before: int, qkv, h, do=None, o=None) -> None:
+    """The call just made on these buffers took `padded_copy` once exactly
+    when the dispatch rule says so."""
+    want = int(fa.attn_kernel_route(qkv, h, do, o) == "tensor_cores_copy")
+    check(fb.COPIES - before == want,
+          f"{qkv.dtype} {tuple(qkv.shape)} H={h}: {fb.COPIES - before} "
+          f"copies, the route says {want}")
+
+
 def phase_kernel(fa, dev):
     import torch
 
-    from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
-        heads,
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        flash_blocked as fb,
     )
 
     results = {}
     worst = 0.0
-    for shape in MAIN_SHAPES + EXTRA_SHAPES:
+    cases = [("bfloat16", sh)
+             for sh in MAIN_SHAPES + EVAL_SHAPES + EXTRA_SHAPES] + [
+        (dt, sh) for dt in EDGE_DTYPES for sh in TC_EDGE_SHAPES]
+    for dt_name, shape in cases:
         b, s, h, d = shape
-        qkv = seeded_bf16((b, s, 3 * h * d), 1000 + b * s + h * d, dev)
+        dt = getattr(torch, dt_name)
+        qkv = seeded_bf16((b, s, 3 * h * d), 1000 + b * s + h * d, dev, dt)
         scale = d ** -0.5
+        copies = fb.COPIES
         o_k, st_k = fa.attn_fwd(qkv, h, scale, with_stats=True)
+        route_copies(fa, fb, copies, qkv, h)
+        o9 = fa.hp_fwd(qkv, h, scale)
         o_r, st_r = fa.attn_fwd_reference(qkv, h, scale, with_stats=True)
         torch.cuda.synchronize()
         o_err = (o_k.float() - o_r.float()).abs().max().item()
+        o9_err = (o9.float() - o_r.float()).abs().max().item()
         st_err = ((st_k - st_r).abs() / (st_r.abs() + 1e-6)).max().item()
+        tag = f"{dt_name} {shape}"
         check(o_k.shape == (b, s, h * d) and st_k.shape == (b, h, s, 2),
-              f"{shape}: output shapes {o_k.shape}, {st_k.shape}")
+              f"{tag}: output shapes {o_k.shape}, {st_k.shape}")
         check(torch.isfinite(o_k.float()).all().item(),
-              f"{shape}: o not finite")
-        check(o_err <= O_ATOL, f"{shape}: o max abs err {o_err} > {O_ATOL}")
-        check(st_err <= ST_RTOL, f"{shape}: stats rel err {st_err} > {ST_RTOL}")
-        worst = max(worst, o_err)
-        row = {"o_max_abs_err": o_err, "stats_max_rel_err": st_err}
+              f"{tag}: o not finite")
+        check(o_err <= O_ATOL, f"{tag}: o max abs err {o_err} > {O_ATOL}")
+        check(o9_err <= O_ATOL,
+              f"{tag}: hp_fwd (K9) max abs err {o9_err} > {O_ATOL}")
+        check(st_err <= ST_RTOL, f"{tag}: stats rel err {st_err} > {ST_RTOL}")
+        if dt_name == "bfloat16":
+            worst = max(worst, o_err, o9_err)
+        row = {"o_max_abs_err": o_err, "hp_fwd_max_abs_err": o9_err,
+               "stats_max_rel_err": st_err}
         if shape in MAIN_SHAPES:
             row["ms"] = cuda_ms(lambda: fa.attn_fwd(qkv, h, scale))
             row["plain_ms"] = cuda_ms(
                 lambda: fa.attn_fwd_reference(qkv, h, scale))
-            row["library_ms"] = sdpa_ms(*heads(qkv, h))
+            row["library_ms"] = sdpa_ms(*fb.heads(qkv, h))
             # qkv read once, o written once; q·kᵀ and p·v
             row["bound_ms"], row["bound_by"] = bound(
                 4 * b * h * s * s * d, 2 * (b * s * 3 * h * d + b * s * h * d))
-        results[shape] = row
-        log(f"[kernel] B={b} S={s} H={h} D={d}: "
+            results[shape] = row
+        log(f"[kernel] {dt_name} B={b} S={s} H={h} D={d}: "
             + " ".join(f"{k}={v!r}" for k, v in row.items()))
     return results, worst
 
@@ -608,7 +654,9 @@ def build_all(fa, fb, mf):
         fn()
         return time.perf_counter() - t0
 
-    builds = {"attn_fwd": fa.build_kernels, "attn_bwd": fa.build_bwd_kernels,
+    builds = {"attn_fwd_tc": fa.build_tc_kernels,
+              "attn_bwd_tc": fa.build_tc_bwd_kernels,
+              "attn_fwd": fa.build_kernels, "attn_bwd": fa.build_bwd_kernels,
               "flash_fwd": fb.build_fwd_kernels,
               "flash_bwd": fb.build_bwd_kernels,
               "flash_blocked": fb.build_kernels, "mlp_fused": mf.build_kernels,
@@ -643,53 +691,73 @@ def log_ptxas(cuda_build, name: str, tag: str) -> None:
 def phase_bwd_kernel(fa, dev):
     import torch
 
-    from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
-        heads,
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        flash_blocked as fb,
     )
 
     results = {}
     worst = 0.0
-    for shape in BWD_MAIN_SHAPES + EXTRA_SHAPES:
+    cases = [("bfloat16", sh) for sh in BWD_MAIN_SHAPES + EXTRA_SHAPES] + [
+        (dt, sh) for dt in EDGE_DTYPES for sh in TC_EDGE_SHAPES]
+    for dt_name, shape in cases:
         b, s, h, d = shape
+        dt = getattr(torch, dt_name)
         seed = 2000 + b * s + h * d
-        qkv = seeded_bf16((b, s, 3 * h * d), seed, dev)
-        do = seeded_bf16((b, s, h * d), seed + 1, dev)
+        qkv = seeded_bf16((b, s, 3 * h * d), seed, dev, dt)
+        do = seeded_bf16((b, s, h * d), seed + 1, dev, dt)
         scale = d ** -0.5
         o, st = fa.attn_fwd(qkv, h, scale, with_stats=True)
+        copies = fb.COPIES
         dqkv, dbias = fa.attn_bwd(qkv, do, o, st, h, scale)
+        route_copies(fa, fb, copies, qkv, h, do, o)
+        # no float atomics: a second run on the same inputs is bitwise equal
+        dqkv2, dbias2 = fa.attn_bwd(qkv, do, o, st, h, scale)
         dqkv_r, dbias_r = fa.attn_bwd_reference(qkv, do, o, st, h, scale)
+        o_r, st_r = fa.attn_fwd_reference(qkv, h, scale, with_stats=True)
         torch.cuda.synchronize()
+        tag = f"{dt_name} {shape}"
+        # K2's inputs come from K1 at this shape: hold them too
+        o_err = (o.float() - o_r.float()).abs().max().item()
+        st_err = ((st - st_r).abs() / (st_r.abs() + 1e-6)).max().item()
+        check(o_err <= O_ATOL, f"{tag}: K1's o max abs err {o_err} > {O_ATOL}")
+        check(st_err <= ST_RTOL,
+              f"{tag}: K1's stats rel err {st_err} > {ST_RTOL}")
+        check(torch.equal(dqkv, dqkv2) and torch.equal(dbias, dbias2),
+              f"{tag}: two runs of K2 on the same inputs differ")
         check(dqkv.shape == (b, s, 3 * h * d) and dbias.shape == (b, 3 * h * d),
-              f"{shape}: output shapes {dqkv.shape}, {dbias.shape}")
+              f"{tag}: output shapes {dqkv.shape}, {dbias.shape}")
         check(torch.isfinite(dqkv.float()).all().item()
-              and torch.isfinite(dbias).all().item(), f"{shape}: not finite")
+              and torch.isfinite(dbias).all().item(), f"{tag}: not finite")
         err = (dqkv.float() - dqkv_r.float()).abs().max().item()
         ref = dqkv_r.float().abs().max().item()
         b_err = (dbias - dbias_r).abs().max().item()
         b_ref = dbias_r.abs().max().item()
         check(err <= DQKV_REL_ATOL * ref,
-              f"{shape}: dqkv max abs err {err} > {DQKV_REL_ATOL} x {ref}")
+              f"{tag}: dqkv max abs err {err} > {DQKV_REL_ATOL} x {ref}")
         check(b_err <= DBIAS_REL_ATOL * b_ref,
-              f"{shape}: bias partials err {b_err} > {DBIAS_REL_ATOL} x "
+              f"{tag}: bias partials err {b_err} > {DBIAS_REL_ATOL} x "
               f"{b_ref}")
-        worst = max(worst, err)
+        if dt_name == "bfloat16":
+            worst = max(worst, err)
         row = {"dqkv_max_abs_err": err, "dqkv_max_abs": ref,
-               "dbias_max_abs_err": b_err, "dbias_max_abs": b_ref}
+               "dbias_max_abs_err": b_err, "dbias_max_abs": b_ref,
+               "bitwise_repeat": True, "fwd_o_max_abs_err": o_err,
+               "fwd_stats_max_rel_err": st_err}
         if shape in BWD_MAIN_SHAPES:
             row["ms"] = cuda_ms(lambda: fa.attn_bwd(qkv, do, o, st, h, scale))
             row["plain_ms"] = cuda_ms(
                 lambda: fa.attn_bwd_reference(qkv, do, o, st, h, scale))
             row["library_ms"] = sdpa_ms(
-                *heads(qkv, h), do.view(b, s, h, d).transpose(1, 2))
+                *fb.heads(qkv, h), do.view(b, s, h, d).transpose(1, 2))
             # qkv, dO, o, stats read; dqkv and the bias partials written;
             # the products the function needs: s, dp, dv, dk and dq (the
-            # kernel's second pass computes s and dp again, not counted)
+            # kernels compute s and dp once more, not counted)
             row["bound_ms"], row["bound_by"] = bound(
                 10 * b * h * s * s * d,
                 2 * (2 * b * s * 3 * h * d + 2 * b * s * h * d)
                 + 4 * (b * h * s * 2 + b * 3 * h * d))
-        results[shape] = row
-        log(f"[bwd kernel] B={b} S={s} H={h} D={d}: "
+            results[shape] = row
+        log(f"[bwd kernel] {dt_name} B={b} S={s} H={h} D={d}: "
             + " ".join(f"{k}={v!r}" for k, v in row.items()))
     return results, worst
 
@@ -1667,8 +1735,17 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
 
     build_s = build_all(fa, fb, mf)
-    log(f"[build] attn_fwd built/loaded in {build_s['attn_fwd']:.3f} s")
-    log_ptxas(cuda_build, "attn_fwd", "build")
+    for name in ("attn_fwd_tc", "attn_fwd"):
+        log(f"[build] {name} built/loaded in {build_s[name]:.3f} s")
+        log_ptxas(cuda_build, name, "build")
+    # the tensor-core kernels' dynamic shared memory (ptxas reports only
+    # the static part)
+    fwd_lib, bwd_lib = fa.build_tc_kernels(), fa.build_tc_bwd_kernels()
+    for d in (64, 128):
+        log(f"[build] dynamic shared memory at D <= {d}: attn_fwd_tc_kernel "
+            f"{fwd_lib.vtx_attn_fwd_tc_smem(d)} B, attn_bwd_tc_dkdv_kernel "
+            f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 0)} B, attn_bwd_tc_dq_kernel "
+            f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 1)} B")
 
     every = counter(*ALL_COUNTS)
     kernel, worst = phase_kernel(fa, dev)
@@ -1680,9 +1757,10 @@ def main() -> int:
           f"one forward launched {n} (want K1 12)")
     serve_launches, _ = phase_serve(every, ckpt_path, act_layer="gelu_tanh")
 
-    log(f"[build bwd] attn_bwd built/loaded in {build_s['attn_bwd']:.3f} s "
-        f"(in parallel with attn_fwd)")
-    log_ptxas(cuda_build, "attn_bwd", "build bwd")
+    for name in ("attn_bwd_tc", "attn_bwd"):
+        log(f"[build bwd] {name} built/loaded in {build_s[name]:.3f} s (in "
+            f"parallel with the others)")
+        log_ptxas(cuda_build, name, "build bwd")
     bwd, bwd_worst = phase_bwd_kernel(fa, dev)
     n = phase_grad(every, dev, ckpt_path)
     check(n == only(ATTN_FWD_LAUNCHES=12, ATTN_BWD_LAUNCHES=12),
@@ -1822,7 +1900,7 @@ def main() -> int:
               f"{dt_name}: the entry points launched {n} (want each "
               f"kernel once)")
 
-    b1, b64 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
+    f64, f128 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
     l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
     m128, m64 = mlp_k[MLP_MAIN_SHAPES[0]], mlp_k[MLP_MAIN_SHAPES[1]]
@@ -1872,15 +1950,15 @@ def main() -> int:
             "plain_ms_b64": fu64[f"{name}_plain_ms"]}
 
     kernels = [{
-        "name": "attn_fwd", "route": "cuda", "source": src + "attn_fwd.cu",
+        "name": "attn_fwd", "route": "cuda", "source": src + "attn_fwd_tc.cu",
         "replaces": jax_ops + "flash_attention.py:291",
         "launches": train_launches["ATTN_FWD_LAUNCHES"],
         "launches_serve": serve_launches, "max_abs_err": worst,
-        "shape": MAIN_SHAPES[1], "ms": b64["ms"], "plain_ms": b64["plain_ms"],
-        "bound_ms": b64["bound_ms"], "bound_by": b64["bound_by"],
-        "library_ms": b64["library_ms"], "ms_b1": b1["ms"],
-        "plain_ms_b1": b1["plain_ms"]}, {
-        "name": "attn_bwd", "route": "cuda", "source": src + "attn_bwd.cu",
+        "shape": MAIN_SHAPES[1], "ms": f128["ms"],
+        "plain_ms": f128["plain_ms"], "bound_ms": f128["bound_ms"],
+        "bound_by": f128["bound_by"], "library_ms": f128["library_ms"],
+        "ms_b64": f64["ms"], "plain_ms_b64": f64["plain_ms"]}, {
+        "name": "attn_bwd", "route": "cuda", "source": src + "attn_bwd_tc.cu",
         "replaces": jax_ops + "flash_attention.py:495",
         "launches": train_launches["ATTN_BWD_LAUNCHES"],
         "max_abs_err": bwd_worst, "shape": BWD_MAIN_SHAPES[1],
@@ -1903,19 +1981,28 @@ def main() -> int:
         "library_ms": None, "unfused_ms": m128["unfused_ms"],
         "ms_b64": m64["ms"], "plain_ms_b64": m64["plain_ms"],
         "unfused_ms_b64": m64["unfused_ms"]},
-        hp_entry("hp_fwd", "attn_fwd.cu", "flash_attention.py:171"),
+        hp_entry("hp_fwd", "attn_fwd_tc.cu", "flash_attention.py:171"),
         hp_entry("hp_bwd", "hp_bwd.cu", "flash_attention.py:212"),
         fused_entry("fused_fwd", "fused_attn_fwd.cu", "flash_attention.py:36"),
         fused_entry("fused_bwd", "hp_bwd.cu", "flash_attention.py:61"),
         fused_entry("qkv_fwd", "fused_attn_fwd.cu", "flash_attention.py:740"),
         fused_entry("qkv_bwd", "hp_bwd.cu", "flash_attention.py:764")]
     # one line for each fp32 and fp16 instantiation; the blocked kernels'
-    # are the CUDA-core ones. The fp32 K1, K2 and K3 count the launches of
-    # the trainer's own run (main() --precision fp32, with --pallas_mlp on
-    # for K3); every other instantiation those of drive_entry_points.
+    # are the CUDA-core ones, and K1, K2 and K9 in fp32 too (fp16 shares
+    # bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
+    # launches of the trainer's own run (main() --precision fp32, with
+    # --pallas_mlp on for K3); every other instantiation those of
+    # drive_entry_points.
     sources = {k["name"]: k["source"] for k in kernels}
-    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
-        sources[name] = src + "flash_blocked.cu"
+
+    def dtype_source(name, dt_name):
+        cuda_core = dict.fromkeys(("flash_fwd", "flash_bwd_dkdv",
+                                   "flash_bwd_dq"), "flash_blocked.cu")
+        if dt_name == "float32":
+            cuda_core.update(attn_fwd="attn_fwd.cu", attn_bwd="attn_bwd.cu",
+                             hp_fwd="attn_fwd.cu")
+        return src + cuda_core[name] if name in cuda_core else sources[name]
+
     replaces = {k["name"]: k["replaces"] for k in kernels}
     trainer_runs = {("float32", "attn_fwd"): "fp32",
                     ("float32", "attn_bwd"): "fp32",
@@ -1929,7 +2016,8 @@ def main() -> int:
             launched = prec[run] if run else dt_launches[dt_name]
             kernels.append({
                 "name": f"{name}[{dt_name}]", "route": "cuda",
-                "source": sources[name], "replaces": replaces[name],
+                "source": dtype_source(name, dt_name),
+                "replaces": replaces[name],
                 "dtype": dt_name, "path": path,
                 "launches": launched[f"{name.upper()}_LAUNCHES"],
                 "launches_entry_points":

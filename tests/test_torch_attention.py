@@ -3,8 +3,12 @@
 The JAX side runs the Pallas kernel `_hp_fwd_stats_kernel` in interpret
 mode on the CPU, as tests/test_pallas_attention.py does. The port's wrapper
 runs its plain version, `attn_fwd_reference`, for CPU tensors. The
-`cuda`-marked case holds the CUDA kernel against that plain version and
-skips where there is no card.
+`cuda`-marked cases hold the CUDA kernels (the tensor-core ones in bf16
+and fp16 at the edges of their 128-row tiles, and after the padded copy)
+against that plain version and skip where there is no card. On the CPU,
+the dispatch rule (`attn_kernel_route`) and the copy's argument (a head dim
+zero-padded to a multiple of 8 leaves the plain version's o and row stats
+unchanged) are checked directly.
 
 Tolerances: fp32 inputs agree to 1e-5 (only the summation order differs).
 bf16 inputs share every rounding point (bf16(q·scale), bf16(p), bf16(o)),
@@ -111,18 +115,85 @@ def test_attn_fwd_refuses_other_devices():
         fa.attn_fwd(torch.zeros((1, 8, 100)), H)
 
 
+# the model's shape (12 heads), a long sequence at D = 128, and the
+# tensor-core kernels' ragged edges: S around one and two 128-row tiles, up
+# to the contract's 1024, at both head dims of the kernels; and head dims
+# that take one copy (not a multiple of 8, odd head counts)
+KERNEL_SHAPES = [(2, 197, 12, 64), (1, 1024, 2, 128)] + [
+    (2, s, 3, d) for s in (17, 64, 65, 197, 256, 257, 1024)
+    for d in (64, 128)] + [(3, 77, 3, 48), (2, 33, 3, 2), (2, 40, 1, 6)]
+
+
+def _padded_qkv(qkv: np.ndarray, h: int, dp: int) -> np.ndarray:
+    """qkv (B, S, 3·H·D) with each head's D columns zero-padded to dp."""
+    b, s, c = qkv.shape
+    x = qkv.reshape(b, s, 3, h, c // (3 * h))
+    pad = np.zeros((b, s, 3, h, dp - x.shape[-1]), qkv.dtype)
+    return np.concatenate([x, pad], axis=-1).reshape(b, s, 3 * h * dp)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("d,h", [(64, 2), (128, 2), (48, 3), (2, 3)])
+def test_kernel_route_by_dtype_and_head_dim(dtype, d, h):
+    """bf16 and fp16 take the tensor-core kernels, in place when TMA reads
+    the (B, S, 3·H·D) buffer (a head dim that is a multiple of 8, which
+    makes H·D one too, and 16-byte-aligned data), after one padded copy
+    otherwise; fp32 the CUDA-core loops. The rule depends on neither the
+    head count nor S."""
+    dt = getattr(torch, dtype)
+    b, s, c = 2, 5, 3 * h * d
+    want = ("cuda_cores" if dtype == "float32" else
+            "tensor_cores" if d % 8 == 0 else "tensor_cores_copy")
+    qkv = torch.zeros((b, s, c), dtype=dt)
+    do = torch.zeros((b, s, h * d), dtype=dt)
+    assert fa.attn_kernel_route(qkv, h) == want
+    assert fa.attn_kernel_route(qkv, h, do, do.clone()) == want
+    assert c % 8 == 0 or want != "tensor_cores"
+    if dtype != "float32":
+        # data that is not 16-byte aligned takes the copy too: the qkv
+        # buffer, or dO of the backward
+        odd = torch.zeros(b * s * c + 1, dtype=dt)[1:].view(b, s, c)
+        odd_do = torch.zeros(b * s * h * d + 1, dtype=dt)[1:].view(b, s, -1)
+        assert fa.attn_kernel_route(odd, h) == "tensor_cores_copy"
+        assert fa.attn_kernel_route(qkv, h, odd_do, do) == \
+            "tensor_cores_copy"
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("d,h", [(2, 3), (6, 1), (48, 2)])
+def test_padded_head_dim_leaves_the_forward_unchanged(dtype, d, h):
+    """The copy's argument: q, k, v zero-padded to a multiple of 8 give the
+    same o on the real columns (and zeros beyond) and the same row stats,
+    at the real head dim's scale."""
+    dt = getattr(torch, dtype)
+    qkv = _qkv(2, 21, h, d, seed=d)
+    dp = -(-d // 8) * 8
+    x = torch.from_numpy(qkv).to(dt)
+    xp = torch.from_numpy(_padded_qkv(qkv, h, dp)).to(dt)
+    o, st = fa.attn_fwd_reference(x, h, d ** -0.5, with_stats=True)
+    op, stp = fa.attn_fwd_reference(xp, h, d ** -0.5, with_stats=True)
+    op = op.view(2, 21, h, dp)
+    torch.testing.assert_close(op[..., :d].reshape(o.shape), o, rtol=0,
+                               atol=0)
+    assert not op[..., d:].any()
+    torch.testing.assert_close(stp, st, rtol=1e-6, atol=0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 197, 12, 64), (1, 1024, 2, 128)])
-def test_attn_fwd_kernel_matches_plain(cuda_device, shape):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+def test_attn_fwd_kernel_matches_plain(cuda_device, shape, dtype):
     b, s, h, d = shape
     x = torch.from_numpy(_qkv(b, s, h, d, seed=5)).to(cuda_device,
-                                                       torch.bfloat16)
+                                                       getattr(torch, dtype))
     before = fa.ATTN_FWD_LAUNCHES
     o, st = fa.attn_fwd(x, h, with_stats=True)
+    o9 = fa.hp_fwd(x, h)
     torch.cuda.synchronize()
     assert fa.ATTN_FWD_LAUNCHES == before + 1
     o_ref, st_ref = fa.attn_fwd_reference(x, h, d ** -0.5, with_stats=True)
     torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(o9.float(), o_ref.float(), atol=2e-2, rtol=0)
     torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=0)
 
 

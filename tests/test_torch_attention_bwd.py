@@ -6,8 +6,10 @@ tests/test_pallas_attention.py does. The port's wrappers run their plain
 versions (`attn_fwd_reference`, `attn_bwd_reference`) for CPU tensors. The
 JAX kernel writes dqkv in its pair-interleaved column order and its bias
 partials as (H/2, B, 6D); the test un-permutes both with `_pi_perm`'s
-inverse. The `cuda`-marked cases hold the CUDA kernel against its plain
-version and skip where there is no card.
+inverse. The `cuda`-marked cases hold the CUDA kernels against their plain
+version (the tensor-core ones in bf16 and fp16, two runs bitwise equal)
+and skip where there is no card; the copy's argument for the backward is
+checked on the CPU.
 
 Tolerances, all relative to the largest |value| of the reference:
 * fp32 inputs: 1e-5. Every cast is the identity; only summation order
@@ -245,20 +247,67 @@ def test_no_grad_forward_skips_the_stats():
     torch.testing.assert_close(out.detach(), plain, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("d,h", [(2, 3), (6, 1), (48, 2)])
+def test_padded_head_dim_leaves_the_backward_unchanged(dtype, d, h):
+    """The copy's argument for K2: q, k, v, dO and O zero-padded to a
+    multiple of 8 give the same dqkv on the real columns (zeros beyond)
+    and the same bias partials, at the real head dim's scale. The zero
+    columns add exact zeros to every product; only the fp32 summation
+    order of the longer rows may differ (1e-5 relative), which in bf16 and
+    fp16 can flip no rounding at these sizes (it did not: 0 there)."""
+    dt = getattr(torch, dtype)
+    b, s = 2, 21
+    dp = -(-d // 8) * 8
+
+    def pad(x, parts):
+        y = x.reshape(*x.shape[:-1], parts, h, d)
+        z = torch.zeros((*y.shape[:-1], dp - d), dtype=x.dtype)
+        return torch.cat([y, z], dim=-1).reshape(*x.shape[:-1], -1)
+
+    def real(x, parts):
+        y = x.reshape(*x.shape[:-1], parts, h, dp)
+        assert not y[..., d:].any()
+        return y[..., :d].reshape(*x.shape[:-1], -1)
+
+    qkv = torch.from_numpy(_normal((b, s, 3 * h * d), d)).to(dt)
+    do = torch.from_numpy(_normal((b, s, h * d), d + 1)).to(dt)
+    o, st = fa.attn_fwd_reference(qkv, h, d ** -0.5, with_stats=True)
+    dqkv, dbias = fa.attn_bwd_reference(qkv, do, o, st, h, d ** -0.5)
+    dqkv_p, dbias_p = fa.attn_bwd_reference(pad(qkv, 3), pad(do, 1),
+                                            pad(o, 1), st, h, d ** -0.5)
+    exact = dtype != "float32"
+    torch.testing.assert_close(real(dqkv_p, 3), dqkv,
+                               rtol=0 if exact else 1e-5,
+                               atol=0 if exact else 1e-6)
+    torch.testing.assert_close(real(dbias_p, 3), dbias, rtol=1e-5,
+                               atol=1e-6)
+
+
+# the model's shape, a long sequence at D = 128, the tensor-core kernels'
+# ragged edges (S around one and two 128-row tiles, up to 1024, at both
+# head dims of the kernels) and the head dims that take one copy
+KERNEL_SHAPES = [(2, 197, 12, 64), (1, 1024, 2, 128)] + [
+    (2, s, 3, d) for s in (17, 64, 65, 197, 256, 257, 1024)
+    for d in (64, 128)] + [(3, 77, 3, 48), (2, 33, 3, 2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 197, 12, 64), (1, 1024, 2, 128),
-                                   (3, 77, 3, 48)])
-def test_attn_bwd_kernel_matches_plain(cuda_device, shape):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
+def test_attn_bwd_kernel_matches_plain(cuda_device, shape, dtype):
     b, s, h, d = shape
-    dev = cuda_device
-    qkv = torch.from_numpy(_normal((b, s, 3 * h * d), 5)).to(dev,
-                                                             torch.bfloat16)
-    do = torch.from_numpy(_normal((b, s, h * d), 6)).to(dev, torch.bfloat16)
+    dev, dt = cuda_device, getattr(torch, dtype)
+    qkv = torch.from_numpy(_normal((b, s, 3 * h * d), 5)).to(dev, dt)
+    do = torch.from_numpy(_normal((b, s, h * d), 6)).to(dev, dt)
     o, st = fa.attn_fwd(qkv, h, with_stats=True)
     before = fa.ATTN_BWD_LAUNCHES
     dqkv, dbias = fa.attn_bwd(qkv, do, o, st, h)
+    again = fa.attn_bwd(qkv, do, o, st, h)
     torch.cuda.synchronize()
-    assert fa.ATTN_BWD_LAUNCHES == before + 1
+    assert fa.ATTN_BWD_LAUNCHES == before + 2
+    # no float atomics: a second run is bitwise the first
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
     dqkv_r, dbias_r = fa.attn_bwd_reference(qkv, do, o, st, h, d ** -0.5)
     assert _rel_err(dqkv.float().cpu(), dqkv_r.float().cpu()) <= 2e-2
     assert _rel_err(dbias.cpu(), dbias_r.cpu()) <= 1e-3

@@ -62,3 +62,20 @@ def test_dtype_codes_are_elem_cuhs(dtype, code):
 def test_other_dtypes_have_no_code():
     with pytest.raises(KeyError):
         cuda_build.dtype_code(torch.float64)
+
+
+@pytest.mark.parametrize("source", ["attn_fwd_tc.cu", "attn_bwd_tc.cu"])
+def test_the_tensor_core_attention_sources_enter_the_hash(tmp_path, source):
+    # K1/K9's and K2's tensor-core sources: each is its library's source,
+    # so an edit to it (or to the hopper.cuh it includes) names a new file
+    real = cuda_build.CSRC_DIR
+    assert "hopper.cuh" in (real / source).read_text()
+    for f in (source, "hopper.cuh", "elem.cuh"):
+        (tmp_path / f).write_bytes((real / f).read_bytes())
+    name = source[:-3]
+    before = cuda_build._library_path(name, (source,), tmp_path)
+    assert before == cuda_build._library_path(name, (source,), real)
+    for edited in (source, "hopper.cuh"):
+        (tmp_path / edited).write_text((real / edited).read_text() + "\n")
+        assert cuda_build._library_path(name, (source,), tmp_path) != before
+        (tmp_path / edited).write_bytes((real / edited).read_bytes())

@@ -181,7 +181,12 @@ def profile(ctx, images, labels, seed, steps: int):
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
         "device_busy_share": busy_us / wall_us,
-        "attn_fwd_k1_ms_per_step": per_step(lambda n: "attn_fwd_kernel" in n),
+        # K1: csrc/attn_fwd_tc.cu (bf16, fp16) or csrc/attn_fwd.cu (fp32),
+        # not K7's fused_attn_fwd_kernel; K2: the launches of
+        # csrc/attn_bwd_tc.cu or csrc/attn_bwd.cu
+        "attn_fwd_k1_ms_per_step": per_step(
+            lambda n: "attn_fwd_tc_kernel" in n
+            or ("attn_fwd_kernel" in n and "fused_attn" not in n)),
         "attn_bwd_k2_ms_per_step": per_step(lambda n: "attn_bwd_" in n),
         "flash_fwd_k4_ms_per_step": per_step(lambda n: "flash_fwd_" in n),
         "flash_dkdv_k5_ms_per_step": per_step(

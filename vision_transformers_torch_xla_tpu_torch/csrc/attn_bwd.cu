@@ -22,8 +22,8 @@
 // ridge, so device memory is not the limit. On the CUDA cores the limit is
 // instruction issue: every two FMAs come with a load and two bf16 -> fp32
 // conversions, and the backward does 7 S x S x D products per head against
-// the forward's 2. Tensor cores (mma.sync / wgmma) are the way past that,
-// in a later version.
+// the forward's 2. fp32 has no tensor-core product that keeps the TPU
+// kernel's cast order (TF32 rounds the inputs), so fp32 runs here.
 //
 // Design: three launches, so that no sum crosses blocks and nothing needs
 // float atomics (the result is deterministic):
@@ -46,9 +46,10 @@
 // (long S with wide D) are read from global memory (L2) through the same
 // loops.
 //
-// Element types: bf16 as above; fp16 and fp32 inputs run the same loops,
-// every bf16 rounding point a rounding to the inputs' dtype (the TPU
-// kernel's astype; none for fp32), through csrc/elem.cuh.
+// Element types: this source serves fp32, which the TPU kernel computes
+// with no rounding point (every astype an identity); the loops are written
+// for any element type through csrc/elem.cuh, and bf16 and fp16 run on the
+// tensor cores instead (csrc/attn_bwd_tc.cu).
 //
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
 // launch on the caller's stream; the host function takes the element
@@ -485,7 +486,8 @@ int launch_d(const void* qkv, const void* dout, const void* out,
 
 extern "C" {
 
-// dqkv (B, S, 3HD) of the element type `dtype` and dbias (B, 3HD) fp32 out;
+// dqkv (B, S, 3HD) of the element type `dtype` (fp32, kF32, alone) and
+// dbias (B, 3HD) fp32 out;
 // qhat, qn, don (B, H, S, D) of that type and delta (B, H, S) fp32 are
 // scratch. Returns a cudaError_t as int: 0 when every launch was accepted.
 int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
@@ -498,18 +500,9 @@ int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
       (long long)S * 3 * H * D >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kBf16:
-      return launch_d<__nv_bfloat16>(qkv, dout, out, st, dqkv, dbias, qhat,
-                                     qn, don, delta, B, S, H, D, scale, s);
-    case kF16:
-      return launch_d<__half>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
-                              delta, B, S, H, D, scale, s);
-    case kF32:
-      return launch_d<float>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
-                             delta, B, S, H, D, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  return launch_d<float>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
+                         delta, B, S, H, D, scale, s);
 }
 
 const char* vtx_cuda_error_string(int err) {

@@ -14,11 +14,10 @@
 // What bounds it on an H100: at ViT-B shapes (S = 197, D = 64) one (b, h) is
 // ~10 MFLOP over ~75 KB of q/k/v, far below the ~295 FLOP/byte ridge, so
 // device memory is not the limit. On the CUDA cores the limit is instruction
-// issue: every two FMAs come with a shared-memory load and two bf16 -> fp32
-// conversions, ~2,500 warp instructions per query row (measured 0.82 ms for
-// B = 64, 12 heads on an H100 80GB HBM3 at 700 W, about half the issue rate).
-// Tensor cores (mma.sync / wgmma) do the products in far fewer
-// instructions and are the next step.
+// issue: every two FMAs come with a shared-memory load (and, for 16-bit
+// inputs, two conversions), ~2,500 warp instructions per query row (PERF.md
+// §6 has the fp32 times). fp32 has no tensor-core product that keeps the
+// TPU kernel's cast order (TF32 rounds the inputs), so fp32 runs here.
 //
 // Design: one block per (b, h, 64-row query tile). K and V of the head are
 // staged once in shared memory (rows padded to an odd number of 32-bit
@@ -31,9 +30,10 @@
 // fit (long S with wide D), they are read from global memory (L2) through
 // the same loops.
 //
-// Element types: bf16 as above; fp16 and fp32 inputs run the same loops,
-// every bf16 rounding point a rounding to the inputs' dtype (the TPU
-// kernel's astype; none for fp32), through csrc/elem.cuh.
+// Element types: this source serves fp32, which the TPU kernel computes
+// with no rounding point (every astype an identity); the loops are written
+// for any element type through csrc/elem.cuh, and bf16 and fp16 run on the
+// tensor cores instead (csrc/attn_fwd_tc.cu).
 //
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
 // launches on the caller's stream; the host function takes the element
@@ -268,7 +268,8 @@ int launch_d(const void* qkv, void* out, void* st, int B, int S, int H, int D,
 
 extern "C" {
 
-// qkv (B, S, 3HD) and out (B, S, HD) of the element type `dtype`; st
+// qkv (B, S, 3HD) and out (B, S, HD) of the element type `dtype` (fp32,
+// kF32, alone); st
 // (B, H, S, 2) fp32 or null. Returns a cudaError_t as int: 0 on a launch
 // that was accepted.
 int vtx_attn_fwd(const void* qkv, void* out, void* st, int B, int S, int H,
@@ -279,13 +280,8 @@ int vtx_attn_fwd(const void* qkv, void* out, void* st, int B, int S, int H,
       (long long)S * 3 * H * D >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kBf16:
-      return launch_d<__nv_bfloat16>(qkv, out, st, B, S, H, D, scale, s);
-    case kF16: return launch_d<__half>(qkv, out, st, B, S, H, D, scale, s);
-    case kF32: return launch_d<float>(qkv, out, st, B, S, H, D, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  return launch_d<float>(qkv, out, st, B, S, H, D, scale, s);
 }
 
 const char* vtx_cuda_error_string(int err) {

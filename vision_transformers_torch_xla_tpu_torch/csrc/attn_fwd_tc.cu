@@ -1,0 +1,378 @@
+// Softmax attention forward over a fused (B, S, 3*H*D) qkv buffer on Hopper's
+// tensor cores, in bf16 and fp16.
+//
+// Replaces the TPU kernel
+// vision_transformers_torch_xla_tpu/ops/flash_attention.py
+// ::_hp_fwd_stats_kernel (:291, ROADMAP K1) and, with the stats pointer
+// null, ::_hp_fwd_kernel (:171, K9), which computes the same o. Per (b, h):
+//   q^ = T(q * scale) (T the element type); s = q^ k^T in fp32 over the S
+//   real keys; m = rowmax(s) over the whole row; p = exp(s - m);
+//   rinv = 1 / sum(fp32 p); o = T((T(p) v, fp32 sums) * rinv) at
+//   (B, S, H*D); optionally st = (B, H, S, 2) fp32 holding [m, rinv].
+// Both products are T x T into fp32, what wgmma computes, so the cast
+// order is the TPU kernel's:
+// * q^ is rounded before the product: the consumers scale and round the
+//   Q tile in shared memory after the TMA lands, before the first wgmma (at
+//   D = 128 the scale is not a power of two, so scaling the fp32 product,
+//   as csrc/flash_fwd.cu does, would be another function).
+// * The softmax is two-pass, not online: p is rounded to T at the row's
+//   final max, as the TPU kernel, which holds the whole row, rounds it. With
+//   one key tile (S <= 128) the scores stay in registers; with more, a first
+//   pass over the key tiles takes the row max alone, and a second pass
+//   computes s again, p, its fp32 row sum and p v.
+// * p = exp2(s log2(e) - m log2(e)): the folded product moves the exponent
+//   by |m| log2(e) 2^-24 absolute at most (|m| < ~50 here), so p moves by a
+//   relative ~1e-6 with exp2f's 2 ulp, far below the 2^-9 (bf16) and 2^-12
+//   (fp16) of its rounding to T. m is stored in natural units, as computed.
+// The fp32 version of the same function is the CUDA-core loop of
+// csrc/attn_fwd.cu: the TPU kernel rounds nothing in fp32, and every
+// tensor-core product of fp32 operands (TF32) would.
+//
+// What bounds it on an H100: at ViT-B shapes (S = 197, D = 64) one (b, h)
+// is 4 S^2 D = 9.9 MFLOP over 2 S 4 D = 0.1 MB, ~100 FLOP per byte,
+// below the ~295 of the ridge: device memory bounds the work (at B = 128,
+// 12 heads, 0.0462 ms for qkv read once and o written once). At these short
+// rows the tiles are small and latency (TMA, wgmma, the softmax between
+// them) sets the pace; two warpgroups per block interleave.
+//
+// Design (warp-specialised, as csrc/flash_fwd.cu, one block of 288 threads
+// per 128 query rows of one (b, h), a one-dimensional grid):
+// * a producer warp starts TMA loads: the block's Q tile once, then key
+//   tiles of 128 rows through a 2-stage ring: K alone for the first pass,
+//   K and V for the second (with one tile, K and V once);
+// * two consumer warpgroups own 64 query rows each. S = Q^ K^T is wgmma
+//   m64n128k16 with both operands in 128-byte-swizzled shared memory,
+//   K-major. Keys >= S are masked to -1e30 after the product (a zero key
+//   scores 0, not -inf). P is packed to T in registers and is the register
+//   A operand of wgmma for O += P V, V an MN-major B operand.
+// * q, k and v are read in place through 4-D tensor maps (D, S, H, B) with
+//   the caller's element strides: views of the (B, S, 3 H D) projection at
+//   columns h D, H D + h D and 2 H D + h D. TMA needs 16-byte-aligned data
+//   and strides (D a multiple of 8), which the caller (ops/
+//   flash_attention.py) arranges, copying once where they are not. TMA
+//   fills rows >= S and columns >= D with zeros. o is written in the
+//   caller's output layout (pairs, columns < D, rows < S).
+//
+// Plain C interface, loaded with ctypes. The kernel allocates nothing and
+// launches on the caller's stream; the host function returns
+// cudaGetLastError(), or a code >= kErrEncodeBase when a tensor map could
+// not be encoded (vtx_cuda_error_string says which).
+
+#include <limits.h>
+
+#include "elem.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int kBlockM = 128;          // query rows of a block
+constexpr int kBlockN = 128;          // keys of a tile
+constexpr int kStages = 2;            // K/V ring depth
+constexpr int kConsumerWarps = 8;     // two warpgroups
+constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
+constexpr int kMaxSeq = 1024;
+constexpr float kNegInf = -1e30f;     // the mask value of keys >= S
+
+// One block's shared tiles, each kD / 64 panels of [rows][64] in the TMA's
+// 128-byte swizzle; every panel is 16 KB, so each stays 1024-byte aligned.
+template <typename T, int kD>
+struct Tiles {
+  T q[kD / kPanel][kBlockM * kPanel];
+  T k[kStages][kD / kPanel][kBlockN * kPanel];
+  T v[kStages][kD / kPanel][kBlockN * kPanel];
+};
+
+// n elements at p (16-byte aligned, n a multiple of 8 x 128) replaced by
+// T(x * scale), 128 threads, thread tid.
+template <typename T>
+__device__ __forceinline__ void round_scaled(T* p, int n, float scale,
+                                             int tid) {
+  typedef Elem<T> E;
+  for (int i = tid * 8; i < n; i += 128 * 8) {
+    uint4 w = *reinterpret_cast<uint4*>(p + i);
+    typename E::Pair* e = reinterpret_cast<typename E::Pair*>(&w);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float2 f = E::load2(e[u]);
+      e[u] = E::store2(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(p + i) = w;
+  }
+}
+
+// s = Q^ K^T of warpgroup wg's 64 rows against the key tile of stage st.
+template <typename T, int kD>
+__device__ __forceinline__ void scores(float (&s)[64], const Tiles<T, kD>& t,
+                                       int wg, int st) {
+  pin(s);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int p = kk / 4, c = (kk % 4) * 16;
+    wgmma_ss_n128<T>(s, desc(&t.q[p][wg * 64 * kPanel + c], 16, 1024),
+                     desc(&t.k[st][p][c], 16, 1024), kk > 0);
+  }
+  wg_commit();
+  wg_wait();
+  pin(s);
+}
+
+// Keys >= S of the tile at k0 set to kNegInf; mx0 and mx1 take this
+// thread's maxima of rows row and row + 8.
+__device__ __forceinline__ void mask_max(float (&s)[64], int k0, int col,
+                                         int S, float& mx0, float& mx1) {
+  const bool ragged = k0 + kBlockN > S;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (ragged && k0 + 8 * n + col + (e & 1) >= S) s[4 * n + e] = kNegInf;
+    mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+}
+
+// This warp is done with stage st.
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) bar_arrive(empty);
+}
+
+// grid (ceil(S / kBlockM) * B * H): block x is query tile x % n_qt of
+// (b, h) = x / n_qt. Accumulator fragments (wgmma m64nN, f32): thread t of
+// a warpgroup, warp w = t / 32, lane l, holds d[4n + j] at row 16 w + l / 4
+// + 8 (j / 2), column 8 n + 2 (l % 4) + (j % 2).
+template <typename T, int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   T* __restrict__ o, float* __restrict__ st, int H, int S,
+                   int D, int n_qt, float scale, Layout out) {
+  constexpr int kPanels = kD / kPanel;
+  constexpr uint32_t kTileBytes = kBlockN * kD * 2;  // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  // the swizzle atom is 1024 bytes: align the tiles to it
+  Tiles<T, kD>& t = *reinterpret_cast<Tiles<T, kD>*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kBlockM;
+  const int b = bh / H, h = bh % H;
+  const int n_kt = (S + kBlockN - 1) / kBlockN;
+  // one pass over a single key tile; else the max pass, then the p pass
+  const int n_steps = n_kt == 1 ? 1 : 2 * n_kt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // producer: Q once, then the key tiles of both passes through the
+    // ring; the last n_kt steps (the p pass) bring V with K
+    if (lane == 0) {
+      bar_expect_tx(&q_full, kBlockM * kD * 2);
+      for (int p = 0; p < kPanels; ++p)
+        tma_load(t.q[p], &tq, &q_full, p * kPanel, q0, h, b);
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % kStages;
+        const int k0 = (i % n_kt) * kBlockN;
+        const bool with_v = i >= n_steps - n_kt;
+        if (i >= kStages) bar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        bar_expect_tx(&full[s], (with_v ? 2 : 1) * kTileBytes);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(t.k[s][p], &tk, &full[s], p * kPanel, k0, h, b);
+        if (with_v)
+          for (int p = 0; p < kPanels; ++p)
+            tma_load(t.v[s][p], &tv, &full[s], p * kPanel, k0, h, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64)
+  const int wg = warp / 4;
+  const int row = 16 * (warp % 4) + lane / 4;  // and row + 8, in the group
+  const int col = 2 * (lane % 4);
+
+  // q^ = T(q * scale) in place, the warpgroup's own rows, before any wgmma
+  // reads them (the async proxy sees the writes after the fence)
+  bar_wait(&q_full, 0);
+#pragma unroll
+  for (int p = 0; p < kPanels; ++p)
+    round_scaled(&t.q[p][wg * 64 * kPanel], 64 * kPanel, scale,
+                 threadIdx.x % 128);
+  fence_proxy_async();
+  if (wg == 0)  // constant barrier ids: ptxas reserves only those
+    named_barrier(1, 128);
+  else
+    named_barrier(2, 128);
+
+  float acc[kD / 2];
+  float s[64];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // the row maxima of rows row, row + 8
+  int i = 0;                         // the ring step, as the producer's
+  if (n_kt > 1) {
+    // the max pass
+    for (int j = 0; j < n_kt; ++j, ++i) {
+      const int stg = i % kStages;
+      bar_wait(&full[stg], (i / kStages) & 1);
+      scores(s, t, wg, stg);
+      release(&empty[stg], lane);
+      mask_max(s, j * kBlockN, col, S, m0, m1);
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+  }
+
+  // the p pass: p = exp(s - m) in fp32 into the row sums, T(p) into the A
+  // fragments of acc += T(p) v
+  float l0 = 0.f, l1 = 0.f;  // this thread's part of the row sums
+  for (int j = 0; j < n_kt; ++j, ++i) {
+    const int stg = i % kStages;
+    bar_wait(&full[stg], (i / kStages) & 1);
+    scores(s, t, wg, stg);
+    float mx0 = kNegInf, mx1 = kNegInf;
+    mask_max(s, j * kBlockN, col, S, mx0, mx1);
+    if (n_kt == 1) {
+      m0 = quad_max(mx0);
+      m1 = quad_max(mx1);
+    }
+    const float ml0 = m0 * kLog2e, ml1 = m1 * kLog2e;
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float p0 = exp2f(fmaf(s[4 * n], kLog2e, -ml0));
+      const float p1 = exp2f(fmaf(s[4 * n + 1], kLog2e, -ml0));
+      const float p2 = exp2f(fmaf(s[4 * n + 2], kLog2e, -ml1));
+      const float p3 = exp2f(fmaf(s[4 * n + 3], kLog2e, -ml1));
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      // keys 16 c .. 16 c + 15: registers (row, lo 8), (row + 8, lo 8),
+      // (row, hi 8), (row + 8, hi 8)
+      pa[n / 2][(n % 2) * 2] = pack2<T>(p0, p1);
+      pa[n / 2][(n % 2) * 2 + 1] = pack2<T>(p2, p3);
+    }
+    pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < kBlockN / 16; ++c)
+      wgmma_rs<T>(acc, pa[c], desc(&t.v[stg][0][c * 16 * kPanel],
+                                   kBlockN * kPanel * 2, 1024));
+    wg_commit();
+    wg_wait();
+    pin(acc);
+    release(&empty[stg], lane);
+  }
+
+  // o = T(acc * rinv); st = [m, rinv]
+  const float rinv0 = 1.f / quad_sum(l0), rinv1 = 1.f / quad_sum(l1);
+  const int r0 = q0 + wg * 64 + row, r1 = r0 + 8;
+  if (st != nullptr && lane % 4 == 0) {
+    float2* sp = reinterpret_cast<float2*>(st) + (long long)bh * S;
+    if (r0 < S) sp[r0] = make_float2(m0, rinv0);
+    if (r1 < S) sp[r1] = make_float2(m1, rinv1);
+  }
+  T* ob = o + b * out.sb + h * out.sh;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    const int c = 8 * n + col;
+    if (c >= D) continue;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(ob + r0 * out.sr + c) =
+          pack2<T>(acc[4 * n] * rinv0, acc[4 * n + 1] * rinv0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(ob + r1 * out.sr + c) =
+          pack2<T>(acc[4 * n + 2] * rinv1, acc[4 * n + 3] * rinv1);
+  }
+}
+
+template <typename T, int kD>
+int fwd(const void* q, const void* k, const void* v, void* o, void* st,
+        int B, int H, int S, int D, float scale, Layout in, Layout out,
+        cudaStream_t stream) {
+  static_assert(kBlockM == kBlockN, "one box shape serves Q, K and V");
+  EncodeTiled enc = encode_fn();
+  if (!enc) return kErrNoEntryPoint;
+  CUtensorMap tq, tk, tv;
+  const CUtensorMapDataType type = map_type<T>();
+  int rc = encode(enc, &tq, q, B, H, S, D, in, kBlockN, type);
+  if (!rc) rc = encode(enc, &tk, k, B, H, S, D, in, kBlockN, type);
+  if (!rc) rc = encode(enc, &tv, v, B, H, S, D, in, kBlockN, type);
+  if (rc) return rc;
+  const size_t smem = sizeof(Tiles<T, kD>) + 1024;  // + the alignment slack
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_tc_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (S + kBlockM - 1) / kBlockM;
+  const long long blocks = (long long)n_qt * B * H;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  attn_fwd_tc_kernel<T, kD><<<dim3((unsigned)blocks), kThreads, smem,
+                              stream>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(st), H, S, D, n_qt,
+      scale, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd_d(const void* q, const void* k, const void* v, void* o, void* st,
+          int B, int H, int S, int D, float scale, Layout in, Layout out,
+          cudaStream_t s) {
+  if (D <= 64)
+    return fwd<T, 64>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+  return fwd<T, 128>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// o (out layout) and, when st is not null, the (B, H, S, 2) fp32 row stats
+// from q, k, v (in layout), all of the element type `dtype` (elem.cuh's
+// code: bf16 or fp16; fp32 is csrc/attn_fwd.cu's). 1 <= S <= 1024, D even
+// and <= 128. Returns a cudaError_t as int (0 on a launch that was
+// accepted), or a code of vtx_cuda_error_string's own when a tensor map
+// could not be made.
+int vtx_attn_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                    void* st, int B, int H, int S, int D, float scale,
+                    long long in_sb, long long in_sh, long long in_sr,
+                    long long out_sb, long long out_sh, long long out_sr,
+                    int dtype, void* stream) {
+  if (B < 1 || H < 1 || S < 1 || S > kMaxSeq || D < 2 || (D & 1) ||
+      D > 128)
+    return (int)cudaErrorInvalidValue;
+  const Layout in{in_sb, in_sh, in_sr}, out{out_sb, out_sh, out_sr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kBf16:
+      return fwd_d<bf16>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+    case kF16:
+      return fwd_d<f16>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory of a launch at head dim D, in bytes (the same
+// for bf16 and fp16).
+int vtx_attn_fwd_tc_smem(int D) {
+  return (int)(D <= 64 ? sizeof(Tiles<bf16, 64>) : sizeof(Tiles<bf16, 128>)) +
+         1024;
+}
+
+const char* vtx_cuda_error_string(int err) { return error_string(err); }
+
+}  // extern "C"

@@ -6,18 +6,28 @@ Counterpart of vision_transformers_torch_xla_tpu/ops/flash_attention.py
 torch.matmul, as XLA ran it outside the Pallas calls. The attention reads
 q, k and v straight from the (B, S, 3·H·D) projection output:
 
-* `attn_fwd` -> csrc/attn_fwd.cu, the port of `_hp_fwd_stats_kernel`
-  (:291, ROADMAP K1), which also writes the softmax row stats;
-* `attn_bwd` -> csrc/attn_bwd.cu, the port of `_hp_bwd_pi_kernel` (:495,
-  ROADMAP K2), which recomputes the probabilities from those stats and
-  writes dqkv in the standard column order plus fp32 qkv-bias partials.
+* `attn_fwd`, the port of `_hp_fwd_stats_kernel` (:291, ROADMAP K1), which
+  also writes the softmax row stats;
+* `attn_bwd`, the port of `_hp_bwd_pi_kernel` (:495, ROADMAP K2), which
+  recomputes the probabilities from those stats and writes dqkv in the
+  standard column order plus fp32 qkv-bias partials.
+
+Their bf16 and fp16 kernels run on the tensor cores (TMA, mbarriers,
+wgmma): csrc/attn_fwd_tc.cu and csrc/attn_bwd_tc.cu. The fp32 ones are
+CUDA-core loops, csrc/attn_fwd.cu and csrc/attn_bwd.cu (the JAX kernels
+round nothing in fp32, and a tensor-core product of fp32 operands, TF32,
+would). `attn_kernel_route` decides before the launch, by dtype and shape:
+the tensor-core kernels read q, k and v in place through TMA tensor maps,
+which need a head dim that is a multiple of 8 and 16-byte-aligned data;
+other calls copy q, k, v (and dO, O) once with ops/flash_blocked.py's
+`padded_copy` (counted in `COPIES`) and run the same kernels.
 
 `fused_attention_qkv_cols` (:459) is attention off a qkv buffer the caller
 projected. For S <= MAX_SEQ it is the head-pair custom VJP
 `_hp_partitioned` (:437-456) as the autograd Function `HeadPairAttention`:
 
-* `hp_fwd` -> csrc/attn_fwd.cu without stats, the port of `_hp_fwd_kernel`
-  (:171, ROADMAP K9): the same function as K1's o, in the same cast order;
+* `hp_fwd`, K1's launch without stats, the port of `_hp_fwd_kernel` (:171,
+  ROADMAP K9): the same function as K1's o, in the same cast order;
 * `hp_bwd` -> csrc/hp_bwd.cu, the port of `_hp_bwd_kernel` (:212, ROADMAP
   K10), which recomputes the probabilities from q and k alone.
 
@@ -80,14 +90,17 @@ from vision_transformers_torch_xla_tpu_torch.ops.cuda_build import (
     KERNEL_DTYPES,
 )
 from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
+    TMA_ALIGN,
     FlashAttentionBlocked,
+    _tma_layout,
     heads,
     padded_copy,
+    tma_ready,
 )
 
 MAX_SEQ = 1024       # longer sequences are ops/flash_blocked.py's (K4-K6)
 MAX_HEAD_DIM = 128
-MAX_GRID_DIM = 65535  # K1, K2, K9: batch and heads ride the grid's y and z
+MAX_GRID_DIM = 65535  # K1, K2, K9 in fp32: batch, heads ride the grid's y, z
 
 # Launches of the attention kernels in this process. Only the wrappers'
 # launches add to them; callers may reset them to 0.
@@ -103,6 +116,7 @@ QKV_BWD_LAUNCHES = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_L3 = [ctypes.c_longlong] * 3  # element strides of batch, head and row
 
 
 def _load(name: str, fn: str, argtypes) -> ctypes.CDLL:
@@ -116,15 +130,52 @@ def _load(name: str, fn: str, argtypes) -> ctypes.CDLL:
 
 # Every host function ends with (element type's code, stream).
 def build_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the forward kernel's library."""
+    """Build (at first use) and load the fp32 forward's library (K1, K9 on
+    the CUDA cores)."""
     return _load("attn_fwd", "vtx_attn_fwd",
                  [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 
 
 def build_bwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the backward kernels' library."""
+    """Build (at first use) and load the fp32 backward's library (K2 on the
+    CUDA cores)."""
     return _load("attn_bwd", "vtx_attn_bwd",
                  [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _I, _P])
+
+
+def build_tc_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the bf16 and fp16 forward's library
+    (K1, K9 on the tensor cores)."""
+    return _load("attn_fwd_tc", "vtx_attn_fwd_tc",
+                 [_P] * 5 + [_I] * 4 + [ctypes.c_float] + _L3 * 2 + [_I, _P])
+
+
+def build_tc_bwd_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the bf16 and fp16 backward's library
+    (K2 on the tensor cores)."""
+    return _load("attn_bwd_tc", "vtx_attn_bwd_tc",
+                 [_P] * 3 + _L3 + [_P] * 2 + _L3 + [_P] * 4 + _L3
+                 + [_P] * 4 + [_I, _P, _P] + [_I] * 4
+                 + [ctypes.c_float, _I, _P])
+
+
+def attn_kernel_route(qkv: torch.Tensor, num_heads: int,
+                      do: Optional[torch.Tensor] = None,
+                      o: Optional[torch.Tensor] = None) -> str:
+    """The kernel a CUDA call of K1 or K9 (on `qkv`) or K2 (also on `do`
+    and `o`) launches, decided before the launch: 'tensor_cores' (bf16,
+    fp16: csrc/attn_fwd_tc.cu, csrc/attn_bwd_tc.cu, reading the buffers in
+    place), 'tensor_cores_copy' (the same kernels after one `padded_copy`,
+    when TMA cannot read q, k, v or dO, O in place: `tma_ready`) or
+    'cuda_cores' (fp32: csrc/attn_fwd.cu, csrc/attn_bwd.cu)."""
+    if qkv.dtype == torch.float32:
+        return "cuda_cores"
+    groups = [heads(qkv, num_heads)]
+    if do is not None:
+        groups.append((_head_major(do, num_heads), _head_major(o, num_heads)))
+    if all(tma_ready(*g) for g in groups):
+        return "tensor_cores"
+    return "tensor_cores_copy"
 
 
 def build_hp_bwd_kernels() -> ctypes.CDLL:
@@ -257,21 +308,34 @@ def attn_fwd_reference(qkv: torch.Tensor, num_heads: int, scale: float,
 def _launch_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
                 with_stats: bool, name: str
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One launch of csrc/attn_fwd.cu; the stats pointer is null without
-    stats."""
+    """One launch of the forward kernel of qkv's dtype
+    (`attn_kernel_route`); the stats pointer is null without stats."""
     b, s, _ = qkv.shape
     d = _head_dim(qkv, num_heads)
     _check_cuda(name, (qkv,), s, d, b, num_heads)
     o = torch.empty((b, s, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     st = torch.empty((b, num_heads, s, 2), dtype=torch.float32,
                      device=qkv.device) if with_stats else None
-    lib = build_kernels()
+    st_ptr = st.data_ptr() if st is not None else None
+    code = cuda_build.dtype_code(qkv.dtype)
+    route = attn_kernel_route(qkv, num_heads)
+    if route != "cuda_cores":
+        q, k, v = heads(qkv, num_heads)
+        if route == "tensor_cores_copy":
+            q, k, v = padded_copy((q, k, v), TMA_ALIGN, name)
+        lib = build_tc_kernels()
+    else:
+        lib = build_kernels()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.vtx_attn_fwd(qkv.data_ptr(), o.data_ptr(),
-                              st.data_ptr() if st is not None else None,
-                              b, s, num_heads, d, scale,
-                              cuda_build.dtype_code(qkv.dtype), stream)
+        if route == "cuda_cores":
+            rc = lib.vtx_attn_fwd(qkv.data_ptr(), o.data_ptr(), st_ptr, b, s,
+                                  num_heads, d, scale, code, stream)
+        else:
+            rc = lib.vtx_attn_fwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                st_ptr, b, num_heads, s, d, scale, *_tma_layout(q),
+                *_head_major(o, num_heads).stride()[:3], code, stream)
     _raise_on(lib, rc, "attention forward")
     return o, st
 
@@ -295,8 +359,8 @@ def hp_fwd(qkv: torch.Tensor, num_heads: int,
            scale: Optional[float] = None) -> torch.Tensor:
     """The head-pair forward (K9): o (B, S, H·D) of a (B, S, 3·H·D) qkv
     buffer, without row stats. `_hp_fwd_kernel` (:194-209) computes o in
-    `_hp_fwd_stats_kernel`'s cast order, so its kernel is csrc/attn_fwd.cu
-    with the stats pointer null and its plain version
+    `_hp_fwd_stats_kernel`'s cast order, so its kernel is K1's launch with
+    the stats pointer null and its plain version
     `attn_fwd_reference(with_stats=False)`."""
     global HP_FWD_LAUNCHES
     scale = _scale(qkv, num_heads, scale)
@@ -361,9 +425,25 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
     _check_cuda("attn_bwd", (qkv, do, o, st), s, d, b, num_heads)
     if st.dtype != torch.float32:
         raise TypeError(f"row stats must be float32, not {st.dtype}")
-    dev = qkv.device
     dqkv = torch.empty_like(qkv)
-    dbias = torch.empty((b, c), dtype=torch.float32, device=dev)
+    dbias = torch.empty((b, c), dtype=torch.float32, device=qkv.device)
+    route = attn_kernel_route(qkv, num_heads, do, o)
+    if route == "cuda_cores":
+        _launch_bwd_cuda_cores(qkv, do, o, st, dqkv, dbias, num_heads, scale)
+    else:
+        _launch_bwd_tc(qkv, do, o, st, dqkv, dbias, num_heads, scale,
+                       route == "tensor_cores_copy")
+    ATTN_BWD_LAUNCHES += 1
+    return dqkv, dbias
+
+
+def _launch_bwd_cuda_cores(qkv, do, o, st, dqkv, dbias, num_heads: int,
+                           scale: float) -> None:
+    """csrc/attn_bwd.cu (fp32): its prep launch's scratch, then its three
+    launches."""
+    b, s, c = qkv.shape
+    d = c // (3 * num_heads)
+    dev = qkv.device
     # scratch of the prep launch: q̂, q̂/Σp, dO/Σp and rowsum(dO·O)
     scratch = torch.empty((3, b, num_heads, s, d), dtype=qkv.dtype, device=dev)
     delta = torch.empty((b, num_heads, s), dtype=torch.float32, device=dev)
@@ -377,8 +457,42 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
             b, s, num_heads, d, scale, cuda_build.dtype_code(qkv.dtype),
             stream)
     _raise_on(lib, rc, "attention backward")
-    ATTN_BWD_LAUNCHES += 1
-    return dqkv, dbias
+
+
+def _launch_bwd_tc(qkv, do, o, st, dqkv, dbias, num_heads: int,
+                   scale: float, copy: bool) -> None:
+    """csrc/attn_bwd_tc.cu (bf16, fp16): q, k, v read as head views of
+    qkv, dO and O as head views of their (B, S, H·D) buffers, or all five
+    from one `padded_copy` when `copy`; dq, dk and dv written into dqkv's
+    head views."""
+    b, s, c = qkv.shape
+    h = num_heads
+    d = c // (3 * h)
+    dev = qkv.device
+    q, k, v = heads(qkv, h)
+    g, out = _head_major(do, h), _head_major(o, h)
+    if copy:
+        q, k, v, g, out = padded_copy((q, k, v, g, out), TMA_ALIGN,
+                                      "attn_bwd")
+    dq, dk, dv = heads(dqkv, h)
+    lib = build_tc_bwd_kernels()
+    # scratch: q̂, q̂/Σp and dO/Σp with rows TMA reads, rowsum(dO·O), and
+    # the bias partials of each of the kernels' row tiles
+    dsc = -(-d // TMA_ALIGN) * TMA_ALIGN
+    scratch = torch.empty((3, b, h, s, dsc), dtype=qkv.dtype, device=dev)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    part = torch.empty((b, lib.vtx_attn_bwd_tc_tiles(s), c),
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vtx_attn_bwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *_tma_layout(q),
+            g.data_ptr(), out.data_ptr(), *_tma_layout(g), st.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dq.stride()[:3],
+            dbias.data_ptr(), *(t.data_ptr() for t in scratch), dsc,
+            delta.data_ptr(), part.data_ptr(), b, h, s, d, scale,
+            cuda_build.dtype_code(qkv.dtype), stream)
+    _raise_on(lib, rc, "attention backward")
 
 
 def _softmax_rows(s: torch.Tensor) -> torch.Tensor:

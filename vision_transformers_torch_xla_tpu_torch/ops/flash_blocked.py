@@ -224,15 +224,16 @@ def _tma_layout(t: torch.Tensor) -> Tuple[int, int, int]:
                  for n, x in zip(t.shape[:3], t.stride()[:3]))
 
 
-def tma_ready(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether the bf16 kernels' tensor maps read q, k and v in place: one
+def tma_ready(*tensors: torch.Tensor) -> bool:
+    """Whether the tensor-core kernels' tensor maps read `tensors` (q, k, v
+    here; also dO and O for ops/flash_attention.py's K2) in place: one
     layout, a contiguous head dim that is a multiple of 8, 16-byte-aligned
     data and strides."""
-    layouts = {_tma_layout(t) for t in (q, k, v)}
-    return (len(layouts) == 1 and q.shape[-1] % TMA_ALIGN == 0
+    layouts = {_tma_layout(t) for t in tensors}
+    return (len(layouts) == 1 and tensors[0].shape[-1] % TMA_ALIGN == 0
             and all(x % TMA_ALIGN == 0 for x in layouts.pop())
             and all(t.stride(-1) == 1 and t.data_ptr() % (2 * TMA_ALIGN) == 0
-                    for t in (q, k, v)))
+                    for t in tensors))
 
 
 def _in_place(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
