@@ -12,8 +12,9 @@ and no phase catches its own error:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: every CUDA source of the port with nvcc into build/kernels/,
    one nvcc per source, all started together; the time, registers and
-   spills of csrc/attn_fwd_tc.cu (K1 and K9 in bf16 and fp16, TMA and
-   wgmma) and csrc/attn_fwd.cu (their fp32 version, CUDA cores).
+   spills of csrc/attn_fwd_tc.cu (K1 and K9, and in K7's cast order K7 and
+   K11, in bf16 and fp16, TMA and wgmma; its dynamic shared memory) and
+   csrc/attn_fwd.cu (K1's and K9's fp32 version, CUDA cores).
 3. kernel vs plain: ops/flash_attention.py::attn_fwd (the CUDA kernel),
    and hp_fwd (K9, the same launch without stats), against
    attn_fwd_reference (plain PyTorch) on seeded bf16 qkv at the train
@@ -125,16 +126,21 @@ The op-level fused attention entry points (ops/attention.py::
 multi_head_attention(use_pallas=True), ops/flash_attention.py::
 fused_attention_qkv), which no model calls:
 
-21. K7, K8, K11 and K12 vs plain: csrc/fused_attn_fwd.cu (K7, K11; built
-    with the others in phase 2, registers and spills logged) and
-    csrc/hp_bwd.cu's launches for K8 and K12. `multi_head_attention(
-    use_pallas=True)` (K7, K8) on separate (B, H, S, D) q, k, v and
-    `fused_attention_qkv` (K11, K12) on a (B, S, 3, H, D) buffer, forward
-    and backward, at B 64 and 128 (S 197, H 12, D 64) and S 1024, a ragged
-    S at D 48 and D 128; then `multi_head_attention` on the permuted
-    (B, H, S, D) views of a qkv buffer, read in place. o against
-    fused_fwd_reference and the gradients against fused_bwd_reference with
-    phase 20's limits; at B 64 and 128 the median CUDA-event time of each
+21. K7, K8, K11 and K12 vs plain: csrc/attn_fwd_tc.cu in K7's cast order
+    (K7, K11 in bf16 and fp16, `fused_kernel_route`; the fp32 ones are
+    csrc/fused_attn_fwd.cu's, built with the others in phase 2, registers
+    and spills logged) and csrc/hp_bwd.cu's launches for K8 and K12.
+    `multi_head_attention(use_pallas=True)` (K7, K8) on separate (B, H, S,
+    D) q, k, v and `fused_attention_qkv` (K11, K12) on a (B, S, 3, H, D)
+    buffer, forward and backward, at B 64 and 128 (S 197, H 12, D 64) and
+    S 1024, a ragged S at D 48 and D 128; then `multi_head_attention` on
+    the permuted (B, H, S, D) views of a qkv buffer, read in place. o
+    against fused_fwd_reference and the gradients against
+    fused_bwd_reference with phase 20's limits. Then the tensor-core K7 and
+    K11 alone in bf16 and fp16 at phase 3's edges (TC_EDGE_SHAPES: S 17 to
+    1024, D 64 and 128, and the head dims 2 and 6, which take one padded
+    copy exactly where the route says), o against fused_fwd_reference
+    within O_ATOL. At B 64 and 128 the median CUDA-event time of each
     kernel, its plain version and SDPA's forward or backward. Both entry
     points at S = 1100 take reference_attention, as JAX routes them, and
     must launch none of the twelve kernels.
@@ -156,7 +162,8 @@ JAX kernels take any float dtype):
     reach a kernel (qkv_proj_attention, mlp_gelu, fused_attention_qkv_cols
     at S 1370 and 197, multi_head_attention(use_pallas=True),
     fused_attention_qkv) driven forward and backward once in each dtype,
-    which must launch each kernel once; then each kernel held against its
+    which must launch each kernel once (in fp16 K1, K2, K7, K9 and K11 on
+    the tensor cores); then each kernel held against its
     plain version on the card at its main shape and a ragged one, within
     DTYPE_REL of the largest magnitude (FP32_OUT_REL for fp32 outputs,
     LSE_ATOL for lse), and timed at the main shape beside its plain
@@ -677,13 +684,16 @@ def log_ptxas(cuda_build, name: str, tag: str) -> None:
         if m:
             # the kernel's own name is the last match: the anonymous
             # namespace before it carries the source's name; then the
-            # element type (none: bf16) and the head dim
+            # element type (none: bf16), the head dim and, for
+            # attn_fwd_tc_kernel, the cast order (true: K7's)
             k = re.findall(r"\d((?:fused|attn|flash|hp|fc2)_\w+?_kernel)"
-                           r"(?:I(13__nv_bfloat16|6__half|f)?(?:Li(\d+)E)?)?",
-                           m.group(1))
+                           r"(?:I(13__nv_bfloat16|6__half|f)?(?:Li(\d+)E)?"
+                           r"(?:Lb([01])E)?)?", m.group(1))
             dt = {"6__half": "fp16", "f": "fp32"}.get(k[-1][1], "bf16") \
                 if k else ""
-            fn = f"{k[-1][0]}<{dt}, {k[-1][2] or '-'}>" if k else m.group(1)
+            order = ", K7 order" if k and k[-1][3] == "1" else ""
+            fn = f"{k[-1][0]}<{dt}, {k[-1][2] or '-'}{order}>" if k \
+                else m.group(1)
         elif "registers" in line or "spill" in line:
             log(f"[{tag}] {fn}: {line.strip()}")
 
@@ -1523,12 +1533,14 @@ def phase_hp_kernel(counts, fa, dev):
 
 def phase_fused_kernel(counts, fa, dev):
     """K7 and K8 through multi_head_attention(use_pallas=True), K11 and K12
-    through fused_attention_qkv, held against their plain versions; then
-    both at S = 1100, which must launch nothing. Returns the route's
-    launches, the results and the worst errors."""
+    through fused_attention_qkv, held against their plain versions; the
+    tensor-core K7 and K11 at TC_EDGE_SHAPES in bf16 and fp16; then both
+    entry points at S = 1100, which must launch nothing. Returns the route's
+    launches, the results and the worst bf16 errors."""
     import torch
 
     from vision_transformers_torch_xla_tpu_torch.ops import (
+        flash_blocked as fb,
         multi_head_attention,
     )
 
@@ -1569,6 +1581,42 @@ def phase_fused_kernel(counts, fa, dev):
     torch.cuda.synchronize()
     launches = counts()
 
+    # the tensor-core K7 and K11 at their edges (TC_EDGE_SHAPES) in bf16 and
+    # fp16: o against the plain version, one copy exactly where
+    # fused_kernel_route says
+    worst = dict.fromkeys(("fused_fwd", "fused_bwd", "qkv_fwd", "qkv_bwd"),
+                          0.0)
+    for dt_name in EDGE_DTYPES:
+        dt = getattr(torch, dt_name)
+        edge = dict.fromkeys(("fused_fwd", "qkv_fwd"), 0.0)
+        for b, s, h, d in TC_EDGE_SHAPES:
+            x = seeded_bf16((b, s, 3, h, d), 6500 + s + d, dev, dt)
+            q, k, v = (t.contiguous() for t in heads5(x))
+            o_r = fa.fused_fwd_reference(q, k, v, d ** -0.5)
+            runs = (("fused_fwd", lambda: fa.fused_fwd(q, k, v), (q, k, v)),
+                    ("qkv_fwd", lambda: fa.qkv_fwd(x).view(
+                        b, s, h, d).transpose(1, 2), heads5(x)))
+            for name, run, ins in runs:
+                copies = fb.COPIES
+                o = run()
+                torch.cuda.synchronize()
+                want = int(fa.fused_kernel_route(*ins) == "tensor_cores_copy")
+                tag = f"{name} {dt_name} {(b, s, h, d)}"
+                check(fb.COPIES - copies == want,
+                      f"{tag}: {fb.COPIES - copies} copies, the route says "
+                      f"{want}")
+                check(o.shape == o_r.shape
+                      and torch.isfinite(o.float()).all().item(),
+                      f"{tag}: shape {tuple(o.shape)} or not finite")
+                err = (o.float() - o_r.float()).abs().max().item()
+                check(err <= O_ATOL, f"{tag}: o max abs err {err} > {O_ATOL}")
+                edge[name] = max(edge[name], err)
+        if dt_name == "bfloat16":
+            worst.update(edge)
+        log(f"[fused kernel] tensor-core K7, K11 in {dt_name} at "
+            f"{len(TC_EDGE_SHAPES)} edge shapes (copies as the route says): "
+            f"o max abs err {edge!r}")
+
     def held(tag, shape, run):
         """o and (dq, dk, dv) against the plain versions; returns the
         errors."""
@@ -1594,8 +1642,6 @@ def phase_fused_kernel(counts, fa, dev):
         return o_err, g_err, g_ref
 
     results = {}
-    worst = dict.fromkeys(("fused_fwd", "fused_bwd", "qkv_fwd", "qkv_bwd"),
-                          0.0)
     for shape in shapes:
         b, s, h, d = shape
         row = {}
@@ -1743,6 +1789,7 @@ def main() -> int:
     fwd_lib, bwd_lib = fa.build_tc_kernels(), fa.build_tc_bwd_kernels()
     for d in (64, 128):
         log(f"[build] dynamic shared memory at D <= {d}: attn_fwd_tc_kernel "
+            f"(K1 and K9, and in K7's order K7 and K11) "
             f"{fwd_lib.vtx_attn_fwd_tc_smem(d)} B, attn_bwd_tc_dkdv_kernel "
             f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 0)} B, attn_bwd_tc_dq_kernel "
             f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 1)} B")
@@ -1983,13 +2030,13 @@ def main() -> int:
         "unfused_ms_b64": m64["unfused_ms"]},
         hp_entry("hp_fwd", "attn_fwd_tc.cu", "flash_attention.py:171"),
         hp_entry("hp_bwd", "hp_bwd.cu", "flash_attention.py:212"),
-        fused_entry("fused_fwd", "fused_attn_fwd.cu", "flash_attention.py:36"),
+        fused_entry("fused_fwd", "attn_fwd_tc.cu", "flash_attention.py:36"),
         fused_entry("fused_bwd", "hp_bwd.cu", "flash_attention.py:61"),
-        fused_entry("qkv_fwd", "fused_attn_fwd.cu", "flash_attention.py:740"),
+        fused_entry("qkv_fwd", "attn_fwd_tc.cu", "flash_attention.py:740"),
         fused_entry("qkv_bwd", "hp_bwd.cu", "flash_attention.py:764")]
     # one line for each fp32 and fp16 instantiation; the blocked kernels'
-    # are the CUDA-core ones, and K1, K2 and K9 in fp32 too (fp16 shares
-    # bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
+    # are the CUDA-core ones, and K1, K2, K7, K9 and K11 in fp32 too (fp16
+    # shares bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
     # launches of the trainer's own run (main() --precision fp32, with
     # --pallas_mlp on for K3); every other instantiation those of
     # drive_entry_points.
@@ -2000,7 +2047,9 @@ def main() -> int:
                                    "flash_bwd_dq"), "flash_blocked.cu")
         if dt_name == "float32":
             cuda_core.update(attn_fwd="attn_fwd.cu", attn_bwd="attn_bwd.cu",
-                             hp_fwd="attn_fwd.cu")
+                             hp_fwd="attn_fwd.cu",
+                             fused_fwd="fused_attn_fwd.cu",
+                             qkv_fwd="fused_attn_fwd.cu")
         return src + cuda_core[name] if name in cuda_core else sources[name]
 
     replaces = {k["name"]: k["replaces"] for k in kernels}

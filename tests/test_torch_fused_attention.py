@@ -9,8 +9,11 @@ padding; its wrappers run their plain versions for CPU tensors:
 Then the entry points `fused_attention`, `fused_attention_qkv` and
 `multi_head_attention` (both routes), value and gradients, against the JAX
 functions, with S = 1100 on the plain route of both, and `masked_attention`
-and `attention_bshd` against theirs. The `cuda` cases hold the kernels
-against their plain versions on the card and skip without one. The JAX
+and `attention_bshd` against theirs. `fused_kernel_route` picks K7's and
+K11's kernel from dtype and layout on CPU tensors. The `cuda` cases hold the
+kernels against their plain versions on the card (the tensor-core K7 and
+K11 in bf16 and fp16 at the edges of their 128-row tiles, copying exactly
+where the route says) and skip without one. The JAX
 package is imported inside the JAX helpers, so that the `cuda` cases also
 run where flax is missing.
 
@@ -372,6 +375,37 @@ def test_launch_views_repairs_what_the_kernels_do_not_take(case):
     assert record == [((b, h, s, d + d % 2), True)]
 
 
+def _route_case(case):
+    """(B, H, S, D) q, k, v on the CPU for each case of `fused_kernel_route`."""
+    dt = torch.float32 if case == "fp32" else (
+        torch.float16 if case == "fp16" else torch.bfloat16)
+    d = {"d48": 48, "d6": 6, "odd_d": 7}.get(case, 64)
+    if case == "qkv_views":
+        qkv = torch.zeros((2, 10, 3, 4, d), dtype=dt)
+        return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    q, k, v = (torch.zeros((2, 4, 10, d), dtype=dt) for _ in range(3))
+    if case == "layouts_differ":
+        k = torch.zeros((2, 10, 4, d), dtype=dt).transpose(1, 2)
+    if case == "unaligned":
+        n = q.numel()
+        q, k, v = (torch.zeros(n + 1, dtype=dt)[1:].view(q.shape)
+                   for _ in range(3))
+    return q, k, v
+
+
+@pytest.mark.parametrize("case, route", [
+    ("fp32", "cuda_cores"), ("bf16", "tensor_cores"),
+    ("fp16", "tensor_cores"), ("qkv_views", "tensor_cores"),
+    ("d48", "tensor_cores"), ("d6", "tensor_cores_copy"),
+    ("odd_d", "tensor_cores_copy"), ("layouts_differ", "tensor_cores_copy"),
+    ("unaligned", "tensor_cores_copy")])
+def test_fused_kernel_route(case, route):
+    # fp32 stays on the CUDA cores; bf16 and fp16 take the tensor cores,
+    # in place where TMA reads q, k, v (one layout, a head dim that is a
+    # multiple of 8, 16-byte-aligned data and strides), else after a copy
+    assert fa.fused_kernel_route(*_route_case(case)) == route
+
+
 def _plain_check(o, grads, q, k, v, do, scale):
     """The kernels' o and (dq, dk, dv) against the plain versions on the same
     bf16 inputs: o as K1's test, the grads by a flipped bf16 rounding of ds
@@ -410,6 +444,35 @@ def test_kernels_match_plain_on_cuda(cuda_device, shape):
     grads = qkv.grad.permute(2, 0, 3, 1, 4).unbind(0)
     _plain_check(o2.view(b, s, h, d).transpose(1, 2), grads, *x, do,
                  d ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 64, 128])
+@pytest.mark.parametrize("s", [17, 128, 129, 197, 256, 257, 1024])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_tensor_core_k7_k11_match_plain_on_cuda(cuda_device, dtype, s, d):
+    # one and two 128-key tiles and their ragged edges, up to the contract's
+    # S = 1024: K7 on separate (B, H, S, D) q, k, v and K11 on a (B, S, 3,
+    # H, D) buffer holding the same heads, o as K1's test holds it
+    b, h = 2, 3
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(_rand((b, s, 3, h, d), 30 * s + d)).to(
+        cuda_device, dt)
+    q, k, v = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+    o_r = fa.fused_fwd_reference(q, k, v, d ** -0.5)
+    for count, run, ins in (
+            ("FUSED_FWD_LAUNCHES", lambda: fa.fused_fwd(q, k, v), (q, k, v)),
+            ("QKV_FWD_LAUNCHES", lambda: fa.qkv_fwd(qkv).view(
+                b, s, h, d).transpose(1, 2),
+             qkv.permute(2, 0, 3, 1, 4).unbind(0))):
+        before, copies = getattr(fa, count), fb.COPIES
+        o = run()
+        torch.cuda.synchronize()
+        assert getattr(fa, count) == before + 1
+        assert fb.COPIES - copies == int(
+            fa.fused_kernel_route(*ins) == "tensor_cores_copy")
+        assert o.dtype == dt and torch.isfinite(o.float()).all()
+        assert (o.float() - o_r.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.cuda

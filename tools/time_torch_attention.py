@@ -33,7 +33,10 @@ ops/flash_blocked.py's (K4), on q, k, v read from a (B, S, 3·H·D)
 projection as the model's path reads them, and flash_bwd_dkdv and
 flash_bwd_dq (K5, K6) from K4's o and lse, with dO a view of (B, S, H, D)
 memory and dq, dk, dv views of one (B, S, 3·H·D) buffer, as
-`flash_bwd` lays them out. sdpa_fwd and sdpa_bwd (its whole backward,
+`flash_bwd` lays them out. mha_fwd_bwd is the op-level entry point
+`multi_head_attention(use_pallas=True)`, forward and backward (K7 and K8),
+on the (B, H, S, D) q, k, v of fused_fwd. sdpa_fwd and sdpa_bwd (its whole
+backward,
 dq, dk and dv) are the yardstick, torch's scaled_dot_product_attention on
 contiguous copies of those q, k, v, which the port never calls.
 """
@@ -85,6 +88,8 @@ def calls(fa, fb, b: int, s: int, D: int, dtype):
     dense = [t.detach().contiguous().requires_grad_() for t in heads]
     dob = do.view(b, s, H, D).transpose(1, 2)
     state = {}
+    attention = importlib.import_module(
+        fa.__name__.rsplit(".", 1)[0] + ".attention")
 
     def blocked_bwd(name):
         # K4's o and lse once, then the backward kernel alone
@@ -103,6 +108,15 @@ def calls(fa, fb, b: int, s: int, D: int, dtype):
         if "stats" not in state:
             state["stats"] = fa.attn_fwd(qkv, H, with_stats=True)
         return fa.attn_bwd(qkv, do, *state["stats"], H)
+
+    def mha_fwd_bwd():
+        # the entry point's forward and backward on leaves of q, k, v
+        if "leaves" not in state:
+            state["leaves"] = [t.detach().clone().requires_grad_()
+                               for t in (q, k, v)]
+        leaves = state["leaves"]
+        o = attention.multi_head_attention(*leaves, use_pallas=True)
+        return torch.autograd.grad(o, leaves, g)
 
     def sdpa_bwd():
         if "sdpa" not in state:
@@ -126,6 +140,7 @@ def calls(fa, fb, b: int, s: int, D: int, dtype):
         "fused_bwd": lambda: fa.fused_bwd(q, k, v, g),
         "qkv_fwd": lambda: fa.qkv_fwd(qkv5),
         "qkv_bwd": lambda: fa.qkv_bwd(qkv5, do),
+        "mha_fwd_bwd": mha_fwd_bwd,
     }
 
 

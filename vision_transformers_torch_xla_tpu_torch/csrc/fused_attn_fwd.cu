@@ -1,5 +1,5 @@
 // Softmax attention forward over (B, H, S, D) q, k and v given by strides,
-// for Hopper.
+// for Hopper, in fp32.
 //
 // Replaces two TPU kernels of
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py that compute the
@@ -8,13 +8,19 @@
 //   _qkv_fwd_kernel (K11): one (B, Sp, 3H, D) qkv buffer, one image per
 //     program, o (B, Sp, H, D).
 // Per (b, h), in their cast order:
-//   s = (q k^T in fp32 from the bf16 values) * scale over the S real keys;
+//   s = (q k^T in fp32 from the raw values) * scale over the S real keys;
 //   m = rowmax(s); p = exp(s - m) / sum(exp(s - m)), normalised in fp32;
-//   o = bf16(p) v, accumulated in fp32, stored bf16.
-// This is not K1's and K9's order (csrc/attn_fwd.cu): there q^ = bf16(q *
+//   o = T(p) v, accumulated in fp32, stored T (T the inputs' dtype).
+// This is not K1's and K9's order (csrc/attn_fwd.cu): there q^ = T(q *
 // scale) and p is cast before it is normalised, o scaled by 1 / sum after
 // the product. The TPU kernels pad S to 128 and D to 8 and mask the padded
 // columns; here the loops run over the S real keys and the D real columns.
+//
+// Element types: this source serves fp32, where every rounding to T is an
+// identity. The loops are written for any element type through
+// csrc/elem.cuh, and bf16 and fp16 run on the tensor cores instead
+// (csrc/attn_fwd_tc.cu, K7's cast order): a tensor-core product of fp32
+// operands (TF32) would round what the TPU kernels keep.
 //
 // Every tensor is a base pointer and three element strides (batch, head,
 // token) with the head dim contiguous, so K7 reads (B, H, S, D) tensors and
@@ -22,11 +28,10 @@
 // a (B, S, H*D) output, with no copy in or out.
 //
 // What bounds it on an H100: at B = 128, S = 197, H = 12, D = 64 the two
-// products are 15 GFLOP over ~155 MB (q, k, v read, o written), far below
-// the ~295 FLOP/byte ridge, so device memory bounds the ideal kernel
-// (0.046 ms at 3.35 TB/s). On the CUDA cores the limit is instruction issue,
-// as for K1: every two FMAs come with a shared-memory load and two bf16 ->
-// fp32 conversions. Tensor cores (mma.sync / wgmma) are the way past that.
+// products are 15 GFLOP over ~310 MB of fp32 (q, k, v read, o written):
+// 0.228 ms at the 67 TFLOP/s fp32 CUDA-core peak, 0.093 ms at 3.35 TB/s, so
+// the products bound the ideal kernel. The limit in practice is instruction
+// issue: every two FMAs come with a shared-memory load.
 //
 // Design, K1's: one block per (b, h, 64-row query tile). K and V of the head
 // are staged once in shared memory (rows padded to an odd number of 32-bit
@@ -39,10 +44,6 @@
 // registers and the loops unroll; other even head dims take the run-time
 // loops. When K and V do not fit (long S with wide D), they are read from
 // global memory (L2) through the same loops.
-//
-// Element types: bf16 as above; fp16 and fp32 inputs run the same loops,
-// the bf16 rounding of p a rounding to the inputs' dtype (the TPU kernels'
-// astype; none for fp32), through csrc/elem.cuh.
 //
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
 // launches on the caller's stream; the host function takes the element
@@ -294,10 +295,10 @@ int launch_d(const void* const* ptrs, const Layout& a, int B, int H,
 
 extern "C" {
 
-// q, k, v in, o out: (B, H, S, D) of the element type `dtype` with the head
-// dim contiguous; strides holds 12 element strides, (batch, head, token) of
-// q, k, v and o. Returns a cudaError_t as int: 0 on a launch that was
-// accepted.
+// q, k, v in, o out: (B, H, S, D) of the element type `dtype` (fp32, kF32,
+// alone) with the head dim contiguous; strides holds 12 element strides,
+// (batch, head, token) of q, k, v and o. Returns a cudaError_t as int: 0 on
+// a launch that was accepted.
 int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
                        const long long* strides, int B, int S, int H, int D,
                        float scale, int dtype, void* stream) {
@@ -306,9 +307,8 @@ int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
       (long long)B * H * tiles > kMaxGridX || D < 2 || (D & 1) ||
       D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
-  if (dtype != kBf16 && dtype != kF16 && dtype != kF32)
-    return (int)cudaErrorInvalidValue;
-  const uintptr_t pair_bytes = dtype == kF32 ? 8 : 4;
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  const uintptr_t pair_bytes = 8;
   Layout a;
   const void* ptrs[kTensors] = {q, k, v, o};
   for (int t = 0; t < kTensors; ++t) {
@@ -328,12 +328,7 @@ int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
   a.D = D;
   a.tiles = tiles;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kBf16: return launch_d<__nv_bfloat16>(ptrs, a, B, H, s);
-    case kF16: return launch_d<__half>(ptrs, a, B, H, s);
-    default: return launch_d<float>(ptrs, a, B, H, s);
-  }
+  return launch_d<float>(ptrs, a, B, H, static_cast<cudaStream_t>(stream));
 }
 
 const char* vtx_cuda_error_string(int err) {

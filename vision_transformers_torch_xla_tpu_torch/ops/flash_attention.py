@@ -42,18 +42,23 @@ one function over two layouts, in the cast order of `_reference_attention`
 (p normalised in fp32 before its bf16 cast), which is not K1's:
 
 * `fused_fwd` (K7, `_fwd_kernel` :36) on (B, H, S, D) q, k, v and `qkv_fwd`
-  (K11, `_qkv_fwd_kernel` :740) on a (B, S, 3, H, D) qkv buffer ->
-  csrc/fused_attn_fwd.cu, plain version `fused_fwd_reference`;
+  (K11, `_qkv_fwd_kernel` :740) on a (B, S, 3, H, D) qkv buffer -> in bf16
+  and fp16 csrc/attn_fwd_tc.cu in K7's cast order (TMA, mbarriers, wgmma),
+  in fp32 csrc/fused_attn_fwd.cu (CUDA cores), as `fused_kernel_route`
+  decides; plain version `fused_fwd_reference`;
 * `fused_bwd` (K8, `_bwd_kernel` :61) and `qkv_bwd` (K12, `_qkv_bwd_kernel`
   :764) -> csrc/hp_bwd.cu, whose function is K10's; plain version
   `fused_bwd_reference`, which `hp_bwd_reference` shares.
 
-Both sources take every tensor as a base pointer and (batch, head, token)
-strides, so they read q, k and v in place, whether separate tensors or
-views of one qkv buffer. Views they cannot take in place (an odd head dim,
-odd or unaligned strides) are copied once by ops/flash_blocked.py's
-`padded_copy`, the head dim zero-padded to even, as JAX pads it to 8, and
-the results sliced back (`_launch_views`). Their grid is one-dimensional
+The tensor-core forward reads q, k and v in place through tensor maps with
+one set of strides, whether separate tensors or views of one qkv buffer,
+and writes o in place; q, k, v that TMA cannot read (`tma_ready`: another
+layout each, a head dim not a multiple of 8, unaligned data) are copied
+once by ops/flash_blocked.py's `padded_copy`. The CUDA-core sources take
+every tensor as a base pointer and (batch, head, token) strides; views
+they cannot take in place (an odd head dim, odd or unaligned strides) are
+copied once, the head dim zero-padded to even, as JAX pads it to 8, and
+the results sliced back (`_launch_views`). Every grid is one-dimensional
 over (b, h, query tile), so B and H are not bound by the grid's y and z
 limits. A head dim over 128 raises. The TPU kernels' padding of S to 128
 and D to 8 and the G batching of `_pick_g` have no counterpart: the kernels
@@ -144,10 +149,15 @@ def build_bwd_kernels() -> ctypes.CDLL:
 
 
 def build_tc_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the bf16 and fp16 forward's library
-    (K1, K9 on the tensor cores)."""
-    return _load("attn_fwd_tc", "vtx_attn_fwd_tc",
-                 [_P] * 5 + [_I] * 4 + [ctypes.c_float] + _L3 * 2 + [_I, _P])
+    """Build (at first use) and load the bf16 and fp16 forwards' library:
+    K1, K9 (`vtx_attn_fwd_tc`) and K7, K11 (`vtx_fused_attn_fwd_tc`, K7's
+    cast order) on the tensor cores."""
+    lib = _load("attn_fwd_tc", "vtx_attn_fwd_tc",
+                [_P] * 5 + [_I] * 4 + [ctypes.c_float] + _L3 * 2 + [_I, _P])
+    lib.vtx_fused_attn_fwd_tc.restype = ctypes.c_int
+    lib.vtx_fused_attn_fwd_tc.argtypes = \
+        [_P] * 4 + [_I] * 4 + [ctypes.c_float] + _L3 * 2 + [_I, _P]
+    return lib
 
 
 def build_tc_bwd_kernels() -> ctypes.CDLL:
@@ -178,6 +188,20 @@ def attn_kernel_route(qkv: torch.Tensor, num_heads: int,
     return "tensor_cores_copy"
 
 
+def fused_kernel_route(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> str:
+    """The kernel a CUDA call of K7 or K11 on (B, H, S, D) q, k, v
+    launches, decided before the launch: 'tensor_cores' (bf16, fp16:
+    csrc/attn_fwd_tc.cu in K7's cast order, reading q, k, v in place),
+    'tensor_cores_copy' (the same kernel after one `padded_copy`, when TMA
+    cannot read them in place: `tma_ready`) or 'cuda_cores' (fp32:
+    csrc/fused_attn_fwd.cu). The output is the wrapper's own, which the
+    kernel writes in place at every even head dim."""
+    if q.dtype == torch.float32:
+        return "cuda_cores"
+    return "tensor_cores" if tma_ready(q, k, v) else "tensor_cores_copy"
+
+
 def build_hp_bwd_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the backward of K8, K10 and K12."""
     return _load("hp_bwd", "vtx_hp_bwd",
@@ -186,7 +210,8 @@ def build_hp_bwd_kernels() -> ctypes.CDLL:
 
 
 def build_fused_fwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the forward of K7 and K11."""
+    """Build (at first use) and load the fp32 forward of K7 and K11 (CUDA
+    cores)."""
     return _load("fused_attn_fwd", "vtx_fused_attn_fwd",
                  [_P] * 4 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _I,
                              _P])
@@ -614,22 +639,47 @@ class HeadPairAttention(torch.autograd.Function):
 
 
 def _launch_fused_fwd(q, k, v, o, scale: float, name: str) -> None:
-    """csrc/fused_attn_fwd.cu: q, k, v in and o out, all (B, H, S, D) of
-    one dtype, read and written by stride (`_launch_views`)."""
+    """One launch of K7's function: q, k, v in and o out, all (B, H, S, D)
+    of one dtype, on the kernel of `fused_kernel_route`. The tensor-core
+    kernel reads q, k, v through tensor maps (after one `padded_copy` to a
+    multiple of 8 when TMA cannot read them in place, the maps keeping the
+    real head dim as their extent) and writes o in place; an odd head dim
+    runs at the next even one, the copies' zero column, into a temporary o
+    that is sliced back. The fp32 kernel reads and writes by stride
+    (`_launch_views`)."""
     b, h, s, d = q.shape
     _check_cuda(name, (q, k, v, o), s, d, b, h, views=True)
-    lib = build_fused_fwd_kernels()
+    route = fused_kernel_route(q, k, v)
+    dev = q.device
+    if route == "cuda_cores":
+        lib = build_fused_fwd_kernels()
 
-    def launch(ins, outs, strides):
-        b, h, s, d = ins[0].shape
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = lib.vtx_fused_attn_fwd(
-                *(t.data_ptr() for t in (*ins, *outs)), strides, b, s, h, d,
-                scale, cuda_build.dtype_code(ins[0].dtype), stream)
-        _raise_on(lib, rc, f"{name} attention forward")
+        def launch(ins, outs, strides):
+            b, h, s, d = ins[0].shape
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = lib.vtx_fused_attn_fwd(
+                    *(t.data_ptr() for t in (*ins, *outs)), strides, b, s, h,
+                    d, scale, cuda_build.dtype_code(ins[0].dtype), stream)
+            _raise_on(lib, rc, f"{name} attention forward")
 
-    _launch_views(launch, (q, k, v), (o,), name)
+        _launch_views(launch, (q, k, v), (o,), name)
+        return
+    if route == "tensor_cores_copy":
+        q, k, v = padded_copy((q, k, v), TMA_ALIGN, name)
+    de = d + d % 2   # the kernel's head dim: even
+    dst = o if de == d else torch.empty((b, h, s, de), dtype=o.dtype,
+                                        device=dev)
+    lib = build_tc_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vtx_fused_attn_fwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr(), b, h, s,
+            de, scale, *_tma_layout(q), *dst.stride()[:3],
+            cuda_build.dtype_code(q.dtype), stream)
+    _raise_on(lib, rc, f"{name} attention forward")
+    if dst is not o:
+        o.copy_(dst[..., :d])
 
 
 def _same_shape(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
