@@ -12,9 +12,11 @@ and no phase catches its own error:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: every CUDA source of the port with nvcc into build/kernels/,
    one nvcc per source, all started together; the time, registers and
-   spills of csrc/attn_fwd_tc.cu (K1 and K9, and in K7's cast order K7 and
-   K11, in bf16 and fp16, TMA and wgmma; its dynamic shared memory) and
-   csrc/attn_fwd.cu (K1's and K9's fp32 version, CUDA cores).
+   spills of the tensor-core attention sources, TMA and wgmma in bf16 and
+   fp16 around csrc/hopper.cuh: csrc/attn_fwd_tc.cu (K1 and K9, and in
+   K7's cast order K7 and K11), csrc/attn_bwd_tc.cu (K2) and
+   csrc/hp_bwd_tc.cu (K8, K10 and K12), with their dynamic shared memory;
+   and of csrc/attn_fwd.cu (K1's and K9's fp32 version, CUDA cores).
 3. kernel vs plain: ops/flash_attention.py::attn_fwd (the CUDA kernel),
    and hp_fwd (K9, the same launch without stats), against
    attn_fwd_reference (plain PyTorch) on seeded bf16 qkv at the train
@@ -33,9 +35,9 @@ and no phase catches its own error:
    /healthz, then /predict with the committed JPEGs (tests/data/serve_*.jpg).
    The server builds its model without use_pallas_attn, as the JAX server
    does, so no request may launch any kernel.
-6. build: csrc/attn_bwd_tc.cu (K2 in bf16 and fp16, TMA and wgmma) and
-   csrc/attn_bwd.cu (its fp32 version), started with the others in phase
-   2; build time, registers and spills.
+6. build: csrc/attn_bwd_tc.cu (K2 in bf16 and fp16, TMA and wgmma; its
+   registers in phase 2) and csrc/attn_bwd.cu (its fp32 version), started
+   with the others in phase 2; build time, registers and spills.
 7. backward kernel vs plain: ops/flash_attention.py::attn_bwd against
    attn_bwd_reference on seeded bf16 qkv and dO, with o and the row stats
    from the forward kernel (themselves held against attn_fwd_reference
@@ -95,8 +97,9 @@ ops/flash_blocked.py):
 The fused-backward MLP (`--pallas_mlp on`, ops/mlp_fused.py) and the
 head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
 
-16. build: csrc/mlp_fused.cu (K3) and csrc/hp_bwd.cu (K10), started with
-    the others in phase 2; build time, registers and spills.
+16. build: csrc/mlp_fused.cu (K3) and csrc/hp_bwd.cu (K8, K10 and K12 in
+    fp32, CUDA cores), started with the others in phase 2; build time,
+    registers and spills.
 17. K3 vs plain: ops/mlp_fused.py::fc2_bwd against fc2_bwd_reference on
     seeded bf16 dy, fc2 weight and h at the step's shapes (B 128 and 64,
     S 197, O 768, K 3072) and a few of the contract (ragged S with an odd
@@ -120,7 +123,11 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     D 128), o against attn_fwd_reference (K9's plain version is K1's
     without stats) and the qkv gradient against hp_bwd_reference, with
     phase 3's and 7's limits; at B 64 and 128 the median CUDA-event time
-    of each kernel, its plain version and SDPA's forward or backward.
+    of each kernel, its plain version and SDPA's forward or backward. Then
+    the tensor-core K10 (csrc/hp_bwd_tc.cu) alone in bf16 and fp16 at phase
+    3's edges (TC_EDGE_SHAPES), dqkv against hp_bwd_reference within
+    DQKV_REL_ATOL, each call run twice and bitwise equal, one copy exactly
+    where `bwd_kernel_route` says, and no call reaching csrc/hp_bwd.cu.
 
 The op-level fused attention entry points (ops/attention.py::
 multi_head_attention(use_pallas=True), ops/flash_attention.py::
@@ -129,7 +136,8 @@ fused_attention_qkv), which no model calls:
 21. K7, K8, K11 and K12 vs plain: csrc/attn_fwd_tc.cu in K7's cast order
     (K7, K11 in bf16 and fp16, `fused_kernel_route`; the fp32 ones are
     csrc/fused_attn_fwd.cu's, built with the others in phase 2, registers
-    and spills logged) and csrc/hp_bwd.cu's launches for K8 and K12.
+    and spills logged) and csrc/hp_bwd_tc.cu's launches for K8 and K12
+    (`bwd_kernel_route`; fp32 csrc/hp_bwd.cu).
     `multi_head_attention(use_pallas=True)` (K7, K8) on separate (B, H, S,
     D) q, k, v and `fused_attention_qkv` (K11, K12) on a (B, S, 3, H, D)
     buffer, forward and backward, at B 64 and 128 (S 197, H 12, D 64) and
@@ -140,7 +148,8 @@ fused_attention_qkv), which no model calls:
     K11 alone in bf16 and fp16 at phase 3's edges (TC_EDGE_SHAPES: S 17 to
     1024, D 64 and 128, and the head dims 2 and 6, which take one padded
     copy exactly where the route says), o against fused_fwd_reference
-    within O_ATOL. At B 64 and 128 the median CUDA-event time of each
+    within O_ATOL, and the tensor-core K8 and K12 there as phase 20 holds
+    K10. At B 64 and 128 the median CUDA-event time of each
     kernel, its plain version and SDPA's forward or backward. Both entry
     points at S = 1100 take reference_attention, as JAX routes them, and
     must launch none of the twelve kernels.
@@ -162,8 +171,8 @@ JAX kernels take any float dtype):
     reach a kernel (qkv_proj_attention, mlp_gelu, fused_attention_qkv_cols
     at S 1370 and 197, multi_head_attention(use_pallas=True),
     fused_attention_qkv) driven forward and backward once in each dtype,
-    which must launch each kernel once (in fp16 K1, K2, K7, K9 and K11 on
-    the tensor cores); then each kernel held against its
+    which must launch each kernel once (in fp16 K1, K2 and K7-K12 on the
+    tensor cores); then each kernel held against its
     plain version on the card at its main shape and a ragged one, within
     DTYPE_REL of the largest magnitude (FP32_OUT_REL for fp32 outputs,
     LSE_ATOL for lse), and timed at the main shape beside its plain
@@ -668,6 +677,7 @@ def build_all(fa, fb, mf):
               "flash_bwd": fb.build_bwd_kernels,
               "flash_blocked": fb.build_kernels, "mlp_fused": mf.build_kernels,
               "hp_bwd": fa.build_hp_bwd_kernels,
+              "hp_bwd_tc": fa.build_hp_bwd_tc_kernels,
               "fused_attn_fwd": fa.build_fused_fwd_kernels}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {n: pool.submit(timed, fn) for n, fn in builds.items()}
@@ -1528,7 +1538,82 @@ def phase_hp_kernel(counts, fa, dev):
         results[shape] = row
         log(f"[hp kernel] B={b} S={s} H={h} D={d}: "
             + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        flash_blocked as fb,
+    )
+
+    edge = bwd_edges(fa, fb, dev, ("hp_bwd",))
+    worst["hp_bwd"] = max(worst["hp_bwd"], edge["hp_bwd"])
     return launches, results, worst
+
+
+def bwd_edges(fa, fb, dev, names):
+    """The tensor-core K8, K10 and K12 (the wrappers `names` picks among
+    fused_bwd, hp_bwd and qkv_bwd) in bf16 and fp16 at TC_EDGE_SHAPES:
+    the gradients against fused_bwd_reference within DQKV_REL_ATOL of its
+    largest magnitude, each call run twice and bitwise equal (no float
+    atomics), one copy exactly where bwd_kernel_route says, and no call
+    reaching csrc/hp_bwd.cu (the fp32 kernels). Returns the worst bf16
+    error per name."""
+    import torch
+
+    def refuse():
+        raise RuntimeError("a bf16/fp16 backward reached csrc/hp_bwd.cu")
+
+    worst = dict.fromkeys(names, 0.0)
+    cuda_cores, fa.build_hp_bwd_kernels = fa.build_hp_bwd_kernels, refuse
+    try:
+        for dt_name in EDGE_DTYPES:
+            dt = getattr(torch, dt_name)
+            edge = dict.fromkeys(names, 0.0)
+            for b, s, h, d in TC_EDGE_SHAPES:
+                x = seeded_bf16((b, s, 3, h, d), 6700 + s + d, dev, dt)
+                do_s = seeded_bf16((b, s, h * d), 6800 + s + d, dev, dt)
+                heads5 = x.permute(2, 0, 3, 1, 4).unbind(0)
+                dob = do_s.view(b, s, h, d).transpose(1, 2)
+                q, k, v, do = (t.contiguous() for t in (*heads5, dob))
+                want = torch.stack(fa.fused_bwd_reference(
+                    q, k, v, do, d ** -0.5)).float()
+                runs = {
+                    "fused_bwd": (lambda: torch.stack(fa.fused_bwd(
+                        q, k, v, do)), (q, k, v, do)),
+                    "qkv_bwd": (lambda: fa.qkv_bwd(x, do_s).permute(
+                        2, 0, 3, 1, 4), (*heads5, dob)),
+                    "hp_bwd": (lambda: fa.hp_bwd(
+                        x.view(b, s, 3 * h * d), do_s, h).view(
+                        x.shape).permute(2, 0, 3, 1, 4), (*heads5, dob))}
+                for name in names:
+                    run, ins = runs[name]
+                    copies = fb.COPIES
+                    g, g2 = run(), run()
+                    torch.cuda.synchronize()
+                    tag = f"{name} {dt_name} {(b, s, h, d)}"
+                    route = fa.bwd_kernel_route(*ins)
+                    check(route != "cuda_cores", f"{tag}: route {route}")
+                    want_copies = 2 * int(route == "tensor_cores_copy")
+                    check(fb.COPIES - copies == want_copies,
+                          f"{tag}: {fb.COPIES - copies} copies in two "
+                          f"calls, the route says {want_copies}")
+                    check(g.shape == want.shape and g.dtype == dt
+                          and torch.isfinite(g.float()).all().item(),
+                          f"{tag}: {tuple(g.shape)} {g.dtype} or not finite")
+                    check(torch.equal(g, g2),
+                          f"{tag}: two runs on the same inputs differ")
+                    err = (g.float() - want).abs().max().item()
+                    ref = want.abs().max().item()
+                    check(err <= DQKV_REL_ATOL * ref,
+                          f"{tag}: grads max abs err {err} > "
+                          f"{DQKV_REL_ATOL} x {ref}")
+                    edge[name] = max(edge[name], err)
+            if dt_name == "bfloat16":
+                worst = edge
+            log(f"[bwd edges] tensor-core {', '.join(names)} in {dt_name} "
+                f"at {len(TC_EDGE_SHAPES)} edge shapes (csrc/hp_bwd_tc.cu, "
+                f"bitwise repeat, copies as the route says): grads max abs "
+                f"err {edge!r}")
+    finally:
+        fa.build_hp_bwd_kernels = cuda_cores
+    return worst
 
 
 def phase_fused_kernel(counts, fa, dev):
@@ -1616,6 +1701,7 @@ def phase_fused_kernel(counts, fa, dev):
         log(f"[fused kernel] tensor-core K7, K11 in {dt_name} at "
             f"{len(TC_EDGE_SHAPES)} edge shapes (copies as the route says): "
             f"o max abs err {edge!r}")
+    worst.update(bwd_edges(fa, fb, dev, ("fused_bwd", "qkv_bwd")))
 
     def held(tag, shape, run):
         """o and (dq, dk, dv) against the plain versions; returns the
@@ -1781,18 +1867,21 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
 
     build_s = build_all(fa, fb, mf)
-    for name in ("attn_fwd_tc", "attn_fwd"):
+    for name in ("attn_fwd_tc", "attn_bwd_tc", "hp_bwd_tc", "attn_fwd"):
         log(f"[build] {name} built/loaded in {build_s[name]:.3f} s")
         log_ptxas(cuda_build, name, "build")
     # the tensor-core kernels' dynamic shared memory (ptxas reports only
     # the static part)
     fwd_lib, bwd_lib = fa.build_tc_kernels(), fa.build_tc_bwd_kernels()
+    hp_lib = fa.build_hp_bwd_tc_kernels()
     for d in (64, 128):
         log(f"[build] dynamic shared memory at D <= {d}: attn_fwd_tc_kernel "
             f"(K1 and K9, and in K7's order K7 and K11) "
             f"{fwd_lib.vtx_attn_fwd_tc_smem(d)} B, attn_bwd_tc_dkdv_kernel "
             f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 0)} B, attn_bwd_tc_dq_kernel "
-            f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 1)} B")
+            f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 1)} B, hp_bwd_tc_dkdv_kernel "
+            f"(K8, K10, K12) {hp_lib.vtx_hp_bwd_tc_smem(d, 0)} B, "
+            f"hp_bwd_tc_dq_kernel {hp_lib.vtx_hp_bwd_tc_smem(d, 1)} B")
 
     every = counter(*ALL_COUNTS)
     kernel, worst = phase_kernel(fa, dev)
@@ -1804,10 +1893,11 @@ def main() -> int:
           f"one forward launched {n} (want K1 12)")
     serve_launches, _ = phase_serve(every, ckpt_path, act_layer="gelu_tanh")
 
-    for name in ("attn_bwd_tc", "attn_bwd"):
-        log(f"[build bwd] {name} built/loaded in {build_s[name]:.3f} s (in "
-            f"parallel with the others)")
-        log_ptxas(cuda_build, name, "build bwd")
+    log(f"[build bwd] attn_bwd_tc built/loaded in "
+        f"{build_s['attn_bwd_tc']:.3f} s (registers in phase 2)")
+    log(f"[build bwd] attn_bwd built/loaded in {build_s['attn_bwd']:.3f} s "
+        f"(in parallel with the others)")
+    log_ptxas(cuda_build, "attn_bwd", "build bwd")
     bwd, bwd_worst = phase_bwd_kernel(fa, dev)
     n = phase_grad(every, dev, ckpt_path)
     check(n == only(ATTN_FWD_LAUNCHES=12, ATTN_BWD_LAUNCHES=12),
@@ -2029,13 +2119,13 @@ def main() -> int:
         "ms_b64": m64["ms"], "plain_ms_b64": m64["plain_ms"],
         "unfused_ms_b64": m64["unfused_ms"]},
         hp_entry("hp_fwd", "attn_fwd_tc.cu", "flash_attention.py:171"),
-        hp_entry("hp_bwd", "hp_bwd.cu", "flash_attention.py:212"),
+        hp_entry("hp_bwd", "hp_bwd_tc.cu", "flash_attention.py:212"),
         fused_entry("fused_fwd", "attn_fwd_tc.cu", "flash_attention.py:36"),
-        fused_entry("fused_bwd", "hp_bwd.cu", "flash_attention.py:61"),
+        fused_entry("fused_bwd", "hp_bwd_tc.cu", "flash_attention.py:61"),
         fused_entry("qkv_fwd", "attn_fwd_tc.cu", "flash_attention.py:740"),
-        fused_entry("qkv_bwd", "hp_bwd.cu", "flash_attention.py:764")]
+        fused_entry("qkv_bwd", "hp_bwd_tc.cu", "flash_attention.py:764")]
     # one line for each fp32 and fp16 instantiation; the blocked kernels'
-    # are the CUDA-core ones, and K1, K2, K7, K9 and K11 in fp32 too (fp16
+    # are the CUDA-core ones, and K1, K2 and K7-K12 in fp32 too (fp16
     # shares bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
     # launches of the trainer's own run (main() --precision fp32, with
     # --pallas_mlp on for K3); every other instantiation those of
@@ -2049,7 +2139,9 @@ def main() -> int:
             cuda_core.update(attn_fwd="attn_fwd.cu", attn_bwd="attn_bwd.cu",
                              hp_fwd="attn_fwd.cu",
                              fused_fwd="fused_attn_fwd.cu",
-                             qkv_fwd="fused_attn_fwd.cu")
+                             qkv_fwd="fused_attn_fwd.cu",
+                             hp_bwd="hp_bwd.cu", fused_bwd="hp_bwd.cu",
+                             qkv_bwd="hp_bwd.cu")
         return src + cuda_core[name] if name in cuda_core else sources[name]
 
     replaces = {k["name"]: k["replaces"] for k in kernels}

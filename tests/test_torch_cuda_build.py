@@ -64,10 +64,12 @@ def test_other_dtypes_have_no_code():
         cuda_build.dtype_code(torch.float64)
 
 
-@pytest.mark.parametrize("source", ["attn_fwd_tc.cu", "attn_bwd_tc.cu"])
+@pytest.mark.parametrize("source", ["attn_fwd_tc.cu", "attn_bwd_tc.cu",
+                                    "hp_bwd_tc.cu"])
 def test_the_tensor_core_attention_sources_enter_the_hash(tmp_path, source):
-    # K1/K9's and K2's tensor-core sources: each is its library's source,
-    # so an edit to it (or to the hopper.cuh it includes) names a new file
+    # K1/K7/K9/K11's, K2's and K8/K10/K12's tensor-core sources: each is its
+    # library's source, so an edit to it (or to the hopper.cuh it includes)
+    # names a new file
     real = cuda_build.CSRC_DIR
     assert "hopper.cuh" in (real / source).read_text()
     for f in (source, "hopper.cuh", "elem.cuh"):

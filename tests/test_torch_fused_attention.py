@@ -406,6 +406,36 @@ def test_fused_kernel_route(case, route):
     assert fa.fused_kernel_route(*_route_case(case)) == route
 
 
+def _bwd_route_case(case):
+    """(B, H, S, D) q, k, v, dO on the CPU for each case of
+    `bwd_kernel_route`."""
+    if case == "qkv_views":        # K12's and K10's layouts
+        q, k, v = _route_case(case)
+        b, h, s, d = q.shape
+        do = torch.zeros((b, s, h * d), dtype=q.dtype).view(
+            b, s, h, d).transpose(1, 2)
+        return q, k, v, do
+    if case == "do_unaligned":
+        q, k, v = _route_case("bf16")
+        do = torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+        return q, k, v, do
+    q, k, v = _route_case(case)
+    return q, k, v, torch.zeros(q.shape, dtype=q.dtype)
+
+
+@pytest.mark.parametrize("case, route", [
+    ("fp32", "cuda_cores"), ("bf16", "tensor_cores"),
+    ("fp16", "tensor_cores"), ("qkv_views", "tensor_cores"),
+    ("d48", "tensor_cores"), ("d6", "tensor_cores_copy"),
+    ("odd_d", "tensor_cores_copy"), ("layouts_differ", "tensor_cores_copy"),
+    ("do_unaligned", "tensor_cores_copy")])
+def test_bwd_kernel_route(case, route):
+    # K8, K10 and K12: fp32 stays on the CUDA cores; bf16 and fp16 take the
+    # tensor cores, in place where TMA reads q, k, v (one layout) and dO (its
+    # own), else after one copy of all four
+    assert fa.bwd_kernel_route(*_bwd_route_case(case)) == route
+
+
 def _plain_check(o, grads, q, k, v, do, scale):
     """The kernels' o and (dq, dk, dv) against the plain versions on the same
     bf16 inputs: o as K1's test, the grads by a flipped bf16 rounding of ds
@@ -473,6 +503,60 @@ def test_tensor_core_k7_k11_match_plain_on_cuda(cuda_device, dtype, s, d):
             fa.fused_kernel_route(*ins) == "tensor_cores_copy")
         assert o.dtype == dt and torch.isfinite(o.float()).all()
         assert (o.float() - o_r.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 64, 128])
+@pytest.mark.parametrize("s", [17, 64, 65, 128, 129, 197, 256, 257, 1024])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_tensor_core_k8_k10_k12_match_plain_on_cuda(cuda_device, monkeypatch,
+                                                    dtype, s, d):
+    # one and two 64-row and 128-row tiles and their ragged edges, up to the
+    # contract's S = 1024: K8 on separate (B, H, S, D) q, k, v, dO, K12 on a
+    # (B, S, 3, H, D) buffer and K10 on its (B, S, 3·H·D) view, each against
+    # the plain version by a flipped rounding of ds or of a stored gradient;
+    # copies exactly where the route says; two calls bitwise equal. Nothing
+    # reaches csrc/hp_bwd.cu or the plain versions on the card.
+    def refuse(*args, **kwargs):
+        raise AssertionError("a bf16/fp16 call left the tensor cores")
+
+    b, h = 2, 3
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(_rand((b, s, 3, h, d), 40 * s + d)).to(
+        cuda_device, dt)
+    do_s = torch.from_numpy(_rand((b, s, h * d), 40 * s + d + 1)).to(
+        cuda_device, dt)
+    heads5 = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    q, k, v = (t.contiguous() for t in heads5)
+    do = do_s.view(b, s, h, d).transpose(1, 2).contiguous()
+    want = [t.float() for t in fa.fused_bwd_reference(q, k, v, do,
+                                                      d ** -0.5)]
+    flat = qkv.view(b, s, 3 * h * d)
+    with monkeypatch.context() as m:
+        for name in ("build_hp_bwd_kernels", "fused_bwd_reference",
+                     "hp_bwd_reference"):
+            m.setattr(fa, name, refuse)
+        for count, run, ins in (
+                ("FUSED_BWD_LAUNCHES", lambda: fa.fused_bwd(q, k, v, do),
+                 (q, k, v, do)),
+                ("QKV_BWD_LAUNCHES", lambda: fa.qkv_bwd(qkv, do_s).permute(
+                    2, 0, 3, 1, 4).unbind(0),
+                 (*heads5, do_s.view(b, s, h, d).transpose(1, 2))),
+                ("HP_BWD_LAUNCHES", lambda: fa.hp_bwd(flat, do_s, h).view(
+                    b, s, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0),
+                 (*heads5, do_s.view(b, s, h, d).transpose(1, 2)))):
+            before, copies = getattr(fa, count), fb.COPIES
+            grads = run()
+            again = run()
+            torch.cuda.synchronize()
+            assert getattr(fa, count) == before + 2
+            assert fb.COPIES - copies == 2 * int(
+                fa.bwd_kernel_route(*ins) == "tensor_cores_copy")
+            for g, g2, w in zip(grads, again, want):
+                assert g.dtype == dt and torch.isfinite(g.float()).all()
+                assert torch.equal(g, g2)
+                err = (g.float() - w).abs().max().item()
+                assert err <= 2e-2 * w.abs().max().item(), (count, err)
 
 
 @pytest.mark.cuda

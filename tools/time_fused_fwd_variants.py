@@ -21,9 +21,9 @@ sample, 15 samples), o's max abs error against
 ops/flash_attention.py::fused_fwd_reference, and ptxas's registers and
 spills of K7's instantiations; the launch of `hp_fwd` (K9, K1's order) and
 torch's scaled_dot_product_attention on the same q, k, v beside them. Then
-`div_rn`, cut from the committed source, against __fdiv_rn on 2^33 random
-(p, sum) pairs, sum in [1, 1024) and p in [2^-102, 1], then p in [2^-126,
-1]: the count of quotients that differ. One JSON line, with the card's
+`div_rn`, cut from the committed csrc/hopper.cuh, against __fdiv_rn on
+2^33 random (p, sum) pairs, sum in [1, 1024) and p in [2^-102, 1], then p
+in [2^-126, 1]: the count of quotients that differ. One JSON line, with the card's
 name and power limit (nvidia-smi).
 """
 from __future__ import annotations
@@ -167,7 +167,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_fused_fwd_variants: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    text = (cuda_build.CSRC_DIR / "attn_fwd_tc.cu").read_text()
+    text = (cuda_build.CSRC_DIR / "hopper.cuh").read_text()
     div = re.search(r"__device__ __forceinline__ float div_rn\(.*?\n}\n",
                     text, re.S).group(0)
     sources = {n: variant_source(e) for n, e in VARIANTS.items()}

@@ -42,7 +42,8 @@
 //   the producer's two-pass schedule, differs from the exact sum by a few
 //   fp32 ulps of rounding in each term's rescaling, far below the 2^-9
 //   (bf16) and 2^-12 (fp16) of p's rounding to T.
-// * The division is correctly rounded without __fdiv_rn: y = RN(1 / sum)
+// * The division is correctly rounded without __fdiv_rn (div_rn, in
+//   csrc/hopper.cuh since csrc/hp_bwd_tc.cu shares it): y = RN(1 / sum)
 //   once per row, then q = RN(p y) and two of Markstein's corrections q +=
 //   (p - sum q) y, each remainder exact by the FMA. That is the fast path
 //   of the IEEE division, and it gives RN(p / sum) wherever p >= 2^-102;
@@ -196,15 +197,6 @@ __device__ __forceinline__ void online_sum(const float (&s)[64], float mx0,
   l1 = fmaf(l1, exp2f((m1 - mx1) * kLog2e), a1);
   m0 = mx0;
   m1 = mx1;
-}
-
-// p / sum, y = RN(1 / sum): RN(p / sum) for p >= 2^-102 (the header).
-__device__ __forceinline__ float div_rn(float p, float sum, float y) {
-  float q = __fmul_rn(p, y);
-  float r = fmaf(-sum, q, p);
-  q = fmaf(r, y, q);
-  r = fmaf(-sum, q, p);
-  return fmaf(r, y, q);
 }
 
 // This warp is done with stage st.

@@ -1,5 +1,9 @@
 // Softmax attention backward that recomputes the probabilities on its own,
-// over (B, H, S, D) q, k, v, dO, dq, dk and dv given by strides, for Hopper.
+// over (B, H, S, D) q, k, v, dO, dq, dk and dv given by strides, in fp32 on
+// the CUDA cores of a Hopper card. The bf16 and fp16 versions of the same
+// function run on the tensor cores, csrc/hp_bwd_tc.cu; this source serves
+// fp32 alone, since the TPU kernels round nothing in fp32 and a
+// tensor-core product of fp32 operands (TF32) would.
 //
 // Replaces three TPU kernels of
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py that compute the
@@ -13,29 +17,25 @@
 //     3H, D) qkv buffer and (B, Sp, H, D) dO in, dqkv (B, Sp, 3H, D) out,
 //     which is K10's layout.
 // Per (b, h), from q, k, v and dO alone:
-//   s = (q k^T in fp32 from the bf16 values) * scale over the S real keys;
-//   m = rowmax(s); p = exp(s - m) / sum(exp(s - m)), normalised in fp32;
-//   dv = bf16(p)^T dO; dp = dO v^T; delta = rowsum(dp * p);
-//   ds = bf16(p (dp - delta));
-//   dq = (ds k) * scale; dk = (ds^T q) * scale, with the raw q.
-// Every product accumulates in fp32; dq, dk and dv are stored bf16. Every
-// tensor is a base pointer and three element strides (batch, head, token)
-// with the head dim contiguous: K10 and K12 read q, k and v in place in the
-// qkv buffer and write dq, dk and dv at its standard columns h*D, H*D + h*D
-// and 2*H*D + h*D, so the TPU kernel's three outputs and their concatenation
-// are one buffer; K8 writes three (B, H, S, D) outputs. The TPU kernels pad
-// S to 128 and D to 8 and mask the padded columns; here the loops run over
-// the S real keys and queries. This is not K2's cast order
-// (csrc/attn_bwd.cu): there is no bf16 q^ and no stats from the forward,
-// and delta is sum(dp * p), since these kernels have no o to form
-// rowsum(dO * o).
+//   s = (q k^T) * scale over the S real keys; m = rowmax(s);
+//   p = exp(s - m) / sum(exp(s - m)); dv = p^T dO; dp = dO v^T;
+//   delta = rowsum(dp * p); ds = p (dp - delta);
+//   dq = (ds k) * scale; dk = (ds^T q) * scale.
+// Every tensor is a base pointer and three element strides (batch, head,
+// token) with the head dim contiguous: K10 and K12 read q, k and v in place
+// in the qkv buffer and write dq, dk and dv at its standard columns h*D,
+// H*D + h*D and 2*H*D + h*D, so the TPU kernel's three outputs and their
+// concatenation are one buffer; K8 writes three (B, H, S, D) outputs. The
+// TPU kernels pad S to 128 and D to 8 and mask the padded columns; here the
+// loops run over the S real keys and queries. This is not K2's function
+// (csrc/attn_bwd.cu): there are no stats from the forward, and delta is
+// sum(dp * p), since these kernels have no o to form rowsum(dO * o).
 //
 // What bounds it on an H100: at B = 128, S = 197, H = 12, D = 64 the five
-// products are 38 GFLOP over ~271 MB (qkv and dO read, dqkv written), so
-// device memory bounds the ideal kernel (0.08 ms at 3.35 TB/s). On the CUDA
-// cores the limit is instruction issue, as for K2: every two FMAs come with
-// a shared-memory load and two bf16 -> fp32 conversions, and this design
-// computes s and dp twice. Tensor cores are the way past that.
+// products are 38 GFLOP over ~541 MB in fp32 (qkv and dO read, dqkv
+// written), so the 67 TFLOP/s of the CUDA cores bound the ideal kernel
+// (0.57 ms). The loops are bound by instruction issue: every two FMAs come
+// with a shared-memory load, and this design computes s and dp twice.
 //
 // Design: two launches, so that no sum crosses blocks and nothing needs
 // float atomics (the result is deterministic):
@@ -48,7 +48,7 @@
 //   2. dk and dv, one block per (b, h): q, dO and the row stats staged in
 //      shared memory; each warp owns one key row at a time and recomputes p
 //      and ds for it over all queries from the stats, then lanes split the
-//      head dim for bf16(p)^T dO and ds^T q.
+//      head dim for p^T dO and ds^T q.
 // Both passes form each s and dp as the same fp32 FMA chain over the head
 // dim (the operands only swap sides) and scale s with __fmul_rn, which the
 // compiler never fuses into the subtraction of m, so p and ds agree bit for
@@ -57,15 +57,12 @@
 // 32, 64 and 128 the head dim is a compile-time constant and the row sits in
 // registers; other even head dims take run-time loops. Operands that do not
 // fit in shared memory (long S with wide D) are read from global memory (L2)
-// through the same loops.
-//
-// Element types: bf16 as above; fp16 and fp32 inputs run the same loops,
-// every bf16 rounding point a rounding to the inputs' dtype (the TPU
-// kernels' astype; none for fp32), through csrc/elem.cuh.
+// through the same loops. The loops are written over csrc/elem.cuh's
+// element type, whose rounding points are identities in fp32.
 //
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
 // launch on the caller's stream; the host function takes the element
-// type's code (csrc/elem.cuh) and returns cudaGetLastError().
+// type's code (csrc/elem.cuh; fp32 only) and returns cudaGetLastError().
 
 #include <cfloat>
 #include <cstdint>
@@ -443,8 +440,8 @@ int launch_d(const void* const* ptrs, float* stats, const Layout& a, int B,
 
 extern "C" {
 
-// q, k, v, dout in and dq, dk, dv out: (B, H, S, D) of the element type
-// `dtype` with the head dim contiguous; strides holds 21 element strides,
+// q, k, v, dout in and dq, dk, dv out: (B, H, S, D) fp32 (`dtype` kF32;
+// bf16 and fp16 are csrc/hp_bwd_tc.cu's) with the head dim contiguous; strides holds 21 element strides,
 // (batch, head, token) of each in that order; stats (B, H, S, 3) fp32 is
 // scratch. Returns a cudaError_t as int: 0 when both launches were
 // accepted.
@@ -455,9 +452,8 @@ int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
   if (B < 1 || S < 1 || S > kMaxSeq || H < 1 ||
       (long long)B * H > kMaxGridX || D < 2 || (D & 1) || D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
-  if (dtype != kBf16 && dtype != kF16 && dtype != kF32)
-    return (int)cudaErrorInvalidValue;
-  const uintptr_t pair_bytes = dtype == kF32 ? 8 : 4;
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;  // hp_bwd_tc.cu's
+  const uintptr_t pair_bytes = 8;
   Layout a;
   const void* ptrs[kTensors] = {q, k, v, dout, dq, dk, dv};
   for (int t = 0; t < kTensors; ++t) {
@@ -477,12 +473,7 @@ int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
   a.H = H;
   a.D = D;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kBf16: return launch_d<__nv_bfloat16>(ptrs, st, a, B, s);
-    case kF16: return launch_d<__half>(ptrs, st, a, B, s);
-    default: return launch_d<float>(ptrs, st, a, B, s);
-  }
+  return launch_d<float>(ptrs, st, a, B, static_cast<cudaStream_t>(stream));
 }
 
 const char* vtx_cuda_error_string(int err) {

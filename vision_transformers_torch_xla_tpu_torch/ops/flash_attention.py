@@ -28,8 +28,8 @@ projected. For S <= MAX_SEQ it is the head-pair custom VJP
 
 * `hp_fwd`, K1's launch without stats, the port of `_hp_fwd_kernel` (:171,
   ROADMAP K9): the same function as K1's o, in the same cast order;
-* `hp_bwd` -> csrc/hp_bwd.cu, the port of `_hp_bwd_kernel` (:212, ROADMAP
-  K10), which recomputes the probabilities from q and k alone.
+* `hp_bwd`, the port of `_hp_bwd_kernel` (:212, ROADMAP K10), which
+  recomputes the probabilities from q, k, v and dO alone (K8's launch, below).
 
 Longer sequences go to the blocked kernels of ops/flash_blocked.py (K4-K6).
 
@@ -47,12 +47,15 @@ one function over two layouts, in the cast order of `_reference_attention`
   in fp32 csrc/fused_attn_fwd.cu (CUDA cores), as `fused_kernel_route`
   decides; plain version `fused_fwd_reference`;
 * `fused_bwd` (K8, `_bwd_kernel` :61) and `qkv_bwd` (K12, `_qkv_bwd_kernel`
-  :764) -> csrc/hp_bwd.cu, whose function is K10's; plain version
+  :764), whose function is K10's, and `hp_bwd` (K10) -> in bf16 and fp16
+  csrc/hp_bwd_tc.cu (TMA, mbarriers, wgmma), in fp32 csrc/hp_bwd.cu (CUDA
+  cores), as `bwd_kernel_route` decides; plain version
   `fused_bwd_reference`, which `hp_bwd_reference` shares.
 
-The tensor-core forward reads q, k and v in place through tensor maps with
-one set of strides, whether separate tensors or views of one qkv buffer,
-and writes o in place; q, k, v that TMA cannot read (`tma_ready`: another
+The tensor-core kernels of K7-K12 read q, k and v in place through tensor
+maps with one set of strides, whether separate tensors or views of one qkv
+buffer (the backward reads dO through a map of its own), and write their
+outputs in place; operands that TMA cannot read (`tma_ready`: another
 layout each, a head dim not a multiple of 8, unaligned data) are copied
 once by ops/flash_blocked.py's `padded_copy`. The CUDA-core sources take
 every tensor as a base pointer and (batch, head, token) strides; views
@@ -203,10 +206,35 @@ def fused_kernel_route(q: torch.Tensor, k: torch.Tensor,
 
 
 def build_hp_bwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the backward of K8, K10 and K12."""
+    """Build (at first use) and load the fp32 backward of K8, K10 and K12
+    (CUDA cores)."""
     return _load("hp_bwd", "vtx_hp_bwd",
                  [_P] * 8 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _I,
                              _P])
+
+
+def build_hp_bwd_tc_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the bf16 and fp16 backward of K8, K10
+    and K12 (tensor cores)."""
+    return _load("hp_bwd_tc", "vtx_hp_bwd_tc",
+                 [_P] * 3 + _L3 + [_P] + _L3 + [_P] * 3 + _L3
+                 + [_P, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+
+
+def bwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor) -> str:
+    """The kernel a CUDA call of K8, K10 or K12 on (B, H, S, D) q, k, v
+    and dO launches, decided before the launch: 'tensor_cores' (bf16, fp16:
+    csrc/hp_bwd_tc.cu, reading q, k, v as one group and dO as another in
+    place), 'tensor_cores_copy' (the same kernels after one `padded_copy`
+    of all four, when TMA cannot read a group in place: `tma_ready`) or
+    'cuda_cores' (fp32: csrc/hp_bwd.cu). The outputs are the wrappers' own,
+    which the kernels write in place at every even head dim."""
+    if q.dtype == torch.float32:
+        return "cuda_cores"
+    if tma_ready(q, k, v) and tma_ready(do):
+        return "tensor_cores"
+    return "tensor_cores_copy"
 
 
 def build_fused_fwd_kernels() -> ctypes.CDLL:
@@ -572,26 +600,57 @@ def hp_bwd_reference(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
 
 
 def _launch_bwd(ins, outs, scale: float, name: str) -> None:
-    """csrc/hp_bwd.cu (two launches a call): q, k, v, dO in and dq, dk, dv
-    out, all (B, H, S, D) of one dtype, read and written by stride
-    (`_launch_views`)."""
+    """One call of K8's function (two launches): q, k, v, dO in and dq, dk,
+    dv out, all (B, H, S, D) of one dtype, the outputs of one layout, on
+    the kernels of `bwd_kernel_route`. The tensor-core kernels read q, k, v
+    and dO through tensor maps (after one `padded_copy` of all four to a
+    multiple of 8 when TMA cannot read them in place, the maps keeping the
+    real head dim as their extent) and write the outputs in place; an odd
+    head dim runs at the next even one, the copies' zero column, into
+    temporary outputs that are sliced back. The fp32 kernels read and
+    write by stride (`_launch_views`)."""
     b, h, s, d = ins[0].shape
     _check_cuda(name, (*ins, *outs), s, d, b, h, views=True)
+    route = bwd_kernel_route(*ins)
     dev = ins[0].device
-    lib = build_hp_bwd_kernels()
+    code = cuda_build.dtype_code(ins[0].dtype)
+    if route == "cuda_cores":
+        lib = build_hp_bwd_kernels()
 
-    def launch(ins, outs, strides):
-        b, h, s, d = ins[0].shape
-        # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
-        stats = torch.empty((b, h, s, 3), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.vtx_hp_bwd(*(t.data_ptr() for t in (*ins, *outs)),
-                                stats.data_ptr(), strides, b, s, h, d, scale,
-                                cuda_build.dtype_code(ins[0].dtype), stream)
-        _raise_on(lib, rc, f"{name} attention backward")
+        def launch(ins, outs, strides):
+            b, h, s, d = ins[0].shape
+            # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
+            stats = torch.empty((b, h, s, 3), dtype=torch.float32,
+                                device=dev)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = lib.vtx_hp_bwd(*(t.data_ptr() for t in (*ins, *outs)),
+                                    stats.data_ptr(), strides, b, s, h, d,
+                                    scale, code, stream)
+            _raise_on(lib, rc, f"{name} attention backward")
 
-    _launch_views(launch, ins, outs, name)
+        _launch_views(launch, ins, outs, name)
+        return
+    if route == "tensor_cores_copy":
+        ins = padded_copy(ins, TMA_ALIGN, name)
+    q, k, v, g = ins
+    de = d + d % 2   # the kernels' head dim: even
+    dst = outs if de == d else [
+        torch.empty((b, h, s, de), dtype=t.dtype, device=dev) for t in outs]
+    # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
+    stats = torch.empty((b, h, s, 3), dtype=torch.float32, device=dev)
+    lib = build_hp_bwd_tc_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vtx_hp_bwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *_tma_layout(q),
+            g.data_ptr(), *_tma_layout(g), *(t.data_ptr() for t in dst),
+            *dst[0].stride()[:3], stats.data_ptr(), b, h, s, de, scale, code,
+            stream)
+    _raise_on(lib, rc, f"{name} attention backward")
+    if dst is not outs:
+        for t, tmp in zip(outs, dst):
+            t.copy_(tmp[..., :d])
 
 
 def hp_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
