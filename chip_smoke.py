@@ -36,8 +36,9 @@ and no phase catches its own error:
    The server builds its model without use_pallas_attn, as the JAX server
    does, so no request may launch any kernel.
 6. build: csrc/attn_bwd_tc.cu (K2 in bf16 and fp16, TMA and wgmma; its
-   registers in phase 2) and csrc/attn_bwd.cu (its fp32 version), started
-   with the others in phase 2; build time, registers and spills.
+   registers in phase 2) and csrc/attn_bwd.cu (its fp32 version: one block
+   per (b, h) over register-tiled 64-row tiles), started with the others
+   in phase 2; build time, registers, spills and shared memory.
 7. backward kernel vs plain: ops/flash_attention.py::attn_bwd against
    attn_bwd_reference on seeded bf16 qkv and dO, with o and the row stats
    from the forward kernel (themselves held against attn_fwd_reference
@@ -97,17 +98,21 @@ ops/flash_blocked.py):
 The fused-backward MLP (`--pallas_mlp on`, ops/mlp_fused.py) and the
 head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
 
-16. build: csrc/mlp_fused.cu (K3) and csrc/hp_bwd.cu (K8, K10 and K12 in
+16. build: csrc/mlp_fused.cu (K3: TMA, mbarriers and wgmma in bf16 and
+    fp16, the CUDA cores in fp32) and csrc/hp_bwd.cu (K8, K10 and K12 in
     fp32, CUDA cores), started with the others in phase 2; build time,
-    registers and spills.
+    registers, spills and shared memory.
 17. K3 vs plain: ops/mlp_fused.py::fc2_bwd against fc2_bwd_reference on
     seeded bf16 dy, fc2 weight and h at the step's shapes (B 128 and 64,
     S 197, O 768, K 3072) and a few of the contract (ragged S with an odd
-    B, K 256, a single short tile); at the step's shapes the median
+    B, K 256, a single short tile), each call run twice and bitwise equal;
+    at the step's shapes the median
     CUDA-event time of the kernel, of its plain version, and of the
     default path's work for the same result (cuBLAS da, autograd's GELU
     backward, the fp32 bias sum: unfused_ms). No single PyTorch call
-    computes K3's function, so library_ms is null.
+    computes K3's function, so library_ms is null. Then the kernels that
+    one call of the bf16, fp16 and fp32 K3 and of the fp32 K2 launches
+    (torch.profiler) must be their new kernels alone.
 18. gradient, --pallas_mlp on: phase 8 (use_pallas_attn) on the same
     weights with every MLP
     on the fused route, against the same JAX fp32 train golden (the
@@ -151,8 +156,14 @@ fused_attention_qkv), which no model calls:
     within O_ATOL, and the tensor-core K8 and K12 there as phase 20 holds
     K10. At B 64 and 128 the median CUDA-event time of each
     kernel, its plain version and SDPA's forward or backward. Both entry
-    points at S = 1100 take reference_attention, as JAX routes them, and
-    must launch none of the twelve kernels.
+    points at head dims over 128 (WIDE_FUSED_SHAPES: 136, 137, 192, 256
+    and 1024, which JAX pads and runs in its kernels) in bf16, fp16 and
+    fp32 must take the CUDA-core K7, K8, K11 and K12 (the tensor cores'
+    tiles stop at 128), one launch each, held against their plain versions
+    within phase 23's limits (bf16 O_ATOL, DQKV_REL_ATOL), and are timed
+    beside them at D 256. Both entry points at S = 1100 take
+    reference_attention, as JAX routes them, and must launch none of the
+    twelve kernels.
 
 Compute other than bf16 (every kernel takes bf16, fp16 and fp32, as the
 JAX kernels take any float dtype):
@@ -176,7 +187,11 @@ JAX kernels take any float dtype):
     plain version on the card at its main shape and a ragged one, within
     DTYPE_REL of the largest magnitude (FP32_OUT_REL for fp32 outputs,
     LSE_ATOL for lse), and timed at the main shape beside its plain
-    version and SDPA in the same dtype.
+    version and SDPA in the same dtype (K3 beside the unfused path in that
+    dtype). Then the fp32 K2 (csrc/attn_bwd.cu) at its edges
+    (K2_FP32_EDGE_SHAPES: S 1 to 1024 around its 64-row tiles, D 32 to
+    128, B and H over 65535), each call run twice and bitwise equal,
+    within K2_FP32_EDGE_REL.
 
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
@@ -373,16 +388,33 @@ DTYPE_SHAPES = {
 # peak is the CUDA cores' 67 TFLOP/s (H100 SXM data sheet), fp16 the
 # 989 TFLOP/s tensor-core peak of bf16; element bytes 4 and 2
 DTYPE_PEAK = {"float32": (67e12, 4), "float16": (989e12, 2)}
+# The fp32 K2 (csrc/attn_bwd.cu) at its edges, (B, S, H, D): S around its
+# 64-row tiles up to the contract's 1024, D 32, 48, 64 and 128, and B and
+# H over 65535 at a tiny S. Kernel vs plain in fp32 differ by summation
+# order and expf only: dqkv and the bias partials within
+# K2_FP32_EDGE_REL of the plain version's largest magnitude (the kernel's
+# earlier design read 4.3e-6 absolute at its main shape, gradients up to
+# ~2.7).
+K2_FP32_EDGE_SHAPES = ((2, 1, 3, 32), (2, 63, 3, 64), (2, 64, 3, 64),
+                       (2, 65, 3, 64), (2, 197, 3, 48), (2, 197, 3, 128),
+                       (1, 1024, 2, 128), (1, 8, 65537, 8),
+                       (65537, 8, 1, 8))
+K2_FP32_EDGE_REL = 1e-5
 # The head-pair route (K9, K10) of fused_attention_qkv_cols, (B, S, H, D)
 HP_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
 HP_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 77, 3, 48), (2, 130, 2, 128))
 # The op-level fused route (K7, K8, K11, K12), (B, S, H, D); the view case
-# runs multi_head_attention on the permuted views of a qkv buffer; at
-# LONG_FUSED_SHAPE both entry points take reference_attention
+# runs multi_head_attention on the permuted views of a qkv buffer
 FUSED_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
 FUSED_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 130, 3, 48), (2, 77, 2, 128))
 FUSED_VIEW_SHAPE = (8, 197, 12, 64)
-LONG_FUSED_SHAPE = (1, 1100, 2, 64)
+# past the kernels' S: reference_attention, as JAX routes it
+REFERENCE_FUSED_SHAPES = ((1, 1100, 2, 64),)
+# head dims over the tensor cores' 128: the CUDA-core K7, K8, K11, K12 in
+# every dtype (the first is timed)
+WIDE_FUSED_SHAPES = ((2, 197, 4, 256), (2, 197, 2, 136), (1, 77, 2, 192),
+                     (1, 65, 3, 137), (1, 64, 1, 1024))
+WIDE_REL = {"bfloat16": DQKV_REL_ATOL, "float16": 5e-3, "float32": 1e-4}
 
 # every kernel's launch count, 'module.COUNT' in ops/
 ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
@@ -457,6 +489,34 @@ def sdpa_ms(q, k, v, do=None):
     do = do.contiguous()
     return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), do,
                                                retain_graph=True))
+
+
+def launched_kernels(fn) -> set:
+    """The names of the CUDA kernels one call of fn launches (a
+    torch.profiler trace of the call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type.name == "CUDA"
+            and getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0)) > 0}
+
+
+def only_kernel(fn, name: str, tag: str) -> None:
+    """Of the port's kernels (csrc/'s, in their sources' anonymous
+    namespaces), one call of fn launches the kernel `name` alone; PyTorch's
+    own kernels (the wrapper's sum of K3's partials) are not counted."""
+    names = launched_kernels(fn)
+    ours = sorted(n for n in names if "anonymous namespace" in n)
+    log(f"[{tag}] the call launched {sorted(names)}")
+    check(ours and all(name in n for n in ours),
+          f"{tag}: the call launched {ours} of csrc/, want {name} alone")
 
 
 def seeded_bf16(shape, seed: int, dev, dtype=None, scale: float = 1.0):
@@ -684,8 +744,10 @@ def build_all(fa, fb, mf):
         return {n: f.result() for n, f in futures.items()}
 
 
-def log_ptxas(cuda_build, name: str, tag: str) -> None:
-    """ptxas's registers and spills for each kernel of library `name`."""
+def log_ptxas(cuda_build, name: str, tag: str, untyped: str = "bf16") -> None:
+    """ptxas's registers and spills for each kernel of library `name`; a
+    kernel with no element type in its name is `untyped`'s (bf16 for the
+    tensor-core sources, fp32 for the float-only kernels)."""
     import re
 
     fn = "?"
@@ -699,8 +761,8 @@ def log_ptxas(cuda_build, name: str, tag: str) -> None:
             k = re.findall(r"\d((?:fused|attn|flash|hp|fc2)_\w+?_kernel)"
                            r"(?:I(13__nv_bfloat16|6__half|f)?(?:Li(\d+)E)?"
                            r"(?:Lb([01])E)?)?", m.group(1))
-            dt = {"6__half": "fp16", "f": "fp32"}.get(k[-1][1], "bf16") \
-                if k else ""
+            dt = {"6__half": "fp16", "f": "fp32", "13__nv_bfloat16": "bf16"
+                  }.get(k[-1][1], untyped) if k else ""
             order = ", K7 order" if k and k[-1][3] == "1" else ""
             fn = f"{k[-1][0]}<{dt}, {k[-1][2] or '-'}{order}>" if k \
                 else m.group(1)
@@ -1201,11 +1263,22 @@ class swap_plain_attention:
         self.fa.attn_fwd, self.fa.attn_bwd = self.saved
 
 
+def unfused_mlp_bwd(dy, w2, h):
+    """The default path's backward of fc2 -> gelu_tanh for K3's result:
+    da by cuBLAS, autograd's GELU backward, the fp32 bias sum."""
+    import torch
+
+    dh = torch.ops.aten.gelu_backward(torch.matmul(dy, w2), h,
+                                      approximate="tanh")
+    return dh, dh.sum(dim=(0, 1), dtype=torch.float32)
+
+
 def dtype_case(fa, fb, mf, name, shape, dt, dev):
     """One kernel's call at `shape` in dtype `dt`: (the wrapper, its plain
     version, the PyTorch yardstick's ms or None, FLOPs, bytes, the kind of
-    each output). Both calls return tuples. Kinds: 'rel' (the dtype's own
-    outputs), 'fp32' (row stats, bias partials), 'lse'."""
+    each output, the unfused default path's call or None). Both calls
+    return tuples. Kinds: 'rel' (the dtype's own outputs), 'fp32' (row
+    stats, bias partials), 'lse'."""
     import torch
 
     e = DTYPE_PEAK[str(dt).split(".")[-1]][1]
@@ -1220,7 +1293,7 @@ def dtype_case(fa, fb, mf, name, shape, dt, dev):
         return (lambda: mf.fc2_bwd(dy, w2, h),
                 lambda: mf.fc2_bwd_reference(dy, w2, h), None,
                 2 * m * o * k, e * (m * o + o * k + 3 * m * k) + 4 * k,
-                ("rel", "rel", "fp32"))
+                ("rel", "rel", "fp32"), lambda: unfused_mlp_bwd(dy, w2, h))
     b, s, h, d = shape
     scale = d ** -0.5
     sq, n, rows = b * h * s * s * d, b * s * h * d, b * h * s
@@ -1291,7 +1364,7 @@ def dtype_case(fa, fb, mf, name, shape, dt, dev):
                     lambda: (fa.hp_bwd_reference(qkv, do, h, scale).view(
                         qkv5.shape),),
                     bwd_lib, 10 * sq, e * 7 * n, ("rel",))}
-    return cases[name]
+    return (*cases[name], None)
 
 
 def drive_entry_points(counts, fa, mf, dev, dt):
@@ -1357,8 +1430,8 @@ def phase_dtypes(counts, fa, fb, mf, dev):
         peak = DTYPE_PEAK[dt_name][0]
         for name, shapes in DTYPE_SHAPES.items():
             for shape in shapes:
-                kernel, plain, library, flops, nbytes, kinds = dtype_case(
-                    fa, fb, mf, name, shape, dt, dev)
+                kernel, plain, library, flops, nbytes, kinds, unfused = \
+                    dtype_case(fa, fb, mf, name, shape, dt, dev)
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
                 row = {}
@@ -1384,27 +1457,86 @@ def phase_dtypes(counts, fa, fb, mf, dev):
                     row["ms"] = cuda_ms(kernel)
                     row["plain_ms"] = cuda_ms(plain)
                     row["library_ms"] = library() if library else None
+                    if unfused:
+                        row["unfused_ms"] = cuda_ms(unfused)
                     row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
                                                              peak)
                     rows[(dt_name, name)] = row
                 log(f"[dtypes] {dt_name} {name} {shape}: "
                     + " ".join(f"{k}={v!r}" for k, v in row.items()))
-                del got, want, kernel, plain, library
+                del got, want, kernel, plain, library, unfused
                 gc.collect()
                 torch.cuda.empty_cache()
+    worst[("float32", "attn_bwd")] = max(worst[("float32", "attn_bwd")],
+                                         fp32_k2_edges(fa, dev))
     return launches, rows, worst
+
+
+def fp32_k2_edges(fa, dev) -> float:
+    """The fp32 K2 (csrc/attn_bwd.cu) at K2_FP32_EDGE_SHAPES against its
+    plain version, on o and the row stats of the fp32 K1: each call run
+    twice and bitwise equal, dqkv and the bias partials within
+    K2_FP32_EDGE_REL of the plain version's largest magnitude. Returns the
+    worst dqkv error."""
+    import torch
+
+    worst = 0.0
+    for b, s, h, d in K2_FP32_EDGE_SHAPES:
+        tag = f"fp32 K2 edge (B, S, H, D) = {(b, s, h, d)}"
+        qkv = seeded_bf16((b, s, 3 * h * d), 7500 + s + d, dev, torch.float32)
+        do = seeded_bf16((b, s, h * d), 7600 + s + d, dev, torch.float32)
+        check(fa.attn_kernel_route(qkv, h, do, do) == "cuda_cores",
+              f"{tag}: route {fa.attn_kernel_route(qkv, h, do, do)}")
+        o, st = fa.attn_fwd(qkv, h, with_stats=True)
+        got, again = fa.attn_bwd(qkv, do, o, st, h), fa.attn_bwd(qkv, do, o,
+                                                                 st, h)
+        want = fa.attn_bwd_reference(qkv, do, o, st, h, d ** -0.5)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{tag}: two runs on the same inputs differ")
+        errs = []
+        for what, g, w in zip(("dqkv", "bias partials"), got, want):
+            err = (g - w).abs().max().item()
+            ref = w.abs().max().item()
+            check(torch.isfinite(g).all().item()
+                  and err <= K2_FP32_EDGE_REL * ref,
+                  f"{tag}: {what} max abs err {err} > {K2_FP32_EDGE_REL} x "
+                  f"{ref}")
+            errs.append((err, ref))
+        worst = max(worst, errs[0][0])
+        log(f"[dtypes] {tag}: dqkv max abs err {errs[0][0]!r} (of "
+            f"{errs[0][1]!r}), bias partials {errs[1][0]!r} (of "
+            f"{errs[1][1]!r}), bitwise repeat True")
+        del qkv, do, o, st, got, again, want
+    return worst
+
+
+def check_redesigned(fa, mf, dev) -> None:
+    """The redesigned fp32 K2 and K3 run alone: one call of the bf16, fp16
+    and fp32 K3 and of the fp32 K2 launches (torch.profiler) its new kernel
+    and no other of csrc/."""
+    import torch
+
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        b, s, o, k = MLP_MAIN_SHAPES[0] if dt != torch.float32 else \
+            MLP_EXTRA_SHAPES[0]
+        dy = seeded_bf16((b, s, o), 4500, dev, dt)
+        w2 = seeded_bf16((o, k), 4501, dev, dt, 0.02)
+        h = seeded_bf16((b, s, k), 4502, dev, dt)
+        only_kernel(lambda: mf.fc2_bwd(dy, w2, h),
+                    "fc2_bwd_cc_kernel" if dt == torch.float32
+                    else "fc2_bwd_tc_kernel<", f"redesigned K3 {dt}")
+    b, s, h, d = BWD_MAIN_SHAPES[1]
+    qkv = seeded_bf16((b, s, 3 * h * d), 4503, dev, torch.float32)
+    do = seeded_bf16((b, s, h * d), 4504, dev, torch.float32)
+    o, st = fa.attn_fwd(qkv, h, with_stats=True)
+    only_kernel(lambda: fa.attn_bwd(qkv, do, o, st, h), "attn_bwd_kernel<",
+                "redesigned fp32 K2")
 
 
 def phase_mlp_kernel(mf, dev):
     """K3 against its plain version on seeded bf16 dy, fc2 weight and h."""
     import torch
-
-    def unfused(dy, w2, h):
-        # the default path's backward of fc2 -> gelu_tanh for the same
-        # result: da by cuBLAS, autograd's GELU backward, the fp32 bias sum
-        dh = torch.ops.aten.gelu_backward(torch.matmul(dy, w2), h,
-                                          approximate="tanh")
-        return dh, dh.sum(dim=(0, 1), dtype=torch.float32)
 
     results = {}
     worst = 0.0
@@ -1416,9 +1548,12 @@ def phase_mlp_kernel(mf, dev):
         w2 = (seeded_bf16((o, k), seed + 1, dev).float() * 0.02).bfloat16()
         h = seeded_bf16((b, s, k), seed + 2, dev)
         got = mf.fc2_bwd(dy, w2, h)
+        again = mf.fc2_bwd(dy, w2, h)
         want = mf.fc2_bwd_reference(dy, w2, h)
         torch.cuda.synchronize()
-        row = {}
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{shape}: two runs of K3 on the same inputs differ")
+        row = {"bitwise_repeat": True}
         for name, g, r, rel in zip(("dh", "a", "db1"), got, want,
                                    (DH_REL_ATOL, DH_REL_ATOL, DB1_REL_ATOL)):
             check(g.shape == r.shape and g.dtype == r.dtype
@@ -1434,7 +1569,7 @@ def phase_mlp_kernel(mf, dev):
         if shape in MLP_MAIN_SHAPES:
             row["ms"] = cuda_ms(lambda: mf.fc2_bwd(dy, w2, h))
             row["plain_ms"] = cuda_ms(lambda: mf.fc2_bwd_reference(dy, w2, h))
-            row["unfused_ms"] = cuda_ms(lambda: unfused(dy, w2, h))
+            row["unfused_ms"] = cuda_ms(lambda: unfused_mlp_bwd(dy, w2, h))
             # dy, w2, h read; dh, a (bf16) and db1 (fp32) written; dy·w2
             m = b * s
             row["bound_ms"], row["bound_by"] = bound(
@@ -1785,31 +1920,110 @@ def phase_fused_kernel(counts, fa, dev):
         f"a {FUSED_VIEW_SHAPE} (B, S, H, D) qkv buffer: o_max_abs_err="
         f"{o_err!r} grads_max_abs_err={g_err!r} grads_max_abs={g_ref!r}")
 
-    # S > 1024: the JAX routing to reference_attention, no kernel
-    b, s, h, d = LONG_FUSED_SHAPE
-    counts(reset=True)
-    q, k, v = (leaf((b, h, s, d), 6950 + i) for i in range(3))
-    o = multi_head_attention(q, k, v, use_pallas=True)
-    o.backward(torch.ones_like(o))
-    qkv = leaf((b, s, 3, h, d), 6953)
-    o2 = fa.fused_attention_qkv(qkv)
-    o2.backward(torch.ones_like(o2))
-    torch.cuda.synchronize()
-    long_launches = counts()
-    check(not any(long_launches.values()),
-          f"S = {s} launched {long_launches} (want none)")
-    o_r = fa.fused_fwd_reference(q.detach(), k.detach(), v.detach(),
-                                 d ** -0.5)
-    o2_r = fa.fused_fwd_reference(*heads5(qkv.detach()), d ** -0.5)
-    err = max((o.float() - o_r.float()).abs().max().item(),
-              (o2.view(b, s, h, d).transpose(1, 2).float()
-               - o2_r.float()).abs().max().item())
-    check(err <= O_ATOL and torch.isfinite(q.grad.float()).all().item()
-          and torch.isfinite(qkv.grad.float()).all().item(),
-          f"S = {s}: o max abs err {err} > {O_ATOL} or grads not finite")
-    log(f"[fused kernel] S={s}: reference_attention route, no launch "
-        f"({long_launches}); o max abs err vs fused_fwd_reference {err!r}")
+    wide_fused(counts, fa, dev)
+    # past the kernels' S (as JAX routes it): the shape rule sends both
+    # entry points to reference_attention, no kernel
+    for b, s, h, d in REFERENCE_FUSED_SHAPES:
+        counts(reset=True)
+        q, k, v = (leaf((b, h, s, d), 6950 + i) for i in range(3))
+        route = fa.fused_kernel_route(q, k, v)
+        o = multi_head_attention(q, k, v, use_pallas=True)
+        o.backward(torch.ones_like(o))
+        qkv = leaf((b, s, 3, h, d), 6953)
+        route_qkv = fa.fused_kernel_route(*heads5(qkv))
+        o2 = fa.fused_attention_qkv(qkv)
+        o2.backward(torch.ones_like(o2))
+        torch.cuda.synchronize()
+        ref_launches = counts()
+        tag = f"(B, S, H, D) = {(b, s, h, d)}"
+        check(route == route_qkv == "reference",
+              f"{tag}: routes {route}, {route_qkv} (want reference)")
+        check(not any(ref_launches.values()),
+              f"{tag} launched {ref_launches} (want none)")
+        o_r = fa.fused_fwd_reference(q.detach(), k.detach(), v.detach(),
+                                     d ** -0.5)
+        o2_r = fa.fused_fwd_reference(*heads5(qkv.detach()), d ** -0.5)
+        err = max((o.float() - o_r.float()).abs().max().item(),
+                  (o2.view(b, s, h, d).transpose(1, 2).float()
+                   - o2_r.float()).abs().max().item())
+        check(err <= O_ATOL and torch.isfinite(q.grad.float()).all().item()
+              and torch.isfinite(qkv.grad.float()).all().item(),
+              f"{tag}: o max abs err {err} > {O_ATOL} or grads not finite")
+        log(f"[fused kernel] {tag}: route {route!r} (reference_attention), "
+            f"no launch ({ref_launches}); o max abs err vs "
+            f"fused_fwd_reference {err!r}")
     return launches, results, worst
+
+
+def wide_fused(counts, fa, dev) -> None:
+    """Both entry points at WIDE_FUSED_SHAPES in bf16, fp16 and fp32: the
+    route says 'cuda_cores', K7 and K8 (or K11 and K12) launch once each,
+    and o and the gradients hold against the plain versions relative to
+    their largest |value| (WIDE_REL); K7 and K8 timed beside their plain
+    versions at the first shape."""
+    import torch
+
+    def heads5(qkv):
+        return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+    for dt_name in ("bfloat16", "float16", "float32"):
+        dt = getattr(torch, dt_name)
+        for shape in WIDE_FUSED_SHAPES:
+            b, s, h, d = shape
+            seed = 6960 + s + d
+            x = [seeded_bf16((b, h, s, d), seed + i, dev, dt)
+                 for i in range(3)]
+            do = seeded_bf16((b, h, s, d), seed + 3, dev, dt)
+            scale = d ** -0.5
+            want = (fa.fused_fwd_reference(*x, scale),
+                    *fa.fused_bwd_reference(*x, do, scale))
+            tag = f"{dt_name} (B, S, H, D) = {shape}"
+            check(fa.fused_kernel_route(*x) == "cuda_cores"
+                  and fa.bwd_kernel_route(*x, do) == "cuda_cores",
+                  f"{tag}: routes {fa.fused_kernel_route(*x)}, "
+                  f"{fa.bwd_kernel_route(*x, do)} (want cuda_cores)")
+            errs = {}
+            for entry, pair in (("fused_attention", ("FUSED_FWD_LAUNCHES",
+                                                     "FUSED_BWD_LAUNCHES")),
+                                ("fused_attention_qkv",
+                                 ("QKV_FWD_LAUNCHES", "QKV_BWD_LAUNCHES"))):
+                counts(reset=True)
+                if entry == "fused_attention":
+                    leaves = [t.clone().requires_grad_() for t in x]
+                    o = fa.fused_attention(*leaves)
+                    o.backward(do)
+                    got = (o, *(t.grad for t in leaves))
+                else:
+                    qkv = torch.stack([t.transpose(1, 2) for t in x],
+                                      dim=2).requires_grad_()
+                    o = fa.fused_attention_qkv(qkv)
+                    o.backward(do.transpose(1, 2).reshape(b, s, h * d))
+                    got = (o.view(b, s, h, d).transpose(1, 2),
+                           *heads5(qkv.grad))
+                torch.cuda.synchronize()
+                n = counts()
+                check(n == {c: int(c in pair) for c in n},
+                      f"{tag} {entry} launched {n} (want one each of {pair})")
+                err = []
+                for g, w in zip(got, want):
+                    e = (g.float() - w.float()).abs().max().item()
+                    lim = WIDE_REL[dt_name] * w.float().abs().max().item()
+                    check(g.dtype == dt and e <= lim, f"{tag} {entry}: "
+                          f"{g.dtype}, max abs err {e} > {lim}")
+                    err.append(e)
+                errs[entry] = err
+            row = {"o_and_grads_max_abs_err": errs,
+                   "max_abs": [w.float().abs().max().item() for w in want]}
+            if shape == WIDE_FUSED_SHAPES[0]:
+                row["fused_fwd_ms"] = cuda_ms(lambda: fa.fused_fwd(*x))
+                row["fused_fwd_plain_ms"] = cuda_ms(
+                    lambda: fa.fused_fwd_reference(*x, scale))
+                row["fused_bwd_ms"] = cuda_ms(lambda: fa.fused_bwd(*x, do))
+                row["fused_bwd_plain_ms"] = cuda_ms(
+                    lambda: fa.fused_bwd_reference(*x, do, scale))
+            log(f"[fused kernel] wide head {tag}: route 'cuda_cores' "
+                + " ".join(f"{k}={v!r}" for k, v in row.items()))
+            del x, do, want, got, o
 
 
 def counter(*names):
@@ -1897,7 +2111,11 @@ def main() -> int:
         f"{build_s['attn_bwd_tc']:.3f} s (registers in phase 2)")
     log(f"[build bwd] attn_bwd built/loaded in {build_s['attn_bwd']:.3f} s "
         f"(in parallel with the others)")
-    log_ptxas(cuda_build, "attn_bwd", "build bwd")
+    log_ptxas(cuda_build, "attn_bwd", "build bwd", untyped="fp32")
+    bwd32 = fa.build_bwd_kernels()
+    log(f"[build bwd] dynamic shared memory of attn_bwd_kernel (fp32 K2) "
+        f"at D <= 32, 64, 128: "
+        f"{[bwd32.vtx_attn_bwd_smem(d) for d in (32, 64, 128)]} B")
     bwd, bwd_worst = phase_bwd_kernel(fa, dev)
     n = phase_grad(every, dev, ckpt_path)
     check(n == only(ATTN_FWD_LAUNCHES=12, ATTN_BWD_LAUNCHES=12),
@@ -1959,8 +2177,11 @@ def main() -> int:
     for name in ("mlp_fused", "hp_bwd"):
         log(f"[build mlp/hp] {name} built/loaded in {build_s[name]:.3f} s "
             f"(in parallel with the others)")
-        log_ptxas(cuda_build, name, "build mlp/hp")
+        log_ptxas(cuda_build, name, "build mlp/hp", untyped="fp32")
+    log(f"[build mlp/hp] dynamic shared memory of fc2_bwd_tc_kernel (K3 in "
+        f"bf16 and fp16) {mf.build_kernels().vtx_fc2_bwd_smem()} B")
     mlp_k, mlp_worst = phase_mlp_kernel(mf, dev)
+    check_redesigned(fa, mf, dev)
     with check_fc2_bwd(mf) as k3:
         n = phase_grad(every, dev, ckpt_path, tag="grad pallas_mlp",
                        use_pallas_mlp=True)
@@ -2167,7 +2388,9 @@ def main() -> int:
                 "shape": row["shape"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]})
+                "library_ms": row["library_ms"],
+                **({"unfused_ms": row["unfused_ms"]} if "unfused_ms" in row
+                   else {})})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -159,6 +159,29 @@ def test_kernel_route_by_dtype_and_head_dim(dtype, d, h):
             "tensor_cores_copy"
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,h", [(1, 65537), (65537, 1)])
+def test_batch_and_heads_over_65535_keep_the_kernel_route(dtype, b, h):
+    """F8: every grid of K1, K2 and K9 is one-dimensional over (b, h,
+    tile), so B and H over the grid's 65535 take the same kernels as any
+    other shape (on the card; here the route and the plain version on the
+    CPU), and nothing in the wrappers bounds them."""
+    dt = getattr(torch, dtype)
+    s, d = 2, 8
+    qkv = torch.from_numpy(_qkv(b, s, h, d, 7)).to(dt)
+    do = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (b, s, h * d)).astype(np.float32)).to(dt)
+    want = "cuda_cores" if dtype == "float32" else "tensor_cores"
+    assert fa.attn_kernel_route(qkv, h) == want
+    assert fa.attn_kernel_route(qkv, h, do, do.clone()) == want
+    assert not hasattr(fa, "MAX_GRID_DIM")
+    o, st = fa.attn_fwd(qkv, h, with_stats=True)
+    dqkv, dbias = fa.attn_bwd(qkv, do, o, st, h)
+    assert o.shape == (b, s, h * d) and dqkv.shape == qkv.shape
+    assert dbias.shape == (b, 3 * h * d)
+    assert torch.isfinite(dqkv.float()).all() and torch.isfinite(dbias).all()
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("d,h", [(2, 3), (6, 1), (48, 2)])
 def test_padded_head_dim_leaves_the_forward_unchanged(dtype, d, h):

@@ -65,9 +65,10 @@ def test_other_dtypes_have_no_code():
 
 
 @pytest.mark.parametrize("source", ["attn_fwd_tc.cu", "attn_bwd_tc.cu",
-                                    "hp_bwd_tc.cu"])
+                                    "hp_bwd_tc.cu", "mlp_fused.cu"])
 def test_the_tensor_core_attention_sources_enter_the_hash(tmp_path, source):
-    # K1/K7/K9/K11's, K2's and K8/K10/K12's tensor-core sources: each is its
+    # K1/K7/K9/K11's, K2's and K8/K10/K12's tensor-core sources, and K3's
+    # (its bf16 and fp16 kernel is TMA and wgmma too): each is its
     # library's source, so an edit to it (or to the hopper.cuh it includes)
     # names a new file
     real = cuda_build.CSRC_DIR

@@ -10,10 +10,14 @@ Then the entry points `fused_attention`, `fused_attention_qkv` and
 `multi_head_attention` (both routes), value and gradients, against the JAX
 functions, with S = 1100 on the plain route of both, and `masked_attention`
 and `attention_bshd` against theirs. `fused_kernel_route` picks K7's and
-K11's kernel from dtype and layout on CPU tensors. The `cuda` cases hold the
-kernels against their plain versions on the card (the tensor-core K7 and
-K11 in bf16 and fp16 at the edges of their 128-row tiles, copying exactly
-where the route says) and skip without one. The JAX
+K11's kernel from dtype, layout and head dim on CPU tensors ('cuda_cores'
+in every dtype past the tensor cores' head dim of 128, whose values and
+gradients match JAX's kernels at D = 136 and 192), and 'reference' for S >
+1024, which both entry points then run on `reference_attention`, as JAX
+does. The `cuda` cases hold the kernels against their plain versions on
+the card (the tensor-core K7 and K11 in bf16 and fp16 at the edges of their
+128-row tiles, copying exactly where the route says; the CUDA-core K7, K8,
+K11 and K12 at head dims over 128 in every dtype) and skip without one. The JAX
 package is imported inside the JAX helpers, so that the `cuda` cases also
 run where flax is missing.
 
@@ -244,6 +248,51 @@ def test_fused_attention_qkv_matches_jax_fp32(s):
     _close(x.grad, np.asarray(want_g), FP32_RTOL, "dqkv")
 
 
+@pytest.mark.parametrize("entry", ["fused_attention", "fused_attention_qkv"])
+@pytest.mark.parametrize("d", [136, 192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_heads_take_the_kernels_and_match_jax(dtype, entry, d):
+    # F8: a head dim over 128 at S <= 1024, which JAX pads to a multiple of
+    # 8 and runs in its kernels, runs the port's autograd Function on the
+    # CUDA-core kernels' route in every dtype (here their plain versions),
+    # with values and gradients as JAX's
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vision_transformers_torch_xla_tpu.ops import flash_attention as jfa
+
+    b, h, s = 1, 2, 40
+    dt = getattr(torch, dtype)
+    if entry == "fused_attention":
+        ins = [_rand((b, h, s, d), d + i) for i in range(3)]
+        do = _rand((b, h, s, d), d + 3)
+    else:
+        ins = [_rand((b, s, 3, h, d), d + 4)]
+        do = _rand((b, s, h * d), d + 5)
+    x = [torch.from_numpy(t).to(dt).requires_grad_() for t in ins]
+    g = torch.from_numpy(do).to(dt)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(getattr(jfa, entry),
+                            *(jnp.asarray(t.detach().float().numpy(), jdt)
+                              for t in x))
+        want_g = vjp(jnp.asarray(g.float().numpy(), jdt))
+    views = x if len(x) == 3 else x[0].permute(2, 0, 3, 1, 4).unbind(0)
+    assert fa.fused_kernel_route(*views) == "cuda_cores"
+    assert fa.bwd_kernel_route(*views, views[0]) == "cuda_cores"
+    before = _counts()
+    got = getattr(fa, entry)(*x)
+    assert type(got.grad_fn).__name__.startswith("Fused")
+    got.backward(g)
+    assert _counts() == before
+    rtol = BF16_RTOL if dtype == "bfloat16" else FP32_RTOL
+    _close(got.detach().float(), _f32(want), rtol, "o")
+    for i, (t, w) in enumerate(zip(x, want_g)):
+        assert t.grad.dtype == dt
+        _close(t.grad.float(), _f32(w), rtol, f"grad {i}")
+
+
 @pytest.mark.parametrize("use_pallas", [True, False])
 def test_multi_head_attention_matches_jax(use_pallas):
     import jax
@@ -379,7 +428,14 @@ def _route_case(case):
     """(B, H, S, D) q, k, v on the CPU for each case of `fused_kernel_route`."""
     dt = torch.float32 if case == "fp32" else (
         torch.float16 if case == "fp16" else torch.bfloat16)
-    d = {"d48": 48, "d6": 6, "odd_d": 7}.get(case, 64)
+    d = {"d48": 48, "d6": 6, "odd_d": 7, "d136": 136, "fp16_d256": 256,
+         "fp32_d192": 192}.get(case, 64)
+    if case == "fp32_d192":
+        dt = torch.float32
+    if case == "fp16_d256":
+        dt = torch.float16
+    if case == "s1100":
+        return [torch.zeros((1, 2, 1100, d), dtype=dt) for _ in range(3)]
     if case == "qkv_views":
         qkv = torch.zeros((2, 10, 3, 4, d), dtype=dt)
         return qkv.permute(2, 0, 3, 1, 4).unbind(0)
@@ -398,11 +454,15 @@ def _route_case(case):
     ("fp16", "tensor_cores"), ("qkv_views", "tensor_cores"),
     ("d48", "tensor_cores"), ("d6", "tensor_cores_copy"),
     ("odd_d", "tensor_cores_copy"), ("layouts_differ", "tensor_cores_copy"),
-    ("unaligned", "tensor_cores_copy")])
+    ("unaligned", "tensor_cores_copy"), ("d136", "cuda_cores"),
+    ("fp16_d256", "cuda_cores"), ("fp32_d192", "cuda_cores"),
+    ("s1100", "reference")])
 def test_fused_kernel_route(case, route):
     # fp32 stays on the CUDA cores; bf16 and fp16 take the tensor cores,
     # in place where TMA reads q, k, v (one layout, a head dim that is a
-    # multiple of 8, 16-byte-aligned data and strides), else after a copy
+    # multiple of 8, 16-byte-aligned data and strides), else after a copy;
+    # a head dim over 128 takes the CUDA cores in every dtype; past the
+    # kernels' S the entry points take reference_attention, as JAX's do
     assert fa.fused_kernel_route(*_route_case(case)) == route
 
 
@@ -428,11 +488,15 @@ def _bwd_route_case(case):
     ("fp16", "tensor_cores"), ("qkv_views", "tensor_cores"),
     ("d48", "tensor_cores"), ("d6", "tensor_cores_copy"),
     ("odd_d", "tensor_cores_copy"), ("layouts_differ", "tensor_cores_copy"),
-    ("do_unaligned", "tensor_cores_copy")])
+    ("do_unaligned", "tensor_cores_copy"), ("d136", "cuda_cores"),
+    ("fp16_d256", "cuda_cores"), ("fp32_d192", "cuda_cores"),
+    ("s1100", "reference")])
 def test_bwd_kernel_route(case, route):
     # K8, K10 and K12: fp32 stays on the CUDA cores; bf16 and fp16 take the
     # tensor cores, in place where TMA reads q, k, v (one layout) and dO (its
-    # own), else after one copy of all four
+    # own), else after one copy of all four; a head dim over 128 takes the
+    # CUDA cores in every dtype; past the kernels' S, the gradient of
+    # reference_attention
     assert fa.bwd_kernel_route(*_bwd_route_case(case)) == route
 
 
@@ -660,7 +724,8 @@ def test_fused_kernels_contract_on_cuda(cuda_device):
     torch.testing.assert_close(o7, o_r, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(o11, o_r.transpose(1, 2).reshape(1, 64, 128),
                                atol=1e-5, rtol=1e-4)
-    # an odd head dim runs (G2); over 128 it raises
+    # an odd head dim runs (G2); past the CUDA-core kernels' head dim it
+    # raises (over 128 it runs on them: test_wide_heads_match_plain_on_cuda)
     y = torch.from_numpy(_rand((1, 2, 64, 63), 98)).to(**bf)
     dq, dk, dv = fa.fused_bwd(y, y, y, y)
     torch.cuda.synchronize()
@@ -668,7 +733,7 @@ def test_fused_kernels_contract_on_cuda(cuda_device):
                                                          63 ** -0.5)):
         err = (g.float() - r.float()).abs().max().item()
         assert err <= 2e-2 * r.float().abs().max().item()
-    big = torch.zeros((1, 2, 64, 130), **bf)
+    big = torch.zeros((1, 2, 64, fa.MAX_CUDA_CORE_HEAD_DIM + 2), **bf)
     with pytest.raises(ValueError, match="head_dim"):
         fa.fused_bwd(big, big, big, big)
     z = torch.zeros((1, 2, 1100, 64), **bf)
@@ -688,3 +753,43 @@ def test_fused_kernels_contract_on_cuda(cuda_device):
     fa.fused_attention_qkv(q).sum().backward()
     torch.cuda.synchronize()
     assert _counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 197, 136), (1, 2, 77, 192),
+                                   (2, 4, 197, 256), (1, 3, 65, 137),
+                                   (1, 1, 64, 1024)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_wide_heads_match_plain_on_cuda(cuda_device, dtype, shape):
+    # F8: a head dim over 128 runs the CUDA-core K7, K8, K11 and K12 in the
+    # inputs' dtype, one launch each, against their plain versions
+    b, h, s, d = shape
+    dt = getattr(torch, dtype)
+    x = [torch.from_numpy(_rand(shape, 70 + i)).to(cuda_device, dt)
+         for i in range(3)]
+    do = torch.from_numpy(_rand(shape, 73)).to(cuda_device, dt)
+    rel = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}[dtype]
+    assert fa.fused_kernel_route(*x) == "cuda_cores"
+    qkv = torch.stack([t.transpose(1, 2) for t in x], dim=2)
+    for run in ("fused", "qkv"):
+        leaves = [t.clone().requires_grad_() for t in
+                  (x if run == "fused" else (qkv,))]
+        before = _counts()
+        if run == "fused":
+            o = fa.fused_attention(*leaves)
+            o.backward(do)
+            grads = [t.grad for t in leaves]
+        else:
+            o = fa.fused_attention_qkv(*leaves)
+            o.backward(do.transpose(1, 2).reshape(b, s, h * d))
+            o = o.view(b, s, h, d).transpose(1, 2)
+            grads = leaves[0].grad.permute(2, 0, 3, 1, 4).unbind(0)
+        torch.cuda.synchronize()
+        after = _counts()
+        assert sum(a - c for a, c in zip(after, before)) == 2
+        want = (fa.fused_fwd_reference(*x, d ** -0.5),
+                *fa.fused_bwd_reference(*x, do, d ** -0.5))
+        for got, w in zip((o, *grads), want):
+            assert got.dtype == dt
+            err = (got.float() - w.float()).abs().max().item()
+            assert err <= rel * w.float().abs().max().item()

@@ -255,11 +255,11 @@ def test_plain_versions_match_jax_kernels_fp16(kernel):
 # ---- on the card: each fp32 and fp16 instantiation against its plain
 # version on the same CUDA tensors
 
-def _card_cases(dev, dtype):
+def _card_cases(dev, dtype, shape=(2, 197, 3, 64)):
     """kernel -> (launch through the wrapper, the plain version, the
-    wrapper's launch count's name), on seeded (B, S, H, D) = (2, 197, 3, 64)
+    wrapper's launch count's name), on seeded (B, S, H, D) = `shape`
     inputs in `dtype`."""
-    b, s, h, d = 2, 197, 3, 64
+    b, s, h, d = shape
     scale = d ** -0.5
 
     def r(shape, seed, k=1.0):
@@ -327,10 +327,15 @@ def _card_cases(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 197, 3, 64), (2, 65, 3, 128),
+                                   (2, 63, 3, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_kernels_fp32_fp16_match_plain_on_cuda(cuda_device, kernel, dtype):
-    run, plain, (mod, count) = _card_cases(cuda_device, dtype)[kernel]
+def test_kernels_fp32_fp16_match_plain_on_cuda(cuda_device, kernel, dtype,
+                                               shape):
+    # the main shape, and the edges of the fp32 K2's 64-row tiles at both
+    # ends of its head dims
+    run, plain, (mod, count) = _card_cases(cuda_device, dtype, shape)[kernel]
     before = getattr(mod, count)
     got = run()
     torch.cuda.synchronize()

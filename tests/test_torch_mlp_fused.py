@@ -254,18 +254,24 @@ def test_vit_grads_match_jax_fp32(jax_vit, port_vit, part):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("b,s,o,k", [(128, 197, 768, 3072),
-                                     (3, 130, 128, 256), (1, 5, 256, 128)])
-def test_fc2_bwd_kernel_matches_plain(cuda_device, b, s, o, k):
-    # same bf16 inputs and cast order; dh and a move by a flipped bf16
-    # rounding (fp32 summation order of da), db1 by fp32 summation order
-    dy, w2, h = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+                                     (64, 197, 768, 3072),
+                                     (3, 77, 768, 3072), (3, 130, 128, 256),
+                                     (1, 5, 256, 128)])
+def test_fc2_bwd_kernel_matches_plain(cuda_device, b, s, o, k, dtype):
+    # the tensor-core K3 (TMA, wgmma) on the same 16-bit inputs and cast
+    # order; dh and a move by a flipped rounding (fp32 summation order of
+    # da), db1 by fp32 summation order; two runs are bitwise equal
+    dy, w2, h = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
                  for x in (_rand((b, s, o), 1), _rand((o, k), 2, 0.05),
                            _rand((b, s, k), 3, 2.0)))
     before = mf.FC2_BWD_LAUNCHES
     got = mf.fc2_bwd(dy, w2, h)
+    again = mf.fc2_bwd(dy, w2, h)
     torch.cuda.synchronize()
-    assert mf.FC2_BWD_LAUNCHES == before + 1
+    assert mf.FC2_BWD_LAUNCHES == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     want = mf.fc2_bwd_reference(dy, w2, h)
     for name, g, r, rtol in zip(("dh", "a", "db1"), got, want,
                                 (2e-2, 2e-2, 1e-3)):
@@ -302,3 +308,8 @@ def test_fc2_bwd_contract_on_cuda(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         mf.fc2_bwd(xb, wb, h.bfloat16().transpose(0, 1).contiguous()
                    .transpose(0, 1))
+    # the bf16/fp16 kernel's tensor maps read 16-byte-aligned data
+    odd = torch.zeros(2 * 5 * 256 + 1, device=cuda_device,
+                      dtype=torch.bfloat16)[1:].view(2, 5, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        mf.fc2_bwd(xb, wb, odd)

@@ -10,9 +10,12 @@ data enters the timed loop. Two models:
     GELU, batch 32; attention through K4, K5 and K6 (ops/flash_blocked.py).
 The model is built with use_pallas_attn (the trainer's `--pallas_attn
 on`, which its default `auto` also means on the card).
-`--pallas_mlp` is the trainer's own flag, passed through: `on` runs every
-tanh-GELU MLP's backward through the fc2-backward kernel K3
-(ops/mlp_fused.py).
+`--pallas_mlp` and `--precision` are the trainer's own flags, passed
+through: `--pallas_mlp on` runs every tanh-GELU MLP's backward through the
+fc2-backward kernel K3 (ops/mlp_fused.py); `--precision fp32` computes in
+fp32, on the kernels' fp32 instantiations. `--repo DIR` profiles the port
+of another checkout (for example a parent commit unpacked by `git
+archive`) with this script, so that an A/B runs one script on both trees.
 It prints one JSON line with:
   * the median step time (CUDA events around each step after warm-up) and
     images/s, with the attention kernels and with their plain PyTorch
@@ -32,6 +35,8 @@ Run from the root of a checkout:
 
     python tools/profile_torch_train_step.py --batch 128 --steps 5
     python tools/profile_torch_train_step.py --batch 128 --pallas_mlp on
+    python tools/profile_torch_train_step.py --batch 128 --precision fp32 \
+        [--repo build/parent]
     python tools/profile_torch_train_step.py \
         --model vit_base_patch14_dinov2 --batch 32 --steps 3
 """
@@ -47,7 +52,11 @@ import time
 
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the checkout whose port is profiled: --repo, read before the imports
+_pre = argparse.ArgumentParser(add_help=False)
+_pre.add_argument("--repo", default=HERE)
+REPO = os.path.abspath(_pre.parse_known_args()[0].repo)
 sys.path.insert(0, REPO)
 
 from vision_transformers_torch_xla_tpu_torch.core.config import (  # noqa: E402
@@ -82,9 +91,9 @@ MODELS = {
 
 
 def recipe_flags(batch: int, model: str = "my_vit_b",
-                 pallas_mlp: str = "off"):
+                 pallas_mlp: str = "off", precision: str = "bf16"):
     return ["--model", model, *MODELS[model][0], "--pallas_attn", "on",
-            "--pallas_mlp", pallas_mlp,
+            "--pallas_mlp", pallas_mlp, "--precision", precision,
             "--batch_size", str(batch), "--data_set", "synthetic",
             "--model_ema", "true", "--lr", "4e-3", "--min_lr", "1e-6",
             "--warmup_epochs", "20", "--warmup_lr", "1e-6",
@@ -192,7 +201,7 @@ def profile(ctx, images, labels, seed, steps: int):
         "flash_dkdv_k5_ms_per_step": per_step(
             lambda n: "flash_bwd_dkdv_" in n),
         "flash_dq_k6_ms_per_step": per_step(lambda n: "flash_bwd_dq_" in n),
-        "fc2_bwd_k3_ms_per_step": per_step(lambda n: "fc2_bwd_kernel" in n),
+        "fc2_bwd_k3_ms_per_step": per_step(lambda n: "fc2_bwd_" in n),
         "cublas_ms_per_step": per_step(
             lambda n: "nvjet" in n or "gemm" in n.lower()
             or "cutlass" in n.lower()),
@@ -246,6 +255,11 @@ def main():
     ap.add_argument("--timed_steps", type=int, default=10)
     ap.add_argument("--pallas_mlp", default="off", choices=("on", "off"),
                     help="the trainer's flag: the fused-backward MLP (K3)")
+    ap.add_argument("--precision", default="bf16",
+                    choices=("bf16", "bf16_pure", "fp32"),
+                    help="the trainer's flag: the compute dtype")
+    ap.add_argument("--repo", default=HERE,
+                    help="checkout whose port is profiled (default: this one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train_step: needs an NVIDIA GPU")
@@ -254,7 +268,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     cfg = config_from_args(recipe_flags(args.batch, args.model,
-                                        args.pallas_mlp))
+                                        args.pallas_mlp, args.precision))
     ctx = trainer.setup(cfg)
     images, labels = to_device(next(iter(ctx.train_ds)), dev)
     saved = [getattr(mod, name) for mod, name, _ in KERNELS]
@@ -270,8 +284,9 @@ def main():
     ips = args.batch / (ms / 1e3)
     _, img, patch = MODELS[args.model]
     out = {
-        "card": card, "model": args.model, "batch": args.batch,
-        "pallas_mlp": args.pallas_mlp,
+        "card": card, "tree": REPO, "model": args.model,
+        "batch": args.batch, "pallas_mlp": args.pallas_mlp,
+        "precision": args.precision,
         "step_ms_kernel": times["kernel"],
         "step_ms_plain_attention": times["plain"],
         "images_per_s": ips,

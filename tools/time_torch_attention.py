@@ -35,10 +35,13 @@ flash_bwd_dq (K5, K6) from K4's o and lse, with dO a view of (B, S, H, D)
 memory and dq, dk, dv views of one (B, S, 3·H·D) buffer, as
 `flash_bwd` lays them out. mha_fwd_bwd is the op-level entry point
 `multi_head_attention(use_pallas=True)`, forward and backward (K7 and K8),
-on the (B, H, S, D) q, k, v of fused_fwd. sdpa_fwd and sdpa_bwd (its whole
-backward,
-dq, dk and dv) are the yardstick, torch's scaled_dot_product_attention on
-contiguous copies of those q, k, v, which the port never calls.
+on the (B, H, S, D) q, k, v of fused_fwd. fc2_bwd is ops/mlp_fused.py's
+K3 on dy (B, S, 768), the fc2 weight (768, 3072) and h (B, S, 3072), and
+fc2_unfused the default path's work for the same result (cuBLAS da,
+autograd's GELU backward, the fp32 bias sum), its yardstick. sdpa_fwd and
+sdpa_bwd (its whole backward, dq, dk and dv) are the attention's
+yardstick, torch's scaled_dot_product_attention on contiguous copies of
+those q, k, v, which the port never calls.
 """
 from __future__ import annotations
 
@@ -78,7 +81,7 @@ def seeded(shape, seed: int, dtype):
     return torch.from_numpy(x).to("cuda", dtype)
 
 
-def calls(fa, fb, b: int, s: int, D: int, dtype):
+def calls(fa, fb, mf, b: int, s: int, D: int, dtype):
     """Each kernel's wrapper call on its seeded inputs."""
     qkv = seeded((b, s, 3 * H * D), 1, dtype)
     do = seeded((b, s, H * D), 2, dtype)
@@ -118,6 +121,19 @@ def calls(fa, fb, b: int, s: int, D: int, dtype):
         o = attention.multi_head_attention(*leaves, use_pallas=True)
         return torch.autograd.grad(o, leaves, g)
 
+    def fc2_inputs():
+        if "fc2" not in state:
+            state["fc2"] = (seeded((b, s, 768), 7, dtype),
+                            seeded((768, 3072), 8, dtype) * 0.02,
+                            seeded((b, s, 3072), 9, dtype))
+        return state["fc2"]
+
+    def fc2_unfused():
+        dy, w2, h = fc2_inputs()
+        dh = torch.ops.aten.gelu_backward(torch.matmul(dy, w2), h,
+                                          approximate="tanh")
+        return dh, dh.sum(dim=(0, 1), dtype=torch.float32)
+
     def sdpa_bwd():
         if "sdpa" not in state:
             state["sdpa"] = \
@@ -141,6 +157,8 @@ def calls(fa, fb, b: int, s: int, D: int, dtype):
         "qkv_fwd": lambda: fa.qkv_fwd(qkv5),
         "qkv_bwd": lambda: fa.qkv_bwd(qkv5, do),
         "mha_fwd_bwd": mha_fwd_bwd,
+        "fc2_bwd": lambda: mf.fc2_bwd(*fc2_inputs()),
+        "fc2_unfused": fc2_unfused,
     }
 
 
@@ -192,14 +210,14 @@ def main() -> int:
         "vision_transformers_torch_xla_tpu_torch.ops.flash_blocked")
     cuda_build = importlib.import_module(
         "vision_transformers_torch_xla_tpu_torch.ops.cuda_build")
+    mf = importlib.import_module(
+        "vision_transformers_torch_xla_tpu_torch.ops.mlp_fused")
     if args.build_all:
-        mf = importlib.import_module(
-            "vision_transformers_torch_xla_tpu_torch.ops.mlp_fused")
         for mod in (fa, fb, mf):
             for name in dir(mod):
                 if name.startswith("build_"):
                     getattr(mod, name)()
-    fns = calls(fa, fb, args.batch, args.seq, args.head_dim,
+    fns = calls(fa, fb, mf, args.batch, args.seq, args.head_dim,
                 getattr(torch, args.dtype))
     unknown = sorted(set(args.kernels) - set(fns))
     if unknown:

@@ -1,72 +1,83 @@
-// Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer, for Hopper.
+// Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer, in fp32
+// on the CUDA cores, for Hopper.
 //
 // Replaces the TPU kernel
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py
-// ::_hp_bwd_pi_kernel (K2). Same function, per (b, h), from the forward's
-// (B, H, S, 2) row stats [m, rinv] (csrc/attn_fwd.cu, with stats):
-//   q^ = bf16(q * scale); s = q^ k^T in fp32 over the S real keys;
-//   pu = exp(s - m), left unnormalized (it may exceed 1 by a few ulps: this
-//     s is summed in another order than the forward's);
-//   do_n = bf16(dO * rinv); dv = bf16(pu)^T do_n;
-//   delta = rowsum(dO * O) in fp32, on (S, D) data;
-//   dp = dO v^T; t = bf16((dp - delta) * pu);
-//   dq = (t k) * (rinv * scale); qn = bf16(q^ * rinv); dk = t^T qn.
-// Every product accumulates in fp32. dq, dk and dv are stored bf16 into one
-// (B, S, 3*H*D) dqkv buffer at the standard columns h*D, H*D + h*D and
-// 2*H*D + h*D, and their fp32 values summed over the sequence go to the
-// (B, 3*H*D) qkv-bias partials in the same column order. The TPU kernel's
-// pair-interleaved column order is a TPU layout rule and is not carried over.
+// ::_hp_bwd_pi_kernel (K2) where it runs in fp32; bf16 and fp16 run on the
+// tensor cores (csrc/attn_bwd_tc.cu). Same function, per (b, h), from the
+// forward's (B, H, S, 2) row stats [m, rinv] (csrc/attn_fwd.cu, with stats):
+//   q^ = q * scale; s = q^ k^T over the S real keys; pu = exp(s - m), left
+//   unnormalized; do_n = dO * rinv; dv = pu^T do_n;
+//   delta = rowsum(dO * O); dp = dO v^T; t = (dp - delta) * pu;
+//   dq = (t k) * (rinv * scale); qn = q^ * rinv; dk = t^T qn.
+// That is the TPU kernel's cast order with every astype the identity, as
+// it is in fp32: the source is written on float alone. Every product
+// accumulates in fp32. dq, dk and dv are stored into one (B, S, 3*H*D)
+// dqkv buffer at the standard columns h*D, H*D + h*D and 2*H*D + h*D, and
+// their values summed over the sequence go to the (B, 3*H*D) qkv-bias
+// partials (one row per image) in the same column order.
 //
-// What bounds it on an H100: like the forward, one (b, h) is ~35 MFLOP over
-// ~150 KB at ViT-B shapes (S = 197, D = 64), far below the ~295 FLOP/byte
-// ridge, so device memory is not the limit. On the CUDA cores the limit is
-// instruction issue: every two FMAs come with a load and two bf16 -> fp32
-// conversions, and the backward does 7 S x S x D products per head against
-// the forward's 2. fp32 has no tensor-core product that keeps the TPU
-// kernel's cast order (TF32 rounds the inputs), so fp32 runs here.
+// What bounds it on an H100: the products. At B = 128, S = 197, 12 heads of
+// 64 the function needs s, dp, dv, dk and dq, 10 B H S^2 D = 38.2 GFLOP:
+// 0.57 ms at the 67 TFLOP/s fp32 peak of the CUDA cores, against 313 MB of
+// operands and results (0.09 ms at 3.35 TB/s). fp32 has no tensor-core
+// product that keeps the cast order (TF32 rounds the inputs; a 3xTF32 split
+// is not tried here), so the CUDA cores run it. The 64-row tiles pad S = 197
+// to 256; the products that sum over a tile's rows stop at its real rows
+// (rounded up to 8), the ones that sum over the head dim cannot.
 //
-// Design: three launches, so that no sum crosses blocks and nothing needs
-// float atomics (the result is deterministic):
-//   1. prep, one warp per (b, h, query row): q^, qn, do_n (bf16) and delta
-//      (fp32) into scratch the caller allocates, (B, H, S, D) and (B, H, S).
-//   2. dq, one block per (b, h): K and V staged in shared memory; each warp
-//      owns one query row at a time: lanes split the keys for s and dp
-//      (the row of q^ or dO in registers), the row of t stays in shared
-//      memory, and lanes split the head dim for t k.
-//   3. dk and dv, one block per (b, h): q^, dO, qn and do_n staged in shared
-//      memory; each warp owns one key row at a time and recomputes s and dp
-//      for it over all queries, then lanes split the head dim for
-//      bf16(pu)^T do_n and t^T qn.
-// One block per (b, h) lets each warp carry its share of the bias partials
-// in registers; the warps' shares are summed in a fixed order at the end.
-// Staged rows are padded to an odd number of 32-bit words, so lanes reading
-// different rows hit different banks. For head dims 32, 64 and 128 the head
-// dim is a compile-time constant and the row sits in registers; other even
-// head dims take run-time loops. Operands that do not fit in shared memory
-// (long S with wide D) are read from global memory (L2) through the same
-// loops.
+// Design: csrc/flash_blocked.cu's register tiling of the fp32 K5 and K6,
+// which beat SDPA's fp32 backward, in one launch that runs each product
+// once. One block of 256 threads per (b, h) walks the 64-row key tiles and,
+// for each, the 64-row query tiles:
+//   * s^T = K q^T and dp^T = V dO^T as register tiles: 256 threads as
+//     16 x 16, a thread owns 4 contiguous rows (ty * 4 + i) and the columns
+//     tx + 16 j, so A operands are read as float4 (broadcast in a
+//     half-warp) and B operands as scalars on 16 consecutive banks;
+//   * pu = exp(s - m) and t = (dp - delta) pu through shared memory into
+//     dv += pu^T do_n and dk += t^T qn, which accumulate over the query
+//     tiles in registers; q^ and dO are scaled in place by their rows' rinv
+//     for these two (qn, do_n: the JAX order);
+//   * t k, summed over the key tiles in key-tile order in an fp32 (B, H, S,
+//     D) scratch that the block alone touches, and at the last key tile
+//     scaled by rinv scale into dq.
+// Operands are staged in shared memory as fp32, the current tiles only (at
+// D = 128 172 KB a block, whatever S): an A operand transposed with pitch 68
+// (16-byte rows), a B operand transposed with pitch 65 (odd: row and column
+// reads both free of bank conflicts). delta = rowsum(dO O) of every query
+// is computed once, at the start. The block writes its (b, h)'s columns of
+// the qkv-bias gradient itself: its threads' column sums over the head's
+// rows, then the 16 row groups' in a fixed order. No float atomics: the
+// result is deterministic. The grid is one-dimensional over (b, h), so B
+// and H are bounded only by B H < 2^31. The head dim is 32, 64 or 128 at
+// compile time; a smaller one takes the next with its columns zero-filled.
 //
-// Element types: this source serves fp32, which the TPU kernel computes
-// with no rounding point (every astype an identity); the loops are written
-// for any element type through csrc/elem.cuh, and bf16 and fp16 run on the
-// tensor cores instead (csrc/attn_bwd_tc.cu).
-//
-// Plain C interface, loaded with ctypes. The kernels allocate nothing and
-// launch on the caller's stream; the host function takes the element
-// type's code (csrc/elem.cuh) and returns cudaGetLastError().
+// Plain C interface, loaded with ctypes. The kernel allocates nothing and
+// launches on the caller's stream; the host function takes the element
+// type's code (fp32 alone, elem.cuh's kF32) and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
-
-#include "elem.cuh"
+#include <limits.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxHeadDim = 128;
+constexpr int kF32 = 2;             // csrc/elem.cuh's code of float
+constexpr int kTile = 64;           // query rows and key rows of one tile
+constexpr int kThreads = 256;       // 16 x 16
+constexpr int kPA = kTile + 4;      // pitch of a transposed A operand
+constexpr int kPB = kTile + 1;      // pitch of a transposed B operand
 constexpr int kMaxSeq = 1024;
-constexpr int kPairsPerLane = kMaxHeadDim / 2 / 32;  // head-dim pairs a lane owns
-constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
+constexpr int kMaxHeadDim = 128;
+
+// The tensors of one call. qkv and dqkv are (B, S, C) with C = 3 H D; dO
+// and O (B, S, H D); st (B, H, S, 2) [m, rinv]; dbias (B, C); dq_sum
+// (B, H, S, D) is scratch.
+struct Args {
+  const float *qkv, *dout, *out, *st;
+  float *dqkv, *dbias, *dq_sum;
+  int H, S, D, n_t;
+  float scale;
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -74,435 +85,347 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
-
-// One head row of fp32 values: in registers when the head dim kD is fixed at
-// compile time (a multiple of 4), else read from the warp's shared scratch.
+// Stage rows [r0, r0 + kTile) of one head (rows `sr` floats apart), times
+// `mul`, into shared memory transposed: dst[d * pitch + r]. Rows >= S and
+// columns >= D read as 0.
 template <int kD>
-struct HeadRow {
-  float r[kD > 0 ? kD : 1];
-  const float* s;
-
-  __device__ __forceinline__ void load(const float* src) {
-    if constexpr (kD > 0) {
-#pragma unroll
-      for (int d = 0; d < kD; d += 4) {
-        const float4 t = *reinterpret_cast<const float4*>(src + d);
-        r[d] = t.x;
-        r[d + 1] = t.y;
-        r[d + 2] = t.z;
-        r[d + 3] = t.w;
-      }
-    } else {
-      s = src;
-    }
-  }
-
-  // dot product with a row of D2 pairs
-  template <typename Pair>
-  __device__ __forceinline__ float dot(const Pair* x, int D2) const {
-    float a0 = 0.f, a1 = 0.f;
-    if constexpr (kD > 0) {
-#pragma unroll
-      for (int c = 0; c < kD / 2; ++c) {
-        const float2 f = load2(x[c]);
-        a0 = fmaf(r[2 * c], f.x, a0);
-        a1 = fmaf(r[2 * c + 1], f.y, a1);
-      }
-    } else {
-      for (int c = 0; c < D2; ++c) {
-        const float2 f = load2(x[c]);
-        a0 = fmaf(s[2 * c], f.x, a0);
-        a1 = fmaf(s[2 * c + 1], f.y, a1);
-      }
-    }
-    return a0 + a1;
-  }
-};
-
-// sum_j w[j] * x[j][c] over j < n, for the pair column c of rows `stride`
-// pairs apart; w is 16-byte aligned shared memory.
-template <typename Pair>
-__device__ __forceinline__ float2 wsum_col(const float* w, const Pair* x,
-                                           int stride, int c, int n) {
-  float ax[4] = {0.f, 0.f, 0.f, 0.f}, ay[4] = {0.f, 0.f, 0.f, 0.f};
-  int j = 0;
-  for (; j + 4 <= n; j += 4) {
-    const float4 w4 = *reinterpret_cast<const float4*>(w + j);
-    const float wj[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float2 f = load2(x[(j + u) * stride + c]);
-      ax[u] = fmaf(wj[u], f.x, ax[u]);
-      ay[u] = fmaf(wj[u], f.y, ay[u]);
-    }
-  }
-  for (; j < n; ++j) {
-    const float2 f = load2(x[j * stride + c]);
-    ax[0] = fmaf(w[j], f.x, ax[0]);
-    ay[0] = fmaf(w[j], f.y, ay[0]);
-  }
-  return make_float2((ax[0] + ax[1]) + (ax[2] + ax[3]),
-                     (ay[0] + ay[1]) + (ay[2] + ay[3]));
-}
-
-// Copy S rows of D2 pairs (global rows `src_stride` pairs apart) into shared
-// memory rows `pitch` pairs apart.
-template <typename Pair>
-__device__ void stage_rows(Pair* dst, int pitch, const Pair* src,
-                           int src_stride, int S, int D2) {
-  for (int i = threadIdx.x; i < S * D2; i += blockDim.x) {
-    const int r = i / D2, c = i - r * D2;
-    dst[r * pitch + c] = src[r * src_stride + c];
+__device__ __forceinline__ void stage_t(float* __restrict__ dst, int pitch,
+                                        const float* __restrict__ src,
+                                        long long sr, int r0, int S, int D,
+                                        float mul) {
+  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
+    const int r = i / kD, d = i % kD;
+    float x = 0.f;
+    if (r0 + r < S && d < D) x = src[(long long)(r0 + r) * sr + d] * mul;
+    dst[d * pitch + r] = x;
   }
 }
 
-// Read a head row into the warp's fp32 scratch.
-template <typename T>
-__device__ __forceinline__ void row_to_scratch(float* xs, const T* row,
-                                               int D, int lane) {
-  for (int d = lane; d < D; d += 32) xs[d] = Elem<T>::load(row[d]);
-  __syncwarp();
+// acc[i][j] += sum_{k < K} a[k * kPA + row0 + i] * b[k * BK + (col0 + 16 j) * BC]
+// for i < 4, j < NJ: a is a transposed A operand (float4 reads), b a B
+// operand read with strides BK along k and BC along the columns.
+template <int NJ, int K, int BK, int BC>
+__device__ __forceinline__ void tile_product(float (&acc)[4][NJ],
+                                             const float* __restrict__ a,
+                                             const float* __restrict__ b,
+                                             int row0, int col0) {
+#pragma unroll 16
+  for (int k = 0; k < K; ++k) {
+    const float4 x = *reinterpret_cast<const float4*>(a + k * kPA + row0);
+    float y[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) y[j] = b[k * BK + (col0 + 16 * j) * BC];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      acc[0][j] = fmaf(x.x, y[j], acc[0][j]);
+      acc[1][j] = fmaf(x.y, y[j], acc[1][j]);
+      acc[2][j] = fmaf(x.z, y[j], acc[2][j]);
+      acc[3][j] = fmaf(x.w, y[j], acc[3][j]);
+    }
+  }
 }
 
-// Sum the warps' per-lane bias partials in a fixed order and write D floats
-// to dst. Reuses the start of shared memory, so it waits for every warp.
-__device__ void write_bias(float* smem, const float2 (&acc)[kPairsPerLane],
-                           float* dst, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+template <int NJ>
+__device__ __forceinline__ void zero(float (&acc)[4][NJ]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+}
+
+// Store a thread's 4 x 4 values x[i][j] at dst[(col0 + 16 j) * kPA + row0 + i]
+// (transposed, float4 per column: an A operand for the next product).
+__device__ __forceinline__ void store_t(float* __restrict__ dst,
+                                        const float (&x)[4][4], int row0,
+                                        int col0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(dst + (col0 + 16 * j) * kPA + row0) =
+        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+}
+
+// Write rows r0 + row0 + i (< S) and columns col0 + 16 j (< D) of acc[i][j]
+// to one head of a tensor with row stride sr, and add the values of the
+// real rows to this thread's column sums.
+template <int NJ>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           long long sr,
+                                           const float (&acc)[4][NJ], int r0,
+                                           int row0, int col0, int S, int D,
+                                           float (&csum)[NJ]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + row0 + i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = col0 + 16 * j;
+      const float x = acc[i][j];
+      if (c < D) dst[(long long)r * sr + c] = x;
+      csum[j] += x;
+    }
+  }
+}
+
+// Sum the 16 row groups' column sums in a fixed order and write the D sums
+// to dst. red holds 16 x kD floats; the caller has synchronised
+// the block since red's last use.
+template <int NJ>
+__device__ __forceinline__ void write_sums(float* __restrict__ red,
+                                               const float (&csum)[NJ],
+                                               float* __restrict__ dst, int D) {
+  constexpr int kD = NJ * 16;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) red[ty * kD + tx + 16 * j] = csum[j];
   __syncthreads();
+  for (int c = threadIdx.x; c < D; c += kThreads) {
+    float sum = 0.f;
+    for (int g = 0; g < 16; ++g) sum += red[g * kD + c];
+    dst[c] = sum;
+  }
+}
+
+// acc[i][j] += sum_{k < K} a[k * kPA + row0 + i] * b[k * BK + (col0 + 16 j) * BC]
+// as tile_product, over a run-time depth K <= kTile (a multiple of 8): the
+// ragged last tile's real rows, its zero rows past them skipped.
+template <int NJ, int BK, int BC>
+__device__ __forceinline__ void tile_product_n(float (&acc)[4][NJ],
+                                               const float* __restrict__ a,
+                                               const float* __restrict__ b,
+                                               int row0, int col0, int K) {
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    const float4 x = *reinterpret_cast<const float4*>(a + k * kPA + row0);
+    float y[NJ];
 #pragma unroll
-  for (int u = 0; u < kPairsPerLane; ++u) {
-    const int c = lane + 32 * u;
-    if (2 * c < D) {
-      smem[warp * D + 2 * c] = acc[u].x;
-      smem[warp * D + 2 * c + 1] = acc[u].y;
+    for (int j = 0; j < NJ; ++j) y[j] = b[k * BK + (col0 + 16 * j) * BC];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      acc[0][j] = fmaf(x.x, y[j], acc[0][j]);
+      acc[1][j] = fmaf(x.y, y[j], acc[1][j]);
+      acc[2][j] = fmaf(x.z, y[j], acc[2][j]);
+      acc[3][j] = fmaf(x.w, y[j], acc[3][j]);
     }
   }
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += smem[w * D + d];
-    dst[d] = s;
-  }
 }
 
-// 1. grid (ceil(S / kWarps), H, B): warp w takes query row
-// blockIdx.x * kWarps + w of head blockIdx.y.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_prep_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                     const T* __restrict__ out, const float* __restrict__ st,
-                     T* __restrict__ qhat, T* __restrict__ qn,
-                     T* __restrict__ don, float* __restrict__ delta, int S,
-                     int H, int D, float scale) {
-  typedef Elem<T> E;
-  typedef typename E::Pair Pair;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= S) return;  // the whole warp leaves together
-  const int D2 = D >> 1;
-  const long long bh = (long long)b * H + h;
-  const long long bhi = bh * S + i;
-  const float rinv = st[bhi * 2 + 1];
-  const Pair* q = reinterpret_cast<const Pair*>(
-      qkv + ((long long)b * S + i) * 3 * H * D + h * D);
-  const long long oi = ((long long)b * S + i) * H * D + h * D;
-  const Pair* g = reinterpret_cast<const Pair*>(dout + oi);
-  const Pair* o = reinterpret_cast<const Pair*>(out + oi);
-  Pair* qh2 = reinterpret_cast<Pair*>(qhat) + bhi * D2;
-  Pair* qn2 = reinterpret_cast<Pair*>(qn) + bhi * D2;
-  Pair* dn2 = reinterpret_cast<Pair*>(don) + bhi * D2;
-  float acc = 0.f;
-  for (int c = lane; c < D2; c += 32) {
-    const float2 qf = E::load2(q[c]);
-    const Pair qh = E::store2(qf.x * scale, qf.y * scale);
-    const float2 qhf = E::load2(qh);
-    qh2[c] = qh;
-    qn2[c] = E::store2(qhf.x * rinv, qhf.y * rinv);
-    const float2 gf = E::load2(g[c]);
-    dn2[c] = E::store2(gf.x * rinv, gf.y * rinv);
-    const float2 of = E::load2(o[c]);
-    acc = fmaf(gf.x, of.x, acc);
-    acc = fmaf(gf.y, of.y, acc);
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) delta[bhi] = acc;
+// The real rows of the tile at r0, rounded up to 8.
+__device__ __forceinline__ int depth(int r0, int S) {
+  return min(kTile, (S - r0 + 7) & ~7);
 }
 
-// 2. grid (H, B). Shared memory: per warp [row: D][t: S] (each padded to 16
-// bytes), then [K: S x pitch][V: S x pitch] when kv_in_smem.
-template <typename T, int kD>
+// grid (B * H): one block per (b, h) walks the key tiles, and for each the
+// query tiles, so every product runs once. Shared memory: kT, vT [kD x kPA]
+// (A operands, the key tile), qT, doT [kD x kPB] (the query tile: q^ and
+// dO, then qn and do_n), pq, tq [kTile x kPA] (pu and t as [query][key];
+// then t as [key][query] in pq for t k), the query tile's m and rinv
+// [kTile] each, and delta of every query [kMaxSeq].
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                   const float* __restrict__ st, const T* __restrict__ qhat,
-                   const float* __restrict__ delta, T* __restrict__ dqkv,
-                   float* __restrict__ dbias, int S, int H, int d_rt,
-                   float scale, int kv_in_smem, int pitch) {
-  typedef Elem<T> E;
-  typedef typename E::Pair Pair;
+attn_bwd_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int D = kD > 0 ? kD : d_rt;
-  const int h = blockIdx.x, b = blockIdx.y;
+  float* kT = smem;
+  float* vT = kT + kD * kPA;
+  float* qT = vT + kD * kPA;
+  float* doT = qT + kD * kPB;
+  float* pq = doT + kD * kPB;
+  float* tq = pq + kTile * kPA;
+  float* m_s = tq + kTile * kPA;
+  float* ri_s = m_s + kTile;
+  float* dl_s = ri_s + kTile;
+  constexpr int NO = kD / 16;
+  const int H = a.H, S = a.S, D = a.D, n_t = a.n_t;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int D2 = D >> 1, C = 3 * H * D, C2 = C >> 1;
-  const long long bh = (long long)b * H + h;
+  const long long C = 3LL * H * D, HD = (long long)H * D;
+  const float* base = a.qkv + (long long)b * S * C + (long long)h * D;
+  const long long o_off = (long long)b * S * HD + (long long)h * D;
+  const float* st = a.st + (long long)bh * S * 2;
+  float* drow = a.dqkv + (long long)b * S * C + (long long)h * D;
+  float* dq_sum = a.dq_sum + (long long)bh * S * D;
 
-  const T* base = qkv + (long long)b * S * C;
-  const Pair* kp = reinterpret_cast<const Pair*>(base + H * D + h * D);
-  const Pair* vp = reinterpret_cast<const Pair*>(base + 2 * H * D + h * D);
-  int kv_stride = C2;
-  const int wf = round4(D) + round4(S);
-  float* xs = smem + warp * wf;
-  float* ts = xs + round4(D);
-  if (kv_in_smem) {
-    Pair* ks = reinterpret_cast<Pair*>(smem + kWarps * wf);
-    Pair* vs = ks + S * pitch;
-    stage_rows(ks, pitch, kp, C2, S, D2);
-    stage_rows(vs, pitch, vp, C2, S, D2);
-    kp = ks;
-    vp = vs;
-    kv_stride = pitch;
+  // delta = rowsum(dO O) of every query: a warp per row, lanes split the
+  // head dim
+  for (int r = warp; r < S; r += kThreads / 32) {
+    const float* g = a.dout + o_off + (long long)r * HD;
+    const float* o = a.out + o_off + (long long)r * HD;
+    float dl = 0.f;
+    for (int d = lane; d < D; d += 32) dl = fmaf(g[d], o[d], dl);
+    dl = warp_sum(dl);
+    if (lane == 0) dl_s[r] = dl;
   }
-  __syncthreads();
+  // this thread's column sums of dq, dk and dv over the head's rows
+  float cq[NO], ck[NO], cv[NO];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) cq[j] = ck[j] = cv[j] = 0.f;
 
-  HeadRow<kD> row;
-  float2 bacc[kPairsPerLane];
+  for (int kt = 0; kt < n_t; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the last key tile's kT and vT are read
+    stage_t<kD>(kT, kPA, base + HD, C, k0, S, D, 1.f);
+    stage_t<kD>(vT, kPA, base + 2 * HD, C, k0, S, D, 1.f);
+    float dk_acc[4][NO], dv_acc[4][NO];
+    zero(dk_acc);
+    zero(dv_acc);
+    bool key_ok[4];
 #pragma unroll
-  for (int u = 0; u < kPairsPerLane; ++u) bacc[u] = make_float2(0.f, 0.f);
-  for (int i = warp; i < S; i += kWarps) {
-    const long long bhi = bh * S + i;
-    const float m = st[bhi * 2], rinv = st[bhi * 2 + 1], dlt = delta[bhi];
-    // pu = exp(q^ k^T - m): lanes split the keys
-    row_to_scratch(xs, qhat + bhi * D, D, lane);
-    row.load(xs);
-    for (int j = lane; j < S; j += 32)
-      ts[j] = expf(row.dot(kp + j * kv_stride, D2) - m);
-    __syncwarp();
-    // t = bf16((dO v^T - delta) pu)
-    row_to_scratch(xs, dout + ((long long)b * S + i) * H * D + h * D, D, lane);
-    row.load(xs);
-    for (int j = lane; j < S; j += 32)
-      ts[j] = E::round((row.dot(vp + j * kv_stride, D2) - dlt) * ts[j]);
-    __syncwarp();
-    // dq = (t k) (rinv scale): lanes split the head dim
-    Pair* dq = reinterpret_cast<Pair*>(dqkv + ((long long)b * S + i) * C +
-                                       h * D);
-    const float f = rinv * scale;
+    for (int i = 0; i < 4; ++i) key_ok[i] = k0 + row0 + i < S;
+
+    for (int q0 = 0; q0 < S; q0 += kTile) {
+      __syncthreads();  // the last pair's qT, doT, pq, tq are read
+      stage_t<kD>(qT, kPB, base, C, q0, S, D, a.scale);
+      stage_t<kD>(doT, kPB, a.dout + o_off, HD, q0, S, D, 1.f);
+      for (int i = threadIdx.x; i < kTile; i += kThreads) {
+        const bool ok = q0 + i < S;
+        m_s[i] = ok ? st[(q0 + i) * 2] : 0.f;
+        ri_s[i] = ok ? st[(q0 + i) * 2 + 1] : 0.f;
+      }
+      __syncthreads();
+      // s^T [key][query] = K q^T, dp^T = V dO^T
+      float s[4][4], dp[4][4];
+      zero(s);
+      zero(dp);
+      tile_product<4, kD, kPB, 1>(s, kT, qT, row0, tx);
+      tile_product<4, kD, kPB, 1>(dp, vT, doT, row0, tx);
 #pragma unroll
-    for (int u = 0; u < kPairsPerLane; ++u) {
-      const int c = lane + 32 * u;
-      if (c < D2) {
-        float2 a = wsum_col(ts, kp, kv_stride, c, S);
-        a.x *= f;
-        a.y *= f;
-        dq[c] = E::store2(a.x, a.y);
-        bacc[u].x += a.x;
-        bacc[u].y += a.y;
+      for (int j = 0; j < 4; ++j) {
+        const int qi = tx + 16 * j;
+        const bool q_ok = q0 + qi < S;
+        const float m = m_s[qi], dl = q_ok ? dl_s[q0 + qi] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pu = (q_ok && key_ok[i]) ? expf(s[i][j] - m) : 0.f;
+          s[i][j] = pu;
+          dp[i][j] = (dp[i][j] - dl) * pu;  // t
+        }
+      }
+      store_t(pq, s, row0, tx);
+      store_t(tq, dp, row0, tx);
+      __syncthreads();
+      // qn = q^ rinv and do_n = dO rinv, in place: [d][query] times rinv
+      for (int i = threadIdx.x; i < kD * kTile; i += kThreads) {
+        const int d = i / kTile, qi = i % kTile;
+        const float r = ri_s[qi];
+        qT[d * kPB + qi] *= r;
+        doT[d * kPB + qi] *= r;
+      }
+      __syncthreads();
+      // dv += pu^T do_n, dk += t^T qn over the tile's real queries: read
+      // from doT, qT [d][query] along the query
+      const int nq = depth(q0, S);
+      tile_product_n<NO, 1, kPB>(dv_acc, pq, doT, row0, tx, nq);
+      tile_product_n<NO, 1, kPB>(dk_acc, tq, qT, row0, tx, nq);
+      __syncthreads();  // pq is read
+      // t as [key][query] into pq: this thread's own values, from tq
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 t4 =
+            *reinterpret_cast<const float4*>(tq + (tx + 16 * j) * kPA + row0);
+        pq[(row0 + 0) * kPA + tx + 16 * j] = t4.x;
+        pq[(row0 + 1) * kPA + tx + 16 * j] = t4.y;
+        pq[(row0 + 2) * kPA + tx + 16 * j] = t4.z;
+        pq[(row0 + 3) * kPA + tx + 16 * j] = t4.w;
+      }
+      __syncthreads();
+      // t k over the tile's real keys: k read from kT [d][key] along the
+      // key; summed over the key tiles in order in dq_sum, and at the last
+      // one dq = (t k) (rinv scale)
+      float dq[4][NO];
+      zero(dq);
+      tile_product_n<NO, 1, kPA>(dq, pq, kT, row0, tx, depth(k0, S));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + row0 + i;
+        if (r >= S) continue;
+        const float f = ri_s[row0 + i] * a.scale;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          const int c = tx + 16 * j;
+          if (c >= D) continue;
+          float* sum = dq_sum + (long long)r * D + c;
+          const float x = kt > 0 ? *sum + dq[i][j] : dq[i][j];
+          if (kt + 1 < n_t) {
+            *sum = x;
+          } else {
+            drow[(long long)r * C + c] = x * f;
+            cq[j] += x * f;
+          }
+        }
       }
     }
-    __syncwarp();  // xs and ts are rewritten by the warp's next row
+    store_rows(drow + HD, C, dk_acc, k0, row0, tx, S, D, ck);
+    store_rows(drow + 2 * HD, C, dv_acc, k0, row0, tx, S, D, cv);
   }
-  write_bias(smem, bacc, dbias + (long long)b * C + h * D, D);
+
+  // the bias gradient of (b, h): the column sums of dq, dk and dv over the
+  // head's rows, the 16 row groups' in a fixed order
+  __syncthreads();  // pq, tq and qT are read
+  float* db = a.dbias + (long long)b * C + (long long)h * D;
+  write_sums(pq, cq, db, D);
+  write_sums(tq, ck, db + HD, D);
+  write_sums(qT, cv, db + 2 * HD, D);
 }
 
-// 3. grid (H, B). Shared memory: per warp [row: D][pu: S][t: S], then
-// [m: S][delta: S], then [q^][dO][qn][do_n] (S x pitch each) when in_smem.
-template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                     const float* __restrict__ st, const T* __restrict__ qhat,
-                     const T* __restrict__ qn, const T* __restrict__ don,
-                     const float* __restrict__ delta, T* __restrict__ dqkv,
-                     float* __restrict__ dbias, int S, int H, int d_rt,
-                     int in_smem, int pitch) {
-  typedef Elem<T> E;
-  typedef typename E::Pair Pair;
-  extern __shared__ __align__(16) float smem[];
-  const int D = kD > 0 ? kD : d_rt;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int D2 = D >> 1, C = 3 * H * D, HD = H * D;
-  const long long bh = (long long)b * H + h;
-
-  const int wf = round4(D) + 2 * round4(S);
-  float* xs = smem + warp * wf;
-  float* ps = xs + round4(D);
-  float* ts = ps + round4(S);
-  float* ms = smem + kWarps * wf;
-  float* ds = ms + round4(S);
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    ms[i] = st[(bh * S + i) * 2];
-    ds[i] = delta[bh * S + i];
-  }
-  // the query-side operands, (B, H, S, D) from prep and dO at (B, S, H*D)
-  const Pair* qh_p = reinterpret_cast<const Pair*>(qhat) + bh * S * D2;
-  const Pair* qn_p = reinterpret_cast<const Pair*>(qn) + bh * S * D2;
-  const Pair* dn_p = reinterpret_cast<const Pair*>(don) + bh * S * D2;
-  const Pair* do_p = reinterpret_cast<const Pair*>(
-      dout + (long long)b * S * HD + h * D);
-  int q_stride = D2, do_stride = HD >> 1;
-  if (in_smem) {
-    Pair* a = reinterpret_cast<Pair*>(ds + round4(S));
-    stage_rows(a, pitch, qh_p, D2, S, D2);
-    stage_rows(a + S * pitch, pitch, do_p, do_stride, S, D2);
-    stage_rows(a + 2 * S * pitch, pitch, qn_p, D2, S, D2);
-    stage_rows(a + 3 * S * pitch, pitch, dn_p, D2, S, D2);
-    qh_p = a;
-    do_p = a + S * pitch;
-    qn_p = a + 2 * S * pitch;
-    dn_p = a + 3 * S * pitch;
-    q_stride = do_stride = pitch;
-  }
-  __syncthreads();
-
-  const T* base = qkv + (long long)b * S * C;
-  HeadRow<kD> row;
-  float2 kacc[kPairsPerLane], vacc[kPairsPerLane];
-#pragma unroll
-  for (int u = 0; u < kPairsPerLane; ++u) {
-    kacc[u] = make_float2(0.f, 0.f);
-    vacc[u] = make_float2(0.f, 0.f);
-  }
-  for (int j = warp; j < S; j += kWarps) {
-    // pu = exp(q^ k_j - m) for every query: lanes split the queries
-    row_to_scratch(xs, base + (long long)j * C + HD + h * D, D, lane);
-    row.load(xs);
-    for (int i = lane; i < S; i += 32)
-      ps[i] = expf(row.dot(qh_p + i * q_stride, D2) - ms[i]);
-    __syncwarp();
-    // t = bf16((dO v_j - delta) pu); keep bf16(pu) for dv
-    row_to_scratch(xs, base + (long long)j * C + 2 * HD + h * D, D, lane);
-    row.load(xs);
-    for (int i = lane; i < S; i += 32) {
-      const float pu = ps[i];
-      ts[i] = E::round((row.dot(do_p + i * do_stride, D2) - ds[i]) * pu);
-      ps[i] = E::round(pu);
-    }
-    __syncwarp();
-    // dk = t^T qn, dv = bf16(pu)^T do_n: lanes split the head dim
-    T* drow = dqkv + ((long long)b * S + j) * C + h * D;
-    Pair* dk = reinterpret_cast<Pair*>(drow + HD);
-    Pair* dv = reinterpret_cast<Pair*>(drow + 2 * HD);
-#pragma unroll
-    for (int u = 0; u < kPairsPerLane; ++u) {
-      const int c = lane + 32 * u;
-      if (c < D2) {
-        const float2 k = wsum_col(ts, qn_p, q_stride, c, S);
-        const float2 v = wsum_col(ps, dn_p, q_stride, c, S);
-        dk[c] = E::store2(k.x, k.y);
-        dv[c] = E::store2(v.x, v.y);
-        kacc[u].x += k.x;
-        kacc[u].y += k.y;
-        vacc[u].x += v.x;
-        vacc[u].y += v.y;
-      }
-    }
-    __syncwarp();  // xs, ps and ts are rewritten by the warp's next row
-  }
-  float* db = dbias + (long long)b * C + h * D;
-  write_bias(smem, kacc, db + HD, D);
-  write_bias(smem, vacc, db + 2 * HD, D);
+// The kernel's dynamic shared memory.
+template <int kD>
+constexpr size_t smem_bytes() {
+  return (2 * kD * kPA + 2 * kD * kPB + 2 * kTile * kPA + 2 * kTile +
+          kMaxSeq) * sizeof(float);
 }
 
-int set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <typename T, int kD>
-int launch(const void* qkv, const void* dout, const void* out, const void* st,
-           void* dqkv, void* dbias, void* qhat, void* qn, void* don,
-           void* delta, int B, int S, int H, int D, float scale,
-           cudaStream_t stream) {
-  const T* q = static_cast<const T*>(qkv);
-  const T* g = static_cast<const T*>(dout);
-  const float* stats = static_cast<const float*>(st);
-  T* qh = static_cast<T*>(qhat);
-  T* qnn = static_cast<T*>(qn);
-  T* dn = static_cast<T*>(don);
-  float* dl = static_cast<float*>(delta);
-  T* dx = static_cast<T*>(dqkv);
-  float* db = static_cast<float*>(dbias);
-
-  attn_bwd_prep_kernel<T><<<dim3((S + kWarps - 1) / kWarps, H, B), kThreads,
-                            0, stream>>>(q, g, static_cast<const T*>(out),
-                                         stats, qh, qnn, dn, dl, S, H, D,
-                                         scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  // pad staged rows to an odd number of pairs (of 32-bit words for the
-  // 16-bit types): conflict-free reads
-  const int d2 = D / 2;
-  const int pitch = (d2 % 2 == 0) ? d2 + 1 : d2;
-  const size_t rows_bytes =
-      (size_t)S * pitch * sizeof(typename Elem<T>::Pair);
-  const dim3 grid(H, B);
-
-  const size_t dq_scratch =
-      (size_t)kWarps * (round4(D) + round4(S)) * sizeof(float);
-  const int kv_in_smem = dq_scratch + 2 * rows_bytes <= kSmemBudget ? 1 : 0;
-  const size_t dq_smem = dq_scratch + (kv_in_smem ? 2 * rows_bytes : 0);
-  int rc = set_smem((const void*)attn_bwd_dq_kernel<T, kD>, dq_smem);
-  if (rc) return rc;
-  attn_bwd_dq_kernel<T, kD><<<grid, kThreads, dq_smem, stream>>>(
-      q, g, stats, qh, dl, dx, db, S, H, D, scale, kv_in_smem, pitch);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const size_t kv_scratch =
-      ((size_t)kWarps * (round4(D) + 2 * round4(S)) + 2 * round4(S)) *
-      sizeof(float);
-  const int in_smem = kv_scratch + 4 * rows_bytes <= kSmemBudget ? 1 : 0;
-  const size_t kv_smem = kv_scratch + (in_smem ? 4 * rows_bytes : 0);
-  rc = set_smem((const void*)attn_bwd_dkdv_kernel<T, kD>, kv_smem);
-  if (rc) return rc;
-  attn_bwd_dkdv_kernel<T, kD><<<grid, kThreads, kv_smem, stream>>>(
-      q, g, stats, qh, qnn, dn, dl, dx, db, S, H, D, in_smem, pitch);
+template <int kD>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const long long blocks = (long long)B * a.H;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (smem_bytes<kD>() > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        attn_bwd_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<kD>());
+    if (rc) return rc;
+  }
+  attn_bwd_kernel<kD><<<(unsigned)blocks, kThreads, smem_bytes<kD>(),
+                        stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(const void* qkv, const void* dout, const void* out,
-             const void* st, void* dqkv, void* dbias, void* qhat, void* qn,
-             void* don, void* delta, int B, int S, int H, int D, float scale,
-             cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<T, 32>(qkv, dout, out, st, dqkv, dbias, qhat, qn,
-                                  don, delta, B, S, H, D, scale, s);
-    case 64: return launch<T, 64>(qkv, dout, out, st, dqkv, dbias, qhat, qn,
-                                  don, delta, B, S, H, D, scale, s);
-    case 128: return launch<T, 128>(qkv, dout, out, st, dqkv, dbias, qhat,
-                                    qn, don, delta, B, S, H, D, scale, s);
-    default: return launch<T, 0>(qkv, dout, out, st, dqkv, dbias, qhat, qn,
-                                 don, delta, B, S, H, D, scale, s);
-  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dqkv (B, S, 3HD) of the element type `dtype` (fp32, kF32, alone) and
-// dbias (B, 3HD) fp32 out;
-// qhat, qn, don (B, H, S, D) of that type and delta (B, H, S) fp32 are
-// scratch. Returns a cudaError_t as int: 0 when every launch was accepted.
+// dqkv (B, S, 3HD) fp32 and dbias (B, 3HD) fp32 out, from qkv (B, S, 3HD),
+// dout and out (B, S, HD) and the forward's (B, H, S, 2) stats, all fp32
+// (`dtype` is elem.cuh's code: kF32 alone) and contiguous. Scratch: dq_sum
+// (B, H, S, D) fp32. 1 <= S <= 1024, 1 <= D <= 128. Returns a cudaError_t as
+// int: 0 when the launch was accepted.
 int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
-                 const void* st, void* dqkv, void* dbias, void* qhat, void* qn,
-                 void* don, void* delta, int B, int S, int H, int D,
-                 float scale, int dtype, void* stream) {
-  // offsets inside one image are 32-bit: S * 3 * H * D must fit
-  if (B < 1 || B > 65535 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 ||
-      D < 2 || (D & 1) || D > kMaxHeadDim ||
-      (long long)S * 3 * H * D >= (1LL << 31))
+                 const void* st, void* dqkv, void* dbias, void* dq_sum, int B,
+                 int S, int H, int D, float scale, int dtype, void* stream) {
+  if (dtype != kF32 || B < 1 || S < 1 || S > kMaxSeq || H < 1 || D < 1 ||
+      D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
+  Args a;
+  a.qkv = static_cast<const float*>(qkv);
+  a.dout = static_cast<const float*>(dout);
+  a.out = static_cast<const float*>(out);
+  a.st = static_cast<const float*>(st);
+  a.dqkv = static_cast<float*>(dqkv);
+  a.dbias = static_cast<float*>(dbias);
+  a.dq_sum = static_cast<float*>(dq_sum);
+  a.H = H, a.S = S, a.D = D, a.n_t = (S + kTile - 1) / kTile;
+  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != kF32) return (int)cudaErrorInvalidValue;
-  return launch_d<float>(qkv, dout, out, st, dqkv, dbias, qhat, qn, don,
-                         delta, B, S, H, D, scale, s);
+  if (D <= 32) return launch<32>(a, B, s);
+  if (D <= 64) return launch<64>(a, B, s);
+  return launch<128>(a, B, s);
+}
+
+// The kernel's dynamic shared memory at head dim D, in bytes.
+int vtx_attn_bwd_smem(int D) {
+  if (D <= 32) return (int)smem_bytes<32>();
+  if (D <= 64) return (int)smem_bytes<64>();
+  return (int)smem_bytes<128>();
 }
 
 const char* vtx_cuda_error_string(int err) {

@@ -19,7 +19,9 @@
 // §6 has the fp32 times). fp32 has no tensor-core product that keeps the
 // TPU kernel's cast order (TF32 rounds the inputs), so fp32 runs here.
 //
-// Design: one block per (b, h, 64-row query tile). K and V of the head are
+// Design: one block per (b, h, 64-row query tile), on a one-dimensional grid
+// over (b h, tile), so B and H are bounded only by 2^31 / ceil(S / 64) (not
+// by the 65535 of the grid's y and z). K and V of the head are
 // staged once in shared memory (rows padded to an odd number of 32-bit
 // words, so lanes reading different key rows hit different banks); each warp
 // owns one query row at a time: lanes split the keys for q^ k^T, warp
@@ -40,6 +42,7 @@
 // type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
 #include <cfloat>
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -83,9 +86,11 @@ attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   typedef typename E::Pair Pair;
   extern __shared__ __align__(16) float smem[];
   const int D = kD > 0 ? kD : d_rt;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int n_tiles = (S + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int bh = blockIdx.x / n_tiles;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int row0 = (blockIdx.x % n_tiles) * kRowsPerBlock;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int D2 = D >> 1;        // pairs in a head row
@@ -246,8 +251,10 @@ int launch(const void* qkv, void* out, void* st, int B, int S, int H, int D,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  attn_fwd_kernel<T, kD><<<grid, kWarps * 32, smem, stream>>>(
+  const long long blocks =
+      (long long)((S + kRowsPerBlock - 1) / kRowsPerBlock) * B * H;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  attn_fwd_kernel<T, kD><<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(out),
       static_cast<float*>(st), S, H, D, scale, kv_in_smem, kv_words);
   return (int)cudaGetLastError();
@@ -275,7 +282,7 @@ extern "C" {
 int vtx_attn_fwd(const void* qkv, void* out, void* st, int B, int S, int H,
                  int D, float scale, int dtype, void* stream) {
   // offsets inside one image are 32-bit: S * 3 * H * D must fit
-  if (B < 1 || B > 65535 || S < 1 || S > kMaxSeq || H < 1 || H > 65535 ||
+  if (B < 1 || S < 1 || S > kMaxSeq || H < 1 ||
       D < 2 || (D & 1) || D > kMaxHeadDim ||
       (long long)S * 3 * H * D >= (1LL << 31))
     return (int)cudaErrorInvalidValue;

@@ -59,7 +59,9 @@
 // The fp32 versions of both functions are CUDA-core loops, csrc/attn_fwd.cu
 // (K1, K9) and csrc/fused_attn_fwd.cu (K7, K11): the TPU kernels round
 // nothing in fp32, and every tensor-core product of fp32 operands (TF32)
-// would.
+// would. Head dims over 128 do not fit these tiles (at 192, Q and the
+// 2-stage K and V ring take 240 KB of a block's 227 KB; checked below): in
+// K7's order they run in bf16 and fp16 too on csrc/fused_attn_fwd.cu.
 //
 // What bounds it on an H100: at ViT-B shapes (S = 197, D = 64) one (b, h)
 // is 4 S^2 D = 9.9 MFLOP over 2 S 4 D = 0.1 MB, ~100 FLOP per byte,
@@ -119,6 +121,10 @@ struct Tiles {
   T k[kStages][kD / kPanel][kBlockN * kPanel];
   T v[kStages][kD / kPanel][kBlockN * kPanel];
 };
+
+// The next head dim in panels of 64 does not fit a block's 227 KB.
+static_assert(sizeof(Tiles<bf16, 192>) > 227 * 1024,
+              "head dims over 128 would fit these tiles");
 
 // n elements at p (16-byte aligned, n a multiple of 8 x 128) replaced by
 // T(x * scale), 128 threads, thread tid.

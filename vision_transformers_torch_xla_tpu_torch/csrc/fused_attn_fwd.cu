@@ -16,11 +16,15 @@
 // the product. The TPU kernels pad S to 128 and D to 8 and mask the padded
 // columns; here the loops run over the S real keys and the D real columns.
 //
-// Element types: this source serves fp32, where every rounding to T is an
-// identity. The loops are written for any element type through
-// csrc/elem.cuh, and bf16 and fp16 run on the tensor cores instead
-// (csrc/attn_fwd_tc.cu, K7's cast order): a tensor-core product of fp32
-// operands (TF32) would round what the TPU kernels keep.
+// Element types: the loops are written for any element type through
+// csrc/elem.cuh. This source serves fp32 at every head dim, where every
+// rounding to T is an identity (a tensor-core product of fp32 operands,
+// TF32, would round what the TPU kernels keep), and bf16 and fp16 at head
+// dims over 128. Below that the 16-bit types run on the tensor cores
+// (csrc/attn_fwd_tc.cu, K7's cast order), whose tiles do not fit a wider
+// head: at a head dim padded to 192, Q (128 rows) and a 2-stage ring of K
+// and V (128 keys) take 48 + 96 + 96 = 240 KB of the 227 KB a block may
+// have.
 //
 // Every tensor is a base pointer and three element strides (batch, head,
 // token) with the head dim contiguous, so K7 reads (B, H, S, D) tensors and
@@ -40,9 +44,9 @@
 // shuffles give the row max and sum, and lanes split the head dim for p v.
 // The score row never leaves shared memory. s is scaled with __fmul_rn, so
 // the compiler cannot fuse the scale into the subtraction of m. For head dims
-// 32, 64 and 128 the head dim is a compile-time constant, q sits in
-// registers and the loops unroll; other even head dims take the run-time
-// loops. When K and V do not fit (long S with wide D), they are read from
+// 32, 64 and 128 (fp32) the head dim is a compile-time constant, q sits in
+// registers and the loops unroll; other even head dims, up to 1024, take the
+// run-time loops. When K and V do not fit (long S with wide D), they are read from
 // global memory (L2) through the same loops.
 //
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
@@ -51,6 +55,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -60,7 +65,7 @@ namespace {
 
 constexpr int kWarps = 8;          // query rows in flight per block
 constexpr int kRowsPerBlock = 64;  // query tile of one block
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 1024;  // the per-warp scratch stays < 227 KB
 constexpr int kMaxSeq = 1024;
 constexpr long long kMaxGridX = 2147483647;  // (b, h, tile) ride grid x
 constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
@@ -283,20 +288,24 @@ int launch_d(const void* const* ptrs, const Layout& a, int B, int H,
   T* t[kTensors];
   for (int i = 0; i < kTensors; ++i)
     t[i] = const_cast<T*>(static_cast<const T*>(ptrs[i]));
-  switch (a.D) {
-    case 32: return launch<T, 32>(t, a, B, H, s);
-    case 64: return launch<T, 64>(t, a, B, H, s);
-    case 128: return launch<T, 128>(t, a, B, H, s);
-    default: return launch<T, 0>(t, a, B, H, s);
+  // bf16 and fp16 come here at head dims over 128 alone: run-time loops
+  if constexpr (std::is_same<T, float>::value) {
+    switch (a.D) {
+      case 32: return launch<T, 32>(t, a, B, H, s);
+      case 64: return launch<T, 64>(t, a, B, H, s);
+      case 128: return launch<T, 128>(t, a, B, H, s);
+    }
   }
+  return launch<T, 0>(t, a, B, H, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v in, o out: (B, H, S, D) of the element type `dtype` (fp32, kF32,
-// alone) with the head dim contiguous; strides holds 12 element strides,
+// q, k, v in, o out: (B, H, S, D) of the element type `dtype` (bf16 and
+// fp16 at head dims <= 128 are csrc/attn_fwd_tc.cu's) with the head dim
+// contiguous; strides holds 12 element strides,
 // (batch, head, token) of q, k, v and o. Returns a cudaError_t as int: 0 on
 // a launch that was accepted.
 int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
@@ -307,8 +316,9 @@ int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
       (long long)B * H * tiles > kMaxGridX || D < 2 || (D & 1) ||
       D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
-  if (dtype != kF32) return (int)cudaErrorInvalidValue;
-  const uintptr_t pair_bytes = 8;
+  if (dtype != kBf16 && dtype != kF16 && dtype != kF32)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t pair_bytes = dtype == kF32 ? 8 : 4;
   Layout a;
   const void* ptrs[kTensors] = {q, k, v, o};
   for (int t = 0; t < kTensors; ++t) {
@@ -328,7 +338,12 @@ int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
   a.D = D;
   a.tiles = tiles;
   a.scale = scale;
-  return launch_d<float>(ptrs, a, B, H, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kBf16: return launch_d<__nv_bfloat16>(ptrs, a, B, H, s);
+    case kF16: return launch_d<__half>(ptrs, a, B, H, s);
+    default: return launch_d<float>(ptrs, a, B, H, s);
+  }
 }
 
 const char* vtx_cuda_error_string(int err) {

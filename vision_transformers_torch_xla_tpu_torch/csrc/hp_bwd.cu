@@ -1,9 +1,15 @@
 // Softmax attention backward that recomputes the probabilities on its own,
-// over (B, H, S, D) q, k, v, dO, dq, dk and dv given by strides, in fp32 on
-// the CUDA cores of a Hopper card. The bf16 and fp16 versions of the same
-// function run on the tensor cores, csrc/hp_bwd_tc.cu; this source serves
-// fp32 alone, since the TPU kernels round nothing in fp32 and a
-// tensor-core product of fp32 operands (TF32) would.
+// over (B, H, S, D) q, k, v, dO, dq, dk and dv given by strides, on the
+// CUDA cores of a Hopper card. It serves fp32 at every head dim, since the
+// TPU kernels round nothing in fp32 and a tensor-core product of fp32
+// operands (TF32) would, and bf16 and fp16 at head dims over 128. Below
+// that the 16-bit types run on the tensor cores, csrc/hp_bwd_tc.cu, whose
+// tiles do not fit a wider head: at a head dim padded to 192 its dk/dv
+// launch would stage 240 KB (K and V of 128 keys, 48 KB each, and three
+// 64-row stages of q and dO, 72 KB each) of the 227 KB a block may have,
+// and each consumer thread would hold S^T, dP^T, dK and dV, 32 + 32 + 96 +
+// 96 = 256 floats, all of the 256 registers setmaxnreg can give a thread
+// before a single address.
 //
 // Replaces three TPU kernels of
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py that compute the
@@ -54,18 +60,20 @@
 // compiler never fuses into the subtraction of m, so p and ds agree bit for
 // bit between them. Staged rows are padded to an odd number of 32-bit
 // words, so lanes reading different rows hit different banks. For head dims
-// 32, 64 and 128 the head dim is a compile-time constant and the row sits in
-// registers; other even head dims take run-time loops. Operands that do not
+// 32, 64 and 128 (fp32) the head dim is a compile-time constant and the row
+// sits in registers; other even head dims, up to 1024, take run-time loops. Operands that do not
 // fit in shared memory (long S with wide D) are read from global memory (L2)
 // through the same loops. The loops are written over csrc/elem.cuh's
-// element type, whose rounding points are identities in fp32.
+// element type, whose rounding points are identities in fp32 and round to
+// bf16 or fp16 where the TPU kernels cast.
 //
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
 // launch on the caller's stream; the host function takes the element
-// type's code (csrc/elem.cuh; fp32 only) and returns cudaGetLastError().
+// type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -75,10 +83,9 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 1024;  // the per-warp scratch stays < 227 KB
 constexpr int kMaxSeq = 1024;
 constexpr long long kMaxGridX = 2147483647;  // (b, h) ride grid x
-constexpr int kPairsPerLane = kMaxHeadDim / 2 / 32;  // head-dim pairs a lane owns
 constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
 
 enum { kQ, kK, kV, kDO, kDQ, kDK, kDV, kTensors };
@@ -196,6 +203,21 @@ __device__ void stage_rows(Pair* dst, int pitch, const Pair* src,
   }
 }
 
+// f(c) for each head-dim pair c a lane owns (lane, lane + 32, ...):
+// unrolled when the head dim kD is fixed at compile time.
+template <int kD, typename F>
+__device__ __forceinline__ void lane_pairs(int lane, int D2, F&& f) {
+  if constexpr (kD > 0) {
+#pragma unroll
+    for (int u = 0; u < (kD / 2 + 31) / 32; ++u) {
+      const int c = lane + 32 * u;
+      if (c < D2) f(c);
+    }
+  } else {
+    for (int c = lane; c < D2; c += 32) f(c);
+  }
+}
+
 // Read a head row into the warp's fp32 scratch.
 template <typename T>
 __device__ __forceinline__ void row_to_scratch(float* xs, const T* row,
@@ -281,14 +303,10 @@ hp_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
     // dq = (ds k) scale: lanes split the head dim
     Pair* dq = reinterpret_cast<Pair*>(dqg + i * a.ss[kDQ]);
-#pragma unroll
-    for (int u = 0; u < kPairsPerLane; ++u) {
-      const int c = lane + 32 * u;
-      if (c < D2) {
-        const float2 w = wsum_col(ts, kp, k_stride, c, S);
-        dq[c] = E::store2(w.x * scale, w.y * scale);
-      }
-    }
+    lane_pairs<kD>(lane, D2, [&](int c) {
+      const float2 w = wsum_col(ts, kp, k_stride, c, S);
+      dq[c] = E::store2(w.x * scale, w.y * scale);
+    });
     if (lane == 0) {
       float* st = stats + (bh * S + i) * 3;
       st[0] = m;
@@ -370,16 +388,12 @@ hp_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dk = (ds^T q) scale, dv = bf16(p)^T dO: lanes split the head dim
     Pair* dk = reinterpret_cast<Pair*>(dkg + j * a.ss[kDK]);
     Pair* dv = reinterpret_cast<Pair*>(dvg + j * a.ss[kDV]);
-#pragma unroll
-    for (int u = 0; u < kPairsPerLane; ++u) {
-      const int c = lane + 32 * u;
-      if (c < D2) {
-        const float2 wk = wsum_col(ts, q_p, q_stride, c, S);
-        const float2 wv = wsum_col(ps, do_p, do_stride, c, S);
-        dk[c] = E::store2(wk.x * scale, wk.y * scale);
-        dv[c] = E::store2(wv.x, wv.y);
-      }
-    }
+    lane_pairs<kD>(lane, D2, [&](int c) {
+      const float2 wk = wsum_col(ts, q_p, q_stride, c, S);
+      const float2 wv = wsum_col(ps, do_p, do_stride, c, S);
+      dk[c] = E::store2(wk.x * scale, wk.y * scale);
+      dv[c] = E::store2(wv.x, wv.y);
+    });
     __syncwarp();  // xs, ps and ts are rewritten by the warp's next row
   }
 }
@@ -428,20 +442,24 @@ int launch_d(const void* const* ptrs, float* stats, const Layout& a, int B,
   T* t[kTensors];
   for (int i = 0; i < kTensors; ++i)
     t[i] = const_cast<T*>(static_cast<const T*>(ptrs[i]));
-  switch (a.D) {
-    case 32: return launch<T, 32>(t, stats, a, B, s);
-    case 64: return launch<T, 64>(t, stats, a, B, s);
-    case 128: return launch<T, 128>(t, stats, a, B, s);
-    default: return launch<T, 0>(t, stats, a, B, s);
+  // bf16 and fp16 come here at head dims over 128 alone: run-time loops
+  if constexpr (std::is_same<T, float>::value) {
+    switch (a.D) {
+      case 32: return launch<T, 32>(t, stats, a, B, s);
+      case 64: return launch<T, 64>(t, stats, a, B, s);
+      case 128: return launch<T, 128>(t, stats, a, B, s);
+    }
   }
+  return launch<T, 0>(t, stats, a, B, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, dout in and dq, dk, dv out: (B, H, S, D) fp32 (`dtype` kF32;
-// bf16 and fp16 are csrc/hp_bwd_tc.cu's) with the head dim contiguous; strides holds 21 element strides,
+// q, k, v, dout in and dq, dk, dv out: (B, H, S, D) of the element type
+// `dtype` (bf16 and fp16 at head dims <= 128 are csrc/hp_bwd_tc.cu's) with
+// the head dim contiguous; strides holds 21 element strides,
 // (batch, head, token) of each in that order; stats (B, H, S, 3) fp32 is
 // scratch. Returns a cudaError_t as int: 0 when both launches were
 // accepted.
@@ -452,8 +470,9 @@ int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
   if (B < 1 || S < 1 || S > kMaxSeq || H < 1 ||
       (long long)B * H > kMaxGridX || D < 2 || (D & 1) || D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
-  if (dtype != kF32) return (int)cudaErrorInvalidValue;  // hp_bwd_tc.cu's
-  const uintptr_t pair_bytes = 8;
+  if (dtype != kBf16 && dtype != kF16 && dtype != kF32)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t pair_bytes = dtype == kF32 ? 8 : 4;
   Layout a;
   const void* ptrs[kTensors] = {q, k, v, dout, dq, dk, dv};
   for (int t = 0; t < kTensors; ++t) {
@@ -473,7 +492,12 @@ int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
   a.H = H;
   a.D = D;
   a.scale = scale;
-  return launch_d<float>(ptrs, st, a, B, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kBf16: return launch_d<__nv_bfloat16>(ptrs, st, a, B, s);
+    case kF16: return launch_d<__half>(ptrs, st, a, B, s);
+    default: return launch_d<float>(ptrs, st, a, B, s);
+  }
 }
 
 const char* vtx_cuda_error_string(int err) {

@@ -25,7 +25,10 @@
 // (csrc/hopper.cuh), as in csrc/attn_fwd_tc.cu's K7 order. The fp32 version
 // of the same function is csrc/hp_bwd.cu's CUDA-core loops: the TPU kernels
 // round nothing in fp32, and a tensor-core product of fp32 operands (TF32)
-// would.
+// would. Head dims over 128 do not fit this design: at 192 the dk/dv
+// launch's tiles take 240 KB of a block's 227 KB (checked below) and its
+// four accumulators 256 registers a consumer thread; they run in bf16 and
+// fp16 too on csrc/hp_bwd.cu.
 //
 // What bounds it on an H100: at B = 128, S = 197, H = 12, D = 64 the five
 // products the function needs are 10 S^2 D per (b, h), 38.2 GFLOP in all,
@@ -157,6 +160,10 @@ struct DkdvTiles {
   T dout[kStages][kD / kPanel][kStreamPanel];
   float4 st[kStages][kRows];
 };
+
+// The next head dim in panels of 64 does not fit a block's 227 KB.
+static_assert(sizeof(DkdvTiles<bf16, 192>) > 227 * 1024,
+              "head dims over 128 would fit these tiles");
 
 template <typename Tiles>
 __device__ __forceinline__ Tiles& aligned_tiles(uint8_t* raw) {

@@ -3,124 +3,123 @@
 // Replaces the TPU kernel
 // vision_transformers_torch_xla_tpu/ops/mlp_fused.py::_fc2_bwd_kernel (K3).
 // Same function, over the M = B*S rows of the activations:
-//   da = dy w2, bf16 x bf16 products accumulated in fp32, never stored;
+//   da = dy w2, products of the inputs' values accumulated in fp32, never
+//   stored;
 //   t = tanh(c (h + 0.044715 h^3)) from fp32(h), c = sqrt(2 / pi);
 //   a = 0.5 h (1 + t), gp = 0.5 (1 + t) + 0.5 h (1 - t^2) c (1 + 0.134145 h^2);
-//   dh = da * gp; dh and a are stored bf16 at (M, K);
+//   dh = da * gp; dh and a are stored in the inputs' dtype at (M, K);
 //   part[tile][k] = sum over the tile's rows of the fp32 dh (before its
 //   rounding), one row of partials per 128-row tile; the caller sums them.
-// dy is (M, O) and w2 (O, K), fc2's weight as torch stores it (out, in), so
-// da is a plain row-major product and no transpose is needed. O and K are
-// multiples of 128; M is any count, its ragged last tile masked.
+// dy is (M, O) and w2 (O, K), fc2's weight as torch stores it (out, in).
+// O and K are multiples of 128; M is any count, its ragged last tile
+// masked.
 //
-// What bounds it on an H100: at the my_vit_b train step (M = 128 x 197,
-// O = 768, K = 3072) the product is 119 GFLOP (0.12 ms at the 989 TFLOP/s
-// bf16 tensor-core peak) and the bytes that must move are ~510 MB (h read,
-// dh and a written, dy and w2 read: 0.15 ms at 3.35 TB/s), so device memory
-// bounds it, with the tensor cores close behind. The TPU kernel exists to
-// keep da, the GELU backward's elementwise passes and the bias reduction out
-// of device memory; this one does the same.
+// What bounds it on an H100: at the my_vit_b train step (M = 128 x 197 =
+// 25,216, O = 768, K = 3,072) the bytes that must move are 508 MB (h read,
+// dh and a written, dy and w2 read: 0.152 ms at 3.35 TB/s), and the product
+// is 119 GFLOP (0.120 ms at the 989 TFLOP/s bf16 tensor-core peak), so
+// device memory bounds it, with the tensor cores close behind; the
+// epilogue's GELU adds ~25 instructions an element on the CUDA cores. The
+// TPU kernel exists to keep da, the GELU backward's elementwise passes and
+// the bias reduction out of device memory; this one does the same, and
+// overlaps the epilogue's traffic with the products.
 //
-// Design: one block of 8 warps per 128 x 128 tile of (M, K), looping over O
-// in steps of 32. dy and w2 tiles go through a 3-stage cp.async ring in
-// shared memory (rows padded by 16 bytes, so ldmatrix reads are free of bank
-// conflicts); each warp owns a 64 x 32 sub-tile and runs mma.sync m16n8k16
-// (bf16 in, fp32 accumulators), with A fragments from ldmatrix and B
-// fragments from ldmatrix.trans of the row-major w2 tile. The whole GELU
-// epilogue runs in registers on the accumulators: read h, write dh and a,
-// and sum dh over the tile's rows by warp shuffles and one shared-memory
-// exchange between the two warps of a column, in a fixed order. No float
-// atomics: the result is deterministic. wgmma and TMA are the next step.
+// bf16 and fp16 (fc2_bwd_tc_kernel; f16 is a template argument of
+// csrc/hopper.cuh's helpers): a warp-specialised block of 288 threads per
+// 128 x 128 tile of (M, K), two blocks an SM.
+// * A producer warp keeps TMA loads in flight through a 3-stage ring of
+//   64-deep steps over O: the dy tile [128 rows][64] K-major as stored, and
+//   the w2 tile [64 rows of O][128 columns of K], which wgmma reads
+//   MN-major through the transpose bit that 16-bit types allow. After the
+//   last step it loads the h tile into the next ring slot, so h arrives
+//   while the last products run; full (TMA bytes arrived) and empty (the
+//   consumers' warps are done) mbarriers order the ring.
+// * Two consumer warpgroups own 64 rows each: wgmma m64n128k16 with both
+//   operands in 128-byte-swizzled shared memory, one step's products in
+//   flight while the next is issued.
+// * The epilogue runs on the accumulator fragments: h read from shared
+//   memory, dh written over it in place and a into a second free ring
+//   slot, both in the TMA's swizzle (conflict-free 4-byte accesses), then
+//   stored by TMA, one [64][64] box per panel and warpgroup; the column sums
+//   of fp32 dh go by warp shuffles and one shared-memory exchange between
+//   the 8 consumer warps, in a fixed order. No float atomics: the result is
+//   deterministic. Two blocks an SM (101 KB of shared memory each) let one
+//   block's epilogue and loads run under the other's products.
+// * tanh is 1 - 2 / (2^(2 x log2 e) + 1) with ex2.approx and rcp.approx:
+//   within ~1e-7 of tanhf, one exponential and one reciprocal where tanhf
+//   takes ~20 instructions and a branch.
+// * Registers: a producer warp holds 32 threads' registers, so the 288
+//   threads of a block need no setmaxnreg: at two blocks an SM each thread
+//   may have 112, more than a producer warpgroup's setmaxnreg could hand
+//   the consumers (104).
 //
-// fp16 and fp32 inputs (the TPU kernel takes any float dtype) run
-// fc2_bwd_cc_kernel, the same function on the CUDA cores: the product in
-// fp32 from the inputs' values (mma.sync has no fp32 product; TF32 would
-// round the inputs), the same GELU epilogue, dh and a rounded to the
-// inputs' dtype (none for fp32, csrc/elem.cuh) and the same fp32 partials
-// per 128-row tile. A block owns a 128 x 64 tile of (M, K) and loops over O
-// in steps of 16, dy and w2 staged in shared memory as fp32; 256 threads
-// as 16 x 16, each 8 rows by 4 columns 16 apart.
+// fp32 (fc2_bwd_cc_kernel, on float alone) runs on the CUDA cores: the
+// product in fp32 from the inputs' values (the tensor cores have no fp32
+// product; TF32 would round the inputs), the accurate tanhf, the same fp32
+// partials per 128-row tile. A block owns a 128 x 64 tile of (M, K) and
+// loops over O in steps of 16, dy and w2 staged in shared memory; 256
+// threads as 16 x 16, each 8 rows by 4 columns 16 apart.
 //
-// Plain C interface, loaded with ctypes. The kernels allocate nothing and
-// launch on the caller's stream; the host function takes the element
-// type's code (csrc/elem.cuh) and returns cudaGetLastError().
+// Both grids are one-dimensional over the tiles, so M is bounded only by
+// 2^31 tiles. Plain C interface, loaded with ctypes. The kernels allocate
+// nothing and launch on the caller's stream; the host function takes the
+// element type's code (csrc/elem.cuh) and returns cudaGetLastError(), or a
+// code of vtx_cuda_error_string's own when a tensor map could not be made.
 
-#include <cuda_runtime.h>
+#include <limits.h>
 
 #include "elem.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
-
-constexpr int kBM = 128;         // rows of a block's tile
+constexpr int kBM = 128;         // rows of a block's tile (one partials row)
 constexpr int kBN = 128;         // hidden columns of a block's tile
-constexpr int kBK = 32;          // depth of one stage (over O)
+constexpr int kBK = 64;          // depth of one step over O: one panel
 constexpr int kStages = 3;
-constexpr int kThreads = 256;    // 8 warps: 2 along M x 4 along N
-constexpr int kWarpM = 64;       // a warp's sub-tile
-constexpr int kWarpN = 32;
-constexpr int kMT = kWarpM / 16; // m16 tiles per warp
-constexpr int kNT = kWarpN / 8;  // n8 tiles per warp
-constexpr int kAPitch = kBK + 8;  // bf16 per staged dy row (80 bytes)
-constexpr int kBPitch = kBN + 8;  // bf16 per staged w2 row (272 bytes)
-constexpr int kAStage = kBM * kAPitch;
-constexpr int kBStage = kBK * kBPitch;
-constexpr size_t kSmemBytes = (size_t)kStages * (kAStage + kBStage) * sizeof(bf16);
+constexpr int kConsumerWarps = 8;  // two warpgroups of 64 rows
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kStageBytes = (kBM + kBN) * kBK * 2;  // dy tile + w2 tile
+constexpr int kHalfRows = 64;    // rows of one TMA box of h, dh or a
 
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kGeluC = 0.044715f;
 constexpr float kGeluC3 = 0.134145f;  // 3 * 0.044715
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
+// One block's shared memory: the ring, then the consumer warps' column
+// sums. A stage is the dy tile (one [128][64] panel, 16 KB) and the w2 tile
+// (two [64][64] panels, 8 KB each); the h tile, and later a, take a whole
+// stage as two [128][64] panels. Every panel starts on a 1024-byte boundary
+// (the swizzle atom) when the struct does.
+struct Ring {
+  uint8_t stage[kStages][kStageBytes];
+  float red[kConsumerWarps][kBN];
+};
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// 16 bytes global -> shared; src_bytes 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b for one m16n8k16 tile: bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (gelu(x), gelu'(x)) of the tanh approximation, in fp32.
+// (gelu(x), gelu'(x)) of the tanh approximation, in fp32. `fast`: tanh as
+// 1 - 2 / (e^(2u) + 1), which gives +-1 for |u| large (e^(2u) overflows to
+// inf, or to 0) and is within ~1e-7 of tanhf elsewhere.
+template <bool fast>
 __device__ __forceinline__ float2 gelu_tanh_val_grad(float x) {
-  const float t = tanhf(kSqrt2OverPi * (x + kGeluC * x * x * x));
+  const float u = kSqrt2OverPi * (x + kGeluC * x * x * x);
+  float t;
+  if constexpr (fast)
+    t = 1.f - 2.f * rcp_approx(ex2_approx(2.f * kLog2e * u) + 1.f);
+  else
+    t = tanhf(u);
   const float val = 0.5f * x * (1.f + t);
   const float grad = 0.5f * (1.f + t) +
                      0.5f * x * (1.f - t * t) * kSqrt2OverPi *
@@ -128,164 +127,192 @@ __device__ __forceinline__ float2 gelu_tanh_val_grad(float x) {
   return make_float2(val, grad);
 }
 
-// grid (K / kBN, ceil(M / kBM)); dynamic shared memory kSmemBytes.
-__global__ void __launch_bounds__(kThreads)
-fc2_bwd_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w2,
-               const bf16* __restrict__ h, bf16* __restrict__ dh,
-               bf16* __restrict__ a_out, float* __restrict__ part, int M,
-               int O, int K) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* as = reinterpret_cast<bf16*>(smem_raw);   // kStages x [kBM][kAPitch]
-  bf16* bs = as + kStages * kAStage;               // kStages x [kBK][kBPitch]
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  if constexpr (std::is_same<T, f16>::value)
+    return __half22float2(*reinterpret_cast<__half2*>(&v));
+  else
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
 
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * kWarpM;   // the warp's rows in the tile
-  const int wn = (warp & 3) * kWarpN;    // and its columns
+// grid (ceil(M / kBM) * K / kBN): block x is column tile x % n_tn of row
+// tile x / n_tn, so the blocks in flight share their dy rows. Accumulator
+// fragments (wgmma m64n128, f32): thread t of a warpgroup, warp w = t / 32,
+// lane l, holds d[4n + j] at row 16 w + l / 4 + 8 (j / 2), column 8 n + 2
+// (l % 4) + (j % 2).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+fc2_bwd_tc_kernel(const __grid_constant__ CUtensorMap tdy,
+                  const __grid_constant__ CUtensorMap tw2,
+                  const __grid_constant__ CUtensorMap th,
+                  const __grid_constant__ CUtensorMap tdh,
+                  const __grid_constant__ CUtensorMap ta,
+                  float* __restrict__ part, int M, int O, int K, int n_tn) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  // the swizzle atom is 1024 bytes: align the ring to it
+  Ring& r = *reinterpret_cast<Ring*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
 
-  // One stage: the dy tile (kBM x kBK, 4 chunks of 16 bytes a row) and the
-  // w2 tile (kBK x kBN, 16 chunks a row), 512 chunks each, 2 per thread.
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kBK;
-    bf16* a_dst = as + stage * kAStage;
-    bf16* b_dst = bs + stage * kBStage;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c >> 2, col = (c & 3) * 8;
-      const int gm = m0 + r;
-      const bf16* src = gm < M ? dy + (long long)gm * O + k0 + col : dy;
-      cp_async16(a_dst + r * kAPitch + col, src, gm < M ? 16 : 0);
+  const int tm = blockIdx.x / n_tn;
+  const int m0 = tm * kBM, n0 = (blockIdx.x % n_tn) * kBN;
+  const int n_k = O / kBK;  // steps over O; step n_k loads h
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumerWarps);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c >> 4, col = (c & 15) * 8;
-      cp_async16(b_dst + r * kBPitch + col,
-                 w2 + (long long)(k0 + r) * K + n0 + col, 16);
-    }
-  };
-
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  const int KT = O / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
+    fence_barrier_init();
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();  // stage kt has landed
-    __syncthreads();               // and every warp is done with kt - 1
-    const int next = kt + kStages - 1;
-    if (next < KT) load_stage(next % kStages, next);
-    cp_async_commit();
+  __syncthreads();
 
-    const bf16* a_st = as + (kt % kStages) * kAStage;
-    const bf16* b_st = bs + (kt % kStages) * kBStage;
+  if (warp == kConsumerWarps) {
+    // producer: the ring's steps, then h into the next slot
+    if (lane == 0) {
+      for (int j = 0; j <= n_k; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) bar_wait(&empty[s], ((j / kStages) - 1) & 1);
+        uint8_t* st = r.stage[s];
+        bar_expect_tx(&full[s], kStageBytes);
+        if (j < n_k) {
+          tma_load(st, &tdy, &full[s], j * kBK, m0, 0, 0);
+          for (int p = 0; p < kBN / kPanel; ++p)
+            tma_load(st + kBM * kBK * 2 + p * kBK * kPanel * 2, &tw2,
+                     &full[s], n0 + p * kPanel, j * kBK, 0, 0);
+        } else {
+          for (int p = 0; p < kBN / kPanel; ++p)
+            for (int g = 0; g < kBM / kHalfRows; ++g)
+              tma_load(st + p * kBM * kPanel * 2 + g * kHalfRows * kPanel * 2,
+                       &th, &full[s], n0 + p * kPanel, m0 + g * kHalfRows, 0,
+                       0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [m0 + 64 wg, m0 + 64 wg + 64)
+  const int wg = warp / 4;
+  float acc[64];
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      unsigned af[kMT][4];
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int j = 0; j < n_k; ++j) {
+    const int s = j % kStages;
+    bar_wait(&full[s], (j / kStages) & 1);
+    const uint8_t* st = r.stage[s];
+    pin(acc);
+    wg_fence();
 #pragma unroll
-      for (int i = 0; i < kMT; ++i)
-        ldmatrix_x4(af[i], a_st + (wm + i * 16 + (lane & 15)) * kAPitch + kk +
-                               (lane >> 4) * 8);
-      unsigned bfr[kNT / 2][4];  // each x4.trans gives two n8 tiles
-#pragma unroll
-      for (int j = 0; j < kNT / 2; ++j)
-        ldmatrix_x4_trans(bfr[j], b_st + (kk + (lane & 15)) * kBPitch + wn +
-                                      j * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-          mma_bf16(acc[i][j], af[i], bfr[j >> 1][(j & 1) * 2],
-                   bfr[j >> 1][(j & 1) * 2 + 1]);
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_ss_n128_mn<T>(
+          acc, desc(st + (wg * 64 * kPanel + kk * 16) * 2, 16, 1024),
+          desc(st + (kBM * kBK + kk * 16 * kPanel) * 2, kBK * kPanel * 2,
+               1024),
+          j > 0 || kk > 0);
+    wg_commit();
+    // the last step's products are done: free its slot
+    wg_wait_pending<1>();
+    pin(acc);
+    if (j > 0) {
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[(j - 1) % kStages]);
     }
   }
-  cp_async_wait<0>();
+  wg_wait();
+  pin(acc);
+  // both warpgroups are done with the ring: a may take a slot
+  named_barrier(1, kConsumers);
 
-  // Epilogue. Accumulator r of tile (i, j) sits at row
-  // wm + 16 i + lane / 4 + 8 (r / 2), column wn + 8 j + 2 (lane % 4) + r % 2.
-  const int g = lane >> 2, q = lane & 3;
-  float colsum[kNT][2];
+  // epilogue: h from its slot, dh over it in place, a into the slot after
+  const int sh = n_k % kStages, sa = (n_k + 1) % kStages;
+  bar_wait(&full[sh], (n_k / kStages) & 1);
+  uint8_t* hs = r.stage[sh];
+  uint8_t* as = r.stage[sa];
+  const int row = 64 * wg + 16 * (warp % 4) + lane / 4;  // and row + 8
+  const int q = lane % 4;
+  float csum[16][2];
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) colsum[j][0] = colsum[j][1] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMT; ++i) {
+  for (int n = 0; n < 16; ++n) {
+    csum[n][0] = csum[n][1] = 0.f;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int gm = m0 + wm + i * 16 + g + half * 8;
-      if (gm >= M) continue;
-      const long long row = (long long)gm * K;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int col = n0 + wn + j * 8 + 2 * q;
-        const float2 hf =
-            __bfloat1622float2(*reinterpret_cast<const bf162*>(h + row + col));
-        const float2 g0 = gelu_tanh_val_grad(hf.x);
-        const float2 g1 = gelu_tanh_val_grad(hf.y);
-        const float d0 = acc[i][j][2 * half] * g0.y;
-        const float d1 = acc[i][j][2 * half + 1] * g1.y;
-        *reinterpret_cast<bf162*>(dh + row + col) = __floats2bfloat162_rn(d0, d1);
-        *reinterpret_cast<bf162*>(a_out + row + col) =
-            __floats2bfloat162_rn(g0.x, g1.x);
-        colsum[j][0] += d0;
-        colsum[j][1] += d1;
+      const int rr = row + 8 * half;
+      // panel n / 8, 16-byte chunk n % 8 of row rr, in the 128-byte swizzle
+      const int off = (n / 8) * kBM * kPanel * 2 + rr * 128 +
+                      (((n % 8) ^ (rr % 8)) * 16) + q * 4;
+      const float2 hf = unpack2<T>(*reinterpret_cast<uint32_t*>(hs + off));
+      const float2 g0 = gelu_tanh_val_grad<true>(hf.x);
+      const float2 g1 = gelu_tanh_val_grad<true>(hf.y);
+      const float d0 = acc[4 * n + 2 * half] * g0.y;
+      const float d1 = acc[4 * n + 2 * half + 1] * g1.y;
+      *reinterpret_cast<uint32_t*>(hs + off) = pack2<T>(d0, d1);
+      *reinterpret_cast<uint32_t*>(as + off) = pack2<T>(g0.x, g1.x);
+      if (m0 + rr < M) {
+        csum[n][0] += d0;
+        csum[n][1] += d1;
       }
     }
   }
-  // Sum each column over the warp's 8 row groups (lanes of equal lane % 4),
-  // then over the two warps that share the columns, in a fixed order.
+  // dh and a of this warpgroup's rows to device memory
+  fence_proxy_async();
+  named_barrier(2 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int p = 0; p < kBN / kPanel; ++p) {
+      const int off = p * kBM * kPanel * 2 + wg * kHalfRows * kPanel * 2;
+      tma_store(&tdh, hs + off, n0 + p * kPanel, m0 + wg * kHalfRows, 0, 0);
+      tma_store(&ta, as + off, n0 + p * kPanel, m0 + wg * kHalfRows, 0, 0);
+    }
+    tma_store_commit();
+  }
+  // the column sums of fp32 dh: over the warp's 8 row lanes (lanes of equal
+  // lane % 4), then over the 8 warps in order
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int n = 0; n < 16; ++n)
 #pragma unroll
     for (int e = 0; e < 2; ++e)
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1)
-        colsum[j][e] += __shfl_xor_sync(0xffffffffu, colsum[j][e], off);
-  __syncthreads();  // the ring is free: every warp has left the main loop
-  float* red = reinterpret_cast<float*>(smem_raw);  // [2][kBN]
-  if (g == 0) {
+        csum[n][e] += __shfl_xor_sync(0xffffffffu, csum[n][e], off);
+  if (lane < 4) {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      red[(warp >> 2) * kBN + wn + j * 8 + 2 * q] = colsum[j][0];
-      red[(warp >> 2) * kBN + wn + j * 8 + 2 * q + 1] = colsum[j][1];
+    for (int n = 0; n < 16; ++n) {
+      r.red[warp][8 * n + 2 * lane] = csum[n][0];
+      r.red[warp][8 * n + 2 * lane + 1] = csum[n][1];
     }
   }
-  __syncthreads();
-  if (tid < kBN)
-    part[(long long)blockIdx.y * K + n0 + tid] = red[tid] + red[kBN + tid];
+  named_barrier(1, kConsumers);
+  if (threadIdx.x < kBN) {
+    float sum = 0.f;
+    for (int w = 0; w < kConsumerWarps; ++w) sum += r.red[w][threadIdx.x];
+    part[(long long)tm * K + n0 + threadIdx.x] = sum;
+  }
+  // the stores have read the shared memory before the block leaves
+  if (threadIdx.x % 128 == 0) tma_store_wait_read();
 }
 
 constexpr int kCN = 64;          // hidden columns of a CUDA-core tile
 constexpr int kCK = 16;          // depth of one CUDA-core step (over O)
+constexpr int kCThreads = 256;   // 16 x 16
 constexpr int kCRows = kBM / 16;  // rows of a thread (8)
 constexpr int kCCols = kCN / 16;  // columns of a thread (4)
 
-// The fp16 / fp32 kernel. grid (K / kCN, ceil(M / kBM)); static shared
-// memory: the dy step transposed [o][row] (pitch kBM + 4, float4 reads),
-// the w2 step [o][col], and the column partials of the 16 row groups.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fc2_bwd_cc_kernel(const T* __restrict__ dy, const T* __restrict__ w2,
-                  const T* __restrict__ h, T* __restrict__ dh,
-                  T* __restrict__ a_out, float* __restrict__ part, int M,
-                  int O, int K) {
-  typedef Elem<T> E;
+// The fp32 kernel. grid (ceil(M / kBM) * K / kCN): block x is column tile
+// x % n_tn of row tile x / n_tn. Static shared memory: the dy step
+// transposed [o][row] (pitch kBM + 4, float4 reads), the w2 step [o][col],
+// and the column partials of the 16 row groups.
+__global__ void __launch_bounds__(kCThreads)
+fc2_bwd_cc_kernel(const float* __restrict__ dy, const float* __restrict__ w2,
+                  const float* __restrict__ h, float* __restrict__ dh,
+                  float* __restrict__ a_out, float* __restrict__ part, int M,
+                  int O, int K, int n_tn) {
   __shared__ __align__(16) float as[kCK][kBM + 4];
   __shared__ float bs[kCK][kCN];
   __shared__ float red[16][kCN];
-  const int n0 = blockIdx.x * kCN;
-  const int m0 = blockIdx.y * kBM;
+  const int tm = blockIdx.x / n_tn;
+  const int n0 = (blockIdx.x % n_tn) * kCN;
+  const int m0 = tm * kBM;
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
 
@@ -297,13 +324,13 @@ fc2_bwd_cc_kernel(const T* __restrict__ dy, const T* __restrict__ w2,
 
   for (int o0 = 0; o0 < O; o0 += kCK) {
     __syncthreads();  // every thread is done with the last step
-    for (int i = tid; i < kBM * kCK; i += kThreads) {
+    for (int i = tid; i < kBM * kCK; i += kCThreads) {
       const int r = i / kCK, c = i % kCK, gm = m0 + r;
-      as[c][r] = gm < M ? E::load(dy[(long long)gm * O + o0 + c]) : 0.f;
+      as[c][r] = gm < M ? dy[(long long)gm * O + o0 + c] : 0.f;
     }
-    for (int i = tid; i < kCK * kCN; i += kThreads) {
+    for (int i = tid; i < kCK * kCN; i += kCThreads) {
       const int r = i / kCN, c = i % kCN;
-      bs[r][c] = E::load(w2[(long long)(o0 + r) * K + n0 + c]);
+      bs[r][c] = w2[(long long)(o0 + r) * K + n0 + c];
     }
     __syncthreads();
 #pragma unroll
@@ -320,7 +347,7 @@ fc2_bwd_cc_kernel(const T* __restrict__ dy, const T* __restrict__ w2,
     }
   }
 
-  // Epilogue: dh = da gelu'(h), a = gelu(h), the fp32 dh summed per column
+  // Epilogue: dh = da gelu'(h), a = gelu(h), dh summed per column
   float colsum[kCCols];
 #pragma unroll
   for (int j = 0; j < kCCols; ++j) colsum[j] = 0.f;
@@ -332,10 +359,10 @@ fc2_bwd_cc_kernel(const T* __restrict__ dy, const T* __restrict__ w2,
 #pragma unroll
     for (int j = 0; j < kCCols; ++j) {
       const int col = n0 + tx + 16 * j;
-      const float2 g = gelu_tanh_val_grad(E::load(h[row + col]));
+      const float2 g = gelu_tanh_val_grad<false>(h[row + col]);
       const float d = acc[i][j] * g.y;
-      dh[row + col] = E::store(d);
-      a_out[row + col] = E::store(g.x);
+      dh[row + col] = d;
+      a_out[row + col] = g.x;
       colsum[j] += d;
     }
   }
@@ -345,18 +372,38 @@ fc2_bwd_cc_kernel(const T* __restrict__ dy, const T* __restrict__ w2,
   if (tid < kCN) {
     float sum = 0.f;
     for (int g = 0; g < 16; ++g) sum += red[g][tid];
-    part[(long long)blockIdx.y * K + n0 + tid] = sum;
+    part[(long long)tm * K + n0 + tid] = sum;
   }
 }
 
+// The dynamic shared memory of the tensor-core kernel: the ring and the
+// column sums, plus the slack that aligns them to 1024 bytes.
+constexpr size_t kTcSmem = sizeof(Ring) + 1024;
+
 template <typename T>
-int launch_cc(const void* dy, const void* w2, const void* h, void* dh,
-              void* a, void* part, int M, int O, int K, int tiles,
+int launch_tc(const void* dy, const void* w2, const void* h, void* dh,
+              void* a, void* part, int M, int O, int K, long long blocks,
               cudaStream_t stream) {
-  fc2_bwd_cc_kernel<T><<<dim3(K / kCN, tiles), kThreads, 0, stream>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(w2),
-      static_cast<const T*>(h), static_cast<T*>(dh), static_cast<T*>(a),
-      static_cast<float*>(part), M, O, K);
+  EncodeTiled enc = encode_fn();
+  if (!enc) return kErrNoEntryPoint;
+  const CUtensorMapDataType type = map_type<T>();
+  // 2-D (rows, columns) tensors as 4-D maps of one head and one batch
+  const Layout lo{(long long)M * O, (long long)M * O, O};
+  const Layout lw{(long long)O * K, (long long)O * K, K};
+  const Layout lk{(long long)M * K, (long long)M * K, K};
+  CUtensorMap tdy, tw2, th, tdh, ta;
+  int rc = encode(enc, &tdy, dy, 1, 1, M, O, lo, kBM, type);
+  if (!rc) rc = encode(enc, &tw2, w2, 1, 1, O, K, lw, kBK, type);
+  if (!rc) rc = encode(enc, &th, h, 1, 1, M, K, lk, kHalfRows, type);
+  if (!rc) rc = encode(enc, &tdh, dh, 1, 1, M, K, lk, kHalfRows, type);
+  if (!rc) rc = encode(enc, &ta, a, 1, 1, M, K, lk, kHalfRows, type);
+  if (rc) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      fc2_bwd_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kTcSmem);
+  if (e != cudaSuccess) return (int)e;
+  fc2_bwd_tc_kernel<T><<<(unsigned)blocks, kThreads, kTcSmem, stream>>>(
+      tdy, tw2, th, tdh, ta, static_cast<float*>(part), M, O, K, K / kBN);
   return (int)cudaGetLastError();
 }
 
@@ -364,35 +411,40 @@ int launch_cc(const void* dy, const void* w2, const void* h, void* dh,
 
 extern "C" {
 
-// dy (M, O), w2 (O, K), h (M, K) of the element type `dtype` in; dh, a
-// (M, K) of that type and part (ceil(M / 128), K) fp32 out. Returns a
-// cudaError_t as int: 0 on a launch that was accepted.
+// dy (M, O), w2 (O, K), h (M, K) of the element type `dtype` in, contiguous
+// and, for bf16 and fp16, 16-byte aligned; dh, a (M, K) of that type and
+// part (ceil(M / 128), K) fp32 out. Returns a cudaError_t as int (0 on a
+// launch that was accepted), or a code of vtx_cuda_error_string's own.
 int vtx_fc2_bwd(const void* dy, const void* w2, const void* h, void* dh,
                 void* a, void* part, int M, int O, int K, int dtype,
                 void* stream) {
-  const int tiles = (M + kBM - 1) / kBM;
-  if (M < 1 || tiles > 65535 || O < kBK || O % 128 || K < kBN || K % 128)
+  const long long tiles = (M + (long long)kBM - 1) / kBM;
+  if (M < 1 || O < 128 || O % 128 || K < 128 || K % 128 ||
+      tiles * (K / kCN) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF16)
-    return launch_cc<__half>(dy, w2, h, dh, a, part, M, O, K, tiles, s);
-  if (dtype == kF32)
-    return launch_cc<float>(dy, w2, h, dh, a, part, M, O, K, tiles, s);
-  if (dtype != kBf16) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      fc2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  fc2_bwd_kernel<<<dim3(K / kBN, tiles), kThreads, kSmemBytes,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(h), static_cast<bf16*>(dh),
-      static_cast<bf16*>(a), static_cast<float*>(part), M, O, K);
-  return (int)cudaGetLastError();
+  switch (dtype) {
+    case kBf16:
+      return launch_tc<bf16>(dy, w2, h, dh, a, part, M, O, K,
+                             tiles * (K / kBN), s);
+    case kF16:
+      return launch_tc<f16>(dy, w2, h, dh, a, part, M, O, K,
+                            tiles * (K / kBN), s);
+    case kF32:
+      fc2_bwd_cc_kernel<<<(unsigned)(tiles * (K / kCN)), kCThreads, 0, s>>>(
+          static_cast<const float*>(dy), static_cast<const float*>(w2),
+          static_cast<const float*>(h), static_cast<float*>(dh),
+          static_cast<float*>(a), static_cast<float*>(part), M, O, K,
+          K / kCN);
+      return (int)cudaGetLastError();
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-const char* vtx_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
+// The dynamic shared memory of the bf16 / fp16 kernel, in bytes.
+int vtx_fc2_bwd_smem() { return (int)kTcSmem; }
+
+const char* vtx_cuda_error_string(int err) { return error_string(err); }
 
 }  // extern "C"

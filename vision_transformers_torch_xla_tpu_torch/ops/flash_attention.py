@@ -13,11 +13,13 @@ q, k and v straight from the (B, S, 3·H·D) projection output:
   standard column order plus fp32 qkv-bias partials.
 
 Their bf16 and fp16 kernels run on the tensor cores (TMA, mbarriers,
-wgmma): csrc/attn_fwd_tc.cu and csrc/attn_bwd_tc.cu. The fp32 ones are
-CUDA-core loops, csrc/attn_fwd.cu and csrc/attn_bwd.cu (the JAX kernels
-round nothing in fp32, and a tensor-core product of fp32 operands, TF32,
-would). `attn_kernel_route` decides before the launch, by dtype and shape:
-the tensor-core kernels read q, k and v in place through TMA tensor maps,
+wgmma): csrc/attn_fwd_tc.cu and csrc/attn_bwd_tc.cu. The fp32 ones run on
+the CUDA cores, csrc/attn_fwd.cu (a warp per query row) and
+csrc/attn_bwd.cu (a block per (b, h) over register-tiled 64-row tiles,
+csrc/flash_blocked.cu's tiling): the JAX kernels round nothing in fp32,
+and a tensor-core product of fp32 operands, TF32, would.
+`attn_kernel_route` decides before the launch, by dtype and shape: the
+tensor-core kernels read q, k and v in place through TMA tensor maps,
 which need a head dim that is a multiple of 8 and 16-byte-aligned data;
 other calls copy q, k, v (and dO, O) once with ops/flash_blocked.py's
 `padded_copy` (counted in `COPIES`) and run the same kernels.
@@ -61,12 +63,24 @@ once by ops/flash_blocked.py's `padded_copy`. The CUDA-core sources take
 every tensor as a base pointer and (batch, head, token) strides; views
 they cannot take in place (an odd head dim, odd or unaligned strides) are
 copied once, the head dim zero-padded to even, as JAX pads it to 8, and
-the results sliced back (`_launch_views`). Every grid is one-dimensional
-over (b, h, query tile), so B and H are not bound by the grid's y and z
-limits. A head dim over 128 raises. The TPU kernels' padding of S to 128
-and D to 8 and the G batching of `_pick_g` have no counterpart: the kernels
-loop over the S real keys. S > MAX_SEQ takes `reference_attention`, as in
-JAX.
+the results sliced back (`_launch_views`). Every grid of every source is
+one-dimensional over (b, h, tile), so B and H are not bound by the grid's
+y and z limits. The TPU kernels' padding of S to 128 and D to 8 and the G
+batching of `_pick_g` have no counterpart: the kernels loop over the S real
+keys.
+
+The kernels take S <= MAX_SEQ, and their wrappers raise on more; the
+entry points `fused_attention` and `fused_attention_qkv` route S > MAX_SEQ
+to `reference_attention` under autograd, as JAX routes it, by a shape rule
+decided before any launch (`fused_kernel_route`, `bwd_kernel_route` say
+'reference'). The tensor-core kernels take a head dim <= MAX_HEAD_DIM:
+their tiles at the next head dim in panels of 64 pass a block's shared
+memory (csrc/attn_fwd_tc.cu, csrc/hp_bwd_tc.cu check it at compile time).
+JAX pads any head dim and runs its kernels, so K7, K8 and K10-K12 on (B,
+H, S, D) views route a wider one, in every dtype, to the CUDA-core
+sources, csrc/fused_attn_fwd.cu and csrc/hp_bwd.cu, which take a head dim
+<= MAX_CUDA_CORE_HEAD_DIM. K1, K2 and K9 (and K10's qkv buffer) take a
+head dim <= MAX_HEAD_DIM.
 
 Every kernel takes bf16, fp16 and fp32 on the card, as the JAX kernels take
 any float dtype: the CUDA sources are templated on the element type, compute
@@ -107,8 +121,8 @@ from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
 )
 
 MAX_SEQ = 1024       # longer sequences are ops/flash_blocked.py's (K4-K6)
-MAX_HEAD_DIM = 128
-MAX_GRID_DIM = 65535  # K1, K2, K9 in fp32: batch, heads ride the grid's y, z
+MAX_HEAD_DIM = 128   # the tensor-core kernels' and K1, K2, K9's widest head
+MAX_CUDA_CORE_HEAD_DIM = 1024  # csrc/fused_attn_fwd.cu's and csrc/hp_bwd.cu's
 
 # Launches of the attention kernels in this process. Only the wrappers'
 # launches add to them; callers may reset them to 0.
@@ -147,8 +161,11 @@ def build_kernels() -> ctypes.CDLL:
 def build_bwd_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the fp32 backward's library (K2 on the
     CUDA cores)."""
-    return _load("attn_bwd", "vtx_attn_bwd",
-                 [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, _I, _P])
+    lib = _load("attn_bwd", "vtx_attn_bwd",
+                [_P] * 7 + [_I, _I, _I, _I, ctypes.c_float, _I, _P])
+    lib.vtx_attn_bwd_smem.restype = ctypes.c_int
+    lib.vtx_attn_bwd_smem.argtypes = [_I]
+    return lib
 
 
 def build_tc_kernels() -> ctypes.CDLL:
@@ -193,14 +210,19 @@ def attn_kernel_route(qkv: torch.Tensor, num_heads: int,
 
 def fused_kernel_route(q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> str:
-    """The kernel a CUDA call of K7 or K11 on (B, H, S, D) q, k, v
-    launches, decided before the launch: 'tensor_cores' (bf16, fp16:
-    csrc/attn_fwd_tc.cu in K7's cast order, reading q, k, v in place),
-    'tensor_cores_copy' (the same kernel after one `padded_copy`, when TMA
-    cannot read them in place: `tma_ready`) or 'cuda_cores' (fp32:
-    csrc/fused_attn_fwd.cu). The output is the wrapper's own, which the
-    kernel writes in place at every even head dim."""
-    if q.dtype == torch.float32:
+    """The kernel a call of K7 or K11 on (B, H, S, D) q, k, v launches on
+    the card, decided before the launch: 'reference' (S > MAX_SEQ:
+    `fused_attention` and `fused_attention_qkv` take `reference_attention`,
+    as JAX routes it, on the CPU too, and launch nothing), 'tensor_cores'
+    (bf16, fp16: csrc/attn_fwd_tc.cu in K7's cast order, reading q, k, v in
+    place), 'tensor_cores_copy' (the same kernel after one `padded_copy`,
+    when TMA cannot read them in place: `tma_ready`) or 'cuda_cores' (fp32,
+    or a head dim over MAX_HEAD_DIM in any dtype: csrc/fused_attn_fwd.cu).
+    The output is the wrapper's own, which the kernel writes in place at
+    every even head dim."""
+    if q.shape[-2] > MAX_SEQ:
+        return "reference"
+    if q.dtype == torch.float32 or q.shape[-1] > MAX_HEAD_DIM:
         return "cuda_cores"
     return "tensor_cores" if tma_ready(q, k, v) else "tensor_cores_copy"
 
@@ -223,14 +245,19 @@ def build_hp_bwd_tc_kernels() -> ctypes.CDLL:
 
 def bwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      do: torch.Tensor) -> str:
-    """The kernel a CUDA call of K8, K10 or K12 on (B, H, S, D) q, k, v
-    and dO launches, decided before the launch: 'tensor_cores' (bf16, fp16:
-    csrc/hp_bwd_tc.cu, reading q, k, v as one group and dO as another in
-    place), 'tensor_cores_copy' (the same kernels after one `padded_copy`
-    of all four, when TMA cannot read a group in place: `tma_ready`) or
-    'cuda_cores' (fp32: csrc/hp_bwd.cu). The outputs are the wrappers' own,
-    which the kernels write in place at every even head dim."""
-    if q.dtype == torch.float32:
+    """The kernel a call of K8, K10 or K12 on (B, H, S, D) q, k, v and dO
+    launches on the card, decided before the launch: 'reference' (S >
+    MAX_SEQ: the entry points' forward took `reference_attention`, whose
+    gradient is autograd's), 'tensor_cores' (bf16, fp16: csrc/hp_bwd_tc.cu,
+    reading q, k, v as one group and dO as another in place),
+    'tensor_cores_copy' (the same kernels after one `padded_copy` of all
+    four, when TMA cannot read a group in place: `tma_ready`) or
+    'cuda_cores' (fp32, or a head dim over MAX_HEAD_DIM in any dtype:
+    csrc/hp_bwd.cu). The outputs are the wrappers' own, which the kernels
+    write in place at every even head dim."""
+    if q.shape[-2] > MAX_SEQ:
+        return "reference"
+    if q.dtype == torch.float32 or q.shape[-1] > MAX_HEAD_DIM:
         return "cuda_cores"
     if tma_ready(q, k, v) and tma_ready(do):
         return "tensor_cores"
@@ -263,9 +290,11 @@ def _check_cuda(name: str, tensors, s: int, d: int, b: int,
     """The kernels' contract; raises on what they do not take. `views`:
     the tensors are (B, H, S, D) views of one dtype that `_launch_views`
     hands to the kernels (K7, K8, K10-K12) in place or copied, so only S
-    and D <= 128 bind them; else contiguous tensors whose first three share
-    one dtype, with an even D and B, H <= 65535 (K1, K2, K9, and K10's qkv
-    buffer). The dtype is one of KERNEL_DTYPES."""
+    and D <= MAX_CUDA_CORE_HEAD_DIM bind them (a wider head than
+    MAX_HEAD_DIM takes the CUDA-core kernels); else contiguous tensors
+    whose first three share one dtype, with an even D <= MAX_HEAD_DIM (K1,
+    K2, K9, and K10's qkv buffer). The dtype is one of KERNEL_DTYPES. B and
+    H are bound by no grid dimension."""
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
@@ -280,15 +309,13 @@ def _check_cuda(name: str, tensors, s: int, d: int, b: int,
             f"sequences go through fused_attention_qkv_cols to "
             f"ops/flash_blocked.py, or through fused_attention and "
             f"fused_attention_qkv to reference_attention")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} must be <= {MAX_HEAD_DIM}")
+    widest = MAX_CUDA_CORE_HEAD_DIM if views else MAX_HEAD_DIM
+    if d > widest:
+        raise ValueError(f"head_dim {d} must be <= {widest}")
     if views:
         return
     if d % 2:
         raise ValueError(f"head_dim {d} must be even and <= {MAX_HEAD_DIM}")
-    if b > MAX_GRID_DIM or num_heads > MAX_GRID_DIM:
-        raise ValueError(f"batch {b} and heads {num_heads} must be <= "
-                         f"{MAX_GRID_DIM}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 
@@ -492,23 +519,20 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
 
 def _launch_bwd_cuda_cores(qkv, do, o, st, dqkv, dbias, num_heads: int,
                            scale: float) -> None:
-    """csrc/attn_bwd.cu (fp32): its prep launch's scratch, then its three
-    launches."""
+    """csrc/attn_bwd.cu (fp32): one launch, a block per (b, h), with its
+    scratch: t·k summed over the key tiles, (B, H, S, D) fp32."""
     b, s, c = qkv.shape
     d = c // (3 * num_heads)
     dev = qkv.device
-    # scratch of the prep launch: q̂, q̂/Σp, dO/Σp and rowsum(dO·O)
-    scratch = torch.empty((3, b, num_heads, s, d), dtype=qkv.dtype, device=dev)
-    delta = torch.empty((b, num_heads, s), dtype=torch.float32, device=dev)
     lib = build_bwd_kernels()
+    dq_sum = torch.empty((b, num_heads, s, d), dtype=torch.float32,
+                         device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vtx_attn_bwd(
             qkv.data_ptr(), do.data_ptr(), o.data_ptr(), st.data_ptr(),
-            dqkv.data_ptr(), dbias.data_ptr(), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), scratch[2].data_ptr(), delta.data_ptr(),
-            b, s, num_heads, d, scale, cuda_build.dtype_code(qkv.dtype),
-            stream)
+            dqkv.data_ptr(), dbias.data_ptr(), dq_sum.data_ptr(), b, s,
+            num_heads, d, scale, cuda_build.dtype_code(qkv.dtype), stream)
     _raise_on(lib, rc, "attention backward")
 
 
@@ -952,15 +976,17 @@ def fused_attention_qkv_cols(qkv: torch.Tensor, num_heads: int,
 def fused_attention_qkv(qkv: torch.Tensor,
                         scale: Optional[float] = None) -> torch.Tensor:
     """Attention from a fused qkv tensor (B, S, 3, H, D) -> (B, S, H·D)
-    (:857). S <= MAX_SEQ runs `FusedAttentionQkv` (K11 forward, K12
-    backward), reading the heads in place; longer S `reference_attention`
-    under autograd, as the JAX function routes it."""
+    (:857). `FusedAttentionQkv` (K11 forward, K12 backward), reading the
+    heads in place; where `fused_kernel_route` says 'reference' (S >
+    MAX_SEQ, as the JAX function routes it) `reference_attention` under
+    autograd."""
     b, s, three, h, d = qkv.shape
     if three != 3:
         raise ValueError(f"qkv {tuple(qkv.shape)} is not (B, S, 3, H, D)")
     scale = float(scale if scale is not None else d ** -0.5)
-    if s > MAX_SEQ:
-        o = reference_attention(*qkv.permute(2, 0, 3, 1, 4).unbind(0), scale)
+    heads5 = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    if fused_kernel_route(*heads5) == "reference":
+        o = reference_attention(*heads5, scale)
         return o.transpose(1, 2).reshape(b, s, h * d)
     return FusedAttentionQkv.apply(qkv, scale)
 
@@ -968,12 +994,12 @@ def fused_attention_qkv(qkv: torch.Tensor,
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention, q, k, v: (B, H, S, D) -> (B, H, S, D) (:880).
-    S <= MAX_SEQ runs `FusedAttention` (K7 forward, K8 backward), which
-    reads q, k and v by stride, so views of one qkv buffer need no copy;
-    longer S `reference_attention` under autograd, as the JAX function
-    routes it."""
+    `FusedAttention` (K7 forward, K8 backward), which reads q, k and v by
+    stride, so views of one qkv buffer need no copy; where
+    `fused_kernel_route` says 'reference' (S > MAX_SEQ, as the JAX function
+    routes it) `reference_attention` under autograd."""
     d = q.shape[-1]
     scale = float(scale if scale is not None else d ** -0.5)
-    if q.shape[-2] > MAX_SEQ:
+    if fused_kernel_route(q, k, v) == "reference":
         return reference_attention(q, k, v, scale)
     return FusedAttention.apply(q, k, v, scale)

@@ -11,8 +11,9 @@ device memory into the product that gives da anyway:
     db1 = Σ dh                          fp32 partials per row tile
 
 `fc2_bwd` -> csrc/mlp_fused.cu, the port of `_fc2_bwd_kernel` (:65,
-ROADMAP K3): bf16 on the tensor cores (mma.sync), fp16 and fp32 on the CUDA
-cores, as the JAX kernel runs in the inputs' dtype. Its plain version
+ROADMAP K3): bf16 and fp16 on the tensor cores (TMA, mbarriers, wgmma, the
+epilogue's dh and a stored by TMA), fp32 on the CUDA cores, as the JAX
+kernel runs in the inputs' dtype. Its plain version
 `fc2_bwd_reference` runs only for tensors on the CPU; for CUDA tensors the
 wrapper launches the kernel or raises.
 dx, dW1, dW2 and db2 stay torch products and sums on dh, a and dy, as the
@@ -44,7 +45,8 @@ _GELU_C = 0.044715
 
 WIDTH_MULTIPLE = 128   # every width of the fused MLP (the JAX lane rule)
 ROW_TILE = 128         # rows of dy and h per kernel block: one db1 partial
-MAX_GRID_DIM = 65535   # row tiles ride the grid's y dimension
+MAX_ROWS = 2 ** 31 - 1  # the kernels count rows in int; tiles ride grid x
+DATA_ALIGN = 16        # bytes: the bf16/fp16 kernel's tensor maps' data
 
 # Launches of the fc2-backward kernel in this process. Only the wrapper's
 # launches add to it; callers may reset it to 0.
@@ -59,6 +61,8 @@ def build_kernels() -> ctypes.CDLL:
     lib = cuda_build.load_library("mlp_fused", ("mlp_fused.cu",))
     lib.vtx_fc2_bwd.restype = ctypes.c_int
     lib.vtx_fc2_bwd.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+    lib.vtx_fc2_bwd_smem.restype = ctypes.c_int
+    lib.vtx_fc2_bwd_smem.argtypes = []
     lib.vtx_cuda_error_string.restype = ctypes.c_char_p
     lib.vtx_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -92,7 +96,10 @@ def fc2_bwd_reference(dy: torch.Tensor, w2: torch.Tensor, h: torch.Tensor
 
 
 def _check_cuda(dy: torch.Tensor, w2: torch.Tensor, h: torch.Tensor) -> None:
-    """The kernel's contract; raises on what it does not take."""
+    """The kernel's contract; raises on what it does not take: devices,
+    dtypes, layouts (contiguous; the bf16 and fp16 kernel reads and writes
+    through TMA tensor maps, which need 16-byte-aligned data), widths and a
+    row count that fits an int."""
     tensors = (dy, w2, h)
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"fc2_bwd runs on cpu or cuda tensors, not "
@@ -103,14 +110,17 @@ def _check_cuda(dy: torch.Tensor, w2: torch.Tensor, h: torch.Tensor) -> None:
                         f"{KERNEL_DTYPES}, not {[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fc2_bwd takes contiguous tensors")
+    if dy.dtype != torch.float32 and any(t.data_ptr() % DATA_ALIGN
+                                         for t in tensors):
+        raise ValueError(f"fc2_bwd takes {dy.dtype} tensors whose data is "
+                         f"{DATA_ALIGN}-byte aligned")
     o, k = w2.shape
     if o % WIDTH_MULTIPLE or k % WIDTH_MULTIPLE:
         raise ValueError(f"fc2_bwd takes widths that are multiples of "
                          f"{WIDTH_MULTIPLE}, not out {o}, hidden {k}")
     rows = dy.shape[0] * dy.shape[1]
-    if -(-rows // ROW_TILE) > MAX_GRID_DIM:
-        raise ValueError(f"fc2_bwd takes at most {MAX_GRID_DIM * ROW_TILE} "
-                         f"rows, not {rows}")
+    if rows > MAX_ROWS:
+        raise ValueError(f"fc2_bwd takes at most {MAX_ROWS} rows, not {rows}")
 
 
 def fc2_bwd(dy: torch.Tensor, w2: torch.Tensor, h: torch.Tensor
