@@ -113,6 +113,28 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     computes K3's function, so library_ms is null. Then the kernels that
     one call of the bf16, fp16 and fp32 K3 and of the fp32 K2 launches
     (torch.profiler) must be their new kernels alone.
+17b. head dims over 128 on every route (F8), in bf16, fp16 and fp32:
+    qkv_proj_attention forward and backward (K1, K2) and
+    fused_attention_qkv_cols at S <= 1024 (K9, K10) at WIDE_QKV_SHAPES (D
+    136 to 1024), fused_attention_qkv_cols at S 1025 and 1100 (K4-K6) at
+    WIDE_LONG_SHAPES, multi_head_attention(use_pallas=True) and
+    fused_attention_qkv (K7, K8, K11, K12) at D 256, driven once per dtype
+    with the counts reset just before: each kernel launched exactly as
+    often as the shapes say. Each route function answers as the rule
+    says (K1, K9, K7-K12 on the wide tensor-core tiles of
+    csrc/attn_fwd_tc.cu and csrc/hp_bwd_tc.cu up to 256 in bf16 and fp16;
+    K2 on csrc/attn_bwd.cu's wide kernel and K4-K6 on
+    csrc/flash_blocked.cu's past 128 in every dtype; fp32 and past 256 on
+    the CUDA cores), and one call of each kernel at D 256 (and past 256
+    in bf16), traced together in one torch.profiler session per dtype (ahead
+    of the trainer phases; a process's sessions stop recording after a
+    few dozen), launches exactly the csrc/ kernels their routes name.
+    Each held against its
+    plain version at every shape within WIDE_REL of the largest magnitude
+    (FP32_OUT_REL for fp32 outputs, LSE_ATOL for lse), and timed at
+    WIDE_TIMED (K4-K6 WIDE_LONG_TIMED) beside its plain version and SDPA;
+    each gets a line 'kernel[dtype,d256]' in the kernels JSON with the
+    launches of that run.
 18. gradient, --pallas_mlp on: phase 8 (use_pallas_attn) on the same
     weights with every MLP
     on the fused route, against the same JAX fp32 train golden (the
@@ -158,10 +180,11 @@ fused_attention_qkv), which no model calls:
     kernel, its plain version and SDPA's forward or backward. Both entry
     points at head dims over 128 (WIDE_FUSED_SHAPES: 136, 137, 192, 256
     and 1024, which JAX pads and runs in its kernels) in bf16, fp16 and
-    fp32 must take the CUDA-core K7, K8, K11 and K12 (the tensor cores'
-    tiles stop at 128), one launch each, held against their plain versions
-    within phase 23's limits (bf16 O_ATOL, DQKV_REL_ATOL), and are timed
-    beside them at D 256. Both entry points at S = 1100 take
+    fp32 must take the route `wide_route` names (the wide tensor-core
+    tiles up to 256 in bf16 and fp16, a padded copy at 137; the CUDA-core
+    K7, K8, K11 and K12 in fp32 and at 1024), one launch each, held
+    against their plain versions within phase 23's limits (bf16 O_ATOL,
+    DQKV_REL_ATOL), and are timed beside them at D 256. Both entry points at S = 1100 take
     reference_attention, as JAX routes them, and must launch none of the
     twelve kernels.
 
@@ -370,7 +393,7 @@ FP32_GRAD_LIMITS = (9.5e-6, 6.4e-8, 1.9e-6)
 # partials) to FP32_OUT_REL of their largest magnitude, lse to LSE_ATOL.
 DTYPES = ("float32", "float16")
 DTYPE_REL = {"float32": 1e-4, "float16": 5e-3}
-FP32_OUT_REL = {"float32": 1e-4, "float16": 1e-3}
+FP32_OUT_REL = {"float32": 1e-4, "float16": 1e-3, "bfloat16": 1e-3}
 # each kernel's (main shape, ragged shape): (B, S, H, D), K3's (B, S, O, K);
 # the main shapes are the bf16 lines' own
 _ATTN_197 = ((128, 197, 12, 64), (3, 77, 3, 48))
@@ -387,7 +410,8 @@ DTYPE_SHAPES = {
 # the bound of each dtype's work: fp32 has no tensor-core product, so its
 # peak is the CUDA cores' 67 TFLOP/s (H100 SXM data sheet), fp16 the
 # 989 TFLOP/s tensor-core peak of bf16; element bytes 4 and 2
-DTYPE_PEAK = {"float32": (67e12, 4), "float16": (989e12, 2)}
+DTYPE_PEAK = {"float32": (67e12, 4), "float16": (989e12, 2),
+              "bfloat16": (989e12, 2)}
 # The fp32 K2 (csrc/attn_bwd.cu) at its edges, (B, S, H, D): S around its
 # 64-row tiles up to the contract's 1024, D 32, 48, 64 and 128, and B and
 # H over 65535 at a tiny S. Kernel vs plain in fp32 differ by summation
@@ -410,11 +434,32 @@ FUSED_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 130, 3, 48), (2, 77, 2, 128))
 FUSED_VIEW_SHAPE = (8, 197, 12, 64)
 # past the kernels' S: reference_attention, as JAX routes it
 REFERENCE_FUSED_SHAPES = ((1, 1100, 2, 64),)
-# head dims over the tensor cores' 128: the CUDA-core K7, K8, K11, K12 in
-# every dtype (the first is timed)
+# head dims over the narrow tiles' 128: K7, K8, K11, K12 on the wide
+# tensor-core tiles up to 256 in bf16 and fp16, on the CUDA cores in fp32
+# and at 1024 (the first is timed)
 WIDE_FUSED_SHAPES = ((2, 197, 4, 256), (2, 197, 2, 136), (1, 77, 2, 192),
                      (1, 65, 3, 137), (1, 64, 1, 1024))
 WIDE_REL = {"bfloat16": DQKV_REL_ATOL, "float16": 5e-3, "float32": 1e-4}
+# The wide-head phase (F8 closed on every route), (B, S, H, D):
+# qkv_proj_attention (K1, K2) and fused_attention_qkv_cols at S <= 1024
+# (K9, K10) at WIDE_QKV_SHAPES, fused_attention_qkv_cols at S > 1024 (K4-K6)
+# at WIDE_LONG_SHAPES, multi_head_attention(use_pallas=True) and
+# fused_attention_qkv (K7, K8, K11, K12) at WIDE_QKV_SHAPES[0], in bf16,
+# fp16 and fp32: the wide tensor-core tiles at 129-256 in bf16 and fp16,
+# the CUDA cores in fp32, past 256 and for K2 and K4-K6 past 128. Each
+# kernel is held against its plain version within WIDE_REL of the largest
+# magnitude (FP32_OUT_REL for fp32 outputs, LSE_ATOL for lse) and timed at
+# WIDE_TIMED beside its plain version and SDPA (K4-K6 at WIDE_LONG_TIMED).
+WIDE_QKV_SHAPES = ((2, 197, 4, 256), (2, 197, 2, 192), (1, 77, 2, 136),
+                   (1, 65, 2, 320), (1, 64, 1, 1024))
+WIDE_LONG_SHAPES = ((1, 1100, 2, 256), (1, 1100, 2, 192), (1, 1100, 1, 320),
+                    (1, 1025, 1, 1024))
+WIDE_TIMED = (32, 197, 12, 256)
+WIDE_LONG_TIMED = (1, 1370, 4, 256)
+WIDE_DTYPES = ("bfloat16", "float16", "float32")
+WIDE_KERNELS = ("attn_fwd", "attn_bwd", "hp_fwd", "hp_bwd", "fused_fwd",
+                "fused_bwd", "qkv_fwd", "qkv_bwd", "flash_fwd",
+                "flash_bwd_dkdv", "flash_bwd_dq")
 
 # every kernel's launch count, 'module.COUNT' in ops/
 ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
@@ -1534,6 +1579,204 @@ def check_redesigned(fa, mf, dev) -> None:
                 "redesigned fp32 K2")
 
 
+def only_kernels(fn, wants, tag) -> None:
+    """Of the port's kernels (csrc/'s), fn launches exactly the kernels
+    that `wants` names (substrings of their demangled names, spaces
+    ignored), each of them."""
+    names = launched_kernels(fn)
+    ours = sorted(n.replace(" ", "") for n in names
+                  if "anonymous namespace" in n)
+    wants = [w.replace(" ", "") for w in wants]
+    log(f"[{tag}] the call launched {sorted(names)}")
+    check(ours and all(any(w in n for w in wants) for n in ours)
+          and all(any(w in n for n in ours) for w in wants),
+          f"{tag}: the call launched {ours} of csrc/, want {wants}")
+
+
+def wide_route(dt_name: str, d: int) -> str:
+    """The route of K1, K9 and K7-K12 at head dim d > 128: the wide
+    tensor-core tiles up to 256 in bf16 and fp16 (in place at a multiple
+    of 8), else the CUDA cores."""
+    if dt_name == "float32" or d > 256:
+        return "cuda_cores"
+    return "tensor_cores" if d % 8 == 0 else "tensor_cores_copy"
+
+
+def wide_kernel_names(name: str, dt_name: str, d: int):
+    """The csrc/ kernels one call of kernel `name` launches at head dim
+    d > 128 in dtype dt_name, as the routes decide."""
+    t = {"bfloat16": "__nv_bfloat16", "float16": "__half",
+         "float32": "float"}[dt_name]
+    tc = wide_route(dt_name, d) != "cuda_cores"
+    kd = 192 if d <= 192 else 256
+    if name.startswith("flash"):
+        return [f"{name}_wide_kernel<{t}>"]
+    if name == "attn_bwd":
+        return [f"attn_bwd_wide_kernel<{t}>"]
+    if name in ("attn_fwd", "hp_fwd"):
+        return [f"attn_fwd_tc_kernel<{t},{kd},false>" if tc
+                else f"attn_fwd_kernel<{t},0>"]
+    if name in ("fused_fwd", "qkv_fwd"):
+        return [f"attn_fwd_tc_kernel<{t},{kd},true>" if tc
+                else f"fused_attn_fwd_kernel<{t},0>"]
+    return ([f"hp_bwd_tc_dq_kernel<{t},{kd}>",
+             f"hp_bwd_tc_dkdv_kernel<{t},{kd}>"] if tc
+            else [f"hp_bwd_dq_kernel<{t},0>", f"hp_bwd_dkdv_kernel<{t},0>"])
+
+
+def drive_wide_heads(counts, fa, dev, dt):
+    """Forward and backward through every entry point that reaches a
+    kernel at head dims over 128 (WIDE_QKV_SHAPES, WIDE_LONG_SHAPES) in
+    dtype `dt`; returns the launches (counts() after a reset)."""
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        multi_head_attention,
+    )
+
+    def leaf(shape, seed, scale=1.0):
+        return seeded_bf16(shape, seed, dev, dt, scale).requires_grad_()
+
+    def backward(o, seed):
+        o.backward(seeded_bf16(tuple(o.shape), seed, dev, dt))
+
+    counts(reset=True)
+    for b, s, h, d in WIDE_QKV_SHAPES:
+        seed = 8000 + s + d
+        # K1, K2: the fused projection + attention
+        backward(fa.qkv_proj_attention(
+            leaf((b, s, h * d), seed), leaf((h * d, 3 * h * d), seed + 1,
+                                            0.05),
+            leaf((3 * h * d,), seed + 2, 0.05), h), seed + 3)
+        # K9, K10
+        backward(fa.fused_attention_qkv_cols(leaf((b, s, 3 * h * d),
+                                                  seed + 4), h), seed + 5)
+    for b, s, h, d in WIDE_LONG_SHAPES:
+        seed = 8200 + d
+        backward(fa.fused_attention_qkv_cols(leaf((b, s, 3 * h * d), seed),
+                                             h), seed + 1)
+    b, s, h, d = WIDE_QKV_SHAPES[0]
+    backward(multi_head_attention(*(leaf((b, h, s, d), 8300 + i)
+                                    for i in range(3)), use_pallas=True),
+             8303)
+    backward(fa.fused_attention_qkv(leaf((b, s, 3, h, d), 8310)), 8311)
+    torch.cuda.synchronize()
+    return counts()
+
+
+def wide_routes_hold(fa, fb, name, shape, dt, dt_name) -> None:
+    """The route functions answer as the wide-head rule says for `name`."""
+    import torch
+
+    b, s, h, d = shape
+    qkv = torch.empty((b, s, 3 * h * d), dtype=dt, device="cuda")
+    do = torch.empty((b, s, h * d), dtype=dt, device="cuda")
+    q, k, v = fb.heads(qkv, h)
+    if name.startswith("flash"):
+        got, want = fb.tensor_cores(q), False
+    elif name == "attn_bwd":
+        got, want = fa.attn_kernel_route(qkv, h, do, do), "cuda_cores"
+    elif name in ("attn_fwd", "hp_fwd"):
+        got, want = fa.attn_kernel_route(qkv, h), wide_route(dt_name, d)
+    elif name in ("fused_fwd", "qkv_fwd"):
+        got, want = fa.fused_kernel_route(q, k, v), wide_route(dt_name, d)
+    else:
+        got, want = (fa.bwd_kernel_route(q, k, v, fa._head_major(do, h)),
+                     wide_route(dt_name, d))
+    check(got == want, f"wide heads {dt_name} {name} {shape}: route {got!r}, "
+          f"want {want!r}")
+
+
+def phase_wide_heads(counts, fa, fb, mf, dev):
+    """Head dims over 128 on every route (F8): the entry points driven once
+    per dtype (drive_wide_heads), which must launch each kernel as often as
+    the shapes say; each kernel's route answered as the rule says; one call
+    of each at D 256 (and past 256 in bf16), traced together per dtype,
+    launching exactly the csrc/ kernels their routes name (torch.profiler);
+    each held against its plain
+    version at every wide shape, and timed at WIDE_TIMED (K4-K6
+    WIDE_LONG_TIMED) beside its plain version and SDPA. Returns the
+    launches per dtype, the rows and the worst errors per (dtype,
+    kernel)."""
+    import gc
+
+    import torch
+
+    launches, rows, worst = {}, {}, {}
+    n_qkv, n_long = len(WIDE_QKV_SHAPES), len(WIDE_LONG_SHAPES)
+    want = only(ATTN_FWD_LAUNCHES=n_qkv, ATTN_BWD_LAUNCHES=n_qkv,
+                HP_FWD_LAUNCHES=n_qkv, HP_BWD_LAUNCHES=n_qkv,
+                FLASH_FWD_LAUNCHES=n_long, FLASH_BWD_DKDV_LAUNCHES=n_long,
+                FLASH_BWD_DQ_LAUNCHES=n_long, FUSED_FWD_LAUNCHES=1,
+                FUSED_BWD_LAUNCHES=1, QKV_FWD_LAUNCHES=1,
+                QKV_BWD_LAUNCHES=1)
+    for dt_name in WIDE_DTYPES:
+        dt = getattr(torch, dt_name)
+        launches[dt_name] = drive_wide_heads(counts, fa, dev, dt)
+        log(f"[wide heads] {dt_name}: the entry points launched "
+            f"{launches[dt_name]}")
+        check(launches[dt_name] == want, f"wide heads {dt_name}: the entry "
+              f"points launched {launches[dt_name]}, want {want}")
+        peak = DTYPE_PEAK[dt_name][0]
+        # one profiler session per dtype (a process's sessions stop
+        # recording after a few dozen): each kernel's call at D 256 (and
+        # past 256 in bf16) together must launch exactly the csrc/ kernels
+        # their routes name
+        traced, names = [], set()
+        for name in WIDE_KERNELS:
+            shapes = WIDE_LONG_SHAPES if name.startswith("flash") \
+                else WIDE_QKV_SHAPES
+            for shape in shapes:
+                d = shape[3]
+                wide_routes_hold(fa, fb, name, shape, dt, dt_name)
+                kernel, plain, _, _, _, kinds, _ = \
+                    dtype_case(fa, fb, mf, name, shape, dt, dev)
+                tag = f"wide heads {dt_name} {name} {shape}"
+                if shape == shapes[0] or (d > 256 and dt_name == "bfloat16"):
+                    traced.append(kernel)
+                    names.update(wide_kernel_names(name, dt_name, d))
+                got, want_out = kernel(), plain()
+                torch.cuda.synchronize()
+                errs = []
+                for i, (g, w, kind) in enumerate(zip(got, want_out, kinds)):
+                    check(g.shape == w.shape and g.dtype == w.dtype
+                          and torch.isfinite(g.float()).all().item(),
+                          f"{tag} output {i}: {tuple(g.shape)} {g.dtype} or "
+                          f"not finite")
+                    err = (g.float() - w.float()).abs().max().item()
+                    ref = w.float().abs().max().item()
+                    limit = {"rel": WIDE_REL[dt_name] * ref,
+                             "fp32": FP32_OUT_REL[dt_name] * ref,
+                             "lse": LSE_ATOL}[kind]
+                    check(err <= limit, f"{tag} output {i}: max abs err "
+                          f"{err} > {limit}")
+                    errs.append(err)
+                    if kind == "rel":
+                        worst[(dt_name, name)] = max(
+                            worst.get((dt_name, name), 0.0), err)
+                log(f"[wide heads] {dt_name} {name} {shape}: max abs errs "
+                    f"{errs!r}")
+                del got, want_out, plain
+            timed = WIDE_LONG_TIMED if name.startswith("flash") \
+                else WIDE_TIMED
+            kernel, plain, library, flops, nbytes, _, _ = \
+                dtype_case(fa, fb, mf, name, timed, dt, dev)
+            row = {"shape": timed, "ms": cuda_ms(kernel),
+                   "plain_ms": cuda_ms(plain), "library_ms": library()}
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes, peak)
+            rows[(dt_name, name)] = row
+            log(f"[wide heads] {dt_name} {name} timed on {nvidia_smi()}: "
+                + " ".join(f"{k}={v!r}" for k, v in row.items()))
+            del kernel, plain, library
+            gc.collect()
+        # twice: a session can miss the first launches it should record
+        only_kernels(lambda: [fn() for fn in traced + traced], sorted(names),
+                     f"wide heads {dt_name}")
+        del traced
+        torch.cuda.empty_cache()
+    return launches, rows, worst
+
+
 def phase_mlp_kernel(mf, dev):
     """K3 against its plain version on seeded bf16 dy, fc2 weight and h."""
     import torch
@@ -1957,7 +2200,9 @@ def phase_fused_kernel(counts, fa, dev):
 
 def wide_fused(counts, fa, dev) -> None:
     """Both entry points at WIDE_FUSED_SHAPES in bf16, fp16 and fp32: the
-    route says 'cuda_cores', K7 and K8 (or K11 and K12) launch once each,
+    route says what `wide_route` says (the wide tensor-core tiles up to
+    256 in bf16 and fp16, else the CUDA cores), K7 and K8 (or K11 and K12)
+    launch once each,
     and o and the gradients hold against the plain versions relative to
     their largest |value| (WIDE_REL); K7 and K8 timed beside their plain
     versions at the first shape."""
@@ -1978,10 +2223,11 @@ def wide_fused(counts, fa, dev) -> None:
             want = (fa.fused_fwd_reference(*x, scale),
                     *fa.fused_bwd_reference(*x, do, scale))
             tag = f"{dt_name} (B, S, H, D) = {shape}"
-            check(fa.fused_kernel_route(*x) == "cuda_cores"
-                  and fa.bwd_kernel_route(*x, do) == "cuda_cores",
+            route = wide_route(dt_name, d)
+            check(fa.fused_kernel_route(*x) == route
+                  and fa.bwd_kernel_route(*x, do) == route,
                   f"{tag}: routes {fa.fused_kernel_route(*x)}, "
-                  f"{fa.bwd_kernel_route(*x, do)} (want cuda_cores)")
+                  f"{fa.bwd_kernel_route(*x, do)} (want {route})")
             errs = {}
             for entry, pair in (("fused_attention", ("FUSED_FWD_LAUNCHES",
                                                      "FUSED_BWD_LAUNCHES")),
@@ -2021,7 +2267,7 @@ def wide_fused(counts, fa, dev) -> None:
                 row["fused_bwd_ms"] = cuda_ms(lambda: fa.fused_bwd(*x, do))
                 row["fused_bwd_plain_ms"] = cuda_ms(
                     lambda: fa.fused_bwd_reference(*x, do, scale))
-            log(f"[fused kernel] wide head {tag}: route 'cuda_cores' "
+            log(f"[fused kernel] wide head {tag}: route {route!r} "
                 + " ".join(f"{k}={v!r}" for k, v in row.items()))
             del x, do, want, got, o
 
@@ -2096,6 +2342,11 @@ def main() -> int:
             f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 1)} B, hp_bwd_tc_dkdv_kernel "
             f"(K8, K10, K12) {hp_lib.vtx_hp_bwd_tc_smem(d, 0)} B, "
             f"hp_bwd_tc_dq_kernel {hp_lib.vtx_hp_bwd_tc_smem(d, 1)} B")
+    for d in (192, 256):
+        log(f"[build] dynamic shared memory of the wide tiles at D <= {d}: "
+            f"attn_fwd_tc_kernel {fwd_lib.vtx_attn_fwd_tc_smem(d)} B, "
+            f"hp_bwd_tc_dkdv_kernel {hp_lib.vtx_hp_bwd_tc_smem(d, 0)} B, "
+            f"hp_bwd_tc_dq_kernel {hp_lib.vtx_hp_bwd_tc_smem(d, 1)} B")
 
     every = counter(*ALL_COUNTS)
     kernel, worst = phase_kernel(fa, dev)
@@ -2115,7 +2366,9 @@ def main() -> int:
     bwd32 = fa.build_bwd_kernels()
     log(f"[build bwd] dynamic shared memory of attn_bwd_kernel (fp32 K2) "
         f"at D <= 32, 64, 128: "
-        f"{[bwd32.vtx_attn_bwd_smem(d) for d in (32, 64, 128)]} B")
+        f"{[bwd32.vtx_attn_bwd_smem(d) for d in (32, 64, 128)]} B; of "
+        f"attn_bwd_wide_kernel (K2 past D 128, every dtype) "
+        f"{bwd32.vtx_attn_bwd_smem(256)} B")
     bwd, bwd_worst = phase_bwd_kernel(fa, dev)
     n = phase_grad(every, dev, ckpt_path)
     check(n == only(ATTN_FWD_LAUNCHES=12, ATTN_BWD_LAUNCHES=12),
@@ -2182,6 +2435,10 @@ def main() -> int:
         f"bf16 and fp16) {mf.build_kernels().vtx_fc2_bwd_smem()} B")
     mlp_k, mlp_worst = phase_mlp_kernel(mf, dev)
     check_redesigned(fa, mf, dev)
+    # head dims over 128 on every route (its profiler checks stay ahead of
+    # the trainer phases 19-22, after which a session records nothing)
+    wide_launches, wide_rows, wide_worst = phase_wide_heads(every, fa, fb, mf,
+                                                            dev)
     with check_fc2_bwd(mf) as k3:
         n = phase_grad(every, dev, ckpt_path, tag="grad pallas_mlp",
                        use_pallas_mlp=True)
@@ -2391,6 +2648,33 @@ def main() -> int:
                 "library_ms": row["library_ms"],
                 **({"unfused_ms": row["unfused_ms"]} if "unfused_ms" in row
                    else {})})
+    # one line for each kernel at a head dim of 256 in each dtype (the wide
+    # tensor-core tiles in bf16 and fp16, but K2 and K4-K6 on the CUDA
+    # cores), counting the launches of drive_wide_heads
+    for dt_name in WIDE_DTYPES:
+        for name in WIDE_KERNELS:
+            row = wide_rows[(dt_name, name)]
+            d = row["shape"][3]
+            names = wide_kernel_names(name, dt_name, d)
+            wide_src = "attn_bwd.cu" if name == "attn_bwd" else \
+                "flash_blocked.cu" if name.startswith("flash") else \
+                "attn_fwd_tc.cu" if names[0].startswith("attn_fwd_tc") else \
+                "hp_bwd_tc.cu" if names[0].startswith("hp_bwd_tc") else \
+                "attn_fwd.cu" if names[0].startswith("attn_fwd") else \
+                "fused_attn_fwd.cu" if names[0].startswith("fused") else \
+                "hp_bwd.cu"
+            kernels.append({
+                "name": f"{name}[{dt_name},d{d}]", "route": "cuda",
+                "source": src + wide_src, "replaces": replaces[name],
+                "dtype": dt_name, "head_dim": d, "path": "drive_wide_heads",
+                "kernels": names,
+                "launches": wide_launches[dt_name][
+                    f"{name.upper()}_LAUNCHES"],
+                "max_abs_err": wide_worst[(dt_name, name)],
+                "shape": row["shape"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -97,6 +97,35 @@ def test_attn_bwd_reference_matches_k2(dtype, s):
         (1e-3 if bf16 else 1e-5)
 
 
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attn_bwd_reference_matches_k2_wide_heads(dtype, d):
+    # F8: K1 (with stats) and K2 at head dims over 128 that JAX's head-pair
+    # kernels take; limits as test_attn_bwd_reference_matches_k2. At D 192
+    # the scale is not a power of two, so q̂ holds the port to JAX's
+    # rounding of the scale to the element type (_q_hat)
+    b, s = 1, 40
+    qkv = _normal((b, s, 3 * H * d), seed=d)
+    do = _normal((b, s, H * d), seed=d + 1)
+    scale = d ** -0.5
+    bf16 = dtype == "bfloat16"
+    o, st, dqkv_want, dbias_want = _jax_k1_k2(qkv, do, H, scale, bf16)
+    dt = getattr(torch, dtype)
+    o_got, st_got = fa.attn_fwd(torch.tensor(qkv).to(dt), H, scale,
+                                with_stats=True)
+    assert _rel_err(o_got.float().numpy(), o) <= (2e-2 if bf16 else 1e-5)
+    if not bf16:  # the backward below takes JAX's stats, as the test above
+        np.testing.assert_allclose(st_got.numpy(), st, rtol=1e-5, atol=1e-5)
+    dqkv, dbias = fa.attn_bwd(
+        *(torch.tensor(a).to(dt) for a in (qkv, do, o)),
+        torch.tensor(st, dtype=torch.float32), H, scale)
+    assert dqkv.shape == (b, s, 3 * H * d) and dqkv.dtype == dt
+    assert _rel_err(dqkv.float().numpy(), dqkv_want) <= \
+        (2e-2 if bf16 else 1e-5)
+    assert _rel_err(dbias.sum(0).numpy(), dbias_want) <= \
+        (1e-3 if bf16 else 1e-5)
+
+
 def _jax_proj_attention_grads(x, w, b, cot, bf16):
     """jax.grad of sum(qkv_proj_attention(x, w, b) · cot) in interpret
     mode; x in the compute dtype, w and b fp32."""
@@ -154,6 +183,42 @@ def test_qkv_proj_attention_grads_match_jax(has_bias, dtype):
     for name, g, ref in zip(("dx", "dW", "db"), got, want):
         assert g.shape == ref.shape, name
         assert _rel_err(g, ref) <= (2e-2 if bf16 else 1e-5), name
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_qkv_proj_attention_wide_heads_match_jax(dtype, d):
+    """F8: the values, dx, dW and db of `qkv_proj_attention` with 2 heads
+    of 192 and 256, against the JAX custom VJP on its kernels (interpret
+    mode); limits as test_qkv_proj_attention_grads_match_jax."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vision_transformers_torch_xla_tpu.ops.flash_attention import (
+        qkv_proj_attention,
+    )
+
+    bf16 = dtype == "bfloat16"
+    x = _normal((1, 40, H * d), 31)
+    w = _normal((H * d, 3 * H * d), 32, 0.05)
+    b = _normal((3 * H * d,), 33, 0.1)
+    cot = _normal((1, 40, H * d), 34)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    with pltpu.force_tpu_interpret_mode():
+        want_o = np.asarray(qkv_proj_attention(
+            jnp.asarray(x, jdt), jnp.asarray(w), jnp.asarray(b), H).astype(
+                jnp.float32))
+    with torch.no_grad():
+        got_o = fa.qkv_proj_attention(
+            torch.from_numpy(x).to(getattr(torch, dtype)),
+            torch.from_numpy(w), torch.from_numpy(b), H)
+    tol = 2e-2 if bf16 else 1e-5
+    assert _rel_err(got_o.float().numpy(), want_o) <= tol
+    want = _jax_proj_attention_grads(x, w, b, cot, bf16)
+    got = _port_proj_attention_grads(x, w, b, cot, bf16)
+    for name, g, ref in zip(("dx", "dW", "db"), got, want):
+        assert g.shape == ref.shape, name
+        assert _rel_err(g, ref) <= tol, name
 
 
 def _rel_l2(got, want) -> float:
@@ -337,3 +402,51 @@ def test_proj_attention_backward_runs_the_kernels(cuda_device):
     assert (fa.ATTN_FWD_LAUNCHES - f0, fa.ATTN_BWD_LAUNCHES - b0) == (1, 1)
     for g, ref in zip((xt.grad, wt.grad, bt.grad), want):
         assert _rel_err(g.float().cpu(), ref) <= 2e-2
+
+
+# F8: head dims over the tensor cores' 128. K1 runs the wide tensor-core
+# tiles up to 256 in bf16 and fp16; K2 at every head dim over 128, and every
+# fp32 call, the CUDA cores' run-time head dim (csrc/attn_bwd.cu,
+# csrc/attn_fwd.cu, D 320 and 1024 too). o to WIDE_O_REL of its largest
+# value (a
+# flipped rounding of p or of o itself: bf16 2^-8, fp16 2^-11 per ulp; fp32
+# summation order and expf only), the stats to 1e-4, the backward as
+# BWD_RTOL.
+WIDE_CASES = [(dt, (2, 197, 2, d)) for dt in ("bfloat16", "float16")
+              for d in (136, 192, 256)] + [
+    (dt, (1, 77, 2, 320)) for dt in ("bfloat16", "float16", "float32")] + [
+    ("float32", (2, 197, 2, d)) for d in (136, 256)] + [
+    (dt, (1, 64, 1, 1024)) for dt in ("bfloat16", "float32")]
+WIDE_O_REL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", WIDE_CASES)
+def test_wide_heads_k1_k2_match_plain_on_cuda(cuda_device, dtype, shape):
+    b, s, h, d = shape
+    dev, dt = cuda_device, getattr(torch, dtype)
+    qkv = torch.from_numpy(_normal((b, s, 3 * h * d), 7)).to(dev, dt)
+    do = torch.from_numpy(_normal((b, s, h * d), 8)).to(dev, dt)
+    wide_tc = dtype != "float32" and d <= fa.MAX_WIDE_HEAD_DIM
+    assert fa.attn_kernel_route(qkv, h) == \
+        ("tensor_cores" if wide_tc else "cuda_cores")
+    f0, b0 = fa.ATTN_FWD_LAUNCHES, fa.ATTN_BWD_LAUNCHES
+    o, st = fa.attn_fwd(qkv, h, with_stats=True)
+    o2, st2 = fa.attn_fwd(qkv, h, with_stats=True)
+    assert fa.attn_kernel_route(qkv, h, do, o) == "cuda_cores"
+    dqkv, dbias = fa.attn_bwd(qkv, do, o, st, h)
+    again = fa.attn_bwd(qkv, do, o, st, h)
+    torch.cuda.synchronize()
+    assert (fa.ATTN_FWD_LAUNCHES - f0, fa.ATTN_BWD_LAUNCHES - b0) == (2, 2)
+    # both kernels are deterministic: a second run is bitwise the first
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+    o_r, st_r = fa.attn_fwd_reference(qkv, h, d ** -0.5, with_stats=True)
+    assert o.dtype == dt
+    assert _rel_err(o.float().cpu(), o_r.float().cpu()) <= WIDE_O_REL[dtype]
+    torch.testing.assert_close(st, st_r, rtol=1e-4, atol=1e-4)
+    dqkv_r, dbias_r = fa.attn_bwd_reference(qkv, do, o, st, h, d ** -0.5)
+    dqkv_rtol, dbias_rtol = BWD_RTOL[dtype]
+    assert dqkv.dtype == dt
+    assert _rel_err(dqkv.float().cpu(), dqkv_r.float().cpu()) <= dqkv_rtol
+    assert _rel_err(dbias.cpu(), dbias_r.cpu()) <= dbias_rtol

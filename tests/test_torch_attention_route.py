@@ -263,3 +263,129 @@ def test_trainer_fp32_on_the_card(cuda_device, flag, want):
     ctx = trainer.setup(cfg)
     assert [b.attn.use_pallas for b in ctx.model.blocks] == \
         [want] * len(ctx.model.blocks)
+
+
+# F8: the three route functions at head dims over the tensor cores' 128, in
+# each dtype, on CPU tensors. K1 and K9 (attn_kernel_route on the qkv
+# buffer), K7 and K11 (fused_kernel_route) and K8, K10 and K12
+# (bwd_kernel_route) take the wide tensor-core tiles up to 256 in bf16 and
+# fp16; K2 (attn_kernel_route with dO and O) the CUDA cores past 128; fp32
+# and every head dim past 256 the CUDA cores.
+@pytest.mark.parametrize("d", [136, 192, 256, 320])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_wide_head_routes(dtype, d):
+    b, s, h = 2, 9, 2
+    qkv = torch.zeros((b, s, 3 * h * d), dtype=dtype)
+    do = torch.zeros((b, s, h * d), dtype=dtype)
+    tc = dtype != torch.float32 and d <= fa.MAX_WIDE_HEAD_DIM
+    want = "tensor_cores" if tc else "cuda_cores"
+    assert fa.attn_kernel_route(qkv, h) == want
+    assert fa.attn_kernel_route(qkv, h, do, do) == "cuda_cores"
+    q, k, v = fa.heads(qkv, h)
+    assert fa.fused_kernel_route(q, k, v) == want
+    assert fa.bwd_kernel_route(q, k, v, fa._head_major(do, h)) == want
+
+
+# A tiny ViT with 2 heads of 192 (a head dim JAX's rule sends to the
+# kernels) built with use_pallas_attn=True in both packages: the JAX model
+# runs qkv_proj_attention -> K1/K2 in interpret mode, the port its
+# qkv_proj_attention (their plain versions on the CPU). fp32 to 1e-4
+# (summation order only; tests/test_torch_vit.py's limit); bf16 logits to
+# 5e-3 and gradients to 2e-2 of each parameter's largest |grad|: both share
+# every rounding point, and another summation order flips a bf16 rounding
+# of p, t or a stored value now and then, a few ulps of one term.
+WIDE_CFG = dict(img_size=16, patch_size=4, embed_dim=384, depth=1,
+                num_heads=2, num_classes=10, init_values=0.5,
+                global_pool="token")
+WIDE_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-3, 2e-2)}
+
+
+def _counting(fn, calls):
+    def wrapped(*args, **kwargs):
+        calls.append(tuple(args[0].shape))
+        return fn(*args, **kwargs)
+
+    return wrapped
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def wide_vit_runs(request):
+    """The JAX and the port's logits and grads of sum(logits * w) for the
+    wide-head ViT in one dtype, and the qkv_proj_attention calls each saw."""
+    import jax
+    import jax.numpy as jnp
+    from flax import linen as nn
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vision_transformers_torch_xla_tpu.models.vit import (
+        VisionTransformer as JaxViT,
+    )
+    from vision_transformers_torch_xla_tpu.ops import (
+        flash_attention as jfa,
+    )
+    from vision_transformers_torch_xla_tpu_torch.ckpt.convert import (
+        flax_to_state_dict,
+    )
+    from vision_transformers_torch_xla_tpu_torch.models.vit import (
+        VisionTransformer,
+    )
+
+    dtype = request.param
+    rng = np.random.default_rng(5)
+    images = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    w = rng.standard_normal((2, 10)).astype(np.float32)
+    model = JaxViT(**WIDE_CFG, dtype=getattr(jnp, dtype),
+                   use_pallas_attn=True)
+    jax_calls, port_calls = [], []
+    with pytest.MonkeyPatch.context() as mp, \
+            pltpu.force_tpu_interpret_mode():
+        mp.setattr(jfa, "qkv_proj_attention",
+                   _counting(jfa.qkv_proj_attention, jax_calls))
+        variables = model.init(jax.random.key(0), jnp.asarray(images))
+        params = nn.meta.unbox(variables)["params"]
+        del jax_calls[:]
+
+        def loss(p):
+            logits = model.apply({"params": p}, jnp.asarray(images))
+            return (logits.astype(jnp.float32) * w).sum(), logits
+
+        (_, logits), grads = jax.value_and_grad(loss, has_aux=True)(params)
+    params = jax.tree.map(np.asarray, params)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "qkv_proj_attention",
+                   _counting(layers.qkv_proj_attention, port_calls))
+        port = VisionTransformer(**WIDE_CFG, dtype=getattr(torch, dtype),
+                                 use_pallas_attn=True)
+        port.load_state_dict(flax_to_state_dict(params), strict=True)
+        got = port(torch.from_numpy(images))
+        (got.float() * torch.from_numpy(w)).sum().backward()
+    want_grads = flax_to_state_dict(jax.tree.map(
+        lambda g: np.asarray(g.astype(jnp.float32)), grads))
+    return dict(dtype=dtype, jax_calls=jax_calls, port_calls=port_calls,
+                logits=(got.detach().float().numpy(),
+                        np.asarray(logits.astype(jnp.float32))),
+                grads={k: (p.grad.float().numpy(), want_grads[k].numpy())
+                       for k, p in port.named_parameters()})
+
+
+def test_wide_head_vit_takes_the_kernel_route(wide_vit_runs):
+    seq = (WIDE_CFG["img_size"] // WIDE_CFG["patch_size"]) ** 2 + 1
+    assert len(wide_vit_runs["jax_calls"]) == WIDE_CFG["depth"]
+    assert wide_vit_runs["port_calls"] == \
+        [(2, seq, WIDE_CFG["embed_dim"])] * WIDE_CFG["depth"]
+
+
+def test_wide_head_vit_logits_match_jax(wide_vit_runs):
+    got, want = wide_vit_runs["logits"]
+    atol = WIDE_TOL[wide_vit_runs["dtype"]][0]
+    assert got.shape == want.shape == (2, 10)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+def test_wide_head_vit_grads_match_jax(wide_vit_runs):
+    rel = WIDE_TOL[wide_vit_runs["dtype"]][1]
+    assert any("attn.qkv" in k for k in wide_vit_runs["grads"])
+    for k, (got, want) in wide_vit_runs["grads"].items():
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=rel * np.abs(want).max(), err_msg=k)

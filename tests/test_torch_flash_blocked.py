@@ -163,6 +163,30 @@ def test_qkv_cols_matches_jax_fp32():
                                atol=ATOL, rtol=0)
 
 
+def test_qkv_cols_wide_heads_match_jax_fp32():
+    # F8: 2 heads of 192 at S = 1025 through the blocked route (K4-K6),
+    # which JAX's flash_attention_blocked takes at any head dim
+    from vision_transformers_torch_xla_tpu.ops.flash_attention import (
+        fused_attention_qkv_cols as jax_qkv_cols,
+    )
+
+    b, s, h, d = 1, 1025, 2, 192
+    qkv = _rand((b, s, 3 * h * d), 13)
+    do = _rand((b, s, h * d), 14)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda x: jax_qkv_cols(x, h), jnp.asarray(qkv))
+        (want_g,) = vjp(jnp.asarray(do))
+    x = torch.from_numpy(qkv).requires_grad_()
+    got = fa.fused_attention_qkv_cols(x, h)
+    assert type(got.grad_fn).__name__ == "FlashAttentionBlockedBackward"
+    got.backward(torch.from_numpy(do))
+    assert got.shape == (b, s, h * d)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_g),
+                               atol=ATOL, rtol=0)
+
+
 def test_qkv_cols_short_sequence_takes_the_head_pair_route():
     # S = 1024 is the head-pair kernels' (K9, K10), not the blocked ones'
     x = torch.zeros((1, 1024, 3 * 2 * 64), requires_grad=True)
@@ -404,8 +428,10 @@ def test_kernels_contract_on_cuda(cuda_device):
     before = fb.FLASH_FWD_LAUNCHES
     o, _ = fb.flash_fwd(x.float(), x.float(), x.float())
     assert fb.FLASH_FWD_LAUNCHES == before + 1 and o.dtype == torch.float32
-    y = torch.zeros((1, 2, 1100, 192), device=cuda_device,
-                    dtype=torch.bfloat16)
+    # past the CUDA-core kernels' head dim it raises (over 128 they run:
+    # test_wide_heads_blocked_match_plain_on_cuda)
+    y = torch.zeros((1, 2, 1100, fb.MAX_CUDA_CORE_HEAD_DIM + 2),
+                    device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         fb.flash_fwd(y, y, y)
     qkv = torch.zeros((1, 1100, 3 * 2 * 64), device=cuda_device,
@@ -414,3 +440,43 @@ def test_kernels_contract_on_cuda(cuda_device):
     out = fa.fused_attention_qkv_cols(qkv, 2)
     assert fb.FLASH_FWD_LAUNCHES == before + 1
     assert type(out.grad_fn).__name__ != "NoneType"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [
+    (dt, d) for dt in ("bfloat16", "float16") for d in (136, 192, 256)] + [
+    (dt, 320) for dt in ("bfloat16", "float16", "float32")] + [
+    ("float32", 256), ("bfloat16", 1024)])
+def test_wide_heads_blocked_match_plain_on_cuda(cuda_device, dtype, d):
+    # F8: K4, K5 and K6 at a head dim over 128 on the CUDA cores
+    # (csrc/flash_blocked.cu's 64-column chunks) in every dtype, through
+    # fused_attention_qkv_cols at S > 1024, against their plain versions:
+    # bf16 to 2e-2 of the largest value, fp16 5e-3, fp32 1e-4 (as
+    # test_kernels_fp32_fp16_on_cuda); lse to 1e-4; two runs bitwise equal
+    b, s, h = 1, 1100, 2
+    dt = getattr(torch, dtype)
+    rel = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}[dtype]
+    qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 90)).to(cuda_device, dt)
+    do = torch.from_numpy(_rand((b, s, h * d), 91)).to(cuda_device, dt)
+    q, k, v = fb.heads(qkv, h)
+    assert not fb.tensor_cores(q)
+    x = qkv.clone().requires_grad_()
+    before = _counts()
+    out = fa.fused_attention_qkv_cols(x, h)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1,
+                         before[3])
+    o, lse = fb.flash_fwd(q, k, v)
+    assert torch.equal(o.transpose(1, 2).reshape(b, s, h * d), out)
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    assert out.dtype == dt
+    assert (o.float() - o_r.float()).abs().max().item() <= \
+        rel * o_r.float().abs().max().item()
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=0)
+    g4 = do.view(b, s, h, d).transpose(1, 2)
+    ref = fb.flash_bwd_reference(q, k, v, o, lse, g4, d ** -0.5)
+    for g, r in zip(fb.heads(x.grad, h), ref):
+        assert g.dtype == dt and torch.isfinite(g.float()).all()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= rel * r.float().abs().max().item()

@@ -254,8 +254,8 @@ def test_fused_attention_qkv_matches_jax_fp32(s):
 def test_wide_heads_take_the_kernels_and_match_jax(dtype, entry, d):
     # F8: a head dim over 128 at S <= 1024, which JAX pads to a multiple of
     # 8 and runs in its kernels, runs the port's autograd Function on the
-    # CUDA-core kernels' route in every dtype (here their plain versions),
-    # with values and gradients as JAX's
+    # wide tensor-core tiles in bf16, the CUDA cores in fp32 (here their
+    # plain versions), with values and gradients as JAX's
     import jax
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
@@ -279,8 +279,9 @@ def test_wide_heads_take_the_kernels_and_match_jax(dtype, entry, d):
                               for t in x))
         want_g = vjp(jnp.asarray(g.float().numpy(), jdt))
     views = x if len(x) == 3 else x[0].permute(2, 0, 3, 1, 4).unbind(0)
-    assert fa.fused_kernel_route(*views) == "cuda_cores"
-    assert fa.bwd_kernel_route(*views, views[0]) == "cuda_cores"
+    route = "cuda_cores" if dtype == "float32" else "tensor_cores"
+    assert fa.fused_kernel_route(*views) == route
+    assert fa.bwd_kernel_route(*views, views[0]) == route
     before = _counts()
     got = getattr(fa, entry)(*x)
     assert type(got.grad_fn).__name__.startswith("Fused")
@@ -429,10 +430,11 @@ def _route_case(case):
     dt = torch.float32 if case == "fp32" else (
         torch.float16 if case == "fp16" else torch.bfloat16)
     d = {"d48": 48, "d6": 6, "odd_d": 7, "d136": 136, "fp16_d256": 256,
-         "fp32_d192": 192}.get(case, 64)
+         "fp32_d192": 192, "d320": 320, "fp16_d320": 320, "d137": 137
+         }.get(case, 64)
     if case == "fp32_d192":
         dt = torch.float32
-    if case == "fp16_d256":
+    if case in ("fp16_d256", "fp16_d320"):
         dt = torch.float16
     if case == "s1100":
         return [torch.zeros((1, 2, 1100, d), dtype=dt) for _ in range(3)]
@@ -454,15 +456,17 @@ def _route_case(case):
     ("fp16", "tensor_cores"), ("qkv_views", "tensor_cores"),
     ("d48", "tensor_cores"), ("d6", "tensor_cores_copy"),
     ("odd_d", "tensor_cores_copy"), ("layouts_differ", "tensor_cores_copy"),
-    ("unaligned", "tensor_cores_copy"), ("d136", "cuda_cores"),
-    ("fp16_d256", "cuda_cores"), ("fp32_d192", "cuda_cores"),
-    ("s1100", "reference")])
+    ("unaligned", "tensor_cores_copy"), ("d136", "tensor_cores"),
+    ("fp16_d256", "tensor_cores"), ("fp32_d192", "cuda_cores"),
+    ("d137", "tensor_cores_copy"), ("d320", "cuda_cores"),
+    ("fp16_d320", "cuda_cores"), ("s1100", "reference")])
 def test_fused_kernel_route(case, route):
     # fp32 stays on the CUDA cores; bf16 and fp16 take the tensor cores,
     # in place where TMA reads q, k, v (one layout, a head dim that is a
-    # multiple of 8, 16-byte-aligned data and strides), else after a copy;
-    # a head dim over 128 takes the CUDA cores in every dtype; past the
-    # kernels' S the entry points take reference_attention, as JAX's do
+    # multiple of 8, 16-byte-aligned data and strides), else after a copy,
+    # up to a head dim of 256 (the wide tiles); a wider one takes the CUDA
+    # cores in every dtype; past the kernels' S the entry points take
+    # reference_attention, as JAX's do
     assert fa.fused_kernel_route(*_route_case(case)) == route
 
 
@@ -488,15 +492,16 @@ def _bwd_route_case(case):
     ("fp16", "tensor_cores"), ("qkv_views", "tensor_cores"),
     ("d48", "tensor_cores"), ("d6", "tensor_cores_copy"),
     ("odd_d", "tensor_cores_copy"), ("layouts_differ", "tensor_cores_copy"),
-    ("do_unaligned", "tensor_cores_copy"), ("d136", "cuda_cores"),
-    ("fp16_d256", "cuda_cores"), ("fp32_d192", "cuda_cores"),
-    ("s1100", "reference")])
+    ("do_unaligned", "tensor_cores_copy"), ("d136", "tensor_cores"),
+    ("fp16_d256", "tensor_cores"), ("fp32_d192", "cuda_cores"),
+    ("d137", "tensor_cores_copy"), ("d320", "cuda_cores"),
+    ("fp16_d320", "cuda_cores"), ("s1100", "reference")])
 def test_bwd_kernel_route(case, route):
     # K8, K10 and K12: fp32 stays on the CUDA cores; bf16 and fp16 take the
     # tensor cores, in place where TMA reads q, k, v (one layout) and dO (its
-    # own), else after one copy of all four; a head dim over 128 takes the
-    # CUDA cores in every dtype; past the kernels' S, the gradient of
-    # reference_attention
+    # own), else after one copy of all four, up to a head dim of 256; a
+    # wider one takes the CUDA cores in every dtype; past the kernels' S,
+    # the gradient of reference_attention
     assert fa.bwd_kernel_route(*_bwd_route_case(case)) == route
 
 
@@ -761,15 +766,25 @@ def test_fused_kernels_contract_on_cuda(cuda_device):
                                    (1, 1, 64, 1024)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 def test_wide_heads_match_plain_on_cuda(cuda_device, dtype, shape):
-    # F8: a head dim over 128 runs the CUDA-core K7, K8, K11 and K12 in the
-    # inputs' dtype, one launch each, against their plain versions
+    # F8: a head dim over 128 runs K7, K8, K11 and K12 in the inputs' dtype
+    # (the wide tensor-core tiles up to 256 in bf16 and fp16, the CUDA
+    # cores in fp32 and past 256), one launch each, against their plain
+    # versions; the tensor-core backward run twice is bitwise the same
     b, h, s, d = shape
     dt = getattr(torch, dtype)
     x = [torch.from_numpy(_rand(shape, 70 + i)).to(cuda_device, dt)
          for i in range(3)]
     do = torch.from_numpy(_rand(shape, 73)).to(cuda_device, dt)
     rel = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}[dtype]
-    assert fa.fused_kernel_route(*x) == "cuda_cores"
+    tc = dtype != "float32" and d <= fa.MAX_WIDE_HEAD_DIM
+    want_route = ("tensor_cores" if d % 8 == 0 else "tensor_cores_copy") \
+        if tc else "cuda_cores"
+    assert fa.fused_kernel_route(*x) == want_route
+    assert fa.bwd_kernel_route(*x, do) == want_route
+    if tc:
+        assert torch.equal(fa.fused_fwd(*x), fa.fused_fwd(*x))
+        assert all(torch.equal(a, c) for a, c in zip(
+            fa.fused_bwd(*x, do), fa.fused_bwd(*x, do)))
     qkv = torch.stack([t.transpose(1, 2) for t in x], dim=2)
     for run in ("fused", "qkv"):
         leaves = [t.clone().requires_grad_() for t in

@@ -120,6 +120,40 @@ def test_qkv_cols_matches_jax_fp32(s):
     _close(x.grad, np.asarray(want_g), FP32_RTOL, "dqkv")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qkv_cols_wide_heads_match_jax(dtype):
+    # F8: 2 heads of 192 at S = 197, a head dim JAX's head-pair kernels
+    # take (a multiple of 64, an even head count), through the head-pair
+    # route; the JAX function in interpret mode, the port's plain versions
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vision_transformers_torch_xla_tpu.ops.flash_attention import (
+        fused_attention_qkv_cols as jax_qkv_cols,
+    )
+
+    b, s, d = 1, 197, 192
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(_rand((b, s, 3 * H * d), 41)).to(dt)
+    do = torch.from_numpy(_rand((b, s, H * d), 42)).to(dt)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda x: jax_qkv_cols(x, H),
+                            jnp.asarray(qkv.float().numpy(), jdt))
+        (want_g,) = vjp(jnp.asarray(do.float().numpy(), jdt))
+    x = qkv.clone().requires_grad_()
+    got = fa.fused_attention_qkv_cols(x, H)
+    assert type(got.grad_fn).__name__ == "HeadPairAttentionBackward"
+    got.backward(do)
+    assert got.shape == (b, s, H * d) and x.grad.dtype == dt
+    rtol = BF16_RTOL if dtype == "bfloat16" else FP32_RTOL
+    _close(got.detach().float(), np.asarray(want.astype(jnp.float32)), rtol,
+           "o")
+    _close(x.grad.float(), np.asarray(want_g.astype(jnp.float32)), rtol,
+           "dqkv")
+
+
 def test_hp_bwd_refuses_a_do_that_does_not_fit():
     qkv = torch.zeros((1, 10, 3 * H * D))
     with pytest.raises(ValueError, match="does not fit"):
@@ -170,8 +204,52 @@ def test_hp_kernels_contract_on_cuda(cuda_device):
         (before[0] + 1, before[1] + 1)
     _close(o.cpu(), fa.attn_fwd_reference(qkv, H, D ** -0.5)[0].cpu(), 1e-4)
     _close(g.cpu(), fa.hp_bwd_reference(qkv, do, H, D ** -0.5).cpu(), 1e-4)
-    y = torch.zeros((1, 64, 3 * H * 192), device=cuda_device,
+    # past the CUDA-core kernels' head dim it raises (over 128 it runs:
+    # test_wide_heads_hp_match_plain_on_cuda)
+    wide = fa.MAX_CUDA_CORE_HEAD_DIM + 2
+    y = torch.zeros((1, 64, 3 * H * wide), device=cuda_device,
                     dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.hp_bwd(y, torch.zeros((1, 64, H * 192), device=cuda_device,
+        fa.hp_bwd(y, torch.zeros((1, 64, H * wide), device=cuda_device,
                                  dtype=torch.bfloat16), H)
+
+
+# F8: head dims over 128 through fused_attention_qkv_cols at S <= 1024. K9
+# and K10 run the wide tensor-core tiles up to 256 in bf16 and fp16 (two
+# calls bitwise equal), the CUDA cores in fp32 and past 256; o and dqkv to
+# WIDE_REL of their largest value (as tests/test_torch_fused_attention.py's
+# wide heads)
+WIDE_REL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [
+    (dt, d) for dt in ("bfloat16", "float16") for d in (136, 192, 256)] + [
+    (dt, 320) for dt in ("bfloat16", "float16", "float32")] + [
+    ("float32", 192), ("bfloat16", 1024)])
+def test_wide_heads_hp_match_plain_on_cuda(cuda_device, dtype, d):
+    b, s, h = 2, 197, 2
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 80)).to(cuda_device, dt)
+    do = torch.from_numpy(_rand((b, s, h * d), 81)).to(cuda_device, dt)
+    route = "tensor_cores" if dtype != "float32" and \
+        d <= fa.MAX_WIDE_HEAD_DIM else "cuda_cores"
+    assert fa.attn_kernel_route(qkv, h) == route
+    assert fa.bwd_kernel_route(*fa.heads(qkv, h), fa._head_major(do, h)) == \
+        route
+    x = qkv.clone().requires_grad_()
+    before = (fa.HP_FWD_LAUNCHES, fa.HP_BWD_LAUNCHES)
+    o = fa.fused_attention_qkv_cols(x, h)
+    o.backward(do)
+    again = fa.hp_bwd(qkv, do, h)
+    torch.cuda.synchronize()
+    assert (fa.HP_FWD_LAUNCHES, fa.HP_BWD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 2)
+    assert torch.equal(x.grad, again)
+    rel = WIDE_REL[dtype]
+    o_r = fa.attn_fwd_reference(qkv, h, d ** -0.5)[0]
+    g_r = fa.hp_bwd_reference(qkv, do, h, d ** -0.5)
+    for got, want in ((o, o_r), (x.grad, g_r)):
+        assert got.dtype == dt
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= rel * want.float().abs().max().item()

@@ -18,10 +18,13 @@ Each run prints one JSON line: the tree, the card's name and power limit
 launch cost included) in each of --rounds rounds, on seeded inputs of
 --dtype (bfloat16 by default; float16 and float32 run the kernels' other
 instantiations, which trees before they existed refuse) at (B, S, H, D) =
-(--batch, --seq, 12, --head_dim), and ptxas's registers and spills for
-each kernel this process built (none when build/kernels/ held it; with
---build_all every library of the tree is built first, so that two trees'
-ptxas reports can be compared kernel by kernel).
+(--batch, --seq, --heads (12 by default), --head_dim), and ptxas's
+registers and spills for each kernel this process built (none when
+build/kernels/ held it; with --build_all every library of the tree is
+built first, so that two trees' ptxas reports can be compared kernel by
+kernel). A kernel the tree cannot run at the shape (before the head dims
+over 128 ran on them, K1, K2, K9 and K10 raised there) gets its error
+message under "errors", and the others are timed.
 With --profile it adds, from a torch.profiler trace of 10 calls of each
 wrapper, the device time per call of each CUDA kernel it launched (the
 backward's dq and dk/dv launches apart).
@@ -57,7 +60,6 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-H = 12
 
 
 def cuda_ms(fn, reps: int, warmup: int = 5) -> float:
@@ -81,7 +83,7 @@ def seeded(shape, seed: int, dtype):
     return torch.from_numpy(x).to("cuda", dtype)
 
 
-def calls(fa, fb, mf, b: int, s: int, D: int, dtype):
+def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
     """Each kernel's wrapper call on its seeded inputs."""
     qkv = seeded((b, s, 3 * H * D), 1, dtype)
     do = seeded((b, s, H * D), 2, dtype)
@@ -189,6 +191,7 @@ def main() -> int:
                     help="checkout whose port is timed (default: this one)")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--seq", type=int, default=197)
+    ap.add_argument("--heads", type=int, default=12)
     ap.add_argument("--kernels", nargs="+", default=["hp_fwd", "hp_bwd"])
     ap.add_argument("--head_dim", type=int, default=64)
     ap.add_argument("--dtype", default="bfloat16",
@@ -212,12 +215,14 @@ def main() -> int:
         "vision_transformers_torch_xla_tpu_torch.ops.cuda_build")
     mf = importlib.import_module(
         "vision_transformers_torch_xla_tpu_torch.ops.mlp_fused")
-    if args.build_all:
-        for mod in (fa, fb, mf):
-            for name in dir(mod):
-                if name.startswith("build_"):
-                    getattr(mod, name)()
-    fns = calls(fa, fb, mf, args.batch, args.seq, args.head_dim,
+    if args.build_all:  # one nvcc per library, all started together
+        from concurrent.futures import ThreadPoolExecutor
+
+        builds = [getattr(mod, name) for mod in (fa, fb, mf)
+                  for name in dir(mod) if name.startswith("build_")]
+        with ThreadPoolExecutor(len(builds)) as pool:
+            list(pool.map(lambda build: build(), builds))
+    fns = calls(fa, fb, mf, args.batch, args.seq, args.heads, args.head_dim,
                 getattr(torch, args.dtype))
     unknown = sorted(set(args.kernels) - set(fns))
     if unknown:
@@ -226,14 +231,19 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    ms = {name: [cuda_ms(fns[name], args.reps) for _ in range(args.rounds)]
-          for name in args.kernels}
+    ms, errors = {}, {}
+    for name in args.kernels:
+        try:
+            ms[name] = [cuda_ms(fns[name], args.reps)
+                        for _ in range(args.rounds)]
+        except (ValueError, RuntimeError, TypeError) as e:
+            errors[name] = str(e)[:300]
     out = {"tree": args.repo, "module": fa.__file__, "card": card,
-           "shape": [args.batch, args.seq, H, args.head_dim],
+           "shape": [args.batch, args.seq, args.heads, args.head_dim],
            "dtype": args.dtype,
-           "ms": ms}
+           "ms": ms, "errors": errors}
     if args.profile:
-        out["device_ms_per_call"] = {n: profile(fns[n]) for n in args.kernels}
+        out["device_ms_per_call"] = {n: profile(fns[n]) for n in ms}
     out["ptxas"] = {name: [line.strip() for line in log.splitlines()
                     if "Function properties" in line or "registers" in line
                     or "spill" in line]

@@ -1,21 +1,24 @@
-// Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer, in fp32
-// on the CUDA cores, for Hopper.
+// Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer on the
+// CUDA cores, for Hopper: fp32 at every head dim, and bf16 and fp16 at head
+// dims over 128.
 //
 // Replaces the TPU kernel
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py
-// ::_hp_bwd_pi_kernel (K2) where it runs in fp32; bf16 and fp16 run on the
-// tensor cores (csrc/attn_bwd_tc.cu). Same function, per (b, h), from the
-// forward's (B, H, S, 2) row stats [m, rinv] (csrc/attn_fwd.cu, with stats):
-//   q^ = q * scale; s = q^ k^T over the S real keys; pu = exp(s - m), left
-//   unnormalized; do_n = dO * rinv; dv = pu^T do_n;
-//   delta = rowsum(dO * O); dp = dO v^T; t = (dp - delta) * pu;
-//   dq = (t k) * (rinv * scale); qn = q^ * rinv; dk = t^T qn.
-// That is the TPU kernel's cast order with every astype the identity, as
-// it is in fp32: the source is written on float alone. Every product
-// accumulates in fp32. dq, dk and dv are stored into one (B, S, 3*H*D)
-// dqkv buffer at the standard columns h*D, H*D + h*D and 2*H*D + h*D, and
-// their values summed over the sequence go to the (B, 3*H*D) qkv-bias
-// partials (one row per image) in the same column order.
+// ::_hp_bwd_pi_kernel (K2) where it runs in fp32, or at a head dim over 128;
+// bf16 and fp16 at D <= 128 run on the tensor cores (csrc/attn_bwd_tc.cu).
+// Same function, per (b, h), from the forward's (B, H, S, 2) row stats
+// [m, rinv] (K1 with stats), T the element type, rnd() its rounding:
+//   q^ = rnd(q * rnd(scale)) (JAX multiplies in T); s = q^ k^T over the S
+//   real keys; pu = exp(s - m),
+//   left unnormalized; do_n = rnd(dO * rinv); dv = rnd(pu)^T do_n;
+//   delta = rowsum(dO * O); dp = dO v^T; t = rnd((dp - delta) * pu);
+//   dq = (t k) * (rinv * scale); qn = rnd(q^ * rinv); dk = t^T qn.
+// That is the TPU kernel's cast order; in fp32 every rnd() is the identity.
+// Every product accumulates in fp32. dq, dk and dv are stored, rounded to
+// T, into one (B, S, 3*H*D) dqkv buffer at the standard columns h*D, H*D +
+// h*D and 2*H*D + h*D, and their fp32 values, before that rounding, summed
+// over the sequence go to the (B, 3*H*D) fp32 qkv-bias partials (one row
+// per image) in the same column order.
 //
 // What bounds it on an H100: the products. At B = 128, S = 197, 12 heads of
 // 64 the function needs s, dp, dv, dk and dq, 10 B H S^2 D = 38.2 GFLOP:
@@ -26,10 +29,10 @@
 // to 256; the products that sum over a tile's rows stop at its real rows
 // (rounded up to 8), the ones that sum over the head dim cannot.
 //
-// Design: csrc/flash_blocked.cu's register tiling of the fp32 K5 and K6,
-// which beat SDPA's fp32 backward, in one launch that runs each product
-// once. One block of 256 threads per (b, h) walks the 64-row key tiles and,
-// for each, the 64-row query tiles:
+// Design, fp32 at D <= 128 (attn_bwd_kernel): csrc/flash_blocked.cu's
+// register tiling of the fp32 K5 and K6, which beat SDPA's fp32 backward, in
+// one launch that runs each product once. One block of 256 threads per
+// (b, h) walks the 64-row key tiles and, for each, the 64-row query tiles:
 //   * s^T = K q^T and dp^T = V dO^T as register tiles: 256 threads as
 //     16 x 16, a thread owns 4 contiguous rows (ty * 4 + i) and the columns
 //     tx + 16 j, so A operands are read as float4 (broadcast in a
@@ -52,22 +55,37 @@
 // and H are bounded only by B H < 2^31. The head dim is 32, 64 or 128 at
 // compile time; a smaller one takes the next with its columns zero-filled.
 //
+// Design, any element type at D > 128 (attn_bwd_wide_kernel<T>): the same
+// walk and register tiles, with the head dim a run-time value up to 1024
+// in 64-column chunks. A block owns one chunk of one (b, h) (a grid of
+// B H ceil(D / 64) blocks) and writes dq, dk, dv and the bias partials of
+// its chunk's columns alone. For each (key tile, query tile) it sums s^T
+// and dp^T over the whole head dim, staging K, V, q^ and dO 64 columns at a
+// time (every block of a (b, h) sums them in the same order, so pu and t
+// are bitwise the same in each), then stages its chunk's K, qn and do_n for
+// the three products that write columns. Shared memory is the D = 64
+// kernel's, 105 KB, so two blocks share an SM; s and dp are computed once
+// per chunk (ceil(D / 64) times per (b, h)): right, and recorded as slow
+// (PERF.md §6), not fast.
+//
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
 // launches on the caller's stream; the host function takes the element
-// type's code (fp32 alone, elem.cuh's kF32) and returns cudaGetLastError().
+// type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "elem.cuh"
+
 namespace {
 
-constexpr int kF32 = 2;             // csrc/elem.cuh's code of float
 constexpr int kTile = 64;           // query rows and key rows of one tile
 constexpr int kThreads = 256;       // 16 x 16
 constexpr int kPA = kTile + 4;      // pitch of a transposed A operand
 constexpr int kPB = kTile + 1;      // pitch of a transposed B operand
 constexpr int kMaxSeq = 1024;
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 128;        // attn_bwd_kernel's, fp32
+constexpr int kMaxWideHeadDim = 1024;   // attn_bwd_wide_kernel's
 
 // The tensors of one call. qkv and dqkv are (B, S, C) with C = 3 H D; dO
 // and O (B, S, H D); st (B, H, S, 2) [m, rinv]; dbias (B, C); dq_sum
@@ -375,6 +393,249 @@ constexpr size_t smem_bytes() {
           kMaxSeq) * sizeof(float);
 }
 
+// ---- head dims over 128, any element type: attn_bwd_wide_kernel<T>
+
+// The tensors of one wide call, as Args, of element type T.
+template <typename T>
+struct WideArgs {
+  const T *qkv, *dout, *out;
+  const float* st;
+  T* dqkv;
+  float *dbias, *dq_sum;
+  int H, S, D, n_t, n_c;
+  float scale, q_scale;  // q_scale: rnd(scale), q^'s
+};
+
+// Stage columns [c0, c0 + kTile) of rows [r0, r0 + kTile) of one head (rows
+// `sr` elements apart) into shared memory as fp32, transposed: dst[d * pitch
+// + r] = f(value, r). Rows >= S and columns >= D read as 0.
+template <typename T, typename F>
+__device__ __forceinline__ void stage_cols(float* __restrict__ dst, int pitch,
+                                           const T* __restrict__ src,
+                                           long long sr, int r0, int c0,
+                                           int S, int D, F f) {
+  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
+    const int r = i / kTile, d = i % kTile;
+    float x = 0.f;
+    if (r0 + r < S && c0 + d < D)
+      x = f(Elem<T>::load(src[(long long)(r0 + r) * sr + c0 + d]), r);
+    dst[d * pitch + r] = x;
+  }
+}
+
+// Write rows r0 + row0 + i (< S) and columns col0 + 16 j (< D) of acc * mul,
+// rounded to T, to one head of a tensor with row stride sr, and add the
+// fp32 values of the real rows to this thread's column sums.
+template <typename T>
+__device__ __forceinline__ void store_rows_t(T* __restrict__ dst, long long sr,
+                                             const float (&acc)[4][4], int r0,
+                                             int row0, int col0, int S, int D,
+                                             float (&csum)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + row0 + i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + 16 * j;
+      const float x = acc[i][j];
+      if (c < D) dst[(long long)r * sr + c] = Elem<T>::store(x);
+      csum[j] += x;
+    }
+  }
+}
+
+// grid (B * H * n_c): block x is the 64-column chunk x % n_c of (b, h) =
+// x / n_c. Shared memory as attn_bwd_kernel<64>: kT, vT [kTile x kPA], qT,
+// doT [kTile x kPB] (a 64-column panel of K, V, q^, dO for s and dp; then
+// the chunk's K, qn, do_n), pq, tq [kTile x kPA] (rnd(pu) and t as
+// [query][key]; then t as [key][query] in pq for t k), the query tile's m
+// and rinv [kTile] each, and delta of every query [kMaxSeq].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_wide_kernel(WideArgs<T> a) {
+  typedef Elem<T> E;
+  extern __shared__ __align__(16) float smem[];
+  float* kT = smem;
+  float* vT = kT + kTile * kPA;
+  float* qT = vT + kTile * kPA;
+  float* doT = qT + kTile * kPB;
+  float* pq = doT + kTile * kPB;
+  float* tq = pq + kTile * kPA;
+  float* m_s = tq + kTile * kPA;
+  float* ri_s = m_s + kTile;
+  float* dl_s = ri_s + kTile;
+  const int H = a.H, S = a.S, D = a.D, n_t = a.n_t;
+  const int bh = blockIdx.x / a.n_c, b = bh / H, h = bh % H;
+  const int c0 = (blockIdx.x % a.n_c) * kTile;  // the chunk's first column
+  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long C = 3LL * H * D, HD = (long long)H * D;
+  const T* base = a.qkv + (long long)b * S * C + (long long)h * D;
+  const long long o_off = (long long)b * S * HD + (long long)h * D;
+  const T* gb = a.dout + o_off;
+  const float* st = a.st + (long long)bh * S * 2;
+  T* drow = a.dqkv + (long long)b * S * C + (long long)h * D + c0;
+  float* dq_sum = a.dq_sum + (long long)bh * S * D + c0;
+  const int dc = min(kTile, D - c0);  // the chunk's real columns
+  const float scale = a.scale, q_scale = a.q_scale;
+  const auto ident = [](float x, int) { return x; };
+  const auto q_hat = [q_scale](float x, int) {
+    return E::round(x * q_scale);
+  };
+
+  // delta = rowsum(dO O) of every query: a warp per row, lanes split the
+  // head dim
+  for (int r = warp; r < S; r += kThreads / 32) {
+    const T* g = gb + (long long)r * HD;
+    const T* o = a.out + o_off + (long long)r * HD;
+    float dl = 0.f;
+    for (int d = lane; d < D; d += 32)
+      dl = fmaf(E::load(g[d]), E::load(o[d]), dl);
+    dl = warp_sum(dl);
+    if (lane == 0) dl_s[r] = dl;
+  }
+  // this thread's column sums of dq, dk and dv over the head's rows
+  float cq[4] = {0.f, 0.f, 0.f, 0.f}, ck[4] = {0.f, 0.f, 0.f, 0.f},
+        cv[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int kt = 0; kt < n_t; ++kt) {
+    const int k0 = kt * kTile;
+    float dk_acc[4][4], dv_acc[4][4];
+    zero(dk_acc);
+    zero(dv_acc);
+    bool key_ok[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) key_ok[i] = k0 + row0 + i < S;
+
+    for (int q0 = 0; q0 < S; q0 += kTile) {
+      // s^T [key][query] = K q^T, dp^T = V dO^T over the head dim, 64
+      // columns at a time
+      float s[4][4], dp[4][4];
+      zero(s);
+      zero(dp);
+      for (int p0 = 0; p0 < D; p0 += kTile) {
+        __syncthreads();  // the last panel (or chunk) is read
+        stage_cols(kT, kPA, base + HD, C, k0, p0, S, D, ident);
+        stage_cols(vT, kPA, base + 2 * HD, C, k0, p0, S, D, ident);
+        stage_cols(qT, kPB, base, C, q0, p0, S, D, q_hat);
+        stage_cols(doT, kPB, gb, HD, q0, p0, S, D, ident);
+        if (p0 == 0)
+          for (int i = threadIdx.x; i < kTile; i += kThreads) {
+            const bool ok = q0 + i < S;
+            m_s[i] = ok ? st[(q0 + i) * 2] : 0.f;
+            ri_s[i] = ok ? st[(q0 + i) * 2 + 1] : 0.f;
+          }
+        __syncthreads();
+        tile_product<4, kTile, kPB, 1>(s, kT, qT, row0, tx);
+        tile_product<4, kTile, kPB, 1>(dp, vT, doT, row0, tx);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = tx + 16 * j;
+        const bool q_ok = q0 + qi < S;
+        const float m = m_s[qi], dl = q_ok ? dl_s[q0 + qi] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pu = (q_ok && key_ok[i]) ? expf(s[i][j] - m) : 0.f;
+          s[i][j] = E::round(pu);
+          dp[i][j] = E::round((dp[i][j] - dl) * pu);  // t
+        }
+      }
+      __syncthreads();  // the last panel is read
+      store_t(pq, s, row0, tx);
+      store_t(tq, dp, row0, tx);
+      // the chunk's K, qn = rnd(q^ rinv) and do_n = rnd(dO rinv), [d][row]
+      stage_cols(kT, kPA, base + HD, C, k0, c0, S, D, ident);
+      stage_cols(qT, kPB, base, C, q0, c0, S, D,
+                 [q_scale, ri_s](float x, int r) {
+                   return E::round(E::round(x * q_scale) * ri_s[r]);
+                 });
+      stage_cols(doT, kPB, gb, HD, q0, c0, S, D, [ri_s](float x, int r) {
+        return E::round(x * ri_s[r]);
+      });
+      __syncthreads();
+      // dv += rnd(pu)^T do_n, dk += t^T qn over the tile's real queries
+      const int nq = depth(q0, S);
+      tile_product_n<4, 1, kPB>(dv_acc, pq, doT, row0, tx, nq);
+      tile_product_n<4, 1, kPB>(dk_acc, tq, qT, row0, tx, nq);
+      __syncthreads();  // pq is read
+      // t as [key][query] into pq: this thread's own values, from tq
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 t4 =
+            *reinterpret_cast<const float4*>(tq + (tx + 16 * j) * kPA + row0);
+        pq[(row0 + 0) * kPA + tx + 16 * j] = t4.x;
+        pq[(row0 + 1) * kPA + tx + 16 * j] = t4.y;
+        pq[(row0 + 2) * kPA + tx + 16 * j] = t4.z;
+        pq[(row0 + 3) * kPA + tx + 16 * j] = t4.w;
+      }
+      __syncthreads();
+      // t k over the tile's real keys, summed over the key tiles in order
+      // in dq_sum; at the last one dq = (t k) (rinv scale)
+      float dq[4][4];
+      zero(dq);
+      tile_product_n<4, 1, kPA>(dq, pq, kT, row0, tx, depth(k0, S));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + row0 + i;
+        if (r >= S) continue;
+        const float f = ri_s[row0 + i] * scale;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          if (c >= dc) continue;
+          float* sum = dq_sum + (long long)r * D + c;
+          const float x = kt > 0 ? *sum + dq[i][j] : dq[i][j];
+          if (kt + 1 < n_t) {
+            *sum = x;
+          } else {
+            drow[(long long)r * C + c] = E::store(x * f);
+            cq[j] += x * f;
+          }
+        }
+      }
+    }
+    store_rows_t(drow + HD, C, dk_acc, k0, row0, tx, S, dc, ck);
+    store_rows_t(drow + 2 * HD, C, dv_acc, k0, row0, tx, S, dc, cv);
+  }
+
+  // the bias gradient of the chunk's columns: the column sums of dq, dk and
+  // dv over the head's rows, the 16 row groups' in a fixed order
+  __syncthreads();  // pq, tq and qT are read
+  float* db = a.dbias + (long long)b * C + (long long)h * D + c0;
+  write_sums(pq, cq, db, dc);
+  write_sums(tq, ck, db + HD, dc);
+  write_sums(qT, cv, db + 2 * HD, dc);
+}
+
+template <typename T>
+int launch_wide(const void* qkv, const void* dout, const void* out,
+                const void* st, void* dqkv, void* dbias, void* dq_sum, int B,
+                int S, int H, int D, float scale, cudaStream_t stream) {
+  WideArgs<T> a;
+  a.qkv = static_cast<const T*>(qkv);
+  a.dout = static_cast<const T*>(dout);
+  a.out = static_cast<const T*>(out);
+  a.st = static_cast<const float*>(st);
+  a.dqkv = static_cast<T*>(dqkv);
+  a.dbias = static_cast<float*>(dbias);
+  a.dq_sum = static_cast<float*>(dq_sum);
+  a.H = H, a.S = S, a.D = D, a.n_t = (S + kTile - 1) / kTile;
+  a.n_c = (D + kTile - 1) / kTile;
+  a.scale = scale;
+  a.q_scale = rounded_scale<T>(scale);
+  const long long blocks = (long long)B * H * a.n_c;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<kTile>();
+  const int rc = (int)cudaFuncSetAttribute(
+      attn_bwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (rc) return rc;
+  attn_bwd_wide_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int kD>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const long long blocks = (long long)B * a.H;
@@ -394,17 +655,33 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 extern "C" {
 
-// dqkv (B, S, 3HD) fp32 and dbias (B, 3HD) fp32 out, from qkv (B, S, 3HD),
-// dout and out (B, S, HD) and the forward's (B, H, S, 2) stats, all fp32
-// (`dtype` is elem.cuh's code: kF32 alone) and contiguous. Scratch: dq_sum
-// (B, H, S, D) fp32. 1 <= S <= 1024, 1 <= D <= 128. Returns a cudaError_t as
-// int: 0 when the launch was accepted.
+// dqkv (B, S, 3HD) and dbias (B, 3HD) fp32 out, from qkv (B, S, 3HD), dout
+// and out (B, S, HD), all of the element type `dtype` (elem.cuh's code) and
+// contiguous, and the forward's (B, H, S, 2) fp32 stats. Scratch: dq_sum
+// (B, H, S, D) fp32. fp32 at D <= 128 runs attn_bwd_kernel, every other
+// call attn_bwd_wide_kernel. 1 <= S <= 1024, 1 <= D <= 1024. Returns a
+// cudaError_t as int: 0 when the launch was accepted.
 int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
                  const void* st, void* dqkv, void* dbias, void* dq_sum, int B,
                  int S, int H, int D, float scale, int dtype, void* stream) {
-  if (dtype != kF32 || B < 1 || S < 1 || S > kMaxSeq || H < 1 || D < 1 ||
-      D > kMaxHeadDim)
+  if (B < 1 || S < 1 || S > kMaxSeq || H < 1 || D < 1 ||
+      D > kMaxWideHeadDim)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != kF32 || D > kMaxHeadDim) {
+    switch (dtype) {
+      case kF32:
+        return launch_wide<float>(qkv, dout, out, st, dqkv, dbias, dq_sum, B,
+                                  S, H, D, scale, s);
+      case kBf16:
+        return launch_wide<__nv_bfloat16>(qkv, dout, out, st, dqkv, dbias,
+                                          dq_sum, B, S, H, D, scale, s);
+      case kF16:
+        return launch_wide<__half>(qkv, dout, out, st, dqkv, dbias, dq_sum,
+                                   B, S, H, D, scale, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   Args a;
   a.qkv = static_cast<const float*>(qkv);
   a.dout = static_cast<const float*>(dout);
@@ -415,17 +692,18 @@ int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
   a.dq_sum = static_cast<float*>(dq_sum);
   a.H = H, a.S = S, a.D = D, a.n_t = (S + kTile - 1) / kTile;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32) return launch<32>(a, B, s);
   if (D <= 64) return launch<64>(a, B, s);
   return launch<128>(a, B, s);
 }
 
-// The kernel's dynamic shared memory at head dim D, in bytes.
+// The fp32 kernel's dynamic shared memory at head dim D, in bytes (over 128
+// also the wide kernel's, in every element type).
 int vtx_attn_bwd_smem(int D) {
   if (D <= 32) return (int)smem_bytes<32>();
   if (D <= 64) return (int)smem_bytes<64>();
-  return (int)smem_bytes<128>();
+  if (D <= kMaxHeadDim) return (int)smem_bytes<128>();
+  return (int)smem_bytes<kTile>();
 }
 
 const char* vtx_cuda_error_string(int err) {

@@ -6,7 +6,7 @@
 // ::_hp_bwd_pi_kernel (:495, ROADMAP K2). Same function, per (b, h), from
 // the forward's (B, H, S, 2) row stats [m, rinv] (csrc/attn_fwd_tc.cu),
 // with T the element type:
-//   q^ = T(q * scale); pu = exp(q^ k^T - m), fp32, left unnormalised;
+//   q^ = T(q * T(scale)); pu = exp(q^ k^T - m), fp32, left unnormalised;
 //   do_n = T(dO * rinv); dv = T(pu)^T do_n;
 //   delta = rowsum(dO * O) in fp32; dp = dO v^T; t = T((dp - delta) pu);
 //   dq = (t k) * (rinv * scale); qn = T(q^ * rinv); dk = t^T qn.
@@ -611,8 +611,8 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.dout),
       static_cast<const T*>(a.out), static_cast<const float*>(a.st),
       static_cast<T*>(a.qh), static_cast<T*>(a.qn), static_cast<T*>(a.don),
-      static_cast<float*>(a.delta), a.H, a.S, a.D, a.dsc, a.scale, a.in, a.og,
-      rows);
+      static_cast<float*>(a.delta), a.H, a.S, a.D, a.dsc,
+      rounded_scale<T>(a.scale), a.in, a.og, rows);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
 

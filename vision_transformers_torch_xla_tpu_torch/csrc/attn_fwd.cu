@@ -3,7 +3,7 @@
 // Replaces the TPU kernel
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py
 // ::_hp_fwd_stats_kernel (K1). Same function, per (b, h):
-//   q^ = bf16(q * scale); s = q^ k^T in fp32 (columns >= S do not exist here);
+//   q^ = bf16(q * bf16(scale)); s = q^ k^T in fp32 (columns >= S do not exist);
 //   m = rowmax(s); p = exp(s - m); rinv = 1 / sum(p);
 //   o = (bf16(p) v, accumulated in fp32) * rinv, stored bf16 at (B, S, H*D);
 //   optionally st = (B, H, S, 2) fp32 holding [m, rinv] per query row.
@@ -32,10 +32,12 @@
 // fit (long S with wide D), they are read from global memory (L2) through
 // the same loops.
 //
-// Element types: this source serves fp32, which the TPU kernel computes
-// with no rounding point (every astype an identity); the loops are written
-// for any element type through csrc/elem.cuh, and bf16 and fp16 run on the
-// tensor cores instead (csrc/attn_fwd_tc.cu).
+// Element types: fp32, which the TPU kernel computes with no rounding point
+// (every astype an identity), at every head dim; bf16 and fp16 only where
+// the tensor-core tiles stop (csrc/attn_fwd_tc.cu takes D <= 256), on the
+// run-time head-dim loops, in the same cast order through csrc/elem.cuh
+// (q^ and p rounded to the element type, o stored in it). Above
+// kSmemBudget (long S with a wide D) K and V come from L2: right, slower.
 //
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
 // launches on the caller's stream; the host function takes the element
@@ -52,7 +54,7 @@ namespace {
 
 constexpr int kWarps = 8;          // query rows in flight per block
 constexpr int kRowsPerBlock = 64;  // query tile of one block
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 1024;  // the port's MAX_CUDA_CORE_HEAD_DIM
 constexpr int kMaxSeq = 1024;
 constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
 
@@ -275,10 +277,10 @@ int launch_d(const void* qkv, void* out, void* st, int B, int S, int H, int D,
 
 extern "C" {
 
-// qkv (B, S, 3HD) and out (B, S, HD) of the element type `dtype` (fp32,
-// kF32, alone); st
-// (B, H, S, 2) fp32 or null. Returns a cudaError_t as int: 0 on a launch
-// that was accepted.
+// qkv (B, S, 3HD) and out (B, S, HD) of the element type `dtype` (fp32 at
+// D 32, 64, 128 on the unrolled loops, else on the run-time ones; bf16 and
+// fp16 on the run-time ones); st (B, H, S, 2) fp32 or null. D even and <=
+// 1024. Returns a cudaError_t as int: 0 on a launch that was accepted.
 int vtx_attn_fwd(const void* qkv, void* out, void* st, int B, int S, int H,
                  int D, float scale, int dtype, void* stream) {
   // offsets inside one image are 32-bit: S * 3 * H * D must fit
@@ -287,8 +289,16 @@ int vtx_attn_fwd(const void* qkv, void* out, void* st, int B, int S, int H,
       (long long)S * 3 * H * D >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != kF32) return (int)cudaErrorInvalidValue;
-  return launch_d<float>(qkv, out, st, B, S, H, D, scale, s);
+  switch (dtype) {
+    case kF32: return launch_d<float>(qkv, out, st, B, S, H, D, scale, s);
+    case kBf16:  // q^ = T(q * T(scale)), as JAX scales in T
+      return launch<__nv_bfloat16, 0>(qkv, out, st, B, S, H, D,
+                                      rounded_scale<__nv_bfloat16>(scale), s);
+    case kF16:
+      return launch<__half, 0>(qkv, out, st, B, S, H, D,
+                               rounded_scale<__half>(scale), s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* vtx_cuda_error_string(int err) {

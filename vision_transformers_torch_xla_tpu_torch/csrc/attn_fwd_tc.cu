@@ -8,7 +8,8 @@
 // * K1's order (kK7 false): ::_hp_fwd_stats_kernel (:291, ROADMAP K1) and,
 //   with the stats pointer null, ::_hp_fwd_kernel (:171, K9), which
 //   computes the same o:
-//     q^ = T(q * scale); s = q^ k^T in fp32 over the S real keys;
+//     q^ = T(q * T(scale)) (JAX multiplies in T: the scale is rounded to
+//     T first); s = q^ k^T in fp32 over the S real keys;
 //     m = rowmax(s) over the whole row; p = exp(s - m);
 //     rinv = 1 / sum(fp32 p); o = T((T(p) v, fp32 sums) * rinv) at
 //     (B, S, H*D); optionally st = (B, H, S, 2) fp32 holding [m, rinv].
@@ -59,14 +60,13 @@
 // The fp32 versions of both functions are CUDA-core loops, csrc/attn_fwd.cu
 // (K1, K9) and csrc/fused_attn_fwd.cu (K7, K11): the TPU kernels round
 // nothing in fp32, and every tensor-core product of fp32 operands (TF32)
-// would. Head dims over 128 do not fit these tiles (at 192, Q and the
-// 2-stage K and V ring take 240 KB of a block's 227 KB; checked below): in
-// K7's order they run in bf16 and fp16 too on csrc/fused_attn_fwd.cu.
+// would. Head dims over 256 run on those sources in bf16 and fp16 too.
 //
 // What bounds it on an H100: at ViT-B shapes (S = 197, D = 64) one (b, h)
 // is 4 S^2 D = 9.9 MFLOP over 2 S 4 D = 0.1 MB, ~100 FLOP per byte,
 // below the ~295 of the ridge: device memory bounds the work (at B = 128,
-// 12 heads, 0.0462 ms for qkv read once and o written once). At these short
+// 12 heads, 0.0462 ms for qkv read once and o written once; at D = 256,
+// B = 32, 155 MB in 0.046 ms against 15.3 GFLOP in 0.015). At these short
 // rows the tiles are small and latency (TMA, wgmma, the softmax between
 // them) sets the pace; two warpgroups per block interleave. K7's order
 // issues more instructions per score than K1's (the scale, the online sum's
@@ -77,13 +77,26 @@
 // per 128 query rows of one (b, h), a one-dimensional grid, the same in
 // both orders):
 // * a producer warp starts TMA loads: the block's Q tile once, then key
-//   tiles of 128 rows through a 2-stage ring: K alone for the first pass,
+//   tiles of kN rows through a 2-stage ring: K alone for the first pass,
 //   K and V for the second (with one tile, K and V once);
 // * two consumer warpgroups own 64 query rows each. S = Q K^T is wgmma
-//   m64n128k16 with both operands in 128-byte-swizzled shared memory,
-//   K-major. Keys >= S are masked to -1e30 after the product (a zero key
-//   scores 0, not -inf). P is packed to T in registers and is the register
-//   A operand of wgmma for O += P V, V an MN-major B operand.
+//   m64nNk16 (N = kN) with both operands in 128-byte-swizzled shared
+//   memory, K-major. Keys >= S are masked to -1e30 after the product (a
+//   zero key scores 0, not -inf). P is packed to T in registers and is the
+//   register A operand of wgmma for O += P V, V an MN-major B operand.
+// * The head dim is 64, 128, 192 or 256 at compile time (a smaller one
+//   takes the next, its columns zero-filled by TMA). Up to 128 the key
+//   tiles have kN = 128 rows. At 192 and 256 (the wide tiles) they have kN
+//   = 64, so that Q (128 rows) and the 2-stage K and V ring fit a block:
+//   at 256, 64 + 2 x (32 + 32) = 192 KB of the 227 KB (at 192 with 128-key
+//   tiles they would need 240 KB). Q then has its own TMA box of 128 rows.
+//   A consumer thread holds the o accumulator, 64 x D fp32 over its
+//   warpgroup (128 registers at 256), the 64 x 64 scores (32) and the P
+//   fragments (16): more than the 168 a block of 288 threads gets. So the
+//   wide tiles' producer is a warpgroup (384 threads) that keeps 40
+//   registers a thread and lends the rest to the consumers, 232 each
+//   (setmaxnreg). O += P V runs as m64n128 products over pairs of 64-column
+//   panels of V (and one m64n64 for the odd panel at 192).
 // * q, k and v are read in place through 4-D tensor maps (D, S, H, B) with
 //   one set of the caller's element strides: for K1 views of the (B, S, 3 H
 //   D) projection at columns h D, H D + h D and 2 H D + h D; for K7 three
@@ -106,25 +119,44 @@
 namespace {
 
 constexpr int kBlockM = 128;          // query rows of a block
-constexpr int kBlockN = 128;          // keys of a tile
 constexpr int kStages = 2;            // K/V ring depth
 constexpr int kConsumerWarps = 8;     // two warpgroups
 constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
+constexpr int kProducerRegs = 40;       // the wide tiles' producer warpgroup
+constexpr int kWideConsumerRegs = 232;  // and its consumers: 128 x 40 +
+                                        // 256 x 232 = 384 x 168
 constexpr int kMaxSeq = 1024;
+constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;     // the mask value of keys >= S
 
+// The keys of a tile at head dim kD: 128 up to 128, 64 for the wide tiles.
+template <int kD>
+__host__ __device__ constexpr int key_tile() {
+  return kD <= 128 ? 128 : 64;
+}
+
+// The threads of a block: two consumer warpgroups and a producer warp; for
+// the wide tiles a producer warpgroup, which lends its registers to the
+// consumers (setmaxnreg): a block of 288 threads gets 168 registers a
+// thread, and a consumer of the wide tiles needs ~200.
+template <int kD>
+__host__ __device__ constexpr int block_threads() {
+  return kD <= 128 ? kThreads : kThreads + 96;
+}
+
 // One block's shared tiles, each kD / 64 panels of [rows][64] in the TMA's
-// 128-byte swizzle; every panel is 16 KB, so each stays 1024-byte aligned.
+// 128-byte swizzle; every panel is 8 or 16 KB, so each stays 1024-byte
+// aligned.
 template <typename T, int kD>
 struct Tiles {
+  static constexpr int kN = key_tile<kD>();
   T q[kD / kPanel][kBlockM * kPanel];
-  T k[kStages][kD / kPanel][kBlockN * kPanel];
-  T v[kStages][kD / kPanel][kBlockN * kPanel];
+  T k[kStages][kD / kPanel][kN * kPanel];
+  T v[kStages][kD / kPanel][kN * kPanel];
 };
 
-// The next head dim in panels of 64 does not fit a block's 227 KB.
-static_assert(sizeof(Tiles<bf16, 192>) > 227 * 1024,
-              "head dims over 128 would fit these tiles");
+static_assert(sizeof(Tiles<bf16, 256>) + 1024 <= 227 * 1024,
+              "the widest tiles fit a block's 227 KB");
 
 // n elements at p (16-byte aligned, n a multiple of 8 x 128) replaced by
 // T(x * scale), 128 threads, thread tid.
@@ -147,28 +179,33 @@ __device__ __forceinline__ void round_scaled(T* p, int n, float scale,
 // s = Q K^T (K1: Q^ K^T) of warpgroup wg's 64 rows against the key tile of
 // stage st.
 template <typename T, int kD>
-__device__ __forceinline__ void scores(float (&s)[64], const Tiles<T, kD>& t,
-                                       int wg, int st) {
+__device__ __forceinline__ void scores(float (&s)[key_tile<kD>() / 2],
+                                       const Tiles<T, kD>& t, int wg, int st) {
   pin(s);
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
     const int p = kk / 4, c = (kk % 4) * 16;
-    wgmma_ss_n128<T>(s, desc(&t.q[p][wg * 64 * kPanel + c], 16, 1024),
-                     desc(&t.k[st][p][c], 16, 1024), kk > 0);
+    if constexpr (key_tile<kD>() == 128)
+      wgmma_ss_n128<T>(s, desc(&t.q[p][wg * 64 * kPanel + c], 16, 1024),
+                       desc(&t.k[st][p][c], 16, 1024), kk > 0);
+    else
+      wgmma_ss_n64<T>(s, desc(&t.q[p][wg * 64 * kPanel + c], 16, 1024),
+                      desc(&t.k[st][p][c], 16, 1024), kk > 0);
   }
   wg_commit();
   wg_wait();
   pin(s);
 }
 
-// Keys >= S of the tile at k0 set to kNegInf; mx0 and mx1 take this
-// thread's maxima of rows row and row + 8.
-__device__ __forceinline__ void mask_max(float (&s)[64], int k0, int col,
+// Keys >= S of the kN-key tile at k0 set to kNegInf; mx0 and mx1 take
+// this thread's maxima of rows row and row + 8.
+template <int kN>
+__device__ __forceinline__ void mask_max(float (&s)[kN / 2], int k0, int col,
                                          int S, float& mx0, float& mx1) {
-  const bool ragged = k0 + kBlockN > S;
+  const bool ragged = k0 + kN > S;
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < kN / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (ragged && k0 + 8 * n + col + (e & 1) >= S) s[4 * n + e] = kNegInf;
@@ -178,22 +215,24 @@ __device__ __forceinline__ void mask_max(float (&s)[64], int k0, int col,
 }
 
 // K7's order: the fp32 scores times the scale, rounded once.
-__device__ __forceinline__ void scale_scores(float (&s)[64], float scale) {
+template <int N>
+__device__ __forceinline__ void scale_scores(float (&s)[N], float scale) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = __fmul_rn(s[i], scale);
+  for (int i = 0; i < N; ++i) s[i] = __fmul_rn(s[i], scale);
 }
 
 // K7's max pass over one masked tile: this thread's sums l0, l1 of exp(s -
 // m) over its columns of rows row and row + 8, kept at its running maxima
 // m0, m1, move to the tile's new maxima mx0, mx1 (rescaled by exp(m_old -
 // m_new)) and take the tile's terms.
-__device__ __forceinline__ void online_sum(const float (&s)[64], float mx0,
-                                           float mx1, float& m0, float& m1,
-                                           float& l0, float& l1) {
+template <int kN>
+__device__ __forceinline__ void online_sum(const float (&s)[kN / 2],
+                                           float mx0, float mx1, float& m0,
+                                           float& m1, float& l0, float& l1) {
   const float ml0 = mx0 * kLog2e, ml1 = mx1 * kLog2e;
   float a0 = 0.f, a1 = 0.f;
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < kN / 8; ++n) {
     a0 += exp2f(fmaf(s[4 * n], kLog2e, -ml0)) +
           exp2f(fmaf(s[4 * n + 1], kLog2e, -ml0));
     a1 += exp2f(fmaf(s[4 * n + 2], kLog2e, -ml1)) +
@@ -203,6 +242,28 @@ __device__ __forceinline__ void online_sum(const float (&s)[64], float mx0,
   l1 = fmaf(l1, exp2f((m1 - mx1) * kLog2e), a1);
   m0 = mx0;
   m1 = mx1;
+}
+
+// acc += P V for keys 16 c .. 16 c + 15 of the V tile at v (kD / 64 panels
+// of kN rows), P the packed A fragment a: up to 128 one m64nD product, the
+// wide tiles m64n128 over pairs of panels (and m64n64 for an odd one).
+template <typename T, int kD, int kN>
+__device__ __forceinline__ void pv(float (&acc)[kD / 2],
+                                   const uint32_t (&a)[4], const T* v, int c) {
+  constexpr uint32_t kLbo = kN * kPanel * 2;  // bytes between V's panels
+  if constexpr (kD <= 128) {
+    wgmma_rs<T>(acc, a, desc(v + c * 16 * kPanel, kLbo, 1024));
+  } else {
+#pragma unroll
+    for (int p = 0; p + 2 <= kD / kPanel; p += 2)
+      wgmma_rs<T>(*reinterpret_cast<float(*)[64]>(&acc[32 * p]), a,
+                  desc(v + p * kN * kPanel + c * 16 * kPanel, kLbo, 1024));
+    if constexpr ((kD / kPanel) % 2) {
+      constexpr int p = kD / kPanel - 1;
+      wgmma_rs<T>(*reinterpret_cast<float(*)[32]>(&acc[32 * p]), a,
+                  desc(v + p * kN * kPanel + c * 16 * kPanel, kLbo, 1024));
+    }
+  }
 }
 
 // This warp is done with stage st.
@@ -217,14 +278,15 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
 // + 8 (j / 2), column 8 n + 2 (l % 4) + (j % 2). kK7 picks the cast order
 // (the header): K7's (K7, K11) or K1's (K1, K9).
 template <typename T, int kD, bool kK7>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(block_threads<kD>(), 1)
 attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    T* __restrict__ o, float* __restrict__ st, int H, int S,
                    int D, int n_qt, float scale, Layout out) {
   constexpr int kPanels = kD / kPanel;
-  constexpr uint32_t kTileBytes = kBlockN * kD * 2;  // one K or V tile
+  constexpr int kN = key_tile<kD>();            // keys of a tile
+  constexpr uint32_t kTileBytes = kN * kD * 2;  // one K or V tile
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -235,7 +297,7 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * kBlockM;
   const int b = bh / H, h = bh % H;
-  const int n_kt = (S + kBlockN - 1) / kBlockN;
+  const int n_kt = (S + kN - 1) / kN;
   // one pass over a single key tile; else the max pass, then the p pass
   const int n_steps = n_kt == 1 ? 1 : 2 * n_kt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -250,16 +312,23 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == kConsumerWarps) {
+  if (kD > 128 ? warp >= kConsumerWarps : warp == kConsumerWarps) {
     // producer: Q once, then the key tiles of both passes through the
-    // ring; the last n_kt steps (the p pass) bring V with K
+    // ring; the last n_kt steps (the p pass) bring V with K. The wide
+    // tiles' producer warpgroup first gives its registers away, and one
+    // warp of it loads.
+    if constexpr (kD > 128) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kProducerRegs));
+      if (warp != kConsumerWarps) return;
+    }
     if (lane == 0) {
       bar_expect_tx(&q_full, kBlockM * kD * 2);
       for (int p = 0; p < kPanels; ++p)
         tma_load(t.q[p], &tq, &q_full, p * kPanel, q0, h, b);
       for (int i = 0; i < n_steps; ++i) {
         const int s = i % kStages;
-        const int k0 = (i % n_kt) * kBlockN;
+        const int k0 = (i % n_kt) * kN;
         const bool with_v = i >= n_steps - n_kt;
         if (i >= kStages) bar_wait(&empty[s], ((i / kStages) - 1) & 1);
         bar_expect_tx(&full[s], (with_v ? 2 : 1) * kTileBytes);
@@ -274,6 +343,9 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64)
+  if constexpr (kD > 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kWideConsumerRegs));
   const int wg = warp / 4;
   const int row = 16 * (warp % 4) + lane / 4;  // and row + 8, in the group
   const int col = 2 * (lane % 4);
@@ -294,11 +366,11 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   float acc[kD / 2];
-  float s[64];
+  float s[kN / 2];
 #pragma unroll
   for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf;  // the row maxima of rows row, row + 8
   // K1: this thread's part of the row sums, taken in the p pass; K7: the
   // row sums, which the max pass takes when there is more than one tile
@@ -314,10 +386,10 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       if constexpr (kK7) {
         scale_scores(s, scale);
         float mx0 = m0, mx1 = m1;
-        mask_max(s, j * kBlockN, col, S, mx0, mx1);
-        online_sum(s, mx0, mx1, m0, m1, l0, l1);
+        mask_max<kN>(s, j * kN, col, S, mx0, mx1);
+        online_sum<kN>(s, mx0, mx1, m0, m1, l0, l1);
       } else {
-        mask_max(s, j * kBlockN, col, S, m0, m1);
+        mask_max<kN>(s, j * kN, col, S, m0, m1);
       }
     }
     if constexpr (kK7) {
@@ -341,7 +413,7 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     scores(s, t, wg, stg);
     if constexpr (kK7) scale_scores(s, scale);
     float mx0 = kNegInf, mx1 = kNegInf;
-    mask_max(s, j * kBlockN, col, S, mx0, mx1);
+    mask_max<kN>(s, j * kN, col, S, mx0, mx1);
     if (n_kt == 1) {
       m0 = quad_max(mx0);
       m1 = quad_max(mx1);
@@ -349,11 +421,11 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const float ml0 = m0 * kLog2e, ml1 = m1 * kLog2e;
     // keys 16 c .. 16 c + 15: registers (row, lo 8), (row + 8, lo 8),
     // (row, hi 8), (row + 8, hi 8)
-    uint32_t pa[8][4];
+    uint32_t pa[kN / 16][4];
     if constexpr (kK7) {
       float a0 = 0.f, a1 = 0.f;
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < kN / 8; ++n) {
         s[4 * n] = exp2f(fmaf(s[4 * n], kLog2e, -ml0));
         s[4 * n + 1] = exp2f(fmaf(s[4 * n + 1], kLog2e, -ml0));
         s[4 * n + 2] = exp2f(fmaf(s[4 * n + 2], kLog2e, -ml1));
@@ -367,7 +439,7 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
       const float y0 = __frcp_rn(l0), y1 = __frcp_rn(l1);
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < kN / 8; ++n) {
         pa[n / 2][(n % 2) * 2] = pack2<T>(div_rn(s[4 * n], l0, y0),
                                           div_rn(s[4 * n + 1], l0, y0));
         pa[n / 2][(n % 2) * 2 + 1] = pack2<T>(div_rn(s[4 * n + 2], l1, y1),
@@ -375,7 +447,7 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
     } else {
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < kN / 8; ++n) {
         const float p0 = exp2f(fmaf(s[4 * n], kLog2e, -ml0));
         const float p1 = exp2f(fmaf(s[4 * n + 1], kLog2e, -ml0));
         const float p2 = exp2f(fmaf(s[4 * n + 2], kLog2e, -ml1));
@@ -389,9 +461,8 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     pin(acc);
     wg_fence();
 #pragma unroll
-    for (int c = 0; c < kBlockN / 16; ++c)
-      wgmma_rs<T>(acc, pa[c], desc(&t.v[stg][0][c * 16 * kPanel],
-                                   kBlockN * kPanel * 2, 1024));
+    for (int c = 0; c < kN / 16; ++c)
+      pv<T, kD, kN>(acc, pa[c], &t.v[stg][0][0], c);
     wg_commit();
     wg_wait();
     pin(acc);
@@ -428,14 +499,14 @@ template <typename T, int kD, bool kK7>
 int fwd(const void* q, const void* k, const void* v, void* o, void* st,
         int B, int H, int S, int D, float scale, Layout in, Layout out,
         cudaStream_t stream) {
-  static_assert(kBlockM == kBlockN, "one box shape serves Q, K and V");
+  constexpr int kN = key_tile<kD>();
   EncodeTiled enc = encode_fn();
   if (!enc) return kErrNoEntryPoint;
   CUtensorMap tq, tk, tv;
   const CUtensorMapDataType type = map_type<T>();
-  int rc = encode(enc, &tq, q, B, H, S, D, in, kBlockN, type);
-  if (!rc) rc = encode(enc, &tk, k, B, H, S, D, in, kBlockN, type);
-  if (!rc) rc = encode(enc, &tv, v, B, H, S, D, in, kBlockN, type);
+  int rc = encode(enc, &tq, q, B, H, S, D, in, kBlockM, type);
+  if (!rc) rc = encode(enc, &tk, k, B, H, S, D, in, kN, type);
+  if (!rc) rc = encode(enc, &tv, v, B, H, S, D, in, kN, type);
   if (rc) return rc;
   const size_t smem = sizeof(Tiles<T, kD>) + 1024;  // + the alignment slack
   cudaError_t err = cudaFuncSetAttribute(
@@ -445,7 +516,8 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* st,
   const int n_qt = (S + kBlockM - 1) / kBlockM;
   const long long blocks = (long long)n_qt * B * H;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  attn_fwd_tc_kernel<T, kD, kK7><<<dim3((unsigned)blocks), kThreads, smem,
+  attn_fwd_tc_kernel<T, kD, kK7><<<dim3((unsigned)blocks),
+                                   block_threads<kD>(), smem,
                                    stream>>>(
       tq, tk, tv, static_cast<T*>(o), static_cast<float*>(st), H, S, D, n_qt,
       scale, out);
@@ -458,7 +530,11 @@ int fwd_d(const void* q, const void* k, const void* v, void* o, void* st,
           cudaStream_t s) {
   if (D <= 64)
     return fwd<T, 64, kK7>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
-  return fwd<T, 128, kK7>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+  if (D <= 128)
+    return fwd<T, 128, kK7>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+  if (D <= 192)
+    return fwd<T, 192, kK7>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+  return fwd<T, 256, kK7>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
 }
 
 // The launch of cast order kK7 at the element type `dtype`, after the
@@ -468,13 +544,18 @@ int launch(const void* q, const void* k, const void* v, void* o, void* st,
            int B, int H, int S, int D, float scale, Layout in, Layout out,
            int dtype, cudaStream_t s) {
   if (B < 1 || H < 1 || S < 1 || S > kMaxSeq || D < 2 || (D & 1) ||
-      D > 128)
+      D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
+  // K1's order scales q in T (the kernel's only use of the scale there)
   switch (dtype) {
     case kBf16:
-      return fwd_d<bf16, kK7>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+      return fwd_d<bf16, kK7>(q, k, v, o, st, B, H, S, D,
+                              kK7 ? scale : rounded_scale<bf16>(scale), in,
+                              out, s);
     case kF16:
-      return fwd_d<f16, kK7>(q, k, v, o, st, B, H, S, D, scale, in, out, s);
+      return fwd_d<f16, kK7>(q, k, v, o, st, B, H, S, D,
+                             kK7 ? scale : rounded_scale<f16>(scale), in,
+                             out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -486,7 +567,7 @@ extern "C" {
 // K1's order: o (out layout) and, when st is not null, the (B, H, S, 2)
 // fp32 row stats from q, k, v (in layout), all of the element type `dtype`
 // (elem.cuh's code: bf16 or fp16; fp32 is csrc/attn_fwd.cu's). 1 <= S <=
-// 1024, D even and <= 128. Returns a cudaError_t as int (0 on a launch that
+// 1024, D even and <= 256. Returns a cudaError_t as int (0 on a launch that
 // was accepted), or a code of vtx_cuda_error_string's own when a tensor map
 // could not be made.
 int vtx_attn_fwd_tc(const void* q, const void* k, const void* v, void* o,
@@ -516,7 +597,10 @@ int vtx_fused_attn_fwd_tc(const void* q, const void* k, const void* v,
 // The dynamic shared memory of a launch at head dim D, in bytes (the same
 // for bf16 and fp16, and in both cast orders).
 int vtx_attn_fwd_tc_smem(int D) {
-  return (int)(D <= 64 ? sizeof(Tiles<bf16, 64>) : sizeof(Tiles<bf16, 128>)) +
+  return (int)(D <= 64    ? sizeof(Tiles<bf16, 64>)
+               : D <= 128 ? sizeof(Tiles<bf16, 128>)
+               : D <= 192 ? sizeof(Tiles<bf16, 192>)
+                          : sizeof(Tiles<bf16, 256>)) +
          1024;
 }
 

@@ -75,6 +75,25 @@ struct Elem<float> {
   static __device__ __forceinline__ float round(float x) { return x; }
 };
 
+// The scale of q^ = T(q * scale) in K1's, K2's and K9's cast order, on the
+// host: JAX multiplies the T array by the Python float in T, so the scale
+// is rounded to T first (an identity for float; at a head dim whose scale
+// is a power of two, 64 or 256, for every T).
+template <typename T>
+inline float rounded_scale(float s);
+template <>
+inline float rounded_scale<__nv_bfloat16>(float s) {
+  return __bfloat162float(__float2bfloat16_rn(s));
+}
+template <>
+inline float rounded_scale<__half>(float s) {
+  return __half2float(__float2half_rn(s));
+}
+template <>
+inline float rounded_scale<float>(float s) {
+  return s;
+}
+
 // fp32 values of a pair, whatever its element type (for helpers that see
 // only the pair type).
 __device__ __forceinline__ float2 load2(__nv_bfloat162 x) {

@@ -1,11 +1,11 @@
 // Blocked flash attention (online softmax) on the CUDA cores, for float and
-// half inputs.
+// half inputs at every head dim, and bfloat16 at head dims over 128.
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_blocked.py, the long-sequence path (S > 1024), where they run in a
-// dtype other than bfloat16 (the JAX kernels take any float dtype); the
-// bf16 versions are on the tensor cores, csrc/flash_fwd.cu (K4) and
-// csrc/flash_bwd.cu (K5, K6):
+// dtype other than bfloat16 or at a head dim over 128 (the JAX kernels take
+// any float dtype and head dim); bf16 at D <= 128 is on the tensor cores,
+// csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6):
 //   K4 flash_fwd_kernel      <- _fwd_kernel (:33): per query row, over key
 //      tiles, a running max m, sum l and fp32 accumulator acc:
 //        s = (fp32 q * scale) k^T, keys >= S masked to -1e30;
@@ -52,11 +52,26 @@
 // 2^31 / ceil(S / 64). The head dim is 64 or 128 at compile time; a smaller
 // head dim takes the next one with its columns zero-filled.
 //
+// Head dims over 128 (the *_wide_kernel<T>, in bf16, fp16 and fp32): the
+// same tiles and loops with the head dim a run-time value up to 1024, in
+// 64-column chunks. At D = 256 the D = 128 kernels' staging of whole rows
+// would need 220 KB (K4), ~307 KB (K5) and ~290 KB (K6) of a block's
+// 227 KB, and their accumulators 4 x D / 16 registers each. So a block owns
+// one chunk of one (b, h) and tile (a grid ceil(D / 64) times as large):
+// it sums s (and dp) over the whole head dim, staging 64 columns of each
+// operand at a time in the same order in every block of the tile (so m, l,
+// p and ds are bitwise the same in each), then stages its chunk of V (K4),
+// of q and dO (K5) or of K (K6) and accumulates the chunk's 64 output
+// columns in registers, as the D = 64 kernels do, in their shared memory.
+// s and dp are computed once per chunk: right, and recorded as slow
+// (PERF.md §6), not fast. K4's lse is written by chunk 0.
+//
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
 // launch on the caller's stream; each host function takes the element type
-// as a csrc/elem.cuh code (kF16 or kF32) and returns cudaGetLastError(),
-// or cudaErrorInvalidValue for another code. The caller
-// (ops/flash_blocked.py) checks the shapes: 1 <= D <= 128.
+// as a csrc/elem.cuh code (kF16 or kF32 at D <= 128, kBf16, kF16 or kF32
+// above) and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// another code. The caller (ops/flash_blocked.py) checks the shapes: 1 <= D
+// <= 1024.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -391,11 +406,267 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     D, scale);
 }
 
+// ---- head dims over 128: one 64-column chunk of the outputs per block
+
+constexpr int kWide = 0;  // the kD of a host template that runs these
+
+// grid (B * H * n_tiles * n_c): block x is chunk x % n_c (its first column
+// c0) of tile (x / n_c) % n_tiles of (b, h) = x / (n_c n_tiles).
+struct WideBlock {
+  int bh, tile, c0;
+};
+
+__device__ __forceinline__ WideBlock wide_block(int n_tiles, int n_c) {
+  return WideBlock{(int)blockIdx.x / (n_c * n_tiles),
+                   ((int)blockIdx.x / n_c) % n_tiles,
+                   ((int)blockIdx.x % n_c) * kTile};
+}
+
+// K4 at a run-time head dim. Shared memory as flash_fwd_kernel<T, 64>: qT
+// [kTile x kPA] (a panel of q * scale), kT [kTile x kPB] (a panel of K), vT
+// [kTile x kPB] (the chunk of V), pT [kTile x kPA] (rnd(p), [key][query]).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int H, int S, int D,
+                      int n_tiles, int n_c, float scale, Layout in,
+                      Layout out) {
+  extern __shared__ __align__(16) float smem[];
+  float* qT = smem;
+  float* kT = qT + kTile * kPA;
+  float* vT = kT + kTile * kPB;
+  float* pT = vT + kTile * kPB;
+  const WideBlock wb = wide_block(n_tiles, n_c);
+  const int bh = wb.bh, tile = wb.tile, c0 = wb.c0;
+  const int b = bh / H, h = bh % H, q0 = tile * kTile;
+  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
+  const long long in_off = b * in.sb + h * in.sh;
+  float acc[4][4], m[4], l[4];
+  zero(acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < S; k0 += kTile) {
+    float s[4][4];
+    zero(s);
+    for (int p0 = 0; p0 < D; p0 += kTile) {
+      __syncthreads();  // the last panel (or pT, vT) is read
+      stage_t<T, kTile>(qT, kPA, q + in_off + p0, in.sr, q0, S, D - p0,
+                        scale);
+      stage_t<T, kTile>(kT, kPB, k + in_off + p0, in.sr, k0, S, D - p0, 1.f);
+      __syncthreads();
+      tile_product<4, kTile, kPB, 1>(s, qT, kT, row0, tx);
+    }
+    stage_t<T, kTile>(vT, kPB, v + in_off + c0, in.sr, k0, S, D - c0, 1.f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + tx + 16 * j >= S) s[i][j] = kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        s[i][j] = Elem<T>::round(p);
+      }
+      l[i] = l[i] * alpha + half_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+    }
+    store_t(pT, s, row0, tx);
+    __syncthreads();
+    // acc += rnd(p) v of the chunk: v read from vT [d][key] along the key
+    tile_product<4, kTile, 1, kPB>(acc, pT, vT, row0, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lf = fmaxf(l[i], 1e-30f);
+    const int r = q0 + row0 + i;
+    if (c0 == 0 && tx == 0 && r < S)
+      lse[(long long)bh * S + r] = m[i] + logf(lf);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] /= lf;  // o = acc / l, as JAX
+  }
+  store_rows<T, 4>(o + b * out.sb + h * out.sh + c0, out.sr, acc, q0, row0,
+                   tx, S, D - c0, 1.f);
+}
+
+// K5 at a run-time head dim. Shared memory as flash_bwd_dkdv_kernel<T, 64>:
+// kT, vT [kTile x kPA] (a panel of the block's keys), qT, doT [kTile x kPB]
+// (a panel of the query tile; then its chunk), pq, dsq [kTile x kPA]
+// (rnd(p), rnd(ds) as [query][key]), lse and delta of the query tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int H,
+                           int S, int D, int n_tiles, int n_c, float scale,
+                           Layout in, Layout og, Layout gr) {
+  extern __shared__ __align__(16) float smem[];
+  float* kT = smem;
+  float* vT = kT + kTile * kPA;
+  float* qT = vT + kTile * kPA;
+  float* doT = qT + kTile * kPB;
+  float* pq = doT + kTile * kPB;
+  float* dsq = pq + kTile * kPA;
+  float* lse_s = dsq + kTile * kPA;
+  float* dl_s = lse_s + kTile;
+  const WideBlock wb = wide_block(n_tiles, n_c);
+  const int bh = wb.bh, tile = wb.tile, c0 = wb.c0;
+  const int b = bh / H, h = bh % H, k0 = tile * kTile;
+  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
+  const long long in_off = b * in.sb + h * in.sh;
+  const T* qg = q + in_off;
+  const T* dog = dout + b * og.sb + h * og.sh;
+  const float* lse_g = lse + (long long)bh * S;
+  const float* dl_g = delta + (long long)bh * S;
+  float dk_acc[4][4], dv_acc[4][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  bool key_ok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) key_ok[i] = k0 + row0 + i < S;
+
+  for (int q0 = 0; q0 < S; q0 += kTile) {
+    // s^T [key][query] = K q^T, dp^T = V dO^T over the head dim
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    for (int p0 = 0; p0 < D; p0 += kTile) {
+      __syncthreads();  // the last panel (or chunk, pq, dsq) is read
+      stage_t<T, kTile>(kT, kPA, k + in_off + p0, in.sr, k0, S, D - p0, 1.f);
+      stage_t<T, kTile>(vT, kPA, v + in_off + p0, in.sr, k0, S, D - p0, 1.f);
+      stage_t<T, kTile>(qT, kPB, qg + p0, in.sr, q0, S, D - p0, 1.f);
+      stage_t<T, kTile>(doT, kPB, dog + p0, og.sr, q0, S, D - p0, 1.f);
+      if (p0 == 0)
+        for (int i = threadIdx.x; i < kTile; i += kThreads) {
+          const bool ok = q0 + i < S;
+          lse_s[i] = ok ? lse_g[q0 + i] : 0.f;
+          dl_s[i] = ok ? dl_g[q0 + i] : 0.f;
+        }
+      __syncthreads();
+      tile_product<4, kTile, kPB, 1>(s, kT, qT, row0, tx);
+      tile_product<4, kTile, kPB, 1>(dp, vT, doT, row0, tx);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qi = tx + 16 * j;
+      const bool q_ok = q0 + qi < S;
+      const float ls = lse_s[qi], dl = dl_s[qi];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p =
+            (q_ok && key_ok[i]) ? expf(s[i][j] * scale - ls) : 0.f;
+        s[i][j] = Elem<T>::round(p);
+        dp[i][j] = Elem<T>::round(p * (dp[i][j] - dl));
+      }
+    }
+    __syncthreads();  // the last panel is read
+    store_t(pq, s, row0, tx);
+    store_t(dsq, dp, row0, tx);
+    stage_t<T, kTile>(qT, kPB, qg + c0, in.sr, q0, S, D - c0, 1.f);
+    stage_t<T, kTile>(doT, kPB, dog + c0, og.sr, q0, S, D - c0, 1.f);
+    __syncthreads();
+    // dv += rnd(p)^T dO, dk += rnd(ds)^T q over the chunk's columns
+    tile_product<4, kTile, 1, kPB>(dv_acc, pq, doT, row0, tx);
+    tile_product<4, kTile, 1, kPB>(dk_acc, dsq, qT, row0, tx);
+  }
+
+  const long long g_off = b * gr.sb + h * gr.sh + c0;
+  store_rows<T, 4>(dv + g_off, gr.sr, dv_acc, k0, row0, tx, S, D - c0, 1.f);
+  store_rows<T, 4>(dk + g_off, gr.sr, dk_acc, k0, row0, tx, S, D - c0,
+                   scale);
+}
+
+// K6 at a run-time head dim. Shared memory as flash_bwd_dq_kernel<T, 64>:
+// qT, doT [kTile x kPA] (a panel of the block's queries), kT, vT [kTile x
+// kPB] (a panel of the key tile; then kT its chunk), dsT [kTile x kPA]
+// (rnd(ds) as [key][query]).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         int H, int S, int D, int n_tiles, int n_c,
+                         float scale, Layout in, Layout og, Layout gr) {
+  extern __shared__ __align__(16) float smem[];
+  float* qT = smem;
+  float* doT = qT + kTile * kPA;
+  float* kT = doT + kTile * kPA;
+  float* vT = kT + kTile * kPB;
+  float* dsT = vT + kTile * kPB;
+  const WideBlock wb = wide_block(n_tiles, n_c);
+  const int bh = wb.bh, tile = wb.tile, c0 = wb.c0;
+  const int b = bh / H, h = bh % H, q0 = tile * kTile;
+  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
+  const long long in_off = b * in.sb + h * in.sh;
+  const T* dog = dout + b * og.sb + h * og.sh;
+  float ls[4], dl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + row0 + i;
+    ls[i] = r < S ? lse[(long long)bh * S + r] : 0.f;
+    dl[i] = r < S ? delta[(long long)bh * S + r] : 0.f;
+  }
+  float acc[4][4];
+  zero(acc);
+
+  for (int k0 = 0; k0 < S; k0 += kTile) {
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    for (int p0 = 0; p0 < D; p0 += kTile) {
+      __syncthreads();  // the last panel (or chunk, dsT) is read
+      stage_t<T, kTile>(qT, kPA, q + in_off + p0, in.sr, q0, S, D - p0, 1.f);
+      stage_t<T, kTile>(doT, kPA, dog + p0, og.sr, q0, S, D - p0, 1.f);
+      stage_t<T, kTile>(kT, kPB, k + in_off + p0, in.sr, k0, S, D - p0, 1.f);
+      stage_t<T, kTile>(vT, kPB, v + in_off + p0, in.sr, k0, S, D - p0, 1.f);
+      __syncthreads();
+      tile_product<4, kTile, kPB, 1>(s, qT, kT, row0, tx);
+      tile_product<4, kTile, kPB, 1>(dp, doT, vT, row0, tx);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool key_ok = k0 + tx + 16 * j < S;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = key_ok ? expf(s[i][j] * scale - ls[i]) : 0.f;
+        dp[i][j] = Elem<T>::round(p * (dp[i][j] - dl[i]));
+      }
+    }
+    __syncthreads();  // the last panel is read
+    store_t(dsT, dp, row0, tx);
+    stage_t<T, kTile>(kT, kPB, k + in_off + c0, in.sr, k0, S, D - c0, 1.f);
+    __syncthreads();
+    // dq += rnd(ds) k over the chunk's columns
+    tile_product<4, kTile, 1, kPB>(acc, dsT, kT, row0, tx);
+  }
+  store_rows<T, 4>(dq + b * gr.sb + h * gr.sh + c0, gr.sr, acc, q0, row0, tx,
+                   S, D - c0, scale);
+}
+
+// n_c: the wide kernels' column chunks per tile (1 for the others).
 template <typename Kernel>
 int prepare(Kernel kernel, size_t bytes, int B, int H, int S, int* n_tiles,
-            dim3* grid) {
+            dim3* grid, int n_c = 1) {
   *n_tiles = (S + kTile - 1) / kTile;
-  const long long blocks = (long long)*n_tiles * B * H;
+  const long long blocks = (long long)*n_tiles * B * H * n_c;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   *grid = dim3((unsigned)blocks);
   if (bytes <= 48 * 1024) return 0;
@@ -407,17 +678,30 @@ template <typename T, int kD>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int S, int D, float scale, Layout in, Layout out,
         cudaStream_t stream) {
-  const size_t smem = (size_t)(kD * kPA + 2 * kD * kPB + kTile * kPA) *
+  constexpr int kS = kD == kWide ? kTile : kD;  // the staged head dim
+  const size_t smem = (size_t)(kS * kPA + 2 * kS * kPB + kTile * kPA) *
                       sizeof(float);
   int n_tiles;
   dim3 grid;
-  int rc = prepare(flash_fwd_kernel<T, kD>, smem, B, H, S, &n_tiles, &grid);
-  if (rc) return rc;
-  flash_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), H, S, D, n_tiles, scale, in, out);
-  return (int)cudaGetLastError();
+  if constexpr (kD == kWide) {
+    const int n_c = (D + kTile - 1) / kTile;
+    int rc = prepare(flash_fwd_wide_kernel<T>, smem, B, H, S, &n_tiles,
+                     &grid, n_c);
+    if (rc) return rc;
+    flash_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), H, S, D, n_tiles, n_c, scale, in, out);
+    return (int)cudaGetLastError();
+  } else {
+    int rc = prepare(flash_fwd_kernel<T, kD>, smem, B, H, S, &n_tiles, &grid);
+    if (rc) return rc;
+    flash_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), H, S, D, n_tiles, scale, in, out);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int kD>
@@ -425,21 +709,36 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int B,
          int H, int S, int D, float scale, Layout in, Layout og, Layout gr,
          cudaStream_t stream) {
+  constexpr int kS = kD == kWide ? kTile : kD;  // the staged head dim
   const size_t smem =
-      (size_t)(2 * kD * kPA + 2 * kD * kPB + 2 * kTile * kPA + 2 * kTile) *
+      (size_t)(2 * kS * kPA + 2 * kS * kPB + 2 * kTile * kPA + 2 * kTile) *
       sizeof(float);
   int n_tiles;
   dim3 grid;
-  int rc = prepare(flash_bwd_dkdv_kernel<T, kD>, smem, B, H, S, &n_tiles,
-                   &grid);
-  if (rc) return rc;
-  flash_bwd_dkdv_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, S, D, n_tiles, scale, in,
-      og, gr);
-  return (int)cudaGetLastError();
+  if constexpr (kD == kWide) {
+    const int n_c = (D + kTile - 1) / kTile;
+    int rc = prepare(flash_bwd_dkdv_wide_kernel<T>, smem, B, H, S, &n_tiles,
+                     &grid, n_c);
+    if (rc) return rc;
+    flash_bwd_dkdv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, S, D, n_tiles, n_c,
+        scale, in, og, gr);
+    return (int)cudaGetLastError();
+  } else {
+    int rc = prepare(flash_bwd_dkdv_kernel<T, kD>, smem, B, H, S, &n_tiles,
+                     &grid);
+    if (rc) return rc;
+    flash_bwd_dkdv_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, S, D, n_tiles, scale, in,
+        og, gr);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int kD>
@@ -447,24 +746,51 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dqp, int B, int H, int S,
        int D, float scale, Layout in, Layout og, Layout gr,
        cudaStream_t stream) {
+  constexpr int kS = kD == kWide ? kTile : kD;  // the staged head dim
   const size_t smem =
-      (size_t)(2 * kD * kPA + 2 * kD * kPB + kTile * kPA) * sizeof(float);
+      (size_t)(2 * kS * kPA + 2 * kS * kPB + kTile * kPA) * sizeof(float);
   int n_tiles;
   dim3 grid;
-  int rc = prepare(flash_bwd_dq_kernel<T, kD>, smem, B, H, S, &n_tiles,
-                   &grid);
-  if (rc) return rc;
-  flash_bwd_dq_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dqp), H, S, D, n_tiles, scale, in, og, gr);
-  return (int)cudaGetLastError();
+  if constexpr (kD == kWide) {
+    const int n_c = (D + kTile - 1) / kTile;
+    int rc = prepare(flash_bwd_dq_wide_kernel<T>, smem, B, H, S, &n_tiles,
+                     &grid, n_c);
+    if (rc) return rc;
+    flash_bwd_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dqp), H, S, D, n_tiles, n_c, scale, in, og, gr);
+    return (int)cudaGetLastError();
+  } else {
+    int rc = prepare(flash_bwd_dq_kernel<T, kD>, smem, B, H, S, &n_tiles,
+                     &grid);
+    if (rc) return rc;
+    flash_bwd_dq_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dqp), H, S, D, n_tiles, scale, in, og, gr);
+    return (int)cudaGetLastError();
+  }
 }
 
-// f<T, kD>(args...) for the element type `dtype` (kF16 or kF32) and the
-// head dim D (64 or 128 at compile time).
+// f<T, kD>(args...) for the element type `dtype` and the head dim D: 64 or
+// 128 at compile time for kF16 and kF32 at D <= 128, the wide kernels
+// (kWide) for kBf16, kF16 and kF32 above.
 #define DISPATCH(f, dtype, D, ...)                                          \
+  if ((D) > 128) {                                                          \
+    switch (dtype) {                                                        \
+      case kBf16:                                                           \
+        return f<__nv_bfloat16, kWide>(__VA_ARGS__);                        \
+      case kF16:                                                            \
+        return f<__half, kWide>(__VA_ARGS__);                               \
+      case kF32:                                                            \
+        return f<float, kWide>(__VA_ARGS__);                                \
+      default:                                                              \
+        return (int)cudaErrorInvalidValue;                                  \
+    }                                                                       \
+  }                                                                         \
   switch (dtype) {                                                          \
     case kF16:                                                              \
       return (D) <= 64 ? f<__half, 64>(__VA_ARGS__)                         \

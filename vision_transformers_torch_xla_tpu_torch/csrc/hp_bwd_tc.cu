@@ -25,16 +25,14 @@
 // (csrc/hopper.cuh), as in csrc/attn_fwd_tc.cu's K7 order. The fp32 version
 // of the same function is csrc/hp_bwd.cu's CUDA-core loops: the TPU kernels
 // round nothing in fp32, and a tensor-core product of fp32 operands (TF32)
-// would. Head dims over 128 do not fit this design: at 192 the dk/dv
-// launch's tiles take 240 KB of a block's 227 KB (checked below) and its
-// four accumulators 256 registers a consumer thread; they run in bf16 and
-// fp16 too on csrc/hp_bwd.cu.
+// would. Head dims over 256 run on csrc/hp_bwd.cu in bf16 and fp16 too.
 //
 // What bounds it on an H100: at B = 128, S = 197, H = 12, D = 64 the five
 // products the function needs are 10 S^2 D per (b, h), 38.2 GFLOP in all,
 // over 271 MB (q, k, v and dO read once, dq, dk and dv written once):
 // 0.0809 ms at 3.35 TB/s against 0.039 ms at 989 TFLOP/s, so device memory
-// bounds the ideal kernel. This design computes 20 S^2 D (s three times, dp
+// bounds the ideal kernel (and at D = 256, B = 32: the same 271 MB and
+// 38.2 GFLOP). This design computes 20 S^2 D (s three times, dp
 // twice and dq in the dq launch; s, dp, dv and dk in the dk/dv launch) and
 // reads K and V once per query tile, mostly from L2. On rows this short the
 // latency between the TMA loads, the products and the softmax between them
@@ -75,6 +73,21 @@
 //    the same q and dO tiles read MN-major. The producer warpgroup lends
 //    its registers to the consumers (setmaxnreg), as K2's does. The
 //    epilogue stores T(dv) and T(dk scale).
+// Head dims 192 and 256 (the wide tiles): the dq launch is the same (at 256
+// its tiles take 192 KB, its accumulator 128 registers a thread, and one
+// block an SM), its m64nD products over pairs of 64-column panels. The
+// dk/dv launch cannot give each warpgroup 64 keys: two accumulators of 64 x
+// 256 fp32 are 256 registers a thread, and 128 keys of K and V with a
+// 2-stage ring of q and dO are 256 KB. So both consumer warpgroups share
+// one tile of 64 keys (K and V 64 KB at 256, q and dO in a 2-stage ring,
+// 128 KB: 192 KB) and split the outputs, not the keys: warpgroup 0
+// computes S^T, p^T and dV += T(p)^T dO; warpgroup 1 S^T, dP^T, ds^T and
+// dK += ds^T q. Each holds one 64 x D accumulator (128 registers at 256)
+// with 32 (S^T) or 64 (S^T, dP^T) more; S^T is computed by both, so the
+// launch runs 5
+// products of 64 x 64 x D per (key tile, query tile) where 4 would do, on
+// a critical path of 3 (warpgroup 1's), as the D = 128 launch's. The
+// producer warpgroup keeps 24 registers, so a consumer thread has 240.
 // Rows >= S: TMA fills q, k, v and dO rows past S with zeros. Keys past S
 // take p = 0 in both launches. A query row past S takes m = 0, sum = 1 and
 // delta = 0 in launch 2: its p is 1 and its zero dO makes every term it
@@ -102,7 +115,6 @@
 namespace {
 
 constexpr int kRows = 64;   // rows of a streamed tile and of a warpgroup
-constexpr int kStages = 3;  // ring depth of the streamed tiles (dk/dv)
 constexpr int kSweeps = 3;  // launch 1's passes over the keys
 // The dq launch: kDqGroups consumer warpgroups of kRows queries each and a
 // producer warp; an SM holds as many blocks as registers and shared memory
@@ -116,6 +128,7 @@ constexpr int kStreamPanel = kRows * kPanel;         // 8 KB
 constexpr int kDqPanel = kDqRows * kPanel;
 constexpr uint32_t kStreamBytes = kStreamPanel * 2;  // LBO of an MN-major tile
 constexpr int kMaxSeq = 1024;
+constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;  // the mask value of keys >= S
 
 // Shared tiles of the dq launch; every panel is a multiple of 1024 bytes,
@@ -136,16 +149,24 @@ struct DqTiles {
 // (kConsumerRegs). At D = 64 one group, two blocks an SM: 128 x 40 + 128 x
 // 216 = 256 x 128. At D = 128 two groups, one block, as
 // csrc/attn_bwd_tc.cu: 128 x 40 + 256 x 232 = 384 x 168 (one group there
-// spills; PERF.md §6 has both).
+// spills; PERF.md §6 has both). At D 192 and 256 (kSplit) two groups share
+// kRows keys, group 0 computing dV and group 1 dK, the producer at 24
+// registers: 128 x 24 + 256 x 240 = 384 x 168; the ring of q and dO has
+// kStages slots.
 template <int kD>
 struct DkdvShape {
+  static constexpr bool kSplit = kD > 128;
   static constexpr int kGroups = kD <= 64 ? 1 : 2;
   static constexpr int kBlocks = kD <= 64 ? 2 : 1;
-  static constexpr int kKeys = kGroups * kRows;
+  static constexpr int kKeys = kSplit ? kRows : kGroups * kRows;
+  static constexpr int kStages = kSplit ? 2 : 3;
+  // kSplit: the producer warpgroup keeps the fewest registers setmaxnreg
+  // allows, so that a consumer gets 240
+  static constexpr int kProdRegs = kSplit ? 24 : kProducerRegs;
   static constexpr int kThreads = kGroups * 128 + 128;
   static constexpr int kRegs = 65536 / (kThreads * kBlocks) / 8 * 8;
   static constexpr int kConsumerRegs =
-      (kThreads * kRegs - 128 * kProducerRegs) / (kGroups * 128) / 8 * 8;
+      (kThreads * kRegs - 128 * kProdRegs) / (kGroups * 128) / 8 * 8;
   static_assert(kRegs <= 248 && kConsumerRegs <= 256,
                 "setmaxnreg takes at most 256 registers a thread");
 };
@@ -154,6 +175,7 @@ struct DkdvShape {
 // [m log2(e), sum, RN(1 / sum), delta].
 template <typename T, int kD>
 struct DkdvTiles {
+  static constexpr int kStages = DkdvShape<kD>::kStages;
   T k[kD / kPanel][DkdvShape<kD>::kKeys * kPanel];
   T v[kD / kPanel][DkdvShape<kD>::kKeys * kPanel];
   T q[kStages][kD / kPanel][kStreamPanel];
@@ -161,9 +183,9 @@ struct DkdvTiles {
   float4 st[kStages][kRows];
 };
 
-// The next head dim in panels of 64 does not fit a block's 227 KB.
-static_assert(sizeof(DkdvTiles<bf16, 192>) > 227 * 1024,
-              "head dims over 128 would fit these tiles");
+static_assert(sizeof(DkdvTiles<bf16, 256>) + 1024 <= 227 * 1024 &&
+                  sizeof(DqTiles<bf16, 256>) + 1024 <= 227 * 1024,
+              "the widest tiles fit a block's 227 KB");
 
 template <typename Tiles>
 __device__ __forceinline__ Tiles& aligned_tiles(uint8_t* raw) {
@@ -199,14 +221,30 @@ __device__ __forceinline__ void issue_ss(float (&acc)[32], T (*a)[kA],
 }
 
 // acc += A B over 4 steps of 16 rows of a streamed [64][kD] tile B read
-// MN-major; A the packed register fragments of those rows.
+// MN-major; A the packed register fragments of those rows. Up to D = 128
+// one m64nD product a step; the wide head dims m64n128 over pairs of
+// 64-column panels (and m64n64 for an odd one).
 template <typename T, int N>
 __device__ __forceinline__ void issue_rs(float (&acc)[N],
                                          const uint32_t (&a)[4][4],
                                          T (*b)[kStreamPanel]) {
 #pragma unroll
-  for (int c = 0; c < kRows / 16; ++c)
-    wgmma_rs<T>(acc, a[c], desc(&b[0][c * 16 * kPanel], kStreamBytes, 1024));
+  for (int c = 0; c < kRows / 16; ++c) {
+    if constexpr (N <= 64) {
+      wgmma_rs<T>(acc, a[c],
+                  desc(&b[0][c * 16 * kPanel], kStreamBytes, 1024));
+    } else {
+#pragma unroll
+      for (int p = 0; p + 2 <= N / 32; p += 2)
+        wgmma_rs<T>(*reinterpret_cast<float(*)[64]>(&acc[32 * p]), a[c],
+                    desc(&b[p][c * 16 * kPanel], kStreamBytes, 1024));
+      if constexpr ((N / 32) % 2) {
+        constexpr int p = N / 32 - 1;
+        wgmma_rs<T>(*reinterpret_cast<float(*)[32]>(&acc[32 * p]), a[c],
+                    desc(&b[p][c * 16 * kPanel], kStreamBytes, 1024));
+      }
+    }
+  }
 }
 
 // p = exp(s scale - m) / sum of an unmasked fp32 score s, from ml = m
@@ -465,7 +503,8 @@ hp_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tq,
 // (b, h) = x / n_t.
 // Fragments as launch 1's; rows are keys, columns of S^T and dP^T the
 // tile's queries, of dK and dV the head dim. dk and dv point at head 0
-// (layout gr).
+// (layout gr). kSplit: both groups hold the tile's 64 keys, group 0 dV and
+// group 1 dK.
 template <typename T, int kD>
 __global__ void __launch_bounds__(DkdvShape<kD>::kThreads,
                                   DkdvShape<kD>::kBlocks)
@@ -477,6 +516,8 @@ hp_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       T* __restrict__ dv, int H, int S, int D, int n_t,
                       float scale, Layout gr) {
   constexpr int kPanels = kD / kPanel;
+  constexpr int kStages = DkdvShape<kD>::kStages;
+  constexpr bool kSplit = DkdvShape<kD>::kSplit;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t kv_full;
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -505,7 +546,7 @@ hp_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     // loads K and V once, then q and dO tiles through the ring, and every
     // lane of it stores two of the tile's query stats, then arrives
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        kProducerRegs));
+        DkdvShape<kD>::kProdRegs));
     if (warp != 4 * kGroups) return;
     if (lane == 0) {
       bar_expect_tx(&kv_full, 2 * kKeys * kD * 2);
@@ -544,14 +585,77 @@ hp_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64)
+  // consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64), or
+  // with kSplit the tile's 64 keys and one of dV (wg 0) and dK (wg 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
       DkdvShape<kD>::kConsumerRegs));
   const int wg = warp / 4;
+  const int kw = kSplit ? 0 : wg;  // this group's 64-key slice
   const int row = 16 * (warp % 4) + lane / 4;  // and row + 8, in the group
   const int col = 2 * (lane % 4);
-  const int key0 = k0 + wg * kRows + row;
+  const int key0 = k0 + kw * kRows + row;
   const bool ok0 = key0 < S, ok1 = key0 + 8 < S;
+  if constexpr (kSplit) {
+    // one accumulator: dV for group 0, dK for group 1
+    const bool dk_group = wg == 1;
+    float acc[kD / 2];
+    float s[32], dp[32];
+    zero(acc);
+    zero(s);
+    zero(dp);
+
+    bar_wait(&kv_full, 0);
+    for (int j = 0; j < n_qt; ++j) {
+      const int stg = j % kStages;
+      bar_wait(&full[stg], (j / kStages) & 1);
+
+      // S^T = K q^T, and for group 1 dP^T = V dO^T
+      pin(s);
+      pin(dp);
+      wg_fence();
+      issue_ss<T, kD, kKeys * kPanel>(s, t.k, t.q[stg], 0);
+      if (dk_group) issue_ss<T, kD, kKeys * kPanel>(dp, t.v, t.dout[stg], 0);
+      wg_commit();
+      wg_wait();
+      pin(s);
+      pin(dp);
+
+      // group 0: T(p^T); group 1: T(ds^T) = T(p^T (dP^T - delta)), packed
+      // as A fragments in launch 1's order of registers
+      uint32_t fa[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int qc = 8 * n + col;
+        const float4 c0 = t.st[stg][qc], c1 = t.st[stg][qc + 1];
+        float p0 = ok0 ? prob(s[4 * n], scale, c0.x, c0.y, c0.z) : 0.f;
+        float p1 = ok0 ? prob(s[4 * n + 1], scale, c1.x, c1.y, c1.z) : 0.f;
+        float p2 = ok1 ? prob(s[4 * n + 2], scale, c0.x, c0.y, c0.z) : 0.f;
+        float p3 = ok1 ? prob(s[4 * n + 3], scale, c1.x, c1.y, c1.z) : 0.f;
+        if (dk_group) {
+          p0 *= dp[4 * n] - c0.w;
+          p1 *= dp[4 * n + 1] - c1.w;
+          p2 *= dp[4 * n + 2] - c0.w;
+          p3 *= dp[4 * n + 3] - c1.w;
+        }
+        fa[n / 2][(n % 2) * 2] = pack2<T>(p0, p1);
+        fa[n / 2][(n % 2) * 2 + 1] = pack2<T>(p2, p3);
+      }
+
+      // group 0: dV += T(p)^T dO; group 1: dK += ds^T q
+      pin(acc);
+      wg_fence();
+      issue_rs<T>(acc, fa, dk_group ? t.q[stg] : t.dout[stg]);
+      wg_commit();
+      wg_wait();
+      pin(acc);
+      release(&empty[stg], lane);
+    }
+
+    const long long g_off = b * gr.sb + h * gr.sh;
+    store_rows((dk_group ? dk : dv) + g_off, gr.sr, acc, key0, col, S, D,
+               dk_group ? scale : 1.f);
+    return;
+  } else {
   float dk_acc[kD / 2], dv_acc[kD / 2];
   float s[32], dp[32];
   zero(dk_acc);
@@ -614,6 +718,7 @@ hp_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const long long g_off = b * gr.sb + h * gr.sh;
   store_rows(dv + g_off, gr.sr, dv_acc, key0, col, S, D, 1.f);
   store_rows(dk + g_off, gr.sr, dk_acc, key0, col, S, D, scale);
+  }
 }
 
 // Everything the host function hands the launches.
@@ -671,7 +776,9 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 int launch_d(const Args& a, cudaStream_t s) {
-  return a.D <= 64 ? launch<T, 64>(a, s) : launch<T, 128>(a, s);
+  if (a.D <= 64) return launch<T, 64>(a, s);
+  if (a.D <= 128) return launch<T, 128>(a, s);
+  return a.D <= 192 ? launch<T, 192>(a, s) : launch<T, 256>(a, s);
 }
 
 }  // namespace
@@ -681,7 +788,7 @@ extern "C" {
 // dq, dk, dv (layout gr) of the element type `dtype` (elem.cuh's code: bf16
 // or fp16; fp32 is csrc/hp_bwd.cu's) from q, k, v (layout in) and dout
 // (layout og), all (B, H, S, D) given by base pointer and element strides;
-// stats (B, H, S, 3) fp32 is scratch. 1 <= S <= 1024, D even and <= 128.
+// stats (B, H, S, 3) fp32 is scratch. 1 <= S <= 1024, D even and <= 256.
 // Returns a cudaError_t as int (0 when both launches were accepted), or a
 // code of vtx_cuda_error_string's own.
 int vtx_hp_bwd_tc(const void* q, const void* k, const void* v,
@@ -692,7 +799,7 @@ int vtx_hp_bwd_tc(const void* q, const void* k, const void* v,
                   void* stats, int B, int H, int S, int D, float scale,
                   int dtype, void* stream) {
   if (B < 1 || H < 1 || S < 1 || S > kMaxSeq || D < 2 || (D & 1) ||
-      D > 128)
+      D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q, a.k = k, a.v = v, a.dout = dout;
@@ -713,9 +820,13 @@ int vtx_hp_bwd_tc(const void* q, const void* k, const void* v,
 // (dq == 0) at head dim D, in bytes (the same for bf16 and fp16).
 int vtx_hp_bwd_tc_smem(int D, int dq) {
   const size_t tiles =
-      dq ? (D <= 64 ? sizeof(DqTiles<bf16, 64>) : sizeof(DqTiles<bf16, 128>))
-         : (D <= 64 ? sizeof(DkdvTiles<bf16, 64>)
-                    : sizeof(DkdvTiles<bf16, 128>));
+      D <= 64    ? (dq ? sizeof(DqTiles<bf16, 64>) : sizeof(DkdvTiles<bf16, 64>))
+      : D <= 128 ? (dq ? sizeof(DqTiles<bf16, 128>)
+                       : sizeof(DkdvTiles<bf16, 128>))
+      : D <= 192 ? (dq ? sizeof(DqTiles<bf16, 192>)
+                       : sizeof(DkdvTiles<bf16, 192>))
+                 : (dq ? sizeof(DqTiles<bf16, 256>)
+                       : sizeof(DkdvTiles<bf16, 256>));
   return (int)tiles + 1024;
 }
 

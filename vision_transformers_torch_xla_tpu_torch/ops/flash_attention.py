@@ -17,7 +17,8 @@ wgmma): csrc/attn_fwd_tc.cu and csrc/attn_bwd_tc.cu. The fp32 ones run on
 the CUDA cores, csrc/attn_fwd.cu (a warp per query row) and
 csrc/attn_bwd.cu (a block per (b, h) over register-tiled 64-row tiles,
 csrc/flash_blocked.cu's tiling): the JAX kernels round nothing in fp32,
-and a tensor-core product of fp32 operands, TF32, would.
+and a tensor-core product of fp32 operands, TF32, would. Wider heads take
+other sources (below).
 `attn_kernel_route` decides before the launch, by dtype and shape: the
 tensor-core kernels read q, k and v in place through TMA tensor maps,
 which need a head dim that is a multiple of 8 and 16-byte-aligned data;
@@ -73,14 +74,19 @@ The kernels take S <= MAX_SEQ, and their wrappers raise on more; the
 entry points `fused_attention` and `fused_attention_qkv` route S > MAX_SEQ
 to `reference_attention` under autograd, as JAX routes it, by a shape rule
 decided before any launch (`fused_kernel_route`, `bwd_kernel_route` say
-'reference'). The tensor-core kernels take a head dim <= MAX_HEAD_DIM:
-their tiles at the next head dim in panels of 64 pass a block's shared
-memory (csrc/attn_fwd_tc.cu, csrc/hp_bwd_tc.cu check it at compile time).
-JAX pads any head dim and runs its kernels, so K7, K8 and K10-K12 on (B,
-H, S, D) views route a wider one, in every dtype, to the CUDA-core
-sources, csrc/fused_attn_fwd.cu and csrc/hp_bwd.cu, which take a head dim
-<= MAX_CUDA_CORE_HEAD_DIM. K1, K2 and K9 (and K10's qkv buffer) take a
-head dim <= MAX_HEAD_DIM.
+'reference'). JAX pads any head dim and runs its kernels; every kernel
+here takes an even head dim <= MAX_CUDA_CORE_HEAD_DIM (1024), on these
+sources (the routes say which, before the launch):
+
+* bf16, fp16 at D <= MAX_HEAD_DIM (128): the tensor-core tiles of
+  csrc/attn_fwd_tc.cu (K1, K7, K9, K11), csrc/attn_bwd_tc.cu (K2) and
+  csrc/hp_bwd_tc.cu (K8, K10, K12);
+* bf16, fp16 at MAX_HEAD_DIM < D <= MAX_WIDE_HEAD_DIM (256): the wide
+  tensor-core tiles of csrc/attn_fwd_tc.cu and csrc/hp_bwd_tc.cu (64-key
+  tiles); K2 on the CUDA cores, csrc/attn_bwd.cu's run-time head dim;
+* fp32 at any D, and every dtype at D > MAX_WIDE_HEAD_DIM: the CUDA
+  cores, csrc/attn_fwd.cu (K1, K9), csrc/attn_bwd.cu (K2),
+  csrc/fused_attn_fwd.cu (K7, K11) and csrc/hp_bwd.cu (K8, K10, K12).
 
 Every kernel takes bf16, fp16 and fp32 on the card, as the JAX kernels take
 any float dtype: the CUDA sources are templated on the element type, compute
@@ -112,6 +118,7 @@ from vision_transformers_torch_xla_tpu_torch.ops.cuda_build import (
     KERNEL_DTYPES,
 )
 from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
+    MAX_CUDA_CORE_HEAD_DIM,
     TMA_ALIGN,
     FlashAttentionBlocked,
     _tma_layout,
@@ -121,8 +128,8 @@ from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
 )
 
 MAX_SEQ = 1024       # longer sequences are ops/flash_blocked.py's (K4-K6)
-MAX_HEAD_DIM = 128   # the tensor-core kernels' and K1, K2, K9's widest head
-MAX_CUDA_CORE_HEAD_DIM = 1024  # csrc/fused_attn_fwd.cu's and csrc/hp_bwd.cu's
+MAX_HEAD_DIM = 128   # the tensor-core tiles' widest head (K2's: its only)
+MAX_WIDE_HEAD_DIM = 256  # the wide tensor-core tiles' (K1, K7-K12)
 
 # Launches of the attention kernels in this process. Only the wrappers'
 # launches add to them; callers may reset them to 0.
@@ -194,11 +201,14 @@ def attn_kernel_route(qkv: torch.Tensor, num_heads: int,
                       o: Optional[torch.Tensor] = None) -> str:
     """The kernel a CUDA call of K1 or K9 (on `qkv`) or K2 (also on `do`
     and `o`) launches, decided before the launch: 'tensor_cores' (bf16,
-    fp16: csrc/attn_fwd_tc.cu, csrc/attn_bwd_tc.cu, reading the buffers in
+    fp16: csrc/attn_fwd_tc.cu, at a head dim <= MAX_WIDE_HEAD_DIM, and
+    csrc/attn_bwd_tc.cu, at one <= MAX_HEAD_DIM, reading the buffers in
     place), 'tensor_cores_copy' (the same kernels after one `padded_copy`,
     when TMA cannot read q, k, v or dO, O in place: `tma_ready`) or
-    'cuda_cores' (fp32: csrc/attn_fwd.cu, csrc/attn_bwd.cu)."""
-    if qkv.dtype == torch.float32:
+    'cuda_cores' (fp32, and the wider heads of every dtype:
+    csrc/attn_fwd.cu, csrc/attn_bwd.cu)."""
+    widest = MAX_WIDE_HEAD_DIM if do is None else MAX_HEAD_DIM
+    if qkv.dtype == torch.float32 or _head_dim(qkv, num_heads) > widest:
         return "cuda_cores"
     groups = [heads(qkv, num_heads)]
     if do is not None:
@@ -215,14 +225,15 @@ def fused_kernel_route(q: torch.Tensor, k: torch.Tensor,
     `fused_attention` and `fused_attention_qkv` take `reference_attention`,
     as JAX routes it, on the CPU too, and launch nothing), 'tensor_cores'
     (bf16, fp16: csrc/attn_fwd_tc.cu in K7's cast order, reading q, k, v in
-    place), 'tensor_cores_copy' (the same kernel after one `padded_copy`,
-    when TMA cannot read them in place: `tma_ready`) or 'cuda_cores' (fp32,
-    or a head dim over MAX_HEAD_DIM in any dtype: csrc/fused_attn_fwd.cu).
-    The output is the wrapper's own, which the kernel writes in place at
-    every even head dim."""
+    place, at a head dim <= MAX_WIDE_HEAD_DIM), 'tensor_cores_copy' (the
+    same kernel after one `padded_copy`, when TMA cannot read them in
+    place: `tma_ready`) or 'cuda_cores' (fp32, or a head dim over
+    MAX_WIDE_HEAD_DIM in any dtype: csrc/fused_attn_fwd.cu). The output is
+    the wrapper's own, which the kernel writes in place at every even head
+    dim."""
     if q.shape[-2] > MAX_SEQ:
         return "reference"
-    if q.dtype == torch.float32 or q.shape[-1] > MAX_HEAD_DIM:
+    if q.dtype == torch.float32 or q.shape[-1] > MAX_WIDE_HEAD_DIM:
         return "cuda_cores"
     return "tensor_cores" if tma_ready(q, k, v) else "tensor_cores_copy"
 
@@ -249,15 +260,16 @@ def bwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches on the card, decided before the launch: 'reference' (S >
     MAX_SEQ: the entry points' forward took `reference_attention`, whose
     gradient is autograd's), 'tensor_cores' (bf16, fp16: csrc/hp_bwd_tc.cu,
-    reading q, k, v as one group and dO as another in place),
-    'tensor_cores_copy' (the same kernels after one `padded_copy` of all
-    four, when TMA cannot read a group in place: `tma_ready`) or
-    'cuda_cores' (fp32, or a head dim over MAX_HEAD_DIM in any dtype:
-    csrc/hp_bwd.cu). The outputs are the wrappers' own, which the kernels
-    write in place at every even head dim."""
+    at a head dim <= MAX_WIDE_HEAD_DIM, reading q, k, v as one group and dO
+    as another in place), 'tensor_cores_copy' (the same kernels after one
+    `padded_copy` of all four, when TMA cannot read a group in place:
+    `tma_ready`) or 'cuda_cores' (fp32, or a head dim over
+    MAX_WIDE_HEAD_DIM in any dtype: csrc/hp_bwd.cu). The outputs are the
+    wrappers' own, which the kernels write in place at every even head
+    dim."""
     if q.shape[-2] > MAX_SEQ:
         return "reference"
-    if q.dtype == torch.float32 or q.shape[-1] > MAX_HEAD_DIM:
+    if q.dtype == torch.float32 or q.shape[-1] > MAX_WIDE_HEAD_DIM:
         return "cuda_cores"
     if tma_ready(q, k, v) and tma_ready(do):
         return "tensor_cores"
@@ -287,14 +299,12 @@ def _scale(qkv: torch.Tensor, num_heads: int,
 
 def _check_cuda(name: str, tensors, s: int, d: int, b: int,
                 num_heads: int, views: bool = False) -> None:
-    """The kernels' contract; raises on what they do not take. `views`:
-    the tensors are (B, H, S, D) views of one dtype that `_launch_views`
-    hands to the kernels (K7, K8, K10-K12) in place or copied, so only S
-    and D <= MAX_CUDA_CORE_HEAD_DIM bind them (a wider head than
-    MAX_HEAD_DIM takes the CUDA-core kernels); else contiguous tensors
-    whose first three share one dtype, with an even D <= MAX_HEAD_DIM (K1,
-    K2, K9, and K10's qkv buffer). The dtype is one of KERNEL_DTYPES. B and
-    H are bound by no grid dimension."""
+    """The kernels' contract; raises on what they do not take: S <=
+    MAX_SEQ and D <= MAX_CUDA_CORE_HEAD_DIM. `views`: the tensors are (B,
+    H, S, D) views of one dtype that the kernels (K7, K8, K10-K12) take in
+    place or copied; else contiguous tensors whose first three share one
+    dtype, with an even D (K1, K2, K9, and K10's qkv buffer). The dtype is
+    one of KERNEL_DTYPES. B and H are bound by no grid dimension."""
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
@@ -309,13 +319,13 @@ def _check_cuda(name: str, tensors, s: int, d: int, b: int,
             f"sequences go through fused_attention_qkv_cols to "
             f"ops/flash_blocked.py, or through fused_attention and "
             f"fused_attention_qkv to reference_attention")
-    widest = MAX_CUDA_CORE_HEAD_DIM if views else MAX_HEAD_DIM
-    if d > widest:
-        raise ValueError(f"head_dim {d} must be <= {widest}")
+    if d > MAX_CUDA_CORE_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be <= {MAX_CUDA_CORE_HEAD_DIM}")
     if views:
         return
     if d % 2:
-        raise ValueError(f"head_dim {d} must be even and <= {MAX_HEAD_DIM}")
+        raise ValueError(f"head_dim {d} must be even and <= "
+                         f"{MAX_CUDA_CORE_HEAD_DIM}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 
@@ -365,6 +375,14 @@ def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
                            + lib.vtx_cuda_error_string(rc).decode())
 
 
+def _q_hat(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q̂ = T(q · T(scale)) in fp32, T q's dtype: K1, K2 and K9 scale q in
+    its dtype (:305, :535), as JAX multiplies a T array by a Python float,
+    so the scale is rounded to T first (exact at a power of two)."""
+    s_t = torch.tensor(scale, dtype=q.dtype).float()
+    return (q.float() * s_t).to(q.dtype).float()
+
+
 def attn_fwd_reference(qkv: torch.Tensor, num_heads: int, scale: float,
                        with_stats: bool = False
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -375,7 +393,7 @@ def attn_fwd_reference(qkv: torch.Tensor, num_heads: int, scale: float,
     b, s, c = qkv.shape
     d = c // (3 * num_heads)
     t = qkv.reshape(b, s, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    q = (t[0].float() * scale).to(qkv.dtype).float()
+    q = _q_hat(t[0], scale)
     scores = torch.matmul(q, t[1].float().transpose(-1, -2))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
@@ -465,7 +483,7 @@ def attn_bwd_reference(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
     d = c // (3 * h)
     dt = qkv.dtype
     t = qkv.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)      # (3,B,H,S,D)
-    q = (t[0].float() * scale).to(dt).float()                  # q̂
+    q = _q_hat(t[0], scale)                                    # q̂
     k, v = t[1].float(), t[2].float()
     g = do.reshape(b, s, h, d).transpose(1, 2).float()         # (B,H,S,D)
     out = o.reshape(b, s, h, d).transpose(1, 2).float()
@@ -519,8 +537,10 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
 
 def _launch_bwd_cuda_cores(qkv, do, o, st, dqkv, dbias, num_heads: int,
                            scale: float) -> None:
-    """csrc/attn_bwd.cu (fp32): one launch, a block per (b, h), with its
-    scratch: t·k summed over the key tiles, (B, H, S, D) fp32."""
+    """csrc/attn_bwd.cu (fp32; every dtype at a head dim over
+    MAX_HEAD_DIM): one launch, a block per (b, h) (and 64-column chunk of a
+    wider head), with its scratch: t·k summed over the key tiles, (B, H, S,
+    D) fp32."""
     b, s, c = qkv.shape
     d = c // (3 * num_heads)
     dev = qkv.device
@@ -965,7 +985,7 @@ def fused_attention_qkv_cols(qkv: torch.Tensor, num_heads: int,
     the buffer by stride, with no copy in or out, and write its gradient
     once. The JAX function's head-pair layout rule (head_dim a multiple of
     64, an even head count) is a TPU one: the port's kernels take any even
-    head_dim <= 128 and any head count."""
+    head_dim <= MAX_CUDA_CORE_HEAD_DIM and any head count."""
     _, s, _ = qkv.shape
     scale = _scale(qkv, num_heads, scale)
     if s <= MAX_SEQ:

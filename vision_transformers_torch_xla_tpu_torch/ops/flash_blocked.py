@@ -2,8 +2,9 @@
 
 Counterpart of vision_transformers_torch_xla_tpu/ops/flash_blocked.py: the
 long-sequence path (S > 1024, high-resolution ViTs). Three kernels, each
-in bf16 on the tensor cores and in fp16 and fp32 on the CUDA cores (the
-JAX kernels take any float dtype):
+in bf16 on the tensor cores at a head dim <= MAX_HEAD_DIM and on the CUDA
+cores in fp16, in fp32 and at a wider head dim (the JAX kernels take any
+float dtype and head dim):
 
 * `flash_fwd`, the port of `_fwd_kernel` (:33, ROADMAP K4): o and the row
   logsumexp lse = m + log(l); bf16 -> csrc/flash_fwd.cu (TMA and wgmma);
@@ -13,8 +14,10 @@ JAX kernels take any float dtype):
   (`flash_delta`; JAX computes it outside Pallas too); bf16 ->
   csrc/flash_bwd.cu (TMA and wgmma); `flash_bwd` runs the three.
 
-fp16 and fp32 go to csrc/flash_blocked.cu, CUDA-core loops that round where
-the JAX kernels cast to the inputs' dtype and compute in fp32.
+fp16 and fp32, and every dtype at a head dim over MAX_HEAD_DIM (up to
+MAX_CUDA_CORE_HEAD_DIM), go to csrc/flash_blocked.cu, CUDA-core loops that
+round where the JAX kernels cast to the inputs' dtype and compute in fp32
+(`tensor_cores` decides).
 
 `FlashAttentionBlocked` is the custom VJP `_flash_attention_padded`
 (:247-266) as an autograd Function, and `flash_attention_blocked` the
@@ -53,7 +56,8 @@ from vision_transformers_torch_xla_tpu_torch.ops.cuda_build import (
 
 log = logging.getLogger(__name__)
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128   # the tensor-core kernels' (bf16) widest head
+MAX_CUDA_CORE_HEAD_DIM = 1024  # the CUDA-core kernels' widest head
 TMA_ALIGN = 8  # elements: the tensor maps want 16-byte strides and data
 
 # Launches of the blocked kernels in this process. Only the wrappers'
@@ -104,15 +108,22 @@ def build_bwd_kernels() -> ctypes.CDLL:
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the fp16 and fp32 library (K4, K5,
-    K6 on the CUDA cores)."""
+    """Build (at first use) and load the CUDA-core library (K4, K5, K6 in
+    fp16 and fp32, and in every dtype at a head dim over MAX_HEAD_DIM)."""
     return _load("flash_blocked", {**_FWD_SIGS, **_BWD_SIGS})
 
 
-def _library(q: torch.Tensor, bf16_lib) -> ctypes.CDLL:
-    """The library for q's dtype: `bf16_lib` (the tensor cores') for bf16,
-    the CUDA-core one for fp16 and fp32."""
-    return bf16_lib() if q.dtype == torch.bfloat16 else build_kernels()
+def tensor_cores(q: torch.Tensor) -> bool:
+    """Whether K4-K6 on q's dtype and head dim run on the tensor cores
+    (csrc/flash_fwd.cu, csrc/flash_bwd.cu: bf16 at a head dim <=
+    MAX_HEAD_DIM); else on csrc/flash_blocked.cu's CUDA-core loops."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_HEAD_DIM
+
+
+def _library(q: torch.Tensor, tc_lib) -> ctypes.CDLL:
+    """The library for q's dtype and head dim: `tc_lib` (the tensor
+    cores') where `tensor_cores` says so, else the CUDA-core one."""
+    return tc_lib() if tensor_cores(q) else build_kernels()
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -188,7 +199,7 @@ def _layout(t: torch.Tensor):
 
 def _check_cuda(name: str, tensors) -> None:
     """The kernels' contract; raises on what they do not take: tensors of
-    one dtype among KERNEL_DTYPES, a head dim <= 128."""
+    one dtype among KERNEL_DTYPES, a head dim <= MAX_CUDA_CORE_HEAD_DIM."""
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{name} runs on cpu or cuda tensors, not "
                          f"{[str(t.device) for t in tensors]}")
@@ -196,9 +207,9 @@ def _check_cuda(name: str, tensors) -> None:
     if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
         raise TypeError(f"the blocked attention kernels take tensors of one "
                         f"of {KERNEL_DTYPES}, not {[t.dtype for t in tensors]}")
-    if tensors[0].shape[-1] > MAX_HEAD_DIM:
+    if tensors[0].shape[-1] > MAX_CUDA_CORE_HEAD_DIM:
         raise ValueError(f"head_dim {tensors[0].shape[-1]} must be <= "
-                         f"{MAX_HEAD_DIM}")
+                         f"{MAX_CUDA_CORE_HEAD_DIM}")
 
 
 def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -237,10 +248,10 @@ def tma_ready(*tensors: torch.Tensor) -> bool:
 
 
 def _in_place(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether the kernels of q's dtype read q, k and v in place: TMA's
-    rule for bf16 (`tma_ready`); one layout with a contiguous head dim for
-    the CUDA-core kernels."""
-    if q.dtype == torch.bfloat16:
+    """Whether the kernels of q's dtype and head dim read q, k and v in
+    place: TMA's rule for the tensor cores' (`tma_ready`); one layout with
+    a contiguous head dim for the CUDA-core kernels."""
+    if tensor_cores(q):
         return tma_ready(q, k, v)
     return (_tma_layout(q) == _tma_layout(k) == _tma_layout(v)
             and all(t.stride(-1) == 1 for t in (q, k, v)))
@@ -248,20 +259,20 @@ def _in_place(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 def _writable(outs) -> bool:
     """Whether the kernels write `outs` in place: one layout with a
-    contiguous head dim; the bf16 kernels store pairs, so also even strides
-    and 4-byte-aligned data."""
+    contiguous head dim; the tensor-core kernels store pairs, so also even
+    strides and 4-byte-aligned data."""
     if len({_layout(t) for t in outs}) != 1 or any(
             t.stride(-1) != 1 for t in outs):
         return False
-    return outs[0].dtype != torch.bfloat16 or all(
+    return not tensor_cores(outs[0]) or all(
         t.data_ptr() % 4 == 0 and all(x % 2 == 0 for x in _layout(t))
         for t in outs)
 
 
 def _copy_multiple(t: torch.Tensor) -> int:
-    """The head-dim multiple a copy pads to: TMA's 8 for bf16, none for the
-    CUDA-core kernels."""
-    return TMA_ALIGN if t.dtype == torch.bfloat16 else 1
+    """The head-dim multiple a copy pads to: TMA's 8 for the tensor cores'
+    kernels, none for the CUDA-core ones."""
+    return TMA_ALIGN if tensor_cores(t) else 1
 
 
 def padded_copy(tensors, multiple: int, name: str):
@@ -290,7 +301,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Softmax attention, q, k, v (B, H, S, D) -> o (B, H, S, D), a view of
     (B, S, H, D) memory, and the row logsumexp lse (B, H, S) fp32. On the
     card, q, k and v that the kernel cannot read in place (`_in_place`) are
-    copied once first; D > 128 raises."""
+    copied once first; D > MAX_CUDA_CORE_HEAD_DIM raises."""
     global FLASH_FWD_LAUNCHES
     scale = _scale(q, scale)
     if q.device.type == "cpu":
