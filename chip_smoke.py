@@ -215,6 +215,32 @@ JAX kernels take any float dtype):
     (K2_FP32_EDGE_SHAPES: S 1 to 1024 around its 64-row tiles, D 32 to
     128, B and H over 65535), each call run twice and bitwise equal,
     within K2_FP32_EDGE_REL.
+24. trainer state: launch/main.py::main on my_vit_b at batch 128 with the
+    recipe's flags, 4 steps an epoch and 1 eval batch, in a directory
+    under build/ that the phase removes: an uninterrupted 2-epoch run with
+    --output_dir, and the same run stopped when epoch 1 starts (after
+    epoch 0's checkpoint, as a preemption stops it) and run again, which
+    auto-resumes: the final checkpoints must be bitwise equal (or, if the
+    uninterrupted run done twice is not, within STATE_WITNESS_FACTOR of
+    that witness's difference), and the resumed epoch must launch K1 and
+    K2 12 times a step, as phase 9's run does. Then `python -m
+    ...launch.main` in a process of its own (a profiler session in this
+    one records no kernels after the trainer phases) continues the
+    uninterrupted run to a third epoch with --save_ckpt_num 2,
+    --enable_tensorboard, --log_dir and --profile_steps 2: epochs 1 and 2
+    must be left on disk (the rotation tests/test_torch_checkpoint.py
+    holds to the JAX manager), log.txt one line an epoch, an event file
+    under the log dir, and the trace (its size printed) must name the K1
+    and K2 kernels. --eval with --resume gives the resumed run's top-1;
+    2 steps of --kd --teacher_model my_vit_b --teacher_path <phase 4's
+    .pth> launch K1 and K2 for the student alone (12 a step); the server
+    with --ckpt <checkpoints dir> --use_ema answers one request with the
+    top-5 of this process's forward on the restored EMA. Printed with the
+    card's name and power limit: one save and one restore of the b128
+    recipe state (params, mu, nu, EMA in fp32) and its size on disk, and
+    the recipe step's median CUDA-event time in train_one_epoch with
+    --output_dir, TensorBoard and the watchdog on against off, in turns
+    (off, on, off, on) in this process.
 
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
@@ -460,6 +486,18 @@ WIDE_DTYPES = ("bfloat16", "float16", "float32")
 WIDE_KERNELS = ("attn_fwd", "attn_bwd", "hp_fwd", "hp_bwd", "fused_fwd",
                 "fused_bwd", "qkv_fwd", "qkv_bwd", "flash_fwd",
                 "flash_bwd_dkdv", "flash_bwd_dq")
+
+# Phase 24, the trainer's state: the recipe at b128 for STATE_STEPS steps
+# an epoch and STATE_EVALS eval batches; a resumed run that is not
+# bitwise equal to the uninterrupted one must differ by at most this
+# factor times the uninterrupted run's difference from itself (the
+# witness); the sinks' A/B times STATE_AB_STEPS steps a turn after
+# STATE_AB_WARMUP
+STATE_STEPS, STATE_EVALS, STATE_EPOCHS = 4, 1, 2
+STATE_WITNESS_FACTOR = 4.0
+STATE_KD_STEPS = 2
+STATE_AB_STEPS, STATE_AB_WARMUP = 15, 3
+STATE_TIMEOUT_S = 300
 
 # every kernel's launch count, 'module.COUNT' in ops/
 ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
@@ -2272,6 +2310,361 @@ def wide_fused(counts, fa, dev) -> None:
             del x, do, want, got, o
 
 
+def state_flags(out, *extra):
+    """The recipe's flags for phase 24's runs into `out`."""
+    return RECIPE_FLAGS + [
+        "--epochs", str(STATE_EPOCHS),
+        "--limit_steps_per_epoch", str(STATE_STEPS),
+        "--limit_eval_batches", str(STATE_EVALS),
+        "--output_dir", out, *extra]
+
+
+class Preempted(Exception):
+    """Raised where phase 24 stops a run, as a preemption would."""
+
+
+def preempted_main(trainer, cfg, at_epoch: int) -> None:
+    """main(cfg) stopped when `at_epoch` starts, after the checkpoint of
+    the epoch before it."""
+    run_epoch = trainer.train_one_epoch
+
+    def stop(ctx, epoch, *args):
+        if epoch == at_epoch:
+            raise Preempted(epoch)
+        return run_epoch(ctx, epoch, *args)
+
+    trainer.train_one_epoch = stop
+    try:
+        trainer.main(cfg)
+    except Preempted:
+        pass
+    else:
+        check(False, f"the run was not stopped at epoch {at_epoch}")
+    finally:
+        trainer.train_one_epoch = run_epoch
+
+
+def state_diff(a, b) -> dict:
+    """Largest |a - b| of two saved train states, by group (params, EMA,
+    mu, nu); the host step and count must be equal."""
+    import torch
+
+    check(a["step"] == b["step"]
+          and a["opt_state"]["count"] == b["opt_state"]["count"],
+          f"step/count {a['step']}, {a['opt_state']['count']} vs "
+          f"{b['step']}, {b['opt_state']['count']}")
+    groups = {"params": (a["params"], b["params"]),
+              "ema": (a["ema_params"], b["ema_params"]),
+              "mu": (a["opt_state"]["mu"], b["opt_state"]["mu"]),
+              "nu": (a["opt_state"]["nu"], b["opt_state"]["nu"])}
+    out = {}
+    for g, (x, y) in groups.items():
+        check(set(x) == set(y), f"{g}: names differ")
+        out[g] = max((x[k].float() - y[k].float()).abs().max().item()
+                     for k in x)
+    return out
+
+
+def trace_kernels(path) -> dict:
+    """{kernel name: launches} of a Chrome trace that torch.profiler wrote
+    (events of category 'kernel')."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return dict(collections.Counter(
+        e["name"] for e in events if e.get("cat") == "kernel"))
+
+
+def sinks_ab(trainer, cfg_off, cfg_on, dev) -> dict:
+    """The recipe step's median CUDA-event time inside train_one_epoch
+    with the sinks off (cfg_off) and on (cfg_on: --output_dir,
+    TensorBoard, and the watchdog main() starts), in turns off, on, off,
+    on; one fixed host batch feeds every step of both."""
+    import itertools
+
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.obs.watchdog import (
+        StepWatchdog,
+    )
+
+    ctxs = {"off": trainer.setup(cfg_off), "on": trainer.setup(cfg_on)}
+    ctxs["on"].watchdog = StepWatchdog(timeout_s=900.0).start()
+    live = sorted(ctxs["on"].loggers)
+    batch = next(iter(ctxs["off"].train_ds))
+    times = {"off": [], "on": []}
+    try:
+        for turn in ("off", "on", "off", "on"):
+            ctx = ctxs[turn]
+            ctx.train_ds = itertools.repeat(batch)
+            events, step = [], ctx.train_step
+
+            def timed(*a, _step=step, **kw):
+                out = _step(*a, **kw)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+                return out
+
+            ctx.train_step = timed
+            trainer.train_one_epoch(ctx, 0,
+                                    STATE_AB_WARMUP + STATE_AB_STEPS + 1)
+            ctx.train_step = step
+            torch.cuda.synchronize()
+            times[turn] += [events[i].elapsed_time(events[i + 1])
+                            for i in range(STATE_AB_WARMUP,
+                                           len(events) - 1)]
+    finally:
+        ctxs["on"].watchdog.stop()
+    return {"sinks_live": live,
+            "off_ms": statistics.median(times["off"]),
+            "on_ms": statistics.median(times["on"]),
+            "off_spread_ms": (min(times["off"]), max(times["off"])),
+            "on_spread_ms": (min(times["on"]), max(times["on"]))}
+
+
+def phase_state(counts, dev, ckpt_path, phase9_step):
+    """Phase 24 (module docstring)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+    from vision_transformers_torch_xla_tpu_torch.launch.serve import (
+        InferenceEngine,
+        serve,
+    )
+    from vision_transformers_torch_xla_tpu_torch.models import create_model
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_state_",
+                            dir=os.path.join(REPO, "build"))
+    whole, cont = os.path.join(root, "whole"), os.path.join(root, "cont")
+
+    def newest(out):
+        return CheckpointManager(os.path.join(out, "checkpoints")
+                                 ).restore_raw()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    per_step = dict(ATTN_FWD_LAUNCHES=12 * (STATE_STEPS + STATE_EVALS),
+                    ATTN_BWD_LAUNCHES=12 * STATE_STEPS)
+    try:
+        # resume: uninterrupted, against stopped at epoch 1 and run again
+        counts(reset=True)
+        whole_stats = trainer.main(config_from_args(state_flags(whole)))
+        n = counts()
+        check(n == only(**{k: v * STATE_EPOCHS for k, v in per_step.items()}),
+              f"the uninterrupted run launched {n}")
+        preempted_main(trainer, config_from_args(state_flags(cont)), 1)
+        check(CheckpointManager(os.path.join(cont, "checkpoints")
+                                ).all_epochs() == [0],
+              "the stopped run did not leave epoch 0 alone")
+        counts(reset=True)
+        cont_stats = trainer.main(config_from_args(state_flags(cont)))
+        resumed = counts()
+        check(resumed == only(**per_step),
+              f"the resumed epoch launched {resumed} (want K1 "
+              f"{per_step['ATTN_FWD_LAUNCHES']}, K2 "
+              f"{per_step['ATTN_BWD_LAUNCHES']}: 12 a step, as phase 9)")
+        check(cont_stats["epoch"] == STATE_EPOCHS - 1,
+              f"the resumed run ended at epoch {cont_stats['epoch']}")
+        diff = state_diff(newest(whole), newest(cont))
+        log(f"[state] resumed vs uninterrupted, largest |difference| by "
+            f"group: {diff!r}; train_loss {cont_stats['train_loss']!r} vs "
+            f"{whole_stats['train_loss']!r}")
+        if any(diff.values()):
+            # not bitwise: the witness is the uninterrupted run done twice
+            again = os.path.join(root, "again")
+            trainer.main(config_from_args(state_flags(again)))
+            witness = state_diff(newest(whole), newest(again))
+            shutil.rmtree(again)
+            log(f"[state] witness (the uninterrupted run twice): "
+                f"{witness!r}; limit {STATE_WITNESS_FACTOR} x witness")
+            for g, d in diff.items():
+                check(d <= STATE_WITNESS_FACTOR * witness[g],
+                      f"{g}: resumed differs by {d}, the witness by "
+                      f"{witness[g]}")
+        else:
+            log("[state] the resumed run equals the uninterrupted one "
+                "bitwise (params, EMA, mu, nu, step, count)")
+        free()
+
+        # --eval from --resume gives the trained state's top-1
+        ev = trainer.main(config_from_args(state_flags(
+            "", "--eval", "true", "--resume",
+            os.path.join(cont, "checkpoints"))))
+        log(f"[state] --eval --resume: {ev!r}; the run's last eval "
+            f"acc1 {cont_stats['acc1']!r} loss {cont_stats['loss']!r}")
+        check(ev["acc1"] == cont_stats["acc1"],
+              f"--eval from the checkpoint: top-1 {ev['acc1']} != "
+              f"{cont_stats['acc1']}")
+        check(abs(ev["loss"] - cont_stats["loss"]) <=
+              1e-4 * abs(cont_stats["loss"]),
+              f"--eval from the checkpoint: loss {ev['loss']} != "
+              f"{cont_stats['loss']}")
+
+        # KD: the teacher (plain attention, as JAX builds it) launches none
+        counts(reset=True)
+        kd = trainer.main(config_from_args(RECIPE_FLAGS + [
+            "--limit_steps_per_epoch", str(STATE_KD_STEPS),
+            "--disable_eval", "true", "--kd", "true",
+            "--teacher_model", "my_vit_b", "--teacher_path", ckpt_path]))
+        n = counts()
+        check(n == only(ATTN_FWD_LAUNCHES=12 * STATE_KD_STEPS,
+                        ATTN_BWD_LAUNCHES=12 * STATE_KD_STEPS),
+              f"{STATE_KD_STEPS} KD steps launched {n} (want the student's "
+              f"12 a step)")
+        check(np.isfinite(kd["train_loss"]), f"KD loss {kd['train_loss']}")
+        log(f"[state] KD, teacher my_vit_b from {ckpt_path}: {kd!r}, "
+            f"launches {n}")
+        free()
+
+        # serving from the checkpoints directory, EMA weights
+        cfg = config_from_args(state_flags(cont))
+        model_kw = dict(num_classes=cfg.nb_classes, img_size=cfg.input_size,
+                        global_pool=cfg.global_pool, act_layer=cfg.act_layer)
+        counts(reset=True)
+        engine = InferenceEngine(cfg.model, os.path.join(cont, "checkpoints"),
+                                 image_size=cfg.input_size,
+                                 num_classes=cfg.nb_classes, use_ema=True,
+                                 device=dev.type, global_pool=cfg.global_pool,
+                                 act_layer=cfg.act_layer)
+        with open(os.path.join(REPO, "tests", "data", "serve_0.jpg"),
+                  "rb") as f:
+            jpeg = f.read()
+        server = serve(engine, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/predict",
+                data=jpeg, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                topk = json.loads(r.read())["topk"]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        check(not any(counts().values()),
+              f"the server launched {counts()}")
+        ema = newest(cont)["ema_params"]
+        model = create_model(cfg.model, device=dev, **model_kw)
+        model.load_state_dict(ema, strict=True)
+        with torch.inference_mode():
+            probs = torch.softmax(model.eval()(torch.from_numpy(
+                engine._decode(jpeg)[None]).to(dev)), -1)[0].cpu().numpy()
+        want = np.argsort(probs)[::-1][:5].tolist()
+        log(f"[state] served from the checkpoints dir (EMA): {topk!r}; "
+            f"in-process EMA forward top-5 {want!r}")
+        check([c for c, _ in topk] == want,
+              f"served {topk}, the restored EMA's top-5 {want}")
+        del engine, model
+        free()
+
+        # one save and one restore of the recipe state, timed
+        ctx = trainer.setup(config_from_args(state_flags("")))
+        timing = CheckpointManager(os.path.join(root, "timing"))
+        save_s, restore_s = [], []
+        for epoch in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timing.save(epoch, ctx.state, metadata={"epoch": epoch})
+            save_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            timing.restore(ctx.state, epoch)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+        size = os.path.getsize(os.path.join(root, "timing", "1", "state.pt"))
+        n_values = sum(t.numel() for g in ("params", "ema_params")
+                       for t in getattr(ctx.state, g).values()) + sum(
+            t.numel() for g in ("mu", "nu")
+            for t in ctx.state.opt_state[g].values())
+        log(f"[state] my_vit_b b{TRAIN_BATCH} recipe state ({n_values} fp32 "
+            f"values: params, mu, nu, EMA) on {nvidia_smi()}: save "
+            f"{save_s!r} s, restore {restore_s!r} s (the file just written, "
+            f"likely from the page cache), {size} bytes on disk")
+        shutil.rmtree(os.path.join(root, "timing"))
+        del ctx
+        free()
+
+        # the sinks' A/B in this process
+        obs = os.path.join(root, "obs")
+        ab = sinks_ab(trainer, config_from_args(state_flags("")),
+                      config_from_args(state_flags(
+                          obs, "--enable_tensorboard", "true",
+                          "--log_dir", os.path.join(obs, "tb"))), dev)
+        log(f"[state] recipe step in train_one_epoch on {nvidia_smi()}, "
+            f"{STATE_AB_STEPS} steps a turn after {STATE_AB_WARMUP}, turns "
+            f"off, on, off, on: sinks off median {ab['off_ms']!r} ms "
+            f"(range {ab['off_spread_ms']!r}), on ({ab['sinks_live']} + "
+            f"watchdog) median {ab['on_ms']!r} ms (range "
+            f"{ab['on_spread_ms']!r}); phase 9's step {phase9_step!r}")
+        free()
+
+        # rotation, the loggers and the profiler: the CLI in its own process
+        tb = os.path.join(whole, "tb")
+        cmd = [sys.executable, "-m", f"{PKG}.launch.main", *state_flags(
+            whole, "--epochs", str(STATE_EPOCHS + 1), "--save_ckpt_num", "2",
+            "--enable_tensorboard", "true", "--log_dir", tb,
+            "--profile_steps", "2")]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=STATE_TIMEOUT_S,
+                             env={**os.environ, "PYTHONPATH": REPO})
+        cli_s = time.perf_counter() - t0
+        log(f"[state] CLI run (epoch {STATE_EPOCHS}, auto-resumed) in "
+            f"{cli_s:.1f} s, rc {run.returncode}; its last lines:\n"
+            + "\n".join(run.stdout.strip().splitlines()[-4:]))
+        check(run.returncode == 0,
+              f"the CLI run failed: {run.stderr[-3000:]}")
+        kept = CheckpointManager(os.path.join(whole, "checkpoints")
+                                 ).all_epochs()
+        check(kept == [1, 2], f"--save_ckpt_num 2 over 3 epochs left {kept}")
+        lines = [json.loads(l) for l in open(os.path.join(whole, "log.txt"))]
+        check([r["epoch"] for r in lines] == [0, 1, 2],
+              f"log.txt epochs {[r['epoch'] for r in lines]}")
+        events = [n for n in os.listdir(tb)
+                  if n.startswith("events.out.tfevents")]
+        traces = [os.path.join(tb, "profile", n)
+                  for n in os.listdir(os.path.join(tb, "profile"))]
+        check(len(traces) == 1, f"profile traces {traces}")
+        kernels = trace_kernels(traces[0])
+        # csrc/'s kernels sit in a top-level anonymous namespace, PyTorch's
+        # in at::native's; per step of the 2-step window, name up to '<'
+        ours = {k.split("::", 1)[1].split("<")[0]: v / 2
+                for k, v in kernels.items()
+                if k.startswith("void (anonymous namespace)::")}
+        log(f"[state] TensorBoard event files {events}; profile trace "
+            f"{os.path.getsize(traces[0])} bytes, {sum(kernels.values()) / 2} "
+            f"kernel launches a step ({len(kernels)} kernels); csrc/'s "
+            f"kernels a step: {ours!r}")
+        check(events, f"no TensorBoard event file under {tb}")
+        check(any("attn_fwd_tc_kernel" in k for k in kernels)
+              and any("attn_bwd_tc" in k for k in kernels),
+              f"the trace names no K1 and K2 kernel: {sorted(kernels)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    log(f"[state] phase 24 took {took:.1f} s")
+    return {"resumed_launches": resumed, "diff": diff, "ab": ab,
+            "save_s": save_s, "restore_s": restore_s, "bytes": size,
+            "phase_s": took}
+
+
 def counter(*names):
     """counts(reset=False) -> {COUNT: launches} of the counts named
     'module.COUNT' (modules of ops/); reset sets them to 0 first."""
@@ -2514,6 +2907,9 @@ def main() -> int:
         check(n == only(**{c.split(".")[1]: 1 for c in ALL_COUNTS}),
               f"{dt_name}: the entry points launched {n} (want each "
               f"kernel once)")
+
+    # ---- the trainer's state: resume, rotation, logs, profile, KD, serving
+    phase_state(every, dev, ckpt_path, default_step)
 
     f64, f128 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]

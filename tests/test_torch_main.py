@@ -171,10 +171,7 @@ def test_config_from_args_matches_jax():
 
 
 UNPORTED = [
-    (dict(output_dir="out"), "M4"), (dict(resume="ckpt"), "M4"),
-    (dict(finetune="w.pth"), "M4"), (dict(enable_wandb=True), "M4"),
-    (dict(enable_tensorboard=True), "M4"), (dict(profile_steps=2), "M4"),
-    (dict(kd=True), "M4"), (dict(device_augment=True), "M5"),
+    (dict(device_augment=True), "M5"),
     (dict(data_set="tfds"), "M5"), (dict(mesh_shape="data:2,model:2"), "M6"),
     (dict(param_sharding="fsdp"), "M6"), (dict(grad_checkpointing=True), "M2"),
     (dict(scan_blocks=True), "M2"), (dict(opt="lamb"), "M7"),
@@ -187,6 +184,16 @@ UNPORTED = [
 def test_options_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         trainer.setup(_cfg(**kw))
+
+
+M4 = [dict(output_dir="out"), dict(resume="ckpt"), dict(finetune="w.pth"),
+      dict(enable_wandb=True), dict(enable_tensorboard=True),
+      dict(profile_steps=2), dict(kd=True)]
+
+
+@pytest.mark.parametrize("kw", M4, ids=[next(iter(kw)) for kw in M4])
+def test_the_trainer_state_options_are_in_the_slice(kw):
+    trainer.check_slice(_cfg(**kw))
 
 
 def test_data_sets_other_than_synthetic_raise():
@@ -203,3 +210,194 @@ def test_device_defaults_to_cuda_and_raises_without_a_card():
     with pytest.raises(RuntimeError, match="--device cpu"):
         trainer.setup(_cfg(device=""))
     assert trainer.resolve_device("cpu") == torch.device("cpu")
+
+
+# ---- --finetune and the KD teacher, against the JAX package --------------
+
+DEPTH = 2
+
+
+@pytest.fixture
+def shallow(monkeypatch):
+    """The trainer's models (student and teacher) cut to DEPTH blocks."""
+    create = trainer.create_model
+    monkeypatch.setattr(trainer, "create_model",
+                        lambda name, **kw: create(name, depth=DEPTH, **kw))
+
+
+def _jax_vit(classes, pool, seed):
+    """A JAX my_vit_mini at 32 px, DEPTH blocks, fp32, and its params."""
+    import jax
+    import jax.numpy as jnp
+    from flax import linen as nn
+
+    from vision_transformers_torch_xla_tpu.models import (
+        create_model as jax_create,
+    )
+
+    model = jax_create("my_vit_mini", num_classes=classes, img_size=32,
+                       depth=DEPTH, global_pool=pool, dtype=jnp.float32)
+    params = jax.jit(lambda k: nn.meta.unbox(model.init(
+        k, jnp.zeros((1, 32, 32, 3)), True))["params"])(jax.random.key(seed))
+    return model, params
+
+
+def _export(params, path, wrap=None):
+    """JAX params -> the .pth that ckpt/torch_export.py writes; `wrap`
+    (key, prefix) re-saves its state dict as {key: {prefix + name: ...}}."""
+    from vision_transformers_torch_xla_tpu.ckpt.torch_export import (
+        save_torch_checkpoint,
+    )
+
+    save_torch_checkpoint(str(path), {"params": params}, arch="vit")
+    if wrap is not None:
+        key, prefix = wrap
+        sd = torch.load(str(path), weights_only=True)["model"]
+        torch.save({key: {prefix + k: v for k, v in sd.items()}}, str(path))
+    return str(path)
+
+
+def _images(n=4, seed=3):
+    return np.random.default_rng(seed).standard_normal(
+        (n, 32, 32, 3)).astype(np.float32)
+
+
+FINETUNE = {"same_head": (10, None, {}),
+            "other_head": (7, None, {}),
+            "module_prefix": (10, ("module", "module.backbone."),
+                              dict(model_key="module",
+                                   model_prefix="backbone."))}
+
+
+@pytest.mark.parametrize("case", list(FINETUNE))
+def test_finetune_from_a_jax_export(tmp_path, shallow, case):
+    """--finetune grafts what JAX exports: every tensor equal to
+    flax_to_state_dict of the JAX params but a head of another class
+    count, which keeps its init; fp32 eval logits within 1e-4 of JAX's on
+    the same weights."""
+    import jax.numpy as jnp
+
+    from vision_transformers_torch_xla_tpu_torch.ckpt.convert import (
+        flax_to_state_dict,
+    )
+
+    classes, wrap, flags = FINETUNE[case]
+    _, params = _jax_vit(10, "avg", seed=0)
+    path = _export(params, tmp_path / "w.pth", wrap)
+    cfg = _cfg(finetune=path, nb_classes=classes, precision="fp32", **flags)
+    ctx = trainer.setup(cfg)
+    init = trainer.setup(_cfg(nb_classes=classes, precision="fp32"))
+    want = flax_to_state_dict(params)
+    for k, p in ctx.state.params.items():
+        if k.startswith("head.") and classes != 10:
+            assert torch.equal(p, init.state.params[k]), k
+        else:
+            assert torch.equal(p, want[k]), k
+    # the EMA starts from the fine-tuned weights
+    ctx = trainer.setup(dataclasses.replace(cfg, model_ema=True))
+    assert all(torch.equal(e, ctx.state.params[k])
+               for k, e in ctx.state.ema_params.items())
+
+    jparams = dict(params)
+    if classes != 10:  # JAX with the port's untouched head
+        jparams["head"] = {
+            "kernel": jnp.asarray(ctx.state.params["head.weight"].detach().T.numpy()),
+            "bias": jnp.asarray(ctx.state.params["head.bias"].detach().numpy())}
+    jmodel, _ = _jax_vit(classes, "avg", seed=0)
+    images = _images()
+    expect = np.asarray(jmodel.apply({"params": jparams},
+                                     jnp.asarray(images), True))
+    with torch.no_grad():
+        got = ctx.model(torch.from_numpy(images), True).numpy()
+    np.testing.assert_allclose(got, expect, rtol=1e-4, atol=1e-4)
+
+
+def _kd_cfg(**kw):
+    return _cfg(kd=True, teacher_model="my_vit_mini", precision="fp32",
+                mixup=0.0, cutmix=0.0, drop_path=0.0,
+                limit_steps_per_epoch=1, disable_eval=True, **kw)
+
+
+def test_kd_first_step_loss_matches_jax(tmp_path, shallow):
+    """The first KD step's loss, the student from --finetune and the
+    teacher from --teacher_path (both JAX exports), against the JAX step
+    with teacher_apply on the same weights and batch, fp32: 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from vision_transformers_torch_xla_tpu.train.mixup import (
+        MixupConfig as JaxMixup,
+    )
+    from vision_transformers_torch_xla_tpu.train.optim import (
+        create_optimizer as jax_optimizer,
+    )
+    from vision_transformers_torch_xla_tpu.train.state import (
+        create_train_state as jax_state,
+    )
+    from vision_transformers_torch_xla_tpu.train.steps import (
+        StepConfig as JaxStep,
+        make_train_step as jax_step,
+    )
+
+    student, sparams = _jax_vit(10, "avg", seed=0)
+    # the teacher as the JAX trainer builds it: the model's default pool
+    teacher, tparams = _jax_vit(10, "token", seed=1)
+    cfg = _kd_cfg(finetune=_export(sparams, tmp_path / "s.pth"),
+                  teacher_path=_export(tparams, tmp_path / "t.pth"))
+    stats = trainer.main(cfg)
+
+    images, labels = next(iter(loader.build_dataset(cfg, True)[0]))
+    tx = jax_optimizer("adamw", cfg.lr, sparams)
+    step_cfg = JaxStep(
+        mixup=JaxMixup(mixup_alpha=0.0, cutmix_alpha=0.0,
+                       label_smoothing=cfg.smoothing, num_classes=10),
+        label_smoothing=cfg.smoothing, num_classes=10,
+        kd_alpha=cfg.kd_alpha, kd_temperature=cfg.kd_temperature)
+    step = jax.jit(jax_step(student.apply, tx, step_cfg, teacher.apply))
+    _, metrics = step(jax_state(sparams, tx), jnp.asarray(images),
+                      jnp.asarray(labels), jax.random.key(0), tparams)
+    want = float(metrics["loss"])
+    assert abs(stats["train_loss"] - want) <= 1e-5 * abs(want)
+    # the teacher's term is there: the same step without it differs
+    plain = jax.jit(jax_step(student.apply, tx, step_cfg))
+    _, no_kd = plain(jax_state(sparams, tx), jnp.asarray(images),
+                     jnp.asarray(labels), jax.random.key(0))
+    assert abs(float(no_kd["loss"]) - want) > 1e-3
+
+
+def test_kd_without_teacher_path_warns_and_trains(shallow, caplog):
+    import logging
+
+    with caplog.at_level(logging.WARNING):
+        stats = trainer.main(_kd_cfg())
+    assert "teacher is random" in caplog.text
+    assert np.isfinite(stats["train_loss"])
+
+
+def test_kd_teacher_runs_plain_attention(monkeypatch):
+    """--kd with --pallas_attn on: the student's blocks take the kernel
+    route (the plain versions on the CPU), the teacher's none, as in JAX
+    (the teacher is built without use_pallas_attn)."""
+    from vision_transformers_torch_xla_tpu_torch.models import layers
+
+    create, calls = trainer.create_model, []
+
+    def tiny(name, **kw):
+        return create(name, embed_dim=128, depth=2, num_heads=2, **kw)
+
+    def counting(x, *args, **kw):
+        calls.append(tuple(x.shape))
+        return qkv_proj(x, *args, **kw)
+
+    qkv_proj = layers.qkv_proj_attention
+    monkeypatch.setattr(trainer, "create_model", tiny)
+    monkeypatch.setattr(layers, "qkv_proj_attention", counting)
+    ctx = trainer.setup(_cfg(pallas_attn="on", kd=True,
+                             teacher_model="my_vit_mini"))
+    assert not ctx.teacher.training
+    assert not any(p.requires_grad for p in ctx.teacher.parameters())
+    stats = trainer.main(_cfg(pallas_attn="on", kd=True,
+                              teacher_model="my_vit_mini"))
+    assert set(stats) == JAX_MAIN_KEYS
+    # the student alone: 2 blocks x 2 steps, then 2 blocks x 2 eval batches
+    assert calls == [(4, 5, 128)] * 4 + [(6, 5, 128)] * 4

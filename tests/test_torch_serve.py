@@ -117,7 +117,9 @@ def test_port_imports_no_jax():
     assert {"launch/main.py", "train/steps.py", "train/fused.py",
             "core/config.py", "data/loader.py", "ops/flash_blocked.py",
             "ops/mlp_fused.py", "ops/flash_attention.py", "ops/attention.py",
-            "models/vision_transformer_zoo.py"} <= rel
+            "models/vision_transformer_zoo.py", "ckpt/checkpoint.py",
+            "obs/loggers.py", "obs/profiler.py", "obs/watchdog.py",
+            "models/pretrained.py"} <= rel
     # the op-level attention entry points and their kernels' wrappers live
     # in the modules checked here, their CUDA sources in csrc/
     assert {"multi_head_attention", "masked_attention",

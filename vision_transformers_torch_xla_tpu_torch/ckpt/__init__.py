@@ -1,1 +1,2 @@
-"""Checkpoint conversion from the JAX package and .pth load/save."""
+"""Checkpoints of the train state, and weights across from the JAX package
+(.pth load/save)."""

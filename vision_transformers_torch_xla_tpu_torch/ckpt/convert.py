@@ -5,10 +5,15 @@ Counterpart of vision_transformers_torch_xla_tpu/ckpt/torch_export.py
 ViT keys of this slice. `flax_to_state_dict` maps a flax ViT params tree
 (nested dict of numpy arrays) to the port's timm-named state dict;
 `load_checkpoint` reads the `{'model': state_dict}` .pth that
-`save_torch_checkpoint` writes. Either loads with `strict=True`.
+`save_torch_checkpoint` writes, unwrapped as JAX
+ckpt/torch_compat.py::load_reference_checkpoint (:1857-1897) unwraps a
+reference checkpoint (the port keeps timm names, so nothing is renamed),
+or the newest epoch of the port's own checkpoints directory. Either loads
+with `strict=True`.
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, Mapping, Optional
 
@@ -72,13 +77,34 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 
 
-def load_checkpoint(path: str, key: str = "model") -> Dict[str, torch.Tensor]:
-    """The state dict under `key` of a `{'model': state_dict, ...}` .pth,
-    on the CPU."""
+def load_checkpoint(path: str, key: str = "model|module",
+                    prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A state dict on the CPU, from a .pth or a checkpoints directory.
+
+    A .pth: the entry under the first of the '|'-separated `key`s it holds
+    (`--model_key`), else the whole dict; then a DDP `module.` prefix and
+    `prefix` (`--model_prefix`) are stripped from the names. A directory of
+    ckpt/checkpoint.py's checkpoints: the newest epoch's EMA params when
+    they were saved, else its params."""
+    if os.path.isdir(path):
+        from vision_transformers_torch_xla_tpu_torch.ckpt.checkpoint import (
+            CheckpointManager,
+        )
+
+        raw = CheckpointManager(os.path.abspath(path)).restore_raw()
+        if raw is None:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        return raw.get("ema_params") or raw["params"]
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if key not in ckpt:
-        raise KeyError(f"{path} holds no {key!r} entry; keys {sorted(ckpt)}")
-    return ckpt[key]
+    sd = ckpt
+    if isinstance(ckpt, Mapping):
+        sd = next((ckpt[k] for k in key.split("|") if k in ckpt), ckpt)
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    if prefix:
+        sd = {k[len(prefix):] if k.startswith(prefix) else k: v
+              for k, v in sd.items()}
+    return sd
 
 
 def save_checkpoint(path: str, state_dict: Mapping[str, Any],

@@ -25,22 +25,50 @@ kernel launch per block and step); the default is off, as in the JAX
 trainer.
 
 `--device` '' (the default) means cuda and raises when there is no card;
-the CPU runs only with `--device cpu`. Options outside this slice raise
-NotImplementedError naming their ROADMAP item: checkpoints, resume,
-loggers, profiling and KD (M4; the JAX trainer's hang watchdog waits for
-it too), device augmentation and other data sets (M5), the mesh (M6),
+the CPU runs only with `--device cpu`.
+
+The trainer's state and observability are JAX's (launch/main.py:122-159,
+:247-300, :347-417, :479-515): `--output_dir` saves the state each epoch
+into `<output_dir>/checkpoints` (ckpt/checkpoint.py: `--save_ckpt_num`
+kept, every `--save_ckpt_freq` epochs) and appends the epoch's stats to
+`<output_dir>/log.txt`; a run whose output_dir holds checkpoints resumes
+from the newest (`--auto_resume`, on by default). `--resume` takes a
+checkpoints root, one epoch's directory in it, or a .pth (weights only);
+`--finetune` a .pth (`--model_key`, `--model_prefix`) or a checkpoints
+directory, grafted by name and shape with the position embedding
+resampled (models/pretrained.py). `--kd true` adds a teacher
+(`--teacher_model`, in the compute policy, initialised from seed + 1 or
+loaded from `--teacher_path`), built without the attention kernels as
+the JAX trainer builds it: only the student launches them.
+`--enable_tensorboard true --log_dir DIR` writes scalars at log_freq,
+`--enable_wandb true` a W&B run (off, with a warning, when wandb does not
+import), `--profile_steps N` a torch.profiler trace of steps 2 to N + 1
+of the first epoch into `<log_dir or output_dir>/profile`, and a
+watchdog dumps the stacks when no step ends for 900 s.
+
+Options outside this slice raise NotImplementedError naming their ROADMAP
+item: device augmentation and other data sets (M5), the mesh (M6),
 gradient checkpointing and scanned blocks (M2).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
 
+from vision_transformers_torch_xla_tpu_torch.ckpt.checkpoint import (
+    CheckpointManager,
+    auto_resume,
+)
+from vision_transformers_torch_xla_tpu_torch.ckpt.convert import (
+    load_checkpoint,
+)
 from vision_transformers_torch_xla_tpu_torch.core.config import (
     TrainConfig,
     config_from_args,
@@ -53,7 +81,16 @@ from vision_transformers_torch_xla_tpu_torch.data.loader import (
 )
 from vision_transformers_torch_xla_tpu_torch.models import create_model
 from vision_transformers_torch_xla_tpu_torch.models.layers import init_weights
+from vision_transformers_torch_xla_tpu_torch.models.pretrained import (
+    merge_into_params,
+)
+from vision_transformers_torch_xla_tpu_torch.obs import profiler
+from vision_transformers_torch_xla_tpu_torch.obs.loggers import (
+    build_loggers,
+    is_main_process,
+)
 from vision_transformers_torch_xla_tpu_torch.obs.metrics import MetricLogger
+from vision_transformers_torch_xla_tpu_torch.obs.watchdog import StepWatchdog
 from vision_transformers_torch_xla_tpu_torch.train.mixup import MixupConfig
 from vision_transformers_torch_xla_tpu_torch.train.optim import (
     create_optimizer,
@@ -71,6 +108,8 @@ from vision_transformers_torch_xla_tpu_torch.train.steps import (
     make_train_step,
 )
 
+log = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass
 class TrainerContext:
@@ -83,7 +122,11 @@ class TrainerContext:
     train_ds: Any
     val_ds: Any
     steps_per_epoch: int
+    loggers: dict = dataclasses.field(default_factory=dict)
+    ckpt: Optional[CheckpointManager] = None
+    teacher: Optional[nn.Module] = None
     start_epoch: int = 0
+    watchdog: Optional[StepWatchdog] = None
     eval_batches: Optional[int] = None
 
 
@@ -102,13 +145,6 @@ def resolve_device(device: str) -> torch.device:
 def check_slice(cfg: TrainConfig) -> None:
     """Raise, naming the ROADMAP item, on every option this slice lacks."""
     unported = [
-        (cfg.output_dir, "--output_dir (checkpoints and the jsonl log)", "M4"),
-        (cfg.resume, "--resume", "M4"),
-        (cfg.finetune, "--finetune", "M4"),
-        (cfg.enable_wandb, "--enable_wandb", "M4"),
-        (cfg.enable_tensorboard, "--enable_tensorboard", "M4"),
-        (cfg.profile_steps > 0, "--profile_steps", "M4"),
-        (cfg.kd, "--kd (the teacher wiring)", "M4"),
         (cfg.device_augment, "--device_augment", "M5"),
         (cfg.data_set != "synthetic", f"--data_set {cfg.data_set}", "M5"),
         (cfg.mesh_shape != "data" or cfg.param_sharding != "replicated",
@@ -129,6 +165,66 @@ def pallas_attn_switch(pallas_attn: str, device: torch.device) -> bool:
     as the JAX kernels take any float dtype."""
     return pallas_attn == "on" or (pallas_attn == "auto"
                                    and device.type != "cpu")
+
+
+WEIGHT_FILES = (".pth", ".pt", ".bin")
+
+
+def load_weights_into(params, path: str, model_key: str = "model|module",
+                      model_prefix: str = "") -> None:
+    """Graft the weights of a .pth or a checkpoints directory onto the live
+    `params` by name and shape, the position embedding resampled
+    (JAX launch/main.py::_load_params_into)."""
+    if not (path.endswith(WEIGHT_FILES) or os.path.isdir(path)):
+        raise NotImplementedError(
+            f"{path!r}: the port loads a .pth or a checkpoints directory; "
+            f"pretrained sources are not in the port yet (ROADMAP M7)")
+    _, n = merge_into_params(params, load_checkpoint(path, model_key,
+                                                     model_prefix))
+    log.info("loaded %d params from %s", n, path)
+
+
+def _explicit_resume(cfg: TrainConfig, state: TrainState,
+                     start_epoch: int):
+    """--resume (JAX launch/main.py:122-159): a checkpoints root (its
+    newest epoch), one epoch's directory in it, or a .pth (weights only).
+    Returns the epoch to start at."""
+    path = cfg.resume
+    if path.endswith(WEIGHT_FILES):
+        load_weights_into(state.params, path, cfg.model_key, cfg.model_prefix)
+        log.info("resumed model weights from %s", path)
+        return start_epoch
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"--resume: no checkpoint at {path!r}")
+    root, epoch = os.path.abspath(path), None
+    base = os.path.basename(root.rstrip("/"))
+    if base.isdigit():  # .../checkpoints/<epoch>
+        root, epoch = os.path.dirname(root), int(base)
+    restored, meta = CheckpointManager(root).restore(state, epoch)
+    if restored is None:
+        raise FileNotFoundError(f"--resume: no epochs under {root!r}")
+    used = epoch if epoch is not None else (meta or {}).get("epoch")
+    log.info("resumed from %s at epoch %s", root, used)
+    return (meta or {}).get("epoch", used or 0) + 1
+
+
+def build_teacher(cfg: TrainConfig, device: torch.device) -> nn.Module:
+    """The KD teacher (JAX launch/main.py:281-300): `--teacher_model` in
+    the compute policy, without the attention kernels (as JAX builds it),
+    initialised from seed + 1 or loaded from `--teacher_path`; frozen, in
+    eval mode."""
+    policy = get_policy(cfg.precision)
+    teacher = create_model(cfg.teacher_model, num_classes=cfg.nb_classes,
+                           img_size=cfg.input_size,
+                           dtype=policy.compute_dtype,
+                           param_dtype=policy.param_dtype, device=device)
+    init_weights(teacher,
+                 torch.Generator(device=device).manual_seed(cfg.seed + 1))
+    if cfg.teacher_path:
+        load_weights_into(dict(teacher.named_parameters()), cfg.teacher_path)
+    else:
+        log.warning("KD enabled without --teacher_path: teacher is random")
+    return teacher.eval().requires_grad_(False)
 
 
 def setup(cfg: TrainConfig) -> TrainerContext:
@@ -154,6 +250,9 @@ def setup(cfg: TrainConfig) -> TrainerContext:
         dtype=policy.compute_dtype, param_dtype=policy.param_dtype,
         device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(cfg.seed))
+    if cfg.finetune:
+        load_weights_into(dict(model.named_parameters()), cfg.finetune,
+                          cfg.model_key, cfg.model_prefix)
 
     lr_fn = cosine_schedule_fn(cfg.lr, cfg.min_lr, cfg.epochs,
                                steps_per_epoch,
@@ -183,20 +282,47 @@ def setup(cfg: TrainConfig) -> TrainerContext:
         ema_decay=cfg.model_ema_decay if cfg.model_ema else None,
         kd_alpha=cfg.kd_alpha, kd_temperature=cfg.kd_temperature,
         lr_schedule=lr_fn)
+    teacher = build_teacher(cfg, device) if cfg.kd else None
+
+    ckpt = None
+    start_epoch = cfg.start_epoch
+    if cfg.resume:
+        start_epoch = _explicit_resume(cfg, state, start_epoch)
+    if cfg.output_dir and cfg.save_ckpt:
+        ckpt = CheckpointManager(
+            os.path.abspath(os.path.join(cfg.output_dir, "checkpoints")),
+            max_to_keep=cfg.save_ckpt_num,
+            save_interval_epochs=cfg.save_ckpt_freq)
+        if cfg.auto_resume and not cfg.resume:
+            restored, epoch = auto_resume(ckpt, state)
+            if restored is not None:
+                start_epoch = epoch
+                log.info("auto-resumed at epoch %d", start_epoch)
     return TrainerContext(
         cfg=cfg, device=device, model=model, state=state,
-        train_step=make_train_step(model, tx, step_cfg),
+        train_step=make_train_step(model, tx, step_cfg, teacher),
         eval_step=make_eval_step(model), train_ds=train_ds, val_ds=val_ds,
-        steps_per_epoch=steps_per_epoch, start_epoch=cfg.start_epoch,
+        steps_per_epoch=steps_per_epoch, loggers=build_loggers(cfg),
+        ckpt=ckpt, teacher=teacher, start_epoch=start_epoch,
         eval_batches=eval_batches)
 
 
 def train_one_epoch(ctx: TrainerContext, epoch: int,
                     max_steps: Optional[int] = None) -> dict:
-    """Host loop for one epoch."""
+    """Host loop for one epoch; the profile window, the watchdog's beat
+    and the TensorBoard scalars as in JAX launch/main.py:371-417."""
     cfg = ctx.cfg
     logger = MetricLogger()
     n_steps = min(ctx.steps_per_epoch, max_steps or ctx.steps_per_epoch)
+
+    # skip the first (warm-up) steps
+    profile_at = (2 if cfg.profile_steps > 0 and epoch == ctx.start_epoch
+                  and is_main_process() else -1)
+    profile_dir = os.path.join(cfg.log_dir or cfg.output_dir or ".",
+                               "profile")
+    window = contextlib.ExitStack()  # holds the open profile trace
+    tracing = False
+
     t0 = time.time()
     batches = device_prefetch(ctx.train_ds,
                               lambda b: to_device(b, ctx.device))
@@ -205,8 +331,17 @@ def train_one_epoch(ctx: TrainerContext, epoch: int,
             images, labels = next(batches)
         except StopIteration:
             break
+        if i == profile_at:
+            window.enter_context(profiler.trace(profile_dir))
+            tracing = True
+        if tracing and i == profile_at + cfg.profile_steps:
+            window.close()
+            tracing = False
+            print(f"profile trace written to {profile_dir}", flush=True)
         ctx.state, metrics = ctx.train_step(ctx.state, images, labels,
                                             cfg.seed)
+        if ctx.watchdog is not None:
+            ctx.watchdog.beat()
         if i % cfg.log_freq == 0 or i == n_steps - 1:
             host = {k: float(v) for k, v in metrics.items()}
             logger.update(**host)
@@ -215,6 +350,12 @@ def train_one_epoch(ctx: TrainerContext, epoch: int,
                   f"loss {host['loss']:.4f} lr {host.get('lr', 0):.2e} "
                   f"grad_norm {host.get('grad_norm', 0):.2f} "
                   f"({ips:.0f} img/s)", flush=True)
+            if "tb" in ctx.loggers:
+                ctx.loggers["tb"].update(head="train",
+                                         step=epoch * n_steps + i, **host)
+    if tracing:  # the epoch is shorter than the profile window
+        window.close()
+        print(f"profile trace written to {profile_dir}", flush=True)
     return {f"train_{k}": m.global_avg for k, m in logger.meters.items()}
 
 
@@ -259,22 +400,39 @@ def main(cfg: TrainConfig, max_steps_per_epoch: Optional[int] = None,
         print(f"eval: top-1 {stats['acc1']:.2f}% top-5 {stats['acc5']:.2f}%")
         return stats
 
+    watchdog = StepWatchdog(timeout_s=900.0).start()
+    ctx.watchdog = watchdog
     max_accuracy = 0.0
     last_stats: dict = {}
-    for epoch in range(ctx.start_epoch, cfg.epochs):
-        train_stats = train_one_epoch(ctx, epoch, max_steps_per_epoch)
-        stats = {"epoch": epoch, **train_stats}
-        if ctx.val_ds is not None:
-            eval_stats = evaluate(ctx, max_batches=max_eval_batches)
-            if cfg.model_ema and cfg.model_ema_eval:
-                eval_stats.update(evaluate(ctx, use_ema=True,
-                                           max_batches=max_eval_batches))
-            max_accuracy = max(max_accuracy, eval_stats["acc1"])
-            stats.update(eval_stats)
-            stats["max_accuracy"] = max_accuracy
-            print(f"epoch {epoch}: top-1 {eval_stats['acc1']:.2f}% "
-                  f"(best {max_accuracy:.2f}%)", flush=True)
-        last_stats = stats
+    try:
+        for epoch in range(ctx.start_epoch, cfg.epochs):
+            train_stats = train_one_epoch(ctx, epoch, max_steps_per_epoch)
+            stats = {"epoch": epoch, **train_stats}
+            if ctx.val_ds is not None:
+                eval_stats = evaluate(ctx, max_batches=max_eval_batches)
+                if cfg.model_ema and cfg.model_ema_eval:
+                    eval_stats.update(evaluate(ctx, use_ema=True,
+                                               max_batches=max_eval_batches))
+                max_accuracy = max(max_accuracy, eval_stats["acc1"])
+                stats.update(eval_stats)
+                stats["max_accuracy"] = max_accuracy
+                print(f"epoch {epoch}: top-1 {eval_stats['acc1']:.2f}% "
+                      f"(best {max_accuracy:.2f}%)", flush=True)
+            if ctx.ckpt is not None:
+                ctx.ckpt.save(epoch, ctx.state, metadata={"epoch": epoch})
+            ctx.loggers["jsonl"].log(stats)
+            if "wandb" in ctx.loggers:
+                ctx.loggers["wandb"].log(stats)
+            last_stats = stats
+    finally:
+        watchdog.stop()
+    if ctx.ckpt is not None:
+        ctx.ckpt.wait()
+        ctx.ckpt.close()
+    if "tb" in ctx.loggers:
+        ctx.loggers["tb"].flush()
+    if "wandb" in ctx.loggers:
+        ctx.loggers["wandb"].finish()
     return last_stats
 
 

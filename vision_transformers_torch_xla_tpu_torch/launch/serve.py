@@ -4,11 +4,17 @@ Counterpart of vision_transformers_torch_xla_tpu/launch/serve.py: a stdlib
 HTTP server around one forward pass, JPEG in (decoded by the native runtime
 when it loads, else by PIL), top-k JSON out. Same endpoints, flags and
 replies; `--ckpt` takes a `{'model': state_dict}` .pth (the JAX package's
-ckpt/torch_export.py::save_torch_checkpoint writes one). Without a
-checkpoint the weights come from a torch.Generator seeded 0.
+ckpt/torch_export.py::save_torch_checkpoint writes one), or the trainer's
+checkpoints directory (`<output_dir>/checkpoints`), read as JAX
+launch/serve.py:63-76 reads one: the newest epoch, its EMA weights with
+`--use_ema` when they were saved, else its params. Without a checkpoint
+the weights come from a torch.Generator seeded 0.
 
     python -m vision_transformers_torch_xla_tpu_torch.launch.serve \
         --model my_vit_b --act_layer gelu_tanh --ckpt model.pth --port 8476
+    python -m vision_transformers_torch_xla_tpu_torch.launch.serve \
+        --model my_vit_b --act_layer gelu_tanh --use_ema \
+        --ckpt run/checkpoints
     python -m vision_transformers_torch_xla_tpu_torch.launch.serve \
         --model vit_base_patch14_dinov2 --image_size 518 --global_pool token
 
@@ -29,6 +35,7 @@ import argparse
 import io
 import json
 import logging
+import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -48,6 +55,27 @@ def resolve_device(device: str) -> torch.device:
         raise RuntimeError(f"--device {device}: CUDA is not available; pass "
                            f"--device cpu to serve on the CPU")
     return dev
+
+
+def read_weights(ckpt: str, use_ema: bool = False):
+    """The state dict to serve: a checkpoints directory's newest epoch (its
+    EMA weights with `use_ema` when they were saved, else its params), or
+    a .pth's 'model' ('model_ema' with `use_ema`) entry."""
+    if not os.path.isdir(ckpt):
+        from vision_transformers_torch_xla_tpu_torch.ckpt.convert import (
+            load_checkpoint,
+        )
+
+        return load_checkpoint(ckpt, "model_ema" if use_ema else "model")
+    from vision_transformers_torch_xla_tpu_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+
+    raw = CheckpointManager(os.path.abspath(ckpt)).restore_raw()
+    if raw is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt}")
+    ema = raw.get("ema_params")
+    return ema if (use_ema and ema is not None) else raw["params"]
 
 
 class InferenceEngine:
@@ -70,12 +98,8 @@ class InferenceEngine:
                                   param_dtype=policy.param_dtype,
                                   device=self.device)
         if ckpt:
-            from vision_transformers_torch_xla_tpu_torch.ckpt.convert import (
-                load_checkpoint,
-            )
-
-            sd = load_checkpoint(ckpt, "model_ema" if use_ema else "model")
-            self.model.load_state_dict(sd, strict=True)
+            self.model.load_state_dict(read_weights(ckpt, use_ema),
+                                       strict=True)
         else:
             init_weights(self.model,
                          torch.Generator(device=self.device).manual_seed(0))
@@ -164,11 +188,12 @@ def main():
     ap = argparse.ArgumentParser("inference server")
     ap.add_argument("--model", default="my_vit_b")
     ap.add_argument("--ckpt", default="",
-                    help="{'model': state_dict} .pth; '' = seeded init")
+                    help="{'model': state_dict} .pth or the trainer's "
+                         "checkpoints directory; '' = seeded init")
     ap.add_argument("--image_size", type=int, default=224)
     ap.add_argument("--nb_classes", type=int, default=1000)
     ap.add_argument("--use_ema", action="store_true",
-                    help="load the checkpoint's 'model_ema' entry")
+                    help="serve the EMA weights ('model_ema' of a .pth)")
     ap.add_argument("--port", type=int, default=8476)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")

@@ -1,1 +1,2 @@
-"""Host-side metric meters."""
+"""Host-side metric meters, experiment loggers, the profiler and the
+stall watchdog."""

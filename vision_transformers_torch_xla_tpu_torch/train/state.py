@@ -4,6 +4,10 @@ Counterpart of vision_transformers_torch_xla_tpu/train/state.py. The
 params are the model's own parameters, by timm name; the step updates them,
 the optimizer state and the EMA copies in place. The step count lives on
 the host, so no step reads it back from the device.
+
+A checkpoint holds `state_dict()`, a dict view of the four fields (JAX
+ckpt/checkpoint.py::_as_dict); `load_state_dict` copies one back into the
+live tensors, so the model keeps training the tensors it holds.
 """
 from __future__ import annotations
 
@@ -20,6 +24,54 @@ class TrainState:
     params: Dict[str, torch.Tensor]
     opt_state: Any
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{'step', 'params', 'opt_state', 'ema_params'}: the live tensors
+        (detached) and host ints."""
+        return {f.name: _detached(getattr(self, f.name))
+                for f in dataclasses.fields(self)}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: Mapping[str, Any]) -> "TrainState":
+        """Copy `saved` (a `state_dict()`, on any device) into the live
+        tensors and set the host ints; the names and shapes must match."""
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, _copy_into(getattr(self, f.name),
+                                             saved[f.name], f.name))
+        return self
+
+
+def _detached(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, Mapping):
+        return {k: _detached(v) for k, v in x.items()}
+    return x
+
+
+def _copy_into(live, saved, path: str):
+    """`live` with `saved`'s values: tensors copied in place, dicts walked,
+    anything else (the host step and count) replaced."""
+    if isinstance(live, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) or saved.shape != live.shape:
+            raise ValueError(
+                f"checkpoint {path}: {getattr(saved, 'shape', type(saved))} "
+                f"does not fit the live {tuple(live.shape)}")
+        live.copy_(saved)
+        return live
+    if isinstance(live, Mapping):
+        if not isinstance(saved, Mapping) or set(saved) != set(live):
+            got = set(saved) if isinstance(saved, Mapping) else set()
+            raise KeyError(
+                f"checkpoint {path}: missing {sorted(set(live) - got)}, "
+                f"unexpected {sorted(got - set(live))}")
+        for k in live:
+            live[k] = _copy_into(live[k], saved[k], f"{path}.{k}")
+        return live
+    if (live is None) != (saved is None):
+        raise ValueError(f"checkpoint {path}: saved {type(saved).__name__}, "
+                         f"live {type(live).__name__}")
+    return saved
 
 
 def create_train_state(model: nn.Module, tx: Any,
