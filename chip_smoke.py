@@ -16,7 +16,9 @@ and no phase catches its own error:
    fp16 around csrc/hopper.cuh: csrc/attn_fwd_tc.cu (K1 and K9, and in
    K7's cast order K7 and K11), csrc/attn_bwd_tc.cu (K2) and
    csrc/hp_bwd_tc.cu (K8, K10 and K12), with their dynamic shared memory;
-   and of csrc/attn_fwd.cu (K1's and K9's fp32 version, CUDA cores).
+   and of csrc/attn_fwd.cu (K1's and K9's fp32 version, CUDA cores:
+   attn_fwd_simt_kernel at D <= 128, register tiles around
+   csrc/cc_tiles.cuh).
 3. kernel vs plain: ops/flash_attention.py::attn_fwd (the CUDA kernel),
    and hp_fwd (K9, the same launch without stats), against
    attn_fwd_reference (plain PyTorch) on seeded bf16 qkv at the train
@@ -111,8 +113,9 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     default path's work for the same result (cuBLAS da, autograd's GELU
     backward, the fp32 bias sum: unfused_ms). No single PyTorch call
     computes K3's function, so library_ms is null. Then the kernels that
-    one call of the bf16, fp16 and fp32 K3 and of the fp32 K2 launches
-    (torch.profiler) must be their new kernels alone.
+    one call of the bf16, fp16 and fp32 K3 (fc2_bwd_simt_kernel in fp32),
+    of the fp32 K2 and of the fp32 K1 and K9 (attn_fwd_simt_kernel)
+    launches (torch.profiler) must be their new kernels alone.
 17b. head dims over 128 on every route (F8), in bf16, fp16 and fp32:
     qkv_proj_attention forward and backward (K1, K2) and
     fused_attention_qkv_cols at S <= 1024 (K9, K10) at WIDE_QKV_SHAPES (D
@@ -214,7 +217,12 @@ JAX kernels take any float dtype):
     dtype). Then the fp32 K2 (csrc/attn_bwd.cu) at its edges
     (K2_FP32_EDGE_SHAPES: S 1 to 1024 around its 64-row tiles, D 32 to
     128, B and H over 65535), each call run twice and bitwise equal,
-    within K2_FP32_EDGE_REL.
+    within K2_FP32_EDGE_REL; and the fp32 K1 and K9 (attn_fwd_simt_kernel)
+    at theirs (K1_FP32_EDGE_SHAPES: S 1 to 1024 around the 64-row tiles
+    and 8-key groups, the score block's limits, D 32 to 128, B and H over
+    65535), K1 run twice and K9 once, all three bitwise equal, o within
+    K2_FP32_EDGE_REL of its largest magnitude and the row stats within it
+    relative.
 24. trainer state: launch/main.py::main on my_vit_b at batch 128 with the
     recipe's flags, 4 steps an epoch and 1 eval batch, in a directory
     under build/ that the phase removes: an uninterrupted 2-epoch run with
@@ -450,6 +458,16 @@ K2_FP32_EDGE_SHAPES = ((2, 1, 3, 32), (2, 63, 3, 64), (2, 64, 3, 64),
                        (1, 1024, 2, 128), (1, 8, 65537, 8),
                        (65537, 8, 1, 8))
 K2_FP32_EDGE_REL = 1e-5
+# The fp32 K1 and K9 (csrc/attn_fwd.cu, attn_fwd_simt_kernel) at their
+# edges, (B, S, H, D): S around the 64-row query and key tiles and the
+# 8-key groups up to 1024, the score block's limits (S 496 / 497 at D 128,
+# 688 / 689 at D 64, 784 / 785 at D 32: past them s is recomputed), D 32,
+# 48, 64 and 128, and B and H over 65535; held to K2_FP32_EDGE_REL as K2
+# (fp32 summation order and expf only)
+K1_FP32_EDGE_SHAPES = tuple((2, s, 2, d) for s in (1, 63, 64, 65, 513, 1024)
+                            for d in (32, 48, 64, 128)) + (
+    (2, 496, 2, 128), (2, 497, 2, 128), (2, 688, 2, 64), (2, 689, 2, 64),
+    (2, 784, 2, 32), (2, 785, 2, 32), (1, 8, 65537, 8), (65537, 8, 1, 8))
 # The head-pair route (K9, K10) of fused_attention_qkv_cols, (B, S, H, D)
 HP_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
 HP_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 77, 3, 48), (2, 130, 2, 128))
@@ -1552,6 +1570,9 @@ def phase_dtypes(counts, fa, fb, mf, dev):
                 torch.cuda.empty_cache()
     worst[("float32", "attn_bwd")] = max(worst[("float32", "attn_bwd")],
                                          fp32_k2_edges(fa, dev))
+    k1_worst = fp32_k1_edges(fa, dev)
+    for name in ("attn_fwd", "hp_fwd"):
+        worst[("float32", name)] = max(worst[("float32", name)], k1_worst)
     return launches, rows, worst
 
 
@@ -1594,10 +1615,47 @@ def fp32_k2_edges(fa, dev) -> float:
     return worst
 
 
+def fp32_k1_edges(fa, dev) -> float:
+    """The fp32 K1 and K9 (csrc/attn_fwd.cu, attn_fwd_simt_kernel) at
+    K1_FP32_EDGE_SHAPES against their plain version: K1 run twice and K9
+    once, all three o bitwise equal (and K1's stats), o within
+    K2_FP32_EDGE_REL of the plain version's largest magnitude and the row
+    stats within K2_FP32_EDGE_REL relative. Returns the worst o error."""
+    import torch
+
+    worst = 0.0
+    for b, s, h, d in K1_FP32_EDGE_SHAPES:
+        tag = f"fp32 K1/K9 edge (B, S, H, D) = {(b, s, h, d)}"
+        qkv = seeded_bf16((b, s, 3 * h * d), 7700 + s + d, dev,
+                          torch.float32)
+        check(fa.attn_kernel_route(qkv, h) == "cuda_cores",
+              f"{tag}: route {fa.attn_kernel_route(qkv, h)}")
+        (o, st), (o2, st2) = (fa.attn_fwd(qkv, h, with_stats=True)
+                              for _ in range(2))
+        o9 = fa.hp_fwd(qkv, h)
+        o_ref, st_ref = fa.attn_fwd_reference(qkv, h, d ** -0.5,
+                                              with_stats=True)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2) and torch.equal(st, st2)
+              and torch.equal(o, o9), f"{tag}: two runs (or K1 and K9) on "
+              f"the same inputs differ")
+        err, ref = (o - o_ref).abs().max().item(), o_ref.abs().max().item()
+        st_err = ((st - st_ref).abs() / st_ref.abs()).max().item()
+        check(torch.isfinite(o).all().item() and err <= K2_FP32_EDGE_REL
+              * ref and st_err <= K2_FP32_EDGE_REL,
+              f"{tag}: o max abs err {err} > {K2_FP32_EDGE_REL} x {ref}, or "
+              f"stats relative err {st_err} > {K2_FP32_EDGE_REL}")
+        worst = max(worst, err)
+        log(f"[dtypes] {tag}: o max abs err {err!r} (of {ref!r}), stats "
+            f"relative err {st_err!r}, bitwise repeat True")
+        del qkv, o, st, o2, st2, o9, o_ref, st_ref
+    return worst
+
+
 def check_redesigned(fa, mf, dev) -> None:
-    """The redesigned fp32 K2 and K3 run alone: one call of the bf16, fp16
-    and fp32 K3 and of the fp32 K2 launches (torch.profiler) its new kernel
-    and no other of csrc/."""
+    """The redesigned kernels run alone: one call of the bf16, fp16 and
+    fp32 K3, of the fp32 K2 and of the fp32 K1 and K9 launches
+    (torch.profiler) its new kernel and no other of csrc/."""
     import torch
 
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -1607,7 +1665,7 @@ def check_redesigned(fa, mf, dev) -> None:
         w2 = seeded_bf16((o, k), 4501, dev, dt, 0.02)
         h = seeded_bf16((b, s, k), 4502, dev, dt)
         only_kernel(lambda: mf.fc2_bwd(dy, w2, h),
-                    "fc2_bwd_cc_kernel" if dt == torch.float32
+                    "fc2_bwd_simt_kernel(" if dt == torch.float32
                     else "fc2_bwd_tc_kernel<", f"redesigned K3 {dt}")
     b, s, h, d = BWD_MAIN_SHAPES[1]
     qkv = seeded_bf16((b, s, 3 * h * d), 4503, dev, torch.float32)
@@ -1615,6 +1673,10 @@ def check_redesigned(fa, mf, dev) -> None:
     o, st = fa.attn_fwd(qkv, h, with_stats=True)
     only_kernel(lambda: fa.attn_bwd(qkv, do, o, st, h), "attn_bwd_kernel<",
                 "redesigned fp32 K2")
+    only_kernel(lambda: fa.attn_fwd(qkv, h, with_stats=True),
+                "attn_fwd_simt_kernel<64>(", "redesigned fp32 K1")
+    only_kernel(lambda: fa.hp_fwd(qkv, h), "attn_fwd_simt_kernel<64>(",
+                "redesigned fp32 K9")
 
 
 def only_kernels(fn, wants, tag) -> None:
@@ -2722,7 +2784,9 @@ def main() -> int:
     build_s = build_all(fa, fb, mf)
     for name in ("attn_fwd_tc", "attn_bwd_tc", "hp_bwd_tc", "attn_fwd"):
         log(f"[build] {name} built/loaded in {build_s[name]:.3f} s")
-        log_ptxas(cuda_build, name, "build")
+        # attn_fwd_simt_kernel, on float alone, names no element type
+        log_ptxas(cuda_build, name, "build",
+                  untyped="fp32" if name == "attn_fwd" else "bf16")
     # the tensor-core kernels' dynamic shared memory (ptxas reports only
     # the static part)
     fwd_lib, bwd_lib = fa.build_tc_kernels(), fa.build_tc_bwd_kernels()
@@ -3019,6 +3083,11 @@ def main() -> int:
         return src + cuda_core[name] if name in cuda_core else sources[name]
 
     replaces = {k["name"]: k["replaces"] for k in kernels}
+    # the fp32 K1, K9 (register tiles around csrc/cc_tiles.cuh) and K3,
+    # redesigned in place of the kernels their sources held before
+    simt = {"attn_fwd": ["attn_fwd_simt_kernel<64>"],
+            "hp_fwd": ["attn_fwd_simt_kernel<64>"],
+            "fc2_bwd": ["fc2_bwd_simt_kernel"]}
     trainer_runs = {("float32", "attn_fwd"): "fp32",
                     ("float32", "attn_bwd"): "fp32",
                     ("float32", "fc2_bwd"): "fp32_mlp"}
@@ -3043,7 +3112,9 @@ def main() -> int:
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 **({"unfused_ms": row["unfused_ms"]} if "unfused_ms" in row
-                   else {})})
+                   else {}),
+                **({"kernels": simt[name]} if dt_name == "float32"
+                   and name in simt else {})})
     # one line for each kernel at a head dim of 256 in each dtype (the wide
     # tensor-core tiles in bf16 and fp16, but K2 and K4-K6 on the CUDA
     # cores), counting the launches of drive_wide_heads

@@ -16,6 +16,11 @@ but a different fp32 summation order can flip a bf16 rounding, which moves
 o by a few bf16 ulps (2^-8 at |o| in [0.5, 1)): atol 2e-2. The fp32 row
 stats agree to rtol 1e-5 in both.
 """
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -246,3 +251,104 @@ def test_attn_fwd_kernel_contract(cuda_device):
     out = fa.qkv_proj_attention(torch.zeros((1, 8, H * D), device=cuda_device,
                                             dtype=torch.bfloat16), w, None, H)
     assert type(out.grad_fn).__name__ == "QkvProjAttentionBackward"
+
+
+# ---- the fp32 K1 (and K9) at the edges of its register tiles: S around
+# its 64-row query and key tiles and its 8-key groups, up to the
+# contract's 1024; the compile-time head dims 32, 64, 128 and one that
+# takes the next with zero columns (48)
+FP32_EDGE_S = (1, 63, 64, 65, 513, 1024)
+FP32_EDGE_D = (32, 48, 64, 128)
+
+
+@pytest.mark.parametrize("d", FP32_EDGE_D)
+@pytest.mark.parametrize("s", FP32_EDGE_S)
+def test_fp32_attn_fwd_reference_matches_k1_at_tile_edges(s, d):
+    qkv = _qkv(1, s, 2, d, seed=s + d)
+    scale = d ** -0.5
+    o_want, st_want = _jax_k1(qkv, 2, scale, False)
+    o, st = fa.attn_fwd_reference(torch.from_numpy(qkv), 2, scale,
+                                  with_stats=True)
+    np.testing.assert_allclose(o.numpy(), o_want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(st.numpy(), st_want, rtol=1e-5, atol=0)
+
+
+# the same edges on the card, the score block's limits (S 496 / 497 at D
+# 128, 688 / 689 at D 64, 784 / 785 at D 32: past them the kernel
+# recomputes s instead of storing it) and B or H over the grid's 65535
+K1_FP32_EDGE_SHAPES = [(2, s, 2, d) for s in FP32_EDGE_S
+                       for d in FP32_EDGE_D] + [
+    (2, 496, 2, 128), (2, 497, 2, 128), (2, 688, 2, 64), (2, 689, 2, 64),
+    (2, 784, 2, 32), (2, 785, 2, 32), (1, 8, 65537, 8), (65537, 8, 1, 8)]
+K1_FP32_EDGE_REL = 1e-5  # of the largest |o|: fp32 summation order, expf
+
+
+# one session per call, in a fresh process: in a long one (the whole cuda
+# suite) torch.profiler's sessions stop recording kernels
+_K1_TRACE = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from vision_transformers_torch_xla_tpu_torch.ops import flash_attention as fa
+calls = {}
+for d in %r:
+    x = torch.randn(2, 197, 6 * d, device="cuda")
+    calls[f"attn_fwd{d}"] = lambda x=x: fa.attn_fwd(x, 2, with_stats=True)
+    calls[f"hp_fwd{d}"] = lambda x=x: fa.hp_fwd(x, 2)
+out = {}
+for name, fn in calls.items():
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out[name] = sorted(e.key for e in prof.key_averages()
+                       if e.device_type.name == "CUDA"
+                       and "anonymous namespace" in e.key)
+print(json.dumps(out))
+""" % (FP32_EDGE_D,)
+
+
+@pytest.fixture(scope="module")
+def fp32_k1_trace():
+    """The csrc/ kernels (anonymous namespace) one fp32 call of K1 and of
+    K9 launches at each of FP32_EDGE_D, traced by torch.profiler."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    res = subprocess.run([sys.executable, "-c", _K1_TRACE],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K1_FP32_EDGE_SHAPES)
+def test_fp32_k1_k9_match_plain_at_tile_edges_on_cuda(cuda_device, shape):
+    b, s, h, d = shape
+    x = torch.from_numpy(_qkv(b, s, h, d, seed=s + d)).to(cuda_device)
+    assert fa.attn_kernel_route(x, h) == "cuda_cores"
+    before = (fa.ATTN_FWD_LAUNCHES, fa.HP_FWD_LAUNCHES)
+    o, st = fa.attn_fwd(x, h, with_stats=True)
+    o2, st2 = fa.attn_fwd(x, h, with_stats=True)
+    o9 = fa.hp_fwd(x, h)
+    torch.cuda.synchronize()
+    assert (fa.ATTN_FWD_LAUNCHES, fa.HP_FWD_LAUNCHES) == \
+        (before[0] + 2, before[1] + 1)
+    assert torch.equal(o, o2) and torch.equal(st, st2) and torch.equal(o, o9)
+    o_ref, st_ref = fa.attn_fwd_reference(x, h, d ** -0.5, with_stats=True)
+    err = (o - o_ref).abs().max().item()
+    assert err <= K1_FP32_EDGE_REL * o_ref.abs().max().item(), err
+    torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", FP32_EDGE_D)
+def test_fp32_k1_k9_launch_the_register_tiled_kernel_alone(fp32_k1_trace,
+                                                           d):
+    kd = 32 if d <= 32 else 64 if d <= 64 else 128
+    for name in ("attn_fwd", "hp_fwd"):
+        names = fp32_k1_trace[f"{name}{d}"]
+        assert len(names) == 1 and \
+            f"::attn_fwd_simt_kernel<{kd}>(" in names[0], (name, names)

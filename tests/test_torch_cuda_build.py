@@ -2,9 +2,10 @@
 
 A library's file name hashes the flags, its sources and every header under
 `csrc/`, so that an edit to a header the sources include (csrc/hopper.cuh,
-csrc/elem.cuh) rebuilds the library instead of loading a stale one. Only
-the `.cu` sources go to nvcc. `_library_path` computes the name and needs no
-nvcc, so these run on the CPU, in a temporary `csrc`.
+csrc/elem.cuh, csrc/cc_tiles.cuh, csrc/cp_async.cuh) rebuilds the library
+instead of loading a stale one. Only the `.cu` sources go to nvcc.
+`_library_path` computes the name and needs no nvcc, so these run on the
+CPU, in a temporary `csrc`.
 """
 import pytest
 import torch
@@ -42,9 +43,9 @@ def test_other_files_do_not_enter_the_hash(csrc):
 
 
 def test_the_package_headers_are_hashed():
-    # the real csrc: both shared headers exist and are picked up
+    # the real csrc: the shared headers exist and are picked up
     names = {p.name for p in cuda_build.CSRC_DIR.iterdir()}
-    assert {"hopper.cuh", "elem.cuh"} <= names
+    assert {"hopper.cuh", "elem.cuh", "cc_tiles.cuh", "cp_async.cuh"} <= names
     assert cuda_build._library_path("flash_bwd", ("flash_bwd.cu",)).name \
         .startswith("flash_bwd-")
 
@@ -64,6 +65,11 @@ def test_other_dtypes_have_no_code():
         cuda_build.dtype_code(torch.float64)
 
 
+def _headers(csrc):
+    """Every header under csrc: each enters every library's hash."""
+    return [p.name for p in csrc.iterdir() if p.suffix in (".cuh", ".h")]
+
+
 @pytest.mark.parametrize("source", ["attn_fwd_tc.cu", "attn_bwd_tc.cu",
                                     "hp_bwd_tc.cu", "mlp_fused.cu"])
 def test_the_tensor_core_attention_sources_enter_the_hash(tmp_path, source):
@@ -73,7 +79,7 @@ def test_the_tensor_core_attention_sources_enter_the_hash(tmp_path, source):
     # names a new file
     real = cuda_build.CSRC_DIR
     assert "hopper.cuh" in (real / source).read_text()
-    for f in (source, "hopper.cuh", "elem.cuh"):
+    for f in (source, *_headers(real)):
         (tmp_path / f).write_bytes((real / f).read_bytes())
     name = source[:-3]
     before = cuda_build._library_path(name, (source,), tmp_path)
@@ -82,3 +88,22 @@ def test_the_tensor_core_attention_sources_enter_the_hash(tmp_path, source):
         (tmp_path / edited).write_text((real / edited).read_text() + "\n")
         assert cuda_build._library_path(name, (source,), tmp_path) != before
         (tmp_path / edited).write_bytes((real / edited).read_bytes())
+
+
+@pytest.mark.parametrize("source,header", [
+    ("attn_fwd.cu", "cc_tiles.cuh"), ("attn_bwd.cu", "cc_tiles.cuh"),
+    ("flash_blocked.cu", "cc_tiles.cuh"), ("mlp_fused.cu", "cp_async.cuh")])
+def test_the_cuda_core_headers_enter_the_hash(tmp_path, source, header):
+    # csrc/cc_tiles.cuh holds the register tiles of the CUDA-core kernels
+    # (the fp32 K1 and K2, K4-K6's CUDA-core loops), csrc/cp_async.cuh the
+    # asynchronous copies (through cc_tiles.cuh, and the fp32 K3's): each
+    # source that includes one names a new library when it is edited
+    real = cuda_build.CSRC_DIR
+    assert f'#include "{header}"' in (real / source).read_text()
+    for f in (source, *_headers(real)):
+        (tmp_path / f).write_bytes((real / f).read_bytes())
+    name = source[:-3]
+    before = cuda_build._library_path(name, (source,), tmp_path)
+    assert before == cuda_build._library_path(name, (source,), real)
+    (tmp_path / header).write_text((real / header).read_text() + "\n")
+    assert cuda_build._library_path(name, (source,), tmp_path) != before

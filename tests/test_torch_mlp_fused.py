@@ -18,6 +18,11 @@ Tolerances, relative to the largest |value| of the JAX side:
   values and round once, so a flipped rounding moves a value by one bf16
   ulp (2^-8 of it). db1 stays 1e-4: it sums the fp32 dh, before rounding.
 """
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -313,3 +318,87 @@ def test_fc2_bwd_contract_on_cuda(cuda_device):
                       dtype=torch.bfloat16)[1:].view(2, 5, 256)
     with pytest.raises(ValueError, match="aligned"):
         mf.fc2_bwd(xb, wb, odd)
+
+
+# ---- the fp32 K3 at ragged row counts: M = B·S against its 128-row
+# tiles (one row, one short of a tile, one past it, a few images)
+FP32_EDGE_ROWS = [(1, 1), (1, 127), (1, 129), (3, 77)]
+K3_FP32_EDGE_REL = 1e-5  # of the largest magnitude: fp32 summation order
+
+
+def _fp32_inputs(b, s, o, k, seed):
+    return (_rand((b, s, o), seed), _rand((o, k), seed + 1, 0.05),
+            _rand((b, s, k), seed + 2, 2.0))
+
+
+@pytest.mark.parametrize("b,s", FP32_EDGE_ROWS)
+def test_fp32_fc2_bwd_reference_matches_jax_at_ragged_rows(b, s):
+    dy, w2, h = _fp32_inputs(b, s, 128, 256, seed=b * 1000 + s)
+    want = _jax_fc2_bwd(dy, w2, h, False)
+    got = mf.fc2_bwd(*(torch.from_numpy(x) for x in (dy, w2, h)))
+    for name, g, w in zip(("dh", "a", "db1"), got, want):
+        assert g.dtype == torch.float32, name
+        _close(g.numpy(), w, FP32_RTOL, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,o,k", [(b, s, 128, 256)
+                                     for b, s in FP32_EDGE_ROWS]
+                         + [(1, 129, 768, 3072), (128, 197, 768, 3072)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_fp32_fc2_bwd_kernel_matches_plain_at_edges(cuda_device, b, s, o, k,
+                                                    aligned):
+    # the register-tiled fp32 K3 against its plain version, twice and
+    # bitwise equal; tensors that are not 16-byte aligned take its 4-byte
+    # accesses
+    def place(x):
+        t = torch.from_numpy(x).to(cuda_device)
+        if aligned:
+            return t
+        buf = torch.empty(t.numel() + 1, device=cuda_device)[1:]
+        return buf.copy_(t.flatten()).view(t.shape)
+
+    dy, w2, h = (place(x) for x in _fp32_inputs(b, s, o, k, seed=s))
+    assert aligned == all(t.data_ptr() % 16 == 0 for t in (dy, w2, h))
+    before = mf.FC2_BWD_LAUNCHES
+    got = mf.fc2_bwd(dy, w2, h)
+    again = mf.fc2_bwd(dy, w2, h)
+    torch.cuda.synchronize()
+    assert mf.FC2_BWD_LAUNCHES == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for name, g, r in zip(("dh", "a", "db1"), got,
+                          mf.fc2_bwd_reference(dy, w2, h)):
+        assert g.shape == r.shape and g.dtype == r.dtype == torch.float32
+        err = (g - r).abs().max().item()
+        assert err <= K3_FP32_EDGE_REL * r.abs().max().item(), (name, err)
+
+
+# in a fresh process: in a long one (the whole cuda suite) torch.profiler's
+# sessions stop recording kernels
+_K3_TRACE = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from vision_transformers_torch_xla_tpu_torch.ops import mlp_fused as mf
+dy, w2, h = (torch.randn(shape, device="cuda")
+             for shape in ((3, 77, 768), (768, 3072), (3, 77, 3072)))
+mf.fc2_bwd(dy, w2, h)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    mf.fc2_bwd(dy, w2, h)
+    torch.cuda.synchronize()
+print(json.dumps(sorted(e.key for e in prof.key_averages()
+                        if e.device_type.name == "CUDA"
+                        and "anonymous namespace" in e.key)))
+"""
+
+
+@pytest.mark.cuda
+def test_fp32_fc2_bwd_launches_the_register_tiled_kernel_alone(cuda_device):
+    res = subprocess.run([sys.executable, "-c", _K3_TRACE],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr[-3000:]
+    ours = json.loads(res.stdout.splitlines()[-1])
+    assert len(ours) == 1 and "::fc2_bwd_simt_kernel(" in ours[0], ours

@@ -44,7 +44,8 @@
 //   * t k, summed over the key tiles in key-tile order in an fp32 (B, H, S,
 //     D) scratch that the block alone touches, and at the last key tile
 //     scaled by rinv scale into dq.
-// Operands are staged in shared memory as fp32, the current tiles only (at
+// Operands are staged in shared memory as fp32 (csrc/cc_tiles.cuh's tiles,
+// shared with csrc/flash_blocked.cu), the current tiles only (at
 // D = 128 172 KB a block, whatever S): an A operand transposed with pitch 68
 // (16-byte rows), a B operand transposed with pitch 65 (odd: row and column
 // reads both free of bank conflicts). delta = rowsum(dO O) of every query
@@ -75,14 +76,11 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "cc_tiles.cuh"
 #include "elem.cuh"
 
 namespace {
 
-constexpr int kTile = 64;           // query rows and key rows of one tile
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int kPA = kTile + 4;      // pitch of a transposed A operand
-constexpr int kPB = kTile + 1;      // pitch of a transposed B operand
 constexpr int kMaxSeq = 1024;
 constexpr int kMaxHeadDim = 128;        // attn_bwd_kernel's, fp32
 constexpr int kMaxWideHeadDim = 1024;   // attn_bwd_wide_kernel's
@@ -101,65 +99,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Stage rows [r0, r0 + kTile) of one head (rows `sr` floats apart), times
-// `mul`, into shared memory transposed: dst[d * pitch + r]. Rows >= S and
-// columns >= D read as 0.
-template <int kD>
-__device__ __forceinline__ void stage_t(float* __restrict__ dst, int pitch,
-                                        const float* __restrict__ src,
-                                        long long sr, int r0, int S, int D,
-                                        float mul) {
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    float x = 0.f;
-    if (r0 + r < S && d < D) x = src[(long long)(r0 + r) * sr + d] * mul;
-    dst[d * pitch + r] = x;
-  }
-}
-
-// acc[i][j] += sum_{k < K} a[k * kPA + row0 + i] * b[k * BK + (col0 + 16 j) * BC]
-// for i < 4, j < NJ: a is a transposed A operand (float4 reads), b a B
-// operand read with strides BK along k and BC along the columns.
-template <int NJ, int K, int BK, int BC>
-__device__ __forceinline__ void tile_product(float (&acc)[4][NJ],
-                                             const float* __restrict__ a,
-                                             const float* __restrict__ b,
-                                             int row0, int col0) {
-#pragma unroll 16
-  for (int k = 0; k < K; ++k) {
-    const float4 x = *reinterpret_cast<const float4*>(a + k * kPA + row0);
-    float y[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) y[j] = b[k * BK + (col0 + 16 * j) * BC];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      acc[0][j] = fmaf(x.x, y[j], acc[0][j]);
-      acc[1][j] = fmaf(x.y, y[j], acc[1][j]);
-      acc[2][j] = fmaf(x.z, y[j], acc[2][j]);
-      acc[3][j] = fmaf(x.w, y[j], acc[3][j]);
-    }
-  }
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero(float (&acc)[4][NJ]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-}
-
-// Store a thread's 4 x 4 values x[i][j] at dst[(col0 + 16 j) * kPA + row0 + i]
-// (transposed, float4 per column: an A operand for the next product).
-__device__ __forceinline__ void store_t(float* __restrict__ dst,
-                                        const float (&x)[4][4], int row0,
-                                        int col0) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(dst + (col0 + 16 * j) * kPA + row0) =
-        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
 }
 
 // Write rows r0 + row0 + i (< S) and columns col0 + 16 j (< D) of acc[i][j]
@@ -282,8 +221,8 @@ attn_bwd_kernel(Args a) {
   for (int kt = 0; kt < n_t; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last key tile's kT and vT are read
-    stage_t<kD>(kT, kPA, base + HD, C, k0, S, D, 1.f);
-    stage_t<kD>(vT, kPA, base + 2 * HD, C, k0, S, D, 1.f);
+    stage_t<float, kD>(kT, kPA, base + HD, C, k0, S, D, 1.f);
+    stage_t<float, kD>(vT, kPA, base + 2 * HD, C, k0, S, D, 1.f);
     float dk_acc[4][NO], dv_acc[4][NO];
     zero(dk_acc);
     zero(dv_acc);
@@ -293,8 +232,8 @@ attn_bwd_kernel(Args a) {
 
     for (int q0 = 0; q0 < S; q0 += kTile) {
       __syncthreads();  // the last pair's qT, doT, pq, tq are read
-      stage_t<kD>(qT, kPB, base, C, q0, S, D, a.scale);
-      stage_t<kD>(doT, kPB, a.dout + o_off, HD, q0, S, D, 1.f);
+      stage_t<float, kD>(qT, kPB, base, C, q0, S, D, a.scale);
+      stage_t<float, kD>(doT, kPB, a.dout + o_off, HD, q0, S, D, 1.f);
       for (int i = threadIdx.x; i < kTile; i += kThreads) {
         const bool ok = q0 + i < S;
         m_s[i] = ok ? st[(q0 + i) * 2] : 0.f;

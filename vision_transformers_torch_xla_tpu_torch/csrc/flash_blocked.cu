@@ -33,7 +33,8 @@
 // inputs, which the JAX kernels in fp32 do not). FMA and shared-memory
 // issue hold these loops back.
 //
-// Design: 64-row query tiles and 64-row key tiles, 256 threads as 16 x 16.
+// Design: 64-row query tiles and 64-row key tiles, 256 threads as 16 x 16
+// (csrc/cc_tiles.cuh's register tiles, shared with csrc/attn_bwd.cu).
 // A thread owns 4 contiguous rows (ty * 4 + i) and the columns tx + 16 j of
 // each tile product, so that A operands are read as float4 (broadcast in a
 // half-warp) and B operands as scalars on 16 consecutive banks. Operands
@@ -76,93 +77,16 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "cc_tiles.cuh"
 #include "elem.cuh"
 
 namespace {
 
-constexpr int kTile = 64;           // query rows and key rows of one tile
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int kPA = kTile + 4;      // pitch of a transposed A operand
-constexpr int kPB = kTile + 1;      // pitch of a transposed B operand
 constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 
 struct Layout {
   long long sb, sh, sr;  // element strides of batch, head and row
 };
-
-// Reductions over the 16 lanes that share a row (a half-warp). The xor
-// butterfly leaves the same value in every lane.
-__device__ __forceinline__ float half_max(float v) {
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float half_sum(float v) {
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Stage rows [r0, r0 + kTile) of one head, scaled by `mul`, into shared
-// memory as fp32, transposed: dst[d * pitch + r]. Rows >= S and columns
-// >= D read as 0.
-template <typename T, int kD>
-__device__ __forceinline__ void stage_t(float* __restrict__ dst, int pitch,
-                                        const T* __restrict__ src,
-                                        long long sr, int r0, int S, int D,
-                                        float mul) {
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    float x = 0.f;
-    if (r0 + r < S && d < D)
-      x = Elem<T>::load(src[(long long)(r0 + r) * sr + d]) * mul;
-    dst[d * pitch + r] = x;
-  }
-}
-
-// acc[i][j] += sum_{k < K} a[k * kPA + row0 + i] * b[k * BK + (col0 + 16 j) * BC]
-// for i < 4, j < NJ: a is a transposed A operand (float4 reads), b a B
-// operand read with strides BK along k and BC along the columns.
-template <int NJ, int K, int BK, int BC>
-__device__ __forceinline__ void tile_product(float (&acc)[4][NJ],
-                                             const float* __restrict__ a,
-                                             const float* __restrict__ b,
-                                             int row0, int col0) {
-#pragma unroll 16
-  for (int k = 0; k < K; ++k) {
-    const float4 x = *reinterpret_cast<const float4*>(a + k * kPA + row0);
-    float y[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) y[j] = b[k * BK + (col0 + 16 * j) * BC];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      acc[0][j] = fmaf(x.x, y[j], acc[0][j]);
-      acc[1][j] = fmaf(x.y, y[j], acc[1][j]);
-      acc[2][j] = fmaf(x.z, y[j], acc[2][j]);
-      acc[3][j] = fmaf(x.w, y[j], acc[3][j]);
-    }
-  }
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero(float (&acc)[4][NJ]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-}
-
-// Store a thread's 4 x 4 values x[i][j] at dst[(col0 + 16 j) * kPA + row0 + i]
-// (transposed, float4 per column: an A operand for the next product).
-__device__ __forceinline__ void store_t(float* __restrict__ dst,
-                                        const float (&x)[4][4], int row0,
-                                        int col0) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(dst + (col0 + 16 * j) * kPA + row0) =
-        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
-}
 
 // Write rows row0 + i (< S) and columns col0 + 16 j (< D) of acc * mul in
 // the element type to one head of a tensor with row stride sr.

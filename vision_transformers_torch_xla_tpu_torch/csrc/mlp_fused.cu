@@ -53,12 +53,25 @@
 //   may have 112, more than a producer warpgroup's setmaxnreg could hand
 //   the consumers (104).
 //
-// fp32 (fc2_bwd_cc_kernel, on float alone) runs on the CUDA cores: the
+// fp32 (fc2_bwd_simt_kernel, on float alone) runs on the CUDA cores: the
 // product in fp32 from the inputs' values (the tensor cores have no fp32
-// product; TF32 would round the inputs), the accurate tanhf, the same fp32
-// partials per 128-row tile. A block owns a 128 x 64 tile of (M, K) and
-// loops over O in steps of 16, dy and w2 staged in shared memory; 256
-// threads as 16 x 16, each 8 rows by 4 columns 16 apart.
+// product; TF32 would round the inputs), so the 119 GFLOP of the my_vit_b
+// step bound it at 1.78 ms (67 TFLOP/s), six times its 1.02 GB's 0.30 ms. A
+// block of 256 threads (16 x 16) owns a 128 x 128 tile of (M, K), each
+// thread 8 rows by 8 columns (4-row and 4-column groups 64 apart), read as
+// float4 from both operands: 4 shared loads per 64 FMAs. Steps of 16 over
+// O, double-buffered: w2 [o][col] as stored by cp.async, dy loaded into
+// registers a step ahead and stored transposed [o][row] (pitch 132, free
+// of bank conflicts) after the step's products; one barrier a step. The
+// epilogue is the tensor-core kernel's in fp32: the accurate tanhf (fp32
+// keeps the plain version's order), dh and a stored as float4, the column
+// sums of each 128-row tile's real rows over the 16 row groups in a fixed
+// order (no float atomics). 33 KB of shared memory and <= 128 registers a
+// thread: two blocks an SM. A call whose tensors are not all 16-byte
+// aligned takes the same kernel with 4-byte accesses. Measured on an H100
+// 80GB HBM3 at 700 W (PERF.md §6): 2.87-2.89 ms of device time at the
+// step's shape, 62% of the bound (the 128 x 64 design before it 4.52, the
+// unfused cuBLAS + GELU path 2.84); the GELU takes 0.18 of it.
 //
 // Both grids are one-dimensional over the tiles, so M is bounded only by
 // 2^31 tiles. Plain C interface, loaded with ctypes. The kernels allocate
@@ -68,6 +81,7 @@
 
 #include <limits.h>
 
+#include "cp_async.cuh"
 #include "elem.cuh"
 #include "hopper.cuh"
 
@@ -292,86 +306,167 @@ fc2_bwd_tc_kernel(const __grid_constant__ CUtensorMap tdy,
   if (threadIdx.x % 128 == 0) tma_store_wait_read();
 }
 
-constexpr int kCN = 64;          // hidden columns of a CUDA-core tile
-constexpr int kCK = 16;          // depth of one CUDA-core step (over O)
-constexpr int kCThreads = 256;   // 16 x 16
-constexpr int kCRows = kBM / 16;  // rows of a thread (8)
-constexpr int kCCols = kCN / 16;  // columns of a thread (4)
+// ---- fp32 on the CUDA cores: fc2_bwd_simt_kernel
 
-// The fp32 kernel. grid (ceil(M / kBM) * K / kCN): block x is column tile
-// x % n_tn of row tile x / n_tn. Static shared memory: the dy step
-// transposed [o][row] (pitch kBM + 4, float4 reads), the w2 step [o][col],
-// and the column partials of the 16 row groups.
-__global__ void __launch_bounds__(kCThreads)
-fc2_bwd_cc_kernel(const float* __restrict__ dy, const float* __restrict__ w2,
-                  const float* __restrict__ h, float* __restrict__ dh,
-                  float* __restrict__ a_out, float* __restrict__ part, int M,
-                  int O, int K, int n_tn) {
-  __shared__ __align__(16) float as[kCK][kBM + 4];
-  __shared__ float bs[kCK][kCN];
-  __shared__ float red[16][kCN];
+constexpr int kSThreads = 256;  // 16 x 16
+constexpr int kSK = 16;         // depth of one step over O
+constexpr int kSPA = kBM + 4;   // pitch of a step's dy, transposed [o][row]
+
+// Four consecutive floats at p: one 16-byte access when `vec` (every tensor
+// of the call is 16-byte aligned), else four.
+__device__ __forceinline__ float4 ld4(const float* p, bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 x, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = x;
+  } else {
+    p[0] = x.x;
+    p[1] = x.y;
+    p[2] = x.z;
+    p[3] = x.w;
+  }
+}
+
+// Two steps of operands: dy transposed [o][row] and w2 [o][col] as stored.
+struct SimtRing {
+  float dy[2][kSK][kSPA];
+  float w2[2][kSK][kBN];
+};
+
+// grid (ceil(M / kBM) * K / kBN): block x is column tile x % n_tn of row
+// tile x / n_tn, so the blocks in flight share their dy rows. Thread (ty,
+// tx) owns the rows 4 ty + i and 64 + 4 ty + i and the columns 4 tx + c and
+// 64 + 4 tx + c (i, c < 4) of the 128 x 128 tile.
+__global__ void __launch_bounds__(kSThreads, 2)
+fc2_bwd_simt_kernel(const float* __restrict__ dy, const float* __restrict__ w2,
+                    const float* __restrict__ h, float* __restrict__ dh,
+                    float* __restrict__ a_out, float* __restrict__ part,
+                    int M, int O, int K, int n_tn, int vec) {
+  extern __shared__ __align__(16) float simt_raw[];
+  SimtRing& sm = *reinterpret_cast<SimtRing*>(simt_raw);
   const int tm = blockIdx.x / n_tn;
-  const int n0 = (blockIdx.x % n_tn) * kCN;
-  const int m0 = tm * kBM;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-
-  float acc[kCRows][kCCols];
+  const int m0 = tm * kBM, n0 = (blockIdx.x % n_tn) * kBN;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // this thread's share of a step: dy row ar at o 4 aq + 8 u (into
+  // registers, then shared memory transposed); w2 rows br + 8 u at columns
+  // bc (cp.async), u < kSU
+  constexpr int kSU = kSK / 8;
+  const int ar = tid >> 1, aq = tid & 1;
+  const int br = tid >> 5, bc = (tid & 31) * 4;
+  const bool a_ok = m0 + ar < M;
+  const float* ag = dy + (long long)(m0 + ar) * O + 4 * aq;
+  const float* bg = w2 + (long long)br * K + n0 + bc;
+  float4 ra[kSU];
+  auto load_dy = [&](int o0) {
 #pragma unroll
-  for (int i = 0; i < kCRows; ++i)
+    for (int u = 0; u < kSU; ++u)
+      ra[u] = a_ok ? ld4(ag + o0 + 8 * u, vec) : make_float4(0.f, 0.f, 0.f,
+                                                              0.f);
+  };
+  auto store_dy = [&](int buf) {
 #pragma unroll
-    for (int j = 0; j < kCCols; ++j) acc[i][j] = 0.f;
-
-  for (int o0 = 0; o0 < O; o0 += kCK) {
-    __syncthreads();  // every thread is done with the last step
-    for (int i = tid; i < kBM * kCK; i += kCThreads) {
-      const int r = i / kCK, c = i % kCK, gm = m0 + r;
-      as[c][r] = gm < M ? dy[(long long)gm * O + o0 + c] : 0.f;
+    for (int u = 0; u < kSU; ++u) {
+      const int o = 4 * aq + 8 * u;
+      sm.dy[buf][o][ar] = ra[u].x;
+      sm.dy[buf][o + 1][ar] = ra[u].y;
+      sm.dy[buf][o + 2][ar] = ra[u].z;
+      sm.dy[buf][o + 3][ar] = ra[u].w;
     }
-    for (int i = tid; i < kCK * kCN; i += kCThreads) {
-      const int r = i / kCN, c = i % kCN;
-      bs[r][c] = w2[(long long)(o0 + r) * K + n0 + c];
-    }
-    __syncthreads();
+  };
+  auto load_w2 = [&](int buf, int o0) {
 #pragma unroll
-    for (int kk = 0; kk < kCK; ++kk) {
-      const float4 x0 = *reinterpret_cast<const float4*>(&as[kk][ty * 8]);
-      const float4 x1 = *reinterpret_cast<const float4*>(&as[kk][ty * 8 + 4]);
-      const float x[kCRows] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    for (int u = 0; u < kSU; ++u) {
+      float* dst = &sm.w2[buf][br + 8 * u][bc];
+      const float* src = bg + (long long)(o0 + 8 * u) * K;
+      if (vec) {
+        cp_async<16>(dst, src);
+      } else {
 #pragma unroll
-      for (int j = 0; j < kCCols; ++j) {
-        const float y = bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kCRows; ++i) acc[i][j] = fmaf(x[i], y, acc[i][j]);
+        for (int e = 0; e < 4; ++e) cp_async<4>(dst + e, src + e);
       }
     }
+    cp_async_commit();
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+
+  const int n_k = O / kSK;
+  load_dy(0);
+  load_w2(0, 0);
+  store_dy(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int j = 0; j < n_k; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < n_k) {  // the next step, in flight during this one
+      load_dy((j + 1) * kSK);
+      load_w2(cur ^ 1, (j + 1) * kSK);
+    }
+#pragma unroll
+    for (int k = 0; k < kSK; ++k) {
+      const float* ak = sm.dy[cur][k];
+      const float* bk = sm.w2[cur][k];
+      const float4 a0 = *reinterpret_cast<const float4*>(ak + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(ak + 64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(bk + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(bk + 64 + 4 * tx);
+      const float x[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float y[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(x[i], y[c], acc[i][c]);
+    }
+    if (j + 1 < n_k) {
+      store_dy(cur ^ 1);
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this step is read; the next one has landed
   }
 
-  // Epilogue: dh = da gelu'(h), a = gelu(h), dh summed per column
-  float colsum[kCCols];
+  // Epilogue: dh = da gelu'(h), a = gelu(h), dh summed per column over the
+  // tile's real rows
+  float csum[8];
 #pragma unroll
-  for (int j = 0; j < kCCols; ++j) colsum[j] = 0.f;
+  for (int c = 0; c < 8; ++c) csum[c] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kCRows; ++i) {
-    const int gm = m0 + ty * 8 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i < 4 ? 4 * ty + i : 60 + 4 * ty + i);
     if (gm >= M) continue;
-    const long long row = (long long)gm * K;
+    const long long row = (long long)gm * K + n0;
 #pragma unroll
-    for (int j = 0; j < kCCols; ++j) {
-      const int col = n0 + tx + 16 * j;
-      const float2 g = gelu_tanh_val_grad<false>(h[row + col]);
-      const float d = acc[i][j] * g.y;
-      dh[row + col] = d;
-      a_out[row + col] = g.x;
-      colsum[j] += d;
+    for (int g = 0; g < 2; ++g) {
+      const long long at = row + 64 * g + 4 * tx;
+      const float4 hv = ld4(h + at, vec);
+      const float hx[4] = {hv.x, hv.y, hv.z, hv.w};
+      float d[4], av[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 gg = gelu_tanh_val_grad<false>(hx[e]);
+        d[e] = acc[i][4 * g + e] * gg.y;
+        av[e] = gg.x;
+        csum[4 * g + e] += d[e];
+      }
+      st4(dh + at, make_float4(d[0], d[1], d[2], d[3]), vec);
+      st4(a_out + at, make_float4(av[0], av[1], av[2], av[3]), vec);
     }
   }
+  // the 16 row groups' column sums, in a fixed order: no float atomics
+  float* red = &sm.dy[0][0][0];  // [16][kBN]; the last step is read
 #pragma unroll
-  for (int j = 0; j < kCCols; ++j) red[ty][tx + 16 * j] = colsum[j];
+  for (int c = 0; c < 8; ++c)
+    red[ty * kBN + 64 * (c / 4) + 4 * tx + c % 4] = csum[c];
   __syncthreads();
-  if (tid < kCN) {
+  if (tid < kBN) {
     float sum = 0.f;
-    for (int g = 0; g < 16; ++g) sum += red[g][tid];
+    for (int g = 0; g < 16; ++g) sum += red[g * kBN + tid];
     part[(long long)tm * K + n0 + tid] = sum;
   }
 }
@@ -420,7 +515,7 @@ int vtx_fc2_bwd(const void* dy, const void* w2, const void* h, void* dh,
                 void* stream) {
   const long long tiles = (M + (long long)kBM - 1) / kBM;
   if (M < 1 || O < 128 || O % 128 || K < 128 || K % 128 ||
-      tiles * (K / kCN) > INT_MAX)
+      tiles * (K / kBN) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -430,13 +525,24 @@ int vtx_fc2_bwd(const void* dy, const void* w2, const void* h, void* dh,
     case kF16:
       return launch_tc<f16>(dy, w2, h, dh, a, part, M, O, K,
                             tiles * (K / kBN), s);
-    case kF32:
-      fc2_bwd_cc_kernel<<<(unsigned)(tiles * (K / kCN)), kCThreads, 0, s>>>(
+    case kF32: {
+      const uintptr_t bits = reinterpret_cast<uintptr_t>(dy) |
+                             reinterpret_cast<uintptr_t>(w2) |
+                             reinterpret_cast<uintptr_t>(h) |
+                             reinterpret_cast<uintptr_t>(dh) |
+                             reinterpret_cast<uintptr_t>(a);
+      const cudaError_t e = cudaFuncSetAttribute(
+          fc2_bwd_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)sizeof(SimtRing));
+      if (e != cudaSuccess) return (int)e;
+      fc2_bwd_simt_kernel<<<(unsigned)(tiles * (K / kBN)), kSThreads,
+                            sizeof(SimtRing), s>>>(
           static_cast<const float*>(dy), static_cast<const float*>(w2),
           static_cast<const float*>(h), static_cast<float*>(dh),
           static_cast<float*>(a), static_cast<float*>(part), M, O, K,
-          K / kCN);
+          K / kBN, (bits & 15) == 0 ? 1 : 0);
       return (int)cudaGetLastError();
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }
