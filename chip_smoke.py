@@ -65,8 +65,9 @@ ops/flash_blocked.py):
 
 10. build: csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6), both
     TMA + wgmma in bf16, and csrc/flash_blocked.cu (K4-K6 on the CUDA cores
-    for fp32 and fp16), started with the others in phase 2; build time,
-    registers and spills.
+    for fp32 and fp16) with csrc/flash_bwd_simt.cu (the fp32 K5 and K6 at
+    head dims <= 128, register tiles) linked in, started with the others in
+    phase 2; build time, registers and spills.
 11. blocked kernels vs plain: flash_fwd (K4), flash_bwd_dkdv (K5) and
     flash_bwd_dq (K6) against their plain versions on seeded bf16 q, k, v,
     dO read from a (B, S, 3·H·D) buffer, at the path's shapes (B 1 and 32,
@@ -96,7 +97,6 @@ ops/flash_blocked.py):
     model keeps its own exact GELU) for 3 steps and 2 eval batches; then
     the step timed on a fixed device batch: median ms, images/s, MFU at
     518/14 and peak memory.
-
 The fused-backward MLP (`--pallas_mlp on`, ops/mlp_fused.py) and the
 head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
 
@@ -114,8 +114,10 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     backward, the fp32 bias sum: unfused_ms). No single PyTorch call
     computes K3's function, so library_ms is null. Then the kernels that
     one call of the bf16, fp16 and fp32 K3 (fc2_bwd_simt_kernel in fp32),
-    of the fp32 K2 and of the fp32 K1 and K9 (attn_fwd_simt_kernel)
-    launches (torch.profiler) must be their new kernels alone.
+    of the fp32 K2, of the fp32 K1 and K9 (attn_fwd_simt_kernel) and of
+    the fp32 K5 and K6 at S 1370 (flash_bwd_dkdv_simt_kernel,
+    flash_bwd_dq_simt_kernel) launches (torch.profiler) must be their new
+    kernels alone.
 17b. head dims over 128 on every route (F8), in bf16, fp16 and fp32:
     qkv_proj_attention forward and backward (K1, K2) and
     fused_attention_qkv_cols at S <= 1024 (K9, K10) at WIDE_QKV_SHAPES (D
@@ -138,6 +140,19 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     WIDE_TIMED (K4-K6 WIDE_LONG_TIMED) beside its plain version and SDPA;
     each gets a line 'kernel[dtype,d256]' in the kernels JSON with the
     launches of that run.
+17c. fp32 at 518 px (after 17b, whose profiler sessions it follows):
+    launch/main.py::main on vit_base_patch14_dinov2 with --precision fp32
+    at batch 4 for 2 steps and 1 eval batch, under one torch.profiler
+    session: the fp32 K4 (csrc/flash_blocked.cu's flash_fwd_kernel<float,
+    64>) 12 times per forward, K5 and K6 (csrc/flash_bwd_simt.cu's
+    flash_bwd_dkdv_simt_kernel<64, 128, 2> and
+    flash_bwd_dq_simt_kernel<64, 128, 2>) 12 times a step each, by the
+    wrappers' counts and by the kernels' names, and no other csrc/ kernel.
+    Then phase 14's gradient in fp32 against the same JAX fp32 golden,
+    within LONG_FP32_GRAD_LIMITS, set from its witness (the same fp32 step
+    with the plain versions of K4-K6 on the card), which runs first; each
+    K4-K6 call of the kernel step held against its plain version on the
+    model's data (DTYPE_REL['float32'], LSE_ATOL).
 18. gradient, --pallas_mlp on: phase 8 (use_pallas_attn) on the same
     weights with every MLP
     on the fused route, against the same JAX fp32 train golden (the
@@ -222,7 +237,12 @@ JAX kernels take any float dtype):
     and 8-key groups, the score block's limits, D 32 to 128, B and H over
     65535), K1 run twice and K9 once, all three bitwise equal, o within
     K2_FP32_EDGE_REL of its largest magnitude and the row stats within it
-    relative.
+    relative; and the fp32 K5 and K6 (csrc/flash_bwd_simt.cu) at theirs
+    (K5K6_FP32_EDGE_SHAPES: S 1 to 1370 around the 64-row tiles, D 32 to
+    128, views of a qkv buffer, contiguous tensors and views whose rows
+    start a float late, B·H over 65535), each call run twice and bitwise
+    equal, no copy, dq, dk and dv within K2_FP32_EDGE_REL of the call's
+    largest gradient.
 24. trainer state: launch/main.py::main on my_vit_b at batch 128 with the
     recipe's flags, 4 steps an epoch and 1 eval batch, in a directory
     under build/ that the phase removes: an uninterrupted 2-epoch run with
@@ -389,6 +409,32 @@ LONG_TRAIN_FLAGS = [
 LONG_GRAD_LIMITS = (0.05, 1e-2, 2.5e-2)
 LONG_WARMUP_STEPS = 2
 LONG_TIMED_STEPS = 5
+# Phase 17c, the 518-px trainer in fp32 (the fp32 K4 of flash_blocked.cu,
+# K5 and K6 of csrc/flash_bwd_simt.cu): main() at a small batch for
+# LONG_FP32_STEPS steps and LONG_FP32_EVALS eval batch, under one
+# torch.profiler session that names the kernels it launched
+LONG_FP32_BATCH, LONG_FP32_STEPS, LONG_FP32_EVALS = 4, 2, 1
+LONG_FP32_FLAGS = [
+    "--model", LONG_MODEL, "--input_size", "518", "--global_pool", "token",
+    "--precision", "fp32", "--batch_size", str(LONG_FP32_BATCH),
+    "--data_set", "synthetic", "--epochs", "1", "--limit_steps_per_epoch",
+    str(LONG_FP32_STEPS), "--limit_eval_batches", str(LONG_FP32_EVALS),
+    "--warmup_epochs", "0"]
+# a csrc/ kernel's demangled name (every source keeps its kernels in an
+# anonymous namespace, under these stems)
+CSRC_KERNEL = r"void \(anonymous namespace\)::(attn|flash|fc2|hp|fused)_"
+LONG_FP32_KERNELS = {
+    "flash_fwd_kernel<float, 64>": "FLASH_FWD_LAUNCHES",
+    "flash_bwd_dkdv_simt_kernel<64, 128, 2>": "FLASH_BWD_DKDV_LAUNCHES",
+    "flash_bwd_dq_simt_kernel<64, 128, 2>": "FLASH_BWD_DQ_LAUNCHES"}
+# and its fp32 gradient on the kernel route against the JAX fp32 train
+# golden: limits (loss abs, grad norm rel, per-parameter grad norm rel),
+# 10x the witness's errors rounded down (the same fp32 step with the plain
+# versions of K4-K6 on the card read a loss equal to the golden's to the
+# bit, 1.54e-7 and 3.89e-7; H100 80GB HBM3, 700 W), the loss's from one
+# fp32 ulp of it (4.77e-7 at 7.35). Both sides are fp32 and differ in
+# summation order only.
+LONG_FP32_GRAD_LIMITS = (4.7e-6, 1.5e-6, 3.8e-6)
 
 # The fused-backward MLP (K3): (B, S, O, K) shapes of fc2_bwd. Kernel vs
 # plain (same bf16 inputs, same cast order): dh and a are bf16 and move by
@@ -458,6 +504,18 @@ K2_FP32_EDGE_SHAPES = ((2, 1, 3, 32), (2, 63, 3, 64), (2, 64, 3, 64),
                        (1, 1024, 2, 128), (1, 8, 65537, 8),
                        (65537, 8, 1, 8))
 K2_FP32_EDGE_REL = 1e-5
+# The fp32 K5 and K6 (csrc/flash_bwd_simt.cu) at their edges, (layout, (B,
+# S, H, D)): S around the 64-row tiles up to the 518-px model's 1370, D 32,
+# 48, 64, 96 and 128 (64 and 128 compiled, the others zero-filled), views
+# of a qkv buffer and contiguous tensors (16-byte copies), views of a
+# buffer whose rows start one float late (4-byte copies), and B·H over
+# 65535 at a short S; held to K2_FP32_EDGE_REL of the call's largest
+# gradient (at S = 1, dq and dk are 0 but for rounding: o = v)
+K5K6_FP32_EDGE_SHAPES = tuple(
+    (layout, (1, s, 2, d)) for layout in ("qkv", "dense")
+    for s in (1, 63, 64, 65, 127, 1025, 1370) for d in (32, 48, 64, 96, 128)
+) + tuple(("unaligned", (1, s, 2, d)) for s in (65, 1370) for d in (48, 64)
+          ) + (("qkv", (1, 8, 65537, 8)), ("dense", (65537, 8, 1, 8)))
 # The fp32 K1 and K9 (csrc/attn_fwd.cu, attn_fwd_simt_kernel) at their
 # edges, (B, S, H, D): S around the 64-row query and key tiles and the
 # 8-key groups up to 1024, the score block's limits (S 496 / 497 at D 128,
@@ -1337,6 +1395,43 @@ def phase_precision(counts):
     return out
 
 
+def phase_long_fp32(counts):
+    """launch/main.py::main on the 518-px model with --precision fp32
+    (LONG_FP32_FLAGS), under one torch.profiler session; returns the
+    launches (counts() after a reset) and {name: launches} of the csrc/
+    kernels the session saw (CSRC_KERNEL: PyTorch's own kernels live in
+    anonymous namespaces too)."""
+    import math
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+
+    cfg = config_from_args(LONG_FP32_FLAGS)
+    counts(reset=True)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = trainer.main(cfg)
+        torch.cuda.synchronize()
+    launches = counts()
+    named = {e.key: e.count for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and re.match(CSRC_KERNEL, e.key)}
+    log(f"[long fp32] main() {' '.join(LONG_FP32_FLAGS)}: "
+        f"{time.perf_counter() - t0:.3f} s, stats {stats}, launches "
+        f"{launches}, csrc/ kernels {named}")
+    check(all(isinstance(v, (int, float)) and math.isfinite(v)
+              for v in stats.values()), f"stats not finite: {stats}")
+    check(stats["count"] == LONG_FP32_EVALS * cfg.eval_batch_size(),
+          f"evaluated {stats['count']} images")
+    return launches, named
+
+
 class swap_plain_attention:
     """Within it, ops/flash_attention.py's K1 and K2 wrappers run their
     plain versions on the card: no kernel launches (the fp32 witness of
@@ -1573,6 +1668,8 @@ def phase_dtypes(counts, fa, fb, mf, dev):
     k1_worst = fp32_k1_edges(fa, dev)
     for name in ("attn_fwd", "hp_fwd"):
         worst[("float32", name)] = max(worst[("float32", name)], k1_worst)
+    for name, err in fp32_k5k6_edges(fb, dev).items():
+        worst[("float32", name)] = max(worst[("float32", name)], err)
     return launches, rows, worst
 
 
@@ -1652,10 +1749,71 @@ def fp32_k1_edges(fa, dev) -> float:
     return worst
 
 
-def check_redesigned(fa, mf, dev) -> None:
+def fp32_bwd_operands(fb, layout, b, s, h, d, seed, dev):
+    """q, k, v, dO (B, H, S, D) fp32: q, k, v views of a (B, S, 3·H·D)
+    projection ('qkv'), of one whose rows start a float late
+    ('unaligned'), or contiguous ('dense'); dO a view of (B, S, H, D)
+    memory, as the model's backward has it."""
+    import torch
+
+    def r(shape, i):
+        return seeded_bf16(shape, seed + i, dev, torch.float32)
+    if layout == "qkv":
+        q, k, v = fb.heads(r((b, s, 3 * h * d), 0), h)
+    elif layout == "unaligned":
+        q, k, v = fb.heads(r((b, s, 3 * h * d + 1), 0)[..., 1:], h)
+    else:
+        q, k, v = (r((b, h, s, d), i) for i in range(3))
+    return q, k, v, r((b, s, h, d), 5).transpose(1, 2)
+
+
+def fp32_k5k6_edges(fb, dev):
+    """The fp32 K5 and K6 (csrc/flash_bwd_simt.cu) at K5K6_FP32_EDGE_SHAPES
+    against their plain versions, on lse and delta of the plain forward:
+    each call run twice and bitwise equal, no copy, dq, dk and dv within
+    K2_FP32_EDGE_REL of the call's largest plain gradient. Returns the
+    worst error of K5 (dk, dv) and of K6 (dq)."""
+    import torch
+
+    worst = {"flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    for layout, (b, s, h, d) in K5K6_FP32_EDGE_SHAPES:
+        tag = f"fp32 K5/K6 edge {layout} (B, S, H, D) = {(b, s, h, d)}"
+        q, k, v, do = fp32_bwd_operands(fb, layout, b, s, h, d,
+                                        7800 + s + d, dev)
+        scale = d ** -0.5
+        o, lse = fb.flash_fwd_reference(q, k, v, scale)
+        delta = fb.flash_delta(o, do)
+        copies, runs = fb.COPIES, []
+        for _ in range(2):
+            dq, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d),
+                                              device=dev), h)
+            fb.flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv)
+            fb.flash_bwd_dq(q, k, v, do, lse, delta, dq)
+            runs.append((dq, dk, dv))
+        want = (fb.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+                *fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale))
+        torch.cuda.synchronize()
+        check(fb.COPIES == copies, f"{tag}: {fb.COPIES - copies} copies")
+        check(all(torch.equal(x, y) for x, y in zip(*runs)),
+              f"{tag}: two runs on the same inputs differ")
+        top = max(w.abs().max().item() for w in want)
+        errs = [(g - w).abs().max().item() for g, w in zip(runs[0], want)]
+        check(all(torch.isfinite(g).all().item() for g in runs[0])
+              and max(errs) <= K2_FP32_EDGE_REL * top,
+              f"{tag}: dq, dk, dv max abs err {errs} > {K2_FP32_EDGE_REL} x "
+              f"{top}")
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
+        worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], *errs[1:])
+        log(f"[dtypes] {tag}: dq, dk, dv max abs err {errs!r} (largest "
+            f"gradient {top!r}), bitwise repeat True")
+        del q, k, v, do, o, lse, delta, runs, want
+    return worst
+
+
+def check_redesigned(fa, fb, mf, dev) -> None:
     """The redesigned kernels run alone: one call of the bf16, fp16 and
-    fp32 K3, of the fp32 K2 and of the fp32 K1 and K9 launches
-    (torch.profiler) its new kernel and no other of csrc/."""
+    fp32 K3, of the fp32 K2, of the fp32 K1 and K9 and of the fp32 K5 and
+    K6 launches (torch.profiler) its new kernel and no other of csrc/."""
     import torch
 
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -1677,6 +1835,18 @@ def check_redesigned(fa, mf, dev) -> None:
                 "attn_fwd_simt_kernel<64>(", "redesigned fp32 K1")
     only_kernel(lambda: fa.hp_fwd(qkv, h), "attn_fwd_simt_kernel<64>(",
                 "redesigned fp32 K9")
+    # K5 and K6 at the 518-px model's sequence, on a qkv buffer's views
+    q, k, v, do = fp32_bwd_operands(fb, "qkv", 2, LONG_MAIN_SHAPES[0][1], h,
+                                    d, 4505, dev)
+    o, lse = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    delta = fb.flash_delta(o, do)
+    dq, dk, dv = fb.heads(torch.empty((2, q.shape[2], 3 * h * d),
+                                      device=dev), h)
+    only_kernel(lambda: fb.flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv),
+                "flash_bwd_dkdv_simt_kernel<64, 128, 2>(",
+                "redesigned fp32 K5")
+    only_kernel(lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, dq),
+                "flash_bwd_dq_simt_kernel<64, 128, 2>(", "redesigned fp32 K6")
 
 
 def only_kernels(fn, wants, tag) -> None:
@@ -2841,7 +3011,10 @@ def main() -> int:
     for name in ("flash_fwd", "flash_bwd", "flash_blocked"):
         log(f"[build long] {name} built/loaded in {build_s[name]:.3f} s (in "
             f"parallel with the others)")
-        log_ptxas(cuda_build, name, "build long")
+        # flash_blocked's untyped kernels are csrc/flash_bwd_simt.cu's fp32
+        # K5 and K6
+        log_ptxas(cuda_build, name, "build long",
+                  untyped="fp32" if name == "flash_blocked" else "bf16")
     long_k, long_worst = phase_long_kernel(fb, dev)
     long_ckpt = os.path.join(ckpt_dir, f"{LONG_MODEL}_seed0.pth")
     n = phase_model(every, dev, long_ckpt, LONG_MODEL, LONG_GAMMA,
@@ -2891,11 +3064,53 @@ def main() -> int:
     log(f"[build mlp/hp] dynamic shared memory of fc2_bwd_tc_kernel (K3 in "
         f"bf16 and fp16) {mf.build_kernels().vtx_fc2_bwd_smem()} B")
     mlp_k, mlp_worst = phase_mlp_kernel(mf, dev)
-    check_redesigned(fa, mf, dev)
+    check_redesigned(fa, fb, mf, dev)
     # head dims over 128 on every route (its profiler checks stay ahead of
     # the trainer phases 19-22, after which a session records nothing)
     wide_launches, wide_rows, wide_worst = phase_wide_heads(every, fa, fb, mf,
                                                             dev)
+    # ---- the 518-px trainer in fp32: the fp32 K4, and K5 and K6 on
+    # csrc/flash_bwd_simt.cu's register tiles, 12 a step each (its profiler
+    # session the process's last, after 17b's)
+    t_fp32 = time.perf_counter()
+    long32, named = phase_long_fp32(every)
+    check(long32 == only(
+        FLASH_FWD_LAUNCHES=12 * (LONG_FP32_STEPS + LONG_FP32_EVALS),
+        FLASH_BWD_DKDV_LAUNCHES=12 * LONG_FP32_STEPS,
+        FLASH_BWD_DQ_LAUNCHES=12 * LONG_FP32_STEPS),
+          f"main() fp32 at 518 px launched {long32} for {LONG_FP32_STEPS} "
+          f"steps, {LONG_FP32_EVALS} evals")
+    for kname, count in LONG_FP32_KERNELS.items():
+        seen = sum(n for key, n in named.items() if f"::{kname}(" in key)
+        check(seen == long32[count], f"main() fp32 at 518 px: {kname} "
+              f"launched {seen} times, the wrapper counted {long32[count]}")
+    check(all(any(f"::{kname}(" in key for kname in LONG_FP32_KERNELS)
+              for key in named),
+          f"main() fp32 at 518 px launched other csrc/ kernels: {named}")
+    # its gradient against the JAX fp32 golden, after the witness: the same
+    # fp32 step with the plain versions of K4-K6 on the card; then on the
+    # kernels, each call held against its plain version on the model's data
+    with swap_blocked(fb, plain=True):
+        n = phase_grad(every, dev, long_ckpt, LONG_MODEL,
+                       tag="long grad fp32 witness, plain K4-K6",
+                       limits=LONG_FP32_GRAD_LIMITS, dtype=torch.float32)
+    check(not any(n.values()), f"the plain run launched {n}")
+    with swap_blocked(fb, plain=False) as checked:
+        n = phase_grad(every, dev, long_ckpt, LONG_MODEL,
+                       tag="long grad fp32", limits=LONG_FP32_GRAD_LIMITS,
+                       dtype=torch.float32)
+    check(n == only(FLASH_FWD_LAUNCHES=12, FLASH_BWD_DKDV_LAUNCHES=12,
+                    FLASH_BWD_DQ_LAUNCHES=12),
+          f"one fp32 518-px forward + backward launched {n}")
+    log(f"[long grad fp32] kernels vs plain at each call on the model's "
+        f"data, worst error (over max |plain| but lse): {checked.worst!r}")
+    check(set(checked.worst) == {"o", "lse", "dq", "dk", "dv"},
+          f"outputs checked: {sorted(checked.worst)}")
+    for name, err in checked.worst.items():
+        limit = LSE_ATOL if name == "lse" else DTYPE_REL["float32"]
+        check(err <= limit, f"model data, fp32 {name}: error {err} > {limit}")
+    log(f"[long fp32] the fp32 518-px phase took "
+        f"{time.perf_counter() - t_fp32:.1f} s")
     with check_fc2_bwd(mf) as k3:
         n = phase_grad(every, dev, ckpt_path, tag="grad pallas_mlp",
                        use_pallas_mlp=True)
@@ -3066,7 +3281,8 @@ def main() -> int:
     # are the CUDA-core ones, and K1, K2 and K7-K12 in fp32 too (fp16
     # shares bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
     # launches of the trainer's own run (main() --precision fp32, with
-    # --pallas_mlp on for K3); every other instantiation those of
+    # --pallas_mlp on for K3), the fp32 K4, K5 and K6 those of the 518-px
+    # fp32 trainer (phase 17c); every other instantiation those of
     # drive_entry_points.
     sources = {k["name"]: k["source"] for k in kernels}
 
@@ -3075,6 +3291,8 @@ def main() -> int:
                                    "flash_bwd_dq"), "flash_blocked.cu")
         if dt_name == "float32":
             cuda_core.update(attn_fwd="attn_fwd.cu", attn_bwd="attn_bwd.cu",
+                             flash_bwd_dkdv="flash_bwd_simt.cu",
+                             flash_bwd_dq="flash_bwd_simt.cu",
                              hp_fwd="attn_fwd.cu",
                              fused_fwd="fused_attn_fwd.cu",
                              qkv_fwd="fused_attn_fwd.cu",
@@ -3084,20 +3302,31 @@ def main() -> int:
 
     replaces = {k["name"]: k["replaces"] for k in kernels}
     # the fp32 K1, K9 (register tiles around csrc/cc_tiles.cuh) and K3,
-    # redesigned in place of the kernels their sources held before
+    # redesigned in place of the kernels their sources held before, and the
+    # fp32 K5 and K6 of csrc/flash_bwd_simt.cu
     simt = {"attn_fwd": ["attn_fwd_simt_kernel<64>"],
             "hp_fwd": ["attn_fwd_simt_kernel<64>"],
-            "fc2_bwd": ["fc2_bwd_simt_kernel"]}
-    trainer_runs = {("float32", "attn_fwd"): "fp32",
-                    ("float32", "attn_bwd"): "fp32",
-                    ("float32", "fc2_bwd"): "fp32_mlp"}
+            "fc2_bwd": ["fc2_bwd_simt_kernel"],
+            "flash_bwd_dkdv": ["flash_bwd_dkdv_simt_kernel<64, 128, 2>"],
+            "flash_bwd_dq": ["flash_bwd_dq_simt_kernel<64, 128, 2>"]}
+    # the trainer runs whose launches the fp32 lines count: phase 22's on
+    # my_vit_s, phase 17c's at 518 px
+    trainer_runs = {
+        ("float32", "attn_fwd"): (f"main() {' '.join(PRECISION_RUNS['fp32'])}",
+                                  prec["fp32"]),
+        ("float32", "attn_bwd"): (f"main() {' '.join(PRECISION_RUNS['fp32'])}",
+                                  prec["fp32"]),
+        ("float32", "fc2_bwd"): (
+            f"main() {' '.join(PRECISION_RUNS['fp32_mlp'])}",
+            prec["fp32_mlp"])}
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        trainer_runs[("float32", name)] = (
+            f"main() {' '.join(LONG_FP32_FLAGS)}", long32)
     for dt_name in DTYPES:
         for name in DTYPE_SHAPES:
             row = dt_rows[(dt_name, name)]
-            run = trainer_runs.get((dt_name, name))
-            path = (f"main() {' '.join(PRECISION_RUNS[run])}" if run
-                    else "drive_entry_points")
-            launched = prec[run] if run else dt_launches[dt_name]
+            path, launched = trainer_runs.get(
+                (dt_name, name), ("drive_entry_points", dt_launches[dt_name]))
             kernels.append({
                 "name": f"{name}[{dt_name}]", "route": "cuda",
                 "source": dtype_source(name, dt_name),

@@ -107,3 +107,28 @@ def test_the_cuda_core_headers_enter_the_hash(tmp_path, source, header):
     assert before == cuda_build._library_path(name, (source,), real)
     (tmp_path / header).write_text((real / header).read_text() + "\n")
     assert cuda_build._library_path(name, (source,), tmp_path) != before
+
+
+@pytest.mark.parametrize("edited", ["flash_blocked.cu", "flash_bwd_simt.cu",
+                                    "cp_async.cuh"])
+def test_the_fp32_backward_source_enters_the_cuda_core_library(tmp_path,
+                                                               edited):
+    # the CUDA-core library of K4-K6 links csrc/flash_bwd_simt.cu (the fp32
+    # K5 and K6 at head dims <= 128) into csrc/flash_blocked.cu's: an edit
+    # to either source, or to the cp_async.cuh it includes, names a new
+    # library, and the library is not the one of flash_blocked.cu alone
+    from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked
+
+    sources = flash_blocked.CUDA_CORE_SOURCES
+    assert sources == ("flash_blocked.cu", "flash_bwd_simt.cu")
+    real = cuda_build.CSRC_DIR
+    assert '#include "cp_async.cuh"' in (real / sources[1]).read_text()
+    for f in (*sources, *_headers(real)):
+        (tmp_path / f).write_bytes((real / f).read_bytes())
+    before = cuda_build._library_path("flash_blocked", sources, tmp_path)
+    assert before == cuda_build._library_path("flash_blocked", sources, real)
+    assert before != cuda_build._library_path("flash_blocked", sources[:1],
+                                              tmp_path)
+    (tmp_path / edited).write_text((real / edited).read_text() + "\n")
+    assert cuda_build._library_path("flash_blocked", sources,
+                                    tmp_path) != before

@@ -480,3 +480,186 @@ def test_wide_heads_blocked_match_plain_on_cuda(cuda_device, dtype, d):
         assert g.dtype == dt and torch.isfinite(g.float()).all()
         err = (g.float() - r.float()).abs().max().item()
         assert err <= rel * r.float().abs().max().item()
+
+
+# ---- the fp32 K5 and K6 (csrc/flash_bwd_simt.cu: flash_bwd_dkdv_simt_kernel
+# and flash_bwd_dq_simt_kernel) at the edges of their 64-row tiles: S
+# around one and two tiles, the compile-time head dims 64 and 128 and the
+# ones that take them with zero columns (32, 48)
+FP32_BWD_EDGE_S = (1, 63, 65, 129)
+FP32_BWD_EDGE_D = (32, 48, 64, 128)
+# of the call's largest gradient (of dq, dk and dv): both sides in fp32,
+# other summation orders (JAX scales dk and dq per 256-key block, the plain
+# version once). At S = 1, ds = p (dO·v - dO·o) is 0 but for rounding (o =
+# v), so dq and dk are rounding noise and only dv sets the scale
+FP32_BWD_EDGE_REL = 1e-5
+
+
+def _jax_bwd(q, k, v, do, scale):
+    """JAX's forward, then its dk/dv and dq kernels (`_bwd_dkdv_kernel`,
+    `_bwd_dq_kernel`, through `_flash_bwd`) in interpret mode on the padded
+    inputs -> o, lse (B, H, S) and dq, dk, dv (B, H, S, D), unpadded."""
+    jfb = _jfb()
+    b, h, s, d = q.shape
+    sp = max(jfb._round_up(s, jfb.BLOCK_Q), jfb.BLOCK_Q)
+
+    def prep(x):
+        return jnp.pad(jnp.asarray(x).reshape(b * h, s, d),
+                       ((0, 0), (0, sp - s), (0, 0)))
+
+    def back(x):
+        return np.asarray(x[:, :s]).reshape(b, h, s, -1)
+
+    with pltpu.force_tpu_interpret_mode():
+        qp, kp, vp = prep(q), prep(k), prep(v)
+        o, lse = jfb._flash_fwd(qp, kp, vp, scale, s)
+        dq, dk, dv = jfb._flash_bwd(qp, kp, vp, o, lse, prep(do), scale, s)
+    return back(o), back(lse)[..., 0], back(dq), back(dk), back(dv)
+
+
+@pytest.mark.parametrize("d", FP32_BWD_EDGE_D)
+@pytest.mark.parametrize("s", FP32_BWD_EDGE_S)
+def test_fp32_bwd_references_match_k5_k6_at_tile_edges(s, d):
+    # the plain K5 and K6, which the fp32 kernels are held to on the card,
+    # against JAX's kernels on the same lse and delta (delta = rowsum(dO o),
+    # as JAX's _flash_bwd computes it)
+    b, h = 1, 2
+    q, k, v, do = (_rand((b, h, s, d), s + d + i) for i in range(4))
+    scale = d ** -0.5
+    o, lse, *want = _jax_bwd(q, k, v, do, scale)
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    lse_t = torch.from_numpy(lse.copy())
+    delta = fb.flash_delta(torch.from_numpy(o.copy()), t[3])
+    dk, dv = fb.flash_bwd_dkdv_reference(*t, lse_t, delta, scale)
+    dq = fb.flash_bwd_dq_reference(*t, lse_t, delta, scale)
+    limit = FP32_BWD_EDGE_REL * max(np.abs(w).max() for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.dtype == torch.float32 and g.shape == (b, h, s, d)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=limit,
+                                   err_msg=name)
+
+
+# the same edges on the card, in the three layouts the kernels meet: views
+# of a (B, S, 3·H·D) qkv buffer and contiguous (B, H, S, D) tensors (16-byte
+# rows: 16-byte copies, but at D 48's zero columns) and views of a buffer
+# whose rows start one float late (4-byte copies); and B·H over 65535
+K5K6_FP32_EDGE_CASES = [
+    (layout, (1, s, 2, d)) for layout in ("qkv", "dense")
+    for s in FP32_BWD_EDGE_S + (1025,) for d in FP32_BWD_EDGE_D] + [
+    ("unaligned", (1, s, 2, d)) for s in (65, 1025) for d in (48, 64)] + [
+    ("qkv", (1, 8, 65537, 8)), ("dense", (65537, 8, 1, 8))]
+
+
+def _fp32_bwd_operands(layout, b, s, h, d, seed, dev):
+    """q, k, v, dO (B, H, S, D) fp32 on `dev`, dO a view of (B, S, H, D)
+    memory as the model's backward has it."""
+    def r(shape, i):
+        return torch.from_numpy(_rand(shape, seed + i)).to(dev)
+    if layout == "qkv":
+        q, k, v = fb.heads(r((b, s, 3 * h * d), 0), h)
+    elif layout == "unaligned":
+        q, k, v = fb.heads(r((b, s, 3 * h * d + 1), 0)[..., 1:], h)
+    else:
+        q, k, v = (r((b, h, s, d), i) for i in range(3))
+    return q, k, v, r((b, s, h, d), 5).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,shape", K5K6_FP32_EDGE_CASES)
+def test_fp32_k5_k6_match_plain_at_tile_edges_on_cuda(cuda_device, layout,
+                                                      shape):
+    # each kernel run twice, bitwise equal (no float atomics), within
+    # FP32_BWD_EDGE_REL of the plain version's largest gradient of the call;
+    # no copy
+    b, s, h, d = shape
+    q, k, v, do = _fp32_bwd_operands(layout, b, s, h, d, 80, cuda_device)
+    scale = d ** -0.5
+    o, lse = fb.flash_fwd_reference(q, k, v, scale)
+    delta = fb.flash_delta(o, do)
+    before = _counts()
+    runs = []
+    for _ in range(2):
+        dq, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d),
+                                          device=cuda_device), h)
+        fb.flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv)
+        fb.flash_bwd_dq(q, k, v, do, lse, delta, dq)
+        runs.append((dq, dk, dv))
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 2, before[2] + 2, before[3])
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    want = (fb.flash_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+            *fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, scale))
+    limit = FP32_BWD_EDGE_REL * max(w.abs().max().item() for w in want)
+    for g, w in zip(runs[0], want):
+        assert torch.isfinite(g).all()
+        err = (g - w).abs().max().item()
+        assert err <= limit, (err, limit)
+
+
+# one session in a fresh process: in a long one (the whole cuda suite)
+# torch.profiler's sessions stop recording kernels
+_K5K6_TRACE = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked as fb
+out = {}
+for layout in ("qkv", "unaligned"):
+    for d in %r:
+        h, s = 2, 300
+        late = layout == "unaligned"
+        x = torch.randn(1, s, 3 * h * d + late, device="cuda")[..., late:]
+        q, k, v = fb.heads(x, h)
+        do = torch.randn(1, h, s, d, device="cuda")
+        o, lse = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+        delta = fb.flash_delta(o, do)
+        g = torch.empty(1, h, s, d, device="cuda")
+        calls = {"dkdv": lambda: fb.flash_bwd_dkdv(q, k, v, do, lse, delta,
+                                                   g, g.clone()),
+                 "dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, g)}
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            out[f"{name}{d}{layout}"] = sorted(
+                e.key for e in prof.key_averages()
+                if e.device_type.name == "CUDA"
+                and "anonymous namespace" in e.key)
+print(json.dumps(out))
+""" % (FP32_BWD_EDGE_D,)
+
+
+@pytest.fixture(scope="module")
+def fp32_k5k6_trace():
+    """The csrc/ kernels one fp32 call of K5 and of K6 launches at each of
+    FP32_BWD_EDGE_D, in a qkv view and in one whose rows start a float
+    late, traced by torch.profiler."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    res = subprocess.run([sys.executable, "-c", _K5K6_TRACE],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv", "unaligned"])
+@pytest.mark.parametrize("d", FP32_BWD_EDGE_D)
+def test_fp32_k5_k6_launch_the_register_tiled_kernels_alone(fp32_k5k6_trace,
+                                                            d, layout):
+    # <head dim, block rows, streamed buffers>: 128 rows and two buffers
+    # at D <= 64, 64 rows and one at D <= 128
+    args = "64, 128, 2" if d <= 64 else "128, 64, 1"
+    for name in ("dkdv", "dq"):
+        names = fp32_k5k6_trace[f"{name}{d}{layout}"]
+        assert len(names) == 1 and \
+            f"::flash_bwd_{name}_simt_kernel<{args}>(" in names[0], names

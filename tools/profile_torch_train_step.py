@@ -29,6 +29,8 @@ It prints one JSON line with:
   * for my_vit_b, the K2 qkv-bias partials (ROADMAP K2): the time of the
     wrapper's sum of the kernel's (B, 3HD) partials against a plain
     `dqkv.float().sum((0, 1))` over the (B, S, 3HD) gradient;
+  * MFU against the bf16 tensor-core peak and, beside it, against the fp32
+    CUDA-core peak (67 TFLOP/s), the bound of a `--precision fp32` step;
   * peak device memory, and the card's name and power limit.
 
 Run from the root of a checkout:
@@ -80,6 +82,7 @@ from vision_transformers_torch_xla_tpu_torch.train.fused import (  # noqa: E402
 )
 
 H100_BF16_PEAK_FLOPS = 989e12  # NVIDIA data sheet, H100 SXM, dense bf16
+H100_FP32_PEAK_FLOPS = 67e12   # the same sheet: fp32 on the CUDA cores
 
 
 # model -> its flags beside the recipe's, its image and patch size
@@ -294,6 +297,9 @@ def main():
         "images_per_s": ips,
         "mfu": vit_train_flops_per_image(img, patch) * ips
         / H100_BF16_PEAK_FLOPS,
+        # against the fp32 peak: what --precision fp32 can reach at most
+        "mfu_fp32_peak": vit_train_flops_per_image(img, patch) * ips
+        / H100_FP32_PEAK_FLOPS,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "profile": prof}
     if args.model == "my_vit_b":

@@ -36,7 +36,8 @@ ops/flash_blocked.py's (K4), on q, k, v read from a (B, S, 3·H·D)
 projection as the model's path reads them, and flash_bwd_dkdv and
 flash_bwd_dq (K5, K6) from K4's o and lse, with dO a view of (B, S, H, D)
 memory and dq, dk, dv views of one (B, S, 3·H·D) buffer, as
-`flash_bwd` lays them out. mha_fwd_bwd is the op-level entry point
+`flash_bwd` lays them out; flash_delta the torch op that gives them delta
+(`flash_bwd` runs the three). mha_fwd_bwd is the op-level entry point
 `multi_head_attention(use_pallas=True)`, forward and backward (K7 and K8),
 on the (B, H, S, D) q, k, v of fused_fwd. fc2_bwd is ops/mlp_fused.py's
 K3 on dy (B, S, 768), the fc2 weight (768, 3072) and h (B, S, 3072), and
@@ -101,9 +102,12 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
         if not state:
             o, lse = fb.flash_fwd(*heads)
             state["delta"], state["lse"] = fb.flash_delta(o, dob), lse
+            state["o"] = o
             state["grads"] = fb.heads(torch.empty_like(qkv), H)
         dq, dk, dv = state["grads"]
         args = (*heads, dob, state["lse"], state["delta"])
+        if name == "delta":  # the row sums the backward kernels start from
+            return fb.flash_delta(state["o"], dob)
         if name == "dkdv":
             return fb.flash_bwd_dkdv(*args, dk, dv)
         return fb.flash_bwd_dq(*args, dq)
@@ -147,6 +151,7 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
         "flash_fwd": lambda: fb.flash_fwd(*heads),
         "flash_bwd_dkdv": lambda: blocked_bwd("dkdv"),
         "flash_bwd_dq": lambda: blocked_bwd("dq"),
+        "flash_delta": lambda: blocked_bwd("delta"),
         "sdpa_fwd": lambda: torch.nn.functional.scaled_dot_product_attention(
             *dense),
         "sdpa_bwd": sdpa_bwd,

@@ -1,11 +1,27 @@
 // Blocked flash attention (online softmax) on the CUDA cores, for float and
 // half inputs at every head dim, and bfloat16 at head dims over 128.
 //
+// Which kernel serves which dtype and head dim D:
+//   bf16, D <= 128: the tensor cores, csrc/flash_fwd.cu (K4) and
+//     csrc/flash_bwd.cu (K5, K6), libraries of their own;
+//   fp32, D <= 128: K4 here (flash_fwd_kernel<float, 64 | 128>), K5 and K6
+//     in csrc/flash_bwd_simt.cu (flash_bwd_dkdv_simt_kernel and
+//     flash_bwd_dq_simt_kernel: s and dp scored together on 8 x 4 register
+//     tiles, the sums on 8 x 8, cp.async double buffers at D <= 64),
+//     linked into this library: dkdv() and dq() hand them float at D <=
+//     128;
+//   fp16, D <= 128: K4-K6 here (the <__half, 64 | 128> kernels below);
+//   every dtype past 128 (to 1024): the *_wide_kernel<T> below.
+// Measured on an H100 80GB HBM3 at 700 W, device ms of one call at (B, S,
+// H, D) = (32, 1370, 12, 64) (PERF.md §6): fp32 K4 6.85-6.97 (SDPA's fp32
+// forward 5.55-5.60); fp32 K5 and K6 9.46-9.53 and 7.73-7.77 (this file's
+// loops before them: 12.44 and 10.74-10.75; SDPA's whole fp32 backward
+// 14.06-14.18); fp16 K4-K6 7.25, 12.64, 11.66 (event ms).
+//
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_blocked.py, the long-sequence path (S > 1024), where they run in a
 // dtype other than bfloat16 or at a head dim over 128 (the JAX kernels take
-// any float dtype and head dim); bf16 at D <= 128 is on the tensor cores,
-// csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6):
+// any float dtype and head dim):
 //   K4 flash_fwd_kernel      <- _fwd_kernel (:33): per query row, over key
 //      tiles, a running max m, sum l and fp32 accumulator acc:
 //        s = (fp32 q * scale) k^T, keys >= S masked to -1e30;
@@ -46,9 +62,9 @@
 //   K4: block (b*H + h, query tile); q staged once, K and V per key tile;
 //       rnd(p) goes through shared memory into the p v product.
 //   K5: block (b*H + h, key tile); K and V staged once, q, dO, lse and
-//       delta per query tile; dk and dv accumulate in registers.
+//       delta per query tile; dk and dv accumulate in registers (fp16).
 //   K6: block (b*H + h, query tile); q, dO, lse and delta once, K and V per
-//       key tile; dq accumulates in registers.
+//       key tile; dq accumulates in registers (fp16).
 // The grid is one-dimensional over (b h, tile), so B H is bounded only by
 // 2^31 / ceil(S / 64). The head dim is 64 or 128 at compile time; a smaller
 // head dim takes the next one with its columns zero-filled.
@@ -77,8 +93,23 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include <type_traits>
+
 #include "cc_tiles.cuh"
 #include "elem.cuh"
+
+// csrc/flash_bwd_simt.cu, linked into this library: the fp32 K5 and K6 at
+// D <= 128; strides are {batch, head, row} in elements.
+namespace flash_bwd_simt {
+int dkdv(const float* q, const float* k, const float* v, const float* dout,
+         const float* lse, const float* delta, float* dk, float* dv, int B,
+         int H, int S, int D, float scale, const long long* in,
+         const long long* og, const long long* gr, cudaStream_t stream);
+int dq(const float* q, const float* k, const float* v, const float* dout,
+       const float* lse, const float* delta, float* dq, int B, int H, int S,
+       int D, float scale, const long long* in, const long long* og,
+       const long long* gr, cudaStream_t stream);
+}  // namespace flash_bwd_simt
 
 namespace {
 
@@ -639,7 +670,16 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
       sizeof(float);
   int n_tiles;
   dim3 grid;
-  if constexpr (kD == kWide) {
+  if constexpr (std::is_same<T, float>::value && kD != kWide) {
+    const long long i[3] = {in.sb, in.sh, in.sr}, o[3] = {og.sb, og.sh, og.sr},
+                    g[3] = {gr.sb, gr.sh, gr.sr};
+    return flash_bwd_simt::dkdv(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv), B, H, S, D, scale,
+        i, o, g, stream);
+  } else if constexpr (kD == kWide) {
     const int n_c = (D + kTile - 1) / kTile;
     int rc = prepare(flash_bwd_dkdv_wide_kernel<T>, smem, B, H, S, &n_tiles,
                      &grid, n_c);
@@ -675,7 +715,15 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
       (size_t)(2 * kS * kPA + 2 * kS * kPB + kTile * kPA) * sizeof(float);
   int n_tiles;
   dim3 grid;
-  if constexpr (kD == kWide) {
+  if constexpr (std::is_same<T, float>::value && kD != kWide) {
+    const long long i[3] = {in.sb, in.sh, in.sr}, o[3] = {og.sb, og.sh, og.sr},
+                    g[3] = {gr.sb, gr.sh, gr.sr};
+    return flash_bwd_simt::dq(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dqp), B, H, S, D, scale, i, o, g, stream);
+  } else if constexpr (kD == kWide) {
     const int n_c = (D + kTile - 1) / kTile;
     int rc = prepare(flash_bwd_dq_wide_kernel<T>, smem, B, H, S, &n_tiles,
                      &grid, n_c);

@@ -17,7 +17,10 @@ float dtype and head dim):
 fp16 and fp32, and every dtype at a head dim over MAX_HEAD_DIM (up to
 MAX_CUDA_CORE_HEAD_DIM), go to csrc/flash_blocked.cu, CUDA-core loops that
 round where the JAX kernels cast to the inputs' dtype and compute in fp32
-(`tensor_cores` decides).
+(`tensor_cores` decides); its fp32 K5 and K6 at a head dim <= MAX_HEAD_DIM
+are csrc/flash_bwd_simt.cu's register-tiled kernels, linked into the same
+library, which read every fp32 view with a contiguous head dim in place
+(16-byte copies where its rows are 16-byte aligned, else 4-byte ones).
 
 `FlashAttentionBlocked` is the custom VJP `_flash_attention_padded`
 (:247-266) as an autograd Function, and `flash_attention_blocked` the
@@ -69,14 +72,18 @@ FLASH_BWD_DQ_LAUNCHES = 0
 # K8, K10-K12 in ops/flash_attention.py)
 COPIES = 0
 
+# the CUDA-core library's sources: K4-K6's loops, and the fp32 K5 and K6
+# at a head dim <= MAX_HEAD_DIM linked in
+CUDA_CORE_SOURCES = ("flash_blocked.cu", "flash_bwd_simt.cu")
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LAYOUT = [_L] * 3  # element strides of batch, head and row
 
 
-def _load(name: str, sigs) -> ctypes.CDLL:
-    lib = cuda_build.load_library(name, (f"{name}.cu",))
+def _load(name: str, sigs, sources=None) -> ctypes.CDLL:
+    lib = cuda_build.load_library(name, sources or (f"{name}.cu",))
     for fn, argtypes in sigs.items():
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = argtypes
@@ -109,8 +116,10 @@ def build_bwd_kernels() -> ctypes.CDLL:
 
 def build_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the CUDA-core library (K4, K5, K6 in
-    fp16 and fp32, and in every dtype at a head dim over MAX_HEAD_DIM)."""
-    return _load("flash_blocked", {**_FWD_SIGS, **_BWD_SIGS})
+    fp16 and fp32, and in every dtype at a head dim over MAX_HEAD_DIM),
+    from CUDA_CORE_SOURCES."""
+    return _load("flash_blocked", {**_FWD_SIGS, **_BWD_SIGS},
+                 CUDA_CORE_SOURCES)
 
 
 def tensor_cores(q: torch.Tensor) -> bool:
