@@ -65,9 +65,9 @@ ops/flash_blocked.py):
 
 10. build: csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6), both
     TMA + wgmma in bf16, and csrc/flash_blocked.cu (K4-K6 on the CUDA cores
-    for fp32 and fp16) with csrc/flash_bwd_simt.cu (the fp32 K5 and K6 at
-    head dims <= 128, register tiles) linked in, started with the others in
-    phase 2; build time, registers and spills.
+    for fp32 and fp16) with csrc/flash_bwd_simt.cu and csrc/flash_fwd_simt.cu
+    (the fp32 K5, K6 and K4 at head dims <= 128, register tiles) linked in,
+    started with the others in phase 2; build time, registers and spills.
 11. blocked kernels vs plain: flash_fwd (K4), flash_bwd_dkdv (K5) and
     flash_bwd_dq (K6) against their plain versions on seeded bf16 q, k, v,
     dO read from a (B, S, 3·H·D) buffer, at the path's shapes (B 1 and 32,
@@ -101,8 +101,9 @@ The fused-backward MLP (`--pallas_mlp on`, ops/mlp_fused.py) and the
 head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
 
 16. build: csrc/mlp_fused.cu (K3: TMA, mbarriers and wgmma in bf16 and
-    fp16, the CUDA cores in fp32) and csrc/hp_bwd.cu (K8, K10 and K12 in
-    fp32, CUDA cores), started with the others in phase 2; build time,
+    fp16, the CUDA cores in fp32) and csrc/hp_bwd.cu (K8, K10 and K12 on
+    the CUDA cores, with csrc/hp_bwd_simt.cu's fp32 kernels at D <= 128
+    linked in), started with the others in phase 2; build time,
     registers, spills and shared memory.
 17. K3 vs plain: ops/mlp_fused.py::fc2_bwd against fc2_bwd_reference on
     seeded bf16 dy, fc2 weight and h at the step's shapes (B 128 and 64,
@@ -114,10 +115,13 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     backward, the fp32 bias sum: unfused_ms). No single PyTorch call
     computes K3's function, so library_ms is null. Then the kernels that
     one call of the bf16, fp16 and fp32 K3 (fc2_bwd_simt_kernel in fp32),
-    of the fp32 K2, of the fp32 K1 and K9 (attn_fwd_simt_kernel) and of
-    the fp32 K5 and K6 at S 1370 (flash_bwd_dkdv_simt_kernel,
-    flash_bwd_dq_simt_kernel) launches (torch.profiler) must be their new
-    kernels alone.
+    of the fp32 K2, of the fp32 K1 and K9 (attn_fwd_simt_kernel), of the
+    fp32 K4, K5 and K6 at S 1370 on a qkv buffer's views
+    (flash_fwd_simt_kernel, flash_bwd_dkdv_simt_kernel,
+    flash_bwd_dq_simt_kernel) and of the fp32 K8, K10 and K12 at S 197
+    (hp_bwd_stats_simt_kernel, hp_bwd_dkdv_simt_kernel and
+    hp_bwd_dq_sum_kernel) launches
+    (torch.profiler) must be their new kernels alone.
 17b. head dims over 128 on every route (F8), in bf16, fp16 and fp32:
     qkv_proj_attention forward and backward (K1, K2) and
     fused_attention_qkv_cols at S <= 1024 (K9, K10) at WIDE_QKV_SHAPES (D
@@ -143,9 +147,9 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
 17c. fp32 at 518 px (after 17b, whose profiler sessions it follows):
     launch/main.py::main on vit_base_patch14_dinov2 with --precision fp32
     at batch 4 for 2 steps and 1 eval batch, under one torch.profiler
-    session: the fp32 K4 (csrc/flash_blocked.cu's flash_fwd_kernel<float,
-    64>) 12 times per forward, K5 and K6 (csrc/flash_bwd_simt.cu's
-    flash_bwd_dkdv_simt_kernel<64, 128, 2> and
+    session: the fp32 K4 (csrc/flash_fwd_simt.cu's
+    flash_fwd_simt_kernel<64>) 12 times per forward, K5 and K6
+    (csrc/flash_bwd_simt.cu's flash_bwd_dkdv_simt_kernel<64, 128, 2> and
     flash_bwd_dq_simt_kernel<64, 128, 2>) 12 times a step each, by the
     wrappers' counts and by the kernels' names, and no other csrc/ kernel.
     Then phase 14's gradient in fp32 against the same JAX fp32 golden,
@@ -182,7 +186,8 @@ fused_attention_qkv), which no model calls:
     (K7, K11 in bf16 and fp16, `fused_kernel_route`; the fp32 ones are
     csrc/fused_attn_fwd.cu's, built with the others in phase 2, registers
     and spills logged) and csrc/hp_bwd_tc.cu's launches for K8 and K12
-    (`bwd_kernel_route`; fp32 csrc/hp_bwd.cu).
+    (`bwd_kernel_route`; fp32 csrc/hp_bwd.cu's library: csrc/hp_bwd_simt.cu
+    at D <= 128).
     `multi_head_attention(use_pallas=True)` (K7, K8) on separate (B, H, S,
     D) q, k, v and `fused_attention_qkv` (K11, K12) on a (B, S, 3, H, D)
     buffer, forward and backward, at B 64 and 128 (S 197, H 12, D 64) and
@@ -242,7 +247,20 @@ JAX kernels take any float dtype):
     128, views of a qkv buffer, contiguous tensors and views whose rows
     start a float late, B·H over 65535), each call run twice and bitwise
     equal, no copy, dq, dk and dv within K2_FP32_EDGE_REL of the call's
-    largest gradient.
+    largest gradient; and the fp32 K4 (csrc/flash_fwd_simt.cu) at
+    K4_FP32_EDGE_SHAPES (S 1 to 1370 around its 64-key tiles and 128-row
+    blocks, D 32 to 128, the same layouts, B·H over 65535), each call run
+    twice and bitwise equal, no copy, o and lse within K2_FP32_EDGE_REL of
+    their plain versions' largest magnitudes; and the fp32 K8, K10 and K12
+    (csrc/hp_bwd_simt.cu) at HP_FP32_EDGE_SHAPES (S 1 to 1024 around the
+    64-row tiles, D 32 to 128; K10 and K12 in place in a qkv buffer, K8 on
+    contiguous tensors, on views whose rows are not 16-byte aligned and on
+    views of odd row stride, which `_launch_views` copies once; B·H over
+    65535), each call run twice and bitwise equal, copies exactly where
+    `_stride_array` refuses the views, dq, dk and dv within
+    K2_FP32_EDGE_REL of the call's largest gradient. The fp32 K4 and K8,
+    K10, K12 times are printed beside those of the kernels they replaced
+    (REPLACED_FP32_MS).
 24. trainer state: launch/main.py::main on my_vit_b at batch 128 with the
     recipe's flags, 4 steps an epoch and 1 eval batch, in a directory
     under build/ that the phase removes: an uninterrupted 2-epoch run with
@@ -409,8 +427,9 @@ LONG_TRAIN_FLAGS = [
 LONG_GRAD_LIMITS = (0.05, 1e-2, 2.5e-2)
 LONG_WARMUP_STEPS = 2
 LONG_TIMED_STEPS = 5
-# Phase 17c, the 518-px trainer in fp32 (the fp32 K4 of flash_blocked.cu,
-# K5 and K6 of csrc/flash_bwd_simt.cu): main() at a small batch for
+# Phase 17c, the 518-px trainer in fp32 (the fp32 K4 of
+# csrc/flash_fwd_simt.cu, K5 and K6 of csrc/flash_bwd_simt.cu): main() at
+# a small batch for
 # LONG_FP32_STEPS steps and LONG_FP32_EVALS eval batch, under one
 # torch.profiler session that names the kernels it launched
 LONG_FP32_BATCH, LONG_FP32_STEPS, LONG_FP32_EVALS = 4, 2, 1
@@ -424,7 +443,7 @@ LONG_FP32_FLAGS = [
 # anonymous namespace, under these stems)
 CSRC_KERNEL = r"void \(anonymous namespace\)::(attn|flash|fc2|hp|fused)_"
 LONG_FP32_KERNELS = {
-    "flash_fwd_kernel<float, 64>": "FLASH_FWD_LAUNCHES",
+    "flash_fwd_simt_kernel<64>": "FLASH_FWD_LAUNCHES",
     "flash_bwd_dkdv_simt_kernel<64, 128, 2>": "FLASH_BWD_DKDV_LAUNCHES",
     "flash_bwd_dq_simt_kernel<64, 128, 2>": "FLASH_BWD_DQ_LAUNCHES"}
 # and its fp32 gradient on the kernel route against the JAX fp32 train
@@ -516,6 +535,40 @@ K5K6_FP32_EDGE_SHAPES = tuple(
     for s in (1, 63, 64, 65, 127, 1025, 1370) for d in (32, 48, 64, 96, 128)
 ) + tuple(("unaligned", (1, s, 2, d)) for s in (65, 1370) for d in (48, 64)
           ) + (("qkv", (1, 8, 65537, 8)), ("dense", (65537, 8, 1, 8)))
+# The fp32 K4 (csrc/flash_fwd_simt.cu) at its edges, (layout, (B, S, H,
+# D)): S around its 64-key tiles and 128-row blocks up to the 518-px
+# model's 1370, K5K6's head dims and layouts, and B·H over 65535; o and
+# lse held to K2_FP32_EDGE_REL of their plain versions' largest magnitudes
+K4_FP32_EDGE_SHAPES = tuple(
+    (layout, (1, s, 2, d)) for layout in ("qkv", "dense")
+    for s in (1, 63, 64, 65, 127, 128, 129, 197, 1025, 1370)
+    for d in (32, 48, 64, 96, 128)
+) + tuple(("unaligned", (1, s, 2, d)) for s in (65, 1370) for d in (48, 64)
+          ) + (("qkv", (1, 8, 65537, 8)), ("dense", (65537, 8, 1, 8)))
+# The fp32 K8, K10 and K12 (csrc/hp_bwd_simt.cu) at their edges, (kernel,
+# layout, (B, S, H, D)): S around the 64-row tiles and 128-row blocks up to
+# the kernels' 1024, D 32 to 128; K10 and K12 in place in a qkv buffer, K8
+# on contiguous tensors, on views whose rows start two floats late (the
+# kernels' 4-byte copies) and on views of odd row stride (one copy by
+# `_launch_views`), and B·H over 65535; held to K2_FP32_EDGE_REL of the
+# call's largest gradient (at S = 1, dq and dk are 0 but for rounding)
+HP_FP32_EDGE_SHAPES = tuple(
+    (kernel, layout, (1, s, 2, d))
+    for kernel, layout in (("hp_bwd", "qkv"), ("qkv_bwd", "qkv"),
+                           ("fused_bwd", "dense"))
+    for s in (1, 63, 64, 65, 127, 128, 129, 197, 1024)
+    for d in (32, 48, 64, 96, 128)
+) + tuple(("fused_bwd", layout, (2, s, 3, d))
+          for layout in ("late", "odd_stride") for s in (65, 197)
+          for d in (48, 64)) + (("hp_bwd", "qkv", (1, 8, 65537, 8)),
+                                ("fused_bwd", "dense", (65537, 8, 1, 8)))
+# The fp32 times of the kernels that flash_fwd_simt.cu and hp_bwd_simt.cu
+# replaced (flash_blocked.cu's flash_fwd_kernel<float, 64>, hp_bwd.cu's
+# loops at D 64), device ms of one call at the main shapes, from the timing
+# tool in the same call as the new kernels (PERF.md §6; H100 80GB HBM3 at
+# 700 W), printed beside phase 23's new (event) ones
+REPLACED_FP32_MS = {"flash_fwd": "7.193-7.203", "fused_bwd": "5.53-5.55",
+                "hp_bwd": "5.50", "qkv_bwd": "5.50-5.51"}
 # The fp32 K1 and K9 (csrc/attn_fwd.cu, attn_fwd_simt_kernel) at their
 # edges, (B, S, H, D): S around the 64-row query and key tiles and the
 # 8-key groups up to 1024, the score block's limits (S 496 / 497 at D 128,
@@ -1670,6 +1723,16 @@ def phase_dtypes(counts, fa, fb, mf, dev):
         worst[("float32", name)] = max(worst[("float32", name)], k1_worst)
     for name, err in fp32_k5k6_edges(fb, dev).items():
         worst[("float32", name)] = max(worst[("float32", name)], err)
+    worst[("float32", "flash_fwd")] = max(worst[("float32", "flash_fwd")],
+                                          fp32_k4_edges(fb, dev))
+    for name, err in fp32_hp_bwd_edges(fa, fb, dev).items():
+        worst[("float32", name)] = max(worst[("float32", name)], err)
+    for name, was in REPLACED_FP32_MS.items():
+        row = rows[("float32", name)]
+        log(f"[dtypes] float32 {name} {row['shape']}: {row['ms']!r} ms "
+            f"(the kernels it replaced: {was} device ms), plain "
+            f"{row['plain_ms']!r}, SDPA {row['library_ms']!r}, bound "
+            f"{row['bound_ms']!r}")
     return launches, rows, worst
 
 
@@ -1810,10 +1873,114 @@ def fp32_k5k6_edges(fb, dev):
     return worst
 
 
+def fp32_k4_edges(fb, dev) -> float:
+    """The fp32 K4 (csrc/flash_fwd_simt.cu) at K4_FP32_EDGE_SHAPES against
+    its plain version: each call run twice and bitwise equal, no copy, o
+    and lse within K2_FP32_EDGE_REL of the plain version's largest
+    magnitudes. Returns the worst o error."""
+    import torch
+
+    worst = 0.0
+    for layout, (b, s, h, d) in K4_FP32_EDGE_SHAPES:
+        tag = f"fp32 K4 edge {layout} (B, S, H, D) = {(b, s, h, d)}"
+        q, k, v, _ = fp32_bwd_operands(fb, layout, b, s, h, d, 8100 + s + d,
+                                       dev)
+        copies = fb.COPIES
+        (o, lse), (o2, lse2) = (fb.flash_fwd(q, k, v) for _ in range(2))
+        want = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        check(fb.COPIES == copies, f"{tag}: {fb.COPIES - copies} copies")
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"{tag}: two runs on the same inputs differ")
+        errs = [((g - w).abs().max().item(), w.abs().max().item())
+                for g, w in zip((o, lse), want)]
+        check(torch.isfinite(o).all().item()
+              and all(e <= K2_FP32_EDGE_REL * top for e, top in errs),
+              f"{tag}: o, lse max abs err {errs} (of the largest plain "
+              f"magnitude) > {K2_FP32_EDGE_REL} x it")
+        worst = max(worst, errs[0][0])
+        log(f"[dtypes] {tag}: o, lse max abs err (of the largest) {errs!r}, "
+            f"bitwise repeat True")
+        del q, k, v, o, lse, o2, lse2, want
+    return worst
+
+
+def hp_fp32_call(fa, fb, kernel, layout, shape, seed, dev):
+    """(the call of fp32 K8, K10 or K12 on seeded operands laid out as
+    `layout`, its plain version's call, whether `_stride_array` refuses
+    the views): each call returns dq, dk, dv (B, H, S, D)."""
+    import torch
+
+    b, s, h, d = shape
+    scale = d ** -0.5
+
+    def r(shape, i):
+        return seeded_bf16(shape, seed + i, dev, torch.float32)
+
+    do = r((b, s, h * d), 9)
+    if kernel in ("hp_bwd", "qkv_bwd"):
+        qkv = r((b, s, 3 * h * d), 0)
+
+        def plain():
+            return fb.heads(fa.hp_bwd_reference(qkv, do, h, scale), h)
+        if kernel == "hp_bwd":
+            return lambda: fb.heads(fa.hp_bwd(qkv, do, h), h), plain, False
+        qkv5 = qkv.view(b, s, 3, h, d)
+        return (lambda: fb.heads(fa.qkv_bwd(qkv5, do).reshape(qkv.shape), h),
+                plain, False)
+    if layout == "dense":
+        q, k, v = (r((b, h, s, d), i) for i in range(3))
+    else:
+        # rows two floats late (8-byte aligned: the kernels' 4-byte copies),
+        # or of an odd row stride (refused: one copy)
+        buf = r((b, s, 3 * h * d + (2 if layout == "late" else 1)), 0)
+        q, k, v = fb.heads(buf[..., 2:] if layout == "late"
+                           else buf[..., :-1], h)
+    g = do.view(b, s, h, d).transpose(1, 2)
+    refused = fa._stride_array((q, k, v, g), s, d) is None
+    return (lambda: fa.fused_bwd(q, k, v, g),
+            lambda: fa.fused_bwd_reference(q, k, v, g, scale), refused)
+
+
+def fp32_hp_bwd_edges(fa, fb, dev):
+    """The fp32 K8, K10 and K12 (csrc/hp_bwd_simt.cu) at HP_FP32_EDGE_SHAPES
+    against their plain versions: each call run twice and bitwise equal,
+    one copy a call exactly where `_stride_array` refuses the views, dq,
+    dk and dv within K2_FP32_EDGE_REL of the call's largest plain
+    gradient. Returns the worst error of each kernel."""
+    import torch
+
+    worst = {"fused_bwd": 0.0, "hp_bwd": 0.0, "qkv_bwd": 0.0}
+    for kernel, layout, shape in HP_FP32_EDGE_SHAPES:
+        tag = f"fp32 {kernel} edge {layout} (B, S, H, D) = {shape}"
+        call, plain, refused = hp_fp32_call(fa, fb, kernel, layout, shape,
+                                            8300 + shape[1] + shape[3], dev)
+        copies = fb.COPIES
+        runs = [call(), call()]
+        want = plain()
+        torch.cuda.synchronize()
+        check(fb.COPIES - copies == 2 * refused,
+              f"{tag}: {fb.COPIES - copies} copies, want {2 * refused}")
+        check(all(torch.equal(x, y) for x, y in zip(*runs)),
+              f"{tag}: two runs on the same inputs differ")
+        top = max(w.abs().max().item() for w in want)
+        errs = [(g - w).abs().max().item() for g, w in zip(runs[0], want)]
+        check(all(torch.isfinite(g).all().item() for g in runs[0])
+              and max(errs) <= K2_FP32_EDGE_REL * top,
+              f"{tag}: dq, dk, dv max abs err {errs} > {K2_FP32_EDGE_REL} x "
+              f"{top}")
+        worst[kernel] = max(worst[kernel], *errs)
+        log(f"[dtypes] {tag}: dq, dk, dv max abs err {errs!r} (largest "
+            f"gradient {top!r}), copies {2 * refused}, bitwise repeat True")
+        del call, plain, runs, want
+    return worst
+
+
 def check_redesigned(fa, fb, mf, dev) -> None:
     """The redesigned kernels run alone: one call of the bf16, fp16 and
-    fp32 K3, of the fp32 K2, of the fp32 K1 and K9 and of the fp32 K5 and
-    K6 launches (torch.profiler) its new kernel and no other of csrc/."""
+    fp32 K3, of the fp32 K2, of the fp32 K1 and K9, of the fp32 K4, K5 and
+    K6 and of the fp32 K8, K10 and K12 launches (torch.profiler) its new
+    kernels and no other of csrc/."""
     import torch
 
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -1847,6 +2014,17 @@ def check_redesigned(fa, fb, mf, dev) -> None:
                 "redesigned fp32 K5")
     only_kernel(lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, dq),
                 "flash_bwd_dq_simt_kernel<64, 128, 2>(", "redesigned fp32 K6")
+    only_kernel(lambda: fb.flash_fwd(q, k, v), "flash_fwd_simt_kernel<64>(",
+                "redesigned fp32 K4")
+    # K8, K10 and K12 at the op-level shape's sequence, in their layouts
+    hp_kernels = ["hp_bwd_stats_simt_kernel<64, 128, 2>(",
+                  "hp_bwd_dkdv_simt_kernel<64, 128, 2>(",
+                  "hp_bwd_dq_sum_kernel("]
+    for kernel, layout in (("fused_bwd", "dense"), ("hp_bwd", "qkv"),
+                           ("qkv_bwd", "qkv")):
+        call, _, _ = hp_fp32_call(fa, fb, kernel, layout, (8, 197, h, d),
+                                  4506, dev)
+        only_kernels(call, hp_kernels, f"redesigned fp32 {kernel}")
 
 
 def only_kernels(fn, wants, tag) -> None:
@@ -3291,24 +3469,31 @@ def main() -> int:
                                    "flash_bwd_dq"), "flash_blocked.cu")
         if dt_name == "float32":
             cuda_core.update(attn_fwd="attn_fwd.cu", attn_bwd="attn_bwd.cu",
+                             flash_fwd="flash_fwd_simt.cu",
                              flash_bwd_dkdv="flash_bwd_simt.cu",
                              flash_bwd_dq="flash_bwd_simt.cu",
                              hp_fwd="attn_fwd.cu",
                              fused_fwd="fused_attn_fwd.cu",
                              qkv_fwd="fused_attn_fwd.cu",
-                             hp_bwd="hp_bwd.cu", fused_bwd="hp_bwd.cu",
-                             qkv_bwd="hp_bwd.cu")
+                             hp_bwd="hp_bwd_simt.cu",
+                             fused_bwd="hp_bwd_simt.cu",
+                             qkv_bwd="hp_bwd_simt.cu")
         return src + cuda_core[name] if name in cuda_core else sources[name]
 
     replaces = {k["name"]: k["replaces"] for k in kernels}
     # the fp32 K1, K9 (register tiles around csrc/cc_tiles.cuh) and K3,
-    # redesigned in place of the kernels their sources held before, and the
-    # fp32 K5 and K6 of csrc/flash_bwd_simt.cu
+    # redesigned in place of the kernels their sources held before, the
+    # fp32 K4, K5 and K6 of csrc/flash_fwd_simt.cu and flash_bwd_simt.cu,
+    # and the fp32 K8, K10 and K12 of csrc/hp_bwd_simt.cu
+    hp_simt = ["hp_bwd_stats_simt_kernel<64, 128, 2>",
+               "hp_bwd_dkdv_simt_kernel<64, 128, 2>", "hp_bwd_dq_sum_kernel"]
     simt = {"attn_fwd": ["attn_fwd_simt_kernel<64>"],
             "hp_fwd": ["attn_fwd_simt_kernel<64>"],
             "fc2_bwd": ["fc2_bwd_simt_kernel"],
+            "flash_fwd": ["flash_fwd_simt_kernel<64>"],
             "flash_bwd_dkdv": ["flash_bwd_dkdv_simt_kernel<64, 128, 2>"],
-            "flash_bwd_dq": ["flash_bwd_dq_simt_kernel<64, 128, 2>"]}
+            "flash_bwd_dq": ["flash_bwd_dq_simt_kernel<64, 128, 2>"],
+            "hp_bwd": hp_simt, "fused_bwd": hp_simt, "qkv_bwd": hp_simt}
     # the trainer runs whose launches the fp32 lines count: phase 22's on
     # my_vit_s, phase 17c's at 518 px
     trainer_runs = {

@@ -2,15 +2,16 @@
 
 A library's file name hashes the flags, its sources and every header under
 `csrc/`, so that an edit to a header the sources include (csrc/hopper.cuh,
-csrc/elem.cuh, csrc/cc_tiles.cuh, csrc/cp_async.cuh) rebuilds the library
-instead of loading a stale one. Only the `.cu` sources go to nvcc.
-`_library_path` computes the name and needs no nvcc, so these run on the
-CPU, in a temporary `csrc`.
+csrc/elem.cuh, csrc/cc_tiles.cuh, csrc/cp_async.cuh, csrc/simt_tiles.cuh)
+rebuilds the library instead of loading a stale one. Only the `.cu`
+sources go to nvcc. `_library_path` computes the name and needs no nvcc,
+so these run on the CPU, in a temporary `csrc`.
 """
 import pytest
 import torch
 
 from vision_transformers_torch_xla_tpu_torch.ops import cuda_build
+from vision_transformers_torch_xla_tpu_torch.ops import flash_attention as fa
 
 
 @pytest.fixture
@@ -109,26 +110,51 @@ def test_the_cuda_core_headers_enter_the_hash(tmp_path, source, header):
     assert cuda_build._library_path(name, (source,), tmp_path) != before
 
 
+def _linked_library_changes(tmp_path, name, sources, edited):
+    """A library linked from several sources: its name is not the one of
+    its first source alone, and an edit to `edited` (a source or a header)
+    names a new one."""
+    real = cuda_build.CSRC_DIR
+    for f in (*sources, *_headers(real)):
+        (tmp_path / f).write_bytes((real / f).read_bytes())
+    before = cuda_build._library_path(name, sources, tmp_path)
+    assert before == cuda_build._library_path(name, sources, real)
+    assert before != cuda_build._library_path(name, sources[:1], tmp_path)
+    (tmp_path / edited).write_text((real / edited).read_text() + "\n")
+    assert cuda_build._library_path(name, sources, tmp_path) != before
+
+
 @pytest.mark.parametrize("edited", ["flash_blocked.cu", "flash_bwd_simt.cu",
-                                    "cp_async.cuh"])
+                                    "cp_async.cuh", "flash_fwd_simt.cu",
+                                    "simt_tiles.cuh"])
 def test_the_fp32_backward_source_enters_the_cuda_core_library(tmp_path,
                                                                edited):
     # the CUDA-core library of K4-K6 links csrc/flash_bwd_simt.cu (the fp32
-    # K5 and K6 at head dims <= 128) into csrc/flash_blocked.cu's: an edit
-    # to either source, or to the cp_async.cuh it includes, names a new
+    # K5 and K6 at head dims <= 128) and csrc/flash_fwd_simt.cu (the fp32
+    # K4 there) into csrc/flash_blocked.cu's: an edit to any of them, or to
+    # the simt_tiles.cuh and cp_async.cuh they include, names a new
     # library, and the library is not the one of flash_blocked.cu alone
     from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked
 
     sources = flash_blocked.CUDA_CORE_SOURCES
-    assert sources == ("flash_blocked.cu", "flash_bwd_simt.cu")
+    assert sources == ("flash_blocked.cu", "flash_bwd_simt.cu",
+                       "flash_fwd_simt.cu")
     real = cuda_build.CSRC_DIR
-    assert '#include "cp_async.cuh"' in (real / sources[1]).read_text()
-    for f in (*sources, *_headers(real)):
-        (tmp_path / f).write_bytes((real / f).read_bytes())
-    before = cuda_build._library_path("flash_blocked", sources, tmp_path)
-    assert before == cuda_build._library_path("flash_blocked", sources, real)
-    assert before != cuda_build._library_path("flash_blocked", sources[:1],
-                                              tmp_path)
-    (tmp_path / edited).write_text((real / edited).read_text() + "\n")
-    assert cuda_build._library_path("flash_blocked", sources,
-                                    tmp_path) != before
+    for src in sources[1:]:
+        assert '#include "simt_tiles.cuh"' in (real / src).read_text()
+    assert '#include "cp_async.cuh"' in (real / "simt_tiles.cuh").read_text()
+    _linked_library_changes(tmp_path, "flash_blocked", sources, edited)
+
+
+@pytest.mark.parametrize("edited", ["hp_bwd.cu", "hp_bwd_simt.cu",
+                                    "simt_tiles.cuh", "elem.cuh"])
+def test_the_fp32_hp_backward_source_enters_its_library(tmp_path, edited):
+    # the CUDA-core backward of K8, K10 and K12 links csrc/hp_bwd_simt.cu
+    # (fp32 at head dims <= 128) into csrc/hp_bwd.cu's library: an edit to
+    # either source or to a header they include names a new library
+    sources = fa.HP_BWD_SOURCES
+    assert sources == ("hp_bwd.cu", "hp_bwd_simt.cu")
+    real = cuda_build.CSRC_DIR
+    assert '#include "simt_tiles.cuh"' in (real / sources[1]).read_text()
+    assert '#include "elem.cuh"' in (real / sources[0]).read_text()
+    _linked_library_changes(tmp_path, "hp_bwd", sources, edited)

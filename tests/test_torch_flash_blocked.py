@@ -92,16 +92,43 @@ def _port_grads(q, k, v, dtype=torch.float32):
     return [x.grad.float().numpy() for x in t]
 
 
-@pytest.mark.parametrize("s", [300, 512, 1025])
-def test_plain_fwd_matches_jax_fp32(s):
-    b, h, d = 1, 2, 64
+def _plain_fwd_and_jax(s, d):
+    """The plain K4 and JAX's `_flash_fwd` in interpret mode on (1, 2, s,
+    d) fp32 inputs -> o, lse as numpy arrays, the port's then JAX's."""
+    b, h = 1, 2
     q, k, v = (_rand((b, h, s, d), seed) for seed in (s, s + 1, s + 2))
     scale = d ** -0.5
     want_o, want_lse = _jax_fwd(q, k, v, scale)
     o, lse = fb.flash_fwd(*(torch.from_numpy(x) for x in (q, k, v)), scale)
-    assert o.dtype == torch.float32 and lse.shape == (b, h, s)
-    np.testing.assert_allclose(o.numpy(), want_o, atol=ATOL, rtol=0)
-    np.testing.assert_allclose(lse.numpy(), want_lse, atol=ATOL, rtol=0)
+    assert o.dtype == torch.float32 and o.shape == (b, h, s, d)
+    assert lse.shape == (b, h, s)
+    return o.numpy(), lse.numpy(), want_o, want_lse
+
+
+@pytest.mark.parametrize("s", [300, 512, 1025])
+def test_plain_fwd_matches_jax_fp32(s):
+    o, lse, want_o, want_lse = _plain_fwd_and_jax(s, 64)
+    np.testing.assert_allclose(o, want_o, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse, want_lse, atol=ATOL, rtol=0)
+
+
+# The fp32 K4 (csrc/flash_fwd_simt.cu) at the edges of its 64-key tiles and
+# 16-row warps: S around one and two tiles, the compile-time head dims 64
+# and 128 and the ones that take them with zero columns (32, 48). Both
+# sides run the online softmax in fp32, in other orders and blocks (JAX:
+# 256 keys a block), so o and lse are held to FP32_FWD_EDGE_REL of their
+# largest magnitudes.
+FP32_FWD_EDGE_S = (1, 63, 65, 127, 129)
+FP32_FWD_EDGE_REL = 1e-5
+
+
+@pytest.mark.parametrize("d", (32, 48, 64, 128))
+@pytest.mark.parametrize("s", FP32_FWD_EDGE_S)
+def test_plain_fwd_matches_jax_fp32_at_tile_edges(s, d):
+    o, lse, want_o, want_lse = _plain_fwd_and_jax(s, d)
+    for got, want in ((o, want_o), (lse, want_lse)):
+        np.testing.assert_allclose(
+            got, want, rtol=0, atol=FP32_FWD_EDGE_REL * np.abs(want).max())
 
 
 @pytest.mark.parametrize("s", [300, 512, 1025])
@@ -596,6 +623,37 @@ def test_fp32_k5_k6_match_plain_at_tile_edges_on_cuda(cuda_device, layout,
         assert err <= limit, (err, limit)
 
 
+# the fp32 K4's edges on the card: S around its 64-key tiles and 128-row
+# blocks to the 518-px model's 1370, the head dims of K5K6's cases and 96,
+# the same three layouts, and B·H over 65535
+K4_FP32_EDGE_CASES = [
+    (layout, (1, s, 2, d)) for layout in ("qkv", "dense")
+    for s in (1, 63, 64, 65, 127, 128, 129, 197, 1025, 1370)
+    for d in FP32_BWD_EDGE_D + (96,)] + [
+    ("unaligned", (1, s, 2, d)) for s in (65, 1370) for d in (48, 64)] + [
+    ("qkv", (1, 8, 65537, 8)), ("dense", (65537, 8, 1, 8))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,shape", K4_FP32_EDGE_CASES)
+def test_fp32_k4_matches_plain_at_tile_edges_on_cuda(cuda_device, layout,
+                                                     shape):
+    # run twice, bitwise equal (no float atomics), o and lse within
+    # FP32_FWD_EDGE_REL of the plain version's largest magnitudes; no copy
+    b, s, h, d = shape
+    q, k, v, _ = _fp32_bwd_operands(layout, b, s, h, d, 90, cuda_device)
+    before = _counts()
+    (o, lse), (o2, lse2) = (fb.flash_fwd(q, k, v) for _ in range(2))
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 2, *before[1:])   # no copy
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    want = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    for g, w in zip((o, lse), want):
+        assert torch.isfinite(g).all()
+        err = (g - w).abs().max().item()
+        assert err <= FP32_FWD_EDGE_REL * w.abs().max().item(), err
+
+
 # one session in a fresh process: in a long one (the whole cuda suite)
 # torch.profiler's sessions stop recording kernels
 _K5K6_TRACE = """
@@ -616,7 +674,8 @@ for layout in ("qkv", "unaligned"):
         g = torch.empty(1, h, s, d, device="cuda")
         calls = {"dkdv": lambda: fb.flash_bwd_dkdv(q, k, v, do, lse, delta,
                                                    g, g.clone()),
-                 "dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, g)}
+                 "dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, g),
+                 "fwd": lambda: fb.flash_fwd(q, k, v)}
         for name, fn in calls.items():
             fn()
             torch.cuda.synchronize()
@@ -634,9 +693,9 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def fp32_k5k6_trace():
-    """The csrc/ kernels one fp32 call of K5 and of K6 launches at each of
-    FP32_BWD_EDGE_D, in a qkv view and in one whose rows start a float
-    late, traced by torch.profiler."""
+    """The csrc/ kernels one fp32 call of K5, of K6 and of K4 launches at
+    each of FP32_BWD_EDGE_D, in a qkv view and in one whose rows start a
+    float late, traced by torch.profiler."""
     import json
     import subprocess
     import sys
@@ -663,3 +722,15 @@ def test_fp32_k5_k6_launch_the_register_tiled_kernels_alone(fp32_k5k6_trace,
         names = fp32_k5k6_trace[f"{name}{d}{layout}"]
         assert len(names) == 1 and \
             f"::flash_bwd_{name}_simt_kernel<{args}>(" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv", "unaligned"])
+@pytest.mark.parametrize("d", FP32_BWD_EDGE_D)
+def test_fp32_k4_launches_the_register_tiled_kernel_alone(fp32_k5k6_trace,
+                                                          d, layout):
+    # <head dim>: 64 or 128 at compile time
+    args = "64" if d <= 64 else "128"
+    names = fp32_k5k6_trace[f"fwd{d}{layout}"]
+    assert len(names) == 1 and \
+        f"::flash_fwd_simt_kernel<{args}>(" in names[0], names

@@ -113,7 +113,8 @@ def test_port_imports_no_jax():
         "tools/profile_torch_train_step.py", "tools/time_torch_attention.py",
         "tools/time_fused_fwd_variants.py", "tools/time_hp_bwd_variants.py",
         "tools/time_fc2_bwd_variants.py", "tools/time_fp32_simt_variants.py",
-        "tools/time_fp32_bwd_variants.py")]
+        "tools/time_fp32_bwd_variants.py", "tools/time_fp32_fwd_variants.py",
+        "tools/time_fp32_hp_bwd_variants.py")]
     for root, _, names in os.walk(PORT_PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     rel = {os.path.relpath(p, PORT_PKG) for p in files}

@@ -5,7 +5,8 @@ them, on one NVIDIA GPU.
     python tools/time_fp32_bwd_variants.py [--batch 32] [--variants NAME ...]
 
 Each variant is a text edit of a copy of the checkout's
-csrc/flash_bwd_simt.cu, built with the port's nvcc flags under
+csrc/flash_bwd_simt.cu (with csrc/simt_tiles.cuh, its tiles, written into
+it), built with the port's nvcc flags under
 build/variants/<name>/ (all builds started together) with a C shim around
 its `flash_bwd_simt::dkdv` and `dq`, and launched on seeded fp32 q, k, v
 read from a (B, 1370, 3 * 12 * 64) projection, dO a view of (B, 1370, 12,
@@ -120,13 +121,17 @@ extern "C" int variant_dq(const float* q, const float* k, const float* v,
 """
 
 
-def variant_source(edits) -> str:
-    text = (cuda_build.CSRC_DIR / SOURCE).read_text()
+def variant_source(edits, source: str = SOURCE, shim: str = SHIM) -> str:
+    """csrc/`source` with csrc/simt_tiles.cuh written into it (so that an
+    edit may reach the shared tiles), each edit made once, and `shim`."""
+    text = (cuda_build.CSRC_DIR / source).read_text().replace(
+        '#include "simt_tiles.cuh"',
+        (cuda_build.CSRC_DIR / "simt_tiles.cuh").read_text())
     for old, new in edits.items():
         if text.count(old) != 1:
-            raise SystemExit(f"{SOURCE} holds {old!r} {text.count(old)} times")
+            raise SystemExit(f"{source} holds {old!r} {text.count(old)} times")
         text = text.replace(old, new)
-    return text + SHIM
+    return text + shim
 
 
 def build(name: str, source: str):
@@ -147,13 +152,14 @@ def build(name: str, source: str):
 
 
 def ptxas(log: str):
-    """Registers, shared memory and spills of each kernel."""
+    """Registers, shared memory and spills of each *_simt_kernel<ints>."""
     out, fn = {}, None
     for line in log.splitlines():
         if "Function properties" in line:
-            m = re.search(r"(flash_bwd_\w+_simt_kernel)ILi(\d+)ELi(\d+)ELi"
-                          r"(\d+)E", line)
-            fn = f"{m.group(1)}<{', '.join(m.groups()[1:])}>" if m else None
+            m = re.search(r"\d((?:flash|hp)_[a-z_]*?_simt_kernel)I"
+                          r"((?:Li\d+E)+)E", line)
+            fn = f"{m.group(1)}<{', '.join(re.findall(r'\d+', m.group(2)))}>" \
+                if m else None
         elif fn and ("registers" in line or "spill" in line):
             out.setdefault(fn, []).append(line.split(":")[-1].strip())
     return out

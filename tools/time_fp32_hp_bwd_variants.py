@@ -1,0 +1,189 @@
+"""A/B of the fp32 backward of K8, K10 and K12 (csrc/hp_bwd_simt.cu:
+hp_bwd_stats_simt_kernel, hp_bwd_dkdv_simt_kernel and hp_bwd_dq_sum_kernel)
+against variants of it, on
+one NVIDIA GPU, with the helpers of tools/time_fp32_bwd_variants.py and
+tools/time_hp_bwd_variants.py.
+
+    python tools/time_fp32_hp_bwd_variants.py [--batch 128] [--seq 197]
+        [--variants NAME ...]
+
+Each variant is a text edit of a copy of the checkout's
+csrc/hp_bwd_simt.cu (with csrc/simt_tiles.cuh written into it), built
+with the port's nvcc flags under build/variants/<name>/ (all builds
+started together) with a C shim around its `hp_bwd_simt::run`, and
+launched as K10 is: q, k, v read from a seeded fp32 (B, S, 3 * 12 * 64)
+qkv buffer, dO from (B, S, 12 * 64), dq, dk, dv written into one such
+buffer.
+
+* as_is: the committed kernels;
+* no_scores: every score product (s and dp, in the stats and dk/dv
+  launches) left out (times only);
+* no_sums: the summed products (dv, dk and the parts of dq) left out
+  (times only);
+* no_exp: exp(x) = x (times only);
+* no_trim: no warp skips a streamed tile's keys or queries past S (times
+  only: what trimming the last tile saves);
+* stats_1buf: the stats launch with one streamed buffer (107 KB: two
+  blocks an SM, at most 128 registers a thread) instead of two;
+* stats_rows64: stats blocks of 64 queries and 4 warps instead of 128 and
+  8;
+* unroll1, unroll4: the score and sum loops unrolled 1 or 4 times instead
+  of 2.
+
+Per variant: the median CUDA-event time of one call (its launches; 10
+calls a sample, 9 samples), the device time per call of each kernel
+(torch.profiler over 10 calls), the max abs error of dqkv against the
+plain version (ops/flash_attention.py::hp_bwd_reference) over its largest
+magnitude, and ptxas's registers and spills. Beside them the port's own
+`hp_bwd`, its plain version and SDPA's fp32 backward. One JSON line, with
+the card's name and power limit (nvidia-smi).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+TOOLS = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, TOOLS)
+
+from time_fp32_bwd_variants import (  # noqa: E402
+    build,
+    fb,
+    ms,
+    ptxas,
+    variant_source,
+)
+from time_hp_bwd_variants import device_ms, fa  # noqa: E402
+
+SOURCE = "hp_bwd_simt.cu"
+H, D = 12, 64
+SCORES = "score_tiles<kD>(s, dp, "
+SUMS = "sum_tile<kD, kTile"
+LOOPS = ("#pragma unroll 2\n  for (int d = 0; d < kD; d += 4) {",
+         "#pragma unroll 2\n  for (int t = 0; t < kK; t += 4) {")
+EXP = "float exp_p(float x) { return __expf(x); }"
+SHAPE_64 = "#define VTX_HP_BWD_SIMT_64 64, 128, 2, 128, 2"
+
+
+def unrolled(n: str):
+    return {loop: loop.replace("unroll 2", n) for loop in LOOPS}
+
+
+VARIANTS = {
+    "as_is": {},
+    "no_scores": {SCORES: "if (0) " + SCORES},
+    "no_sums": {SUMS: "if (0) " + SUMS,
+                "dq_part_tile<kD>(dqp,": "if (0) dq_part_tile<kD>(dqp,"},
+    "no_exp": {EXP: "float exp_p(float x) { return x; }"},
+    "no_trim": {"k0 + 32 * at.half < S": "k0 < S",
+                "const bool short_tile = q0 + kTile / 2 >= S;":
+                "const bool short_tile = false;"},
+    "stats_1buf": {SHAPE_64: "#define VTX_HP_BWD_SIMT_64 64, 128, 2, 128, 1"},
+    "stats_rows64": {SHAPE_64:
+                     "#define VTX_HP_BWD_SIMT_64 64, 128, 2, 64, 2"},
+    "unroll1": unrolled("unroll 1"),
+    "unroll4": unrolled("unroll 4"),
+}
+TIMES_ONLY = {"no_scores", "no_sums", "no_exp", "no_trim"}
+SHIM = """
+extern "C" long long variant_scratch(int B, int H, int S, int D) {
+  return hp_bwd_simt::scratch_floats(B, H, S, D);
+}
+extern "C" int variant_bwd(const void* const* ptrs, const long long* strides,
+    float* scratch, int B, int S, int H, int D, float scale, void* stream) {
+  return hp_bwd_simt::run(ptrs, strides, scratch, B, S, H, D, scale,
+                          (cudaStream_t)stream);
+}
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--seq", type=int, default=197)
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
+                    choices=list(VARIANTS))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_fp32_hp_bwd_variants: needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sources = {}
+    for n in args.variants:
+        text = variant_source({}, SOURCE, SHIM)
+        for old, new in VARIANTS[n].items():
+            if old not in text:
+                raise SystemExit(f"{SOURCE} no longer holds {old!r}")
+            text = text.replace(old, new)
+        sources[n] = text
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(build, sources, sources.values())))
+
+    b, s = args.batch, args.seq
+    rng = np.random.default_rng(b + s)
+
+    def seeded(shape):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(x).to("cuda")
+
+    qkv, do = seeded((b, s, 3 * H * D)), seeded((b, s, H * D))
+    scale = D ** -0.5
+    want = fa.hp_bwd_reference(qkv, do, H, scale)
+    top = want.abs().max().item()
+    dqkv = torch.empty_like(qkv)
+    ins = (*fb.heads(qkv, H), fa._head_major(do, H))
+    outs = fb.heads(dqkv, H)
+    ptrs = (ctypes.c_void_p * 7)(*(t.data_ptr() for t in (*ins, *outs)))
+    strides = fa._stride_array((*ins, *outs), s, D)
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    out = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip(), "shape": [b, s, H, D], "variants": {}}
+    for name in args.variants:
+        so, log = built[name]
+        lib = ctypes.CDLL(so)
+        lib.variant_bwd.argtypes = [P, P, P] + [I] * 4 + [F, P]
+        lib.variant_bwd.restype = I
+        lib.variant_scratch.argtypes = [I] * 4
+        lib.variant_scratch.restype = ctypes.c_longlong
+        scratch = torch.empty(lib.variant_scratch(b, H, s, D), device="cuda")
+
+        def call():
+            rc = lib.variant_bwd(ptrs, strides, scratch.data_ptr(), b, s, H,
+                                 D, scale, stream)
+            if rc:
+                raise RuntimeError(f"{name}: launch failed ({rc})")
+
+        call()
+        torch.cuda.synchronize()
+        row = {"ms": ms(call), "device_ms": device_ms(call),
+               "ptxas": ptxas(log)}
+        if name not in TIMES_ONLY:
+            row["max_abs_err_over_max"] = (dqkv - want).abs().max().item() \
+                / top
+        out["variants"][name] = row
+
+    q, k, v = (t.detach().contiguous().requires_grad_() for t in ins[:3])
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    g = ins[3].contiguous()
+    out["hp_bwd_ms"] = ms(lambda: fa.hp_bwd(qkv, do, H, scale))
+    out["plain_ms"] = ms(lambda: fa.hp_bwd_reference(qkv, do, H, scale))
+    out["sdpa_bwd_ms"] = ms(lambda: torch.autograd.grad(
+        sdpa, (q, k, v), g, retain_graph=True))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

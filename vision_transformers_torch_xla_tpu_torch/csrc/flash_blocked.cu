@@ -4,19 +4,23 @@
 // Which kernel serves which dtype and head dim D:
 //   bf16, D <= 128: the tensor cores, csrc/flash_fwd.cu (K4) and
 //     csrc/flash_bwd.cu (K5, K6), libraries of their own;
-//   fp32, D <= 128: K4 here (flash_fwd_kernel<float, 64 | 128>), K5 and K6
-//     in csrc/flash_bwd_simt.cu (flash_bwd_dkdv_simt_kernel and
+//   fp32, D <= 128: K4 in csrc/flash_fwd_simt.cu (flash_fwd_simt_kernel:
+//     128-row blocks of 8 warps that own whole rows, s on 8 x 4 register
+//     tiles, p v on 8 x 4 or 8 x 8, cp.async double buffers at D <= 64), K5
+//     and K6 in csrc/flash_bwd_simt.cu (flash_bwd_dkdv_simt_kernel and
 //     flash_bwd_dq_simt_kernel: s and dp scored together on 8 x 4 register
-//     tiles, the sums on 8 x 8, cp.async double buffers at D <= 64),
-//     linked into this library: dkdv() and dq() hand them float at D <=
-//     128;
+//     tiles, the sums on 8 x 8, cp.async double buffers at D <= 64), both
+//     linked into this library: fwd(), dkdv() and dq() hand them float at
+//     D <= 128 (the register tiles live in csrc/simt_tiles.cuh);
 //   fp16, D <= 128: K4-K6 here (the <__half, 64 | 128> kernels below);
 //   every dtype past 128 (to 1024): the *_wide_kernel<T> below.
 // Measured on an H100 80GB HBM3 at 700 W, device ms of one call at (B, S,
-// H, D) = (32, 1370, 12, 64) (PERF.md §6): fp32 K4 6.85-6.97 (SDPA's fp32
-// forward 5.55-5.60); fp32 K5 and K6 9.46-9.53 and 7.73-7.77 (this file's
-// loops before them: 12.44 and 10.74-10.75; SDPA's whole fp32 backward
-// 14.06-14.18); fp16 K4-K6 7.25, 12.64, 11.66 (event ms).
+// H, D) = (32, 1370, 12, 64) (PERF.md §6): fp32 K4 5.204-5.207 (this
+// file's flash_fwd_kernel<float, 64> before it: 7.19-7.20 in the same
+// call; SDPA's fp32 forward 5.62-5.65); fp32 K5 and K6 9.46-9.53 and
+// 7.73-7.77 (this file's loops before them: 12.44 and 10.74-10.75; SDPA's
+// whole fp32 backward 14.06-14.18); fp16 K4-K6 7.25, 12.64, 11.66 (event
+// ms).
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_blocked.py, the long-sequence path (S > 1024), where they run in a
@@ -98,8 +102,15 @@
 #include "cc_tiles.cuh"
 #include "elem.cuh"
 
-// csrc/flash_bwd_simt.cu, linked into this library: the fp32 K5 and K6 at
-// D <= 128; strides are {batch, head, row} in elements.
+// csrc/flash_fwd_simt.cu and csrc/flash_bwd_simt.cu, linked into this
+// library: the fp32 K4, K5 and K6 at D <= 128; strides are {batch, head,
+// row} in elements.
+namespace flash_fwd_simt {
+int fwd(const float* q, const float* k, const float* v, float* o,
+        float* lse, int B, int H, int S, int D, float scale,
+        const long long* in, const long long* out, cudaStream_t stream);
+}  // namespace flash_fwd_simt
+
 namespace flash_bwd_simt {
 int dkdv(const float* q, const float* k, const float* v, const float* dout,
          const float* lse, const float* delta, float* dk, float* dv, int B,
@@ -638,7 +649,14 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                       sizeof(float);
   int n_tiles;
   dim3 grid;
-  if constexpr (kD == kWide) {
+  if constexpr (std::is_same<T, float>::value && kD != kWide) {
+    const long long i[3] = {in.sb, in.sh, in.sr},
+                    u[3] = {out.sb, out.sh, out.sr};
+    return flash_fwd_simt::fwd(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), B, H, S, D, scale, i, u, stream);
+  } else if constexpr (kD == kWide) {
     const int n_c = (D + kTile - 1) / kTile;
     int rc = prepare(flash_fwd_wide_kernel<T>, smem, B, H, S, &n_tiles,
                      &grid, n_c);

@@ -1,15 +1,22 @@
 // Softmax attention backward that recomputes the probabilities on its own,
 // over (B, H, S, D) q, k, v, dO, dq, dk and dv given by strides, on the
-// CUDA cores of a Hopper card. It serves fp32 at every head dim, since the
-// TPU kernels round nothing in fp32 and a tensor-core product of fp32
-// operands (TF32) would, and bf16 and fp16 at head dims over 128. Below
-// that the 16-bit types run on the tensor cores, csrc/hp_bwd_tc.cu, whose
-// tiles do not fit a wider head: at a head dim padded to 192 its dk/dv
-// launch would stage 240 KB (K and V of 128 keys, 48 KB each, and three
-// 64-row stages of q and dO, 72 KB each) of the 227 KB a block may have,
-// and each consumer thread would hold S^T, dP^T, dK and dV, 32 + 32 + 96 +
-// 96 = 256 floats, all of the 256 registers setmaxnreg can give a thread
-// before a single address.
+// CUDA cores of a Hopper card. Which kernel serves which dtype and head dim
+// D (the library is this file and csrc/hp_bwd_simt.cu, linked together):
+//   fp32, D <= 128: csrc/hp_bwd_simt.cu (hp_bwd_stats_simt_kernel,
+//     hp_bwd_dkdv_simt_kernel, hp_bwd_dq_sum_kernel: register tiles, 7
+//     products), which vtx_hp_bwd hands float at D <= 128;
+//   fp32 past 128, bf16 and fp16 past 256 (to 1024): this file's loops,
+//     hp_bwd_dq_kernel<T, 0> and hp_bwd_dkdv_kernel<T, 0> (run-time head
+//     dim; the compile-time head dims of HeadRow and lane_pairs are no
+//     longer instantiated);
+//   bf16 and fp16 to 256: the tensor cores, csrc/hp_bwd_tc.cu (its wide
+//     tiles stop at 256).
+// fp32 stays off the tensor cores: the TPU kernels round nothing in fp32
+// and a tensor-core product of fp32 operands (TF32) would.
+// Measured on an H100 80GB HBM3 at 700 W, device ms of one call at (B, S,
+// H, D) = (128, 197, 12, 64) (PERF.md §6): fp32 K8, K10, K12 2.46-2.47 on
+// csrc/hp_bwd_simt.cu (this file's loops before it: 5.50; SDPA's fp32
+// backward 2.12).
 //
 // Replaces three TPU kernels of
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py that compute the
@@ -40,8 +47,8 @@
 // What bounds it on an H100: at B = 128, S = 197, H = 12, D = 64 the five
 // products are 38 GFLOP over ~541 MB in fp32 (qkv and dO read, dqkv
 // written), so the 67 TFLOP/s of the CUDA cores bound the ideal kernel
-// (0.57 ms). The loops are bound by instruction issue: every two FMAs come
-// with a shared-memory load, and this design computes s and dp twice.
+// (0.57 ms). This file's loops are bound by instruction issue: every two
+// FMAs come with a shared-memory load, and they compute s and dp twice.
 //
 // Design: two launches, so that no sum crosses blocks and nothing needs
 // float atomics (the result is deterministic):
@@ -59,9 +66,8 @@
 // dim (the operands only swap sides) and scale s with __fmul_rn, which the
 // compiler never fuses into the subtraction of m, so p and ds agree bit for
 // bit between them. Staged rows are padded to an odd number of 32-bit
-// words, so lanes reading different rows hit different banks. For head dims
-// 32, 64 and 128 (fp32) the head dim is a compile-time constant and the row
-// sits in registers; other even head dims, up to 1024, take run-time loops. Operands that do not
+// words, so lanes reading different rows hit different banks. The head dim
+// is a run-time value (every even one up to 1024). Operands that do not
 // fit in shared memory (long S with wide D) are read from global memory (L2)
 // through the same loops. The loops are written over csrc/elem.cuh's
 // element type, whose rounding points are identities in fp32 and round to
@@ -436,33 +442,44 @@ int launch(T* const* t, float* stats, Layout a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Every dtype comes here at head dims over 128 alone (fp32 below is
+// csrc/hp_bwd_simt.cu's, bf16 and fp16 to 256 csrc/hp_bwd_tc.cu's):
+// run-time loops.
 template <typename T>
 int launch_d(const void* const* ptrs, float* stats, const Layout& a, int B,
              cudaStream_t s) {
   T* t[kTensors];
   for (int i = 0; i < kTensors; ++i)
     t[i] = const_cast<T*>(static_cast<const T*>(ptrs[i]));
-  // bf16 and fp16 come here at head dims over 128 alone: run-time loops
-  if constexpr (std::is_same<T, float>::value) {
-    switch (a.D) {
-      case 32: return launch<T, 32>(t, stats, a, B, s);
-      case 64: return launch<T, 64>(t, stats, a, B, s);
-      case 128: return launch<T, 128>(t, stats, a, B, s);
-    }
-  }
   return launch<T, 0>(t, stats, a, B, s);
 }
 
 }  // namespace
 
+// csrc/hp_bwd_simt.cu, linked into this library: fp32 at D <= 128.
+namespace hp_bwd_simt {
+long long scratch_floats(int B, int H, int S, int D);
+int run(const void* const* ptrs, const long long* strides, float* scratch,
+        int B, int S, int H, int D, float scale, cudaStream_t stream);
+}  // namespace hp_bwd_simt
+
 extern "C" {
+
+// The fp32 scratch vtx_hp_bwd takes for these sizes and element type, in
+// floats: the row stats of this file's loops (B, H, S, 3), or those of
+// csrc/hp_bwd_simt.cu's kernels and their parts of dq.
+long long vtx_hp_bwd_scratch(int B, int S, int H, int D, int dtype) {
+  if (dtype == kF32 && D <= 128)
+    return hp_bwd_simt::scratch_floats(B, H, S, D);
+  return (long long)B * H * S * 3;
+}
 
 // q, k, v, dout in and dq, dk, dv out: (B, H, S, D) of the element type
 // `dtype` (bf16 and fp16 at head dims <= 128 are csrc/hp_bwd_tc.cu's) with
 // the head dim contiguous; strides holds 21 element strides,
-// (batch, head, token) of each in that order; stats (B, H, S, 3) fp32 is
-// scratch. Returns a cudaError_t as int: 0 when both launches were
-// accepted.
+// (batch, head, token) of each in that order; stats is fp32 scratch of
+// vtx_hp_bwd_scratch floats. Returns a cudaError_t as int: 0 when every
+// launch was accepted.
 int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, void* stats,
                const long long* strides, int B, int S, int H, int D,
@@ -488,11 +505,13 @@ int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
     a.ss[t] = (int)ss;
   }
   float* st = static_cast<float*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32 && D <= 128)
+    return hp_bwd_simt::run(ptrs, strides, st, B, S, H, D, scale, s);
   a.S = S;
   a.H = H;
   a.D = D;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kBf16: return launch_d<__nv_bfloat16>(ptrs, st, a, B, s);
     case kF16: return launch_d<__half>(ptrs, st, a, B, s);

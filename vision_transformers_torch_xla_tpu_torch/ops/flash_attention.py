@@ -51,8 +51,10 @@ one function over two layouts, in the cast order of `_reference_attention`
   decides; plain version `fused_fwd_reference`;
 * `fused_bwd` (K8, `_bwd_kernel` :61) and `qkv_bwd` (K12, `_qkv_bwd_kernel`
   :764), whose function is K10's, and `hp_bwd` (K10) -> in bf16 and fp16
-  csrc/hp_bwd_tc.cu (TMA, mbarriers, wgmma), in fp32 csrc/hp_bwd.cu (CUDA
-  cores), as `bwd_kernel_route` decides; plain version
+  csrc/hp_bwd_tc.cu (TMA, mbarriers, wgmma), in fp32 the CUDA cores
+  (csrc/hp_bwd_simt.cu's register tiles at D <= MAX_HEAD_DIM, linked into
+  csrc/hp_bwd.cu's library, whose loops take wider heads), as
+  `bwd_kernel_route` decides; plain version
   `fused_bwd_reference`, which `hp_bwd_reference` shares.
 
 The tensor-core kernels of K7-K12 read q, k and v in place through tensor
@@ -86,7 +88,8 @@ sources (the routes say which, before the launch):
   tiles); K2 on the CUDA cores, csrc/attn_bwd.cu's run-time head dim;
 * fp32 at any D, and every dtype at D > MAX_WIDE_HEAD_DIM: the CUDA
   cores, csrc/attn_fwd.cu (K1, K9), csrc/attn_bwd.cu (K2),
-  csrc/fused_attn_fwd.cu (K7, K11) and csrc/hp_bwd.cu (K8, K10, K12).
+  csrc/fused_attn_fwd.cu (K7, K11) and csrc/hp_bwd.cu (K8, K10, K12; fp32
+  at D <= MAX_HEAD_DIM in csrc/hp_bwd_simt.cu, linked in).
 
 Every kernel takes bf16, fp16 and fp32 on the card, as the JAX kernels take
 any float dtype: the CUDA sources are templated on the element type, compute
@@ -148,8 +151,8 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _L3 = [ctypes.c_longlong] * 3  # element strides of batch, head and row
 
 
-def _load(name: str, fn: str, argtypes) -> ctypes.CDLL:
-    lib = cuda_build.load_library(name, (f"{name}.cu",))
+def _load(name: str, fn: str, argtypes, sources=None) -> ctypes.CDLL:
+    lib = cuda_build.load_library(name, sources or (f"{name}.cu",))
     getattr(lib, fn).restype = ctypes.c_int
     getattr(lib, fn).argtypes = argtypes
     lib.vtx_cuda_error_string.restype = ctypes.c_char_p
@@ -238,12 +241,20 @@ def fused_kernel_route(q: torch.Tensor, k: torch.Tensor,
     return "tensor_cores" if tma_ready(q, k, v) else "tensor_cores_copy"
 
 
+# the CUDA-core backward's sources: the loops of every dtype past the
+# tensor cores' head dims, and fp32 at a head dim <= MAX_HEAD_DIM linked in
+HP_BWD_SOURCES = ("hp_bwd.cu", "hp_bwd_simt.cu")
+
+
 def build_hp_bwd_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the fp32 backward of K8, K10 and K12
-    (CUDA cores)."""
-    return _load("hp_bwd", "vtx_hp_bwd",
-                 [_P] * 8 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _I,
-                             _P])
+    (CUDA cores), from HP_BWD_SOURCES."""
+    lib = _load("hp_bwd", "vtx_hp_bwd",
+                [_P] * 8 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _I,
+                            _P], HP_BWD_SOURCES)
+    lib.vtx_hp_bwd_scratch.restype = ctypes.c_longlong
+    lib.vtx_hp_bwd_scratch.argtypes = [_I] * 5
+    return lib
 
 
 def build_hp_bwd_tc_kernels() -> ctypes.CDLL:
@@ -264,9 +275,10 @@ def bwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as another in place), 'tensor_cores_copy' (the same kernels after one
     `padded_copy` of all four, when TMA cannot read a group in place:
     `tma_ready`) or 'cuda_cores' (fp32, or a head dim over
-    MAX_WIDE_HEAD_DIM in any dtype: csrc/hp_bwd.cu). The outputs are the
-    wrappers' own, which the kernels write in place at every even head
-    dim."""
+    MAX_WIDE_HEAD_DIM in any dtype: csrc/hp_bwd.cu's library, whose fp32
+    kernels at D <= MAX_HEAD_DIM are csrc/hp_bwd_simt.cu's). The outputs
+    are the wrappers' own, which the kernels write in place at every even
+    head dim."""
     if q.shape[-2] > MAX_SEQ:
         return "reference"
     if q.dtype == torch.float32 or q.shape[-1] > MAX_WIDE_HEAD_DIM:
@@ -663,9 +675,10 @@ def _launch_bwd(ins, outs, scale: float, name: str) -> None:
 
         def launch(ins, outs, strides):
             b, h, s, d = ins[0].shape
-            # scratch: each query row's [m, Σ exp, Σ dp·p] from the dq launch
-            stats = torch.empty((b, h, s, 3), dtype=torch.float32,
-                                device=dev)
+            # scratch: the rows' softmax stats, and for the fp32 kernels at
+            # D <= MAX_HEAD_DIM each key block's part of dq
+            stats = torch.empty(lib.vtx_hp_bwd_scratch(b, s, h, d, code),
+                                dtype=torch.float32, device=dev)
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
                 rc = lib.vtx_hp_bwd(*(t.data_ptr() for t in (*ins, *outs)),

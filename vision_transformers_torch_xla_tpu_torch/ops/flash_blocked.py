@@ -17,10 +17,11 @@ float dtype and head dim):
 fp16 and fp32, and every dtype at a head dim over MAX_HEAD_DIM (up to
 MAX_CUDA_CORE_HEAD_DIM), go to csrc/flash_blocked.cu, CUDA-core loops that
 round where the JAX kernels cast to the inputs' dtype and compute in fp32
-(`tensor_cores` decides); its fp32 K5 and K6 at a head dim <= MAX_HEAD_DIM
-are csrc/flash_bwd_simt.cu's register-tiled kernels, linked into the same
-library, which read every fp32 view with a contiguous head dim in place
-(16-byte copies where its rows are 16-byte aligned, else 4-byte ones).
+(`tensor_cores` decides); its fp32 K4, K5 and K6 at a head dim <=
+MAX_HEAD_DIM are the register-tiled kernels of csrc/flash_fwd_simt.cu and
+csrc/flash_bwd_simt.cu, linked into the same library, which read every
+fp32 view with a contiguous head dim in place (16-byte copies where its
+rows are 16-byte aligned, else 4-byte ones).
 
 `FlashAttentionBlocked` is the custom VJP `_flash_attention_padded`
 (:247-266) as an autograd Function, and `flash_attention_blocked` the
@@ -72,9 +73,10 @@ FLASH_BWD_DQ_LAUNCHES = 0
 # K8, K10-K12 in ops/flash_attention.py)
 COPIES = 0
 
-# the CUDA-core library's sources: K4-K6's loops, and the fp32 K5 and K6
-# at a head dim <= MAX_HEAD_DIM linked in
-CUDA_CORE_SOURCES = ("flash_blocked.cu", "flash_bwd_simt.cu")
+# the CUDA-core library's sources: K4-K6's loops, and the fp32 K5, K6 and
+# K4 at a head dim <= MAX_HEAD_DIM linked in
+CUDA_CORE_SOURCES = ("flash_blocked.cu", "flash_bwd_simt.cu",
+                     "flash_fwd_simt.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

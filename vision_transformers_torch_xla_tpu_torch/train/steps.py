@@ -55,8 +55,9 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
     images (B, H, W, 3) and int labels on the model's device. `seed` and
     the host step count give the step's random streams; `mixup_draw`
     replaces the sampled mixup draw (tests feed the JAX draws). With
-    `teacher`, the KD loss mixes in its logits (its wiring in launch/main.py
-    waits for ROADMAP M4)."""
+    `teacher`, the KD loss mixes in its logits (launch/main.py::
+    build_teacher builds the teacher from --teacher_model and
+    --teacher_path)."""
     if second_order:
         raise NotImplementedError(
             "second-order optimizers (adahessian) are not in the port yet "
