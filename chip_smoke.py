@@ -64,10 +64,12 @@ The long-sequence slice, vit_base_patch14_dinov2 at 518 px (S = 1370,
 ops/flash_blocked.py):
 
 10. build: csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6), both
-    TMA + wgmma in bf16, and csrc/flash_blocked.cu (K4-K6 on the CUDA cores
-    for fp32 and fp16) with csrc/flash_bwd_simt.cu and csrc/flash_fwd_simt.cu
-    (the fp32 K5, K6 and K4 at head dims <= 128, register tiles) linked in,
-    started with the others in phase 2; build time, registers and spills.
+    TMA + wgmma (K4 and K5 in bf16 and fp16 at head dims to 256, K6 in
+    bf16 to 128), and csrc/flash_blocked.cu (the rest of K4-K6 on the CUDA
+    cores: fp32, K6 in fp16 and past 128, K4 and K5 past 256) with
+    csrc/flash_bwd_simt.cu and csrc/flash_fwd_simt.cu (the fp32 K5, K6 and
+    K4 at head dims <= 128, register tiles) linked in, started with the
+    others in phase 2; build time, registers and spills.
 11. blocked kernels vs plain: flash_fwd (K4), flash_bwd_dkdv (K5) and
     flash_bwd_dq (K6) against their plain versions on seeded bf16 q, k, v,
     dO read from a (B, S, 3·H·D) buffer, at the path's shapes (B 1 and 32,
@@ -131,10 +133,11 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     with the counts reset just before: each kernel launched exactly as
     often as the shapes say. Each route function answers as the rule
     says (K1, K9, K7-K12 on the wide tensor-core tiles of
-    csrc/attn_fwd_tc.cu and csrc/hp_bwd_tc.cu up to 256 in bf16 and fp16;
-    K2 on csrc/attn_bwd.cu's wide kernel and K4-K6 on
-    csrc/flash_blocked.cu's past 128 in every dtype; fp32 and past 256 on
-    the CUDA cores), and one call of each kernel at D 256 (and past 256
+    csrc/attn_fwd_tc.cu and csrc/hp_bwd_tc.cu, K4 and K5 on those of
+    csrc/flash_fwd.cu and csrc/flash_bwd.cu, up to 256 in bf16 and fp16;
+    K2 on csrc/attn_bwd.cu's wide kernel and K6 on csrc/flash_blocked.cu's
+    past 128 in every dtype; fp32 and past 256 on the CUDA cores), and one
+    call of each kernel at D 256 (and past 256
     in bf16), traced together in one torch.profiler session per dtype (ahead
     of the trainer phases; a process's sessions stop recording after a
     few dozen), launches exactly the csrc/ kernels their routes name.
@@ -157,6 +160,18 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     with the plain versions of K4-K6 on the card), which runs first; each
     K4-K6 call of the kernel step held against its plain version on the
     model's data (DTYPE_REL['float32'], LSE_ATOL).
+17d. K4 and K5 on the tensor cores in fp16 and at head dims 129-256
+    (csrc/flash_fwd.cu, csrc/flash_bwd.cu), with the counts reset just
+    before: each instantiation against its plain version at
+    TC_BLOCKED_EDGE_CASES (S 1 to 1370 around the 64-key and 128-row
+    tiles, fp16 at D 64, bf16 and fp16 at D 136, 192, 200 and 256 in the
+    qkv-view and dense layouts, D 130 after one padded copy; K5 on the
+    plain forward's lse and delta), within WIDE_REL, one launch of each a
+    case; then each timed at TC_BLOCKED_TIMED (fp16 at (32, 1370, 12, 64),
+    D 256 at B 1 and 32) beside its plain version, SDPA and its bound;
+    then, in a process of its own, one call of each new instantiation traced
+    alone (torch.profiler) launching its kernel and no other of csrc/, and
+    K6 beside it its unchanged kernel.
 18. gradient, --pallas_mlp on: phase 8 (use_pallas_attn) on the same
     weights with every MLP
     on the fused route, against the same JAX fp32 train golden (the
@@ -228,7 +243,7 @@ JAX kernels take any float dtype):
     reach a kernel (qkv_proj_attention, mlp_gelu, fused_attention_qkv_cols
     at S 1370 and 197, multi_head_attention(use_pallas=True),
     fused_attention_qkv) driven forward and backward once in each dtype,
-    which must launch each kernel once (in fp16 K1, K2 and K7-K12 on the
+    which must launch each kernel once (in fp16 K1-K5 and K7-K12 on the
     tensor cores); then each kernel held against its
     plain version on the card at its main shape and a ragged one, within
     DTYPE_REL of the largest magnitude (FP32_OUT_REL for fp32 outputs,
@@ -299,7 +314,11 @@ its products' FLOPs over the 989 TFLOP/s bf16 tensor-core peak (H100 SXM
 data sheet), from the timed call's shapes. The kernels JSON has one line
 per bf16 kernel and one per fp32 and fp16 instantiation (name
 'kernel[dtype]'), whose bound takes the 67 TFLOP/s fp32 CUDA-core peak and
-4-byte elements for fp32, 989 TFLOP/s and 2-byte elements for fp16.
+4-byte elements for fp32, 989 TFLOP/s and 2-byte elements for fp16, and
+one per instantiation at D 256 ('kernel[dtype,d256]'). The fp16 K4 and K5
+lines and the bf16 and fp16 K4 and K5 lines at D 256 carry phase 17d's
+worst edge error (max_rel_err_edges), and those at D 256 its times at (32,
+1370, 12, 256) (suffix _b32).
 
 The last two lines of stdout are the kernels JSON and the result JSON.
 """
@@ -612,6 +631,40 @@ WIDE_LONG_SHAPES = ((1, 1100, 2, 256), (1, 1100, 2, 192), (1, 1100, 1, 320),
 WIDE_TIMED = (32, 197, 12, 256)
 WIDE_LONG_TIMED = (1, 1370, 4, 256)
 WIDE_DTYPES = ("bfloat16", "float16", "float32")
+# Phase 17d, K4 and K5 on the tensor cores in fp16 and at head dims 129-256
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu): each new instantiation against its
+# plain version at the blocked kernels' edge sequences (around the 64-key
+# and 128-row tiles, past 1024, the 518-px model's 1370) in the qkv-view
+# and dense layouts, (dtype, layout, (B, S, H, D)): fp16 at D 64, bf16 and
+# fp16 at 136 and 200 (the 192 and 256 tiles with zero-filled columns),
+# 192 and 256, and D 130 (one padded copy); within WIDE_REL of the largest
+# magnitude (of o; of the call's dk and dv together), lse within LSE_ATOL
+TC_BLOCKED_EDGE_S = (1, 63, 64, 65, 127, 129, 1025, 1370)
+TC_BLOCKED_EDGE_CASES = tuple(
+    (dt, layout, (1, s, 2, d)) for dt in EDGE_DTYPES
+    for layout in ("qkv", "dense") for s in TC_BLOCKED_EDGE_S
+    for d in ((64,) if dt == "float16" else ()) + (136, 192, 200, 256)
+) + tuple((dt, "qkv", (1, s, 2, 130)) for dt in EDGE_DTYPES
+          for s in (65, 1370))
+# and each timed beside its plain version and SDPA, at the 518-px shape in
+# fp16 and at D 256 at B 1 (phase 17b's wide shape) and B 32 (~270 MB an
+# operand), (dtype, (B, S, H, D)); the plain versions take
+# TC_BLOCKED_SLOW_REPS timed calls (the CUDA-core loops the new kernels
+# replaced are gone from the tree; their times, in one call with the new
+# kernels, stand in PERF.md §6)
+TC_BLOCKED_TIMED = (("float16", (32, 1370, 12, 64)),
+                    ("bfloat16", WIDE_LONG_TIMED),
+                    ("float16", WIDE_LONG_TIMED),
+                    ("bfloat16", (32, 1370, 12, 256)),
+                    ("float16", (32, 1370, 12, 256)))
+TC_BLOCKED_SLOW_REPS = 8
+# the instantiations phase 17d traces one call of each, in a process of
+# its own: (dtype, head dim); K6 beside them on its unchanged kernels at
+# TC_BLOCKED_K6_TRACED
+TC_BLOCKED_TRACED = (("float16", 64), ("float16", 128), ("bfloat16", 192),
+                     ("float16", 192), ("bfloat16", 256), ("float16", 256))
+TC_BLOCKED_K6_TRACED = (("bfloat16", 64), ("float16", 64),
+                        ("bfloat16", 256))
 WIDE_KERNELS = ("attn_fwd", "attn_bwd", "hp_fwd", "hp_bwd", "fused_fwd",
                 "fused_bwd", "qkv_fwd", "qkv_bwd", "flash_fwd",
                 "flash_bwd_dkdv", "flash_bwd_dq")
@@ -705,13 +758,16 @@ def sdpa_ms(q, k, v, do=None):
 
 def launched_kernels(fn) -> set:
     """The names of the CUDA kernels one call of fn launches (a
-    torch.profiler trace of the call)."""
+    torch.profiler trace of the call, made twice in the session: a
+    session can miss the first launches it should record, and has been
+    seen to record none at all)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        fn()
         fn()
         torch.cuda.synchronize()
     return {e.key for e in prof.key_averages()
@@ -1407,15 +1463,193 @@ def phase_long_kernel(fb, dev):
     return results, worst
 
 
-def k4_operands(fb, layout, b, s, h, d, seed, dev):
-    """q, k, v (B, H, S, D) bf16: views of a (B, S, 3·H·D) projection
-    ('qkv'), contiguous ('dense'), or (B, H, D, S) memory transposed."""
+def k4_operands(fb, layout, b, s, h, d, seed, dev, dtype=None):
+    """q, k, v (B, H, S, D), bf16 unless `dtype` says otherwise: views of a
+    (B, S, 3·H·D) projection ('qkv'), contiguous ('dense'), or (B, H, D, S)
+    memory transposed."""
     if layout == "qkv":
-        return fb.heads(seeded_bf16((b, s, 3 * h * d), seed, dev), h)
+        return fb.heads(seeded_bf16((b, s, 3 * h * d), seed, dev, dtype), h)
     if layout == "dense":
-        return [seeded_bf16((b, h, s, d), seed + i, dev) for i in range(3)]
-    return [seeded_bf16((b, h, d, s), seed + i, dev).transpose(-1, -2)
+        return [seeded_bf16((b, h, s, d), seed + i, dev, dtype)
+                for i in range(3)]
+    return [seeded_bf16((b, h, d, s), seed + i, dev, dtype).transpose(-1, -2)
             for i in range(3)]
+
+
+def tc_blocked_edges(fb, dev) -> dict:
+    """The tensor-core K4 and K5 at TC_BLOCKED_EDGE_CASES against their
+    plain versions (K5 on the plain forward's lse and delta, into views of
+    one dqkv buffer), a copy exactly where the route says; returns the
+    worst error over the largest plain magnitude per (dtype, kernel)."""
+    import torch
+
+    worst = {}
+    for dt_name, layout, (b, s, h, d) in TC_BLOCKED_EDGE_CASES:
+        dt = getattr(torch, dt_name)
+        tag = f"tc blocked {dt_name} {layout} {(b, s, h, d)}"
+        seed = 9000 + s + d
+        q, k, v = k4_operands(fb, layout, b, s, h, d, seed, dev, dt)
+        do = seeded_bf16((b, s, h, d), seed + 5, dev, dt).transpose(1, 2)
+        routes = {n: fb.kernel_route(n, q, k, v, do)
+                  for n in ("flash_fwd", "flash_bwd_dkdv")}
+        want = "tensor_cores" if d % 8 == 0 else "tensor_cores_copy"
+        check(set(routes.values()) == {want}, f"{tag}: routes {routes}")
+        scale = d ** -0.5
+        o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+        delta = fb.flash_delta(o_r, do)
+        _, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d), dtype=dt,
+                                         device=dev), h)
+        copies = fb.COPIES
+        o, lse = fb.flash_fwd(q, k, v, scale)
+        fb.flash_bwd_dkdv(q, k, v, do, lse_r, delta, dk, dv, scale)
+        torch.cuda.synchronize()
+        check(fb.COPIES - copies == 2 * (want != "tensor_cores"),
+              f"{tag}: {fb.COPIES - copies} copies, route {want}")
+        dk_r, dv_r = fb.flash_bwd_dkdv_reference(q, k, v, do, lse_r, delta,
+                                                 scale)
+        err = (lse - lse_r).abs().max().item()
+        check(err <= LSE_ATOL, f"{tag} lse: max abs err {err}")
+        # dk and dv to the call's largest gradient: at S = 1, ds = p (dO·v
+        # - dO·o) is 0 but for rounding (o = v), and so is dk
+        grad_max = max(dk_r.float().abs().max().item(),
+                       dv_r.float().abs().max().item())
+        for name, kernel, got, ref in (("o", "flash_fwd", o, o_r),
+                                       ("dk", "flash_bwd_dkdv", dk, dk_r),
+                                       ("dv", "flash_bwd_dkdv", dv, dv_r)):
+            check(got.dtype == dt and torch.isfinite(got.float()).all().item(),
+                  f"{tag} {name}: {got.dtype} or not finite")
+            err = (got.float() - ref.float()).abs().max().item()
+            ref_max = ref.float().abs().max().item() if name == "o" \
+                else grad_max
+            check(err <= WIDE_REL[dt_name] * ref_max,
+                  f"{tag} {name}: max abs err {err} of max |plain| {ref_max}")
+            worst[(dt_name, kernel)] = max(worst.get((dt_name, kernel), 0.0),
+                                           err / max(ref_max, 1e-30))
+    return worst
+
+
+def trace_tc_blocked() -> None:
+    """One call of each tensor-core K4 and K5 at TC_BLOCKED_TRACED, and of
+    K6 beside them at TC_BLOCKED_K6_TRACED, each traced alone
+    (only_kernel): K4 and K5 launch their csrc/flash_fwd.cu and
+    csrc/flash_bwd.cu kernels (which take tensor maps), K6 its unchanged
+    ones (csrc/flash_blocked.cu's, which take pointers, in fp16 and past
+    128).
+    Run in a process of its own (phase 17d): a process's profiler sessions
+    stop recording after a few dozen."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        flash_blocked as fb,
+    )
+
+    dev = torch.device("cuda", 0)
+    b, s, h = 1, 1100, 2
+    for dt_name, d in sorted(set(TC_BLOCKED_TRACED + TC_BLOCKED_K6_TRACED)):
+        dt = getattr(torch, dt_name)
+        t = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dt_name]
+        kd = next(x for x in (64, 128, 192, 256) if d <= x)
+        q, k, v = k4_operands(fb, "qkv", b, s, h, d, 9500 + d, dev, dt)
+        do = seeded_bf16((b, s, h, d), 9501 + d, dev, dt).transpose(1, 2)
+        o, lse = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+        delta = fb.flash_delta(o, do)
+        dq, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d), dtype=dt,
+                                          device=dev), h)
+        tag = f"tc blocked trace {dt_name} D={d}"
+        if (dt_name, d) in TC_BLOCKED_TRACED:
+            only_kernel(lambda: fb.flash_fwd(q, k, v),
+                        f"::flash_fwd_kernel<{t}, {kd}>(CUtensorMap", tag)
+            only_kernel(lambda: fb.flash_bwd_dkdv(q, k, v, do, lse, delta,
+                                                  dk, dv),
+                        f"::flash_bwd_dkdv_kernel<{t}, {kd}>(CUtensorMap",
+                        tag)
+        if (dt_name, d) in TC_BLOCKED_K6_TRACED:
+            k6 = (f"::flash_bwd_dq_kernel<{kd}>(CUtensorMap"
+                  if dt_name == "bfloat16" and d <= 128
+                  else f"::flash_bwd_dq_kernel<{t}, {kd}>({t} const*"
+                  if d <= 128 else f"::flash_bwd_dq_wide_kernel<{t}>(")
+            only_kernel(lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, dq),
+                        k6, tag)
+    log("[tc blocked trace] every call launched its kernel alone")
+
+
+def tc_blocked_calls(fb, shape, dt, seed, dev) -> dict:
+    """K4's and K5's calls at `shape` in dtype `dt`, on q, k, v views of
+    one (B, S, 3·H·D) buffer and dO a view of (B, S, H, D) memory, drawn on
+    the card from `seed` (at (32, 1370, 12, 256) a host draw of the ~1 GB
+    takes seconds), K5 on the plain forward's lse and delta: {name: (the
+    wrapper, its plain version, SDPA's ms, FLOPs, bytes)}, the FLOPs and
+    bytes as dtype_case counts them."""
+    import torch
+
+    b, s, h, d = shape
+    scale = d ** -0.5
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device=dev).to(dt)
+    do = torch.randn((b, s, h, d), generator=g, device=dev).to(
+        dt).transpose(1, 2)
+    q, k, v = fb.heads(qkv, h)
+    o, lse = fb.flash_fwd_reference(q, k, v, scale)
+    delta = fb.flash_delta(o, do)
+    del o
+    _, dk, dv = fb.heads(torch.empty_like(qkv), h)
+    e = DTYPE_PEAK[str(dt).split(".")[-1]][1]
+    sq, n, rows = b * h * s * s * d, b * s * h * d, b * h * s
+    return {
+        "flash_fwd": (lambda: fb.flash_fwd(q, k, v, scale),
+                      lambda: fb.flash_fwd_reference(q, k, v, scale),
+                      lambda: sdpa_ms(q, k, v), 4 * sq, e * 4 * n + 4 * rows),
+        "flash_bwd_dkdv": (
+            lambda: fb.flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, scale),
+            lambda: fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                                scale),
+            lambda: sdpa_ms(q, k, v, do), 8 * sq, e * 6 * n + 8 * rows)}
+
+
+def phase_tc_blocked(counts, fb, dev):
+    """Phase 17d: K4 and K5 on the tensor cores in fp16 and at head dims
+    129-256. The edges (tc_blocked_edges) with the counts reset just
+    before, each case launching K4 and K5 once; each new kernel timed
+    beside its plain version and SDPA (TC_BLOCKED_TIMED); then the traces in a process of its own
+    (trace_tc_blocked). Returns the rows per (dtype, kernel, shape) and
+    the worst errors per (dtype, kernel)."""
+    import gc
+
+    import torch
+
+    counts(reset=True)
+    worst = tc_blocked_edges(fb, dev)
+    n = len(TC_BLOCKED_EDGE_CASES)
+    launched = counts()
+    check(launched == only(FLASH_FWD_LAUNCHES=n, FLASH_BWD_DKDV_LAUNCHES=n),
+          f"the edge cases launched {launched}, want K4 and K5 {n} each")
+    log(f"[tc blocked] {n} edge cases, worst error over max |plain|: "
+        f"{worst!r}")
+    rows = {}
+    for i, (dt_name, shape) in enumerate(TC_BLOCKED_TIMED):
+        dt = getattr(torch, dt_name)
+        for name, (kernel, plain, library, flops, nbytes) in \
+                tc_blocked_calls(fb, shape, dt, 9700 + i, dev).items():
+            row = {"ms": cuda_ms(kernel)}
+            row["plain_ms"] = cuda_ms(plain, TC_BLOCKED_SLOW_REPS, 1)
+            row["library_ms"] = library()
+            row["bound_ms"], row["bound_by"] = bound(
+                flops, nbytes, DTYPE_PEAK[dt_name][0])
+            rows[(dt_name, name, shape)] = row
+            log(f"[tc blocked] {dt_name} {name} {shape} on {nvidia_smi()}: "
+                + " ".join(f"{k}={v!r}" for k, v in row.items()))
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.trace_tc_blocked()"],
+        cwd=REPO, capture_output=True, text=True, timeout=STATE_TIMEOUT_S)
+    for line in res.stdout.splitlines():
+        log(line)
+    check(res.returncode == 0, f"the tensor-core K4/K5 traces failed: "
+          f"{res.stderr[-3000:]}")
+    return rows, worst
 
 
 def phase_precision(counts):
@@ -2041,11 +2275,12 @@ def only_kernels(fn, wants, tag) -> None:
           f"{tag}: the call launched {ours} of csrc/, want {wants}")
 
 
-def wide_route(dt_name: str, d: int) -> str:
-    """The route of K1, K9 and K7-K12 at head dim d > 128: the wide
+def wide_route(dt_name: str, d: int, name: str = "") -> str:
+    """The route of K1, K9, K7-K12, K4 and K5 at head dim d > 128: the wide
     tensor-core tiles up to 256 in bf16 and fp16 (in place at a multiple
-    of 8), else the CUDA cores."""
-    if dt_name == "float32" or d > 256:
+    of 8), else the CUDA cores (always for K2 and K6)."""
+    if dt_name == "float32" or d > 256 or name in ("attn_bwd",
+                                                    "flash_bwd_dq"):
         return "cuda_cores"
     return "tensor_cores" if d % 8 == 0 else "tensor_cores_copy"
 
@@ -2055,10 +2290,13 @@ def wide_kernel_names(name: str, dt_name: str, d: int):
     d > 128 in dtype dt_name, as the routes decide."""
     t = {"bfloat16": "__nv_bfloat16", "float16": "__half",
          "float32": "float"}[dt_name]
-    tc = wide_route(dt_name, d) != "cuda_cores"
+    tc = wide_route(dt_name, d, name) != "cuda_cores"
     kd = 192 if d <= 192 else 256
     if name.startswith("flash"):
-        return [f"{name}_wide_kernel<{t}>"]
+        # csrc/flash_fwd.cu's and flash_bwd.cu's take tensor maps;
+        # csrc/flash_blocked.cu's run-time head dim takes pointers
+        return [f"{name}_kernel<{t},{kd}>(CUtensorMap" if tc
+                else f"{name}_wide_kernel<{t}>"]
     if name == "attn_bwd":
         return [f"attn_bwd_wide_kernel<{t}>"]
     if name in ("attn_fwd", "hp_fwd"):
@@ -2121,7 +2359,8 @@ def wide_routes_hold(fa, fb, name, shape, dt, dt_name) -> None:
     do = torch.empty((b, s, h * d), dtype=dt, device="cuda")
     q, k, v = fb.heads(qkv, h)
     if name.startswith("flash"):
-        got, want = fb.tensor_cores(q), False
+        got, want = fb.kernel_route(name, q, k, v), wide_route(dt_name, d,
+                                                               name)
     elif name == "attn_bwd":
         got, want = fa.attn_kernel_route(qkv, h, do, do), "cuda_cores"
     elif name in ("attn_fwd", "hp_fwd"):
@@ -3129,7 +3368,12 @@ def main() -> int:
         f"{torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
+    def lap(what):
+        # where the run's time goes, toward its 1200 s limit
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     build_s = build_all(fa, fb, mf)
+    lap("the builds")
     for name in ("attn_fwd_tc", "attn_bwd_tc", "hp_bwd_tc", "attn_fwd"):
         log(f"[build] {name} built/loaded in {build_s[name]:.3f} s")
         # attn_fwd_simt_kernel, on float alone, names no element type
@@ -3184,6 +3428,7 @@ def main() -> int:
         ATTN_FWD_LAUNCHES=12 * (TRAIN_STEPS + EVAL_BATCHES),
         ATTN_BWD_LAUNCHES=12 * TRAIN_STEPS),
           f"{train_launches} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
+    lap("phases 1-9")
 
     # ---- the long-sequence slice: vit_base_patch14_dinov2 at 518 px
     for name in ("flash_fwd", "flash_bwd", "flash_blocked"):
@@ -3233,6 +3478,8 @@ def main() -> int:
         FLASH_BWD_DQ_LAUNCHES=12 * TRAIN_STEPS),
           f"{long_train} for {TRAIN_STEPS} steps, {EVAL_BATCHES} evals")
 
+    lap("phases 10-15")
+
     # ---- the fused-backward MLP (--pallas_mlp on) on my_vit_b, and the
     # head-pair route of fused_attention_qkv_cols
     for name in ("mlp_fused", "hp_bwd"):
@@ -3247,6 +3494,7 @@ def main() -> int:
     # the trainer phases 19-22, after which a session records nothing)
     wide_launches, wide_rows, wide_worst = phase_wide_heads(every, fa, fb, mf,
                                                             dev)
+    lap("phases 16-17b")
     # ---- the 518-px trainer in fp32: the fp32 K4, and K5 and K6 on
     # csrc/flash_bwd_simt.cu's register tiles, 12 a step each (its profiler
     # session the process's last, after 17b's)
@@ -3289,6 +3537,11 @@ def main() -> int:
         check(err <= limit, f"model data, fp32 {name}: error {err} > {limit}")
     log(f"[long fp32] the fp32 518-px phase took "
         f"{time.perf_counter() - t_fp32:.1f} s")
+    # ---- K4 and K5 on the tensor cores in fp16 and at head dims 129-256
+    t_tc = time.perf_counter()
+    tc_rows, tc_worst = phase_tc_blocked(every, fb, dev)
+    log(f"[tc blocked] phase 17d took {time.perf_counter() - t_tc:.1f} s")
+    lap("phases 17c-17d")
     with check_fc2_bwd(mf) as k3:
         n = phase_grad(every, dev, ckpt_path, tag="grad pallas_mlp",
                        use_pallas_mlp=True)
@@ -3319,6 +3572,8 @@ def main() -> int:
     check(hp_launches == only(HP_FWD_LAUNCHES=n_hp, HP_BWD_LAUNCHES=n_hp),
           f"fused_attention_qkv_cols at S <= 1024 launched {hp_launches} "
           f"(want K9 and K10 {n_hp} each)")
+
+    lap("phases 18-20")
 
     # ---- the op-level fused entry points (K7, K8, K11, K12)
     log(f"[build fused] fused_attn_fwd built/loaded in "
@@ -3358,12 +3613,16 @@ def main() -> int:
           f"one fp32 forward + backward launched {fp32_grad} (want K1 12, "
           f"K2 12)")
 
+    lap("phases 21-22")
+
     # ---- every kernel in fp32 and fp16
     dt_launches, dt_rows, dt_worst = phase_dtypes(every, fa, fb, mf, dev)
     for dt_name, n in dt_launches.items():
         check(n == only(**{c.split(".")[1]: 1 for c in ALL_COUNTS}),
               f"{dt_name}: the entry points launched {n} (want each "
               f"kernel once)")
+
+    lap("phase 23")
 
     # ---- the trainer's state: resume, rotation, logs, profile, KD, serving
     phase_state(every, dev, ckpt_path, default_step)
@@ -3455,9 +3714,9 @@ def main() -> int:
         fused_entry("fused_bwd", "hp_bwd_tc.cu", "flash_attention.py:61"),
         fused_entry("qkv_fwd", "attn_fwd_tc.cu", "flash_attention.py:740"),
         fused_entry("qkv_bwd", "hp_bwd_tc.cu", "flash_attention.py:764")]
-    # one line for each fp32 and fp16 instantiation; the blocked kernels'
-    # are the CUDA-core ones, and K1, K2 and K7-K12 in fp32 too (fp16
-    # shares bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
+    # one line for each fp32 and fp16 instantiation; K6 in fp16 is a
+    # CUDA-core one, and so is every kernel in fp32 (fp16 K1-K5 and K7-K12
+    # share bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
     # launches of the trainer's own run (main() --precision fp32, with
     # --pallas_mlp on for K3), the fp32 K4, K5 and K6 those of the 518-px
     # fp32 trainer (phase 17c); every other instantiation those of
@@ -3465,8 +3724,9 @@ def main() -> int:
     sources = {k["name"]: k["source"] for k in kernels}
 
     def dtype_source(name, dt_name):
-        cuda_core = dict.fromkeys(("flash_fwd", "flash_bwd_dkdv",
-                                   "flash_bwd_dq"), "flash_blocked.cu")
+        # fp16: K4 and K5 on csrc/flash_fwd.cu and flash_bwd.cu (bf16's
+        # sources), K6 on the CUDA cores
+        cuda_core = {"flash_bwd_dq": "flash_blocked.cu"}
         if dt_name == "float32":
             cuda_core.update(attn_fwd="attn_fwd.cu", attn_bwd="attn_bwd.cu",
                              flash_fwd="flash_fwd_simt.cu",
@@ -3507,6 +3767,18 @@ def main() -> int:
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         trainer_runs[("float32", name)] = (
             f"main() {' '.join(LONG_FP32_FLAGS)}", long32)
+    # the tensor-core K4 and K5 (phase 17d): the edges' worst error, and at
+    # D 256 the times at (32, 1370, 12, 256)
+    def tc_blocked(dt_name, name, shape, suffix=""):
+        row = tc_rows.get((dt_name, name, shape))
+        if row is None:
+            return {}
+        if not suffix:
+            # phase 17d's edges, over the largest plain magnitude
+            return {"max_rel_err_edges": tc_worst[(dt_name, name)]}
+        return {f"{key}{suffix}": row[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+
     for dt_name in DTYPES:
         for name in DTYPE_SHAPES:
             row = dt_rows[(dt_name, name)]
@@ -3528,7 +3800,8 @@ def main() -> int:
                 **({"unfused_ms": row["unfused_ms"]} if "unfused_ms" in row
                    else {}),
                 **({"kernels": simt[name]} if dt_name == "float32"
-                   and name in simt else {})})
+                   and name in simt else {}),
+                **tc_blocked(dt_name, name, row["shape"])})
     # one line for each kernel at a head dim of 256 in each dtype (the wide
     # tensor-core tiles in bf16 and fp16, but K2 and K4-K6 on the CUDA
     # cores), counting the launches of drive_wide_heads
@@ -3538,6 +3811,9 @@ def main() -> int:
             d = row["shape"][3]
             names = wide_kernel_names(name, dt_name, d)
             wide_src = "attn_bwd.cu" if name == "attn_bwd" else \
+                "flash_fwd.cu" if names[0].startswith("flash_fwd_kernel") \
+                else "flash_bwd.cu" if names[0].startswith(
+                    "flash_bwd_dkdv_kernel") else \
                 "flash_blocked.cu" if name.startswith("flash") else \
                 "attn_fwd_tc.cu" if names[0].startswith("attn_fwd_tc") else \
                 "hp_bwd_tc.cu" if names[0].startswith("hp_bwd_tc") else \
@@ -3555,7 +3831,10 @@ def main() -> int:
                 "shape": row["shape"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]})
+                "library_ms": row["library_ms"],
+                **tc_blocked(dt_name, name, row["shape"]),
+                **tc_blocked(dt_name, name, (32,) + row["shape"][1:2]
+                             + (12, 256), "_b32")})
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

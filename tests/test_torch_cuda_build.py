@@ -158,3 +158,52 @@ def test_the_fp32_hp_backward_source_enters_its_library(tmp_path, edited):
     assert '#include "simt_tiles.cuh"' in (real / sources[1]).read_text()
     assert '#include "elem.cuh"' in (real / sources[0]).read_text()
     _linked_library_changes(tmp_path, "hp_bwd", sources, edited)
+
+
+def _ptxas(text):
+    """{(kernel, element type, head dim): (registers, spill stores, spill
+    loads, static shared memory)} from nvcc's -Xptxas -v output; a kernel
+    with no element type in its name (K6) is bf16's."""
+    import re
+
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(flash_\w+?_kernel)"
+                      r"I(13__nv_bfloat16|6__half)?Li(\d+)E", line)
+        if m:
+            key = (m.group(1), {"6__half": "fp16"}.get(m.group(2), "bf16"),
+                   int(m.group(3)))
+            out[key] = [None] * 4
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and key:
+            out[key][1:3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and key:
+            out[key][0], out[key][3] = int(m.group(1)), int(m.group(2))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+@pytest.mark.cuda
+def test_tensor_core_blocked_kernels_build_without_spills(tmp_path):
+    # csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6) built with the
+    # library flags: K4 and K5 in bf16 and fp16 at 64, 128, 192 and 256,
+    # K6 in bf16 at 64 and 128, none spilling
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    got = {}
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        res = subprocess.run(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+             str(tmp_path / f"{src}.so"), str(cuda_build.CSRC_DIR / src)],
+            capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr[-3000:]
+        got.update(_ptxas(res.stdout + res.stderr))
+    want = {(k, t, d) for k in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel")
+            for t in ("bf16", "fp16") for d in (64, 128, 192, 256)}
+    want |= {("flash_bwd_dq_kernel", "bf16", d) for d in (64, 128)}
+    assert set(got) == want, sorted(got)
+    assert all(v[1] == v[2] == 0 for v in got.values()), got

@@ -168,6 +168,41 @@ def test_plain_matches_jax_bf16():
                                    rtol=0, err_msg=name)
 
 
+# fp16: both sides round p, ds and the stored o, dk, dv to fp16 (2^-11
+# relative); JAX rounds p against the running max of its 256-key blocks,
+# the plain version against the row's final max, so a value moves by a
+# flipped rounding or two: o, dk and dv within FP16_REL of their largest
+# magnitude (one fp16 ulp, 1.2e-4 at a largest 0.25-0.41, seen at D 64 and
+# 192), lse (fp32) within FP16_LSE_ATOL (9.5e-7 seen)
+FP16_REL = 2e-3
+FP16_LSE_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("d", [64, 192])
+def test_plain_k4_k5_match_jax_fp16(d):
+    # the plain K4 and K5, which the fp16 tensor-core kernels are held to
+    # on the card, against JAX's _fwd_kernel and _bwd_dkdv_kernel in
+    # interpret mode on the same fp16 inputs; K5 on JAX's lse and delta
+    b, h, s = 1, 2, 1025
+    q, k, v, do = (_rand((b, h, s, d), 300 + d + i).astype(np.float16)
+                   for i in range(4))
+    scale = d ** -0.5
+    o_j, lse_j, _, dk_j, dv_j = _jax_bwd(q, k, v, do, scale)
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    o, lse = fb.flash_fwd(*t[:3], scale)
+    delta = fb.flash_delta(torch.from_numpy(o_j.copy()), t[3])
+    dk, dv = fb.flash_bwd_dkdv_reference(*t, torch.from_numpy(lse_j.copy()),
+                                         delta, scale)
+    np.testing.assert_allclose(lse.numpy(), lse_j, rtol=0,
+                               atol=FP16_LSE_ATOL)
+    for name, g, w in (("o", o, o_j), ("dk", dk, dk_j), ("dv", dv, dv_j)):
+        w = w.astype(np.float32)
+        assert g.dtype == torch.float16 and g.shape == (b, h, s, d)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=FP16_REL * np.abs(w).max(),
+                                   err_msg=name)
+
+
 def test_qkv_cols_matches_jax_fp32():
     from vision_transformers_torch_xla_tpu.ops.flash_attention import (
         fused_attention_qkv_cols as jax_qkv_cols,
@@ -300,6 +335,43 @@ def test_k4_tma_rule_and_copy(kind, d, ready):
     torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-6)
 
 
+# The per-kernel rule (TENSOR_CORE_RULE): K4 and K5 on the tensor cores in
+# bf16 and fp16 to a head dim of 256, K6 in bf16 to 128; everything else on
+# csrc/flash_blocked.cu's library
+ROUTE_DS = (64, 128, 136, 192, 256, 264)
+
+
+@pytest.mark.parametrize("d", ROUTE_DS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_kernel_route_rule(dtype, d):
+    dt = getattr(torch, dtype)
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    wide = dtype != "float32" and d <= 256
+    want = {"flash_fwd": wide, "flash_bwd_dkdv": wide,
+            "flash_bwd_dq": dtype == "bfloat16" and d <= 128}
+    # the model's layout: q, k, v views of one (B, S, 3·H·D) buffer, dO a
+    # view of (B, S, H, D) memory; read in place on either route
+    q, k, v = fb.heads(meta(2, 1100, 3 * 4 * d), 4)
+    do = meta(2, 1100, 4, d).transpose(1, 2)
+    # a head dim TMA cannot read (not a multiple of 8): a copy on the
+    # tensor cores, in place on the CUDA cores
+    odd = fb.heads(meta(2, 1100, 3 * 4 * (d - 2)), 4)
+    # the head dim not contiguous: a copy on either route
+    tr = [meta(2, 4, d, 1100).transpose(-1, -2) for _ in range(3)]
+    for kernel, tc in want.items():
+        base = "tensor_cores" if tc else "cuda_cores"
+        assert fb.tensor_cores(kernel, q) is tc, kernel
+        assert fb.kernel_route(kernel, q, k, v) == base
+        assert fb.kernel_route(kernel, q, k, v, do) == base
+        assert fb.kernel_route(kernel, *odd) == \
+            ("tensor_cores_copy" if tc else "cuda_cores")
+        assert fb.kernel_route(kernel, *tr) == base + "_copy"
+        assert fb.kernel_route(kernel, q, k, v, tr[0]) == base + "_copy"
+
+
 def test_k4_tma_layout_of_size_one_dims():
     # a dimension of size 1 is never stepped: its stride takes the row
     # width, whatever torch reports
@@ -422,7 +494,8 @@ def test_k5_k6_layouts_on_cuda(cuda_device, kind, shape):
     ("qkv", (1, 1370, 12, 64)), ("qkv", (2, 197, 3, 40)),
     ("transposed", (1, 260, 2, 64)), ("qkv", (1, 1100, 2, 128))])
 def test_kernels_fp32_fp16_on_cuda(cuda_device, dtype, rel, kind, shape):
-    # the CUDA-core K4, K5 and K6 of fp32 and fp16 against their plain
+    # K4, K5 and K6 of fp32 and fp16 (fp32: the CUDA cores; fp16: K4 and K5
+    # on the tensor cores, K6 on the CUDA cores) against their plain
     # versions in the same dtype: fp32 differs by summation order and
     # expf only (1e-4 of the largest value), fp16 by flipped fp16
     # roundings of p, ds and the outputs (5e-3); lse to 1e-4
@@ -475,18 +548,22 @@ def test_kernels_contract_on_cuda(cuda_device):
     (dt, 320) for dt in ("bfloat16", "float16", "float32")] + [
     ("float32", 256), ("bfloat16", 1024)])
 def test_wide_heads_blocked_match_plain_on_cuda(cuda_device, dtype, d):
-    # F8: K4, K5 and K6 at a head dim over 128 on the CUDA cores
-    # (csrc/flash_blocked.cu's 64-column chunks) in every dtype, through
+    # F8: K4, K5 and K6 at a head dim over 128 through
     # fused_attention_qkv_cols at S > 1024, against their plain versions:
-    # bf16 to 2e-2 of the largest value, fp16 5e-3, fp32 1e-4 (as
-    # test_kernels_fp32_fp16_on_cuda); lse to 1e-4; two runs bitwise equal
+    # K4 and K5 on the tensor cores' wide tiles in bf16 and fp16 to 256,
+    # the rest on the CUDA cores (csrc/flash_blocked.cu's 64-column
+    # chunks); bf16 to 2e-2 of the largest value, fp16 5e-3, fp32 1e-4 (as
+    # test_kernels_fp32_fp16_on_cuda); lse to 1e-4; K4 run twice bitwise
+    # equal
     b, s, h = 1, 1100, 2
     dt = getattr(torch, dtype)
     rel = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}[dtype]
     qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 90)).to(cuda_device, dt)
     do = torch.from_numpy(_rand((b, s, h * d), 91)).to(cuda_device, dt)
     q, k, v = fb.heads(qkv, h)
-    assert not fb.tensor_cores(q)
+    tc = dtype != "float32" and d <= 256
+    assert [fb.tensor_cores(n, q) for n in fb.TENSOR_CORE_RULE] == \
+        [tc, tc, False]
     x = qkv.clone().requires_grad_()
     before = _counts()
     out = fa.fused_attention_qkv_cols(x, h)
@@ -507,6 +584,89 @@ def test_wide_heads_blocked_match_plain_on_cuda(cuda_device, dtype, d):
         assert g.dtype == dt and torch.isfinite(g.float()).all()
         err = (g.float() - r.float()).abs().max().item()
         assert err <= rel * r.float().abs().max().item()
+
+
+# ---- the tensor-core K4 and K5 in fp16 and at head dims 129-256
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu) against their plain versions at
+# the blocked kernels' edge sequences (around the 64-key and 128-row tiles,
+# past 1024, the 518-px model's 1370), in the qkv-view and dense layouts:
+# D 64 and 256 compiled, D 136 on the 192 tiles with zero-filled columns,
+# D 130 after one padded copy. bf16 within 2e-2 and fp16 within 5e-3 of
+# the plain version's largest value (flipped roundings of p, ds and the
+# stored outputs): of o, and of the call's dk and dv together (at S = 1,
+# ds = p (dO·v - dO·o) is 0 but for rounding, since o = v, and so is dk);
+# lse within 1e-4
+TC_EDGE_S = (1, 63, 64, 65, 127, 129, 1025, 1370)
+TC_REL = {"bfloat16": 2e-2, "float16": 5e-3}
+TC_EDGE_CASES = [
+    (dtype, layout, s, d) for dtype in TC_REL for layout in ("qkv", "dense")
+    for s in TC_EDGE_S for d in (64, 136, 192, 256)] + [
+    (dtype, "qkv", s, 130) for dtype in TC_REL for s in (65, 1370)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,layout,s,d", TC_EDGE_CASES)
+def test_tc_k4_k5_match_plain_at_edges_on_cuda(cuda_device, dtype, layout,
+                                               s, d):
+    dt = getattr(torch, dtype)
+    b, h = 1, 2
+    q, k, v = _k4_layout(layout, b, h, s, d, 110, cuda_device, dt)
+    do = torch.from_numpy(_rand((b, s, h, d), 114)).to(
+        cuda_device, dt).transpose(1, 2)
+    copy = d % 8 != 0
+    want = "tensor_cores_copy" if copy else "tensor_cores"
+    assert fb.kernel_route("flash_fwd", q, k, v) == want
+    assert fb.kernel_route("flash_bwd_dkdv", q, k, v, do) == want
+    scale = d ** -0.5
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+    delta = fb.flash_delta(o_r, do)
+    _, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d), dtype=dt,
+                                     device=cuda_device), h)
+    before = _counts()
+    o, lse = fb.flash_fwd(q, k, v)
+    fb.flash_bwd_dkdv(q, k, v, do, lse_r, delta, dk, dv)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2],
+                         before[3] + 2 * copy)
+    rel = TC_REL[dtype]
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=0)
+    want_grads = fb.flash_bwd_dkdv_reference(q, k, v, do, lse_r, delta,
+                                             scale)
+    grad_max = max(r.float().abs().max().item() for r in want_grads)
+    for g, r in zip((o, dk, dv), (o_r, *want_grads)):
+        assert g.dtype == dt and torch.isfinite(g.float()).all()
+        err = (g.float() - r.float()).abs().max().item()
+        ref_max = r.float().abs().max().item() if g is o else grad_max
+        assert err <= rel * ref_max, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float16", 64), ("float16", 128),
+                                     ("bfloat16", 192), ("float16", 256)])
+def test_k5_tensor_cores_and_k6_cuda_cores_share_a_backward(cuda_device,
+                                                            dtype, d):
+    # one `flash_bwd` where K5 runs on the tensor cores (csrc/flash_bwd.cu)
+    # and K6 on the CUDA cores (csrc/flash_blocked.cu), into views of one
+    # dqkv buffer, against the plain backward
+    dt = getattr(torch, dtype)
+    b, s, h = 1, 1370, 2
+    qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 120)).to(cuda_device, dt)
+    q, k, v = fb.heads(qkv, h)
+    do = torch.from_numpy(_rand((b, s, h, d), 121)).to(
+        cuda_device, dt).transpose(1, 2)
+    assert fb.kernel_route("flash_bwd_dkdv", q, k, v, do) == "tensor_cores"
+    assert fb.kernel_route("flash_bwd_dq", q, k, v, do) == "cuda_cores"
+    o, lse = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    before = _counts()
+    dqkv = fb.flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2] + 1, before[3])
+    rel = TC_REL[dtype]
+    for g, r in zip(fb.heads(dqkv, h),
+                    fb.flash_bwd_reference(q, k, v, o, lse, do, d ** -0.5)):
+        assert g.dtype == dt and torch.isfinite(g.float()).all()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= rel * r.float().abs().max().item(), err
 
 
 # ---- the fp32 K5 and K6 (csrc/flash_bwd_simt.cu: flash_bwd_dkdv_simt_kernel
@@ -734,3 +894,79 @@ def test_fp32_k4_launches_the_register_tiled_kernel_alone(fp32_k5k6_trace,
     names = fp32_k5k6_trace[f"fwd{d}{layout}"]
     assert len(names) == 1 and \
         f"::flash_fwd_simt_kernel<{args}>(" in names[0], names
+
+
+# The kernels one call of the tensor-core K4 and K5, and of K6 beside them,
+# launch (torch.profiler, in a fresh process as fp32_k5k6_trace): K4 and K5
+# on csrc/flash_fwd.cu's and csrc/flash_bwd.cu's kernels, which take
+# tensor maps, K6 (fp16, or past 128) on csrc/flash_blocked.cu's, which
+# take pointers
+TC_TRACE_CASES = (("float16", 64), ("float16", 128), ("bfloat16", 192),
+                  ("float16", 192), ("bfloat16", 256), ("float16", 256))
+_TC_TRACE = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked as fb
+out = {}
+for dtype, d in %r:
+    dt = getattr(torch, dtype)
+    h, s = 2, 1100
+    q, k, v = fb.heads(torch.randn(1, s, 3 * h * d, device="cuda").to(dt), h)
+    do = torch.randn(1, h, s, d, device="cuda").to(dt)
+    o, lse = fb.flash_fwd_reference(q, k, v, d ** -0.5)
+    delta = fb.flash_delta(o, do)
+    g = torch.empty(1, h, s, d, device="cuda", dtype=dt)
+    calls = {"dkdv": lambda: fb.flash_bwd_dkdv(q, k, v, do, lse, delta, g,
+                                               g.clone()),
+             "dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, g),
+             "fwd": lambda: fb.flash_fwd(q, k, v)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[f"{name}{dtype}{d}"] = sorted(
+            e.key for e in prof.key_averages()
+            if e.device_type.name == "CUDA"
+            and "anonymous namespace" in e.key)
+print(json.dumps(out))
+""" % (TC_TRACE_CASES,)
+
+
+@pytest.fixture(scope="module")
+def tc_trace():
+    """The csrc/ kernels one call of K4, K5 and K6 launches at each of
+    TC_TRACE_CASES on a qkv buffer's views, traced by torch.profiler."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    res = subprocess.run([sys.executable, "-c", _TC_TRACE],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", TC_TRACE_CASES)
+def test_tc_k4_k5_launch_their_kernels_alone(tc_trace, dtype, d):
+    # <element type, compiled head dim>
+    t = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
+    kd = next(x for x in (64, 128, 192, 256) if d <= x)
+    for name, kernel in (("fwd", "flash_fwd_kernel"),
+                         ("dkdv", "flash_bwd_dkdv_kernel")):
+        names = tc_trace[f"{name}{dtype}{d}"]
+        assert len(names) == 1 and \
+            f"::{kernel}<{t}, {kd}>(CUtensorMap" in names[0], names
+    names = tc_trace[f"dq{dtype}{d}"]
+    want = (f"::flash_bwd_dq_kernel<{t}, {kd}>(" if d <= 128
+            else f"::flash_bwd_dq_wide_kernel<{t}>(")
+    assert len(names) == 1 and want in names[0] and \
+        "CUtensorMap" not in names[0], names

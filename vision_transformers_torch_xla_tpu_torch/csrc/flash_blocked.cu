@@ -1,9 +1,12 @@
-// Blocked flash attention (online softmax) on the CUDA cores, for float and
-// half inputs at every head dim, and bfloat16 at head dims over 128.
+// Blocked flash attention (online softmax) on the CUDA cores: float inputs
+// at every head dim, K6 in half, and every type past the tensor-core
+// kernels' head dims.
 //
-// Which kernel serves which dtype and head dim D:
-//   bf16, D <= 128: the tensor cores, csrc/flash_fwd.cu (K4) and
-//     csrc/flash_bwd.cu (K5, K6), libraries of their own;
+// Which kernel serves which dtype and head dim D (ops/flash_blocked.py::
+// TENSOR_CORE_RULE decides):
+//   bf16 and fp16, D <= 256: K4 and K5 on the tensor cores, csrc/flash_fwd.cu
+//     and csrc/flash_bwd.cu, libraries of their own; bf16, D <= 128: K6
+//     there too;
 //   fp32, D <= 128: K4 in csrc/flash_fwd_simt.cu (flash_fwd_simt_kernel:
 //     128-row blocks of 8 warps that own whole rows, s on 8 x 4 register
 //     tiles, p v on 8 x 4 or 8 x 8, cp.async double buffers at D <= 64), K5
@@ -12,30 +15,33 @@
 //     tiles, the sums on 8 x 8, cp.async double buffers at D <= 64), both
 //     linked into this library: fwd(), dkdv() and dq() hand them float at
 //     D <= 128 (the register tiles live in csrc/simt_tiles.cuh);
-//   fp16, D <= 128: K4-K6 here (the <__half, 64 | 128> kernels below);
-//   every dtype past 128 (to 1024): the *_wide_kernel<T> below.
+//   fp16, D <= 128: K6 here (flash_bwd_dq_kernel<__half, 64 | 128>);
+//   every dtype past 128 (to 1024): the *_wide_kernel<T> below (K4 and K5
+//     in bf16 and fp16 only past 256).
 // Measured on an H100 80GB HBM3 at 700 W, device ms of one call at (B, S,
 // H, D) = (32, 1370, 12, 64) (PERF.md §6): fp32 K4 5.204-5.207 (this
 // file's flash_fwd_kernel<float, 64> before it: 7.19-7.20 in the same
 // call; SDPA's fp32 forward 5.62-5.65); fp32 K5 and K6 9.46-9.53 and
 // 7.73-7.77 (this file's loops before them: 12.44 and 10.74-10.75; SDPA's
-// whole fp32 backward 14.06-14.18); fp16 K4-K6 7.25, 12.64, 11.66 (event
-// ms).
+// whole fp32 backward 14.06-14.18); fp16 K6 11.66 (event ms). The fp16 K4
+// and K5 loops this file had at D <= 128 took 7.03-7.07 and 12.47-12.54
+// device ms where csrc/flash_fwd.cu and csrc/flash_bwd.cu take
+// 0.7145-0.7149 and 1.229-1.230 (in one call, PERF.md §6).
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_blocked.py, the long-sequence path (S > 1024), where they run in a
-// dtype other than bfloat16 or at a head dim over 128 (the JAX kernels take
-// any float dtype and head dim):
-//   K4 flash_fwd_kernel      <- _fwd_kernel (:33): per query row, over key
+// dtype or at a head dim the tensor-core kernels do not take (the JAX
+// kernels take any float dtype and head dim):
+//   K4 flash_fwd_wide_kernel       <- _fwd_kernel (:33): per query row, over key
 //      tiles, a running max m, sum l and fp32 accumulator acc:
 //        s = (fp32 q * scale) k^T, keys >= S masked to -1e30;
 //        m' = max(m, rowmax s); alpha = exp(m - m'); p = exp(s - m');
 //        l = l alpha + sum(p over fp32 p); acc = acc alpha + rnd(p) v;
 //      then o = rnd(acc / max(l, 1e-30)), lse = m + log(max(l, 1e-30)).
-//   K5 flash_bwd_dkdv_kernel <- _bwd_dkdv_kernel (:109): per key row, over
-//      query tiles, p = exp((q k^T) scale - lse), dv += rnd(p)^T dO,
+//   K5 flash_bwd_dkdv_wide_kernel  <- _bwd_dkdv_kernel (:109): per key row,
+//      over query tiles, p = exp((q k^T) scale - lse), dv += rnd(p)^T dO,
 //      ds = p (dO v^T - delta), dk += rnd(ds)^T q; dk *= scale.
-//   K6 flash_bwd_dq_kernel   <- _bwd_dq_kernel (:157): per query row, over
+//   K6 flash_bwd_dq(_wide)_kernel  <- _bwd_dq_kernel (:157): per query row, over
 //      key tiles, the same p and ds, dq += rnd(ds) k; dq *= scale.
 // rnd(x) rounds to the inputs' dtype, the JAX kernels' astype: an identity
 // for float, round-to-nearest-even for half (csrc/elem.cuh). delta =
@@ -70,8 +76,9 @@
 //   K6: block (b*H + h, query tile); q, dO, lse and delta once, K and V per
 //       key tile; dq accumulates in registers (fp16).
 // The grid is one-dimensional over (b h, tile), so B H is bounded only by
-// 2^31 / ceil(S / 64). The head dim is 64 or 128 at compile time; a smaller
-// head dim takes the next one with its columns zero-filled.
+// 2^31 / ceil(S / 64). K6 in half at D <= 128 has the head dim 64 or 128
+// at compile time; a smaller head dim takes the next one with its columns
+// zero-filled.
 //
 // Head dims over 128 (the *_wide_kernel<T>, in bf16, fp16 and fp32): the
 // same tiles and loops with the head dim a run-time value up to 1024, in
@@ -83,14 +90,14 @@
 // operand at a time in the same order in every block of the tile (so m, l,
 // p and ds are bitwise the same in each), then stages its chunk of V (K4),
 // of q and dO (K5) or of K (K6) and accumulates the chunk's 64 output
-// columns in registers, as the D = 64 kernels do, in their shared memory.
+// columns in registers, as K6's D = 64 kernel does, in its shared memory.
 // s and dp are computed once per chunk: right, and recorded as slow
 // (PERF.md §6), not fast. K4's lse is written by chunk 0.
 //
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
 // launch on the caller's stream; each host function takes the element type
-// as a csrc/elem.cuh code (kF16 or kF32 at D <= 128, kBf16, kF16 or kF32
-// above) and returns cudaGetLastError(), or cudaErrorInvalidValue for
+// as a csrc/elem.cuh code (at D <= 128 kF32, and kF16 for K6; kBf16, kF16
+// or kF32 above) and returns cudaGetLastError(), or cudaErrorInvalidValue for
 // another code. The caller (ops/flash_blocked.py) checks the shapes: 1 <= D
 // <= 1024.
 
@@ -147,165 +154,6 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, long long sr,
       if (c < D) dst[(long long)r * sr + c] = Elem<T>::store(acc[i][j] * mul);
     }
   }
-}
-
-// K4. grid (B * H * n_tiles). Shared memory: qT [kD x kPA] (q * scale),
-// kT [kD x kPB], vT [kD x kPB], pT [kTile x kPA] (rnd(p), [key][query]).
-template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int S, int D, int n_tiles,
-                 float scale, Layout in, Layout out) {
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;
-  float* kT = qT + kD * kPA;
-  float* vT = kT + kD * kPB;
-  float* pT = vT + kD * kPB;
-  constexpr int NO = kD / 16;  // o columns per thread
-  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
-  const int q0 = (blockIdx.x % n_tiles) * kTile;
-  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
-  const long long in_off = b * in.sb + h * in.sh;
-
-  stage_t<T, kD>(qT, kPA, q + in_off, in.sr, q0, S, D, scale);
-  float acc[4][NO], m[4], l[4];
-  zero(acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    __syncthreads();  // the last tile's kT, vT and pT are read
-    stage_t<T, kD>(kT, kPB, k + in_off, in.sr, k0, S, D, 1.f);
-    stage_t<T, kD>(vT, kPB, v + in_off, in.sr, k0, S, D, 1.f);
-    __syncthreads();
-    float s[4][4];
-    zero(s);
-    tile_product<4, kD, kPB, 1>(s, qT, kT, row0, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= S) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        s[i][j] = Elem<T>::round(p);
-      }
-      l[i] = l[i] * alpha + half_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NO; ++c) acc[i][c] *= alpha;
-    }
-    store_t(pT, s, row0, tx);
-    __syncthreads();
-    // acc += rnd(p) v: v read from vT [d][key] along the key
-    tile_product<NO, kTile, 1, kPB>(acc, pT, vT, row0, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lf = fmaxf(l[i], 1e-30f);
-    const int r = q0 + row0 + i;
-    if (tx == 0 && r < S) lse[(long long)bh * S + r] = m[i] + logf(lf);
-#pragma unroll
-    for (int c = 0; c < NO; ++c) acc[i][c] /= lf;  // o = acc / l, as JAX
-  }
-  store_rows<T, NO>(o + b * out.sb + h * out.sh, out.sr, acc, q0, row0, tx,
-                    S, D, 1.f);
-}
-
-// K5. grid (B * H * n_tiles) over key tiles. Shared memory: kT, vT
-// [kD x kPA] (A operands, the block's keys), qT, doT [kD x kPB] (the query
-// tile), pq, dsq [kTile x kPA] (rnd(p), rnd(ds) as [query][key]), then
-// lse and delta of the query tile [kTile] each.
-template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int S, int D, int n_tiles,
-                      float scale, Layout in, Layout og, Layout gr) {
-  extern __shared__ __align__(16) float smem[];
-  float* kT = smem;
-  float* vT = kT + kD * kPA;
-  float* qT = vT + kD * kPA;
-  float* doT = qT + kD * kPB;
-  float* pq = doT + kD * kPB;
-  float* dsq = pq + kTile * kPA;
-  float* lse_s = dsq + kTile * kPA;
-  float* dl_s = lse_s + kTile;
-  constexpr int NO = kD / 16;
-  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
-  const int k0 = (blockIdx.x % n_tiles) * kTile;
-  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
-  const long long in_off = b * in.sb + h * in.sh;
-  const T* qg = q + in_off;
-  const T* dog = dout + b * og.sb + h * og.sh;
-  const float* lse_g = lse + (long long)bh * S;
-  const float* dl_g = delta + (long long)bh * S;
-
-  stage_t<T, kD>(kT, kPA, k + in_off, in.sr, k0, S, D, 1.f);
-  stage_t<T, kD>(vT, kPA, v + in_off, in.sr, k0, S, D, 1.f);
-  float dk_acc[4][NO], dv_acc[4][NO];
-  zero(dk_acc);
-  zero(dv_acc);
-  bool key_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) key_ok[i] = k0 + row0 + i < S;
-
-  for (int q0 = 0; q0 < S; q0 += kTile) {
-    __syncthreads();  // the last tile's qT, doT, pq, dsq are read
-    stage_t<T, kD>(qT, kPB, qg, in.sr, q0, S, D, 1.f);
-    stage_t<T, kD>(doT, kPB, dog, og.sr, q0, S, D, 1.f);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool ok = q0 + i < S;
-      lse_s[i] = ok ? lse_g[q0 + i] : 0.f;
-      dl_s[i] = ok ? dl_g[q0 + i] : 0.f;
-    }
-    __syncthreads();
-    // s^T [key][query] = K q^T, dp^T = V dO^T
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    tile_product<4, kD, kPB, 1>(s, kT, qT, row0, tx);
-    tile_product<4, kD, kPB, 1>(dp, vT, doT, row0, tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qi = tx + 16 * j;
-      const bool q_ok = q0 + qi < S;
-      const float ls = lse_s[qi], dl = dl_s[qi];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p =
-            (q_ok && key_ok[i]) ? expf(s[i][j] * scale - ls) : 0.f;
-        s[i][j] = Elem<T>::round(p);
-        dp[i][j] = Elem<T>::round(p * (dp[i][j] - dl));
-      }
-    }
-    store_t(pq, s, row0, tx);
-    store_t(dsq, dp, row0, tx);
-    __syncthreads();
-    // dv += rnd(p)^T dO, dk += rnd(ds)^T q: dO and q read from doT, qT
-    // [d][query] along the query
-    tile_product<NO, kTile, 1, kPB>(dv_acc, pq, doT, row0, tx);
-    tile_product<NO, kTile, 1, kPB>(dk_acc, dsq, qT, row0, tx);
-  }
-
-  const long long g_off = b * gr.sb + h * gr.sh;
-  store_rows<T, NO>(dv + g_off, gr.sr, dv_acc, k0, row0, tx, S, D, 1.f);
-  store_rows<T, NO>(dk + g_off, gr.sr, dk_acc, k0, row0, tx, S, D, scale);
 }
 
 // K6. grid (B * H * n_tiles) over query tiles. Shared memory: qT, doT
@@ -388,9 +236,9 @@ __device__ __forceinline__ WideBlock wide_block(int n_tiles, int n_c) {
                    ((int)blockIdx.x % n_c) * kTile};
 }
 
-// K4 at a run-time head dim. Shared memory as flash_fwd_kernel<T, 64>: qT
-// [kTile x kPA] (a panel of q * scale), kT [kTile x kPB] (a panel of K), vT
-// [kTile x kPB] (the chunk of V), pT [kTile x kPA] (rnd(p), [key][query]).
+// K4 at a run-time head dim. Shared memory: qT [kTile x kPA] (a panel of
+// q * scale), kT [kTile x kPB] (a panel of K), vT [kTile x kPB] (the chunk
+// of V), pT [kTile x kPA] (rnd(p), [key][query]).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -469,10 +317,10 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    tx, S, D - c0, 1.f);
 }
 
-// K5 at a run-time head dim. Shared memory as flash_bwd_dkdv_kernel<T, 64>:
-// kT, vT [kTile x kPA] (a panel of the block's keys), qT, doT [kTile x kPB]
-// (a panel of the query tile; then its chunk), pq, dsq [kTile x kPA]
-// (rnd(p), rnd(ds) as [query][key]), lse and delta of the query tile.
+// K5 at a run-time head dim. Shared memory: kT, vT [kTile x kPA] (a panel
+// of the block's keys), qT, doT [kTile x kPB] (a panel of the query tile;
+// then its chunk), pq, dsq [kTile x kPA] (rnd(p), rnd(ds) as [query][key]),
+// lse and delta of the query tile.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -640,24 +488,27 @@ int prepare(Kernel kernel, size_t bytes, int B, int H, int S, int* n_tiles,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// K4 and K5: float at D <= 128 (the simt kernels take D themselves),
+// every type past 128 (kD == kWide).
 template <typename T, int kD>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int S, int D, float scale, Layout in, Layout out,
         cudaStream_t stream) {
-  constexpr int kS = kD == kWide ? kTile : kD;  // the staged head dim
-  const size_t smem = (size_t)(kS * kPA + 2 * kS * kPB + kTile * kPA) *
-                      sizeof(float);
-  int n_tiles;
-  dim3 grid;
-  if constexpr (std::is_same<T, float>::value && kD != kWide) {
+  if constexpr (kD != kWide) {
+    static_assert(std::is_same<T, float>::value,
+                  "bf16 and fp16 K4 at D <= 128 run in csrc/flash_fwd.cu");
     const long long i[3] = {in.sb, in.sh, in.sr},
                     u[3] = {out.sb, out.sh, out.sr};
     return flash_fwd_simt::fwd(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
         static_cast<float*>(lse), B, H, S, D, scale, i, u, stream);
-  } else if constexpr (kD == kWide) {
+  } else {
+    const size_t smem =
+        (size_t)(kTile * kPA + 2 * kTile * kPB + kTile * kPA) * sizeof(float);
     const int n_c = (D + kTile - 1) / kTile;
+    int n_tiles;
+    dim3 grid;
     int rc = prepare(flash_fwd_wide_kernel<T>, smem, B, H, S, &n_tiles,
                      &grid, n_c);
     if (rc) return rc;
@@ -665,14 +516,6 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o),
         static_cast<float*>(lse), H, S, D, n_tiles, n_c, scale, in, out);
-    return (int)cudaGetLastError();
-  } else {
-    int rc = prepare(flash_fwd_kernel<T, kD>, smem, B, H, S, &n_tiles, &grid);
-    if (rc) return rc;
-    flash_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o),
-        static_cast<float*>(lse), H, S, D, n_tiles, scale, in, out);
     return (int)cudaGetLastError();
   }
 }
@@ -682,13 +525,9 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int B,
          int H, int S, int D, float scale, Layout in, Layout og, Layout gr,
          cudaStream_t stream) {
-  constexpr int kS = kD == kWide ? kTile : kD;  // the staged head dim
-  const size_t smem =
-      (size_t)(2 * kS * kPA + 2 * kS * kPB + 2 * kTile * kPA + 2 * kTile) *
-      sizeof(float);
-  int n_tiles;
-  dim3 grid;
-  if constexpr (std::is_same<T, float>::value && kD != kWide) {
+  if constexpr (kD != kWide) {
+    static_assert(std::is_same<T, float>::value,
+                  "bf16 and fp16 K5 at D <= 128 run in csrc/flash_bwd.cu");
     const long long i[3] = {in.sb, in.sh, in.sr}, o[3] = {og.sb, og.sh, og.sr},
                     g[3] = {gr.sb, gr.sh, gr.sr};
     return flash_bwd_simt::dkdv(
@@ -697,8 +536,13 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<float*>(dk), static_cast<float*>(dv), B, H, S, D, scale,
         i, o, g, stream);
-  } else if constexpr (kD == kWide) {
+  } else {
+    const size_t smem = (size_t)(2 * kTile * kPA + 2 * kTile * kPB +
+                                 2 * kTile * kPA + 2 * kTile) *
+                        sizeof(float);
     const int n_c = (D + kTile - 1) / kTile;
+    int n_tiles;
+    dim3 grid;
     int rc = prepare(flash_bwd_dkdv_wide_kernel<T>, smem, B, H, S, &n_tiles,
                      &grid, n_c);
     if (rc) return rc;
@@ -708,17 +552,6 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dk), static_cast<T*>(dv), H, S, D, n_tiles, n_c,
         scale, in, og, gr);
-    return (int)cudaGetLastError();
-  } else {
-    int rc = prepare(flash_bwd_dkdv_kernel<T, kD>, smem, B, H, S, &n_tiles,
-                     &grid);
-    if (rc) return rc;
-    flash_bwd_dkdv_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, S, D, n_tiles, scale, in,
-        og, gr);
     return (int)cudaGetLastError();
   }
 }
@@ -765,10 +598,9 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
-// f<T, kD>(args...) for the element type `dtype` and the head dim D: 64 or
-// 128 at compile time for kF16 and kF32 at D <= 128, the wide kernels
-// (kWide) for kBf16, kF16 and kF32 above.
-#define DISPATCH(f, dtype, D, ...)                                          \
+// f<T, kWide>(args...) for the element type `dtype` at head dims D over
+// 128: the wide kernels, in kBf16, kF16 and kF32.
+#define DISPATCH_WIDE(f, dtype, D, ...)                                     \
   if ((D) > 128) {                                                          \
     switch (dtype) {                                                        \
       case kBf16:                                                           \
@@ -780,7 +612,17 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
       default:                                                              \
         return (int)cudaErrorInvalidValue;                                  \
     }                                                                       \
-  }                                                                         \
+  }
+
+// K4 and K5 (fwd, dkdv) at D <= 128 take kF32 alone.
+#define DISPATCH_F32(f, dtype, D, ...)                                      \
+  DISPATCH_WIDE(f, dtype, D, __VA_ARGS__)                                   \
+  return (dtype) == kF32 ? f<float, 128>(__VA_ARGS__)                       \
+                         : (int)cudaErrorInvalidValue;
+
+// K6 (dq) at D <= 128: kF16 and kF32, 64 or 128 at compile time.
+#define DISPATCH(f, dtype, D, ...)                                          \
+  DISPATCH_WIDE(f, dtype, D, __VA_ARGS__)                                   \
   switch (dtype) {                                                          \
     case kF16:                                                              \
       return (D) <= 64 ? f<__half, 64>(__VA_ARGS__)                         \
@@ -804,7 +646,8 @@ int vtx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   int dtype, void* stream) {
   const Layout in{in_sb, in_sh, in_sr}, out{out_sb, out_sh, out_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(fwd, dtype, D, q, k, v, o, lse, B, H, S, D, scale, in, out, s)
+  DISPATCH_F32(fwd, dtype, D, q, k, v, o, lse, B, H, S, D, scale, in, out,
+               s)
 }
 
 // dk, dv (grad layout) from q, k, v (in layout), dout (its own layout),
@@ -819,8 +662,8 @@ int vtx_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(dkdv, dtype, D, q, k, v, dout, lse, delta, dk, dv, B, H, S, D,
-           scale, in, og, gr, s)
+  DISPATCH_F32(dkdv, dtype, D, q, k, v, dout, lse, delta, dk, dv, B, H, S,
+               D, scale, in, og, gr, s)
 }
 
 // dq (grad layout), from the same inputs.

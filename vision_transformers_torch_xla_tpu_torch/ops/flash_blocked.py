@@ -2,35 +2,39 @@
 
 Counterpart of vision_transformers_torch_xla_tpu/ops/flash_blocked.py: the
 long-sequence path (S > 1024, high-resolution ViTs). Three kernels, each
-in bf16 on the tensor cores at a head dim <= MAX_HEAD_DIM and on the CUDA
-cores in fp16, in fp32 and at a wider head dim (the JAX kernels take any
-float dtype and head dim):
+on the tensor cores where TENSOR_CORE_RULE says so and on the CUDA cores
+otherwise (the JAX kernels take any float dtype and head dim):
 
 * `flash_fwd`, the port of `_fwd_kernel` (:33, ROADMAP K4): o and the row
-  logsumexp lse = m + log(l); bf16 -> csrc/flash_fwd.cu (TMA and wgmma);
+  logsumexp lse = m + log(l); bf16 and fp16 at a head dim <= 256 ->
+  csrc/flash_fwd.cu (TMA and wgmma; 64-key tiles past 128);
 * `flash_bwd_dkdv`, the port of `_bwd_dkdv_kernel` (:109, K5), and
   `flash_bwd_dq`, the port of `_bwd_dq_kernel` (:157, K6), both from
   p = exp(s - lse) and delta = rowsum(dO·O), which a torch op computes
-  (`flash_delta`; JAX computes it outside Pallas too); bf16 ->
-  csrc/flash_bwd.cu (TMA and wgmma); `flash_bwd` runs the three.
+  (`flash_delta`; JAX computes it outside Pallas too); K5 in bf16 and fp16
+  at a head dim <= 256 and K6 in bf16 at one <= 128 -> csrc/flash_bwd.cu
+  (TMA and wgmma; past 128 K5's two warpgroups split dV and dK);
+  `flash_bwd` runs the three, K5 and K6 each from its own rule's library.
 
-fp16 and fp32, and every dtype at a head dim over MAX_HEAD_DIM (up to
-MAX_CUDA_CORE_HEAD_DIM), go to csrc/flash_blocked.cu, CUDA-core loops that
-round where the JAX kernels cast to the inputs' dtype and compute in fp32
-(`tensor_cores` decides); its fp32 K4, K5 and K6 at a head dim <=
-MAX_HEAD_DIM are the register-tiled kernels of csrc/flash_fwd_simt.cu and
-csrc/flash_bwd_simt.cu, linked into the same library, which read every
-fp32 view with a contiguous head dim in place (16-byte copies where its
-rows are 16-byte aligned, else 4-byte ones).
+Everything else, up to MAX_CUDA_CORE_HEAD_DIM (fp32; K6 in fp16 and past
+128; K4 and K5 past 256), goes to csrc/flash_blocked.cu, CUDA-core loops
+that round where the JAX kernels cast to the inputs' dtype and compute in
+fp32 (`tensor_cores` decides, per kernel); its fp32 K4, K5 and K6 at a
+head dim <= 128 are the register-tiled kernels of csrc/flash_fwd_simt.cu
+and csrc/flash_bwd_simt.cu, linked into the same library, which read
+every fp32 view with a contiguous head dim in place (16-byte copies where
+its rows are 16-byte aligned, else 4-byte ones). No launch gives way to
+another library or to the plain version: a failed build or launch raises.
 
 `FlashAttentionBlocked` is the custom VJP `_flash_attention_padded`
 (:247-266) as an autograd Function, and `flash_attention_blocked` the
 public entry (:269). The wrappers take (B, H, S, D) tensors of any
 strides, so views of a fused (B, S, 3·H·D) qkv buffer go in as they are
-(`heads`). The bf16 kernels read them through TMA tensor maps, which need
-16-byte-aligned data and strides and a head dim that is a multiple of 8
-(`tma_ready`); the CUDA-core kernels need q, k and v of one layout with a
-contiguous head dim. Other inputs are first copied once into contiguous
+(`heads`). The tensor-core kernels read them through TMA tensor maps, which
+need 16-byte-aligned data and strides and a head dim that is a multiple of
+8 (`tma_ready`); the CUDA-core kernels need q, k and v of one layout with
+a contiguous head dim (`kernel_route` says which, before the launch).
+Other inputs are first copied once into contiguous
 buffers with the head dim zero-padded (`padded_copy`, which the strided
 kernels of ops/flash_attention.py share; `COPIES` counts its calls), and
 outputs the kernels cannot write in place go through temporaries. o comes
@@ -60,7 +64,13 @@ from vision_transformers_torch_xla_tpu_torch.ops.cuda_build import (
 
 log = logging.getLogger(__name__)
 
-MAX_HEAD_DIM = 128   # the tensor-core kernels' (bf16) widest head
+# Each kernel's tensor-core instantiations: (dtypes, widest head dim). K4
+# (csrc/flash_fwd.cu) and K5 (csrc/flash_bwd.cu's dk/dv) in bf16 and fp16
+# to 256, K6 (its dq) in bf16 to 128; the rest runs on the CUDA cores
+TENSOR_CORE_RULE = {
+    "flash_fwd": ((torch.bfloat16, torch.float16), 256),
+    "flash_bwd_dkdv": ((torch.bfloat16, torch.float16), 256),
+    "flash_bwd_dq": ((torch.bfloat16,), 128)}
 MAX_CUDA_CORE_HEAD_DIM = 1024  # the CUDA-core kernels' widest head
 TMA_ALIGN = 8  # elements: the tensor maps want 16-byte strides and data
 
@@ -74,7 +84,7 @@ FLASH_BWD_DQ_LAUNCHES = 0
 COPIES = 0
 
 # the CUDA-core library's sources: K4-K6's loops, and the fp32 K5, K6 and
-# K4 at a head dim <= MAX_HEAD_DIM linked in
+# K4 at a head dim <= 128 linked in
 CUDA_CORE_SOURCES = ("flash_blocked.cu", "flash_bwd_simt.cu",
                      "flash_fwd_simt.cu")
 
@@ -106,35 +116,53 @@ _BWD_SIGS = {"vtx_flash_bwd_dkdv": _DKDV_ARGS + [_I, _P],
 
 
 def build_fwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the bf16 forward's library (K4)."""
+    """Build (at first use) and load the tensor-core forward's library
+    (K4)."""
     return _load("flash_fwd", _FWD_SIGS)
 
 
 def build_bwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the bf16 backward's library (K5,
-    K6)."""
+    """Build (at first use) and load the tensor-core backward's library
+    (K5, K6)."""
     return _load("flash_bwd", _BWD_SIGS)
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the CUDA-core library (K4, K5, K6 in
-    fp16 and fp32, and in every dtype at a head dim over MAX_HEAD_DIM),
-    from CUDA_CORE_SOURCES."""
+    """Build (at first use) and load the CUDA-core library (K4-K6 where
+    TENSOR_CORE_RULE does not take them), from CUDA_CORE_SOURCES."""
     return _load("flash_blocked", {**_FWD_SIGS, **_BWD_SIGS},
                  CUDA_CORE_SOURCES)
 
 
-def tensor_cores(q: torch.Tensor) -> bool:
-    """Whether K4-K6 on q's dtype and head dim run on the tensor cores
-    (csrc/flash_fwd.cu, csrc/flash_bwd.cu: bf16 at a head dim <=
-    MAX_HEAD_DIM); else on csrc/flash_blocked.cu's CUDA-core loops."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_HEAD_DIM
+def tensor_cores(kernel: str, q: torch.Tensor) -> bool:
+    """Whether `kernel` ('flash_fwd', 'flash_bwd_dkdv' or 'flash_bwd_dq')
+    on q's dtype and head dim runs on the tensor cores (csrc/flash_fwd.cu,
+    csrc/flash_bwd.cu, as TENSOR_CORE_RULE says); else on
+    csrc/flash_blocked.cu's library."""
+    dtypes, widest = TENSOR_CORE_RULE[kernel]
+    return q.dtype in dtypes and q.shape[-1] <= widest
 
 
-def _library(q: torch.Tensor, tc_lib) -> ctypes.CDLL:
-    """The library for q's dtype and head dim: `tc_lib` (the tensor
-    cores') where `tensor_cores` says so, else the CUDA-core one."""
-    return tc_lib() if tensor_cores(q) else build_kernels()
+def kernel_route(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, do: Optional[torch.Tensor] = None) -> str:
+    """Where one call of `kernel` on q, k, v (and, for the backward, do)
+    goes, decided before the launch: 'tensor_cores' (read in place by TMA,
+    `tma_ready`), 'tensor_cores_copy' (the same kernel after one
+    `padded_copy`, the head dim padded to a multiple of 8), 'cuda_cores'
+    (csrc/flash_blocked.cu's library, in place: q, k, v of one layout with
+    a contiguous head dim) or 'cuda_cores_copy' (that library after one
+    contiguous copy)."""
+    tc = tensor_cores(kernel, q)
+    ready = _in_place(tc, q, k, v) and (do is None
+                                        or _in_place(tc, do, do, do))
+    return ("tensor_cores" if tc else "cuda_cores") + (
+        "" if ready else "_copy")
+
+
+def _library(route: str, tc_lib) -> ctypes.CDLL:
+    """The library of a route: `tc_lib` (the tensor cores') or the
+    CUDA-core one."""
+    return tc_lib() if route.startswith("tensor_cores") else build_kernels()
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -258,32 +286,33 @@ def tma_ready(*tensors: torch.Tensor) -> bool:
                     for t in tensors))
 
 
-def _in_place(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether the kernels of q's dtype and head dim read q, k and v in
-    place: TMA's rule for the tensor cores' (`tma_ready`); one layout with
-    a contiguous head dim for the CUDA-core kernels."""
-    if tensor_cores(q):
+def _in_place(tc: bool, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> bool:
+    """Whether a kernel reads q, k and v in place: TMA's rule for the
+    tensor cores' (tc, `tma_ready`); one layout with a contiguous head dim
+    for the CUDA-core kernels."""
+    if tc:
         return tma_ready(q, k, v)
     return (_tma_layout(q) == _tma_layout(k) == _tma_layout(v)
             and all(t.stride(-1) == 1 for t in (q, k, v)))
 
 
-def _writable(outs) -> bool:
-    """Whether the kernels write `outs` in place: one layout with a
-    contiguous head dim; the tensor-core kernels store pairs, so also even
-    strides and 4-byte-aligned data."""
+def _writable(route: str, outs) -> bool:
+    """Whether the kernels of `route` write `outs` in place: one layout
+    with a contiguous head dim; the tensor-core kernels store pairs, so
+    also even strides and 4-byte-aligned data."""
     if len({_layout(t) for t in outs}) != 1 or any(
             t.stride(-1) != 1 for t in outs):
         return False
-    return not tensor_cores(outs[0]) or all(
+    return not route.startswith("tensor_cores") or all(
         t.data_ptr() % 4 == 0 and all(x % 2 == 0 for x in _layout(t))
         for t in outs)
 
 
-def _copy_multiple(t: torch.Tensor) -> int:
+def _copy_multiple(route: str) -> int:
     """The head-dim multiple a copy pads to: TMA's 8 for the tensor cores'
     kernels, none for the CUDA-core ones."""
-    return TMA_ALIGN if tensor_cores(t) else 1
+    return TMA_ALIGN if route.startswith("tensor_cores") else 1
 
 
 def padded_copy(tensors, multiple: int, name: str):
@@ -311,8 +340,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention, q, k, v (B, H, S, D) -> o (B, H, S, D), a view of
     (B, S, H, D) memory, and the row logsumexp lse (B, H, S) fp32. On the
-    card, q, k and v that the kernel cannot read in place (`_in_place`) are
-    copied once first; D > MAX_CUDA_CORE_HEAD_DIM raises."""
+    card, q, k and v that the kernel cannot read in place (`kernel_route`)
+    are copied once first; D > MAX_CUDA_CORE_HEAD_DIM raises."""
     global FLASH_FWD_LAUNCHES
     scale = _scale(q, scale)
     if q.device.type == "cpu":
@@ -320,13 +349,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _same_shape(q, k, v)
     _check_cuda("flash_fwd", (q, k, v))
     b, h, s, d = q.shape
-    if not _in_place(q, k, v):
-        q, k, v = padded_copy((q, k, v), _copy_multiple(q), "flash_fwd")
+    route = kernel_route("flash_fwd", q, k, v)
+    if route.endswith("_copy"):
+        q, k, v = padded_copy((q, k, v), _copy_multiple(route), "flash_fwd")
     dp = q.shape[-1]
     o = torch.empty((b, s, h, dp), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _library(q, build_fwd_kernels)
+    lib = _library(route, build_fwd_kernels)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vtx_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -362,19 +392,21 @@ def _bwd_checks(name, q, k, v, do, lse, delta, outs) -> None:
 
 def _launch_bwd(name: str, fn: str, q, k, v, do, lse, delta, outs,
                 scale: float) -> None:
-    """One launch of backward kernel `fn` of q's dtype, writing `outs`. q,
-    k, v and do that it cannot read in place are copied once
-    (`padded_copy`); outputs it cannot write in place, or of a padded head
-    dim, go through temporaries that are then copied into `outs`."""
+    """One launch of backward kernel `name` (C function `fn`) of q's dtype,
+    writing `outs`, in its own route's library. q, k, v and do that it
+    cannot read in place are copied once (`padded_copy`); outputs it cannot
+    write in place, or of a padded head dim, go through temporaries that
+    are then copied into `outs`."""
     _bwd_checks(name, q, k, v, do, lse, delta, outs)
-    if not (_in_place(q, k, v) and _in_place(do, do, do)):
-        q, k, v, do = padded_copy((q, k, v, do), _copy_multiple(q), name)
+    route = kernel_route(name, q, k, v, do)
+    if route.endswith("_copy"):
+        q, k, v, do = padded_copy((q, k, v, do), _copy_multiple(route), name)
     b, h, s, dp = q.shape
     d = outs[0].shape[-1]
-    direct = dp == d and _writable(outs)
+    direct = dp == d and _writable(route, outs)
     dst = outs if direct else [torch.empty(q.shape, dtype=q.dtype,
                                            device=q.device) for _ in outs]
-    lib = _library(q, build_bwd_kernels)
+    lib = _library(route, build_bwd_kernels)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, fn)(
@@ -430,9 +462,10 @@ def heads(qkv: torch.Tensor, num_heads: int):
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
-    """Gradient of `flash_fwd` from its o and lse: delta, then K5 and K6.
-    Returns dqkv (B, S, 3·H·D): dq, dk, dv laid out as the fused qkv
-    projection, each written once."""
+    """Gradient of `flash_fwd` from its o and lse: delta, then K5 and K6,
+    each on the library its own rule names (in fp16, K5 on the tensor
+    cores and K6 on the CUDA cores). Returns dqkv (B, S, 3·H·D): dq, dk, dv
+    laid out as the fused qkv projection, each written once."""
     b, h, s, d = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
