@@ -17,8 +17,8 @@ and no phase catches its own error:
    K7's cast order K7 and K11), csrc/attn_bwd_tc.cu (K2) and
    csrc/hp_bwd_tc.cu (K8, K10 and K12), with their dynamic shared memory;
    and of csrc/attn_fwd.cu (K1's and K9's fp32 version, CUDA cores:
-   attn_fwd_simt_kernel at D <= 128, register tiles around
-   csrc/cc_tiles.cuh).
+   csrc/attn_fwd_simt.cuh's attn_fwd_simt_kernel in K1's order at D <=
+   256, register tiles).
 3. kernel vs plain: ops/flash_attention.py::attn_fwd (the CUDA kernel),
    and hp_fwd (K9, the same launch without stats), against
    attn_fwd_reference (plain PyTorch) on seeded bf16 qkv at the train
@@ -117,13 +117,15 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     backward, the fp32 bias sum: unfused_ms). No single PyTorch call
     computes K3's function, so library_ms is null. Then the kernels that
     one call of the bf16, fp16 and fp32 K3 (fc2_bwd_simt_kernel in fp32),
-    of the fp32 K2, of the fp32 K1 and K9 (attn_fwd_simt_kernel), of the
+    of the fp32 K2, of the fp32 K1, K9, K7 and K11 at D 64, 136, 192 and
+    256 (attn_fwd_simt_kernel in each cast order), of the
     fp32 K4, K5 and K6 at S 1370 on a qkv buffer's views
     (flash_fwd_simt_kernel, flash_bwd_dkdv_simt_kernel,
     flash_bwd_dq_simt_kernel) and of the fp32 K8, K10 and K12 at S 197
     (hp_bwd_stats_simt_kernel, hp_bwd_dkdv_simt_kernel and
     hp_bwd_dq_sum_kernel) launches
-    (torch.profiler) must be their new kernels alone.
+    (torch.profiler, in a process of its own) must be their new kernels
+    alone.
 17b. head dims over 128 on every route (F8), in bf16, fp16 and fp32:
     qkv_proj_attention forward and backward (K1, K2) and
     fused_attention_qkv_cols at S <= 1024 (K9, K10) at WIDE_QKV_SHAPES (D
@@ -199,8 +201,9 @@ fused_attention_qkv), which no model calls:
 
 21. K7, K8, K11 and K12 vs plain: csrc/attn_fwd_tc.cu in K7's cast order
     (K7, K11 in bf16 and fp16, `fused_kernel_route`; the fp32 ones are
-    csrc/fused_attn_fwd.cu's, built with the others in phase 2, registers
-    and spills logged) and csrc/hp_bwd_tc.cu's launches for K8 and K12
+    csrc/fused_attn_fwd.cu's, csrc/attn_fwd_simt.cuh's kernel in K7's
+    order, built with the others in phase 2, registers and spills logged)
+    and csrc/hp_bwd_tc.cu's launches for K8 and K12
     (`bwd_kernel_route`; fp32 csrc/hp_bwd.cu's library: csrc/hp_bwd_simt.cu
     at D <= 128).
     `multi_head_attention(use_pallas=True)` (K7, K8) on separate (B, H, S,
@@ -254,10 +257,16 @@ JAX kernels take any float dtype):
     128, B and H over 65535), each call run twice and bitwise equal,
     within K2_FP32_EDGE_REL; and the fp32 K1 and K9 (attn_fwd_simt_kernel)
     at theirs (K1_FP32_EDGE_SHAPES: S 1 to 1024 around the 64-row tiles
-    and 8-key groups, the score block's limits, D 32 to 128, B and H over
-    65535), K1 run twice and K9 once, all three bitwise equal, o within
-    K2_FP32_EDGE_REL of its largest magnitude and the row stats within it
-    relative; and the fp32 K5 and K6 (csrc/flash_bwd_simt.cu) at theirs
+    and 8-key groups, both sides of the score block's limits, D 32 to 256,
+    B and H over 65535), K1 run twice and K9 once, all three bitwise
+    equal, o within K2_FP32_EDGE_REL of its largest magnitude and the row
+    stats within it relative (m past D 128 of max(|m|, 1)); the fp32 K7
+    and K11 (the same kernel in K7's order) at theirs (K7_FP32_EDGE_SHAPES,
+    the same edges and limits), K7 run twice and K11 once, all three
+    bitwise equal, no copy, o within K2_FP32_EDGE_REL, and K7 on
+    K7_FP32_VIEW_CASES (D 130 and views two floats late read in place,
+    an odd row stride and one float late copied once), with a [time]
+    line; and the fp32 K5 and K6 (csrc/flash_bwd_simt.cu) at theirs
     (K5K6_FP32_EDGE_SHAPES: S 1 to 1370 around the 64-row tiles, D 32 to
     128, views of a qkv buffer, contiguous tensors and views whose rows
     start a float late, B·H over 65535), each call run twice and bitwise
@@ -581,23 +590,55 @@ HP_FP32_EDGE_SHAPES = tuple(
           for layout in ("late", "odd_stride") for s in (65, 197)
           for d in (48, 64)) + (("hp_bwd", "qkv", (1, 8, 65537, 8)),
                                 ("fused_bwd", "dense", (65537, 8, 1, 8)))
-# The fp32 times of the kernels that flash_fwd_simt.cu and hp_bwd_simt.cu
-# replaced (flash_blocked.cu's flash_fwd_kernel<float, 64>, hp_bwd.cu's
-# loops at D 64), device ms of one call at the main shapes, from the timing
+# The fp32 times of the kernels that flash_fwd_simt.cu, hp_bwd_simt.cu and
+# attn_fwd_simt.cuh replaced (flash_blocked.cu's flash_fwd_kernel<float,
+# 64>, hp_bwd.cu's loops at D 64, fused_attn_fwd.cu's fused_attn_fwd_kernel<
+# float, 64>), device ms of one call at the main shapes, from the timing
 # tool in the same call as the new kernels (PERF.md §6; H100 80GB HBM3 at
 # 700 W), printed beside phase 23's new (event) ones
 REPLACED_FP32_MS = {"flash_fwd": "7.193-7.203", "fused_bwd": "5.53-5.55",
-                "hp_bwd": "5.50", "qkv_bwd": "5.50-5.51"}
-# The fp32 K1 and K9 (csrc/attn_fwd.cu, attn_fwd_simt_kernel) at their
-# edges, (B, S, H, D): S around the 64-row query and key tiles and the
-# 8-key groups up to 1024, the score block's limits (S 496 / 497 at D 128,
-# 688 / 689 at D 64, 784 / 785 at D 32: past them s is recomputed), D 32,
-# 48, 64 and 128, and B and H over 65535; held to K2_FP32_EDGE_REL as K2
-# (fp32 summation order and expf only)
-K1_FP32_EDGE_SHAPES = tuple((2, s, 2, d) for s in (1, 63, 64, 65, 513, 1024)
-                            for d in (32, 48, 64, 128)) + (
-    (2, 496, 2, 128), (2, 497, 2, 128), (2, 688, 2, 64), (2, 689, 2, 64),
-    (2, 784, 2, 32), (2, 785, 2, 32), (1, 8, 65537, 8), (65537, 8, 1, 8))
+                    "hp_bwd": "5.50", "qkv_bwd": "5.50-5.51",
+                    "fused_fwd": "1.4246-1.4259",
+                    "qkv_fwd": "1.4246-1.4253"}
+# and of the fp32 K1, K9 (attn_fwd.cu's attn_fwd_kernel<float, 0>), K7 and
+# K11 (fused_attn_fwd_kernel<float, 0>) that attn_fwd_simt.cuh replaced at
+# WIDE_TIMED, printed beside phase 17b's
+REPLACED_WIDE_FP32_MS = {"attn_fwd": "9.578", "hp_fwd": "9.552-9.564",
+                         "fused_fwd": "10.453-10.555",
+                         "qkv_fwd": "10.397-10.561"}
+# The fp32 K1 and K9 (csrc/attn_fwd_simt.cuh, attn_fwd_simt_kernel in K1's
+# order) at their edges, (B, S, H, D): S around the 64-row query and key
+# tiles, the 8-key groups (32-key groups and the 256-key score tile past D
+# 128) up to 1024, the score block's limits (S 496 / 497 at D 128, 688 /
+# 689 at D 64, 784 / 785 at D 32, 448 / 449 at D 136 and 192, 384 / 385 at
+# D 256: past them s is recomputed), D 32, 48, 64, 128, 136, 192 and 256,
+# and B and H over 65535; held to K2_FP32_EDGE_REL as K2 (fp32 summation
+# order and expf only)
+FP32_FWD_EDGE_S = (1, 63, 64, 65, 513, 1024)
+FP32_FWD_EDGE_D = (32, 48, 64, 128, 136, 192, 256)
+FP32_FWD_LIMITS = ((496, 128), (497, 128), (688, 64), (689, 64), (784, 32),
+                   (785, 32), (448, 192), (449, 192), (448, 136),
+                   (449, 136), (384, 256), (385, 256))
+K1_FP32_EDGE_SHAPES = tuple((2, s, 2, d) for s in FP32_FWD_EDGE_S
+                            for d in FP32_FWD_EDGE_D) + tuple(
+    (2, s, 2, d) for s, d in FP32_FWD_LIMITS) + (
+    (1, 8, 65537, 8), (65537, 8, 1, 8))
+# past D 128 a row max m sums up to 256 products, whose rounding does not
+# shrink with |m|: there m is held within K2_FP32_EDGE_REL of max(|m|, 1)
+WIDE_M_FLOOR = 1.0
+# The fp32 K7 and K11 (the same kernel in K7's order) at the same edges and
+# limits, (B, S, H, D), and on views (layout, (B, S, H, D)) that the kernel
+# reads in place with 8-byte copies (D 130; q, k, v two floats late) or
+# that _launch_views copies once (an odd row stride, one float late)
+K7_FP32_EDGE_SHAPES = tuple((2, s, 2, d) for s in FP32_FWD_EDGE_S + (197,)
+                            for d in FP32_FWD_EDGE_D) + tuple(
+    (2, s, 2, d) for s, d in FP32_FWD_LIMITS)
+K7_FP32_VIEW_CASES = (("dense", (2, 197, 2, 130)),
+                      ("pair_offset", (2, 197, 2, 256)),
+                      ("odd_row_stride", (2, 197, 2, 256)),
+                      ("odd_offset", (2, 197, 2, 192)))
+# check_redesigned traces the fp32 K1, K9, K7 and K11 at these head dims
+REDESIGNED_FWD_D = (64, 136, 192, 256)
 # The head-pair route (K9, K10) of fused_attention_qkv_cols, (B, S, H, D)
 HP_MAIN_SHAPES = ((64, 197, 12, 64), (128, 197, 12, 64))
 HP_EXTRA_SHAPES = ((1, 1024, 2, 64), (3, 77, 3, 48), (2, 130, 2, 128))
@@ -680,6 +721,8 @@ STATE_WITNESS_FACTOR = 4.0
 STATE_KD_STEPS = 2
 STATE_AB_STEPS, STATE_AB_WARMUP = 15, 3
 STATE_TIMEOUT_S = 300
+# profiler sessions a trace may take, when a session records no device event
+TRACE_TRIES = 4
 
 # every kernel's launch count, 'module.COUNT' in ops/
 ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
@@ -759,21 +802,30 @@ def sdpa_ms(q, k, v, do=None):
 def launched_kernels(fn) -> set:
     """The names of the CUDA kernels one call of fn launches (a
     torch.profiler trace of the call, made twice in the session: a
-    session can miss the first launches it should record, and has been
-    seen to record none at all)."""
+    session can miss the first launches it should record). A session
+    has also been seen to record no device event at all, in the middle of
+    a run whose sessions before and after recorded theirs: such a session
+    says nothing of what fn launched, and is made again, up to
+    TRACE_TRIES sessions in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        fn()
+    for attempt in range(1, TRACE_TRIES + 1):
         torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages()
-            if e.device_type.name == "CUDA"
-            and getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0)) > 0}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type.name == "CUDA"
+                 and getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) > 0}
+        if names:
+            return names
+        log(f"[trace] profiler session {attempt} of {TRACE_TRIES} recorded "
+            f"no device event")
+    return set()
 
 
 def only_kernel(fn, name: str, tag: str) -> None:
@@ -1641,15 +1693,19 @@ def phase_tc_blocked(counts, fb, dev):
                 + " ".join(f"{k}={v!r}" for k, v in row.items()))
         gc.collect()
         torch.cuda.empty_cache()
+    in_child("trace_tc_blocked", "the tensor-core K4/K5 traces")
+    return rows, worst
+
+
+def in_child(fn_name: str, what: str) -> None:
+    """Runs chip_smoke.fn_name() in a process of its own (whose profiler
+    sessions are its first), logs its output, and fails if it failed."""
     res = subprocess.run(
-        [sys.executable, "-c",
-         "import chip_smoke; chip_smoke.trace_tc_blocked()"],
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{fn_name}()"],
         cwd=REPO, capture_output=True, text=True, timeout=STATE_TIMEOUT_S)
     for line in res.stdout.splitlines():
         log(line)
-    check(res.returncode == 0, f"the tensor-core K4/K5 traces failed: "
-          f"{res.stderr[-3000:]}")
-    return rows, worst
+    check(res.returncode == 0, f"{what} failed: {res.stderr[-3000:]}")
 
 
 def phase_precision(counts):
@@ -1955,6 +2011,12 @@ def phase_dtypes(counts, fa, fb, mf, dev):
     k1_worst = fp32_k1_edges(fa, dev)
     for name in ("attn_fwd", "hp_fwd"):
         worst[("float32", name)] = max(worst[("float32", name)], k1_worst)
+    t_k7 = time.perf_counter()
+    k7_worst = fp32_k7_edges(fa, fb, dev)
+    for name in ("fused_fwd", "qkv_fwd"):
+        worst[("float32", name)] = max(worst[("float32", name)], k7_worst)
+    log(f"[time] the fp32 K7/K11 edges took {time.perf_counter() - t_k7:.1f}"
+        f" s")
     for name, err in fp32_k5k6_edges(fb, dev).items():
         worst[("float32", name)] = max(worst[("float32", name)], err)
     worst[("float32", "flash_fwd")] = max(worst[("float32", "flash_fwd")],
@@ -2010,11 +2072,12 @@ def fp32_k2_edges(fa, dev) -> float:
 
 
 def fp32_k1_edges(fa, dev) -> float:
-    """The fp32 K1 and K9 (csrc/attn_fwd.cu, attn_fwd_simt_kernel) at
-    K1_FP32_EDGE_SHAPES against their plain version: K1 run twice and K9
-    once, all three o bitwise equal (and K1's stats), o within
+    """The fp32 K1 and K9 (csrc/attn_fwd_simt.cuh, attn_fwd_simt_kernel in
+    K1's order) at K1_FP32_EDGE_SHAPES against their plain version: K1 run
+    twice and K9 once, all three o bitwise equal (and K1's stats), o within
     K2_FP32_EDGE_REL of the plain version's largest magnitude and the row
-    stats within K2_FP32_EDGE_REL relative. Returns the worst o error."""
+    stats within K2_FP32_EDGE_REL relative (m past D 128 of max(|m|,
+    WIDE_M_FLOOR)). Returns the worst o error."""
     import torch
 
     worst = 0.0
@@ -2034,7 +2097,10 @@ def fp32_k1_edges(fa, dev) -> float:
               and torch.equal(o, o9), f"{tag}: two runs (or K1 and K9) on "
               f"the same inputs differ")
         err, ref = (o - o_ref).abs().max().item(), o_ref.abs().max().item()
-        st_err = ((st - st_ref).abs() / st_ref.abs()).max().item()
+        floor = torch.tensor([WIDE_M_FLOOR if d > 128 else 0.0, 0.0],
+                             device=dev)
+        st_err = ((st - st_ref).abs()
+                  / torch.maximum(st_ref.abs(), floor)).max().item()
         check(torch.isfinite(o).all().item() and err <= K2_FP32_EDGE_REL
               * ref and st_err <= K2_FP32_EDGE_REL,
               f"{tag}: o max abs err {err} > {K2_FP32_EDGE_REL} x {ref}, or "
@@ -2043,6 +2109,82 @@ def fp32_k1_edges(fa, dev) -> float:
         log(f"[dtypes] {tag}: o max abs err {err!r} (of {ref!r}), stats "
             f"relative err {st_err!r}, bitwise repeat True")
         del qkv, o, st, o2, st2, o9, o_ref, st_ref
+    return worst
+
+
+def fp32_k7_operands(layout, b, s, h, d, seed, dev):
+    """fp32 (B, H, S, D) q, k, v: contiguous ('dense'), each two floats
+    late ('pair_offset': pair-aligned, not 16-byte aligned), with one
+    float of padding a row ('odd_row_stride') or one float late
+    ('odd_offset')."""
+    import torch
+
+    def make(t):
+        flat = t.flatten()
+        if layout == "pair_offset":
+            return torch.cat([flat, flat[:2]])[2:].view(t.shape)
+        if layout == "odd_offset":
+            return torch.cat([flat, flat[:1]])[1:].view(t.shape)
+        if layout == "odd_row_stride":
+            return torch.nn.functional.pad(t, (0, 1))[..., :-1]
+        return t
+
+    return [make(seeded_bf16((b, h, s, d), seed + i, dev, torch.float32))
+            for i in range(3)]
+
+
+def fp32_k7_edges(fa, fb, dev) -> float:
+    """The fp32 K7 and K11 (csrc/attn_fwd_simt.cuh, attn_fwd_simt_kernel in
+    K7's order) at K7_FP32_EDGE_SHAPES against their plain version: K7 run
+    twice on contiguous (B, H, S, D) q, k, v and K11 once on a (B, S, 3, H,
+    D) buffer holding the same heads, all three o bitwise equal, no copy,
+    o within K2_FP32_EDGE_REL of the plain version's largest magnitude;
+    then K7 on K7_FP32_VIEW_CASES, copied exactly where _launch_views
+    copies. Returns the worst o error."""
+    import torch
+
+    worst = 0.0
+    for b, s, h, d in K7_FP32_EDGE_SHAPES:
+        tag = f"fp32 K7/K11 edge (B, S, H, D) = {(b, s, h, d)}"
+        qkv = seeded_bf16((b, s, 3, h, d), 7800 + s + d, dev, torch.float32)
+        q, k, v = (t.contiguous()
+                   for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+        check(fa.fused_kernel_route(q, k, v) == "cuda_cores",
+              f"{tag}: route {fa.fused_kernel_route(q, k, v)}")
+        copies = fb.COPIES
+        o, o2 = fa.fused_fwd(q, k, v), fa.fused_fwd(q, k, v)
+        o11 = fa.qkv_fwd(qkv).view(b, s, h, d).transpose(1, 2)
+        o_ref = fa.fused_fwd_reference(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2) and torch.equal(o, o11),
+              f"{tag}: two runs (or K7 and K11) on the same inputs differ")
+        check(fb.COPIES == copies, f"{tag}: {fb.COPIES - copies} copies")
+        err, ref = (o - o_ref).abs().max().item(), o_ref.abs().max().item()
+        check(torch.isfinite(o).all().item()
+              and err <= K2_FP32_EDGE_REL * ref,
+              f"{tag}: o max abs err {err} > {K2_FP32_EDGE_REL} x {ref}")
+        worst = max(worst, err)
+        log(f"[dtypes] {tag}: o max abs err {err!r} (of {ref!r}), bitwise "
+            f"repeat and K7 = K11 True")
+        del qkv, q, k, v, o, o2, o11, o_ref
+    for layout, (b, s, h, d) in K7_FP32_VIEW_CASES:
+        tag = f"fp32 K7 {layout} view (B, S, H, D) = {(b, s, h, d)}"
+        q, k, v = fp32_k7_operands(layout, b, s, h, d, 7900 + d, dev)
+        copies = fb.COPIES
+        o = fa.fused_fwd(q, k, v)
+        o_ref = fa.fused_fwd_reference(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        want = int(layout in ("odd_row_stride", "odd_offset"))
+        check(fb.COPIES - copies == want,
+              f"{tag}: {fb.COPIES - copies} copies, want {want}")
+        err, ref = (o - o_ref).abs().max().item(), o_ref.abs().max().item()
+        check(torch.isfinite(o).all().item()
+              and err <= K2_FP32_EDGE_REL * ref,
+              f"{tag}: o max abs err {err} > {K2_FP32_EDGE_REL} x {ref}")
+        worst = max(worst, err)
+        log(f"[dtypes] {tag}: o max abs err {err!r} (of {ref!r}), copies "
+            f"{want}")
+        del q, k, v, o, o_ref
     return worst
 
 
@@ -2210,11 +2352,30 @@ def fp32_hp_bwd_edges(fa, fb, dev):
     return worst
 
 
+def trace_redesigned() -> None:
+    """check_redesigned, in a process of its own (phase 17): a process's
+    profiler sessions stop recording after a few dozen, and the main
+    process's first sessions come after its trainers."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        flash_attention as fa,
+        flash_blocked as fb,
+        mlp_fused as mf,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check_redesigned(fa, fb, mf, torch.device("cuda", 0))
+
+
 def check_redesigned(fa, fb, mf, dev) -> None:
     """The redesigned kernels run alone: one call of the bf16, fp16 and
-    fp32 K3, of the fp32 K2, of the fp32 K1 and K9, of the fp32 K4, K5 and
-    K6 and of the fp32 K8, K10 and K12 launches (torch.profiler) its new
-    kernels and no other of csrc/."""
+    fp32 K3, of the fp32 K2, of the fp32 K4, K5 and K6 and of the fp32 K8,
+    K10 and K12, and the calls of the fp32 K1, K9, K7 and K11 at
+    REDESIGNED_FWD_D, launch (torch.profiler) their new kernels and no
+    other of csrc/."""
     import torch
 
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -2232,10 +2393,28 @@ def check_redesigned(fa, fb, mf, dev) -> None:
     o, st = fa.attn_fwd(qkv, h, with_stats=True)
     only_kernel(lambda: fa.attn_bwd(qkv, do, o, st, h), "attn_bwd_kernel<",
                 "redesigned fp32 K2")
-    only_kernel(lambda: fa.attn_fwd(qkv, h, with_stats=True),
-                "attn_fwd_simt_kernel<64>(", "redesigned fp32 K1")
-    only_kernel(lambda: fa.hp_fwd(qkv, h), "attn_fwd_simt_kernel<64>(",
-                "redesigned fp32 K9")
+    # the fp32 K1, K9, K7 and K11 (csrc/attn_fwd_simt.cuh) at
+    # REDESIGNED_FWD_D: one session a wrapper, its calls at every head dim
+    # together, launching attn_fwd_simt_kernel in its cast order alone
+    fwd_calls = {"attn_fwd": [], "hp_fwd": [], "fused_fwd": [],
+                 "qkv_fwd": []}
+    for dw in REDESIGNED_FWD_D:
+        x = seeded_bf16((8, 197, 3, h, dw), 4507 + dw, dev, torch.float32)
+        flat = x.view(8, 197, 3 * h * dw)
+        qkv_heads = [t.contiguous()
+                     for t in x.permute(2, 0, 3, 1, 4).unbind(0)]
+        fwd_calls["attn_fwd"].append(
+            lambda flat=flat: fa.attn_fwd(flat, h, with_stats=True))
+        fwd_calls["hp_fwd"].append(lambda flat=flat: fa.hp_fwd(flat, h))
+        fwd_calls["fused_fwd"].append(
+            lambda qkv_heads=qkv_heads: fa.fused_fwd(*qkv_heads))
+        fwd_calls["qkv_fwd"].append(lambda x=x: fa.qkv_fwd(x))
+    for name, calls in fwd_calls.items():
+        order = "true" if name in ("fused_fwd", "qkv_fwd") else "false"
+        kds = sorted({simt_kd(dw) for dw in REDESIGNED_FWD_D})
+        only_kernels(lambda calls=calls: [c() for c in calls],
+                     [f"attn_fwd_simt_kernel<{kd}, {order}, " for kd in kds],
+                     f"redesigned fp32 {name}")
     # K5 and K6 at the 518-px model's sequence, on a qkv buffer's views
     q, k, v, do = fp32_bwd_operands(fb, "qkv", 2, LONG_MAIN_SHAPES[0][1], h,
                                     d, 4505, dev)
@@ -2285,9 +2464,16 @@ def wide_route(dt_name: str, d: int, name: str = "") -> str:
     return "tensor_cores" if d % 8 == 0 else "tensor_cores_copy"
 
 
+def simt_kd(d: int) -> int:
+    """The compile-time head dim of csrc/attn_fwd_simt.cuh's kernel that
+    takes head dim d (<= 256)."""
+    return next(kd for kd in (32, 64, 128, 192, 256) if d <= kd)
+
+
 def wide_kernel_names(name: str, dt_name: str, d: int):
     """The csrc/ kernels one call of kernel `name` launches at head dim
-    d > 128 in dtype dt_name, as the routes decide."""
+    d > 128 in dtype dt_name, as the routes decide (the fp32 K1, K9, K7 and
+    K11 on their stored path: the shapes traced and timed have S <= 384)."""
     t = {"bfloat16": "__nv_bfloat16", "float16": "__half",
          "float32": "float"}[dt_name]
     tc = wide_route(dt_name, d, name) != "cuda_cores"
@@ -2299,11 +2485,13 @@ def wide_kernel_names(name: str, dt_name: str, d: int):
                 else f"{name}_wide_kernel<{t}>"]
     if name == "attn_bwd":
         return [f"attn_bwd_wide_kernel<{t}>"]
-    if name in ("attn_fwd", "hp_fwd"):
-        return [f"attn_fwd_tc_kernel<{t},{kd},false>" if tc
-                else f"attn_fwd_kernel<{t},0>"]
-    if name in ("fused_fwd", "qkv_fwd"):
-        return [f"attn_fwd_tc_kernel<{t},{kd},true>" if tc
+    if name in ("attn_fwd", "hp_fwd", "fused_fwd", "qkv_fwd"):
+        k7 = "true" if name in ("fused_fwd", "qkv_fwd") else "false"
+        if tc:
+            return [f"attn_fwd_tc_kernel<{t},{kd},{k7}>"]
+        if dt_name == "float32" and d <= 256:  # csrc/attn_fwd_simt.cuh
+            return [f"attn_fwd_simt_kernel<{kd},{k7},true>"]
+        return [f"attn_fwd_kernel<{t},0>" if k7 == "false"
                 else f"fused_attn_fwd_kernel<{t},0>"]
     return ([f"hp_bwd_tc_dq_kernel<{t},{kd}>",
              f"hp_bwd_tc_dkdv_kernel<{t},{kd}>"] if tc
@@ -2454,6 +2642,11 @@ def phase_wide_heads(counts, fa, fb, mf, dev):
             rows[(dt_name, name)] = row
             log(f"[wide heads] {dt_name} {name} timed on {nvidia_smi()}: "
                 + " ".join(f"{k}={v!r}" for k, v in row.items()))
+            if dt_name == "float32" and name in REPLACED_WIDE_FP32_MS:
+                log(f"[wide heads] float32 {name} {timed}: kernel / plain / "
+                    f"SDPA {row['ms']!r} / {row['plain_ms']!r} / "
+                    f"{row['library_ms']!r} ms (the loops it replaced: "
+                    f"{REPLACED_WIDE_FP32_MS[name]} device ms)")
             del kernel, plain, library
             gc.collect()
         # twice: a session can miss the first launches it should record
@@ -3489,7 +3682,10 @@ def main() -> int:
     log(f"[build mlp/hp] dynamic shared memory of fc2_bwd_tc_kernel (K3 in "
         f"bf16 and fp16) {mf.build_kernels().vtx_fc2_bwd_smem()} B")
     mlp_k, mlp_worst = phase_mlp_kernel(mf, dev)
-    check_redesigned(fa, fb, mf, dev)
+    t_red = time.perf_counter()
+    in_child("trace_redesigned", "the redesigned kernels' traces")
+    log(f"[time] the redesigned kernels' traces took "
+        f"{time.perf_counter() - t_red:.1f} s")
     # head dims over 128 on every route (its profiler checks stay ahead of
     # the trainer phases 19-22, after which a session records nothing)
     wide_launches, wide_rows, wide_worst = phase_wide_heads(every, fa, fb, mf,
@@ -3578,7 +3774,7 @@ def main() -> int:
     # ---- the op-level fused entry points (K7, K8, K11, K12)
     log(f"[build fused] fused_attn_fwd built/loaded in "
         f"{build_s['fused_attn_fwd']:.3f} s (in parallel with the others)")
-    log_ptxas(cuda_build, "fused_attn_fwd", "build fused")
+    log_ptxas(cuda_build, "fused_attn_fwd", "build fused", untyped="fp32")
     fu_launches, fu_k, fu_worst = phase_fused_kernel(every, fa, dev)
     n_fu = len(FUSED_MAIN_SHAPES + FUSED_EXTRA_SHAPES)
     check(fu_launches == only(
@@ -3728,13 +3924,14 @@ def main() -> int:
         # sources), K6 on the CUDA cores
         cuda_core = {"flash_bwd_dq": "flash_blocked.cu"}
         if dt_name == "float32":
-            cuda_core.update(attn_fwd="attn_fwd.cu", attn_bwd="attn_bwd.cu",
+            cuda_core.update(attn_fwd="attn_fwd_simt.cuh",
+                             attn_bwd="attn_bwd.cu",
                              flash_fwd="flash_fwd_simt.cu",
                              flash_bwd_dkdv="flash_bwd_simt.cu",
                              flash_bwd_dq="flash_bwd_simt.cu",
-                             hp_fwd="attn_fwd.cu",
-                             fused_fwd="fused_attn_fwd.cu",
-                             qkv_fwd="fused_attn_fwd.cu",
+                             hp_fwd="attn_fwd_simt.cuh",
+                             fused_fwd="attn_fwd_simt.cuh",
+                             qkv_fwd="attn_fwd_simt.cuh",
                              hp_bwd="hp_bwd_simt.cu",
                              fused_bwd="hp_bwd_simt.cu",
                              qkv_bwd="hp_bwd_simt.cu")
@@ -3747,8 +3944,10 @@ def main() -> int:
     # and the fp32 K8, K10 and K12 of csrc/hp_bwd_simt.cu
     hp_simt = ["hp_bwd_stats_simt_kernel<64, 128, 2>",
                "hp_bwd_dkdv_simt_kernel<64, 128, 2>", "hp_bwd_dq_sum_kernel"]
-    simt = {"attn_fwd": ["attn_fwd_simt_kernel<64>"],
-            "hp_fwd": ["attn_fwd_simt_kernel<64>"],
+    simt = {"attn_fwd": ["attn_fwd_simt_kernel<64, false, true>"],
+            "hp_fwd": ["attn_fwd_simt_kernel<64, false, true>"],
+            "fused_fwd": ["attn_fwd_simt_kernel<64, true, true>"],
+            "qkv_fwd": ["attn_fwd_simt_kernel<64, true, true>"],
             "fc2_bwd": ["fc2_bwd_simt_kernel"],
             "flash_fwd": ["flash_fwd_simt_kernel<64>"],
             "flash_bwd_dkdv": ["flash_bwd_dkdv_simt_kernel<64, 128, 2>"],
@@ -3817,6 +4016,8 @@ def main() -> int:
                 "flash_blocked.cu" if name.startswith("flash") else \
                 "attn_fwd_tc.cu" if names[0].startswith("attn_fwd_tc") else \
                 "hp_bwd_tc.cu" if names[0].startswith("hp_bwd_tc") else \
+                "attn_fwd_simt.cuh" if names[0].startswith(
+                    "attn_fwd_simt") else \
                 "attn_fwd.cu" if names[0].startswith("attn_fwd") else \
                 "fused_attn_fwd.cu" if names[0].startswith("fused") else \
                 "hp_bwd.cu"

@@ -254,11 +254,18 @@ def test_attn_fwd_kernel_contract(cuda_device):
 
 
 # ---- the fp32 K1 (and K9) at the edges of its register tiles: S around
-# its 64-row query and key tiles and its 8-key groups, up to the
-# contract's 1024; the compile-time head dims 32, 64, 128 and one that
-# takes the next with zero columns (48)
+# its 64-row query and key tiles and its 8-key groups (32-key groups and a
+# 256-key score tile past D 128), up to the contract's 1024; the
+# compile-time head dims 32, 64, 128, 192 and 256 and ones that take the
+# next with zero columns (48, 136)
 FP32_EDGE_S = (1, 63, 64, 65, 513, 1024)
-FP32_EDGE_D = (32, 48, 64, 128)
+FP32_EDGE_D = (32, 48, 64, 128, 136, 192, 256)
+
+
+def _simt_kd(d: int) -> int:
+    """The compile-time head dim of csrc/attn_fwd_simt.cuh's kernel that
+    takes head dim d."""
+    return next(kd for kd in (32, 64, 128, 192, 256) if d <= kd)
 
 
 @pytest.mark.parametrize("d", FP32_EDGE_D)
@@ -273,14 +280,20 @@ def test_fp32_attn_fwd_reference_matches_k1_at_tile_edges(s, d):
     np.testing.assert_allclose(st.numpy(), st_want, rtol=1e-5, atol=0)
 
 
-# the same edges on the card, the score block's limits (S 496 / 497 at D
-# 128, 688 / 689 at D 64, 784 / 785 at D 32: past them the kernel
-# recomputes s instead of storing it) and B or H over the grid's 65535
+# the same edges on the card, the score block's limits (S 496 / 497 at kD
+# 128, 688 / 689 at 64, 784 / 785 at 32, 448 / 449 at 192 and 384 / 385 at
+# 256: past them the kernel recomputes s instead of storing it) and B or H
+# over the grid's 65535
 K1_FP32_EDGE_SHAPES = [(2, s, 2, d) for s in FP32_EDGE_S
                        for d in FP32_EDGE_D] + [
     (2, 496, 2, 128), (2, 497, 2, 128), (2, 688, 2, 64), (2, 689, 2, 64),
-    (2, 784, 2, 32), (2, 785, 2, 32), (1, 8, 65537, 8), (65537, 8, 1, 8)]
+    (2, 784, 2, 32), (2, 785, 2, 32), (2, 448, 2, 192), (2, 449, 2, 192),
+    (2, 448, 2, 136), (2, 449, 2, 136), (2, 384, 2, 256), (2, 385, 2, 256),
+    (1, 8, 65537, 8), (65537, 8, 1, 8)]
 K1_FP32_EDGE_REL = 1e-5  # of the largest |o|: fp32 summation order, expf
+# past D 128 a row max m is a sum of up to 256 products, whose rounding
+# does not shrink with |m|: m within K1_FP32_EDGE_REL of max(|m|, 1)
+WIDE_M_FLOOR = 1.0
 
 
 # one session per call, in a fresh process: in a long one (the whole cuda
@@ -340,15 +353,22 @@ def test_fp32_k1_k9_match_plain_at_tile_edges_on_cuda(cuda_device, shape):
     o_ref, st_ref = fa.attn_fwd_reference(x, h, d ** -0.5, with_stats=True)
     err = (o - o_ref).abs().max().item()
     assert err <= K1_FP32_EDGE_REL * o_ref.abs().max().item(), err
-    torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=0)
+    if d <= 128:
+        torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=0)
+    else:
+        m, m_ref = st[..., 0], st_ref[..., 0]
+        assert ((m - m_ref).abs() <= K1_FP32_EDGE_REL
+                * m_ref.abs().clamp(min=WIDE_M_FLOOR)).all()
+        torch.testing.assert_close(st[..., 1], st_ref[..., 1], rtol=1e-5,
+                                   atol=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", FP32_EDGE_D)
 def test_fp32_k1_k9_launch_the_register_tiled_kernel_alone(fp32_k1_trace,
                                                            d):
-    kd = 32 if d <= 32 else 64 if d <= 64 else 128
     for name in ("attn_fwd", "hp_fwd"):
         names = fp32_k1_trace[f"{name}{d}"]
         assert len(names) == 1 and \
-            f"::attn_fwd_simt_kernel<{kd}>(" in names[0], (name, names)
+            f"::attn_fwd_simt_kernel<{_simt_kd(d)}, false, " in names[0], \
+            (name, names)

@@ -93,12 +93,15 @@ def test_the_tensor_core_attention_sources_enter_the_hash(tmp_path, source):
 
 @pytest.mark.parametrize("source,header", [
     ("attn_fwd.cu", "cc_tiles.cuh"), ("attn_bwd.cu", "cc_tiles.cuh"),
-    ("flash_blocked.cu", "cc_tiles.cuh"), ("mlp_fused.cu", "cp_async.cuh")])
+    ("flash_blocked.cu", "cc_tiles.cuh"), ("mlp_fused.cu", "cp_async.cuh"),
+    ("attn_fwd.cu", "attn_fwd_simt.cuh"),
+    ("fused_attn_fwd.cu", "attn_fwd_simt.cuh")])
 def test_the_cuda_core_headers_enter_the_hash(tmp_path, source, header):
     # csrc/cc_tiles.cuh holds the register tiles of the CUDA-core kernels
     # (the fp32 K1 and K2, K4-K6's CUDA-core loops), csrc/cp_async.cuh the
-    # asynchronous copies (through cc_tiles.cuh, and the fp32 K3's): each
-    # source that includes one names a new library when it is edited
+    # asynchronous copies (through cc_tiles.cuh, and the fp32 K3's),
+    # csrc/attn_fwd_simt.cuh the fp32 K1, K9, K7 and K11: each source that
+    # includes one names a new library when it is edited
     real = cuda_build.CSRC_DIR
     assert f'#include "{header}"' in (real / source).read_text()
     for f in (source, *_headers(real)):
@@ -207,3 +210,33 @@ def test_tensor_core_blocked_kernels_build_without_spills(tmp_path):
     want |= {("flash_bwd_dq_kernel", "bf16", d) for d in (64, 128)}
     assert set(got) == want, sorted(got)
     assert all(v[1] == v[2] == 0 for v in got.values()), got
+
+
+@pytest.mark.cuda
+def test_fp32_forward_register_tiles_instantiations(tmp_path):
+    # csrc/attn_fwd.cu and csrc/fused_attn_fwd.cu built with the library
+    # flags: each instantiates csrc/attn_fwd_simt.cuh's kernel in its own
+    # cast order (K1's, K7's) at kD 32, 64, 128, 192 and 256, its stored
+    # and its recomputing path, and beside it only its run-time head-dim
+    # loops (every dtype past 256; no fp32 kernel at a compile-time head
+    # dim)
+    import re
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    for src, k7 in (("attn_fwd.cu", "0"), ("fused_attn_fwd.cu", "1")):
+        res = subprocess.run(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+             str(tmp_path / f"{src}.so"), str(cuda_build.CSRC_DIR / src)],
+            capture_output=True, text=True)
+        assert res.returncode == 0, res.stderr[-3000:]
+        kernels = {(m.group(1), m.group(2)) for m in re.finditer(
+            r"Compiling entry function '\S*?\d((?:attn|fused)\w*?_kernel)"
+            r"I(\w+?)EEv", res.stdout + res.stderr)}
+        loops = "attn_fwd_kernel" if k7 == "0" else "fused_attn_fwd_kernel"
+        want = {("attn_fwd_simt_kernel", f"Li{kd}ELb{k7}ELb{store}E")
+                for kd in (32, 64, 128, 192, 256) for store in "01"}
+        want |= {(loops, f"{t}Li0E")
+                 for t in ("13__nv_bfloat16", "6__half", "f")}
+        assert kernels == want, sorted(kernels)

@@ -34,6 +34,11 @@ in 0.02% of the outputs, where K1's plain version (`attn_fwd_reference`:
 bf16(q·scale), p cast before it is normalised) is off by 2.0e-3 and differs
 in 55% of them.
 """
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -134,6 +139,40 @@ def _jax_k11_k12(qkv, do, bf16):
             _f32(dqkv[:, :s]).reshape(qkv.shape))
 
 
+def _jax_k7_fwd(q, k, v):
+    """JAX `_fwd_call` in interpret mode on fp32 (B, H, S, D) q, k, v -> o
+    (B, H, S, D)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vision_transformers_torch_xla_tpu.ops.flash_attention import (
+        _fwd_call,
+    )
+
+    b, h, s, d = q.shape
+    x = [_pad_s(jnp.asarray(t).reshape(b * h, s, d), 1) for t in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        o = _fwd_call(*x, d ** -0.5, s)
+    return _f32(o[:, :s]).reshape(b, h, s, d)
+
+
+def _jax_k11_fwd(qkv):
+    """JAX `_qkv_fwd_call` in interpret mode on an fp32 (B, S, 3, H, D) qkv
+    -> o (B, S, H·D)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vision_transformers_torch_xla_tpu.ops.flash_attention import (
+        _qkv_fwd_call,
+    )
+
+    b, s, _, h, d = qkv.shape
+    x = _pad_s(jnp.asarray(qkv).reshape(b, s, 3 * h, d), 1)
+    with pltpu.force_tpu_interpret_mode():
+        o = _qkv_fwd_call(x, d ** -0.5, s)
+    return _f32(o[:, :s]).reshape(b, s, h * d)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_k7_k8_match_jax_kernels(dtype, shape):
@@ -176,6 +215,29 @@ def test_plain_k11_k12_match_jax_kernels(dtype, shape):
     _close(o.float(), want_o, rtol, "o")
     for i, name in enumerate(("dq", "dk", "dv")):
         _close(dqkv.float()[:, :, i], want_g[:, :, i], rtol, name)
+
+
+# The fp32 K7 and K11 at the edges of csrc/attn_fwd_simt.cuh's register
+# tiles: S around one 64-row query and key tile, the model's 197 and the
+# contract's 1024; head dims on the narrow tiles (48 runs at 64 with zero
+# columns) and the wide ones (136 at 192, 256)
+FP32_K7_EDGE_S = (1, 64, 65, 197, 1024)
+FP32_K7_EDGE_D = (48, 64, 136, 256)
+
+
+@pytest.mark.parametrize("d", FP32_K7_EDGE_D)
+@pytest.mark.parametrize("s", FP32_K7_EDGE_S)
+def test_fp32_plain_k7_k11_match_jax_at_tile_edges(s, d):
+    b, h = 1, 2
+    qkv = torch.from_numpy(_rand((b, s, 3, h, d), 50 * s + d))
+    q, k, v = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+    before = _counts()
+    o7 = fa.fused_fwd(q, k, v)
+    o11 = fa.qkv_fwd(qkv)
+    assert _counts() == before
+    _close(o7, _jax_k7_fwd(q.numpy(), k.numpy(), v.numpy()), FP32_RTOL,
+           "K7 o")
+    _close(o11, _jax_k11_fwd(qkv.numpy()), FP32_RTOL, "K11 o")
 
 
 def test_bf16_d48_cast_order_is_k7s():
@@ -249,7 +311,7 @@ def test_fused_attention_qkv_matches_jax_fp32(s):
 
 
 @pytest.mark.parametrize("entry", ["fused_attention", "fused_attention_qkv"])
-@pytest.mark.parametrize("d", [136, 192])
+@pytest.mark.parametrize("d", [136, 192, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wide_heads_take_the_kernels_and_match_jax(dtype, entry, d):
     # F8: a head dim over 128 at S <= 1024, which JAX pads to a multiple of
@@ -808,3 +870,130 @@ def test_wide_heads_match_plain_on_cuda(cuda_device, dtype, shape):
             assert got.dtype == dt
             err = (got.float() - w.float()).abs().max().item()
             assert err <= rel * w.float().abs().max().item()
+
+
+# ---- the fp32 K7 and K11 on csrc/attn_fwd_simt.cuh's register tiles
+# (attn_fwd_simt_kernel<kD, true>): the edges of its tiles, and both sides
+# of each score-block limit (S 784 / 785 at kD 32, 688 / 689 at 64, 496 /
+# 497 at 128, 448 / 449 at 192 (and D 136 there), 384 / 385 at 256: past
+# them the kernel recomputes s instead of storing it)
+FP32_K7_CUDA_SHAPES = [(2, 2, s, d) for s in (1, 63, 64, 65, 197, 513, 1024)
+                       for d in (32, 48, 64, 128, 136, 192, 256)] + [
+    (2, 2, 784, 32), (2, 2, 785, 32), (2, 2, 688, 64), (2, 2, 689, 64),
+    (2, 2, 496, 128), (2, 2, 497, 128), (2, 2, 448, 192), (2, 2, 449, 192),
+    (2, 2, 448, 136), (2, 2, 449, 136), (2, 2, 384, 256), (2, 2, 385, 256)]
+FP32_K7_EDGE_REL = 1e-5  # of the largest |o|: fp32 summation order, expf
+
+
+def _fp32_o_close(o, q, k, v):
+    o_ref = fa.fused_fwd_reference(q, k, v, q.shape[-1] ** -0.5)
+    err = (o - o_ref).abs().max().item()
+    assert torch.isfinite(o).all()
+    assert err <= FP32_K7_EDGE_REL * o_ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FP32_K7_CUDA_SHAPES)
+def test_fp32_k7_k11_match_plain_at_tile_edges_on_cuda(cuda_device, shape):
+    # K7 twice on separate (B, H, S, D) q, k, v and K11 on a (B, S, 3, H, D)
+    # buffer holding the same heads: the three o bitwise equal, no copy,
+    # within FP32_K7_EDGE_REL of the plain version's largest |o|
+    b, h, s, d = shape
+    qkv = torch.from_numpy(_rand((b, s, 3, h, d), 60 * s + d)).to(
+        cuda_device)
+    q, k, v = (t.contiguous() for t in qkv.permute(2, 0, 3, 1, 4).unbind(0))
+    assert fa.fused_kernel_route(q, k, v) == "cuda_cores"
+    before, copies = _counts(), fb.COPIES
+    o7, again = fa.fused_fwd(q, k, v), fa.fused_fwd(q, k, v)
+    o11 = fa.qkv_fwd(qkv).view(b, s, h, d).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 2, before[1], before[2] + 1, before[3])
+    assert fb.COPIES == copies
+    assert torch.equal(o7, again) and torch.equal(o7, o11)
+    _fp32_o_close(o7, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d130", "pair_offset", "odd_row_stride",
+                                  "odd_offset"])
+def test_fp32_views_on_the_register_tiles_on_cuda(cuda_device, case):
+    # what the kernel reads in place and what _launch_views copies once:
+    # D 130 (rows not 16-byte aligned) and views two floats late take the
+    # kernel's 8-byte copies, no copy in Python (K11 on a D 130 buffer too,
+    # bitwise K7's o); an odd row stride or views one float late (not
+    # pair-aligned) are copied once
+    d = 130 if case == "d130" else 256
+    shape = (2, 2, 197, d)
+    make = {
+        "d130": lambda t: t,
+        "pair_offset": lambda t: torch.cat(
+            [t.flatten(), t.flatten()[:2]])[2:].view(t.shape),
+        "odd_row_stride": lambda t: torch.nn.functional.pad(
+            t, (0, 1))[..., :-1],
+        "odd_offset": lambda t: torch.cat(
+            [t.flatten(), t.flatten()[:1]])[1:].view(t.shape)}[case]
+    q, k, v = (make(torch.from_numpy(_rand(shape, 80 + i)).to(cuda_device))
+               for i in range(3))
+    copies = fb.COPIES
+    o = fa.fused_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert fb.COPIES - copies == int(case in ("odd_row_stride",
+                                              "odd_offset"))
+    _fp32_o_close(o, q, k, v)
+    if case == "d130":
+        qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], dim=2)
+        o11 = fa.qkv_fwd(qkv)
+        torch.cuda.synchronize()
+        assert fb.COPIES == copies
+        assert torch.equal(o11.view(2, 197, 2, d).transpose(1, 2), o)
+
+
+# one session per call, in a fresh process: in a long one (the whole cuda
+# suite) torch.profiler's sessions stop recording kernels
+FP32_K7_TRACED_D = (64, 192, 256)
+_K7_TRACE = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from vision_transformers_torch_xla_tpu_torch.ops import flash_attention as fa
+out = {}
+for d in %r:
+    x = torch.randn(2, 197, 3, 2, d, device="cuda")
+    q, k, v = (t.contiguous() for t in x.permute(2, 0, 3, 1, 4).unbind(0))
+    for name, fn in (("fused_fwd", lambda: fa.fused_fwd(q, k, v)),
+                     ("qkv_fwd", lambda: fa.qkv_fwd(x))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[f"{name}{d}"] = sorted(e.key for e in prof.key_averages()
+                                   if e.device_type.name == "CUDA"
+                                   and "anonymous namespace" in e.key)
+print(json.dumps(out))
+""" % (FP32_K7_TRACED_D,)
+
+
+@pytest.fixture(scope="module")
+def fp32_k7_trace():
+    """The csrc/ kernels (anonymous namespace) one fp32 call of K7 and of
+    K11 launches at each of FP32_K7_TRACED_D, traced by torch.profiler."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    res = subprocess.run([sys.executable, "-c", _K7_TRACE],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", FP32_K7_TRACED_D)
+def test_fp32_k7_k11_launch_the_register_tiled_kernel_alone(fp32_k7_trace,
+                                                            d):
+    kd = next(kd for kd in (32, 64, 128, 192, 256) if d <= kd)
+    for name in ("fused_fwd", "qkv_fwd"):
+        names = fp32_k7_trace[f"{name}{d}"]
+        assert len(names) == 1 and \
+            f"::attn_fwd_simt_kernel<{kd}, true, " in names[0], (name, names)

@@ -45,7 +45,16 @@ fc2_unfused the default path's work for the same result (cuBLAS da,
 autograd's GELU backward, the fp32 bias sum), its yardstick. sdpa_fwd and
 sdpa_bwd (its whole backward, dq, dk and dv) are the attention's
 yardstick, torch's scaled_dot_product_attention on contiguous copies of
-those q, k, v, which the port never calls.
+those q, k, v, which the port never calls. attn_fwd_plain and
+fused_fwd_plain are the plain versions of K1 (attn_fwd_reference, with the
+stats) and K7 (fused_fwd_reference) on the same inputs, which K9's and
+K11's plain versions repeat.
+
+The fp32 forwards on csrc/attn_fwd_simt.cuh's register tiles against the
+parent's loops, at a head dim of 256:
+
+    python tools/time_torch_attention.py --dtype float32 --head_dim 256 \
+        --batch 32 --kernels attn_fwd hp_fwd fused_fwd qkv_fwd --profile
 """
 from __future__ import annotations
 
@@ -159,7 +168,11 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
         "attn_bwd": attn_bwd,
         "hp_fwd": lambda: fa.hp_fwd(qkv, H),
         "hp_bwd": lambda: fa.hp_bwd(qkv, do, H),
+        "attn_fwd_plain": lambda: fa.attn_fwd_reference(
+            qkv, H, D ** -0.5, with_stats=True),
         "fused_fwd": lambda: fa.fused_fwd(q, k, v),
+        "fused_fwd_plain": lambda: fa.fused_fwd_reference(q, k, v,
+                                                          D ** -0.5),
         "fused_bwd": lambda: fa.fused_bwd(q, k, v, g),
         "qkv_fwd": lambda: fa.qkv_fwd(qkv5),
         "qkv_bwd": lambda: fa.qkv_bwd(qkv5, do),

@@ -1,5 +1,6 @@
 // Softmax attention forward over (B, H, S, D) q, k and v given by strides,
-// for Hopper, in fp32.
+// for Hopper, in fp32, and in bf16 and fp16 past the tensor cores' head
+// dims.
 //
 // Replaces two TPU kernels of
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py that compute the
@@ -16,16 +17,6 @@
 // the product. The TPU kernels pad S to 128 and D to 8 and mask the padded
 // columns; here the loops run over the S real keys and the D real columns.
 //
-// Element types: the loops are written for any element type through
-// csrc/elem.cuh. This source serves fp32 at every head dim, where every
-// rounding to T is an identity (a tensor-core product of fp32 operands,
-// TF32, would round what the TPU kernels keep), and bf16 and fp16 at head
-// dims over 128. Below that the 16-bit types run on the tensor cores
-// (csrc/attn_fwd_tc.cu, K7's cast order), whose tiles do not fit a wider
-// head: at a head dim padded to 192, Q (128 rows) and a 2-stage ring of K
-// and V (128 keys) take 48 + 96 + 96 = 240 KB of the 227 KB a block may
-// have.
-//
 // Every tensor is a base pointer and three element strides (batch, head,
 // token) with the head dim contiguous, so K7 reads (B, H, S, D) tensors and
 // K11 reads q, k and v in place in the qkv buffer and writes o straight into
@@ -34,31 +25,35 @@
 // What bounds it on an H100: at B = 128, S = 197, H = 12, D = 64 the two
 // products are 15 GFLOP over ~310 MB of fp32 (q, k, v read, o written):
 // 0.228 ms at the 67 TFLOP/s fp32 CUDA-core peak, 0.093 ms at 3.35 TB/s, so
-// the products bound the ideal kernel. The limit in practice is instruction
-// issue: every two FMAs come with a shared-memory load.
+// the products bound the ideal kernel.
 //
-// Design, K1's: one block per (b, h, 64-row query tile). K and V of the head
-// are staged once in shared memory (rows padded to an odd number of 32-bit
-// words, so lanes reading different key rows hit different banks); each warp
-// owns one query row at a time: lanes split the keys for q k^T, warp
-// shuffles give the row max and sum, and lanes split the head dim for p v.
-// The score row never leaves shared memory. s is scaled with __fmul_rn, so
-// the compiler cannot fuse the scale into the subtraction of m. For head dims
-// 32, 64 and 128 (fp32) the head dim is a compile-time constant, q sits in
-// registers and the loops unroll; other even head dims, up to 1024, take the
-// run-time loops. When K and V do not fit (long S with wide D), they are read from
-// global memory (L2) through the same loops.
+// fp32 at D <= 256: csrc/attn_fwd_simt.cuh's register tiles in K7's order
+// (attn_fwd_simt_kernel<kD, true, kStore>, kD 32, 64, 128, 192 or 256);
+// the header has the design and its times. bf16 and fp16 to D = 256 run
+// on the tensor cores (csrc/attn_fwd_tc.cu, K7's cast order).
 //
-// Plain C interface, loaded with ctypes. The kernel allocates nothing and
-// launches on the caller's stream; the host function takes the element
+// Every dtype past D = 256 (fused_attn_fwd_kernel<T, 0>): the first design,
+// with the head dim a run-time value and the loops written for any element
+// type through csrc/elem.cuh. One block per (b, h, 64-row query tile). K
+// and V of the head are staged once in shared memory (rows padded to an odd
+// number of 32-bit words, so lanes reading different key rows hit
+// different banks); each warp owns one query row at a time: lanes split the
+// keys for q k^T, warp shuffles give the row max and sum, and lanes split
+// the head dim for p v. The score row never leaves shared memory. s is
+// scaled with __fmul_rn, so the compiler cannot fuse the scale into the
+// subtraction of m. When K and V do not fit (long S with wide D), they are
+// read from global memory (L2) through the same loops.
+//
+// Plain C interface, loaded with ctypes. The kernels allocate nothing and
+// launch on the caller's stream; the host function takes the element
 // type's code (csrc/elem.cuh) and returns cudaGetLastError().
 
 #include <cfloat>
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
+#include "attn_fwd_simt.cuh"
 #include "elem.cuh"
 
 namespace {
@@ -69,8 +64,6 @@ constexpr int kMaxHeadDim = 1024;  // the per-warp scratch stays < 227 KB
 constexpr int kMaxSeq = 1024;
 constexpr long long kMaxGridX = 2147483647;  // (b, h, tile) ride grid x
 constexpr size_t kSmemBudget = 200 * 1024;  // of the 227 KB a block may have
-
-enum { kQ, kK, kV, kO, kTensors };
 
 // Element strides of the four (B, H, S, D) tensors, whose base pointers are
 // the kernel's __restrict__ parameters. Token strides are int: the host
@@ -111,17 +104,17 @@ __host__ __device__ inline int warp_floats(int D, int S) {
 // 1-D grid over (b, h, query tile), so B and H are bound by grid x alone
 // (2^31 - 1 blocks), not by the 65535 of y and z. Shared memory: per warp
 // [q: D][scores: S] (16-byte aligned), then [K: S x kv_words][V: S x
-// kv_words] when kv_in_smem. kD > 0 fixes the head dim at compile time (a
-// multiple of 4); kD == 0 reads a.D.
+// kv_words] when kv_in_smem. kD is 0: the head dim is a.D.
 template <typename T, int kD>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       const Layout a) {
+  static_assert(kD == 0, "the run-time head-dim loops");
   typedef Elem<T> E;
   typedef typename E::Pair Pair;
   extern __shared__ __align__(16) float smem[];
-  const int D = kD > 0 ? kD : a.D;
+  const int D = a.D;
   const int S = a.S;
   const int bh = blockIdx.x / a.tiles;
   const int b = bh / a.H;
@@ -162,42 +155,17 @@ fused_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // s = (q k^T) * scale: lane j takes keys j, j + 32, ...
     float mx = -FLT_MAX;
-    if constexpr (kD > 0) {
-      float qr[kD];
-#pragma unroll
-      for (int d = 0; d < kD; d += 4) {
-        const float4 t = *reinterpret_cast<const float4*>(qs + d);
-        qr[d] = t.x;
-        qr[d + 1] = t.y;
-        qr[d + 2] = t.z;
-        qr[d + 3] = t.w;
+    for (int j = lane; j < S; j += 32) {
+      const Pair* kr = kp + j * k_stride;
+      float a0 = 0.f, a1 = 0.f;
+      for (int c = 0; c < D2; ++c) {
+        const float2 kf = E::load2(kr[c]);
+        a0 = fmaf(qs[2 * c], kf.x, a0);
+        a1 = fmaf(qs[2 * c + 1], kf.y, a1);
       }
-      for (int j = lane; j < S; j += 32) {
-        const Pair* kr = kp + j * k_stride;
-        float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-        for (int c = 0; c < kD / 2; ++c) {
-          const float2 kf = E::load2(kr[c]);
-          a0 = fmaf(qr[2 * c], kf.x, a0);
-          a1 = fmaf(qr[2 * c + 1], kf.y, a1);
-        }
-        const float s = __fmul_rn(a0 + a1, a.scale);
-        sc[j] = s;
-        mx = fmaxf(mx, s);
-      }
-    } else {
-      for (int j = lane; j < S; j += 32) {
-        const Pair* kr = kp + j * k_stride;
-        float a0 = 0.f, a1 = 0.f;
-        for (int c = 0; c < D2; ++c) {
-          const float2 kf = E::load2(kr[c]);
-          a0 = fmaf(qs[2 * c], kf.x, a0);
-          a1 = fmaf(qs[2 * c + 1], kf.y, a1);
-        }
-        const float s = __fmul_rn(a0 + a1, a.scale);
-        sc[j] = s;
-        mx = fmaxf(mx, s);
-      }
+      const float s = __fmul_rn(a0 + a1, a.scale);
+      sc[j] = s;
+      mx = fmaxf(mx, s);
     }
     mx = warp_max(mx);
 
@@ -216,48 +184,20 @@ fused_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // o = bf16(p) v: lane c takes head-dim pairs c, c + 32
     Pair* orow = reinterpret_cast<Pair*>(og + r * a.ss[kO]);
-    if constexpr (kD > 0) {
-#pragma unroll
-      for (int c0 = 0; c0 < kD / 2; c0 += 32) {
-        const int c = c0 + lane;
-        if (c < kD / 2) {
-          float ax[4] = {0.f, 0.f, 0.f, 0.f}, ay[4] = {0.f, 0.f, 0.f, 0.f};
-          int j = 0;
-          for (; j + 4 <= S; j += 4) {
-            const float4 p4 = *reinterpret_cast<const float4*>(sc + j);
-            const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const float2 vf = E::load2(vp[(j + u) * v_stride + c]);
-              ax[u] = fmaf(pj[u], vf.x, ax[u]);
-              ay[u] = fmaf(pj[u], vf.y, ay[u]);
-            }
-          }
-          for (; j < S; ++j) {
-            const float2 vf = E::load2(vp[j * v_stride + c]);
-            ax[0] = fmaf(sc[j], vf.x, ax[0]);
-            ay[0] = fmaf(sc[j], vf.y, ay[0]);
-          }
-          orow[c] = E::store2((ax[0] + ax[1]) + (ax[2] + ax[3]),
-                              (ay[0] + ay[1]) + (ay[2] + ay[3]));
-        }
+    for (int c = lane; c < D2; c += 32) {
+      float ax = 0.f, ay = 0.f;
+      for (int j = 0; j < S; ++j) {
+        const float2 vf = E::load2(vp[j * v_stride + c]);
+        ax = fmaf(sc[j], vf.x, ax);
+        ay = fmaf(sc[j], vf.y, ay);
       }
-    } else {
-      for (int c = lane; c < D2; c += 32) {
-        float ax = 0.f, ay = 0.f;
-        for (int j = 0; j < S; ++j) {
-          const float2 vf = E::load2(vp[j * v_stride + c]);
-          ax = fmaf(sc[j], vf.x, ax);
-          ay = fmaf(sc[j], vf.y, ay);
-        }
-        orow[c] = E::store2(ax, ay);
-      }
+      orow[c] = E::store2(ax, ay);
     }
     __syncwarp();  // qs and sc are rewritten by the warp's next row
   }
 }
 
-template <typename T, int kD>
+template <typename T>
 int launch(T* const* t, Layout a, int B, int H, cudaStream_t stream) {
   // pad K/V rows to an odd number of pairs (of 32-bit words for the 16-bit
   // types): conflict-free row reads
@@ -271,32 +211,27 @@ int launch(T* const* t, Layout a, int B, int H, cudaStream_t stream) {
   const size_t smem = warp_bytes + (a.kv_in_smem ? kv_bytes : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_attn_fwd_kernel<T, kD>,
+        fused_attn_fwd_kernel<T, 0>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned grid = (unsigned)B * H * a.tiles;
-  fused_attn_fwd_kernel<T, kD><<<grid, kWarps * 32, smem, stream>>>(
+  fused_attn_fwd_kernel<T, 0><<<grid, kWarps * 32, smem, stream>>>(
       t[kQ], t[kK], t[kV], t[kO], a);
   return (int)cudaGetLastError();
 }
 
+// Every dtype comes here past D = 256 alone (fp32 below is
+// csrc/attn_fwd_simt.cuh's, bf16 and fp16 csrc/attn_fwd_tc.cu's): run-time
+// loops.
 template <typename T>
 int launch_d(const void* const* ptrs, const Layout& a, int B, int H,
              cudaStream_t s) {
   T* t[kTensors];
   for (int i = 0; i < kTensors; ++i)
     t[i] = const_cast<T*>(static_cast<const T*>(ptrs[i]));
-  // bf16 and fp16 come here at head dims over 128 alone: run-time loops
-  if constexpr (std::is_same<T, float>::value) {
-    switch (a.D) {
-      case 32: return launch<T, 32>(t, a, B, H, s);
-      case 64: return launch<T, 64>(t, a, B, H, s);
-      case 128: return launch<T, 128>(t, a, B, H, s);
-    }
-  }
-  return launch<T, 0>(t, a, B, H, s);
+  return launch<T>(t, a, B, H, s);
 }
 
 }  // namespace
@@ -304,8 +239,9 @@ int launch_d(const void* const* ptrs, const Layout& a, int B, int H,
 extern "C" {
 
 // q, k, v in, o out: (B, H, S, D) of the element type `dtype` (bf16 and
-// fp16 at head dims <= 128 are csrc/attn_fwd_tc.cu's) with the head dim
-// contiguous; strides holds 12 element strides,
+// fp16 at head dims <= 256 are csrc/attn_fwd_tc.cu's; fp32 there takes
+// csrc/attn_fwd_simt.cuh's kernel) with the head dim contiguous; strides
+// holds 12 element strides,
 // (batch, head, token) of q, k, v and o. Returns a cudaError_t as int: 0 on
 // a launch that was accepted.
 int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
@@ -339,6 +275,8 @@ int vtx_fused_attn_fwd(const void* q, const void* k, const void* v, void* o,
   a.tiles = tiles;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32 && D <= 256)
+    return attn_fwd_simt<true>(ptrs, nullptr, strides, B, S, H, D, scale, s);
   switch (dtype) {
     case kBf16: return launch_d<__nv_bfloat16>(ptrs, a, B, H, s);
     case kF16: return launch_d<__half>(ptrs, a, B, H, s);

@@ -14,8 +14,9 @@ q, k and v straight from the (B, S, 3·H·D) projection output:
 
 Their bf16 and fp16 kernels run on the tensor cores (TMA, mbarriers,
 wgmma): csrc/attn_fwd_tc.cu and csrc/attn_bwd_tc.cu. The fp32 ones run on
-the CUDA cores, csrc/attn_fwd.cu (a warp per query row) and
-csrc/attn_bwd.cu (a block per (b, h) over register-tiled 64-row tiles,
+the CUDA cores, csrc/attn_fwd.cu (csrc/attn_fwd_simt.cuh's register tiles
+in K1's order, a block per (b, h, 64-row query tile)) and csrc/attn_bwd.cu
+(a block per (b, h) over register-tiled 64-row tiles,
 csrc/flash_blocked.cu's tiling): the JAX kernels round nothing in fp32,
 and a tensor-core product of fp32 operands, TF32, would. Wider heads take
 other sources (below).
@@ -47,7 +48,8 @@ one function over two layouts, in the cast order of `_reference_attention`
 * `fused_fwd` (K7, `_fwd_kernel` :36) on (B, H, S, D) q, k, v and `qkv_fwd`
   (K11, `_qkv_fwd_kernel` :740) on a (B, S, 3, H, D) qkv buffer -> in bf16
   and fp16 csrc/attn_fwd_tc.cu in K7's cast order (TMA, mbarriers, wgmma),
-  in fp32 csrc/fused_attn_fwd.cu (CUDA cores), as `fused_kernel_route`
+  in fp32 csrc/fused_attn_fwd.cu (CUDA cores: K1's register-tiled kernel,
+  csrc/attn_fwd_simt.cuh, in K7's cast order), as `fused_kernel_route`
   decides; plain version `fused_fwd_reference`;
 * `fused_bwd` (K8, `_bwd_kernel` :61) and `qkv_bwd` (K12, `_qkv_bwd_kernel`
   :764), whose function is K10's, and `hp_bwd` (K10) -> in bf16 and fp16
@@ -89,7 +91,10 @@ sources (the routes say which, before the launch):
 * fp32 at any D, and every dtype at D > MAX_WIDE_HEAD_DIM: the CUDA
   cores, csrc/attn_fwd.cu (K1, K9), csrc/attn_bwd.cu (K2),
   csrc/fused_attn_fwd.cu (K7, K11) and csrc/hp_bwd.cu (K8, K10, K12; fp32
-  at D <= MAX_HEAD_DIM in csrc/hp_bwd_simt.cu, linked in).
+  at D <= MAX_HEAD_DIM in csrc/hp_bwd_simt.cu, linked in); the fp32 K1,
+  K9, K7 and K11 at D <= MAX_WIDE_HEAD_DIM run one register-tiled kernel
+  in two cast orders, csrc/attn_fwd_simt.cuh, which both forward sources
+  include, and past it those sources' run-time head-dim loops.
 
 Every kernel takes bf16, fp16 and fp32 on the card, as the JAX kernels take
 any float dtype: the CUDA sources are templated on the element type, compute
@@ -162,8 +167,9 @@ def _load(name: str, fn: str, argtypes, sources=None) -> ctypes.CDLL:
 
 # Every host function ends with (element type's code, stream).
 def build_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the fp32 forward's library (K1, K9 on
-    the CUDA cores)."""
+    """Build (at first use) and load the CUDA-core forward's library (K1,
+    K9: fp32 on csrc/attn_fwd_simt.cuh's register tiles to
+    MAX_WIDE_HEAD_DIM, every dtype past it on run-time loops)."""
     return _load("attn_fwd", "vtx_attn_fwd",
                  [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 
@@ -209,7 +215,9 @@ def attn_kernel_route(qkv: torch.Tensor, num_heads: int,
     place), 'tensor_cores_copy' (the same kernels after one `padded_copy`,
     when TMA cannot read q, k, v or dO, O in place: `tma_ready`) or
     'cuda_cores' (fp32, and the wider heads of every dtype:
-    csrc/attn_fwd.cu, csrc/attn_bwd.cu)."""
+    csrc/attn_fwd.cu, whose fp32 forward to MAX_WIDE_HEAD_DIM is
+    csrc/attn_fwd_simt.cuh's attn_fwd_simt_kernel in K1's order, and
+    csrc/attn_bwd.cu)."""
     widest = MAX_WIDE_HEAD_DIM if do is None else MAX_HEAD_DIM
     if qkv.dtype == torch.float32 or _head_dim(qkv, num_heads) > widest:
         return "cuda_cores"
@@ -231,9 +239,11 @@ def fused_kernel_route(q: torch.Tensor, k: torch.Tensor,
     place, at a head dim <= MAX_WIDE_HEAD_DIM), 'tensor_cores_copy' (the
     same kernel after one `padded_copy`, when TMA cannot read them in
     place: `tma_ready`) or 'cuda_cores' (fp32, or a head dim over
-    MAX_WIDE_HEAD_DIM in any dtype: csrc/fused_attn_fwd.cu). The output is
-    the wrapper's own, which the kernel writes in place at every even head
-    dim."""
+    MAX_WIDE_HEAD_DIM in any dtype: csrc/fused_attn_fwd.cu, whose fp32
+    forward to MAX_WIDE_HEAD_DIM is csrc/attn_fwd_simt.cuh's
+    attn_fwd_simt_kernel in K7's order, reading q, k and v in place where
+    `_launch_views` lets it). The output is the wrapper's own, which the
+    kernel writes in place at every even head dim."""
     if q.shape[-2] > MAX_SEQ:
         return "reference"
     if q.dtype == torch.float32 or q.shape[-1] > MAX_WIDE_HEAD_DIM:
@@ -289,8 +299,9 @@ def bwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def build_fused_fwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the fp32 forward of K7 and K11 (CUDA
-    cores)."""
+    """Build (at first use) and load the CUDA-core forward of K7 and K11
+    (fp32 on csrc/attn_fwd_simt.cuh's register tiles to MAX_WIDE_HEAD_DIM,
+    every dtype past it on run-time loops)."""
     return _load("fused_attn_fwd", "vtx_fused_attn_fwd",
                  [_P] * 4 + [_STRIDES, _I, _I, _I, _I, ctypes.c_float, _I,
                              _P])
@@ -364,10 +375,14 @@ def _stride_array(tensors, s: int, d: int):
 def _launch_views(launch, ins, outs, name: str) -> None:
     """Run a strided kernel on (B, H, S, D) views: `launch(ins, outs,
     strides)` is one launch. Views the kernel cannot take in place
-    (`_stride_array`) are copied once by `padded_copy`, the head dim
+    (`_stride_array`: an odd head dim, odd strides, data not aligned to a
+    pair of elements) are copied once by `padded_copy`, the head dim
     zero-padded to even (zero columns add nothing to q·kᵀ and give zero
     columns of o and of the gradients), and the outputs sliced back into
-    `outs`."""
+    `outs`. The kernels read the views they take in pieces their rows
+    allow: csrc/attn_fwd_simt.cuh copies 16 bytes at a time where every row
+    is 16-byte aligned, else 8 (a head dim of 130, views two floats late),
+    so no view of a pair-aligned layout is copied in Python."""
     _, _, s, d = ins[0].shape
     strides = _stride_array((*ins, *outs), s, d)
     if strides is not None:
