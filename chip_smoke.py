@@ -123,6 +123,10 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     (flash_fwd_simt_kernel, flash_bwd_dkdv_simt_kernel,
     flash_bwd_dq_simt_kernel) and of the fp32 K8, K10 and K12 at S 197
     (hp_bwd_stats_simt_kernel, hp_bwd_dkdv_simt_kernel and
+    hp_bwd_dq_sum_kernel), and at D 192 and 256 of the bf16 and fp16 K2
+    (csrc/attn_bwd_tc.cu's prep, attn_bwd_tc_dkdv_wide_kernel,
+    attn_bwd_tc_dq_wide_kernel and bias sum) and of the fp32 K8, K10 and
+    K12 (hp_bwd_stats_wide_simt_kernel, hp_bwd_dkdv_wide_simt_kernel,
     hp_bwd_dq_sum_kernel) launches
     (torch.profiler, in a process of its own) must be their new kernels
     alone.
@@ -135,10 +139,11 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     with the counts reset just before: each kernel launched exactly as
     often as the shapes say. Each route function answers as the rule
     says (K1, K9, K7-K12 on the wide tensor-core tiles of
-    csrc/attn_fwd_tc.cu and csrc/hp_bwd_tc.cu, K4 and K5 on those of
-    csrc/flash_fwd.cu and csrc/flash_bwd.cu, up to 256 in bf16 and fp16;
-    K2 on csrc/attn_bwd.cu's wide kernel and K6 on csrc/flash_blocked.cu's
-    past 128 in every dtype; fp32 and past 256 on the CUDA cores), and one
+    csrc/attn_fwd_tc.cu and csrc/hp_bwd_tc.cu, K2 on those of
+    csrc/attn_bwd_tc.cu, K4 and K5 on those of csrc/flash_fwd.cu and
+    csrc/flash_bwd.cu, up to 256 in bf16 and fp16; K6 on
+    csrc/flash_blocked.cu's past 128 in every dtype; fp32 and past 256 on
+    the CUDA cores), and one
     call of each kernel at D 256 (and past 256
     in bf16), traced together in one torch.profiler session per dtype (ahead
     of the trainer phases; a process's sessions stop recording after a
@@ -148,7 +153,12 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     (FP32_OUT_REL for fp32 outputs, LSE_ATOL for lse), and timed at
     WIDE_TIMED (K4-K6 WIDE_LONG_TIMED) beside its plain version and SDPA;
     each gets a line 'kernel[dtype,d256]' in the kernels JSON with the
-    launches of that run.
+    launches of that run; the bf16, fp16 K2 and the fp32 K8, K10 and K12
+    times are printed beside those of the loops they replaced
+    (REPLACED_WIDE_BWD_MS). Then the bf16 and fp16 K2 at
+    K2_WIDE_EDGE_SHAPES (S 1 to 1024, D 130 to 256: in place, or after one
+    `padded_copy`), each call run twice and bitwise equal, dqkv within
+    WIDE_REL and the bias partials within DBIAS_REL_ATOL.
 17c. fp32 at 518 px (after 17b, whose profiler sessions it follows):
     launch/main.py::main on vit_base_patch14_dinov2 with --precision fp32
     at batch 4 for 2 steps and 1 eval batch, under one torch.profiler
@@ -277,7 +287,8 @@ JAX kernels take any float dtype):
     twice and bitwise equal, no copy, o and lse within K2_FP32_EDGE_REL of
     their plain versions' largest magnitudes; and the fp32 K8, K10 and K12
     (csrc/hp_bwd_simt.cu) at HP_FP32_EDGE_SHAPES (S 1 to 1024 around the
-    64-row tiles, D 32 to 128; K10 and K12 in place in a qkv buffer, K8 on
+    64-row tiles, D 32 to 128, and 136 to 256 around the wide tiles'
+    32-key blocks; K10 and K12 in place in a qkv buffer, K8 on
     contiguous tensors, on views whose rows are not 16-byte aligned and on
     views of odd row stride, which `_launch_views` copies once; B·H over
     65535), each call run twice and bitwise equal, copies exactly where
@@ -575,7 +586,9 @@ K4_FP32_EDGE_SHAPES = tuple(
           ) + (("qkv", (1, 8, 65537, 8)), ("dense", (65537, 8, 1, 8)))
 # The fp32 K8, K10 and K12 (csrc/hp_bwd_simt.cu) at their edges, (kernel,
 # layout, (B, S, H, D)): S around the 64-row tiles and 128-row blocks up to
-# the kernels' 1024, D 32 to 128; K10 and K12 in place in a qkv buffer, K8
+# the kernels' 1024, D 32 to 128, and past 128 the wide tiles' (32-key
+# blocks, 64-query tiles) at D 136, 192 and 256; K10 and K12 in place in a
+# qkv buffer, K8
 # on contiguous tensors, on views whose rows start two floats late (the
 # kernels' 4-byte copies) and on views of odd row stride (one copy by
 # `_launch_views`), and B·H over 65535; held to K2_FP32_EDGE_REL of the
@@ -589,7 +602,12 @@ HP_FP32_EDGE_SHAPES = tuple(
 ) + tuple(("fused_bwd", layout, (2, s, 3, d))
           for layout in ("late", "odd_stride") for s in (65, 197)
           for d in (48, 64)) + (("hp_bwd", "qkv", (1, 8, 65537, 8)),
-                                ("fused_bwd", "dense", (65537, 8, 1, 8)))
+                                ("fused_bwd", "dense", (65537, 8, 1, 8))
+                                ) + tuple(
+    (kernel, layout, (1, s, 2, d))
+    for kernel, layout in (("hp_bwd", "qkv"), ("qkv_bwd", "qkv"),
+                           ("fused_bwd", "dense"))
+    for s in (1, 31, 32, 33, 65, 197, 1024) for d in (136, 192, 256))
 # The fp32 times of the kernels that flash_fwd_simt.cu, hp_bwd_simt.cu and
 # attn_fwd_simt.cuh replaced (flash_blocked.cu's flash_fwd_kernel<float,
 # 64>, hp_bwd.cu's loops at D 64, fused_attn_fwd.cu's fused_attn_fwd_kernel<
@@ -606,6 +624,25 @@ REPLACED_FP32_MS = {"flash_fwd": "7.193-7.203", "fused_bwd": "5.53-5.55",
 REPLACED_WIDE_FP32_MS = {"attn_fwd": "9.578", "hp_fwd": "9.552-9.564",
                          "fused_fwd": "10.453-10.555",
                          "qkv_fwd": "10.397-10.561"}
+# and of the loops that the wide tiles of csrc/attn_bwd_tc.cu (K2 in bf16
+# and fp16) and csrc/hp_bwd_simt.cu (the fp32 K8, K10 and K12) replaced at
+# WIDE_TIMED: csrc/attn_bwd.cu's attn_bwd_wide_kernel and csrc/hp_bwd.cu's
+# run-time head dim, event ms of phase 17b (PERF.md §6), printed beside
+# phase 17b's
+REPLACED_WIDE_BWD_MS = {("bfloat16", "attn_bwd"): "9.580",
+                        ("float16", "attn_bwd"): "9.760",
+                        ("float32", "fused_bwd"): "36.913",
+                        ("float32", "hp_bwd"): "36.674",
+                        ("float32", "qkv_bwd"): "36.875"}
+# K2 on the wide tensor-core tiles (csrc/attn_bwd_tc.cu, bf16 and fp16) at
+# its edges, (B, S, H, D): S around the 32-query streamed and 64-row
+# stationary tiles up to the kernels' 1024; D 136, 192, 200 and 256 read in
+# place (136 and 200 zero-filled to the next compiled tile), 130 after one
+# `padded_copy`; each call twice and bitwise equal, dqkv within WIDE_REL and
+# the bias partials within DBIAS_REL_ATOL of their largest magnitude
+K2_WIDE_EDGE_SHAPES = tuple(
+    (1, s, 2, d) for s in (1, 63, 64, 65, 127, 128, 129, 197, 1024)
+    for d in (136, 192, 200, 256)) + tuple((1, s, 2, 130) for s in (65, 197))
 # The fp32 K1 and K9 (csrc/attn_fwd_simt.cuh, attn_fwd_simt_kernel in K1's
 # order) at their edges, (B, S, H, D): S around the 64-row query and key
 # tiles, the 8-key groups (32-key groups and the 256-key score tile past D
@@ -661,7 +698,7 @@ WIDE_REL = {"bfloat16": DQKV_REL_ATOL, "float16": 5e-3, "float32": 1e-4}
 # at WIDE_LONG_SHAPES, multi_head_attention(use_pallas=True) and
 # fused_attention_qkv (K7, K8, K11, K12) at WIDE_QKV_SHAPES[0], in bf16,
 # fp16 and fp32: the wide tensor-core tiles at 129-256 in bf16 and fp16,
-# the CUDA cores in fp32, past 256 and for K2 and K4-K6 past 128. Each
+# the CUDA cores in fp32, past 256 and for K6 past 128. Each
 # kernel is held against its plain version within WIDE_REL of the largest
 # magnitude (FP32_OUT_REL for fp32 outputs, LSE_ATOL for lse) and timed at
 # WIDE_TIMED beside its plain version and SDPA (K4-K6 at WIDE_LONG_TIMED).
@@ -2373,9 +2410,10 @@ def trace_redesigned() -> None:
 def check_redesigned(fa, fb, mf, dev) -> None:
     """The redesigned kernels run alone: one call of the bf16, fp16 and
     fp32 K3, of the fp32 K2, of the fp32 K4, K5 and K6 and of the fp32 K8,
-    K10 and K12, and the calls of the fp32 K1, K9, K7 and K11 at
-    REDESIGNED_FWD_D, launch (torch.profiler) their new kernels and no
-    other of csrc/."""
+    K10 and K12, the calls of the fp32 K1, K9, K7 and K11 at
+    REDESIGNED_FWD_D, and those of the bf16 and fp16 K2 and the fp32 K8,
+    K10 and K12 at head dims 192 and 256 launch (torch.profiler) their new
+    kernels and no other of csrc/."""
     import torch
 
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -2438,6 +2476,30 @@ def check_redesigned(fa, fb, mf, dev) -> None:
         call, _, _ = hp_fp32_call(fa, fb, kernel, layout, (8, 197, h, d),
                                   4506, dev)
         only_kernels(call, hp_kernels, f"redesigned fp32 {kernel}")
+    # the wide tiles at head dims 192 and 256: K2 in bf16 and fp16 on
+    # csrc/attn_bwd_tc.cu, the fp32 K8, K10 and K12 on csrc/hp_bwd_simt.cu
+    for dt_name in ("bfloat16", "float16"):
+        dt = getattr(torch, dt_name)
+        calls, wants = [], []
+        for dw in (192, 256):
+            qkv = seeded_bf16((2, 197, 3 * h * dw), 4520 + dw, dev, dt)
+            do = seeded_bf16((2, 197, h * dw), 4521 + dw, dev, dt)
+            o, st = fa.attn_fwd(qkv, h, with_stats=True)
+            calls.append(lambda qkv=qkv, do=do, o=o, st=st:
+                         fa.attn_bwd(qkv, do, o, st, h))
+            wants += wide_kernel_names("attn_bwd", dt_name, dw)
+        only_kernels(lambda calls=calls: [c() for c in calls],
+                     sorted(set(wants)), f"redesigned wide {dt_name} K2")
+    for kernel, layout in (("fused_bwd", "dense"), ("hp_bwd", "qkv"),
+                           ("qkv_bwd", "qkv")):
+        calls, wants = [], []
+        for dw in (192, 256):
+            call, _, _ = hp_fp32_call(fa, fb, kernel, layout,
+                                      (2, 197, h, dw), 4530 + dw, dev)
+            calls.append(call)
+            wants += wide_kernel_names(kernel, "float32", dw)
+        only_kernels(lambda calls=calls: [c() for c in calls],
+                     sorted(set(wants)), f"redesigned wide fp32 {kernel}")
 
 
 def only_kernels(fn, wants, tag) -> None:
@@ -2455,11 +2517,10 @@ def only_kernels(fn, wants, tag) -> None:
 
 
 def wide_route(dt_name: str, d: int, name: str = "") -> str:
-    """The route of K1, K9, K7-K12, K4 and K5 at head dim d > 128: the wide
-    tensor-core tiles up to 256 in bf16 and fp16 (in place at a multiple
-    of 8), else the CUDA cores (always for K2 and K6)."""
-    if dt_name == "float32" or d > 256 or name in ("attn_bwd",
-                                                    "flash_bwd_dq"):
+    """The route of K1, K2, K9, K7-K12, K4 and K5 at head dim d > 128: the
+    wide tensor-core tiles up to 256 in bf16 and fp16 (in place at a
+    multiple of 8), else the CUDA cores (always for K6)."""
+    if dt_name == "float32" or d > 256 or name == "flash_bwd_dq":
         return "cuda_cores"
     return "tensor_cores" if d % 8 == 0 else "tensor_cores_copy"
 
@@ -2484,7 +2545,12 @@ def wide_kernel_names(name: str, dt_name: str, d: int):
         return [f"{name}_kernel<{t},{kd}>(CUtensorMap" if tc
                 else f"{name}_wide_kernel<{t}>"]
     if name == "attn_bwd":
-        return [f"attn_bwd_wide_kernel<{t}>"]
+        # csrc/attn_bwd_tc.cu's prep, wide dk/dv and dq, and bias sum
+        return ([f"attn_bwd_tc_prep_kernel<{t}>",
+                 f"attn_bwd_tc_dkdv_wide_kernel<{t},{kd}>",
+                 f"attn_bwd_tc_dq_wide_kernel<{t},{kd}>",
+                 "attn_bwd_tc_bias_kernel("] if tc
+                else [f"attn_bwd_wide_kernel<{t}>"])
     if name in ("attn_fwd", "hp_fwd", "fused_fwd", "qkv_fwd"):
         k7 = "true" if name in ("fused_fwd", "qkv_fwd") else "false"
         if tc:
@@ -2493,9 +2559,13 @@ def wide_kernel_names(name: str, dt_name: str, d: int):
             return [f"attn_fwd_simt_kernel<{kd},{k7},true>"]
         return [f"attn_fwd_kernel<{t},0>" if k7 == "false"
                 else f"fused_attn_fwd_kernel<{t},0>"]
-    return ([f"hp_bwd_tc_dq_kernel<{t},{kd}>",
-             f"hp_bwd_tc_dkdv_kernel<{t},{kd}>"] if tc
-            else [f"hp_bwd_dq_kernel<{t},0>", f"hp_bwd_dkdv_kernel<{t},0>"])
+    if tc:
+        return [f"hp_bwd_tc_dq_kernel<{t},{kd}>",
+                f"hp_bwd_tc_dkdv_kernel<{t},{kd}>"]
+    if dt_name == "float32" and d <= 256:  # csrc/hp_bwd_simt.cu
+        return [f"hp_bwd_stats_wide_simt_kernel<{kd}>",
+                f"hp_bwd_dkdv_wide_simt_kernel<{kd}>", "hp_bwd_dq_sum_kernel("]
+    return [f"hp_bwd_dq_kernel<{t},0>", f"hp_bwd_dkdv_kernel<{t},0>"]
 
 
 def drive_wide_heads(counts, fa, dev, dt):
@@ -2550,7 +2620,8 @@ def wide_routes_hold(fa, fb, name, shape, dt, dt_name) -> None:
         got, want = fb.kernel_route(name, q, k, v), wide_route(dt_name, d,
                                                                name)
     elif name == "attn_bwd":
-        got, want = fa.attn_kernel_route(qkv, h, do, do), "cuda_cores"
+        got, want = (fa.attn_kernel_route(qkv, h, do, do),
+                     wide_route(dt_name, d, name))
     elif name in ("attn_fwd", "hp_fwd"):
         got, want = fa.attn_kernel_route(qkv, h), wide_route(dt_name, d)
     elif name in ("fused_fwd", "qkv_fwd"):
@@ -2647,14 +2718,69 @@ def phase_wide_heads(counts, fa, fb, mf, dev):
                     f"SDPA {row['ms']!r} / {row['plain_ms']!r} / "
                     f"{row['library_ms']!r} ms (the loops it replaced: "
                     f"{REPLACED_WIDE_FP32_MS[name]} device ms)")
+            if (dt_name, name) in REPLACED_WIDE_BWD_MS:
+                log(f"[wide heads] {dt_name} {name} {timed}: kernel / plain "
+                    f"/ SDPA {row['ms']!r} / {row['plain_ms']!r} / "
+                    f"{row['library_ms']!r} ms (the loops it replaced: "
+                    f"{REPLACED_WIDE_BWD_MS[(dt_name, name)]} ms)")
             del kernel, plain, library
             gc.collect()
         # twice: a session can miss the first launches it should record
         only_kernels(lambda: [fn() for fn in traced + traced], sorted(names),
                      f"wide heads {dt_name}")
         del traced
+        if dt_name != "float32":
+            t_k2 = time.perf_counter()
+            worst[(dt_name, "attn_bwd")] = max(
+                worst[(dt_name, "attn_bwd")],
+                tc_k2_wide_edges(fa, fb, dev, dt_name))
+            log(f"[time] the {dt_name} K2 wide edges took "
+                f"{time.perf_counter() - t_k2:.1f} s")
         torch.cuda.empty_cache()
     return launches, rows, worst
+
+
+def tc_k2_wide_edges(fa, fb, dev, dt_name) -> float:
+    """K2 on the wide tensor-core tiles (csrc/attn_bwd_tc.cu) in dtype
+    dt_name at K2_WIDE_EDGE_SHAPES against its plain version, on o and the
+    row stats of K1: the route the tensor cores' (one `padded_copy` a call
+    exactly where it says so), each call run twice and bitwise equal, dqkv
+    within WIDE_REL and the bias partials within DBIAS_REL_ATOL of their
+    largest magnitude. Returns the worst dqkv error."""
+    import torch
+
+    dt = getattr(torch, dt_name)
+    worst = 0.0
+    for b, s, h, d in K2_WIDE_EDGE_SHAPES:
+        tag = f"{dt_name} K2 wide edge (B, S, H, D) = {(b, s, h, d)}"
+        qkv = seeded_bf16((b, s, 3 * h * d), 7700 + s + d, dev, dt)
+        do = seeded_bf16((b, s, h * d), 7800 + s + d, dev, dt)
+        route = fa.attn_kernel_route(qkv, h, do, do)
+        check(route == wide_route(dt_name, d, "attn_bwd"),
+              f"{tag}: route {route}")
+        o, st = fa.attn_fwd(qkv, h, with_stats=True)
+        copies = fb.COPIES
+        got = fa.attn_bwd(qkv, do, o, st, h)
+        route_copies(fa, fb, copies, qkv, h, do, o)
+        again = fa.attn_bwd(qkv, do, o, st, h)
+        want = fa.attn_bwd_reference(qkv, do, o, st, h, d ** -0.5)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{tag}: two runs on the same inputs differ")
+        errs = []
+        for what, g, w, rel in zip(("dqkv", "bias partials"), got, want,
+                                   (WIDE_REL[dt_name], DBIAS_REL_ATOL)):
+            err = (g.float() - w.float()).abs().max().item()
+            ref = w.float().abs().max().item()
+            check(torch.isfinite(g.float()).all().item()
+                  and err <= rel * ref,
+                  f"{tag}: {what} max abs err {err} > {rel} x {ref}")
+            errs.append(err)
+        worst = max(worst, errs[0])
+        log(f"[wide heads] {tag}: route {route}, dqkv, bias max abs err "
+            f"{errs!r}, bitwise repeat True")
+        del qkv, do, o, st, got, again, want
+    return worst
 
 
 def phase_mlp_kernel(mf, dev):
@@ -3587,7 +3713,10 @@ def main() -> int:
     for d in (192, 256):
         log(f"[build] dynamic shared memory of the wide tiles at D <= {d}: "
             f"attn_fwd_tc_kernel {fwd_lib.vtx_attn_fwd_tc_smem(d)} B, "
-            f"hp_bwd_tc_dkdv_kernel {hp_lib.vtx_hp_bwd_tc_smem(d, 0)} B, "
+            f"attn_bwd_tc_dkdv_wide_kernel "
+            f"{bwd_lib.vtx_attn_bwd_tc_smem(d, 0)} B, "
+            f"attn_bwd_tc_dq_wide_kernel {bwd_lib.vtx_attn_bwd_tc_smem(d, 1)}"
+            f" B, hp_bwd_tc_dkdv_kernel {hp_lib.vtx_hp_bwd_tc_smem(d, 0)} B, "
             f"hp_bwd_tc_dq_kernel {hp_lib.vtx_hp_bwd_tc_smem(d, 1)} B")
 
     every = counter(*ALL_COUNTS)
@@ -3609,7 +3738,8 @@ def main() -> int:
     log(f"[build bwd] dynamic shared memory of attn_bwd_kernel (fp32 K2) "
         f"at D <= 32, 64, 128: "
         f"{[bwd32.vtx_attn_bwd_smem(d) for d in (32, 64, 128)]} B; of "
-        f"attn_bwd_wide_kernel (K2 past D 128, every dtype) "
+        f"attn_bwd_wide_kernel (K2 past D 128 in fp32, past 256 in every "
+        f"dtype) "
         f"{bwd32.vtx_attn_bwd_smem(256)} B")
     bwd, bwd_worst = phase_bwd_kernel(fa, dev)
     n = phase_grad(every, dev, ckpt_path)
@@ -4002,14 +4132,16 @@ def main() -> int:
                    and name in simt else {}),
                 **tc_blocked(dt_name, name, row["shape"])})
     # one line for each kernel at a head dim of 256 in each dtype (the wide
-    # tensor-core tiles in bf16 and fp16, but K2 and K4-K6 on the CUDA
-    # cores), counting the launches of drive_wide_heads
+    # tensor-core tiles in bf16 and fp16, but K6 on the CUDA cores; fp32 on
+    # the CUDA cores), counting the launches of drive_wide_heads
     for dt_name in WIDE_DTYPES:
         for name in WIDE_KERNELS:
             row = wide_rows[(dt_name, name)]
             d = row["shape"][3]
             names = wide_kernel_names(name, dt_name, d)
-            wide_src = "attn_bwd.cu" if name == "attn_bwd" else \
+            wide_src = "attn_bwd_tc.cu" if names[0].startswith(
+                "attn_bwd_tc") else \
+                "attn_bwd.cu" if name == "attn_bwd" else \
                 "flash_fwd.cu" if names[0].startswith("flash_fwd_kernel") \
                 else "flash_bwd.cu" if names[0].startswith(
                     "flash_bwd_dkdv_kernel") else \
@@ -4020,6 +4152,7 @@ def main() -> int:
                     "attn_fwd_simt") else \
                 "attn_fwd.cu" if names[0].startswith("attn_fwd") else \
                 "fused_attn_fwd.cu" if names[0].startswith("fused") else \
+                "hp_bwd_simt.cu" if "_simt_" in names[0] else \
                 "hp_bwd.cu"
             kernels.append({
                 "name": f"{name}[{dt_name},d{d}]", "route": "cuda",

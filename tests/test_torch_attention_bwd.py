@@ -404,10 +404,10 @@ def test_proj_attention_backward_runs_the_kernels(cuda_device):
         assert _rel_err(g.float().cpu(), ref) <= 2e-2
 
 
-# F8: head dims over the tensor cores' 128. K1 runs the wide tensor-core
-# tiles up to 256 in bf16 and fp16; K2 at every head dim over 128, and every
-# fp32 call, the CUDA cores' run-time head dim (csrc/attn_bwd.cu,
-# csrc/attn_fwd.cu, D 320 and 1024 too). o to WIDE_O_REL of its largest
+# F8: head dims over the tensor cores' 128. K1 and K2 run the wide
+# tensor-core tiles up to 256 in bf16 and fp16 (csrc/attn_fwd_tc.cu,
+# csrc/attn_bwd_tc.cu); every fp32 call and every head dim past 256 the
+# CUDA cores (csrc/attn_bwd.cu, csrc/attn_fwd.cu, D 320 and 1024 too). o to WIDE_O_REL of its largest
 # value (a
 # flipped rounding of p or of o itself: bf16 2^-8, fp16 2^-11 per ulp; fp32
 # summation order and expf only), the stats to 1e-4, the backward as
@@ -433,7 +433,8 @@ def test_wide_heads_k1_k2_match_plain_on_cuda(cuda_device, dtype, shape):
     f0, b0 = fa.ATTN_FWD_LAUNCHES, fa.ATTN_BWD_LAUNCHES
     o, st = fa.attn_fwd(qkv, h, with_stats=True)
     o2, st2 = fa.attn_fwd(qkv, h, with_stats=True)
-    assert fa.attn_kernel_route(qkv, h, do, o) == "cuda_cores"
+    assert fa.attn_kernel_route(qkv, h, do, o) == \
+        ("tensor_cores" if wide_tc else "cuda_cores")
     dqkv, dbias = fa.attn_bwd(qkv, do, o, st, h)
     again = fa.attn_bwd(qkv, do, o, st, h)
     torch.cuda.synchronize()
@@ -448,5 +449,47 @@ def test_wide_heads_k1_k2_match_plain_on_cuda(cuda_device, dtype, shape):
     dqkv_r, dbias_r = fa.attn_bwd_reference(qkv, do, o, st, h, d ** -0.5)
     dqkv_rtol, dbias_rtol = BWD_RTOL[dtype]
     assert dqkv.dtype == dt
+    assert _rel_err(dqkv.float().cpu(), dqkv_r.float().cpu()) <= dqkv_rtol
+    assert _rel_err(dbias.cpu(), dbias_r.cpu()) <= dbias_rtol
+
+
+# K2 on the wide tensor-core tiles (csrc/attn_bwd_tc.cu's 64-key dk/dv
+# blocks streaming 32-query tiles, 64-query dq blocks) at their edges: S
+# around those tiles up to MAX_SEQ; D 136, 192, 200 and 256 read in place
+# (136 and 200 zero-filled to the next compiled tile), 130 and 250 after one
+# `padded_copy` (TMA reads rows of a multiple of 8); bf16 and fp16, each
+# call twice and bitwise equal, held as BWD_RTOL.
+WIDE_K2_EDGE_CASES = [
+    (dt, (1, s, 2, d)) for dt in ("bfloat16", "float16")
+    for s in (1, 63, 64, 65, 127, 128, 129, 197, 1024)
+    for d in (136, 192, 200, 256)] + [
+    (dt, (2, s, 2, d)) for dt in ("bfloat16", "float16") for s in (65, 197)
+    for d in (130, 250)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", WIDE_K2_EDGE_CASES)
+def test_wide_k2_matches_plain_at_tile_edges_on_cuda(cuda_device, dtype,
+                                                     shape):
+    from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked
+
+    b, s, h, d = shape
+    dev, dt = cuda_device, getattr(torch, dtype)
+    qkv = torch.from_numpy(_normal((b, s, 3 * h * d), 11 + s + d)).to(dev, dt)
+    do = torch.from_numpy(_normal((b, s, h * d), 12 + s + d)).to(dev, dt)
+    o, st = fa.attn_fwd(qkv, h, with_stats=True)
+    copy = d % 8 != 0
+    assert fa.attn_kernel_route(qkv, h, do, o) == \
+        ("tensor_cores_copy" if copy else "tensor_cores")
+    copies, before = flash_blocked.COPIES, fa.ATTN_BWD_LAUNCHES
+    dqkv, dbias = fa.attn_bwd(qkv, do, o, st, h)
+    again = fa.attn_bwd(qkv, do, o, st, h)
+    torch.cuda.synchronize()
+    assert fa.ATTN_BWD_LAUNCHES == before + 2
+    assert flash_blocked.COPIES - copies == 2 * copy
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+    dqkv_r, dbias_r = fa.attn_bwd_reference(qkv, do, o, st, h, d ** -0.5)
+    dqkv_rtol, dbias_rtol = BWD_RTOL[dtype]
+    assert dqkv.dtype == dt and torch.isfinite(dqkv.float()).all()
     assert _rel_err(dqkv.float().cpu(), dqkv_r.float().cpu()) <= dqkv_rtol
     assert _rel_err(dbias.cpu(), dbias_r.cpu()) <= dbias_rtol

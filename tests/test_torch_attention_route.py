@@ -267,10 +267,10 @@ def test_trainer_fp32_on_the_card(cuda_device, flag, want):
 
 # F8: the three route functions at head dims over the tensor cores' 128, in
 # each dtype, on CPU tensors. K1 and K9 (attn_kernel_route on the qkv
-# buffer), K7 and K11 (fused_kernel_route) and K8, K10 and K12
-# (bwd_kernel_route) take the wide tensor-core tiles up to 256 in bf16 and
-# fp16; K2 (attn_kernel_route with dO and O) the CUDA cores past 128; fp32
-# and every head dim past 256 the CUDA cores.
+# buffer), K2 (attn_kernel_route with dO and O), K7 and K11
+# (fused_kernel_route) and K8, K10 and K12 (bwd_kernel_route) take the wide
+# tensor-core tiles up to 256 in bf16 and fp16; fp32 and every head dim
+# past 256 the CUDA cores.
 @pytest.mark.parametrize("d", [136, 192, 256, 320])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
@@ -281,7 +281,7 @@ def test_wide_head_routes(dtype, d):
     tc = dtype != torch.float32 and d <= fa.MAX_WIDE_HEAD_DIM
     want = "tensor_cores" if tc else "cuda_cores"
     assert fa.attn_kernel_route(qkv, h) == want
-    assert fa.attn_kernel_route(qkv, h, do, do) == "cuda_cores"
+    assert fa.attn_kernel_route(qkv, h, do, do) == want
     q, k, v = fa.heads(qkv, h)
     assert fa.fused_kernel_route(q, k, v) == want
     assert fa.bwd_kernel_route(q, k, v, fa._head_major(do, h)) == want

@@ -6,11 +6,14 @@ separate (B, H, S, D) q, k, v and dO, `hp_bwd` (K10) on a (B, S, 3·H·D)
 qkv buffer and `qkv_bwd` (K12) on a (B, S, 3, H, D) one, each against the
 JAX kernel in interpret mode (`_bwd_call`, `_hp_bwd_call`,
 `_qkv_bwd_call`) at S around the kernels' 64-row tiles and head dims 32 to
-128, in fp32. Inputs come from a numpy seed.
+128, and at three of those S at 136 and 256, in fp32. Inputs come from a
+numpy seed.
 
 The `cuda` cases hold the kernels of csrc/hp_bwd_simt.cu
 (hp_bwd_stats_simt_kernel, hp_bwd_dkdv_simt_kernel and
-hp_bwd_dq_sum_kernel) against those plain
+hp_bwd_dq_sum_kernel to D 128; past it the wide tiles,
+hp_bwd_stats_wide_simt_kernel and hp_bwd_dkdv_wide_simt_kernel, with the
+same sum) against those plain
 versions on the card, each call twice and bitwise equal, in every layout
 they meet (views of a qkv buffer, separate tensors, rows that are not
 16-byte aligned, strides the kernels refuse and the wrapper copies once),
@@ -27,6 +30,10 @@ from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked as fb
 
 EDGE_S = (1, 63, 65, 129, 197)
 EDGE_D = (32, 48, 64, 128)
+# (S, D): every EDGE_S at EDGE_D, and the wide tiles' head dims (136
+# zero-filled to 192, 256) at three of them
+EDGE_SD = [(s, d) for s in EDGE_S for d in EDGE_D] + [
+    (s, d) for s in (1, 65, 197) for d in (136, 256)]
 # of the call's largest gradient (of dq, dk and dv): both sides in fp32,
 # other summation orders and exp. At S = 1, ds = p (dp - dp·p) is 0 but
 # for rounding, so dq and dk are rounding noise and dv sets the scale
@@ -103,8 +110,7 @@ def _port_grads(kernel, qkv, do):
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("d", EDGE_D)
-@pytest.mark.parametrize("s", EDGE_S)
+@pytest.mark.parametrize("s,d", EDGE_SD)
 def test_plain_fp32_bwd_matches_jax_at_tile_edges(s, d, kernel):
     qkv = _rand((1, s, 3 * H * d), 31 * s + d)
     do = _rand((1, s, H * d), 31 * s + d + 1)
@@ -120,13 +126,14 @@ def test_plain_fp32_bwd_matches_jax_at_tile_edges(s, d, kernel):
 # ---- the card: csrc/hp_bwd_simt.cu against the plain versions
 
 # (kernel, layout, (B, S, H, D)): S around the 64-row tiles and 128-row
-# blocks up to the kernels' MAX_SEQ, D 32 to 128 (64 and 128 compiled, the
-# others zero-filled); K10 and K12 in place in their buffers, K8 on
+# blocks up to the kernels' MAX_SEQ, D 32 to 256 (64, 128, 192 and 256
+# compiled, the others zero-filled); K10 and K12 in place in their buffers,
+# K8 on
 # separate contiguous tensors, on views whose rows start two floats late
 # (the kernels' 4-byte copies: no copy in Python) and on views of odd row
 # stride (`_launch_views` copies them once); B·H over 65535
 CUDA_EDGE_S = (1, 63, 64, 65, 127, 128, 129, 197, 1024)
-CUDA_EDGE_D = (32, 48, 64, 96, 128)
+CUDA_EDGE_D = (32, 48, 64, 96, 128, 136, 192, 256)
 CUDA_EDGE_CASES = [
     (kernel, layout, (1, s, H, d))
     for kernel, layout in (("k10", "qkv"), ("k12", "qkv"), ("k8", "dense"))
@@ -190,7 +197,9 @@ def test_fp32_bwd_matches_plain_at_tile_edges_on_cuda(cuda_device, kernel,
 
 
 # one session in a fresh process: in a long one (the whole cuda suite)
-# torch.profiler's sessions stop recording kernels
+# torch.profiler's sessions stop recording kernels; EDGE_D and the wide
+# tiles' head dims
+TRACE_D = EDGE_D + (136, 192, 256)
 _TRACE = """
 import json
 import torch
@@ -219,13 +228,13 @@ for d in %r:
             if e.device_type.name == "CUDA"
             and "anonymous namespace" in e.key)
 print(json.dumps(out))
-""" % (EDGE_D,)
+""" % (TRACE_D,)
 
 
 @pytest.fixture(scope="module")
 def fp32_bwd_trace():
     """The csrc/ kernels one fp32 call of K8, K10 and K12 launches at each
-    of EDGE_D, traced by torch.profiler."""
+    of TRACE_D, traced by torch.profiler."""
     import json
     import subprocess
     import sys
@@ -242,16 +251,24 @@ def fp32_bwd_trace():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("d", EDGE_D)
+@pytest.mark.parametrize("d", TRACE_D)
 def test_fp32_bwd_launches_the_register_tiled_kernels_alone(fp32_bwd_trace,
                                                             d, kernel):
     # <head dim, block rows, streamed buffers>: the dk/dv blocks 128 keys
     # and two buffers at D <= 64, 64 keys and one at D <= 128; the stats
-    # blocks 128 queries, with two buffers and one
-    stats, dkdv = (("64, 128, 2", "64, 128, 2") if d <= 64
-                   else ("128, 128, 1", "128, 64, 1"))
-    wants = [f"::hp_bwd_stats_simt_kernel<{stats}>(",
-             f"::hp_bwd_dkdv_simt_kernel<{dkdv}>(", "::hp_bwd_dq_sum_kernel("]
+    # blocks 128 queries, with two buffers and one; past 128 the wide
+    # tiles at the next compiled head dim
+    if d > 128:
+        kd = 192 if d <= 192 else 256
+        wants = [f"::hp_bwd_stats_wide_simt_kernel<{kd}>(",
+                 f"::hp_bwd_dkdv_wide_simt_kernel<{kd}>(",
+                 "::hp_bwd_dq_sum_kernel("]
+    else:
+        stats, dkdv = (("64, 128, 2", "64, 128, 2") if d <= 64
+                       else ("128, 128, 1", "128, 64, 1"))
+        wants = [f"::hp_bwd_stats_simt_kernel<{stats}>(",
+                 f"::hp_bwd_dkdv_simt_kernel<{dkdv}>(",
+                 "::hp_bwd_dq_sum_kernel("]
     names = fp32_bwd_trace[f"{kernel}{d}"]
     assert len(names) == 3 and all(any(w in n for n in names)
                                    for w in wants), names

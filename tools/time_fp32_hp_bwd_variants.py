@@ -5,15 +5,16 @@ one NVIDIA GPU, with the helpers of tools/time_fp32_bwd_variants.py and
 tools/time_hp_bwd_variants.py.
 
     python tools/time_fp32_hp_bwd_variants.py [--batch 128] [--seq 197]
-        [--variants NAME ...]
+        [--head_dim 64] [--variants NAME ...]
 
 Each variant is a text edit of a copy of the checkout's
 csrc/hp_bwd_simt.cu (with csrc/simt_tiles.cuh written into it), built
 with the port's nvcc flags under build/variants/<name>/ (all builds
 started together) with a C shim around its `hp_bwd_simt::run`, and
-launched as K10 is: q, k, v read from a seeded fp32 (B, S, 3 * 12 * 64)
-qkv buffer, dO from (B, S, 12 * 64), dq, dk, dv written into one such
-buffer.
+launched as K10 is: q, k, v read from a seeded fp32 (B, S, 3 * 12 * D)
+qkv buffer, dO from (B, S, 12 * D), dq, dk, dv written into one such
+buffer. At D <= 128 (the default 64) the variants below edit the narrow
+tiles; past 128 the wide ones (the wide_* variants, the default there):
 
 * as_is: the committed kernels;
 * no_scores: every score product (s and dp, in the stats and dk/dv
@@ -28,7 +29,15 @@ buffer.
 * stats_rows64: stats blocks of 64 queries and 4 warps instead of 128 and
   8;
 * unroll1, unroll4: the score and sum loops unrolled 1 or 4 times instead
-  of 2.
+  of 2;
+* wide_no_scores, wide_no_sums: the wide tiles' score products (rows_dot,
+  keys_dot), or their summed ones (keys_sum and the parts of dq), left out
+  (times only);
+* wide_dq_unroll2, wide_dq_unroll4: the dk/dv launch's part of dq
+  unrolled 2 or 4 times over the keys instead of not at all;
+* wide_sum_unroll1, wide_dot_unroll1, wide_rows_unroll2: keys_sum and
+  keys_dot unrolled once instead of twice, rows_dot twice instead of 4
+  times.
 
 Per variant: the median CUDA-event time of one call (its launches; 10
 calls a sample, 9 samples), the device time per call of each kernel
@@ -64,7 +73,7 @@ from time_fp32_bwd_variants import (  # noqa: E402
 from time_hp_bwd_variants import device_ms, fa  # noqa: E402
 
 SOURCE = "hp_bwd_simt.cu"
-H, D = 12, 64
+H = 12
 SCORES = "score_tiles<kD>(s, dp, "
 SUMS = "sum_tile<kD, kTile"
 LOOPS = ("#pragma unroll 2\n  for (int d = 0; d < kD; d += 4) {",
@@ -92,7 +101,34 @@ VARIANTS = {
     "unroll1": unrolled("unroll 1"),
     "unroll4": unrolled("unroll 4"),
 }
-TIMES_ONLY = {"no_scores", "no_sums", "no_exp", "no_trim"}
+WIDE_DQ = "constexpr int kWideDqUnroll = 1;"
+DOT_LOOP = "#pragma unroll 2\n  for (int d = 0; d < kD; d += 4) {\n    "
+WIDE_VARIANTS = {
+    "wide_no_scores": {
+        "keys_dot<kD, 1>(x, kv, qd);": "{}",
+        "keys_dot<kD, 2>(x, kv, qd);": "{}",
+        "if (rows_live) rows_dot<kD>(s,": "if (0) rows_dot<kD>(s,",
+        "if (rows_live) rows_dot<kD>(dp,": "if (0) rows_dot<kD>(dp,"},
+    "wide_no_sums": {
+        "keys_sum<kD, kTile / 2>(acc, pd, y, lane);": "{}",
+        "keys_sum<kD, kTile>(acc, pd, y, lane);": "{}",
+        "dq_part_tile<kD, kWideDqUnroll>(dqp,":
+        "if (0) dq_part_tile<kD, kWideDqUnroll>(dqp,"},
+    "wide_dq_unroll2": {WIDE_DQ: WIDE_DQ.replace("1;", "2;")},
+    "wide_dq_unroll4": {WIDE_DQ: WIDE_DQ.replace("1;", "4;")},
+    "wide_sum_unroll1": {
+        "#pragma unroll 2\n  for (int q = 0; q < kK; q += 4) {":
+        "#pragma unroll 1\n  for (int q = 0; q < kK; q += 4) {"},
+    "wide_dot_unroll1": {
+        DOT_LOOP + "float4 y[kJ];":
+        DOT_LOOP.replace("2", "1", 1) + "float4 y[kJ];"},
+    "wide_rows_unroll2": {
+        DOT_LOOP.replace("2", "4", 1) + "const float4 y":
+        DOT_LOOP + "const float4 y"},
+}
+VARIANTS.update(WIDE_VARIANTS)
+TIMES_ONLY = {"no_scores", "no_sums", "no_exp", "no_trim", "wide_no_scores",
+              "wide_no_sums"}
 SHIM = """
 extern "C" long long variant_scratch(int B, int H, int S, int D) {
   return hp_bwd_simt::scratch_floats(B, H, S, D);
@@ -109,9 +145,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--seq", type=int, default=197)
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
-                    choices=list(VARIANTS))
+    ap.add_argument("--head_dim", type=int, default=64)
+    ap.add_argument("--variants", nargs="+", choices=list(VARIANTS))
     args = ap.parse_args()
+    D = args.head_dim
+    if not args.variants:
+        args.variants = ["as_is"] + [
+            n for n in VARIANTS if n != "as_is"
+            and n.startswith("wide_") == (D > 128)]
     if not torch.cuda.is_available():
         print("time_fp32_hp_bwd_variants: needs an NVIDIA GPU",
               file=sys.stderr)

@@ -48,13 +48,24 @@ yardstick, torch's scaled_dot_product_attention on contiguous copies of
 those q, k, v, which the port never calls. attn_fwd_plain and
 fused_fwd_plain are the plain versions of K1 (attn_fwd_reference, with the
 stats) and K7 (fused_fwd_reference) on the same inputs, which K9's and
-K11's plain versions repeat.
+K11's plain versions repeat; attn_bwd_plain and fused_bwd_plain those of K2
+(attn_bwd_reference, on K1's o and stats) and K8 (fused_bwd_reference,
+which K10's and K12's repeat).
 
 The fp32 forwards on csrc/attn_fwd_simt.cuh's register tiles against the
 parent's loops, at a head dim of 256:
 
     python tools/time_torch_attention.py --dtype float32 --head_dim 256 \
         --batch 32 --kernels attn_fwd hp_fwd fused_fwd qkv_fwd --profile
+
+and the wide backward (K2 in bf16 and fp16 on csrc/attn_bwd_tc.cu's wide
+tiles, K8, K10 and K12 in fp32 on csrc/hp_bwd_simt.cu's):
+
+    python tools/time_torch_attention.py --head_dim 256 --batch 32 \
+        --kernels attn_bwd attn_bwd_plain sdpa_bwd --profile
+    python tools/time_torch_attention.py --dtype float32 --head_dim 256 \
+        --batch 32 --kernels fused_bwd hp_bwd qkv_bwd fused_bwd_plain \
+        sdpa_bwd --profile
 """
 from __future__ import annotations
 
@@ -121,10 +132,13 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
             return fb.flash_bwd_dkdv(*args, dk, dv)
         return fb.flash_bwd_dq(*args, dq)
 
-    def attn_bwd():
-        # K1's o and row stats once, then K2 alone
+    def attn_bwd(plain=False):
+        # K1's o and row stats once, then K2 (or its plain version) alone
         if "stats" not in state:
             state["stats"] = fa.attn_fwd(qkv, H, with_stats=True)
+        if plain:
+            return fa.attn_bwd_reference(qkv, do, *state["stats"], H,
+                                         D ** -0.5)
         return fa.attn_bwd(qkv, do, *state["stats"], H)
 
     def mha_fwd_bwd():
@@ -166,6 +180,7 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
         "sdpa_bwd": sdpa_bwd,
         "attn_fwd": lambda: fa.attn_fwd(qkv, H, with_stats=True),
         "attn_bwd": attn_bwd,
+        "attn_bwd_plain": lambda: attn_bwd(plain=True),
         "hp_fwd": lambda: fa.hp_fwd(qkv, H),
         "hp_bwd": lambda: fa.hp_bwd(qkv, do, H),
         "attn_fwd_plain": lambda: fa.attn_fwd_reference(
@@ -174,6 +189,8 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
         "fused_fwd_plain": lambda: fa.fused_fwd_reference(q, k, v,
                                                           D ** -0.5),
         "fused_bwd": lambda: fa.fused_bwd(q, k, v, g),
+        "fused_bwd_plain": lambda: fa.fused_bwd_reference(q, k, v, g,
+                                                          D ** -0.5),
         "qkv_fwd": lambda: fa.qkv_fwd(qkv5),
         "qkv_bwd": lambda: fa.qkv_bwd(qkv5, do),
         "mha_fwd_bwd": mha_fwd_bwd,

@@ -1,11 +1,12 @@
 // Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer on the
 // CUDA cores, for Hopper: fp32 at every head dim, and bf16 and fp16 at head
-// dims over 128.
+// dims over 256.
 //
 // Replaces the TPU kernel
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py
-// ::_hp_bwd_pi_kernel (K2) where it runs in fp32, or at a head dim over 128;
-// bf16 and fp16 at D <= 128 run on the tensor cores (csrc/attn_bwd_tc.cu).
+// ::_hp_bwd_pi_kernel (K2) where it runs in fp32, or at a head dim over 256;
+// bf16 and fp16 at D <= 256 run on the tensor cores (csrc/attn_bwd_tc.cu,
+// its wide tiles past 128).
 // Same function, per (b, h), from the forward's (B, H, S, 2) row stats
 // [m, rinv] (K1 with stats), T the element type, rnd() its rounding:
 //   q^ = rnd(q * rnd(scale)) (JAX multiplies in T); s = q^ k^T over the S
@@ -56,7 +57,8 @@
 // and H are bounded only by B H < 2^31. The head dim is 32, 64 or 128 at
 // compile time; a smaller one takes the next with its columns zero-filled.
 //
-// Design, any element type at D > 128 (attn_bwd_wide_kernel<T>): the same
+// Design, fp32 at D > 128 and bf16, fp16 at D > 256
+// (attn_bwd_wide_kernel<T>): the same
 // walk and register tiles, with the head dim a run-time value up to 1024
 // in 64-column chunks. A block owns one chunk of one (b, h) (a grid of
 // B H ceil(D / 64) blocks) and writes dq, dk, dv and the bias partials of
@@ -332,7 +334,8 @@ constexpr size_t smem_bytes() {
           kMaxSeq) * sizeof(float);
 }
 
-// ---- head dims over 128, any element type: attn_bwd_wide_kernel<T>
+// ---- head dims over 128: attn_bwd_wide_kernel<T> (the wrappers send it
+// fp32 past 128, bf16 and fp16 past 256)
 
 // The tensors of one wide call, as Args, of element type T.
 template <typename T>
@@ -598,7 +601,8 @@ extern "C" {
 // and out (B, S, HD), all of the element type `dtype` (elem.cuh's code) and
 // contiguous, and the forward's (B, H, S, 2) fp32 stats. Scratch: dq_sum
 // (B, H, S, D) fp32. fp32 at D <= 128 runs attn_bwd_kernel, every other
-// call attn_bwd_wide_kernel. 1 <= S <= 1024, 1 <= D <= 1024. Returns a
+// call attn_bwd_wide_kernel (ops/flash_attention.py sends bf16 and fp16
+// here only past 256). 1 <= S <= 1024, 1 <= D <= 1024. Returns a
 // cudaError_t as int: 0 when the launch was accepted.
 int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
                  const void* st, void* dqkv, void* dbias, void* dq_sum, int B,

@@ -1,5 +1,9 @@
 // Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer on
-// Hopper's tensor cores, in bf16 and fp16.
+// Hopper's tensor cores, in bf16 and fp16, at head dims up to 256: kD 64
+// and 128 (attn_bwd_tc_dkdv_kernel, attn_bwd_tc_dq_kernel) and the wide
+// tiles kD 192 and 256 (attn_bwd_tc_dkdv_wide_kernel,
+// attn_bwd_tc_dq_wide_kernel), a head dim in between taking the next with
+// its columns zero-filled by TMA.
 //
 // Replaces the TPU kernel
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py
@@ -17,14 +21,15 @@
 // to the (B, 3 H D) qkv-bias partials in the same column order. The
 // exponentials run as exp2f(s log2(e) - m log2(e)), which moves pu by a
 // relative ~1e-6 (csrc/attn_fwd_tc.cu says why), far below its rounding to
-// T. The fp32 version of the same function is csrc/attn_bwd.cu's CUDA-core
-// loops.
+// T. The fp32 version of the same function, and bf16 and fp16 past 256,
+// are csrc/attn_bwd.cu's CUDA-core loops.
 //
 // What bounds it on an H100: at ViT-B shapes (S = 197, D = 64) one (b, h)
 // is 10 S^2 D = 25 MFLOP (s, dp, dv, dk, dq) over ~0.2 MB of operands,
 // ~120 FLOP per byte, below the ~295 of the ridge: device memory bounds
-// the work (at B = 128, 12 heads, 0.0936 ms). The design computes s and dp
-// twice (once per stationary side), 14 S^2 D, on short tiles, where
+// the work (at B = 128, 12 heads, 0.0936 ms; at (B, S, H, D) = (32, 197,
+// 12, 256) the same FLOPs and bytes, 0.093 ms). The design computes s and
+// dp twice (once per stationary side), 14 S^2 D, on short tiles, where
 // latency between the TMA loads, the products and the elementwise work
 // sets the pace.
 //
@@ -52,6 +57,27 @@
 //    < S, summed in registers, then across lanes and warps in a fixed
 //    order) are (B, tiles, 3 H D) partials; one thread per (b, column) adds
 //    a column's tiles in order into the (B, 3 H D) result.
+// Head dims 129-256 (the wide tiles, kD 192 and 256): launches 1 and 4 are
+// the same. In launch 2 128 stationary keys and a 2-stage ring of the four
+// 64-query tiles would take 320 KB at kD 256 (a 64 x 256 tile is 32 KB),
+// and two 64 x kD accumulators a warpgroup 256 registers a thread. So the
+// dk/dv launch holds 64 keys (K and V 64 KB) and streams the four tiles 32
+// queries at a time through the 2-stage ring (128 KB; 206 KB in all), and
+// its two consumer warpgroups split the outputs, as csrc/hp_bwd_tc.cu's
+// wide dk/dv does: warpgroup 0 forms S^T, pu^T and dV += T(pu)^T do_n,
+// warpgroup 1 S^T, dP^T, t^T and dK += t^T qn, each one 64 x kD
+// accumulator (128 registers at 256); S^T and dP^T are m64n32, dV and dK
+// m64n128 over pairs of 64-column panels in two steps of 16 queries; the
+// producer warpgroup keeps 24 registers (consumers 240). Of the three ways
+// to fit the four tiles (32-query tiles; qn and do_n formed in shared
+// memory from q^ and dO; a ring of its own for each warpgroup's tiles) the
+// first needs no second copy of the prep's rounding and keeps every
+// product on the path it had; the third still stages four tiles a step
+// (q^ in both rings, or shared between them), so it saves no space. The dq launch holds 64 queries on one
+// consumer warpgroup (csrc/hp_bwd_tc.cu's wide dq shape: q^ and dO 64 KB,
+// a 2-stage K/V ring 128 KB), dQ over pairs of panels. Both launches' row
+// tiles are 64 rows, so the bias partials have ceil(S / 64) tiles
+// (vtx_attn_bwd_tc_tiles(S, D)), still summed in order.
 // k, v, dO and the scratch are read through 4-D TMA tensor maps (D, S, H,
 // B) with their element strides, in [64 rows][64 columns] boxes, zeros past
 // S and D; q, dO and O by the prep's loads. TMA needs 16-byte-aligned data
@@ -91,6 +117,7 @@ constexpr uint32_t kStreamBytes = kStreamPanel * 2;  // LBO of an MN-major tile
 constexpr int kPrepWarps = 8;
 constexpr int kBiasThreads = 256;
 constexpr int kMaxSeq = 1024;
+constexpr int kMaxHeadDim = 256;
 
 // Shared tiles of the dk/dv kernel; every panel is a multiple of 1024
 // bytes, so each stays aligned to the swizzle atom when the struct is.
@@ -116,6 +143,43 @@ struct DqTiles {
   T v[kStages][kD / kPanel][kStreamPanel];
   float red[kConsumerWarps][kD];  // per-warp column sums of dq
 };
+
+// The wide tiles (kD 192 and 256; the header says why): the dk/dv launch
+// holds kRows keys and streams kWideQ-query tiles, its producer warpgroup
+// at kWideProducerRegs so that a consumer thread gets kWideConsumerRegs
+// (128 x 24 + 256 x 240 <= 384 x 168); the dq launch holds kRows queries
+// on one consumer warpgroup.
+constexpr int kWideQ = 32;
+constexpr int kWideProducerRegs = 24;
+constexpr int kWideConsumerRegs = 240;
+constexpr int kWidePanel = kWideQ * kPanel;         // 4 KB
+constexpr int kWideDqThreads = 128 + 32;            // + the producer warp
+
+template <typename T, int kD>
+struct WideDkdvTiles {
+  T k[kD / kPanel][kStreamPanel];
+  T v[kD / kPanel][kStreamPanel];
+  T qh[kStages][kD / kPanel][kWidePanel];
+  T dout[kStages][kD / kPanel][kWidePanel];
+  T qn[kStages][kD / kPanel][kWidePanel];
+  T don[kStages][kD / kPanel][kWidePanel];
+  float ml[kStages][kWideQ];
+  float delta[kStages][kWideQ];
+  float red[kConsumerWarps][kD];  // per-warp column sums: dv 0-3, dk 4-7
+};
+
+template <typename T, int kD>
+struct WideDqTiles {
+  T qh[kD / kPanel][kStreamPanel];
+  T dout[kD / kPanel][kStreamPanel];
+  T k[kStages][kD / kPanel][kStreamPanel];
+  T v[kStages][kD / kPanel][kStreamPanel];
+  float red[4][kD];
+};
+
+static_assert(sizeof(WideDkdvTiles<bf16, 256>) + 1024 <= 227 * 1024 &&
+                  sizeof(WideDqTiles<bf16, 256>) + 1024 <= 227 * 1024,
+              "the widest tiles fit a block's 227 KB");
 
 template <typename Tiles>
 __device__ __forceinline__ Tiles& aligned_tiles(uint8_t* raw) {
@@ -569,6 +633,336 @@ attn_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tqh,
   }
 }
 
+// acc += A B over the 16 rows at `row` of an MN-major streamed tile B
+// (panels of kPE elements): m64n128 over pairs of 64-column panels, m64n64
+// for an odd one; A the packed register fragments of those rows.
+template <typename T, int N, int kPE>
+__device__ __forceinline__ void rs_wide(float (&acc)[N],
+                                        const uint32_t (&a)[4],
+                                        T (*b)[kPE], int row) {
+#pragma unroll
+  for (int p = 0; p + 2 <= N / 32; p += 2)
+    wgmma_rs<T>(*reinterpret_cast<float(*)[64]>(&acc[32 * p]), a,
+                desc(&b[p][row * kPanel], kPE * 2, 1024));
+  if constexpr ((N / 32) % 2) {
+    constexpr int p = N / 32 - 1;
+    wgmma_rs<T>(*reinterpret_cast<float(*)[32]>(&acc[32 * p]), a,
+                desc(&b[p][row * kPanel], kPE * 2, 1024));
+  }
+}
+
+// 2w. The dk/dv launch at kD 192 and 256. grid (n_t * B * H): block x is
+// key tile x % n_t (64 keys) of (b, h) = x / n_t. Fragments as launch 2's;
+// S^T and dP^T are m64n32 (the tile's 32 queries), dV and dK m64nkD over
+// two steps of 16 queries. Warpgroup 0 computes dV, warpgroup 1 dK, both
+// over the block's 64 keys.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kDkdvThreads, 1)
+attn_bwd_tc_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tqh,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tqn,
+                             const __grid_constant__ CUtensorMap tdn,
+                             const float* __restrict__ st,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv,
+                             float* __restrict__ part, int H, int S, int D,
+                             int n_t, int C, Layout gr) {
+  constexpr int kPanels = kD / kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  WideDkdvTiles<T, kD>& t = aligned_tiles<WideDkdvTiles<T, kD>>(smem_raw);
+
+  const int bh = blockIdx.x / n_t;
+  const int kt = blockIdx.x % n_t, k0 = kt * kRows;
+  const int b = bh / H, h = bh % H;
+  const int n_qt = (S + kWideQ - 1) / kWideQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(&kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 32);  // the producer warp's lanes
+      bar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // producer warpgroup, as launch 2's: lane i stores query i's m log2(e)
+    // and delta of each tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kWideProducerRegs));
+    if (warp != kConsumerWarps) return;
+    if (lane == 0) {
+      bar_expect_tx(&kv_full, 2 * kRows * kD * 2);
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(t.k[p], &tk, &kv_full, p * kPanel, k0, h, b);
+        tma_load(t.v[p], &tv, &kv_full, p * kPanel, k0, h, b);
+      }
+    }
+    const long long rows = (long long)bh * S;
+    for (int j = 0; j < n_qt; ++j) {
+      const int s = j % kStages;
+      const int q0 = j * kWideQ;
+      if (j >= kStages) bar_wait(&empty[s], ((j / kStages) - 1) & 1);
+      const bool ok = q0 + lane < S;
+      t.ml[s][lane] = ok ? st[(rows + q0 + lane) * 2] * kLog2e : 0.f;
+      t.delta[s][lane] = ok ? delta[rows + q0 + lane] : 0.f;
+      if (lane == 0) {
+        bar_expect_tx(&full[s], 4 * kWideQ * kD * 2);
+        for (int p = 0; p < kPanels; ++p) {
+          const int c = p * kPanel;
+          tma_load(t.qh[s][p], &tqh, &full[s], c, q0, h, b);
+          tma_load(t.dout[s][p], &tdo, &full[s], c, q0, h, b);
+          tma_load(t.qn[s][p], &tqn, &full[s], c, q0, h, b);
+          tma_load(t.don[s][p], &tdn, &full[s], c, q0, h, b);
+        }
+      } else {
+        bar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: both warpgroups hold the block's 64 keys; one accumulator,
+  // dV for warpgroup 0 and dK for warpgroup 1
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kWideConsumerRegs));
+  const bool dk_group = warp >= 4;
+  const int row = 16 * (warp % 4) + lane / 4;  // and row + 8
+  const int col = 2 * (lane % 4);
+  const int key0 = k0 + row;
+  const bool ok0 = key0 < S, ok1 = key0 + 8 < S;
+  float acc[kD / 2];
+  float s[16], dp[16];
+  zero(acc);
+  zero(s);
+  zero(dp);
+
+  bar_wait(&kv_full, 0);
+  for (int j = 0; j < n_qt; ++j) {
+    const int stg = j % kStages;
+    bar_wait(&full[stg], (j / kStages) & 1);
+
+    // S^T = K q^^T, and for warpgroup 1 dP^T = V dO^T
+    pin(s);
+    pin(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n32<T>(s, desc(&t.k[p][c], 16, 1024),
+                      desc(&t.qh[stg][p][c], 16, 1024), kk > 0);
+    }
+    if (dk_group) {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int p = kk / 4, c = (kk % 4) * 16;
+        wgmma_ss_n32<T>(dp, desc(&t.v[p][c], 16, 1024),
+                        desc(&t.dout[stg][p][c], 16, 1024), kk > 0);
+      }
+    }
+    wg_commit();
+    wg_wait();
+    pin(s);
+    pin(dp);
+
+    // warpgroup 0: T(pu^T); warpgroup 1: T(t^T) = T((dP^T - delta) pu^T),
+    // packed as A fragments in launch 2's order of registers
+    uint32_t fa[2][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int qc = 8 * n + col;
+      const float ml0 = t.ml[stg][qc], ml1 = t.ml[stg][qc + 1];
+      float p0 = ok0 ? exp2f(fmaf(s[4 * n], kLog2e, -ml0)) : 0.f;
+      float p1 = ok0 ? exp2f(fmaf(s[4 * n + 1], kLog2e, -ml1)) : 0.f;
+      float p2 = ok1 ? exp2f(fmaf(s[4 * n + 2], kLog2e, -ml0)) : 0.f;
+      float p3 = ok1 ? exp2f(fmaf(s[4 * n + 3], kLog2e, -ml1)) : 0.f;
+      if (dk_group) {
+        const float d0 = t.delta[stg][qc], d1 = t.delta[stg][qc + 1];
+        p0 = (dp[4 * n] - d0) * p0;
+        p1 = (dp[4 * n + 1] - d1) * p1;
+        p2 = (dp[4 * n + 2] - d0) * p2;
+        p3 = (dp[4 * n + 3] - d1) * p3;
+      }
+      fa[n / 2][(n % 2) * 2] = pack2<T>(p0, p1);
+      fa[n / 2][(n % 2) * 2 + 1] = pack2<T>(p2, p3);
+    }
+
+    // warpgroup 0: dV += T(pu)^T do_n; warpgroup 1: dK += t^T qn
+    pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < kWideQ / 16; ++c)
+      rs_wide<T>(acc, fa[c], dk_group ? t.qn[stg] : t.don[stg], 16 * c);
+    wg_commit();
+    wg_wait();
+    pin(acc);
+    release(&empty[stg], lane);
+  }
+
+  const long long g_off = b * gr.sb + h * gr.sh;
+  store_rows((dk_group ? dk : dv) + g_off, gr.sr, acc, key0, col, S, D, 1.f,
+             1.f);
+  // the bias partials of this key tile: rows < S only, warps 0-3 dv's and
+  // 4-7 dk's, each summed in warp order
+  column_sums(acc, ok0 ? 1.f : 0.f, ok1 ? 1.f : 0.f, t.red[warp], lane);
+  named_barrier(1, kConsumers);
+  float* pk = part + ((long long)b * n_t + kt) * C + (C / 3) + h * D;
+  for (int c = threadIdx.x; c < D; c += kConsumers) {
+    float sk = 0.f, sv = 0.f;
+    for (int w = 0; w < 4; ++w) {
+      sv += t.red[w][c];
+      sk += t.red[4 + w][c];
+    }
+    pk[c] = sk;
+    pk[C / 3 + c] = sv;
+  }
+}
+
+// 3w. The dq launch at kD 192 and 256: launch 3 with one consumer
+// warpgroup and 64 queries a block (block x is query tile x % n_t of (b, h)
+// = x / n_t), dQ += t K over pairs of 64-column panels.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kWideDqThreads, 1)
+attn_bwd_tc_dq_wide_kernel(const __grid_constant__ CUtensorMap tqh,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const float* __restrict__ st,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dq, float* __restrict__ part,
+                           int H, int S, int D, int n_t, int C, float scale,
+                           Layout gr) {
+  constexpr int kPanels = kD / kPanel;
+  constexpr uint32_t kTileBytes = 2 * kRows * kD * 2;  // one K and V tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  WideDqTiles<T, kD>& t = aligned_tiles<WideDqTiles<T, kD>>(smem_raw);
+
+  const int bh = blockIdx.x / n_t;
+  const int qt = blockIdx.x % n_t, q0 = qt * kRows;
+  const int b = bh / H, h = bh % H;
+  const int n_kt = (S + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: q^ and dO once, then K and V tiles through the ring
+    if (lane == 0) {
+      bar_expect_tx(&q_full, 2 * kRows * kD * 2);
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(t.qh[p], &tqh, &q_full, p * kPanel, q0, h, b);
+        tma_load(t.dout[p], &tdo, &q_full, p * kPanel, q0, h, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) bar_wait(&empty[s], ((j / kStages) - 1) & 1);
+        bar_expect_tx(&full[s], kTileBytes);
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(t.k[s][p], &tk, &full[s], p * kPanel, j * kRows, h, b);
+          tma_load(t.v[s][p], &tv, &full[s], p * kPanel, j * kRows, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: the block's 64 queries; rows >= S take m = rinv = delta = 0
+  const int row = 16 * warp + lane / 4;  // and row + 8
+  const int col = 2 * (lane % 4);
+  const int r0 = q0 + row, r1 = r0 + 8;
+  const long long rows = (long long)bh * S;
+  const float ml0 = r0 < S ? st[(rows + r0) * 2] * kLog2e : 0.f;
+  const float ml1 = r1 < S ? st[(rows + r1) * 2] * kLog2e : 0.f;
+  const float f0 = r0 < S ? st[(rows + r0) * 2 + 1] * scale : 0.f;
+  const float f1 = r1 < S ? st[(rows + r1) * 2 + 1] * scale : 0.f;
+  const float dl0 = r0 < S ? delta[rows + r0] : 0.f;
+  const float dl1 = r1 < S ? delta[rows + r1] : 0.f;
+  float dq_acc[kD / 2];
+  float s[32], dp[32];
+  zero(dq_acc);
+  zero(s);
+  zero(dp);
+
+  bar_wait(&q_full, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int stg = j % kStages;
+    const int kb = j * kRows;
+    bar_wait(&full[stg], (j / kStages) & 1);
+
+    pin(s);
+    pin(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n64<T>(s, desc(&t.qh[p][c], 16, 1024),
+                      desc(&t.k[stg][p][c], 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n64<T>(dp, desc(&t.dout[p][c], 16, 1024),
+                      desc(&t.v[stg][p][c], 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait();
+    pin(s);
+    pin(dp);
+
+    uint32_t ta[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int kc = kb + 8 * n + col;
+      const bool okc0 = kc < S, okc1 = kc + 1 < S;
+      const float p0 = okc0 ? exp2f(fmaf(s[4 * n], kLog2e, -ml0)) : 0.f;
+      const float p1 = okc1 ? exp2f(fmaf(s[4 * n + 1], kLog2e, -ml0)) : 0.f;
+      const float p2 = okc0 ? exp2f(fmaf(s[4 * n + 2], kLog2e, -ml1)) : 0.f;
+      const float p3 = okc1 ? exp2f(fmaf(s[4 * n + 3], kLog2e, -ml1)) : 0.f;
+      ta[n / 2][(n % 2) * 2] =
+          pack2<T>((dp[4 * n] - dl0) * p0, (dp[4 * n + 1] - dl0) * p1);
+      ta[n / 2][(n % 2) * 2 + 1] =
+          pack2<T>((dp[4 * n + 2] - dl1) * p2, (dp[4 * n + 3] - dl1) * p3);
+    }
+
+    pin(dq_acc);
+    wg_fence();
+#pragma unroll
+    for (int c = 0; c < kRows / 16; ++c)
+      rs_wide<T>(dq_acc, ta[c], t.k[stg], 16 * c);
+    wg_commit();
+    wg_wait();
+    pin(dq_acc);
+    release(&empty[stg], lane);
+  }
+
+  store_rows(dq + b * gr.sb + h * gr.sh, gr.sr, dq_acc, r0, col, S, D, f0,
+             f1);
+  column_sums(dq_acc, f0, f1, t.red[warp], lane);
+  named_barrier(1, 128);
+  float* pq = part + ((long long)b * n_t + qt) * C + h * D;
+  for (int c = threadIdx.x; c < D; c += 128) {
+    float sq = 0.f;
+    for (int w = 0; w < 4; ++w) sq += t.red[w][c];
+    pq[c] = sq;
+  }
+}
+
 // 4. dbias[b][c] = the sum over tiles, in order, of part[b][tile][c].
 __global__ void __launch_bounds__(kBiasThreads)
 attn_bwd_tc_bias_kernel(const float* __restrict__ part,
@@ -599,11 +993,10 @@ int blocks_of(long long n, int per, unsigned* grid) {
   return 0;
 }
 
-template <typename T, int kD>
-int launch(const Args& a, cudaStream_t stream) {
+// Launch 1, the prep, for every head dim.
+template <typename T>
+int prep(const Args& a, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.H * a.S;
-  const int n_t = (a.S + kBlockRows - 1) / kBlockRows;
-  const int C = 3 * a.H * a.D;
   unsigned grid;
   int rc = blocks_of(rows, kPrepWarps, &grid);
   if (rc) return rc;
@@ -613,14 +1006,44 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<T*>(a.qh), static_cast<T*>(a.qn), static_cast<T*>(a.don),
       static_cast<float*>(a.delta), a.H, a.S, a.D, a.dsc,
       rounded_scale<T>(a.scale), a.in, a.og, rows);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
+  return (int)cudaGetLastError();
+}
 
+// Launch 4, the bias partials' sum over the n_t row tiles.
+int bias(const Args& a, int n_t, cudaStream_t stream) {
+  const long long total = (long long)a.B * 3 * a.H * a.D;
+  unsigned grid;
+  int rc = blocks_of(total, kBiasThreads, &grid);
+  if (rc) return rc;
+  attn_bwd_tc_bias_kernel<<<grid, kBiasThreads, 0, stream>>>(
+      static_cast<const float*>(a.part), static_cast<float*>(a.dbias), n_t,
+      3 * a.H * a.D, total);
+  return (int)cudaGetLastError();
+}
+
+// The scratch rows q^, qn and do_n as (B, H, S, dsc).
+Layout scratch_layout(const Args& a) {
+  return Layout{(long long)a.H * a.S * a.dsc, (long long)a.S * a.dsc, a.dsc};
+}
+
+// Set a kernel's dynamic shared memory to sizeof(Tiles) + the alignment.
+template <typename Tiles, typename Kernel>
+int smem_for(Kernel kernel, size_t* bytes) {
+  *bytes = sizeof(Tiles) + 1024;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+}
+
+template <typename T, int kD>
+int launch(const Args& a, cudaStream_t stream) {
+  int rc = prep<T>(a, stream);
+  if (rc) return rc;
+  const int n_t = (a.S + kBlockRows - 1) / kBlockRows;
+  const int C = 3 * a.H * a.D;
   EncodeTiled enc = encode_fn();
   if (!enc) return kErrNoEntryPoint;
   const CUtensorMapDataType type = map_type<T>();
-  const Layout sc{(long long)a.H * a.S * a.dsc, (long long)a.S * a.dsc,
-                  a.dsc};
+  const Layout sc = scratch_layout(a);
   CUtensorMap tk, tv, tqh, tdo, tqn, tdn;
   const int B = a.B, H = a.H, S = a.S, D = a.D;
   rc = encode(enc, &tk, a.k, B, H, S, D, a.in, kRows, type);
@@ -630,45 +1053,89 @@ int launch(const Args& a, cudaStream_t stream) {
   if (!rc) rc = encode(enc, &tqn, a.qn, B, H, S, D, sc, kRows, type);
   if (!rc) rc = encode(enc, &tdn, a.don, B, H, S, D, sc, kRows, type);
   if (rc) return rc;
+  unsigned grid;
   rc = blocks_of((long long)n_t * B * H, 1, &grid);
   if (rc) return rc;
   const float* st = static_cast<const float*>(a.st);
   const float* delta = static_cast<const float*>(a.delta);
   float* part = static_cast<float*>(a.part);
 
-  const size_t dkdv_smem = sizeof(DkdvTiles<T, kD>) + 1024;  // + alignment
-  rc = (int)cudaFuncSetAttribute(attn_bwd_tc_dkdv_kernel<T, kD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)dkdv_smem);
+  size_t smem;
+  rc = smem_for<DkdvTiles<T, kD>>(attn_bwd_tc_dkdv_kernel<T, kD>, &smem);
   if (rc) return rc;
-  attn_bwd_tc_dkdv_kernel<T, kD><<<grid, kDkdvThreads, dkdv_smem, stream>>>(
+  attn_bwd_tc_dkdv_kernel<T, kD><<<grid, kDkdvThreads, smem, stream>>>(
       tk, tv, tqh, tdo, tqn, tdn, st, delta, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), part, H, S, D, n_t, C, a.gr);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
 
-  const size_t dq_smem = sizeof(DqTiles<T, kD>) + 1024;
-  rc = (int)cudaFuncSetAttribute(attn_bwd_tc_dq_kernel<T, kD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)dq_smem);
+  rc = smem_for<DqTiles<T, kD>>(attn_bwd_tc_dq_kernel<T, kD>, &smem);
   if (rc) return rc;
-  attn_bwd_tc_dq_kernel<T, kD><<<grid, kDqThreads, dq_smem, stream>>>(
+  attn_bwd_tc_dq_kernel<T, kD><<<grid, kDqThreads, smem, stream>>>(
       tqh, tdo, tk, tv, st, delta, static_cast<T*>(a.dq), part, H, S, D, n_t,
       C, a.scale, a.gr);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
+  return bias(a, n_t, stream);
+}
 
-  const long long total = (long long)B * C;
-  rc = blocks_of(total, kBiasThreads, &grid);
+// The wide tiles (kD 192, 256): 64-row stationary tiles in both launches,
+// so n_t = ceil(S / 64); the dk/dv launch streams kWideQ-row boxes of the
+// scratch and dO, the dq launch 64-row ones.
+template <typename T, int kD>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  int rc = prep<T>(a, stream);
   if (rc) return rc;
-  attn_bwd_tc_bias_kernel<<<grid, kBiasThreads, 0, stream>>>(
-      part, static_cast<float*>(a.dbias), n_t, C, total);
-  return (int)cudaGetLastError();
+  const int n_t = (a.S + kRows - 1) / kRows;
+  const int C = 3 * a.H * a.D;
+  EncodeTiled enc = encode_fn();
+  if (!enc) return kErrNoEntryPoint;
+  const CUtensorMapDataType type = map_type<T>();
+  const Layout sc = scratch_layout(a);
+  CUtensorMap tk, tv, tqh, tdo, wqh, wdo, wqn, wdn;
+  const int B = a.B, H = a.H, S = a.S, D = a.D;
+  rc = encode(enc, &tk, a.k, B, H, S, D, a.in, kRows, type);
+  if (!rc) rc = encode(enc, &tv, a.v, B, H, S, D, a.in, kRows, type);
+  if (!rc) rc = encode(enc, &tdo, a.dout, B, H, S, D, a.og, kRows, type);
+  if (!rc) rc = encode(enc, &tqh, a.qh, B, H, S, D, sc, kRows, type);
+  if (!rc) rc = encode(enc, &wdo, a.dout, B, H, S, D, a.og, kWideQ, type);
+  if (!rc) rc = encode(enc, &wqh, a.qh, B, H, S, D, sc, kWideQ, type);
+  if (!rc) rc = encode(enc, &wqn, a.qn, B, H, S, D, sc, kWideQ, type);
+  if (!rc) rc = encode(enc, &wdn, a.don, B, H, S, D, sc, kWideQ, type);
+  if (rc) return rc;
+  unsigned grid;
+  rc = blocks_of((long long)n_t * B * H, 1, &grid);
+  if (rc) return rc;
+  const float* st = static_cast<const float*>(a.st);
+  const float* delta = static_cast<const float*>(a.delta);
+  float* part = static_cast<float*>(a.part);
+
+  size_t smem;
+  rc = smem_for<WideDkdvTiles<T, kD>>(attn_bwd_tc_dkdv_wide_kernel<T, kD>,
+                                      &smem);
+  if (rc) return rc;
+  attn_bwd_tc_dkdv_wide_kernel<T, kD><<<grid, kDkdvThreads, smem, stream>>>(
+      tk, tv, wqh, wdo, wqn, wdn, st, delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), part, H, S, D, n_t, C, a.gr);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+
+  rc = smem_for<WideDqTiles<T, kD>>(attn_bwd_tc_dq_wide_kernel<T, kD>,
+                                    &smem);
+  if (rc) return rc;
+  attn_bwd_tc_dq_wide_kernel<T, kD><<<grid, kWideDqThreads, smem, stream>>>(
+      tqh, tdo, tk, tv, st, delta, static_cast<T*>(a.dq), part, H, S, D, n_t,
+      C, a.scale, a.gr);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return bias(a, n_t, stream);
 }
 
 template <typename T>
 int launch_d(const Args& a, cudaStream_t s) {
-  return a.D <= 64 ? launch<T, 64>(a, s) : launch<T, 128>(a, s);
+  if (a.D <= 64) return launch<T, 64>(a, s);
+  if (a.D <= 128) return launch<T, 128>(a, s);
+  return a.D <= 192 ? launch_wide<T, 192>(a, s) : launch_wide<T, 256>(a, s);
 }
 
 }  // namespace
@@ -681,8 +1148,9 @@ extern "C" {
 // in), dout and out (layout og) and the forward's (B, H, S, 2) fp32 stats.
 // Scratch: qh, qn, don (B, H, S, dsc) of that type (dsc >= D, a multiple of
 // 8), delta (B, H, S) fp32 and part (B, n_t, 3 H D) fp32, n_t =
-// vtx_attn_bwd_tc_tiles(S). 1 <= S <= 1024, D even and <= 128. Returns a cudaError_t as int (0 when
-// every launch was accepted), or a code of vtx_cuda_error_string's own.
+// vtx_attn_bwd_tc_tiles(S, D). 1 <= S <= 1024, D even and <= 256. Returns
+// a cudaError_t as int (0 when every launch was accepted), or a code of
+// vtx_cuda_error_string's own.
 int vtx_attn_bwd_tc(const void* q, const void* k, const void* v,
                     long long in_sb, long long in_sh, long long in_sr,
                     const void* dout, const void* out, long long og_sb,
@@ -693,7 +1161,7 @@ int vtx_attn_bwd_tc(const void* q, const void* k, const void* v,
                     int B, int H, int S, int D, float scale, int dtype,
                     void* stream) {
   if (B < 1 || H < 1 || S < 1 || S > kMaxSeq || D < 2 || (D & 1) ||
-      D > 128 || dsc < D || dsc % 8)
+      D > kMaxHeadDim || dsc < D || dsc % 8)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.out = out, a.st = st;
@@ -711,16 +1179,24 @@ int vtx_attn_bwd_tc(const void* q, const void* k, const void* v,
   }
 }
 
-// The row tiles of a sequence of S rows: part's middle dimension.
-int vtx_attn_bwd_tc_tiles(int S) { return (S + kBlockRows - 1) / kBlockRows; }
+// The row tiles of a sequence of S rows at head dim D: part's middle
+// dimension (128-row stationary tiles to D 128, 64-row ones past it).
+int vtx_attn_bwd_tc_tiles(int S, int D) {
+  const int rows = D > 128 ? kRows : kBlockRows;
+  return (S + rows - 1) / rows;
+}
 
 // The dynamic shared memory of the dk/dv launch (dq == 0) or the dq launch
 // (dq == 1) at head dim D, in bytes (the same for bf16 and fp16).
 int vtx_attn_bwd_tc_smem(int D, int dq) {
   const size_t tiles =
-      dq ? (D <= 64 ? sizeof(DqTiles<bf16, 64>) : sizeof(DqTiles<bf16, 128>))
-         : (D <= 64 ? sizeof(DkdvTiles<bf16, 64>)
-                    : sizeof(DkdvTiles<bf16, 128>));
+      D <= 64    ? (dq ? sizeof(DqTiles<bf16, 64>) : sizeof(DkdvTiles<bf16, 64>))
+      : D <= 128 ? (dq ? sizeof(DqTiles<bf16, 128>)
+                       : sizeof(DkdvTiles<bf16, 128>))
+      : D <= 192 ? (dq ? sizeof(WideDqTiles<bf16, 192>)
+                       : sizeof(WideDkdvTiles<bf16, 192>))
+                 : (dq ? sizeof(WideDqTiles<bf16, 256>)
+                       : sizeof(WideDkdvTiles<bf16, 256>));
   return (int)tiles + 1024;
 }
 

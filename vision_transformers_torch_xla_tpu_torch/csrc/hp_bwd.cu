@@ -2,10 +2,12 @@
 // over (B, H, S, D) q, k, v, dO, dq, dk and dv given by strides, on the
 // CUDA cores of a Hopper card. Which kernel serves which dtype and head dim
 // D (the library is this file and csrc/hp_bwd_simt.cu, linked together):
-//   fp32, D <= 128: csrc/hp_bwd_simt.cu (hp_bwd_stats_simt_kernel,
+//   fp32, D <= 256: csrc/hp_bwd_simt.cu (hp_bwd_stats_simt_kernel,
 //     hp_bwd_dkdv_simt_kernel, hp_bwd_dq_sum_kernel: register tiles, 7
-//     products), which vtx_hp_bwd hands float at D <= 128;
-//   fp32 past 128, bf16 and fp16 past 256 (to 1024): this file's loops,
+//     products; past 128 its wide tiles, hp_bwd_stats_wide_simt_kernel
+//     and hp_bwd_dkdv_wide_simt_kernel), which vtx_hp_bwd hands float at
+//     D <= 256;
+//   fp32, bf16 and fp16 past 256 (to 1024): this file's loops,
 //     hp_bwd_dq_kernel<T, 0> and hp_bwd_dkdv_kernel<T, 0> (run-time head
 //     dim; the compile-time head dims of HeadRow and lane_pairs are no
 //     longer instantiated);
@@ -442,9 +444,9 @@ int launch(T* const* t, float* stats, Layout a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Every dtype comes here at head dims over 128 alone (fp32 below is
-// csrc/hp_bwd_simt.cu's, bf16 and fp16 to 256 csrc/hp_bwd_tc.cu's):
-// run-time loops.
+// Every dtype comes here at head dims over 256 alone (fp32 below is
+// csrc/hp_bwd_simt.cu's, bf16 and fp16 csrc/hp_bwd_tc.cu's): run-time
+// loops.
 template <typename T>
 int launch_d(const void* const* ptrs, float* stats, const Layout& a, int B,
              cudaStream_t s) {
@@ -456,7 +458,7 @@ int launch_d(const void* const* ptrs, float* stats, const Layout& a, int B,
 
 }  // namespace
 
-// csrc/hp_bwd_simt.cu, linked into this library: fp32 at D <= 128.
+// csrc/hp_bwd_simt.cu, linked into this library: fp32 at D <= 256.
 namespace hp_bwd_simt {
 long long scratch_floats(int B, int H, int S, int D);
 int run(const void* const* ptrs, const long long* strides, float* scratch,
@@ -469,13 +471,13 @@ extern "C" {
 // floats: the row stats of this file's loops (B, H, S, 3), or those of
 // csrc/hp_bwd_simt.cu's kernels and their parts of dq.
 long long vtx_hp_bwd_scratch(int B, int S, int H, int D, int dtype) {
-  if (dtype == kF32 && D <= 128)
+  if (dtype == kF32 && D <= 256)
     return hp_bwd_simt::scratch_floats(B, H, S, D);
   return (long long)B * H * S * 3;
 }
 
 // q, k, v, dout in and dq, dk, dv out: (B, H, S, D) of the element type
-// `dtype` (bf16 and fp16 at head dims <= 128 are csrc/hp_bwd_tc.cu's) with
+// `dtype` (bf16 and fp16 at head dims <= 256 are csrc/hp_bwd_tc.cu's) with
 // the head dim contiguous; strides holds 21 element strides,
 // (batch, head, token) of each in that order; stats is fp32 scratch of
 // vtx_hp_bwd_scratch floats. Returns a cudaError_t as int: 0 when every
@@ -506,7 +508,7 @@ int vtx_hp_bwd(const void* q, const void* k, const void* v, const void* dout,
   }
   float* st = static_cast<float*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32 && D <= 128)
+  if (dtype == kF32 && D <= 256)
     return hp_bwd_simt::run(ptrs, strides, st, B, S, H, D, scale, s);
   a.S = S;
   a.H = H;

@@ -1,12 +1,14 @@
 // Softmax attention backward from q, k, v and dO alone, in fp32 at head
-// dims up to 128, on the CUDA cores of Hopper: hp_bwd_stats_simt_kernel<kD,
-// ...> (each row's softmax stats), hp_bwd_dkdv_simt_kernel<kD, kRows,
-// kBufs> (dk, dv and each key block's part of dq) and hp_bwd_dq_sum_kernel
-// (dq), kD 64 or 128 at compile time (a smaller head dim takes the next
-// with its columns zero-filled). Linked into csrc/hp_bwd.cu's library,
-// whose vtx_hp_bwd launches them for float at D <= 128 (fp32 past 128, and
-// bf16 and fp16 past 256, stay on that file's loops; bf16 and fp16 to 256
-// are csrc/hp_bwd_tc.cu's).
+// dims up to 256, on the CUDA cores of Hopper, in three launches: each
+// row's softmax stats, dk and dv with each key block's part of dq, and dq.
+// To D 128 hp_bwd_stats_simt_kernel<kD, ...>, hp_bwd_dkdv_simt_kernel<kD,
+// kRows, kBufs> and hp_bwd_dq_sum_kernel, kD 64 or 128 at compile time;
+// past it the wide tiles, hp_bwd_stats_wide_simt_kernel<kD> and
+// hp_bwd_dkdv_wide_simt_kernel<kD>, kD 192 or 256, with the same sum (a
+// head dim in between takes the next with its columns zero-filled). Linked
+// into csrc/hp_bwd.cu's library, whose vtx_hp_bwd launches them for float
+// at D <= 256 (bf16 and fp16 past 256 stay on that file's loops; bf16 and
+// fp16 to 256 are csrc/hp_bwd_tc.cu's).
 //
 // Replaces three TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_attention.py in fp32 (the JAX kernels round nothing there), which
@@ -63,6 +65,33 @@
 // backward 2.12, csrc/hp_bwd.cu's loops before this file 5.50 (PERF.md
 // §6, tools/time_fp32_hp_bwd_variants.py). ptxas: 212-254 registers, no
 // spills.
+//
+// Head dims 129-256 (the wide tiles): the same seven products and three
+// launches. Two 64 x 256 fp32 accumulators are 128 registers a thread at
+// 256 threads, and 128 staged rows of q and dO 266 KB, so:
+//   1w. stats, a block per (b, h, 64-query tile) of 8 warps, each owning 8
+//      whole rows (csrc/attn_fwd_simt.cuh's wide tiles): q and dO staged
+//      at pitch kD + 4 (4 mod 32: a quarter-warp's float4 rows hit distinct
+//      banks), K and V streamed in tiles of kWideKeys = 32 keys, lane l
+//      scoring key l of its warp's 8 rows (rows_dot: 8 broadcast float4 of
+//      q or dO against the lane's K or V row), s then dp, the next tile's
+//      K landing by cp.async under dp and its V under the next s. Each lane
+//      keeps an online (m, l, u) per row over its keys, and the 32 lanes
+//      merge them (butterflies) at the end. 200 KB at kD 256.
+//   2w. dk, dv and dq's parts, a block per (b, h, 32-key tile) of 8
+//      warps, each owning 8 of the keys, warps 0-3 summing dv and 4-7 dk
+//      (the dV/dK split of csrc/hp_bwd_tc.cu's wide tiles: 8 x kD / 32 a
+//      lane, 64 registers at 256). For each 64-query tile (lane l holding
+//      queries l and l + 32): warps 0-3 score s^T against q and store p,
+//      warps 4-7 dp^T against dO and, after one barrier, ds = p (dp -
+//      delta) (keys_dot: 8 broadcast float4 of K or V against the lane's 2
+//      rows); then each warp sums its own keys' dv += p^T dO or dk += ds^T
+//      q (keys_sum: p or ds broadcast along the queries, dO or q as float4
+//      along the head dim, float2 past 128 at kD 192); the next query tile
+//      loads while all 256 threads form dq's part over the block's keys
+//      (dq_part_tile, not unrolled: unrolled, it spills at kD 256). One
+//      q/dO buffer: 218 KB at kD 256. The dq parts scratch has ceil(S /
+//      32) parts (542 MB at (32, 197, 12, 256)).
 //
 // Plain C++ interface (namespace hp_bwd_simt), called by csrc/hp_bwd.cu's
 // vtx_hp_bwd on the caller's stream; returns cudaGetLastError(). The
@@ -243,8 +272,9 @@ hp_bwd_stats_simt_kernel(const float* __restrict__ q,
 // e] (i < 4, g < kD / 64, e < 4): dq's part, over the block's n keys, of the
 // tile's 64 queries, thread (qg, dg) = (tid / 16, tid % 16) of 256 holding
 // 4 queries by 4 (8 at kD = 128) columns; ds read as float4 along the
-// queries, k as float4 along the head dim.
-template <int kD>
+// queries, k as float4 along the head dim; the loop over the keys unrolled
+// kUnroll times.
+template <int kD, int kUnroll = 4>
 __device__ __forceinline__ void dq_part_tile(float (&out)[4][kD / 16],
                                              const float* __restrict__ ds,
                                              const float* __restrict__ k,
@@ -255,7 +285,7 @@ __device__ __forceinline__ void dq_part_tile(float (&out)[4][kD / 16],
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < kD / 16; ++c) out[i][c] = 0.f;
-#pragma unroll 4
+#pragma unroll kUnroll
   for (int r = 0; r < n; ++r) {
     const float4 x = *reinterpret_cast<const float4*>(ds + r * kPS + 4 * qg);
     const float xs[4] = {x.x, x.y, x.z, x.w};
@@ -437,6 +467,381 @@ hp_bwd_dq_sum_kernel(const float* __restrict__ dq_part,
     if (c + e < D) dst[e] = y[e] * scale;
 }
 
+// ---- head dims 129-256 (kD 192 and 256): the wide tiles
+//
+// Two 64 x 256 fp32 accumulators (dk and dv of 64 keys) are 128 registers a
+// thread at 256 threads, and 128 staged rows are 266 KB: so a dk/dv block
+// holds kWideKeys keys, each warp 8 of them, warps 0-3 summing dv and 4-7
+// dk (8 x kD / 32 a thread), and a stats block holds 64 queries, each warp
+// 8 whole rows, as csrc/attn_fwd_simt.cuh's wide tiles.
+constexpr int kWideKeys = 32;
+// dq's part not unrolled over the keys: unrolled twice or four times, with
+// dv or dk live, it takes 255 registers and spills 4-16 bytes at kD 256 (at
+// the same time, tools/time_fp32_hp_bwd_variants.py)
+constexpr int kWideDqUnroll = 1;
+
+template <int kD>
+struct Wide {
+  static constexpr int kP = kD + 4;    // pitch of a staged row: 4 mod 32
+  static constexpr int kC = kD / 32;   // a lane's columns of a summed row
+  // stats: q, dO of 64 queries; K and V of kWideKeys keys
+  static constexpr size_t kStatsSmem =
+      (size_t)(2 * kTile * kP + 2 * kWideKeys * kP) * sizeof(float);
+  // dk/dv: K, V of the block's keys; q, dO of 64 queries; p and ds
+  // [key][query]; the queries' lse and delta
+  static constexpr size_t kDkdvSmem =
+      (size_t)(2 * kWideKeys * kP + 2 * kTile * kP + 2 * kWideKeys * kPS +
+               2 * kTile) * sizeof(float);
+  static_assert(kDkdvSmem <= 227 * 1024 && kStatsSmem <= 227 * 1024,
+                "the wide tiles fit a block's 227 KB");
+};
+
+// x[i] += sum_{d < kD} a[i kP + d] b[d] (i < 8): 8 rows of a (the same for
+// every lane) against the lane's row b, both read as float4.
+template <int kD>
+__device__ __forceinline__ void rows_dot(float (&x)[8],
+                                         const float* __restrict__ a,
+                                         const float* __restrict__ b) {
+  constexpr int kP = kD + 4;
+#pragma unroll 4
+  for (int d = 0; d < kD; d += 4) {
+    const float4 y = *reinterpret_cast<const float4*>(b + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 r = *reinterpret_cast<const float4*>(a + i * kP + d);
+      x[i] = fmaf(r.x, y.x, x[i]);
+      x[i] = fmaf(r.y, y.y, x[i]);
+      x[i] = fmaf(r.z, y.z, x[i]);
+      x[i] = fmaf(r.w, y.w, x[i]);
+    }
+  }
+}
+
+// x[i][j] += sum_{d < kD} a[i kP + d] b[32 j kP + d] (i < 8, j < kJ): the
+// warp's 8 keys of a against the lane's queries b and b + 32 rows.
+template <int kD, int kJ>
+__device__ __forceinline__ void keys_dot(float (&x)[8][2],
+                                         const float* __restrict__ a,
+                                         const float* __restrict__ b) {
+  constexpr int kP = kD + 4;
+#pragma unroll 2
+  for (int d = 0; d < kD; d += 4) {
+    float4 y[kJ];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + 32 * j * kP + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 r = *reinterpret_cast<const float4*>(a + i * kP + d);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        x[i][j] = fmaf(r.x, y[j].x, x[i][j]);
+        x[i][j] = fmaf(r.y, y[j].y, x[i][j]);
+        x[i][j] = fmaf(r.z, y[j].z, x[i][j]);
+        x[i][j] = fmaf(r.w, y[j].w, x[i][j]);
+      }
+    }
+  }
+}
+
+// The lane's column c (< kD / 32) of a summed row: 4 lane + c and 128 + 4
+// lane + c - 4 at kD 256; 4 lane + c and 128 + 2 lane + c - 4 at 192.
+template <int kD>
+__device__ __forceinline__ int wide_col(int lane, int c) {
+  return c < 4 ? 4 * lane + c
+               : 128 + (kD == 256 ? 4 : 2) * lane + c - 4;
+}
+
+// acc[i][c] += sum_{t < kK} a[i kPS + t] b[t kP + wide_col(c)]: dv += p^T
+// dO or dk += ds^T q of the warp's 8 keys over kK queries, a (p or ds, the
+// same for every lane) read as float4 along the queries, b as float4 (and
+// float2 at kD 192) along the head dim.
+template <int kD, int kK>
+__device__ __forceinline__ void keys_sum(float (&acc)[8][kD / 32],
+                                         const float* __restrict__ a,
+                                         const float* __restrict__ b,
+                                         int lane) {
+  constexpr int kP = kD + 4;
+  constexpr int kHi = kD == 256 ? 4 : 2;  // the lane's columns past 128
+#pragma unroll 2
+  for (int q = 0; q < kK; q += 4) {
+    float4 x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + i * kPS + q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* row = b + (q + e) * kP;
+      const float4 y0 = *reinterpret_cast<const float4*>(row + 4 * lane);
+      float y1[4];
+      if constexpr (kHi == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(row + 128 + 4 * lane);
+        y1[0] = v.x, y1[1] = v.y, y1[2] = v.z, y1[3] = v.w;
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(row + 128 + 2 * lane);
+        y1[0] = v.x, y1[1] = v.y;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x_e = e == 0 ? x[i].x : e == 1 ? x[i].y
+                        : e == 2 ? x[i].z : x[i].w;
+        acc[i][0] = fmaf(x_e, y0.x, acc[i][0]);
+        acc[i][1] = fmaf(x_e, y0.y, acc[i][1]);
+        acc[i][2] = fmaf(x_e, y0.z, acc[i][2]);
+        acc[i][3] = fmaf(x_e, y0.w, acc[i][3]);
+#pragma unroll
+        for (int c = 0; c < kHi; ++c)
+          acc[i][4 + c] = fmaf(x_e, y1[c], acc[i][4 + c]);
+      }
+    }
+  }
+}
+
+// 1w. grid (B * H * n_tiles) over 64-query tiles: each row's lse and
+// delta into stats (B, H, S, 2), as launch 1. Warp w owns rows 8 w .. 8 w +
+// 7 of the tile; K and V stream in kWideKeys-key tiles, lane l scoring key
+// l: s (from K) and dp (from V) in two steps, the next tile's K landing
+// under dp and its V under the next s. Each lane keeps an online (m, l, u)
+// of each row over its keys; the row's 32 lanes merge them at the end.
+template <int kD>
+__global__ void __launch_bounds__(256, 1)
+hp_bwd_stats_wide_simt_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              float* __restrict__ stats, int H, int S, int D,
+                              int n_tiles, float scale, Views a, int vec) {
+  constexpr int kP = Wide<kD>::kP;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = qs + kTile * kP;
+  float* ks = dos + kTile * kP;
+  float* vs = ks + kWideKeys * kP;
+  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % n_tiles) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 8 * warp;                 // the warp's first row
+  const bool rows_live = q0 + r0 < S;      // the warp has a real row
+  const float* kg = head(k, a, kK, b, h);
+  const float* vg = head(v, a, kV, b, h);
+
+  copy_tile<kD, kTile, 256>(qs, head(q, a, kQ, b, h), a.t[kQ].sr, q0, S, D,
+                            vec);
+  copy_tile<kD, kTile, 256>(dos, head(dout, a, kDO, b, h), a.t[kDO].sr, q0,
+                            S, D, vec);
+  copy_tile<kD, kWideKeys, 256>(ks, kg, a.t[kK].sr, 0, S, D, vec);
+  cp_async_commit();
+  copy_tile<kD, kWideKeys, 256>(vs, vg, a.t[kV].sr, 0, S, D, vec);
+  cp_async_commit();
+  float mt[8], lt[8], ut[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mt[i] = kNegInf;
+    lt[i] = ut[i] = 0.f;
+  }
+  for (int k0 = 0; k0 < S; k0 += kWideKeys) {
+    const bool more = k0 + kWideKeys < S;
+    float s[8], dp[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = dp[i] = 0.f;
+    cp_async_wait<1>();
+    __syncthreads();  // K (and q, dO with the first) landed
+    if (rows_live) rows_dot<kD>(s, qs + r0 * kP, ks + lane * kP);
+    __syncthreads();  // K read: the next tile's K lands under dp
+    if (more) copy_tile<kD, kWideKeys, 256>(ks, kg, a.t[kK].sr,
+                                            k0 + kWideKeys, S, D, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // V landed
+    if (rows_live) rows_dot<kD>(dp, dos + r0 * kP, vs + lane * kP);
+    __syncthreads();  // V read
+    if (more) copy_tile<kD, kWideKeys, 256>(vs, vg, a.t[kV].sr,
+                                            k0 + kWideKeys, S, D, vec);
+    cp_async_commit();
+    if (rows_live && k0 + lane < S) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = __fmul_rn(s[i], scale);
+        const float m_new = fmaxf(mt[i], x);
+        const float alpha = exp_p(mt[i] - m_new);
+        const float e = exp_p(x - m_new);
+        lt[i] = fmaf(lt[i], alpha, e);
+        ut[i] = fmaf(ut[i], alpha, e * dp[i]);
+        mt[i] = m_new;
+      }
+    }
+  }
+  if (!rows_live) return;
+  // merged over the row's 32 lanes: lse = m + log l, delta = u / l
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+      merge(mt[i], lt[i], ut[i], __shfl_xor_sync(0xffffffffu, mt[i], off),
+            __shfl_xor_sync(0xffffffffu, lt[i], off),
+            __shfl_xor_sync(0xffffffffu, ut[i], off));
+    if (lane == 0 && q0 + r0 + i < S) {
+      float* st = stats + ((long long)bh * S + q0 + r0 + i) * 2;
+      st[0] = mt[i] + logf(lt[i]);
+      st[1] = ut[i] / lt[i];
+    }
+  }
+}
+
+// 2w. grid (B * H * n_tiles) over kWideKeys-key tiles: dk, dv and each
+// query's part of dq from the block's keys, as launch 2. Warp w owns keys 8
+// (w % 4) .. 8 (w % 4) + 7 of the block; for each 64-query tile, lane l
+// holding queries l and l + 32, warps 0-3 score s^T (K against q) and
+// store p = exp(s scale - lse), warps 4-7 score dp^T (V against dO) and,
+// once p is stored, ds = p (dp - delta); then warps 0-3 sum dv += p^T dO
+// and warps 4-7 dk += ds^T q over the tile, every warp from its own rows of
+// p or ds. The next tile's q and dO load while all 256 threads form dq's
+// part (ds^T k over the block's keys, dq_part_tile). Shared memory: K, V
+// [kWideKeys][kP]; q, dO [64][kP]; p, ds [kWideKeys][kPS]; lse and delta
+// [2][64].
+template <int kD>
+__global__ void __launch_bounds__(256, 1)
+hp_bwd_dkdv_wide_simt_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ stats,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             float* __restrict__ dq_part, int H, int S, int D,
+                             int n_tiles, float scale, Views a, int vec) {
+  constexpr int kP = Wide<kD>::kP, kC = Wide<kD>::kC;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + kWideKeys * kP;
+  float* qs = vs + kWideKeys * kP;
+  float* dos = qs + kTile * kP;
+  float* ps = dos + kTile * kP;
+  float* dss = ps + kWideKeys * kPS;
+  float* ls = dss + kWideKeys * kPS;  // lse [64], then delta [64]
+  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
+  const int kb = blockIdx.x % n_tiles, k0 = kb * kWideKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool dk_warp = warp >= 4;
+  const int kr = 8 * (warp & 3);           // the warp's first key
+  const bool keys_live = k0 + kr < S;      // the warp has a real key
+  const int n_live = min(kWideKeys, S - k0);
+  const float* qg = head(q, a, kQ, b, h);
+  const float* dog = head(dout, a, kDO, b, h);
+  const float* st_g = stats + (long long)bh * S * 2;
+  float* part = dq_part +
+                ((long long)kb * (gridDim.x / n_tiles) + bh) * S * kD +
+                4 * (threadIdx.x & 15);
+  // the query tile at q0: q, dO, lse and delta, by cp.async
+  auto stream = [&](int q0) {
+    copy_tile<kD, kTile, 256>(qs, qg, a.t[kQ].sr, q0, S, D, vec);
+    copy_tile<kD, kTile, 256>(dos, dog, a.t[kDO].sr, q0, S, D, vec);
+    if (threadIdx.x < 2 * kTile) {
+      const int t = threadIdx.x % kTile;
+      const bool ok = q0 + t < S;
+      cp_async<4>(ls + threadIdx.x,
+                  ok ? st_g + 2 * (q0 + t) + threadIdx.x / kTile : st_g, ok);
+    }
+    cp_async_commit();
+  };
+
+  copy_tile<kD, kWideKeys, 256>(ks, head(k, a, kK, b, h), a.t[kK].sr, k0, S,
+                                D, vec);
+  copy_tile<kD, kWideKeys, 256>(vs, head(v, a, kV, b, h), a.t[kV].sr, k0, S,
+                                D, vec);
+  stream(0);
+  float acc[8][kC];  // dv (warps 0-3) or dk (4-7) of the warp's 8 keys
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[i][c] = 0.f;
+
+  for (int q0 = 0; q0 < S; q0 += kTile) {
+    cp_async_wait<0>();
+    __syncthreads();  // the query tile (and K, V with the first) landed
+    // the tile's queries 32 .. 63 all lie past S: neither scored nor summed
+    const bool short_tile = q0 + kTile / 2 >= S;
+    float x[8][2];  // s^T (warps 0-3) or dp^T (4-7)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i][0] = x[i][1] = 0.f;
+    if (keys_live) {
+      const float* kv = (dk_warp ? vs : ks) + kr * kP;
+      const float* qd = (dk_warp ? dos : qs) + lane * kP;
+      if (short_tile)
+        keys_dot<kD, 1>(x, kv, qd);
+      else
+        keys_dot<kD, 2>(x, kv, qd);
+      if (!dk_warp) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qi = lane + 32 * j;
+          const bool q_ok = q0 + qi < S;
+          const float lse = ls[qi];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            ps[(kr + i) * kPS + qi] =
+                q_ok && k0 + kr + i < S
+                    ? exp_p(__fmul_rn(x[i][j], scale) - lse)
+                    : 0.f;
+        }
+      }
+    }
+    __syncthreads();  // p of every key stored
+    if (keys_live) {
+      if (dk_warp) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qi = lane + 32 * j;
+          const float dl = ls[kTile + qi];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int at = (kr + i) * kPS + qi;
+            dss[at] = ps[at] * (x[i][j] - dl);
+          }
+        }
+        __syncwarp();  // the warp's rows of ds are stored
+      }
+      const float* pd = (dk_warp ? dss : ps) + kr * kPS;
+      const float* y = dk_warp ? qs : dos;
+      if (short_tile)
+        keys_sum<kD, kTile / 2>(acc, pd, y, lane);
+      else
+        keys_sum<kD, kTile>(acc, pd, y, lane);
+    }
+    __syncthreads();  // ds of every key stored; q and dO read
+    if (q0 + kTile < S) stream(q0 + kTile);
+    // dq's part of the tile's queries over the block's keys, by the threads
+    // that hold a real query
+    if (q0 + 4 * (threadIdx.x >> 4) < S) {
+      float dqp[4][kD / 16];
+      dq_part_tile<kD, kWideDqUnroll>(dqp, dss, ks, n_live);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + 4 * (threadIdx.x >> 4) + i;
+        if (qi >= S) continue;
+#pragma unroll
+        for (int g = 0; g < kD / 64; ++g)
+          *reinterpret_cast<float4*>(part + (long long)qi * kD + 64 * g) =
+              make_float4(dqp[i][4 * g], dqp[i][4 * g + 1],
+                          dqp[i][4 * g + 2], dqp[i][4 * g + 3]);
+      }
+    }
+  }
+
+  float* dst = dk_warp ? head(dk, a, kDK, b, h) : head(dv, a, kDV, b, h);
+  const long long sr = a.t[dk_warp ? kDK : kDV].sr;
+  const float mul = dk_warp ? scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int key = k0 + kr + i;
+    if (key >= S) continue;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int col = wide_col<kD>(lane, c);
+      if (col < D) dst[(long long)key * sr + col] = __fmul_rn(acc[i][c], mul);
+    }
+  }
+}
+
 // The scratch of launch, in floats: lse and delta of every row (rounded to
 // 16 bytes), then kRows-key blocks' parts of dq at pitch kD.
 template <int kD, int kRows>
@@ -487,6 +892,40 @@ int launch(const float* const* t, float* scratch, int B, int H, int S, int D,
 
 }  // namespace
 
+// The wide tiles' three launches (kD 192, 256).
+template <int kD>
+int launch_wide(const float* const* t, float* scratch, int B, int H, int S,
+                int D, float scale, const Views& a, cudaStream_t stream) {
+  typedef Wide<kD> G;
+  const long long rows = (long long)B * H * S;
+  float* stats = scratch;
+  float* dq_part = scratch + (2 * rows + 3) / 4 * 4;
+  int n_tiles;
+  unsigned blocks;
+  const int vec = rows16({t[kQ], t[kK]}, a.t[kQ], a.t[kK]) &&
+                  rows16({t[kV], t[kDO]}, a.t[kV], a.t[kDO]);
+  int rc = prepare(hp_bwd_stats_wide_simt_kernel<kD>, G::kStatsSmem, kTile,
+                   B, H, S, &n_tiles, &blocks);
+  if (rc) return rc;
+  hp_bwd_stats_wide_simt_kernel<kD><<<blocks, 256, G::kStatsSmem, stream>>>(
+      t[kQ], t[kK], t[kV], t[kDO], stats, H, S, D, n_tiles, scale, a, vec);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  rc = prepare(hp_bwd_dkdv_wide_simt_kernel<kD>, G::kDkdvSmem, kWideKeys, B,
+               H, S, &n_tiles, &blocks);
+  if (rc) return rc;
+  hp_bwd_dkdv_wide_simt_kernel<kD><<<blocks, 256, G::kDkdvSmem, stream>>>(
+      t[kQ], t[kK], t[kV], t[kDO], stats, const_cast<float*>(t[kDK]),
+      const_cast<float*>(t[kDV]), dq_part, H, S, D, n_tiles, scale, a, vec);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const long long threads = rows * (kD / 4);
+  hp_bwd_dq_sum_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
+                         stream>>>(dq_part, const_cast<float*>(t[kDQ]), H, S,
+                                   D, kD, n_tiles, rows, scale, a.t[kDQ]);
+  return (int)cudaGetLastError();
+}
+
 // The instantiations: <head dim, dk/dv block rows, its streamed buffers,
 // stats block rows, their buffers>. At D <= 64 the dk/dv blocks take 128
 // keys and both streamed buffers (one block an SM), as K5's; at D <= 128 64
@@ -498,27 +937,33 @@ namespace hp_bwd_simt {
 
 // The scratch `run` takes, in floats.
 long long scratch_floats(int B, int H, int S, int D) {
-  return D <= 64 ? scratch_size<64, 128>(B, H, S)
-                 : scratch_size<128, 64>(B, H, S);
+  if (D <= 64) return scratch_size<64, 128>(B, H, S);
+  if (D <= 128) return scratch_size<128, 64>(B, H, S);
+  return D <= 192 ? scratch_size<192, kWideKeys>(B, H, S)
+                  : scratch_size<256, kWideKeys>(B, H, S);
 }
 
 // q, k, v, dout in and dq, dk, dv out at `ptrs`, fp32 (B, H, S, D) with
 // the head dim contiguous; strides holds 21 element strides, (batch, head,
 // token) of each in that order; scratch fp32 of scratch_floats(B, H, S, D);
-// 1 <= D <= 128, S <= 1024.
+// 1 <= D <= 256, S <= 1024.
 int run(const void* const* ptrs, const long long* strides, float* scratch,
         int B, int S, int H, int D, float scale, cudaStream_t stream) {
-  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
   Views a;
   const float* t[kTensors];
   for (int i = 0; i < kTensors; ++i) {
     a.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
     t[i] = static_cast<const float*>(ptrs[i]);
   }
-  return D <= 64 ? launch<VTX_HP_BWD_SIMT_64>(t, scratch, B, H, S, D, scale,
-                                              a, stream)
-                 : launch<VTX_HP_BWD_SIMT_128>(t, scratch, B, H, S, D,
-                                               scale, a, stream);
+  if (D <= 64)
+    return launch<VTX_HP_BWD_SIMT_64>(t, scratch, B, H, S, D, scale, a,
+                                      stream);
+  if (D <= 128)
+    return launch<VTX_HP_BWD_SIMT_128>(t, scratch, B, H, S, D, scale, a,
+                                       stream);
+  return D <= 192 ? launch_wide<192>(t, scratch, B, H, S, D, scale, a, stream)
+                  : launch_wide<256>(t, scratch, B, H, S, D, scale, a, stream);
 }
 
 }  // namespace hp_bwd_simt

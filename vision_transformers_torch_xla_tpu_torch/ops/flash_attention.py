@@ -54,8 +54,8 @@ one function over two layouts, in the cast order of `_reference_attention`
 * `fused_bwd` (K8, `_bwd_kernel` :61) and `qkv_bwd` (K12, `_qkv_bwd_kernel`
   :764), whose function is K10's, and `hp_bwd` (K10) -> in bf16 and fp16
   csrc/hp_bwd_tc.cu (TMA, mbarriers, wgmma), in fp32 the CUDA cores
-  (csrc/hp_bwd_simt.cu's register tiles at D <= MAX_HEAD_DIM, linked into
-  csrc/hp_bwd.cu's library, whose loops take wider heads), as
+  (csrc/hp_bwd_simt.cu's register tiles at D <= MAX_WIDE_HEAD_DIM, linked
+  into csrc/hp_bwd.cu's library, whose loops take wider heads), as
   `bwd_kernel_route` decides; plain version
   `fused_bwd_reference`, which `hp_bwd_reference` shares.
 
@@ -86,15 +86,16 @@ sources (the routes say which, before the launch):
   csrc/attn_fwd_tc.cu (K1, K7, K9, K11), csrc/attn_bwd_tc.cu (K2) and
   csrc/hp_bwd_tc.cu (K8, K10, K12);
 * bf16, fp16 at MAX_HEAD_DIM < D <= MAX_WIDE_HEAD_DIM (256): the wide
-  tensor-core tiles of csrc/attn_fwd_tc.cu and csrc/hp_bwd_tc.cu (64-key
-  tiles); K2 on the CUDA cores, csrc/attn_bwd.cu's run-time head dim;
+  tensor-core tiles of the same three sources (64-row stationary tiles;
+  K2's dk/dv streams 32-query tiles);
 * fp32 at any D, and every dtype at D > MAX_WIDE_HEAD_DIM: the CUDA
   cores, csrc/attn_fwd.cu (K1, K9), csrc/attn_bwd.cu (K2),
   csrc/fused_attn_fwd.cu (K7, K11) and csrc/hp_bwd.cu (K8, K10, K12; fp32
-  at D <= MAX_HEAD_DIM in csrc/hp_bwd_simt.cu, linked in); the fp32 K1,
-  K9, K7 and K11 at D <= MAX_WIDE_HEAD_DIM run one register-tiled kernel
-  in two cast orders, csrc/attn_fwd_simt.cuh, which both forward sources
-  include, and past it those sources' run-time head-dim loops.
+  at D <= MAX_WIDE_HEAD_DIM in csrc/hp_bwd_simt.cu, linked in: its
+  register tiles, wide ones past MAX_HEAD_DIM); the fp32 K1, K9, K7 and
+  K11 at D <= MAX_WIDE_HEAD_DIM run one register-tiled kernel in two cast
+  orders, csrc/attn_fwd_simt.cuh, which both forward sources include, and
+  past it those sources' run-time head-dim loops.
 
 Every kernel takes bf16, fp16 and fp32 on the card, as the JAX kernels take
 any float dtype: the CUDA sources are templated on the element type, compute
@@ -136,8 +137,8 @@ from vision_transformers_torch_xla_tpu_torch.ops.flash_blocked import (
 )
 
 MAX_SEQ = 1024       # longer sequences are ops/flash_blocked.py's (K4-K6)
-MAX_HEAD_DIM = 128   # the tensor-core tiles' widest head (K2's: its only)
-MAX_WIDE_HEAD_DIM = 256  # the wide tensor-core tiles' (K1, K7-K12)
+MAX_HEAD_DIM = 128   # the narrow tiles' widest head
+MAX_WIDE_HEAD_DIM = 256  # the wide tiles' (tensor cores: K1, K2, K7-K12)
 
 # Launches of the attention kernels in this process. Only the wrappers'
 # launches add to them; callers may reset them to 0.
@@ -199,10 +200,13 @@ def build_tc_kernels() -> ctypes.CDLL:
 def build_tc_bwd_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the bf16 and fp16 backward's library
     (K2 on the tensor cores)."""
-    return _load("attn_bwd_tc", "vtx_attn_bwd_tc",
-                 [_P] * 3 + _L3 + [_P] * 2 + _L3 + [_P] * 4 + _L3
-                 + [_P] * 4 + [_I, _P, _P] + [_I] * 4
-                 + [ctypes.c_float, _I, _P])
+    lib = _load("attn_bwd_tc", "vtx_attn_bwd_tc",
+                [_P] * 3 + _L3 + [_P] * 2 + _L3 + [_P] * 4 + _L3
+                + [_P] * 4 + [_I, _P, _P] + [_I] * 4
+                + [ctypes.c_float, _I, _P])
+    lib.vtx_attn_bwd_tc_tiles.restype = ctypes.c_int
+    lib.vtx_attn_bwd_tc_tiles.argtypes = [_I, _I]
+    return lib
 
 
 def attn_kernel_route(qkv: torch.Tensor, num_heads: int,
@@ -210,16 +214,16 @@ def attn_kernel_route(qkv: torch.Tensor, num_heads: int,
                       o: Optional[torch.Tensor] = None) -> str:
     """The kernel a CUDA call of K1 or K9 (on `qkv`) or K2 (also on `do`
     and `o`) launches, decided before the launch: 'tensor_cores' (bf16,
-    fp16: csrc/attn_fwd_tc.cu, at a head dim <= MAX_WIDE_HEAD_DIM, and
-    csrc/attn_bwd_tc.cu, at one <= MAX_HEAD_DIM, reading the buffers in
-    place), 'tensor_cores_copy' (the same kernels after one `padded_copy`,
-    when TMA cannot read q, k, v or dO, O in place: `tma_ready`) or
-    'cuda_cores' (fp32, and the wider heads of every dtype:
-    csrc/attn_fwd.cu, whose fp32 forward to MAX_WIDE_HEAD_DIM is
-    csrc/attn_fwd_simt.cuh's attn_fwd_simt_kernel in K1's order, and
-    csrc/attn_bwd.cu)."""
-    widest = MAX_WIDE_HEAD_DIM if do is None else MAX_HEAD_DIM
-    if qkv.dtype == torch.float32 or _head_dim(qkv, num_heads) > widest:
+    fp16 at a head dim <= MAX_WIDE_HEAD_DIM: csrc/attn_fwd_tc.cu and
+    csrc/attn_bwd_tc.cu, wide tiles past MAX_HEAD_DIM, reading the
+    buffers in place), 'tensor_cores_copy' (the same kernels after one
+    `padded_copy`, when TMA cannot read q, k, v or dO, O in place:
+    `tma_ready`) or 'cuda_cores' (fp32, and every dtype past
+    MAX_WIDE_HEAD_DIM: csrc/attn_fwd.cu, whose fp32 forward to
+    MAX_WIDE_HEAD_DIM is csrc/attn_fwd_simt.cuh's attn_fwd_simt_kernel in
+    K1's order, and csrc/attn_bwd.cu)."""
+    if qkv.dtype == torch.float32 or \
+            _head_dim(qkv, num_heads) > MAX_WIDE_HEAD_DIM:
         return "cuda_cores"
     groups = [heads(qkv, num_heads)]
     if do is not None:
@@ -252,7 +256,8 @@ def fused_kernel_route(q: torch.Tensor, k: torch.Tensor,
 
 
 # the CUDA-core backward's sources: the loops of every dtype past the
-# tensor cores' head dims, and fp32 at a head dim <= MAX_HEAD_DIM linked in
+# tensor cores' head dims, and fp32 at a head dim <= MAX_WIDE_HEAD_DIM
+# linked in
 HP_BWD_SOURCES = ("hp_bwd.cu", "hp_bwd_simt.cu")
 
 
@@ -286,7 +291,8 @@ def bwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `padded_copy` of all four, when TMA cannot read a group in place:
     `tma_ready`) or 'cuda_cores' (fp32, or a head dim over
     MAX_WIDE_HEAD_DIM in any dtype: csrc/hp_bwd.cu's library, whose fp32
-    kernels at D <= MAX_HEAD_DIM are csrc/hp_bwd_simt.cu's). The outputs
+    kernels at D <= MAX_WIDE_HEAD_DIM are csrc/hp_bwd_simt.cu's). The
+    outputs
     are the wrappers' own, which the kernels write in place at every even
     head dim."""
     if q.shape[-2] > MAX_SEQ:
@@ -565,9 +571,9 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
 def _launch_bwd_cuda_cores(qkv, do, o, st, dqkv, dbias, num_heads: int,
                            scale: float) -> None:
     """csrc/attn_bwd.cu (fp32; every dtype at a head dim over
-    MAX_HEAD_DIM): one launch, a block per (b, h) (and 64-column chunk of a
-    wider head), with its scratch: t·k summed over the key tiles, (B, H, S,
-    D) fp32."""
+    MAX_WIDE_HEAD_DIM): one launch, a block per (b, h) (and 64-column chunk
+    of a head over MAX_HEAD_DIM), with its scratch: t·k summed over the key
+    tiles, (B, H, S, D) fp32."""
     b, s, c = qkv.shape
     d = c // (3 * num_heads)
     dev = qkv.device
@@ -601,11 +607,12 @@ def _launch_bwd_tc(qkv, do, o, st, dqkv, dbias, num_heads: int,
     dq, dk, dv = heads(dqkv, h)
     lib = build_tc_bwd_kernels()
     # scratch: q̂, q̂/Σp and dO/Σp with rows TMA reads, rowsum(dO·O), and
-    # the bias partials of each of the kernels' row tiles
+    # the bias partials of each of the kernels' row tiles (128 rows to
+    # MAX_HEAD_DIM, 64 past it)
     dsc = -(-d // TMA_ALIGN) * TMA_ALIGN
     scratch = torch.empty((3, b, h, s, dsc), dtype=qkv.dtype, device=dev)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
-    part = torch.empty((b, lib.vtx_attn_bwd_tc_tiles(s), c),
+    part = torch.empty((b, lib.vtx_attn_bwd_tc_tiles(s, d), c),
                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -691,7 +698,7 @@ def _launch_bwd(ins, outs, scale: float, name: str) -> None:
         def launch(ins, outs, strides):
             b, h, s, d = ins[0].shape
             # scratch: the rows' softmax stats, and for the fp32 kernels at
-            # D <= MAX_HEAD_DIM each key block's part of dq
+            # D <= MAX_WIDE_HEAD_DIM each key block's part of dq
             stats = torch.empty(lib.vtx_hp_bwd_scratch(b, s, h, d, code),
                                 dtype=torch.float32, device=dev)
             with torch.cuda.device(dev):
