@@ -64,9 +64,9 @@ The long-sequence slice, vit_base_patch14_dinov2 at 518 px (S = 1370,
 ops/flash_blocked.py):
 
 10. build: csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6), both
-    TMA + wgmma (K4 and K5 in bf16 and fp16 at head dims to 256, K6 in
-    bf16 to 128), and csrc/flash_blocked.cu (the rest of K4-K6 on the CUDA
-    cores: fp32, K6 in fp16 and past 128, K4 and K5 past 256) with
+    TMA + wgmma (K4, K5 and K6 in bf16 and fp16 at head dims to 256), and
+    csrc/flash_blocked.cu (the rest of K4-K6 on the CUDA cores: fp32, and
+    every dtype past 256) with
     csrc/flash_bwd_simt.cu and csrc/flash_fwd_simt.cu (the fp32 K5, K6 and
     K4 at head dims <= 128, register tiles) linked in, started with the
     others in phase 2; build time, registers and spills.
@@ -125,7 +125,9 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     (hp_bwd_stats_simt_kernel, hp_bwd_dkdv_simt_kernel and
     hp_bwd_dq_sum_kernel), and at D 192 and 256 of the bf16 and fp16 K2
     (csrc/attn_bwd_tc.cu's prep, attn_bwd_tc_dkdv_wide_kernel,
-    attn_bwd_tc_dq_wide_kernel and bias sum) and of the fp32 K8, K10 and
+    attn_bwd_tc_dq_wide_kernel and bias sum), of the fp32 K2
+    (csrc/attn_bwd_simt.cu's rows, attn_bwd_dkdv_wide_simt_kernel,
+    attn_bwd_dq_sum_simt_kernel and bias sum) and of the fp32 K8, K10 and
     K12 (hp_bwd_stats_wide_simt_kernel, hp_bwd_dkdv_wide_simt_kernel,
     hp_bwd_dq_sum_kernel) launches
     (torch.profiler, in a process of its own) must be their new kernels
@@ -140,10 +142,10 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     often as the shapes say. Each route function answers as the rule
     says (K1, K9, K7-K12 on the wide tensor-core tiles of
     csrc/attn_fwd_tc.cu and csrc/hp_bwd_tc.cu, K2 on those of
-    csrc/attn_bwd_tc.cu, K4 and K5 on those of csrc/flash_fwd.cu and
-    csrc/flash_bwd.cu, up to 256 in bf16 and fp16; K6 on
-    csrc/flash_blocked.cu's past 128 in every dtype; fp32 and past 256 on
-    the CUDA cores), and one
+    csrc/attn_bwd_tc.cu, K4, K5 and K6 on those of csrc/flash_fwd.cu and
+    csrc/flash_bwd.cu, up to 256 in bf16 and fp16; fp32 and past 256 on
+    the CUDA cores, the fp32 K2 to 256 on csrc/attn_bwd_simt.cu's register
+    tiles), and one
     call of each kernel at D 256 (and past 256
     in bf16), traced together in one torch.profiler session per dtype (ahead
     of the trainer phases; a process's sessions stop recording after a
@@ -154,11 +156,12 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     WIDE_TIMED (K4-K6 WIDE_LONG_TIMED) beside its plain version and SDPA;
     each gets a line 'kernel[dtype,d256]' in the kernels JSON with the
     launches of that run; the bf16, fp16 K2 and the fp32 K8, K10 and K12
-    times are printed beside those of the loops they replaced
-    (REPLACED_WIDE_BWD_MS). Then the bf16 and fp16 K2 at
-    K2_WIDE_EDGE_SHAPES (S 1 to 1024, D 130 to 256: in place, or after one
-    `padded_copy`), each call run twice and bitwise equal, dqkv within
-    WIDE_REL and the bias partials within DBIAS_REL_ATOL.
+    times, the fp32 K2's and K6's are printed beside those of the loops
+    they replaced (REPLACED_WIDE_BWD_MS). Then the bf16, fp16 and fp32 K2
+    at K2_WIDE_EDGE_SHAPES (S 1 to 1024, D 130 to 256: in place, or after
+    one `padded_copy` in bf16 and fp16), each call run twice and bitwise
+    equal, dqkv within WIDE_REL and the bias partials within
+    DBIAS_REL_ATOL (in fp32 both within K2_FP32_EDGE_REL).
 17c. fp32 at 518 px (after 17b, whose profiler sessions it follows):
     launch/main.py::main on vit_base_patch14_dinov2 with --precision fp32
     at batch 4 for 2 steps and 1 eval batch, under one torch.profiler
@@ -172,18 +175,20 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     with the plain versions of K4-K6 on the card), which runs first; each
     K4-K6 call of the kernel step held against its plain version on the
     model's data (DTYPE_REL['float32'], LSE_ATOL).
-17d. K4 and K5 on the tensor cores in fp16 and at head dims 129-256
+17d. K4, K5 and K6 on the tensor cores in fp16 and at head dims 129-256
     (csrc/flash_fwd.cu, csrc/flash_bwd.cu), with the counts reset just
-    before: each instantiation against its plain version at
+    before: K4 and K5 against their plain versions at
     TC_BLOCKED_EDGE_CASES (S 1 to 1370 around the 64-key and 128-row
     tiles, fp16 at D 64, bf16 and fp16 at D 136, 192, 200 and 256 in the
     qkv-view and dense layouts, D 130 after one padded copy; K5 on the
     plain forward's lse and delta), within WIDE_REL, one launch of each a
-    case; then each timed at TC_BLOCKED_TIMED (fp16 at (32, 1370, 12, 64),
-    D 256 at B 1 and 32) beside its plain version, SDPA and its bound;
-    then, in a process of its own, one call of each new instantiation traced
-    alone (torch.profiler) launching its kernel and no other of csrc/, and
-    K6 beside it its unchanged kernel.
+    case; K6 at TC_K6_EDGE_CASES (the same, and fp16 at D 128), each call
+    twice and bitwise equal, within WIDE_REL of the call's largest plain
+    gradient; then each timed at TC_BLOCKED_TIMED (fp16 at (32, 1370, 12,
+    64), D 256 at B 1 and 32) beside its plain version, SDPA and its
+    bound; then, in a process of its own, one call of each new
+    instantiation traced alone (torch.profiler) launching its kernel and
+    no other of csrc/.
 18. gradient, --pallas_mlp on: phase 8 (use_pallas_attn) on the same
     weights with every MLP
     on the fused route, against the same JAX fp32 train golden (the
@@ -335,10 +340,10 @@ data sheet), from the timed call's shapes. The kernels JSON has one line
 per bf16 kernel and one per fp32 and fp16 instantiation (name
 'kernel[dtype]'), whose bound takes the 67 TFLOP/s fp32 CUDA-core peak and
 4-byte elements for fp32, 989 TFLOP/s and 2-byte elements for fp16, and
-one per instantiation at D 256 ('kernel[dtype,d256]'). The fp16 K4 and K5
-lines and the bf16 and fp16 K4 and K5 lines at D 256 carry phase 17d's
-worst edge error (max_rel_err_edges), and those at D 256 its times at (32,
-1370, 12, 256) (suffix _b32).
+one per instantiation at D 256 ('kernel[dtype,d256]'). The fp16 K4, K5
+and K6 lines and the bf16 and fp16 K4, K5 and K6 lines at D 256 carry
+phase 17d's worst edge error (max_rel_err_edges), and those at D 256 its
+times at (32, 1370, 12, 256) (suffix _b32).
 
 The last two lines of stdout are the kernels JSON and the result JSON.
 """
@@ -625,21 +630,28 @@ REPLACED_WIDE_FP32_MS = {"attn_fwd": "9.578", "hp_fwd": "9.552-9.564",
                          "fused_fwd": "10.453-10.555",
                          "qkv_fwd": "10.397-10.561"}
 # and of the loops that the wide tiles of csrc/attn_bwd_tc.cu (K2 in bf16
-# and fp16) and csrc/hp_bwd_simt.cu (the fp32 K8, K10 and K12) replaced at
-# WIDE_TIMED: csrc/attn_bwd.cu's attn_bwd_wide_kernel and csrc/hp_bwd.cu's
-# run-time head dim, event ms of phase 17b (PERF.md §6), printed beside
-# phase 17b's
+# and fp16), csrc/attn_bwd_simt.cu (the fp32 K2) and csrc/hp_bwd_simt.cu
+# (the fp32 K8, K10 and K12) replaced at WIDE_TIMED, and csrc/flash_bwd.cu's
+# (K6 in bf16 and fp16) at WIDE_LONG_TIMED: csrc/attn_bwd.cu's
+# attn_bwd_wide_kernel, csrc/hp_bwd.cu's run-time head dim and
+# csrc/flash_blocked.cu's flash_bwd_dq_wide_kernel, event ms of phase 17b
+# (PERF.md §6), printed beside phase 17b's
 REPLACED_WIDE_BWD_MS = {("bfloat16", "attn_bwd"): "9.580",
                         ("float16", "attn_bwd"): "9.760",
+                        ("float32", "attn_bwd"): "10.710",
+                        ("bfloat16", "flash_bwd_dq"): "2.091",
+                        ("float16", "flash_bwd_dq"): "2.166",
                         ("float32", "fused_bwd"): "36.913",
                         ("float32", "hp_bwd"): "36.674",
                         ("float32", "qkv_bwd"): "36.875"}
-# K2 on the wide tensor-core tiles (csrc/attn_bwd_tc.cu, bf16 and fp16) at
-# its edges, (B, S, H, D): S around the 32-query streamed and 64-row
-# stationary tiles up to the kernels' 1024; D 136, 192, 200 and 256 read in
-# place (136 and 200 zero-filled to the next compiled tile), 130 after one
-# `padded_copy`; each call twice and bitwise equal, dqkv within WIDE_REL and
-# the bias partials within DBIAS_REL_ATOL of their largest magnitude
+# K2 on the wide tensor-core tiles (csrc/attn_bwd_tc.cu, bf16 and fp16) and
+# the fp32 register tiles (csrc/attn_bwd_simt.cu: 32-key blocks, 64-query
+# tiles) at their edges, (B, S, H, D): S around the 32-query streamed and
+# 64-row stationary tiles up to the kernels' 1024; D 136, 192, 200 and 256
+# read in place (136 and 200 zero-filled to the next compiled tile), 130
+# after one `padded_copy` (in fp32 in place); each call twice and bitwise
+# equal, dqkv within WIDE_REL and the bias partials within DBIAS_REL_ATOL
+# of their largest magnitude (fp32: both within K2_FP32_EDGE_REL)
 K2_WIDE_EDGE_SHAPES = tuple(
     (1, s, 2, d) for s in (1, 63, 64, 65, 127, 128, 129, 197, 1024)
     for d in (136, 192, 200, 256)) + tuple((1, s, 2, 130) for s in (65, 197))
@@ -709,8 +721,8 @@ WIDE_LONG_SHAPES = ((1, 1100, 2, 256), (1, 1100, 2, 192), (1, 1100, 1, 320),
 WIDE_TIMED = (32, 197, 12, 256)
 WIDE_LONG_TIMED = (1, 1370, 4, 256)
 WIDE_DTYPES = ("bfloat16", "float16", "float32")
-# Phase 17d, K4 and K5 on the tensor cores in fp16 and at head dims 129-256
-# (csrc/flash_fwd.cu, csrc/flash_bwd.cu): each new instantiation against its
+# Phase 17d, K4, K5 and K6 on the tensor cores in fp16 and at head dims
+# 129-256 (csrc/flash_fwd.cu, csrc/flash_bwd.cu): K4's and K5's against their
 # plain version at the blocked kernels' edge sequences (around the 64-key
 # and 128-row tiles, past 1024, the 518-px model's 1370) in the qkv-view
 # and dense layouts, (dtype, layout, (B, S, H, D)): fp16 at D 64, bf16 and
@@ -722,6 +734,15 @@ TC_BLOCKED_EDGE_CASES = tuple(
     (dt, layout, (1, s, 2, d)) for dt in EDGE_DTYPES
     for layout in ("qkv", "dense") for s in TC_BLOCKED_EDGE_S
     for d in ((64,) if dt == "float16" else ()) + (136, 192, 200, 256)
+) + tuple((dt, "qkv", (1, s, 2, 130)) for dt in EDGE_DTYPES
+          for s in (65, 1370))
+# and K6's (csrc/flash_bwd.cu: fp16 at D 64 and 128, the wide tiles past
+# 128), each call twice and bitwise equal, dq within WIDE_REL of the call's
+# largest plain gradient (dq, dk, dv: at S = 1 ds is rounding noise)
+TC_K6_EDGE_CASES = tuple(
+    (dt, layout, (1, s, 2, d)) for dt in EDGE_DTYPES
+    for layout in ("qkv", "dense") for s in TC_BLOCKED_EDGE_S
+    for d in ((64, 128) if dt == "float16" else ()) + (136, 192, 200, 256)
 ) + tuple((dt, "qkv", (1, s, 2, 130)) for dt in EDGE_DTYPES
           for s in (65, 1370))
 # and each timed beside its plain version and SDPA, at the 518-px shape in
@@ -737,12 +758,11 @@ TC_BLOCKED_TIMED = (("float16", (32, 1370, 12, 64)),
                     ("float16", (32, 1370, 12, 256)))
 TC_BLOCKED_SLOW_REPS = 8
 # the instantiations phase 17d traces one call of each, in a process of
-# its own: (dtype, head dim); K6 beside them on its unchanged kernels at
-# TC_BLOCKED_K6_TRACED
+# its own: (dtype, head dim); K6 at TC_BLOCKED_K6_TRACED (its new
+# instantiations and the bf16 one at 64 that it had)
 TC_BLOCKED_TRACED = (("float16", 64), ("float16", 128), ("bfloat16", 192),
                      ("float16", 192), ("bfloat16", 256), ("float16", 256))
-TC_BLOCKED_K6_TRACED = (("bfloat16", 64), ("float16", 64),
-                        ("bfloat16", 256))
+TC_BLOCKED_K6_TRACED = TC_BLOCKED_TRACED + (("bfloat16", 64),)
 WIDE_KERNELS = ("attn_fwd", "attn_bwd", "hp_fwd", "hp_bwd", "fused_fwd",
                 "fused_bwd", "qkv_fwd", "qkv_bwd", "flash_fwd",
                 "flash_bwd_dkdv", "flash_bwd_dq")
@@ -1619,11 +1639,9 @@ def tc_blocked_edges(fb, dev) -> dict:
 
 def trace_tc_blocked() -> None:
     """One call of each tensor-core K4 and K5 at TC_BLOCKED_TRACED, and of
-    K6 beside them at TC_BLOCKED_K6_TRACED, each traced alone
-    (only_kernel): K4 and K5 launch their csrc/flash_fwd.cu and
-    csrc/flash_bwd.cu kernels (which take tensor maps), K6 its unchanged
-    ones (csrc/flash_blocked.cu's, which take pointers, in fp16 and past
-    128).
+    K6 at TC_BLOCKED_K6_TRACED, each traced alone (only_kernel): each
+    launches its csrc/flash_fwd.cu or csrc/flash_bwd.cu kernel (which take
+    tensor maps), K6 past 128 flash_bwd_dq_tc_wide_kernel.
     Run in a process of its own (phase 17d): a process's profiler sessions
     stop recording after a few dozen."""
     import torch
@@ -1654,22 +1672,63 @@ def trace_tc_blocked() -> None:
                         f"::flash_bwd_dkdv_kernel<{t}, {kd}>(CUtensorMap",
                         tag)
         if (dt_name, d) in TC_BLOCKED_K6_TRACED:
-            k6 = (f"::flash_bwd_dq_kernel<{kd}>(CUtensorMap"
-                  if dt_name == "bfloat16" and d <= 128
-                  else f"::flash_bwd_dq_kernel<{t}, {kd}>({t} const*"
-                  if d <= 128 else f"::flash_bwd_dq_wide_kernel<{t}>(")
+            k6 = "flash_bwd_dq_kernel" if d <= 128 \
+                else "flash_bwd_dq_tc_wide_kernel"
             only_kernel(lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, dq),
-                        k6, tag)
+                        f"::{k6}<{t}, {kd}>(CUtensorMap", tag)
     log("[tc blocked trace] every call launched its kernel alone")
 
 
+def tc_k6_edges(fb, dev) -> float:
+    """The tensor-core K6 at TC_K6_EDGE_CASES against its plain version on
+    the plain forward's lse and delta, into a view of one dqkv buffer, a
+    copy exactly where the route says, each call twice and bitwise equal;
+    returns the worst error over the call's largest plain gradient per
+    dtype."""
+    import torch
+
+    worst = {}
+    for dt_name, layout, (b, s, h, d) in TC_K6_EDGE_CASES:
+        dt = getattr(torch, dt_name)
+        tag = f"tc K6 {dt_name} {layout} {(b, s, h, d)}"
+        seed = 9100 + s + d
+        q, k, v = k4_operands(fb, layout, b, s, h, d, seed, dev, dt)
+        do = seeded_bf16((b, s, h, d), seed + 5, dev, dt).transpose(1, 2)
+        route = fb.kernel_route("flash_bwd_dq", q, k, v, do)
+        want = "tensor_cores" if d % 8 == 0 else "tensor_cores_copy"
+        check(route == want, f"{tag}: route {route}")
+        scale = d ** -0.5
+        o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+        delta = fb.flash_delta(o_r, do)
+        dq, _, _ = fb.heads(torch.empty((b, s, 3 * h * d), dtype=dt,
+                                        device=dev), h)
+        again = torch.empty_like(dq)
+        copies = fb.COPIES
+        fb.flash_bwd_dq(q, k, v, do, lse_r, delta, dq, scale)
+        fb.flash_bwd_dq(q, k, v, do, lse_r, delta, again, scale)
+        torch.cuda.synchronize()
+        check(fb.COPIES - copies == 2 * (want != "tensor_cores"),
+              f"{tag}: {fb.COPIES - copies} copies, route {want}")
+        check(torch.equal(dq, again), f"{tag}: two runs differ")
+        ref = fb.flash_bwd_reference(q, k, v, o_r, lse_r, do, scale)
+        grad_max = max(r.float().abs().max().item() for r in ref)
+        check(dq.dtype == dt and torch.isfinite(dq.float()).all().item(),
+              f"{tag}: {dq.dtype} or not finite")
+        err = (dq.float() - ref[0].float()).abs().max().item()
+        check(err <= WIDE_REL[dt_name] * grad_max,
+              f"{tag}: max abs err {err} of the largest gradient {grad_max}")
+        worst[dt_name] = max(worst.get(dt_name, 0.0),
+                             err / max(grad_max, 1e-30))
+    return worst
+
+
 def tc_blocked_calls(fb, shape, dt, seed, dev) -> dict:
-    """K4's and K5's calls at `shape` in dtype `dt`, on q, k, v views of
-    one (B, S, 3·H·D) buffer and dO a view of (B, S, H, D) memory, drawn on
-    the card from `seed` (at (32, 1370, 12, 256) a host draw of the ~1 GB
-    takes seconds), K5 on the plain forward's lse and delta: {name: (the
-    wrapper, its plain version, SDPA's ms, FLOPs, bytes)}, the FLOPs and
-    bytes as dtype_case counts them."""
+    """K4's, K5's and K6's calls at `shape` in dtype `dt`, on q, k, v views
+    of one (B, S, 3·H·D) buffer and dO a view of (B, S, H, D) memory, drawn
+    on the card from `seed` (at (32, 1370, 12, 256) a host draw of the ~1
+    GB takes seconds), K5 and K6 on the plain forward's lse and delta:
+    {name: (the wrapper, its plain version, SDPA's ms, FLOPs, bytes)}, the
+    FLOPs and bytes as dtype_case counts them."""
     import torch
 
     b, s, h, d = shape
@@ -1682,7 +1741,7 @@ def tc_blocked_calls(fb, shape, dt, seed, dev) -> dict:
     o, lse = fb.flash_fwd_reference(q, k, v, scale)
     delta = fb.flash_delta(o, do)
     del o
-    _, dk, dv = fb.heads(torch.empty_like(qkv), h)
+    dq, dk, dv = fb.heads(torch.empty_like(qkv), h)
     e = DTYPE_PEAK[str(dt).split(".")[-1]][1]
     sq, n, rows = b * h * s * s * d, b * s * h * d, b * h * s
     return {
@@ -1693,14 +1752,20 @@ def tc_blocked_calls(fb, shape, dt, seed, dev) -> dict:
             lambda: fb.flash_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, scale),
             lambda: fb.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
                                                 scale),
-            lambda: sdpa_ms(q, k, v, do), 8 * sq, e * 6 * n + 8 * rows)}
+            lambda: sdpa_ms(q, k, v, do), 8 * sq, e * 6 * n + 8 * rows),
+        "flash_bwd_dq": (
+            lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, dq, scale),
+            lambda: fb.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                              scale),
+            lambda: sdpa_ms(q, k, v, do), 6 * sq, e * 5 * n + 8 * rows)}
 
 
 def phase_tc_blocked(counts, fb, dev):
-    """Phase 17d: K4 and K5 on the tensor cores in fp16 and at head dims
-    129-256. The edges (tc_blocked_edges) with the counts reset just
-    before, each case launching K4 and K5 once; each new kernel timed
-    beside its plain version and SDPA (TC_BLOCKED_TIMED); then the traces in a process of its own
+    """Phase 17d: K4, K5 and K6 on the tensor cores in fp16 and at head
+    dims 129-256. The edges (tc_blocked_edges, each case launching K4 and
+    K5 once; tc_k6_edges, each launching K6 twice) with the counts reset
+    just before each; each new kernel timed beside its plain version and
+    SDPA (TC_BLOCKED_TIMED); then the traces in a process of its own
     (trace_tc_blocked). Returns the rows per (dtype, kernel, shape) and
     the worst errors per (dtype, kernel)."""
     import gc
@@ -1715,6 +1780,18 @@ def phase_tc_blocked(counts, fb, dev):
           f"the edge cases launched {launched}, want K4 and K5 {n} each")
     log(f"[tc blocked] {n} edge cases, worst error over max |plain|: "
         f"{worst!r}")
+    t_k6 = time.perf_counter()
+    counts(reset=True)
+    k6_worst = tc_k6_edges(fb, dev)
+    n6 = len(TC_K6_EDGE_CASES)
+    launched = counts()
+    check(launched == only(FLASH_BWD_DQ_LAUNCHES=2 * n6),
+          f"the K6 edge cases launched {launched}, want K6 {2 * n6}")
+    for dt_name, err in k6_worst.items():
+        worst[(dt_name, "flash_bwd_dq")] = err
+    log(f"[tc blocked] {n6} K6 edge cases, each twice and bitwise equal, "
+        f"worst error over the largest plain gradient: {k6_worst!r}")
+    log(f"[time] the K6 edges took {time.perf_counter() - t_k6:.1f} s")
     rows = {}
     for i, (dt_name, shape) in enumerate(TC_BLOCKED_TIMED):
         dt = getattr(torch, dt_name)
@@ -1730,7 +1807,7 @@ def phase_tc_blocked(counts, fb, dev):
                 + " ".join(f"{k}={v!r}" for k, v in row.items()))
         gc.collect()
         torch.cuda.empty_cache()
-    in_child("trace_tc_blocked", "the tensor-core K4/K5 traces")
+    in_child("trace_tc_blocked", "the tensor-core K4-K6 traces")
     return rows, worst
 
 
@@ -2411,9 +2488,10 @@ def check_redesigned(fa, fb, mf, dev) -> None:
     """The redesigned kernels run alone: one call of the bf16, fp16 and
     fp32 K3, of the fp32 K2, of the fp32 K4, K5 and K6 and of the fp32 K8,
     K10 and K12, the calls of the fp32 K1, K9, K7 and K11 at
-    REDESIGNED_FWD_D, and those of the bf16 and fp16 K2 and the fp32 K8,
-    K10 and K12 at head dims 192 and 256 launch (torch.profiler) their new
-    kernels and no other of csrc/."""
+    REDESIGNED_FWD_D, those of the bf16 and fp16 K2 and the fp32 K8,
+    K10 and K12 at head dims 192 and 256, and one call of the fp32 K2 at
+    each of 192 and 256 launch (torch.profiler) their new kernels and no
+    other of csrc/."""
     import torch
 
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -2500,6 +2578,16 @@ def check_redesigned(fa, fb, mf, dev) -> None:
             wants += wide_kernel_names(kernel, "float32", dw)
         only_kernels(lambda calls=calls: [c() for c in calls],
                      sorted(set(wants)), f"redesigned wide fp32 {kernel}")
+    # the fp32 K2 at 192 and 256 on csrc/attn_bwd_simt.cu, each alone
+    for dw in (192, 256):
+        qkv = seeded_bf16((2, 197, 3 * h * dw), 4540 + dw, dev,
+                          torch.float32)
+        do = seeded_bf16((2, 197, h * dw), 4541 + dw, dev, torch.float32)
+        o, st = fa.attn_fwd(qkv, h, with_stats=True)
+        only_kernels(lambda qkv=qkv, do=do, o=o, st=st:
+                     fa.attn_bwd(qkv, do, o, st, h),
+                     wide_kernel_names("attn_bwd", "float32", dw),
+                     f"redesigned wide fp32 K2 D={dw}")
 
 
 def only_kernels(fn, wants, tag) -> None:
@@ -2517,10 +2605,10 @@ def only_kernels(fn, wants, tag) -> None:
 
 
 def wide_route(dt_name: str, d: int, name: str = "") -> str:
-    """The route of K1, K2, K9, K7-K12, K4 and K5 at head dim d > 128: the
+    """The route of K1, K2, K9, K7-K12 and K4-K6 at head dim d > 128: the
     wide tensor-core tiles up to 256 in bf16 and fp16 (in place at a
-    multiple of 8), else the CUDA cores (always for K6)."""
-    if dt_name == "float32" or d > 256 or name == "flash_bwd_dq":
+    multiple of 8), else the CUDA cores."""
+    if dt_name == "float32" or d > 256:
         return "cuda_cores"
     return "tensor_cores" if d % 8 == 0 else "tensor_cores_copy"
 
@@ -2540,17 +2628,27 @@ def wide_kernel_names(name: str, dt_name: str, d: int):
     tc = wide_route(dt_name, d, name) != "cuda_cores"
     kd = 192 if d <= 192 else 256
     if name.startswith("flash"):
-        # csrc/flash_fwd.cu's and flash_bwd.cu's take tensor maps;
-        # csrc/flash_blocked.cu's run-time head dim takes pointers
-        return [f"{name}_kernel<{t},{kd}>(CUtensorMap" if tc
+        # csrc/flash_fwd.cu's and flash_bwd.cu's take tensor maps (K6's
+        # wide tiles a kernel of their own); csrc/flash_blocked.cu's
+        # run-time head dim takes pointers
+        kernel = "flash_bwd_dq_tc_wide" if name == "flash_bwd_dq" else name
+        return [f"{kernel}_kernel<{t},{kd}>(CUtensorMap" if tc
                 else f"{name}_wide_kernel<{t}>"]
     if name == "attn_bwd":
-        # csrc/attn_bwd_tc.cu's prep, wide dk/dv and dq, and bias sum
-        return ([f"attn_bwd_tc_prep_kernel<{t}>",
-                 f"attn_bwd_tc_dkdv_wide_kernel<{t},{kd}>",
-                 f"attn_bwd_tc_dq_wide_kernel<{t},{kd}>",
-                 "attn_bwd_tc_bias_kernel("] if tc
-                else [f"attn_bwd_wide_kernel<{t}>"])
+        # csrc/attn_bwd_tc.cu's prep, wide dk/dv and dq, and bias sum;
+        # in fp32 to 256 csrc/attn_bwd_simt.cu's rows, dk/dv, dq sum and
+        # bias sum
+        if tc:
+            return [f"attn_bwd_tc_prep_kernel<{t}>",
+                    f"attn_bwd_tc_dkdv_wide_kernel<{t},{kd}>",
+                    f"attn_bwd_tc_dq_wide_kernel<{t},{kd}>",
+                    "attn_bwd_tc_bias_kernel("]
+        if dt_name == "float32" and d <= 256:
+            return ["attn_bwd_rows_simt_kernel(",
+                    f"attn_bwd_dkdv_wide_simt_kernel<{kd}>",
+                    f"attn_bwd_dq_sum_simt_kernel<{kd}>",
+                    "attn_bwd_bias_simt_kernel("]
+        return [f"attn_bwd_wide_kernel<{t}>"]
     if name in ("attn_fwd", "hp_fwd", "fused_fwd", "qkv_fwd"):
         k7 = "true" if name in ("fused_fwd", "qkv_fwd") else "false"
         if tc:
@@ -2729,27 +2827,30 @@ def phase_wide_heads(counts, fa, fb, mf, dev):
         only_kernels(lambda: [fn() for fn in traced + traced], sorted(names),
                      f"wide heads {dt_name}")
         del traced
-        if dt_name != "float32":
-            t_k2 = time.perf_counter()
-            worst[(dt_name, "attn_bwd")] = max(
-                worst[(dt_name, "attn_bwd")],
-                tc_k2_wide_edges(fa, fb, dev, dt_name))
-            log(f"[time] the {dt_name} K2 wide edges took "
-                f"{time.perf_counter() - t_k2:.1f} s")
+        t_k2 = time.perf_counter()
+        worst[(dt_name, "attn_bwd")] = max(
+            worst[(dt_name, "attn_bwd")],
+            tc_k2_wide_edges(fa, fb, dev, dt_name))
+        log(f"[time] the {dt_name} K2 wide edges took "
+            f"{time.perf_counter() - t_k2:.1f} s")
         torch.cuda.empty_cache()
     return launches, rows, worst
 
 
 def tc_k2_wide_edges(fa, fb, dev, dt_name) -> float:
-    """K2 on the wide tensor-core tiles (csrc/attn_bwd_tc.cu) in dtype
-    dt_name at K2_WIDE_EDGE_SHAPES against its plain version, on o and the
-    row stats of K1: the route the tensor cores' (one `padded_copy` a call
-    exactly where it says so), each call run twice and bitwise equal, dqkv
-    within WIDE_REL and the bias partials within DBIAS_REL_ATOL of their
-    largest magnitude. Returns the worst dqkv error."""
+    """K2 on the wide tensor-core tiles (csrc/attn_bwd_tc.cu) in bf16 and
+    fp16, on the fp32 register tiles (csrc/attn_bwd_simt.cu) in fp32, in
+    dtype dt_name at K2_WIDE_EDGE_SHAPES against its plain version, on o
+    and the row stats of K1: the route wide_route's (one `padded_copy` a
+    call exactly where it says so), each call run twice and bitwise equal,
+    dqkv within WIDE_REL and the bias partials within DBIAS_REL_ATOL of
+    their largest magnitude (fp32: both within K2_FP32_EDGE_REL). Returns
+    the worst dqkv error."""
     import torch
 
     dt = getattr(torch, dt_name)
+    limits = (K2_FP32_EDGE_REL, K2_FP32_EDGE_REL) if dt_name == "float32" \
+        else (WIDE_REL[dt_name], DBIAS_REL_ATOL)
     worst = 0.0
     for b, s, h, d in K2_WIDE_EDGE_SHAPES:
         tag = f"{dt_name} K2 wide edge (B, S, H, D) = {(b, s, h, d)}"
@@ -2769,7 +2870,7 @@ def tc_k2_wide_edges(fa, fb, dev, dt_name) -> float:
               f"{tag}: two runs on the same inputs differ")
         errs = []
         for what, g, w, rel in zip(("dqkv", "bias partials"), got, want,
-                                   (WIDE_REL[dt_name], DBIAS_REL_ATOL)):
+                                   limits):
             err = (g.float() - w.float()).abs().max().item()
             ref = w.float().abs().max().item()
             check(torch.isfinite(g.float()).all().item()
@@ -3738,9 +3839,10 @@ def main() -> int:
     log(f"[build bwd] dynamic shared memory of attn_bwd_kernel (fp32 K2) "
         f"at D <= 32, 64, 128: "
         f"{[bwd32.vtx_attn_bwd_smem(d) for d in (32, 64, 128)]} B; of "
-        f"attn_bwd_wide_kernel (K2 past D 128 in fp32, past 256 in every "
-        f"dtype) "
-        f"{bwd32.vtx_attn_bwd_smem(256)} B")
+        f"attn_bwd_wide_kernel (K2 past D 256 in every dtype) "
+        f"{bwd32.vtx_attn_bwd_smem(512)} B; the fp32 K2's scratch at "
+        f"(B, S, H, D) = {WIDE_TIMED} on csrc/attn_bwd_simt.cu "
+        f"{4 * bwd32.vtx_attn_bwd_scratch(32, 197, 12, 256, 2)} B")
     bwd, bwd_worst = phase_bwd_kernel(fa, dev)
     n = phase_grad(every, dev, ckpt_path)
     check(n == only(ATTN_FWD_LAUNCHES=12, ATTN_BWD_LAUNCHES=12),
@@ -4040,9 +4142,8 @@ def main() -> int:
         fused_entry("fused_bwd", "hp_bwd_tc.cu", "flash_attention.py:61"),
         fused_entry("qkv_fwd", "attn_fwd_tc.cu", "flash_attention.py:740"),
         fused_entry("qkv_bwd", "hp_bwd_tc.cu", "flash_attention.py:764")]
-    # one line for each fp32 and fp16 instantiation; K6 in fp16 is a
-    # CUDA-core one, and so is every kernel in fp32 (fp16 K1-K5 and K7-K12
-    # share bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
+    # one line for each fp32 and fp16 instantiation; every kernel in fp32 is
+    # a CUDA-core one (fp16 K1-K12 share bf16's tensor-core sources). The fp32 K1, K2 and K3 count the
     # launches of the trainer's own run (main() --precision fp32, with
     # --pallas_mlp on for K3), the fp32 K4, K5 and K6 those of the 518-px
     # fp32 trainer (phase 17c); every other instantiation those of
@@ -4050,9 +4151,9 @@ def main() -> int:
     sources = {k["name"]: k["source"] for k in kernels}
 
     def dtype_source(name, dt_name):
-        # fp16: K4 and K5 on csrc/flash_fwd.cu and flash_bwd.cu (bf16's
-        # sources), K6 on the CUDA cores
-        cuda_core = {"flash_bwd_dq": "flash_blocked.cu"}
+        # fp16: K4-K6 on csrc/flash_fwd.cu and flash_bwd.cu (bf16's
+        # sources)
+        cuda_core = {}
         if dt_name == "float32":
             cuda_core.update(attn_fwd="attn_fwd_simt.cuh",
                              attn_bwd="attn_bwd.cu",
@@ -4096,8 +4197,8 @@ def main() -> int:
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         trainer_runs[("float32", name)] = (
             f"main() {' '.join(LONG_FP32_FLAGS)}", long32)
-    # the tensor-core K4 and K5 (phase 17d): the edges' worst error, and at
-    # D 256 the times at (32, 1370, 12, 256)
+    # the tensor-core K4, K5 and K6 (phase 17d): the edges' worst error, and
+    # at D 256 the times at (32, 1370, 12, 256)
     def tc_blocked(dt_name, name, shape, suffix=""):
         row = tc_rows.get((dt_name, name, shape))
         if row is None:
@@ -4132,8 +4233,8 @@ def main() -> int:
                    and name in simt else {}),
                 **tc_blocked(dt_name, name, row["shape"])})
     # one line for each kernel at a head dim of 256 in each dtype (the wide
-    # tensor-core tiles in bf16 and fp16, but K6 on the CUDA cores; fp32 on
-    # the CUDA cores), counting the launches of drive_wide_heads
+    # tensor-core tiles in bf16 and fp16; fp32 on the CUDA cores), counting
+    # the launches of drive_wide_heads
     for dt_name in WIDE_DTYPES:
         for name in WIDE_KERNELS:
             row = wide_rows[(dt_name, name)]
@@ -4141,10 +4242,12 @@ def main() -> int:
             names = wide_kernel_names(name, dt_name, d)
             wide_src = "attn_bwd_tc.cu" if names[0].startswith(
                 "attn_bwd_tc") else \
+                "attn_bwd_simt.cu" if names[0].startswith(
+                    "attn_bwd_rows_simt") else \
                 "attn_bwd.cu" if name == "attn_bwd" else \
                 "flash_fwd.cu" if names[0].startswith("flash_fwd_kernel") \
                 else "flash_bwd.cu" if names[0].startswith(
-                    "flash_bwd_dkdv_kernel") else \
+                    ("flash_bwd_dkdv_kernel", "flash_bwd_dq_tc_wide")) else \
                 "flash_blocked.cu" if name.startswith("flash") else \
                 "attn_fwd_tc.cu" if names[0].startswith("attn_fwd_tc") else \
                 "hp_bwd_tc.cu" if names[0].startswith("hp_bwd_tc") else \

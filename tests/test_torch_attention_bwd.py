@@ -126,6 +126,28 @@ def test_attn_bwd_reference_matches_k2_wide_heads(dtype, d):
         (1e-3 if bf16 else 1e-5)
 
 
+# the plain fp32 K2, which csrc/attn_bwd_simt.cu is held to on the card, at
+# the edges of its 32-key and 64-query tiles: S 1 to 197 at D 136 (the 192
+# tiles with zero columns) and 256, against JAX's K2 on JAX's stats (1e-5)
+K2_FP32_PLAIN_S = (1, 31, 33, 63, 65, 197)
+
+
+@pytest.mark.parametrize("s", K2_FP32_PLAIN_S)
+@pytest.mark.parametrize("d", [136, 256])
+def test_attn_bwd_reference_matches_k2_wide_tile_edges(d, s):
+    b, h = 1, 2
+    qkv = _normal((b, s, 3 * h * d), seed=d + s)
+    do = _normal((b, s, h * d), seed=d + s + 1)
+    scale = d ** -0.5
+    o, st, dqkv_want, dbias_want = _jax_k1_k2(qkv, do, h, scale, False)
+    dqkv, dbias = fa.attn_bwd(*(torch.tensor(a) for a in (qkv, do, o)),
+                              torch.tensor(st, dtype=torch.float32), h,
+                              scale)
+    assert dqkv.shape == (b, s, 3 * h * d) and dqkv.dtype == torch.float32
+    assert _rel_err(dqkv.numpy(), dqkv_want) <= 1e-5
+    assert _rel_err(dbias.sum(0).numpy(), dbias_want) <= 1e-5
+
+
 def _jax_proj_attention_grads(x, w, b, cot, bf16):
     """jax.grad of sum(qkv_proj_attention(x, w, b) · cot) in interpret
     mode; x in the compute dtype, w and b fp32."""
@@ -458,13 +480,17 @@ def test_wide_heads_k1_k2_match_plain_on_cuda(cuda_device, dtype, shape):
 # around those tiles up to MAX_SEQ; D 136, 192, 200 and 256 read in place
 # (136 and 200 zero-filled to the next compiled tile), 130 and 250 after one
 # `padded_copy` (TMA reads rows of a multiple of 8); bf16 and fp16, each
-# call twice and bitwise equal, held as BWD_RTOL.
+# call twice and bitwise equal, held as BWD_RTOL. fp32 (route 'cuda_cores':
+# csrc/attn_bwd_simt.cu's 32-key blocks and 64-query tiles, no copy) at the
+# same S and head dims and at 130 (4-byte copies of its rows), held to
+# fp32's BWD_RTOL.
 WIDE_K2_EDGE_CASES = [
-    (dt, (1, s, 2, d)) for dt in ("bfloat16", "float16")
+    (dt, (1, s, 2, d)) for dt in ("bfloat16", "float16", "float32")
     for s in (1, 63, 64, 65, 127, 128, 129, 197, 1024)
     for d in (136, 192, 200, 256)] + [
     (dt, (2, s, 2, d)) for dt in ("bfloat16", "float16") for s in (65, 197)
-    for d in (130, 250)]
+    for d in (130, 250)] + [
+    ("float32", (2, s, 2, 130)) for s in (31, 33, 65, 197)]
 
 
 @pytest.mark.cuda
@@ -478,9 +504,11 @@ def test_wide_k2_matches_plain_at_tile_edges_on_cuda(cuda_device, dtype,
     qkv = torch.from_numpy(_normal((b, s, 3 * h * d), 11 + s + d)).to(dev, dt)
     do = torch.from_numpy(_normal((b, s, h * d), 12 + s + d)).to(dev, dt)
     o, st = fa.attn_fwd(qkv, h, with_stats=True)
-    copy = d % 8 != 0
+    fp32 = dtype == "float32"
+    copy = d % 8 != 0 and not fp32
     assert fa.attn_kernel_route(qkv, h, do, o) == \
-        ("tensor_cores_copy" if copy else "tensor_cores")
+        ("cuda_cores" if fp32 else
+         "tensor_cores_copy" if copy else "tensor_cores")
     copies, before = flash_blocked.COPIES, fa.ATTN_BWD_LAUNCHES
     dqkv, dbias = fa.attn_bwd(qkv, do, o, st, h)
     again = fa.attn_bwd(qkv, do, o, st, h)
@@ -493,3 +521,64 @@ def test_wide_k2_matches_plain_at_tile_edges_on_cuda(cuda_device, dtype,
     assert dqkv.dtype == dt and torch.isfinite(dqkv.float()).all()
     assert _rel_err(dqkv.float().cpu(), dqkv_r.float().cpu()) <= dqkv_rtol
     assert _rel_err(dbias.cpu(), dbias_r.cpu()) <= dbias_rtol
+
+
+# The csrc/ kernels one fp32 call of K2 launches at head dims 129-256 (in a
+# fresh process, as tests/test_torch_flash_blocked.py's traces): the four
+# launches of csrc/attn_bwd_simt.cu and no other, the run-time head dim's
+# attn_bwd_wide_kernel<float> among them neither
+K2_FP32_TRACE_D = (136, 192, 200, 256)
+_K2_FP32_TRACE = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from vision_transformers_torch_xla_tpu_torch.ops import flash_attention as fa
+out = {}
+for d in %r:
+    h, s = 2, 197
+    qkv = torch.randn(2, s, 3 * h * d, device="cuda")
+    do = torch.randn(2, s, h * d, device="cuda")
+    o, st = fa.attn_fwd(qkv, h, with_stats=True)
+    fa.attn_bwd(qkv, do, o, st, h)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fa.attn_bwd(qkv, do, o, st, h)
+        torch.cuda.synchronize()
+    out[str(d)] = sorted(
+        e.key for e in prof.key_averages()
+        if e.device_type.name == "CUDA" and "anonymous namespace" in e.key)
+print(json.dumps(out))
+""" % (K2_FP32_TRACE_D,)
+
+
+@pytest.fixture(scope="module")
+def k2_fp32_trace():
+    """The csrc/ kernels one fp32 call of K2 launches at each of
+    K2_FP32_TRACE_D, traced by torch.profiler in a fresh process."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    res = subprocess.run([sys.executable, "-c", _K2_FP32_TRACE],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", K2_FP32_TRACE_D)
+def test_fp32_wide_k2_launches_the_register_tiled_kernels_alone(
+        k2_fp32_trace, d):
+    kd = 192 if d <= 192 else 256
+    names = k2_fp32_trace[str(d)]
+    wants = ("::attn_bwd_rows_simt_kernel(",
+             f"::attn_bwd_dkdv_wide_simt_kernel<{kd}>(",
+             f"::attn_bwd_dq_sum_simt_kernel<{kd}>(",
+             "::attn_bwd_bias_simt_kernel(")
+    assert len(names) == len(wants) and all(
+        any(w in n for n in names) for w in wants), names

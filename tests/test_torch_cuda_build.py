@@ -150,17 +150,35 @@ def test_the_fp32_backward_source_enters_the_cuda_core_library(tmp_path,
 
 
 @pytest.mark.parametrize("edited", ["hp_bwd.cu", "hp_bwd_simt.cu",
-                                    "simt_tiles.cuh", "elem.cuh"])
+                                    "simt_tiles.cuh", "elem.cuh",
+                                    "simt_wide.cuh"])
 def test_the_fp32_hp_backward_source_enters_its_library(tmp_path, edited):
     # the CUDA-core backward of K8, K10 and K12 links csrc/hp_bwd_simt.cu
-    # (fp32 at head dims <= 128) into csrc/hp_bwd.cu's library: an edit to
+    # (fp32 at head dims <= 256) into csrc/hp_bwd.cu's library: an edit to
     # either source or to a header they include names a new library
     sources = fa.HP_BWD_SOURCES
     assert sources == ("hp_bwd.cu", "hp_bwd_simt.cu")
     real = cuda_build.CSRC_DIR
     assert '#include "simt_tiles.cuh"' in (real / sources[1]).read_text()
+    assert '#include "simt_wide.cuh"' in (real / sources[1]).read_text()
     assert '#include "elem.cuh"' in (real / sources[0]).read_text()
     _linked_library_changes(tmp_path, "hp_bwd", sources, edited)
+
+
+@pytest.mark.parametrize("edited", ["attn_bwd.cu", "attn_bwd_simt.cu",
+                                    "simt_wide.cuh", "simt_tiles.cuh",
+                                    "cc_tiles.cuh"])
+def test_the_fp32_k2_source_enters_its_library(tmp_path, edited):
+    # the CUDA-core K2 links csrc/attn_bwd_simt.cu (fp32 at head dims
+    # 129-256, on the wide register tiles of csrc/simt_wide.cuh, which it
+    # shares with csrc/hp_bwd_simt.cu) into csrc/attn_bwd.cu's library: an
+    # edit to either source or to a header they include names a new one
+    sources = fa.ATTN_BWD_SOURCES
+    assert sources == ("attn_bwd.cu", "attn_bwd_simt.cu")
+    real = cuda_build.CSRC_DIR
+    assert '#include "simt_wide.cuh"' in (real / sources[1]).read_text()
+    assert '#include "cc_tiles.cuh"' in (real / sources[0]).read_text()
+    _linked_library_changes(tmp_path, "attn_bwd", sources, edited)
 
 
 def _ptxas(text):
@@ -191,8 +209,8 @@ def _ptxas(text):
 @pytest.mark.cuda
 def test_tensor_core_blocked_kernels_build_without_spills(tmp_path):
     # csrc/flash_fwd.cu (K4) and csrc/flash_bwd.cu (K5, K6) built with the
-    # library flags: K4 and K5 in bf16 and fp16 at 64, 128, 192 and 256,
-    # K6 in bf16 at 64 and 128, none spilling
+    # library flags: K4, K5 and K6 in bf16 and fp16 at 64, 128, 192 and 256
+    # (K6's wide tiles, 192 and 256, a kernel of their own), none spilling
     import subprocess
 
     if not torch.cuda.is_available():
@@ -207,7 +225,10 @@ def test_tensor_core_blocked_kernels_build_without_spills(tmp_path):
         got.update(_ptxas(res.stdout + res.stderr))
     want = {(k, t, d) for k in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel")
             for t in ("bf16", "fp16") for d in (64, 128, 192, 256)}
-    want |= {("flash_bwd_dq_kernel", "bf16", d) for d in (64, 128)}
+    want |= {("flash_bwd_dq_kernel", t, d) for t in ("bf16", "fp16")
+             for d in (64, 128)}
+    want |= {("flash_bwd_dq_tc_wide_kernel", t, d) for t in ("bf16", "fp16")
+             for d in (192, 256)}
     assert set(got) == want, sorted(got)
     assert all(v[1] == v[2] == 0 for v in got.values()), got
 

@@ -203,6 +203,37 @@ def test_plain_k4_k5_match_jax_fp16(d):
                                    err_msg=name)
 
 
+# K6's plain version, which the bf16 and fp16 tensor-core K6 are held to on
+# the card, against JAX's _bwd_dq_kernel (through _flash_bwd in interpret
+# mode) at the wide tiles' head dims, on JAX's lse and delta, with S
+# around the 64-key tiles: dq within TC_REL (bf16) or FP16_REL (fp16) of
+# the call's largest gradient (dq, dk, dv: at S = 1 ds is rounding noise,
+# see FP32_BWD_EDGE_REL); each D and each S in five (D, S) pairs
+K6_PLAIN_CASES = ((136, 65), (192, 1), (192, 300), (256, 65), (256, 300))
+
+
+@pytest.mark.parametrize("d,s", K6_PLAIN_CASES)
+@pytest.mark.parametrize("dtype", ("bfloat16", "float16"))
+def test_plain_k6_matches_jax_wide_and_fp16(dtype, d, s):
+    b, h = 1, 2
+    dt = getattr(torch, dtype)
+    q, k, v, do = (jnp.asarray(_rand((b, h, s, d), 400 + s + d + i),
+                               getattr(jnp, dtype)) for i in range(4))
+    scale = d ** -0.5
+    o_j, lse_j, *want = _jax_bwd(q, k, v, do, scale)
+    t = [torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(dt)
+         for x in (q, k, v, do)]
+    delta = fb.flash_delta(torch.from_numpy(o_j.astype(np.float32)).to(dt),
+                           t[3])
+    dq = fb.flash_bwd_dq_reference(
+        *t, torch.from_numpy(lse_j.astype(np.float32)), delta, scale)
+    want = [w.astype(np.float32) for w in want]
+    rel = TC_REL["bfloat16"] if dtype == "bfloat16" else FP16_REL
+    assert dq.dtype == dt and dq.shape == (b, h, s, d)
+    np.testing.assert_allclose(dq.float().numpy(), want[0], rtol=0,
+                               atol=rel * max(np.abs(w).max() for w in want))
+
+
 def test_qkv_cols_matches_jax_fp32():
     from vision_transformers_torch_xla_tpu.ops.flash_attention import (
         fused_attention_qkv_cols as jax_qkv_cols,
@@ -335,8 +366,8 @@ def test_k4_tma_rule_and_copy(kind, d, ready):
     torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-6)
 
 
-# The per-kernel rule (TENSOR_CORE_RULE): K4 and K5 on the tensor cores in
-# bf16 and fp16 to a head dim of 256, K6 in bf16 to 128; everything else on
+# The per-kernel rule (TENSOR_CORE_RULE): K4, K5 and K6 on the tensor cores
+# in bf16 and fp16 to a head dim of 256; everything else on
 # csrc/flash_blocked.cu's library
 ROUTE_DS = (64, 128, 136, 192, 256, 264)
 
@@ -350,8 +381,7 @@ def test_kernel_route_rule(dtype, d):
         return torch.empty(shape, dtype=dt, device="meta")
 
     wide = dtype != "float32" and d <= 256
-    want = {"flash_fwd": wide, "flash_bwd_dkdv": wide,
-            "flash_bwd_dq": dtype == "bfloat16" and d <= 128}
+    want = {"flash_fwd": wide, "flash_bwd_dkdv": wide, "flash_bwd_dq": wide}
     # the model's layout: q, k, v views of one (B, S, 3·H·D) buffer, dO a
     # view of (B, S, H, D) memory; read in place on either route
     q, k, v = fb.heads(meta(2, 1100, 3 * 4 * d), 4)
@@ -550,8 +580,8 @@ def test_kernels_contract_on_cuda(cuda_device):
 def test_wide_heads_blocked_match_plain_on_cuda(cuda_device, dtype, d):
     # F8: K4, K5 and K6 at a head dim over 128 through
     # fused_attention_qkv_cols at S > 1024, against their plain versions:
-    # K4 and K5 on the tensor cores' wide tiles in bf16 and fp16 to 256,
-    # the rest on the CUDA cores (csrc/flash_blocked.cu's 64-column
+    # K4, K5 and K6 on the tensor cores' wide tiles in bf16 and fp16 to
+    # 256, the rest on the CUDA cores (csrc/flash_blocked.cu's 64-column
     # chunks); bf16 to 2e-2 of the largest value, fp16 5e-3, fp32 1e-4 (as
     # test_kernels_fp32_fp16_on_cuda); lse to 1e-4; K4 run twice bitwise
     # equal
@@ -563,7 +593,7 @@ def test_wide_heads_blocked_match_plain_on_cuda(cuda_device, dtype, d):
     q, k, v = fb.heads(qkv, h)
     tc = dtype != "float32" and d <= 256
     assert [fb.tensor_cores(n, q) for n in fb.TENSOR_CORE_RULE] == \
-        [tc, tc, False]
+        [tc, tc, tc]
     x = qkv.clone().requires_grad_()
     before = _counts()
     out = fa.fused_attention_qkv_cols(x, h)
@@ -645,9 +675,9 @@ def test_tc_k4_k5_match_plain_at_edges_on_cuda(cuda_device, dtype, layout,
                                      ("bfloat16", 192), ("float16", 256)])
 def test_k5_tensor_cores_and_k6_cuda_cores_share_a_backward(cuda_device,
                                                             dtype, d):
-    # one `flash_bwd` where K5 runs on the tensor cores (csrc/flash_bwd.cu)
-    # and K6 on the CUDA cores (csrc/flash_blocked.cu), into views of one
-    # dqkv buffer, against the plain backward
+    # one `flash_bwd` where K5 and K6 both run on the tensor cores
+    # (csrc/flash_bwd.cu), into views of one dqkv buffer, against the plain
+    # backward
     dt = getattr(torch, dtype)
     b, s, h = 1, 1370, 2
     qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 120)).to(cuda_device, dt)
@@ -655,7 +685,7 @@ def test_k5_tensor_cores_and_k6_cuda_cores_share_a_backward(cuda_device,
     do = torch.from_numpy(_rand((b, s, h, d), 121)).to(
         cuda_device, dt).transpose(1, 2)
     assert fb.kernel_route("flash_bwd_dkdv", q, k, v, do) == "tensor_cores"
-    assert fb.kernel_route("flash_bwd_dq", q, k, v, do) == "cuda_cores"
+    assert fb.kernel_route("flash_bwd_dq", q, k, v, do) == "tensor_cores"
     o, lse = fb.flash_fwd_reference(q, k, v, d ** -0.5)
     before = _counts()
     dqkv = fb.flash_bwd(q, k, v, o, lse, do)
@@ -667,6 +697,50 @@ def test_k5_tensor_cores_and_k6_cuda_cores_share_a_backward(cuda_device,
         assert g.dtype == dt and torch.isfinite(g.float()).all()
         err = (g.float() - r.float()).abs().max().item()
         assert err <= rel * r.float().abs().max().item(), err
+
+
+# K6 on the tensor cores (csrc/flash_bwd.cu) in fp16 at D 64 and 128 and in
+# bf16 and fp16 past 128 (the wide tiles at 192 and 256, 136 and 200 with
+# zero-filled columns, 130 after one `padded_copy`) at TC_EDGE_CASES'
+# sequences, each call twice and bitwise equal, dq within TC_REL of the
+# call's largest plain gradient (dq, dk, dv: at S = 1 ds is rounding noise)
+TC_K6_EDGE_CASES = [
+    (dtype, layout, s, d) for dtype in TC_REL for layout in ("qkv", "dense")
+    for s in TC_EDGE_S
+    for d in ((64, 128) if dtype == "float16" else ()) + (136, 192, 200, 256)
+] + [(dtype, "qkv", s, 130) for dtype in TC_REL for s in (65, 1370)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,layout,s,d", TC_K6_EDGE_CASES)
+def test_tc_k6_matches_plain_at_edges_on_cuda(cuda_device, dtype, layout, s,
+                                              d):
+    dt = getattr(torch, dtype)
+    b, h = 1, 2
+    q, k, v = _k4_layout(layout, b, h, s, d, 130, cuda_device, dt)
+    do = torch.from_numpy(_rand((b, s, h, d), 134)).to(
+        cuda_device, dt).transpose(1, 2)
+    copy = d % 8 != 0
+    assert fb.kernel_route("flash_bwd_dq", q, k, v, do) == \
+        ("tensor_cores_copy" if copy else "tensor_cores")
+    scale = d ** -0.5
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+    delta = fb.flash_delta(o_r, do)
+    dq, _, _ = fb.heads(torch.empty((b, s, 3 * h * d), dtype=dt,
+                                    device=cuda_device), h)
+    again = torch.empty_like(dq)
+    before = _counts()
+    fb.flash_bwd_dq(q, k, v, do, lse_r, delta, dq)
+    fb.flash_bwd_dq(q, k, v, do, lse_r, delta, again)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1], before[2] + 2,
+                         before[3] + 2 * copy)
+    assert torch.equal(dq, again)
+    want = fb.flash_bwd_reference(q, k, v, o_r, lse_r, do, scale)
+    grad_max = max(r.float().abs().max().item() for r in want)
+    assert dq.dtype == dt and torch.isfinite(dq.float()).all()
+    err = (dq.float() - want[0].float()).abs().max().item()
+    assert err <= TC_REL[dtype] * grad_max, err
 
 
 # ---- the fp32 K5 and K6 (csrc/flash_bwd_simt.cu: flash_bwd_dkdv_simt_kernel
@@ -897,10 +971,9 @@ def test_fp32_k4_launches_the_register_tiled_kernel_alone(fp32_k5k6_trace,
 
 
 # The kernels one call of the tensor-core K4 and K5, and of K6 beside them,
-# launch (torch.profiler, in a fresh process as fp32_k5k6_trace): K4 and K5
-# on csrc/flash_fwd.cu's and csrc/flash_bwd.cu's kernels, which take
-# tensor maps, K6 (fp16, or past 128) on csrc/flash_blocked.cu's, which
-# take pointers
+# launch (torch.profiler, in a fresh process as fp32_k5k6_trace): K4, K5
+# and K6 on csrc/flash_fwd.cu's and csrc/flash_bwd.cu's kernels, which
+# take tensor maps
 TC_TRACE_CASES = (("float16", 64), ("float16", 128), ("bfloat16", 192),
                   ("float16", 192), ("bfloat16", 256), ("float16", 256))
 _TC_TRACE = """
@@ -957,16 +1030,13 @@ def tc_trace():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", TC_TRACE_CASES)
 def test_tc_k4_k5_launch_their_kernels_alone(tc_trace, dtype, d):
-    # <element type, compiled head dim>
+    # <element type, compiled head dim>; K6 on csrc/flash_bwd.cu's tensor
+    # cores too, its wide tiles past 128 a kernel of their own
     t = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
     kd = next(x for x in (64, 128, 192, 256) if d <= x)
+    k6 = "flash_bwd_dq_kernel" if d <= 128 else "flash_bwd_dq_tc_wide_kernel"
     for name, kernel in (("fwd", "flash_fwd_kernel"),
-                         ("dkdv", "flash_bwd_dkdv_kernel")):
+                         ("dkdv", "flash_bwd_dkdv_kernel"), ("dq", k6)):
         names = tc_trace[f"{name}{dtype}{d}"]
         assert len(names) == 1 and \
             f"::{kernel}<{t}, {kd}>(CUtensorMap" in names[0], names
-    names = tc_trace[f"dq{dtype}{d}"]
-    want = (f"::flash_bwd_dq_kernel<{t}, {kd}>(" if d <= 128
-            else f"::flash_bwd_dq_wide_kernel<{t}>(")
-    assert len(names) == 1 and want in names[0] and \
-        "CUtensorMap" not in names[0], names

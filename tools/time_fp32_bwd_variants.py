@@ -122,11 +122,15 @@ extern "C" int variant_dq(const float* q, const float* k, const float* v,
 
 
 def variant_source(edits, source: str = SOURCE, shim: str = SHIM) -> str:
-    """csrc/`source` with csrc/simt_tiles.cuh written into it (so that an
-    edit may reach the shared tiles), each edit made once, and `shim`."""
-    text = (cuda_build.CSRC_DIR / source).read_text().replace(
-        '#include "simt_tiles.cuh"',
-        (cuda_build.CSRC_DIR / "simt_tiles.cuh").read_text())
+    """csrc/`source` with csrc/simt_wide.cuh and csrc/simt_tiles.cuh written
+    into it where it includes them (so that an edit may reach the shared
+    tiles), each edit made once, and `shim`."""
+    text = (cuda_build.CSRC_DIR / source).read_text()
+    for header in ("simt_wide.cuh", "simt_tiles.cuh"):
+        include = f'#include "{header}"'
+        text = text.replace(include,
+                            (cuda_build.CSRC_DIR / header).read_text(), 1)
+        text = text.replace(include, "")  # once is enough
     for old, new in edits.items():
         if text.count(old) != 1:
             raise SystemExit(f"{source} holds {old!r} {text.count(old)} times")
@@ -156,7 +160,7 @@ def ptxas(log: str):
     out, fn = {}, None
     for line in log.splitlines():
         if "Function properties" in line:
-            m = re.search(r"\d((?:flash|hp)_[a-z_]*?_simt_kernel)I"
+            m = re.search(r"\d((?:flash|hp|attn)_[a-z_]*?_simt_kernel)I"
                           r"((?:Li\d+E)+)E", line)
             fn = f"{m.group(1)}<{', '.join(re.findall(r'\d+', m.group(2)))}>" \
                 if m else None

@@ -50,7 +50,8 @@ fused_fwd_plain are the plain versions of K1 (attn_fwd_reference, with the
 stats) and K7 (fused_fwd_reference) on the same inputs, which K9's and
 K11's plain versions repeat; attn_bwd_plain and fused_bwd_plain those of K2
 (attn_bwd_reference, on K1's o and stats) and K8 (fused_bwd_reference,
-which K10's and K12's repeat).
+which K10's and K12's repeat); flash_bwd_dq_plain is K6's
+(flash_bwd_dq_reference) on K4's lse and delta.
 
 The fp32 forwards on csrc/attn_fwd_simt.cuh's register tiles against the
 parent's loops, at a head dim of 256:
@@ -66,6 +67,17 @@ tiles, K8, K10 and K12 in fp32 on csrc/hp_bwd_simt.cu's):
     python tools/time_torch_attention.py --dtype float32 --head_dim 256 \
         --batch 32 --kernels fused_bwd hp_bwd qkv_bwd fused_bwd_plain \
         sdpa_bwd --profile
+
+and K6 on the tensor cores in fp16 and past 128 (csrc/flash_bwd.cu), the
+fp32 K2 past 128 (csrc/attn_bwd_simt.cu):
+
+    python tools/time_torch_attention.py --dtype float16 --batch 32 \
+        --seq 1370 --kernels flash_bwd_dq flash_bwd_dq_plain sdpa_bwd \
+        --profile
+    python tools/time_torch_attention.py --batch 1 --seq 1370 --heads 4 \
+        --head_dim 256 --kernels flash_bwd_dq flash_bwd_dq_plain sdpa_bwd
+    python tools/time_torch_attention.py --dtype float32 --head_dim 256 \
+        --batch 32 --kernels attn_bwd attn_bwd_plain sdpa_bwd --profile
 """
 from __future__ import annotations
 
@@ -130,6 +142,8 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
             return fb.flash_delta(state["o"], dob)
         if name == "dkdv":
             return fb.flash_bwd_dkdv(*args, dk, dv)
+        if name == "dq_plain":
+            return fb.flash_bwd_dq_reference(*args, D ** -0.5)
         return fb.flash_bwd_dq(*args, dq)
 
     def attn_bwd(plain=False):
@@ -174,6 +188,7 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
         "flash_fwd": lambda: fb.flash_fwd(*heads),
         "flash_bwd_dkdv": lambda: blocked_bwd("dkdv"),
         "flash_bwd_dq": lambda: blocked_bwd("dq"),
+        "flash_bwd_dq_plain": lambda: blocked_bwd("dq_plain"),
         "flash_delta": lambda: blocked_bwd("delta"),
         "sdpa_fwd": lambda: torch.nn.functional.scaled_dot_product_attention(
             *dense),

@@ -1,6 +1,8 @@
 // Softmax attention backward over a fused (B, S, 3*H*D) qkv buffer on the
 // CUDA cores, for Hopper: fp32 at every head dim, and bf16 and fp16 at head
-// dims over 256.
+// dims over 256. fp32 at head dims 129-256 is csrc/attn_bwd_simt.cu's
+// (register tiles, linked into this library); this file's kernels take the
+// rest.
 //
 // Replaces the TPU kernel
 // vision_transformers_torch_xla_tpu/ops/flash_attention.py
@@ -57,8 +59,7 @@
 // and H are bounded only by B H < 2^31. The head dim is 32, 64 or 128 at
 // compile time; a smaller one takes the next with its columns zero-filled.
 //
-// Design, fp32 at D > 128 and bf16, fp16 at D > 256
-// (attn_bwd_wide_kernel<T>): the same
+// Design, every dtype at D > 256 (attn_bwd_wide_kernel<T>): the same
 // walk and register tiles, with the head dim a run-time value up to 1024
 // in 64-column chunks. A block owns one chunk of one (b, h) (a grid of
 // B H ceil(D / 64) blocks) and writes dq, dk, dv and the bias partials of
@@ -69,7 +70,9 @@
 // the three products that write columns. Shared memory is the D = 64
 // kernel's, 105 KB, so two blocks share an SM; s and dp are computed once
 // per chunk (ceil(D / 64) times per (b, h)): right, and recorded as slow
-// (PERF.md §6), not fast.
+// (PERF.md §6), not fast. In fp32 at (32, 197, 12, 256) it took 10.30-10.35
+// ms of device time where csrc/attn_bwd_simt.cu takes 2.045 (H100 80GB HBM3
+// at 700 W, PERF.md §6).
 //
 // Plain C interface, loaded with ctypes. The kernel allocates nothing and
 // launches on the caller's stream; the host function takes the element
@@ -81,10 +84,19 @@
 #include "cc_tiles.cuh"
 #include "elem.cuh"
 
+// csrc/attn_bwd_simt.cu, linked into this library: fp32 at 128 < D <= 256.
+namespace attn_bwd_simt {
+long long scratch_floats(int B, int H, int S, int D);
+int run(const float* qkv, const float* dout, const float* out,
+        const float* st, float* dqkv, float* dbias, float* scratch, int B,
+        int S, int H, int D, float scale, cudaStream_t stream);
+}  // namespace attn_bwd_simt
+
 namespace {
 
 constexpr int kMaxSeq = 1024;
 constexpr int kMaxHeadDim = 128;        // attn_bwd_kernel's, fp32
+constexpr int kMaxSimtHeadDim = 256;    // csrc/attn_bwd_simt.cu's, fp32
 constexpr int kMaxWideHeadDim = 1024;   // attn_bwd_wide_kernel's
 
 // The tensors of one call. qkv and dqkv are (B, S, C) with C = 3 H D; dO
@@ -597,13 +609,23 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 extern "C" {
 
+// The fp32 scratch vtx_attn_bwd takes at these sizes and element type, in
+// floats: csrc/attn_bwd_simt.cu's (its rows' records, dq's parts, the bias
+// partials) for fp32 at 128 < D <= 256, else dq_sum (B, H, S, D).
+long long vtx_attn_bwd_scratch(int B, int S, int H, int D, int dtype) {
+  if (dtype == kF32 && D > kMaxHeadDim && D <= kMaxSimtHeadDim)
+    return attn_bwd_simt::scratch_floats(B, H, S, D);
+  return (long long)B * H * S * D;
+}
+
 // dqkv (B, S, 3HD) and dbias (B, 3HD) fp32 out, from qkv (B, S, 3HD), dout
 // and out (B, S, HD), all of the element type `dtype` (elem.cuh's code) and
-// contiguous, and the forward's (B, H, S, 2) fp32 stats. Scratch: dq_sum
-// (B, H, S, D) fp32. fp32 at D <= 128 runs attn_bwd_kernel, every other
-// call attn_bwd_wide_kernel (ops/flash_attention.py sends bf16 and fp16
-// here only past 256). 1 <= S <= 1024, 1 <= D <= 1024. Returns a
-// cudaError_t as int: 0 when the launch was accepted.
+// contiguous, and the forward's (B, H, S, 2) fp32 stats. Scratch: fp32 of
+// vtx_attn_bwd_scratch floats, 16-byte aligned. fp32 at D <= 128 runs
+// attn_bwd_kernel, fp32 at 128 < D <= 256 csrc/attn_bwd_simt.cu's four
+// launches, every other call attn_bwd_wide_kernel (ops/flash_attention.py
+// sends bf16 and fp16 here only past 256). 1 <= S <= 1024, 1 <= D <= 1024.
+// Returns a cudaError_t as int: 0 when every launch was accepted.
 int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
                  const void* st, void* dqkv, void* dbias, void* dq_sum, int B,
                  int S, int H, int D, float scale, int dtype, void* stream) {
@@ -611,6 +633,12 @@ int vtx_attn_bwd(const void* qkv, const void* dout, const void* out,
       D > kMaxWideHeadDim)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32 && D > kMaxHeadDim && D <= kMaxSimtHeadDim)
+    return attn_bwd_simt::run(
+        static_cast<const float*>(qkv), static_cast<const float*>(dout),
+        static_cast<const float*>(out), static_cast<const float*>(st),
+        static_cast<float*>(dqkv), static_cast<float*>(dbias),
+        static_cast<float*>(dq_sum), B, S, H, D, scale, s);
   if (dtype != kF32 || D > kMaxHeadDim) {
     switch (dtype) {
       case kF32:

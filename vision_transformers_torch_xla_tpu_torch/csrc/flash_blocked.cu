@@ -1,12 +1,11 @@
 // Blocked flash attention (online softmax) on the CUDA cores: float inputs
-// at every head dim, K6 in half, and every type past the tensor-core
-// kernels' head dims.
+// at every head dim, and every type past the tensor-core kernels' head
+// dims.
 //
 // Which kernel serves which dtype and head dim D (ops/flash_blocked.py::
 // TENSOR_CORE_RULE decides):
-//   bf16 and fp16, D <= 256: K4 and K5 on the tensor cores, csrc/flash_fwd.cu
-//     and csrc/flash_bwd.cu, libraries of their own; bf16, D <= 128: K6
-//     there too;
+//   bf16 and fp16, D <= 256: K4, K5 and K6 on the tensor cores,
+//     csrc/flash_fwd.cu and csrc/flash_bwd.cu, libraries of their own;
 //   fp32, D <= 128: K4 in csrc/flash_fwd_simt.cu (flash_fwd_simt_kernel:
 //     128-row blocks of 8 warps that own whole rows, s on 8 x 4 register
 //     tiles, p v on 8 x 4 or 8 x 8, cp.async double buffers at D <= 64), K5
@@ -15,18 +14,17 @@
 //     tiles, the sums on 8 x 8, cp.async double buffers at D <= 64), both
 //     linked into this library: fwd(), dkdv() and dq() hand them float at
 //     D <= 128 (the register tiles live in csrc/simt_tiles.cuh);
-//   fp16, D <= 128: K6 here (flash_bwd_dq_kernel<__half, 64 | 128>);
-//   every dtype past 128 (to 1024): the *_wide_kernel<T> below (K4 and K5
-//     in bf16 and fp16 only past 256).
+//   every dtype past 128 (to 1024): the *_wide_kernel<T> below (in bf16
+//     and fp16 only past 256).
 // Measured on an H100 80GB HBM3 at 700 W, device ms of one call at (B, S,
 // H, D) = (32, 1370, 12, 64) (PERF.md §6): fp32 K4 5.204-5.207 (this
 // file's flash_fwd_kernel<float, 64> before it: 7.19-7.20 in the same
 // call; SDPA's fp32 forward 5.62-5.65); fp32 K5 and K6 9.46-9.53 and
 // 7.73-7.77 (this file's loops before them: 12.44 and 10.74-10.75; SDPA's
-// whole fp32 backward 14.06-14.18); fp16 K6 11.66 (event ms). The fp16 K4
-// and K5 loops this file had at D <= 128 took 7.03-7.07 and 12.47-12.54
-// device ms where csrc/flash_fwd.cu and csrc/flash_bwd.cu take
-// 0.7145-0.7149 and 1.229-1.230 (in one call, PERF.md §6).
+// whole fp32 backward 14.06-14.18). The fp16 K4, K5 and K6 loops this file
+// had at D <= 128 took 7.03-7.07, 12.47-12.54 and 11.47-11.56 device ms
+// where csrc/flash_fwd.cu and csrc/flash_bwd.cu take 0.7145-0.7149,
+// 1.229-1.230 and 1.055 (PERF.md §6).
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_blocked.py, the long-sequence path (S > 1024), where they run in a
@@ -41,8 +39,8 @@
 //   K5 flash_bwd_dkdv_wide_kernel  <- _bwd_dkdv_kernel (:109): per key row,
 //      over query tiles, p = exp((q k^T) scale - lse), dv += rnd(p)^T dO,
 //      ds = p (dO v^T - delta), dk += rnd(ds)^T q; dk *= scale.
-//   K6 flash_bwd_dq(_wide)_kernel  <- _bwd_dq_kernel (:157): per query row, over
-//      key tiles, the same p and ds, dq += rnd(ds) k; dq *= scale.
+//   K6 flash_bwd_dq_wide_kernel    <- _bwd_dq_kernel (:157): per query row,
+//      over key tiles, the same p and ds, dq += rnd(ds) k; dq *= scale.
 // rnd(x) rounds to the inputs' dtype, the JAX kernels' astype: an identity
 // for float, round-to-nearest-even for half (csrc/elem.cuh). delta =
 // rowsum(fp32 dO * fp32 O) comes from the caller. Every product
@@ -74,11 +72,9 @@
 //   K5: block (b*H + h, key tile); K and V staged once, q, dO, lse and
 //       delta per query tile; dk and dv accumulate in registers (fp16).
 //   K6: block (b*H + h, query tile); q, dO, lse and delta once, K and V per
-//       key tile; dq accumulates in registers (fp16).
+//       key tile; dq accumulates in registers.
 // The grid is one-dimensional over (b h, tile), so B H is bounded only by
-// 2^31 / ceil(S / 64). K6 in half at D <= 128 has the head dim 64 or 128
-// at compile time; a smaller head dim takes the next one with its columns
-// zero-filled.
+// 2^31 / ceil(S / 64).
 //
 // Head dims over 128 (the *_wide_kernel<T>, in bf16, fp16 and fp32): the
 // same tiles and loops with the head dim a run-time value up to 1024, in
@@ -90,16 +86,16 @@
 // operand at a time in the same order in every block of the tile (so m, l,
 // p and ds are bitwise the same in each), then stages its chunk of V (K4),
 // of q and dO (K5) or of K (K6) and accumulates the chunk's 64 output
-// columns in registers, as K6's D = 64 kernel does, in its shared memory.
+// columns in registers, in the shared memory of a D = 64 tile.
 // s and dp are computed once per chunk: right, and recorded as slow
 // (PERF.md §6), not fast. K4's lse is written by chunk 0.
 //
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
 // launch on the caller's stream; each host function takes the element type
-// as a csrc/elem.cuh code (at D <= 128 kF32, and kF16 for K6; kBf16, kF16
-// or kF32 above) and returns cudaGetLastError(), or cudaErrorInvalidValue for
-// another code. The caller (ops/flash_blocked.py) checks the shapes: 1 <= D
-// <= 1024.
+// as a csrc/elem.cuh code (at D <= 128 kF32; kBf16, kF16 or kF32 above)
+// and returns cudaGetLastError(), or cudaErrorInvalidValue for another
+// code. The caller (ops/flash_blocked.py) checks the shapes: 1 <= D <=
+// 1024.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -154,70 +150,6 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, long long sr,
       if (c < D) dst[(long long)r * sr + c] = Elem<T>::store(acc[i][j] * mul);
     }
   }
-}
-
-// K6. grid (B * H * n_tiles) over query tiles. Shared memory: qT, doT
-// [kD x kPA] (A operands, the block's queries), kT, vT [kD x kPB] (the key
-// tile), dsT [kTile x kPA] (rnd(ds) as [key][query]).
-template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int S, int D, int n_tiles, float scale, Layout in,
-                    Layout og, Layout gr) {
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;
-  float* doT = qT + kD * kPA;
-  float* kT = doT + kD * kPA;
-  float* vT = kT + kD * kPB;
-  float* dsT = vT + kD * kPB;
-  constexpr int NO = kD / 16;
-  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
-  const int q0 = (blockIdx.x % n_tiles) * kTile;
-  const int tx = threadIdx.x & 15, row0 = (threadIdx.x >> 4) * 4;
-  const long long in_off = b * in.sb + h * in.sh;
-
-  stage_t<T, kD>(qT, kPA, q + in_off, in.sr, q0, S, D, 1.f);
-  stage_t<T, kD>(doT, kPA, dout + b * og.sb + h * og.sh, og.sr, q0, S, D,
-                 1.f);
-  float ls[4], dl[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + row0 + i;
-    ls[i] = r < S ? lse[(long long)bh * S + r] : 0.f;
-    dl[i] = r < S ? delta[(long long)bh * S + r] : 0.f;
-  }
-  float acc[4][NO];
-  zero(acc);
-
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    __syncthreads();  // the last tile's kT, vT and dsT are read
-    stage_t<T, kD>(kT, kPB, k + in_off, in.sr, k0, S, D, 1.f);
-    stage_t<T, kD>(vT, kPB, v + in_off, in.sr, k0, S, D, 1.f);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    tile_product<4, kD, kPB, 1>(s, qT, kT, row0, tx);
-    tile_product<4, kD, kPB, 1>(dp, doT, vT, row0, tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool key_ok = k0 + tx + 16 * j < S;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = key_ok ? expf(s[i][j] * scale - ls[i]) : 0.f;
-        dp[i][j] = Elem<T>::round(p * (dp[i][j] - dl[i]));
-      }
-    }
-    store_t(dsT, dp, row0, tx);
-    __syncthreads();
-    // dq += rnd(ds) k: k read from kT [d][key] along the key
-    tile_product<NO, kTile, 1, kPB>(acc, dsT, kT, row0, tx);
-  }
-  store_rows<T, NO>(dq + b * gr.sb + h * gr.sh, gr.sr, acc, q0, row0, tx, S,
-                    D, scale);
 }
 
 // ---- head dims over 128: one 64-column chunk of the outputs per block
@@ -561,12 +493,9 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dqp, int B, int H, int S,
        int D, float scale, Layout in, Layout og, Layout gr,
        cudaStream_t stream) {
-  constexpr int kS = kD == kWide ? kTile : kD;  // the staged head dim
-  const size_t smem =
-      (size_t)(2 * kS * kPA + 2 * kS * kPB + kTile * kPA) * sizeof(float);
-  int n_tiles;
-  dim3 grid;
-  if constexpr (std::is_same<T, float>::value && kD != kWide) {
+  if constexpr (kD != kWide) {
+    static_assert(std::is_same<T, float>::value,
+                  "bf16 and fp16 K6 at D <= 256 run in csrc/flash_bwd.cu");
     const long long i[3] = {in.sb, in.sh, in.sr}, o[3] = {og.sb, og.sh, og.sr},
                     g[3] = {gr.sb, gr.sh, gr.sr};
     return flash_bwd_simt::dq(
@@ -574,8 +503,13 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<float*>(dqp), B, H, S, D, scale, i, o, g, stream);
-  } else if constexpr (kD == kWide) {
+  } else {
+    const size_t smem =
+        (size_t)(2 * kTile * kPA + 2 * kTile * kPB + kTile * kPA) *
+        sizeof(float);
     const int n_c = (D + kTile - 1) / kTile;
+    int n_tiles;
+    dim3 grid;
     int rc = prepare(flash_bwd_dq_wide_kernel<T>, smem, B, H, S, &n_tiles,
                      &grid, n_c);
     if (rc) return rc;
@@ -584,16 +518,6 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dqp), H, S, D, n_tiles, n_c, scale, in, og, gr);
-    return (int)cudaGetLastError();
-  } else {
-    int rc = prepare(flash_bwd_dq_kernel<T, kD>, smem, B, H, S, &n_tiles,
-                     &grid);
-    if (rc) return rc;
-    flash_bwd_dq_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dqp), H, S, D, n_tiles, scale, in, og, gr);
     return (int)cudaGetLastError();
   }
 }
@@ -614,25 +538,11 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
     }                                                                       \
   }
 
-// K4 and K5 (fwd, dkdv) at D <= 128 take kF32 alone.
+// K4, K5 and K6 at D <= 128 take kF32 alone.
 #define DISPATCH_F32(f, dtype, D, ...)                                      \
   DISPATCH_WIDE(f, dtype, D, __VA_ARGS__)                                   \
   return (dtype) == kF32 ? f<float, 128>(__VA_ARGS__)                       \
                          : (int)cudaErrorInvalidValue;
-
-// K6 (dq) at D <= 128: kF16 and kF32, 64 or 128 at compile time.
-#define DISPATCH(f, dtype, D, ...)                                          \
-  DISPATCH_WIDE(f, dtype, D, __VA_ARGS__)                                   \
-  switch (dtype) {                                                          \
-    case kF16:                                                              \
-      return (D) <= 64 ? f<__half, 64>(__VA_ARGS__)                         \
-                       : f<__half, 128>(__VA_ARGS__);                       \
-    case kF32:                                                              \
-      return (D) <= 64 ? f<float, 64>(__VA_ARGS__)                          \
-                       : f<float, 128>(__VA_ARGS__);                        \
-    default:                                                                \
-      return (int)cudaErrorInvalidValue;                                    \
-  }
 
 }  // namespace
 
@@ -677,8 +587,8 @@ int vtx_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(dq, dtype, D, q, k, v, dout, lse, delta, dqp, B, H, S, D, scale,
-           in, og, gr, s)
+  DISPATCH_F32(dq, dtype, D, q, k, v, dout, lse, delta, dqp, B, H, S, D,
+               scale, in, og, gr, s)
 }
 
 const char* vtx_cuda_error_string(int err) {

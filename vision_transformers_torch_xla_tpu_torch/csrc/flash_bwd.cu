@@ -1,5 +1,5 @@
-// Blocked flash attention backward on Hopper's tensor cores: K5 in bf16 and
-// fp16 at head dims up to 256, K6 in bf16 up to 128.
+// Blocked flash attention backward on Hopper's tensor cores: K5 and K6 in
+// bf16 and fp16 at head dims up to 256.
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_blocked.py, the backward of the long-sequence path (S > 1024); the
@@ -8,15 +8,17 @@
 //      query tiles, p = exp((q k^T) scale - lse), dv += T(p)^T dO,
 //      ds = p (dO v^T - delta), dk += T(ds)^T q; dk *= scale.
 //   K6 flash_bwd_dq_kernel   <- _bwd_dq_kernel (:157): per query row, over
-//      key tiles, the same p and ds, dq += bf16(ds) k; dq *= scale.
+//      key tiles, the same p and ds, dq += T(ds) k; dq *= scale
+//      (flash_bwd_dq_tc_wide_kernel at head dims 129-256).
 // delta = rowsum(fp32 dO * fp32 O) comes from the caller (a torch op, as in
 // JAX it is computed outside Pallas). Every product is T x T into fp32,
 // what wgmma computes, so the cast order is the TPU kernels'. The
 // exponentials run as exp2f: p = exp2(s (scale log2 e) - lse log2 e), which
 // moves p by a relative ~1e-6 against expf (csrc/flash_fwd.cu says why),
 // far below the 2^-9 (bf16) and 2^-12 (fp16) of its rounding to T. The
-// fp32 versions are csrc/flash_bwd_simt.cu's; K6 in fp16 and past 128, and
-// K5 past 256, are the CUDA-core loops of csrc/flash_blocked.cu.
+// fp32 versions are csrc/flash_bwd_simt.cu's (to 128) and the CUDA-core
+// loops of csrc/flash_blocked.cu (past 128), which also take K5 and K6
+// past 256 in every dtype.
 //
 // What bounds them on an H100: at S = 1370, D = 64 one (b, h) is 8 S^2 D
 // (K5: s, dp, dv, dk) and 6 S^2 D (K6: s, dp, dq) over < 1 MB of operands,
@@ -57,8 +59,21 @@
 //   at 192) accumulate dV and dK.
 // * K6 holds 128 queries still: Q, dO, lse and delta once, K and V tiles of
 //   64 keys through the ring. S = Q K^T and dP = dO V^T as SS wgmma, keys
-//   >= S masked to p = 0, dS = P (dP - delta), dQ += bf16(dS) K as RS wgmma
+//   >= S masked to p = 0, dS = P (dP - delta), dQ += T(dS) K as RS wgmma
 //   with K MN-major; dQ is scaled once at the end.
+// * K6 at head dims 192 and 256 (flash_bwd_dq_tc_wide_kernel, the shape
+//   of csrc/attn_bwd_tc.cu's wide dq): 128 stationary queries of Q and dO
+//   are 128 KB at 256, and a 2-stage ring of 64-key K and V tiles another
+//   128 KB, more than a block's 227 KB; a 64 x 256 fp32 dQ is 128
+//   registers a thread beside S and dP. So a block holds 64 queries on one
+//   consumer warpgroup (Q and dO 64 KB, the ring 128 KB: 192 KB) with a
+//   producer warp, and dQ += T(dS) K runs m64n128 over pairs of 64-column
+//   panels (m64n64 for the odd panel at 192). At (B, S, H) = (1, 1370, 4)
+//   that is 88 blocks for the 132 SMs, one block an SM. Device ms of one
+//   call on an H100 80GB HBM3 at 700 W (PERF.md §6): 0.042 there (the
+//   CUDA-core loop it replaced 1.99-2.01), 2.51-2.54 at (32, 1370, 12,
+//   256) (44-45% of the bound; the loop 153-156); fp16 K6 at (32, 1370,
+//   12, 64) 1.055 (the loop 11.47-11.56).
 // * Rows >= S: TMA fills q, dO, k and v rows past the end with zeros; lse
 //   and delta of such rows read as 0, never past the end, so p stays finite
 //   and the zero dO rows make those rows' dv and dk terms vanish (the TPU
@@ -75,8 +90,10 @@
 // launch on the caller's stream; each host function returns
 // cudaGetLastError(), or a code >= kErrEncodeBase when a tensor map could
 // not be encoded (vtx_cuda_error_string says which). The caller
-// (ops/flash_blocked.py) checks the shapes: 1 <= D <= 256 (K6: 128), D a
-// multiple of 8, 16-byte-aligned data and strides of q, k, v and dO.
+// (ops/flash_blocked.py) checks the shapes: 1 <= D <= 256, D a multiple of
+// 8, 16-byte-aligned data and strides of q, k, v and dO. A head dim between
+// the compiled ones (64, 128, 192, 256) takes the next, its columns
+// zero-filled by TMA.
 
 #include <limits.h>
 
@@ -101,7 +118,7 @@ constexpr int kDkdvThreads = 32 * kConsumerWarps + 128;
 constexpr int kStreamPanel = kRows * kPanel;        // 8 KB
 constexpr int kFixedPanel = kBlockRows * kPanel;    // 16 KB
 constexpr uint32_t kStreamBytes = kStreamPanel * 2;  // LBO of an MN-major tile
-constexpr int kMaxHeadDim = 256;  // K5's; K6's is 128
+constexpr int kMaxHeadDim = 256;  // K5's and K6's
 
 // K5 at head dim kD: the stationary keys of a block and the producer's and
 // consumers' registers. Up to 128 each warpgroup owns 64 of 128 keys,
@@ -131,14 +148,30 @@ struct DkdvTiles {
 static_assert(sizeof(DkdvTiles<bf16, 256>) + 1024 <= 227 * 1024,
               "the widest tiles fit a block's 227 KB");
 
-// Shared tiles of K6.
-template <int kD>
+// Shared tiles of K6 to D 128.
+template <typename T, int kD>
 struct DqTiles {
-  bf16 q[kD / kPanel][kFixedPanel];
-  bf16 dout[kD / kPanel][kFixedPanel];
-  bf16 k[kStages][kD / kPanel][kStreamPanel];
-  bf16 v[kStages][kD / kPanel][kStreamPanel];
+  T q[kD / kPanel][kFixedPanel];
+  T dout[kD / kPanel][kFixedPanel];
+  T k[kStages][kD / kPanel][kStreamPanel];
+  T v[kStages][kD / kPanel][kStreamPanel];
 };
+
+// K6 at head dims 192 and 256 (the wide tiles): 64 stationary queries on
+// one consumer warpgroup and a producer warp; q and dO 64 KB at 256, the
+// 2-stage ring of K and V 128 KB.
+constexpr int kWideDqThreads = 128 + 32;
+
+template <typename T, int kD>
+struct WideDqTiles {
+  T q[kD / kPanel][kStreamPanel];
+  T dout[kD / kPanel][kStreamPanel];
+  T k[kStages][kD / kPanel][kStreamPanel];
+  T v[kStages][kD / kPanel][kStreamPanel];
+};
+
+static_assert(sizeof(WideDqTiles<bf16, 256>) + 1024 <= 227 * 1024,
+              "the wide K6 tiles fit a block's 227 KB");
 
 template <typename T>
 __device__ __forceinline__ T& aligned_tiles(uint8_t* raw) {
@@ -450,14 +483,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 // K6. grid (ceil(S / 128) * B * H): block x is query tile x % n_qt of
 // (b, h) = x / n_qt. Rows of every fragment are queries; columns of S and
 // dP are the tile's keys, columns of dQ the head dim.
-template <int kD>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int S, int D, int n_qt, float scale,
                     float scale_log2, Layout gr) {
   constexpr int kPanels = kD / kPanel;
@@ -466,7 +499,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t k_full[kStages], v_full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
-  DqTiles<kD>& t = aligned_tiles<DqTiles<kD>>(smem_raw);
+  DqTiles<T, kD>& t = aligned_tiles<DqTiles<T, kD>>(smem_raw);
 
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * kBlockRows;
@@ -541,21 +574,22 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
       const int p = kk / 4, c = (kk % 4) * 16;
-      wgmma_ss_n64(s, desc(&t.q[p][wg * kRows * kPanel + c], 16, 1024),
-                   desc(&t.k[st][p][c], 16, 1024), kk > 0);
+      wgmma_ss_n64<T>(s, desc(&t.q[p][wg * kRows * kPanel + c], 16, 1024),
+                      desc(&t.k[st][p][c], 16, 1024), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
       const int p = kk / 4, c = (kk % 4) * 16;
-      wgmma_ss_n64(dp, desc(&t.dout[p][wg * kRows * kPanel + c], 16, 1024),
-                   desc(&t.v[st][p][c], 16, 1024), kk > 0);
+      wgmma_ss_n64<T>(dp,
+                      desc(&t.dout[p][wg * kRows * kPanel + c], 16, 1024),
+                      desc(&t.v[st][p][c], 16, 1024), kk > 0);
     }
     wg_commit();
     wg_wait();
     pin(s);
     pin(dp);
 
-    // dS = P (dP - delta) in fp32, keys >= S masked, packed to bf16 A
+    // dS = P (dP - delta) in fp32, keys >= S masked, packed to T A
     // fragments
     uint32_t dsa[4][4];
 #pragma unroll
@@ -570,18 +604,157 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       const float p3 =
           okc1 ? exp2f(fmaf(s[4 * n + 3], scale_log2, -lse1)) : 0.f;
       dsa[n / 2][(n % 2) * 2] =
-          pack_bf16(p0 * (dp[4 * n] - dl0), p1 * (dp[4 * n + 1] - dl0));
+          pack2<T>(p0 * (dp[4 * n] - dl0), p1 * (dp[4 * n + 1] - dl0));
       dsa[n / 2][(n % 2) * 2 + 1] =
-          pack_bf16(p2 * (dp[4 * n + 2] - dl1), p3 * (dp[4 * n + 3] - dl1));
+          pack2<T>(p2 * (dp[4 * n + 2] - dl1), p3 * (dp[4 * n + 3] - dl1));
     }
 
-    // dQ += bf16(dS) K over 4 steps of 16 keys
+    // dQ += T(dS) K over 4 steps of 16 keys
     pin(dq_acc);
     wg_fence();
 #pragma unroll
     for (int c = 0; c < kRows / 16; ++c)
-      wgmma_rs(dq_acc, dsa[c],
-               desc(&t.k[st][0][c * 16 * kPanel], kStreamBytes, 1024));
+      wgmma_rs<T>(dq_acc, dsa[c],
+                  desc(&t.k[st][0][c * 16 * kPanel], kStreamBytes, 1024));
+    wg_commit();
+    wg_wait();
+    pin(dq_acc);
+
+    // this warp is done with the stage's K and V
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+  }
+
+  store_rows(dq + b * gr.sb + h * gr.sh, gr.sr, dq_acc, r0, col, S, D,
+             scale);
+}
+
+// K6 at head dims 192 and 256 (the wide tiles; the header says why). grid
+// (ceil(S / 64) * B * H): block x is query tile x % n_qt (64 queries) of
+// (b, h) = x / n_qt, on one consumer warpgroup; fragments as K6's, dQ +=
+// T(dS) K m64n128 over pairs of 64-column panels (and m64n64 for the odd
+// panel at 192).
+template <typename T, int kD>
+__global__ void __launch_bounds__(kWideDqThreads, 1)
+flash_bwd_dq_tc_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int H, int S, int D,
+                            int n_qt, float scale, float scale_log2,
+                            Layout gr) {
+  constexpr int kPanels = kD / kPanel;
+  constexpr uint32_t kTileBytes = 2 * kRows * kD * 2;  // one K and V tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  WideDqTiles<T, kD>& t = aligned_tiles<WideDqTiles<T, kD>>(smem_raw);
+
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * kRows;
+  const int b = bh / H, h = bh % H;
+  const int n_kt = (S + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: Q and dO once, then K and V tiles through the ring
+    if (lane == 0) {
+      bar_expect_tx(&q_full, 2 * kRows * kD * 2);
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(t.q[p], &tq, &q_full, p * kPanel, q0, h, b);
+        tma_load(t.dout[p], &tdo, &q_full, p * kPanel, q0, h, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) bar_wait(&empty[s], ((j / kStages) - 1) & 1);
+        bar_expect_tx(&full[s], kTileBytes);
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(t.k[s][p], &tk, &full[s], p * kPanel, j * kRows, h, b);
+          tma_load(t.v[s][p], &tv, &full[s], p * kPanel, j * kRows, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: the block's 64 queries; rows >= S take lse = delta = 0
+  const int row = 16 * warp + lane / 4;  // and row + 8
+  const int col = 2 * (lane % 4);
+  const int r0 = q0 + row, r1 = r0 + 8;
+  const long long rows = (long long)bh * S;
+  const float lse0 = r0 < S ? lse[rows + r0] * kLog2e : 0.f;
+  const float lse1 = r1 < S ? lse[rows + r1] * kLog2e : 0.f;
+  const float dl0 = r0 < S ? delta[rows + r0] : 0.f;
+  const float dl1 = r1 < S ? delta[rows + r1] : 0.f;
+  float dq_acc[kD / 2];
+  float s[32], dp[32];
+  zero(dq_acc);
+  zero(s);
+  zero(dp);
+
+  bar_wait(&q_full, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kStages;
+    const int kb = j * kRows;
+    bar_wait(&full[st], (j / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T over kD / 16 steps of 16 columns
+    pin(s);
+    pin(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n64<T>(s, desc(&t.q[p][c], 16, 1024),
+                      desc(&t.k[st][p][c], 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      wgmma_ss_n64<T>(dp, desc(&t.dout[p][c], 16, 1024),
+                      desc(&t.v[st][p][c], 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait();
+    pin(s);
+    pin(dp);
+
+    // dS = P (dP - delta) in fp32, keys >= S masked, packed to T A
+    // fragments
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int kc = kb + 8 * n + col;
+      const bool okc0 = kc < S, okc1 = kc + 1 < S;
+      const float p0 = okc0 ? exp2f(fmaf(s[4 * n], scale_log2, -lse0)) : 0.f;
+      const float p1 =
+          okc1 ? exp2f(fmaf(s[4 * n + 1], scale_log2, -lse0)) : 0.f;
+      const float p2 =
+          okc0 ? exp2f(fmaf(s[4 * n + 2], scale_log2, -lse1)) : 0.f;
+      const float p3 =
+          okc1 ? exp2f(fmaf(s[4 * n + 3], scale_log2, -lse1)) : 0.f;
+      dsa[n / 2][(n % 2) * 2] =
+          pack2<T>(p0 * (dp[4 * n] - dl0), p1 * (dp[4 * n + 1] - dl0));
+      dsa[n / 2][(n % 2) * 2 + 1] =
+          pack2<T>(p2 * (dp[4 * n + 2] - dl1), p3 * (dp[4 * n + 3] - dl1));
+    }
+
+    // dQ += T(dS) K over 4 steps of 16 keys, m64n128 over panel pairs
+    pin(dq_acc);
+    wg_fence();
+    issue_rs<T>(dq_acc, dsa, t.k[st]);
     wg_commit();
     wg_wait();
     pin(dq_acc);
@@ -662,23 +835,53 @@ int dkdv_d(const void* q, const void* k, const void* v, const void* dout,
                       in, og, gr, s);
 }
 
-template <int kD>
+template <typename T, int kD>
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dqp, int B, int H, int S,
        int D, float scale, Layout in, Layout og, Layout gr,
        cudaStream_t stream) {
   CUtensorMap m[4];
-  int rc = encode_all(m, q, k, v, dout, B, H, S, D, in, og);
+  int rc = encode_all(m, q, k, v, dout, B, H, S, D, in, og, map_type<T>());
   if (rc) return rc;
-  const size_t smem = sizeof(DqTiles<kD>) + 1024;  // + the alignment slack
   dim3 grid;
-  rc = prepare(flash_bwd_dq_kernel<kD>, smem, B, H, S, &grid);
-  if (rc) return rc;
-  flash_bwd_dq_kernel<kD><<<grid, kThreads, smem, stream>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dqp), H, S, D,
-      (S + kBlockRows - 1) / kBlockRows, scale, scale * kLog2e, gr);
+  if constexpr (kD <= 128) {
+    const size_t smem = sizeof(DqTiles<T, kD>) + 1024;  // + the alignment
+    rc = prepare(flash_bwd_dq_kernel<T, kD>, smem, B, H, S, &grid);
+    if (rc) return rc;
+    flash_bwd_dq_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
+        m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dqp), H, S, D,
+        (S + kBlockRows - 1) / kBlockRows, scale, scale * kLog2e, gr);
+  } else {
+    const size_t smem = sizeof(WideDqTiles<T, kD>) + 1024;
+    rc = prepare(flash_bwd_dq_tc_wide_kernel<T, kD>, smem, B, H, S, &grid,
+                 kRows);
+    if (rc) return rc;
+    flash_bwd_dq_tc_wide_kernel<T, kD><<<grid, kWideDqThreads, smem,
+                                         stream>>>(
+        m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dqp), H, S, D,
+        (S + kRows - 1) / kRows, scale, scale * kLog2e, gr);
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dq_d(const void* q, const void* k, const void* v, const void* dout,
+         const void* lse, const void* delta, void* dqp, int B, int H, int S,
+         int D, float scale, Layout in, Layout og, Layout gr,
+         cudaStream_t s) {
+  if (D <= 64)
+    return dq<T, 64>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in,
+                     og, gr, s);
+  if (D <= 128)
+    return dq<T, 128>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in,
+                      og, gr, s);
+  if (D <= 192)
+    return dq<T, 192>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in,
+                      og, gr, s);
+  return dq<T, 256>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in,
+                    og, gr, s);
 }
 
 }  // namespace
@@ -713,8 +916,8 @@ int vtx_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   }
 }
 
-// dq (grad layout) bf16, from the same inputs, bf16 alone, 1 <= D <= 128
-// (fp16 and wider heads are csrc/flash_blocked.cu's).
+// dq (grad layout) of the element type `dtype` (bf16 or fp16), from the
+// same inputs, 1 <= D <= 256.
 int vtx_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dqp, int B, int H, int S, int D, float scale,
@@ -722,15 +925,19 @@ int vtx_flash_bwd_dq(const void* q, const void* k, const void* v,
                      long long og_sb, long long og_sh, long long og_sr,
                      long long gr_sb, long long gr_sh, long long gr_sr,
                      int dtype, void* stream) {
-  if (dtype != kBf16 || D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxHeadDim) return (int)cudaErrorInvalidValue;
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return dq<64>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in, og,
-                  gr, s);
-  return dq<128>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale, in, og,
-                 gr, s);
+  switch (dtype) {
+    case kBf16:
+      return dq_d<bf16>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale,
+                        in, og, gr, s);
+    case kF16:
+      return dq_d<f16>(q, k, v, dout, lse, delta, dqp, B, H, S, D, scale,
+                       in, og, gr, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* vtx_cuda_error_string(int err) { return error_string(err); }

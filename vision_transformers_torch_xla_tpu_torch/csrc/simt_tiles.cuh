@@ -1,7 +1,9 @@
 // fp32 register tiles on the CUDA cores of Hopper, shared by the fp32
 // attention kernels at head dims up to 128 that stage whole rows:
 // csrc/flash_bwd_simt.cu (the blocked K5, K6), csrc/flash_fwd_simt.cu (the
-// blocked K4) and csrc/hp_bwd_simt.cu (K8, K10, K12).
+// blocked K4) and csrc/hp_bwd_simt.cu (K8, K10, K12); the wide tiles past
+// 128 (csrc/simt_wide.cuh: K8, K10, K12 and K2) stage their rows and
+// stream their tiles with its copy_tile and pitches too.
 //
 // Rows are staged row-major in shared memory at pitch kD + 4 (kD the
 // compile-time head dim, 64 or 128) and read as float4 along the head dim;

@@ -17,7 +17,9 @@ wgmma): csrc/attn_fwd_tc.cu and csrc/attn_bwd_tc.cu. The fp32 ones run on
 the CUDA cores, csrc/attn_fwd.cu (csrc/attn_fwd_simt.cuh's register tiles
 in K1's order, a block per (b, h, 64-row query tile)) and csrc/attn_bwd.cu
 (a block per (b, h) over register-tiled 64-row tiles,
-csrc/flash_blocked.cu's tiling): the JAX kernels round nothing in fp32,
+csrc/flash_blocked.cu's tiling; past MAX_HEAD_DIM csrc/attn_bwd_simt.cu,
+linked in: 32-key blocks on csrc/simt_wide.cuh's wide register tiles):
+the JAX kernels round nothing in fp32,
 and a tensor-core product of fp32 operands, TF32, would. Wider heads take
 other sources (below).
 `attn_kernel_route` decides before the launch, by dtype and shape: the
@@ -89,7 +91,9 @@ sources (the routes say which, before the launch):
   tensor-core tiles of the same three sources (64-row stationary tiles;
   K2's dk/dv streams 32-query tiles);
 * fp32 at any D, and every dtype at D > MAX_WIDE_HEAD_DIM: the CUDA
-  cores, csrc/attn_fwd.cu (K1, K9), csrc/attn_bwd.cu (K2),
+  cores, csrc/attn_fwd.cu (K1, K9), csrc/attn_bwd.cu (K2; fp32 at
+  MAX_HEAD_DIM < D <= MAX_WIDE_HEAD_DIM in csrc/attn_bwd_simt.cu, linked
+  in),
   csrc/fused_attn_fwd.cu (K7, K11) and csrc/hp_bwd.cu (K8, K10, K12; fp32
   at D <= MAX_WIDE_HEAD_DIM in csrc/hp_bwd_simt.cu, linked in: its
   register tiles, wide ones past MAX_HEAD_DIM); the fp32 K1, K9, K7 and
@@ -175,13 +179,22 @@ def build_kernels() -> ctypes.CDLL:
                  [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 
 
+# the CUDA-core K2's sources: fp32 to MAX_HEAD_DIM and every dtype past
+# MAX_WIDE_HEAD_DIM, and the fp32 register tiles at head dims between them
+# linked in
+ATTN_BWD_SOURCES = ("attn_bwd.cu", "attn_bwd_simt.cu")
+
+
 def build_bwd_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the fp32 backward's library (K2 on the
-    CUDA cores)."""
+    """Build (at first use) and load the CUDA-core backward's library (K2
+    in fp32, and past MAX_WIDE_HEAD_DIM), from ATTN_BWD_SOURCES."""
     lib = _load("attn_bwd", "vtx_attn_bwd",
-                [_P] * 7 + [_I, _I, _I, _I, ctypes.c_float, _I, _P])
+                [_P] * 7 + [_I, _I, _I, _I, ctypes.c_float, _I, _P],
+                ATTN_BWD_SOURCES)
     lib.vtx_attn_bwd_smem.restype = ctypes.c_int
     lib.vtx_attn_bwd_smem.argtypes = [_I]
+    lib.vtx_attn_bwd_scratch.restype = ctypes.c_longlong
+    lib.vtx_attn_bwd_scratch.argtypes = [_I] * 5
     return lib
 
 
@@ -570,16 +583,22 @@ def attn_bwd(qkv: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
 
 def _launch_bwd_cuda_cores(qkv, do, o, st, dqkv, dbias, num_heads: int,
                            scale: float) -> None:
-    """csrc/attn_bwd.cu (fp32; every dtype at a head dim over
-    MAX_WIDE_HEAD_DIM): one launch, a block per (b, h) (and 64-column chunk
-    of a head over MAX_HEAD_DIM), with its scratch: t·k summed over the key
-    tiles, (B, H, S, D) fp32."""
+    """csrc/attn_bwd.cu's library (fp32; every dtype at a head dim over
+    MAX_WIDE_HEAD_DIM) with the fp32 scratch its `vtx_attn_bwd_scratch`
+    asks for: one launch, a block per (b, h) (and 64-column chunk of a head
+    over MAX_WIDE_HEAD_DIM), whose scratch is t·k summed over the key
+    tiles; or in fp32 at MAX_HEAD_DIM < D <= MAX_WIDE_HEAD_DIM
+    csrc/attn_bwd_simt.cu's four launches, whose scratch holds each row's
+    stats and delta, each 32-key block's part of dq and the bias partials
+    of each 32-row tile."""
     b, s, c = qkv.shape
     d = c // (3 * num_heads)
     dev = qkv.device
     lib = build_bwd_kernels()
-    dq_sum = torch.empty((b, num_heads, s, d), dtype=torch.float32,
-                         device=dev)
+    dq_sum = torch.empty(
+        lib.vtx_attn_bwd_scratch(b, s, num_heads, d,
+                                 cuda_build.dtype_code(qkv.dtype)),
+        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vtx_attn_bwd(

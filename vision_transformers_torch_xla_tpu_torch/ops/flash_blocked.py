@@ -11,13 +11,14 @@ otherwise (the JAX kernels take any float dtype and head dim):
 * `flash_bwd_dkdv`, the port of `_bwd_dkdv_kernel` (:109, K5), and
   `flash_bwd_dq`, the port of `_bwd_dq_kernel` (:157, K6), both from
   p = exp(s - lse) and delta = rowsum(dO·O), which a torch op computes
-  (`flash_delta`; JAX computes it outside Pallas too); K5 in bf16 and fp16
-  at a head dim <= 256 and K6 in bf16 at one <= 128 -> csrc/flash_bwd.cu
-  (TMA and wgmma; past 128 K5's two warpgroups split dV and dK);
-  `flash_bwd` runs the three, K5 and K6 each from its own rule's library.
+  (`flash_delta`; JAX computes it outside Pallas too); both in bf16 and
+  fp16 at a head dim <= 256 -> csrc/flash_bwd.cu (TMA and wgmma; past 128
+  K5's two warpgroups split dV and dK, and K6 holds 64 queries on one
+  warpgroup); `flash_bwd` runs the three, K5 and K6 each from its own
+  rule's library.
 
-Everything else, up to MAX_CUDA_CORE_HEAD_DIM (fp32; K6 in fp16 and past
-128; K4 and K5 past 256), goes to csrc/flash_blocked.cu, CUDA-core loops
+Everything else, up to MAX_CUDA_CORE_HEAD_DIM (fp32; every dtype past
+256), goes to csrc/flash_blocked.cu, CUDA-core loops
 that round where the JAX kernels cast to the inputs' dtype and compute in
 fp32 (`tensor_cores` decides, per kernel); its fp32 K4, K5 and K6 at a
 head dim <= 128 are the register-tiled kernels of csrc/flash_fwd_simt.cu
@@ -65,12 +66,12 @@ from vision_transformers_torch_xla_tpu_torch.ops.cuda_build import (
 log = logging.getLogger(__name__)
 
 # Each kernel's tensor-core instantiations: (dtypes, widest head dim). K4
-# (csrc/flash_fwd.cu) and K5 (csrc/flash_bwd.cu's dk/dv) in bf16 and fp16
-# to 256, K6 (its dq) in bf16 to 128; the rest runs on the CUDA cores
+# (csrc/flash_fwd.cu), K5 and K6 (csrc/flash_bwd.cu's dk/dv and dq) in bf16
+# and fp16 to 256; the rest runs on the CUDA cores
 TENSOR_CORE_RULE = {
     "flash_fwd": ((torch.bfloat16, torch.float16), 256),
     "flash_bwd_dkdv": ((torch.bfloat16, torch.float16), 256),
-    "flash_bwd_dq": ((torch.bfloat16,), 128)}
+    "flash_bwd_dq": ((torch.bfloat16, torch.float16), 256)}
 MAX_CUDA_CORE_HEAD_DIM = 1024  # the CUDA-core kernels' widest head
 TMA_ALIGN = 8  # elements: the tensor maps want 16-byte strides and data
 
@@ -463,8 +464,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
     """Gradient of `flash_fwd` from its o and lse: delta, then K5 and K6,
-    each on the library its own rule names (in fp16, K5 on the tensor
-    cores and K6 on the CUDA cores). Returns dqkv (B, S, 3·H·D): dq, dk, dv
+    each on the library its own rule names (both on the tensor cores in
+    bf16 and fp16 to a head dim of 256). Returns dqkv (B, S, 3·H·D): dq, dk, dv
     laid out as the fused qkv projection, each written once."""
     b, h, s, d = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
