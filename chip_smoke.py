@@ -189,6 +189,20 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     bound; then, in a process of its own, one call of each new
     instantiation traced alone (torch.profiler) launching its kernel and
     no other of csrc/.
+17e. the fp32 K4 and K5 at head dims 129-256 on the wide register tiles
+    (csrc/flash_fwd_simt.cu's flash_fwd_wide_simt_kernel, csrc/
+    flash_bwd_simt.cu's flash_bwd_dkdv_wide_simt_kernel), with the counts
+    reset just before: at K4K5_FP32_WIDE_EDGE_SHAPES (S 1 to 1370 around
+    K4's 32-key groups, 64-row query tiles and 256-key score tiles and
+    K5's 32-key blocks; D 136, 192, 200 and 256; q, k, v views of a qkv
+    buffer, contiguous, and views whose rows start a float late; B·H over
+    65535), each call twice and bitwise equal, no copy, o and lse within
+    K2_FP32_EDGE_REL of their plain versions' largest magnitudes (lse of
+    max(it, WIDE_M_FLOOR)), dk and dv of the call's largest plain
+    gradient; then each timed at FP32_WIDE_BLOCKED_TIMED beside its plain
+    version, SDPA (fp32 forward; whole fp32 backward), its bound and the
+    loops it replaced (REPLACED_WIDE_BLOCKED_MS). Phase 17b's fp32 trace
+    holds their calls at D 256 to these kernels alone.
 18. gradient, --pallas_mlp on: phase 8 (use_pallas_attn) on the same
     weights with every MLP
     on the fused route, against the same JAX fp32 train golden (the
@@ -763,6 +777,27 @@ TC_BLOCKED_SLOW_REPS = 8
 TC_BLOCKED_TRACED = (("float16", 64), ("float16", 128), ("bfloat16", 192),
                      ("float16", 192), ("bfloat16", 256), ("float16", 256))
 TC_BLOCKED_K6_TRACED = TC_BLOCKED_TRACED + (("bfloat16", 64),)
+# Phase 17e, the fp32 K4 and K5 at head dims 129-256 on the wide register
+# tiles (csrc/flash_fwd_simt.cu, csrc/flash_bwd_simt.cu) at their edges,
+# (layout, (B, S, H, D)): S around K4's 32-key groups, 64-row query tiles
+# and 256-key score tiles and K5's 32-key blocks up to the 518-px model's
+# 1370; D 136 and 200 (the 192 and 256 tiles with zero-filled columns), 192
+# and 256; views of a qkv buffer and contiguous tensors (16-byte copies),
+# views whose rows start one float late (4-byte copies); B·H over 65535 at
+# a short S. Held to K2_FP32_EDGE_REL as K4 and K5 at D <= 128 (lse of
+# max(its largest, WIDE_M_FLOOR): at S = 1 it is one score)
+K4K5_FP32_WIDE_EDGE_SHAPES = tuple(
+    (layout, (1, s, 2, d)) for layout in ("qkv", "dense", "unaligned")
+    for s in (1, 31, 32, 33, 63, 65, 129, 1025, 1370)
+    for d in (136, 192, 200, 256)) + (("qkv", (1, 8, 65537, 136)),
+                                      ("dense", (65537, 8, 1, 136)))
+# and timed at these shapes beside their plain versions, SDPA and the
+# times, at the first, of the csrc/flash_blocked.cu loops they replaced
+# (flash_fwd_wide_kernel<float>, flash_bwd_dkdv_wide_kernel<float>; device
+# ms of the timing tool's A/B, PERF.md §6, H100 80GB HBM3 at 700 W)
+FP32_WIDE_BLOCKED_TIMED = ((32, 1370, 12, 256),)
+REPLACED_WIDE_BLOCKED_MS = {"flash_fwd": "86.08-86.17",
+                            "flash_bwd_dkdv": "249.69-250.01"}
 WIDE_KERNELS = ("attn_fwd", "attn_bwd", "hp_fwd", "hp_bwd", "fused_fwd",
                 "fused_bwd", "qkv_fwd", "qkv_bwd", "flash_fwd",
                 "flash_bwd_dkdv", "flash_bwd_dq")
@@ -1811,6 +1846,101 @@ def phase_tc_blocked(counts, fb, dev):
     return rows, worst
 
 
+def fp32_wide_k4k5_edges(fb, dev) -> dict:
+    """The fp32 K4 and K5 past D 128 at K4K5_FP32_WIDE_EDGE_SHAPES against
+    their plain versions (K5 on the plain forward's lse and delta): each
+    call twice and bitwise equal, no copy, o within K2_FP32_EDGE_REL of the
+    plain version's largest magnitude (lse of max(its largest,
+    WIDE_M_FLOOR)), dk and dv of the call's largest plain gradient.
+    Returns the worst error of o (K4) and of dk and dv (K5)."""
+    import torch
+
+    worst = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0}
+    for layout, (b, s, h, d) in K4K5_FP32_WIDE_EDGE_SHAPES:
+        tag = f"fp32 wide K4/K5 edge {layout} (B, S, H, D) = {(b, s, h, d)}"
+        q, k, v, do = fp32_bwd_operands(fb, layout, b, s, h, d,
+                                        8400 + s + d, dev)
+        scale = d ** -0.5
+        copies = fb.COPIES
+        (o, lse), (o2, lse2) = (fb.flash_fwd(q, k, v) for _ in range(2))
+        o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+        delta = fb.flash_delta(o_r, do)
+        runs = []
+        for _ in range(2):
+            _, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d), device=dev),
+                                 h)
+            fb.flash_bwd_dkdv(q, k, v, do, lse_r, delta, dk, dv)
+            runs.append((dk, dv))
+        want = fb.flash_bwd_reference(q, k, v, o_r, lse_r, do, scale)
+        torch.cuda.synchronize()
+        check(fb.COPIES == copies, f"{tag}: {fb.COPIES - copies} copies")
+        check(torch.equal(o, o2) and torch.equal(lse, lse2)
+              and all(torch.equal(x, y) for x, y in zip(*runs)),
+              f"{tag}: two runs on the same inputs differ")
+        o_err = (o - o_r).abs().max().item()
+        o_top = o_r.abs().max().item()
+        lse_err = (lse - lse_r).abs().max().item()
+        lse_top = max(lse_r.abs().max().item(), WIDE_M_FLOOR)
+        top = max(w.abs().max().item() for w in want)
+        errs = [(g - w).abs().max().item() for g, w in zip(runs[0], want[1:])]
+        check(all(torch.isfinite(x).all().item() for x in (o, lse, *runs[0]))
+              and o_err <= K2_FP32_EDGE_REL * o_top
+              and lse_err <= K2_FP32_EDGE_REL * lse_top
+              and max(errs) <= K2_FP32_EDGE_REL * top,
+              f"{tag}: o {o_err} of {o_top}, lse {lse_err} of {lse_top}, "
+              f"dk, dv {errs} of {top}: over {K2_FP32_EDGE_REL} x them")
+        worst["flash_fwd"] = max(worst["flash_fwd"], o_err)
+        worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], *errs)
+        log(f"[fp32 wide blocked] {tag}: o, lse max abs err {o_err!r}, "
+            f"{lse_err!r} (largest {o_top!r}, {lse_top!r}); dk, dv {errs!r} "
+            f"(largest gradient {top!r}); bitwise repeat True")
+        del q, k, v, do, o, lse, o2, lse2, o_r, lse_r, delta, runs, want
+    return worst
+
+
+def phase_fp32_wide_blocked(counts, fb, dev):
+    """Phase 17e: the fp32 K4 and K5 at head dims 129-256 on the wide
+    register tiles. Their edges (fp32_wide_k4k5_edges, each case launching
+    each kernel twice) with the counts reset just before; then each timed
+    at FP32_WIDE_BLOCKED_TIMED beside its plain version, SDPA and its
+    bound, and printed beside the loops it replaced
+    (REPLACED_WIDE_BLOCKED_MS). Returns the rows per ("float32", kernel,
+    shape) and the worst errors per kernel."""
+    import gc
+
+    import torch
+
+    counts(reset=True)
+    worst = fp32_wide_k4k5_edges(fb, dev)
+    n = len(K4K5_FP32_WIDE_EDGE_SHAPES)
+    launched = counts()
+    check(launched == only(FLASH_FWD_LAUNCHES=2 * n,
+                           FLASH_BWD_DKDV_LAUNCHES=2 * n),
+          f"the edge cases launched {launched}, want K4 and K5 {2 * n} each")
+    log(f"[fp32 wide blocked] {n} edge cases, each call twice and bitwise "
+        f"equal, worst max abs error: {worst!r}")
+    rows = {}
+    for i, shape in enumerate(FP32_WIDE_BLOCKED_TIMED):
+        calls = tc_blocked_calls(fb, shape, torch.float32, 9800 + i, dev)
+        for name in ("flash_fwd", "flash_bwd_dkdv"):
+            kernel, plain, library, flops, nbytes = calls[name]
+            row = {"ms": cuda_ms(kernel)}
+            row["plain_ms"] = cuda_ms(plain, TC_BLOCKED_SLOW_REPS, 1)
+            row["library_ms"] = library()
+            row["bound_ms"], row["bound_by"] = bound(
+                flops, nbytes, DTYPE_PEAK["float32"][0])
+            rows[("float32", name, shape)] = row
+            log(f"[fp32 wide blocked] float32 {name} {shape} on "
+                f"{nvidia_smi()}: "
+                + " ".join(f"{k}={v!r}" for k, v in row.items())
+                + f" (the loops it replaced: "
+                f"{REPLACED_WIDE_BLOCKED_MS[name]} device ms)")
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
 def in_child(fn_name: str, what: str) -> None:
     """Runs chip_smoke.fn_name() in a process of its own (whose profiler
     sessions are its first), logs its output, and fails if it failed."""
@@ -2629,11 +2759,16 @@ def wide_kernel_names(name: str, dt_name: str, d: int):
     kd = 192 if d <= 192 else 256
     if name.startswith("flash"):
         # csrc/flash_fwd.cu's and flash_bwd.cu's take tensor maps (K6's
-        # wide tiles a kernel of their own); csrc/flash_blocked.cu's
-        # run-time head dim takes pointers
+        # wide tiles a kernel of their own); the fp32 K4 and K5 to 256 run
+        # on the wide register tiles of csrc/flash_fwd_simt.cu and
+        # flash_bwd_simt.cu; csrc/flash_blocked.cu's run-time head dim
+        # (the fp32 K6, every dtype past 256) takes pointers
         kernel = "flash_bwd_dq_tc_wide" if name == "flash_bwd_dq" else name
-        return [f"{kernel}_kernel<{t},{kd}>(CUtensorMap" if tc
-                else f"{name}_wide_kernel<{t}>"]
+        if tc:
+            return [f"{kernel}_kernel<{t},{kd}>(CUtensorMap"]
+        if dt_name == "float32" and d <= 256 and name != "flash_bwd_dq":
+            return [f"{name}_wide_simt_kernel<{kd}>"]
+        return [f"{name}_wide_kernel<{t}>"]
     if name == "attn_bwd":
         # csrc/attn_bwd_tc.cu's prep, wide dk/dv and dq, and bias sum;
         # in fp32 to 256 csrc/attn_bwd_simt.cu's rows, dk/dv, dq sum and
@@ -3969,7 +4104,18 @@ def main() -> int:
     t_tc = time.perf_counter()
     tc_rows, tc_worst = phase_tc_blocked(every, fb, dev)
     log(f"[tc blocked] phase 17d took {time.perf_counter() - t_tc:.1f} s")
-    lap("phases 17c-17d")
+    # ---- the fp32 K4 and K5 at head dims 129-256 on the wide register
+    # tiles: their times at (32, 1370, 12, 256) join the wide lines' _b32
+    # keys, their edges' worst error the lines' max_abs_err
+    t_w = time.perf_counter()
+    w_rows, w_worst = phase_fp32_wide_blocked(every, fb, dev)
+    tc_rows.update(w_rows)
+    for name, err in w_worst.items():
+        wide_worst[("float32", name)] = max(wide_worst[("float32", name)],
+                                            err)
+    log(f"[fp32 wide blocked] phase 17e took "
+        f"{time.perf_counter() - t_w:.1f} s")
+    lap("phases 17c-17e")
     with check_fc2_bwd(mf) as k3:
         n = phase_grad(every, dev, ckpt_path, tag="grad pallas_mlp",
                        use_pallas_mlp=True)
@@ -4198,7 +4344,8 @@ def main() -> int:
         trainer_runs[("float32", name)] = (
             f"main() {' '.join(LONG_FP32_FLAGS)}", long32)
     # the tensor-core K4, K5 and K6 (phase 17d): the edges' worst error, and
-    # at D 256 the times at (32, 1370, 12, 256)
+    # at D 256 the times at (32, 1370, 12, 256) (the fp32 K4 and K5's,
+    # phase 17e's)
     def tc_blocked(dt_name, name, shape, suffix=""):
         row = tc_rows.get((dt_name, name, shape))
         if row is None:
@@ -4248,6 +4395,10 @@ def main() -> int:
                 "flash_fwd.cu" if names[0].startswith("flash_fwd_kernel") \
                 else "flash_bwd.cu" if names[0].startswith(
                     ("flash_bwd_dkdv_kernel", "flash_bwd_dq_tc_wide")) else \
+                "flash_fwd_simt.cu" if names[0].startswith(
+                    "flash_fwd_wide_simt") else \
+                "flash_bwd_simt.cu" if names[0].startswith(
+                    "flash_bwd_dkdv_wide_simt") else \
                 "flash_blocked.cu" if name.startswith("flash") else \
                 "attn_fwd_tc.cu" if names[0].startswith("attn_fwd_tc") else \
                 "hp_bwd_tc.cu" if names[0].startswith("hp_bwd_tc") else \

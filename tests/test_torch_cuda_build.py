@@ -129,14 +129,15 @@ def _linked_library_changes(tmp_path, name, sources, edited):
 
 @pytest.mark.parametrize("edited", ["flash_blocked.cu", "flash_bwd_simt.cu",
                                     "cp_async.cuh", "flash_fwd_simt.cu",
-                                    "simt_tiles.cuh"])
+                                    "simt_tiles.cuh", "simt_wide.cuh"])
 def test_the_fp32_backward_source_enters_the_cuda_core_library(tmp_path,
                                                                edited):
     # the CUDA-core library of K4-K6 links csrc/flash_bwd_simt.cu (the fp32
-    # K5 and K6 at head dims <= 128) and csrc/flash_fwd_simt.cu (the fp32
-    # K4 there) into csrc/flash_blocked.cu's: an edit to any of them, or to
-    # the simt_tiles.cuh and cp_async.cuh they include, names a new
-    # library, and the library is not the one of flash_blocked.cu alone
+    # K5 at head dims <= 256 and K6 at <= 128) and csrc/flash_fwd_simt.cu
+    # (the fp32 K4 at <= 256; both past 128 on csrc/simt_wide.cuh's tiles)
+    # into csrc/flash_blocked.cu's: an edit to any of them, or to the
+    # simt_tiles.cuh, simt_wide.cuh and cp_async.cuh they include, names a
+    # new library, and the library is not the one of flash_blocked.cu alone
     from vision_transformers_torch_xla_tpu_torch.ops import flash_blocked
 
     sources = flash_blocked.CUDA_CORE_SOURCES
@@ -145,6 +146,7 @@ def test_the_fp32_backward_source_enters_the_cuda_core_library(tmp_path,
     real = cuda_build.CSRC_DIR
     for src in sources[1:]:
         assert '#include "simt_tiles.cuh"' in (real / src).read_text()
+        assert '#include "simt_wide.cuh"' in (real / src).read_text()
     assert '#include "cp_async.cuh"' in (real / "simt_tiles.cuh").read_text()
     _linked_library_changes(tmp_path, "flash_blocked", sources, edited)
 

@@ -120,10 +120,19 @@ def test_plain_fwd_matches_jax_fp32(s):
 # largest magnitudes.
 FP32_FWD_EDGE_S = (1, 63, 65, 127, 129)
 FP32_FWD_EDGE_REL = 1e-5
+# and past 128 (flash_fwd_wide_simt_kernel, and K5's
+# flash_bwd_dkdv_wide_simt_kernel in csrc/flash_bwd_simt.cu): S around the
+# 32-key groups of their score tiles and key blocks and past the 64-row
+# query tiles, the compile-time head dims 192 and 256 and 136 (the 192
+# tiles with zero columns)
+FP32_WIDE_EDGE_S = (1, 31, 33, 65, 129, 300)
+FP32_WIDE_EDGE_D = (136, 192, 256)
+FP32_FWD_EDGE_CASES = [(s, d) for s in FP32_FWD_EDGE_S
+                       for d in (32, 48, 64, 128)] + [
+    (s, d) for s in FP32_WIDE_EDGE_S for d in FP32_WIDE_EDGE_D]
 
 
-@pytest.mark.parametrize("d", (32, 48, 64, 128))
-@pytest.mark.parametrize("s", FP32_FWD_EDGE_S)
+@pytest.mark.parametrize("s,d", FP32_FWD_EDGE_CASES)
 def test_plain_fwd_matches_jax_fp32_at_tile_edges(s, d):
     o, lse, want_o, want_lse = _plain_fwd_and_jax(s, d)
     for got, want in ((o, want_o), (lse, want_lse)):
@@ -576,13 +585,17 @@ def test_kernels_contract_on_cuda(cuda_device):
 @pytest.mark.parametrize("dtype,d", [
     (dt, d) for dt in ("bfloat16", "float16") for d in (136, 192, 256)] + [
     (dt, 320) for dt in ("bfloat16", "float16", "float32")] + [
-    ("float32", 256), ("bfloat16", 1024)])
+    ("float32", 256), ("bfloat16", 1024), ("float32", 136),
+    ("float32", 192)])
 def test_wide_heads_blocked_match_plain_on_cuda(cuda_device, dtype, d):
     # F8: K4, K5 and K6 at a head dim over 128 through
     # fused_attention_qkv_cols at S > 1024, against their plain versions:
     # K4, K5 and K6 on the tensor cores' wide tiles in bf16 and fp16 to
-    # 256, the rest on the CUDA cores (csrc/flash_blocked.cu's 64-column
-    # chunks); bf16 to 2e-2 of the largest value, fp16 5e-3, fp32 1e-4 (as
+    # 256, the rest on the CUDA cores (the fp32 K4 and K5 to 256 on the
+    # wide register tiles of csrc/flash_fwd_simt.cu and
+    # csrc/flash_bwd_simt.cu, K6 and every dtype past 256 on
+    # csrc/flash_blocked.cu's 64-column chunks); bf16 to 2e-2 of the
+    # largest value, fp16 5e-3, fp32 1e-4 (as
     # test_kernels_fp32_fp16_on_cuda); lse to 1e-4; K4 run twice bitwise
     # equal
     b, s, h = 1, 1100, 2
@@ -778,12 +791,14 @@ def _jax_bwd(q, k, v, do, scale):
     return back(o), back(lse)[..., 0], back(dq), back(dk), back(dv)
 
 
-@pytest.mark.parametrize("d", FP32_BWD_EDGE_D)
-@pytest.mark.parametrize("s", FP32_BWD_EDGE_S)
+@pytest.mark.parametrize("s,d", [
+    (s, d) for s in FP32_BWD_EDGE_S for d in FP32_BWD_EDGE_D] + [
+    (s, d) for s in FP32_WIDE_EDGE_S for d in FP32_WIDE_EDGE_D])
 def test_fp32_bwd_references_match_k5_k6_at_tile_edges(s, d):
     # the plain K5 and K6, which the fp32 kernels are held to on the card,
     # against JAX's kernels on the same lse and delta (delta = rowsum(dO o),
-    # as JAX's _flash_bwd computes it)
+    # as JAX's _flash_bwd computes it); past D 128 the plain K5 (dk, dv) is
+    # the wide fp32 K5's, K6's (dq) csrc/flash_blocked.cu's chunks
     b, h = 1, 2
     q, k, v, do = (_rand((b, h, s, d), s + d + i) for i in range(4))
     scale = d ** -0.5
@@ -888,6 +903,63 @@ def test_fp32_k4_matches_plain_at_tile_edges_on_cuda(cuda_device, layout,
         assert err <= FP32_FWD_EDGE_REL * w.abs().max().item(), err
 
 
+# the fp32 K4 and K5 past 128 (flash_fwd_wide_simt_kernel,
+# flash_bwd_dkdv_wide_simt_kernel) on the card: S around the 32-key groups
+# of K4's score tiles and K5's key blocks, their 64-row query tiles and
+# K4's 256-key score tiles up to the 518-px model's 1370; D 136 and 200
+# (the 192 and 256 tiles with zero columns), 192 and 256; the three
+# layouts; B·H over 65535
+K4K5_FP32_WIDE_EDGE_CASES = [
+    (layout, (1, s, 2, d)) for layout in ("qkv", "dense", "unaligned")
+    for s in (1, 31, 32, 33, 63, 65, 129, 1025, 1370)
+    for d in (136, 192, 200, 256)] + [
+    ("qkv", (1, 8, 65537, 136)), ("dense", (65537, 8, 1, 136))]
+# lse past D 128: at S = 1 it is one score, a sum of up to 256 products whose
+# rounding does not shrink with |lse|, so it is held within
+# FP32_FWD_EDGE_REL of max(|lse|, 1)
+WIDE_LSE_FLOOR = 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,shape", K4K5_FP32_WIDE_EDGE_CASES)
+def test_fp32_wide_k4_k5_match_plain_at_tile_edges_on_cuda(cuda_device,
+                                                           layout, shape):
+    # each call twice, bitwise equal (no float atomics), no copy: o within
+    # FP32_FWD_EDGE_REL of the plain version's largest magnitude (lse of
+    # max(its largest, WIDE_LSE_FLOOR)), dk and dv (on the plain forward's
+    # lse and delta) within FP32_BWD_EDGE_REL of the call's largest plain
+    # gradient
+    b, s, h, d = shape
+    q, k, v, do = _fp32_bwd_operands(layout, b, s, h, d, 70 + s + d,
+                                     cuda_device)
+    scale = d ** -0.5
+    before = _counts()
+    (o, lse), (o2, lse2) = (fb.flash_fwd(q, k, v) for _ in range(2))
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+    delta = fb.flash_delta(o_r, do)
+    runs = []
+    for _ in range(2):
+        _, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d),
+                                         device=cuda_device), h)
+        fb.flash_bwd_dkdv(q, k, v, do, lse_r, delta, dk, dv)
+        runs.append((dk, dv))
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 2, before[1] + 2, *before[2:])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o - o_r).abs().max().item() <= \
+        FP32_FWD_EDGE_REL * o_r.abs().max().item()
+    assert (lse - lse_r).abs().max().item() <= FP32_FWD_EDGE_REL * max(
+        lse_r.abs().max().item(), WIDE_LSE_FLOOR)
+    want = fb.flash_bwd_reference(q, k, v, o_r, lse_r, do, scale)
+    limit = FP32_BWD_EDGE_REL * max(w.abs().max().item() for w in want)
+    for g, w in zip(runs[0], want[1:]):
+        assert torch.isfinite(g).all()
+        err = (g - w).abs().max().item()
+        assert err <= limit, (err, limit)
+
+
 # one session in a fresh process: in a long one (the whole cuda suite)
 # torch.profiler's sessions stop recording kernels
 _K5K6_TRACE = """
@@ -922,14 +994,14 @@ for layout in ("qkv", "unaligned"):
                 if e.device_type.name == "CUDA"
                 and "anonymous namespace" in e.key)
 print(json.dumps(out))
-""" % (FP32_BWD_EDGE_D,)
+""" % (FP32_BWD_EDGE_D + FP32_WIDE_EDGE_D,)
 
 
 @pytest.fixture(scope="module")
 def fp32_k5k6_trace():
     """The csrc/ kernels one fp32 call of K5, of K6 and of K4 launches at
-    each of FP32_BWD_EDGE_D, in a qkv view and in one whose rows start a
-    float late, traced by torch.profiler."""
+    each of FP32_BWD_EDGE_D and FP32_WIDE_EDGE_D, in a qkv view and in one
+    whose rows start a float late, traced by torch.profiler."""
     import json
     import subprocess
     import sys
@@ -968,6 +1040,21 @@ def test_fp32_k4_launches_the_register_tiled_kernel_alone(fp32_k5k6_trace,
     names = fp32_k5k6_trace[f"fwd{d}{layout}"]
     assert len(names) == 1 and \
         f"::flash_fwd_simt_kernel<{args}>(" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv", "unaligned"])
+@pytest.mark.parametrize("d", FP32_WIDE_EDGE_D)
+def test_fp32_wide_k4_k5_launch_their_kernels_alone(fp32_k5k6_trace, d,
+                                                    layout):
+    # past 128 K4 and K5 on the wide register tiles (<kD>, 192 or 256), K6
+    # on csrc/flash_blocked.cu's 64-column chunks
+    kd = 192 if d <= 192 else 256
+    for name, kernel in (("fwd", f"flash_fwd_wide_simt_kernel<{kd}>("),
+                         ("dkdv", f"flash_bwd_dkdv_wide_simt_kernel<{kd}>("),
+                         ("dq", "flash_bwd_dq_wide_kernel<float>(")):
+        names = fp32_k5k6_trace[f"{name}{d}{layout}"]
+        assert len(names) == 1 and f"::{kernel}" in names[0], names
 
 
 # The kernels one call of the tensor-core K4 and K5, and of K6 beside them,

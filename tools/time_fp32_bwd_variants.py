@@ -2,16 +2,18 @@
 flash_bwd_dkdv_simt_kernel, flash_bwd_dq_simt_kernel) against variants of
 them, on one NVIDIA GPU.
 
-    python tools/time_fp32_bwd_variants.py [--batch 32] [--variants NAME ...]
+    python tools/time_fp32_bwd_variants.py [--batch 32] [--heads 12]
+        [--head_dim 64] [--variants NAME ...]
 
 Each variant is a text edit of a copy of the checkout's
-csrc/flash_bwd_simt.cu (with csrc/simt_tiles.cuh, its tiles, written into
-it), built with the port's nvcc flags under
+csrc/flash_bwd_simt.cu (with csrc/simt_wide.cuh and csrc/simt_tiles.cuh,
+its tiles, written into it), built with the port's nvcc flags under
 build/variants/<name>/ (all builds started together) with a C shim around
 its `flash_bwd_simt::dkdv` and `dq`, and launched on seeded fp32 q, k, v
-read from a (B, 1370, 3 * 12 * 64) projection, dO a view of (B, 1370, 12,
-64) memory, and lse and delta of the plain forward (the 518-px model's
-shapes), writing views of one dqkv buffer as `flash_bwd` does.
+read from a (B, 1370, 3 * H * D) projection, dO a view of (B, 1370, H,
+D) memory, and lse and delta of the plain forward (the 518-px model's
+shapes at H = 12, D = 64), writing views of one dqkv buffer as
+`flash_bwd` does.
 
 * as_is: the committed kernels;
 * no_scores: the score products (s = q k^T, dp = dO v^T) left out (times
@@ -28,6 +30,20 @@ shapes), writing views of one dqkv buffer as `flash_bwd` does.
   rows with one, instead of 128 rows with two;
 * unroll1, unroll4: the score and sum loops unrolled 1 or 4 times instead
   of 2.
+
+Past --head_dim 128 the variants that reach K5's wide register tiles
+(flash_bwd_dkdv_wide_simt_kernel) count, and K6 (csrc/flash_blocked.cu's
+there) is not timed:
+
+* wide_no_scores, wide_no_sums: the score products (s^T, dp^T) or the
+  summed ones (dv, dk) left out (times only);
+* wide_no_stream: the first query tile loaded alone, the later tiles
+  reading what the buffer holds (times only: what waiting for each tile's
+  q, dO, lse and delta costs);
+* wide_dot_unroll1: keys_dot's loop over the head dim unrolled once
+  instead of twice;
+* wide_sum_unroll1: keys_sum's loop over the queries unrolled once
+  instead of twice.
 
 Per variant: the median CUDA-event time of one launch of each kernel (10
 launches a sample, 9 samples), the max abs error of each output against
@@ -63,7 +79,7 @@ from vision_transformers_torch_xla_tpu_torch.ops import (  # noqa: E402
 
 OUT = os.path.join(REPO, "build", "variants")
 SOURCE = "flash_bwd_simt.cu"
-S, H, D = 1370, 12, 64
+S = 1370
 K5_SCORES = "score_tiles<kD>(s, dp, ks, bq, vs, bdo, at.r0, at.c);"
 K6_SCORES = "score_tiles<kD>(s, dp, qs, bk, dos, bv, at.r0, at.c);"
 K5_SUMS = "sum_tile<kD, kTile>(acc,"
@@ -72,6 +88,12 @@ LOOPS = ("#pragma unroll 2\n  for (int d = 0; d < kD; d += 4) {",
          "#pragma unroll 2\n  for (int t = 0; t < kK; t += 4) {")
 EXP = "float exp_p(float x) { return __expf(x); }"
 SHAPE_64 = "#define VTX_BWD_SIMT_64 64, 128, 2"
+# the wide K5's products: s^T or dp^T and the sums, each for a whole and a
+# short query tile
+WIDE_DOTS = tuple(f"keys_dot<kD, {j}>(x, kv, qd);" for j in (1, 2))
+WIDE_SUMS = tuple(f"keys_sum<kD, {n}>(acc, pd, y, lane);"
+                  for n in ("kTile / 2", "kTile"))
+KEYS_SUM_LOOP = "#pragma unroll 2\n  for (int q = 0; q < kK; q += 4) {"
 
 
 def unrolled(n: str):
@@ -101,8 +123,16 @@ VARIANTS = {
     "rows128_1buf": {SHAPE_64: "#define VTX_BWD_SIMT_64 64, 128, 1"},
     "unroll1": unrolled("unroll 1"),
     "unroll4": unrolled("unroll 4"),
+    "wide_no_scores": {call: ";" for call in WIDE_DOTS},
+    "wide_no_sums": {call: ";" for call in WIDE_SUMS},
+    "wide_no_stream": {"    if (q0 + kTile < S) stream(q0 + kTile);": ""},
+    "wide_dot_unroll1": {call: call.replace(">(", ", 1>(")
+                         for call in WIDE_DOTS},
+    "wide_sum_unroll1": {KEYS_SUM_LOOP: KEYS_SUM_LOOP.replace("unroll 2",
+                                                              "unroll 1")},
 }
-TIMES_ONLY = {"no_scores", "no_sums", "no_exp", "no_stream"}
+TIMES_ONLY = {"no_scores", "no_sums", "no_exp", "no_stream",
+              "wide_no_scores", "wide_no_sums", "wide_no_stream"}
 SHIM = """
 extern "C" int variant_dkdv(const float* q, const float* k, const float* v,
     const float* dout, const float* lse, const float* delta, float* dk,
@@ -189,12 +219,16 @@ def ms(fn) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--heads", type=int, default=12)
+    ap.add_argument("--head_dim", type=int, default=64)
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
                     choices=list(VARIANTS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_fp32_bwd_variants: needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    H, D = args.heads, args.head_dim
+    wide = D > 128  # K6 is csrc/flash_blocked.cu's there: K5 alone
     torch.backends.cuda.matmul.allow_tf32 = False
     sources = {n: variant_source(VARIANTS[n]) for n in args.variants}
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -248,21 +282,25 @@ def main() -> int:
                 raise RuntimeError(f"{name}: K6 launch failed ({rc})")
 
         k5()
-        k6()
+        if not wide:
+            k6()
         torch.cuda.synchronize()
-        row = {"k5_ms": ms(k5), "k6_ms": ms(k6), "ptxas": ptxas(log)}
+        row = {"k5_ms": ms(k5), "ptxas": ptxas(log)}
+        if not wide:
+            row["k6_ms"] = ms(k6)
         if name not in TIMES_ONLY:
             row["max_abs_err_over_max"] = [
                 (g - w).abs().max().item() / top
-                for g, w in zip((dq, dk, dv), want)]
+                for g, w in zip((dq, dk, dv)[wide:], want[wide:])]
         out["variants"][name] = row
 
     dense = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention(*dense)
     out["flash_bwd_dkdv_ms"] = ms(lambda: fb.flash_bwd_dkdv(
         q, k, v, do, lse, delta, dk, dv, scale))
-    out["flash_bwd_dq_ms"] = ms(lambda: fb.flash_bwd_dq(
-        q, k, v, do, lse, delta, dq, scale))
+    if not wide:
+        out["flash_bwd_dq_ms"] = ms(lambda: fb.flash_bwd_dq(
+            q, k, v, do, lse, delta, dq, scale))
     out["sdpa_bwd_ms"] = ms(lambda: torch.autograd.grad(
         sdpa, dense, do.contiguous(), retain_graph=True))
     print(json.dumps(out), flush=True)

@@ -2,15 +2,16 @@
 against variants of it, on one NVIDIA GPU; the forward twin of
 tools/time_fp32_bwd_variants.py, whose helpers it uses.
 
-    python tools/time_fp32_fwd_variants.py [--batch 32] [--variants NAME ...]
+    python tools/time_fp32_fwd_variants.py [--batch 32] [--heads 12]
+        [--head_dim 64] [--variants NAME ...]
 
 Each variant is a text edit of a copy of the checkout's
-csrc/flash_fwd_simt.cu (with csrc/simt_tiles.cuh written into it), built
-with the port's nvcc flags under build/variants/<name>/ (all builds
-started together) with a C shim around its `flash_fwd_simt::fwd`, and
-launched on seeded fp32 q, k, v read from a (B, 1370, 3 * 12 * 64)
-projection (the 518-px model's shapes), writing o into (B, 1370, 12, 64)
-memory as `flash_fwd` does.
+csrc/flash_fwd_simt.cu (with csrc/simt_wide.cuh and csrc/simt_tiles.cuh
+written into it), built with the port's nvcc flags under
+build/variants/<name>/ (all builds started together) with a C shim around
+its `flash_fwd_simt::fwd`, and launched on seeded fp32 q, k, v read from a
+(B, 1370, 3 * H * D) projection (the 518-px model's shapes at H = 12, D =
+64), writing o into (B, 1370, H, D) memory as `flash_fwd` does.
 
 * as_is: the committed kernel;
 * no_scores: the score product (s = q k^T) left out (times only);
@@ -27,6 +28,29 @@ memory as `flash_fwd` does.
   rows with 8 x 8 score tiles (4 warps);
 * unroll1, unroll4: the score and p v loops unrolled 1 or 4 times instead
   of 2.
+
+Past --head_dim 128 the variants that reach the wide register tiles
+(flash_fwd_wide_simt_kernel) count:
+
+* wide_no_scores, wide_no_pv: the score product or p v left out (times
+  only);
+* wide_no_stream: only the first pieces loaded, the later steps reading
+  what the slots hold (times only: what the stream's waits cost);
+* wide_no_k_copy, wide_no_v_copy: the same for the K or the V pieces
+  alone (times only);
+* wide_copy_twice: every piece copied twice into its slot (the same
+  data: what the copies' own work costs);
+* wide_nj8: 256-key score tiles (s on 8 x 8 register tiles, K pieces of
+  256 keys x 16 columns) instead of 128-key ones (8 x 4, 128 x 32);
+  wide_nj5, wide_nj6: 160- and 192-key tiles with K pieces of 32 columns
+  (V pieces of 20 and 24 keys);
+* wide_piece8192: pieces of 8192 floats (K 128 keys x 64 columns, V 32
+  keys) instead of 4096 (half the stream's steps and barriers);
+* wide_rows32: blocks of 32 query rows (4 warps, two blocks an SM)
+  instead of 64 (8 warps, one);
+* wide_slots4: a ring of 4 slots (3 copies in flight) instead of 3;
+* wide_pv_unroll1: p v's loop over a V piece's keys unrolled once instead
+  of twice.
 
 Per variant: the median CUDA-event time of one launch (10 launches a
 sample, 9 samples), the max abs error of o against the plain version
@@ -52,6 +76,7 @@ TOOLS = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, TOOLS)
 
 from time_fp32_bwd_variants import (  # noqa: E402
+    KEYS_SUM_LOOP,
     build,
     fb,
     ms,
@@ -60,7 +85,7 @@ from time_fp32_bwd_variants import (  # noqa: E402
 )
 
 SOURCE = "flash_fwd_simt.cu"
-S, H, D = 1370, 12, 64
+S = 1370
 SCORES = "q_kt<kD>(s, qs, ks, r0, lx);"
 PV = "p_v<kD>(acc, ps, vs, r0, lx, min(kTile, (S - k0 + 3) & ~3));"
 NEXT_K = "if (next) stream(ks, kg, k0 + kTile);"
@@ -69,6 +94,12 @@ LOOPS = ("#pragma unroll 2\n  for (int d = 0; d < kD; d += 4) {\n"
          "    float4 y[F::kNJ];",
          "#pragma unroll 2\n  for (int t = 0; t < n; t += 4) {")
 EXP = "float exp_p(float x) { return __expf(x); }"
+# the wide kernel's copies of a K and of a V piece into their ring slot
+K_COPY = ("copy_tile<W::kKC, W::kKeys, W::kThr>(dst, kg + u * W::kKC, in.sr, "
+          "k0,\n                                             S, D - u * "
+          "W::kKC, vec);")
+V_COPY = ("copy_tile<kD, W::kVR, W::kThr>(\n            dst, vg, in.sr, k0 + "
+          "(u - W::kKPieces) * W::kVR, S, D, vec);")
 
 
 def unrolled(n: str):
@@ -89,8 +120,30 @@ VARIANTS = {
     "rows16": {"kLX = kD == 64 ? 8 : 16;": "kLX = 16;"},
     "unroll1": unrolled("unroll 1"),
     "unroll4": unrolled("unroll 4"),
+    "wide_no_scores": {"      if (live)\n        wide_scores_n<kD>(":
+                       "      if (0)\n        wide_scores_n<kD>("},
+    "wide_no_pv": {"keys_sum<kD, W::kVR, W::kKeys>(acc,":
+                   "if (0) keys_sum<kD, W::kVR, W::kKeys>(acc,"},
+    "wide_no_stream": {"    if (t < n_steps) {":
+                       "    if (t < W::kSlots - 1) {"},
+    "wide_no_k_copy": {K_COPY: "{ if (t < W::kSlots - 1) " + K_COPY + " }"},
+    "wide_no_v_copy": {V_COPY: "{ if (t < W::kSlots - 1) " + V_COPY + " }"},
+    "wide_copy_twice": {K_COPY: "{ " + K_COPY + " " + K_COPY + " }",
+                        V_COPY: "{ " + V_COPY + " " + V_COPY + " }"},
+    "wide_nj8": {"constexpr int kWideNJ = 4;": "constexpr int kWideNJ = 8;"},
+    "wide_nj5": {"kWideNJ = 4;": "kWideNJ = 5;",
+                 "kWidePiece = 4096;": "kWidePiece = 5120;"},
+    "wide_nj6": {"kWideNJ = 4;": "kWideNJ = 6;",
+                 "kWidePiece = 4096;": "kWidePiece = 6144;"},
+    "wide_piece8192": {"kWidePiece = 4096;": "kWidePiece = 8192;"},
+    "wide_rows32": {"kWideRows = 64;": "kWideRows = 32;"},
+    "wide_slots4": {"kWideSlots = 3;": "kWideSlots = 4;"},
+    "wide_pv_unroll1": {KEYS_SUM_LOOP: KEYS_SUM_LOOP.replace("unroll 2",
+                                                             "unroll 1")},
 }
-TIMES_ONLY = {"no_scores", "no_pv", "no_exp", "no_stream"}
+TIMES_ONLY = {"no_scores", "no_pv", "no_exp", "no_stream", "wide_no_scores",
+              "wide_no_pv", "wide_no_stream", "wide_no_k_copy",
+              "wide_no_v_copy"}
 SHIM = """
 extern "C" int variant_fwd(const float* q, const float* k, const float* v,
     float* o, float* lse, int B, int H, int S, int D, float scale,
@@ -104,9 +157,12 @@ extern "C" int variant_fwd(const float* q, const float* k, const float* v,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--heads", type=int, default=12)
+    ap.add_argument("--head_dim", type=int, default=64)
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
                     choices=list(VARIANTS))
     args = ap.parse_args()
+    H, D = args.heads, args.head_dim
     if not torch.cuda.is_available():
         print("time_fp32_fwd_variants: needs an NVIDIA GPU", file=sys.stderr)
         return 1

@@ -50,8 +50,10 @@ fused_fwd_plain are the plain versions of K1 (attn_fwd_reference, with the
 stats) and K7 (fused_fwd_reference) on the same inputs, which K9's and
 K11's plain versions repeat; attn_bwd_plain and fused_bwd_plain those of K2
 (attn_bwd_reference, on K1's o and stats) and K8 (fused_bwd_reference,
-which K10's and K12's repeat); flash_bwd_dq_plain is K6's
-(flash_bwd_dq_reference) on K4's lse and delta.
+which K10's and K12's repeat); flash_fwd_plain is K4's
+(flash_fwd_reference), flash_bwd_dkdv_plain and flash_bwd_dq_plain K5's
+and K6's (flash_bwd_dkdv_reference, flash_bwd_dq_reference) on K4's lse
+and delta.
 
 The fp32 forwards on csrc/attn_fwd_simt.cuh's register tiles against the
 parent's loops, at a head dim of 256:
@@ -78,6 +80,14 @@ fp32 K2 past 128 (csrc/attn_bwd_simt.cu):
         --head_dim 256 --kernels flash_bwd_dq flash_bwd_dq_plain sdpa_bwd
     python tools/time_torch_attention.py --dtype float32 --head_dim 256 \
         --batch 32 --kernels attn_bwd attn_bwd_plain sdpa_bwd --profile
+
+and the fp32 K4 and K5 past 128 (the wide register tiles of
+csrc/flash_fwd_simt.cu and csrc/flash_bwd_simt.cu; --reps 10 at B 32,
+where the parent's loops take ~0.1-0.3 s a call):
+
+    python tools/time_torch_attention.py --dtype float32 --batch 32 \
+        --seq 1370 --head_dim 256 --kernels flash_fwd flash_bwd_dkdv \
+        flash_fwd_plain flash_bwd_dkdv_plain sdpa_fwd sdpa_bwd --profile
 """
 from __future__ import annotations
 
@@ -144,6 +154,8 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
             return fb.flash_bwd_dkdv(*args, dk, dv)
         if name == "dq_plain":
             return fb.flash_bwd_dq_reference(*args, D ** -0.5)
+        if name == "dkdv_plain":
+            return fb.flash_bwd_dkdv_reference(*args, D ** -0.5)
         return fb.flash_bwd_dq(*args, dq)
 
     def attn_bwd(plain=False):
@@ -186,7 +198,9 @@ def calls(fa, fb, mf, b: int, s: int, H: int, D: int, dtype):
 
     return {
         "flash_fwd": lambda: fb.flash_fwd(*heads),
+        "flash_fwd_plain": lambda: fb.flash_fwd_reference(*heads, D ** -0.5),
         "flash_bwd_dkdv": lambda: blocked_bwd("dkdv"),
+        "flash_bwd_dkdv_plain": lambda: blocked_bwd("dkdv_plain"),
         "flash_bwd_dq": lambda: blocked_bwd("dq"),
         "flash_bwd_dq_plain": lambda: blocked_bwd("dq_plain"),
         "flash_delta": lambda: blocked_bwd("delta"),

@@ -12,10 +12,18 @@
 //     and K6 in csrc/flash_bwd_simt.cu (flash_bwd_dkdv_simt_kernel and
 //     flash_bwd_dq_simt_kernel: s and dp scored together on 8 x 4 register
 //     tiles, the sums on 8 x 8, cp.async double buffers at D <= 64), both
-//     linked into this library: fwd(), dkdv() and dq() hand them float at
-//     D <= 128 (the register tiles live in csrc/simt_tiles.cuh);
-//   every dtype past 128 (to 1024): the *_wide_kernel<T> below (in bf16
-//     and fp16 only past 256).
+//     linked into this library (the register tiles live in
+//     csrc/simt_tiles.cuh);
+//   fp32, 129-256: K4 and K5 on the wide register tiles of the same two
+//     files (flash_fwd_wide_simt_kernel: 64-row blocks of 8 warps that own
+//     8 whole rows each, an online softmax over 256-key score tiles, K and
+//     V streamed in pieces through one cp.async ring;
+//     flash_bwd_dkdv_wide_simt_kernel: 32-key blocks on
+//     csrc/simt_wide.cuh's tiles): fwd() and dkdv() hand them float at D
+//     <= 256, dq() at D <= 128;
+//   the fp32 K6 past 128, and every dtype past 256 (to 1024): the
+//     *_wide_kernel<T> below (K4 and K5 in fp32, bf16 and fp16 only past
+//     256).
 // Measured on an H100 80GB HBM3 at 700 W, device ms of one call at (B, S,
 // H, D) = (32, 1370, 12, 64) (PERF.md §6): fp32 K4 5.204-5.207 (this
 // file's flash_fwd_kernel<float, 64> before it: 7.19-7.20 in the same
@@ -76,11 +84,12 @@
 // The grid is one-dimensional over (b h, tile), so B H is bounded only by
 // 2^31 / ceil(S / 64).
 //
-// Head dims over 128 (the *_wide_kernel<T>, in bf16, fp16 and fp32): the
-// same tiles and loops with the head dim a run-time value up to 1024, in
-// 64-column chunks. At D = 256 the D = 128 kernels' staging of whole rows
-// would need 220 KB (K4), ~307 KB (K5) and ~290 KB (K6) of a block's
-// 227 KB, and their accumulators 4 x D / 16 registers each. So a block owns
+// Head dims over 128 (the *_wide_kernel<T>: the fp32 K6 past 128, every
+// dtype past 256): the same tiles and loops with the head dim a run-time
+// value up to 1024, in 64-column chunks. At D = 256 the D = 128 kernels'
+// staging of whole rows would need 220 KB (K4), ~307 KB (K5) and ~290 KB
+// (K6) of a block's 227 KB, and their accumulators 4 x D / 16 registers
+// each. So a block owns
 // one chunk of one (b, h) and tile (a grid ceil(D / 64) times as large):
 // it sums s (and dp) over the whole head dim, staging 64 columns of each
 // operand at a time in the same order in every block of the tile (so m, l,
@@ -88,11 +97,15 @@
 // of q and dO (K5) or of K (K6) and accumulates the chunk's 64 output
 // columns in registers, in the shared memory of a D = 64 tile.
 // s and dp are computed once per chunk: right, and recorded as slow
-// (PERF.md §6), not fast. K4's lse is written by chunk 0.
+// (PERF.md §6), not fast: at D 256 they make 2.5x the products of the
+// function, and at (B, S, H, D) = (32, 1370, 12, 256) the fp32 K4 and K5
+// took 86.1 and 249.9 device ms here, 21.9 and 48.2 on the wide register
+// tiles that run them now (H100 80GB HBM3 at 700 W). K4's lse is written
+// by chunk 0.
 //
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
 // launch on the caller's stream; each host function takes the element type
-// as a csrc/elem.cuh code (at D <= 128 kF32; kBf16, kF16 or kF32 above)
+// as a csrc/elem.cuh code (kF32 at every head dim; kBf16 or kF16 past 128)
 // and returns cudaGetLastError(), or cudaErrorInvalidValue for another
 // code. The caller (ops/flash_blocked.py) checks the shapes: 1 <= D <=
 // 1024.
@@ -106,8 +119,8 @@
 #include "elem.cuh"
 
 // csrc/flash_fwd_simt.cu and csrc/flash_bwd_simt.cu, linked into this
-// library: the fp32 K4, K5 and K6 at D <= 128; strides are {batch, head,
-// row} in elements.
+// library: the fp32 K4 and K5 at D <= 256, K6 at D <= 128; strides are
+// {batch, head, row} in elements.
 namespace flash_fwd_simt {
 int fwd(const float* q, const float* k, const float* v, float* o,
         float* lse, int B, int H, int S, int D, float scale,
@@ -155,6 +168,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, long long sr,
 // ---- head dims over 128: one 64-column chunk of the outputs per block
 
 constexpr int kWide = 0;  // the kD of a host template that runs these
+constexpr int kSimt = 1;  // and of one that runs the linked-in fp32 kernels
 
 // grid (B * H * n_tiles * n_c): block x is chunk x % n_c (its first column
 // c0) of tile (x / n_c) % n_tiles of (b, h) = x / (n_c n_tiles).
@@ -420,15 +434,16 @@ int prepare(Kernel kernel, size_t bytes, int B, int H, int S, int* n_tiles,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// K4 and K5: float at D <= 128 (the simt kernels take D themselves),
-// every type past 128 (kD == kWide).
+// K4 and K5: float at D <= 256 (kD == kSimt: csrc/flash_fwd_simt.cu's and
+// csrc/flash_bwd_simt.cu's kernels, which take D themselves), every type
+// past that (kD == kWide).
 template <typename T, int kD>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int S, int D, float scale, Layout in, Layout out,
         cudaStream_t stream) {
-  if constexpr (kD != kWide) {
+  if constexpr (kD == kSimt) {
     static_assert(std::is_same<T, float>::value,
-                  "bf16 and fp16 K4 at D <= 128 run in csrc/flash_fwd.cu");
+                  "bf16 and fp16 K4 at D <= 256 run in csrc/flash_fwd.cu");
     const long long i[3] = {in.sb, in.sh, in.sr},
                     u[3] = {out.sb, out.sh, out.sr};
     return flash_fwd_simt::fwd(
@@ -457,9 +472,9 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int B,
          int H, int S, int D, float scale, Layout in, Layout og, Layout gr,
          cudaStream_t stream) {
-  if constexpr (kD != kWide) {
+  if constexpr (kD == kSimt) {
     static_assert(std::is_same<T, float>::value,
-                  "bf16 and fp16 K5 at D <= 128 run in csrc/flash_bwd.cu");
+                  "bf16 and fp16 K5 at D <= 256 run in csrc/flash_bwd.cu");
     const long long i[3] = {in.sb, in.sh, in.sr}, o[3] = {og.sb, og.sh, og.sr},
                     g[3] = {gr.sb, gr.sh, gr.sr};
     return flash_bwd_simt::dkdv(
@@ -493,7 +508,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dqp, int B, int H, int S,
        int D, float scale, Layout in, Layout og, Layout gr,
        cudaStream_t stream) {
-  if constexpr (kD != kWide) {
+  if constexpr (kD == kSimt) {
     static_assert(std::is_same<T, float>::value,
                   "bf16 and fp16 K6 at D <= 256 run in csrc/flash_bwd.cu");
     const long long i[3] = {in.sb, in.sh, in.sr}, o[3] = {og.sb, og.sh, og.sr},
@@ -522,27 +537,24 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
-// f<T, kWide>(args...) for the element type `dtype` at head dims D over
-// 128: the wide kernels, in kBf16, kF16 and kF32.
-#define DISPATCH_WIDE(f, dtype, D, ...)                                     \
-  if ((D) > 128) {                                                          \
-    switch (dtype) {                                                        \
-      case kBf16:                                                           \
-        return f<__nv_bfloat16, kWide>(__VA_ARGS__);                        \
-      case kF16:                                                            \
-        return f<__half, kWide>(__VA_ARGS__);                               \
-      case kF32:                                                            \
-        return f<float, kWide>(__VA_ARGS__);                                \
-      default:                                                              \
-        return (int)cudaErrorInvalidValue;                                  \
-    }                                                                       \
+// f<float, kSimt>(args...) for kF32 at head dims D up to `simt` (256 for
+// K4 and K5, 128 for K6); past it f<T, kWide> for the element type
+// `dtype`, the wide kernels in kBf16, kF16 and kF32 (bf16 and fp16 only past
+// 128).
+#define DISPATCH(f, simt, dtype, D, ...)                                    \
+  if ((dtype) == kF32 && (D) <= (simt))                                    \
+    return f<float, kSimt>(__VA_ARGS__);                                    \
+  if ((D) <= 128) return (int)cudaErrorInvalidValue;                        \
+  switch (dtype) {                                                          \
+    case kBf16:                                                             \
+      return f<__nv_bfloat16, kWide>(__VA_ARGS__);                          \
+    case kF16:                                                              \
+      return f<__half, kWide>(__VA_ARGS__);                                 \
+    case kF32:                                                              \
+      return f<float, kWide>(__VA_ARGS__);                                  \
+    default:                                                                \
+      return (int)cudaErrorInvalidValue;                                    \
   }
-
-// K4, K5 and K6 at D <= 128 take kF32 alone.
-#define DISPATCH_F32(f, dtype, D, ...)                                      \
-  DISPATCH_WIDE(f, dtype, D, __VA_ARGS__)                                   \
-  return (dtype) == kF32 ? f<float, 128>(__VA_ARGS__)                       \
-                         : (int)cudaErrorInvalidValue;
 
 }  // namespace
 
@@ -556,8 +568,8 @@ int vtx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   int dtype, void* stream) {
   const Layout in{in_sb, in_sh, in_sr}, out{out_sb, out_sh, out_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_F32(fwd, dtype, D, q, k, v, o, lse, B, H, S, D, scale, in, out,
-               s)
+  DISPATCH(fwd, 256, dtype, D, q, k, v, o, lse, B, H, S, D, scale, in, out,
+           s)
 }
 
 // dk, dv (grad layout) from q, k, v (in layout), dout (its own layout),
@@ -572,8 +584,8 @@ int vtx_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_F32(dkdv, dtype, D, q, k, v, dout, lse, delta, dk, dv, B, H, S,
-               D, scale, in, og, gr, s)
+  DISPATCH(dkdv, 256, dtype, D, q, k, v, dout, lse, delta, dk, dv, B, H, S,
+           D, scale, in, og, gr, s)
 }
 
 // dq (grad layout), from the same inputs.
@@ -587,8 +599,8 @@ int vtx_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_F32(dq, dtype, D, q, k, v, dout, lse, delta, dqp, B, H, S, D,
-               scale, in, og, gr, s)
+  DISPATCH(dq, 128, dtype, D, q, k, v, dout, lse, delta, dqp, B, H, S, D,
+           scale, in, og, gr, s)
 }
 
 const char* vtx_cuda_error_string(int err) {

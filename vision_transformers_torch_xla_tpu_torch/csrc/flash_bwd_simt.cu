@@ -1,9 +1,11 @@
-// The blocked attention backward in fp32 at head dims up to 128, on the
-// CUDA cores of Hopper: flash_bwd_dkdv_simt_kernel<kD> (K5) and
-// flash_bwd_dq_simt_kernel<kD> (K6), kD 64 or 128 at compile time (a
-// smaller head dim takes the next with its columns zero-filled). Linked
-// into csrc/flash_blocked.cu's library, whose dkdv() and dq() launch them
-// for float at D <= 128 (fp16, and every dtype past 128, stay there).
+// The blocked attention backward in fp32 on the CUDA cores of Hopper:
+// flash_bwd_dkdv_simt_kernel<kD> (K5) and flash_bwd_dq_simt_kernel<kD>
+// (K6), kD 64 or 128 at compile time, and K5 past 128
+// flash_bwd_dkdv_wide_simt_kernel<kD>, kD 192 or 256 (a smaller head dim
+// takes the next with its columns zero-filled). Linked into
+// csrc/flash_blocked.cu's library, whose dkdv() launches them for float at
+// D <= 256 and dq() at D <= 128 (the fp32 K6 past 128, and every dtype
+// past 256, stay there; bf16 and fp16 to 256 are csrc/flash_bwd.cu's).
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_blocked.py in fp32 (the JAX kernels round nothing there):
@@ -68,11 +70,37 @@
 // 7.73-7.77 (53%); with delta (0.28) the pair is 1.24x SDPA's whole fp32
 // backward (14.06-14.18). The kD = 128 instantiations spill 48-56 bytes.
 //
+// K5 at head dims 129-256 (flash_bwd_dkdv_wide_simt_kernel). Two 64 x 256
+// fp32 accumulators (dk and dv of 64 keys) are 128 registers a thread at
+// 256 threads, and 128 staged rows 266 KB: so a block holds kWideKeys = 32
+// keys, 8 warps each owning 8 of them, warps 0-3 summing dv and 4-7 dk
+// (8 x kD / 32 a lane), K and V staged once, 64-query tiles of q, dO, lse
+// and delta by cp.async (lane l holding queries l and l + 32): warps 0-3
+// score s^T and store p, warps 4-7 dp^T and, after one barrier, ds; then
+// each warp sums its own keys' dv += p^T dO or dk += ds^T q. This is
+// csrc/hp_bwd_simt.cu's wide dk/dv launch (K8, K10, K12) with lse and
+// delta from the caller and no dq part, on csrc/simt_wide.cuh's keys_dot
+// and keys_sum. 218 KB at kD 256: one block an SM, one tile buffer, so
+// each tile's load waits behind the last sums; the grid at (1, 1370, 4,
+// 256) is 172 blocks on 132 SMs (two waves). What bounds it: the four
+// products, 8 B H S^2 D FLOPs (1476 GFLOP at (32, 1370, 12, 256): 22.0
+// ms). Measured on an H100 80GB HBM3 at 700 W, device ms of one call
+// (tools/time_torch_attention.py, PERF.md §6): 48.15-48.20 there, 46% of
+// the bound (csrc/flash_blocked.cu's flash_bwd_dkdv_wide_kernel<float>
+// before it: 249.7-250.0; SDPA's whole fp32 backward 55.2-55.3);
+// 36.37-36.62 at D 192; 0.778-0.784 at (1, 1370, 4, 256) (3.39-3.41; SDPA
+// 0.84). Left out in turn (tools/time_fp32_bwd_variants.py --head_dim
+// 256): without the scores 27.4 ms, without the sums 32.4, without the
+// stream's copies 40.4 of 48.2; q and dO loaded in column halves under
+// the other half's work took 50.7. ptxas: 236 registers at kD 192; 255
+// and a 60-byte spill at 256 (keys_dot unrolled once: none, 49.2 ms).
+//
 // Plain C++ interface (namespace flash_bwd_simt), called by
 // csrc/flash_blocked.cu's host functions on the caller's stream; each
 // returns cudaGetLastError(). The kernels allocate nothing.
 
 #include "simt_tiles.cuh"
+#include "simt_wide.cuh"
 
 namespace {
 
@@ -345,6 +373,173 @@ int launch_dq(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+// ---- head dims 129-256: flash_bwd_dkdv_wide_simt_kernel<kD>, kD 192 or 256
+
+// Shared memory: K, V of the block's keys [kWideKeys][kD + 4]; q, dO of a
+// query tile [64][kD + 4]; p, ds [key][query] [kWideKeys][kPS]; lse and
+// delta of the query tile [2][64].
+template <int kD>
+constexpr size_t dkdv_wide_smem() {
+  return (size_t)(2 * kWideKeys * (kD + 4) + 2 * kTile * (kD + 4) +
+                  2 * kWideKeys * kPS + 2 * kTile) * sizeof(float);
+}
+
+static_assert(dkdv_wide_smem<256>() <= 227 * 1024,
+              "the wide tiles fit a block's 227 KB");
+
+// K5 at head dims 129-256. grid (B * H * n_tiles) over kWideKeys-key tiles.
+// Warp w owns keys 8 (w % 4) .. 8 (w % 4) + 7 of the block; for each
+// 64-query tile (lane l holding queries l and l + 32) warps 0-3 score s^T
+// (K against q) and store p = exp(s scale - lse), warps 4-7 score dp^T (V
+// against dO) and, once p is stored, ds = p (dp - delta); then warps 0-3
+// sum dv += p^T dO and warps 4-7 dk += ds^T q over the tile, every warp
+// from its own rows of p or ds (csrc/simt_wide.cuh's keys_dot and
+// keys_sum, as csrc/hp_bwd_simt.cu's wide dk/dv launch without dq's part).
+template <int kD>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_wide_simt_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int H, int S, int D,
+                                int n_tiles, float scale, Strides in,
+                                Strides og, Strides gr, int vec) {
+  constexpr int kP = kD + 4, kC = kD / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + kWideKeys * kP;
+  float* qs = vs + kWideKeys * kP;
+  float* dos = qs + kTile * kP;
+  float* ps = dos + kTile * kP;
+  float* dss = ps + kWideKeys * kPS;
+  float* ls = dss + kWideKeys * kPS;  // lse [64], then delta [64]
+  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
+  const int k0 = (blockIdx.x % n_tiles) * kWideKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool dk_warp = warp >= 4;
+  const int kr = 8 * (warp & 3);       // the warp's first key
+  const bool keys_live = k0 + kr < S;  // the warp has a real key
+  const long long in_off = b * in.sb + h * in.sh;
+  const float* qg = q + in_off;
+  const float* dog = dout + b * og.sb + h * og.sh;
+  const float* lse_g = lse + (long long)bh * S;
+  const float* dl_g = delta + (long long)bh * S;
+  // the query tile at q0: q, dO, lse and delta, by cp.async
+  auto stream = [&](int q0) {
+    copy_tile<kD, kTile, 256>(qs, qg, in.sr, q0, S, D, vec);
+    copy_tile<kD, kTile, 256>(dos, dog, og.sr, q0, S, D, vec);
+    if (threadIdx.x < 2 * kTile) {
+      const int t = threadIdx.x % kTile;
+      const bool ok = q0 + t < S;
+      const float* g = threadIdx.x < kTile ? lse_g : dl_g;
+      cp_async<4>(ls + threadIdx.x, ok ? g + q0 + t : g, ok);
+    }
+    cp_async_commit();
+  };
+
+  copy_tile<kD, kWideKeys, 256>(ks, k + in_off, in.sr, k0, S, D, vec);
+  copy_tile<kD, kWideKeys, 256>(vs, v + in_off, in.sr, k0, S, D, vec);
+  stream(0);
+  float acc[8][kC];  // dv (warps 0-3) or dk (4-7) of the warp's 8 keys
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[i][c] = 0.f;
+
+  for (int q0 = 0; q0 < S; q0 += kTile) {
+    cp_async_wait<0>();
+    __syncthreads();  // the query tile (and K, V with the first) landed
+    // the tile's queries 32 .. 63 all lie past S: neither scored nor summed
+    const bool short_tile = q0 + kTile / 2 >= S;
+    float x[8][2];  // s^T (warps 0-3) or dp^T (4-7)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i][0] = x[i][1] = 0.f;
+    if (keys_live) {
+      const float* kv = (dk_warp ? vs : ks) + kr * kP;
+      const float* qd = (dk_warp ? dos : qs) + lane * kP;
+      if (short_tile)
+        keys_dot<kD, 1>(x, kv, qd);
+      else
+        keys_dot<kD, 2>(x, kv, qd);
+      if (!dk_warp) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qi = lane + 32 * j;
+          const bool q_ok = q0 + qi < S;
+          const float l_q = ls[qi];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            ps[(kr + i) * kPS + qi] =
+                q_ok && k0 + kr + i < S
+                    ? exp_p(__fmul_rn(x[i][j], scale) - l_q)
+                    : 0.f;
+        }
+      }
+    }
+    __syncthreads();  // p of every key stored
+    if (keys_live) {
+      if (dk_warp) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qi = lane + 32 * j;
+          const float dl = ls[kTile + qi];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int at = (kr + i) * kPS + qi;
+            dss[at] = ps[at] * (x[i][j] - dl);
+          }
+        }
+        __syncwarp();  // the warp's rows of ds are stored
+      }
+      const float* pd = (dk_warp ? dss : ps) + kr * kPS;
+      const float* y = dk_warp ? qs : dos;
+      if (short_tile)
+        keys_sum<kD, kTile / 2>(acc, pd, y, lane);
+      else
+        keys_sum<kD, kTile>(acc, pd, y, lane);
+    }
+    __syncthreads();  // q, dO, p and ds are read: the next tile may land
+    if (q0 + kTile < S) stream(q0 + kTile);
+  }
+
+  // dk (times scale) or dv of the warp's real keys
+  float* dst = (dk_warp ? dk : dv) + b * gr.sb + h * gr.sh;
+  const float mul = dk_warp ? scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int key = k0 + kr + i;
+    if (key >= S) continue;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int col = wide_col<kD>(lane, c);
+      if (col < D)
+        dst[(long long)key * gr.sr + col] = __fmul_rn(acc[i][c], mul);
+    }
+  }
+}
+
+template <int kD>
+int launch_dkdv_wide(const float* q, const float* k, const float* v,
+                     const float* dout, const float* lse, const float* delta,
+                     float* dk, float* dv, int B, int H, int S, int D,
+                     float scale, Strides in, Strides og, Strides gr,
+                     cudaStream_t stream) {
+  constexpr size_t smem = dkdv_wide_smem<kD>();
+  int n_tiles;
+  unsigned blocks;
+  const int rc = prepare(flash_bwd_dkdv_wide_simt_kernel<kD>, smem,
+                         kWideKeys, B, H, S, &n_tiles, &blocks);
+  if (rc) return rc;
+  const int vec = rows16({q, k, v, dout}, in, og) ? 1 : 0;
+  flash_bwd_dkdv_wide_simt_kernel<kD><<<blocks, 256, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, S, D, n_tiles, scale, in, og, gr,
+      vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The instantiations: at D <= 64 128 rows a block with both streamed
@@ -356,20 +551,25 @@ int launch_dq(const float* q, const float* k, const float* v,
 namespace flash_bwd_simt {
 
 // dk, dv (strides gr) from q, k, v (strides in), dout (og), lse and delta
-// (B, H, S) fp32; 1 <= D <= 128.
+// (B, H, S) fp32; 1 <= D <= 256.
 int dkdv(const float* q, const float* k, const float* v, const float* dout,
          const float* lse, const float* delta, float* dk, float* dv, int B,
          int H, int S, int D, float scale, const long long* in,
          const long long* og, const long long* gr, cudaStream_t stream) {
   const Strides i{in[0], in[1], in[2]}, o{og[0], og[1], og[2]},
       g{gr[0], gr[1], gr[2]};
-  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
-  return D <= 64
-             ? launch_dkdv<VTX_BWD_SIMT_64>(q, k, v, dout, lse, delta, dk, dv,
-                                            B, H, S, D, scale, i, o, g, stream)
-             : launch_dkdv<VTX_BWD_SIMT_128>(q, k, v, dout, lse, delta, dk,
-                                             dv, B, H, S, D, scale, i, o, g,
-                                             stream);
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch_dkdv<VTX_BWD_SIMT_64>(q, k, v, dout, lse, delta, dk, dv, B,
+                                        H, S, D, scale, i, o, g, stream);
+  if (D <= 128)
+    return launch_dkdv<VTX_BWD_SIMT_128>(q, k, v, dout, lse, delta, dk, dv,
+                                         B, H, S, D, scale, i, o, g, stream);
+  if (D <= 192)
+    return launch_dkdv_wide<192>(q, k, v, dout, lse, delta, dk, dv, B, H, S,
+                                 D, scale, i, o, g, stream);
+  return launch_dkdv_wide<256>(q, k, v, dout, lse, delta, dk, dv, B, H, S, D,
+                               scale, i, o, g, stream);
 }
 
 // dq (strides gr) from the same inputs.

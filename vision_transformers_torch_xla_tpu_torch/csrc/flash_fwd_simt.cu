@@ -1,9 +1,10 @@
-// The blocked attention forward in fp32 at head dims up to 128, on the CUDA
-// cores of Hopper: flash_fwd_simt_kernel<kD> (K4), kD 64 or 128 at
-// compile time (a smaller head dim takes the next with its columns
-// zero-filled). Linked into csrc/flash_blocked.cu's library, whose fwd()
-// launches it for float at D <= 128 (fp16, and every dtype past 128, stay
-// there; bf16 at D <= 128 is csrc/flash_fwd.cu's).
+// The blocked attention forward in fp32 at head dims up to 256, on the CUDA
+// cores of Hopper: flash_fwd_simt_kernel<kD> (K4), kD 64 or 128, and past
+// 128 flash_fwd_wide_simt_kernel<kD>, kD 192 or 256, at compile time (a
+// smaller head dim takes the next with its columns zero-filled). Linked
+// into csrc/flash_blocked.cu's library, whose fwd() launches them for
+// float at D <= 256 (every dtype past 256 stays there; bf16 and fp16 to
+// 256 are csrc/flash_fwd.cu's).
 //
 // Replaces the TPU kernel _fwd_kernel of vision_transformers_torch_xla_tpu/
 // ops/flash_blocked.py (:33, call :89) in fp32 (the JAX kernel rounds
@@ -59,11 +60,52 @@
 // spill at kD = 64, 254 and none at kD = 128. PERF.md §6 has the variants
 // (tools/time_fp32_fwd_variants.py).
 //
+// Head dims 129-256 (flash_fwd_wide_simt_kernel). The design above would
+// stage 128 rows of q and whole 64-key K and V tiles (266 KB at kD 256),
+// and a row's lanes would hold 256 columns of o. So, after
+// csrc/attn_fwd_simt.cuh's wide tiles (PR 18), with K4's online softmax:
+//   * A block per (b, h, 64-row query tile), 8 warps, each owning 8 whole
+//     rows: lane l holds keys l + 32 j (j < 4) of a 128-key score tile, s
+//     on 8 x 4 register tiles, and columns wide_col(l, c) (c < kD / 32) of
+//     o, an 8 x kD / 32 accumulator; a row's max and sum are butterflies
+//     over its warp, alpha rescales the lane's own accumulator, and p goes
+//     into the warp's own rows of shared memory (__syncwarp).
+//   * q * scale staged once [64][kD + 4]; K streams in pieces of 128 keys
+//     x 32 columns (pitch 36), V in pieces of 16 keys x kD, through one
+//     ring of 3 slots: each step waits for its piece and starts the copy
+//     two steps ahead at one block barrier. 16-byte copies where every
+//     row is 16-byte aligned, else 4-byte ones, columns past D
+//     zero-filled. 154 KB at kD 256: one block an SM.
+//   * s: 4 broadcast float4 of q^ and 4 of K a step feed 128 FMAs; p v:
+//     csrc/simt_wide.cuh's keys_sum (the sums of the wide dk/dv blocks),
+//     p broadcast along the keys, V as float4 along the head dim. The
+//     last score tile computes only its 32-key groups and 16-key V pieces
+//     that hold real keys.
+//   * Why 128-key tiles: 256-key ones (8 x 8 s) spill 172 bytes at kD 256
+//     and took 23.2 against 21.9 ms at (32, 1370, 12, 256); 8192-float
+//     pieces (half the barriers) and a fourth slot timed slower or the
+//     same (tools/time_fp32_fwd_variants.py --head_dim 256, PERF.md §6).
+//   * At (1, 1370, 4, 256) the grid is 88 blocks on 132 SMs, one wave: a
+//     third of the card idles. 32-row blocks (two an SM) fill it but copy
+//     K and V twice as often: 0.42 against 0.35 ms there, 27.1 against
+//     21.9 at B 32.
+// What bounds it: the two products, 4 B H S^2 D FLOPs (738 GFLOP at (32,
+// 1370, 12, 256): 11.0 ms at 67 TFLOP/s). Measured on an H100 80GB HBM3
+// at 700 W, device ms of one call (tools/time_torch_attention.py, PERF.md
+// §6): 21.94 there, 50% of the bound (csrc/flash_blocked.cu's
+// flash_fwd_wide_kernel<float> before it: 86.08-86.17; SDPA's fp32
+// forward 18.06-18.18); 17.25-17.37 at D 192; 0.345-0.351 at (1, 1370, 4,
+// 256) (1.09-1.10; SDPA 0.291). Left out in turn (variants tool): without
+// the scores 13.1 ms, without p v 14.1, without the stream's copies 18.6;
+// every piece copied twice 25.3: the copies' own work costs ~3.3 ms.
+// ptxas: 238 (kD 192) and 254 (256) registers, no spill.
+//
 // Plain C++ interface (namespace flash_fwd_simt), called by
 // csrc/flash_blocked.cu's fwd() on the caller's stream; returns
-// cudaGetLastError(). The kernel allocates nothing.
+// cudaGetLastError(). The kernels allocate nothing.
 
 #include "simt_tiles.cuh"
+#include "simt_wide.cuh"
 
 namespace {
 
@@ -346,22 +388,276 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
+// ---- head dims 129-256: flash_fwd_wide_simt_kernel<kD>, kD 192 or 256
+
+// The wide kernel's shape: a lane's keys of a score tile (kWideNJ: 4,
+// 128-key tiles, s on 8 x 4 register tiles beside the 8 x kD / 32
+// accumulator), the floats of a streamed piece (kWidePiece), the query
+// rows of a block (kWideRows) and the slots of the ring (kWideSlots)
+constexpr int kWideNJ = 4;
+constexpr int kWidePiece = 4096;
+constexpr int kWideRows = 64;
+constexpr int kWideSlots = 3;
+
+// The wide kernel's widths at compile-time head dim kD. A warp owns 8
+// whole rows of the block's kRows; lane l holds keys l + 32 j (j < kNJ) of
+// a score tile and columns wide_col<kD>(l, c) (c < kNO) of o. K streams in
+// pieces of kKeys keys x kKC head-dim columns (kWidePiece floats, pitch
+// kKC + 4, so that the 8 lanes of a quarter-warp read 8 float4 on 32
+// distinct banks), V in pieces of kVR keys x kD columns (pitch kD + 4),
+// both through one ring of kSlots slots. Shared memory: q * scale [kRows]
+// [kD + 4], the ring, p [kRows][kKeys] (each warp's own 8 rows).
+template <int kD>
+struct FwdWide {
+  static constexpr int kRows = kWideRows;
+  static constexpr int kThr = kRows / 8 * 32;
+  static constexpr int kMinBlocks = kRows < 64 ? 2 : 1;
+  static constexpr int kP = kD + 4;
+  static constexpr int kNJ = kWideNJ;
+  static constexpr int kKeys = 32 * kNJ;
+  static constexpr int kKC = kWidePiece / kKeys;
+  static constexpr int kKP = kKC + 4;
+  static constexpr int kKPieces = kD / kKC;
+  static constexpr int kVR = kWidePiece / 256;
+  static constexpr int kVPieces = kKeys / kVR;
+  static constexpr int kSteps = kKPieces + kVPieces;  // of a whole tile
+  static constexpr int kSlot =
+      kKeys * kKP > kVR * kP ? kKeys * kKP : kVR * kP;
+  static constexpr int kSlots = kWideSlots;
+  static constexpr int kNO = kD / 32;
+  static constexpr size_t kSmem =
+      (size_t)(kRows * kP + kSlots * kSlot + kRows * kKeys) * sizeof(float);
+  static_assert((kD == 192 || kD == 256) && kD % kKC == 0, "the wide tiles");
+  static_assert(kSmem <= 227 * 1024, "the wide tiles fit a block's 227 KB");
+};
+
+// s[i][j] += sum_{d < kKC} qw[i kP + d] kl[32 j kKP + d] (i < 8, j < NJ):
+// one K piece's part of the scores of the warp's 8 rows (qw, broadcast)
+// and the lane's keys (kl, its first row), both read as float4.
+template <int kD, int NJ>
+__device__ __forceinline__ void wide_scores(float (&s)[8][kWideNJ],
+                                            const float* __restrict__ qw,
+                                            const float* __restrict__ kl) {
+  typedef FwdWide<kD> W;
+#pragma unroll
+  for (int d = 0; d < W::kKC; d += 4) {
+    float4 y[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      y[j] = *reinterpret_cast<const float4*>(kl + 32 * j * W::kKP + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(qw + i * W::kP + d);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[i][j] = fmaf(x.x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x.y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x.z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x.w, y[j].w, s[i][j]);
+      }
+    }
+  }
+}
+
+// wide_scores<kD, nj> for the nj (1 to kNJ) 32-key groups that hold real
+// keys: the last score tile computes no group past S.
+template <int kD, int NJ = kWideNJ>
+__device__ __forceinline__ void wide_scores_n(int nj, float (&s)[8][kWideNJ],
+                                              const float* __restrict__ qw,
+                                              const float* __restrict__ kl) {
+  if constexpr (NJ > 1) {
+    if (nj < NJ) {
+      wide_scores_n<kD, NJ - 1>(nj, s, qw, kl);
+      return;
+    }
+  }
+  wide_scores<kD, NJ>(s, qw, kl);
+}
+
+// Four values of o's row from column c: one 16-byte store where `vec` and
+// every column lies below D, else one store each below D.
+__device__ __forceinline__ void store_o(float* __restrict__ row, int c,
+                                        const float* x, int n, int D,
+                                        bool vec) {
+  if (vec && n == 4 && c + 4 <= D) {
+    *reinterpret_cast<float4*>(row + c) = make_float4(x[0], x[1], x[2], x[3]);
+    return;
+  }
+  for (int e = 0; e < n; ++e)
+    if (c + e < D) row[c + e] = x[e];
+}
+
+// K4 at head dims 129-256. grid (B * H * n_tiles) over 64-row query tiles.
+// The stream: for each score tile its kKPieces K pieces, then its V pieces
+// holding real keys; step t waits for its piece, and starts step t +
+// kSlots - 1's copy, at one block barrier.
+template <int kD>
+__global__ void __launch_bounds__(FwdWide<kD>::kThr,
+                                  FwdWide<kD>::kMinBlocks)
+flash_fwd_wide_simt_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, int H, int S, int D,
+                           int n_tiles, float scale, Strides in, Strides out,
+                           int vec, int vec_out) {
+  typedef FwdWide<kD> W;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ring = qs + W::kRows * W::kP;
+  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % n_tiles) * W::kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* pw = ring + W::kSlots * W::kSlot + 8 * warp * W::kKeys;  // its p
+  const float* qw = qs + 8 * warp * W::kP;
+  const bool live = q0 + 8 * warp < S;  // the warp holds a real row
+  const long long off = b * in.sb + h * in.sh;
+  const float* kg = k + off;
+  const float* vg = v + off;
+  const int n_st = (S + W::kKeys - 1) / W::kKeys;
+  const int n_steps = (n_st - 1) * W::kSteps + W::kKPieces +
+                      (S - (n_st - 1) * W::kKeys + W::kVR - 1) / W::kVR;
+  // start step t's copy into its slot (an empty group past the stream)
+  auto issue = [&](int t) {
+    if (t < n_steps) {
+      float* dst = ring + t % W::kSlots * W::kSlot;
+      const int k0 = t / W::kSteps * W::kKeys, u = t % W::kSteps;
+      if (u < W::kKPieces)
+        copy_tile<W::kKC, W::kKeys, W::kThr>(dst, kg + u * W::kKC, in.sr, k0,
+                                             S, D - u * W::kKC, vec);
+      else
+        copy_tile<kD, W::kVR, W::kThr>(
+            dst, vg, in.sr, k0 + (u - W::kKPieces) * W::kVR, S, D, vec);
+    }
+    cp_async_commit();
+  };
+  // wait for step t's piece, start step t + kSlots - 1's, return t's; every
+  // thread is past step t - 1, so its slot is free
+  auto piece = [&](int t) {
+    cp_async_wait<W::kSlots - 2>();
+    __syncthreads();
+    issue(t + W::kSlots - 1);
+    return static_cast<const float*>(ring + t % W::kSlots * W::kSlot);
+  };
+
+  copy_tile<kD, W::kRows, W::kThr>(qs, q + off, in.sr, q0, S, D, vec);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < W::kSlots - 1; ++t) issue(t);
+  cp_async_wait<W::kSlots - 1>();  // this thread's pieces of q landed
+  scale_tile<kD, W::kRows, W::kThr>(qs, scale);  // q * scale, as JAX
+  float acc[8][W::kNO], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;  // the lane's part of the row sum
+#pragma unroll
+    for (int c = 0; c < W::kNO; ++c) acc[i][c] = 0.f;
+  }
+
+  int t = 0;
+  for (int k0 = 0; k0 < S; k0 += W::kKeys) {
+    const int nk = min(W::kKeys, S - k0);  // the tile's real keys
+    float s[8][kWideNJ];
+    zero(s);
+    for (int c = 0; c < W::kKPieces; ++c) {
+      const float* ks = piece(t++);
+      if (live)
+        wide_scores_n<kD>((nk + 31) >> 5, s, qw + c * W::kKC,
+                          ks + lane * W::kKP);
+    }
+    if (live) {
+      // the online softmax of the warp's rows over the tile's keys, keys
+      // >= S masked; p into the warp's own rows
+#pragma unroll
+      for (int j = 0; j < W::kNJ; ++j)
+        if (lane + 32 * j >= nk)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s[i][j] = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float mx = s[i][0];
+#pragma unroll
+        for (int j = 1; j < W::kNJ; ++j) mx = fmaxf(mx, s[i][j]);
+        const float m_new = fmaxf(m[i], row_max<32>(mx));
+        const float alpha = exp_p(m[i] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < W::kNJ; ++j) {
+          const float p = exp_p(s[i][j] - m_new);
+          sum += p;
+          pw[i * W::kKeys + lane + 32 * j] = p;
+        }
+        l[i] = l[i] * alpha + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < W::kNO; ++c) acc[i][c] *= alpha;
+      }
+      __syncwarp();  // the warp's p rows are stored
+    }
+    // acc += p v over the V pieces that hold real keys (p and V are 0 past
+    // S in the last one)
+    for (int g = 0; g < (nk + W::kVR - 1) / W::kVR; ++g) {
+      const float* vs = piece(t++);
+      if (live)
+        keys_sum<kD, W::kVR, W::kKeys>(acc, pw + g * W::kVR, vs, lane);
+    }
+  }
+
+  if (!live) return;
+  float* og = o + b * out.sb + h * out.sh;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + 8 * warp + i;
+    if (r >= S) break;  // the same r in every lane
+    const float lf = fmaxf(row_sum<32>(l[i]), 1e-30f);
+    if (lane == 0) lse[(long long)bh * S + r] = m[i] + logf(lf);
+    float y[W::kNO];
+#pragma unroll
+    for (int c = 0; c < W::kNO; ++c) y[c] = acc[i][c] / lf;  // o = acc / l
+    float* orow = og + (long long)r * out.sr;
+    store_o(orow, wide_col<kD>(lane, 0), y, 4, D, vec_out);
+    store_o(orow, wide_col<kD>(lane, 4), y + 4, W::kNO - 4, D, vec_out);
+  }
+}
+
+template <int kD>
+int launch_fwd_wide(const float* q, const float* k, const float* v, float* o,
+                    float* lse, int B, int H, int S, int D, float scale,
+                    Strides in, Strides out, cudaStream_t stream) {
+  typedef FwdWide<kD> W;
+  int n_tiles;
+  unsigned blocks;
+  const int rc = prepare(flash_fwd_wide_simt_kernel<kD>, W::kSmem, W::kRows,
+                         B, H, S, &n_tiles, &blocks);
+  if (rc) return rc;
+  const int vec = rows16({q, k, v}, in, in) ? 1 : 0;
+  const int vec_out = rows16({o}, out, out) ? 1 : 0;
+  flash_fwd_wide_simt_kernel<kD><<<blocks, W::kThr, W::kSmem, stream>>>(
+      q, k, v, o, lse, H, S, D, n_tiles, scale, in, out, vec, vec_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 
 namespace flash_fwd_simt {
 
 // o (strides out) and lse (B, H, S) fp32 from q, k, v (strides in);
-// 1 <= D <= 128.
+// 1 <= D <= 256.
 int fwd(const float* q, const float* k, const float* v, float* o,
         float* lse, int B, int H, int S, int D, float scale,
         const long long* in, const long long* out, cudaStream_t stream) {
   const Strides i{in[0], in[1], in[2]}, u{out[0], out[1], out[2]};
-  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
-  return D <= 64 ? launch_fwd<64>(q, k, v, o, lse, B, H, S, D, scale, i, u,
-                                  stream)
-                 : launch_fwd<128>(q, k, v, o, lse, B, H, S, D, scale, i, u,
-                                   stream);
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch_fwd<64>(q, k, v, o, lse, B, H, S, D, scale, i, u, stream);
+  if (D <= 128)
+    return launch_fwd<128>(q, k, v, o, lse, B, H, S, D, scale, i, u, stream);
+  if (D <= 192)
+    return launch_fwd_wide<192>(q, k, v, o, lse, B, H, S, D, scale, i, u,
+                                stream);
+  return launch_fwd_wide<256>(q, k, v, o, lse, B, H, S, D, scale, i, u,
+                              stream);
 }
 
 }  // namespace flash_fwd_simt

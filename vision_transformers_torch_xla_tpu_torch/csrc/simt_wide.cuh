@@ -1,8 +1,9 @@
 // The wide fp32 register tiles (head dims 129-256, compile-time kD 192 or
 // 256) of the attention backwards that hold 32 keys a block, shared by
-// csrc/hp_bwd_simt.cu (K8, K10, K12) and csrc/attn_bwd_simt.cu (K2), and
-// the product that forms each key block's part of dq, which
-// csrc/hp_bwd_simt.cu's narrow tiles use too.
+// csrc/hp_bwd_simt.cu (K8, K10, K12), csrc/attn_bwd_simt.cu (K2) and
+// csrc/flash_bwd_simt.cu (the blocked K5; keys_sum also serves
+// csrc/flash_fwd_simt.cu's p v), and the product that forms each key
+// block's part of dq, which csrc/hp_bwd_simt.cu's narrow tiles use too.
 //
 // A dk/dv block of 8 warps holds kWideKeys keys, each warp 8 of them, and
 // streams 64-query tiles (lane l holding queries l and l + 32): keys_dot
@@ -97,11 +98,13 @@ __device__ __forceinline__ int wide_col(int lane, int c) {
                : 128 + (kD == 256 ? 4 : 2) * lane + c - 4;
 }
 
-// acc[i][c] += sum_{t < kK} a[i kPS + t] b[t kP + wide_col(c)]: dv += p^T
+// acc[i][c] += sum_{t < kK} a[i kAP + t] b[t kP + wide_col(c)]: dv += p^T
 // dO or dk += ds^T q of the warp's 8 keys over kK queries, a (p or ds, the
 // same for every lane) read as float4 along the queries, b as float4 (and
-// float2 at kD 192) along the head dim.
-template <int kD, int kK>
+// float2 at kD 192) along the head dim; also the blocked forward's p v of
+// a warp's 8 query rows over kK keys (csrc/flash_fwd_simt.cu: a is p at
+// its pitch kAP).
+template <int kD, int kK, int kAP = kPS>
 __device__ __forceinline__ void keys_sum(float (&acc)[8][kD / 32],
                                          const float* __restrict__ a,
                                          const float* __restrict__ b,
@@ -113,7 +116,7 @@ __device__ __forceinline__ void keys_sum(float (&acc)[8][kD / 32],
     float4 x[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      x[i] = *reinterpret_cast<const float4*>(a + i * kPS + q);
+      x[i] = *reinterpret_cast<const float4*>(a + i * kAP + q);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float* row = b + (q + e) * kP;
