@@ -189,20 +189,22 @@ head-pair attention of `fused_attention_qkv_cols` at S <= 1024:
     bound; then, in a process of its own, one call of each new
     instantiation traced alone (torch.profiler) launching its kernel and
     no other of csrc/.
-17e. the fp32 K4 and K5 at head dims 129-256 on the wide register tiles
-    (csrc/flash_fwd_simt.cu's flash_fwd_wide_simt_kernel, csrc/
-    flash_bwd_simt.cu's flash_bwd_dkdv_wide_simt_kernel), with the counts
-    reset just before: at K4K5_FP32_WIDE_EDGE_SHAPES (S 1 to 1370 around
-    K4's 32-key groups, 64-row query tiles and 256-key score tiles and
-    K5's 32-key blocks; D 136, 192, 200 and 256; q, k, v views of a qkv
-    buffer, contiguous, and views whose rows start a float late; B·H over
-    65535), each call twice and bitwise equal, no copy, o and lse within
-    K2_FP32_EDGE_REL of their plain versions' largest magnitudes (lse of
-    max(it, WIDE_M_FLOOR)), dk and dv of the call's largest plain
-    gradient; then each timed at FP32_WIDE_BLOCKED_TIMED beside its plain
-    version, SDPA (fp32 forward; whole fp32 backward), its bound and the
-    loops it replaced (REPLACED_WIDE_BLOCKED_MS). Phase 17b's fp32 trace
-    holds their calls at D 256 to these kernels alone.
+17e. the fp32 K4, K5 and K6 at head dims 129-256 on the wide register
+    tiles (csrc/flash_fwd_simt.cu's flash_fwd_wide_simt_kernel, csrc/
+    flash_bwd_simt.cu's flash_bwd_dkdv_wide_simt_kernel and
+    flash_bwd_dq_wide_simt_kernel), with the counts reset just before: at
+    FP32_WIDE_BLOCKED_EDGE_SHAPES (S 1 to 1370 around K4's and K6's
+    32-key groups, 64-row query tiles and 128-key score tiles, K5's 32-key
+    blocks and K6's 16-key row pieces; D 136, 192, 200 and 256; q, k, v
+    views of a qkv buffer, contiguous, and views whose rows start a float
+    late; B·H over 65535), each call twice and bitwise equal, no
+    copy, o and lse within K2_FP32_EDGE_REL of their plain versions'
+    largest magnitudes (lse of max(it, WIDE_M_FLOOR)), dq, dk and dv of
+    the call's largest plain gradient; then each timed at
+    FP32_WIDE_BLOCKED_TIMED beside its plain version, SDPA (fp32 forward;
+    whole fp32 backward), its bound and the loops it replaced
+    (REPLACED_WIDE_BLOCKED_MS). Phase 17b's fp32 trace holds their calls
+    at D 256 to these kernels alone.
 18. gradient, --pallas_mlp on: phase 8 (use_pallas_attn) on the same
     weights with every MLP
     on the fused route, against the same JAX fp32 train golden (the
@@ -646,7 +648,8 @@ REPLACED_WIDE_FP32_MS = {"attn_fwd": "9.578", "hp_fwd": "9.552-9.564",
 # and of the loops that the wide tiles of csrc/attn_bwd_tc.cu (K2 in bf16
 # and fp16), csrc/attn_bwd_simt.cu (the fp32 K2) and csrc/hp_bwd_simt.cu
 # (the fp32 K8, K10 and K12) replaced at WIDE_TIMED, and csrc/flash_bwd.cu's
-# (K6 in bf16 and fp16) at WIDE_LONG_TIMED: csrc/attn_bwd.cu's
+# (K6 in bf16 and fp16) and csrc/flash_bwd_simt.cu's (the fp32 K6) at
+# WIDE_LONG_TIMED: csrc/attn_bwd.cu's
 # attn_bwd_wide_kernel, csrc/hp_bwd.cu's run-time head dim and
 # csrc/flash_blocked.cu's flash_bwd_dq_wide_kernel, event ms of phase 17b
 # (PERF.md §6), printed beside phase 17b's
@@ -655,6 +658,7 @@ REPLACED_WIDE_BWD_MS = {("bfloat16", "attn_bwd"): "9.580",
                         ("float32", "attn_bwd"): "10.710",
                         ("bfloat16", "flash_bwd_dq"): "2.091",
                         ("float16", "flash_bwd_dq"): "2.166",
+                        ("float32", "flash_bwd_dq"): "2.125",
                         ("float32", "fused_bwd"): "36.913",
                         ("float32", "hp_bwd"): "36.674",
                         ("float32", "qkv_bwd"): "36.875"}
@@ -777,27 +781,30 @@ TC_BLOCKED_SLOW_REPS = 8
 TC_BLOCKED_TRACED = (("float16", 64), ("float16", 128), ("bfloat16", 192),
                      ("float16", 192), ("bfloat16", 256), ("float16", 256))
 TC_BLOCKED_K6_TRACED = TC_BLOCKED_TRACED + (("bfloat16", 64),)
-# Phase 17e, the fp32 K4 and K5 at head dims 129-256 on the wide register
-# tiles (csrc/flash_fwd_simt.cu, csrc/flash_bwd_simt.cu) at their edges,
-# (layout, (B, S, H, D)): S around K4's 32-key groups, 64-row query tiles
-# and 256-key score tiles and K5's 32-key blocks up to the 518-px model's
-# 1370; D 136 and 200 (the 192 and 256 tiles with zero-filled columns), 192
-# and 256; views of a qkv buffer and contiguous tensors (16-byte copies),
-# views whose rows start one float late (4-byte copies); B·H over 65535 at
-# a short S. Held to K2_FP32_EDGE_REL as K4 and K5 at D <= 128 (lse of
-# max(its largest, WIDE_M_FLOOR): at S = 1 it is one score)
-K4K5_FP32_WIDE_EDGE_SHAPES = tuple(
+# Phase 17e, the fp32 K4, K5 and K6 at head dims 129-256 on the wide
+# register tiles (csrc/flash_fwd_simt.cu, csrc/flash_bwd_simt.cu) at their
+# edges, (layout, (B, S, H, D)): S around K4's 32-key groups, 64-row query
+# tiles and 128-key score tiles (K6's too), K5's 32-key blocks and K6's
+# 16-key row pieces up to the 518-px model's 1370; D 136 and 200 (the
+# 192 and 256 tiles with zero-filled columns), 192 and 256; views of a qkv
+# buffer and contiguous tensors (16-byte copies), views whose rows start
+# one float late (4-byte copies); B·H over 65535 at a short S. Held to
+# K2_FP32_EDGE_REL as K4-K6 at D <= 128 (lse of max(its largest,
+# WIDE_M_FLOOR): at S = 1 it is one score)
+FP32_WIDE_BLOCKED_EDGE_SHAPES = tuple(
     (layout, (1, s, 2, d)) for layout in ("qkv", "dense", "unaligned")
-    for s in (1, 31, 32, 33, 63, 65, 129, 1025, 1370)
+    for s in (1, 17, 31, 32, 33, 63, 65, 127, 128, 129, 1025, 1370)
     for d in (136, 192, 200, 256)) + (("qkv", (1, 8, 65537, 136)),
                                       ("dense", (65537, 8, 1, 136)))
 # and timed at these shapes beside their plain versions, SDPA and the
 # times, at the first, of the csrc/flash_blocked.cu loops they replaced
-# (flash_fwd_wide_kernel<float>, flash_bwd_dkdv_wide_kernel<float>; device
-# ms of the timing tool's A/B, PERF.md §6, H100 80GB HBM3 at 700 W)
+# (flash_fwd_wide_kernel<float>, flash_bwd_dkdv_wide_kernel<float>,
+# flash_bwd_dq_wide_kernel<float>; device ms of the timing tool's A/Bs,
+# PERF.md §6, H100 80GB HBM3 at 700 W)
 FP32_WIDE_BLOCKED_TIMED = ((32, 1370, 12, 256),)
 REPLACED_WIDE_BLOCKED_MS = {"flash_fwd": "86.08-86.17",
-                            "flash_bwd_dkdv": "249.69-250.01"}
+                            "flash_bwd_dkdv": "249.69-250.01",
+                            "flash_bwd_dq": "155.00-155.01"}
 WIDE_KERNELS = ("attn_fwd", "attn_bwd", "hp_fwd", "hp_bwd", "fused_fwd",
                 "fused_bwd", "qkv_fwd", "qkv_bwd", "flash_fwd",
                 "flash_bwd_dkdv", "flash_bwd_dq")
@@ -1846,18 +1853,19 @@ def phase_tc_blocked(counts, fb, dev):
     return rows, worst
 
 
-def fp32_wide_k4k5_edges(fb, dev) -> dict:
-    """The fp32 K4 and K5 past D 128 at K4K5_FP32_WIDE_EDGE_SHAPES against
-    their plain versions (K5 on the plain forward's lse and delta): each
-    call twice and bitwise equal, no copy, o within K2_FP32_EDGE_REL of the
-    plain version's largest magnitude (lse of max(its largest,
-    WIDE_M_FLOOR)), dk and dv of the call's largest plain gradient.
-    Returns the worst error of o (K4) and of dk and dv (K5)."""
+def fp32_wide_blocked_edges(fb, dev) -> dict:
+    """The fp32 K4, K5 and K6 past D 128 at FP32_WIDE_BLOCKED_EDGE_SHAPES
+    against their plain versions (K5 and K6 on the plain forward's lse and
+    delta): each call twice and bitwise equal, no copy, o within
+    K2_FP32_EDGE_REL of the plain version's largest magnitude (lse of
+    max(its largest, WIDE_M_FLOOR)), dq, dk and dv of the call's largest
+    plain gradient. Returns the worst error of o (K4), of dk and dv (K5)
+    and of dq (K6)."""
     import torch
 
-    worst = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0}
-    for layout, (b, s, h, d) in K4K5_FP32_WIDE_EDGE_SHAPES:
-        tag = f"fp32 wide K4/K5 edge {layout} (B, S, H, D) = {(b, s, h, d)}"
+    worst = {"flash_fwd": 0.0, "flash_bwd_dkdv": 0.0, "flash_bwd_dq": 0.0}
+    for layout, (b, s, h, d) in FP32_WIDE_BLOCKED_EDGE_SHAPES:
+        tag = f"fp32 wide K4-K6 edge {layout} (B, S, H, D) = {(b, s, h, d)}"
         q, k, v, do = fp32_bwd_operands(fb, layout, b, s, h, d,
                                         8400 + s + d, dev)
         scale = d ** -0.5
@@ -1867,10 +1875,11 @@ def fp32_wide_k4k5_edges(fb, dev) -> dict:
         delta = fb.flash_delta(o_r, do)
         runs = []
         for _ in range(2):
-            _, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d), device=dev),
-                                 h)
+            dq, dk, dv = fb.heads(torch.empty((b, s, 3 * h * d), device=dev),
+                                  h)
             fb.flash_bwd_dkdv(q, k, v, do, lse_r, delta, dk, dv)
-            runs.append((dk, dv))
+            fb.flash_bwd_dq(q, k, v, do, lse_r, delta, dq)
+            runs.append((dq, dk, dv))
         want = fb.flash_bwd_reference(q, k, v, o_r, lse_r, do, scale)
         torch.cuda.synchronize()
         check(fb.COPIES == copies, f"{tag}: {fb.COPIES - copies} copies")
@@ -1882,26 +1891,28 @@ def fp32_wide_k4k5_edges(fb, dev) -> dict:
         lse_err = (lse - lse_r).abs().max().item()
         lse_top = max(lse_r.abs().max().item(), WIDE_M_FLOOR)
         top = max(w.abs().max().item() for w in want)
-        errs = [(g - w).abs().max().item() for g, w in zip(runs[0], want[1:])]
+        errs = [(g - w).abs().max().item() for g, w in zip(runs[0], want)]
         check(all(torch.isfinite(x).all().item() for x in (o, lse, *runs[0]))
               and o_err <= K2_FP32_EDGE_REL * o_top
               and lse_err <= K2_FP32_EDGE_REL * lse_top
               and max(errs) <= K2_FP32_EDGE_REL * top,
               f"{tag}: o {o_err} of {o_top}, lse {lse_err} of {lse_top}, "
-              f"dk, dv {errs} of {top}: over {K2_FP32_EDGE_REL} x them")
+              f"dq, dk, dv {errs} of {top}: over {K2_FP32_EDGE_REL} x them")
         worst["flash_fwd"] = max(worst["flash_fwd"], o_err)
-        worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], *errs)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
+        worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], *errs[1:])
         log(f"[fp32 wide blocked] {tag}: o, lse max abs err {o_err!r}, "
-            f"{lse_err!r} (largest {o_top!r}, {lse_top!r}); dk, dv {errs!r} "
-            f"(largest gradient {top!r}); bitwise repeat True")
+            f"{lse_err!r} (largest {o_top!r}, {lse_top!r}); dq, dk, dv "
+            f"{errs!r} (largest gradient {top!r}); bitwise repeat True")
         del q, k, v, do, o, lse, o2, lse2, o_r, lse_r, delta, runs, want
     return worst
 
 
 def phase_fp32_wide_blocked(counts, fb, dev):
-    """Phase 17e: the fp32 K4 and K5 at head dims 129-256 on the wide
-    register tiles. Their edges (fp32_wide_k4k5_edges, each case launching
-    each kernel twice) with the counts reset just before; then each timed
+    """Phase 17e: the fp32 K4, K5 and K6 at head dims 129-256 on the wide
+    register tiles. Their edges (fp32_wide_blocked_edges, each case
+    launching each kernel twice) with the counts reset just before; then
+    each timed
     at FP32_WIDE_BLOCKED_TIMED beside its plain version, SDPA and its
     bound, and printed beside the loops it replaced
     (REPLACED_WIDE_BLOCKED_MS). Returns the rows per ("float32", kernel,
@@ -1911,18 +1922,20 @@ def phase_fp32_wide_blocked(counts, fb, dev):
     import torch
 
     counts(reset=True)
-    worst = fp32_wide_k4k5_edges(fb, dev)
-    n = len(K4K5_FP32_WIDE_EDGE_SHAPES)
+    worst = fp32_wide_blocked_edges(fb, dev)
+    n = len(FP32_WIDE_BLOCKED_EDGE_SHAPES)
     launched = counts()
     check(launched == only(FLASH_FWD_LAUNCHES=2 * n,
-                           FLASH_BWD_DKDV_LAUNCHES=2 * n),
-          f"the edge cases launched {launched}, want K4 and K5 {2 * n} each")
+                           FLASH_BWD_DKDV_LAUNCHES=2 * n,
+                           FLASH_BWD_DQ_LAUNCHES=2 * n),
+          f"the edge cases launched {launched}, want K4, K5 and K6 {2 * n} "
+          f"each")
     log(f"[fp32 wide blocked] {n} edge cases, each call twice and bitwise "
         f"equal, worst max abs error: {worst!r}")
     rows = {}
     for i, shape in enumerate(FP32_WIDE_BLOCKED_TIMED):
         calls = tc_blocked_calls(fb, shape, torch.float32, 9800 + i, dev)
-        for name in ("flash_fwd", "flash_bwd_dkdv"):
+        for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
             kernel, plain, library, flops, nbytes = calls[name]
             row = {"ms": cuda_ms(kernel)}
             row["plain_ms"] = cuda_ms(plain, TC_BLOCKED_SLOW_REPS, 1)
@@ -2759,14 +2772,14 @@ def wide_kernel_names(name: str, dt_name: str, d: int):
     kd = 192 if d <= 192 else 256
     if name.startswith("flash"):
         # csrc/flash_fwd.cu's and flash_bwd.cu's take tensor maps (K6's
-        # wide tiles a kernel of their own); the fp32 K4 and K5 to 256 run
-        # on the wide register tiles of csrc/flash_fwd_simt.cu and
+        # wide tiles a kernel of their own); the fp32 K4, K5 and K6 to 256
+        # run on the wide register tiles of csrc/flash_fwd_simt.cu and
         # flash_bwd_simt.cu; csrc/flash_blocked.cu's run-time head dim
-        # (the fp32 K6, every dtype past 256) takes pointers
+        # (every dtype past 256) takes pointers
         kernel = "flash_bwd_dq_tc_wide" if name == "flash_bwd_dq" else name
         if tc:
             return [f"{kernel}_kernel<{t},{kd}>(CUtensorMap"]
-        if dt_name == "float32" and d <= 256 and name != "flash_bwd_dq":
+        if dt_name == "float32" and d <= 256:
             return [f"{name}_wide_simt_kernel<{kd}>"]
         return [f"{name}_wide_kernel<{t}>"]
     if name == "attn_bwd":
@@ -4104,7 +4117,7 @@ def main() -> int:
     t_tc = time.perf_counter()
     tc_rows, tc_worst = phase_tc_blocked(every, fb, dev)
     log(f"[tc blocked] phase 17d took {time.perf_counter() - t_tc:.1f} s")
-    # ---- the fp32 K4 and K5 at head dims 129-256 on the wide register
+    # ---- the fp32 K4, K5 and K6 at head dims 129-256 on the wide register
     # tiles: their times at (32, 1370, 12, 256) join the wide lines' _b32
     # keys, their edges' worst error the lines' max_abs_err
     t_w = time.perf_counter()
@@ -4398,7 +4411,8 @@ def main() -> int:
                 "flash_fwd_simt.cu" if names[0].startswith(
                     "flash_fwd_wide_simt") else \
                 "flash_bwd_simt.cu" if names[0].startswith(
-                    "flash_bwd_dkdv_wide_simt") else \
+                    ("flash_bwd_dkdv_wide_simt", "flash_bwd_dq_wide_simt")) \
+                else \
                 "flash_blocked.cu" if name.startswith("flash") else \
                 "attn_fwd_tc.cu" if names[0].startswith("attn_fwd_tc") else \
                 "hp_bwd_tc.cu" if names[0].startswith("hp_bwd_tc") else \

@@ -133,8 +133,8 @@ def _linked_library_changes(tmp_path, name, sources, edited):
 def test_the_fp32_backward_source_enters_the_cuda_core_library(tmp_path,
                                                                edited):
     # the CUDA-core library of K4-K6 links csrc/flash_bwd_simt.cu (the fp32
-    # K5 at head dims <= 256 and K6 at <= 128) and csrc/flash_fwd_simt.cu
-    # (the fp32 K4 at <= 256; both past 128 on csrc/simt_wide.cuh's tiles)
+    # K5 and K6 at head dims <= 256) and csrc/flash_fwd_simt.cu (the fp32
+    # K4 at <= 256; both past 128 on csrc/simt_wide.cuh's tiles)
     # into csrc/flash_blocked.cu's: an edit to any of them, or to the
     # simt_tiles.cuh, simt_wide.cuh and cp_async.cuh they include, names a
     # new library, and the library is not the one of flash_blocked.cu alone
@@ -263,3 +263,53 @@ def test_fp32_forward_register_tiles_instantiations(tmp_path):
         want |= {(loops, f"{t}Li0E")
                  for t in ("13__nv_bfloat16", "6__half", "f")}
         assert kernels == want, sorted(kernels)
+
+
+def _simt_ptxas(text):
+    """{'kernel<ints>': (registers, spill stores, spill loads)} of each
+    flash_*_simt_kernel in nvcc's -Xptxas -v output."""
+    import re
+
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(flash_[a-z_]*?"
+                      r"_simt_kernel)I((?:Li\d+E)+)E", line)
+        if m:
+            key = f"{m.group(1)}<{', '.join(re.findall(r'\d+', m.group(2)))}>"
+            out[key] = [None] * 3
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and key:
+            out[key][1:3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            out[key][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+@pytest.mark.cuda
+def test_fp32_blocked_backward_register_tiles_instantiations(tmp_path):
+    # csrc/flash_bwd_simt.cu built with the library flags: the fp32 K5 and
+    # K6 at D <= 64 (<64, 128, 2>) and <= 128 (<128, 64, 1>), and past 128
+    # their wide kernels at kD 192 and 256, and nothing else; the wide K6
+    # without a spill
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    src = cuda_build.CSRC_DIR / "flash_bwd_simt.cu"
+    res = subprocess.run(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+         str(tmp_path / "flash_bwd_simt.so"), str(src)],
+        capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = _simt_ptxas(res.stdout + res.stderr)
+    want = {f"flash_bwd_{k}_simt_kernel<{a}>" for k in ("dkdv", "dq")
+            for a in ("64, 128, 2", "128, 64, 1")}
+    want |= {f"flash_bwd_{k}_wide_simt_kernel<{kd}>" for k in ("dkdv", "dq")
+             for kd in (192, 256)}
+    assert set(got) == want, sorted(got)
+    assert all(v[0] <= 255 for v in got.values()), got
+    for kd in (192, 256):
+        assert got[f"flash_bwd_dq_wide_simt_kernel<{kd}>"][1:] == (0, 0), got

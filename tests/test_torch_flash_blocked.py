@@ -791,14 +791,22 @@ def _jax_bwd(q, k, v, do, scale):
     return back(o), back(lse)[..., 0], back(dq), back(dk), back(dv)
 
 
+# the wide fp32 K6 (flash_bwd_dq_wide_simt_kernel): S at the edges of its
+# 64-row query blocks and 128-key tiles and past two tiles, D 136 and 200
+# (the 192 and 256 tiles with zero columns) and 256
+FP32_WIDE_K6_EDGE_S = (63, 64, 127, 128, 257)
+FP32_WIDE_K6_EDGE_D = (136, 200, 256)
+
+
 @pytest.mark.parametrize("s,d", [
     (s, d) for s in FP32_BWD_EDGE_S for d in FP32_BWD_EDGE_D] + [
-    (s, d) for s in FP32_WIDE_EDGE_S for d in FP32_WIDE_EDGE_D])
+    (s, d) for s in FP32_WIDE_EDGE_S for d in FP32_WIDE_EDGE_D] + [
+    (s, d) for s in FP32_WIDE_K6_EDGE_S for d in FP32_WIDE_K6_EDGE_D])
 def test_fp32_bwd_references_match_k5_k6_at_tile_edges(s, d):
     # the plain K5 and K6, which the fp32 kernels are held to on the card,
     # against JAX's kernels on the same lse and delta (delta = rowsum(dO o),
     # as JAX's _flash_bwd computes it); past D 128 the plain K5 (dk, dv) is
-    # the wide fp32 K5's, K6's (dq) csrc/flash_blocked.cu's chunks
+    # the wide fp32 K5's, K6's (dq) the wide fp32 K6's
     b, h = 1, 2
     q, k, v, do = (_rand((b, h, s, d), s + d + i) for i in range(4))
     scale = d ** -0.5
@@ -960,6 +968,49 @@ def test_fp32_wide_k4_k5_match_plain_at_tile_edges_on_cuda(cuda_device,
         assert err <= limit, (err, limit)
 
 
+# the wide fp32 K6 (flash_bwd_dq_wide_simt_kernel) on the card: S around
+# the 32-key groups and 128-key tiles of its scores, its 16-key row pieces
+# of K and its 64-row query blocks up to the 518-px model's 1370; D 136
+# and 200 (the 192 and 256 tiles with zero columns), 192 and 256; the
+# three layouts; B·H over 65535
+K6_FP32_WIDE_EDGE_CASES = [
+    (layout, (1, s, 2, d)) for layout in ("qkv", "dense", "unaligned")
+    for s in (1, 17, 31, 33, 63, 65, 127, 128, 129, 257, 1025, 1370)
+    for d in (136, 192, 200, 256)] + [
+    ("qkv", (1, 8, 65537, 136)), ("dense", (65537, 8, 1, 256))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,shape", K6_FP32_WIDE_EDGE_CASES)
+def test_fp32_wide_k6_matches_plain_at_tile_edges_on_cuda(cuda_device,
+                                                          layout, shape):
+    # twice, bitwise equal (no float atomics), no copy: dq (on the plain
+    # forward's lse and delta) within FP32_BWD_EDGE_REL of the call's
+    # largest plain gradient
+    b, s, h, d = shape
+    q, k, v, do = _fp32_bwd_operands(layout, b, s, h, d, 170 + s + d,
+                                     cuda_device)
+    scale = d ** -0.5
+    o_r, lse_r = fb.flash_fwd_reference(q, k, v, scale)
+    delta = fb.flash_delta(o_r, do)
+    before = _counts()
+    runs = []
+    for _ in range(2):
+        dq = fb.heads(torch.empty((b, s, 3 * h * d), device=cuda_device),
+                      h)[0]
+        runs.append(fb.flash_bwd_dq(q, k, v, do, lse_r, delta, dq))
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1], before[2] + 2, before[3])
+    assert torch.equal(*runs)
+    want = fb.flash_bwd_reference(q, k, v, o_r, lse_r, do, scale)
+    limit = FP32_BWD_EDGE_REL * max(w.abs().max().item() for w in want)
+    assert torch.isfinite(runs[0]).all()
+    err = (runs[0] - want[0]).abs().max().item()
+    assert err <= limit, (err, limit)
+
+
+# a head dim past the register tiles' 256
+FP32_CHUNKED_D = 320
 # one session in a fresh process: in a long one (the whole cuda suite)
 # torch.profiler's sessions stop recording kernels
 _K5K6_TRACE = """
@@ -994,14 +1045,15 @@ for layout in ("qkv", "unaligned"):
                 if e.device_type.name == "CUDA"
                 and "anonymous namespace" in e.key)
 print(json.dumps(out))
-""" % (FP32_BWD_EDGE_D + FP32_WIDE_EDGE_D,)
+""" % (FP32_BWD_EDGE_D + FP32_WIDE_EDGE_D + (FP32_CHUNKED_D,),)
 
 
 @pytest.fixture(scope="module")
 def fp32_k5k6_trace():
     """The csrc/ kernels one fp32 call of K5, of K6 and of K4 launches at
-    each of FP32_BWD_EDGE_D and FP32_WIDE_EDGE_D, in a qkv view and in one
-    whose rows start a float late, traced by torch.profiler."""
+    each of FP32_BWD_EDGE_D, FP32_WIDE_EDGE_D and FP32_CHUNKED_D, in a qkv
+    view and in one whose rows start a float late, traced by
+    torch.profiler."""
     import json
     import subprocess
     import sys
@@ -1047,13 +1099,25 @@ def test_fp32_k4_launches_the_register_tiled_kernel_alone(fp32_k5k6_trace,
 @pytest.mark.parametrize("d", FP32_WIDE_EDGE_D)
 def test_fp32_wide_k4_k5_launch_their_kernels_alone(fp32_k5k6_trace, d,
                                                     layout):
-    # past 128 K4 and K5 on the wide register tiles (<kD>, 192 or 256), K6
-    # on csrc/flash_blocked.cu's 64-column chunks
+    # past 128 K4, K5 and K6 on the wide register tiles (<kD>, 192 or 256)
     kd = 192 if d <= 192 else 256
-    for name, kernel in (("fwd", f"flash_fwd_wide_simt_kernel<{kd}>("),
-                         ("dkdv", f"flash_bwd_dkdv_wide_simt_kernel<{kd}>("),
-                         ("dq", "flash_bwd_dq_wide_kernel<float>(")):
+    for name in ("fwd", "dkdv", "dq"):
+        kernel = f"flash_{'fwd' if name == 'fwd' else 'bwd_' + name}" \
+            f"_wide_simt_kernel<{kd}>("
         names = fp32_k5k6_trace[f"{name}{d}{layout}"]
+        assert len(names) == 1 and f"::{kernel}" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv", "unaligned"])
+def test_fp32_past_256_launches_the_chunked_loops_alone(fp32_k5k6_trace,
+                                                        layout):
+    # past 256 the fp32 K4, K5 and K6 run csrc/flash_blocked.cu's run-time
+    # head dim in 64-column chunks
+    for name in ("fwd", "dkdv", "dq"):
+        kernel = f"flash_{'fwd' if name == 'fwd' else 'bwd_' + name}" \
+            "_wide_kernel<float>("
+        names = fp32_k5k6_trace[f"{name}{FP32_CHUNKED_D}{layout}"]
         assert len(names) == 1 and f"::{kernel}" in names[0], names
 
 

@@ -1,6 +1,6 @@
 """A/B of the fp32 K5 and K6 (csrc/flash_bwd_simt.cu:
-flash_bwd_dkdv_simt_kernel, flash_bwd_dq_simt_kernel) against variants of
-them, on one NVIDIA GPU.
+flash_bwd_dkdv_simt_kernel, flash_bwd_dq_simt_kernel and past 128 their
+wide kernels) against variants of them, on one NVIDIA GPU.
 
     python tools/time_fp32_bwd_variants.py [--batch 32] [--heads 12]
         [--head_dim 64] [--variants NAME ...]
@@ -31,9 +31,8 @@ shapes at H = 12, D = 64), writing views of one dqkv buffer as
 * unroll1, unroll4: the score and sum loops unrolled 1 or 4 times instead
   of 2.
 
-Past --head_dim 128 the variants that reach K5's wide register tiles
-(flash_bwd_dkdv_wide_simt_kernel) count, and K6 (csrc/flash_blocked.cu's
-there) is not timed:
+Past --head_dim 128 the variants that reach the wide kernels count: K5's
+(flash_bwd_dkdv_wide_simt_kernel)
 
 * wide_no_scores, wide_no_sums: the score products (s^T, dp^T) or the
   summed ones (dv, dk) left out (times only);
@@ -43,7 +42,23 @@ there) is not timed:
 * wide_dot_unroll1: keys_dot's loop over the head dim unrolled once
   instead of twice;
 * wide_sum_unroll1: keys_sum's loop over the queries unrolled once
-  instead of twice.
+  instead of twice (K6's ds k too);
+
+and K6's (flash_bwd_dq_wide_simt_kernel):
+
+* wide_dq_no_scores, wide_dq_no_sums: the score products (s, dp) or the
+  sum dq += ds k left out (times only);
+* wide_dq_no_stream: only the first pieces loaded, the later steps
+  reading what the ring holds (times only: what waiting for the pieces
+  costs);
+* wide_dq_no_row_copy: the same for the K row pieces of ds k alone
+  (times only: what reading K a second time costs);
+* wide_dq_copy_twice: every piece copied twice into its slot (the copies'
+  own work);
+* wide_dq_nj2: 64-key tiles (s and dp on 8 x 2 register tiles, K and V
+  pieces of 64 columns) instead of 128;
+* wide_dq_dot_unroll4: the score pieces' loop over the head dim unrolled
+  4 times instead of fully.
 
 Per variant: the median CUDA-event time of one launch of each kernel (10
 launches a sample, 9 samples), the max abs error of each output against
@@ -94,6 +109,15 @@ WIDE_DOTS = tuple(f"keys_dot<kD, {j}>(x, kv, qd);" for j in (1, 2))
 WIDE_SUMS = tuple(f"keys_sum<kD, {n}>(acc, pd, y, lane);"
                   for n in ("kTile / 2", "kTile"))
 KEYS_SUM_LOOP = "#pragma unroll 2\n  for (int q = 0; q < kK; q += 4) {"
+# the wide K6's products and copies
+DQ_DOTS = tuple(f"            nj, x, {a} + c * W::kKC,"
+                for a in ("qw", "dow"))
+DQ_SUM = "keys_sum<kD, W::kVR, W::kKeys>(acc, dsw"
+DQ_PIECE_COPY = ("copy_tile<W::kKC, W::kKeys, W::kThr>(\n            dst, "
+                 "(u < W::kKPieces ? kg : vg) + c, in.sr, k0, S, D - c, vec);")
+DQ_ROW_COPY = ("copy_tile<kD, W::kVR, W::kThr>(\n            dst, kg, in.sr, "
+               "k0 + (u - 2 * W::kKPieces) * W::kVR, S, D, vec);")
+DQ_DOT_LOOP = "#pragma unroll\n  for (int d = 0; d < kKC; d += 4) {"
 
 
 def unrolled(n: str):
@@ -130,9 +154,25 @@ VARIANTS = {
                          for call in WIDE_DOTS},
     "wide_sum_unroll1": {KEYS_SUM_LOOP: KEYS_SUM_LOOP.replace("unroll 2",
                                                               "unroll 1")},
+    "wide_dq_no_scores": {call: "            0, x, " + call[19:]
+                          for call in DQ_DOTS},
+    "wide_dq_no_sums": {DQ_SUM: "if (0) " + DQ_SUM},
+    "wide_dq_no_stream": {"    if (t < n_steps) {":
+                          "    if (t < W::kSlots - 1) {"},
+    "wide_dq_no_row_copy": {DQ_ROW_COPY: "if (t < W::kSlots - 1) "
+                            + DQ_ROW_COPY},
+    "wide_dq_copy_twice": {DQ_PIECE_COPY: "{ " + DQ_PIECE_COPY + " "
+                           + DQ_PIECE_COPY + " }",
+                           DQ_ROW_COPY: "{ " + DQ_ROW_COPY + " " + DQ_ROW_COPY
+                           + " }"},
+    "wide_dq_nj2": {"constexpr int kDqNJ = 4;": "constexpr int kDqNJ = 2;"},
+    "wide_dq_dot_unroll4": {DQ_DOT_LOOP: DQ_DOT_LOOP.replace(
+        "unroll\n", "unroll 4\n")},
 }
 TIMES_ONLY = {"no_scores", "no_sums", "no_exp", "no_stream",
-              "wide_no_scores", "wide_no_sums", "wide_no_stream"}
+              "wide_no_scores", "wide_no_sums", "wide_no_stream",
+              "wide_dq_no_scores", "wide_dq_no_sums", "wide_dq_no_stream",
+              "wide_dq_no_row_copy"}
 SHIM = """
 extern "C" int variant_dkdv(const float* q, const float* k, const float* v,
     const float* dout, const float* lse, const float* delta, float* dk,
@@ -228,7 +268,6 @@ def main() -> int:
         print("time_fp32_bwd_variants: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     H, D = args.heads, args.head_dim
-    wide = D > 128  # K6 is csrc/flash_blocked.cu's there: K5 alone
     torch.backends.cuda.matmul.allow_tf32 = False
     sources = {n: variant_source(VARIANTS[n]) for n in args.variants}
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -282,25 +321,21 @@ def main() -> int:
                 raise RuntimeError(f"{name}: K6 launch failed ({rc})")
 
         k5()
-        if not wide:
-            k6()
+        k6()
         torch.cuda.synchronize()
-        row = {"k5_ms": ms(k5), "ptxas": ptxas(log)}
-        if not wide:
-            row["k6_ms"] = ms(k6)
+        row = {"k5_ms": ms(k5), "k6_ms": ms(k6), "ptxas": ptxas(log)}
         if name not in TIMES_ONLY:
             row["max_abs_err_over_max"] = [
                 (g - w).abs().max().item() / top
-                for g, w in zip((dq, dk, dv)[wide:], want[wide:])]
+                for g, w in zip((dq, dk, dv), want)]
         out["variants"][name] = row
 
     dense = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention(*dense)
     out["flash_bwd_dkdv_ms"] = ms(lambda: fb.flash_bwd_dkdv(
         q, k, v, do, lse, delta, dk, dv, scale))
-    if not wide:
-        out["flash_bwd_dq_ms"] = ms(lambda: fb.flash_bwd_dq(
-            q, k, v, do, lse, delta, dq, scale))
+    out["flash_bwd_dq_ms"] = ms(lambda: fb.flash_bwd_dq(
+        q, k, v, do, lse, delta, dq, scale))
     out["sdpa_bwd_ms"] = ms(lambda: torch.autograd.grad(
         sdpa, dense, do.contiguous(), retain_graph=True))
     print(json.dumps(out), flush=True)

@@ -120,8 +120,8 @@ VARIANTS = {
     "rows16": {"kLX = kD == 64 ? 8 : 16;": "kLX = 16;"},
     "unroll1": unrolled("unroll 1"),
     "unroll4": unrolled("unroll 4"),
-    "wide_no_scores": {"      if (live)\n        wide_scores_n<kD>(":
-                       "      if (0)\n        wide_scores_n<kD>("},
+    "wide_no_scores": {"      if (live)\n        wide_scores_n<W::kKC,":
+                       "      if (0)\n        wide_scores_n<W::kKC,"},
     "wide_no_pv": {"keys_sum<kD, W::kVR, W::kKeys>(acc,":
                    "if (0) keys_sum<kD, W::kVR, W::kKeys>(acc,"},
     "wide_no_stream": {"    if (t < n_steps) {":

@@ -14,16 +14,17 @@
 //     tiles, the sums on 8 x 8, cp.async double buffers at D <= 64), both
 //     linked into this library (the register tiles live in
 //     csrc/simt_tiles.cuh);
-//   fp32, 129-256: K4 and K5 on the wide register tiles of the same two
-//     files (flash_fwd_wide_simt_kernel: 64-row blocks of 8 warps that own
-//     8 whole rows each, an online softmax over 256-key score tiles, K and
-//     V streamed in pieces through one cp.async ring;
-//     flash_bwd_dkdv_wide_simt_kernel: 32-key blocks on
-//     csrc/simt_wide.cuh's tiles): fwd() and dkdv() hand them float at D
-//     <= 256, dq() at D <= 128;
-//   the fp32 K6 past 128, and every dtype past 256 (to 1024): the
-//     *_wide_kernel<T> below (K4 and K5 in fp32, bf16 and fp16 only past
-//     256).
+//   fp32, 129-256: K4, K5 and K6 on the wide register tiles of the same
+//     two files (flash_fwd_wide_simt_kernel and flash_bwd_dq_wide_simt_
+//     kernel: 64-row blocks of 8 warps that own 8 whole rows each, K and V
+//     streamed in pieces through one cp.async ring; K4 an online softmax
+//     over 128-key score tiles, K6 s and dp over 128-key tiles and ds k
+//     from the warp's own rows; flash_bwd_dkdv_wide_simt_kernel: 32-key
+//     blocks on csrc/simt_wide.cuh's tiles): fwd(), dkdv() and dq() hand
+//     them float at every D <= 256;
+//   every dtype past 256 (to 1024): the *_wide_kernel<T> below (bf16 and
+//     fp16 also at 129-256 when called here, which ops/flash_blocked.py
+//     does not do).
 // Measured on an H100 80GB HBM3 at 700 W, device ms of one call at (B, S,
 // H, D) = (32, 1370, 12, 64) (PERF.md §6): fp32 K4 5.204-5.207 (this
 // file's flash_fwd_kernel<float, 64> before it: 7.19-7.20 in the same
@@ -84,24 +85,20 @@
 // The grid is one-dimensional over (b h, tile), so B H is bounded only by
 // 2^31 / ceil(S / 64).
 //
-// Head dims over 128 (the *_wide_kernel<T>: the fp32 K6 past 128, every
-// dtype past 256): the same tiles and loops with the head dim a run-time
-// value up to 1024, in 64-column chunks. At D = 256 the D = 128 kernels'
-// staging of whole rows would need 220 KB (K4), ~307 KB (K5) and ~290 KB
-// (K6) of a block's 227 KB, and their accumulators 4 x D / 16 registers
-// each. So a block owns
-// one chunk of one (b, h) and tile (a grid ceil(D / 64) times as large):
-// it sums s (and dp) over the whole head dim, staging 64 columns of each
-// operand at a time in the same order in every block of the tile (so m, l,
-// p and ds are bitwise the same in each), then stages its chunk of V (K4),
-// of q and dO (K5) or of K (K6) and accumulates the chunk's 64 output
-// columns in registers, in the shared memory of a D = 64 tile.
-// s and dp are computed once per chunk: right, and recorded as slow
-// (PERF.md §6), not fast: at D 256 they make 2.5x the products of the
-// function, and at (B, S, H, D) = (32, 1370, 12, 256) the fp32 K4 and K5
-// took 86.1 and 249.9 device ms here, 21.9 and 48.2 on the wide register
-// tiles that run them now (H100 80GB HBM3 at 700 W). K4's lse is written
-// by chunk 0.
+// Head dims past 256 (the *_wide_kernel<T>, every dtype): the same tiles
+// and loops with the head dim a run-time value up to 1024, in 64-column
+// chunks. A block owns one chunk of one (b, h) and tile (a grid ceil(D /
+// 64) times as large): it sums s (and dp) over the whole head dim, staging
+// 64 columns of each operand at a time in the same order in every block of
+// the tile (so m, l, p and ds are bitwise the same in each), then stages
+// its chunk of V (K4), of q and dO (K5) or of K (K6) and accumulates the
+// chunk's 64 output columns in registers, in the shared memory of a D = 64
+// tile. s and dp are computed once per chunk: right, and recorded as slow
+// (PERF.md §6), not fast: at D 256 K6 makes 9 full-head-dim products where
+// the function needs 3, and at (B, S, H, D) = (32, 1370, 12, 256) the fp32
+// K4, K5 and K6 took 86.1, 249.9 and 155.0 device ms here, against 21.9,
+// 48.2 and 35.4 on the wide register tiles that run them now (H100 80GB
+// HBM3 at 700 W). K4's lse is written by chunk 0.
 //
 // Plain C interface, loaded with ctypes. The kernels allocate nothing and
 // launch on the caller's stream; each host function takes the element type
@@ -119,8 +116,8 @@
 #include "elem.cuh"
 
 // csrc/flash_fwd_simt.cu and csrc/flash_bwd_simt.cu, linked into this
-// library: the fp32 K4 and K5 at D <= 256, K6 at D <= 128; strides are
-// {batch, head, row} in elements.
+// library: the fp32 K4, K5 and K6 at D <= 256; strides are {batch, head,
+// row} in elements.
 namespace flash_fwd_simt {
 int fwd(const float* q, const float* k, const float* v, float* o,
         float* lse, int B, int H, int S, int D, float scale,
@@ -434,7 +431,7 @@ int prepare(Kernel kernel, size_t bytes, int B, int H, int S, int* n_tiles,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// K4 and K5: float at D <= 256 (kD == kSimt: csrc/flash_fwd_simt.cu's and
+// float at D <= 256 (kD == kSimt: csrc/flash_fwd_simt.cu's and
 // csrc/flash_bwd_simt.cu's kernels, which take D themselves), every type
 // past that (kD == kWide).
 template <typename T, int kD>
@@ -537,12 +534,11 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
-// f<float, kSimt>(args...) for kF32 at head dims D up to `simt` (256 for
-// K4 and K5, 128 for K6); past it f<T, kWide> for the element type
-// `dtype`, the wide kernels in kBf16, kF16 and kF32 (bf16 and fp16 only past
-// 128).
-#define DISPATCH(f, simt, dtype, D, ...)                                    \
-  if ((dtype) == kF32 && (D) <= (simt))                                    \
+// f<float, kSimt>(args...) for kF32 at head dims D up to 256; past it
+// f<T, kWide> for the element type `dtype`, the wide kernels in kBf16, kF16
+// and kF32 (bf16 and fp16 only past 128).
+#define DISPATCH(f, dtype, D, ...)                                          \
+  if ((dtype) == kF32 && (D) <= 256)                                       \
     return f<float, kSimt>(__VA_ARGS__);                                    \
   if ((D) <= 128) return (int)cudaErrorInvalidValue;                        \
   switch (dtype) {                                                          \
@@ -568,7 +564,7 @@ int vtx_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   int dtype, void* stream) {
   const Layout in{in_sb, in_sh, in_sr}, out{out_sb, out_sh, out_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(fwd, 256, dtype, D, q, k, v, o, lse, B, H, S, D, scale, in, out,
+  DISPATCH(fwd, dtype, D, q, k, v, o, lse, B, H, S, D, scale, in, out,
            s)
 }
 
@@ -584,7 +580,7 @@ int vtx_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(dkdv, 256, dtype, D, q, k, v, dout, lse, delta, dk, dv, B, H, S,
+  DISPATCH(dkdv, dtype, D, q, k, v, dout, lse, delta, dk, dv, B, H, S,
            D, scale, in, og, gr, s)
 }
 
@@ -599,7 +595,7 @@ int vtx_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Layout in{in_sb, in_sh, in_sr}, og{og_sb, og_sh, og_sr},
       gr{gr_sb, gr_sh, gr_sr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(dq, 128, dtype, D, q, k, v, dout, lse, delta, dqp, B, H, S, D,
+  DISPATCH(dq, dtype, D, q, k, v, dout, lse, delta, dqp, B, H, S, D,
            scale, in, og, gr, s)
 }
 

@@ -1,11 +1,11 @@
 // The blocked attention backward in fp32 on the CUDA cores of Hopper:
 // flash_bwd_dkdv_simt_kernel<kD> (K5) and flash_bwd_dq_simt_kernel<kD>
-// (K6), kD 64 or 128 at compile time, and K5 past 128
-// flash_bwd_dkdv_wide_simt_kernel<kD>, kD 192 or 256 (a smaller head dim
-// takes the next with its columns zero-filled). Linked into
-// csrc/flash_blocked.cu's library, whose dkdv() launches them for float at
-// D <= 256 and dq() at D <= 128 (the fp32 K6 past 128, and every dtype
-// past 256, stay there; bf16 and fp16 to 256 are csrc/flash_bwd.cu's).
+// (K6), kD 64 or 128 at compile time, and past 128
+// flash_bwd_dkdv_wide_simt_kernel<kD> and flash_bwd_dq_wide_simt_kernel<kD>,
+// kD 192 or 256 (a smaller head dim takes the next with its columns
+// zero-filled). Linked into csrc/flash_blocked.cu's library, whose dkdv()
+// and dq() launch them for float at D <= 256 (every dtype past 256 stays
+// there; bf16 and fp16 to 256 are csrc/flash_bwd.cu's).
 //
 // Replaces the TPU kernels of vision_transformers_torch_xla_tpu/ops/
 // flash_blocked.py in fp32 (the JAX kernels round nothing there):
@@ -94,6 +94,45 @@
 // stream's copies 40.4 of 48.2; q and dO loaded in column halves under
 // the other half's work took 50.7. ptxas: 236 registers at kD 192; 255
 // and a 60-byte spill at 256 (keys_dot unrolled once: none, 49.2 ms).
+//
+// K6 at head dims 129-256 (flash_bwd_dq_wide_simt_kernel). The design
+// above would stage 128 rows of q and dO and whole 64-key K and V tiles
+// (more than 227 KB at kD 256), and a thread would hold 8 x 8 of a kD-wide
+// dq. So, after the wide K4 (csrc/flash_fwd_simt.cu):
+//   * A block per (b, h, 64-row query tile), 8 warps, each owning 8 whole
+//     rows: lane l holds keys l + 32 j (j < 4) of a 128-key tile on one 8
+//     x 4 register tile, first for s, then for dp, and columns
+//     wide_col(l, c) (c < kD / 32) of dq, an 8 x kD / 32 accumulator. p
+//     goes into the warp's own rows of shared memory, is turned into ds
+//     there once dp is scored, and the warp sums dq += ds k from its own
+//     rows (__syncwarp): no block barrier but the stream's, no parts
+//     scratch, no float atomics, every sum in a fixed order.
+//   * q and dO staged once [64][kD + 4] (133 KB at kD 256); K and V stream
+//     for the scores in pieces of 128 keys x 32 columns (pitch 36), then K
+//     again in pieces of 16 keys x kD for ds k, through one ring of 3
+//     slots: each step waits for its piece and starts the copy two steps
+//     ahead at one block barrier. 217 KB at kD 256: one block an SM.
+//   * The scores read 4 broadcast float4 of q or dO and 4 of K or V a
+//     step for 128 FMAs; ds k is keys_sum (csrc/simt_wide.cuh). The last
+//     key tile scores only its 32-key groups and sums only its 16-key
+//     pieces that hold real keys.
+//   * Why 128-key tiles: 64-key ones (8 x 2 tiles, 212 registers) read 10
+//     loads for 64 FMAs in the scores and took 38.7 against 35.1 ms at
+//     (32, 1370, 12, 256); p kept in registers beside dp (254 registers)
+//     timed the same as p through shared memory (244); a fourth slot does
+//     not fit beside 128-key pieces (at 64-key tiles it timed the same).
+// What bounds it: the three products, 6 B H S^2 D FLOPs (1107 GFLOP at
+// (32, 1370, 12, 256): 16.52 ms at 67 TFLOP/s). Measured on an H100 80GB
+// HBM3 at 700 W, device ms of one call (tools/time_torch_attention.py,
+// PERF.md §6): 35.39-35.40 there, 47% of the bound (csrc/flash_blocked.cu's
+// flash_bwd_dq_wide_kernel<float> before it: 155.00-155.01; SDPA's whole
+// fp32 backward 55.3-55.6); 27.18-27.35 at D 192 (92.87-93.00); 0.546 at
+// (1, 1370, 4, 256), one wave of 88 blocks on 132 SMs (2.03; SDPA 0.84).
+// Left out in turn (tools/time_fp32_bwd_variants.py --head_dim 256, event
+// ms): without the scores 17.4 of 35.1, without ds k 26.6, without the
+// stream's waits 28.9 (without the second read of K 33.7); every piece
+// copied twice 40.4. ptxas: 232 (kD 192) and 244 (256) registers, no
+// spill.
 //
 // Plain C++ interface (namespace flash_bwd_simt), called by
 // csrc/flash_blocked.cu's host functions on the caller's stream; each
@@ -540,6 +579,216 @@ int launch_dkdv_wide(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+// ---- head dims 129-256: flash_bwd_dq_wide_simt_kernel<kD>, kD 192 or 256
+
+// The wide dq kernel's shape: a lane's keys of a key tile (kDqNJ: 4,
+// 128-key tiles, s and then dp on one 8 x 4 register tile beside the 8 x
+// kD / 32 accumulator), the floats of a streamed piece and the slots of the
+// ring
+constexpr int kDqNJ = 4;
+constexpr int kDqPiece = 4096;
+constexpr int kDqSlots = 3;
+
+// The wide dq kernel's widths at compile-time head dim kD. A warp owns 8
+// whole query rows of the block's kRows; lane l holds keys l + 32 j (j <
+// kNJ) of a key tile in s and dp, and columns wide_col<kD>(l, c) (c < kNO)
+// of dq. K and V stream in pieces of kKeys keys x kKC head-dim columns
+// (pitch kKC + 4: the 8 lanes of a quarter-warp read 8 float4 on 32
+// distinct banks) for the scores, then K again in pieces of kVR keys x kD
+// columns (pitch kD + 4) for ds k, all through one ring of kSlots slots.
+// Shared memory: q and dO [kRows][kD + 4], the ring, lse and delta [2]
+// [kRows], p and then ds [kRows][kKeys] (each warp's own 8 rows).
+template <int kD>
+struct DqWide {
+  static constexpr int kRows = 64;
+  static constexpr int kThr = kRows / 8 * 32;
+  static constexpr int kP = kD + 4;
+  static constexpr int kNJ = kDqNJ;
+  static constexpr int kKeys = 32 * kNJ;
+  static constexpr int kKC = kDqPiece / kKeys;
+  static constexpr int kKP = kKC + 4;
+  static constexpr int kKPieces = kD / kKC;  // of K, and of V, a key tile
+  static constexpr int kVR = kDqPiece / 256;
+  static constexpr int kRPieces = kKeys / kVR;
+  static constexpr int kSteps = 2 * kKPieces + kRPieces;  // of a whole tile
+  static constexpr int kSlot =
+      kKeys * kKP > kVR * kP ? kKeys * kKP : kVR * kP;
+  static constexpr int kSlots = kDqSlots;
+  static constexpr int kNO = kD / 32;
+  static constexpr size_t kSmem =
+      (size_t)(2 * kRows * kP + kSlots * kSlot + 2 * kRows + kRows * kKeys) *
+      sizeof(float);
+  static_assert((kD == 192 || kD == 256) && kD % kKC == 0, "the wide tiles");
+  static_assert(kSmem <= 227 * 1024, "the wide tiles fit a block's 227 KB");
+};
+
+// K6 at head dims 129-256. grid (B * H * n_tiles) over 64-row query
+// tiles. Per key tile, warp w scores s = q k^T for its 8 rows over the K
+// pieces and stores p = exp(s scale - lse) (0 for keys >= S) into its own
+// rows of shared memory, scores dp = dO v^T over the V pieces in the same
+// registers, turns p into ds = p (dp - delta) in place, and sums dq += ds
+// k over the K row pieces that hold real keys (csrc/simt_wide.cuh's
+// keys_sum): no barrier but the ring's, and every sum of a row in one warp,
+// in a fixed order. Step t waits for its piece, and starts step t + kSlots
+// - 1's copy, at one block barrier.
+template <int kD>
+__global__ void __launch_bounds__(DqWide<kD>::kThr, 1)
+flash_bwd_dq_wide_simt_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq, int H, int S, int D,
+                              int n_tiles, float scale, Strides in,
+                              Strides og, Strides gr, int vec, int vec_out) {
+  typedef DqWide<kD> W;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = qs + W::kRows * W::kP;
+  float* ring = dos + W::kRows * W::kP;
+  float* ls = ring + W::kSlots * W::kSlot;  // lse [kRows], then delta
+  const int bh = blockIdx.x / n_tiles, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % n_tiles) * W::kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* dsw = ls + 2 * W::kRows + 8 * warp * W::kKeys;  // its p, then ds
+  const float* qw = qs + 8 * warp * W::kP;
+  const float* dow = dos + 8 * warp * W::kP;
+  const float* lw = ls + 8 * warp;
+  const bool live = q0 + 8 * warp < S;  // the warp holds a real row
+  const long long off = b * in.sb + h * in.sh;
+  const float* kg = k + off;
+  const float* vg = v + off;
+  const int n_kt = (S + W::kKeys - 1) / W::kKeys;
+  const int n_steps = (n_kt - 1) * W::kSteps + 2 * W::kKPieces +
+                      (S - (n_kt - 1) * W::kKeys + W::kVR - 1) / W::kVR;
+  // start step t's copy into its slot (an empty group past the stream):
+  // the key tile's K pieces, its V pieces, then its K row pieces
+  auto issue = [&](int t) {
+    if (t < n_steps) {
+      float* dst = ring + t % W::kSlots * W::kSlot;
+      const int k0 = t / W::kSteps * W::kKeys, u = t % W::kSteps;
+      if (u < 2 * W::kKPieces) {
+        const int c = u % W::kKPieces * W::kKC;
+        copy_tile<W::kKC, W::kKeys, W::kThr>(
+            dst, (u < W::kKPieces ? kg : vg) + c, in.sr, k0, S, D - c, vec);
+      } else {
+        copy_tile<kD, W::kVR, W::kThr>(
+            dst, kg, in.sr, k0 + (u - 2 * W::kKPieces) * W::kVR, S, D, vec);
+      }
+    }
+    cp_async_commit();
+  };
+  // wait for step t's piece, start step t + kSlots - 1's, return t's; every
+  // thread is past step t - 1, so its slot is free
+  auto piece = [&](int t) {
+    cp_async_wait<W::kSlots - 2>();
+    __syncthreads();
+    issue(t + W::kSlots - 1);
+    return static_cast<const float*>(ring + t % W::kSlots * W::kSlot);
+  };
+
+  copy_tile<kD, W::kRows, W::kThr>(qs, q + off, in.sr, q0, S, D, vec);
+  copy_tile<kD, W::kRows, W::kThr>(dos, dout + b * og.sb + h * og.sh, og.sr,
+                                   q0, S, D, vec);
+  cp_async_commit();
+  if (threadIdx.x < 2 * W::kRows) {  // lse and delta, 0 past S
+    const int r = q0 + threadIdx.x % W::kRows;
+    const float* g = threadIdx.x < W::kRows ? lse : delta;
+    ls[threadIdx.x] = r < S ? g[(long long)bh * S + r] : 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < W::kSlots - 1; ++t) issue(t);
+  float acc[8][W::kNO];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < W::kNO; ++c) acc[i][c] = 0.f;
+
+  int t = 0;
+  for (int k0 = 0; k0 < S; k0 += W::kKeys) {
+    const int nk = min(W::kKeys, S - k0);  // the tile's real keys
+    const int nj = (nk + 31) >> 5;         // and 32-key groups
+    float x[8][W::kNJ];  // s, then dp, of the warp's rows and lane's keys
+    zero(x);
+    for (int c = 0; c < W::kKPieces; ++c) {
+      const float* kc = piece(t++);
+      if (live)
+        wide_scores_n<W::kKC, W::kP, W::kKP, W::kNJ>(
+            nj, x, qw + c * W::kKC, kc + lane * W::kKP);
+    }
+    // p into the warp's rows: each lane writes, and reads back for ds, its
+    // own keys' entries alone
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < W::kNJ; ++j) {
+        const bool ok = lane + 32 * j < nk;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          dsw[i * W::kKeys + lane + 32 * j] =
+              ok ? exp_p(__fmul_rn(x[i][j], scale) - lw[i]) : 0.f;
+      }
+    }
+    zero(x);
+    for (int c = 0; c < W::kKPieces; ++c) {
+      const float* vc = piece(t++);
+      if (live)
+        wide_scores_n<W::kKC, W::kP, W::kKP, W::kNJ>(
+            nj, x, dow + c * W::kKC, vc + lane * W::kKP);
+    }
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < W::kNJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float* at = dsw + i * W::kKeys + lane + 32 * j;
+          *at *= x[i][j] - lw[W::kRows + i];  // ds = p (dp - delta)
+        }
+      __syncwarp();  // the warp's rows of ds are stored
+    }
+    // dq += ds k over the K row pieces that hold real keys (ds and K are 0
+    // past S in the last one)
+    for (int g = 0; g < (nk + W::kVR - 1) / W::kVR; ++g) {
+      const float* kr = piece(t++);
+      if (live)
+        keys_sum<kD, W::kVR, W::kKeys>(acc, dsw + g * W::kVR, kr, lane);
+    }
+  }
+
+  if (!live) return;
+  float* dst = dq + b * gr.sb + h * gr.sh;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + 8 * warp + i;
+    if (r >= S) break;  // the same r in every lane
+    float y[W::kNO];
+#pragma unroll
+    for (int c = 0; c < W::kNO; ++c) y[c] = __fmul_rn(acc[i][c], scale);
+    float* row = dst + (long long)r * gr.sr;
+    store_o(row, wide_col<kD>(lane, 0), y, 4, D, vec_out);
+    store_o(row, wide_col<kD>(lane, 4), y + 4, W::kNO - 4, D, vec_out);
+  }
+}
+
+template <int kD>
+int launch_dq_wide(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   float* dq, int B, int H, int S, int D, float scale,
+                   Strides in, Strides og, Strides gr, cudaStream_t stream) {
+  typedef DqWide<kD> W;
+  int n_tiles;
+  unsigned blocks;
+  const int rc = prepare(flash_bwd_dq_wide_simt_kernel<kD>, W::kSmem,
+                         W::kRows, B, H, S, &n_tiles, &blocks);
+  if (rc) return rc;
+  const int vec = rows16({q, k, v, dout}, in, og) ? 1 : 0;
+  const int vec_out = rows16({dq}, gr, gr) ? 1 : 0;
+  flash_bwd_dq_wide_simt_kernel<kD><<<blocks, W::kThr, W::kSmem, stream>>>(
+      q, k, v, dout, lse, delta, dq, H, S, D, n_tiles, scale, in, og, gr, vec,
+      vec_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The instantiations: at D <= 64 128 rows a block with both streamed
@@ -579,12 +828,18 @@ int dq(const float* q, const float* k, const float* v, const float* dout,
        const long long* gr, cudaStream_t stream) {
   const Strides i{in[0], in[1], in[2]}, o{og[0], og[1], og[2]},
       g{gr[0], gr[1], gr[2]};
-  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
-  return D <= 64
-             ? launch_dq<VTX_BWD_SIMT_64>(q, k, v, dout, lse, delta, dq, B, H,
-                                          S, D, scale, i, o, g, stream)
-             : launch_dq<VTX_BWD_SIMT_128>(q, k, v, dout, lse, delta, dq, B,
-                                           H, S, D, scale, i, o, g, stream);
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch_dq<VTX_BWD_SIMT_64>(q, k, v, dout, lse, delta, dq, B, H, S,
+                                      D, scale, i, o, g, stream);
+  if (D <= 128)
+    return launch_dq<VTX_BWD_SIMT_128>(q, k, v, dout, lse, delta, dq, B, H,
+                                       S, D, scale, i, o, g, stream);
+  if (D <= 192)
+    return launch_dq_wide<192>(q, k, v, dout, lse, delta, dq, B, H, S, D,
+                               scale, i, o, g, stream);
+  return launch_dq_wide<256>(q, k, v, dout, lse, delta, dq, B, H, S, D, scale,
+                             i, o, g, stream);
 }
 
 }  // namespace flash_bwd_simt

@@ -431,62 +431,6 @@ struct FwdWide {
   static_assert(kSmem <= 227 * 1024, "the wide tiles fit a block's 227 KB");
 };
 
-// s[i][j] += sum_{d < kKC} qw[i kP + d] kl[32 j kKP + d] (i < 8, j < NJ):
-// one K piece's part of the scores of the warp's 8 rows (qw, broadcast)
-// and the lane's keys (kl, its first row), both read as float4.
-template <int kD, int NJ>
-__device__ __forceinline__ void wide_scores(float (&s)[8][kWideNJ],
-                                            const float* __restrict__ qw,
-                                            const float* __restrict__ kl) {
-  typedef FwdWide<kD> W;
-#pragma unroll
-  for (int d = 0; d < W::kKC; d += 4) {
-    float4 y[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      y[j] = *reinterpret_cast<const float4*>(kl + 32 * j * W::kKP + d);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 x = *reinterpret_cast<const float4*>(qw + i * W::kP + d);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        s[i][j] = fmaf(x.x, y[j].x, s[i][j]);
-        s[i][j] = fmaf(x.y, y[j].y, s[i][j]);
-        s[i][j] = fmaf(x.z, y[j].z, s[i][j]);
-        s[i][j] = fmaf(x.w, y[j].w, s[i][j]);
-      }
-    }
-  }
-}
-
-// wide_scores<kD, nj> for the nj (1 to kNJ) 32-key groups that hold real
-// keys: the last score tile computes no group past S.
-template <int kD, int NJ = kWideNJ>
-__device__ __forceinline__ void wide_scores_n(int nj, float (&s)[8][kWideNJ],
-                                              const float* __restrict__ qw,
-                                              const float* __restrict__ kl) {
-  if constexpr (NJ > 1) {
-    if (nj < NJ) {
-      wide_scores_n<kD, NJ - 1>(nj, s, qw, kl);
-      return;
-    }
-  }
-  wide_scores<kD, NJ>(s, qw, kl);
-}
-
-// Four values of o's row from column c: one 16-byte store where `vec` and
-// every column lies below D, else one store each below D.
-__device__ __forceinline__ void store_o(float* __restrict__ row, int c,
-                                        const float* x, int n, int D,
-                                        bool vec) {
-  if (vec && n == 4 && c + 4 <= D) {
-    *reinterpret_cast<float4*>(row + c) = make_float4(x[0], x[1], x[2], x[3]);
-    return;
-  }
-  for (int e = 0; e < n; ++e)
-    if (c + e < D) row[c + e] = x[e];
-}
-
 // K4 at head dims 129-256. grid (B * H * n_tiles) over 64-row query tiles.
 // The stream: for each score tile its kKPieces K pieces, then its V pieces
 // holding real keys; step t waits for its piece, and starts step t +
@@ -562,8 +506,8 @@ flash_fwd_wide_simt_kernel(const float* __restrict__ q,
     for (int c = 0; c < W::kKPieces; ++c) {
       const float* ks = piece(t++);
       if (live)
-        wide_scores_n<kD>((nk + 31) >> 5, s, qw + c * W::kKC,
-                          ks + lane * W::kKP);
+        wide_scores_n<W::kKC, W::kP, W::kKP, W::kNJ>(
+            (nk + 31) >> 5, s, qw + c * W::kKC, ks + lane * W::kKP);
     }
     if (live) {
       // the online softmax of the warp's rows over the tile's keys, keys

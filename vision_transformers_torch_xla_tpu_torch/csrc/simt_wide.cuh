@@ -1,9 +1,12 @@
 // The wide fp32 register tiles (head dims 129-256, compile-time kD 192 or
 // 256) of the attention backwards that hold 32 keys a block, shared by
 // csrc/hp_bwd_simt.cu (K8, K10, K12), csrc/attn_bwd_simt.cu (K2) and
-// csrc/flash_bwd_simt.cu (the blocked K5; keys_sum also serves
-// csrc/flash_fwd_simt.cu's p v), and the product that forms each key
-// block's part of dq, which csrc/hp_bwd_simt.cu's narrow tiles use too.
+// csrc/flash_bwd_simt.cu (the blocked K5), and the product that forms
+// each key block's part of dq, which csrc/hp_bwd_simt.cu's narrow tiles
+// use too; and the tiles of the blocked K4 and K6 past 128, whose warps
+// own 8 whole query rows (csrc/flash_fwd_simt.cu, csrc/flash_bwd_simt.cu:
+// wide_scores scores them, keys_sum sums p v or ds k, store_o writes o
+// or dq).
 //
 // A dk/dv block of 8 warps holds kWideKeys keys, each warp 8 of them, and
 // streams 64-query tiles (lane l holding queries l and l + 32): keys_dot
@@ -143,6 +146,63 @@ __device__ __forceinline__ void keys_sum(float (&acc)[8][kD / 32],
       }
     }
   }
+}
+
+// s[i][j] += sum_{d < kKC} a[i kAP + d] b[32 j kBP + d] (i < 8, j < NJ):
+// one head-dim piece's part of a score tile of a warp's 8 whole rows (a,
+// broadcast) and the lane's keys (b, its first row), both read as float4:
+// the wide blocked K4's s (csrc/flash_fwd_simt.cu) and K6's s and dp.
+template <int kKC, int kAP, int kBP, int NJ, int kNJ>
+__device__ __forceinline__ void wide_scores(float (&s)[8][kNJ],
+                                            const float* __restrict__ a,
+                                            const float* __restrict__ b) {
+#pragma unroll
+  for (int d = 0; d < kKC; d += 4) {
+    float4 y[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + 32 * j * kBP + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(a + i * kAP + d);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[i][j] = fmaf(x.x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x.y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x.z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x.w, y[j].w, s[i][j]);
+      }
+    }
+  }
+}
+
+// wide_scores for the nj (1 to kNJ) 32-key groups that hold real keys:
+// the last key tile scores no group past S.
+template <int kKC, int kAP, int kBP, int kNJ, int NJ = kNJ>
+__device__ __forceinline__ void wide_scores_n(int nj, float (&s)[8][kNJ],
+                                              const float* __restrict__ a,
+                                              const float* __restrict__ b) {
+  if constexpr (NJ > 1) {
+    if (nj < NJ) {
+      wide_scores_n<kKC, kAP, kBP, kNJ, NJ - 1>(nj, s, a, b);
+      return;
+    }
+  }
+  wide_scores<kKC, kAP, kBP, NJ>(s, a, b);
+}
+
+// n (<= 4) values of an output row (K4's o, K6's dq) from column c: one
+// 16-byte store where `vec`, n = 4 and every column lies below D, else one
+// store each below D.
+__device__ __forceinline__ void store_o(float* __restrict__ row, int c,
+                                        const float* x, int n, int D,
+                                        bool vec) {
+  if (vec && n == 4 && c + 4 <= D) {
+    *reinterpret_cast<float4*>(row + c) = make_float4(x[0], x[1], x[2], x[3]);
+    return;
+  }
+  for (int e = 0; e < n; ++e)
+    if (c + e < D) row[c + e] = x[e];
 }
 
 }  // namespace

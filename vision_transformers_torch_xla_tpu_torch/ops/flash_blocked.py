@@ -20,9 +20,9 @@ otherwise (the JAX kernels take any float dtype and head dim):
 Everything else, up to MAX_CUDA_CORE_HEAD_DIM (fp32; every dtype past
 256), goes to csrc/flash_blocked.cu, CUDA-core loops
 that round where the JAX kernels cast to the inputs' dtype and compute in
-fp32 (`tensor_cores` decides, per kernel); its fp32 K4 and K5 at a head
-dim <= 256 and K6 at <= 128 are the register-tiled kernels of
-csrc/flash_fwd_simt.cu and csrc/flash_bwd_simt.cu (wide tiles past 128),
+fp32 (`tensor_cores` decides, per kernel); its fp32 K4, K5 and K6 at a
+head dim <= 256 are the register-tiled kernels of csrc/flash_fwd_simt.cu
+and csrc/flash_bwd_simt.cu (wide tiles past 128),
 linked into the same library, which read every fp32 view with a
 contiguous head dim in place (16-byte copies where its rows are 16-byte
 aligned, else 4-byte ones). No launch gives way to another library or to
@@ -85,8 +85,8 @@ FLASH_BWD_DQ_LAUNCHES = 0
 # K8, K10-K12 in ops/flash_attention.py)
 COPIES = 0
 
-# the CUDA-core library's sources: K4-K6's loops, and the fp32 K4 and K5
-# at a head dim <= 256 and K6 at <= 128 linked in
+# the CUDA-core library's sources: K4-K6's loops (every dtype past a head
+# dim of 256), and the fp32 K4, K5 and K6 at a head dim <= 256 linked in
 CUDA_CORE_SOURCES = ("flash_blocked.cu", "flash_bwd_simt.cu",
                      "flash_fwd_simt.cu")
 
