@@ -343,6 +343,29 @@ JAX kernels take any float dtype):
     the recipe step's median CUDA-event time in train_one_epoch with
     --output_dir, TensorBoard and the watchdog on against off, in turns
     (off, on, off, on) in this process.
+25. bf16_pure: launch/main.py::main on my_vit_b with the recipe's flags and
+    --precision bf16_pure for 3 steps and 2 eval batches (K1 and K2 12 a
+    step and eval batch, each call's qkv bf16), then the timed step: every
+    param and EMA tensor bf16 (AdamW's moments stay fp32), its median
+    CUDA-event time and peak memory printed beside phase 9's bf16 step.
+26. on-device augmentation (data/device_aug.py) on a b128 batch of 224-px
+    8-bit pixels: each of the 15 RandAugment ops forced through the draw
+    (apply_augment, magnitude +-AUG_MAG), then the whole pipeline with the
+    recipe's --aa and --reprob 0.25, each held against the same function on
+    the CPU with the same draws and noise (the first AUG_CPU_IMAGES images:
+    every op is per image): the resampling and photometric ops within
+    AUG_ATOL, the quantizing ops exactly, the chain within AUG_CHAIN_ATOL
+    but for a share of AUG_CHAIN_SHARE one quantization step away. One
+    apply_augment runs under torch.cuda.set_sync_debug_mode('error'), so a
+    device-to-host read fails the run. Printed with the card's name and
+    power limit: each op's and augment_batch's median CUDA-event time.
+27. the folder source behind --device_augment: FOLDER_CLASSES x
+    FOLDER_PER_CLASS seeded JPEGs of 256-320 px written under build/smoke/
+    (removed at the end), then main() on my_vit_b with the recipe's flags,
+    --data_set folder and --device_augment for 3 steps and 2 eval batches
+    (K1 and K2 as in phase 9), then the recipe step on the folder's first
+    batch with and without --device_augment, in turns (FOLDER_AB_ROUNDS
+    rounds), median CUDA-event ms and peak memory.
 
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
@@ -822,6 +845,31 @@ STATE_AB_STEPS, STATE_AB_WARMUP = 15, 3
 STATE_TIMEOUT_S = 300
 # profiler sessions a trace may take, when a session records no device event
 TRACE_TRIES = 4
+# Phase 25: --precision bf16_pure on the recipe (params, grads, EMA bf16)
+BF16_PURE_FLAGS = RECIPE_FLAGS + ["--precision", "bf16_pure"]
+# Phase 26: the on-device augmentation (data/device_aug.py) on a b128
+# 224-px batch of 8-bit pixels, with the recipe's --aa and --reprob 0.25;
+# each RandAugment op forced through the draw at AUG_MAG, and the card held
+# against the CPU on the first AUG_CPU_IMAGES images (every op is per image,
+# its parameters shared by the batch). The same fp32 ops on both: the
+# resampling and photometric ops to AUG_ATOL, the quantizing ops exactly;
+# the chained augment_batch resamples before it quantizes, so an element
+# whose input moved by an ulp may land one quantization step away (at most
+# 1 in pixel units): all within AUG_CHAIN_ATOL but a share of at most
+# AUG_CHAIN_SHARE (tests/test_torch_device_aug.py's limits)
+AUG_BATCH = TRAIN_BATCH
+AUG_FLAGS = ["--device_augment", "true", "--aa", "rand-m9-mstd0.5-inc1",
+             "--reprob", "0.25"]
+AUG_MAG = 0.7
+AUG_CPU_IMAGES = 32
+AUG_ATOL = 1e-5
+AUG_CHAIN_ATOL, AUG_CHAIN_SHARE = 5e-5, 1e-3
+AUG_QUANTIZING = ("Posterize", "Solarize", "SolarizeAdd", "Equalize",
+                  "Invert")
+# Phase 27: --device_augment on a folder of JPEGs that the phase writes
+# (FOLDER_CLASSES x FOLDER_PER_CLASS, 256-320 px): 4 steps of b128 an epoch
+FOLDER_CLASSES, FOLDER_PER_CLASS = 4, 128
+FOLDER_AB_ROUNDS = 2
 
 # every kernel's launch count, 'module.COUNT' in ops/
 ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
@@ -1392,10 +1440,11 @@ class swap_blocked:
 
 def phase_train(counts, dev, flags, batch, img=224, patch=16,
                 fixed_batch=True, warmup=WARMUP_STEPS, timed=TIMED_STEPS,
-                tag="train"):
+                tag="train", inspect=None):
     """launch/main.py::main with `flags`, then (fixed_batch) the loss on
-    one fixed batch, then the recipe's step timed on a fixed device batch.
-    Returns main()'s launches (counts() after a reset) and the timings."""
+    one fixed batch, then the recipe's step timed on a fixed device batch;
+    `inspect(ctx)` then looks at the timed trainer's state. Returns main()'s
+    launches (counts() after a reset) and the timings."""
     import gc
     import math
 
@@ -1449,22 +1498,9 @@ def phase_train(counts, dev, flags, batch, img=224, patch=16,
     # device batch; CUDA events around each step, no host data in the loop
     ctx = trainer.setup(cfg)
     images, labels = to_device(next(iter(ctx.train_ds)), dev)
-    for _ in range(warmup):
-        ctx.state, m = ctx.train_step(ctx.state, images, labels, cfg.seed)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
-    t0 = time.perf_counter()
-    events[0].record()
-    for i in range(timed):
-        ctx.state, m = ctx.train_step(ctx.state, images, labels, cfg.seed)
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / timed
-    step_ms = statistics.median(events[i].elapsed_time(events[i + 1])
-                                for i in range(timed))
-    check(math.isfinite(m["loss"].item()), "timed steps: loss not finite")
-    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms, host_ms, peak = time_steps(ctx, images, labels, warmup, timed)
+    if inspect is not None:
+        inspect(ctx)
     ips = batch / (step_ms / 1e3)
     mfu = vit_train_flops_per_image(img, patch) * ips / H100_BF16_PEAK_FLOPS
     result = {"step_ms": step_ms, "host_step_ms": host_ms,
@@ -1475,10 +1511,39 @@ def phase_train(counts, dev, flags, batch, img=224, patch=16,
         f"{ips!r} images/s, MFU {mfu!r} of the {H100_BF16_PEAK_FLOPS:.0f} "
         f"FLOP/s H100 SXM bf16 dense peak (bench.py's analytic FLOPs at "
         f"{img}/{patch}), peak memory {peak / 2**30!r} GiB")
-    del ctx, m
+    del ctx
     gc.collect()
     torch.cuda.empty_cache()
     return launches, result
+
+
+def time_steps(ctx, images, labels, warmup, timed):
+    """ctx.train_step on one device batch: `warmup` steps, then `timed`
+    steps between CUDA events. Returns the median step ms, the host clock's
+    ms a step and the peak device memory (bytes) of the timed steps."""
+    import math
+
+    import torch
+
+    dev = images.device
+    for _ in range(warmup):
+        ctx.state, m = ctx.train_step(ctx.state, images, labels,
+                                      ctx.cfg.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(timed):
+        ctx.state, m = ctx.train_step(ctx.state, images, labels,
+                                      ctx.cfg.seed)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / timed
+    step_ms = statistics.median(events[i].elapsed_time(events[i + 1])
+                                for i in range(timed))
+    check(math.isfinite(m["loss"].item()), "timed steps: loss not finite")
+    return step_ms, host_ms, torch.cuda.max_memory_allocated(dev)
 
 
 def phase_long_kernel(fb, dev):
@@ -3882,6 +3947,260 @@ def phase_state(counts, dev, ckpt_path, phase9_step):
             "phase_s": took}
 
 
+class record_dtypes:
+    """Records the dtype of the qkv buffer each call of K1's and K2's
+    wrappers receives (ops/flash_attention.py's module functions, which
+    qkv_proj_attention calls by name)."""
+
+    def __init__(self, fa):
+        self.fa, self.seen = fa, {"attn_fwd": set(), "attn_bwd": set()}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.fa, n) for n in self.seen}
+        for name, fn in self.saved.items():
+            def wrapped(qkv, *args, _fn=fn, _name=name, **kw):
+                self.seen[_name].add(str(qkv.dtype))
+                return _fn(qkv, *args, **kw)
+            setattr(self.fa, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.fa, name, fn)
+
+
+def phase_bf16_pure(counts, fa, dev, bf16_step):
+    """Phase 25: main() on my_vit_b with the recipe's flags and --precision
+    bf16_pure for TRAIN_STEPS steps and EVAL_BATCHES eval batches, then the
+    timed step, beside phase 9's (bf16) step time and peak memory."""
+    import torch
+
+    state = {}
+
+    def inspect(ctx):
+        state["params"] = {str(p.dtype) for p in ctx.state.params.values()}
+        state["ema"] = {str(p.dtype) for p in ctx.state.ema_params.values()}
+        state["moments"] = {str(t.dtype) for k in ("mu", "nu")
+                            for t in ctx.state.opt_state[k].values()}
+
+    with record_dtypes(fa) as seen:
+        launches, step = phase_train(counts, dev, BF16_PURE_FLAGS,
+                                     TRAIN_BATCH, fixed_batch=False,
+                                     tag="train bf16_pure", inspect=inspect)
+    log(f"[train bf16_pure] params {state['params']}, EMA {state['ema']}, "
+        f"AdamW moments {state['moments']}; K1/K2 saw {seen.seen}")
+    check(state["params"] == state["ema"] == {str(torch.bfloat16)},
+          f"bf16_pure: params {state['params']}, EMA {state['ema']}")
+    check(seen.seen == {"attn_fwd": {str(torch.bfloat16)},
+                        "attn_bwd": {str(torch.bfloat16)}},
+          f"bf16_pure: K1/K2 instantiations {seen.seen}")
+    log(f"[train bf16_pure] my_vit_b b{TRAIN_BATCH} recipe step on "
+        f"{nvidia_smi()}: --precision bf16_pure {step['step_ms']!r} ms, "
+        f"peak memory {step['peak_mem_gib']!r} GiB; --precision bf16 (phase "
+        f"9) {bf16_step['step_ms']!r} ms, {bf16_step['peak_mem_gib']!r} GiB")
+    return launches, step
+
+
+def aug_batch(seed: int, dev):
+    """AUG_BATCH seeded 224-px images of 8-bit pixels over 255 (as decoded
+    JPEGs are), NHWC fp32 on `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pixels = rng.integers(0, 256, (AUG_BATCH, 224, 224, 3), dtype=np.uint8)
+    return torch.from_numpy(pixels).to(dev).float() / 255.0
+
+
+def phase_aug(dev):
+    """Phase 26 (module docstring). Returns the times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.data import device_aug as da
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+
+    cpu = torch.device("cpu")
+    n = AUG_CPU_IMAGES
+    cfg = trainer.device_aug_config(config_from_args(AUG_FLAGS))
+    log(f"[aug] {' '.join(AUG_FLAGS)}: {cfg}")
+    x = aug_batch(7, dev)
+    x_cpu = x[:n].cpu()
+
+    def first(draw):
+        """The draw of the first n images."""
+        return dataclasses.replace(draw, **{
+            f: getattr(draw, f)[:n] for f in ("crop", "flip", "jitter",
+                                              "erase_gate", "erase")},
+            noise=None if draw.noise is None else draw.noise[:n].cpu())
+
+    # each RandAugment op, forced through the draw, alone
+    only_ra = dataclasses.replace(cfg, use_rrc=False, use_flip=False,
+                                  reprob=0.0, randaug_layers=1)
+    base = da.sample_augment(np.random.default_rng(8), AUG_BATCH, only_ra)
+    worst, times = {}, {}
+    for i, name in enumerate(da.RA_OP_NAMES):
+        mag = AUG_MAG if i % 2 == 0 else -AUG_MAG
+        draw = dataclasses.replace(base, ra=((i, mag),))
+        got = da.apply_augment(x, draw, only_ra)
+        want = da.apply_augment(x_cpu, first(draw), only_ra)
+        err = (got[:n].cpu() - want).abs().max().item()
+        worst[name] = err
+        limit = 0.0 if name in AUG_QUANTIZING else AUG_ATOL
+        check(err <= limit, f"aug {name}: card vs CPU {err} > {limit}")
+        times[name] = cuda_ms(lambda: da.apply_augment(x, draw, only_ra))
+    log(f"[aug] each RandAugment op (magnitude +-{AUG_MAG}) on the card "
+        f"against the CPU, worst |error| {worst!r}")
+    log(f"[aug] each op's apply_augment at b{AUG_BATCH} 224 px (the op and "
+        f"the normalization), median CUDA-event ms on {nvidia_smi()}: "
+        f"{times!r}")
+
+    # the whole pipeline with the recipe's flags, the same draws and noise
+    draw = da.sample_augment(np.random.default_rng(9), AUG_BATCH, cfg)
+    noise = torch.randn((AUG_BATCH, cfg.out_size, cfg.out_size, 3),
+                        generator=torch.Generator().manual_seed(10))
+    draw = dataclasses.replace(draw, noise=noise.to(dev))
+    got = da.apply_augment(x, draw, cfg)
+    want = da.apply_augment(x_cpu, first(draw), cfg)
+    diff = (got[:n].cpu() - want).abs()
+    far = (diff > AUG_CHAIN_ATOL).float().mean().item()
+    step = (1.0 + 1e-5) / min(cfg.std)
+    log(f"[aug] augment_batch on the card against the CPU (layers "
+        f"{draw.ra}, {int(draw.flip.sum())} flips, "
+        f"{int(draw.erase_gate.sum())} erased): worst |error| "
+        f"{diff.max().item()!r}, share over {AUG_CHAIN_ATOL}: {far!r}")
+    check(diff.max().item() <= step and far <= AUG_CHAIN_SHARE,
+          f"augment_batch: card vs CPU worst {diff.max().item()}, share "
+          f"{far}")
+    check(got.shape == (AUG_BATCH, 224, 224, 3)
+          and bool(torch.isfinite(got).all()), "augment_batch output")
+
+    # no hidden device-to-host read: the draws go up, nothing comes back
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        da.apply_augment(x, dataclasses.replace(draw, noise=None), cfg,
+                         torch.Generator(device=dev).manual_seed(11))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[aug] apply_augment ran under torch.cuda.set_sync_debug_mode"
+        "('error'): no synchronizing call")
+
+    rng, gen = np.random.default_rng(12), torch.Generator(device=dev)
+    out = {"augment_batch_ms": cuda_ms(
+               lambda: da.augment_batch(rng, x, cfg, gen)),
+           "apply_augment_ms": cuda_ms(
+               lambda: da.apply_augment(x, draw, cfg)),
+           "worst_op_err": worst, "chain_err": diff.max().item()}
+    log(f"[aug] b{AUG_BATCH} 224 px with {' '.join(AUG_FLAGS)} on "
+        f"{nvidia_smi()}: augment_batch (host draws + device work) "
+        f"{out['augment_batch_ms']!r} ms, apply_augment alone "
+        f"{out['apply_augment_ms']!r} ms (median CUDA-event time)")
+    return out
+
+
+def write_folder(root: str, seed: int = 0) -> str:
+    """FOLDER_CLASSES x FOLDER_PER_CLASS seeded JPEGs of 256-320 px: smooth
+    colour fields (an 8-bit grid upsampled) with a little noise."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for c in range(FOLDER_CLASSES):
+        d = os.path.join(root, f"class{c}")
+        os.makedirs(d, exist_ok=True)
+        for i in range(FOLDER_PER_CLASS):
+            h, w = (int(v) for v in rng.integers(256, 321, 2))
+            grid = rng.integers(0, 256, (h // 32 + 1, w // 32 + 1, 3),
+                                dtype=np.uint8)
+            img = np.asarray(Image.fromarray(grid).resize(
+                (w, h), Image.Resampling.BILINEAR), np.int16)
+            img += rng.integers(-8, 9, img.shape, dtype=np.int16)
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, f"{i:03d}.jpg"), quality=90)
+    return root
+
+
+def phase_folder_aug(counts, dev):
+    """Phase 27: main() on my_vit_b with the recipe's flags, --data_set
+    folder on a tree the phase writes, and --device_augment (AUG_FLAGS);
+    then the recipe step on the folder's first batch with and without
+    --device_augment, in turns. Returns main()'s launches and the times."""
+    import gc
+    import math
+    import shutil
+
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.data.loader import to_device
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+
+    root = os.path.join(REPO, "build", "smoke", "folder")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_folder(root)
+    log(f"[folder aug] wrote {FOLDER_CLASSES} x {FOLDER_PER_CLASS} JPEGs "
+        f"under {root} in {time.perf_counter() - t0:.1f} s")
+    folder = ["--data_set", "folder", "--data_path", root,
+              "--eval_data_path", root]
+    flags = RECIPE_FLAGS + folder + AUG_FLAGS
+    cfg = config_from_args(flags)
+    counts(reset=True)
+    t0 = time.perf_counter()
+    stats = trainer.main(cfg)
+    torch.cuda.synchronize()
+    launches = counts()
+    log(f"[folder aug] main() {' '.join(folder + AUG_FLAGS)}: "
+        f"{time.perf_counter() - t0:.3f} s, stats {stats}, launches "
+        f"{launches}")
+    check(all(isinstance(v, (int, float)) and math.isfinite(v)
+              for v in stats.values()), f"stats not finite: {stats}")
+    check(stats["count"] == EVAL_BATCHES * cfg.eval_batch_size(),
+          f"evaluated {stats['count']} images")
+
+    # the recipe step on the folder's first batch: raw pixels augmented in
+    # the step, against the normalized batch without it; in turns
+    ctxs, batches = {}, {}
+    for aug in (False, True):
+        c = config_from_args(RECIPE_FLAGS + folder
+                             + (AUG_FLAGS if aug else []))
+        ctxs[aug] = trainer.setup(c)
+        batches[aug] = to_device(next(iter(ctxs[aug].train_ds)), dev)
+    x_raw = batches[True][0]
+    check(float(x_raw.min()) >= 0.0 and float(x_raw.max()) <= 1.0,
+          "--device_augment: the folder batch is not raw [0, 1] pixels")
+    runs = {False: [], True: []}
+    for _ in range(FOLDER_AB_ROUNDS):
+        for aug in (False, True):
+            runs[aug].append(time_steps(ctxs[aug], *batches[aug],
+                                        WARMUP_STEPS, TIMED_STEPS))
+    out = {}
+    for aug, rows in runs.items():
+        key = "with_aug" if aug else "without_aug"
+        out[key] = {"step_ms": [r[0] for r in rows],
+                    "host_step_ms": [r[1] for r in rows],
+                    "peak_mem_gib": max(r[2] for r in rows) / 2**30}
+    log(f"[folder aug] my_vit_b b{TRAIN_BATCH} recipe step on the folder's "
+        f"first batch on {nvidia_smi()}, in turns (without, with) x "
+        f"{FOLDER_AB_ROUNDS}, median CUDA-event ms of {TIMED_STEPS} steps: "
+        f"without --device_augment {out['without_aug']!r}; with "
+        f"{out['with_aug']!r}")
+    del ctxs, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, out
+
+
 def counter(*names):
     """counts(reset=False) -> {COUNT: launches} of the counts named
     'module.COUNT' (modules of ops/); reset sets them to 0 first."""
@@ -4213,6 +4532,24 @@ def main() -> int:
 
     # ---- the trainer's state: resume, rotation, logs, profile, KD, serving
     phase_state(every, dev, ckpt_path, default_step)
+
+    lap("phase 24")
+
+    # ---- --precision bf16_pure, the on-device augmentation, and the folder
+    # source behind --device_augment
+    t_new = time.perf_counter()
+    want_train = only(ATTN_FWD_LAUNCHES=12 * (TRAIN_STEPS + EVAL_BATCHES),
+                      ATTN_BWD_LAUNCHES=12 * TRAIN_STEPS)
+    pure_launches, _ = phase_bf16_pure(every, fa, dev, default_step)
+    check(pure_launches == want_train,
+          f"bf16_pure: {pure_launches} for {TRAIN_STEPS} steps, "
+          f"{EVAL_BATCHES} evals")
+    phase_aug(dev)
+    folder_launches, _ = phase_folder_aug(every, dev)
+    check(folder_launches == want_train,
+          f"folder --device_augment: {folder_launches} for {TRAIN_STEPS} "
+          f"steps, {EVAL_BATCHES} evals")
+    log(f"[time] phases 25-27 took {time.perf_counter() - t_new:.1f} s")
 
     f64, f128 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]

@@ -171,7 +171,7 @@ def test_config_from_args_matches_jax():
 
 
 UNPORTED = [
-    (dict(device_augment=True), "M5"),
+    (dict(device_augment=True, data_set="wds"), "M5"),
     (dict(data_set="tfds"), "M5"), (dict(mesh_shape="data:2,model:2"), "M6"),
     (dict(param_sharding="fsdp"), "M6"), (dict(grad_checkpointing=True), "M2"),
     (dict(scan_blocks=True), "M2"), (dict(opt="lamb"), "M7"),
@@ -198,7 +198,73 @@ def test_the_trainer_state_options_are_in_the_slice(kw):
 
 def test_data_sets_other_than_synthetic_raise():
     with pytest.raises(NotImplementedError, match="M5"):
-        loader.build_dataset(_cfg(data_set="folder"), is_train=True)
+        loader.build_dataset(_cfg(data_set="tfrecord"), is_train=True)
+
+
+def _jpeg_tree(root, classes=5, per_class=4, seed=0):
+    """A class-per-directory tree of small seeded JPEGs (40 x 48 px)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        (root / f"c{c}").mkdir(parents=True)
+        for i in range(per_class):
+            arr = (rng.random((40, 48, 3)) * 255).astype(np.uint8)
+            Image.fromarray(arr).save(root / f"c{c}" / f"{i}.jpg")
+    return str(root)
+
+
+def test_main_trains_with_device_augment_on_a_folder_on_the_cpu(tmp_path,
+                                                                capsys):
+    """--device_augment --data_set folder: 2 steps with RandAugment and
+    random erasing on the CPU, then 2 eval batches of the eval tree."""
+    tree = _jpeg_tree(tmp_path / "tree")
+    cfg = config_from_args([
+        "--device", "cpu", "--model", "my_vit_mini", "--input_size", "32",
+        "--nb_classes", "5", "--data_set", "folder", "--data_path", tree,
+        "--eval_data_path", tree, "--device_augment", "true",
+        "--reprob", "0.25", "--batch_size", "4", "--epochs", "1",
+        "--limit_steps_per_epoch", "2", "--limit_eval_batches", "2",
+        "--warmup_epochs", "0", "--log_freq", "1"])
+    stats = trainer.main(cfg)
+    assert set(stats) == JAX_MAIN_KEYS
+    assert stats["count"] == 12.0 and all(np.isfinite(v)
+                                          for v in stats.values())
+    assert "epoch 0 [1/2] loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("data_set", ["synthetic", "folder"])
+def test_device_augment_evaluates_on_raw_pixels_as_jax_does(tmp_path,
+                                                            data_set):
+    """Under --device_augment every source sends raw [0, 1] pixels, the eval
+    set's too (JAX data/loader.py:37-43), but only the train step
+    normalizes (JAX train/steps.py:71-74): the JAX trainer evaluates on raw
+    pixels. The port mirrors it: its eval batches equal the JAX source's
+    bit for bit, and only the train step carries the ImageNet stats."""
+    from vision_transformers_torch_xla_tpu.core.config import (
+        TrainConfig as JaxTrainConfig,
+    )
+    from vision_transformers_torch_xla_tpu.data.loader import (
+        build_dataset as jax_build_dataset,
+    )
+
+    kw = dict(data_set=data_set, input_size=32, nb_classes=5, batch_size=4,
+              device_augment=True, synthetic_val_size=12)
+    if data_set == "folder":
+        kw["data_path"] = _jpeg_tree(tmp_path / "tree")
+    ctx = trainer.setup(_cfg(**kw))
+    jds, _ = jax_build_dataset(JaxTrainConfig(**kw), is_train=False)
+    (x, y), (wx, wy) = next(iter(ctx.val_ds)), next(iter(jds))
+    np.testing.assert_array_equal(x, wx)
+    np.testing.assert_array_equal(y, wy)
+    assert x.shape == (6, 32, 32, 3)
+    if data_set == "folder":    # JPEG pixels over 255, not normalized
+        assert x.min() >= 0.0 and x.max() <= 1.0
+        np.testing.assert_array_equal(x * 255.0, np.round(x * 255.0))
+    aug = trainer.device_aug_config(ctx.cfg)
+    assert (aug.mean, aug.std) == ((0.485, 0.456, 0.406),
+                                   (0.229, 0.224, 0.225))
+    assert loader.norm_constants(ctx.cfg) == ((0.0,) * 3, (1.0,) * 3)
 
 
 def test_device_defaults_to_cuda_and_raises_without_a_card():

@@ -123,7 +123,7 @@ def test_port_imports_no_jax():
             "ops/mlp_fused.py", "ops/flash_attention.py", "ops/attention.py",
             "models/vision_transformer_zoo.py", "ckpt/checkpoint.py",
             "obs/loggers.py", "obs/profiler.py", "obs/watchdog.py",
-            "models/pretrained.py"} <= rel
+            "models/pretrained.py", "data/device_aug.py"} <= rel
     # the op-level attention entry points and their kernels' wrappers live
     # in the modules checked here, their CUDA sources in csrc/
     assert {"multi_head_attention", "masked_attention",

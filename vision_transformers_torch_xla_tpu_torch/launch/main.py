@@ -46,9 +46,17 @@ import), `--profile_steps N` a torch.profiler trace of steps 2 to N + 1
 of the first epoch into `<log_dir or output_dir>/profile`, and a
 watchdog dumps the stacks when no step ends for 900 s.
 
+`--data_set folder` reads a class-per-directory tree from `--data_path`
+(`--eval_data_path` for eval), and `--device_augment true` crops, flips,
+RandAugments (`--aa`), colour-jitters (`--color_jitter`, without
+RandAugment), normalizes and erases (`--reprob`) each raw [0, 1] batch
+inside the train step, on its device (data/device_aug.py), as the JAX
+trainer does (launch/main.py:306-331); the eval batches then stay raw, as
+there.
+
 Options outside this slice raise NotImplementedError naming their ROADMAP
-item: device augmentation and other data sets (M5), the mesh (M6),
-gradient checkpointing and scanned blocks (M2).
+item: the TF-backed data sets (M5), the mesh (M6), gradient checkpointing
+and scanned blocks (M2).
 """
 from __future__ import annotations
 
@@ -74,10 +82,21 @@ from vision_transformers_torch_xla_tpu_torch.core.config import (
     config_from_args,
 )
 from vision_transformers_torch_xla_tpu_torch.core.dtypes import get_policy
+from vision_transformers_torch_xla_tpu_torch.data.device_aug import (
+    DeviceAugConfig,
+    parse_aa_spec,
+)
 from vision_transformers_torch_xla_tpu_torch.data.loader import (
+    IMAGENET_INCEPTION_MEAN,
+    IMAGENET_INCEPTION_STD,
+    TF_DATA_SETS,
     build_dataset,
     device_prefetch,
     to_device,
+)
+from vision_transformers_torch_xla_tpu_torch.data.transforms import (
+    IMAGENET_DEFAULT_MEAN,
+    IMAGENET_DEFAULT_STD,
 )
 from vision_transformers_torch_xla_tpu_torch.models import create_model
 from vision_transformers_torch_xla_tpu_torch.models.layers import init_weights
@@ -145,8 +164,7 @@ def resolve_device(device: str) -> torch.device:
 def check_slice(cfg: TrainConfig) -> None:
     """Raise, naming the ROADMAP item, on every option this slice lacks."""
     unported = [
-        (cfg.device_augment, "--device_augment", "M5"),
-        (cfg.data_set != "synthetic", f"--data_set {cfg.data_set}", "M5"),
+        (cfg.data_set in TF_DATA_SETS, f"--data_set {cfg.data_set}", "M5"),
         (cfg.mesh_shape != "data" or cfg.param_sharding != "replicated",
          "a device mesh (--mesh_shape, --param_sharding)", "M6"),
         (cfg.grad_checkpointing, "--grad_checkpointing", "M2"),
@@ -156,6 +174,22 @@ def check_slice(cfg: TrainConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what} is not in the port yet (ROADMAP {item})")
+
+
+def device_aug_config(cfg: TrainConfig) -> DeviceAugConfig:
+    """--device_augment's DeviceAugConfig from --aa, --reprob,
+    --color_jitter, --input_size and --imagenet_default_mean_and_std (JAX
+    launch/main.py:306-329)."""
+    aa = parse_aa_spec(cfg.aa)
+    layers, mag, mstd = aa if aa else (0, 0.0, 0.0)
+    default_stats = cfg.imagenet_default_mean_and_std
+    return DeviceAugConfig(
+        out_size=cfg.input_size, randaug_layers=layers,
+        randaug_magnitude=mag, mag_std=mstd, reprob=cfg.reprob,
+        color_jitter=cfg.color_jitter,
+        mean=IMAGENET_DEFAULT_MEAN if default_stats
+        else IMAGENET_INCEPTION_MEAN,
+        std=IMAGENET_DEFAULT_STD if default_stats else IMAGENET_INCEPTION_STD)
 
 
 def pallas_attn_switch(pallas_attn: str, device: torch.device) -> bool:
@@ -278,6 +312,7 @@ def setup(cfg: TrainConfig) -> TrainerContext:
         switch_prob=cfg.mixup_switch_prob, label_smoothing=cfg.smoothing,
         num_classes=cfg.nb_classes)
     step_cfg = StepConfig(
+        device_aug=device_aug_config(cfg) if cfg.device_augment else None,
         mixup=mix, label_smoothing=cfg.smoothing, num_classes=cfg.nb_classes,
         ema_decay=cfg.model_ema_decay if cfg.model_ema else None,
         kd_alpha=cfg.kd_alpha, kd_temperature=cfg.kd_temperature,

@@ -1,9 +1,11 @@
 """Train / eval steps.
 
 Counterpart of vision_transformers_torch_xla_tpu/train/steps.py. One
-train step: per-step generators (core/rng.py), mixup/cutmix or smoothed
-targets, the forward with stochastic layers on, the soft-target loss
-(+ KD), the backward, then the fused AdamW + EMA update. On the card the
+train step: per-step generators (core/rng.py), with `device_aug` the
+on-device crop, flip, RandAugment, normalization and erasing of the raw
+[0, 1] batch (data/device_aug.py), mixup/cutmix or smoothed targets, the
+forward with stochastic layers on, the soft-target loss (+ KD), the
+backward, then the fused AdamW + EMA update. On the card the
 attention forward and backward are the port's kernels
 (ops/flash_attention.py). Metrics come back as device scalars; the caller
 reads them only at log_freq (steps.py:11-13).
@@ -17,6 +19,12 @@ import torch
 from torch import nn
 
 from vision_transformers_torch_xla_tpu_torch.core.rng import step_rngs
+from vision_transformers_torch_xla_tpu_torch.data.device_aug import (
+    AugDraw,
+    DeviceAugConfig,
+    apply_augment,
+    sample_augment,
+)
 from vision_transformers_torch_xla_tpu_torch.train.losses import (
     cross_entropy,
     distillation_loss,
@@ -45,19 +53,23 @@ class StepConfig:
     kd_alpha: float = 0.5                   # used when a teacher is given
     kd_temperature: float = 4.0
     lr_schedule: Optional[Callable] = None  # step -> lr, for metrics only
+    device_aug: Optional[DeviceAugConfig] = None  # on-device augmentation;
+    # images then arrive raw in [0, 1]
 
 
 def make_train_step(model: nn.Module, tx, cfg: StepConfig,
                     teacher: Optional[nn.Module] = None,
                     second_order: bool = False) -> Callable:
-    """Returns train_step(state, images, labels, seed, mixup_draw=None).
+    """Returns train_step(state, images, labels, seed, mixup_draw=None,
+    aug_draw=None).
 
     images (B, H, W, 3) and int labels on the model's device. `seed` and
-    the host step count give the step's random streams; `mixup_draw`
-    replaces the sampled mixup draw (tests feed the JAX draws). With
-    `teacher`, the KD loss mixes in its logits (launch/main.py::
-    build_teacher builds the teacher from --teacher_model and
-    --teacher_path)."""
+    the host step count give the step's random streams; `mixup_draw` and
+    `aug_draw` replace the sampled mixup and augmentation draws (tests feed
+    the JAX draws). With `cfg.device_aug` the batch is augmented before
+    mixup, as in JAX (steps.py:71-77). With `teacher`, the KD loss mixes
+    in its logits (launch/main.py::build_teacher builds the teacher from
+    --teacher_model and --teacher_path)."""
     if second_order:
         raise NotImplementedError(
             "second-order optimizers (adahessian) are not in the port yet "
@@ -65,8 +77,15 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor, seed: int,
-                   mixup_draw: Optional[MixupDraw] = None):
+                   mixup_draw: Optional[MixupDraw] = None,
+                   aug_draw: Optional[AugDraw] = None):
         rngs = step_rngs(seed, state.step, images.device)
+        if cfg.device_aug is not None:
+            if aug_draw is None:
+                aug_draw = sample_augment(rngs.aug, images.shape[0],
+                                          cfg.device_aug)
+            images = apply_augment(images, aug_draw, cfg.device_aug,
+                                   rngs.aug_noise)
         if mixup_draw is not None:
             images, targets = apply_mixup(
                 images, smoothed_one_hot(labels, cfg.mixup.num_classes,
