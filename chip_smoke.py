@@ -366,6 +366,28 @@ JAX kernels take any float dtype):
     (K1 and K2 as in phase 9), then the recipe step on the folder's first
     batch with and without --device_augment, in turns (FOLDER_AB_ROUNDS
     rounds), median CUDA-event ms and peak memory.
+28. the reg4 DINOv2 (vit_base_patch14_reg4_dinov2 at 518 px: 4 register
+    tokens after the class token, no_embed_class, S = 1374 on K4-K6): the
+    bf16 forward against the JAX fp32 golden and one train-mode forward +
+    backward against the train golden (both at full width, depth
+    M2_GOLDEN_DEPTH), without and with remat (K4 then twice a block), each
+    K4-K6 call of the remat run against its plain version on the model's
+    data, and the largest difference of the two gradients; then main() at
+    b32 with all 12 blocks without and with --grad_checkpointing (K4 24, K5
+    and K6 12 a step under remat), each with its timed step and peak
+    memory, printed with the card's name and power limit.
+29. SigLIP (vit_base_patch16_siglip_224: no class token, the MAP head on
+    the plain attention): the bf16 forward against its depth-4 golden (K1
+    a block), the server's 8 requests (no launch; median latency printed
+    with the card's name and power limit), main() at b128 with
+    --global_pool map and --pallas_attn auto (K1 and K2 12 a step).
+30. the other block types through main() at b64 for 3 steps and 2 eval
+    batches: vit_base_patch16_18x2_224 (ParallelThings, K1 36 a forward),
+    beit3_base_patch16_224 (the scale norm after K1), vit_base_patch16_
+    rpn_224 (ResPost, a qkv without bias) and vit_base_patch16_xp_224
+    (parallel scaling, RMSNorm, qk_norm: no launch, as JAX's route gives).
+31. --scan_blocks on my_vit_b with the recipe's flags on one fixed batch:
+    the losses of SCAN_STEPS steps bitwise equal to loop mode's.
 
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
@@ -379,7 +401,10 @@ data sheet), from the timed call's shapes. The kernels JSON has one line
 per bf16 kernel and one per fp32 and fp16 instantiation (name
 'kernel[dtype]'), whose bound takes the 67 TFLOP/s fp32 CUDA-core peak and
 4-byte elements for fp32, 989 TFLOP/s and 2-byte elements for fp16, and
-one per instantiation at D 256 ('kernel[dtype,d256]'). The fp16 K4, K5
+one per instantiation at D 256 ('kernel[dtype,d256]'). K1's and K2's
+lines also carry the launches of phases 29-30's main() runs
+(launches_siglip, launches_block_types), K4's, K5's and K6's those of
+phase 28's (launches_reg4, launches_reg4_remat). The fp16 K4, K5
 and K6 lines and the bf16 and fp16 K4, K5 and K6 lines at D 256 carry
 phase 17d's worst edge error (max_rel_err_edges), and those at D 256 its
 times at (32, 1370, 12, 256) (suffix _b32).
@@ -870,6 +895,34 @@ AUG_QUANTIZING = ("Posterize", "Solarize", "SolarizeAdd", "Equalize",
 # (FOLDER_CLASSES x FOLDER_PER_CLASS, 256-320 px): 4 steps of b128 an epoch
 FOLDER_CLASSES, FOLDER_PER_CLASS = 4, 128
 FOLDER_AB_ROUNDS = 2
+# Phases 28-31, the rest of the ViT. Phase 28: the reg4 DINOv2 at 518 px
+# (4 register tokens, no_embed_class: S = 1374 on K4-K6); its goldens
+# (tests/data/, made by tools/make_torch_port_golden.py and
+# make_torch_port_train_golden.py) are at full width and depth
+# M2_GOLDEN_DEPTH, the trainer runs all 12 blocks at b32, with and
+# without --grad_checkpointing (K4 twice a block and step under remat)
+REG4_MODEL = "vit_base_patch14_reg4_dinov2"
+M2_GOLDEN_DEPTH = 4
+REG4_FLAGS = [REG4_MODEL if f == LONG_MODEL else f for f in LONG_TRAIN_FLAGS]
+# Phase 29: SigLIP (no class token, the MAP head on the plain attention,
+# K1/K2 in the 12 blocks at S 196): the forward against its depth-4
+# golden, the server's requests, main() at b128
+SIGLIP_MODEL = "vit_base_patch16_siglip_224"
+SIGLIP_FLAGS = ["--model", SIGLIP_MODEL, "--global_pool", "map",
+                "--pallas_attn", "auto"] + RECIPE_FLAGS[4:]
+M2_WARMUP_STEPS, M2_TIMED_STEPS = 2, 5
+# Phase 30: the other block types through main() at b64: K1 (and K2 in a
+# step) a forward: ParallelThings 2 a block, beit3's scale norms and rpn's
+# ResPost (no qkv bias) 1, xp's parallel scaling none (plain attention, as
+# JAX's route gives)
+BLOCK_TYPE_RUNS = {"vit_base_patch16_18x2_224": 36,
+                   "beit3_base_patch16_224": 12,
+                   "vit_base_patch16_rpn_224": 12,
+                   "vit_base_patch16_xp_224": 0}
+BLOCK_TYPE_BATCH = 64
+# Phase 31: --scan_blocks on the recipe's fixed batch: SCAN_STEPS losses
+# bitwise equal to loop mode's
+SCAN_STEPS = 4
 
 # every kernel's launch count, 'module.COUNT' in ops/
 ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
@@ -1313,11 +1366,12 @@ def phase_bwd_kernel(fa, dev):
 
 def phase_grad(counts, dev, ckpt_path, name="my_vit_b", tag="grad",
                limits=(LOSS_ATOL, GRAD_NORM_RTOL, PARAM_GRAD_NORM_RTOL),
-               **model_kw):
+               keep=None, **model_kw):
     """One train-mode forward + backward against the JAX fp32 train golden,
     within `limits` (loss abs, grad norm rel, per-parameter grad norm rel);
     returns the launches (counts() after a reset). `model_kw` goes to
-    create_model beside the golden's own."""
+    create_model beside the golden's own; `keep`, a dict, receives every
+    parameter's gradient."""
     import numpy as np
     import torch
 
@@ -1376,6 +1430,9 @@ def phase_grad(counts, dev, ckpt_path, name="my_vit_b", tag="grad",
     check(gn_err <= gn_rtol, f"grad norm rel err {gn_err} > {gn_rtol}")
     check(rel[worst] <= param_rtol,
           f"{worst}: grad norm rel err {rel[worst]} > {param_rtol}")
+    if keep is not None:
+        keep.update({k: p.grad.detach().clone()
+                     for k, p in model.named_parameters()})
     return launches
 
 
@@ -1442,9 +1499,10 @@ def phase_train(counts, dev, flags, batch, img=224, patch=16,
                 fixed_batch=True, warmup=WARMUP_STEPS, timed=TIMED_STEPS,
                 tag="train", inspect=None):
     """launch/main.py::main with `flags`, then (fixed_batch) the loss on
-    one fixed batch, then the recipe's step timed on a fixed device batch;
-    `inspect(ctx)` then looks at the timed trainer's state. Returns main()'s
-    launches (counts() after a reset) and the timings."""
+    one fixed batch, then (but with timed=None) the recipe's step timed on
+    a fixed device batch; `inspect(ctx)` then looks at the timed trainer's
+    state. Returns main()'s launches (counts() after a reset) and the
+    timings (main()'s stats with timed=None)."""
     import gc
     import math
 
@@ -1472,6 +1530,8 @@ def phase_train(counts, dev, flags, batch, img=224, patch=16,
               for v in stats.values()), f"stats not finite: {stats}")
     check(stats["count"] == EVAL_BATCHES * cfg.eval_batch_size(),
           f"evaluated {stats['count']} images")
+    if timed is None:
+        return launches, stats
 
     if fixed_batch:
         # the loss falls on one fixed batch (mixup off, constant lr 1e-4)
@@ -4201,6 +4261,173 @@ def phase_folder_aug(counts, dev):
     return launches, out
 
 
+def phase_reg4(counts, fb, dev, ckpt_dir):
+    """Phase 28: the reg4 DINOv2 at 518 px. The bf16 forward against its
+    fp32 golden; one train-mode forward + backward against the train
+    golden without and with remat, each call of K4-K6 in the remat run held
+    against its plain version on the model's data, and the largest
+    difference of the two gradients; then main() at b32 without and with
+    --grad_checkpointing, each with its timed step and peak memory.
+    Returns the two main() runs' launches by remat."""
+    import torch
+
+    depth, t0 = M2_GOLDEN_DEPTH, time.perf_counter()
+    ckpt = os.path.join(ckpt_dir, f"{REG4_MODEL}_d{depth}_seed0.pth")
+    n = phase_model(counts, dev, ckpt, REG4_MODEL, LONG_GAMMA,
+                    tag="reg4 model")
+    check(n == only(FLASH_FWD_LAUNCHES=depth),
+          f"one reg4 forward launched {n} (want K4 {depth})")
+    grads = {}
+    for remat in (False, True):
+        with swap_blocked(fb, plain=False) as checked:
+            n = phase_grad(counts, dev, ckpt, REG4_MODEL,
+                           tag=f"reg4 grad remat={remat}",
+                           limits=LONG_GRAD_LIMITS,
+                           keep=grads.setdefault(remat, {}), remat=remat)
+        check(n == only(FLASH_FWD_LAUNCHES=depth * (1 + remat),
+                        FLASH_BWD_DKDV_LAUNCHES=depth,
+                        FLASH_BWD_DQ_LAUNCHES=depth),
+              f"one reg4 forward + backward, remat={remat}, launched {n}")
+        log(f"[reg4 grad remat={remat}] K4-K6 vs plain at each call on the "
+            f"model's data (S 1374), worst error (over max |plain| but "
+            f"lse): {checked.worst!r}")
+        for name, err in checked.worst.items():
+            limit = {"o": O_REL_ATOL, "lse": LSE_ATOL}.get(name,
+                                                           DQKV_REL_ATOL)
+            check(err <= limit, f"reg4 data, {name}: error {err} > {limit}")
+    diff = {k: (grads[True][k].float() - grads[False][k].float()).abs()
+            .max().item() for k in grads[False]}
+    worst = max(diff, key=diff.get)
+    log(f"[reg4 grad] remat against no remat: largest gradient difference "
+        f"{diff[worst]!r} ({worst}), {sum(v == 0 for v in diff.values())} of "
+        f"{len(diff)} parameters bitwise equal")
+    del grads
+    runs, steps = {}, {}
+    for remat in (False, True):
+        flags = REG4_FLAGS + (["--grad_checkpointing", "true"] if remat
+                              else [])
+        runs[remat], steps[remat] = phase_train(
+            counts, dev, flags, LONG_BATCH, 518, 14, fixed_batch=False,
+            warmup=M2_WARMUP_STEPS, timed=M2_TIMED_STEPS,
+            tag=f"reg4 train remat={remat}")
+        per = 2 if remat else 1
+        check(runs[remat] == only(
+            FLASH_FWD_LAUNCHES=12 * (per * TRAIN_STEPS + EVAL_BATCHES),
+            FLASH_BWD_DKDV_LAUNCHES=12 * TRAIN_STEPS,
+            FLASH_BWD_DQ_LAUNCHES=12 * TRAIN_STEPS),
+              f"reg4 main() remat={remat}: {runs[remat]} for {TRAIN_STEPS} "
+              f"steps, {EVAL_BATCHES} evals")
+        log(f"[reg4 train remat={remat}] a train step launches K4 "
+            f"{12 * per}, K5 12, K6 12 (an eval batch K4 12)")
+    log(f"[reg4 train] {REG4_MODEL} b{LONG_BATCH} step on {nvidia_smi()}: "
+        f"without remat {steps[False]['step_ms']!r} ms, peak "
+        f"{steps[False]['peak_mem_gib']!r} GiB; with --grad_checkpointing "
+        f"{steps[True]['step_ms']!r} ms, peak {steps[True]['peak_mem_gib']!r}"
+        f" GiB")
+    check(steps[True]["peak_mem_gib"] < steps[False]["peak_mem_gib"],
+          "remat did not lower the peak memory")
+    torch.cuda.empty_cache()
+    log(f"[time] phase 28 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def phase_siglip(counts, dev, ckpt_dir):
+    """Phase 29: SigLIP. The bf16 forward on the kernel route against its
+    fp32 golden (K1 a block, the MAP head plain), the server's requests
+    (no kernel), main() at b128 with --pallas_attn auto and its timed
+    step. Returns main()'s launches."""
+    depth, t0 = M2_GOLDEN_DEPTH, time.perf_counter()
+    ckpt = os.path.join(ckpt_dir, f"{SIGLIP_MODEL}_d{depth}_seed0.pth")
+    n = phase_model(counts, dev, ckpt, SIGLIP_MODEL, tag="siglip model")
+    check(n == only(ATTN_FWD_LAUNCHES=depth),
+          f"one SigLIP forward launched {n} (want K1 {depth})")
+    # the server builds the full model and seeds it itself (no checkpoint)
+    served, median_ms = phase_serve(counts, "", SIGLIP_MODEL,
+                                    tag="siglip serve", global_pool="map")
+    check(served == 0, f"the SigLIP server launched {served}")
+    log(f"[siglip serve] median request latency {median_ms!r} ms on "
+        f"{nvidia_smi()}")
+    launches, step = phase_train(counts, dev, SIGLIP_FLAGS, TRAIN_BATCH,
+                                 fixed_batch=False, warmup=M2_WARMUP_STEPS,
+                                 timed=M2_TIMED_STEPS, tag="siglip train")
+    check(launches == only(
+        ATTN_FWD_LAUNCHES=12 * (TRAIN_STEPS + EVAL_BATCHES),
+        ATTN_BWD_LAUNCHES=12 * TRAIN_STEPS),
+          f"SigLIP main(): {launches} for {TRAIN_STEPS} steps, "
+          f"{EVAL_BATCHES} evals")
+    log(f"[time] phase 29 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_block_types(counts, dev):
+    """Phase 30: main() on each model of BLOCK_TYPE_RUNS for TRAIN_STEPS
+    steps and EVAL_BATCHES eval batches; finite stats, and K1 and K2 as
+    the JAX route gives them. Returns the launches by model."""
+    t0, out = time.perf_counter(), {}
+    for name, per in BLOCK_TYPE_RUNS.items():
+        flags = ["--model", name, "--batch_size", str(BLOCK_TYPE_BATCH),
+                 "--data_set", "synthetic", "--epochs", "1",
+                 "--limit_steps_per_epoch", str(TRAIN_STEPS),
+                 "--limit_eval_batches", str(EVAL_BATCHES),
+                 "--warmup_epochs", "0", "--drop_path", "0.1"]
+        out[name], stats = phase_train(counts, dev, flags, BLOCK_TYPE_BATCH,
+                                       fixed_batch=False, timed=None,
+                                       tag=f"block types {name}")
+        check(out[name] == only(
+            ATTN_FWD_LAUNCHES=per * (TRAIN_STEPS + EVAL_BATCHES),
+            ATTN_BWD_LAUNCHES=per * TRAIN_STEPS),
+              f"{name} main(): {out[name]} (want K1 {per} a forward, K2 "
+              f"{per} a step)")
+    log(f"[time] phase 30 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_scan(counts, dev):
+    """Phase 31: --scan_blocks on the recipe's fixed batch (mixup off,
+    lr 1e-4): SCAN_STEPS losses bitwise equal to loop mode's, K1 and K2
+    12 a step in both."""
+    import gc
+
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.data.loader import to_device
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+
+    t0, losses, launches = time.perf_counter(), {}, {}
+    fixed = RECIPE_FLAGS + ["--mixup", "0", "--cutmix", "0", "--lr", "1e-4",
+                            "--min_lr", "1e-4", "--warmup_epochs", "0"]
+    for scan in (False, True):
+        cfg = config_from_args(fixed + (["--scan_blocks", "true"] if scan
+                                        else []))
+        ctx = trainer.setup(cfg)
+        check(ctx.model.scan_blocks == scan, "scan_blocks did not reach "
+              "the model")
+        images, labels = to_device(next(iter(ctx.train_ds)), dev)
+        counts(reset=True)
+        out = []
+        for _ in range(SCAN_STEPS):
+            ctx.state, m = ctx.train_step(ctx.state, images, labels,
+                                          cfg.seed)
+            out.append(m["loss"])
+        losses[scan] = torch.stack(out).tolist()
+        launches[scan] = counts()
+        del ctx, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[scan] my_vit_b fixed batch, {SCAN_STEPS} steps: loop losses "
+        f"{losses[False]!r}, --scan_blocks losses {losses[True]!r}; "
+        f"launches {launches}")
+    check(losses[True] == losses[False], "scan and loop losses differ")
+    for scan in (False, True):
+        check(launches[scan] == only(ATTN_FWD_LAUNCHES=12 * SCAN_STEPS,
+                                     ATTN_BWD_LAUNCHES=12 * SCAN_STEPS),
+              f"scan={scan}: {launches[scan]}")
+    log(f"[time] phase 31 took {time.perf_counter() - t0:.1f} s")
+
+
 def counter(*names):
     """counts(reset=False) -> {COUNT: launches} of the counts named
     'module.COUNT' (modules of ops/); reset sets them to 0 first."""
@@ -4551,6 +4778,15 @@ def main() -> int:
           f"steps, {EVAL_BATCHES} evals")
     log(f"[time] phases 25-27 took {time.perf_counter() - t_new:.1f} s")
 
+    # ---- the rest of the ViT: register tokens on K4-K6 with and without
+    # remat, SigLIP's MAP head, the other block types, --scan_blocks
+    t_m2 = time.perf_counter()
+    reg4_runs = phase_reg4(every, fb, dev, ckpt_dir)
+    siglip_launches = phase_siglip(every, dev, ckpt_dir)
+    block_launches = phase_block_types(every, dev)
+    phase_scan(every, dev)
+    log(f"[time] phases 28-31 took {time.perf_counter() - t_m2:.1f} s")
+
     f64, f128 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
     l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
@@ -4774,6 +5010,16 @@ def main() -> int:
                 **tc_blocked(dt_name, name, row["shape"]),
                 **tc_blocked(dt_name, name, (32,) + row["shape"][1:2]
                              + (12, 256), "_b32")})
+    # the launches of the rest of the ViT's main() runs (phases 28-30)
+    for k in kernels[:5]:
+        count = f"{k['name'].upper()}_LAUNCHES"
+        if k["name"].startswith("flash"):
+            k["launches_reg4"] = reg4_runs[False][count]
+            k["launches_reg4_remat"] = reg4_runs[True][count]
+        else:
+            k["launches_siglip"] = siglip_launches[count]
+            k["launches_block_types"] = {n: v[count] for n, v in
+                                         block_launches.items()}
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -173,8 +173,7 @@ def test_config_from_args_matches_jax():
 UNPORTED = [
     (dict(device_augment=True, data_set="wds"), "M5"),
     (dict(data_set="tfds"), "M5"), (dict(mesh_shape="data:2,model:2"), "M6"),
-    (dict(param_sharding="fsdp"), "M6"), (dict(grad_checkpointing=True), "M2"),
-    (dict(scan_blocks=True), "M2"), (dict(opt="lamb"), "M7"),
+    (dict(param_sharding="fsdp"), "M6"), (dict(opt="lamb"), "M7"),
     (dict(update_freq=2), "M7"),
 ]
 
@@ -184,6 +183,26 @@ UNPORTED = [
 def test_options_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         trainer.setup(_cfg(**kw))
+
+
+@pytest.mark.parametrize("flag", ["--grad_checkpointing", "--scan_blocks"])
+def test_the_m2_trainer_flags_train_on_the_cpu(flag):
+    # each flag reaches the model as the JAX trainer passes it
+    # (launch/main.py:202-203), then main() trains and evaluates
+    cfg = config_from_args([
+        flag, "true", "--device", "cpu", "--model", "my_vit_mini",
+        "--input_size", "32", "--nb_classes", "10", "--batch_size", "4",
+        "--epochs", "1", "--limit_steps_per_epoch", "1",
+        "--limit_eval_batches", "1", "--warmup_epochs", "0",
+        "--data_set", "synthetic", "--drop_path", "0.1"])
+    ctx = trainer.setup(cfg)
+    if flag == "--grad_checkpointing":
+        assert ctx.model.remat and not ctx.model.scan_blocks
+    else:
+        assert ctx.model.scan_blocks and not ctx.model.remat
+    stats = trainer.main(cfg)
+    assert set(stats) == JAX_MAIN_KEYS
+    assert all(np.isfinite(v) for v in stats.values())
 
 
 M4 = [dict(output_dir="out"), dict(resume="ckpt"), dict(finetune="w.pth"),

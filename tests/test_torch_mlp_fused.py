@@ -170,6 +170,19 @@ def test_mlp_routes_by_the_jax_rule(act, hidden, drop, fused):
     assert type(y2.grad_fn).__name__ != "MlpGeluBackward"
 
 
+@pytest.mark.parametrize("kw", [dict(glu=True), dict(use_norm=True)],
+                         ids=["glu", "use_norm"])
+def test_glu_and_the_mlp_norm_leave_the_fused_route(kw):
+    # JAX's rule (layers.py:199-203): `not glu and not use_norm`, whatever
+    # the other terms say
+    mlp = layers.Mlp(128, 512, 128, act="gelu_tanh", dtype=torch.float32,
+                     use_pallas=True, **kw)
+    layers.init_weights(mlp, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(_rand((2, 9, 128), 3)).requires_grad_()
+    assert not mlp._fused(x)
+    assert type(mlp(x).grad_fn).__name__ != "MlpGeluBackward"
+
+
 # a tiny ViT whose every MLP takes the fused route: widths 128 and 512
 CFG = dict(img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2,
            num_classes=10, act_layer="gelu_tanh", global_pool="avg")

@@ -44,9 +44,11 @@ def _images(n=2, size=32, seed=0):
         (n, size, size, 3)).astype(np.float32)
 
 
-def _jax_model_and_params(pallas: bool, dtype: str = "float32", **kw):
+def _jax_model_and_params(pallas: bool, dtype: str = "float32", hw=32,
+                          **kw):
     """The JAX ViT (Pallas attention in interpret mode when `pallas`) and its
-    initialized params as a nested dict of numpy arrays."""
+    params, initialized on `hw`-pixel images, as a nested dict of numpy
+    arrays."""
     import jax
     import jax.numpy as jnp
     from flax import linen as nn
@@ -59,7 +61,8 @@ def _jax_model_and_params(pallas: bool, dtype: str = "float32", **kw):
     model = JaxViT(**{**CFG, **kw}, dtype=getattr(jnp, dtype),
                    use_pallas_attn=pallas)
     with pltpu.force_tpu_interpret_mode():
-        variables = model.init(jax.random.key(0), jnp.asarray(_images()))
+        variables = model.init(jax.random.key(0),
+                               jnp.asarray(_images(size=hw)))
     params = jax.tree.map(np.asarray, nn.meta.unbox(variables)["params"])
     return model, params
 
@@ -165,31 +168,98 @@ def test_norm_and_fc_norm_are_exclusive(pool, has_fc_norm):
     assert ("norm.weight" in keys) != has_fc_norm
 
 
-@pytest.mark.parametrize("kw", [dict(global_pool="map"), dict(reg_tokens=4),
-                                dict(dynamic_img_size=True),
-                                dict(scan_blocks=True), dict(remat=True),
-                                dict(patch_drop_rate=0.5),
-                                dict(block_type="respost")])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VisionTransformer(**CFG, **kw, device=torch.device("meta"))
-
-
 @pytest.mark.parametrize("kw", [
     dict(global_pool="max", qk_norm=True),
     dict(global_pool="avgmax", pre_norm=True, norm_eps=1e-5),
     dict(global_pool="avg", class_token=False, init_values=1e-5),
     dict(global_pool="token", no_embed_class=True, qkv_bias=False),
     dict(global_pool="avg", pool_include_prefix=True, proj_bias=False),
-    dict(global_pool="token", final_norm=False, mlp_hidden=(96, 160))])
+    dict(global_pool="token", final_norm=False, mlp_hidden=(96, 160)),
+    # the MAP head, with and without register tokens (SigLIP, so150m)
+    dict(global_pool="map", class_token=False),
+    dict(global_pool="map", class_token=False, reg_tokens=2),
+    # register tokens: dinov2's (no_embed_class) and the reg-GAP towers'
+    dict(reg_tokens=4, no_embed_class=True, init_values=1e-5),
+    dict(reg_tokens=1, class_token=False, global_pool="avg",
+         init_values=1e-5),
+    # patch dropout is off in eval
+    dict(patch_drop_rate=0.5, reg_tokens=1),
+    # dynamic_img_size: the grid grown (4 -> 6) and shrunk (4 -> 2, 4 -> 3;
+    # jax.image.resize antialiases when it shrinks)
+    dict(dynamic_img_size=True, reg_tokens=1, image_hw=48),
+    dict(dynamic_img_size=True, image_hw=16),
+    dict(dynamic_img_size=True, no_embed_class=True, reg_tokens=2,
+         class_token=False, global_pool="avg", image_hw=24),
+    # the other block types: rpn's ResPost, ParallelThings (18x2), xp's
+    # parallel scaling (RMSNorm, qk_norm, no qkv bias) and pwee's
+    dict(block_type="respost", qkv_bias=False, init_values=1e-5,
+         class_token=False, global_pool="avg"),
+    dict(block_type="parallel_things", init_values=1e-5),
+    dict(block_type="parallel_scaling", pre_norm=True, no_embed_class=True,
+         norm_type="rmsnorm", qkv_bias=False, qk_norm=True),
+    dict(block_type="parallel_scaling", init_values=1e-5, mlp_ratio=5,
+         class_token=False, no_embed_class=True, reg_tokens=1,
+         global_pool="avg"),
+    # SwiGLU (dinov2 giant), aimv2's RMSNorm + embed_norm + SwiGLU, beit3's
+    # scale norms, RMSNorm with qk_norm
+    dict(swiglu_mlp=True, act_layer="silu", mlp_ratio=2 * 2.66667,
+         init_values=1e-5),
+    dict(class_token=False, fc_norm=False, mlp_ratio=5.5, global_pool="avg",
+         qkv_bias=False, proj_bias=False, act_layer="silu",
+         norm_type="rmsnorm", norm_eps=1e-5, embed_norm=True,
+         swiglu_mlp=True),
+    dict(global_pool="avg", norm_eps=1e-5, scale_attn_norm=True,
+         scale_mlp_norm=True),
+    dict(global_pool="max", norm_type="rmsnorm", qk_norm=True,
+         pre_norm=True),
+    # so400m at 384 px floors its patch-14 grid to 27: 36 px at patch 8
+    # floors to 4
+    dict(img_size=36, class_token=False, global_pool="map", image_hw=36)])
 def test_vit_options_match_jax_fp32(kw):
-    jax_model, params = _jax_model_and_params(False, **kw)
-    images = _images(seed=2)
+    kw = dict(kw)
+    hw = kw.pop("image_hw", 32)
+    # params made on the configured size; dynamic_img_size cases then run
+    # on another
+    jax_model, params = _jax_model_and_params(
+        False, hw=kw.get("img_size", CFG["img_size"]), **kw)
+    images = _images(seed=2, size=hw)
     with torch.no_grad():
         got = _port(params, **kw)(torch.from_numpy(images))
     np.testing.assert_allclose(got.numpy(),
                                _jax_logits(jax_model, params, images),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [
+    # beit3: the scale norm between K1 and the projection
+    dict(global_pool="avg", norm_eps=1e-5, scale_attn_norm=True,
+         scale_mlp_norm=True),
+    # rpn: ResPost with no qkv bias (K2 writes no bias partials)
+    dict(block_type="respost", qkv_bias=False, init_values=1e-5,
+         class_token=False, global_pool="avg"),
+    # ParallelThings: two attention branches a block
+    dict(block_type="parallel_things", init_values=1e-5)],
+    ids=["beit3", "rpn", "parallel_things"])
+def test_new_blocks_on_the_kernel_route_match_jax(kw):
+    # use_pallas_attn on both: JAX's Pallas kernels in interpret mode, the
+    # port's kernel route with the plain versions of K1/K2 on the CPU
+    jax_model, params = _jax_model_and_params(True, **kw)
+    images = _images(seed=3)
+    with torch.no_grad():
+        got = _port(params, pallas=True, **kw)(torch.from_numpy(images))
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_logits(jax_model, params, images),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_grid_mismatch_raises_without_dynamic_img_size():
+    model = VisionTransformer(**CFG, device=torch.device("meta"))
+    with pytest.raises(ValueError, match="dynamic_img_size"):
+        model(torch.zeros(1, 48, 48, 3, device="meta"))
+    # set_input_size keeps the parameters and turns the resampling on
+    model.set_input_size(48)
+    assert model.dynamic_img_size and model.pos_grid == 4
+    assert model(torch.zeros(1, 48, 48, 3, device="meta")).shape == (1, 10)
 
 
 def test_seeded_init_is_reproducible():

@@ -1,14 +1,15 @@
 """The port's model registry against the JAX zoo and tests/golden_params.json.
 
-Every name the port registers is a `VARIANTS` key of the JAX package's
-models/vision_transformer_zoo.py or a `my_vit_*` name, and every JAX
-`VARIANTS` key is registered in the port. A name the port can build has the
-parameter count of tests/golden_params.json (built on the meta device, so
-nothing is allocated); a name whose options are not ported raises
-NotImplementedError naming ROADMAP M2, and those names are listed here.
+Every name the port registers is a name of the JAX package's
+models/vision_transformer_zoo.py (its `VARIANTS` and the 25 `_vit_extra`
+names) or a `my_vit_*` name, and every such JAX name is registered in the
+port. Each builds with the parameter count of tests/golden_params.json
+(built on the meta device, so nothing is allocated).
 `vit_tiny_patch32_224` is kept as the JAX package keeps it, an extra that
-the original registry lacks (ROADMAP F4). Then the converter against the
-JAX exporter on the dinov2 tree (LayerScale gammas, a 1370-row pos_embed).
+the original registry lacks (ROADMAP F4), and the aimv2 names and the
+SigLIP-2-era towers keep the JAX configs where they diverge from the
+original (ROADMAP F2; `DIVERGENT_*`). Then the converter against the JAX exporter on the dinov2
+tree (LayerScale gammas, a 1370-row pos_embed) and on its reg4 tree.
 """
 import json
 import os
@@ -17,6 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from vision_transformers_torch_xla_tpu.models import (
+    vision_transformer_zoo as jax_zoo,
+)
 from vision_transformers_torch_xla_tpu.models.vision_transformer_zoo import (
     VARIANTS as JAX_VARIANTS,
 )
@@ -36,41 +40,20 @@ MY_VIT = tuple(f"my_vit_{s}" for s in ("b", "l", "m", "mini", "s", "ti",
                                         "xs"))
 # names of the JAX registry that the original registry lacks (ROADMAP F4)
 JAX_ONLY_EXTRAS = ("vit_tiny_patch32_224",)
-# names whose options the port lacks: each raises naming ROADMAP M2
-NOT_PORTED = {
-    "global_pool='map'": (
-        "vit_base_patch16_siglip_224", "vit_base_patch16_siglip_256",
-        "vit_base_patch16_siglip_384", "vit_base_patch16_siglip_512",
-        "vit_base_patch32_siglip_256", "vit_giantopt_patch16_siglip_256",
-        "vit_giantopt_patch16_siglip_384", "vit_large_patch16_siglip_256",
-        "vit_large_patch16_siglip_384", "vit_large_patch16_siglip_512",
-        "vit_so150m_patch16_reg4_map_256", "vit_so400m_patch14_siglip_224",
-        "vit_so400m_patch14_siglip_378", "vit_so400m_patch14_siglip_384",
-        "vit_so400m_patch16_siglip_256", "vit_so400m_patch16_siglip_384",
-        "vit_so400m_patch16_siglip_512"),
-    "reg_tokens": (
-        "vit_base_patch14_reg4_dinov2", "vit_base_patch16_reg4_gap_256",
-        "vit_betwixt_patch16_reg1_gap_256",
-        "vit_betwixt_patch16_reg4_gap_256",
-        "vit_betwixt_patch16_reg4_gap_384", "vit_giant_patch14_reg4_dinov2",
-        "vit_large_patch14_reg4_dinov2", "vit_little_patch16_reg1_gap_256",
-        "vit_little_patch16_reg4_gap_256", "vit_medium_patch16_reg1_gap_256",
-        "vit_medium_patch16_reg4_gap_256",
-        "vit_mediumd_patch16_reg4_gap_256",
-        "vit_mediumd_patch16_reg4_gap_384", "vit_pwee_patch16_reg1_gap_256",
-        "vit_small_patch14_reg4_dinov2", "vit_so150m2_patch16_reg1_gap_256",
-        "vit_so150m2_patch16_reg1_gap_384",
-        "vit_so150m2_patch16_reg1_gap_448",
-        "vit_so150m_patch16_reg4_gap_256", "vit_so150m_patch16_reg4_gap_384",
-        "vit_wee_patch16_reg1_gap_256"),
-    "block_type=": (
-        "vit_base_patch16_18x2_224", "vit_base_patch16_rpn_224",
-        "vit_base_patch16_xp_224", "vit_huge_patch14_xp_224",
-        "vit_large_patch14_xp_224", "vit_small_patch16_18x2_224"),
-    "swiglu_mlp": ("vit_giant_patch14_dinov2",),
-    "dynamic_img_size": ("vit_intern300m_patch14_448",),
-}
-RAISES = {n: what for what, names in NOT_PORTED.items() for n in names}
+# the names the JAX zoo registers after its VARIANTS table (`_vit_extra`)
+JAX_EXTRA = tuple(sorted(set(jax_zoo.__all__) - set(JAX_VARIANTS)))
+# names whose JAX config diverges from the original registry's (ROADMAP
+# F2), ported as JAX has them: aimv2's packed SwiGLU at mlp_ratio 5.5 (the
+# original has the unpacked one at 2.75; for aimv2_huge and _3b the
+# original's 2 x 2.6667), and the SigLIP-2-era towers, which the original
+# builds with act_layer='gelu_tanh' and JAX with the exact GELU
+DIVERGENT_AIMV2 = tuple(n for n in JAX_EXTRA if n.startswith("aimv2_"))
+DIVERGENT_SIGLIP2 = tuple(
+    f"vit_{w}_siglip{gap}_{img}" for w, imgs in (
+        ("base_patch32", (256,)), ("large_patch16", (512,)),
+        ("so400m_patch16", (256, 384, 512)),
+        ("giantopt_patch16", (256, 384)))
+    for img in imgs for gap in ("", "_gap"))
 
 
 def _golden():
@@ -80,23 +63,36 @@ def _golden():
 
 def test_registry_is_the_jax_zoo_plus_my_vit():
     assert VARIANTS == JAX_VARIANTS
-    assert set(list_models()) == set(JAX_VARIANTS) | set(MY_VIT)
+    assert set(list_models()) == set(jax_zoo.__all__) | set(MY_VIT)
     assert set(JAX_ONLY_EXTRAS) <= set(list_models())
-    # 125 zoo names + 7 my_vit names; 46 raise naming M2, 86 build
-    assert len(list_models()) == 132
-    assert len(RAISES) == 46 and set(RAISES) <= set(JAX_VARIANTS)
+    # 125 zoo names + 25 extra names + 7 my_vit names
+    assert len(JAX_VARIANTS) == 125 and len(JAX_EXTRA) == 25
+    assert len(list_models()) == 157
+    assert len(DIVERGENT_AIMV2) == 12 and len(DIVERGENT_SIGLIP2) == 14
+    assert set(DIVERGENT_SIGLIP2) <= set(JAX_VARIANTS)
 
 
-@pytest.mark.parametrize("name", sorted(set(JAX_VARIANTS) | set(MY_VIT)))
+@pytest.mark.parametrize("name", sorted(set(jax_zoo.__all__) | set(MY_VIT)))
 def test_name_builds_with_golden_count_or_raises_m2(name):
+    # every name builds: none raises naming ROADMAP M2 any more
     img, count = _golden()[name]
-    if name in RAISES:
-        with pytest.raises(NotImplementedError, match="ROADMAP M2") as e:
-            create_model(name, img_size=img, device=torch.device("meta"))
-        assert RAISES[name] in str(e.value)
-        return
     model = create_model(name, img_size=img, device=torch.device("meta"))
     assert sum(p.numel() for p in model.parameters()) == count
+
+
+@pytest.mark.parametrize("name", DIVERGENT_AIMV2 + DIVERGENT_SIGLIP2)
+def test_divergent_names_keep_the_jax_config(name):
+    # F2: JAX's config, not the original's
+    model = create_model(name, depth=1, device=torch.device("meta"))
+    mlp = model.blocks[0].mlp
+    if name in DIVERGENT_SIGLIP2:
+        assert mlp.act_name == "gelu" and model.global_pool in ("map",
+                                                                 "avg")
+        return
+    # the packed SwiGLU's fc1 is 2 x 2.75 x dim wide
+    d = model.patch_embed.proj.weight.shape[0]
+    assert mlp.fc1.weight.shape == (int(d * 5.5) // 2 * 2, d)
+    assert mlp.glu and mlp.fc1.bias is None
 
 
 def test_naflex_delegation_raises_m8(monkeypatch):
@@ -148,4 +144,38 @@ def test_convert_matches_torch_export_on_dinov2():
     assert ours["pos_embed"].shape == (1, 1370, 768)
     port = create_model("vit_base_patch14_dinov2", depth=1,
                         global_pool="token", device=torch.device("meta"))
+    port.load_state_dict(ours, strict=True, assign=True)
+
+
+@pytest.mark.parametrize("name,img", [
+    ("vit_base_patch14_reg4_dinov2", 518),
+    ("vit_base_patch16_siglip_224", 224), ("beit3_base_patch16_224", 224),
+    ("aimv2_large_patch14_224", 224)])
+def test_convert_matches_torch_export_on_the_new_leaves(name, img):
+    # reg_token, the MAP head, the scale norms, embed_norm and RMSNorm
+    # scales, at depth 1: the converter writes the exporter's names
+    import jax
+    import jax.numpy as jnp
+    from flax import linen as nn
+
+    from vision_transformers_torch_xla_tpu.ckpt.torch_export import (
+        export_vit_state_dict,
+    )
+    from vision_transformers_torch_xla_tpu.models import (
+        create_model as jax_create,
+    )
+
+    model = jax_create(name, depth=1)
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.key(0), jnp.zeros((1, img, img, 3))))
+    rng = np.random.default_rng(1)
+    params = nn.meta.unbox(jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32),
+        shapes["params"]))
+    ours = flax_to_state_dict(params)
+    theirs = export_vit_state_dict({"params": params})
+    assert sorted(ours) == sorted(theirs)
+    for k, v in theirs.items():
+        np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
+    port = create_model(name, depth=1, device=torch.device("meta"))
     port.load_state_dict(ours, strict=True, assign=True)

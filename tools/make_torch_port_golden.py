@@ -2,12 +2,20 @@
 
 Writes tests/data/torch_port_golden_<model>.json: the JAX package's fp32
 logits of a full-width model on two seeded images, with weights that both
-packages can make from a seed. Two models have goldens (CONFIGS):
+packages can make from a seed. Four models have goldens (CONFIGS):
 
   * my_vit_b at 224 px (act_layer gelu_tanh, global_pool avg), the serving
     and training slices' model;
   * vit_base_patch14_dinov2 at 518 px (global_pool token; S = 1370, the
-    long-sequence path), with its LayerScale gammas set to 1.
+    long-sequence path), with its LayerScale gammas set to 1;
+  * vit_base_patch14_reg4_dinov2 at 518 px (4 register tokens,
+    no_embed_class; S = 1374 on the blocked kernels), gammas 1, cut to
+    depth 4;
+  * vit_base_patch16_siglip_224 (no class token, the MAP head; S = 196),
+    cut to depth 4.
+
+The two depth-4 goldens keep the full width (768, 12 heads of 64) and
+run on a few GiB of host memory.
 
   * weights: a timm-named state dict from the port's
     core/seeded.py::seeded_state_dict(shapes, seed=0, gamma) (shapes read
@@ -20,7 +28,8 @@ bf16 forward on the card against these logits. For my_vit_b it also writes
 the four small JPEGs (tests/data/serve_*.jpg) that the serve checks post.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py \
-        [--model vit_base_patch14_dinov2]
+        [--model vit_base_patch14_dinov2 | vit_base_patch14_reg4_dinov2 |
+         vit_base_patch16_siglip_224]
 
 The 518-px model is a full-size fp32 run (~0.6 TFLOP): run it on a host
 with the cores and memory for it.
@@ -42,6 +51,9 @@ JPEG_SIZES = ((320, 240), (240, 320), (256, 256), (500, 375))
 CONFIGS = {
     "my_vit_b": (224, dict(act_layer="gelu_tanh", global_pool="avg"), None),
     "vit_base_patch14_dinov2": (518, dict(global_pool="token"), 1.0),
+    "vit_base_patch14_reg4_dinov2": (518, dict(global_pool="token",
+                                               depth=4), 1.0),
+    "vit_base_patch16_siglip_224": (224, dict(depth=4), None),
 }
 
 

@@ -3,7 +3,8 @@
 Writes tests/data/torch_port_train_golden_<model>.json: one JAX fp32
 forward + backward of a full-width model on the CPU, drop_path 0, with the
 weights and images of tools/make_torch_port_golden.py (its CONFIGS:
-my_vit_b at 224 px, vit_base_patch14_dinov2 at 518 px):
+my_vit_b at 224 px, vit_base_patch14_dinov2 and, at depth 4,
+vit_base_patch14_reg4_dinov2 at 518 px):
 
   * weights: the port's core/seeded.py::seeded_state_dict(shapes, seed=0,
     gamma), converted to flax params with
@@ -18,7 +19,7 @@ norm under its timm name (through the port's ckpt/convert.py). chip_smoke.py
 holds the port's bf16 train-mode forward + backward on the card against it.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_train_golden.py \
-        [--model vit_base_patch14_dinov2]
+        [--model vit_base_patch14_dinov2 | vit_base_patch14_reg4_dinov2]
 """
 from __future__ import annotations
 

@@ -34,19 +34,55 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
 
 
 def _dense(name: str, leaf: str, w: np.ndarray):
-    """flax Dense/LayerNorm leaf -> (timm key, value): kernels transpose."""
+    """flax Dense/LayerNorm/RMSNorm leaf -> (timm key, value): kernels
+    transpose, `scale` becomes `weight`."""
     return f"{name}.{_AFFINE[leaf]}", (w.T if leaf == "kernel" else w)
+
+
+# a flax block child -> its timm module path: the plain and ResPost blocks'
+# names stay, ParallelThingsBlock's attns_{j}/attn_norms_{j}/attn_ls_{j}
+# (mlps_, mlp_norms_, mlp_ls_) become timm's attns.{j}.attn/.norm/.ls
+# (ffns.{j}.mlp/.norm/.ls)
+_PARALLEL = ((r"attns_(\d+)", "attns.{}.attn"),
+             (r"attn_norms_(\d+)", "attns.{}.norm"),
+             (r"attn_ls_(\d+)", "attns.{}.ls"),
+             (r"mlps_(\d+)", "ffns.{}.mlp"),
+             (r"mlp_norms_(\d+)", "ffns.{}.norm"),
+             (r"mlp_ls_(\d+)", "ffns.{}.ls"))
+
+
+def _block_key(pre: str, sub: tuple, path: tuple) -> str:
+    """The timm key of one leaf of a block (`sub`: the path below it)."""
+    mod, leaf = sub[0], sub[-1]
+    for pat, fmt in _PARALLEL:
+        if m := re.fullmatch(pat, mod):
+            mod = fmt.format(m.group(1))
+            break
+    if leaf == "gamma" and len(sub) == 2:
+        return f"{pre}.{mod}.gamma"
+    if len(sub) in (2, 3) and leaf in _AFFINE:
+        # norm1/2, in_norm, in_proj, q_norm, k_norm, attn_out_proj,
+        # mlp_out_proj; or attn.{qkv,proj,q_norm,k_norm,norm},
+        # mlp.{fc1,fc2,norm}
+        return f"{pre}.{'.'.join((mod,) + sub[1:-1])}.{_AFFINE[leaf]}"
+    raise ValueError(f"vit convert: unmapped {path}")
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax ViT params (the 'params' collection, or variables holding it) ->
-    timm-named fp32 torch state dict."""
+    timm-named fp32 torch state dict. Every block type of
+    models/layers.py::BLOCK_TYPES, the MAP head, register tokens, the patch
+    embed's norm and RMSNorm scales map to the names JAX
+    ckpt/torch_export.py::export_vit_state_dict (:117-181) writes (the
+    parallel blocks, which it refuses, to timm's); a scan tree
+    (`blocks_stacked/block/...`, depth on the leading axis) unstacks into
+    `blocks.{i}`."""
     if "params" in params:
         params = params["params"]
     sd: Dict[str, np.ndarray] = {}
     for path, w in _flatten(params).items():
         top, leaf = path[0], path[-1]
-        if top in ("cls_token", "pos_embed") and len(path) == 1:
+        if top in ("cls_token", "reg_token", "pos_embed") and len(path) == 1:
             sd[top] = w
         elif path == ("patch_embed", "proj", "kernel"):
             # (p·p·C, D) matmul kernel -> OIHW conv weight (D, C, p, p)
@@ -54,21 +90,22 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             p = int(round((kk // 3) ** 0.5))
             sd["patch_embed.proj.weight"] = \
                 w.reshape(p, p, 3, d).transpose(3, 2, 0, 1)
-        elif path == ("patch_embed", "proj", "bias"):
-            sd["patch_embed.proj.bias"] = w
+        elif path[:2] in (("patch_embed", "proj"), ("patch_embed", "norm")) \
+                and len(path) == 3:
+            k, v = _dense(f"patch_embed.{path[1]}", leaf, w)
+            sd[k] = v
         elif m := re.fullmatch(r"blocks_(\d+)", top):
-            pre = f"blocks.{m.group(1)}"
-            if path[1] in ("ls1", "ls2") and leaf == "gamma":
-                sd[f"{pre}.{path[1]}.gamma"] = w
-            elif path[1] in ("norm1", "norm2") and len(path) == 3:
-                k, v = _dense(f"{pre}.{path[1]}", leaf, w)
-                sd[k] = v
-            elif path[1] in ("attn", "mlp") and len(path) == 4 and path[2] in (
-                    "qkv", "proj", "q_norm", "k_norm", "fc1", "fc2"):
-                k, v = _dense(f"{pre}.{path[1]}.{path[2]}", leaf, w)
-                sd[k] = v
-            else:
-                raise ValueError(f"vit convert: unmapped {path}")
+            sd[_block_key(f"blocks.{m.group(1)}", path[1:], path)] = \
+                w.T if leaf == "kernel" else w
+        elif path[:2] == ("blocks_stacked", "block"):
+            for i in range(w.shape[0]):
+                sd[_block_key(f"blocks.{i}", path[2:], path)] = \
+                    w[i].T if leaf == "kernel" else w[i]
+        elif path == ("attn_pool", "latent"):
+            sd["attn_pool.latent"] = w
+        elif top == "attn_pool" and len(path) in (3, 4):
+            k, v = _dense(".".join(path[:-1]), leaf, w)
+            sd[k] = v
         elif top in ("norm", "fc_norm", "norm_pre", "head") and len(path) == 2:
             k, v = _dense(top, leaf, w)
             sd[k] = v

@@ -44,8 +44,8 @@ class TrainConfig:
     act_layer: str = ""                  # '' = model default (timm's
     # exact-erf GELU); the flagship recipe passes 'gelu_tanh'.
     layer_scale_init_value: float = 0.0  # 0 disables LayerScale
-    grad_checkpointing: bool = False     # recompute blocks (ROADMAP M2)
-    scan_blocks: bool = False            # lax.scan over layers (fast compile)
+    grad_checkpointing: bool = False     # recompute each block (remat)
+    scan_blocks: bool = False            # the JAX scan path's semantics
     pallas_attn: str = "auto"            # 'auto' | 'on' | 'off': the
     # attention kernels (ops/flash_attention.py); on the card they always
     # run, on the CPU their plain versions do

@@ -54,9 +54,13 @@ inside the train step, on its device (data/device_aug.py), as the JAX
 trainer does (launch/main.py:306-331); the eval batches then stay raw, as
 there.
 
+`--grad_checkpointing true` recomputes each block in the backward
+(models/vit.py::remat_block) and `--scan_blocks true` builds the blocks
+with the JAX scan path's semantics, as the JAX trainer passes them
+(launch/main.py:202-203).
+
 Options outside this slice raise NotImplementedError naming their ROADMAP
-item: the TF-backed data sets (M5), the mesh (M6), gradient checkpointing
-and scanned blocks (M2).
+item: the TF-backed data sets (M5) and the mesh (M6).
 """
 from __future__ import annotations
 
@@ -167,8 +171,6 @@ def check_slice(cfg: TrainConfig) -> None:
         (cfg.data_set in TF_DATA_SETS, f"--data_set {cfg.data_set}", "M5"),
         (cfg.mesh_shape != "data" or cfg.param_sharding != "replicated",
          "a device mesh (--mesh_shape, --param_sharding)", "M6"),
-        (cfg.grad_checkpointing, "--grad_checkpointing", "M2"),
-        (cfg.scan_blocks, "--scan_blocks", "M2"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -280,6 +282,7 @@ def setup(cfg: TrainConfig) -> TrainerContext:
         drop_path_rate=cfg.drop_path, global_pool=cfg.global_pool,
         act_layer=cfg.act_layer or None,
         init_values=cfg.layer_scale_init_value or None,
+        remat=cfg.grad_checkpointing, scan_blocks=cfg.scan_blocks or None,
         use_pallas_attn=want_pallas, use_pallas_mlp=cfg.pallas_mlp == "on",
         dtype=policy.compute_dtype, param_dtype=policy.param_dtype,
         device=device)

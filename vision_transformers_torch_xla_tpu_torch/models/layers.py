@@ -125,7 +125,33 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics and affine, output in the compute dtype
-    (flax nn.LayerNorm with dtype=bf16, param_dtype=fp32)."""
+    (flax nn.LayerNorm with dtype=bf16, param_dtype=fp32). `weight_init` is
+    the weight's initial value (ResPostBlock's post-norms take
+    init_values, layers.py:541-550)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None,
+                 weight_init: float = 1.0):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight_init = weight_init
+        self.weight = empty_param((dim,), param_dtype, device)
+        self.bias = empty_param((dim,), param_dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.constant_(self.weight, self.weight_init)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(self.dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax nn.RMSNorm: x · rsqrt(mean(x²) + eps) · scale, the mean of
+    squares and the product in fp32, output in the compute dtype; one
+    `weight` (flax `scale`), no bias."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device=None):
@@ -133,15 +159,25 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.weight = empty_param((dim,), param_dtype, device)
-        self.bias = empty_param((dim,), param_dtype, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.weight)
-        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(self.dtype)
+        x = x.float()
+        mul = torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps)
+        return (x * (mul * self.weight.float())).to(self.dtype)
+
+
+def make_norm(norm_type: str, dim: int, eps: float = 1e-6,
+              dtype=torch.bfloat16, param_dtype=torch.float32,
+              device=None) -> nn.Module:
+    """The norm a site takes by `norm_type` (JAX `_layer_norm`, :46-61)."""
+    if norm_type == "rmsnorm":
+        return RMSNorm(dim, eps, dtype, param_dtype, device)
+    if norm_type != "layernorm":
+        raise ValueError(f"unknown norm_type {norm_type!r}")
+    return LayerNorm(dim, eps, dtype, param_dtype, device)
 
 
 class _ConvWeight(nn.Module):
@@ -163,16 +199,21 @@ class _ConvWeight(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """NHWC image -> patch tokens by reshape + one matmul (layers.py:101)."""
+    """NHWC image -> patch tokens by reshape + one matmul (layers.py:101);
+    `use_norm` adds the norm after the projection (aimv2's embed_norm)."""
 
     def __init__(self, patch_size: int = 16, in_chans: int = 3,
                  embed_dim: int = 768, bias: bool = True,
-                 dtype=torch.bfloat16, param_dtype=torch.float32, device=None):
+                 dtype=torch.bfloat16, param_dtype=torch.float32, device=None,
+                 use_norm: bool = False, norm_type: str = "layernorm",
+                 norm_eps: float = 1e-6):
         super().__init__()
         self.patch_size = patch_size
         self.dtype = dtype
         self.proj = _ConvWeight(embed_dim, in_chans, patch_size, bias,
                                 param_dtype, device)
+        self.norm = make_norm(norm_type, embed_dim, norm_eps, dtype,
+                              param_dtype, device) if use_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -190,40 +231,51 @@ class PatchEmbed(nn.Module):
         x = torch.matmul(x, w_mat.to(self.dtype))
         if self.proj.bias is not None:
             x = bias_add(x, self.proj.bias)
-        return x
+        return self.norm(x) if self.norm is not None else x
 
 
 class Mlp(nn.Module):
-    """fc1 -> act -> dropout -> fc2 -> dropout (layers.py:167).
+    """fc1 -> act -> dropout [-> norm] -> fc2 -> dropout (layers.py:167).
+
+    `glu` is timm's packed SwiGLU (layers.py:195-216): fc1 is `hidden // 2
+    * 2` wide, its output splits in halves and silu(first) * second feeds
+    fc2, whatever `act` says. `use_norm` puts a norm after the activation's
+    dropout, before fc2 (scale_mlp_norm, beit3).
 
     `use_pallas` routes the plain tanh-GELU recipe through the fused-backward
     MLP (ops/mlp_fused.py::mlp_gelu, the fc2-backward kernel K3), by the
-    JAX layer's rule (layers.py:199-203): gelu_tanh, no dropout, a 3-D input
-    and every width a multiple of 128. The port's Mlp has no glu and no norm
-    (they raise naming M2 in models/vit.py), so those terms of the rule
-    hold. Anything else takes the plain path; the parameters are fc1/fc2
-    either way, so state dicts load with strict=True on both."""
+    JAX layer's rule (layers.py:199-203): no glu, no norm, gelu_tanh, no
+    dropout, a 3-D input and every width a multiple of 128. Anything else
+    takes the plain path; the parameters are fc1/fc2 either way, so state
+    dicts load with strict=True on both."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, bias: bool = True, act: str = "gelu",
                  drop: float = 0.0, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device=None,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, glu: bool = False,
+                 use_norm: bool = False, norm_type: str = "layernorm",
+                 norm_eps: float = 1e-6):
         super().__init__()
         self.act_name = act
         self.act = act_fn(act)
         self.drop = drop
         self.use_pallas = use_pallas
+        self.glu = glu
         self.dtype = dtype
-        self.fc1 = Dense(in_features, hidden_features, bias, dtype,
-                         param_dtype, device)
-        self.fc2 = Dense(hidden_features, out_features, bias, dtype,
-                         param_dtype, device)
+        hidden = hidden_features // 2 * 2 if glu else hidden_features
+        mid = hidden // 2 if glu else hidden
+        self.fc1 = Dense(in_features, hidden, bias, dtype, param_dtype,
+                         device)
+        self.norm = make_norm(norm_type, mid, norm_eps, dtype, param_dtype,
+                              device) if use_norm else None
+        self.fc2 = Dense(mid, out_features, bias, dtype, param_dtype, device)
 
     def _fused(self, x: torch.Tensor) -> bool:
         widths = (x.shape[-1], self.fc1.weight.shape[0],
                   self.fc2.weight.shape[0])
-        return (self.use_pallas and self.act_name == "gelu_tanh"
+        return (self.use_pallas and not self.glu and self.norm is None
+                and self.act_name == "gelu_tanh"
                 and self.drop == 0.0 and x.ndim == 3
                 and all(w % WIDTH_MULTIPLE == 0 for w in widths))
 
@@ -232,7 +284,15 @@ class Mlp(nn.Module):
         if self._fused(x):
             return mlp_gelu(x.to(self.dtype), self.fc1.weight.t(),
                             self.fc1.bias, self.fc2.weight.t(), self.fc2.bias)
-        x = dropout(self.act(self.fc1(x)), self.drop, deterministic, generator)
+        x = self.fc1(x)
+        if self.glu:
+            gate, x = x.chunk(2, dim=-1)
+            x = F.silu(gate) * x
+        else:
+            x = self.act(x)
+        x = dropout(x, self.drop, deterministic, generator)
+        if self.norm is not None:
+            x = self.norm(x)
         return dropout(self.fc2(x), self.drop, deterministic, generator)
 
 
@@ -266,14 +326,18 @@ class Attention(nn.Module):
     * 'plain': the qkv Dense, the heads split, q_norm/k_norm, the
       fp32-softmax attention (`reference_attention`, the counterpart of
       JAX's multi_head_attention(use_pallas=False)) or, with an active
-      attn_drop, dropout on the probabilities, under autograd."""
+      attn_drop, dropout on the probabilities, under autograd.
+    On every route `scale_norm` (scale_attn_norm, beit3) puts a norm on
+    the merged heads before `proj` (layers.py:358-362); q_norm, k_norm and
+    that norm take `norm_type`."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_norm: bool = False, proj_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
                  norm_eps: float = 1e-6, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device=None,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, scale_norm: bool = False,
+                 norm_type: str = "layernorm"):
         super().__init__()
         self.use_pallas = use_pallas
         self.num_heads = num_heads
@@ -284,10 +348,12 @@ class Attention(nn.Module):
         self.dtype = dtype
         self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype, param_dtype, device)
         if qk_norm:
-            self.q_norm = LayerNorm(self.head_dim, norm_eps, dtype,
+            self.q_norm = make_norm(norm_type, self.head_dim, norm_eps, dtype,
                                     param_dtype, device)
-            self.k_norm = LayerNorm(self.head_dim, norm_eps, dtype,
+            self.k_norm = make_norm(norm_type, self.head_dim, norm_eps, dtype,
                                     param_dtype, device)
+        self.norm = make_norm(norm_type, dim, norm_eps, dtype, param_dtype,
+                              device) if scale_norm else None
         self.proj = Dense(dim, dim, proj_bias, dtype, param_dtype, device)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
@@ -318,6 +384,8 @@ class Attention(nn.Module):
             else:
                 o = reference_attention(q, k, v, scale)
             o = o.transpose(1, 2).reshape(b, s, d)
+        if self.norm is not None:
+            o = self.norm(o)
         return dropout(self.proj(o), self.proj_drop, deterministic, generator)
 
 
@@ -339,7 +407,9 @@ class LayerScale(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm block: x + DP(LS(attn(LN(x)))), then the same with the MLP
-    (layers.py:402)."""
+    (layers.py:402). Every norm takes `norm_type`; `glu`,
+    `scale_attn_norm` and `scale_mlp_norm` go to the Mlp and the
+    Attention."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_norm: bool = False,
@@ -349,19 +419,25 @@ class Block(nn.Module):
                  norm_eps: float = 1e-6, mlp_hidden: Optional[int] = None,
                  dtype=torch.bfloat16, param_dtype=torch.float32,
                  device=None, use_pallas_mlp: bool = False,
-                 use_pallas_attn: bool = False):
+                 use_pallas_attn: bool = False, glu: bool = False,
+                 norm_type: str = "layernorm", scale_attn_norm: bool = False,
+                 scale_mlp_norm: bool = False):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.drop_path_rate = drop_path_rate
-        self.norm1 = LayerNorm(dim, norm_eps, dtype, param_dtype, device)
+        self.norm1 = make_norm(norm_type, dim, norm_eps, **kw)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_norm, proj_bias,
-                              attn_drop, proj_drop, norm_eps, dtype,
-                              param_dtype, device, use_pallas_attn)
+                              attn_drop, proj_drop, norm_eps,
+                              use_pallas=use_pallas_attn,
+                              scale_norm=scale_attn_norm,
+                              norm_type=norm_type, **kw)
         self.ls1 = LayerScale(dim, init_values, param_dtype, device) \
             if init_values is not None else None
-        self.norm2 = LayerNorm(dim, norm_eps, dtype, param_dtype, device)
+        self.norm2 = make_norm(norm_type, dim, norm_eps, **kw)
         self.mlp = Mlp(dim, mlp_hidden or int(dim * mlp_ratio), dim,
-                       proj_bias, act, proj_drop, dtype, param_dtype, device,
-                       use_pallas_mlp)
+                       proj_bias, act, proj_drop, use_pallas=use_pallas_mlp,
+                       glu=glu, use_norm=scale_mlp_norm, norm_type=norm_type,
+                       norm_eps=norm_eps, **kw)
         self.ls2 = LayerScale(dim, init_values, param_dtype, device) \
             if init_values is not None else None
 
@@ -375,6 +451,209 @@ class Block(nn.Module):
         if self.ls2 is not None:
             y = self.ls2(y)
         return x + drop_path(y, self.drop_path_rate, deterministic, generator)
+
+
+class AttentionPoolLatent(nn.Module):
+    """The MAP head (layers.py:476-514): one learned latent query
+    cross-attends over the tokens on the plain attention (JAX calls
+    multi_head_attention at its default use_pallas=False), then proj, and
+    an MLP residual behind a LayerNorm; returns the latent's row."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 norm_eps: float = 1e-6, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.num_heads = num_heads
+        self.latent = empty_param((1, 1, dim), param_dtype, device)
+        self.q = Dense(dim, dim, True, **kw)
+        self.kv = Dense(dim, 2 * dim, True, **kw)
+        self.proj = Dense(dim, dim, True, **kw)
+        self.norm = LayerNorm(dim, norm_eps, **kw)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, **kw)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.latent, 0.02, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        q = self.q(self.latent.to(x.dtype).expand(b, 1, d))
+        k, v = self.kv(x).chunk(2, dim=-1)
+        q = q.reshape(b, 1, h, hd).transpose(1, 2)
+        k = k.reshape(b, s, h, hd).transpose(1, 2)
+        v = v.reshape(b, s, h, hd).transpose(1, 2)
+        o = reference_attention(q, k, v, hd ** -0.5)
+        o = self.proj(o.transpose(1, 2).reshape(b, 1, d))
+        o = o + self.mlp(self.norm(o))
+        return o[:, 0]
+
+
+class ResPostBlock(nn.Module):
+    """Residual post-norm block (layers.py:517-574): x + DP(LN(attn(x))),
+    then x + DP(LN(mlp(x))). `init_values` is the post-norms' initial
+    weight, not a LayerScale. Its Attention keeps the default norms and
+    eps for q_norm/k_norm, and the Mlp its biases, as JAX builds them."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_norm: bool = False,
+                 init_values: Optional[float] = None,
+                 drop_path_rate: float = 0.0, proj_drop: float = 0.0,
+                 attn_drop: float = 0.0, act: str = "gelu",
+                 norm_eps: float = 1e-6, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None,
+                 use_pallas_mlp: bool = False, use_pallas_attn: bool = False,
+                 glu: bool = False, norm_type: str = "layernorm"):
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        w0 = init_values if init_values is not None else 1.0
+        self.drop_path_rate = drop_path_rate
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_norm,
+                              attn_drop=attn_drop, proj_drop=proj_drop,
+                              use_pallas=use_pallas_attn, **kw)
+        self.norm1 = LayerNorm(dim, norm_eps, weight_init=w0, **kw)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, True, act, proj_drop,
+                       use_pallas=use_pallas_mlp, glu=glu, **kw)
+        self.norm2 = LayerNorm(dim, norm_eps, weight_init=w0, **kw)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.norm1(self.attn(x, deterministic, generator))
+        x = x + drop_path(y, self.drop_path_rate, deterministic, generator)
+        y = self.norm2(self.mlp(x, deterministic, generator))
+        return x + drop_path(y, self.drop_path_rate, deterministic, generator)
+
+
+class ParallelScalingBlock(nn.Module):
+    """ViT-22B's parallel block (layers.py:577-638): one in-projection of
+    width 3·dim + mlp_hidden, **qkv first and the MLP second** as JAX
+    slices it (timm's `in_split` puts the MLP first; ROADMAP §3), q_norm
+    and k_norm, the plain attention (JAX passes use_pallas=False), the
+    attention and MLP outputs summed, a LayerScale `ls`, one drop_path. No
+    dropout; `glu` and the kernel switches are accepted and unused, as in
+    JAX."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_norm: bool = True,
+                 init_values: Optional[float] = None,
+                 drop_path_rate: float = 0.0, proj_drop: float = 0.0,
+                 attn_drop: float = 0.0, act: str = "gelu",
+                 norm_eps: float = 1e-6, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None,
+                 use_pallas_mlp: bool = False, use_pallas_attn: bool = False,
+                 glu: bool = False, norm_type: str = "layernorm"):
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.num_heads = num_heads
+        self.drop_path_rate = drop_path_rate
+        self.act = act_fn(act)
+        mlp_hidden = int(dim * mlp_ratio)
+        self.in_norm = make_norm(norm_type, dim, norm_eps, **kw)
+        self.in_proj = Dense(dim, 3 * dim + mlp_hidden, qkv_bias, **kw)
+        if qk_norm:
+            hd = dim // num_heads
+            self.q_norm = make_norm(norm_type, hd, norm_eps, **kw)
+            self.k_norm = make_norm(norm_type, hd, norm_eps, **kw)
+        else:
+            self.q_norm = self.k_norm = None
+        self.attn_out_proj = Dense(dim, dim, True, **kw)
+        self.mlp_out_proj = Dense(mlp_hidden, dim, True, **kw)
+        self.ls = LayerScale(dim, init_values, param_dtype, device) \
+            if init_values is not None else None
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, s, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        fused = self.in_proj(self.in_norm(x))
+        qkv, mlp_h = fused[..., :3 * d], fused[..., 3 * d:]
+        qkv = qkv.reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        o = reference_attention(q, k, v, hd ** -0.5)
+        y = self.attn_out_proj(o.transpose(1, 2).reshape(b, s, d)) \
+            + self.mlp_out_proj(self.act(mlp_h))
+        if self.ls is not None:
+            y = self.ls(y)
+        return x + drop_path(y, self.drop_path_rate, deterministic, generator)
+
+
+class _Branch(nn.Module):
+    """One branch of ParallelThingsBlock under timm's names: `norm`, then
+    `attn` or `mlp`, then the LayerScale `ls`."""
+
+    def __init__(self, norm: nn.Module, name: str, fn: nn.Module,
+                 ls: Optional[nn.Module]):
+        super().__init__()
+        self.norm = norm
+        self.fn_name = name
+        setattr(self, name, fn)
+        self.ls = ls
+
+    def forward(self, x: torch.Tensor, deterministic: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        y = getattr(self, self.fn_name)(self.norm(x), deterministic,
+                                        generator)
+        return self.ls(y) if self.ls is not None else y
+
+
+class ParallelThingsBlock(nn.Module):
+    """"Three things everyone should know about ViTs" (layers.py:641-707):
+    x + Σ DP(LS(attn_j(LN_j(x)))), then the same with `num_parallel` MLPs,
+    each branch dropped on its own draw. timm's names: attns.{j} and
+    ffns.{j}, each with norm, attn or mlp, and ls. The Attention keeps the
+    default q_norm/k_norm, the Mlp its biases, as JAX builds them."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_norm: bool = False,
+                 init_values: Optional[float] = None,
+                 drop_path_rate: float = 0.0, proj_drop: float = 0.0,
+                 attn_drop: float = 0.0, act: str = "gelu",
+                 norm_eps: float = 1e-6, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None,
+                 use_pallas_mlp: bool = False, use_pallas_attn: bool = False,
+                 glu: bool = False, norm_type: str = "layernorm",
+                 num_parallel: int = 2):
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.drop_path_rate = drop_path_rate
+
+        def ls():
+            return LayerScale(dim, init_values, param_dtype, device) \
+                if init_values is not None else None
+
+        self.attns = nn.ModuleList([_Branch(
+            make_norm(norm_type, dim, norm_eps, **kw), "attn",
+            Attention(dim, num_heads, qkv_bias, qk_norm, attn_drop=attn_drop,
+                      proj_drop=proj_drop, use_pallas=use_pallas_attn, **kw),
+            ls()) for _ in range(num_parallel)])
+        self.ffns = nn.ModuleList([_Branch(
+            make_norm(norm_type, dim, norm_eps, **kw), "mlp",
+            Mlp(dim, int(dim * mlp_ratio), dim, True, act, proj_drop,
+                use_pallas=use_pallas_mlp, glu=glu, **kw),
+            ls()) for _ in range(num_parallel)])
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for branches in (self.attns, self.ffns):
+            total = 0.0
+            for branch in branches:
+                total = total + drop_path(
+                    branch(x, deterministic, generator), self.drop_path_rate,
+                    deterministic, generator)
+            x = x + total
+        return x
+
+
+BLOCK_TYPES = {
+    "block": Block,
+    "respost": ResPostBlock,
+    "parallel_scaling": ParallelScalingBlock,
+    "parallel_things": ParallelThingsBlock,
+}
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

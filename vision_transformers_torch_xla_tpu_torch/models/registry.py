@@ -50,7 +50,7 @@ def model_entrypoint(name: str) -> Callable:
         return _model_entrypoints[name]
     except KeyError:
         raise RuntimeError(f"unknown model {name!r}; known: "
-                           f"{list_models()[:20]}...") from None
+                           f"{list_models()}") from None
 
 
 def get_default_cfg(name: str) -> dict:

@@ -1,18 +1,16 @@
 """Registered ViT variants: the JAX zoo's names and configs.
 
 Counterpart of vision_transformers_torch_xla_tpu/models/
-vision_transformer_zoo.py (:1-340): the same width presets `_W`, the same
+vision_transformer_zoo.py: the same width presets `_W`, the same
 `VARIANTS` table (name -> width preset, patch, image size, extra kwargs)
-and the same entrypoint per name over the port's VisionTransformer. A name
-whose options the port lacks (global_pool='map', reg tokens, SwiGLU, the
-alternative blocks, rmsnorm, dynamic_img_size, ...) is registered and
-raises NotImplementedError naming ROADMAP M2 when it is built; the
-NaFlexVit delegation of `_build_vit` raises naming M8. The extra families
-after the table (FlexiViT, AIMv2, BEiT-3 remaps, EVA-large resolutions,
-test_vit1-4; JAX :342+) wait for M2 and M8. Like the JAX table this one
-keeps `vit_tiny_patch32_224`, which the original registry lacks (ROADMAP
-F4), and the JAX package's configs where they diverge from the original
-(F2).
+and the same entrypoint per name over the port's VisionTransformer (:1-340),
+then the same extra names the JAX zoo registers through `_vit_extra`
+(:347-416): FlexiViT, AIMv2, the BEiT-3 remaps, the EVA-large resolutions
+and test_vit1-4. The NaFlexVit delegation of `_build_vit` raises naming
+ROADMAP M8. Like the JAX table this one keeps `vit_tiny_patch32_224`,
+which the original registry lacks (ROADMAP F4), and the JAX package's
+configs where they diverge from the original (F2: aimv2's mlp_ratio 5.5
+and the SigLIP towers' exact GELU).
 """
 from __future__ import annotations
 
@@ -341,3 +339,70 @@ _mod = sys.modules[__name__]
 for _name, (_wk, _patch, _img, _extra) in VARIANTS.items():
     setattr(_mod, _name, register_model(
         _make_entrypoint(_name, _wk, _patch, _img, _extra)))
+
+
+# ---------------------------------------------------------------------------
+# the JAX zoo's extra names (:347-416): FlexiViT, AIMv2, BEiT-3 remaps,
+# EVA-large fine-tune resolutions, test_vit1-4
+# ---------------------------------------------------------------------------
+
+def _vit_extra(name, **cfg):
+    def build(**kw):
+        kw.pop("pretrained_tag", None)
+        return _build_vit(dict(cfg, **{k: v for k, v in kw.items()
+                                       if v is not None}))
+
+    build.__name__ = name
+    build.__qualname__ = name
+    build.__doc__ = f"ViT variant {name!r} (the JAX zoo's config)."
+    setattr(_mod, name, register_model(build))
+
+
+for _n, _d, _h in (("flexivit_small", 384, 6), ("flexivit_base", 768, 12),
+                   ("flexivit_large", 1024, 16)):
+    _vit_extra(_n, patch_size=16, img_size=240, embed_dim=_d,
+               depth=24 if _d == 1024 else 12, num_heads=_h,
+               no_embed_class=True, global_pool="token", fc_norm=False)
+
+# AIMv2 as the JAX zoo has it (ROADMAP F2): the packed SwiGLU at mlp_ratio
+# 5.5 for the original's unpacked 2.75
+_AIMV2 = dict(patch_size=14, class_token=False, fc_norm=False,
+              mlp_ratio=5.5, global_pool="avg", qkv_bias=False,
+              proj_bias=False, act_layer="silu", norm_type="rmsnorm",
+              norm_eps=1e-5, embed_norm=True, swiglu_mlp=True)
+for _sz, (_d, _dep, _h) in {"large": (1024, 24, 8),
+                            "huge": (1536, 24, 12),
+                            "1b": (2048, 24, 16),
+                            "3b": (3072, 24, 24)}.items():
+    for _res in (224, 336, 448):
+        _vit_extra(f"aimv2_{_sz}_patch14_{_res}", img_size=_res,
+                   embed_dim=_d, depth=_dep, num_heads=_h, **_AIMV2)
+
+# BEiT-3 remaps: cls token, avg pool, the scale norms, eps 1e-5
+for _n, (_p, _d, _dep, _h, _res) in {
+        "beit3_base_patch16_224": (16, 768, 12, 12, 224),
+        "beit3_large_patch16_224": (16, 1024, 24, 16, 224),
+        "beit3_giant_patch14_224": (14, 1408, 40, 16, 224),
+        "beit3_giant_patch14_336": (14, 1408, 40, 16, 336)}.items():
+    _vit_extra(_n, patch_size=_p, img_size=_res, embed_dim=_d, depth=_dep,
+               num_heads=_h, global_pool="avg", norm_eps=1e-5,
+               scale_attn_norm=True, scale_mlp_norm=True, mlp_ratio=4.0
+               if "giant" not in _n else 6144 / 1408)
+
+for _res in (196, 336):
+    _vit_extra(f"eva_large_patch14_{_res}", patch_size=14, img_size=_res,
+               embed_dim=1024, depth=24, num_heads=16, global_pool="avg")
+
+_vit_extra("test_vit", patch_size=16, img_size=160, embed_dim=64, depth=6,
+           num_heads=2, mlp_ratio=3.0, dynamic_img_size=True)
+_vit_extra("test_vit2", patch_size=16, img_size=160, embed_dim=64,
+           depth=8, num_heads=2, mlp_ratio=3.0, class_token=False,
+           reg_tokens=1, global_pool="avg", init_values=1e-5,
+           dynamic_img_size=True)
+_vit_extra("test_vit3", patch_size=16, img_size=160, embed_dim=96,
+           depth=9, num_heads=3, mlp_ratio=2.0, class_token=False,
+           reg_tokens=1, global_pool="map", init_values=1e-5)
+_vit_extra("test_vit4", patch_size=16, img_size=160, embed_dim=96,
+           depth=9, num_heads=3, mlp_ratio=3.0, class_token=False,
+           reg_tokens=1, global_pool="avg", init_values=1e-5,
+           dynamic_img_size=True, norm_type="rmsnorm")
