@@ -389,6 +389,29 @@ JAX kernels take any float dtype):
 31. --scan_blocks on my_vit_b with the recipe's flags on one fixed batch:
     the losses of SCAN_STEPS steps bitwise equal to loop mode's.
 
+The data axis (parallel/, the trainer on W processes):
+
+32. world 1 over NCCL, in this process (RANK=0 WORLD_SIZE=1 and a free
+    MASTER_PORT, as torchrun sets them): main() on my_vit_b at b128 with
+    the recipe's flags under DDP (--mesh_shape data) and under FSDP2
+    (--param_sharding fsdp), each launching K1 and K2 as phase 9's plain
+    main() does; then WORLD1_STEPS steps of the plain, DDP and FSDP2
+    trainers on one fixed batch: K1 and K2 12 a step in each, the losses
+    equal to the plain step's (bitwise, or within WORLD1_LOSS_RTOL; which
+    is printed), and each step's median CUDA-event ms and peak memory,
+    printed with the card's name and power limit.
+33. two ranks on this card over gloo (NCCL refuses two ranks on one
+    GPU; gloo runs every collective of DDP and FSDP2 on CUDA tensors,
+    tools/probe_gloo_cuda.py): two subprocesses (gloo_rank), b64 each,
+    the recipe's my_vit_b step with the kernel route under DDP, then under
+    FSDP2, GLOO_STEPS steps on their rows of one b128 batch, against the
+    one-process b128 step on that batch in this process: every model
+    input and drop-path mask bitwise equal to its rows of the one-process
+    step's, the first step's gradients within GLOO_GRAD_REL_L2 (relative
+    L2, per tensor), the params after GLOO_STEPS steps within
+    GLOO_PARAM_ATOL, and the global losses printed beside the one-process
+    ones.
+
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
 K8, K11 or K12.
@@ -868,7 +891,8 @@ STATE_WITNESS_FACTOR = 4.0
 STATE_KD_STEPS = 2
 STATE_AB_STEPS, STATE_AB_WARMUP = 15, 3
 STATE_TIMEOUT_S = 300
-# profiler sessions a trace may take, when a session records no device event
+# profiler sessions a trace may take, when a session records no device
+# event, or (only_kernels) misses a kernel it wants and records no other
 TRACE_TRIES = 4
 # Phase 25: --precision bf16_pure on the recipe (params, grads, EMA bf16)
 BF16_PURE_FLAGS = RECIPE_FLAGS + ["--precision", "bf16_pure"]
@@ -1032,11 +1056,7 @@ def only_kernel(fn, name: str, tag: str) -> None:
     """Of the port's kernels (csrc/'s, in their sources' anonymous
     namespaces), one call of fn launches the kernel `name` alone; PyTorch's
     own kernels (the wrapper's sum of K3's partials) are not counted."""
-    names = launched_kernels(fn)
-    ours = sorted(n for n in names if "anonymous namespace" in n)
-    log(f"[{tag}] the call launched {sorted(names)}")
-    check(ours and all(name in n for n in ours),
-          f"{tag}: the call launched {ours} of csrc/, want {name} alone")
+    only_kernels(fn, [name], tag)
 
 
 def seeded_bf16(shape, seed: int, dev, dtype=None, scale: float = 1.0):
@@ -2861,15 +2881,26 @@ def check_redesigned(fa, fb, mf, dev) -> None:
 def only_kernels(fn, wants, tag) -> None:
     """Of the port's kernels (csrc/'s), fn launches exactly the kernels
     that `wants` names (substrings of their demangled names, spaces
-    ignored), each of them."""
-    names = launched_kernels(fn)
-    ours = sorted(n.replace(" ", "") for n in names
-                  if "anonymous namespace" in n)
+    ignored), each of them. A session that records a kernel of csrc/ that
+    `wants` does not name fails the check at once; one that misses some of
+    `wants` and records nothing else of csrc/ (a session has been seen to
+    drop every launch of one kernel, in a run whose other sessions recorded
+    theirs) says nothing of what fn launched, and is made again, up to
+    TRACE_TRIES sessions in all."""
     wants = [w.replace(" ", "") for w in wants]
-    log(f"[{tag}] the call launched {sorted(names)}")
-    check(ours and all(any(w in n for w in wants) for n in ours)
-          and all(any(w in n for n in ours) for w in wants),
-          f"{tag}: the call launched {ours} of csrc/, want {wants}")
+    for attempt in range(1, TRACE_TRIES + 1):
+        names = launched_kernels(fn)
+        ours = sorted(n.replace(" ", "") for n in names
+                      if "anonymous namespace" in n)
+        log(f"[{tag}] the call launched {sorted(names)}")
+        check(all(any(w in n for w in wants) for n in ours),
+              f"{tag}: the call launched {ours} of csrc/, want {wants}")
+        missed = [w for w in wants if not any(w in n for n in ours)]
+        if not missed:
+            return
+        log(f"[trace] profiler session {attempt} of {TRACE_TRIES} missed "
+            f"{missed}")
+    check(False, f"{tag}: the call launched {ours} of csrc/, want {wants}")
 
 
 def wide_route(dt_name: str, d: int, name: str = "") -> str:
@@ -4428,6 +4459,352 @@ def phase_scan(counts, dev):
     log(f"[time] phase 31 took {time.perf_counter() - t0:.1f} s")
 
 
+WORLD1_STEPS = 3
+WORLD1_LOSS_RTOL = 1e-6
+GLOO_BATCH = 64          # per rank; the one-process step takes 2 x GLOO_BATCH
+GLOO_STEPS = 2
+GLOO_TIMEOUT_S = 300
+GLOO_PARAM_ATOL = 1e-4
+# bf16 compute: the ranks' GEMMs are half as tall as the one-process
+# step's, so cuBLAS may sum in another order and round activations and
+# gradients to bf16 elsewhere
+GLOO_GRAD_REL_L2 = 2e-2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class record_draws:
+    """Within the block, the model's input of every train forward and
+    every keep mask it draws (models/layers.py::_keep_mask) are kept."""
+
+    def __init__(self, model):
+        from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+            unwrap,
+        )
+
+        self.model = unwrap(model)
+        self.inputs, self.masks = [], []
+
+    def __enter__(self):
+        from vision_transformers_torch_xla_tpu_torch.models import layers
+
+        self.layers, self.draw = layers, layers._keep_mask
+
+        def keep_mask(*args):
+            mask = self.draw(*args)
+            self.masks.append(mask.clone())
+            return mask
+
+        def pre_hook(module, args, kwargs):
+            if not (args[1] if len(args) > 1 else
+                    kwargs.get("deterministic", True)):
+                self.inputs.append(args[0].detach().clone())
+
+        layers._keep_mask = keep_mask
+        self.handle = self.model.register_forward_pre_hook(pre_hook,
+                                                           with_kwargs=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._keep_mask = self.draw
+        self.handle.remove()
+
+
+def fixed_global_batch(cfg, dev):
+    """The first batch of 2 x GLOO_BATCH of cfg's synthetic stream
+    (process 0), on `dev`."""
+    from vision_transformers_torch_xla_tpu_torch.data.loader import (
+        SyntheticDataset,
+        to_device,
+    )
+
+    ds = SyntheticDataset(2 * GLOO_BATCH, cfg.input_size, cfg.nb_classes,
+                          seed=cfg.seed)
+    return to_device(next(iter(ds)), dev)
+
+
+def phase_world1(counts, dev, plain_launches):
+    """Phase 32: the recipe's trainer over a world-1 NCCL group. Returns
+    the DDP and FSDP2 main() runs' launches and each trainer's timed
+    step."""
+    import gc
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from vision_transformers_torch_xla_tpu_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.data.loader import to_device
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+    from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+        is_fsdp,
+        unwrap,
+    )
+
+    t0 = time.perf_counter()
+    runs = {"plain": [], "ddp": ["--mesh_shape", "data"],
+            "fsdp": ["--param_sharding", "fsdp"]}
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    launches, losses, steps = {}, {}, {}
+    try:
+        for name, extra in runs.items():
+            cfg = config_from_args(RECIPE_FLAGS + extra)
+            if name != "plain":
+                # the group comes up in the first wrapped setup, from env;
+                # FSDP2's main() also saves its (gathered) checkpoint
+                os.environ.update(env)
+                out = os.path.join(REPO, "build", "smoke", "world1_fsdp")
+                shutil.rmtree(out, ignore_errors=True)
+                counts(reset=True)
+                stats = trainer.main(config_from_args(
+                    RECIPE_FLAGS + extra + (["--output_dir", out]
+                                            if name == "fsdp" else [])))
+                torch.cuda.synchronize()
+                launches[name] = counts()
+                log(f"[world1 {name}] main(): stats {stats}, launches "
+                    f"{launches[name]}")
+                check(launches[name] == plain_launches,
+                      f"{name} main() launched {launches[name]}, the plain "
+                      f"main() {plain_launches}")
+                check(dist.get_backend() == "nccl"
+                      and dist.get_world_size() == 1,
+                      f"group: {dist.get_backend()} x "
+                      f"{dist.get_world_size()}")
+            ctx = trainer.setup(cfg)
+            if name == "fsdp":
+                saved = CheckpointManager(os.path.join(
+                    out, "checkpoints")).restore_raw()["params"]
+                check({k: t.shape for k, t in saved.items()}
+                      == {k: p.shape for k, p in ctx.state.params.items()}
+                      and all(torch.isfinite(t).all()
+                              for t in saved.values()),
+                      "FSDP2's checkpoint does not hold the whole params")
+                log(f"[world1 fsdp] main()'s checkpoint holds the "
+                    f"{len(saved)} whole params")
+                del saved
+                shutil.rmtree(out)
+            wrapper = "fsdp" if is_fsdp(ctx.model) else (
+                "ddp" if unwrap(ctx.model) is not ctx.model else "plain")
+            check(wrapper == name, f"{name}: the trainer built {wrapper}")
+            images, labels = to_device(next(iter(ctx.train_ds)), dev)
+            counts(reset=True)
+            fixed = []
+            for _ in range(WORLD1_STEPS):
+                ctx.state, m = ctx.train_step(ctx.state, images, labels,
+                                              cfg.seed)
+                fixed.append(m["loss"])
+            losses[name] = torch.stack(fixed).tolist()
+            n = counts()
+            check(n == only(ATTN_FWD_LAUNCHES=12 * WORLD1_STEPS,
+                            ATTN_BWD_LAUNCHES=12 * WORLD1_STEPS),
+                  f"{name}: {WORLD1_STEPS} fixed steps launched {n}")
+            step_ms, host_ms, peak = time_steps(ctx, images, labels,
+                                                WARMUP_STEPS, TIMED_STEPS)
+            steps[name] = {"step_ms": step_ms, "host_step_ms": host_ms,
+                           "peak_mem_gib": peak / 2**30}
+            log(f"[world1 {name}] my_vit_b b{TRAIN_BATCH} recipe step on "
+                f"{nvidia_smi()}: median {step_ms!r} ms over {TIMED_STEPS} "
+                f"steps (host clock {host_ms!r} ms/step), peak memory "
+                f"{peak / 2**30!r} GiB; fixed-batch losses {losses[name]!r}")
+            del ctx, m
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    for name in ("ddp", "fsdp"):
+        same = losses[name] == losses["plain"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[name],
+                                                      losses["plain"]))
+        log(f"[world1 {name}] losses against the plain step's: "
+            f"{'bitwise equal' if same else f'max relative {rel!r}'}")
+        check(rel <= WORLD1_LOSS_RTOL, f"{name}: losses {losses[name]} vs "
+              f"the plain step's {losses['plain']}")
+    log(f"[time] phase 32 took {time.perf_counter() - t0:.1f} s")
+    return launches, steps
+
+
+def gloo_flags():
+    return RECIPE_FLAGS + ["--batch_size", str(GLOO_BATCH)]
+
+
+GLOO_WRAPPERS = {"ddp": "replicated", "fsdp": "fsdp"}
+
+
+def gloo_rank(rank: int, port: int, out: str) -> None:
+    """Phase 33's rank: DDP, then FSDP2, over gloo on cuda:0, GLOO_STEPS
+    steps each on its rows of the fixed global batch; saves what it saw
+    to out/rank<r>.pt."""
+    import datetime
+    import faulthandler
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    sys.path.insert(0, REPO)
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+    from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+        is_fsdp,
+        unwrap,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    saved = {}
+    for name, sharding in GLOO_WRAPPERS.items():
+        cfg = config_from_args(gloo_flags() + [
+            "--device", "cuda:0", "--param_sharding", sharding])
+        ctx = trainer.setup(cfg)
+        check(is_fsdp(ctx.model) if name == "fsdp" else
+              unwrap(ctx.model) is not ctx.model,
+              f"rank {rank}: the model is not under {name}")
+        got = gloo_steps(ctx, cfg, slice(rank * GLOO_BATCH,
+                                         (rank + 1) * GLOO_BATCH))
+        if rank and name == "ddp":  # rank 0 holds the same whole tensors
+            got = {k: got[k] for k in ("inputs", "masks", "losses")}
+        saved[name] = got
+        del ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(saved, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def gloo_steps(ctx, cfg, rows) -> dict:
+    """GLOO_STEPS steps of ctx on `rows` of the fixed global batch: the
+    inputs and masks seen, the global losses, this rank's part of the
+    first step's gradients and of the params after the steps (the whole
+    tensors under DDP, the dim-0 shards under FSDP2: DTensor.full_tensor
+    of uneven CUDA shards over gloo segfaults in torch 2.11, so the parent
+    puts the shards end to end), on the host."""
+    from vision_transformers_torch_xla_tpu_torch.launch.main import (
+        global_metrics,
+    )
+    from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+        local,
+    )
+
+    images, labels = fixed_global_batch(cfg, ctx.device)
+    losses = []
+    with record_draws(ctx.model) as seen:
+        for s in range(GLOO_STEPS):
+            ctx.state, m = ctx.train_step(ctx.state, images[rows],
+                                          labels[rows], cfg.seed)
+            losses.append(float(global_metrics(ctx, m)["loss"]))
+            if s == 0:
+                grads = {k: local(p.grad).float().cpu()
+                         for k, p in ctx.state.params.items()}
+    return {"inputs": [x.cpu() for x in seen.inputs],
+            "masks": [x.cpu() for x in seen.masks], "losses": losses,
+            "grads": grads, "params": {k: local(p.detach()).float().cpu()
+                                       for k, p in ctx.state.params.items()}}
+
+
+def phase_gloo(counts):
+    """Phase 33: two gloo ranks on this card against the one-process step
+    on their batches put end to end."""
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+
+    t0 = time.perf_counter()
+    out = os.path.join(REPO, "build", "smoke", "gloo")
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.gloo_rank({r}, {port}, {out!r})"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        # the one-process step on the global batch, while the ranks run
+        cfg = config_from_args(gloo_flags() + ["--batch_size",
+                                               str(2 * GLOO_BATCH)])
+        counts(reset=True)
+        ref = gloo_steps(trainer.setup(cfg), cfg, slice(None))
+        n = counts()
+        check(n == only(ATTN_FWD_LAUNCHES=12 * GLOO_STEPS,
+                        ATTN_BWD_LAUNCHES=12 * GLOO_STEPS),
+              f"the one-process reference launched {n}")
+        errs = []
+        for r, p in enumerate(procs):
+            out_r, err = p.communicate(timeout=GLOO_TIMEOUT_S)
+            errs.append(f"rank {r} exit {p.returncode}: {out_r[-2000:]}"
+                        f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"a gloo rank failed: {errs}")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+             for r in range(2)]
+    for name in GLOO_WRAPPERS:
+        for r in range(2):
+            got, rows = ranks[r][name], slice(r * GLOO_BATCH,
+                                              (r + 1) * GLOO_BATCH)
+            for kind in ("inputs", "masks"):
+                check(len(got[kind]) == len(ref[kind]),
+                      f"{name} rank {r}: {len(got[kind])} {kind}, want "
+                      f"{len(ref[kind])}")
+                for i, (a, b) in enumerate(zip(got[kind], ref[kind])):
+                    check(torch.equal(a, b[rows]),
+                          f"{name} rank {r}: {kind} {i} differs from the "
+                          f"one-process step's rows")
+        grads, params = ranks[0][name]["grads"], ranks[0][name]["params"]
+        if name == "fsdp":  # FSDP2's dim-0 shards, rank 0's first
+            other = ranks[1][name]
+            grads = {k: torch.cat([t, other["grads"][k]])
+                     for k, t in grads.items()}
+            params = {k: torch.cat([t, other["params"][k]])
+                      for k, t in params.items()}
+        grad_err = {k: float((grads[k] - g).norm()
+                             / g.norm().clamp_min(1e-30))
+                    for k, g in ref["grads"].items()}
+        param_err = {k: float((params[k] - p).abs().max())
+                     for k, p in ref["params"].items()}
+        worst_g = max(grad_err, key=grad_err.get)
+        worst_p = max(param_err, key=param_err.get)
+        log(f"[gloo {name}] 2 ranks x b{GLOO_BATCH} over gloo on one card "
+            f"against the one-process b{2 * GLOO_BATCH} step: inputs and "
+            f"drop-path masks ({len(ref['masks'])} draws a rank) bitwise "
+            f"equal; global losses {ranks[0][name]['losses']!r} (rank 1 "
+            f"{ranks[1][name]['losses']!r}) against {ref['losses']!r}; "
+            f"first-step gradients worst relative L2 {grad_err[worst_g]!r} "
+            f"({worst_g}); params after {GLOO_STEPS} steps worst "
+            f"{param_err[worst_p]!r} ({worst_p})")
+        check(grad_err[worst_g] <= GLOO_GRAD_REL_L2,
+              f"{name} gradient {worst_g}: {grad_err[worst_g]}")
+        check(param_err[worst_p] <= GLOO_PARAM_ATOL,
+              f"{name} param {worst_p}: {param_err[worst_p]}")
+    log(f"[time] phase 33 took {time.perf_counter() - t0:.1f} s")
+
+
 def counter(*names):
     """counts(reset=False) -> {COUNT: launches} of the counts named
     'module.COUNT' (modules of ops/); reset sets them to 0 first."""
@@ -4787,6 +5164,11 @@ def main() -> int:
     phase_scan(every, dev)
     log(f"[time] phases 28-31 took {time.perf_counter() - t_m2:.1f} s")
 
+    t_dp = time.perf_counter()
+    world1_launches, world1_steps = phase_world1(every, dev, train_launches)
+    phase_gloo(every)
+    log(f"[time] phases 32-33 took {time.perf_counter() - t_dp:.1f} s")
+
     f64, f128 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
     l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
@@ -5020,6 +5402,9 @@ def main() -> int:
             k["launches_siglip"] = siglip_launches[count]
             k["launches_block_types"] = {n: v[count] for n, v in
                                          block_launches.items()}
+            # phase 32's main() under DDP and FSDP2 over a world-1 group
+            k["launches_ddp"] = world1_launches["ddp"][count]
+            k["launches_fsdp"] = world1_launches["fsdp"][count]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

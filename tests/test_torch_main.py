@@ -173,7 +173,7 @@ def test_config_from_args_matches_jax():
 UNPORTED = [
     (dict(device_augment=True, data_set="wds"), "M5"),
     (dict(data_set="tfds"), "M5"), (dict(mesh_shape="data:2,model:2"), "M6"),
-    (dict(param_sharding="fsdp"), "M6"), (dict(opt="lamb"), "M7"),
+    (dict(param_sharding="sp"), "M6"), (dict(opt="lamb"), "M7"),
     (dict(update_freq=2), "M7"),
 ]
 

@@ -114,7 +114,8 @@ def test_port_imports_no_jax():
         "tools/time_fused_fwd_variants.py", "tools/time_hp_bwd_variants.py",
         "tools/time_fc2_bwd_variants.py", "tools/time_fp32_simt_variants.py",
         "tools/time_fp32_bwd_variants.py", "tools/time_fp32_fwd_variants.py",
-        "tools/time_fp32_hp_bwd_variants.py")]
+        "tools/time_fp32_hp_bwd_variants.py", "tools/probe_gloo_cuda.py",
+        "tests/torch_parallel_worker.py")]
     for root, _, names in os.walk(PORT_PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     rel = {os.path.relpath(p, PORT_PKG) for p in files}
@@ -123,7 +124,8 @@ def test_port_imports_no_jax():
             "ops/mlp_fused.py", "ops/flash_attention.py", "ops/attention.py",
             "models/vision_transformer_zoo.py", "ckpt/checkpoint.py",
             "obs/loggers.py", "obs/profiler.py", "obs/watchdog.py",
-            "models/pretrained.py", "data/device_aug.py"} <= rel
+            "models/pretrained.py", "data/device_aug.py",
+            "parallel/mesh.py", "parallel/sharding.py"} <= rel
     # the op-level attention entry points and their kernels' wrappers live
     # in the modules checked here, their CUDA sources in csrc/
     assert {"multi_head_attention", "masked_attention",

@@ -31,7 +31,12 @@ It prints one JSON line with:
     `dqkv.float().sum((0, 1))` over the (B, S, 3HD) gradient;
   * MFU against the bf16 tensor-core peak and, beside it, against the fp32
     CUDA-core peak (67 TFLOP/s), the bound of a `--precision fp32` step;
-  * peak device memory, and the card's name and power limit.
+  * peak device memory, and the card's name and power limit;
+  * the host operations with the most self time per step (the step is
+    host-bound: its wrappers' and hooks' Python shows here).
+`--param_sharding replicated` or `fsdp` runs the step under DDP or FSDP2
+over a world-1 group on the card (nccl; RANK, WORLD_SIZE and a free
+MASTER_PORT set as torchrun sets them), as the trainer wraps it.
 
 Run from the root of a checkout:
 
@@ -41,6 +46,8 @@ Run from the root of a checkout:
         [--repo build/parent]
     python tools/profile_torch_train_step.py \
         --model vit_base_patch14_dinov2 --batch 32 --steps 3
+    python tools/profile_torch_train_step.py --batch 128 \
+        --param_sharding fsdp
 """
 from __future__ import annotations
 
@@ -176,9 +183,11 @@ def profile(ctx, images, labels, seed, steps: int):
         FusedAdamW.fused_update = update
     by_kernel = {}
     for ev in prof.events():
-        # the "optimizer" range shows on the device too: not a kernel
+        # the "optimizer" range and DDP's forward range show on the
+        # device too: not kernels
         if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                ev.name != "optimizer":
+                ev.name != "optimizer" and \
+                not getattr(ev, "is_user_annotation", False):
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us()
     spans = spans[1:]  # the first call ran before the profiled steps
@@ -189,6 +198,8 @@ def profile(ctx, images, labels, seed, steps: int):
 
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    host = sorted(((e.key, e.self_cpu_time_total)
+                   for e in prof.key_averages()), key=lambda kv: -kv[1])[:15]
     return {
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
@@ -212,7 +223,9 @@ def profile(ctx, images, labels, seed, steps: int):
             or "cutlass" in n.lower()),
         "optimizer_span_ms_per_step": optimizer_ms,
         "top_kernels_ms_per_step": [[name[:90], us / steps / 1e3]
-                                    for name, us in top]}
+                                    for name, us in top],
+        "top_host_self_ms_per_step": [[name[:90], us / steps / 1e3]
+                                      for name, us in host]}
 
 
 def step(ctx, images, labels, seed) -> None:
@@ -265,6 +278,10 @@ def main():
                     help="the trainer's flag: the compute dtype")
     ap.add_argument("--repo", default=HERE,
                     help="checkout whose port is profiled (default: this one)")
+    ap.add_argument("--param_sharding", default="",
+                    choices=("", "replicated", "fsdp"),
+                    help="the trainer's flag, over a world-1 NCCL group "
+                         "(default: no group, the plain model)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_train_step: needs an NVIDIA GPU")
@@ -272,8 +289,18 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    cfg = config_from_args(recipe_flags(args.batch, args.model,
-                                        args.pallas_mlp, args.precision))
+    flags = recipe_flags(args.batch, args.model, args.pallas_mlp,
+                         args.precision)
+    if args.param_sharding:
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        flags += ["--param_sharding", args.param_sharding]
+    cfg = config_from_args(flags)
     ctx = trainer.setup(cfg)
     images, labels = to_device(next(iter(ctx.train_ds)), dev)
     saved = [getattr(mod, name) for mod, name, _ in KERNELS]
@@ -292,6 +319,7 @@ def main():
         "card": card, "tree": REPO, "model": args.model,
         "batch": args.batch, "pallas_mlp": args.pallas_mlp,
         "precision": args.precision,
+        "param_sharding": args.param_sharding or "none",
         "step_ms_kernel": times["kernel"],
         "step_ms_plain_attention": times["plain"],
         "images_per_s": ips,

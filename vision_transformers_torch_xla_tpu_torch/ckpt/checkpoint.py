@@ -20,6 +20,13 @@ becomes the newest epoch. Saves are synchronous: `wait` and `close` have
 nothing to finish. A checkpoint written on the card restores on the CPU
 and the other way round: `restore` copies into the template's tensors, on
 their device, and `restore_raw` gives CPU tensors.
+
+On W processes a checkpoint is still one global state in this format:
+rank 0 decides whether to save, every rank gathers the FSDP shards (a
+collective), rank 0 writes and rotates, and a barrier ends the save.
+Every rank restores the whole file and copies its rows into its shards
+(train/state.py), so a checkpoint crosses between a W-rank FSDP run and a
+one-process one in both directions.
 """
 from __future__ import annotations
 
@@ -30,6 +37,10 @@ import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from vision_transformers_torch_xla_tpu_torch.parallel.mesh import world
+from vision_transformers_torch_xla_tpu_torch.parallel.sharding import full
 
 log = logging.getLogger(__name__)
 
@@ -39,7 +50,7 @@ METADATA_FILE = "metadata.json"
 
 def _to_host(x):
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True)
+        return full(x.detach()).to("cpu", copy=True)
     if isinstance(x, dict):
         return {k: _to_host(v) for k, v in x.items()}
     return x
@@ -78,9 +89,21 @@ class CheckpointManager:
              metadata: Optional[dict] = None) -> bool:
         """Save `state` (a TrainState or its dict) as `epoch` if the policy
         takes it, then rotate; returns whether it saved."""
-        if not self.should_save(epoch):
+        rank, size = world()
+        decided = [self.should_save(epoch) if rank == 0 else None]
+        if size > 1:
+            dist.broadcast_object_list(decided, src=0)
+        if not decided[0]:
             return False
         host = _to_host(_as_dict(state))
+        if rank == 0:
+            self._write(epoch, host, metadata)
+        if size > 1:
+            dist.barrier()
+        return True
+
+    def _write(self, epoch: int, host: Dict[str, Any],
+               metadata: Optional[dict]) -> None:
         tmp = os.path.join(self.directory, f".tmp-{epoch}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -92,7 +115,6 @@ class CheckpointManager:
         if self.max_to_keep is not None:
             for old in self.all_epochs()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
-        return True
 
     def _resolve(self, epoch: Optional[int]) -> Optional[int]:
         return epoch if epoch is not None else self.latest_epoch()

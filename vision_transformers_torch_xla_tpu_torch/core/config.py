@@ -218,12 +218,12 @@ _COMPAT_FLAGS = {
     "--tpu": ("ignore", "the device comes from --device"),
     "--use_amp": ("map_bool", "precision"),          # true -> bf16 (default)
     "--eval": ("map_true", "eval_only"),
-    "--dist_eval": ("ignore", "the trainer runs on one device"),
+    "--dist_eval": ("ignore", "eval is always sharded over the data axis"),
     "--pin_mem": ("ignore", "the loader always pins host batches"),
-    "--world_size": ("ignore", "the trainer runs on one device"),
-    "--local_rank": ("ignore", "the trainer runs on one device"),
-    "--rank": ("ignore", "the trainer runs on one device"),
-    "--dist_url": ("ignore", "the trainer runs on one device"),
+    "--world_size": ("ignore", "topology comes from torchrun's env"),
+    "--local_rank": ("ignore", "topology comes from torchrun's env"),
+    "--rank": ("ignore", "topology comes from torchrun's env"),
+    "--dist_url": ("ignore", "rendezvous configured via torchrun's env"),
     "--dist_on_itp": ("ignore", "not applicable"),
     "--model_ema_force_cpu": ("ignore", "EMA lives on the device"),
 }

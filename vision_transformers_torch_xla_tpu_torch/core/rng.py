@@ -10,9 +10,18 @@ order) and the augmentation's erase noise draw from torch.Generators on
 the batch's device. The draws equal JAX's in distribution, not bit for
 bit: threefry and Philox never agree, so the tests feed the JAX draws
 where they compare the two.
+
+On W data-parallel processes every stream is seeded alike on every rank
+and draws for the *global* batch, as the JAX step draws for its global
+array: rank r of W takes rows [r·b, (r+1)·b) of each per-sample draw
+(`BatchShard`, `global_rand`). So a W-rank step draws what
+the one-process step draws on the ranks' batches put end to end, bit for
+bit. The per-batch draws (mixup's gate, λ and box; RandAugment's ops) are
+the same on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -49,3 +58,47 @@ def step_rngs(seed: int, step: int, device) -> StepRngs:
         model=on_device("model"),
         aug=np.random.default_rng(stream_seed(seed, step, "aug")),
         aug_noise=on_device("aug", word=1))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """This process's rows of the global batch: rank `rank` of `world`
+    holds rows [rank·b, (rank+1)·b) of a global batch of world·b."""
+
+    rank: int = 0
+    world: int = 1
+
+    def rows(self, b: int) -> slice:
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+
+_SHARD = [BatchShard()]
+
+
+def current_shard() -> BatchShard:
+    return _SHARD[-1]
+
+
+@contextlib.contextmanager
+def sharded_draws(shard: BatchShard):
+    """Within the block, the model's per-sample draws (`global_rand`) take
+    `shard`'s rows of the global batch's draw."""
+    _SHARD.append(shard)
+    try:
+        yield shard
+    finally:
+        _SHARD.pop()
+
+
+def global_rand(shape, generator: torch.Generator, device,
+                normal: bool = False) -> torch.Tensor:
+    """torch.rand (torch.randn with `normal`) of a batch-first local shape:
+    with W > 1 (`current_shard`) the rows of the draw for the global batch
+    that are this process's."""
+    fn = torch.randn if normal else torch.rand
+    shard, shape = current_shard(), tuple(shape)
+    if shard.world == 1:
+        return fn(shape, generator=generator, device=device)
+    b = shape[0]
+    return fn((b * shard.world,) + shape[1:], generator=generator,
+              device=device)[shard.rows(b)]

@@ -16,6 +16,10 @@ train/mixup.py:
     Generator on that device, or from the draw, so that a test can pass
     JAX's.
 
+On W data-parallel processes the step draws for the global batch and
+each rank applies its rows (`AugDraw.rows`; the erase noise through
+core/rng.py::global_rand), as JAX draws for its global array.
+
 Threefry and PCG64 never agree, so the tests feed the JAX draws. The op of
 each RandAugment layer is chosen per batch, as in JAX `rand_augment_batch`
 (:312-338), so it is Python control flow here, as `lax.switch` is there,
@@ -40,6 +44,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from vision_transformers_torch_xla_tpu_torch.core.rng import global_rand
 
 _F32 = np.float32
 _EPS32 = float(np.finfo(np.float32).eps)
@@ -503,6 +509,15 @@ class AugDraw:
     erase: np.ndarray            # (B, 4) fp32, sample_erase
     noise: Optional[torch.Tensor] = None
 
+    def rows(self, sl: slice) -> "AugDraw":
+        """The draws of the images in `sl` (a process's rows of the global
+        batch); `ra` belongs to the whole batch."""
+        return dataclasses.replace(
+            self, crop=self.crop[sl], flip=self.flip[sl],
+            jitter=self.jitter[sl], erase_gate=self.erase_gate[sl],
+            erase=self.erase[sl],
+            noise=None if self.noise is None else self.noise[sl])
+
 
 def sample_augment(rng: np.random.Generator, b: int,
                    cfg: DeviceAugConfig) -> AugDraw:
@@ -541,8 +556,8 @@ def apply_augment(images: torch.Tensor, draw: AugDraw, cfg: DeviceAugConfig,
     if cfg.reprob > 0 and draw.erase_gate.any():
         noise = draw.noise
         if noise is None:
-            noise = torch.randn(images.shape, generator=noise_generator,
-                                dtype=torch.float32, device=dev)
+            noise = global_rand(images.shape, noise_generator, dev,
+                                normal=True)
         images = random_erase(images, draw.erase_gate, draw.erase, noise)
     return images
 

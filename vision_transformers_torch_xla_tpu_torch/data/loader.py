@@ -10,6 +10,12 @@ chosen as the JAX source chooses at :86), `FolderDataset` (:247-308),
 and go to the card with non_blocking copies, a few steps ahead of compute.
 The TF-backed data sets (tfds, tfrecord, wds) raise NotImplementedError
 naming ROADMAP M5.
+
+Each of W data-parallel processes reads a stream of its own, as each JAX
+process does: the synthetic source seeds process i with seed + i·1_000_003
++ 1 (native) or seed + i (numpy), and the folder source reads
+samples[i::W] and reports W times its share as the example count. A
+process's `batch_size` is its own; the global batch is W times it.
 """
 from __future__ import annotations
 
@@ -58,13 +64,15 @@ class SyntheticDataset:
     """Deterministic synthetic ImageNet-shaped stream.
 
     Images are procedural (class-conditioned low-frequency patterns +
-    noise), so a model can fit them. The same seed gives the JAX source's
-    stream (one process: process index 0)."""
+    noise), so a model can fit them. The same seed and process index give
+    the JAX source's stream."""
 
     def __init__(self, batch_size: int, image_size: int = 224,
                  num_classes: int = 1000, num_examples: int = 1_281_167,
                  seed: int = 0, normalize: bool = True,
-                 mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD):
+                 mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD,
+                 process_index: int = 0):
+        self.process_index = process_index
         self.batch_size = batch_size
         self.image_size = image_size
         self.num_classes = num_classes
@@ -75,12 +83,12 @@ class SyntheticDataset:
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         if self._normalize and native.available():
-            seed = self._seed + 1
+            seed = self._seed + self.process_index * 1_000_003 + 1
             for step in itertools.count():
                 yield native.synth_batch(self.batch_size, self.image_size,
                                          self.num_classes, seed + step,
                                          mean=self._mean, std=self._std)
-        rng = np.random.default_rng(self._seed)
+        rng = np.random.default_rng(self._seed + self.process_index)
         s = self.image_size
         yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / s
         while True:
@@ -101,12 +109,13 @@ class SyntheticDataset:
 class FolderDataset:
     """A class-per-directory image tree through PIL, as the JAX source reads
     it: the same samples, order, crops and seeds, so the same tree and seed
-    give the same batches bit for bit. One process (process 0 of 1) reads
-    every sample."""
+    give the same batches bit for bit. Process i of n reads
+    samples[i::n]."""
 
     def __init__(self, root: str, batch_size: int, image_size: int = 224,
                  is_train: bool = True, seed: int = 0,
-                 mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD):
+                 mean=IMAGENET_DEFAULT_MEAN, std=IMAGENET_DEFAULT_STD,
+                 process_index: int = 0, process_count: int = 1):
         self._mean = np.asarray(mean, np.float32)
         self._std = np.asarray(std, np.float32)
         self.root = pathlib.Path(root)
@@ -117,11 +126,13 @@ class FolderDataset:
             for d in sorted(self.root.iterdir()) if d.is_dir()
             for p in sorted(d.iterdir())
             if p.suffix.lower() in (".jpg", ".jpeg", ".png")]
+        self.samples = self.samples[process_index::process_count]
         self.batch_size = batch_size
         self.image_size = image_size
         self.is_train = is_train
         self._seed = seed
-        self.info = DatasetInfo(len(self.samples), len(classes))
+        self.info = DatasetInfo(len(self.samples) * process_count,
+                                len(classes))
 
     def _load(self, path, rng: np.random.Generator) -> np.ndarray:
         """Train: a random crop of 40-100% of the area, resized to the
@@ -163,22 +174,26 @@ class FolderDataset:
             yield images.astype(np.float32), labels
 
 
-def build_dataset(cfg, is_train: bool):
+def build_dataset(cfg, is_train: bool, process_index: int = 0,
+                  process_count: int = 1):
     """(dataset, info) for cfg.data_set: `synthetic`, or `folder` from
-    --data_path (--eval_data_path, else --data_path, for eval)."""
+    --data_path (--eval_data_path, else --data_path, for eval); the stream
+    of process `process_index` of `process_count`."""
     batch = cfg.batch_size if is_train else cfg.eval_batch_size()
     mean, std = norm_constants(cfg)
     if cfg.data_set == "synthetic":
         ds = SyntheticDataset(
             batch, cfg.input_size, cfg.nb_classes,
             cfg.synthetic_train_size if is_train else cfg.synthetic_val_size,
-            seed=cfg.seed, normalize=True, mean=mean, std=std)
+            seed=cfg.seed, normalize=True, mean=mean, std=std,
+            process_index=process_index)
         return ds, ds.info
     if cfg.data_set == "folder":
         root = cfg.data_path if is_train else (cfg.eval_data_path
                                                or cfg.data_path)
         ds = FolderDataset(root, batch, cfg.input_size, is_train, cfg.seed,
-                           mean=mean, std=std)
+                           mean=mean, std=std, process_index=process_index,
+                           process_count=process_count)
         return ds, ds.info
     if cfg.data_set in TF_DATA_SETS:
         raise NotImplementedError(

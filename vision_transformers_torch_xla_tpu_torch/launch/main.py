@@ -1,8 +1,8 @@
 """Training CLI: the composition root.
 
 Counterpart of vision_transformers_torch_xla_tpu/launch/main.py (`setup`,
-`train_one_epoch`, `evaluate`, `main`; :162-521) on one device: the same
-flags (core/config.py), the same prints and the same returned dicts. As
+`train_one_epoch`, `evaluate`, `main`; :162-521): the same flags
+(core/config.py), the same prints and the same returned dicts. As
 in the JAX trainer, `--pallas_attn on`, or `auto` (the default) on the
 card, builds the model with `use_pallas_attn`, whatever the compute dtype
 (`pallas_attn_switch`): the train step then runs the attention kernels
@@ -59,8 +59,21 @@ there.
 with the JAX scan path's semantics, as the JAX trainer passes them
 (launch/main.py:202-203).
 
+Under torchrun the trainer runs one process per GPU (parallel/): the data
+axis of `--mesh_shape` is the world, `--param_sharding replicated` wraps
+the model in DDP and `fsdp` in FSDP2, and `--batch_size` is per process,
+so the global batch, the steps per epoch and the eval batches count
+batch_size x the world, as JAX counts them (launch/main.py:174-195). A
+W-rank step is the one-process step on the ranks' batches put end to
+end: the draws are rows of the global batch's, the loss and eval totals
+global. Only rank 0 prints and writes logs and checkpoints:
+
+    torchrun --nproc_per_node 2 -m \
+        vision_transformers_torch_xla_tpu_torch.launch.main --device cpu ...
+
 Options outside this slice raise NotImplementedError naming their ROADMAP
-item: the TF-backed data sets (M5) and the mesh (M6).
+item: the TF-backed data sets (M5), and the rest of the mesh (M6): a
+`model` axis, `--param_sharding sp` and a mesh smaller than the world.
 """
 from __future__ import annotations
 
@@ -86,6 +99,7 @@ from vision_transformers_torch_xla_tpu_torch.core.config import (
     config_from_args,
 )
 from vision_transformers_torch_xla_tpu_torch.core.dtypes import get_policy
+from vision_transformers_torch_xla_tpu_torch.core.rng import BatchShard
 from vision_transformers_torch_xla_tpu_torch.data.device_aug import (
     DeviceAugConfig,
     parse_aa_spec,
@@ -114,6 +128,20 @@ from vision_transformers_torch_xla_tpu_torch.obs.loggers import (
 )
 from vision_transformers_torch_xla_tpu_torch.obs.metrics import MetricLogger
 from vision_transformers_torch_xla_tpu_torch.obs.watchdog import StepWatchdog
+from vision_transformers_torch_xla_tpu_torch.parallel.mesh import (
+    check_axes,
+    create_mesh,
+    env_world,
+    init_distributed,
+    world,
+)
+from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+    all_reduce_sum,
+    is_fsdp,
+    unreached_parameters,
+    unwrap,
+    wrap_model,
+)
 from vision_transformers_torch_xla_tpu_torch.train.mixup import MixupConfig
 from vision_transformers_torch_xla_tpu_torch.train.optim import (
     create_optimizer,
@@ -151,6 +179,7 @@ class TrainerContext:
     start_epoch: int = 0
     watchdog: Optional[StepWatchdog] = None
     eval_batches: Optional[int] = None
+    shard: BatchShard = BatchShard()
 
 
 def resolve_device(device: str) -> torch.device:
@@ -166,16 +195,29 @@ def resolve_device(device: str) -> torch.device:
 
 
 def check_slice(cfg: TrainConfig) -> None:
-    """Raise, naming the ROADMAP item, on every option this slice lacks."""
-    unported = [
-        (cfg.data_set in TF_DATA_SETS, f"--data_set {cfg.data_set}", "M5"),
-        (cfg.mesh_shape != "data" or cfg.param_sharding != "replicated",
-         "a device mesh (--mesh_shape, --param_sharding)", "M6"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not in the port yet (ROADMAP {item})")
+    """Raise, naming the ROADMAP item, on every option this slice lacks:
+    the TF-backed data sets (M5); a `model` axis and --param_sharding sp
+    (M6, parallel/mesh.py::check_axes; a mesh smaller than the world raises
+    in create_mesh)."""
+    if cfg.data_set in TF_DATA_SETS:
+        raise NotImplementedError(f"--data_set {cfg.data_set} is not in the "
+                                  f"port yet (ROADMAP M5)")
+    check_axes(cfg.parse_mesh_shape(), cfg.param_sharding)
+
+
+def check_batches(cfg: TrainConfig, process_count: int,
+                  data_size: int) -> None:
+    """JAX's batch checks against the data axis (launch/main.py:175-184),
+    with its texts; --batch_size is per process."""
+    if (cfg.batch_size * process_count) % data_size:
+        raise ValueError(
+            f"global batch {cfg.batch_size * process_count} must divide "
+            f"the data mesh axis ({data_size}); adjust --batch_size")
+    if cfg.eval_batch_size() % data_size and not cfg.disable_eval:
+        raise ValueError(
+            f"eval batch {cfg.eval_batch_size()} (= batch_size x "
+            f"{cfg.eval_batch_mult}) must divide the data mesh axis "
+            f"({data_size}); adjust --eval_batch_mult")
 
 
 def device_aug_config(cfg: TrainConfig) -> DeviceAugConfig:
@@ -220,16 +262,11 @@ def load_weights_into(params, path: str, model_key: str = "model|module",
     log.info("loaded %d params from %s", n, path)
 
 
-def _explicit_resume(cfg: TrainConfig, state: TrainState,
-                     start_epoch: int):
-    """--resume (JAX launch/main.py:122-159): a checkpoints root (its
-    newest epoch), one epoch's directory in it, or a .pth (weights only).
-    Returns the epoch to start at."""
+def _explicit_resume(cfg: TrainConfig, state: TrainState) -> int:
+    """--resume of a checkpoints root (its newest epoch) or one epoch's
+    directory in it (JAX launch/main.py:122-159; `setup` loads a .pth,
+    weights only, before wrapping). Returns the epoch to start at."""
     path = cfg.resume
-    if path.endswith(WEIGHT_FILES):
-        load_weights_into(state.params, path, cfg.model_key, cfg.model_prefix)
-        log.info("resumed model weights from %s", path)
-        return start_epoch
     if not os.path.isdir(path):
         raise FileNotFoundError(f"--resume: no checkpoint at {path!r}")
     root, epoch = os.path.abspath(path), None
@@ -265,31 +302,51 @@ def build_teacher(cfg: TrainConfig, device: torch.device) -> nn.Module:
 
 def setup(cfg: TrainConfig) -> TrainerContext:
     check_slice(cfg)
-    device = resolve_device(cfg.device)
+    device = init_distributed(resolve_device(cfg.device))
+    mesh = create_mesh(cfg.parse_mesh_shape(), device)
+    rank, nproc = world()
+    check_batches(cfg, nproc, mesh.size() if mesh is not None else 1)
     policy = get_policy(cfg.precision)
     want_pallas = pallas_attn_switch(cfg.pallas_attn, device)
 
-    train_ds, info = build_dataset(cfg, is_train=True)
-    val_ds, val_info = build_dataset(cfg, is_train=False) \
+    train_ds, info = build_dataset(cfg, True, rank, nproc)
+    val_ds, val_info = build_dataset(cfg, False, rank, nproc) \
         if not cfg.disable_eval else (None, None)
-    steps_per_epoch = max(info.num_examples // cfg.batch_size, 1)
+    steps_per_epoch = max(info.num_examples // (cfg.batch_size * nproc), 1)
     eval_batches = None
     if val_info is not None:
-        eval_batches = max(val_info.num_examples // cfg.eval_batch_size(), 1)
+        eval_batches = max(val_info.num_examples //
+                           (cfg.eval_batch_size() * nproc), 1)
 
-    model = create_model(
-        cfg.model, num_classes=cfg.nb_classes, img_size=cfg.input_size,
+    model_kw = dict(
+        num_classes=cfg.nb_classes, img_size=cfg.input_size,
         drop_path_rate=cfg.drop_path, global_pool=cfg.global_pool,
         act_layer=cfg.act_layer or None,
         init_values=cfg.layer_scale_init_value or None,
         remat=cfg.grad_checkpointing, scan_blocks=cfg.scan_blocks or None,
         use_pallas_attn=want_pallas, use_pallas_mlp=cfg.pallas_mlp == "on",
-        dtype=policy.compute_dtype, param_dtype=policy.param_dtype,
-        device=device)
+        dtype=policy.compute_dtype, param_dtype=policy.param_dtype)
+    model = create_model(cfg.model, **model_kw, device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(cfg.seed))
+    # weights load into the whole tensors, before FSDP shards them
     if cfg.finetune:
         load_weights_into(dict(model.named_parameters()), cfg.finetune,
                           cfg.model_key, cfg.model_prefix)
+    if cfg.resume.endswith(WEIGHT_FILES):
+        load_weights_into(dict(model.named_parameters()), cfg.resume,
+                          cfg.model_key, cfg.model_prefix)
+        log.info("resumed model weights from %s", cfg.resume)
+    unreached = ()
+    if mesh is not None and cfg.param_sharding == "replicated":
+        # which parameters no gradient reaches, from a forward and backward
+        # of the same configuration on the meta device (no kernels)
+        unreached = unreached_parameters(
+            create_model(cfg.model, **{**model_kw, "use_pallas_attn": False,
+                                       "use_pallas_mlp": False},
+                         device="meta"),
+            (2, cfg.input_size, cfg.input_size, 3))
+    model = wrap_model(model, mesh, cfg.param_sharding, unreached)
+    net = unwrap(model)
 
     lr_fn = cosine_schedule_fn(cfg.lr, cfg.min_lr, cfg.epochs,
                                steps_per_epoch,
@@ -301,14 +358,15 @@ def setup(cfg: TrainConfig) -> TrainerContext:
             cfg.weight_decay_end != cfg.weight_decay:
         wd_fn = cosine_schedule_fn(cfg.weight_decay, cfg.weight_decay_end,
                                    cfg.epochs, steps_per_epoch)
-    params = dict(model.named_parameters())
+    # after wrapping: under FSDP the params, moments and EMA are shards
+    params = dict(net.named_parameters())
     tx = create_optimizer(
         cfg.opt, lr_fn, params, weight_decay=cfg.weight_decay,
         weight_decay_schedule=wd_fn, opt_eps=cfg.opt_eps,
         opt_betas=cfg.opt_betas, clip_grad=cfg.clip_grad, layer_decay=cfg.layer_decay,
-        model_depth=len(model.blocks), update_freq=cfg.update_freq,
+        model_depth=len(net.blocks), update_freq=cfg.update_freq,
         ema_decay=cfg.model_ema_decay if cfg.model_ema else None)
-    state = create_train_state(model, tx, with_ema=cfg.model_ema)
+    state = create_train_state(net, tx, with_ema=cfg.model_ema)
 
     mix = MixupConfig(
         mixup_alpha=cfg.mixup, cutmix_alpha=cfg.cutmix, prob=cfg.mixup_prob,
@@ -324,8 +382,8 @@ def setup(cfg: TrainConfig) -> TrainerContext:
 
     ckpt = None
     start_epoch = cfg.start_epoch
-    if cfg.resume:
-        start_epoch = _explicit_resume(cfg, state, start_epoch)
+    if cfg.resume and not cfg.resume.endswith(WEIGHT_FILES):
+        start_epoch = _explicit_resume(cfg, state)
     if cfg.output_dir and cfg.save_ckpt:
         ckpt = CheckpointManager(
             os.path.abspath(os.path.join(cfg.output_dir, "checkpoints")),
@@ -336,13 +394,15 @@ def setup(cfg: TrainConfig) -> TrainerContext:
             if restored is not None:
                 start_epoch = epoch
                 log.info("auto-resumed at epoch %d", start_epoch)
+    shard = BatchShard(rank, nproc)
     return TrainerContext(
         cfg=cfg, device=device, model=model, state=state,
-        train_step=make_train_step(model, tx, step_cfg, teacher),
+        train_step=make_train_step(model, tx, step_cfg, teacher,
+                                   shard=shard),
         eval_step=make_eval_step(model), train_ds=train_ds, val_ds=val_ds,
         steps_per_epoch=steps_per_epoch, loggers=build_loggers(cfg),
         ckpt=ckpt, teacher=teacher, start_epoch=start_epoch,
-        eval_batches=eval_batches)
+        eval_batches=eval_batches, shard=shard)
 
 
 def train_one_epoch(ctx: TrainerContext, epoch: int,
@@ -381,26 +441,39 @@ def train_one_epoch(ctx: TrainerContext, epoch: int,
         if ctx.watchdog is not None:
             ctx.watchdog.beat()
         if i % cfg.log_freq == 0 or i == n_steps - 1:
-            host = {k: float(v) for k, v in metrics.items()}
+            host = {k: float(v)
+                    for k, v in global_metrics(ctx, metrics).items()}
             logger.update(**host)
-            ips = cfg.batch_size * (i + 1) / (time.time() - t0)
-            print(f"epoch {epoch} [{i}/{n_steps}] "
-                  f"loss {host['loss']:.4f} lr {host.get('lr', 0):.2e} "
-                  f"grad_norm {host.get('grad_norm', 0):.2f} "
-                  f"({ips:.0f} img/s)", flush=True)
+            if is_main_process():
+                ips = cfg.batch_size * ctx.shard.world * (i + 1) / \
+                    (time.time() - t0)
+                print(f"epoch {epoch} [{i}/{n_steps}] "
+                      f"loss {host['loss']:.4f} lr {host.get('lr', 0):.2e} "
+                      f"grad_norm {host.get('grad_norm', 0):.2f} "
+                      f"({ips:.0f} img/s)", flush=True)
             if "tb" in ctx.loggers:
                 ctx.loggers["tb"].update(head="train",
                                          step=epoch * n_steps + i, **host)
     if tracing:  # the epoch is shorter than the profile window
         window.close()
         print(f"profile trace written to {profile_dir}", flush=True)
+    logger.synchronize_between_processes()
     return {f"train_{k}": m.global_avg for k, m in logger.meters.items()}
+
+
+def global_metrics(ctx: TrainerContext, metrics: dict) -> dict:
+    """The step's metrics over the global batch: the ranks' mean of the
+    loss, in one all-reduce (the grad norm and lr are every rank's)."""
+    if ctx.shard.world == 1:
+        return metrics
+    loss = all_reduce_sum({"loss": metrics["loss"]})["loss"]
+    return {**metrics, "loss": loss / ctx.shard.world}
 
 
 def evaluate(ctx: TrainerContext, use_ema: bool = False,
              max_batches: Optional[int] = None) -> dict:
-    """Eval pass: top-1/top-5/loss summed on the device, read once at the
-    end."""
+    """Eval pass: top-1/top-5/loss summed on the device, summed over the
+    ranks in one all-reduce and read once at the end."""
     params = ctx.state.ema_params if use_ema else ctx.state.params
     if max_batches is None:
         max_batches = ctx.eval_batches
@@ -414,6 +487,8 @@ def evaluate(ctx: TrainerContext, use_ema: bool = False,
         m = ctx.eval_step(params, images, labels)
         for k in keys:
             totals[k] += m[k]
+    if ctx.shard.world > 1:
+        totals = all_reduce_sum(totals)
     totals = {k: float(v) for k, v in totals.items()}
     n = max(totals["count"], 1.0)
     prefix = "ema_" if use_ema else ""
@@ -429,13 +504,22 @@ def main(cfg: TrainConfig, max_steps_per_epoch: Optional[int] = None,
         max_steps_per_epoch = cfg.limit_steps_per_epoch
     if max_eval_batches is None and cfg.limit_eval_batches:
         max_eval_batches = cfg.limit_eval_batches
-    print(f"config: {cfg}", flush=True)
+    if world()[0] == 0 and env_world()[0] == 0:
+        print(f"config: {cfg}", flush=True)
     ctx = setup(cfg)
-    print(f"devices: 1 (1 processes): {ctx.device}", flush=True)
+    main_process = is_main_process()
+    if main_process:
+        n = ctx.shard.world
+        wrapper = "FSDP2" if is_fsdp(ctx.model) else \
+            "DDP" if unwrap(ctx.model) is not ctx.model else "no wrapper"
+        print(f"devices: {n} ({n} processes, {wrapper}): {ctx.device}",
+              flush=True)
 
     if cfg.eval_only:
         stats = evaluate(ctx, max_batches=max_eval_batches)
-        print(f"eval: top-1 {stats['acc1']:.2f}% top-5 {stats['acc5']:.2f}%")
+        if main_process:
+            print(f"eval: top-1 {stats['acc1']:.2f}% top-5 "
+                  f"{stats['acc5']:.2f}%")
         return stats
 
     watchdog = StepWatchdog(timeout_s=900.0).start()
@@ -454,8 +538,9 @@ def main(cfg: TrainConfig, max_steps_per_epoch: Optional[int] = None,
                 max_accuracy = max(max_accuracy, eval_stats["acc1"])
                 stats.update(eval_stats)
                 stats["max_accuracy"] = max_accuracy
-                print(f"epoch {epoch}: top-1 {eval_stats['acc1']:.2f}% "
-                      f"(best {max_accuracy:.2f}%)", flush=True)
+                if main_process:
+                    print(f"epoch {epoch}: top-1 {eval_stats['acc1']:.2f}% "
+                          f"(best {max_accuracy:.2f}%)", flush=True)
             if ctx.ckpt is not None:
                 ctx.ckpt.save(epoch, ctx.state, metadata={"epoch": epoch})
             ctx.loggers["jsonl"].log(stats)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vision_transformers_torch_xla_tpu_torch.core.rng import global_rand
 from vision_transformers_torch_xla_tpu_torch.ops.attention import (
     reference_attention,
 )
@@ -70,9 +71,11 @@ def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 def _keep_mask(shape, rate: float, generator: Optional[torch.Generator],
                device) -> torch.Tensor:
+    """The keep mask of a batch-first `shape`: on W data-parallel processes
+    this process's rows of the global batch's draw (core/rng.py)."""
     if generator is None:
         raise ValueError("a stochastic layer needs an explicit torch.Generator")
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    return global_rand(shape, generator, device) < 1.0 - rate
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,

@@ -23,6 +23,11 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from vision_transformers_torch_xla_tpu_torch.core.rng import (
+    current_shard,
+    global_rand,
+    sharded_draws,
+)
 from vision_transformers_torch_xla_tpu_torch.models.layers import (
     BLOCK_TYPES,
     AttentionPoolLatent,
@@ -66,13 +71,15 @@ def remat_block(block: nn.Module, x: torch.Tensor, deterministic: bool,
     save. So the generator's state is taken before the block, the recompute
     runs from it, and the generator is then put back where the recompute
     found it: the backward sees the forward's masks, as JAX's functional
-    keys give them under remat."""
+    keys give them under remat. The recompute also takes the forward's
+    rows of the global batch's draws (core/rng.py::BatchShard)."""
     context_fn = ckpt.noop_context_fn
     if policy == "dots":
         def context_fn():
             return ckpt.create_selective_checkpoint_contexts(_save_dense)
     replay = None if deterministic or generator is None \
         else generator.get_state()
+    shard = current_shard()
     calls = [0]
 
     def run(x):
@@ -82,7 +89,8 @@ def remat_block(block: nn.Module, x: torch.Tensor, deterministic: bool,
         now = generator.get_state()
         generator.set_state(replay)
         try:
-            return block(x, deterministic, generator)
+            with sharded_draws(shard):
+                return block(x, deterministic, generator)
         finally:
             generator.set_state(now)
 
@@ -230,7 +238,7 @@ class VisionTransformer(nn.Module):
         prefix, patches = x[:, :npt], x[:, npt:]
         b, n, d = patches.shape
         keep = max(1, int(n * (1.0 - self.patch_drop_rate)))
-        scores = torch.rand((b, n), generator=generator, device=x.device)
+        scores = global_rand((b, n), generator, x.device)
         idx = scores.argsort(dim=-1)[:, :keep]
         kept = patches.gather(1, idx[..., None].expand(b, keep, d))
         return torch.cat([prefix, kept], dim=1) if npt else kept

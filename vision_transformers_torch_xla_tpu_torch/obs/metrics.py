@@ -3,8 +3,9 @@
 Counterpart of vision_transformers_torch_xla_tpu/obs/metrics.py, as far as
 the trainer uses it: `SmoothedValue` (the window's median and the global
 average) and `MetricLogger` (a dict of them). Meters are fed from device
-scalars pulled only at log_freq. The trainer runs on one device, so there
-is nothing to reduce across processes. `vit_train_flops_per_image` is
+scalars pulled only at log_freq. `synchronize_between_processes` sums
+each meter's [count, total] over the ranks of a torch.distributed group
+(JAX :36-47). `vit_train_flops_per_image` is
 bench.py's analytic count (:40-52), the numerator of MFU.
 """
 from __future__ import annotations
@@ -13,6 +14,8 @@ import collections
 from typing import Dict
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 
 class SmoothedValue:
@@ -29,6 +32,18 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self):
+        """All-reduce [count, total] across processes (JAX :36-47)."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend() == "nccl" else torch.device("cpu")
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device=dev)
+        dist.all_reduce(t)
+        self.count = int(t[0].item())
+        self.total = float(t[1].item())
 
     @property
     def median(self) -> float:
@@ -54,6 +69,10 @@ class MetricLogger:
         for k, v in kwargs.items():
             if v is not None:
                 self.meters[k].update(float(v))
+
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
 
     def __str__(self):
         return self.delimiter.join(f"{n}: {m}" for n, m in self.meters.items())

@@ -17,12 +17,23 @@ in place keeps one copy of each). A hand-written fused optimizer kernel is
 a later performance step (ROADMAP). The step count and the learning rate
 live on the host, so the update makes no device round trip; the grad norm
 stays a device scalar.
+
+Under FSDP (parallel/sharding.py) the params, grads, moments and EMA are
+DTensor shards: the update runs on each rank's local shards, and the
+global norm sums the shards' squares in one all-reduce, so the clip sees
+the whole gradient's norm. The `mask` and `scales` stay keyed by name.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
+import torch.distributed as dist
+
+from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+    is_sharded,
+    local,
+)
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -76,10 +87,11 @@ class FusedAdamW:
             gscale = torch.clamp(self.clip_grad / (norm + 1e-16), max=1.0)
         decay = ema is not None and self.ema_decay is not None
         for k, p in params.items():
-            g = grads[k].float()
+            p = local(p)
+            g = local(grads[k]).float()
             if gscale is not None:
                 g = g * gscale
-            m, v = state["mu"][k], state["nu"][k]
+            m, v = local(state["mu"][k]), local(state["nu"][k])
             m.mul_(b1).add_(g, alpha=1.0 - b1)
             v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
             upd = (m * c1) / ((v * c2).sqrt_() + self.eps)
@@ -89,7 +101,7 @@ class FusedAdamW:
             step = -lr * (self.scales[k] if self.scales is not None else 1.0)
             p.copy_(p32.add_(upd, alpha=step))
             if decay:
-                e = ema[k]
+                e = local(ema[k])
                 e.copy_(e.float().mul_(self.ema_decay).add_(
                     p32, alpha=1.0 - self.ema_decay))
         state["count"] = t
@@ -97,6 +109,13 @@ class FusedAdamW:
 
 
 def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """√Σ‖g‖² in fp32, as a device scalar."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads.values()]))
+    """√Σ‖g‖² in fp32, as a device scalar; over DTensor shards, the shards'
+    summed squares all-reduced over their mesh first."""
+    first = next(iter(grads.values()))
+    if not is_sharded(first):
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads.values()]))
+    squares = torch.stack([torch.linalg.vector_norm(local(g).float()) ** 2
+                           for g in grads.values()]).sum()
+    dist.all_reduce(squares, group=first.device_mesh.get_group())
+    return squares.sqrt()

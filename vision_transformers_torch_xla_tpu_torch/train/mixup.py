@@ -9,12 +9,18 @@ Python numbers, so the device work needs no host sync, and a test can feed
 the JAX draws to `apply_mixup`. Semantics are timm's: pairing with the
 batch flip, cut = int(h·√(1−λ)), a uniform centre, a clipped box, and λ
 corrected from the box area (mixup.py:79-100).
+
+On W data-parallel processes the pairing is the *global* batch's flip, as
+JAX pairs the rows of its global array: global row g = r·b + i mixes with
+row N−1−g, which is rank W−1−r's row b−1−i. `apply_mixup` takes the flip
+as `flip`; the train step passes parallel/sharding.py::global_flip, one
+exchange with that rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,12 +85,19 @@ def sample_mixup(rng: np.random.Generator, h: int, w: int,
     return MixupDraw(apply, cutmix, lam, box)
 
 
+def batch_flip(images: torch.Tensor, targets: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return images.flip(0), targets.flip(0)
+
+
 def apply_mixup(images: torch.Tensor, targets: torch.Tensor,
-                draw: MixupDraw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mix NHWC images and soft targets with their batch flip."""
+                draw: MixupDraw, flip: Optional[Callable] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mix NHWC images and soft targets with their partners: `flip(images,
+    targets)` gives the partners' rows (the batch flip by default)."""
     if not draw.apply:
         return images, targets
-    flipped = images.flip(0)
+    flipped, flipped_t = (flip or batch_flip)(images, targets)
     if draw.cutmix:
         y0, y1, x0, x1 = draw.box
         mixed = images.clone()
@@ -95,15 +108,16 @@ def apply_mixup(images: torch.Tensor, targets: torch.Tensor,
         lam = draw.lam
         mixed = (images.float() * lam + flipped.float() * (1.0 - lam)
                  ).to(images.dtype)
-    return mixed, targets * lam + targets.flip(0) * (1.0 - lam)
+    return mixed, targets * lam + flipped_t * (1.0 - lam)
 
 
 def mixup_cutmix(rng: np.random.Generator, images: torch.Tensor,
-                 labels: torch.Tensor, cfg: MixupConfig
+                 labels: torch.Tensor, cfg: MixupConfig,
+                 flip: Optional[Callable] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample, then apply: (mixed images, fp32 soft targets)."""
     targets = smoothed_one_hot(labels, cfg.num_classes, cfg.label_smoothing)
     if not cfg.enabled:
         return images, targets
     draw = sample_mixup(rng, images.shape[1], images.shape[2], cfg)
-    return apply_mixup(images, targets, draw)
+    return apply_mixup(images, targets, draw, flip)

@@ -7,7 +7,10 @@ the host, so no step reads it back from the device.
 
 A checkpoint holds `state_dict()`, a dict view of the four fields (JAX
 ckpt/checkpoint.py::_as_dict); `load_state_dict` copies one back into the
-live tensors, so the model keeps training the tensors it holds.
+live tensors, so the model keeps training the tensors it holds. Under
+FSDP the live tensors are DTensor shards: `state_dict()` still holds them,
+the checkpoint gathers them (ckpt/checkpoint.py), and `load_state_dict`
+copies each rank's rows of a whole saved tensor into its shard.
 """
 from __future__ import annotations
 
@@ -16,6 +19,11 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
+
+from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+    copy_full_into,
+    local,
+)
 
 
 @dataclasses.dataclass
@@ -57,7 +65,7 @@ def _copy_into(live, saved, path: str):
             raise ValueError(
                 f"checkpoint {path}: {getattr(saved, 'shape', type(saved))} "
                 f"does not fit the live {tuple(live.shape)}")
-        live.copy_(saved)
+        copy_full_into(live, saved)
         return live
     if isinstance(live, Mapping):
         if not isinstance(saved, Mapping) or set(saved) != set(live):
@@ -89,4 +97,5 @@ def ema_update(ema_params: Mapping[str, torch.Tensor],
                params: Mapping[str, torch.Tensor], decay: float) -> None:
     """ema <- ema·d + p·(1−d), in place."""
     for k, e in ema_params.items():
-        e.mul_(decay).add_(params[k].to(e.dtype), alpha=1.0 - decay)
+        local(e).mul_(decay).add_(local(params[k]).to(e.dtype),
+                                  alpha=1.0 - decay)

@@ -9,6 +9,13 @@ backward, then the fused AdamW + EMA update. On the card the
 attention forward and backward are the port's kernels
 (ops/flash_attention.py). Metrics come back as device scalars; the caller
 reads them only at log_freq (steps.py:11-13).
+
+On W data-parallel processes (parallel/) the step takes `shard`, this
+rank's place in the global batch: every per-sample draw is its rows of the
+global batch's draw and mixup pairs across ranks (core/rng.py,
+parallel/sharding.py::global_flip), so the step is the JAX step on the
+global batch. DDP or FSDP averages the gradients; the metrics are this
+rank's, and the caller reduces them when it reads them.
 """
 from __future__ import annotations
 
@@ -18,12 +25,22 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from vision_transformers_torch_xla_tpu_torch.core.rng import step_rngs
+from vision_transformers_torch_xla_tpu_torch.core.rng import (
+    BatchShard,
+    sharded_draws,
+    step_rngs,
+)
 from vision_transformers_torch_xla_tpu_torch.data.device_aug import (
     AugDraw,
     DeviceAugConfig,
     apply_augment,
     sample_augment,
+)
+from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+    global_flip,
+    is_fsdp,
+    params_swapped_in,
+    unwrap,
 )
 from vision_transformers_torch_xla_tpu_torch.train.losses import (
     cross_entropy,
@@ -59,7 +76,8 @@ class StepConfig:
 
 def make_train_step(model: nn.Module, tx, cfg: StepConfig,
                     teacher: Optional[nn.Module] = None,
-                    second_order: bool = False) -> Callable:
+                    second_order: bool = False,
+                    shard: BatchShard = BatchShard()) -> Callable:
     """Returns train_step(state, images, labels, seed, mixup_draw=None,
     aug_draw=None).
 
@@ -69,44 +87,50 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
     the JAX draws). With `cfg.device_aug` the batch is augmented before
     mixup, as in JAX (steps.py:71-77). With `teacher`, the KD loss mixes
     in its logits (launch/main.py::build_teacher builds the teacher from
-    --teacher_model and --teacher_path)."""
+    --teacher_model and --teacher_path). `shard` places the batch in the
+    global batch of W ranks; a fed `aug_draw` holds this rank's rows."""
     if second_order:
         raise NotImplementedError(
             "second-order optimizers (adahessian) are not in the port yet "
             "(ROADMAP M7)")
+    flip = global_flip(shard) if shard.world > 1 else None
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor, seed: int,
                    mixup_draw: Optional[MixupDraw] = None,
                    aug_draw: Optional[AugDraw] = None):
         rngs = step_rngs(seed, state.step, images.device)
-        if cfg.device_aug is not None:
-            if aug_draw is None:
-                aug_draw = sample_augment(rngs.aug, images.shape[0],
-                                          cfg.device_aug)
-            images = apply_augment(images, aug_draw, cfg.device_aug,
-                                   rngs.aug_noise)
-        if mixup_draw is not None:
-            images, targets = apply_mixup(
-                images, smoothed_one_hot(labels, cfg.mixup.num_classes,
-                                         cfg.mixup.label_smoothing),
-                mixup_draw)
-        elif cfg.mixup.enabled:
-            images, targets = mixup_cutmix(rngs.mixup, images, labels,
-                                           cfg.mixup)
-        else:
-            targets = smoothed_one_hot(labels, cfg.num_classes,
-                                       cfg.label_smoothing)
-        for p in state.params.values():
-            p.grad = None
-        logits = model(images, deterministic=False, generator=rngs.model)
-        loss = soft_target_cross_entropy(logits, targets)
-        if teacher is not None:
-            with torch.no_grad():
-                t_logits = teacher(images, deterministic=True)
-            loss = distillation_loss(logits, t_logits, loss, cfg.kd_alpha,
-                                     cfg.kd_temperature)
-        loss.backward()
+        b = images.shape[0]
+        with sharded_draws(shard):
+            if cfg.device_aug is not None:
+                if aug_draw is None:
+                    aug_draw = sample_augment(
+                        rngs.aug, b * shard.world,
+                        cfg.device_aug).rows(shard.rows(b))
+                images = apply_augment(images, aug_draw, cfg.device_aug,
+                                       rngs.aug_noise)
+            if mixup_draw is not None:
+                images, targets = apply_mixup(
+                    images, smoothed_one_hot(labels, cfg.mixup.num_classes,
+                                             cfg.mixup.label_smoothing),
+                    mixup_draw, flip)
+            elif cfg.mixup.enabled:
+                images, targets = mixup_cutmix(rngs.mixup, images, labels,
+                                               cfg.mixup, flip)
+            else:
+                targets = smoothed_one_hot(labels, cfg.num_classes,
+                                           cfg.label_smoothing)
+            for p in state.params.values():
+                p.grad = None
+            logits = model(images, deterministic=False,
+                           generator=rngs.model)
+            loss = soft_target_cross_entropy(logits, targets)
+            if teacher is not None:
+                with torch.no_grad():
+                    t_logits = teacher(images, deterministic=True)
+                loss = distillation_loss(logits, t_logits, loss,
+                                         cfg.kd_alpha, cfg.kd_temperature)
+            loss.backward()
         grads = {k: p.grad for k, p in state.params.items()}
         grad_norm = tx.fused_update(grads, state.opt_state, state.params,
                                     state.ema_params)
@@ -126,12 +150,20 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
 
 def make_eval_step(model: nn.Module) -> Callable:
     """eval_step(params, images, labels) -> summable metric dict (top1,
-    top5, count, loss_sum) for the given params, plain or EMA."""
+    top5, count, loss_sum) for the given params, plain or EMA. Under DDP
+    the model inside runs alone; under FSDP the params are swapped into
+    the shards, the root's gathered params freed after the forward."""
+    net, fsdp = unwrap(model), is_fsdp(model)
 
-    @torch.inference_mode()
+    @(torch.no_grad if fsdp else torch.inference_mode)()
     def eval_step(params: Dict[str, torch.Tensor], images: torch.Tensor,
                   labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        logits = torch.func.functional_call(model, params, (images, True))
+        if fsdp:
+            with params_swapped_in(model, params):
+                logits = model(images, True)
+                model.reshard()
+        else:
+            logits = torch.func.functional_call(net, params, (images, True))
         metrics = topk_correct(logits, labels, ks=(1, 5))
         metrics["loss_sum"] = cross_entropy(logits, labels) * labels.shape[0]
         return metrics
