@@ -412,6 +412,19 @@ The data axis (parallel/, the trainer on W processes):
     GLOO_PARAM_ATOL, and the global losses printed beside the one-process
     ones.
 
+The rest of the input pipeline (data/wds.py, data/tfrecord.py):
+
+34. webdataset shards: WDS_SHARDS even tar shards of WDS_PER_SHARD seeded
+    JPEGs of 256-320 px (phase 27's images) written under build/smoke/wds
+    (removed at the end); main() on my_vit_b with the recipe's flags and
+    --data_set wds on their brace range for 3 steps and 2 eval batches (K1
+    and K2 as in phase 9; where native/libvtx_io.so does not load, as on a
+    machine without libjpeg, the shards decode through PIL); then one epoch
+    of the train set's WdsDataset alone, its images/s on this host printed
+    beside phase 9's recipe step images/s, with the card's name and power
+    limit; and, where TensorFlow is not installed, --data_set tfrecord
+    must raise ImportError naming it.
+
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
 K8, K11 or K12.
@@ -425,8 +438,9 @@ per bf16 kernel and one per fp32 and fp16 instantiation (name
 'kernel[dtype]'), whose bound takes the 67 TFLOP/s fp32 CUDA-core peak and
 4-byte elements for fp32, 989 TFLOP/s and 2-byte elements for fp16, and
 one per instantiation at D 256 ('kernel[dtype,d256]'). K1's and K2's
-lines also carry the launches of phases 29-30's main() runs
-(launches_siglip, launches_block_types), K4's, K5's and K6's those of
+lines also carry the launches of phases 29-30's, 32's and 34's main()
+runs (launches_siglip, launches_block_types, launches_ddp,
+launches_fsdp, launches_wds), K4's, K5's and K6's those of
 phase 28's (launches_reg4, launches_reg4_remat). The fp16 K4, K5
 and K6 lines and the bf16 and fp16 K4, K5 and K6 lines at D 256 carry
 phase 17d's worst edge error (max_rel_err_edges), and those at D 256 its
@@ -919,6 +933,9 @@ AUG_QUANTIZING = ("Posterize", "Solarize", "SolarizeAdd", "Equalize",
 # (FOLDER_CLASSES x FOLDER_PER_CLASS, 256-320 px): 4 steps of b128 an epoch
 FOLDER_CLASSES, FOLDER_PER_CLASS = 4, 128
 FOLDER_AB_ROUNDS = 2
+# Phase 34: even webdataset shards, 3 steps of b128 and 2 eval batches of
+# b192 an epoch (the shards' count, extrapolated from the first, is 384)
+WDS_SHARDS, WDS_PER_SHARD = 4, 96
 # Phases 28-31, the rest of the ViT. Phase 28: the reg4 DINOv2 at 518 px
 # (4 register tokens, no_embed_class: S = 1374 on K4-K6); its goldens
 # (tests/data/, made by tools/make_torch_port_golden.py and
@@ -4196,26 +4213,62 @@ def phase_aug(dev):
     return out
 
 
-def write_folder(root: str, seed: int = 0) -> str:
-    """FOLDER_CLASSES x FOLDER_PER_CLASS seeded JPEGs of 256-320 px: smooth
-    colour fields (an 8-bit grid upsampled) with a little noise."""
+def smooth_jpeg(rng) -> bytes:
+    """One seeded JPEG of 256-320 px: a smooth colour field (an 8-bit grid
+    upsampled) with a little noise."""
+    import io
+
     import numpy as np
     from PIL import Image
+
+    h, w = (int(v) for v in rng.integers(256, 321, 2))
+    grid = rng.integers(0, 256, (h // 32 + 1, w // 32 + 1, 3),
+                        dtype=np.uint8)
+    img = np.asarray(Image.fromarray(grid).resize(
+        (w, h), Image.Resampling.BILINEAR), np.int16)
+    img += rng.integers(-8, 9, img.shape, dtype=np.int16)
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+        buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def write_folder(root: str, seed: int = 0) -> str:
+    """FOLDER_CLASSES x FOLDER_PER_CLASS seeded JPEGs (smooth_jpeg)."""
+    import numpy as np
 
     rng = np.random.default_rng(seed)
     for c in range(FOLDER_CLASSES):
         d = os.path.join(root, f"class{c}")
         os.makedirs(d, exist_ok=True)
         for i in range(FOLDER_PER_CLASS):
-            h, w = (int(v) for v in rng.integers(256, 321, 2))
-            grid = rng.integers(0, 256, (h // 32 + 1, w // 32 + 1, 3),
-                                dtype=np.uint8)
-            img = np.asarray(Image.fromarray(grid).resize(
-                (w, h), Image.Resampling.BILINEAR), np.int16)
-            img += rng.integers(-8, 9, img.shape, dtype=np.int16)
-            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
-                os.path.join(d, f"{i:03d}.jpg"), quality=90)
+            with open(os.path.join(d, f"{i:03d}.jpg"), "wb") as f:
+                f.write(smooth_jpeg(rng))
     return root
+
+
+def write_wds(root: str, seed: int = 0) -> str:
+    """WDS_SHARDS tar shards of WDS_PER_SHARD seeded JPEGs (smooth_jpeg)
+    and their .cls files, labels 0-999; returns their brace range."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for s in range(WDS_SHARDS):
+        with tarfile.open(os.path.join(root, f"train-{s:04d}.tar"),
+                          "w") as tar:
+            for i in range(WDS_PER_SHARD):
+                key = f"{s:04d}{i:05d}"
+                for ext, data in (
+                        ("jpg", smooth_jpeg(rng)),
+                        ("cls", str(int(rng.integers(0, 1000))).encode())):
+                    info = tarfile.TarInfo(f"{key}.{ext}")
+                    info.size = len(data)
+                    tar.addfile(info, io.BytesIO(data))
+    return os.path.join(root, f"train-{{0000..{WDS_SHARDS - 1:04d}}}.tar")
 
 
 def phase_folder_aug(counts, dev):
@@ -4805,6 +4858,83 @@ def phase_gloo(counts):
     log(f"[time] phase 33 took {time.perf_counter() - t0:.1f} s")
 
 
+def phase_wds(counts, dev, phase9_step):
+    """Phase 34: main() on my_vit_b with the recipe's flags on webdataset
+    shards the phase writes; the WdsDataset iterator's host rate beside
+    phase 9's step; --data_set tfrecord without TensorFlow. Returns
+    main()'s launches."""
+    import importlib.util
+    import math
+    import shutil
+
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.data import native
+    from vision_transformers_torch_xla_tpu_torch.data.loader import (
+        build_dataset,
+    )
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "smoke", "wds")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    spec = write_wds(root)
+    decoder = "native/libvtx_io.so's pool" if native.available() else "PIL"
+    log(f"[wds] wrote {WDS_SHARDS} shards x {WDS_PER_SHARD} JPEGs as {spec} "
+        f"in {time.perf_counter() - t0:.1f} s; they decode through "
+        f"{decoder}")
+    flags = RECIPE_FLAGS + ["--data_set", "wds", "--data_path", spec]
+    cfg = config_from_args(flags)
+    counts(reset=True)
+    t0 = time.perf_counter()
+    stats = trainer.main(cfg)
+    torch.cuda.synchronize()
+    launches = counts()
+    log(f"[wds] main() --data_set wds: {time.perf_counter() - t0:.3f} s, "
+        f"stats {stats}, launches {launches}")
+    check(all(isinstance(v, (int, float)) and math.isfinite(v)
+              for v in stats.values()), f"stats not finite: {stats}")
+    check(stats["count"] == EVAL_BATCHES * cfg.eval_batch_size(),
+          f"evaluated {stats['count']} images")
+
+    # the train set's iterator alone: one epoch of host decode, crop,
+    # resize, flip and normalization, no step
+    ds, info = build_dataset(cfg, True)
+    t0 = time.perf_counter()
+    n = sum(len(labels) for _, labels in ds)
+    took = time.perf_counter() - t0
+    check(n == info.num_examples // cfg.batch_size * cfg.batch_size,
+          f"one epoch of the wds train set gave {n} images")
+    log(f"[wds] on {nvidia_smi()}: the WdsDataset train iterator ({decoder}, "
+        f"{os.cpu_count()} host cores) {n / took!r} images/s ({n} images in "
+        f"{took!r} s); phase 9's my_vit_b b{TRAIN_BATCH} recipe step "
+        f"{phase9_step['images_per_s']!r} images/s on a fixed device batch")
+
+    # the tf.data sources need TensorFlow, which this machine may lack
+    if importlib.util.find_spec("tensorflow") is None:
+        tfr = config_from_args(RECIPE_FLAGS + [
+            "--data_set", "tfrecord", "--data_path",
+            os.path.join(root, "train-*.tfrecord")])
+        try:
+            build_dataset(tfr, True)
+        except ImportError as e:
+            check("tensorflow" in str(e), f"--data_set tfrecord: {e}")
+            log(f"[wds] no TensorFlow here: --data_set tfrecord raised "
+                f"ImportError: {e}")
+        else:
+            check(False, "--data_set tfrecord built without TensorFlow")
+    else:
+        log("[wds] TensorFlow is installed here: --data_set tfrecord is not "
+            "driven by this smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[time] phase 34 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def counter(*names):
     """counts(reset=False) -> {COUNT: launches} of the counts named
     'module.COUNT' (modules of ops/); reset sets them to 0 first."""
@@ -5169,6 +5299,12 @@ def main() -> int:
     phase_gloo(every)
     log(f"[time] phases 32-33 took {time.perf_counter() - t_dp:.1f} s")
 
+    # ---- the webdataset source through the trainer
+    wds_launches = phase_wds(every, dev, default_step)
+    check(wds_launches == want_train,
+          f"--data_set wds: {wds_launches} for {TRAIN_STEPS} steps, "
+          f"{EVAL_BATCHES} evals")
+
     f64, f128 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
     l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
@@ -5405,6 +5541,8 @@ def main() -> int:
             # phase 32's main() under DDP and FSDP2 over a world-1 group
             k["launches_ddp"] = world1_launches["ddp"][count]
             k["launches_fsdp"] = world1_launches["fsdp"][count]
+            # phase 34's main() on webdataset shards
+            k["launches_wds"] = wds_launches[count]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

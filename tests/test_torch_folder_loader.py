@@ -116,11 +116,3 @@ def test_build_dataset_folder_matches_jax(tree, tmp_path, device_augment):
             np.testing.assert_array_equal(gx, wx)
             np.testing.assert_array_equal(gy, wy)
     assert info.num_classes == 2 and ds.batch_size == 3   # eval: 2 x 1.5
-
-
-@pytest.mark.parametrize("data_set", ["tfds", "tfrecord", "wds"])
-def test_tf_backed_data_sets_raise_naming_m5(data_set):
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
-        loader.build_dataset(TrainConfig(data_set=data_set), True)
-    with pytest.raises(ValueError, match="unknown data_set"):
-        loader.build_dataset(TrainConfig(data_set="bogus"), True)

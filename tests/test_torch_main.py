@@ -171,8 +171,7 @@ def test_config_from_args_matches_jax():
 
 
 UNPORTED = [
-    (dict(device_augment=True, data_set="wds"), "M5"),
-    (dict(data_set="tfds"), "M5"), (dict(mesh_shape="data:2,model:2"), "M6"),
+    (dict(mesh_shape="data:2,model:2"), "M6"),
     (dict(param_sharding="sp"), "M6"), (dict(opt="lamb"), "M7"),
     (dict(update_freq=2), "M7"),
 ]
@@ -213,11 +212,6 @@ M4 = [dict(output_dir="out"), dict(resume="ckpt"), dict(finetune="w.pth"),
 @pytest.mark.parametrize("kw", M4, ids=[next(iter(kw)) for kw in M4])
 def test_the_trainer_state_options_are_in_the_slice(kw):
     trainer.check_slice(_cfg(**kw))
-
-
-def test_data_sets_other_than_synthetic_raise():
-    with pytest.raises(NotImplementedError, match="M5"):
-        loader.build_dataset(_cfg(data_set="tfrecord"), is_train=True)
 
 
 def _jpeg_tree(root, classes=5, per_class=4, seed=0):

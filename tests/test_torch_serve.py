@@ -125,7 +125,9 @@ def test_port_imports_no_jax():
             "models/vision_transformer_zoo.py", "ckpt/checkpoint.py",
             "obs/loggers.py", "obs/profiler.py", "obs/watchdog.py",
             "models/pretrained.py", "data/device_aug.py",
-            "parallel/mesh.py", "parallel/sharding.py"} <= rel
+            "parallel/mesh.py", "parallel/sharding.py", "data/wds.py",
+            "data/native.py", "data/pp_builder.py", "data/pp_ops.py",
+            "data/randaug_tf.py", "data/tfrecord.py"} <= rel
     # the op-level attention entry points and their kernels' wrappers live
     # in the modules checked here, their CUDA sources in csrc/
     assert {"multi_head_attention", "masked_attention",

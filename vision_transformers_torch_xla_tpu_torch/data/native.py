@@ -1,11 +1,12 @@
 """ctypes binding to the native IO runtime (native/vtx_io.cpp).
 
 Counterpart of vision_transformers_torch_xla_tpu/data/native.py for the
-decode entry points (`jpeg_dims` :84, `decode_jpeg_crop_resize` :96) and
-the synthetic batch (`synth_batch` :115), over the same
-native/libvtx_io.so. `available()` is False when the library is
-missing or does not load (for instance without libjpeg); callers then
-decode another way.
+decode entry points (`jpeg_dims` :84, `decode_jpeg_crop_resize` :96), the
+synthetic batch (`synth_batch` :115) and the threaded decode pool
+(`DecodePool` :129), over the same native/libvtx_io.so. `available()` is
+False when the library is missing or does not load (for instance without
+libjpeg); callers then decode another way, as the JAX callers do, and
+`DecodePool` raises.
 """
 from __future__ import annotations
 
@@ -52,6 +53,19 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.vtx_synth_batch.argtypes = [
         f32p, ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_uint64, f32p, f32p]
+    lib.vtx_pool_create.restype = ctypes.c_void_p
+    lib.vtx_pool_create.argtypes = [ctypes.c_int, f32p, f32p]
+    lib.vtx_pool_submit.restype = None
+    lib.vtx_pool_submit.argtypes = [
+        ctypes.c_void_p, u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p, ctypes.c_int64]
+    lib.vtx_pool_take_failed.restype = ctypes.c_int64
+    lib.vtx_pool_take_failed.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
+    lib.vtx_pool_wait.restype = None
+    lib.vtx_pool_wait.argtypes = [ctypes.c_void_p]
+    lib.vtx_pool_destroy.restype = None
+    lib.vtx_pool_destroy.argtypes = [ctypes.c_void_p]
     _lib = lib
     return lib
 
@@ -107,3 +121,62 @@ def synth_batch(batch: int, size: int, num_classes: int, seed: int,
         labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         batch, size, num_classes, seed, _f3(mean), _f3(stdinv))
     return images, labels
+
+
+class DecodePool:
+    """Threaded decode pool: submit JPEG -> tensor jobs, wait for a batch.
+
+    Each job decodes, crops, resizes and normalizes one JPEG into its own
+    float32 (out_size, out_size, 3) slot of a caller's array, on a C++
+    worker thread; `wait` returns when every submitted job is done."""
+
+    def __init__(self, num_threads: int = 0,
+                 mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native library not built (make -C native)")
+        self._lib = lib
+        n = num_threads or max(os.cpu_count() or 1, 1)
+        stdinv = [1.0 / s for s in std]
+        self._pool = lib.vtx_pool_create(n, _f3(mean), _f3(stdinv))
+        # the encoded bytes of the jobs in flight, alive until `wait`
+        self._keepalive = []
+
+    def submit(self, data: bytes, dst: np.ndarray, out_size: int,
+               crop: Optional[Tuple[int, int, int, int]] = None,
+               tag: int = -1):
+        """Queue one decode of `data` into `dst`, a C-contiguous float32
+        (out_size, out_size, 3) array that stays alive until `wait`."""
+        if (dst.dtype != np.float32 or not dst.flags.c_contiguous
+                or dst.shape != (out_size, out_size, 3)):
+            raise ValueError(f"dst must be a C-contiguous float32 "
+                             f"({out_size}, {out_size}, 3) array, got "
+                             f"{dst.dtype} {dst.shape}")
+        buf = np.frombuffer(data, np.uint8)
+        self._keepalive.append(buf)
+        cx, cy, cw, ch = crop if crop is not None else (-1, -1, -1, -1)
+        self._lib.vtx_pool_submit(
+            self._pool, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            len(data), cx, cy, cw, ch, out_size,
+            dst.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), tag)
+
+    def wait(self):
+        self._lib.vtx_pool_wait(self._pool)
+        self._keepalive.clear()
+
+    def take_failed(self, cap: int = 4096) -> list:
+        """Tags of the jobs whose decode failed since the last call (the
+        worker zero-filled their slots)."""
+        out = (ctypes.c_int64 * cap)()
+        n = self._lib.vtx_pool_take_failed(self._pool, out, cap)
+        return [out[i] for i in range(n)]
+
+    def close(self):
+        if self._pool:
+            self._lib.vtx_pool_destroy(self._pool)
+            self._pool = None
+
+    def __del__(self):
+        # a pool dropped without close(): nothing to report from here
+        if getattr(self, "_pool", None):
+            self.close()

@@ -46,8 +46,14 @@ import), `--profile_steps N` a torch.profiler trace of steps 2 to N + 1
 of the first epoch into `<log_dir or output_dir>/profile`, and a
 watchdog dumps the stacks when no step ends for 900 s.
 
-`--data_set folder` reads a class-per-directory tree from `--data_path`
-(`--eval_data_path` for eval), and `--device_augment true` crops, flips,
+`--data_set` takes every data set of the JAX trainer (data/loader.py):
+`synthetic`; `folder`, a class-per-directory tree, and `wds` /
+`IMNET_WDS`, webdataset tar shards (a glob or a {0000..0146} range), from
+`--data_path` (`--eval_data_path` for eval), decoded on the host by the
+native library or PIL; `tfrecord` (Example shards) and `tfds`
+(`--tfds_name`) through the tf.data chain of `--pp_train` / `--pp_eval`,
+which needs TensorFlow (and tensorflow_datasets for tfds) and raises
+ImportError naming what is missing. `--device_augment true` crops, flips,
 RandAugments (`--aa`), colour-jitters (`--color_jitter`, without
 RandAugment), normalizes and erases (`--reprob`) each raw [0, 1] batch
 inside the train step, on its device (data/device_aug.py), as the JAX
@@ -71,9 +77,16 @@ global. Only rank 0 prints and writes logs and checkpoints:
     torchrun --nproc_per_node 2 -m \
         vision_transformers_torch_xla_tpu_torch.launch.main --device cpu ...
 
+Each rank's data set is its process's stream of the JAX source
+(`build_dataset` gets the rank and the world size). As in the JAX
+trainer, a rank leaves the epoch when its own stream ends: a rank whose
+shards (wds, tfrecord) hold fewer samples than its peers' leaves them
+waiting in a collective it does not join, so give the ranks even shards
+(ROADMAP §3).
+
 Options outside this slice raise NotImplementedError naming their ROADMAP
-item: the TF-backed data sets (M5), and the rest of the mesh (M6): a
-`model` axis, `--param_sharding sp` and a mesh smaller than the world.
+item: the rest of the mesh (M6): a `model` axis, `--param_sharding sp`
+and a mesh smaller than the world.
 """
 from __future__ import annotations
 
@@ -107,7 +120,6 @@ from vision_transformers_torch_xla_tpu_torch.data.device_aug import (
 from vision_transformers_torch_xla_tpu_torch.data.loader import (
     IMAGENET_INCEPTION_MEAN,
     IMAGENET_INCEPTION_STD,
-    TF_DATA_SETS,
     build_dataset,
     device_prefetch,
     to_device,
@@ -195,13 +207,9 @@ def resolve_device(device: str) -> torch.device:
 
 
 def check_slice(cfg: TrainConfig) -> None:
-    """Raise, naming the ROADMAP item, on every option this slice lacks:
-    the TF-backed data sets (M5); a `model` axis and --param_sharding sp
-    (M6, parallel/mesh.py::check_axes; a mesh smaller than the world raises
-    in create_mesh)."""
-    if cfg.data_set in TF_DATA_SETS:
-        raise NotImplementedError(f"--data_set {cfg.data_set} is not in the "
-                                  f"port yet (ROADMAP M5)")
+    """Raise, naming the ROADMAP item, on every option this slice lacks: a
+    `model` axis and --param_sharding sp (M6, parallel/mesh.py::check_axes;
+    a mesh smaller than the world raises in create_mesh)."""
     check_axes(cfg.parse_mesh_shape(), cfg.param_sharding)
 
 
