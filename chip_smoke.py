@@ -425,6 +425,29 @@ The rest of the input pipeline (data/wds.py, data/tfrecord.py):
     limit; and, where TensorFlow is not installed, --data_set tfrecord
     must raise ImportError naming it.
 
+The model axis (parallel/split.py, the rest of M6):
+
+35. each of TP_RUNS on ranks of this card over gloo (tp_rank, as phase 33
+    starts them), against the one-process step on the same global batch
+    in this process: (tp) my_vit_b at 224 px with the recipe's flags,
+    global b64, --mesh_shape data:1,model:2, two steps: each rank runs K1
+    and K2 on its 6 of the 12 heads (the wrappers' calls are kept, and a
+    torch.profiler session of the first step names the kernels); (tp_mlp)
+    the same with --pallas_mlp on, K3 on each rank's 1,536 hidden
+    columns; (tp_fsdp) --mesh_shape data:2,model:2 --param_sharding fsdp
+    on 4 ranks, one step; (sp) vit_base_patch14_dinov2 at 518 px, global
+    b8, --mesh_shape data:1,model:2 --param_sharding sp, one step, K4-K6 on
+    the gathered 1,370 tokens. Each rank's launches equal the one-process
+    step's; the global losses (TP_LOSS_RTOL), grad norms
+    (TP_GRAD_NORM_RTOL), the first step's gradients (TP_GRAD_REL_L2,
+    relative L2 per tensor) and the params after the steps
+    (GLOO_PARAM_ATOL) against the one-process step's, each rank's parts
+    saved and joined here (gloo's full_tensor of uneven CUDA shards
+    segfaulted on torch 2.11); the worst of each printed beside its limit,
+    then one more step's wall time in one process and in each rank (gloo
+    over host memory on one card: no speed claim), with the card's name
+    and power limit.
+
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
 K8, K11 or K12.
@@ -441,7 +464,9 @@ one per instantiation at D 256 ('kernel[dtype,d256]'). K1's and K2's
 lines also carry the launches of phases 29-30's, 32's and 34's main()
 runs (launches_siglip, launches_block_types, launches_ddp,
 launches_fsdp, launches_wds), K4's, K5's and K6's those of
-phase 28's (launches_reg4, launches_reg4_remat). The fp16 K4, K5
+phase 28's (launches_reg4, launches_reg4_remat); K1-K6 those of phase
+35's split runs that launch them (launches_tp, launches_tp_mlp,
+launches_tp_fsdp, launches_sp). The fp16 K4, K5
 and K6 lines and the bf16 and fp16 K4, K5 and K6 lines at D 256 carry
 phase 17d's worst edge error (max_rel_err_edges), and those at D 256 its
 times at (32, 1370, 12, 256) (suffix _b32).
@@ -450,8 +475,10 @@ The last two lines of stdout are the kernels JSON and the result JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -4935,6 +4962,342 @@ def phase_wds(counts, dev, phase9_step):
     return launches
 
 
+# Phase 35, the model axis: each run's ranks on cuda:0 over gloo, as
+# phase 33's: (base flags, mesh flags, ranks, global batch, checked steps)
+TP_RUNS = {
+    "tp": (RECIPE_FLAGS, ["--mesh_shape", "data:1,model:2"], 2, 64, 2),
+    "tp_mlp": (PALLAS_MLP_FLAGS, ["--mesh_shape", "data:1,model:2"], 2, 64,
+               2),
+    "tp_fsdp": (RECIPE_FLAGS, ["--mesh_shape", "data:2,model:2",
+                               "--param_sharding", "fsdp"], 4, 64, 1),
+    "sp": (LONG_TRAIN_FLAGS, ["--mesh_shape", "data:1,model:2",
+                              "--param_sharding", "sp"], 2, 8, 1)}
+TP_TIMEOUT_S = 600
+# bf16 compute: a split layer rounds each rank's partial product to bf16
+# before the ranks' fp32 sum, where one GEMM rounds the whole sum once, and
+# under sp the gathered sequence's GEMMs are as tall as the one-process
+# step's but the per-token ones half as tall: the activations and
+# gradients move by a few bf16 ulps. The params move by lr x the
+# warm-up's first steps (warmup_lr 1e-6), so GLOO_PARAM_ATOL holds them.
+TP_LOSS_RTOL = 5e-3
+TP_GRAD_NORM_RTOL = 2e-2
+TP_GRAD_REL_L2 = 5e-2
+# what each run's kernels see: heads a rank (K1, K2), hidden columns a
+# rank (K3), tokens of the gathered sequence (K4-K6)
+TP_HEADS, TP_COLUMNS, SP_TOKENS = 6, 1536, 1370
+# each run's kernels: their counts, and what their names in a trace hold
+_K12 = {"ATTN_FWD_LAUNCHES": "attn_fwd_tc", "ATTN_BWD_LAUNCHES": "attn_bwd_tc"}
+TP_KERNELS = {"tp": _K12, "tp_mlp": {**_K12, "FC2_BWD_LAUNCHES": "fc2_bwd"},
+              "tp_fsdp": _K12,
+              "sp": {"FLASH_FWD_LAUNCHES": "flash_fwd",
+                     "FLASH_BWD_DKDV_LAUNCHES": "flash_bwd_dkdv",
+                     "FLASH_BWD_DQ_LAUNCHES": "flash_bwd_dq"}}
+
+
+def tp_flags(name: str, ranks: int) -> list:
+    """The run's flags for `ranks` processes: the mesh only for more than
+    one, and --batch_size the global batch over them."""
+    base, mesh, _, n, _ = TP_RUNS[name]
+    return base + (mesh if ranks > 1 else []) + ["--batch_size",
+                                                 str(n // ranks)]
+
+
+def tp_batch(cfg, n: int, dev):
+    """The first batch of n of cfg's synthetic stream (process 0), on
+    `dev`: the global batch of phase 35's runs."""
+    from vision_transformers_torch_xla_tpu_torch.data.loader import (
+        SyntheticDataset,
+        to_device,
+    )
+
+    ds = SyntheticDataset(n, cfg.input_size, cfg.nb_classes, seed=cfg.seed)
+    return to_device(next(iter(ds)), dev)
+
+
+class kernel_shapes:
+    """Within the block, what the wrappers of K1, K2, K3 and K4 are called
+    on: K1's and K2's head count and qkv width, K3's hidden columns, K4's
+    q shape (the wrappers are looked up by name at each call)."""
+
+    def __init__(self, fa, fb, mf):
+        self.mods = ((fa, "attn_fwd"), (fa, "attn_bwd"), (mf, "fc2_bwd"),
+                     (fb, "flash_fwd"))
+        self.seen = {"attn_fwd": set(), "attn_bwd": set(), "fc2_bwd": set(),
+                     "flash_fwd": set()}
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.mods]
+        for (mod, name), fn in zip(self.mods, self.saved):
+            setattr(mod, name, self._spy(name, fn))
+        return self
+
+    def _spy(self, name, fn):
+        def call(*args, **kwargs):
+            if name == "attn_fwd":
+                self.seen[name].add((args[1], args[0].shape[-1]))
+            elif name == "attn_bwd":
+                self.seen[name].add((args[4], args[0].shape[-1]))
+            elif name == "fc2_bwd":
+                self.seen[name].add(args[2].shape[-1])
+            else:
+                self.seen[name].add(tuple(args[0].shape))
+            return fn(*args, **kwargs)
+
+        return call
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.mods, self.saved):
+            setattr(mod, name, fn)
+
+
+def tp_steps(ctx, cfg, images, labels, steps: int, trace: bool = False):
+    """`steps` steps of ctx on (images, labels): the global losses and
+    grad norms, this rank's part of the first step's gradients and of the
+    params after each step (local: the split part, and under FSDP2 its
+    dim-0 shard), on the host; with `trace`, the csrc/ kernels of the first
+    step from a torch.profiler session; then one more step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_transformers_torch_xla_tpu_torch.launch.main import (
+        global_metrics,
+    )
+    from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
+        local,
+    )
+
+    out = {"losses": [], "grad_norms": [], "params": [], "kernels": []}
+    for s in range(steps):
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if trace and s == 0 else contextlib.nullcontext()) as prof:
+            ctx.state, m = ctx.train_step(ctx.state, images, labels,
+                                          cfg.seed)
+            m = global_metrics(ctx, m)
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+        if prof is not None:   # csrc/'s kernels, by name and template
+            out["kernels"] = sorted({
+                e.key.split("::", 1)[1].split("(")[0]
+                for e in prof.key_averages()
+                if re.match(CSRC_KERNEL, e.key)})
+        if s == 0:
+            out["grads"] = {k: local(p.grad).float().cpu()
+                            for k, p in ctx.state.params.items()}
+        out["params"].append({k: local(p.detach()).float().cpu()
+                              for k, p in ctx.state.params.items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.state, m = ctx.train_step(ctx.state, images, labels, cfg.seed)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def tp_rank(name: str, rank: int, port: int, out: str,
+            device: str = "cuda:0") -> None:
+    """Phase 35's rank of run `name`: the trainer on the run's mesh over
+    gloo, its steps on its data index's rows of the global batch with the
+    kernels' shapes and launches kept, saved to out/<name>_rank<r>.pt."""
+    import datetime
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    sys.path.insert(0, REPO)
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+    from vision_transformers_torch_xla_tpu_torch.ops import (
+        flash_attention as fa,
+        flash_blocked as fb,
+        mlp_fused as mf,
+    )
+
+    _, _, ranks, n, steps = TP_RUNS[name]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=ranks,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    cfg = config_from_args(tp_flags(name, ranks) + ["--device", device])
+    ctx = trainer.setup(cfg)
+    images, labels = tp_batch(cfg, n, ctx.device)
+    per = n // ctx.shard.count
+    rows = slice(ctx.shard.index * per, (ctx.shard.index + 1) * per)
+    counts = counter(*ALL_COUNTS)
+    counts(reset=True)
+    with kernel_shapes(fa, fb, mf) as shapes:
+        got = tp_steps(ctx, cfg, images[rows], labels[rows], steps,
+                       trace=device.startswith("cuda"))
+        launches = counts()
+    got.update(launches=launches, shapes={k: sorted(v) for k, v in
+                                          shapes.seen.items()},
+               splits={k: (sp.dim, sp.parts)
+                       for k, sp in ctx.state.splits.items()},
+               data_index=ctx.shard.index, data_size=ctx.shard.count,
+               model_size=ctx.mesh.size("model"))
+    torch.save(got, os.path.join(out, f"{name}_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def join_ranks(ranks: list, which: str, step=None) -> dict:
+    """The whole tensors of `which` ('grads', or 'params' after `step`)
+    from every rank's part: the dim-0 shards of the data indices put end
+    to end under FSDP2, then the model axis's parts joined as
+    parallel/split.py::Split.join joins them."""
+    import torch
+
+    first = ranks[0]
+    d_n, m_n, fsdp = first["data_size"], first["model_size"], first["fsdp"]
+
+    def part(r):
+        t = ranks[r][which]
+        return t if step is None else t[step]
+
+    whole = {}
+    for k in part(0):
+        def model_part(m):
+            pieces = [part(d * m_n + m)[k] for d in range(d_n)]
+            return torch.cat(pieces) if fsdp else pieces[0]
+
+        if k in first["splits"]:
+            dim, parts = first["splits"][k]
+            chunks = [model_part(m).chunk(parts, dim) for m in range(m_n)]
+            whole[k] = torch.cat([chunks[m][j] for j in range(parts)
+                                  for m in range(m_n)], dim)
+        else:
+            whole[k] = model_part(0)
+    return whole
+
+
+def phase_tp(counts):
+    """Phase 35: the model axis on this card. Each run's ranks over gloo
+    against the one-process step on their global batch in this process;
+    returns each run's launches (rank 0's) and the one-process and split
+    steps' wall times."""
+    import gc
+
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+
+    t0 = time.perf_counter()
+    out = os.path.join(REPO, "build", "smoke", "tp")
+    os.makedirs(out, exist_ok=True)
+    launches, times = {}, {}
+    for name, (_, _, ranks, n, steps) in TP_RUNS.items():
+        t_run = time.perf_counter()
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.tp_rank("
+             f"{name!r}, {r}, {port}, {out!r})"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(ranks)]
+        try:
+            # the one-process step on the global batch, while the ranks run
+            cfg = config_from_args(tp_flags(name, 1))
+            ctx = trainer.setup(cfg)
+            images, labels = tp_batch(cfg, n, ctx.device)
+            counts(reset=True)
+            ref = tp_steps(ctx, cfg, images, labels, steps)
+            ref_launches = counts()
+            del ctx
+            gc.collect()
+            torch.cuda.empty_cache()
+            errs = []
+            for r, p in enumerate(procs):
+                out_r, err = p.communicate(timeout=TP_TIMEOUT_S)
+                errs.append(f"rank {r} exit {p.returncode}: {out_r[-2000:]}"
+                            f"{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              f"phase 35 {name}: a rank failed: {errs}")
+        got = [torch.load(os.path.join(out, f"{name}_rank{r}.pt"),
+                          weights_only=False) for r in range(ranks)]
+        for g in got:
+            g["fsdp"] = "fsdp" in TP_RUNS[name][1]
+        # every rank's kernels, as many as the one-process step's, on its
+        # heads, columns and gathered tokens
+        for r, g in enumerate(got):
+            check(g["launches"] == ref_launches and all(
+                ref_launches[c] > 0 for c in TP_KERNELS[name]),
+                f"{name} rank {r}: launches {g['launches']}, the "
+                f"one-process step's {ref_launches}")
+            for kernel in TP_KERNELS[name].values():
+                check(any(kernel in k for k in g["kernels"]),
+                      f"{name} rank {r}: the trace of its first step names "
+                      f"{g['kernels']}, no {kernel}")
+            if name == "sp":
+                check(g["shapes"]["flash_fwd"] and all(
+                    SP_TOKENS in shape for shape in g["shapes"]["flash_fwd"]),
+                      f"sp rank {r}: K4 on {g['shapes']['flash_fwd']}")
+            else:
+                check(g["shapes"]["attn_fwd"] == [(TP_HEADS, 3 * 64 *
+                                                   TP_HEADS)]
+                      and g["shapes"]["attn_bwd"] == [(TP_HEADS, 3 * 64 *
+                                                       TP_HEADS)],
+                      f"{name} rank {r}: K1/K2 on {g['shapes']}")
+            if name == "tp_mlp":
+                check(g["shapes"]["fc2_bwd"] == [TP_COLUMNS],
+                      f"tp_mlp rank {r}: K3 on {g['shapes']['fc2_bwd']}")
+        # against the one-process step
+        loss_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g["losses"], ref["losses"]))
+        norm_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g["grad_norms"], ref["grad_norms"]))
+        grads = join_ranks(got, "grads")
+        grad_err = {k: float((grads[k] - w).norm()
+                             / w.norm().clamp_min(1e-30))
+                    for k, w in ref["grads"].items()}
+        params = join_ranks(got, "params", steps - 1)
+        param_err = {k: float((params[k] - w).abs().max())
+                     for k, w in ref["params"][-1].items()}
+        worst_g = max(grad_err, key=grad_err.get)
+        worst_p = max(param_err, key=param_err.get)
+        launches[name] = got[0]["launches"]
+        times[name] = {"one_process_step_ms": ref["step_ms"],
+                       "split_step_ms": [g["step_ms"] for g in got]}
+        log(f"[tp {name}] {ranks} ranks over gloo on one card "
+            f"({' '.join(TP_RUNS[name][1])}), global b{n}, {steps} step(s), "
+            f"against the one-process step: losses {got[0]['losses']!r} vs "
+            f"{ref['losses']!r}, worst relative {loss_err!r} (limit "
+            f"{TP_LOSS_RTOL}); grad norms {got[0]['grad_norms']!r} vs "
+            f"{ref['grad_norms']!r}, worst relative {norm_err!r} (limit "
+            f"{TP_GRAD_NORM_RTOL}); first-step gradients worst relative L2 "
+            f"{grad_err[worst_g]!r} ({worst_g}; limit {TP_GRAD_REL_L2}); "
+            f"params after {steps} step(s) worst {param_err[worst_p]!r} "
+            f"({worst_p}; limit {GLOO_PARAM_ATOL}); rank 0 launched "
+            f"{launches[name]} on {got[0]['shapes']}, traced "
+            f"{got[0]['kernels']}; split parameters {len(got[0]['splits'])}")
+        log(f"[tp {name}] one step on {nvidia_smi()}: one process "
+            f"{ref['step_ms']!r} ms, each rank of the split run "
+            f"{times[name]['split_step_ms']!r} ms (gloo over host memory on "
+            f"one card: the wrapper's correctness, not tensor parallelism's "
+            f"speed); run took {time.perf_counter() - t_run:.1f} s")
+        check(loss_err <= TP_LOSS_RTOL, f"{name}: losses {loss_err}")
+        check(norm_err <= TP_GRAD_NORM_RTOL, f"{name}: grad norms {norm_err}")
+        check(grad_err[worst_g] <= TP_GRAD_REL_L2,
+              f"{name} gradient {worst_g}: {grad_err[worst_g]}")
+        check(param_err[worst_p] <= GLOO_PARAM_ATOL,
+              f"{name} param {worst_p}: {param_err[worst_p]}")
+        del got, grads, params, ref
+        gc.collect()
+    log(f"[time] phase 35 took {time.perf_counter() - t0:.1f} s")
+    return launches, times
+
+
 def counter(*names):
     """counts(reset=False) -> {COUNT: launches} of the counts named
     'module.COUNT' (modules of ops/); reset sets them to 0 first."""
@@ -5305,6 +5668,10 @@ def main() -> int:
           f"--data_set wds: {wds_launches} for {TRAIN_STEPS} steps, "
           f"{EVAL_BATCHES} evals")
 
+    # ---- the model axis: tensor parallelism and sp on ranks of this card
+    tp_launches, _ = phase_tp(every)
+    lap("phase 35")
+
     f64, f128 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]
     l1, l32 = long_k[LONG_MAIN_SHAPES[0]], long_k[LONG_MAIN_SHAPES[1]]
@@ -5543,6 +5910,13 @@ def main() -> int:
             k["launches_fsdp"] = world1_launches["fsdp"][count]
             # phase 34's main() on webdataset shards
             k["launches_wds"] = wds_launches[count]
+    # phase 35's split runs, rank 0's launches (their checked steps and
+    # the timed one), for the kernels each run launches
+    for k in kernels[:6]:
+        count = f"{k['name'].upper()}_LAUNCHES"
+        for run, n in tp_launches.items():
+            if n[count]:
+                k[f"launches_{run}"] = n[count]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the path never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -70,6 +70,9 @@ MESHES = [([("data", -1)], 1), ([("data", -1)], 4), ([("data", 4)], 4),
 
 @pytest.mark.parametrize("axes,n", MESHES)
 def test_mesh_sizes_match_jax_create_mesh(axes, n):
+    """The sizes and errors of JAX's create_mesh; a mesh smaller than the
+    devices is JAX's subset of the first devices, which the port's mesh
+    takes as its first ranks (parallel/mesh.py::create_mesh)."""
     import jax
 
     from vision_transformers_torch_xla_tpu.parallel.mesh import (
@@ -78,29 +81,52 @@ def test_mesh_sizes_match_jax_create_mesh(axes, n):
 
     devices = jax.devices("cpu")[:n]
     try:
-        want = dict(jax_create_mesh(axes, devices=devices).shape)
+        jax_mesh = jax_create_mesh(axes, devices=devices)
     except ValueError as e:
         with pytest.raises(ValueError, match=str(e).replace("{", r"\{")
                            .replace("}", r"\}")):
             mesh.mesh_sizes(axes, n)
         return
-    if int(np.prod(list(want.values()))) < n:
-        # JAX takes a subset of the devices; the port raises naming M6
-        with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-            mesh.mesh_sizes(axes, n)
-        return
-    assert mesh.mesh_sizes(axes, n) == want
+    want = dict(jax_mesh.shape)
+    got = mesh.mesh_sizes(axes, n)
+    assert got == want
+    used = int(np.prod(list(got.values())))
+    assert sorted(d.id for d in jax_mesh.devices.flat) == \
+        [d.id for d in devices[:used]]
 
 
 @pytest.mark.parametrize("spec,sharding,error", [
-    ("data:2,model:2", "replicated", NotImplementedError),
-    ("data,model:-1", "replicated", NotImplementedError),
-    ("data", "sp", NotImplementedError), ("data", "zero", ValueError)])
+    ("data:2,model:2", "replicated", None),
+    ("data,model:-1", "replicated", None),
+    ("data", "sp", None), ("data", "zero", ValueError)])
 def test_the_rest_of_m6_raises(spec, sharding, error):
+    """What the rest of M6 raised before it was ported now passes
+    check_axes, and the mesh's sizes are JAX create_mesh's on 8 devices
+    under the same rules; an unknown --param_sharding still raises."""
+    import jax
+
+    from vision_transformers_torch_xla_tpu.parallel import mesh as jax_mesh
+
     cfg = TrainConfig(mesh_shape=spec, param_sharding=sharding)
-    with pytest.raises(error, match="ROADMAP M6" if error is
-                       NotImplementedError else "param_sharding"):
-        mesh.check_axes(cfg.parse_mesh_shape(), cfg.param_sharding)
+    if error is not None:
+        with pytest.raises(error, match="param_sharding"):
+            mesh.check_axes(cfg.parse_mesh_shape(), cfg.param_sharding)
+        return
+    mesh.check_axes(cfg.parse_mesh_shape(), cfg.param_sharding)
+    axes = cfg.parse_mesh_shape()
+    try:
+        want = jax_mesh.create_mesh(axes, devices=jax.devices("cpu")[:8])
+    except ValueError as e:   # two inferred sizes: JAX's error
+        with pytest.raises(ValueError, match=str(e)):
+            mesh.mesh_sizes(axes, 8)
+        return
+    assert mesh.mesh_sizes(axes, 8) == dict(want.shape)
+
+    class Named:   # the port's DeviceMesh names its axes as JAX's mesh
+        mesh_dim_names = tuple(want.axis_names)
+
+    assert mesh.axis_rules(sharding, Named()) == \
+        jax_mesh.axis_rules(sharding, want)
     mesh.check_axes(TrainConfig(mesh_shape="data,model:1",
                                 param_sharding="fsdp").parse_mesh_shape(),
                     "fsdp")

@@ -115,7 +115,7 @@ def test_port_imports_no_jax():
         "tools/time_fc2_bwd_variants.py", "tools/time_fp32_simt_variants.py",
         "tools/time_fp32_bwd_variants.py", "tools/time_fp32_fwd_variants.py",
         "tools/time_fp32_hp_bwd_variants.py", "tools/probe_gloo_cuda.py",
-        "tests/torch_parallel_worker.py")]
+        "tests/torch_parallel_worker.py", "tests/torch_tp_worker.py")]
     for root, _, names in os.walk(PORT_PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     rel = {os.path.relpath(p, PORT_PKG) for p in files}
@@ -127,7 +127,8 @@ def test_port_imports_no_jax():
             "models/pretrained.py", "data/device_aug.py",
             "parallel/mesh.py", "parallel/sharding.py", "data/wds.py",
             "data/native.py", "data/pp_builder.py", "data/pp_ops.py",
-            "data/randaug_tf.py", "data/tfrecord.py"} <= rel
+            "data/randaug_tf.py", "data/tfrecord.py", "parallel/split.py",
+            "launch/runner.py"} <= rel
     # the op-level attention entry points and their kernels' wrappers live
     # in the modules checked here, their CUDA sources in csrc/
     assert {"multi_head_attention", "masked_attention",

@@ -21,12 +21,14 @@ nothing to finish. A checkpoint written on the card restores on the CPU
 and the other way round: `restore` copies into the template's tensors, on
 their device, and `restore_raw` gives CPU tensors.
 
-On W processes a checkpoint is still one global state in this format:
-rank 0 decides whether to save, every rank gathers the FSDP shards (a
-collective), rank 0 writes and rotates, and a barrier ends the save.
-Every rank restores the whole file and copies its rows into its shards
-(train/state.py), so a checkpoint crosses between a W-rank FSDP run and a
-one-process one in both directions.
+On a mesh a checkpoint is still one global state in this format, with
+timm's whole tensors: rank 0 decides whether to save, every rank of the
+mesh gathers the FSDP shards and the model axis's parts (collectives over
+the mesh's groups; `group` holds the mesh's ranks, whose first is rank 0),
+rank 0 writes and rotates, and a barrier over the mesh ends the save.
+Every rank restores the whole file and copies its rows into its parts
+(train/state.py), so a checkpoint crosses between a sharded or split run
+and a one-process one in both directions.
 """
 from __future__ import annotations
 
@@ -39,7 +41,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from vision_transformers_torch_xla_tpu_torch.parallel.mesh import world
 from vision_transformers_torch_xla_tpu_torch.parallel.sharding import full
 
 log = logging.getLogger(__name__)
@@ -48,11 +49,13 @@ STATE_FILE = "state.pt"
 METADATA_FILE = "metadata.json"
 
 
-def _to_host(x):
+def _to_host(x, splits, key: str = ""):
+    """Whole host copies of a state dict's tensors; a tensor's `key` (its
+    parameter name) picks its model-axis split."""
     if isinstance(x, torch.Tensor):
-        return full(x.detach()).to("cpu", copy=True)
+        return full(x.detach(), splits.get(key)).to("cpu", copy=True)
     if isinstance(x, dict):
-        return {k: _to_host(v) for k, v in x.items()}
+        return {k: _to_host(v, splits, k) for k, v in x.items()}
     return x
 
 
@@ -64,10 +67,13 @@ class CheckpointManager:
     """Save / rotate / resume with the JAX manager's semantics."""
 
     def __init__(self, directory: str, max_to_keep: Optional[int] = 3,
-                 save_interval_epochs: int = 1):
+                 save_interval_epochs: int = 1, group=None):
+        """`group`: the ranks that save together (the mesh's; None is the
+        default group when there is one)."""
         self.directory = directory
         self.max_to_keep = max_to_keep
         self.save_interval_epochs = save_interval_epochs
+        self.group = group
         os.makedirs(directory, exist_ok=True)
 
     def all_epochs(self) -> List[int]:
@@ -89,17 +95,19 @@ class CheckpointManager:
              metadata: Optional[dict] = None) -> bool:
         """Save `state` (a TrainState or its dict) as `epoch` if the policy
         takes it, then rotate; returns whether it saved."""
-        rank, size = world()
+        together = dist.is_initialized() and \
+            dist.get_world_size(self.group) > 1
+        rank = dist.get_rank() if dist.is_initialized() else 0
         decided = [self.should_save(epoch) if rank == 0 else None]
-        if size > 1:
-            dist.broadcast_object_list(decided, src=0)
+        if together:
+            dist.broadcast_object_list(decided, src=0, group=self.group)
         if not decided[0]:
             return False
-        host = _to_host(_as_dict(state))
+        host = _to_host(_as_dict(state), getattr(state, "splits", {}))
         if rank == 0:
             self._write(epoch, host, metadata)
-        if size > 1:
-            dist.barrier()
+        if together:
+            dist.barrier(group=self.group)
         return True
 
     def _write(self, epoch: int, host: Dict[str, Any],

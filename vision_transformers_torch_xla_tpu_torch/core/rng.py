@@ -11,13 +11,14 @@ the batch's device. The draws equal JAX's in distribution, not bit for
 bit: threefry and Philox never agree, so the tests feed the JAX draws
 where they compare the two.
 
-On W data-parallel processes every stream is seeded alike on every rank
-and draws for the *global* batch, as the JAX step draws for its global
-array: rank r of W takes rows [r·b, (r+1)·b) of each per-sample draw
-(`BatchShard`, `global_rand`). So a W-rank step draws what
-the one-process step draws on the ranks' batches put end to end, bit for
-bit. The per-batch draws (mixup's gate, λ and box; RandAugment's ops) are
-the same on every rank.
+On a mesh every stream is seeded alike on every rank and draws for the
+*global* batch, as the JAX step draws for its global array: data index d
+of the data axis's D takes rows [d·b, (d+1)·b) of each per-sample draw
+(`BatchShard`, `global_rand`), and the ranks of one data index (its
+`model` peers) draw the same rows. So a step on the mesh draws what the
+one-process step draws on the data indices' batches put end to end, bit
+for bit. The per-batch draws (mixup's gate, λ and box; RandAugment's ops)
+are the same on every rank.
 """
 from __future__ import annotations
 
@@ -62,14 +63,18 @@ def step_rngs(seed: int, step: int, device) -> StepRngs:
 
 @dataclasses.dataclass(frozen=True)
 class BatchShard:
-    """This process's rows of the global batch: rank `rank` of `world`
-    holds rows [rank·b, (rank+1)·b) of a global batch of world·b."""
+    """This process's rows of the global batch: data index `index` of
+    `count` holds rows [index·b, (index+1)·b) of a global batch of
+    count·b. `group` joins the processes of the other data indices that
+    share this process's place on the other axes (the data axis's group;
+    None with one data index)."""
 
-    rank: int = 0
-    world: int = 1
+    index: int = 0
+    count: int = 1
+    group: object = dataclasses.field(default=None, compare=False)
 
     def rows(self, b: int) -> slice:
-        return slice(self.rank * b, (self.rank + 1) * b)
+        return slice(self.index * b, (self.index + 1) * b)
 
 
 _SHARD = [BatchShard()]
@@ -93,12 +98,12 @@ def sharded_draws(shard: BatchShard):
 def global_rand(shape, generator: torch.Generator, device,
                 normal: bool = False) -> torch.Tensor:
     """torch.rand (torch.randn with `normal`) of a batch-first local shape:
-    with W > 1 (`current_shard`) the rows of the draw for the global batch
-    that are this process's."""
+    with D > 1 data indices (`current_shard`) the rows of the draw for the
+    global batch that are this process's."""
     fn = torch.randn if normal else torch.rand
     shard, shape = current_shard(), tuple(shape)
-    if shard.world == 1:
+    if shard.count == 1:
         return fn(shape, generator=generator, device=device)
     b = shape[0]
-    return fn((b * shard.world,) + shape[1:], generator=generator,
+    return fn((b * shard.count,) + shape[1:], generator=generator,
               device=device)[shard.rows(b)]

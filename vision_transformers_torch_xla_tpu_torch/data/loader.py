@@ -20,8 +20,9 @@ tf.data chain of the pp language (data/pp_builder.py, data/pp_ops.py).
 TensorFlow and tensorflow_datasets are imported only by the last two,
 which raise ImportError naming whichever is missing.
 
-Each of W data-parallel processes reads a stream of its own, as each JAX
-process does: the synthetic source seeds process i with seed + i·1_000_003
+Each of W data-parallel processes (on a mesh: each of the data axis's W
+indices, whose model peers read the same stream) reads a stream of its
+own, as each JAX process does: the synthetic source seeds process i with seed + i·1_000_003
 + 1 (native) or seed + i (numpy); the folder source reads samples[i::W]
 and reports W times its share as the example count; wds reads
 shards[i::W]; tfrecord reads files[i::W] (or every W-th example when W
@@ -36,7 +37,7 @@ import dataclasses
 import itertools
 import math
 import pathlib
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -350,12 +351,16 @@ class FolderDataset:
 
 
 def build_dataset(cfg, is_train: bool, process_index: int = 0,
-                  process_count: int = 1):
+                  process_count: int = 1, batch: Optional[int] = None):
     """(dataset, info) for cfg.data_set: `synthetic`; `folder`, `wds` /
     `IMNET_WDS` or `tfrecord` from --data_path (--eval_data_path, else
     --data_path, for eval); `tfds` from --tfds_name. The stream of process
-    `process_index` of `process_count`."""
-    batch = cfg.batch_size if is_train else cfg.eval_batch_size()
+    `process_index` of `process_count` (on a mesh: the data index and the
+    data axis's size, so a data index's model peers read the same stream),
+    in batches of `batch` rows (--batch_size, or the eval batch, if
+    None)."""
+    if batch is None:
+        batch = cfg.batch_size if is_train else cfg.eval_batch_size()
     mean, std = norm_constants(cfg)
     if cfg.data_set == "synthetic":
         ds = SyntheticDataset(

@@ -65,28 +65,35 @@ there.
 with the JAX scan path's semantics, as the JAX trainer passes them
 (launch/main.py:202-203).
 
-Under torchrun the trainer runs one process per GPU (parallel/): the data
-axis of `--mesh_shape` is the world, `--param_sharding replicated` wraps
-the model in DDP and `fsdp` in FSDP2, and `--batch_size` is per process,
+Under torchrun the trainer runs one process per GPU over the mesh of
+`--mesh_shape` (parallel/; launch/runner.py starts torchrun on many
+hosts). `data` carries the batch: `--param_sharding replicated` wraps
+the model in DDP over it and `fsdp` in FSDP2. `model` carries the heads
+and the MLP's hidden columns (tensor parallelism: each rank runs the
+attention kernels on its heads and K3 on its columns), or under
+`--param_sharding sp` each block's tokens. `--batch_size` is per process,
 so the global batch, the steps per epoch and the eval batches count
-batch_size x the world, as JAX counts them (launch/main.py:174-195). A
-W-rank step is the one-process step on the ranks' batches put end to
-end: the draws are rows of the global batch's, the loss and eval totals
-global. Only rank 0 prints and writes logs and checkpoints:
+batch_size x the mesh's processes, as JAX counts them
+(launch/main.py:174-195); a data index holds global / D rows, and its
+model peers the same rows. A step on the mesh is the one-process step on
+the global batch: the draws are rows of the global batch's, the loss and
+eval totals global. A mesh smaller than the world trains on its first
+ranks, and the others return at once. Only rank 0 prints and writes logs
+and checkpoints:
 
-    torchrun --nproc_per_node 2 -m \
-        vision_transformers_torch_xla_tpu_torch.launch.main --device cpu ...
+    torchrun --nproc_per_node 4 -m \
+        vision_transformers_torch_xla_tpu_torch.launch.main --device cpu \
+        --mesh_shape data:2,model:2 ...
 
-Each rank's data set is its process's stream of the JAX source
-(`build_dataset` gets the rank and the world size). As in the JAX
-trainer, a rank leaves the epoch when its own stream ends: a rank whose
-shards (wds, tfrecord) hold fewer samples than its peers' leaves them
-waiting in a collective it does not join, so give the ranks even shards
-(ROADMAP §3).
+Each data index's data set is that process's stream of the JAX source
+(`build_dataset` gets the data index and the data axis's size). As in the
+JAX trainer, a rank leaves the epoch when its own stream ends: a rank
+whose shards (wds, tfrecord) hold fewer samples than its peers' leaves
+them waiting in a collective it does not join, so give the ranks even
+shards (ROADMAP §3).
 
-Options outside this slice raise NotImplementedError naming their ROADMAP
-item: the rest of the mesh (M6): a `model` axis, `--param_sharding sp`
-and a mesh smaller than the world.
+A block the model axis cannot split raises NotImplementedError naming its
+ROADMAP item (M6b).
 """
 from __future__ import annotations
 
@@ -141,6 +148,7 @@ from vision_transformers_torch_xla_tpu_torch.obs.loggers import (
 from vision_transformers_torch_xla_tpu_torch.obs.metrics import MetricLogger
 from vision_transformers_torch_xla_tpu_torch.obs.watchdog import StepWatchdog
 from vision_transformers_torch_xla_tpu_torch.parallel.mesh import (
+    ProcessMesh,
     check_axes,
     create_mesh,
     env_world,
@@ -192,6 +200,12 @@ class TrainerContext:
     watchdog: Optional[StepWatchdog] = None
     eval_batches: Optional[int] = None
     shard: BatchShard = BatchShard()
+    mesh: Optional[ProcessMesh] = None
+
+    @property
+    def processes(self) -> int:
+        """The mesh's processes: the global batch is batch_size times it."""
+        return len(self.mesh.ranks) if self.mesh is not None else 1
 
 
 def resolve_device(device: str) -> torch.device:
@@ -207,9 +221,8 @@ def resolve_device(device: str) -> torch.device:
 
 
 def check_slice(cfg: TrainConfig) -> None:
-    """Raise, naming the ROADMAP item, on every option this slice lacks: a
-    `model` axis and --param_sharding sp (M6, parallel/mesh.py::check_axes;
-    a mesh smaller than the world raises in create_mesh)."""
+    """Raise on a mesh the rules cannot place (parallel/mesh.py::check_axes):
+    an unknown --param_sharding, an axis other than data and model."""
     check_axes(cfg.parse_mesh_shape(), cfg.param_sharding)
 
 
@@ -308,17 +321,29 @@ def build_teacher(cfg: TrainConfig, device: torch.device) -> nn.Module:
     return teacher.eval().requires_grad_(False)
 
 
-def setup(cfg: TrainConfig) -> TrainerContext:
+def setup(cfg: TrainConfig) -> Optional[TrainerContext]:
+    """The trainer on this process's place on the mesh; None on a rank
+    past a mesh smaller than the world, which sits the run out."""
     check_slice(cfg)
     device = init_distributed(resolve_device(cfg.device))
     mesh = create_mesh(cfg.parse_mesh_shape(), device)
-    rank, nproc = world()
-    check_batches(cfg, nproc, mesh.size() if mesh is not None else 1)
+    if mesh is not None and not mesh.member:
+        log.warning("rank %d sits out: the mesh %s runs on ranks 0-%d",
+                    world()[0], mesh.sizes, len(mesh.ranks) - 1)
+        return None
+    nproc = len(mesh.ranks) if mesh is not None else 1
+    data_n = mesh.size("data") if mesh is not None else 1
+    data_i = mesh.index("data") if mesh is not None else 0
+    check_batches(cfg, nproc, data_n)
     policy = get_policy(cfg.precision)
     want_pallas = pallas_attn_switch(cfg.pallas_attn, device)
 
-    train_ds, info = build_dataset(cfg, True, rank, nproc)
-    val_ds, val_info = build_dataset(cfg, False, rank, nproc) \
+    # a data index's rows of the global batch, and of the global eval batch
+    rows = cfg.batch_size * nproc // data_n
+    eval_rows = cfg.eval_batch_size() * nproc // data_n
+    train_ds, info = build_dataset(cfg, True, data_i, data_n, rows)
+    val_ds, val_info = build_dataset(cfg, False, data_i, data_n,
+                                     eval_rows) \
         if not cfg.disable_eval else (None, None)
     steps_per_epoch = max(info.num_examples // (cfg.batch_size * nproc), 1)
     eval_batches = None
@@ -345,7 +370,7 @@ def setup(cfg: TrainConfig) -> TrainerContext:
                           cfg.model_key, cfg.model_prefix)
         log.info("resumed model weights from %s", cfg.resume)
     unreached = ()
-    if mesh is not None and cfg.param_sharding == "replicated":
+    if mesh is not None and cfg.param_sharding != "fsdp":
         # which parameters no gradient reaches, from a forward and backward
         # of the same configuration on the meta device (no kernels)
         unreached = unreached_parameters(
@@ -353,7 +378,7 @@ def setup(cfg: TrainConfig) -> TrainerContext:
                                        "use_pallas_mlp": False},
                          device="meta"),
             (2, cfg.input_size, cfg.input_size, 3))
-    model = wrap_model(model, mesh, cfg.param_sharding, unreached)
+    model, splits = wrap_model(model, mesh, cfg.param_sharding, unreached)
     net = unwrap(model)
 
     lr_fn = cosine_schedule_fn(cfg.lr, cfg.min_lr, cfg.epochs,
@@ -366,7 +391,8 @@ def setup(cfg: TrainConfig) -> TrainerContext:
             cfg.weight_decay_end != cfg.weight_decay:
         wd_fn = cosine_schedule_fn(cfg.weight_decay, cfg.weight_decay_end,
                                    cfg.epochs, steps_per_epoch)
-    # after wrapping: under FSDP the params, moments and EMA are shards
+    # after wrapping: under FSDP the params, moments and EMA are shards,
+    # on the model axis the split ones this rank's parts
     params = dict(net.named_parameters())
     tx = create_optimizer(
         cfg.opt, lr_fn, params, weight_decay=cfg.weight_decay,
@@ -374,7 +400,8 @@ def setup(cfg: TrainConfig) -> TrainerContext:
         opt_betas=cfg.opt_betas, clip_grad=cfg.clip_grad, layer_decay=cfg.layer_decay,
         model_depth=len(net.blocks), update_freq=cfg.update_freq,
         ema_decay=cfg.model_ema_decay if cfg.model_ema else None)
-    state = create_train_state(net, tx, with_ema=cfg.model_ema)
+    state = create_train_state(net, tx, with_ema=cfg.model_ema,
+                               splits=splits)
 
     mix = MixupConfig(
         mixup_alpha=cfg.mixup, cutmix_alpha=cfg.cutmix, prob=cfg.mixup_prob,
@@ -396,13 +423,15 @@ def setup(cfg: TrainConfig) -> TrainerContext:
         ckpt = CheckpointManager(
             os.path.abspath(os.path.join(cfg.output_dir, "checkpoints")),
             max_to_keep=cfg.save_ckpt_num,
-            save_interval_epochs=cfg.save_ckpt_freq)
+            save_interval_epochs=cfg.save_ckpt_freq,
+            group=mesh.group if mesh is not None else None)
         if cfg.auto_resume and not cfg.resume:
             restored, epoch = auto_resume(ckpt, state)
             if restored is not None:
                 start_epoch = epoch
                 log.info("auto-resumed at epoch %d", start_epoch)
-    shard = BatchShard(rank, nproc)
+    shard = BatchShard(data_i, data_n,
+                       mesh.axis_group("data") if data_n > 1 else None)
     return TrainerContext(
         cfg=cfg, device=device, model=model, state=state,
         train_step=make_train_step(model, tx, step_cfg, teacher,
@@ -410,7 +439,7 @@ def setup(cfg: TrainConfig) -> TrainerContext:
         eval_step=make_eval_step(model), train_ds=train_ds, val_ds=val_ds,
         steps_per_epoch=steps_per_epoch, loggers=build_loggers(cfg),
         ckpt=ckpt, teacher=teacher, start_epoch=start_epoch,
-        eval_batches=eval_batches, shard=shard)
+        eval_batches=eval_batches, shard=shard, mesh=mesh)
 
 
 def train_one_epoch(ctx: TrainerContext, epoch: int,
@@ -453,7 +482,7 @@ def train_one_epoch(ctx: TrainerContext, epoch: int,
                     for k, v in global_metrics(ctx, metrics).items()}
             logger.update(**host)
             if is_main_process():
-                ips = cfg.batch_size * ctx.shard.world * (i + 1) / \
+                ips = cfg.batch_size * ctx.processes * (i + 1) / \
                     (time.time() - t0)
                 print(f"epoch {epoch} [{i}/{n_steps}] "
                       f"loss {host['loss']:.4f} lr {host.get('lr', 0):.2e} "
@@ -465,23 +494,26 @@ def train_one_epoch(ctx: TrainerContext, epoch: int,
     if tracing:  # the epoch is shorter than the profile window
         window.close()
         print(f"profile trace written to {profile_dir}", flush=True)
-    logger.synchronize_between_processes()
+    if ctx.shard.count > 1:   # each sample once: over the data axis
+        logger.synchronize_between_processes(ctx.shard.group)
     return {f"train_{k}": m.global_avg for k, m in logger.meters.items()}
 
 
 def global_metrics(ctx: TrainerContext, metrics: dict) -> dict:
-    """The step's metrics over the global batch: the ranks' mean of the
-    loss, in one all-reduce (the grad norm and lr are every rank's)."""
-    if ctx.shard.world == 1:
+    """The step's metrics over the global batch: the data indices' mean of
+    the loss, in one all-reduce over the data axis (a data index's model
+    peers hold its loss alike; the grad norm and lr are every rank's)."""
+    if ctx.shard.count == 1:
         return metrics
-    loss = all_reduce_sum({"loss": metrics["loss"]})["loss"]
-    return {**metrics, "loss": loss / ctx.shard.world}
+    loss = all_reduce_sum({"loss": metrics["loss"]}, ctx.shard.group)["loss"]
+    return {**metrics, "loss": loss / ctx.shard.count}
 
 
 def evaluate(ctx: TrainerContext, use_ema: bool = False,
              max_batches: Optional[int] = None) -> dict:
     """Eval pass: top-1/top-5/loss summed on the device, summed over the
-    ranks in one all-reduce and read once at the end."""
+    data axis in one all-reduce (each sample once) and read once at the
+    end."""
     params = ctx.state.ema_params if use_ema else ctx.state.params
     if max_batches is None:
         max_batches = ctx.eval_batches
@@ -495,8 +527,8 @@ def evaluate(ctx: TrainerContext, use_ema: bool = False,
         m = ctx.eval_step(params, images, labels)
         for k in keys:
             totals[k] += m[k]
-    if ctx.shard.world > 1:
-        totals = all_reduce_sum(totals)
+    if ctx.shard.count > 1:
+        totals = all_reduce_sum(totals, ctx.shard.group)
     totals = {k: float(v) for k, v in totals.items()}
     n = max(totals["count"], 1.0)
     prefix = "ema_" if use_ema else ""
@@ -515,12 +547,15 @@ def main(cfg: TrainConfig, max_steps_per_epoch: Optional[int] = None,
     if world()[0] == 0 and env_world()[0] == 0:
         print(f"config: {cfg}", flush=True)
     ctx = setup(cfg)
+    if ctx is None:   # past the mesh: nothing to train
+        return {}
     main_process = is_main_process()
     if main_process:
-        n = ctx.shard.world
+        n = ctx.processes
         wrapper = "FSDP2" if is_fsdp(ctx.model) else \
             "DDP" if unwrap(ctx.model) is not ctx.model else "no wrapper"
-        print(f"devices: {n} ({n} processes, {wrapper}): {ctx.device}",
+        mesh = f"; mesh {ctx.mesh.sizes}" if ctx.mesh is not None else ""
+        print(f"devices: {n} ({n} processes, {wrapper}): {ctx.device}{mesh}",
               flush=True)
 
     if cfg.eval_only:

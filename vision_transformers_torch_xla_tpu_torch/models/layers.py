@@ -9,6 +9,12 @@ Parameters are created empty; `init_weights` fills them from an explicit
 `torch.Generator` with the flax initializers (truncated normal 0.02, zero
 biases, unit norms), or a state dict is loaded over them. Stochastic
 layers (dropout, drop_path) also take an explicit generator.
+
+On the mesh's `model` axis (parallel/split.py) `Attention`,
+`AttentionPoolLatent` and `Mlp` run their rank's heads or hidden columns
+(`heads_split`, `hidden_split`, set by parallel/sharding.py::split_heads),
+and `Attention` its rank's query rows of the gathered tokens under sp
+(`seq_split`); unsplit, those attributes are None.
 """
 from __future__ import annotations
 
@@ -31,6 +37,15 @@ from vision_transformers_torch_xla_tpu_torch.ops.flash_attention import (
 from vision_transformers_torch_xla_tpu_torch.ops.mlp_fused import (
     WIDTH_MULTIPLE,
     mlp_gelu,
+    mlp_gelu_columns,
+)
+from vision_transformers_torch_xla_tpu_torch.parallel.split import (
+    ModelAxis,
+    copy_in,
+    gather_tokens,
+    reduce_out,
+    token_count,
+    token_slice,
 )
 
 # flax's truncated_normal(stddev) draws a unit normal cut at ±2 and scales
@@ -78,6 +93,17 @@ def _keep_mask(shape, rate: float, generator: Optional[torch.Generator],
     return global_rand(shape, generator, device) < 1.0 - rate
 
 
+def _split_keep(shape, dim: int, axis: ModelAxis, rate: float,
+                generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The keep mask of this rank's part, along `dim`, of a tensor split
+    over the model axis: the whole tensor's draw, narrowed, so every rank
+    draws what the unsplit layer draws."""
+    whole = list(shape)
+    whole[dim] *= axis.count
+    return _keep_mask(tuple(whole), rate, generator, device).narrow(
+        dim, axis.index * shape[dim], shape[dim])
+
+
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
               generator: Optional[torch.Generator],
               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -122,7 +148,13 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+        return self.add_bias(self.product(x))
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """x·Wᵀ without the bias (a row-parallel layer's partial sum)."""
+        return torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
         return bias_add(y, self.bias) if self.bias is not None else y
 
 
@@ -146,9 +178,15 @@ class LayerNorm(nn.Module):
         nn.init.constant_(self.weight, self.weight_init)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(self.dtype)
+    def forward(self, x: torch.Tensor,
+                through: Optional[Callable] = None) -> torch.Tensor:
+        """`through` maps the weight and bias first (a split region passes
+        them through parallel/split.py::copy_in)."""
+        w, b = self.weight, self.bias
+        if through is not None:
+            w, b = through(w), through(b)
+        return F.layer_norm(x.float(), w.shape, w.float(), b.float(),
+                            self.eps).to(self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -166,10 +204,12 @@ class RMSNorm(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                through: Optional[Callable] = None) -> torch.Tensor:
+        w = self.weight if through is None else through(self.weight)
         x = x.float()
         mul = torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps)
-        return (x * (mul * self.weight.float())).to(self.dtype)
+        return (x * (mul * w.float())).to(self.dtype)
 
 
 def make_norm(norm_type: str, dim: int, eps: float = 1e-6,
@@ -250,7 +290,13 @@ class Mlp(nn.Module):
     JAX layer's rule (layers.py:199-203): no glu, no norm, gelu_tanh, no
     dropout, a 3-D input and every width a multiple of 128. Anything else
     takes the plain path; the parameters are fc1/fc2 either way, so state
-    dicts load with strict=True on both."""
+    dicts load with strict=True on both.
+
+    Split over the model axis (`hidden_split`), fc1 holds the rank's
+    hidden columns (a packed SwiGLU's of both halves) and fc2 the same
+    columns of its input: the rank's partial fc2 product is summed over
+    the ranks before fc2's bias; K3 runs on the rank's columns
+    (ops/mlp_fused.py::mlp_gelu_columns)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, bias: bool = True, act: str = "gelu",
@@ -273,6 +319,7 @@ class Mlp(nn.Module):
         self.norm = make_norm(norm_type, mid, norm_eps, dtype, param_dtype,
                               device) if use_norm else None
         self.fc2 = Dense(mid, out_features, bias, dtype, param_dtype, device)
+        self.hidden_split: Optional[ModelAxis] = None
 
     def _fused(self, x: torch.Tensor) -> bool:
         widths = (x.shape[-1], self.fc1.weight.shape[0],
@@ -284,19 +331,34 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        cols = self.hidden_split
+        if cols is not None:
+            x = copy_in(x, cols)
         if self._fused(x):
-            return mlp_gelu(x.to(self.dtype), self.fc1.weight.t(),
-                            self.fc1.bias, self.fc2.weight.t(), self.fc2.bias)
+            w1, w2 = self.fc1.weight.t(), self.fc2.weight.t()
+            if cols is None:
+                return mlp_gelu(x.to(self.dtype), w1, self.fc1.bias, w2,
+                                self.fc2.bias)
+            y = mlp_gelu_columns(x.to(self.dtype), w1, self.fc1.bias, w2)
+            return self.fc2.add_bias(reduce_out(y, cols))
         x = self.fc1(x)
         if self.glu:
             gate, x = x.chunk(2, dim=-1)
             x = F.silu(gate) * x
         else:
             x = self.act(x)
-        x = dropout(x, self.drop, deterministic, generator)
+        keep = None
+        if cols is not None and self.drop > 0.0 and not deterministic:
+            keep = _split_keep(x.shape, -1, cols, self.drop, generator,
+                               x.device)
+        x = dropout(x, self.drop, deterministic, generator, keep)
         if self.norm is not None:
             x = self.norm(x)
-        return dropout(self.fc2(x), self.drop, deterministic, generator)
+        if cols is None:
+            y = self.fc2(x)
+        else:
+            y = self.fc2.add_bias(reduce_out(self.fc2.product(x), cols))
+        return dropout(y, self.drop, deterministic, generator)
 
 
 def attention_route(use_pallas: bool, qk_norm: bool, attn_dropping: bool,
@@ -332,7 +394,17 @@ class Attention(nn.Module):
       attn_drop, dropout on the probabilities, under autograd.
     On every route `scale_norm` (scale_attn_norm, beit3) puts a norm on
     the merged heads before `proj` (layers.py:358-362); q_norm, k_norm and
-    that norm take `norm_type`."""
+    that norm take `norm_type`.
+
+    Split over the model axis's heads (`heads_split`), qkv holds q, k and
+    v of the rank's H/M heads and proj the same columns: the route is the
+    model's, decided on its head count as JAX decides it, and the kernels
+    run on the rank's heads (K1/K2 on my_vit_b's 6 of 12 at M = 2). An M
+    that leaves an odd count of heads a rank (12 over 4) takes the same
+    route: neither K1/K2 nor K4-K6 pairs heads. proj's partial products are
+    summed over the ranks before its bias. Split over the tokens under sp
+    (`seq_split`), the rank gathers the sequence, runs the unsplit route on
+    it and keeps its own query rows for proj."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_norm: bool = False, proj_bias: bool = True,
@@ -358,15 +430,40 @@ class Attention(nn.Module):
         self.norm = make_norm(norm_type, dim, norm_eps, dtype, param_dtype,
                               device) if scale_norm else None
         self.proj = Dense(dim, dim, proj_bias, dtype, param_dtype, device)
+        self.heads_split: Optional[ModelAxis] = None
+        self.seq_split: Optional[ModelAxis] = None
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        b, s, d = x.shape
-        h, hd = self.num_heads, self.head_dim
+        heads, tokens = self.heads_split, self.seq_split
+        if tokens is not None:
+            whole = gather_tokens(x, tokens)[:, :token_count()]
+            o = token_slice(self._attend(whole, deterministic, generator),
+                            tokens)
+        else:
+            if heads is not None:
+                x = copy_in(x, heads)
+            o = self._attend(x, deterministic, generator)
+        if self.norm is not None:
+            o = self.norm(o)
+        if heads is None:
+            y = self.proj(o)
+        else:
+            y = self.proj.add_bias(reduce_out(self.proj.product(o), heads))
+        return dropout(y, self.proj_drop, deterministic, generator)
+
+    def _attend(self, x: torch.Tensor, deterministic: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The merged heads (B, S, h·hd) of this rank's h heads (all of
+        them unsplit), before the norm and proj."""
+        b, s, _ = x.shape
+        heads = self.heads_split
+        h = self.num_heads // (heads.count if heads is not None else 1)
+        hd = self.head_dim
         scale = hd ** -0.5
         attn_dropping = self.attn_drop > 0.0 and not deterministic
         route = attention_route(self.use_pallas, self.qk_norm, attn_dropping,
-                                h, hd, s)
+                                self.num_heads, hd, s)
         if route == "qkv_proj":
             o = qkv_proj_attention(x.to(self.dtype), self.qkv.weight.t(),
                                    self.qkv.bias, h, scale=scale)
@@ -376,20 +473,24 @@ class Attention(nn.Module):
             qkv = self.qkv(x).reshape(b, s, 3, h, hd).permute(2, 0, 3, 1, 4)
             q, k, v = qkv[0], qkv[1], qkv[2]
             if self.qk_norm:
-                q, k = self.q_norm(q), self.k_norm(k)
+                # replicated norms inside the split: their gradient is the
+                # ranks' sum
+                through = None if heads is None else \
+                    (lambda w: copy_in(w, heads))
+                q, k = self.q_norm(q, through), self.k_norm(k, through)
             if attn_dropping:
                 # dropout on the softmax probabilities (timm semantics)
                 p = torch.softmax(
                     torch.matmul(q.float(), k.float().transpose(-1, -2))
                     * scale, dim=-1)
-                p = dropout(p, self.attn_drop, False, generator)
+                keep = None if heads is None else _split_keep(
+                    p.shape, 1, heads, self.attn_drop, generator, p.device)
+                p = dropout(p, self.attn_drop, False, generator, keep)
                 o = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
             else:
                 o = reference_attention(q, k, v, scale)
-            o = o.transpose(1, 2).reshape(b, s, d)
-        if self.norm is not None:
-            o = self.norm(o)
-        return dropout(self.proj(o), self.proj_drop, deterministic, generator)
+            o = o.transpose(1, 2).reshape(b, s, h * hd)
+        return o
 
 
 class LayerScale(nn.Module):
@@ -460,7 +561,9 @@ class AttentionPoolLatent(nn.Module):
     """The MAP head (layers.py:476-514): one learned latent query
     cross-attends over the tokens on the plain attention (JAX calls
     multi_head_attention at its default use_pallas=False), then proj, and
-    an MLP residual behind a LayerNorm; returns the latent's row."""
+    an MLP residual behind a LayerNorm; returns the latent's row. Split
+    over the model axis (`heads_split`), q, kv and proj hold the rank's
+    heads as Attention's do, and the MLP its hidden columns."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  norm_eps: float = 1e-6, dtype=torch.bfloat16,
@@ -474,21 +577,30 @@ class AttentionPoolLatent(nn.Module):
         self.proj = Dense(dim, dim, True, **kw)
         self.norm = LayerNorm(dim, norm_eps, **kw)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, **kw)
+        self.heads_split: Optional[ModelAxis] = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         trunc_normal_(self.latent, 0.02, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
-        h = self.num_heads
-        hd = d // h
-        q = self.q(self.latent.to(x.dtype).expand(b, 1, d))
+        heads = self.heads_split
+        h = self.num_heads // (heads.count if heads is not None else 1)
+        hd = d // self.num_heads
+        latent = self.latent.to(x.dtype).expand(b, 1, d)
+        if heads is not None:
+            latent, x = copy_in(latent, heads), copy_in(x, heads)
+        q = self.q(latent)
         k, v = self.kv(x).chunk(2, dim=-1)
         q = q.reshape(b, 1, h, hd).transpose(1, 2)
         k = k.reshape(b, s, h, hd).transpose(1, 2)
         v = v.reshape(b, s, h, hd).transpose(1, 2)
         o = reference_attention(q, k, v, hd ** -0.5)
-        o = self.proj(o.transpose(1, 2).reshape(b, 1, d))
+        o = o.transpose(1, 2).reshape(b, 1, h * hd)
+        if heads is None:
+            o = self.proj(o)
+        else:
+            o = self.proj.add_bias(reduce_out(self.proj.product(o), heads))
         o = o + self.mlp(self.norm(o))
         return o[:, 0]
 

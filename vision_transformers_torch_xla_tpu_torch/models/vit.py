@@ -14,6 +14,10 @@ the JAX model; logits are fp32.
 names (eager PyTorch has no compile time to save) and takes the JAX scan
 path's semantics (:49-70, :261-275): every block is a `Block`, whatever
 `block_type` says (ROADMAP F10), and remat recomputes everything.
+
+Under --param_sharding sp (`seq_split`, parallel/split.py) the blocks run
+on this rank's slice of the tokens, as JAX's constraint at every block's
+input puts them (:282), and the tokens are gathered after the last block.
 """
 from __future__ import annotations
 
@@ -41,6 +45,13 @@ from vision_transformers_torch_xla_tpu_torch.models.layers import (
 )
 from vision_transformers_torch_xla_tpu_torch.models.pretrained import (
     resample_pos_embed,
+)
+from vision_transformers_torch_xla_tpu_torch.parallel.split import (
+    ModelAxis,
+    current_tokens,
+    gather_tokens,
+    token_slice,
+    tokens_of,
 )
 
 # Param name fragments excluded from weight decay, as the JAX model's
@@ -72,27 +83,29 @@ def remat_block(block: nn.Module, x: torch.Tensor, deterministic: bool,
     runs from it, and the generator is then put back where the recompute
     found it: the backward sees the forward's masks, as JAX's functional
     keys give them under remat. The recompute also takes the forward's
-    rows of the global batch's draws (core/rng.py::BatchShard)."""
+    rows of the global batch's draws (core/rng.py::BatchShard) and, under
+    sp, the forward's token count (parallel/split.py::tokens_of)."""
     context_fn = ckpt.noop_context_fn
     if policy == "dots":
         def context_fn():
             return ckpt.create_selective_checkpoint_contexts(_save_dense)
     replay = None if deterministic or generator is None \
         else generator.get_state()
-    shard = current_shard()
+    shard, tokens = current_shard(), current_tokens()
     calls = [0]
 
     def run(x):
         calls[0] += 1
-        if replay is None or calls[0] == 1:
-            return block(x, deterministic, generator)
-        now = generator.get_state()
-        generator.set_state(replay)
-        try:
-            with sharded_draws(shard):
+        with tokens_of(tokens):
+            if replay is None or calls[0] == 1:
                 return block(x, deterministic, generator)
-        finally:
-            generator.set_state(now)
+            now = generator.get_state()
+            generator.set_state(replay)
+            try:
+                with sharded_draws(shard):
+                    return block(x, deterministic, generator)
+            finally:
+                generator.set_state(now)
 
     return ckpt.checkpoint(run, x, use_reentrant=False,
                            preserve_rng_state=False, context_fn=context_fn)
@@ -202,6 +215,7 @@ class VisionTransformer(nn.Module):
             if final_norm and self.use_fc_norm else None
         self.head = Dense(embed_dim, num_classes, True, **kw) \
             if num_classes > 0 else None
+        self.seq_split: Optional[ModelAxis] = None
 
     @property
     def num_prefix_tokens(self) -> int:
@@ -272,13 +286,25 @@ class VisionTransformer(nn.Module):
             x = self._patch_dropout(x, generator)
         if self.norm_pre is not None:
             x = self.norm_pre(x)
+        if self.seq_split is None:
+            x = self._blocks(x, deterministic, generator)
+        else:
+            s = x.shape[1]
+            with tokens_of(s):
+                x = self._blocks(token_slice(x, self.seq_split),
+                                 deterministic, generator)
+            x = gather_tokens(x, self.seq_split)[:, :s]
+        if self.norm is not None:
+            x = self.norm(x)
+        return x
+
+    def _blocks(self, x: torch.Tensor, deterministic: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             x = remat_block(blk, x, deterministic, generator,
                             self.remat_policy) if remat \
                 else blk(x, deterministic, generator)
-        if self.norm is not None:
-            x = self.norm(x)
         return x
 
     def forward_head(self, x: torch.Tensor, deterministic: bool = True,

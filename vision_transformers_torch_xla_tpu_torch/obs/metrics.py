@@ -5,7 +5,8 @@ the trainer uses it: `SmoothedValue` (the window's median and the global
 average) and `MetricLogger` (a dict of them). Meters are fed from device
 scalars pulled only at log_freq. `synchronize_between_processes` sums
 each meter's [count, total] over the ranks of a torch.distributed group
-(JAX :36-47). `vit_train_flops_per_image` is
+(JAX :36-47): the trainer passes its data axis's, so a meter counts each
+sample once whatever the model axis holds. `vit_train_flops_per_image` is
 bench.py's analytic count (:40-52), the numerator of MFU.
 """
 from __future__ import annotations
@@ -33,15 +34,16 @@ class SmoothedValue:
         self.count += n
         self.total += value * n
 
-    def synchronize_between_processes(self):
-        """All-reduce [count, total] across processes (JAX :36-47)."""
+    def synchronize_between_processes(self, group=None):
+        """All-reduce [count, total] across `group`'s processes (the
+        default group if None; JAX :36-47)."""
         if not (dist.is_available() and dist.is_initialized()):
             return
         dev = torch.device("cuda", torch.cuda.current_device()) \
-            if dist.get_backend() == "nccl" else torch.device("cpu")
+            if dist.get_backend(group) == "nccl" else torch.device("cpu")
         t = torch.tensor([self.count, self.total], dtype=torch.float64,
                          device=dev)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         self.count = int(t[0].item())
         self.total = float(t[1].item())
 
@@ -70,9 +72,9 @@ class MetricLogger:
             if v is not None:
                 self.meters[k].update(float(v))
 
-    def synchronize_between_processes(self):
+    def synchronize_between_processes(self, group=None):
         for meter in self.meters.values():
-            meter.synchronize_between_processes()
+            meter.synchronize_between_processes(group)
 
     def __str__(self):
         return self.delimiter.join(f"{n}: {m}" for n, m in self.meters.items())

@@ -176,7 +176,8 @@ class MlpGelu(torch.autograd.Function):
         if b2 is not None:
             y = y + b2.to(x.dtype)
         ctx.save_for_backward(x, h, w1, w2)
-        ctx.bias_dtypes = (b1.dtype, b2.dtype) if b1 is not None else None
+        ctx.bias_dtypes = tuple(b.dtype if b is not None else None
+                                for b in (b1, b2))
         return y
 
     @staticmethod
@@ -189,12 +190,21 @@ class MlpGelu(torch.autograd.Function):
         dx = torch.matmul(dh, w1.to(dh.dtype).t()) if need[0] else None
         dw1 = weight_grad(x, dh).to(w1.dtype) if need[1] else None
         dw2 = weight_grad(a, dy).to(w2.dtype) if need[3] else None
-        db1_out = db2 = None
-        if ctx.bias_dtypes is not None:
-            db1_out = db1.to(ctx.bias_dtypes[0]) if need[2] else None
-            db2 = dy.sum(dim=(0, 1), dtype=torch.float32).to(
-                ctx.bias_dtypes[1]) if need[4] else None
+        b1_dtype, b2_dtype = ctx.bias_dtypes
+        db1_out = db1.to(b1_dtype) \
+            if b1_dtype is not None and need[2] else None
+        db2 = dy.sum(dim=(0, 1), dtype=torch.float32).to(b2_dtype) \
+            if b2_dtype is not None and need[4] else None
         return dx, dw1, db1_out, dw2, db2
+
+
+def _check_widths(x: torch.Tensor, w1: torch.Tensor,
+                  w2: torch.Tensor) -> None:
+    if x.shape[-1] % WIDTH_MULTIPLE or w1.shape[1] % WIDTH_MULTIPLE or \
+            w2.shape[1] % WIDTH_MULTIPLE:
+        raise ValueError(
+            f"mlp_gelu needs widths that are multiples of {WIDTH_MULTIPLE}, "
+            f"got d={x.shape[-1]} hidden={w1.shape[1]} out={w2.shape[1]}")
 
 
 def mlp_gelu(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
@@ -206,9 +216,18 @@ def mlp_gelu(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
     function; models/layers.py::Mlp takes its plain path otherwise."""
     if (b1 is None) != (b2 is None):
         raise ValueError("mlp_gelu: biases must be both present or both absent")
-    if x.shape[-1] % WIDTH_MULTIPLE or w1.shape[1] % WIDTH_MULTIPLE or \
-            w2.shape[1] % WIDTH_MULTIPLE:
-        raise ValueError(
-            f"mlp_gelu needs widths that are multiples of {WIDTH_MULTIPLE}, "
-            f"got d={x.shape[-1]} hidden={w1.shape[1]} out={w2.shape[1]}")
+    _check_widths(x, w1, w2)
     return MlpGelu.apply(x, w1, b1, w2, b2)
+
+
+def mlp_gelu_columns(x: torch.Tensor, w1: torch.Tensor,
+                     b1: Optional[torch.Tensor],
+                     w2: torch.Tensor) -> torch.Tensor:
+    """One model-axis rank's part of `mlp_gelu` (parallel/split.py): w1 and
+    b1 are its columns of fc1, w2 the same rows of fc2's (K, O) weight.
+    Returns the partial fc2 product without fc2's bias, which the caller
+    sums over the ranks before it adds the bias once. The backward is the
+    same custom VJP: K3 runs on the rank's columns, its db1 partials
+    those columns' own, and no collective enters it."""
+    _check_widths(x, w1, w2)
+    return MlpGelu.apply(x, w1, b1, w2, None)

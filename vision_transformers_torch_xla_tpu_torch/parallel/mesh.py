@@ -1,13 +1,16 @@
-"""Process group and device mesh: the data axis over torch.distributed.
+"""Process group and device mesh: the data and model axes over
+torch.distributed.
 
 Counterpart of vision_transformers_torch_xla_tpu/parallel/mesh.py
 (`init_distributed` :54-89, `create_mesh` :92-123, `axis_rules` :126-137).
 The JAX trainer runs one process per host over all of its chips; the port
-runs one process per GPU, launched by torchrun, so a host of 4 cards is 4
-processes and the world is the number of GPUs:
+runs one process per GPU, launched by torchrun (launch/runner.py fans it
+out over hosts), so a host of 4 cards is 4 processes and the world is the
+number of GPUs:
 
     torchrun --nproc_per_node 4 -m \
-        vision_transformers_torch_xla_tpu_torch.launch.main ...
+        vision_transformers_torch_xla_tpu_torch.launch.main \
+        --mesh_shape data:2,model:2 ...
 
 `init_distributed` joins the group that torchrun's env describes (RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): nccl on the card, gloo
@@ -16,18 +19,23 @@ group. Unlike JAX (mesh.py:88-89), a rendezvous that fails raises: nothing
 drops quietly to one process.
 
 `create_mesh` resolves the (name, size) pairs of --mesh_shape as JAX does,
-with JAX's errors, over the world's GPUs. Only the data axis is ported:
-a `model` axis larger than 1 (tensor parallelism), --param_sharding sp
-and a mesh smaller than the world (JAX's device subset, :113-115) raise
-naming ROADMAP M6.
+with JAX's errors, over the world's GPUs, into a `ProcessMesh`: the
+DeviceMesh named as JAX names it, the last axis fastest, and the groups of
+its axes. `data` carries the batch (DDP or FSDP2, parallel/sharding.py);
+`model` carries the heads and the MLP's hidden dim (tensor parallelism) or,
+under --param_sharding sp, the tokens (parallel/split.py). A mesh smaller
+than the world takes the first ranks, as JAX takes the first devices
+(:113-115): the others sit out, and every group the trainer uses is the
+mesh's or one of its axes', never the default group.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import logging
 import math
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -105,7 +113,7 @@ def world() -> Tuple[int, int]:
 def mesh_sizes(axes: Sequence[Tuple[str, int]], n: int) -> dict:
     """{name: size} of (name, size) pairs over n devices, one size -1
     (inferred), with JAX create_mesh's errors (:107-119). A mesh smaller
-    than n (JAX's device subset) raises naming M6."""
+    than n is JAX's device subset: its product is what the mesh uses."""
     names = [a for a, _ in axes]
     sizes = [s for _, s in axes]
     if sizes.count(-1) > 1:
@@ -117,53 +125,104 @@ def mesh_sizes(axes: Sequence[Tuple[str, int]], n: int) -> dict:
                              f"{known}")
         sizes[sizes.index(-1)] = n // known
     want = math.prod(sizes)
-    if want < n:
-        raise NotImplementedError(
-            f"mesh {dict(zip(names, sizes))} on {n} devices: a mesh over a "
-            f"subset of the processes is not in the port yet (ROADMAP M6)")
-    if want != n:
+    if want > n:
         raise ValueError(f"mesh {dict(zip(names, sizes))} != {n} devices")
     return dict(zip(names, sizes))
 
 
 def check_axes(axes: Sequence[Tuple[str, int]], param_sharding: str) -> None:
-    """Raise, naming M6, on the parts of JAX's mesh the port lacks: any axis
-    but `data` of a size other than 1 (tensor parallelism over `model`) and
-    --param_sharding sp; an unknown --param_sharding is a ValueError."""
-    if param_sharding == "sp":
-        raise NotImplementedError(
-            "--param_sharding sp (sequence parallelism) is not in the port "
-            "yet (ROADMAP M6)")
-    if param_sharding not in ("replicated", "fsdp"):
+    """Raise on what the rules cannot place: an unknown --param_sharding
+    (ValueError), and an axis other than `data` and `model` of a size
+    above 1, which no logical axis maps to (JAX would run every step on it
+    twice over; the port refuses it)."""
+    if param_sharding not in ("replicated", "fsdp", "sp"):
         raise ValueError(f"--param_sharding {param_sharding!r}: one of "
                          f"replicated, fsdp, sp")
     for name, size in axes:
-        if name != "data" and size != 1:
-            raise NotImplementedError(
-                f"mesh axis {name}:{size}: only the data axis is in the "
-                f"port yet; tensor parallelism is ROADMAP M6")
+        if name not in ("data", "model") and size != 1:
+            raise ValueError(
+                f"mesh axis {name}:{size}: the rules map batch to 'data' "
+                f"and heads, mlp and tokens to 'model'; no axis maps to "
+                f"{name!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """This process's place on the mesh of --mesh_shape.
+
+    `device_mesh` is the torch DeviceMesh over the first `len(ranks)`
+    ranks, named as JAX names its axes; `group` holds every rank of the
+    mesh (never the default group: ranks past the mesh sit out), and
+    `member` says whether this process is one of them. The last axis is
+    the fastest, as in JAX's reshape (mesh.py:123): on a (data, model)
+    mesh rank = d·M + m."""
+
+    device_mesh: object
+    sizes: Dict[str, int]
+    ranks: Tuple[int, ...]
+    group: object
+    member: bool
+
+    def size(self, name: str) -> int:
+        return self.sizes.get(name, 1)
+
+    def index(self, name: str) -> int:
+        """This rank's coordinate on axis `name` (0 on an axis the mesh
+        lacks)."""
+        if name not in self.sizes:
+            return 0
+        return self.device_mesh.get_local_rank(name)
+
+    def axis_group(self, name: str):
+        """The group of this rank's peers along `name`: the ranks whose
+        other coordinates equal this rank's. None on an axis the mesh
+        lacks."""
+        if name not in self.sizes:
+            return None
+        return self.device_mesh.get_group(name)
 
 
 def create_mesh(axes: Sequence[Tuple[str, int]] = (("data", -1),),
-                device: Optional[torch.device] = None):
-    """The 1-D DeviceMesh named 'data' over the group's ranks, or None
-    without a group (one process: both shardings are the plain model)."""
-    sizes = mesh_sizes(axes, world()[1])
+                device: Optional[torch.device] = None
+                ) -> Optional[ProcessMesh]:
+    """The N-D mesh over the group's ranks (a collective: every rank of the
+    world calls it), or None without a group (one process: every
+    sharding is the plain model). A mesh smaller than the world takes the
+    first ranks, as JAX takes the first devices (:113-115); the rest are
+    logged and sit out."""
+    rank, n = world()
+    sizes = mesh_sizes(axes, n)
     if not dist.is_initialized():
         return None
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh
 
-    return init_device_mesh((device or torch.device("cpu")).type,
-                            (sizes.get("data", 1),),
-                            mesh_dim_names=("data",))
+    names = tuple(sizes)
+    want = math.prod(sizes.values())
+    ranks = tuple(range(want))
+    device_mesh = DeviceMesh(
+        (device or torch.device("cpu")).type,
+        torch.arange(want).reshape(tuple(sizes.values())),
+        mesh_dim_names=names)
+    member = rank < want
+    if len(names) > 1:
+        # every rank of the world takes part in making a group
+        group = dist.new_group(list(ranks), timeout=GROUP_TIMEOUT)
+    else:
+        group = device_mesh.get_group() if member else None
+    if want < n:
+        log.warning("mesh %s uses ranks 0-%d of %d: ranks %d-%d sit out",
+                    sizes, want - 1, n, want, n - 1)
+    return ProcessMesh(device_mesh, sizes, ranks,
+                       group if member else None, member)
 
 
 def axis_rules(param_sharding: str = "replicated", mesh=None):
     """Logical -> mesh rules by --param_sharding (JAX :126-137), dropping
-    mappings to axes the mesh lacks."""
+    mappings to axes the mesh lacks (a DeviceMesh or a ProcessMesh)."""
     rules = {"fsdp": FSDP_AXIS_RULES, "sp": SP_AXIS_RULES}.get(
         param_sharding, LOGICAL_AXIS_RULES)
     if mesh is None:
         return rules
-    return tuple((lg, p if p in mesh.mesh_dim_names else None)
-                 for lg, p in rules)
+    names = mesh.sizes if isinstance(mesh, ProcessMesh) else \
+        mesh.mesh_dim_names
+    return tuple((lg, p if p in names else None) for lg, p in rules)

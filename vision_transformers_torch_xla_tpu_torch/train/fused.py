@@ -19,9 +19,12 @@ live on the host, so the update makes no device round trip; the grad norm
 stays a device scalar.
 
 Under FSDP (parallel/sharding.py) the params, grads, moments and EMA are
-DTensor shards: the update runs on each rank's local shards, and the
-global norm sums the shards' squares in one all-reduce, so the clip sees
-the whole gradient's norm. The `mask` and `scales` stay keyed by name.
+DTensor shards, and on the mesh's model axis (parallel/split.py) the
+split tensors are each rank's part: the update runs on each rank's local
+tensors, and the global norm sums each tensor's squares over the axes that
+cut it, and only those (a tensor replicated over an axis counts once), so
+the clip sees the whole gradient's norm. The `mask` and `scales` stay
+keyed by name.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
     is_sharded,
     local,
 )
+from vision_transformers_torch_xla_tpu_torch.parallel.split import Split
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -68,10 +72,12 @@ class FusedAdamW:
     @torch.no_grad()
     def fused_update(self, grads: Mapping[str, torch.Tensor], state: Dict,
                      params: Mapping[str, torch.Tensor],
-                     ema: Optional[Mapping[str, torch.Tensor]] = None
+                     ema: Optional[Mapping[str, torch.Tensor]] = None,
+                     splits: Optional[Mapping[str, Split]] = None
                      ) -> torch.Tensor:
         """Update params, state and ema in place; return the global grad
-        norm (before the clip) as a device scalar."""
+        norm (before the clip) as a device scalar. `splits` names the
+        tensors cut over the model axis."""
         count = state["count"]
         lr = self.learning_rate(count) if callable(self.learning_rate) \
             else self.learning_rate
@@ -81,7 +87,7 @@ class FusedAdamW:
         b1, b2 = self.b1, self.b2
         c1 = 1.0 / (1.0 - b1 ** t)
         c2 = 1.0 / (1.0 - b2 ** t)
-        norm = global_norm(grads)
+        norm = global_norm(grads, splits)
         gscale = None
         if self.clip_grad is not None:
             gscale = torch.clamp(self.clip_grad / (norm + 1e-16), max=1.0)
@@ -108,14 +114,27 @@ class FusedAdamW:
         return norm
 
 
-def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """√Σ‖g‖² in fp32, as a device scalar; over DTensor shards, the shards'
-    summed squares all-reduced over their mesh first."""
-    first = next(iter(grads.values()))
-    if not is_sharded(first):
-        return torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads.values()]))
-    squares = torch.stack([torch.linalg.vector_norm(local(g).float()) ** 2
-                           for g in grads.values()]).sum()
-    dist.all_reduce(squares, group=first.device_mesh.get_group())
-    return squares.sqrt()
+def global_norm(grads: Mapping[str, torch.Tensor],
+                splits: Optional[Mapping[str, Split]] = None
+                ) -> torch.Tensor:
+    """√Σ‖g‖² in fp32, as a device scalar. Each tensor's local squares are
+    summed over the groups that cut it, in one all-reduce a group for each
+    set of tensors cut alike: FSDP's data group for a DTensor shard, the
+    model axis's group for a tensor in `splits`, both in turn for one cut
+    by both. A tensor replicated over an axis is counted once."""
+    splits = splits or {}
+    by_cut: Dict[tuple, list] = {}
+    for k, g in grads.items():
+        cut = ((g.device_mesh.get_group(0),) if is_sharded(g) else ()) + \
+            ((splits[k].axis.group,) if k in splits else ())
+        by_cut.setdefault(cut, []).append(
+            torch.linalg.vector_norm(local(g).float()))
+    if list(by_cut) == [()]:
+        return torch.linalg.vector_norm(torch.stack(by_cut[()]))
+    total = []
+    for cut, norms in by_cut.items():
+        squares = torch.stack(norms).square().sum()
+        for group in cut:
+            dist.all_reduce(squares, group=group)
+        total.append(squares)
+    return torch.stack(total).sum().sqrt()

@@ -10,11 +10,12 @@ the JAX draws to `apply_mixup`. Semantics are timm's: pairing with the
 batch flip, cut = int(h·√(1−λ)), a uniform centre, a clipped box, and λ
 corrected from the box area (mixup.py:79-100).
 
-On W data-parallel processes the pairing is the *global* batch's flip, as
-JAX pairs the rows of its global array: global row g = r·b + i mixes with
-row N−1−g, which is rank W−1−r's row b−1−i. `apply_mixup` takes the flip
-as `flip`; the train step passes parallel/sharding.py::global_flip, one
-exchange with that rank.
+On D data indices (the mesh's data axis) the pairing is the *global*
+batch's flip, as JAX pairs the rows of its global array: global row g =
+d·b + i mixes with row N−1−g, which is data index D−1−d's row b−1−i.
+`apply_mixup` takes the flip as `flip`; the train step passes
+parallel/sharding.py::global_flip, one exchange with that index's rank
+in the data axis's group.
 """
 from __future__ import annotations
 

@@ -10,12 +10,15 @@ attention forward and backward are the port's kernels
 (ops/flash_attention.py). Metrics come back as device scalars; the caller
 reads them only at log_freq (steps.py:11-13).
 
-On W data-parallel processes (parallel/) the step takes `shard`, this
-rank's place in the global batch: every per-sample draw is its rows of the
-global batch's draw and mixup pairs across ranks (core/rng.py,
+On a mesh (parallel/) the step takes `shard`, this rank's place in the
+global batch (its data index): every per-sample draw is its rows of the
+global batch's draw and mixup pairs across the data axis (core/rng.py,
 parallel/sharding.py::global_flip), so the step is the JAX step on the
-global batch. DDP or FSDP averages the gradients; the metrics are this
-rank's, and the caller reduces them when it reads them.
+global batch. DDP or FSDP averages the gradients over the data axis (over
+the whole mesh under sp), the model axis's split reduces its own inside
+the backward, and the grad norm sums each tensor's squares over the axes
+that split it (train/fused.py::global_norm); the metrics are this rank's,
+and the caller reduces them over the data axis when it reads them.
 """
 from __future__ import annotations
 
@@ -88,12 +91,13 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
     mixup, as in JAX (steps.py:71-77). With `teacher`, the KD loss mixes
     in its logits (launch/main.py::build_teacher builds the teacher from
     --teacher_model and --teacher_path). `shard` places the batch in the
-    global batch of W ranks; a fed `aug_draw` holds this rank's rows."""
+    global batch by its data index; a fed `aug_draw` holds this rank's
+    rows."""
     if second_order:
         raise NotImplementedError(
             "second-order optimizers (adahessian) are not in the port yet "
             "(ROADMAP M7)")
-    flip = global_flip(shard) if shard.world > 1 else None
+    flip = global_flip(shard) if shard.count > 1 else None
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor, seed: int,
@@ -105,7 +109,7 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
             if cfg.device_aug is not None:
                 if aug_draw is None:
                     aug_draw = sample_augment(
-                        rngs.aug, b * shard.world,
+                        rngs.aug, b * shard.count,
                         cfg.device_aug).rows(shard.rows(b))
                 images = apply_augment(images, aug_draw, cfg.device_aug,
                                        rngs.aug_noise)
@@ -133,7 +137,7 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
             loss.backward()
         grads = {k: p.grad for k, p in state.params.items()}
         grad_norm = tx.fused_update(grads, state.opt_state, state.params,
-                                    state.ema_params)
+                                    state.ema_params, splits=state.splits)
         if cfg.ema_decay is not None and state.ema_params is not None \
                 and tx.ema_decay is None:
             ema_update(state.ema_params, state.params, cfg.ema_decay)
