@@ -446,7 +446,24 @@ The model axis (parallel/split.py, the rest of M6):
     segfaulted on torch 2.11); the worst of each printed beside its limit,
     then one more step's wall time in one process and in each rank (gloo
     over host memory on one card: no speed claim), with the card's name
-    and power limit.
+    and power limit. The next run's ranks start while the current run
+    steps, so at most two runs' ranks share the card and the host.
+
+ConvNeXt and the optimizers (models/convnext.py, train/optim.py):
+
+36. convnext_tiny through main() with the ConvNeXt paper's per-GPU recipe
+    (CONVNEXT_FLAGS: b128 at 224 px, bf16, --update_freq 4, drop path 0.1,
+    layer scale 1e-6, EMA, mixup 0.8 / cutmix 1.0, smoothing 0.1) for 8
+    micro-steps, which are 2 updates: the loss finite, the optimizer's
+    count 2, and none of the twelve kernels launched (its convolutions and
+    products are cuDNN's and cuBLAS's; the model has no kernel route);
+    then the micro-step timed on one device batch (median CUDA-event ms,
+    images/s, peak memory, with the card's name and power limit); its
+    bf16 forward on the seeded weights (gammas 1) through a .pth against
+    tests/data/torch_port_golden_convnext_tiny.json (LOGIT_ATOL,
+    LOGIT_REL_L2); CONVNEXT_REQUESTS requests to a convnext_tiny server;
+    one step each of lamb and adahessian (a double backward) on
+    convnext_atto at b128.
 
 Every phase counts the launches of all twelve kernels: a run with the
 default flags launches none of K3, K7-K12, and no model path launches K7,
@@ -1007,6 +1024,30 @@ ALL_COUNTS = ("flash_attention.ATTN_FWD_LAUNCHES",
               "flash_attention.QKV_BWD_LAUNCHES")
 
 
+# ConvNeXt (phase 36): the ConvNeXt paper's per-GPU recipe (Liu et al.
+# 2022, App. A.1: 128 images a GPU, update_freq 4, AdamW at lr 4e-3,
+# warmup 20 epochs, wd 0.05, layer scale 1e-6, drop path 0.1, EMA,
+# mixup 0.8 / cutmix 1.0, smoothing 0.1) on convnext_tiny at 224 px in the
+# bf16 policy: CONVNEXT_MICRO_STEPS micro-steps are 2 updates
+CONVNEXT_MODEL = "convnext_tiny"
+CONVNEXT_UPDATE_FREQ = 4
+CONVNEXT_MICRO_STEPS = 8
+CONVNEXT_FLAGS = [
+    "--model", CONVNEXT_MODEL, "--batch_size", str(TRAIN_BATCH),
+    "--input_size", "224", "--data_set", "synthetic", "--precision", "bf16",
+    "--update_freq", str(CONVNEXT_UPDATE_FREQ), "--epochs", "1",
+    "--limit_steps_per_epoch", str(CONVNEXT_MICRO_STEPS),
+    "--limit_eval_batches", "1", "--lr", "4e-3", "--min_lr", "1e-6",
+    "--warmup_epochs", "20", "--warmup_lr", "1e-6", "--weight_decay",
+    "0.05", "--layer_scale_init_value", "1e-6", "--drop_path", "0.1",
+    "--model_ema", "true", "--mixup", "0.8", "--cutmix", "1.0",
+    "--smoothing", "0.1"]
+CONVNEXT_REQUESTS = 3
+# one step of each on the smallest ConvNeXt at the recipe's batch
+CONVNEXT_OPT_MODEL = "convnext_atto"
+CONVNEXT_OPTS = ("lamb", "adahessian")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -1238,11 +1279,12 @@ def phase_model(counts, dev, ckpt_path, name="my_vit_b", gamma=None,
 
 
 def phase_serve(counts, ckpt_path, name="my_vit_b", tag="serve",
-                **engine_kw):
-    """8 requests to the port's HTTP server, which builds its model without
-    use_pallas_attn, as the JAX server does: no request may launch any of
-    the kernels that counts() counts. Returns the launches (of the engine's
-    warm-up and the requests) and the median latency in ms."""
+                requests=N_REQUESTS, **engine_kw):
+    """`requests` requests to the port's HTTP server, which builds its
+    model without use_pallas_attn, as the JAX server does: no request may
+    launch any of the kernels that counts() counts. Returns the launches
+    (of the engine's warm-up and the requests) and the median latency in
+    ms."""
     import numpy as np
 
     from vision_transformers_torch_xla_tpu_torch.data import native
@@ -1269,7 +1311,7 @@ def phase_serve(counts, ckpt_path, name="my_vit_b", tag="serve",
             health = json.loads(r.read())
         check(health["status"] == "ok" and health["model"] == name,
               f"/healthz replied {health}")
-        for i in range(N_REQUESTS):
+        for i in range(requests):
             req = urllib.request.Request(url + "/predict", data=jpegs[i % 4],
                                          method="POST")
             t0 = time.perf_counter()
@@ -1295,9 +1337,10 @@ def phase_serve(counts, ckpt_path, name="my_vit_b", tag="serve",
     want = np.argsort(direct)[::-1][:5].tolist()
     check([c for c, _ in replies[0]] == want,
           f"served {replies[0]}, model top-5 {want}")
-    check(replies[0] == replies[4], "same JPEG, different answers")
+    check(requests <= 4 or replies[0] == replies[4],
+          "same JPEG, different answers")
     decoder = "native" if native.available() else "PIL"
-    log(f"[{tag}] {name} decoder={decoder} requests={N_REQUESTS} "
+    log(f"[{tag}] {name} decoder={decoder} requests={requests} "
         f"median_ms={statistics.median(latencies)!r} "
         f"latencies_ms={latencies!r} kernel launches={launches} (plain "
         f"attention, as the JAX server)")
@@ -5193,15 +5236,31 @@ def phase_tp(counts):
     out = os.path.join(REPO, "build", "smoke", "tp")
     os.makedirs(out, exist_ok=True)
     launches, times = {}, {}
-    for name, (_, _, ranks, n, steps) in TP_RUNS.items():
-        t_run = time.perf_counter()
+    ports, started = set(), {}
+
+    def start(name):
+        """The run's rank processes, on a port of their own."""
         port = free_port()
-        procs = [subprocess.Popen(
+        while port in ports:
+            port = free_port()
+        ports.add(port)
+        started[name] = [subprocess.Popen(
             [sys.executable, "-c", f"import chip_smoke; chip_smoke.tp_rank("
              f"{name!r}, {r}, {port}, {out!r})"],
             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(ranks)]
-        try:
+            text=True) for r in range(TP_RUNS[name][2])]
+
+    names = list(TP_RUNS)
+    start(names[0])
+    try:
+        for i, name in enumerate(names):
+            n, steps = TP_RUNS[name][3:]
+            t_run = time.perf_counter()
+            # the next run's ranks start up while this run's step: at
+            # most two runs' ranks share the card and the host
+            if i + 1 < len(names):
+                start(names[i + 1])
+            procs = started[name]
             # the one-process step on the global batch, while the ranks run
             cfg = config_from_args(tp_flags(name, 1))
             ctx = trainer.setup(cfg)
@@ -5217,85 +5276,239 @@ def phase_tp(counts):
                 out_r, err = p.communicate(timeout=TP_TIMEOUT_S)
                 errs.append(f"rank {r} exit {p.returncode}: {out_r[-2000:]}"
                             f"{err[-3000:]}")
-        finally:
+            check(all(p.returncode == 0 for p in procs),
+                  f"phase 35 {name}: a rank failed: {errs}")
+            check_tp_run(name, ref, ref_launches, out, launches, times,
+                         t_run)
+    finally:
+        for procs in started.values():
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        check(all(p.returncode == 0 for p in procs),
-              f"phase 35 {name}: a rank failed: {errs}")
-        got = [torch.load(os.path.join(out, f"{name}_rank{r}.pt"),
-                          weights_only=False) for r in range(ranks)]
-        for g in got:
-            g["fsdp"] = "fsdp" in TP_RUNS[name][1]
-        # every rank's kernels, as many as the one-process step's, on its
-        # heads, columns and gathered tokens
-        for r, g in enumerate(got):
-            check(g["launches"] == ref_launches and all(
-                ref_launches[c] > 0 for c in TP_KERNELS[name]),
-                f"{name} rank {r}: launches {g['launches']}, the "
-                f"one-process step's {ref_launches}")
-            for kernel in TP_KERNELS[name].values():
-                check(any(kernel in k for k in g["kernels"]),
-                      f"{name} rank {r}: the trace of its first step names "
-                      f"{g['kernels']}, no {kernel}")
-            if name == "sp":
-                check(g["shapes"]["flash_fwd"] and all(
-                    SP_TOKENS in shape for shape in g["shapes"]["flash_fwd"]),
-                      f"sp rank {r}: K4 on {g['shapes']['flash_fwd']}")
-            else:
-                check(g["shapes"]["attn_fwd"] == [(TP_HEADS, 3 * 64 *
-                                                   TP_HEADS)]
-                      and g["shapes"]["attn_bwd"] == [(TP_HEADS, 3 * 64 *
-                                                       TP_HEADS)],
-                      f"{name} rank {r}: K1/K2 on {g['shapes']}")
-            if name == "tp_mlp":
-                check(g["shapes"]["fc2_bwd"] == [TP_COLUMNS],
-                      f"tp_mlp rank {r}: K3 on {g['shapes']['fc2_bwd']}")
-        # against the one-process step
-        loss_err = max(abs(a - b) / abs(b) for g in got
-                       for a, b in zip(g["losses"], ref["losses"]))
-        norm_err = max(abs(a - b) / abs(b) for g in got
-                       for a, b in zip(g["grad_norms"], ref["grad_norms"]))
-        grads = join_ranks(got, "grads")
-        grad_err = {k: float((grads[k] - w).norm()
-                             / w.norm().clamp_min(1e-30))
-                    for k, w in ref["grads"].items()}
-        params = join_ranks(got, "params", steps - 1)
-        param_err = {k: float((params[k] - w).abs().max())
-                     for k, w in ref["params"][-1].items()}
-        worst_g = max(grad_err, key=grad_err.get)
-        worst_p = max(param_err, key=param_err.get)
-        launches[name] = got[0]["launches"]
-        times[name] = {"one_process_step_ms": ref["step_ms"],
-                       "split_step_ms": [g["step_ms"] for g in got]}
-        log(f"[tp {name}] {ranks} ranks over gloo on one card "
-            f"({' '.join(TP_RUNS[name][1])}), global b{n}, {steps} step(s), "
-            f"against the one-process step: losses {got[0]['losses']!r} vs "
-            f"{ref['losses']!r}, worst relative {loss_err!r} (limit "
-            f"{TP_LOSS_RTOL}); grad norms {got[0]['grad_norms']!r} vs "
-            f"{ref['grad_norms']!r}, worst relative {norm_err!r} (limit "
-            f"{TP_GRAD_NORM_RTOL}); first-step gradients worst relative L2 "
-            f"{grad_err[worst_g]!r} ({worst_g}; limit {TP_GRAD_REL_L2}); "
-            f"params after {steps} step(s) worst {param_err[worst_p]!r} "
-            f"({worst_p}; limit {GLOO_PARAM_ATOL}); rank 0 launched "
-            f"{launches[name]} on {got[0]['shapes']}, traced "
-            f"{got[0]['kernels']}; split parameters {len(got[0]['splits'])}")
-        log(f"[tp {name}] one step on {nvidia_smi()}: one process "
-            f"{ref['step_ms']!r} ms, each rank of the split run "
-            f"{times[name]['split_step_ms']!r} ms (gloo over host memory on "
-            f"one card: the wrapper's correctness, not tensor parallelism's "
-            f"speed); run took {time.perf_counter() - t_run:.1f} s")
-        check(loss_err <= TP_LOSS_RTOL, f"{name}: losses {loss_err}")
-        check(norm_err <= TP_GRAD_NORM_RTOL, f"{name}: grad norms {norm_err}")
-        check(grad_err[worst_g] <= TP_GRAD_REL_L2,
-              f"{name} gradient {worst_g}: {grad_err[worst_g]}")
-        check(param_err[worst_p] <= GLOO_PARAM_ATOL,
-              f"{name} param {worst_p}: {param_err[worst_p]}")
-        del got, grads, params, ref
-        gc.collect()
     log(f"[time] phase 35 took {time.perf_counter() - t0:.1f} s")
     return launches, times
+
+
+def check_tp_run(name, ref, ref_launches, out, launches, times, t_run):
+    """One phase-35 run's ranks against the one-process step `ref`; adds
+    the run's launches (rank 0's) and step times to `launches`, `times`."""
+    import gc
+
+    import torch
+
+    _, _, ranks, n, steps = TP_RUNS[name]
+    got = [torch.load(os.path.join(out, f"{name}_rank{r}.pt"),
+                      weights_only=False) for r in range(ranks)]
+    for g in got:
+        g["fsdp"] = "fsdp" in TP_RUNS[name][1]
+    # every rank's kernels, as many as the one-process step's, on its
+    # heads, columns and gathered tokens
+    for r, g in enumerate(got):
+        check(g["launches"] == ref_launches and all(
+            ref_launches[c] > 0 for c in TP_KERNELS[name]),
+            f"{name} rank {r}: launches {g['launches']}, the "
+            f"one-process step's {ref_launches}")
+        for kernel in TP_KERNELS[name].values():
+            check(any(kernel in k for k in g["kernels"]),
+                  f"{name} rank {r}: the trace of its first step names "
+                  f"{g['kernels']}, no {kernel}")
+        if name == "sp":
+            check(g["shapes"]["flash_fwd"] and all(
+                SP_TOKENS in shape for shape in g["shapes"]["flash_fwd"]),
+                  f"sp rank {r}: K4 on {g['shapes']['flash_fwd']}")
+        else:
+            check(g["shapes"]["attn_fwd"] == [(TP_HEADS, 3 * 64 *
+                                               TP_HEADS)]
+                  and g["shapes"]["attn_bwd"] == [(TP_HEADS, 3 * 64 *
+                                                   TP_HEADS)],
+                  f"{name} rank {r}: K1/K2 on {g['shapes']}")
+        if name == "tp_mlp":
+            check(g["shapes"]["fc2_bwd"] == [TP_COLUMNS],
+                  f"tp_mlp rank {r}: K3 on {g['shapes']['fc2_bwd']}")
+    # against the one-process step
+    loss_err = max(abs(a - b) / abs(b) for g in got
+                   for a, b in zip(g["losses"], ref["losses"]))
+    norm_err = max(abs(a - b) / abs(b) for g in got
+                   for a, b in zip(g["grad_norms"], ref["grad_norms"]))
+    grads = join_ranks(got, "grads")
+    grad_err = {k: float((grads[k] - w).norm()
+                         / w.norm().clamp_min(1e-30))
+                for k, w in ref["grads"].items()}
+    params = join_ranks(got, "params", steps - 1)
+    param_err = {k: float((params[k] - w).abs().max())
+                 for k, w in ref["params"][-1].items()}
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_p = max(param_err, key=param_err.get)
+    launches[name] = got[0]["launches"]
+    times[name] = {"one_process_step_ms": ref["step_ms"],
+                   "split_step_ms": [g["step_ms"] for g in got]}
+    log(f"[tp {name}] {ranks} ranks over gloo on one card "
+        f"({' '.join(TP_RUNS[name][1])}), global b{n}, {steps} step(s), "
+        f"against the one-process step: losses {got[0]['losses']!r} vs "
+        f"{ref['losses']!r}, worst relative {loss_err!r} (limit "
+        f"{TP_LOSS_RTOL}); grad norms {got[0]['grad_norms']!r} vs "
+        f"{ref['grad_norms']!r}, worst relative {norm_err!r} (limit "
+        f"{TP_GRAD_NORM_RTOL}); first-step gradients worst relative L2 "
+        f"{grad_err[worst_g]!r} ({worst_g}; limit {TP_GRAD_REL_L2}); "
+        f"params after {steps} step(s) worst {param_err[worst_p]!r} "
+        f"({worst_p}; limit {GLOO_PARAM_ATOL}); rank 0 launched "
+        f"{launches[name]} on {got[0]['shapes']}, traced "
+        f"{got[0]['kernels']}; split parameters {len(got[0]['splits'])}")
+    log(f"[tp {name}] one step on {nvidia_smi()}: one process "
+        f"{ref['step_ms']!r} ms, each rank of the split run "
+        f"{times[name]['split_step_ms']!r} ms (gloo over host memory on "
+        f"one card: the wrapper's correctness, not tensor parallelism's "
+        f"speed); run took {time.perf_counter() - t_run:.1f} s")
+    check(loss_err <= TP_LOSS_RTOL, f"{name}: losses {loss_err}")
+    check(norm_err <= TP_GRAD_NORM_RTOL, f"{name}: grad norms {norm_err}")
+    check(grad_err[worst_g] <= TP_GRAD_REL_L2,
+          f"{name} gradient {worst_g}: {grad_err[worst_g]}")
+    check(param_err[worst_p] <= GLOO_PARAM_ATOL,
+          f"{name} param {worst_p}: {param_err[worst_p]}")
+    del got, grads, params, ref
+    gc.collect()
+
+
+def phase_convnext(counts, dev, ckpt_dir):
+    """ConvNeXt through the port's entry points (phase 36): main() on
+    convnext_tiny with the ConvNeXt recipe, 2 updates of 4 micro-steps,
+    no kernel launched; the micro-step timed; the bf16 forward against the
+    JAX fp32 golden; CONVNEXT_REQUESTS requests to a convnext_tiny
+    server; one step each of lamb and adahessian on convnext_atto."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from vision_transformers_torch_xla_tpu_torch.core.config import (
+        config_from_args,
+    )
+    from vision_transformers_torch_xla_tpu_torch.core.seeded import (
+        seeded_images,
+    )
+    from vision_transformers_torch_xla_tpu_torch.data.loader import to_device
+    from vision_transformers_torch_xla_tpu_torch.launch import main as trainer
+    from vision_transformers_torch_xla_tpu_torch.models import create_model
+
+    t0 = time.perf_counter()
+    cfg = config_from_args(CONVNEXT_FLAGS)
+    made = []
+    setup = trainer.setup
+
+    def keep_setup(c):
+        made.append(setup(c))
+        return made[-1]
+
+    counts(reset=True)
+    trainer.setup = keep_setup
+    try:
+        stats = trainer.main(cfg)
+    finally:
+        trainer.setup = setup
+    torch.cuda.synchronize()
+    launches = counts()
+    state = made[0].state
+    opt = state.opt_state
+    updates = opt["gradient_step"]
+    log(f"[convnext] main() {CONVNEXT_MODEL} b{TRAIN_BATCH} update_freq "
+        f"{CONVNEXT_UPDATE_FREQ}: {state.step} micro-steps, {updates} "
+        f"updates (inner count {opt['inner']['count']}), stats {stats}, "
+        f"launches {launches}")
+    check(math.isfinite(stats["train_loss"]), f"loss {stats['train_loss']}")
+    check(state.step == CONVNEXT_MICRO_STEPS and updates == 2
+          and opt["inner"]["count"] == 2 and opt["mini_step"] == 0,
+          f"{state.step} micro-steps, optimizer count {updates}")
+    check(not any(launches.values()),
+          f"the ConvNeXt path launched a kernel: {launches}")
+    check(all(math.isfinite(v) for v in stats.values()),
+          f"stats not finite: {stats}")
+    del made[:], state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the micro-step (mixup, forward, backward, accumulation, every 4th
+    # the update; the EMA each) on one device batch
+    ctx = trainer.setup(cfg)
+    images, labels = to_device(next(iter(ctx.train_ds)), dev)
+    step_ms, host_ms, peak = time_steps(ctx, images, labels,
+                                        CONVNEXT_UPDATE_FREQ,
+                                        2 * CONVNEXT_UPDATE_FREQ)
+    ips = TRAIN_BATCH / (step_ms / 1e3)
+    log(f"[convnext] {CONVNEXT_MODEL} b{TRAIN_BATCH} 224 px bf16 micro-step "
+        f"on {nvidia_smi()}: median {step_ms!r} ms over "
+        f"{2 * CONVNEXT_UPDATE_FREQ} micro-steps (2 updates) after "
+        f"{CONVNEXT_UPDATE_FREQ} warm-up (host clock {host_ms!r} ms), "
+        f"{ips!r} images/s, peak memory {peak / 2**30!r} GiB")
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the bf16 forward against the JAX fp32 golden, on the seeded weights
+    # (gammas 1) through a .pth, as phase 4 holds my_vit_b
+    with open(os.path.join(REPO, "tests", "data",
+                           f"torch_port_golden_{CONVNEXT_MODEL}.json")) as f:
+        golden = json.load(f)
+    check("gamma=1.0" in golden["weights"], f"golden {golden['weights']}")
+    ckpt_path = os.path.join(ckpt_dir, f"{CONVNEXT_MODEL}.pth")
+    model = create_model(CONVNEXT_MODEL, device=dev)
+    load_seeded(model, ckpt_path, gamma=1.0)
+    counts(reset=True)
+    with torch.inference_mode():
+        got = model.eval()(torch.from_numpy(
+            seeded_images(2, golden["img_size"], seed=0)).to(dev))
+    got = got.float().cpu().numpy()
+    want = np.asarray(golden["logits"], np.float32)
+    max_abs = float(np.abs(got - want).max())
+    rel_l2 = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    log(f"[convnext] {CONVNEXT_MODEL} bf16 vs JAX fp32 golden: "
+        f"max_abs_err={max_abs!r} rel_l2={rel_l2!r} top1 "
+        f"port={got.argmax(1).tolist()} golden={want.argmax(1).tolist()} "
+        f"kernel launches={counts()}")
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"logits {got.shape}")
+    check(max_abs <= LOGIT_ATOL, f"logits max abs err {max_abs} > "
+          f"{LOGIT_ATOL}")
+    check(rel_l2 <= LOGIT_REL_L2, f"logits rel L2 {rel_l2} > {LOGIT_REL_L2}")
+    del model
+    serve_launches, _ = phase_serve(counts, ckpt_path, CONVNEXT_MODEL,
+                                    tag="convnext serve",
+                                    requests=CONVNEXT_REQUESTS)
+    check(serve_launches == 0, f"the server launched {serve_launches}")
+
+    # one step of the whole-tensor and the second-order optimizers
+    for name in CONVNEXT_OPTS:
+        ocfg = config_from_args(CONVNEXT_FLAGS + [
+            "--model", CONVNEXT_OPT_MODEL, "--opt", name, "--update_freq",
+            "1"])
+        ctx = trainer.setup(ocfg)
+        before = {k: p.detach().clone() for k, p in ctx.state.params.items()}
+        images, labels = to_device(next(iter(ctx.train_ds)), dev)
+        counts(reset=True)
+        t1 = time.perf_counter()
+        ctx.state, m = ctx.train_step(ctx.state, images, labels, ocfg.seed)
+        loss = m["loss"].item()
+        ms = (time.perf_counter() - t1) * 1e3
+        moved = sum(int((p != before[k]).any())
+                    for k, p in ctx.state.params.items())
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in ctx.state.params.values())
+        log(f"[convnext] {name} on {CONVNEXT_OPT_MODEL} b{TRAIN_BATCH}: "
+            f"loss {loss!r}, grad norm {m['grad_norm'].item()!r}, "
+            f"{moved}/{len(before)} params moved, optimizer count "
+            f"{ctx.state.opt_state['count']}, first step {ms:.1f} ms (host "
+            f"clock, with its warm-up), launches {counts()}")
+        # a tensor whose every update is under half an ulp of its entries
+        # (adahessian's lr x g / |D| at the warm-up lr) may stay put
+        check(math.isfinite(loss) and finite and 2 * moved >= len(before)
+              and ctx.state.opt_state["count"] == 1
+              and not any(counts().values()),
+              f"{name}: loss {loss}, {moved} params moved, finite {finite}")
+        del ctx, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[time] phase 36 took {time.perf_counter() - t0:.1f} s")
 
 
 def counter(*names):
@@ -5671,6 +5884,10 @@ def main() -> int:
     # ---- the model axis: tensor parallelism and sp on ranks of this card
     tp_launches, _ = phase_tp(every)
     lap("phase 35")
+
+    # ---- ConvNeXt through the trainer, the golden and the server
+    phase_convnext(every, dev, ckpt_dir)
+    lap("phase 36")
 
     f64, f128 = kernel[MAIN_SHAPES[0]], kernel[MAIN_SHAPES[1]]
     g64, g128 = bwd[BWD_MAIN_SHAPES[0]], bwd[BWD_MAIN_SHAPES[1]]

@@ -177,8 +177,12 @@ UNPORTED = [
     (dict(mesh_shape="data:2,model:2"), ValueError,
      r"mesh \{'data': 2, 'model': 2\} != 1 devices"),
     (dict(param_sharding="zero"), ValueError, "param_sharding"),
-    (dict(opt="lamb"), NotImplementedError, "ROADMAP M7"),
-    (dict(update_freq=2), NotImplementedError, "ROADMAP M7"),
+    # every optimizer name and --update_freq are in the port
+    # (tests/test_torch_optim.py); an unknown name raises, and
+    # accumulation does not lift AdaHessian's refusal on the kernel route
+    (dict(opt="bogus"), ValueError, "unsupported optimizer"),
+    (dict(update_freq=2, opt="adahessian", pallas_attn="on"),
+     NotImplementedError, "double backward"),
 ]
 
 
@@ -485,3 +489,54 @@ def test_kd_teacher_runs_plain_attention(monkeypatch):
     assert set(stats) == JAX_MAIN_KEYS
     # the student alone: 2 blocks x 2 steps, then 2 blocks x 2 eval batches
     assert calls == [(4, 5, 128)] * 4 + [(6, 5, 128)] * 4
+
+
+def test_update_freq_schedules_count_updates_as_jax():
+    """ROADMAP F11: the trainers' steps_per_epoch counts micro-batches
+    (JAX launch/main.py:188-189), the schedules are built on it, and the
+    optimizer reads them at its own count, which MultiSteps advances once
+    per update. Under --update_freq k the cosine is then 1/k through its
+    length when training ends. Pinned here on the port's trainer (test_convnext,
+    k 2, 2 epochs of 8 micro-steps: 8 updates, the last at lr_fn(7) of 16)
+    and on JAX's optimizer (the same count and lr after 16 micro-steps)."""
+    import jax.numpy as jnp
+    import optax
+
+    from vision_transformers_torch_xla_tpu.train import optim as jo
+    from vision_transformers_torch_xla_tpu.train.schedules import (
+        cosine_schedule_fn,
+    )
+
+    cfg = _cfg(model="test_convnext", update_freq=2, epochs=2,
+               limit_steps_per_epoch=None, disable_eval=True,
+               synthetic_train_size=32, lr=4e-3, min_lr=0.0)
+    ctx = trainer.setup(cfg)
+    assert ctx.steps_per_epoch == 8
+    for epoch in range(2):
+        trainer.train_one_epoch(ctx, epoch)
+    inner = ctx.state.opt_state["inner"]
+    assert ctx.state.step == 16 and inner["count"] == 8
+    lr_fn = cosine_schedule_fn(cfg.lr, cfg.min_lr, cfg.epochs, 8)
+    assert float(lr_fn(7)) > 0.4 * cfg.lr     # mid-cosine, not its end
+
+    params = {"w": jnp.ones((2, 2))}
+    tx = jo.create_optimizer("adamw", lr_fn, params, update_freq=2)
+    state = tx.init(params)
+    for _ in range(16):
+        upd, state = tx.update({"w": jnp.ones((2, 2))}, state, params)
+        params = optax.apply_updates(params, upd)
+    assert int(state.inner_opt_state.count) == 8
+    np.testing.assert_allclose(
+        float(state.inner_opt_state.hyperparams["learning_rate"]),
+        float(lr_fn(7)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("opt", ["lamb", "lookahead_adamw", "adahessian"])
+def test_main_trains_a_convnext_with_the_opt_names(opt):
+    cfg = _cfg(model="test_convnext", opt=opt, update_freq=2,
+               layer_decay=0.8, model_ema=True, drop_path=0.1)
+    ctx = trainer.setup(cfg)
+    assert not hasattr(ctx.model, "use_pallas_attn")
+    stats = trainer.main(cfg)
+    assert set(stats) == JAX_MAIN_KEYS
+    assert all(np.isfinite(v) for v in stats.values())

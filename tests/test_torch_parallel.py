@@ -7,8 +7,9 @@ starts one 2-rank gloo group (tests/torch_parallel_worker.py; a free port,
 one thread a rank, hard timeouts; the ranks import only the port) and
 holds what it returns against references it computes itself:
 
-  * DDP (with --grad_checkpointing) and FSDP2 after 2 steps of test_vit
-    (fp32, mixup and cutmix, drop_path 0.1, --device_augment with
+  * DDP (with --grad_checkpointing) and FSDP2 after 2 steps of test_vit,
+    and both on test_convnext (FSDP2 on each stages.S.blocks.B), (fp32,
+    mixup and cutmix, drop_path 0.1, --device_augment with
     erasing) against the one-process port on the global batch: the
     model's inputs and every drop-path mask bit for bit, the global
     losses to 1e-6 relative, the first step's gradients to 1e-5 of their
@@ -130,6 +131,24 @@ def test_the_rest_of_m6_raises(spec, sharding, error):
     mesh.check_axes(TrainConfig(mesh_shape="data,model:1",
                                 param_sharding="fsdp").parse_mesh_shape(),
                     "fsdp")
+
+
+def test_convnext_refuses_the_model_axis():
+    """Tensor parallelism and sp over `model` on a ConvNeXt raise naming
+    ROADMAP M6b (JAX runs both under GSPMD)."""
+    from vision_transformers_torch_xla_tpu_torch.models import create_model
+    from vision_transformers_torch_xla_tpu_torch.parallel.split import (
+        ModelAxis,
+    )
+
+    model = create_model("test_convnext", device="meta")
+    axis = ModelAxis(None, 0, 2)
+    with pytest.raises(NotImplementedError, match="M6b"):
+        sharding.split_heads(model, axis)
+    with pytest.raises(NotImplementedError, match="M6b"):
+        sharding.split_tokens(model, axis)
+    units = sharding.fsdp_units(model)
+    assert len(units) == 9 and units[0] is model.stages[0].blocks[0]
 
 
 class _StopAfterChecks(Exception):
@@ -410,7 +429,9 @@ def group(tmp_path_factory):
         text=True) for r in range(worker.WORLD)]
     logs = []
     try:
-        ref["ddp"] = _one_process("ddp", workdir)
+        for name in worker.RUNS:
+            if name not in ref:
+                ref[name] = _one_process(name, workdir)
         ref["jax"] = jax_steps()
         for p in procs:
             out, err = p.communicate(timeout=GROUP_TIMEOUT_S)
@@ -474,7 +495,7 @@ def test_two_steps_equal_one_process_on_the_global_batch(group, name):
     ref = group["ref"][name]
     for arrays, info in group["ranks"]:
         got = info[name]
-        assert got["sharded"] == (name == "fsdp")
+        assert got["sharded"] == name.endswith("fsdp")
         np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-6)
         np.testing.assert_allclose(got["grad_norms"], ref["grad_norms"],
                                    rtol=1e-5)

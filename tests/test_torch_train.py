@@ -36,6 +36,9 @@ from vision_transformers_torch_xla_tpu_torch.train import losses, mixup
 from vision_transformers_torch_xla_tpu_torch.train import optim as port_optim
 from vision_transformers_torch_xla_tpu_torch.train import schedules
 from vision_transformers_torch_xla_tpu_torch.train.fused import FusedAdamW
+from vision_transformers_torch_xla_tpu_torch.train.transforms import (
+    Optimizer,
+)
 from vision_transformers_torch_xla_tpu_torch.train.state import (
     create_train_state,
 )
@@ -269,12 +272,17 @@ def test_wd_mask_and_layer_decay_match_jax():
 
 
 def test_only_adamw_is_ported():
+    """Every optimizer name of JAX `_lookup` is in the port now
+    (tests/test_torch_optim.py); plain adamw keeps the fused route, as
+    JAX `maybe_fused_optimizer` decides, and an unknown name raises."""
     params = {"w": torch.zeros(2, 2)}
-    for opt in ("sgd", "lamb", "lookahead_adamw"):
-        with pytest.raises(NotImplementedError, match="M7"):
+    for opt in ("sgdw", "lookahead_bogus"):
+        with pytest.raises(ValueError, match="unsupported optimizer"):
             port_optim.create_optimizer(opt, 1e-3, params)
-    with pytest.raises(NotImplementedError, match="M7"):
-        port_optim.create_optimizer("adamw", 1e-3, params, update_freq=2)
+    for opt, kw in (("sgd", {}), ("lamb", {}), ("lookahead_adamw", {}),
+                    ("adamw", dict(update_freq=2))):
+        assert isinstance(port_optim.create_optimizer(opt, 1e-3, params,
+                                                      **kw), Optimizer)
     assert isinstance(port_optim.create_optimizer("fusedadamw", 1e-3, params),
                       FusedAdamW)
     assert port_optim.maybe_fused_optimizer("sgd", 1e-3, params) is None
@@ -512,5 +520,9 @@ def test_train_step_draws_its_own_mixup_and_reports_device_scalars():
     for k, p in params.items():
         torch.testing.assert_close(state.ema_params[k],
                                    0.5 * before[k] + 0.5 * p.detach())
-    with pytest.raises(NotImplementedError, match="M7"):
-        make_train_step(model, tx, StepConfig(), second_order=True)
+    # AdaHessian's step builds on the plain route and refuses the kernel
+    # route, whose autograd Functions have no double backward
+    make_train_step(model, tx, StepConfig(), second_order=True)
+    routed = VisionTransformer(**CFG, use_pallas_attn=True, device="meta")
+    with pytest.raises(NotImplementedError, match="double backward"):
+        make_train_step(routed, tx, StepConfig(), second_order=True)

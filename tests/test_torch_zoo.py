@@ -2,7 +2,8 @@
 
 Every name the port registers is a name of the JAX package's
 models/vision_transformer_zoo.py (its `VARIANTS` and the 25 `_vit_extra`
-names) or a `my_vit_*` name, and every such JAX name is registered in the
+names), of its models/convnext.py (31 names, tests/test_torch_convnext.py)
+or a `my_vit_*` name, and every such JAX name is registered in the
 port. Each builds with the parameter count of tests/golden_params.json
 (built on the meta device, so nothing is allocated).
 `vit_tiny_patch32_224` is kept as the JAX package keeps it, an extra that
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from vision_transformers_torch_xla_tpu.models import (
+    convnext as jax_convnext,
     vision_transformer_zoo as jax_zoo,
 )
 from vision_transformers_torch_xla_tpu.models.vision_transformer_zoo import (
@@ -63,11 +65,13 @@ def _golden():
 
 def test_registry_is_the_jax_zoo_plus_my_vit():
     assert VARIANTS == JAX_VARIANTS
-    assert set(list_models()) == set(jax_zoo.__all__) | set(MY_VIT)
+    assert set(list_models()) == set(jax_zoo.__all__) | set(MY_VIT) | \
+        set(jax_convnext.__all__)
     assert set(JAX_ONLY_EXTRAS) <= set(list_models())
-    # 125 zoo names + 25 extra names + 7 my_vit names
+    # 125 zoo names + 25 extra names + 7 my_vit names + 31 ConvNeXt names
     assert len(JAX_VARIANTS) == 125 and len(JAX_EXTRA) == 25
-    assert len(list_models()) == 157
+    assert len(jax_convnext.__all__) == 31
+    assert len(list_models()) == 188
     assert len(DIVERGENT_AIMV2) == 12 and len(DIVERGENT_SIGLIP2) == 14
     assert set(DIVERGENT_SIGLIP2) <= set(JAX_VARIANTS)
 

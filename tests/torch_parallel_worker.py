@@ -11,6 +11,7 @@ its train and eval steps, main()):
     drop_path 0.1, --device_augment with erasing, EMA; DDP with
     --grad_checkpointing. (The kernel route's autograd Functions under
     both wrappers run on the card: chip_smoke.py phases 32-33.)
+    `convnext_ddp` and `convnext_fsdp`: the same on test_convnext.
     STEPS steps on this rank's rows of the test's global batches, then the
     eval of 2 batches of the rank's own stream, plain and EMA. It keeps
     the model's inputs and drop-path masks of every step (`record_draws`),
@@ -71,7 +72,11 @@ BASE = dict(model="test_vit", input_size=SIZE, nb_classes=10,
             model_ema_decay=0.9, synthetic_train_size=64,
             synthetic_val_size=48, log_freq=1, seed=SEED, save_ckpt=False)
 RUNS = {"ddp": dict(param_sharding="replicated", grad_checkpointing=True),
-        "fsdp": dict(param_sharding="fsdp")}
+        "fsdp": dict(param_sharding="fsdp"),
+        # ConvNeXt: FSDP2 wraps each stages.S.blocks.B, then the root
+        "convnext_ddp": dict(model="test_convnext",
+                             param_sharding="replicated"),
+        "convnext_fsdp": dict(model="test_convnext", param_sharding="fsdp")}
 JAX_RUN = dict(drop_path=0.0, device_augment=False, reprob=0.0,
                param_sharding="replicated")
 

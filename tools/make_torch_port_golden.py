@@ -2,7 +2,7 @@
 
 Writes tests/data/torch_port_golden_<model>.json: the JAX package's fp32
 logits of a full-width model on two seeded images, with weights that both
-packages can make from a seed. Four models have goldens (CONFIGS):
+packages can make from a seed. Five models have goldens (CONFIGS):
 
   * my_vit_b at 224 px (act_layer gelu_tanh, global_pool avg), the serving
     and training slices' model;
@@ -12,7 +12,9 @@ packages can make from a seed. Four models have goldens (CONFIGS):
     no_embed_class; S = 1374 on the blocked kernels), gammas 1, cut to
     depth 4;
   * vit_base_patch16_siglip_224 (no class token, the MAP head; S = 196),
-    cut to depth 4.
+    cut to depth 4;
+  * convnext_tiny at 224 px (the ConvNeXt recipe's model, full depth),
+    its LayerScale gammas set to 1.
 
 The two depth-4 goldens keep the full width (768, 12 heads of 64) and
 run on a few GiB of host memory.
@@ -20,7 +22,8 @@ run on a few GiB of host memory.
   * weights: a timm-named state dict from the port's
     core/seeded.py::seeded_state_dict(shapes, seed=0, gamma) (shapes read
     off the port's model built on the meta device), converted to flax
-    params with ckpt/torch_compat.py::convert_vit_state_dict;
+    params with ckpt/torch_compat.py::convert_vit_state_dict
+    (::convert_convnext_state_dict for convnext_tiny);
   * images: core/seeded.py::seeded_images(2, img, seed=0), NHWC.
 
 chip_smoke.py rebuilds the same weights and images and holds the port's
@@ -29,7 +32,7 @@ the four small JPEGs (tests/data/serve_*.jpg) that the serve checks post.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py \
         [--model vit_base_patch14_dinov2 | vit_base_patch14_reg4_dinov2 |
-         vit_base_patch16_siglip_224]
+         vit_base_patch16_siglip_224 | convnext_tiny]
 
 The 518-px model is a full-size fp32 run (~0.6 TFLOP): run it on a host
 with the cores and memory for it.
@@ -54,6 +57,7 @@ CONFIGS = {
     "vit_base_patch14_reg4_dinov2": (518, dict(global_pool="token",
                                                depth=4), 1.0),
     "vit_base_patch16_siglip_224": (224, dict(depth=4), None),
+    "convnext_tiny": (224, {}, 1.0),
 }
 
 
@@ -74,6 +78,7 @@ def seeded_params(name: str):
     import torch
 
     from vision_transformers_torch_xla_tpu.ckpt.torch_compat import (
+        convert_convnext_state_dict,
         convert_vit_state_dict,
     )
     from vision_transformers_torch_xla_tpu_torch.core.seeded import (
@@ -84,8 +89,9 @@ def seeded_params(name: str):
     img, kw, gamma = CONFIGS[name]
     meta = create_model(name, img_size=img, device=torch.device("meta"), **kw)
     shapes = {k: tuple(v.shape) for k, v in meta.state_dict().items()}
-    return convert_vit_state_dict(seeded_state_dict(shapes, seed=0,
-                                                    gamma=gamma)), shapes
+    convert = convert_convnext_state_dict if name.startswith("convnext") \
+        else convert_vit_state_dict
+    return convert(seeded_state_dict(shapes, seed=0, gamma=gamma)), shapes
 
 
 def weights_note(name: str) -> str:

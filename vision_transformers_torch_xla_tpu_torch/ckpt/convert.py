@@ -1,9 +1,10 @@
 """Weights across from the JAX package.
 
 Counterpart of vision_transformers_torch_xla_tpu/ckpt/torch_export.py
-::export_vit_state_dict (:117) and ::save_torch_checkpoint (:1523), for the
-ViT keys of this slice. `flax_to_state_dict` maps a flax ViT params tree
-(nested dict of numpy arrays) to the port's timm-named state dict;
+::export_vit_state_dict (:117), ::export_convnext_state_dict (:186) and
+::save_torch_checkpoint (:1523). `flax_to_state_dict` maps a flax ViT or
+ConvNeXt params tree (nested dict of numpy arrays) to the port's
+timm-named state dict;
 `load_checkpoint` reads the `{'model': state_dict}` .pth that
 `save_torch_checkpoint` writes, unwrapped as JAX
 ckpt/torch_compat.py::load_reference_checkpoint (:1857-1897) unwraps a
@@ -68,17 +69,14 @@ def _block_key(pre: str, sub: tuple, path: tuple) -> str:
     raise ValueError(f"vit convert: unmapped {path}")
 
 
-def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ViT params (the 'params' collection, or variables holding it) ->
-    timm-named fp32 torch state dict. Every block type of
+def _vit_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax ViT params -> timm-named numpy arrays. Every block type of
     models/layers.py::BLOCK_TYPES, the MAP head, register tokens, the patch
     embed's norm and RMSNorm scales map to the names JAX
     ckpt/torch_export.py::export_vit_state_dict (:117-181) writes (the
     parallel blocks, which it refuses, to timm's); a scan tree
     (`blocks_stacked/block/...`, depth on the leading axis) unstacks into
     `blocks.{i}`."""
-    if "params" in params:
-        params = params["params"]
     sd: Dict[str, np.ndarray] = {}
     for path, w in _flatten(params).items():
         top, leaf = path[0], path[-1]
@@ -111,6 +109,95 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             sd[k] = v
         else:
             raise ValueError(f"vit convert: unmapped {path}")
+    return sd
+
+
+def _s2d_to_conv(w: np.ndarray, p: int) -> np.ndarray:
+    """(p·p·I, O) space-to-depth dense kernel -> (O, I, p, p) conv weight
+    (JAX torch_export.py:190-193)."""
+    kk, o = w.shape
+    return w.reshape(p, p, kk // (p * p), o).transpose(3, 2, 0, 1)
+
+
+def is_convnext_tree(params: Mapping[str, Any]) -> bool:
+    """A flax ConvNeXt tree: a `stages_S_blocks_B` with a `dwconv`. Every
+    stem counts, the overlap stems (`stem_conv1`, `stem_conv2`) too, which
+    JAX ckpt/torch_export.py::detect_flax_architecture (:78-86) sends to
+    resnetv2."""
+    return any(re.fullmatch(r"stages_\d+_blocks_\d+", str(k))
+               and isinstance(v, Mapping) and "dwconv" in v
+               for k, v in params.items())
+
+
+def _convnext_state_dict(params: Mapping[str, Any], overlap_act: bool,
+                         head_norm_first: bool) -> Dict[str, np.ndarray]:
+    """The port's copy of JAX export_convnext_state_dict (:186-245), plus
+    timm's names for what it refuses: the overlap stem's convs
+    (`stem.0`, `stem.1`, or `stem.2` past `overlap_act`'s gelu at
+    `stem.1`) and its norm after them, `head_pre_logits` ->
+    `head.pre_logits.fc`, and `norm` -> `norm_pre` under
+    `head_norm_first`."""
+    overlap = "stem_conv1" in params
+    stem_norm = (3 if overlap_act else 2) if overlap else 1
+    names = {"stem_conv1": "stem.0",
+             "stem_conv2": "stem.2" if overlap_act else "stem.1",
+             "stem_proj": "stem.0", "stem_norm": f"stem.{stem_norm}",
+             "norm": "norm_pre" if head_norm_first else "head.norm",
+             "head_pre_logits": "head.pre_logits.fc", "head": "head.fc"}
+    sd: Dict[str, np.ndarray] = {}
+    for path, w in _flatten(params).items():
+        top, leaf = path[0], path[-1]
+        m = re.fullmatch(r"(downsample_norm|downsample_proj|stages)_(\d+)"
+                         r"(?:_blocks_(\d+))?", top)
+        if top in names and len(path) == 2:
+            mod = names[top]
+        elif m and m.group(1) == "downsample_norm" and len(path) == 2:
+            mod = f"stages.{m.group(2)}.downsample.0"
+        elif m and m.group(1) == "downsample_proj" and len(path) == 2:
+            mod = f"stages.{m.group(2)}.downsample.1"
+        elif m and m.group(3) is not None:
+            pre = f"stages.{m.group(2)}.blocks.{m.group(3)}"
+            sub = path[1]
+            if sub == "gamma" and len(path) == 2:
+                sd[f"{pre}.gamma"] = w
+                continue
+            if sub in ("grn_gamma", "grn_beta") and len(path) == 2:
+                sd[f"{pre}.mlp.grn." + ("weight" if sub == "grn_gamma"
+                                        else "bias")] = w
+                continue
+            mods = {"dwconv": "conv_dw", "norm": "norm",
+                    "pwconv1": "mlp.fc1", "pwconv2": "mlp.fc2"}
+            if sub not in mods or len(path) != 3:
+                raise ValueError(f"convnext convert: unmapped {path}")
+            mod = f"{pre}.{mods[sub]}"
+        else:
+            raise ValueError(f"convnext convert: unmapped {path}")
+        if leaf == "kernel":
+            if w.ndim == 4:                      # HWIO conv -> OIHW
+                w = w.transpose(3, 2, 0, 1)
+            elif top == "stem_proj" or mod.endswith("downsample.1"):
+                w = _s2d_to_conv(w, 4 if top == "stem_proj" else 2)
+            else:
+                w = w.T
+        sd[f"{mod}.{_AFFINE[leaf]}"] = w
+    return sd
+
+
+def flax_to_state_dict(params: Mapping[str, Any], *,
+                       overlap_act: bool = False,
+                       head_norm_first: bool = False
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax params (the 'params' collection, or variables holding it) of
+    a ViT or a ConvNeXt -> the port's timm-named fp32 torch state dict.
+    A ConvNeXt tree (`is_convnext_tree`) maps as `_convnext_state_dict`
+    says; its tree does not show whether the overlap stem has its gelu or
+    the head its norm first, which move timm's names: pass `overlap_act`
+    (the `*_rms_ols` names) and `head_norm_first` (`convnext_tiny_hnf`)
+    for those models."""
+    if "params" in params:
+        params = params["params"]
+    sd = _convnext_state_dict(params, overlap_act, head_norm_first) \
+        if is_convnext_tree(params) else _vit_state_dict(params)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 
 

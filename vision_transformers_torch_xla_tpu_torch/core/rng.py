@@ -28,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-STREAMS = ("mixup", "model", "aug")
+STREAMS = ("mixup", "model", "aug", "hess")
 
 
 @dataclasses.dataclass
@@ -37,6 +37,7 @@ class StepRngs:
     model: torch.Generator
     aug: np.random.Generator
     aug_noise: torch.Generator
+    hess: torch.Generator       # AdaHessian's Rademacher probes
 
 
 def stream_seed(seed: int, step: int, stream: str, word: int = 0) -> int:
@@ -58,7 +59,7 @@ def step_rngs(seed: int, step: int, device) -> StepRngs:
         mixup=np.random.default_rng(stream_seed(seed, step, "mixup")),
         model=on_device("model"),
         aug=np.random.default_rng(stream_seed(seed, step, "aug")),
-        aug_noise=on_device("aug", word=1))
+        aug_noise=on_device("aug", word=1), hess=on_device("hess"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -93,7 +93,18 @@ them waiting in a collective it does not join, so give the ranks even
 shards (ROADMAP §3).
 
 A block the model axis cannot split raises NotImplementedError naming its
-ROADMAP item (M6b).
+ROADMAP item (M6b), as does a ConvNeXt under tp or sp.
+
+`--model` takes the ConvNeXt names too (models/convnext.py), built
+without the kernel switches, which JAX passes only to a model that has
+them; `--opt` every name of the JAX factory, with `lookahead_`;
+`--update_freq k` updates once every k micro-steps on their mean
+gradient, the EMA moving on each, as JAX's optax.MultiSteps
+(train/optim.py):
+
+    python -m vision_transformers_torch_xla_tpu_torch.launch.main \
+        --model convnext_tiny --batch_size 128 --update_freq 4 \
+        --drop_path 0.1 --layer_scale_init_value 1e-6 --model_ema true
 """
 from __future__ import annotations
 
@@ -163,8 +174,12 @@ from vision_transformers_torch_xla_tpu_torch.parallel.sharding import (
     wrap_model,
 )
 from vision_transformers_torch_xla_tpu_torch.train.mixup import MixupConfig
+from vision_transformers_torch_xla_tpu_torch.train.adahessian import (
+    conv_kernel_names,
+)
 from vision_transformers_torch_xla_tpu_torch.train.optim import (
     create_optimizer,
+    is_second_order,
 )
 from vision_transformers_torch_xla_tpu_torch.train.schedules import (
     cosine_schedule_fn,
@@ -172,6 +187,9 @@ from vision_transformers_torch_xla_tpu_torch.train.schedules import (
 from vision_transformers_torch_xla_tpu_torch.train.state import (
     TrainState,
     create_train_state,
+)
+from vision_transformers_torch_xla_tpu_torch.train.transforms import (
+    Optimizer,
 )
 from vision_transformers_torch_xla_tpu_torch.train.steps import (
     StepConfig,
@@ -255,6 +273,15 @@ def device_aug_config(cfg: TrainConfig) -> DeviceAugConfig:
         mean=IMAGENET_DEFAULT_MEAN if default_stats
         else IMAGENET_INCEPTION_MEAN,
         std=IMAGENET_DEFAULT_STD if default_stats else IMAGENET_INCEPTION_STD)
+
+
+def dense_views(model: nn.Module) -> list:
+    """The conv-shaped weights (ndim 4) that the JAX model holds as dense
+    kernels: every one but a flax nn.Conv's (the ViT's patch embedding,
+    ConvNeXt's patch stem and downsamples)."""
+    convs = conv_kernel_names(model)
+    return [k for k, p in model.named_parameters()
+            if p.ndim == 4 and k not in convs]
 
 
 def pallas_attn_switch(pallas_attn: str, device: torch.device) -> bool:
@@ -357,8 +384,13 @@ def setup(cfg: TrainConfig) -> Optional[TrainerContext]:
         act_layer=cfg.act_layer or None,
         init_values=cfg.layer_scale_init_value or None,
         remat=cfg.grad_checkpointing, scan_blocks=cfg.scan_blocks or None,
-        use_pallas_attn=want_pallas, use_pallas_mlp=cfg.pallas_mlp == "on",
         dtype=policy.compute_dtype, param_dtype=policy.param_dtype)
+    # the kernel switches go to a model that has them, as JAX's hasattr
+    # test decides (launch/main.py:208-214): a ConvNeXt has none
+    if hasattr(create_model(cfg.model, **model_kw, device="meta"),
+               "use_pallas_attn"):
+        model_kw.update(use_pallas_attn=want_pallas,
+                        use_pallas_mlp=cfg.pallas_mlp == "on")
     model = create_model(cfg.model, **model_kw, device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(cfg.seed))
     # weights load into the whole tensors, before FSDP shards them
@@ -374,9 +406,10 @@ def setup(cfg: TrainConfig) -> Optional[TrainerContext]:
         # which parameters no gradient reaches, from a forward and backward
         # of the same configuration on the meta device (no kernels)
         unreached = unreached_parameters(
-            create_model(cfg.model, **{**model_kw, "use_pallas_attn": False,
-                                       "use_pallas_mlp": False},
-                         device="meta"),
+            create_model(cfg.model, **{
+                k: v for k, v in model_kw.items()
+                if k not in ("use_pallas_attn", "use_pallas_mlp")},
+                device="meta"),
             (2, cfg.input_size, cfg.input_size, 3))
     model, splits = wrap_model(model, mesh, cfg.param_sharding, unreached)
     net = unwrap(model)
@@ -397,9 +430,13 @@ def setup(cfg: TrainConfig) -> Optional[TrainerContext]:
     tx = create_optimizer(
         cfg.opt, lr_fn, params, weight_decay=cfg.weight_decay,
         weight_decay_schedule=wd_fn, opt_eps=cfg.opt_eps,
-        opt_betas=cfg.opt_betas, clip_grad=cfg.clip_grad, layer_decay=cfg.layer_decay,
-        model_depth=len(net.blocks), update_freq=cfg.update_freq,
-        ema_decay=cfg.model_ema_decay if cfg.model_ema else None)
+        opt_betas=cfg.opt_betas, momentum=cfg.momentum,
+        clip_grad=cfg.clip_grad, layer_decay=cfg.layer_decay,
+        model_depth=getattr(net, "depth", 12), update_freq=cfg.update_freq,
+        ema_decay=cfg.model_ema_decay if cfg.model_ema else None,
+        dense_views=dense_views(net))
+    if isinstance(tx, Optimizer):   # a whole-tensor update refuses parts
+        tx.check_unsharded(params, splits)
     state = create_train_state(net, tx, with_ema=cfg.model_ema,
                                splits=splits)
 
@@ -435,6 +472,7 @@ def setup(cfg: TrainConfig) -> Optional[TrainerContext]:
     return TrainerContext(
         cfg=cfg, device=device, model=model, state=state,
         train_step=make_train_step(model, tx, step_cfg, teacher,
+                                   second_order=is_second_order(cfg.opt),
                                    shard=shard),
         eval_step=make_eval_step(model), train_ds=train_ds, val_ds=val_ds,
         steps_per_epoch=steps_per_epoch, loggers=build_loggers(cfg),

@@ -1,5 +1,7 @@
-"""ViT models with timm parameter names; importing registers the names."""
+"""ViT and ConvNeXt models with timm parameter names; importing registers
+the names."""
 from vision_transformers_torch_xla_tpu_torch.models import (  # noqa: F401
+    convnext,
     my_vit,
     vision_transformer_zoo,
 )

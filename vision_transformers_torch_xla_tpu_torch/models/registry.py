@@ -2,8 +2,9 @@
 
 Counterpart of vision_transformers_torch_xla_tpu/models/registry.py
 (`register_model` :27, `model_entrypoint` :63, `get_default_cfg` :99) for
-the names this port has. Pretrained-tag databases and deprecation aliases
-come with the rest of the zoo (ROADMAP M8).
+the names this port has: the ViT zoo, `my_vit_*` and the 31 ConvNeXt
+names. Pretrained-tag databases, deprecation aliases and the families
+past ConvNeXt are ROADMAP M8's.
 """
 from __future__ import annotations
 

@@ -150,6 +150,11 @@ class VisionTransformer(nn.Module):
             raise ValueError("mlp_hidden (pruned per-block widths) requires "
                              "loop mode with block_type='block'")
         self.num_classes = num_classes
+        # the JAX module's fields that its trainer reads (launch/main.py:
+        # :208-214, :276)
+        self.depth = depth
+        self.use_pallas_attn = use_pallas_attn
+        self.use_pallas_mlp = use_pallas_mlp
         self.global_pool = global_pool
         self.pool_include_prefix = pool_include_prefix
         self.class_token = class_token

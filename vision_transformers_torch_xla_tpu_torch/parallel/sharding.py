@@ -154,6 +154,11 @@ def split_heads(model: nn.Module, axis: ModelAxis) -> Dict[str, Split]:
     row-parallel), in place. Returns the `Split` of each cut parameter by
     name. A block the port cannot split raises NotImplementedError naming
     its ROADMAP item; nothing is left replicated in silence."""
+    if hasattr(model, "stages"):
+        raise NotImplementedError(
+            f"{type(model).__name__}: tensor parallelism over the model "
+            f"axis (its depthwise convs' channels and MLP columns) is not "
+            f"in the port yet (ROADMAP M6b)")
     plan = []   # (module, attribute, parameter name, Split)
 
     def cut(prefix: str, dense: Dense, dim: int, parts: int = 1,
@@ -234,13 +239,21 @@ def split_tokens(model: nn.Module, axis: ModelAxis) -> None:
     model.seq_split = axis
 
 
+def fsdp_units(model: nn.Module) -> list:
+    """The modules FSDP2 wraps before the root: each block, a ConvNeXt's
+    `stages.S.blocks.B`."""
+    if hasattr(model, "stages"):
+        return [blk for stage in model.stages for blk in stage.blocks]
+    return list(model.blocks)
+
+
 def wrap_model(model: nn.Module, mesh: Optional[ProcessMesh],
                param_sharding: str, unreached: Sequence[str] = ()
                ) -> Tuple[nn.Module, Dict[str, Split]]:
     """The model on the mesh, and the `Split` of each parameter cut over
     the model axis: the model axis's split (`split_heads`, or under sp
-    `split_tokens`), then FSDP2 on each block and the root over 'data'
-    when the rules shard the params' embed axis there (--param_sharding
+    `split_tokens`), then FSDP2 on each block (`fsdp_units`) and the root
+    over 'data' when the rules shard the params' embed axis there (--param_sharding
     fsdp), else DDP over the data axis's group (under sp over the whole
     mesh's). `unreached` (`unreached_parameters`) turns on DDP's search
     for parameters without a gradient. No mesh: the model."""
@@ -257,7 +270,7 @@ def wrap_model(model: nn.Module, mesh: Optional[ProcessMesh],
             splits = split_heads(model, axis)
     if rules["embed"] == "data":
         data = mesh.device_mesh["data"]
-        for blk in model.blocks:
+        for blk in fsdp_units(model):
             fully_shard(blk, mesh=data)
         fully_shard(model, mesh=data)
         return model, splits

@@ -23,8 +23,11 @@ DTensor shards, and on the mesh's model axis (parallel/split.py) the
 split tensors are each rank's part: the update runs on each rank's local
 tensors, and the global norm sums each tensor's squares over the axes that
 cut it, and only those (a tensor replicated over an axis counts once), so
-the clip sees the whole gradient's norm. The `mask` and `scales` stay
-keyed by name.
+the clip sees the whole gradient's norm. The `mask` stays keyed by name.
+
+train/optim.py takes this route for plain adamw alone, as JAX
+`maybe_fused_optimizer` decides; a wd schedule, layer decay, lookahead or
+accumulation take train/transforms.py's chain.
 """
 from __future__ import annotations
 
@@ -45,22 +48,19 @@ Schedule = Union[float, Callable[[int], float]]
 class FusedAdamW:
     """init(params) -> state; fused_update(grads, state, params, ema) ->
     device grad norm. `params`, `grads` and `ema` map names to tensors;
-    `mask` maps names to True where weight decay applies (None: all),
-    `scales` names to per-parameter update multipliers (layer decay)."""
+    `mask` maps names to True where weight decay applies (None: all)."""
 
-    def __init__(self, learning_rate: Schedule, *, weight_decay: Schedule = 0.0,
+    def __init__(self, learning_rate: Schedule, *, weight_decay: float = 0.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  ema_decay: Optional[float] = None,
                  clip_grad: Optional[float] = None,
-                 mask: Optional[Mapping[str, bool]] = None,
-                 scales: Optional[Mapping[str, float]] = None):
+                 mask: Optional[Mapping[str, bool]] = None):
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.ema_decay = ema_decay
         self.clip_grad = clip_grad
         self.mask = mask
-        self.scales = scales
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict:
         """{'count': host int, 'mu', 'nu': fp32 zeros like each param}."""
@@ -81,8 +81,7 @@ class FusedAdamW:
         count = state["count"]
         lr = self.learning_rate(count) if callable(self.learning_rate) \
             else self.learning_rate
-        wd = self.weight_decay(count) if callable(self.weight_decay) \
-            else self.weight_decay
+        wd = self.weight_decay
         t = count + 1
         b1, b2 = self.b1, self.b2
         c1 = 1.0 / (1.0 - b1 ** t)
@@ -104,8 +103,7 @@ class FusedAdamW:
             p32 = p.float()
             if wd and (self.mask is None or self.mask[k]):
                 upd.add_(p32, alpha=wd)
-            step = -lr * (self.scales[k] if self.scales is not None else 1.0)
-            p.copy_(p32.add_(upd, alpha=step))
+            p.copy_(p32.add_(upd, alpha=-lr))
             if decay:
                 e = local(ema[k])
                 e.copy_(e.float().mul_(self.ema_decay).add_(

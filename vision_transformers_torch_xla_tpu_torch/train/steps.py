@@ -5,7 +5,11 @@ train step: per-step generators (core/rng.py), with `device_aug` the
 on-device crop, flip, RandAugment, normalization and erasing of the raw
 [0, 1] batch (data/device_aug.py), mixup/cutmix or smoothed targets, the
 forward with stochastic layers on, the soft-target loss (+ KD), the
-backward, then the fused AdamW + EMA update. On the card the
+backward, then the optimizer's update (train/fused.py's AdamW + EMA, or
+train/optim.py's other route, the EMA then the step's on every
+micro-step). With a second-order optimizer (AdaHessian) the backward
+keeps its graph and a second one gives the Hutchinson estimate
+z ⊙ (H z) of the Hessian diagonal (train/adahessian.py). On the card the
 attention forward and backward are the port's kernels
 (ops/flash_attention.py). Metrics come back as device scalars; the caller
 reads them only at log_freq (steps.py:11-13).
@@ -58,6 +62,12 @@ from vision_transformers_torch_xla_tpu_torch.train.mixup import (
     mixup_cutmix,
     smoothed_one_hot,
 )
+from vision_transformers_torch_xla_tpu_torch.train.adahessian import (
+    check_route,
+    conv_kernel_names,
+    hessian_diag,
+    rademacher_like,
+)
 from vision_transformers_torch_xla_tpu_torch.train.state import (
     TrainState,
     ema_update,
@@ -82,7 +92,7 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
                     second_order: bool = False,
                     shard: BatchShard = BatchShard()) -> Callable:
     """Returns train_step(state, images, labels, seed, mixup_draw=None,
-    aug_draw=None).
+    aug_draw=None, hessian_z=None).
 
     images (B, H, W, 3) and int labels on the model's device. `seed` and
     the host step count give the step's random streams; `mixup_draw` and
@@ -92,17 +102,26 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
     in its logits (launch/main.py::build_teacher builds the teacher from
     --teacher_model and --teacher_path). `shard` places the batch in the
     global batch by its data index; a fed `aug_draw` holds this rank's
-    rows."""
+    rows. `second_order` adds the Hessian diagonal for AdaHessian, from
+    Rademacher probes drawn from the step's `hess` stream or fed as
+    `hessian_z` (tests feed JAX's); it raises on the attention and MLP
+    kernel routes (no double backward) and on a mesh."""
+    conv_kernels = set()
     if second_order:
-        raise NotImplementedError(
-            "second-order optimizers (adahessian) are not in the port yet "
-            "(ROADMAP M7)")
+        check_route(model)
+        if unwrap(model) is not model:
+            raise NotImplementedError(
+                "adahessian on DDP or FSDP (its second backward bypasses "
+                "their gradient reduction) is not in the port yet "
+                "(ROADMAP M7)")
+        conv_kernels = conv_kernel_names(model)
     flip = global_flip(shard) if shard.count > 1 else None
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor, seed: int,
                    mixup_draw: Optional[MixupDraw] = None,
-                   aug_draw: Optional[AugDraw] = None):
+                   aug_draw: Optional[AugDraw] = None,
+                   hessian_z: Optional[Dict[str, torch.Tensor]] = None):
         rngs = step_rngs(seed, state.step, images.device)
         b = images.shape[0]
         with sharded_draws(shard):
@@ -134,10 +153,17 @@ def make_train_step(model: nn.Module, tx, cfg: StepConfig,
                     t_logits = teacher(images, deterministic=True)
                 loss = distillation_loss(logits, t_logits, loss,
                                          cfg.kd_alpha, cfg.kd_temperature)
-            loss.backward()
-        grads = {k: p.grad for k, p in state.params.items()}
+            extra = {}
+            if second_order:
+                z = hessian_z or rademacher_like(state.params, rngs.hess)
+                grads, extra["hessian_diag"] = hessian_diag(
+                    loss, state.params, z, conv_kernels)
+            else:
+                loss.backward()
+                grads = {k: p.grad for k, p in state.params.items()}
         grad_norm = tx.fused_update(grads, state.opt_state, state.params,
-                                    state.ema_params, splits=state.splits)
+                                    state.ema_params, splits=state.splits,
+                                    **extra)
         if cfg.ema_decay is not None and state.ema_params is not None \
                 and tx.ema_decay is None:
             ema_update(state.ema_params, state.params, cfg.ema_decay)
